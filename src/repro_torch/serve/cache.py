@@ -1,0 +1,578 @@
+"""Paged KV cache: a fixed pool of ``block_size``-token KV blocks plus
+per-request block tables — the serving-side analogue of the paper's
+memory-efficiency discipline (no O(max_seq · max_batch) contiguous cache;
+fragmentation-free growth one block at a time).
+
+Layout (one pool entry per transformer layer, stacked on a leading L dim):
+
+  k_pool, v_pool : (L, N, block_size, n_kv_heads, head_dim)
+
+Block id 0 is the **reserved null block**: unused table entries and idle
+batch rows point at it, so gathers are always in-bounds and garbage is
+masked by ``lengths`` (kernels/paged.py).  The :class:`BlockAllocator`
+free-list therefore hands out ids ``1..N−1`` and enforces the allocator
+invariants the test suite checks (no double-alloc, owner-checked frees,
+conservation, deterministic exhaustion).
+
+**Content addressing / copy-on-write** (vLLM-style prefix caching): blocks
+are *refcounted* — several owners (request ids, plus the cache's own
+sentinel owner) may hold the same block, and it returns to the free list
+only when the last ref drops.  :class:`PrefixCache` indexes *full* blocks
+in a radix trie over token prefixes, each node carrying a chained content
+hash ``H(parent_hash, block_tokens, salt)`` where the salt is the
+MaskSpec-relevant config (block size, sliding window).  Admission looks up
+the longest cached prefix (including a *partial tail* match inside the
+last block) and shares those blocks instead of re-prefilling them; a
+writer forks a private copy of a shared block only on first divergence
+(:meth:`PagedKVCache.ensure_writable`).  Windowed requests additionally
+*reclaim* blocks that fall wholly outside the sliding window
+(:meth:`PagedKVCache.reclaim_window`) instead of merely masking them.
+
+The pools are torch tensors on one device, updated in place by the model
+(``index_put_``) and by the copy-on-write fork here; the port serves on a
+single device, so pools are not sharded.
+
+The block *tables* are host-side numpy (the scheduler mutates them every
+step); a device copy ships with each decode step's inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.serve.faults import AuditFailure
+
+
+class PoolExhausted(RuntimeError):
+    """No free blocks — the scheduler preempts and requeues on this."""
+
+
+class BlockAllocator:
+    """Host-side refcounted free-list over block ids ``1..n_blocks−1``
+    (0 = null).
+
+    LIFO free-list with deterministic order: the same alloc/share/free
+    sequence always yields the same block ids (batch-invariance tests rely
+    on the *masking*, not the placement — but determinism keeps runs
+    replayable).  Every op is owner-checked: an owner (a request id, or
+    the prefix cache's sentinel) can hold at most one ref per block, a
+    free by a non-owner raises, and a block returns to the free list
+    exactly when its last owner releases it.
+    """
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 2:
+            raise ValueError("need at least 2 blocks (one is the reserved "
+                             "null block)")
+        self.n_blocks = n_blocks
+        self._free: List[int] = list(range(n_blocks - 1, 0, -1))
+        self._owners: Dict[int, Set[int]] = {}
+
+    @property
+    def n_usable(self) -> int:
+        return self.n_blocks - 1
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, owner: int, n: int = 1) -> List[int]:
+        """Allocate ``n`` fresh blocks for ``owner`` (a request id) —
+        atomic: raises :class:`PoolExhausted` without side effects if
+        fewer than ``n`` are free."""
+        if len(self._free) < n:
+            raise PoolExhausted(
+                f"need {n} blocks, {len(self._free)} free "
+                f"(pool {self.n_usable})")
+        ids = [self._free.pop() for _ in range(n)]
+        for b in ids:
+            assert b not in self._owners         # free-list integrity
+            self._owners[b] = {owner}
+        return ids
+
+    def share(self, ids: Sequence[int], owner: int) -> None:
+        """Add ``owner`` as a referent of already-allocated blocks
+        (content-addressed reuse).  Sharing a free block, or a block the
+        owner already holds, raises."""
+        for b in ids:
+            owners = self._owners.get(b)
+            if owners is None:
+                raise ValueError(f"cannot share free block {b}")
+            if owner in owners:
+                raise ValueError(f"owner {owner} already holds block {b}")
+        for b in ids:
+            self._owners[b].add(owner)
+
+    def free(self, ids: Sequence[int], owner: int) -> None:
+        """Drop ``owner``'s ref on each block; a block returns to the pool
+        exactly when its last ref drops.  Owner-checked (a double free or
+        a foreign free raises instead of corrupting the list)."""
+        for b in ids:
+            owners = self._owners.get(b)
+            if owners is None or owner not in owners:
+                raise ValueError(
+                    f"block {b} not owned by {owner} "
+                    f"(owners: {sorted(owners) if owners else None})")
+            owners.discard(owner)
+            if not owners:
+                del self._owners[b]
+                self._free.append(b)
+
+    def refcount(self, b: int) -> int:
+        return len(self._owners.get(b, ()))
+
+    def owners(self, b: int) -> Tuple[int, ...]:
+        return tuple(sorted(self._owners.get(b, ())))
+
+    def owned(self, owner: int) -> List[int]:
+        return sorted(b for b, o in self._owners.items() if owner in o)
+
+    def check_conservation(self) -> None:
+        """Every usable block is exactly once either free or referenced
+        (by ≥ 1 owner) — never both, never lost."""
+        owned = set(self._owners)
+        free = set(self._free)
+        assert all(self._owners[b] for b in owned), \
+            f"blocks with empty owner sets: {[b for b in owned if not self._owners[b]]}"
+        assert not (owned & free), f"blocks both free and owned: {owned & free}"
+        assert owned | free == set(range(1, self.n_blocks)), \
+            f"lost blocks: {set(range(1, self.n_blocks)) - owned - free}"
+
+
+# ==========================================================================
+# Content-addressed prefix index (radix trie over full token blocks)
+# ==========================================================================
+
+class _TrieNode:
+    __slots__ = ("key", "block", "chain_hash", "children", "parent", "lru")
+
+    def __init__(self, key, block, chain_hash, parent):
+        self.key = key                    # tuple of block_size token ids
+        self.block = block                # pool block id holding the KV
+        self.chain_hash = chain_hash      # H(parent_hash, key, salt)
+        self.children: Dict[tuple, "_TrieNode"] = {}
+        self.parent = parent
+        self.lru = 0
+
+
+class PrefixCache:
+    """Radix trie over *full* KV blocks, keyed by the block's token ids
+    chained from the root — so a node's identity is its whole token
+    prefix, and its ``chain_hash`` is the content address
+    ``H(parent_hash, tokens, salt)``.  The trie holds one allocator ref
+    (owner :data:`OWNER`) per indexed block, which keeps finished
+    requests' prefixes alive for later arrivals until LRU eviction
+    reclaims them under pool pressure.
+    """
+
+    OWNER = -1                            # the cache's allocator owner id
+
+    def __init__(self, allocator: BlockAllocator, block_size: int,
+                 salt: tuple = ()):
+        self.allocator = allocator
+        self.block_size = block_size
+        self.salt = tuple(salt)
+        self.root = _TrieNode((), 0, hash(("prefix-root", self.salt)), None)
+        self._clock = 0
+        self.stats = dict(lookups=0, hit_tokens=0, hit_blocks=0,
+                          partial_hits=0, inserted=0, deduped=0, evicted=0)
+
+    # ------------------------------------------------------------ internal
+    def _touch(self, node: _TrieNode) -> None:
+        self._clock += 1
+        node.lru = self._clock
+
+    @property
+    def n_blocks(self) -> int:
+        """Blocks currently indexed (== allocator refs held by OWNER)."""
+        return len(self.allocator.owned(self.OWNER))
+
+    # -------------------------------------------------------------- lookup
+    def lookup(self, tokens: Sequence[int]) -> Tuple[int, List[int]]:
+        """Longest cached prefix of ``tokens``: returns ``(n_hit,
+        block_ids)`` where the first ``n_hit`` tokens' KV lives in
+        ``block_ids`` (in table order).  The last returned block may be a
+        *partial tail* match — a cached full block whose first ``j``
+        tokens extend the prefix (``n_hit`` counts only those ``j``); the
+        caller must copy-on-write before writing positions ≥ ``n_hit``
+        into it."""
+        bs = self.block_size
+        tokens = [int(t) for t in tokens]
+        self.stats["lookups"] += 1
+        node, i, ids = self.root, 0, []
+        while i + bs <= len(tokens):
+            child = node.children.get(tuple(tokens[i:i + bs]))
+            if child is None:
+                break
+            ids.append(child.block)
+            self._touch(child)
+            node, i = child, i + bs
+        rem = tuple(tokens[i:])
+        if rem:                            # partial tail inside one block
+            best, best_len = None, 0
+            for key, child in sorted(node.children.items()):
+                m = 0
+                while m < len(rem) and key[m] == rem[m]:
+                    m += 1
+                if m > best_len:
+                    best, best_len = child, m
+            if best is not None:
+                ids.append(best.block)
+                self._touch(best)
+                i += best_len
+                self.stats["partial_hits"] += 1
+        self.stats["hit_tokens"] += i
+        self.stats["hit_blocks"] += len(ids)
+        return i, ids
+
+    # ------------------------------------------------------------ register
+    def register(self, tokens: Sequence[int],
+                 blocks: Sequence[int]) -> List[Tuple[int, int]]:
+        """Index the full blocks of ``tokens`` (``len(blocks)`` ==
+        ``len(tokens) // block_size``), whose KV lives in ``blocks``.
+
+        For each depth, either the trie gains a node for our block (the
+        cache takes a ref), or an *equal* block is already indexed — then
+        ``(depth, canonical_block)`` is returned so the caller can
+        dedupe-swap its table entry onto the canonical copy.  A zero
+        (reclaimed) entry ends the walk: its content is gone.
+        """
+        bs = self.block_size
+        tokens = [int(t) for t in tokens]
+        node, swaps = self.root, []
+        for d, b in enumerate(blocks):
+            key = tuple(tokens[d * bs:(d + 1) * bs])
+            child = node.children.get(key)
+            if child is not None:
+                if b != 0 and b != child.block:
+                    swaps.append((d, child.block))
+                node = child
+                continue
+            if b == 0:                     # reclaimed: no content to index
+                break
+            self.allocator.share([b], self.OWNER)
+            child = _TrieNode(key, b, hash((node.chain_hash, key,
+                                            self.salt)), node)
+            node.children[key] = child
+            self._touch(child)
+            self.stats["inserted"] += 1
+            node = child
+        self.stats["deduped"] += len(swaps)
+        return swaps
+
+    # -------------------------------------------------------------- evict
+    def evict(self, n: int) -> int:
+        """Drop up to ``n`` LRU *leaf* blocks whose only referent is the
+        cache itself (blocks shared with live requests are pinned).
+        Returns how many were freed to the pool."""
+        freed = 0
+        while freed < n:
+            victim = None
+            for node in self._iter_leaves():
+                if self.allocator.refcount(node.block) != 1:
+                    continue               # shared with a live request
+                if victim is None or node.lru < victim.lru:
+                    victim = node
+            if victim is None:
+                break
+            self.allocator.free([victim.block], self.OWNER)
+            del victim.parent.children[victim.key]
+            self.stats["evicted"] += 1
+            freed += 1
+        return freed
+
+    def _iter_leaves(self):
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            if node is not self.root and not node.children:
+                yield node
+            stack.extend(node.children.values())
+
+    def check_integrity(self) -> None:
+        """Every indexed block holds exactly one cache ref; the trie is
+        acyclic with consistent parent links (test aid)."""
+        seen = set()
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            for key, child in node.children.items():
+                assert child.parent is node and child.key == key
+                assert child.block not in seen, "block indexed twice"
+                seen.add(child.block)
+                assert self.OWNER in self.allocator.owners(child.block)
+                stack.append(child)
+        assert seen == set(self.allocator.owned(self.OWNER)), \
+            "trie blocks and cache-owned allocator refs diverge"
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Device block pools + per-slot block tables + the allocator."""
+    cfg: ModelConfig
+    block_size: int
+    n_blocks: int                    # incl. the reserved null block 0
+    max_reqs: int                    # batch slots == block-table rows
+    max_blocks_per_req: int
+    pools: Dict[str, torch.Tensor]
+    allocator: BlockAllocator
+    table: np.ndarray                # (max_reqs, max_blocks_per_req) int32
+    n_assigned: np.ndarray           # (max_reqs,) blocks assigned per slot
+    prefix: Optional[PrefixCache] = None
+    counters: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict(forks=0, reclaimed=0, hit_tokens=0,
+                                     hit_blocks=0, evicted=0, dedup_swaps=0))
+
+    # ------------------------------------------------------------ creation
+    @classmethod
+    def create(cls, cfg: ModelConfig, *, block_size: Optional[int] = None,
+               n_blocks: int = 64, max_reqs: int = 8,
+               max_blocks_per_req: Optional[int] = None,
+               prefix_cache: bool = False, device="cuda",
+               dtype: Optional[torch.dtype] = None) -> "PagedKVCache":
+        a = cfg.attn
+        if a is None:
+            raise ValueError(f"the paged KV cache serves dense GQA "
+                             f"attention (arch {cfg.arch_type!r})")
+        if block_size is None:
+            block_size = cls.DEFAULT_BLOCK_SIZE
+        if max_blocks_per_req is None:
+            max_blocks_per_req = n_blocks - 1
+        if dtype is None:
+            dtype = {"float32": torch.float32,
+                     "bfloat16": torch.bfloat16}[cfg.dtype]
+        s = (cfg.n_layers, n_blocks, block_size, a.n_kv_heads, a.head_dim)
+        pools = {k: torch.zeros(s, dtype=dtype, device=device)
+                 for k in ("k_pool", "v_pool")}
+        allocator = BlockAllocator(n_blocks)
+        prefix = None
+        if prefix_cache:
+            # the salt is the MaskSpec-relevant config: a block's content
+            # address must distinguish caches whose KV would differ for
+            # the same token ids
+            salt = (cfg.name, block_size, int(a.window or 0))
+            prefix = PrefixCache(allocator, block_size, salt)
+        return cls(cfg=cfg, block_size=block_size, n_blocks=n_blocks,
+                   max_reqs=max_reqs, max_blocks_per_req=max_blocks_per_req,
+                   pools=pools, allocator=allocator,
+                   table=np.zeros((max_reqs, max_blocks_per_req), np.int32),
+                   n_assigned=np.zeros((max_reqs,), np.int32),
+                   prefix=prefix)
+
+    DEFAULT_BLOCK_SIZE = 16
+
+    # ------------------------------------------------------------- queries
+    def blocks_for(self, n_tokens: int) -> int:
+        return max(1, math.ceil(n_tokens / self.block_size))
+
+    def fits(self, n_tokens: int) -> bool:
+        """Could a request of this total length *ever* run (alone)?"""
+        n = self.blocks_for(n_tokens)
+        return n <= min(self.allocator.n_usable, self.max_blocks_per_req)
+
+    def needs_block(self, slot: int, write_pos: int) -> bool:
+        """Writing a token at context position ``write_pos`` needs a block
+        that slot doesn't own yet?"""
+        return write_pos // self.block_size >= int(self.n_assigned[slot])
+
+    @property
+    def n_cache_blocks(self) -> int:
+        """Blocks pinned by the prefix cache only (0 when disabled)."""
+        return self.prefix.n_blocks if self.prefix is not None else 0
+
+    # ---------------------------------------------------------- alloc/free
+    def _alloc(self, rid: int, n: int) -> List[int]:
+        """Allocate with prefix-cache eviction as the fallback: cache-only
+        blocks are LRU-evicted to make room before PoolExhausted
+        propagates (and triggers scheduler preemption)."""
+        while True:
+            try:
+                return self.allocator.alloc(rid, n)
+            except PoolExhausted:
+                if self.prefix is None:
+                    raise
+                short = n - self.allocator.n_free
+                evicted = self.prefix.evict(short)
+                self.counters["evicted"] += evicted
+                if evicted < short:
+                    raise
+
+    def assign(self, slot: int, rid: int, n_tokens: int,
+               tokens: Optional[Sequence[int]] = None) -> int:
+        """Table the blocks for a fresh ``n_tokens`` context (admission).
+        When ``tokens`` (the prefill token ids) are given and the prefix
+        cache is enabled, cached prefix blocks are *shared* instead of
+        allocated; returns the number of prefix tokens whose KV is already
+        cached (0 without a hit).  Atomic w.r.t. PoolExhausted."""
+        n = self.blocks_for(n_tokens)
+        if n > self.max_blocks_per_req:
+            raise ValueError(f"request needs {n} blocks > "
+                             f"max_blocks_per_req={self.max_blocks_per_req}")
+        assert int(self.n_assigned[slot]) == 0, f"slot {slot} not empty"
+        n_hit, hit_ids = 0, []
+        if self.prefix is not None and tokens is not None:
+            n_hit, hit_ids = self.prefix.lookup(tokens)
+        # ref the hits FIRST so the eviction fallback can never free them,
+        # then allocate; roll the refs back on exhaustion (atomicity)
+        self.allocator.share(hit_ids, rid)
+        try:
+            fresh = self._alloc(rid, n - len(hit_ids))
+        except PoolExhausted:
+            self.allocator.free(hit_ids, rid)
+            raise
+        self.table[slot, :n] = hit_ids + fresh
+        self.n_assigned[slot] = n
+        self.counters["hit_tokens"] += n_hit
+        self.counters["hit_blocks"] += len(hit_ids)
+        return n_hit
+
+    def extend(self, slot: int, rid: int) -> int:
+        """Append one block to a slot's table (decode growth)."""
+        n = int(self.n_assigned[slot])
+        if n >= self.max_blocks_per_req:
+            raise ValueError(f"slot {slot} at max_blocks_per_req")
+        (b,) = self._alloc(rid, 1)
+        self.table[slot, n] = b
+        self.n_assigned[slot] = n + 1
+        return b
+
+    def release(self, slot: int, rid: int) -> None:
+        """Drop a slot's refs (finish or preemption) and null its row.
+        Zero table entries (window-reclaimed blocks) are already free;
+        shared blocks survive under their other owners."""
+        n = int(self.n_assigned[slot])
+        ids = [int(b) for b in self.table[slot, :n] if b != 0]
+        self.allocator.free(ids, rid)
+        self.table[slot, :] = 0
+        self.n_assigned[slot] = 0
+
+    # ------------------------------------------------- copy-on-write fork
+    def ensure_writable(self, slot: int, rid: int, p0: int, p1: int) -> int:
+        """Before writing context positions ``[p0, p1)``: fork a private
+        copy of every covered block that is shared (refcount > 1), so the
+        write never mutates another owner's (or the cache's) KV.  Returns
+        the number of blocks forked."""
+        if p1 <= p0:
+            return 0
+        bs = self.block_size
+        forks = 0
+        for i in range(p0 // bs, (p1 - 1) // bs + 1):
+            b = int(self.table[slot, i])
+            assert b != 0 and i < int(self.n_assigned[slot]), \
+                f"write into unassigned/reclaimed block {i} of slot {slot}"
+            if self.allocator.refcount(b) == 1:
+                continue
+            (nb,) = self._alloc(rid, 1)
+            for pool in self.pools.values():
+                pool[:, nb] = pool[:, b]
+            self.table[slot, i] = nb
+            self.allocator.free([b], rid)
+            forks += 1
+        self.counters["forks"] += forks
+        return forks
+
+    # ------------------------------------------------- windowed reclamation
+    def reclaim_window(self, slot: int, rid: int, next_pos: int,
+                       window: int) -> int:
+        """Drop the slot's refs on blocks wholly below the sliding window
+        of the next write position (every kv position the request can
+        still attend is ≥ ``next_pos + 1 - window``).  Table entries are
+        zeroed — the paged kernels' window masking never reads them — and
+        ``n_assigned`` stays a high-water mark so decode growth is
+        unaffected.  Returns how many refs were dropped."""
+        if not window:
+            return 0
+        bs = self.block_size
+        floor_pos = next_pos + 1 - window
+        hi = min(floor_pos // bs, int(self.n_assigned[slot]))
+        freed = 0
+        for i in range(hi):
+            b = int(self.table[slot, i])
+            if b == 0:
+                continue
+            self.allocator.free([b], rid)
+            self.table[slot, i] = 0
+            freed += 1
+        self.counters["reclaimed"] += freed
+        return freed
+
+    # --------------------------------------------------- prefix indexing
+    def register_prefix(self, slot: int, rid: int, tokens: Sequence[int],
+                        upto: int) -> None:
+        """Index the slot's *full* blocks covering ``tokens[:upto]``
+        (positions whose KV has been written) into the prefix cache; on a
+        content-equal duplicate, swap our table entry onto the canonical
+        block and drop the duplicate ref (dedupe)."""
+        if self.prefix is None:
+            return
+        nfull = min(upto // self.block_size, int(self.n_assigned[slot]))
+        if nfull <= 0:
+            return
+        blocks = [int(b) for b in self.table[slot, :nfull]]
+        for d, canonical in self.prefix.register(tokens[:nfull *
+                                                        self.block_size],
+                                                 blocks):
+            ours = int(self.table[slot, d])
+            self.allocator.share([canonical], rid)
+            self.allocator.free([ours], rid)
+            self.table[slot, d] = canonical
+            self.counters["dedup_swaps"] += 1
+
+    # ------------------------------------------------- fault / audit hooks
+    def scrub_slot(self, slot: int, rid: int) -> int:
+        """Zero every block of ``slot`` that ``rid`` owns exclusively —
+        quarantine hygiene: poisoned content must never survive into the
+        free list (shared blocks are other owners' clean data and are left
+        alone).  Returns the number of blocks scrubbed."""
+        n = int(self.n_assigned[slot])
+        scrubbed = 0
+        for i in range(n):
+            b = int(self.table[slot, i])
+            if b and self.allocator.owners(b) == (rid,):
+                for pool in self.pools.values():
+                    pool[:, b] = 0
+                scrubbed += 1
+        return scrubbed
+
+    def audit(self, running: Optional[Dict[int, object]] = None) -> None:
+        """Run the allocator / prefix-trie / block-table invariants and
+        raise a structured :class:`AuditFailure` naming the first violated
+        one.  ``running`` is the scheduler's slot→request map; when given,
+        table ownership is cross-checked against it."""
+        try:
+            self.allocator.check_conservation()
+        except AssertionError as e:
+            raise AuditFailure("allocator_conservation", str(e)) from e
+        if self.prefix is not None:
+            try:
+                self.prefix.check_integrity()
+            except AssertionError as e:
+                raise AuditFailure("prefix_trie", str(e)) from e
+        if running is None:
+            return
+        for slot in range(self.max_reqs):
+            n = int(self.n_assigned[slot])
+            req = running.get(slot)
+            if req is None:
+                if n:
+                    raise AuditFailure(
+                        "table_ownership",
+                        f"idle slot {slot} still holds {n} blocks")
+                continue
+            for i in range(n):
+                b = int(self.table[slot, i])
+                if b and req.rid not in self.allocator.owners(b):
+                    raise AuditFailure(
+                        "table_ownership",
+                        f"slot {slot} tables block {b} not owned by "
+                        f"rid {req.rid} (owners {self.allocator.owners(b)})")
+            if np.any(self.table[slot, n:]):
+                raise AuditFailure(
+                    "table_ownership",
+                    f"slot {slot} has table entries beyond "
+                    f"n_assigned={n}")
