@@ -16,7 +16,10 @@ Phases, each fatal on failure (nothing is caught):
                 and 64 tokens, 32 greedy tokens each.  Both kernels must
                 have launched during the run; the last decode logits of the
                 longest request are held against a plain whole-context
-                forward of the same model that calls the plain attention.
+                forward of the same model that calls the plain attention,
+                and the limit must reject two deliberately wrong forwards
+                (one position off; the oldest cache block hidden).  Prefill and decode seconds come from the engine's own
+                CUDA-event spans.
   5. times    — each kernel at the serving shapes: its time (CUDA events,
                 median after warm-up), its plain version's, a library call's
                 where one exists, and the least time the card could take.
@@ -25,6 +28,7 @@ Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
 there is no CUDA device or the port is not beside this file.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -213,20 +217,7 @@ def serve():
     del warm
 
     eng = Engine(model, params, record_logits=True, **kw)
-    spent = {"prefill": 0.0, "decode": 0.0}
-
-    def timed(name, fn):
-        def run(*a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t
-            return out
-        return run
-
-    eng._run_chunk = timed("prefill", eng._run_chunk)
-    eng._decode = timed("decode", eng._decode)
+    torch.cuda.synchronize()
     build.reset_launches()
     t_sub = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
@@ -240,6 +231,7 @@ def serve():
     launches = dict(build.LAUNCHES)
     out = {rid: np.asarray(eng.requests[rid].emitted) for rid in rids}
     st = eng.stats()
+    spent = {"prefill": st["prefill_seconds"], "decode": st["decode_seconds"]}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     for rid in rids:
@@ -262,9 +254,9 @@ def serve():
 
     # the longest request's last decode logits against a plain forward
     rid = rids[0]
-    ctx = np.concatenate([prompts[0], out[rid][:-1]])[None]
-    ref = model.forward(params, torch.from_numpy(ctx).to(DEV),
-                        last_only=True)[0, -1].float()
+    ctx = torch.from_numpy(np.concatenate([prompts[0], out[rid][:-1]])[None])
+    ctx = ctx.to(DEV)
+    ref = model.forward(params, ctx, last_only=True)[0, -1].float()
     got = eng.last_logits[rid]
     d = float((got - ref).abs().max())
     scale = float(ref.abs().max())
@@ -274,7 +266,9 @@ def serve():
           f"{LOGIT_REL_TOL} × {scale}")
     say(f"  last logits of the {lens[0]}-token request vs plain forward: "
         f"max|Δ| {d:.4f} (max|logit| {scale:.3f}, tol {LOGIT_REL_TOL} × "
-        f"max), argmax {int(got.argmax())} vs {int(ref.argmax())}")
+        f"max = {LOGIT_REL_TOL * scale:.4f}), argmax {int(got.argmax())} "
+        f"vs {int(ref.argmax())}")
+    logit_controls(model, params, ctx, ref, LOGIT_REL_TOL * scale)
     steps = max(st["decode_steps"], 1)
     say("== phase 4b: where the device time goes")
     trace(model, params, prompts)
@@ -337,6 +331,28 @@ def trace(model, params, prompts):
         for key, (n, t) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
             say(f"    {key:<40} {t:9.2f} ms  {n:6d} launches  "
                 f"{t / wall_ms:.3f} of wall")
+
+
+def logit_controls(model, params, ctx, ref, limit):
+    """Plain forwards with a deliberately wrong attention, held to the same
+    limit, which must reject both: a path that is off by one position (the
+    context without its last token), and one that hides the oldest cache
+    block (16 keys) from the newest rows through a sliding window."""
+    T = ctx.shape[1]
+    short = model.forward(params, ctx[:, :-1], last_only=True)[0, -1].float()
+    d_pos = float((short - ref).abs().max())
+    check(d_pos > limit, f"logit limit {limit} does not reject an "
+          f"off-by-one position (max|Δ| {d_pos})")
+    cfg = model.cfg
+    cut = DecoderLM(cfg.replace(attn=dataclasses.replace(
+        cfg.attn, window=T - 16)), device=DEV)
+    blk = cut.forward(params, ctx, last_only=True)[0, -1].float()
+    d_blk = float((blk - ref).abs().max())
+    check(d_blk > limit, f"logit limit {limit} does not reject a hidden "
+          f"oldest block (max|Δ| {d_blk})")
+    say(f"  controls, both rejected by the limit {limit:.4f}: off-by-one "
+        f"position max|Δ| {d_pos:.4f}; oldest block hidden (window "
+        f"{T - 16}) max|Δ| {d_blk:.4f}")
 
 
 # ----------------------------------------------------------------- phase 5

@@ -5,7 +5,8 @@ pair; partials merge exactly with :func:`merge`.  The mask is a static
 :class:`~repro_torch.core.mask.MaskSpec`; integer ``q_offset``/``kv_offset``
 operands fold into it (``mask.fold_offsets``), so kernel A always sees a
 static spec.  ``impl`` names a backend of :mod:`repro_torch.kernels.registry`
-(``ref`` or ``cuda``); by default the tensors' device picks it.
+(``ref`` or ``cuda``, the default, whose wrappers run the plain versions on
+CPU tensors).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ def chunk_attn(q, k, v, *, mask: MaskSpec | None = None, scale=None,
     (B,Tk,Hkv,D).  Returns (o (B,Tq,Hq,D), lse (B,Tq,Hq) float32)."""
     mask = mk.fold_offsets(mk.full() if mask is None else mask, q_offset,
                            kv_offset)
-    be = registry.resolve(impl, q.device)
+    be = registry.resolve(impl)
     return be.fwd(q, k, v, mask=mask, scale=scale, q_segments=q_segments,
                   kv_segments=kv_segments)
 
@@ -36,7 +37,7 @@ def paged_decode_attn(q, k_pool, v_pool, block_table, lengths, *,
     all T tokens' K/V are already written).  ``mask`` is causal or
     sliding_window.  Returns o (B, T, Hq, D)."""
     mask = mk.causal() if mask is None else mask
-    be = registry.resolve(impl, q.device)
+    be = registry.resolve(impl)
     return be.paged_fwd(q, k_pool, v_pool, block_table, lengths, mask=mask,
                         scale=scale)
 

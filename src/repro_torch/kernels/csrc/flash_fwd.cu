@@ -4,15 +4,21 @@
 // Replaces the TPU kernel `_fwd_kernel` / `flash_fwd_bhtd` of the JAX package
 // (src/repro/kernels/flash_attention.py:157, pallas_call at :252).
 //
-// Bound on the H100: operations.  One llama-7b prefill chunk (Tq = 256 rows
-// against Tk ~ 1k cached keys, 32 heads of 128) does ~4·Tq·Tk·D FLOPs per head
-// (halved by the causal mask) over only (Tq + 2·Tk)·D input elements, far
-// above the card's ridge point of ~295 FLOP/byte.  This first version does its
-// two products with float32 CUDA-core FMAs out of shared memory, so it runs
-// well below the 989 TFLOP/s bf16 tensor-core bound; `wgmma`, TMA and warp
-// specialisation are later work.  What the design does about the bound:
-// nothing is recomputed and no score tile ever reaches device memory, and the
-// block-sparse table skips every KV tile the mask cannot reach.
+// Bound on the H100: bytes, at the serving shape.  One llama-7b prefill chunk
+// (B 1, Tq 256 at q_offset 768, Tk 1024 after the engine's table bucketing,
+// 32 heads of 128, bf16) does 4·D FLOPs for each of the 229,504 (row, key)
+// pairs the causal mask allows per head (12% fewer than the full 256 × 1024):
+// 3.76 GFLOP over 21.0 MB of q, k, v, o and lse, or 179 FLOP/byte.  That is
+// below the card's ridge point of 989 TFLOP/s / 3.35 TB/s = 295 FLOP/byte,
+// so the least time is the bytes' 6.3 us.  (Each key brings 4·D bytes of k
+// and v and at most 4·D·Tq FLOPs, so with Tq = 256 the intensity stays below
+// 256 FLOP/byte at any context length.)  This
+// first version does its two products with float32 CUDA-core FMAs out of
+// shared memory, so the FLOPs, not the bytes, set its time today; tensor-core
+// `mma`/`wgmma`, TMA and warp specialisation are later work.  What the design
+// does about the bound: every input is read once per q tile, no score tile
+// reaches device memory, and the block-sparse table skips every KV tile the
+// mask cannot reach.
 //
 // Design.  One thread block (256 threads) per (64-row q tile, query head,
 // batch row).  The block loops over the 64-key tiles [lo, hi] that the

@@ -1,21 +1,20 @@
-"""Attention backend registry: two names, chosen by the tensors' device.
+"""Attention backend registry: two names.
 
+  * ``cuda`` — the default: the kernel wrappers (``flash_attention.flash_fwd``,
+               ``paged.paged_attn``).  For CPU tensors they run their plain
+               versions; for CUDA tensors they launch the hand-written
+               Hopper kernels.
   * ``ref``  — the plain PyTorch versions (``chunk_attn_ref``,
-               ``paged_attn_ref``); runs on any device.  The CPU default,
-               and the oracle a caller may ask for explicitly.
-  * ``cuda`` — the hand-written Hopper kernels (``flash_attention.flash_fwd``,
-               ``paged.paged_attn``); CUDA tensors only.  The CUDA default.
+               ``paged_attn_ref``) on any device: the oracle a caller may ask
+               for explicitly.
 
 There is no downgrade walk: a CUDA call the kernel cannot serve (mask kind,
-dtype, head dim) raises in the kernel's wrapper, and asking for ``cuda`` on
-a CPU tensor raises here.
+dtype, head dim) raises in the kernel's wrapper.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple
-
-import torch
 
 from repro_torch.kernels.flash_attention import flash_fwd
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref
@@ -30,12 +29,11 @@ class Backend:
     name: str
     fwd: Callable
     paged_fwd: Callable
-    device_type: Optional[str] = None      # None = any device
 
 
 _REGISTRY = {
     "ref": Backend("ref", chunk_attn_ref, paged_attn_ref),
-    "cuda": Backend("cuda", flash_fwd, paged_attn, device_type="cuda"),
+    "cuda": Backend("cuda", flash_fwd, paged_attn),
 }
 
 
@@ -50,14 +48,6 @@ def get(name: str) -> Backend:
     return _REGISTRY[name]
 
 
-def resolve(impl: Optional[str], device) -> Backend:
-    """The backend for a call on ``device``: ``impl`` when given, else
-    ``cuda`` for CUDA tensors and ``ref`` otherwise."""
-    dev = torch.device(device).type
-    if impl is None:
-        impl = "cuda" if dev == "cuda" else "ref"
-    be = get(impl)
-    if be.device_type is not None and be.device_type != dev:
-        raise ValueError(f"backend {be.name!r} runs on {be.device_type} "
-                         f"tensors, got {dev}")
-    return be
+def resolve(impl: Optional[str]) -> Backend:
+    """The backend ``impl`` names, or ``cuda`` when it is None."""
+    return get("cuda" if impl is None else impl)

@@ -2,9 +2,12 @@
 prompts with seeded random weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
-        [--layers 4] [--prompt-len 128 --gen 16 --batch 4] [--window 64] \
-        [--block-size 16 --n-blocks 0 --chunk 256] [--temperature 0.8] \
+        [--prompt-len 128 --gen 16 --batch 4] [--window 64] \
+        [--block-size 16 --n-blocks 0] [--temperature 0.8] \
         [--smoke --device cpu]
+
+Weights and prompts come from seed 0; prefill runs in chunks of
+``PREFILL_CHUNK`` tokens.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -22,13 +25,14 @@ from repro_torch.kernels import build
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.serve.engine import Engine
 
+PREFILL_CHUNK = 256
+SEED = 0
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-7b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth to this many layers (0 = config)")
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -37,29 +41,24 @@ def main(argv=None):
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="paged pool size (0 = sized to the workload)")
-    ap.add_argument("--chunk", type=int, default=256,
-                    help="prefill chunk tokens (0 = whole prompt)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    if args.layers:
-        cfg = cfg.replace(n_layers=args.layers)
     if args.window:
         cfg = cfg.replace(attn=dataclasses.replace(cfg.attn,
                                                    window=args.window))
     model = DecoderLM(cfg, device=args.device)
-    params = model.init(args.seed)
-    prompts = np.random.default_rng(args.seed).integers(
+    params = model.init(SEED)
+    prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
     blocks_per_req = -(-(args.prompt_len + args.gen) // args.block_size)
     n_blocks = args.n_blocks or args.batch * (blocks_per_req + 4) + 2
     eng = Engine(model, params, max_batch=args.batch,
                  block_size=args.block_size, n_blocks=n_blocks,
-                 prefill_chunk_tokens=args.chunk)
+                 prefill_chunk_tokens=PREFILL_CHUNK)
 
     def sync():
         if model.device.type == "cuda":

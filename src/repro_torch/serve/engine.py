@@ -11,7 +11,10 @@ injection).
     kernel A attends), then ONE decode step over the decode-ready slots
     (per-request positions, kernel B attends through the block table) and
     sampling;
-  * ``stream(rid)`` / ``run()`` / ``generate()`` — drive ``step``.
+  * ``stream(rid)`` / ``run()`` / ``generate()`` — drive ``step``;
+  * ``stats()`` — counters, and the seconds spent in prefill chunks and in
+    decode steps (on a CUDA device, CUDA events around each phase, read
+    only once they have completed, so timing adds no sync to the loop).
 
 The pending-token design is the reference's: prefill covers
 ``context[:-1]`` and the last context token enters through decode, so
@@ -29,6 +32,7 @@ are not reproduced: sampled streams match the reference only when greedy.)
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -104,6 +108,37 @@ class Engine:
         self.counters = dict(quarantined=0, audit_passes=0,
                              prefill_chunks=0, prefill_tokens=0,
                              decode_steps=0, decode_tokens=0)
+        self.seconds = dict(prefill=0.0, decode=0.0)
+        self._spans: List[tuple] = []      # (phase, start, end) events
+
+    # ------------------------------------------------------------- timing
+    def _clock(self):
+        """Now, on the device's timeline: a recorded CUDA event, or the
+        host clock on a CPU device."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _span(self, phase: str, start) -> None:
+        end = self._clock()
+        if isinstance(start, float):
+            self.seconds[phase] += end - start
+        else:
+            self._spans.append((phase, start, end))
+
+    def _fold_spans(self, wait: bool = False) -> None:
+        """Add the spans whose end event has completed (all of them when
+        ``wait``) into ``self.seconds``."""
+        keep = []
+        for phase, start, end in self._spans:
+            if wait or end.query():
+                end.synchronize()
+                self.seconds[phase] += start.elapsed_time(end) / 1e3
+            else:
+                keep.append((phase, start, end))
+        self._spans = keep
 
     # -------------------------------------------------------------- intake
     def submit(self, prompt, *, max_new_tokens: int = 16,
@@ -211,8 +246,10 @@ class Engine:
 
     def step(self) -> Dict[int, List[int]]:
         """One engine step. Returns {rid: [tokens emitted this step]}."""
+        self._fold_spans()
         plan = self.sched.plan()
         events: Dict[int, List[int]] = {}
+        t0 = self._clock() if plan.chunks else None
         for req, start, n in plan.chunks:
             if req.state != PREFILL:       # preempted after planning
                 continue
@@ -223,11 +260,15 @@ class Engine:
             # index the newly completed full blocks for later arrivals
             self.cache.register_prefix(req.slot, req.rid, req.context,
                                        req.cached)
+        if t0 is not None:
+            self._span("prefill", t0)
 
         live = [r for r in plan.decode if r.state == DECODE]
         n_tokens = 0
         if live:
+            t0 = self._clock()
             nxt, ok = self._decode(live)
+            self._span("decode", t0)
             for r in live:
                 if not ok[r.slot]:
                     self._quarantine(r, "nan_logits")
@@ -279,6 +320,7 @@ class Engine:
 
     # ---------------------------------------------------------- telemetry
     def stats(self) -> dict:
+        self._fold_spans(wait=True)
         sc = self.sched.counters
         out = {
             "n_preemptions": self.sched.n_preemptions,
@@ -292,6 +334,8 @@ class Engine:
             "shed": sc["shed"], "expired": sc["expired"],
             "failed": sc["failed"], "watchdog_trips": sc["watchdog_trips"],
             **self.counters,
+            "prefill_seconds": self.seconds["prefill"],
+            "decode_seconds": self.seconds["decode"],
         }
         if self.cache.prefix is not None:
             out["prefix_cache"] = dict(self.cache.prefix.stats)

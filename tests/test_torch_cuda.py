@@ -132,7 +132,10 @@ def test_engine_on_card_matches_cpu(dev):
     kw = dict(max_batch=4, block_size=16, n_blocks=32,
               prefill_chunk_tokens=16)
     build.reset_launches()
-    out_d = Engine(gpu, params_d, **kw).generate({"tokens": prompts}, 8)
+    eng = Engine(gpu, params_d, **kw)
+    out_d = eng.generate({"tokens": prompts}, 8)
+    st = eng.stats()
+    assert st["prefill_seconds"] > 0 and st["decode_seconds"] > 0
     assert build.LAUNCHES["flash_fwd"] > 0
     assert build.LAUNCHES["paged_decode"] > 0
     out_c = Engine(cpu, params, **kw).generate({"tokens": prompts}, 8)

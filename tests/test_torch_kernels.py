@@ -256,3 +256,20 @@ def test_paged_rejects_unsupported_masks():
         paged_attn(*args, mask=tmk.prefix_lm(3))
     with pytest.raises(ValueError, match="offset-free"):
         paged_attn(*args, mask=tmk.causal(rel_offset=2))
+
+
+def test_registry_defaults_to_cuda_and_runs_plain_on_cpu():
+    """``cuda`` is the default backend; on CPU tensors its wrappers give the
+    plain versions' results, and an unknown name raises."""
+    from repro_torch.kernels import registry
+    assert registry.names() == ("cuda", "ref")
+    assert registry.resolve(None).name == "cuda"
+    assert registry.resolve("ref").fwd is chunk_attn_ref
+    with pytest.raises(ValueError, match="unknown"):
+        registry.resolve("pallas")
+    q, k, v = (torch.from_numpy(x) for x in
+               _qkv(np.random.default_rng(5), 1, 64, 64, 2, 2, 32))
+    m = tmk.causal()
+    o_c, l_c = chunk_attn(q, k, v, mask=m)
+    o_r, l_r = chunk_attn(q, k, v, mask=m, impl="ref")
+    assert torch.equal(o_c, o_r) and torch.equal(l_c, l_r)

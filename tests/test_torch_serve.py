@@ -198,3 +198,17 @@ def test_paged_engine_logits_match_plain_forward():
                                    ref[0, -1].float().numpy(),
                                    atol=LOGIT_TOL, rtol=LOGIT_TOL)
         assert int(ref[0, -1].argmax()) == int(out[rid][-1])
+
+
+def test_engine_reports_phase_seconds():
+    """``stats()`` carries the seconds spent in prefill chunks and decode
+    steps, each positive once that phase has run."""
+    model = DecoderLM(smoke_config(get_config("llama-gqa")), device="cpu")
+    params = model.init(0)
+    eng = Engine(model, params, max_batch=2, block_size=8, n_blocks=32,
+                 prefill_chunk_tokens=8)
+    assert eng.stats()["prefill_seconds"] == eng.stats()["decode_seconds"] == 0
+    eng.submit(_mixed_prompts(model.cfg.vocab)[0], max_new_tokens=3)
+    eng.run()
+    st = eng.stats()
+    assert st["prefill_seconds"] > 0 and st["decode_seconds"] > 0
