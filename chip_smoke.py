@@ -8,8 +8,10 @@ Phases, each fatal on failure (nothing is caught):
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
-                the card, at llama-7b serving shapes plus edge cases;
-                tolerances float32 1e-5 (paged 2e-5), bf16 2e-2.
+                the card, at llama-7b serving and training shapes plus edge
+                cases; tolerances: forward float32 1e-5 (paged 2e-5), bf16
+                2e-2; backward (kernels C and D) float32 2e-4, bf16 5e-2,
+                and the pruned sweep equal to the dense one within 1e-6.
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -20,9 +22,23 @@ Phases, each fatal on failure (nothing is caught):
                 and the limit must reject two deliberately wrong forwards
                 (one position off; the oldest cache block hidden).  Prefill and decode seconds come from the engine's own
                 CUDA-event spans.
-  5. times    — each kernel at the serving shapes: its time (CUDA events,
-                median after warm-up), its plain version's, a library call's
-                where one exists, and the least time the card could take.
+  6. train    — llama-7b's width (d_model 4096, 32 heads × 128, d_ff 11008,
+                vocab 32000, bf16) at depth 8, one sequence of 8192 tokens:
+                4 steps of ``make_train_step`` under ``remat_aware`` on
+                ``SyntheticTokens`` (seed 0, lr 1e-4).  Kernels A, C and D
+                must each launch 8 times per step, every loss be finite and
+                no step be skipped; then 1 step under ``hf``, which must
+                launch A 16 times, and 1 under ``none``, both giving step
+                1's loss again; peak memory per policy.  A torch.profiler
+                window over one more step shows where the time goes.
+  6b. grads   — at 2 layers and T 1024, full width: per leaf, max |Δg|
+                between the kernels and the plain attention is at most 5%
+                of the leaf's max |g|, and the same limit rejects a plain
+                backward whose causal mask is shifted by one position.
+  5. times    — each kernel at the shapes of its path: its time (CUDA
+                events, median after warm-up), its plain version's, a
+                library call's where one exists, and the least time the
+                card could take.
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -41,20 +57,30 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import mask as mk  # noqa: E402
-from repro_torch.core.config import get_config  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_fwd  # noqa: E402
+from repro_torch.core.config import (  # noqa: E402
+    ParallelConfig, ShapeSpec, TrainConfig, get_config)
+from repro_torch.core.tree import leaves  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
+from repro_torch.kernels import build, registry  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttnFn, _BwdPlan, _launch_dkv, _launch_dq, flash_bwd, flash_fwd)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref  # noqa: E402
-from repro_torch.kernels.ref import NEG_INF, chunk_attn_ref  # noqa: E402
-from repro_torch.models.transformer import DecoderLM  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref)
+from repro_torch.models.transformer import DecoderLM, trainable  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 LOGIT_REL_TOL = 5e-2          # bf16, 32 layers: |Δ| ≤ 5% of max |logit|
+GRAD_REL_TOL = 5e-2           # bf16 grads: |Δg| ≤ 5% of the leaf's max |g|
+TRAIN_LAYERS, TRAIN_T, TRAIN_STEPS = 8, 8192, 4
 DEV = torch.device("cuda", 0)
 
 
@@ -192,6 +218,98 @@ def kernel_checks():
     _paged_case(gen, "d32 bs64", 4, 1, 4, 4, 32, 64, lens, 0, f32)
 
 
+def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
+              pass_delta=False):
+    """Kernels C and D against the plain backward on the same saved (o,
+    lse), and the pruned sweep against the dense one."""
+    q = randn(gen, (B, Tq, Hq, D), dtype)
+    k = randn(gen, (B, Tk, Hkv, D), dtype)
+    v = randn(gen, (B, Tk, Hkv, D), dtype)
+    do = randn(gen, (B, Tq, Hq, D), dtype)
+    kw = {}
+    if segs:
+        s = torch.sort(torch.randint(0, 4, (B, Tk), generator=gen,
+                                     device=DEV), dim=1)[0].to(torch.int32)
+        kw = dict(q_segments=s[:, :Tq].contiguous(), kv_segments=s)
+    o, lse = chunk_attn_ref(q, k, v, mask=mask, **kw)
+    if pass_delta:
+        kw["delta"] = (o.float() * do.float()).sum(-1)
+    n0 = (build.LAUNCHES["flash_bwd_dq"], build.LAUNCHES["flash_bwd_dkv"])
+    got = flash_bwd(q, k, v, o, lse, do, mask=mask, **kw)
+    torch.cuda.synchronize()
+    check((build.LAUNCHES["flash_bwd_dq"], build.LAUNCHES["flash_bwd_dkv"])
+          == (n0[0] + 1, n0[1] + 1), f"flash_bwd {name}: launches")
+    ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=mask, **kw)
+    dense = flash_bwd(q, k, v, o, lse, do, mask=mask, prune=False, **kw)
+    tol = BWD_TOL[dtype]
+    errs = []
+    for nm, a, r, d in zip(("dq", "dk", "dv"), got, ref, dense):
+        check(a.shape == r.shape and a.dtype == r.dtype,
+              f"flash_bwd {name}: {nm} {tuple(a.shape)} {a.dtype}")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"flash_bwd {name}: {nm} non-finite")
+        err = float((a.float() - r.float()).abs().max())
+        check(torch.allclose(a.float(), r.float(), atol=tol, rtol=tol),
+              f"flash_bwd {name}: {nm} err {err} over {tol}")
+        pd = float((a.float() - d.float()).abs().max())
+        check(pd <= 1e-6, f"flash_bwd {name}: {nm} pruned vs dense {pd}")
+        errs.append(err)
+    say(f"  C/D {name:<26} {str(dtype)[6:]:<9} max|Δdq| {errs[0]:.3e}  "
+        f"max|Δdk| {errs[1]:.3e}  max|Δdv| {errs[2]:.3e}  tol {tol}; "
+        f"pruned == dense")
+
+
+def bwd_checks():
+    """Kernels C and D over the edge cases kernel A is held to, plus the
+    training shape."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    _bwd_case(gen, "causal d128", 1, 256, 256, 4, 4, 128, f32, mk.causal())
+    _bwd_case(gen, "sliding_window 70 d64", 1, 256, 256, 4, 1, 64, f32,
+              mk.sliding_window(70))
+    _bwd_case(gen, "prefix_lm 70 d32", 1, 192, 192, 4, 2, 32, f32,
+              mk.prefix_lm(70))
+    _bwd_case(gen, "document boundaries", 1, 256, 256, 4, 4, 64, f32,
+              mk.document(boundaries=(0, 37, 150, 151)))
+    _bwd_case(gen, "document segments gqa", 2, 128, 256, 4, 2, 32, f32,
+              mk.document(), segs=True)
+    _bwd_case(gen, "gqa Hkv2 Tq!=Tk offset", 2, 100, 300, 8, 2, 64, f32,
+              mk.causal(rel_offset=200))
+    _bwd_case(gen, "empty rows q_offset -64", 1, 128, 128, 2, 2, 32, f32,
+              mk.causal(rel_offset=-64))
+    _bwd_case(gen, "full kv_offset, delta in", 1, 64, 200, 4, 4, 32, f32,
+              mk.MaskSpec(q_offset=10, kv_offset=3), pass_delta=True)
+    _bwd_case(gen, "window gqa bf16", 1, 512, 512, 32, 8, 128, bf,
+              mk.sliding_window(300))
+    _bwd_case(gen, "train B1 T2048 H32 causal", 1, 2048, 2048, 32, 32, 128,
+              bf, mk.causal())
+    # statically fully masked chunk: zeros without a launch
+    q = randn(gen, (1, 128, 2, 32), f32)
+    m = mk.causal(rel_offset=-1000)
+    o, lse = chunk_attn_ref(q, q, q, mask=m)
+    n0 = build.LAUNCHES["flash_bwd_dq"] + build.LAUNCHES["flash_bwd_dkv"]
+    g = flash_bwd(q, q, q, o, lse, q, mask=m)
+    check(build.LAUNCHES["flash_bwd_dq"] + build.LAUNCHES["flash_bwd_dkv"]
+          == n0 and all(float(x.abs().max()) == 0 for x in g),
+          "empty chunk launched the backward")
+    # the autograd glue: FlashAttnFn's gradients are flash_bwd's
+    q, k, v = (randn(gen, (1, 128, 4, 64), f32).requires_grad_()
+               for _ in range(3))
+    do = randn(gen, (1, 128, 4, 64), f32)
+    m = mk.causal()
+    o, _ = FlashAttnFn.apply(
+        q, k, v, lambda *a: flash_fwd(*a, mask=m),
+        lambda *a: flash_bwd(*a, mask=m))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o_r, lse_r = chunk_attn_ref(q.detach(), k.detach(), v.detach(), mask=m)
+    ref = chunk_attn_bwd_ref(q.detach(), k.detach(), v.detach(), o_r, lse_r,
+                             do, mask=m)
+    d = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+    check(d <= 2e-4, f"FlashAttnFn grads vs plain: {d}")
+    say(f"  C/D {'FlashAttnFn autograd':<26} float32   max|Δ| {d:.3e}  "
+        f"tol 0.0002")
+
+
 # ----------------------------------------------------------------- phase 4
 
 def serve():
@@ -232,8 +350,9 @@ def serve():
     out = {rid: np.asarray(eng.requests[rid].emitted) for rid in rids}
     st = eng.stats()
     spent = {"prefill": st["prefill_seconds"], "decode": st["decode_seconds"]}
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("flash_fwd", "paged_decode"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
     for rid in rids:
         check(len(out[rid]) == n_new, f"request {rid} emitted {len(out[rid])}")
         check(bool(((out[rid] >= 0) & (out[rid] < cfg.vocab)).all()),
@@ -292,6 +411,8 @@ def _device_breakdown(prof, wall):
         name = ev.key
         key = ("kernel A flash_fwd" if "flash_fwd_kernel" in name else
                "kernel B paged_decode" if "paged_decode_kernel" in name else
+               "kernel C flash_bwd_dq" if "flash_bwd_dq_kernel" in name else
+               "kernel D flash_bwd_dkv" if "flash_bwd_dkv_kernel" in name else
                "matmul (cuBLAS)" if any(t in name.lower() for t in
                                         ("gemm", "gemv", "xmma", "cutlass",
                                          "splitk", "nvjet"))
@@ -324,13 +445,16 @@ def trace(model, params, prompts):
                 i += 1
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        fam, busy, wall_ms = _device_breakdown(prof, wall)
-        say(f"  trace {label}: wall {wall_ms:.1f} ms (under the profiler), "
-            f"device busy {busy:.1f} ms, idle share "
-            f"{1 - busy / wall_ms:.3f}")
-        for key, (n, t) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
-            say(f"    {key:<40} {t:9.2f} ms  {n:6d} launches  "
-                f"{t / wall_ms:.3f} of wall")
+        show_breakdown(label, prof, wall)
+
+
+def show_breakdown(label, prof, wall):
+    fam, busy, wall_ms = _device_breakdown(prof, wall)
+    say(f"  trace {label}: wall {wall_ms:.1f} ms (under the profiler), "
+        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
+    for key, (n, t) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
+        say(f"    {key:<40} {t:9.2f} ms  {n:6d} launches  "
+            f"{t / wall_ms:.3f} of wall")
 
 
 def logit_controls(model, params, ctx, ref, limit):
@@ -353,6 +477,146 @@ def logit_controls(model, params, ctx, ref, limit):
     say(f"  controls, both rejected by the limit {limit:.4f}: off-by-one "
         f"position max|Δ| {d_pos:.4f}; oldest block hidden (window "
         f"{T - 16}) max|Δ| {d_blk:.4f}")
+
+
+# ----------------------------------------------------------------- phase 6
+
+BWD_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_policy(cfg, policy, batches, tc, profile_step=False):
+    """``len(batches)`` steps from the seed-0 init under ``policy``: losses,
+    step seconds (CUDA events), launches and peak device memory."""
+    model = DecoderLM(cfg, device=DEV, par=ParallelConfig(remat=policy))
+    params = trainable(model.init(seed=0))
+    opt = adamw.init(params)
+    step = make_train_step(model, tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = []
+    for b in batches:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        m = step(params, opt, b)
+        e.record()
+        e.synchronize()
+        out.append((m, s.elapsed_time(e) / 1e3))
+    launches = {k: build.LAUNCHES[k] for k in BWD_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if profile_step:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, opt, batches[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        show_breakdown(f"one {policy} training step", prof, wall)
+    del model, params, opt, step
+    _free()
+    return out, launches, peak
+
+
+def train():
+    """Phase 6: llama-7b's width at depth 8, T 8192, B 1, bf16."""
+    cfg = get_config("llama-7b").replace(n_layers=TRAIN_LAYERS)
+    L, T, n = TRAIN_LAYERS, TRAIN_T, TRAIN_STEPS
+    tc = TrainConfig(lr=1e-4, warmup_steps=min(20, n // 5 + 1),
+                     total_steps=n)
+    ds = SyntheticTokens(cfg, ShapeSpec("chip", T, 1, "train"), device=DEV,
+                         seed=0)
+    batches = [ds.batch(i) for i in range(n)]
+    say(f"  {cfg.name} width, {L} of 32 layers ({cfg.param_count() / 1e9:.2f}"
+        f" B params), B 1 T {T}, bf16 params, fp32 moments, lr {tc.lr}")
+    runs, launches, peak = _train_policy(cfg, "remat_aware", batches, tc,
+                                         profile_step=True)
+    for i, (m, sec) in enumerate(runs):
+        check(m["skipped_nonfinite"] == 0, f"step {i + 1} was skipped")
+        check(np.isfinite(m["loss"]), f"step {i + 1}: loss {m['loss']}")
+        say(f"  remat_aware step {i + 1}: loss {m['loss']:.4f} gnorm "
+            f"{m['gnorm']:.3f} lr {m['lr']:.2e} step {sec:.3f} s")
+    tok_s = (n - 1) * T / sum(sec for _, sec in runs[1:])
+    for k in BWD_KERNELS:
+        check(launches[k] == L * n, f"remat_aware: {k} launched "
+              f"{launches[k]} times in {n} steps, want {L} per step")
+    say(f"  remat_aware: {tok_s:.1f} tokens/s over steps 2-{n}; launches "
+        f"per step " + ", ".join(f"{k} {launches[k] / n:g}"
+                                 for k in BWD_KERNELS)
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    peaks = {"remat_aware": peak}
+    for policy, n_fwd in (("hf", 2 * L), ("none", L)):
+        one, got, peaks[policy] = _train_policy(cfg, policy, batches[:1], tc)
+        (m1, sec1), = one
+        want = {"flash_fwd": n_fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        check(got == want, f"{policy} launches {got}, want {want}")
+        d = abs(m1["loss"] - runs[0][0]["loss"])
+        check(d <= 1e-2 * abs(runs[0][0]["loss"]),
+              f"{policy} step 1 loss {m1['loss']} vs remat_aware "
+              f"{runs[0][0]['loss']}")
+        say(f"  {policy} step 1: loss {m1['loss']:.4f} (|Δ| vs remat_aware "
+            f"{d:.2e}), step {sec1:.3f} s; launches " + ", ".join(
+                f"{k} {got[k]}" for k in BWD_KERNELS)
+            + f"; peak memory {peaks[policy] / 2**30:.2f} GiB")
+    return dict(launches=launches, losses=[m["loss"] for m, _ in runs],
+                tok_s=tok_s, peaks=peaks)
+
+
+def _shifted_backend():
+    """A deliberately wrong attention backward: the plain one with the
+    causal mask shifted by one position (each query also sees the next
+    key).  The forward is the plain one."""
+    ref = registry.get("ref")
+
+    def bwd(q, k, v, o, lse, do, *, mask, **kw):
+        return chunk_attn_bwd_ref(q, k, v, o, lse, do,
+                                  mask=mask.replace(q_offset=mask.q_offset
+                                                    + 1), **kw)
+    return dataclasses.replace(ref, name="shifted", bwd=bwd)
+
+
+def grad_check():
+    """Phase 6b: per-leaf gradients of the kernels against the plain path
+    at full width, 2 layers, T 1024; the limit must reject a shifted
+    backward."""
+    cfg = get_config("llama-7b").replace(n_layers=2)
+    batch = SyntheticTokens(cfg, ShapeSpec("g", 1024, 1, "train"),
+                            device=DEV).batch(0)
+    base = DecoderLM(cfg, device=DEV).init(seed=0)
+
+    def grads(impl):
+        model = DecoderLM(cfg, device=DEV, impl=impl)
+        params = trainable(base)
+        loss, _ = model.loss(params, batch)
+        return float(loss.detach()), torch.autograd.grad(loss,
+                                                         leaves(params))
+
+    def worst(gs, ref):
+        """Largest per-leaf max |Δg| / max |g_ref|."""
+        return max(float((a.float() - r.float()).abs().max())
+                   / float(r.float().abs().max()) for a, r in zip(gs, ref))
+
+    l_ref, g_ref = grads("ref")
+    l_cuda, g_cuda = grads("cuda")
+    ok = worst(g_cuda, g_ref)
+    check(ok <= GRAD_REL_TOL, f"kernel grads vs plain: worst leaf {ok:.4f} "
+          f"of its max |g|, over {GRAD_REL_TOL}")
+    _, g_bad = grads(_shifted_backend())
+    bad = worst(g_bad, g_ref)
+    check(bad > GRAD_REL_TOL, f"the grad limit {GRAD_REL_TOL} does not "
+          f"reject a backward shifted by one position (worst leaf {bad:.4f})")
+    say(f"  loss kernels {l_cuda:.5f} vs plain {l_ref:.5f}; worst leaf "
+        f"max|Δg| / max|g|: kernels {ok:.4f} (limit {GRAD_REL_TOL}), "
+        f"shifted-mask control {bad:.4f} (rejected)")
+    del base, g_ref, g_cuda, g_bad
+    _free()
 
 
 # ----------------------------------------------------------------- phase 5
@@ -428,6 +692,78 @@ def time_paged(launches):
             "library_ms": None}
 
 
+def time_bwd(launches):
+    """Kernels C and D at the training shape (B 1, T 8192, 32 heads × 128,
+    bf16, causal).  The plain backward materialises (B, H, T, T) float32
+    tensors (some 50 GB at T 8192), so it is timed, and the kernels held to
+    it, at T 4096; the kernels' times are given at both lengths."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    B, H, D, T = 1, 32, 128, TRAIN_T
+    scale = D ** -0.5
+    m = mk.causal()
+
+    def inputs(T):
+        q, k, v, do = (randn(gen, (B, T, H, D), torch.bfloat16)
+                       for _ in range(4))
+        o, lse = flash_fwd(q, k, v, mask=m)
+        return q, k, v, do, o, lse
+
+    q, k, v, do, o, lse = inputs(T)
+    pl = _BwdPlan(q, k, v, o, lse, do, m, None, None, None, True)
+    dq_ms = cuda_ms(lambda: _launch_dq(pl, scale), reps=10, warmup=2)
+    dkv_ms = cuda_ms(lambda: _launch_dkv(pl, scale), reps=10, warmup=2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                              retain_graph=True),
+                  reps=10, warmup=2)
+    del pl, qt, kt, vt, out, dot, q, k, v, do, o, lse
+    _free()
+    Th = T // 2
+    q, k, v, do, o, lse = inputs(Th)
+    pl = _BwdPlan(q, k, v, o, lse, do, m, None, None, None, True)
+    dq_h = cuda_ms(lambda: _launch_dq(pl, scale), reps=10, warmup=2)
+    dkv_h = cuda_ms(lambda: _launch_dkv(pl, scale), reps=10, warmup=2)
+    got = flash_bwd(q, k, v, o, lse, do, mask=m)
+    ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m)
+    errs = [float((a.float() - r.float()).abs().max())
+            for a, r in zip(got, ref)]
+    del got, ref
+    _free()
+    plain = cuda_ms(lambda: chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m),
+                    reps=3, warmup=1)
+    del q, k, v, do, o, lse, pl
+    _free()
+    pairs = B * H * T * (T + 1) // 2
+    tensor = 2 * B * T * H * D                   # one bf16 (B,T,H,D)
+    stats = 4 * B * T * H                        # one float32 (B,T,H)
+    rows = []
+    for name, ms, ms_h, fl, nbytes, err, src_line in (
+            ("flash_bwd_dq", dq_ms, dq_h, 6.0 * D * pairs,
+             6 * tensor + 2 * stats, errs[0], 280),
+            ("flash_bwd_dkv", dkv_ms, dkv_h, 8.0 * D * pairs,
+             6 * tensor + 2 * stats, max(errs[1:]), 322)):
+        b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
+        say(f"  {name} B{B} T{T} H{H} D{D} bf16 causal: kernel {ms:.4f} ms "
+            f"({fl / ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms ({b_by}; "
+            f"{fl / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB); at T {Th}: "
+            f"kernel {ms_h:.4f} ms, max|Δ| vs plain {err:.3e}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                     "replaces": f"src/repro/kernels/flash_attention.py:"
+                                 f"{src_line}",
+                     "launches": launches[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib})
+    say(f"  pair C+D: kernels {dq_ms + dkv_ms:.4f} ms at T {T}; plain "
+        f"backward {plain:.4f} ms at T {Th} (kernels {dq_h + dkv_h:.4f} ms "
+        f"there); SDPA autograd backward {lib:.4f} ms at T {T}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -456,15 +792,26 @@ def main():
 
     say("== phase 3: kernels against their plain versions")
     kernel_checks()
+    bwd_checks()
 
     say("== phase 4: serve llama-7b")
     res = serve()
     say(f"  launches per decode step: paged_decode "
         f"{res['per_decode_step']:.1f}; per prefill chunk: flash_fwd "
         f"{res['per_chunk']:.1f}")
+    _free()
 
-    say("== phase 5: times at the serving shapes")
-    rows = [time_flash(res["launches"]), time_paged(res["launches"])]
+    say("== phase 6: train at llama-7b width")
+    tr = train()
+    say("== phase 6b: gradients against the plain path")
+    grad_check()
+
+    say("== phase 5: times at the shapes of each path")
+    launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
+                for k in res["launches"]}
+    say(f"  launches on the main paths: serve {res['launches']}, "
+        f"train {tr['launches']}")
+    rows = [time_flash(launches), time_paged(launches), *time_bwd(launches)]
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

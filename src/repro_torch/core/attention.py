@@ -1,4 +1,5 @@
-"""Chunk-attention API (port of the reference ``core/attention.py``).
+"""Chunk-attention API, forward and backward (port of the reference
+``core/attention.py``).
 
 A *partial* attention op returns ``(o, lse)`` for one (q-chunk, kv-chunk)
 pair; partials merge exactly with :func:`merge`.  The mask is a static
@@ -28,6 +29,20 @@ def chunk_attn(q, k, v, *, mask: MaskSpec | None = None, scale=None,
     be = registry.resolve(impl)
     return be.fwd(q, k, v, mask=mask, scale=scale, q_segments=q_segments,
                   kv_segments=kv_segments)
+
+
+def chunk_attn_bwd(q, k, v, o, lse, do, *, mask: MaskSpec | None = None,
+                   scale=None, impl=None, delta=None, q_segments=None,
+                   kv_segments=None, q_offset=None, kv_offset=None):
+    """FlashAttention-2 backward of one chunk from the saved (o, lse) — no
+    forward recompute.  ``delta = rowsum(o ⊙ do)`` may be precomputed.
+    ``q_offset``/``kv_offset`` fold into the mask as in :func:`chunk_attn`.
+    Returns (dq, dk, dv)."""
+    mask = mk.fold_offsets(mk.full() if mask is None else mask, q_offset,
+                           kv_offset)
+    be = registry.resolve(impl)
+    return be.bwd(q, k, v, o, lse, do, mask=mask, scale=scale, delta=delta,
+                  q_segments=q_segments, kv_segments=kv_segments)
 
 
 def paged_decode_attn(q, k_pool, v_pool, block_table, lengths, *,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -75,6 +75,40 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_shape(name: str) -> ShapeSpec:
     return SHAPES[name]
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How the mesh axes are used for a run.  The port runs on one card
+    (sequence-parallel size 1), where ``schedule`` has no effect yet; the
+    fields and defaults are the reference's."""
+    batch_axes: Tuple[str, ...] = ("data",)
+    seq_axis: str = "model"
+    extra_seq_axes: Tuple[str, ...] = ()
+    fsdp_axes: Tuple[str, ...] = ("data",)
+    schedule: str = "balanced"      # auto | balanced | ring | rsa | ulysses | zigzag
+    remat: str = "remat_aware"      # remat_aware | hf | none
+    head_axis: Optional[str] = None
+
+    @property
+    def seq_axes(self) -> Tuple[str, ...]:
+        axes = tuple(self.extra_seq_axes) + (self.seq_axis,)
+        if self.head_axis is not None:
+            axes += (self.head_axis,)
+        return axes
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    max_grad_norm: float = 1.0
+    seed: int = 0
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

@@ -184,6 +184,30 @@ def document(*, boundaries: Optional[Tuple[int, ...]] = None,
                     else tuple(boundaries))
 
 
+def doc_boundaries(T: int, n_docs: int) -> Tuple[int, ...]:
+    """Deterministic uneven packing layout: ``n_docs`` documents over a
+    length-``T`` sequence with lengths proportional to 1..n (remainder to
+    the last doc) — the reference's layout, shared with its data pipeline."""
+    if n_docs <= 1 or T < n_docs:
+        return (0,)
+    total = n_docs * (n_docs + 1) // 2
+    lens = [max(1, (i + 1) * T // total) for i in range(n_docs - 1)]
+    if sum(lens) >= T:                 # tiny T: fall back to equal split
+        lens = [T // n_docs] * (n_docs - 1)
+    starts = [0]
+    for ln in lens:
+        starts.append(starts[-1] + ln)
+    return tuple(starts)
+
+
+def segments_from_boundaries(T: int, boundaries: Tuple[int, ...]):
+    """(T,) int32 numpy segment ids of a static layout."""
+    seg = np.zeros((T,), np.int32)
+    for b in boundaries[1:]:
+        seg[b:] += 1
+    return seg
+
+
 def _static_int(x) -> int:
     """A Python int, a numpy integer, or a 0-d integer tensor, as an int."""
     if isinstance(x, torch.Tensor):

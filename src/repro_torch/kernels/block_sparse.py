@@ -4,7 +4,8 @@ reference ``kernels/block_sparse.py``).
 Because every MaskSpec is static, the set of (q-block, kv-block) tiles the
 mask can reach is known on the host before a launch.  The flash-forward
 wrapper (``flash_attention.py``) turns these ranges into a small int32
-table the kernel reads per q tile.
+table the kernel reads per q tile; the backward's dk/dv kernel reads the
+transposed table (:func:`q_block_bounds`) per kv tile.
 
 Q block ``i`` covers absolute query positions ``[q_offset + i*br,
 q_offset + (i+1)*br - 1]``; KV block ``j`` covers ``[kv_offset + j*bc,
@@ -80,10 +81,28 @@ def interior_kv_bounds(i: int, *, br: int, bc: int, nk: int,
     return lo, hi
 
 
+def q_block_bounds(j: int, *, br: int, bc: int, nq: int, mask: MaskSpec):
+    """Inclusive (lo, hi) of Q blocks that can attend to KV block ``j`` —
+    the transpose of :func:`kv_block_bounds`, swept by the dk/dv kernel."""
+    ks = mask.kv_offset + j * bc
+    ke = ks + bc - 1
+    qo = mask.q_offset
+    lo = max(0, _cdiv(ks - qo + 1, br) - 1) if mask.causal else 0
+    hi = (min(nq - 1, (ke + mask.window - 1 - qo) // br)
+          if mask.window else nq - 1)
+    if mask.prefix_len and ks < mask.prefix_len:
+        return 0, nq - 1                     # a prefix key: every query
+    if mask.document and mask.boundaries is not None:
+        lo = max(lo, max(0, _cdiv(mask.doc_start(ks) - qo + 1, br) - 1))
+        hi = min(hi, (mask.doc_end(ke) - qo) // br)
+    return lo, hi
+
+
 @dataclasses.dataclass(frozen=True)
 class GridProfile:
     """Static work profile of one pruned launch: ``row_counts[r]`` valid
-    KV blocks for q block ``r``."""
+    sequential blocks for row ``r`` (q blocks for the forward and dq, kv
+    blocks for dk/dv)."""
     rows: int
     cols: int
     row_counts: tuple
@@ -93,14 +112,27 @@ class GridProfile:
     executed_steps: int    # sum(row_counts)
 
 
+def _profile(rows: int, cols: int, counts) -> GridProfile:
+    counts = tuple(max(0, c) for c in counts)
+    seq = max(counts) if counts else 0
+    return GridProfile(rows=rows, cols=cols, row_counts=counts,
+                       seq_grid=seq, full_steps=rows * cols,
+                       launched_steps=rows * seq, executed_steps=sum(counts))
+
+
 def kv_profile(*, nq: int, nk: int, br: int, bc: int,
                mask: MaskSpec) -> GridProfile:
-    """Work profile of the forward orientation (rows = q blocks)."""
-    counts = []
-    for i in range(nq):
-        lo, hi = kv_block_bounds(i, br=br, bc=bc, nk=nk, mask=mask)
-        counts.append(max(0, hi - lo + 1))
-    seq = max(counts) if counts else 0
-    return GridProfile(rows=nq, cols=nk, row_counts=tuple(counts),
-                       seq_grid=seq, full_steps=nq * nk,
-                       launched_steps=nq * seq, executed_steps=sum(counts))
+    """Work profile of the forward / dq orientation (rows = q blocks)."""
+    return _profile(nq, nk, [
+        hi - lo + 1 for lo, hi in (kv_block_bounds(i, br=br, bc=bc, nk=nk,
+                                                   mask=mask)
+                                   for i in range(nq))])
+
+
+def q_profile(*, nq: int, nk: int, br: int, bc: int,
+              mask: MaskSpec) -> GridProfile:
+    """Work profile of the dk/dv orientation (rows = kv blocks)."""
+    return _profile(nk, nq, [
+        hi - lo + 1 for lo, hi in (q_block_bounds(j, br=br, bc=bc, nq=nq,
+                                                  mask=mask)
+                                   for j in range(nk))])

@@ -8,8 +8,9 @@ carries a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is reused.  Nothing here runs at import time: importing the
 package on a host without ``nvcc`` works, and only a CUDA launch builds.
 
-``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches by kernel name (``flash_bwd.cu`` holds
+two kernels, ``flash_bwd_dq`` and ``flash_bwd_dkv``); each wrapper adds one
+where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -23,11 +24,12 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_fwd", "paged_decode")
+KERNELS = ("flash_fwd", "paged_decode", "flash_bwd")       # sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "flash_fwd", "paged_decode", "flash_bwd_dq", "flash_bwd_dkv")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,5 +1,5 @@
-"""Plain PyTorch oracle for chunk attention (port of the reference
-``kernels/ref.py``).
+"""Plain PyTorch oracle for chunk attention, forward and backward (port of
+the reference ``kernels/ref.py``).
 
 Partial (chunk) attention: for one query chunk and one key/value chunk with
 absolute position offsets, return the output **and the log-sum-exp** of the
@@ -65,6 +65,48 @@ def chunk_attn_ref(q, k, v, *, mask: MaskSpec | None = None,
     o = o / denom.transpose(1, 2)[..., None]
     o = torch.where(empty.transpose(1, 2)[..., None], torch.zeros_like(o), o)
     return o.to(q.dtype), lse.transpose(1, 2).contiguous()
+
+
+def chunk_attn_bwd_ref(q, k, v, o, lse, do, *, mask: MaskSpec | None = None,
+                       scale: float | None = None, delta=None,
+                       q_segments=None, kv_segments=None):
+    """FlashAttention-2 backward of one chunk from the saved (o, lse).
+
+    ``delta = rowsum(o ⊙ do)`` (B, Tq, Hq) may be passed precomputed.  A
+    row whose lse is NEG_INF (nothing to attend) contributes nothing.
+    Returns (dq, dk, dv) in the dtypes of q, k, v; dk/dv are summed over
+    each GQA group.
+    """
+    spec = full() if mask is None else mask
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    of, dof = o.float(), do.float()
+    kr = kf.repeat_interleave(g, dim=2) if g > 1 else kf
+    vr = vf.repeat_interleave(g, dim=2) if g > 1 else vf
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    m = _allow(spec, Tq, Tk, q.device, q_segments, kv_segments)
+    if m is not None:
+        m = m[None, None] if m.ndim == 2 else m[:, None]
+        s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    lse_b = lse.float().transpose(1, 2)[..., None]       # (B,H,Tq,1)
+    p = torch.where(lse_b <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - lse_b))
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    if delta is None:
+        delta = (of * dof).sum(dim=-1)                   # (B,Tq,H)
+    dlt = delta.float().transpose(1, 2)[..., None]       # (B,H,Tq,1)
+    ds = p * (dp - dlt) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    if g > 1:
+        dk_h = dk_h.reshape(B, Tk, Hkv, g, D).sum(dim=3)
+        dv_h = dv_h.reshape(B, Tk, Hkv, g, -1).sum(dim=3)
+    return dq.to(q.dtype), dk_h.to(k.dtype), dv_h.to(v.dtype)
 
 
 def merge_ref(o1, lse1, o2, lse2):

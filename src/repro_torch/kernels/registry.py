@@ -1,12 +1,12 @@
 """Attention backend registry: two names.
 
   * ``cuda`` — the default: the kernel wrappers (``flash_attention.flash_fwd``,
-               ``paged.paged_attn``).  For CPU tensors they run their plain
-               versions; for CUDA tensors they launch the hand-written
-               Hopper kernels.
+               ``flash_attention.flash_bwd``, ``paged.paged_attn``).  For CPU
+               tensors they run their plain versions; for CUDA tensors they
+               launch the hand-written Hopper kernels.
   * ``ref``  — the plain PyTorch versions (``chunk_attn_ref``,
-               ``paged_attn_ref``) on any device: the oracle a caller may ask
-               for explicitly.
+               ``chunk_attn_bwd_ref``, ``paged_attn_ref``) on any device: the
+               oracle a caller may ask for explicitly.
 
 There is no downgrade walk: a CUDA call the kernel cannot serve (mask kind,
 dtype, head dim) raises in the kernel's wrapper.
@@ -14,26 +14,28 @@ dtype, head dim) raises in the kernel's wrapper.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Tuple
 
-from repro_torch.kernels.flash_attention import flash_fwd
+from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref
-from repro_torch.kernels.ref import chunk_attn_ref
+from repro_torch.kernels.ref import chunk_attn_bwd_ref, chunk_attn_ref
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """``fwd(q, k, v, *, mask, scale, q_segments, kv_segments) -> (o, lse)``;
-    ``paged_fwd(q, k_pool, v_pool, block_table, lengths, *, mask, scale)
-    -> o``."""
+    ``bwd(q, k, v, o, lse, do, *, mask, scale, delta, q_segments,
+    kv_segments) -> (dq, dk, dv)``; ``paged_fwd(q, k_pool, v_pool,
+    block_table, lengths, *, mask, scale) -> o``."""
     name: str
     fwd: Callable
     paged_fwd: Callable
+    bwd: Callable
 
 
 _REGISTRY = {
-    "ref": Backend("ref", chunk_attn_ref, paged_attn_ref),
-    "cuda": Backend("cuda", flash_fwd, paged_attn),
+    "ref": Backend("ref", chunk_attn_ref, paged_attn_ref, chunk_attn_bwd_ref),
+    "cuda": Backend("cuda", flash_fwd, paged_attn, flash_bwd),
 }
 
 
@@ -48,6 +50,10 @@ def get(name: str) -> Backend:
     return _REGISTRY[name]
 
 
-def resolve(impl: Optional[str]) -> Backend:
-    """The backend ``impl`` names, or ``cuda`` when it is None."""
+def resolve(impl) -> Backend:
+    """The backend ``impl`` names, ``cuda`` when it is None, or ``impl``
+    itself when it is a :class:`Backend` (a caller's own pair of
+    functions, e.g. a deliberately wrong backward as a test control)."""
+    if isinstance(impl, Backend):
+        return impl
     return get("cuda" if impl is None else impl)

@@ -68,3 +68,13 @@ def mlp_apply(p, x, eps=1e-5):
 def embed(table, tokens, dtype):
     """Embedding gather: (B, T) int tokens -> (B, T, d)."""
     return table[tokens.long()].to(dtype)
+
+
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy in float32; labels == -100 are ignored."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = labels.long()
+    ll = lf.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    w = (labels >= 0).float()
+    return ((lse - ll) * w).sum() / w.sum().clamp(min=1.0)

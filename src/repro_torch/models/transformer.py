@@ -1,6 +1,13 @@
-"""Dense decoder LM for paged serving (port of the serving half of the
-reference ``models/transformer.py``: ``DecoderLM.init``, ``prefill_chunk``,
-paged ``decode``, ``_head`` and the paged-write helpers).
+"""Dense decoder LM for training and paged serving (port of the reference
+``models/transformer.py``: ``DecoderLM.init``, ``loss`` with its dense layer
+stages, ``prefill_chunk``, paged ``decode``, ``_head`` and the paged-write
+helpers).
+
+Training runs each layer under the checkpoint policy of
+``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
+attention goes through ``core/dist_attention`` (kernel A forward, kernels C
+and D backward, on one card).  :func:`trainable` turns a parameter tree
+into leaf tensors that require gradients.
 
 The reference scans stacked layers with ``lax.scan``; here the parameters
 hold a Python list of per-layer dicts and the layers run in a loop.  The
@@ -11,7 +18,8 @@ and idle decode rows write there, and it is never read unmasked.
 
 :func:`load_reference_params` carries the reference's ``DecoderLM.init``
 pytree (nested dicts of numpy arrays, layers stacked on a leading L axis)
-into this layout.
+into this layout, and :func:`load_reference_opt_state` the reference's
+``AdamWState``.
 """
 from __future__ import annotations
 
@@ -23,8 +31,13 @@ import torch
 
 from repro_torch.core import mask as mk
 from repro_torch.core.attention import chunk_attn, paged_decode_attn
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ModelConfig, ParallelConfig
+from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
+                                             dist_attn_fwd, dist_flash_attn)
+from repro_torch.core.remat import apply_policy, remat_aware
+from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
+from repro_torch.optim.adamw import AdamWState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,16 +48,82 @@ def decode_mask(window) -> mk.MaskSpec:
     return mk.sliding_window(int(window)) if window else mk.causal()
 
 
-class DecoderLM:
-    """Dense / GQA Llama-family decoder (RMSNorm, rope, SwiGLU)."""
+# --------------------------------------------------------------------------
+# Training layer: stage functions feed the remat-aware combinator
+# --------------------------------------------------------------------------
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+def _attn_spec(cfg: ModelConfig, par: ParallelConfig, impl,
+               document: bool) -> DistAttnSpec:
+    mask = mk.MaskSpec(causal=True, window=int(cfg.attn.window or 0),
+                       document=document)
+    return DistAttnSpec(axis=par.seq_axis, axis_size=1,
+                        schedule=par.schedule, mask=mask, impl=impl)
+
+
+def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec):
+    """Stages over x = (h, cos, sin, seg): ``seg`` holds the packed
+    batch's document ids, or None."""
+    def pre(p, x):
+        h, cos, sin, seg = x
+        return L.attn_qkv(p["attn"], h, cfg, cos, sin) + (seg,)
+
+    def attn_fwd(qkv):
+        q, k, v, seg = qkv
+        return dist_attn_fwd(q, k, v, spec=spec, segments=seg)
+
+    def attn_bwd(qkv, o, lse, do):
+        q, k, v, seg = qkv
+        return dist_attn_bwd(q, k, v, o, lse, do, spec=spec, segments=seg)
+
+    def attn_diff(qkv):
+        q, k, v, seg = qkv
+        return dist_flash_attn(q, k, v, spec, seg)
+
+    return pre, attn_fwd, attn_bwd, attn_diff
+
+
+def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
+                      document: bool = False):
+    """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``."""
+    pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
+        cfg, _attn_spec(cfg, par, impl, document))
+
+    def post(p, x, o):
+        h2 = L.attn_out(p["attn"], x[0], o, cfg)
+        return L.mlp_apply(p["mlp"], h2, cfg.norm_eps)
+
+    if par.remat == "remat_aware":
+        return remat_aware(pre, attn_fwd, attn_bwd, post)
+
+    def plain(p, x):
+        o, _ = attn_diff(pre(p, x))
+        return post(p, x, o)
+
+    return apply_policy(plain, par.remat)
+
+
+def trainable(params) -> dict:
+    """The parameter tree as leaf tensors that require gradients (the same
+    storage, in the same dtype)."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+
+class DecoderLM:
+    """Dense / GQA Llama-family decoder (RMSNorm, rope, SwiGLU).
+
+    ``par`` sets the training checkpoint policy (``par.remat``); ``impl``
+    names the attention backend (``cuda``, the default, or ``ref``)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 par: Optional[ParallelConfig] = None, impl=None):
         if cfg.arch_type != "dense" or cfg.attn is None:
-            raise ValueError(f"the port serves dense GQA decoders (got "
+            raise ValueError(f"the port runs dense GQA decoders (got "
                              f"{cfg.arch_type!r})")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
+        self.par = ParallelConfig() if par is None else par
+        self.impl = impl
 
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
@@ -83,6 +162,35 @@ class DecoderLM:
         h = L.rms_norm(h, p["ln_f"], self.cfg.norm_eps)
         w = p["embed"].T if self.cfg.tie_embeddings else p["head"]
         return h @ w.to(h.dtype)
+
+    # ------------------------------------------------------------ train
+    def _embed(self, p, batch):
+        return L.embed(p["embed"], batch["tokens"].to(self.device),
+                       self.dtype)
+
+    def _backbone(self, p, h, cos, sin, seg=None):
+        """The layers under the checkpoint policy; ``seg`` = packed-batch
+        document ids (B, T) or None."""
+        layer = build_dense_layer(self.cfg, self.par, self.impl,
+                                  document=seg is not None)
+        for lp in p["layers"]:
+            h = layer(lp, (h, cos, sin, seg))
+        return h
+
+    def loss(self, p, batch):
+        """Mean next-token cross-entropy of ``batch`` = {tokens, labels
+        (B, T); optional segment_ids (B, T)}: ``(loss, {"ce": loss})``."""
+        a = self.cfg.attn
+        h = self._embed(p, batch)
+        cos, sin = L.rope_tables(torch.arange(h.shape[1], device=self.device),
+                                 a.head_dim, a.rope_theta)
+        seg = batch.get("segment_ids")
+        if seg is not None:
+            seg = seg.to(self.device)
+        h = self._backbone(p, h, cos, sin, seg)
+        ce = L.cross_entropy(self._head(p, h),
+                             batch["labels"].to(self.device))
+        return ce, {"ce": ce}
 
     def _layer(self, lp, h, attend, cos, sin):
         q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
@@ -228,3 +336,15 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                           stacked[grp].items()}
                     for grp in ("attn", "mlp")} for i in range(n)]
     return p
+
+
+def load_reference_opt_state(cfg: ModelConfig, state, device="cuda"
+                             ) -> AdamWState:
+    """Carry the reference ``AdamWState`` (``step``, and ``m``/``v`` trees
+    of numpy arrays in the reference's parameter layout) into the port's
+    :class:`~repro_torch.optim.adamw.AdamWState` with float32 moments."""
+    step, m, v = state
+    return AdamWState(
+        step=int(np.asarray(step)),
+        m=load_reference_params(cfg, m, device, torch.float32),
+        v=load_reference_params(cfg, v, device, torch.float32))

@@ -53,5 +53,8 @@ def test_port_covers_the_slice_layout():
                 "models/transformer.py", "serve/cache.py",
                 "serve/scheduler.py", "serve/faults.py", "serve/engine.py",
                 "launch/serve.py", "configs/llama_7b.py",
-                "configs/llama_gqa.py"):
+                "configs/llama_gqa.py", "kernels/csrc/flash_bwd.cu",
+                "core/remat.py", "core/dist_attention.py", "core/tree.py",
+                "optim/adamw.py", "train/step.py", "data/pipeline.py",
+                "launch/train.py"):
         assert (PORT / rel).is_file(), rel

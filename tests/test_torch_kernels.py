@@ -3,10 +3,10 @@
 The same numpy-seeded inputs go through the reference (the Pallas kernels
 in interpret mode, and the pure-jnp oracle) and through the port's kernel
 wrappers, which on a CPU tensor run their plain PyTorch versions.  Bars are
-the reference's own: chunk forward o 1e-5 and lse 1e-4 in float32
-(tests/test_kernels.py), paged decode 2e-5 (tests/test_paged_cache.py).
-The port's host-side block-sparse planning must equal the reference's
-range math exactly.
+the reference's own: chunk forward o 1e-5 and lse 1e-4 in float32, chunk
+backward 2e-4 in float32 and 5e-2 in bf16 (tests/test_kernels.py), paged
+decode 2e-5 (tests/test_paged_cache.py).  The port's host-side
+block-sparse planning must equal the reference's range math exactly.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +19,12 @@ from repro.kernels import ops
 from repro.kernels.paged import paged_attn_pallas
 from repro.kernels.ref import chunk_attn_ref as r_chunk_attn_ref
 from repro_torch.core import mask as tmk
-from repro_torch.core.attention import chunk_attn, merge
+from repro_torch.core.attention import chunk_attn, chunk_attn_bwd, merge
 from repro_torch.kernels import block_sparse as tbs
-from repro_torch.kernels.flash_attention import flash_fwd, tile_bounds
+from repro_torch.kernels.flash_attention import (flash_bwd, flash_fwd,
+                                                 q_tile_bounds, tile_bounds)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref
-from repro_torch.kernels.ref import NEG_INF, chunk_attn_ref
+from repro_torch.kernels.ref import NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref
 
 O_TOL, LSE_TOL, PAGED_TOL = 1e-5, 1e-4, 2e-5
 
@@ -199,6 +200,90 @@ def test_tile_bounds_plan():
                tile_bounds(tmk.causal(rel_offset=-500), 128, 128))
 
 
+def test_q_block_bounds_equal_reference_and_cover_the_forward():
+    """Kernel D's transposed plan equals the reference's, and every kv
+    block a q block's forward range reaches sweeps that q block back."""
+    for seed in (0, 1, 2):
+        for kw, qo, ko in _random_specs(seed, 40):
+            rm = rmk.MaskSpec(q_offset=qo, kv_offset=ko, **kw)
+            tm = tmk.MaskSpec(q_offset=qo, kv_offset=ko, **kw)
+            for br, bc, nq, nk in [(64, 64, 4, 8), (32, 128, 6, 3),
+                                   (128, 32, 2, 16)]:
+                for j in range(nk):
+                    a = tuple(int(x) for x in rbs.q_block_bounds(
+                        j, br=br, bc=bc, nq=nq, mask=rm))
+                    assert a == tbs.q_block_bounds(j, br=br, bc=bc, nq=nq,
+                                                   mask=tm), (kw, qo, ko, j)
+                assert dataclasses_eq(
+                    rbs.q_profile(nq=nq, nk=nk, br=br, bc=bc, mask=rm),
+                    tbs.q_profile(nq=nq, nk=nk, br=br, bc=bc, mask=tm))
+            rows = tile_bounds(tm, 200, 300)
+            cols = q_tile_bounds(tm, 200, 300)
+            for i, (lo, hi, _, _) in enumerate(rows):
+                for j in range(lo, hi + 1):
+                    assert cols[j][0] <= i <= cols[j][1], (kw, qo, ko, i, j)
+
+
+# the reference's own sweep (tests/test_kernels.py CASES):
+# (B, Tq, Tk, Hq, Hkv, D, causal, rel, window, dtype)
+BWD_CASES = [
+    (1, 128, 128, 2, 2, 64, True, 0, 0, "float32"),
+    (2, 128, 128, 4, 2, 64, False, 256, 0, "float32"),
+    (1, 256, 128, 2, 1, 32, False, 512, 300, "float32"),
+    (1, 64, 64, 2, 2, 16, True, 0, 0, "float32"),
+    (1, 128, 256, 8, 8, 128, False, 512, 0, "float32"),
+    (2, 128, 128, 2, 2, 64, True, 0, 100, "float32"),
+    (1, 128, 128, 2, 2, 64, True, 0, 0, "bfloat16"),
+    (1, 256, 256, 3, 1, 64, True, 0, 0, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_matches_reference_kernel(case):
+    B, Tq, Tk, Hq, Hkv, D, causal, rel, window, dt = case
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, B, Tq, Tk, Hq, Hkv, D)
+    do = rng.standard_normal((B, Tq, Hq, D)).astype(np.float32)
+    r_mask = rmk.MaskSpec(causal=causal, window=window, q_offset=rel)
+    t_mask = tmk.MaskSpec(causal=causal, window=window, q_offset=rel)
+    jd, td = jnp.dtype(dt), getattr(torch, dt)
+    jq, jk, jv, jdo = (jnp.asarray(x, jd) for x in (q, k, v, do))
+    o, lse = r_chunk_attn_ref(jq, jk, jv, mask=r_mask)
+    ref = ops.flash_bwd(jq, jk, jv, o, lse, jdo, mask=r_mask, interpret=True)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(td) for x in (q, k, v, do))
+    to = torch.from_numpy(np.array(o, np.float32)).to(td)
+    got = flash_bwd(tq, tk, tv, to, torch.from_numpy(np.array(lse)), tdo,
+                    mask=t_mask)
+    tol = 2e-4 if dt == "float32" else 5e-2
+    for a, r in zip(got, ref):
+        assert a.dtype == td
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r, np.float32), atol=tol,
+                                   rtol=tol)
+
+
+def test_chunk_attn_bwd_folds_offsets_and_takes_delta():
+    """Offsets fold into the mask as in chunk_attn; a passed delta gives
+    the same result; fully masked rows contribute nothing; the ``ref``
+    backend is the plain backward."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, 1, 64, 96, 4, 2, 32))
+    do = torch.from_numpy(rng.standard_normal((1, 64, 4, 32)).astype(
+        np.float32))
+    m = tmk.causal()
+    o, lse = chunk_attn(q, k, v, mask=m, q_offset=np.int64(-16))
+    a = chunk_attn_bwd(q, k, v, o, lse, do, mask=m, q_offset=np.int64(-16))
+    b = chunk_attn_bwd_ref(q, k, v, o, lse, do,
+                           mask=tmk.causal(rel_offset=-16),
+                           delta=(o * do).sum(-1))
+    c = chunk_attn_bwd(q, k, v, o, lse, do, mask=m, q_offset=-16,
+                       impl="ref")
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, z)
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-6)
+    assert float(a[0][:, :16].abs().max()) == 0.0   # rows that see no key
+
+
 # ----------------------------------------------------------------- paged
 
 def _paged_inputs(seed, B, Tq, Hq, Hkv, D, bs, nb, N, lengths):
@@ -265,6 +350,8 @@ def test_registry_defaults_to_cuda_and_runs_plain_on_cpu():
     assert registry.names() == ("cuda", "ref")
     assert registry.resolve(None).name == "cuda"
     assert registry.resolve("ref").fwd is chunk_attn_ref
+    assert registry.resolve("ref").bwd is chunk_attn_bwd_ref
+    assert registry.resolve(None).bwd is flash_bwd
     with pytest.raises(ValueError, match="unknown"):
         registry.resolve("pallas")
     q, k, v = (torch.from_numpy(x) for x in
