@@ -12,6 +12,8 @@ Phases, each fatal on failure (nothing is caught):
                 cases; tolerances: forward float32 1e-5 (paged 2e-5), bf16
                 2e-2; backward (kernels C and D) float32 2e-4, bf16 5e-2,
                 and the pruned sweep equal to the dense one within 1e-6.
+                bf16 outputs of A, C and D are also held element by element
+                to 3e-2 of their own size (``rel_err``).
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -30,15 +32,22 @@ Phases, each fatal on failure (nothing is caught):
                 no step be skipped; then 1 step under ``hf``, which must
                 launch A 16 times, and 1 under ``none``, both giving step
                 1's loss again; peak memory per policy.  A torch.profiler
-                window over one more step shows where the time goes.
+                window over one more step shows where the time goes, and
+                that step's attention inputs are kept for 6a and 5.
+  6a. main    — kernels A, C and D on those inputs (T 8192), against their
+                plain versions head slice by head slice, to the phase-3
+                limits; the relative limit must reject a plain backward
+                that never visits the last 64-key tile.
   6b. grads   — at 2 layers and T 1024, full width: per leaf, max |Δg|
                 between the kernels and the plain attention is at most 5%
                 of the leaf's max |g|, and the same limit rejects a plain
                 backward whose causal mask is shifted by one position.
-  5. times    — each kernel at the shapes of its path: its time (CUDA
-                events, median after warm-up), its plain version's, a
-                library call's where one exists, and the least time the
-                card could take.
+  5. times    — each kernel at the shapes of its path (C and D on the
+                inputs kept in phase 6): its time (CUDA events, median
+                after warm-up), its plain version's at the same shape, a
+                library call's where one exists (for C and D, SDPA's
+                backward of the pair, marked ``library_covers``), and the
+                least time the card could take.
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -76,6 +85,11 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# bf16 outputs are also held element by element to their own size (see
+# rel_err): two bf16 roundings of one float32 value differ by at most 2^-7
+# of it, and a sweep that skips a 64-key tile moves small outputs (late
+# rows, last keys) by far more than that.
+REL_TOL, REL_FLOOR = 3e-2, 1e-3
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 LOGIT_REL_TOL = 5e-2          # bf16, 32 layers: |Δ| ≤ 5% of max |logit|
@@ -114,6 +128,15 @@ def randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
 
+def rel_err(a, r):
+    """max |a - r| / (|r| + REL_FLOOR · max |r|) over the elements: the
+    error in units of each element's own size.  The floor keeps float32
+    summation noise on outputs that cancel to ~0 from dominating."""
+    a, r = a.float(), r.float()
+    floor = REL_FLOOR * r.abs().max().clamp_min(1e-30)
+    return float(((a - r).abs() / (r.abs() + floor)).max())
+
+
 # ----------------------------------------------------------------- phase 3
 
 def _flash_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False):
@@ -139,8 +162,14 @@ def _flash_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False):
           f"flash_fwd {name}: lse err {lerr}")
     check(bool(torch.isfinite(o.float()).all()),
           f"flash_fwd {name}: non-finite")
+    rel = ""
+    if dtype == torch.bfloat16:
+        r = rel_err(o, o_r)
+        check(r <= REL_TOL, f"flash_fwd {name}: relative err {r} over "
+              f"{REL_TOL}")
+        rel = f"  rel {r:.2e} (limit {REL_TOL})"
     say(f"  A {name:<28} {str(dtype)[6:]:<9} max|Δo| {err:.3e}  "
-        f"max|Δlse| {lerr:.3e}  tol {tol}")
+        f"max|Δlse| {lerr:.3e}  tol {tol}{rel}")
 
 
 def _paged_inputs(gen, B, Tq, Hq, Hkv, D, bs, lengths, dtype):
@@ -242,7 +271,7 @@ def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
     ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=mask, **kw)
     dense = flash_bwd(q, k, v, o, lse, do, mask=mask, prune=False, **kw)
     tol = BWD_TOL[dtype]
-    errs = []
+    errs, rels = [], []
     for nm, a, r, d in zip(("dq", "dk", "dv"), got, ref, dense):
         check(a.shape == r.shape and a.dtype == r.dtype,
               f"flash_bwd {name}: {nm} {tuple(a.shape)} {a.dtype}")
@@ -254,9 +283,15 @@ def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
         pd = float((a.float() - d.float()).abs().max())
         check(pd <= 1e-6, f"flash_bwd {name}: {nm} pruned vs dense {pd}")
         errs.append(err)
+        if dtype == torch.bfloat16:
+            rels.append(rel_err(a, r))
+            check(rels[-1] <= REL_TOL, f"flash_bwd {name}: {nm} relative "
+                  f"err {rels[-1]} over {REL_TOL}")
+    rel = (f"; rel {'/'.join(f'{x:.2e}' for x in rels)} (limit {REL_TOL})"
+           if rels else "")
     say(f"  C/D {name:<26} {str(dtype)[6:]:<9} max|Δdq| {errs[0]:.3e}  "
         f"max|Δdk| {errs[1]:.3e}  max|Δdv| {errs[2]:.3e}  tol {tol}; "
-        f"pruned == dense")
+        f"pruned == dense{rel}")
 
 
 def bwd_checks():
@@ -283,6 +318,8 @@ def bwd_checks():
               mk.sliding_window(300))
     _bwd_case(gen, "train B1 T2048 H32 causal", 1, 2048, 2048, 32, 32, 128,
               bf, mk.causal())
+    _bwd_case(gen, "train B1 T2048 H32 causal", 1, 2048, 2048, 32, 32, 128,
+              f32, mk.causal())
     # statically fully masked chunk: zeros without a launch
     q = randn(gen, (1, 128, 2, 32), f32)
     m = mk.causal(rel_offset=-1000)
@@ -490,10 +527,39 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _train_policy(cfg, policy, batches, tc, profile_step=False):
+def _capturing(seen):
+    """The ``cuda`` backend, which also keeps the arguments of its first
+    forward and first backward call in ``seen`` once ``seen["armed"]`` is
+    set: the inputs the training path gives kernels A, C and D."""
+    cuda = registry.get("cuda")
+
+    def fwd(*a, **kw):
+        if seen.get("armed"):
+            seen.setdefault("fwd", (a, kw))
+        return cuda.fwd(*a, **kw)
+
+    def bwd(*a, **kw):
+        if seen.get("armed"):
+            seen.setdefault("bwd", (a, kw))
+        return cuda.bwd(*a, **kw)
+    return dataclasses.replace(cuda, fwd=fwd, bwd=bwd)
+
+
+def _moved(call, dev):
+    """A captured ``(args, kwargs)`` with its tensors on ``dev``."""
+    a, kw = call
+    to = (lambda x: x.to(dev) if torch.is_tensor(x) else x)
+    return tuple(map(to, a)), {k: to(x) for k, x in kw.items()}
+
+
+def _train_policy(cfg, policy, batches, tc, seen=None):
     """``len(batches)`` steps from the seed-0 init under ``policy``: losses,
-    step seconds (CUDA events), launches and peak device memory."""
-    model = DecoderLM(cfg, device=DEV, par=ParallelConfig(remat=policy))
+    step seconds (CUDA events), launches and peak device memory.  With
+    ``seen``, one more step runs under torch.profiler and leaves the inputs
+    of its first attention forward (layer 1) and first attention backward
+    (layer 8) in ``seen``, on the host."""
+    model = DecoderLM(cfg, device=DEV, par=ParallelConfig(remat=policy),
+                      impl=None if seen is None else _capturing(seen))
     params = trainable(model.init(seed=0))
     opt = adamw.init(params)
     step = make_train_step(model, tc)
@@ -511,8 +577,9 @@ def _train_policy(cfg, policy, batches, tc, profile_step=False):
         out.append((m, s.elapsed_time(e) / 1e3))
     launches = {k: build.LAUNCHES[k] for k in BWD_KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    if profile_step:
+    if seen is not None:
         from torch.profiler import ProfilerActivity, profile
+        seen["armed"] = True
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -520,6 +587,8 @@ def _train_policy(cfg, policy, batches, tc, profile_step=False):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         show_breakdown(f"one {policy} training step", prof, wall)
+        for k in ("fwd", "bwd"):
+            seen[k] = _moved(seen[k], "cpu")
     del model, params, opt, step
     _free()
     return out, launches, peak
@@ -536,8 +605,9 @@ def train():
     batches = [ds.batch(i) for i in range(n)]
     say(f"  {cfg.name} width, {L} of 32 layers ({cfg.param_count() / 1e9:.2f}"
         f" B params), B 1 T {T}, bf16 params, fp32 moments, lr {tc.lr}")
+    seen = {}
     runs, launches, peak = _train_policy(cfg, "remat_aware", batches, tc,
-                                         profile_step=True)
+                                         seen=seen)
     for i, (m, sec) in enumerate(runs):
         check(m["skipped_nonfinite"] == 0, f"step {i + 1} was skipped")
         check(np.isfinite(m["loss"]), f"step {i + 1}: loss {m['loss']}")
@@ -566,7 +636,94 @@ def train():
                 f"{k} {got[k]}" for k in BWD_KERNELS)
             + f"; peak memory {peaks[policy] / 2**30:.2f} GiB")
     return dict(launches=launches, losses=[m["loss"] for m, _ in runs],
-                tok_s=tok_s, peaks=peaks)
+                tok_s=tok_s, peaks=peaks, seen=seen)
+
+
+HEAD_SLICE = 8      # heads per plain-version call at T 8192 (2.1 GB each
+                    # (h, T, T) float32 tensor)
+
+
+def _head_slices(q, k):
+    """(q-head slice, kv-head slice) pairs covering every head."""
+    g = q.shape[2] // k.shape[2]
+    check(HEAD_SLICE % g == 0, f"head slice {HEAD_SLICE} splits a group")
+    return [(slice(h, h + HEAD_SLICE), slice(h // g, (h + HEAD_SLICE) // g))
+            for h in range(0, q.shape[2], HEAD_SLICE)]
+
+
+def _bwd_slice(args, kw, sq, skv):
+    """The backward's inputs restricted to one head slice."""
+    q, k, v, o, lse, do = args
+    kw = dict(kw)
+    if kw.get("delta") is not None:
+        kw["delta"] = kw["delta"][:, :, sq]
+    return (q[:, :, sq], k[:, :, skv], v[:, :, skv], o[:, :, sq],
+            lse[:, :, sq], do[:, :, sq]), kw
+
+
+def main_path_checks(seen):
+    """Kernels A, C and D on the inputs the training path gave them (B 1,
+    T 8192, 32 heads × 128, bf16, causal), each held against its plain
+    version head slice by head slice, and the same limits held to a plain
+    backward that never visits the last 64-key tile, which they must
+    reject."""
+    (q, k, v), kw = _moved(seen["fwd"], DEV)
+    check(kw["mask"] == mk.causal() and q.dtype == torch.bfloat16
+          and q.shape == (1, TRAIN_T, 32, 128),
+          f"training attention {kw['mask']} {q.dtype} {tuple(q.shape)}")
+    o, lse = flash_fwd(q, k, v, **kw)
+    e_o = r_o = e_lse = lse_max = 0.0
+    for sq, skv in _head_slices(q, k):
+        o_r, lse_r = chunk_attn_ref(q[:, :, sq], k[:, :, skv], v[:, :, skv],
+                                    **kw)
+        e_o = max(e_o, float((o[:, :, sq].float() - o_r.float()).abs()
+                             .max()))
+        r_o = max(r_o, rel_err(o[:, :, sq], o_r))
+        e_lse = max(e_lse, float((lse[:, :, sq] - lse_r).abs().max()))
+        lse_max = max(lse_max, float(lse_r.abs().max()))
+    say(f"  A  layer-1 forward: max|Δo| {e_o:.3e} rel {r_o:.2e} (limit "
+        f"{REL_TOL}), max|Δlse| {e_lse:.3e}")
+    check(r_o <= REL_TOL and e_o <= TOL[torch.bfloat16],
+          f"flash_fwd on the training path: o err {e_o}, rel {r_o}")
+    check(e_lse <= LSE_TOL * (1 + lse_max),
+          f"flash_fwd on the training path: lse err {e_lse}")
+    del q, k, v, o, lse, o_r, lse_r
+    args, kw = _moved(seen["bwd"], DEV)
+    got = flash_bwd(*args, **kw)
+    e_abs, e_rel, e_bad = [0.0] * 3, [0.0] * 3, None
+    tol = BWD_TOL[torch.bfloat16]
+    for sq, skv in _head_slices(args[0], args[1]):
+        a_s, kw_s = _bwd_slice(args, kw, sq, skv)
+        ref = chunk_attn_bwd_ref(*a_s, **kw_s)
+        mine = (got[0][:, :, sq], got[1][:, :, skv], got[2][:, :, skv])
+        for i, (a, r) in enumerate(zip(mine, ref)):
+            check(torch.allclose(a.float(), r.float(), atol=tol, rtol=tol),
+                  f"flash_bwd on the training path: output {i} over {tol}")
+            e_abs[i] = max(e_abs[i], float((a.float() - r.float()).abs()
+                                           .max()))
+            e_rel[i] = max(e_rel[i], rel_err(a, r))
+        if e_bad is None:             # the control, on the first slice
+            q, k, v, o, lse, do = a_s
+            cut = k.shape[1] - 64
+            bq, bk, bv = chunk_attn_bwd_ref(q, k[:, :cut], v[:, :cut], o,
+                                            lse, do, **kw_s)
+            pad = torch.zeros_like(k[:, cut:])
+            bad = (bq, torch.cat([bk, pad], 1), torch.cat([bv, pad], 1))
+            e_bad = [rel_err(b, r) for b, r in zip(bad, ref)]
+            del bad, bq, bk, bv
+        del ref
+    say(f"  C/D layer-8 backward: max|Δdq| {e_abs[0]:.3e} max|Δdk| "
+        f"{e_abs[1]:.3e} max|Δdv| {e_abs[2]:.3e} (tol {tol}); rel dq/dk/dv "
+        + "/".join(f"{x:.2e}" for x in e_rel) + f" (limit {REL_TOL}); "
+        "control without the last kv tile: rel "
+        + "/".join(f"{x:.2e}" for x in e_bad))
+    check(max(e_rel) <= REL_TOL, f"flash_bwd on the training path: relative "
+          f"errors {e_rel} over {REL_TOL}")
+    check(min(e_bad) > REL_TOL, f"the limit {REL_TOL} does not reject a "
+          f"backward without the last kv tile (rel {e_bad})")
+    del got, args
+    _free()
+    return {"flash_bwd_dq": e_abs[0], "flash_bwd_dkv": max(e_abs[1:])}
 
 
 def _shifted_backend():
@@ -692,26 +849,30 @@ def time_paged(launches):
             "library_ms": None}
 
 
-def time_bwd(launches):
-    """Kernels C and D at the training shape (B 1, T 8192, 32 heads × 128,
-    bf16, causal).  The plain backward materialises (B, H, T, T) float32
-    tensors (some 50 GB at T 8192), so it is timed, and the kernels held to
-    it, at T 4096; the kernels' times are given at both lengths."""
-    gen = torch.Generator(device=DEV).manual_seed(5)
-    B, H, D, T = 1, 32, 128, TRAIN_T
-    scale = D ** -0.5
-    m = mk.causal()
-
-    def inputs(T):
-        q, k, v, do = (randn(gen, (B, T, H, D), torch.bfloat16)
-                       for _ in range(4))
-        o, lse = flash_fwd(q, k, v, mask=m)
-        return q, k, v, do, o, lse
-
-    q, k, v, do, o, lse = inputs(T)
-    pl = _BwdPlan(q, k, v, o, lse, do, m, None, None, None, True)
+def time_bwd(launches, seen, errs):
+    """Kernels C and D on the training path's own backward inputs (B 1,
+    T 8192, 32 heads × 128, bf16, causal).  Each kernel's plain version is
+    the plain backward computing just its part (``only=``), run over every
+    head slice in turn, so it covers the same work at the same shape.  No
+    single library call computes dq or dk/dv alone: the library figure is
+    SDPA's autograd backward, which computes the pair, and both rows say
+    so."""
+    (q, k, v, o, lse, do), kw = _moved(seen["bwd"], DEV)
+    B, T, H, D = q.shape
+    scale = D ** -0.5 if kw["scale"] is None else kw["scale"]
+    pl = _BwdPlan(q, k, v, o, lse, do, kw["mask"], kw.get("delta"),
+                  kw.get("q_segments"), kw.get("kv_segments"), True)
     dq_ms = cuda_ms(lambda: _launch_dq(pl, scale), reps=10, warmup=2)
     dkv_ms = cuda_ms(lambda: _launch_dkv(pl, scale), reps=10, warmup=2)
+    slices = [_bwd_slice((q, k, v, o, lse, do), kw, sq, skv)
+              for sq, skv in _head_slices(q, k)]
+
+    def plain(only):
+        return lambda: [chunk_attn_bwd_ref(*a, **k2, only=only)
+                        for a, k2 in slices]
+    plain_ms = {"flash_bwd_dq": cuda_ms(plain("dq"), reps=3, warmup=1),
+                "flash_bwd_dkv": cuda_ms(plain("dkv"), reps=3, warmup=1)}
+    _free()
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
@@ -720,47 +881,33 @@ def time_bwd(launches):
     lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                               retain_graph=True),
                   reps=10, warmup=2)
-    del pl, qt, kt, vt, out, dot, q, k, v, do, o, lse
-    _free()
-    Th = T // 2
-    q, k, v, do, o, lse = inputs(Th)
-    pl = _BwdPlan(q, k, v, o, lse, do, m, None, None, None, True)
-    dq_h = cuda_ms(lambda: _launch_dq(pl, scale), reps=10, warmup=2)
-    dkv_h = cuda_ms(lambda: _launch_dkv(pl, scale), reps=10, warmup=2)
-    got = flash_bwd(q, k, v, o, lse, do, mask=m)
-    ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m)
-    errs = [float((a.float() - r.float()).abs().max())
-            for a, r in zip(got, ref)]
-    del got, ref
-    _free()
-    plain = cuda_ms(lambda: chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m),
-                    reps=3, warmup=1)
-    del q, k, v, do, o, lse, pl
+    del pl, slices, qt, kt, vt, out, dot, q, k, v, o, lse, do
     _free()
     pairs = B * H * T * (T + 1) // 2
     tensor = 2 * B * T * H * D                   # one bf16 (B,T,H,D)
     stats = 4 * B * T * H                        # one float32 (B,T,H)
     rows = []
-    for name, ms, ms_h, fl, nbytes, err, src_line in (
-            ("flash_bwd_dq", dq_ms, dq_h, 6.0 * D * pairs,
-             6 * tensor + 2 * stats, errs[0], 280),
-            ("flash_bwd_dkv", dkv_ms, dkv_h, 8.0 * D * pairs,
-             6 * tensor + 2 * stats, max(errs[1:]), 322)):
+    for name, ms, fl, nbytes, src_line in (
+            ("flash_bwd_dq", dq_ms, 6.0 * D * pairs, 6 * tensor + 2 * stats,
+             280),
+            ("flash_bwd_dkv", dkv_ms, 8.0 * D * pairs, 6 * tensor + 2 * stats,
+             322)):
         b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
         say(f"  {name} B{B} T{T} H{H} D{D} bf16 causal: kernel {ms:.4f} ms "
-            f"({fl / ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms ({b_by}; "
-            f"{fl / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB); at T {Th}: "
-            f"kernel {ms_h:.4f} ms, max|Δ| vs plain {err:.3e}")
+            f"({fl / ms / 1e9:.1f} TFLOP/s), plain {plain_ms[name]:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {fl / 1e12:.3f} TFLOP, "
+            f"{nbytes / 1e6:.1f} MB), max|Δ| vs plain {errs[name]:.3e}")
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
                      "replaces": f"src/repro/kernels/flash_attention.py:"
                                  f"{src_line}",
-                     "launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib})
-    say(f"  pair C+D: kernels {dq_ms + dkv_ms:.4f} ms at T {T}; plain "
-        f"backward {plain:.4f} ms at T {Th} (kernels {dq_h + dkv_h:.4f} ms "
-        f"there); SDPA autograd backward {lib:.4f} ms at T {T}")
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib,
+                     "library_covers": "flash_bwd_dq+flash_bwd_dkv"})
+    say(f"  pair C+D at T {T}: kernels {dq_ms + dkv_ms:.4f} ms, plain "
+        f"{sum(plain_ms.values()):.4f} ms (each part on its own), SDPA "
+        f"autograd backward {lib:.4f} ms")
     return rows
 
 
@@ -803,6 +950,8 @@ def main():
 
     say("== phase 6: train at llama-7b width")
     tr = train()
+    say("== phase 6a: kernels A, C and D on the training path's inputs")
+    errs = main_path_checks(tr["seen"])
     say("== phase 6b: gradients against the plain path")
     grad_check()
 
@@ -811,7 +960,8 @@ def main():
                 for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}")
-    rows = [time_flash(launches), time_paged(launches), *time_bwd(launches)]
+    rows = [time_flash(launches), time_paged(launches),
+            *time_bwd(launches, tr["seen"], errs)]
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

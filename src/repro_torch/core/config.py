@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -79,23 +79,11 @@ def get_shape(name: str) -> ShapeSpec:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """How the mesh axes are used for a run.  The port runs on one card
-    (sequence-parallel size 1), where ``schedule`` has no effect yet; the
-    fields and defaults are the reference's."""
-    batch_axes: Tuple[str, ...] = ("data",)
-    seq_axis: str = "model"
-    extra_seq_axes: Tuple[str, ...] = ()
-    fsdp_axes: Tuple[str, ...] = ("data",)
-    schedule: str = "balanced"      # auto | balanced | ring | rsa | ulysses | zigzag
+    """How a run is laid out.  The port runs on one card, so the only
+    choice is the checkpoint policy; the reference's mesh axes and
+    ``schedule`` arrive with the multi-rank schedules slice, which reads
+    them."""
     remat: str = "remat_aware"      # remat_aware | hf | none
-    head_axis: Optional[str] = None
-
-    @property
-    def seq_axes(self) -> Tuple[str, ...]:
-        axes = tuple(self.extra_seq_axes) + (self.seq_axis,)
-        if self.head_axis is not None:
-            axes += (self.head_axis,)
-        return axes
 
 
 @dataclass(frozen=True)

@@ -37,14 +37,15 @@ _MASK_HINT = ("mask=repro_torch.core.mask.{full,causal,sliding_window,"
 class DistAttnSpec:
     """Static description of one distributed-attention call site.
 
-    ``schedule`` ∈ :data:`SCHEDULES` (validated: a typo raises).  ``mask``
+    ``axis_size`` is the number of sequence-parallel ranks; the port runs
+    ``axis_size == 1``, and the mesh axis name arrives with the schedules
+    slice.  ``schedule`` ∈ :data:`SCHEDULES` (validated: a typo raises).  ``mask``
     is the MaskSpec of the whole (unsharded) attention and must be
     offset-free; it defaults to causal.  The removed ``causal=`` /
     ``window=`` kwargs raise ``TypeError``.  The mask/schedule checks for
     ``axis_size > 1`` are the reference's, so a spec the reference refuses
     is refused here too.
     """
-    axis: str = "model"
     axis_size: int = 1
     schedule: str = "balanced"
     mask: Optional[MaskSpec] = None

@@ -69,14 +69,17 @@ def chunk_attn_ref(q, k, v, *, mask: MaskSpec | None = None,
 
 def chunk_attn_bwd_ref(q, k, v, o, lse, do, *, mask: MaskSpec | None = None,
                        scale: float | None = None, delta=None,
-                       q_segments=None, kv_segments=None):
+                       q_segments=None, kv_segments=None, only=None):
     """FlashAttention-2 backward of one chunk from the saved (o, lse).
 
     ``delta = rowsum(o ⊙ do)`` (B, Tq, Hq) may be passed precomputed.  A
     row whose lse is NEG_INF (nothing to attend) contributes nothing.
     Returns (dq, dk, dv) in the dtypes of q, k, v; dk/dv are summed over
-    each GQA group.
+    each GQA group.  ``only="dq"`` or ``only="dkv"`` computes just that
+    part (the others are None): the plain version of kernel C or D alone.
     """
+    if only not in (None, "dq", "dkv"):
+        raise ValueError(f"only must be None, 'dq' or 'dkv', got {only!r}")
     spec = full() if mask is None else mask
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
@@ -95,18 +98,22 @@ def chunk_attn_bwd_ref(q, k, v, o, lse, do, *, mask: MaskSpec | None = None,
     lse_b = lse.float().transpose(1, 2)[..., None]       # (B,H,Tq,1)
     p = torch.where(lse_b <= NEG_INF / 2, torch.zeros_like(s),
                     torch.exp(s - lse_b))
-    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
     if delta is None:
         delta = (of * dof).sum(dim=-1)                   # (B,Tq,H)
     dlt = delta.float().transpose(1, 2)[..., None]       # (B,H,Tq,1)
     ds = p * (dp - dlt) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
-    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    if g > 1:
-        dk_h = dk_h.reshape(B, Tk, Hkv, g, D).sum(dim=3)
-        dv_h = dv_h.reshape(B, Tk, Hkv, g, -1).sum(dim=3)
-    return dq.to(q.dtype), dk_h.to(k.dtype), dv_h.to(v.dtype)
+    dq = dk = dv = None
+    if only != "dkv":
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr).to(q.dtype)
+    if only != "dq":
+        dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+        if g > 1:
+            dk_h = dk_h.reshape(B, Tk, Hkv, g, D).sum(dim=3)
+            dv_h = dv_h.reshape(B, Tk, Hkv, g, -1).sum(dim=3)
+        dk, dv = dk_h.to(k.dtype), dv_h.to(v.dtype)
+    return dq, dk, dv
 
 
 def merge_ref(o1, lse1, o2, lse2):

@@ -5,8 +5,9 @@
         [--device cpu]
 
 Weights come from seed 0 and batches from ``SyntheticTokens`` (seed 0).
-On one card the sequence-parallel size is 1, so ``--schedule`` has no
-effect yet.  Runs on ``cuda`` unless ``--device cpu`` is given.
+The run takes one card, with no sequence-parallel axis: the reference's
+``--schedule``, ``--mesh`` and ``--seq-shards`` come with the multi-rank
+schedules slice.  Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -35,8 +36,6 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--schedule", default="balanced",
-                    choices=("balanced", "ring", "ulysses"))
     ap.add_argument("--remat", default="remat_aware",
                     choices=("remat_aware", "hf", "none"))
     ap.add_argument("--log-every", type=int, default=10)
@@ -47,11 +46,10 @@ def main(argv=None):
     if args.smoke:
         cfg = smoke_config(cfg)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
-    par = ParallelConfig(schedule=args.schedule, remat=args.remat)
-    model = DecoderLM(cfg, device=args.device, par=par)
+    model = DecoderLM(cfg, device=args.device,
+                      par=ParallelConfig(remat=args.remat))
     print(f"arch={cfg.name} params≈{cfg.param_count() / 1e6:.1f}M "
-          f"device={model.device} schedule={args.schedule} "
-          f"remat={args.remat}")
+          f"device={model.device} remat={args.remat}")
     if model.device.type == "cuda":        # nvcc at first use, not timed
         build.build_all()
 

@@ -52,12 +52,10 @@ def decode_mask(window) -> mk.MaskSpec:
 # Training layer: stage functions feed the remat-aware combinator
 # --------------------------------------------------------------------------
 
-def _attn_spec(cfg: ModelConfig, par: ParallelConfig, impl,
-               document: bool) -> DistAttnSpec:
+def _attn_spec(cfg: ModelConfig, impl, document: bool) -> DistAttnSpec:
     mask = mk.MaskSpec(causal=True, window=int(cfg.attn.window or 0),
                        document=document)
-    return DistAttnSpec(axis=par.seq_axis, axis_size=1,
-                        schedule=par.schedule, mask=mask, impl=impl)
+    return DistAttnSpec(axis_size=1, mask=mask, impl=impl)
 
 
 def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec):
@@ -86,7 +84,7 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
                       document: bool = False):
     """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``."""
     pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
-        cfg, _attn_spec(cfg, par, impl, document))
+        cfg, _attn_spec(cfg, impl, document))
 
     def post(p, x, o):
         h2 = L.attn_out(p["attn"], x[0], o, cfg)

@@ -284,6 +284,28 @@ def test_chunk_attn_bwd_folds_offsets_and_takes_delta():
     assert float(a[0][:, :16].abs().max()) == 0.0   # rows that see no key
 
 
+@pytest.mark.parametrize("only", ["dq", "dkv"])
+def test_plain_bwd_parts_equal_the_whole(only):
+    """``only=`` (the plain version of kernel C or D alone) gives exactly
+    that part of the whole backward, GQA sums included."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, 1, 64, 64, 4, 2, 32))
+    do = torch.from_numpy(rng.standard_normal((1, 64, 4, 32)).astype(
+        np.float32))
+    m = tmk.sliding_window(20)
+    o, lse = chunk_attn_ref(q, k, v, mask=m)
+    whole = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m)
+    part = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m, only=only)
+    keep = (0,) if only == "dq" else (1, 2)
+    for i in range(3):
+        if i in keep:
+            assert torch.equal(part[i], whole[i])
+        else:
+            assert part[i] is None
+    with pytest.raises(ValueError, match="only"):
+        chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m, only="dk")
+
+
 # ----------------------------------------------------------------- paged
 
 def _paged_inputs(seed, B, Tq, Hq, Hkv, D, bs, nb, N, lengths):

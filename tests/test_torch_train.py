@@ -364,3 +364,16 @@ def test_dist_attn_single_card_only_and_local_kernels():
     want = torch.autograd.grad(o_r, (q, k, v), do.detach())
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)
+
+
+def test_train_cli_runs_on_cpu_and_has_no_schedule_flag(capsys):
+    """The training CLI trains the smoke config on the CPU; the schedule
+    flag, which one card cannot honour, is refused rather than ignored."""
+    from repro_torch.launch import train as cli
+    assert cli.main(["--arch", "llama-gqa", "--smoke", "--device", "cpu",
+                     "--steps", "2", "--seq", "32", "--batch", "1",
+                     "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "step     1 loss" in out and "skipped" not in out
+    with pytest.raises(SystemExit):
+        cli.main(["--smoke", "--device", "cpu", "--schedule", "ring"])
