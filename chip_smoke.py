@@ -6,14 +6,18 @@
 Phases, each fatal on failure (nothing is caught):
 
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
-  2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``.
+  2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
+                ptxas' registers and spills of kernels C and D's tensor-core
+                route, with their shared memory; no spill at D = 128.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
                 cases; tolerances: forward float32 1e-5 (paged 2e-5), bf16
                 2e-2; backward (kernels C and D) float32 2e-4, bf16 5e-2,
                 and the pruned sweep equal to the dense one within 1e-6.
-                bf16 outputs of A, C and D are also held element by element
-                to 3e-2 of their own size (``rel_err``).
+                bf16 outputs of A are also held element by element to 3e-2
+                of their own size (``rel_err``); bf16 outputs of C and D
+                row by row to 2e-2 of each row's norm (``row_rel_err``),
+                since their tensor-core route rounds p and ds to bf16.
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -36,8 +40,10 @@ Phases, each fatal on failure (nothing is caught):
                 that step's attention inputs are kept for 6a and 5.
   6a. main    — kernels A, C and D on those inputs (T 8192), against their
                 plain versions head slice by head slice, to the phase-3
-                limits; the relative limit must reject a plain backward
-                that never visits the last 64-key tile.
+                limits; the per-row limit must reject a plain backward
+                that never visits the last 64-key tile.  SDPA's backward on
+                the same inputs is printed under the same gate, as a
+                calibration.
   6b. grads   — at 2 layers and T 1024, full width: per leaf, max |Δg|
                 between the kernels and the plain attention is at most 5%
                 of the leaf's max |g|, and the same limit rejects a plain
@@ -47,7 +53,9 @@ Phases, each fatal on failure (nothing is caught):
                 after warm-up), its plain version's at the same shape, a
                 library call's where one exists (for C and D, SDPA's
                 backward of the pair, marked ``library_covers``), and the
-                least time the card could take.
+                least time the card could take.  Kernel A also at the
+                training shape (its layer-1 inputs, T 8192, causal), beside
+                its bound and SDPA's causal forward (``train_*`` keys).
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -75,7 +83,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttnFn, _BwdPlan, _launch_dkv, _launch_dq, flash_bwd, flash_fwd)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref)
+    NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, row_rel_err)
 from repro_torch.models.transformer import DecoderLM, trainable  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
@@ -85,11 +93,23 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
-# bf16 outputs are also held element by element to their own size (see
-# rel_err): two bf16 roundings of one float32 value differ by at most 2^-7
-# of it, and a sweep that skips a 64-key tile moves small outputs (late
-# rows, last keys) by far more than that.
+# bf16 outputs of kernel A are also held element by element to their own
+# size (see rel_err): two bf16 roundings of one float32 value differ by at
+# most 2^-7 of it, and a sweep that skips a 64-key tile moves small outputs
+# (late rows, last keys) by far more than that.
 REL_TOL, REL_FLOOR = 3e-2, 1e-3
+# bf16 outputs of C and D are held row by row instead (row_rel_err; a row
+# is one query's dq or one key's dk / dv in one head): the tensor-core
+# route rounds p and ds to bf16 before the second products (C takes ds as
+# two bf16 terms), as every tensor-core backward does, which moves single
+# small elements by far more than one bf16 step of their size but a row by
+# ~2^-8 of its norm (a CPU emulation at T 512: 4.6e-3), while a sweep
+# without the last 64-key tile moves rows by 0.1 to 1.
+ROW_TOL = 2e-2
+BWD_DESIGN = ("bf16: wgmma m64n64k16 on the tensor cores (sm_90a), float32 "
+              "accumulators, swizzled bf16 tiles double-buffered by 16-byte "
+              "cp.async, ds into dq as two bf16 terms; float32: IEEE FMAs "
+              "on the CUDA cores")
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 LOGIT_REL_TOL = 5e-2          # bf16, 32 layers: |Δ| ≤ 5% of max |logit|
@@ -284,10 +304,10 @@ def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
         check(pd <= 1e-6, f"flash_bwd {name}: {nm} pruned vs dense {pd}")
         errs.append(err)
         if dtype == torch.bfloat16:
-            rels.append(rel_err(a, r))
-            check(rels[-1] <= REL_TOL, f"flash_bwd {name}: {nm} relative "
-                  f"err {rels[-1]} over {REL_TOL}")
-    rel = (f"; rel {'/'.join(f'{x:.2e}' for x in rels)} (limit {REL_TOL})"
+            rels.append(row_rel_err(a, r))
+            check(rels[-1] <= ROW_TOL, f"flash_bwd {name}: {nm} per-row "
+                  f"relative err {rels[-1]} over {ROW_TOL}")
+    rel = (f"; row {'/'.join(f'{x:.2e}' for x in rels)} (limit {ROW_TOL})"
            if rels else "")
     say(f"  C/D {name:<26} {str(dtype)[6:]:<9} max|Δdq| {errs[0]:.3e}  "
         f"max|Δdk| {errs[1]:.3e}  max|Δdv| {errs[2]:.3e}  tol {tol}; "
@@ -299,21 +319,24 @@ def bwd_checks():
     training shape."""
     gen = torch.Generator(device=DEV).manual_seed(4)
     bf, f32 = torch.bfloat16, torch.float32
-    _bwd_case(gen, "causal d128", 1, 256, 256, 4, 4, 128, f32, mk.causal())
-    _bwd_case(gen, "sliding_window 70 d64", 1, 256, 256, 4, 1, 64, f32,
-              mk.sliding_window(70))
-    _bwd_case(gen, "prefix_lm 70 d32", 1, 192, 192, 4, 2, 32, f32,
-              mk.prefix_lm(70))
-    _bwd_case(gen, "document boundaries", 1, 256, 256, 4, 4, 64, f32,
-              mk.document(boundaries=(0, 37, 150, 151)))
-    _bwd_case(gen, "document segments gqa", 2, 128, 256, 4, 2, 32, f32,
-              mk.document(), segs=True)
-    _bwd_case(gen, "gqa Hkv2 Tq!=Tk offset", 2, 100, 300, 8, 2, 64, f32,
-              mk.causal(rel_offset=200))
-    _bwd_case(gen, "empty rows q_offset -64", 1, 128, 128, 2, 2, 32, f32,
-              mk.causal(rel_offset=-64))
-    _bwd_case(gen, "full kv_offset, delta in", 1, 64, 200, 4, 4, 32, f32,
-              mk.MaskSpec(q_offset=10, kv_offset=3), pass_delta=True)
+    # every edge case on both routes: float32 (CUDA cores), bf16 (wgmma)
+    for dt in (f32, bf):
+        _bwd_case(gen, "causal d128", 1, 256, 256, 4, 4, 128, dt,
+                  mk.causal())
+        _bwd_case(gen, "sliding_window 70 d64", 1, 256, 256, 4, 1, 64, dt,
+                  mk.sliding_window(70))
+        _bwd_case(gen, "prefix_lm 70 d32", 1, 192, 192, 4, 2, 32, dt,
+                  mk.prefix_lm(70))
+        _bwd_case(gen, "document boundaries", 1, 256, 256, 4, 4, 64, dt,
+                  mk.document(boundaries=(0, 37, 150, 151)))
+        _bwd_case(gen, "document segments gqa", 2, 128, 256, 4, 2, 32, dt,
+                  mk.document(), segs=True)
+        _bwd_case(gen, "gqa Hkv2 Tq!=Tk offset", 2, 100, 300, 8, 2, 64, dt,
+                  mk.causal(rel_offset=200))
+        _bwd_case(gen, "empty rows q_offset -64", 1, 128, 128, 2, 2, 32, dt,
+                  mk.causal(rel_offset=-64))
+        _bwd_case(gen, "full kv_offset, delta in", 1, 64, 200, 4, 4, 32, dt,
+                  mk.MaskSpec(q_offset=10, kv_offset=3), pass_delta=True)
     _bwd_case(gen, "window gqa bf16", 1, 512, 512, 32, 8, 128, bf,
               mk.sliding_window(300))
     _bwd_case(gen, "train B1 T2048 H32 causal", 1, 2048, 2048, 32, 32, 128,
@@ -448,8 +471,8 @@ def _device_breakdown(prof, wall):
         name = ev.key
         key = ("kernel A flash_fwd" if "flash_fwd_kernel" in name else
                "kernel B paged_decode" if "paged_decode_kernel" in name else
-               "kernel C flash_bwd_dq" if "flash_bwd_dq_kernel" in name else
-               "kernel D flash_bwd_dkv" if "flash_bwd_dkv_kernel" in name else
+               "kernel C flash_bwd_dq" if "flash_bwd_dq" in name else
+               "kernel D flash_bwd_dkv" if "flash_bwd_dkv" in name else
                "matmul (cuBLAS)" if any(t in name.lower() for t in
                                         ("gemm", "gemv", "xmma", "cutlass",
                                          "splitk", "nvjet"))
@@ -661,6 +684,20 @@ def _bwd_slice(args, kw, sq, skv):
             lse[:, :, sq], do[:, :, sq]), kw
 
 
+def _sdpa_bwd(q, k, v, do, scale):
+    """SDPA's causal forward and autograd backward of (q, k, v) for the
+    cotangent do, in the (B, T, H, D) layout: the library yardstick of
+    kernels C and D, never called by the port.  Returns (o, (dq, dk, dv))."""
+    qt, kt, vt = (x.transpose(1, 2).detach().contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale,
+        enable_gqa=qt.shape[1] != kt.shape[1])
+    g = torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    return (out.detach().transpose(1, 2),
+            tuple(x.transpose(1, 2) for x in g))
+
+
 def main_path_checks(seen):
     """Kernels A, C and D on the inputs the training path gave them (B 1,
     T 8192, 32 heads × 128, bf16, causal), each held against its plain
@@ -690,7 +727,7 @@ def main_path_checks(seen):
     del q, k, v, o, lse, o_r, lse_r
     args, kw = _moved(seen["bwd"], DEV)
     got = flash_bwd(*args, **kw)
-    e_abs, e_rel, e_bad = [0.0] * 3, [0.0] * 3, None
+    e_abs, e_row, e_bad, e_lib = [0.0] * 3, [0.0] * 3, None, None
     tol = BWD_TOL[torch.bfloat16]
     for sq, skv in _head_slices(args[0], args[1]):
         a_s, kw_s = _bwd_slice(args, kw, sq, skv)
@@ -701,7 +738,7 @@ def main_path_checks(seen):
                   f"flash_bwd on the training path: output {i} over {tol}")
             e_abs[i] = max(e_abs[i], float((a.float() - r.float()).abs()
                                            .max()))
-            e_rel[i] = max(e_rel[i], rel_err(a, r))
+            e_row[i] = max(e_row[i], row_rel_err(a, r))
         if e_bad is None:             # the control, on the first slice
             q, k, v, o, lse, do = a_s
             cut = k.shape[1] - 64
@@ -709,18 +746,27 @@ def main_path_checks(seen):
                                             lse, do, **kw_s)
             pad = torch.zeros_like(k[:, cut:])
             bad = (bq, torch.cat([bk, pad], 1), torch.cat([bv, pad], 1))
-            e_bad = [rel_err(b, r) for b, r in zip(bad, ref)]
+            e_bad = [row_rel_err(b, r) for b, r in zip(bad, ref)]
             del bad, bq, bk, bv
+            # SDPA's backward uses its own forward's output in delta =
+            # rowsum(o ⊙ do), so it is held to the plain backward from that
+            # output
+            o_lib, g_lib = _sdpa_bwd(q, k, v, do, kw_s.get("scale"))
+            ref_lib = chunk_attn_bwd_ref(q, k, v, o_lib, lse, do, **kw_s)
+            e_lib = [row_rel_err(b, r) for b, r in zip(g_lib, ref_lib)]
+            del o_lib, g_lib, ref_lib
         del ref
     say(f"  C/D layer-8 backward: max|Δdq| {e_abs[0]:.3e} max|Δdk| "
-        f"{e_abs[1]:.3e} max|Δdv| {e_abs[2]:.3e} (tol {tol}); rel dq/dk/dv "
-        + "/".join(f"{x:.2e}" for x in e_rel) + f" (limit {REL_TOL}); "
-        "control without the last kv tile: rel "
-        + "/".join(f"{x:.2e}" for x in e_bad))
-    check(max(e_rel) <= REL_TOL, f"flash_bwd on the training path: relative "
-          f"errors {e_rel} over {REL_TOL}")
-    check(min(e_bad) > REL_TOL, f"the limit {REL_TOL} does not reject a "
-          f"backward without the last kv tile (rel {e_bad})")
+        f"{e_abs[1]:.3e} max|Δdv| {e_abs[2]:.3e} (tol {tol}); per-row dq/dk/"
+        "dv " + "/".join(f"{x:.2e}" for x in e_row) + f" (limit {ROW_TOL}); "
+        "control without the last kv tile: per-row "
+        + "/".join(f"{x:.2e}" for x in e_bad) + "; SDPA's backward "
+        "(calibration, first head slice): per-row "
+        + "/".join(f"{x:.2e}" for x in e_lib))
+    check(max(e_row) <= ROW_TOL, f"flash_bwd on the training path: per-row "
+          f"errors {e_row} over {ROW_TOL}")
+    check(min(e_bad) > ROW_TOL, f"the limit {ROW_TOL} does not reject a "
+          f"backward without the last kv tile (per-row {e_bad})")
     del got, args
     _free()
     return {"flash_bwd_dq": e_abs[0], "flash_bwd_dkv": max(e_abs[1:])}
@@ -778,6 +824,42 @@ def grad_check():
 
 # ----------------------------------------------------------------- phase 5
 
+def ptxas_kernels(text):
+    """{kernel name: (registers, spill bytes)} from nvcc's ``-Xptxas -v``
+    output, by the entry function each report follows."""
+    out, name, spill = {}, None, 0
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif "spill stores" in line and name:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = nums[1] + nums[2]     # spill stores, spill loads
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            out[name] = (regs, spill)
+    return out
+
+
+def tensor_core_report(text):
+    """Registers, spills and shared memory of kernels C and D's
+    tensor-core route at each head dim; none may spill at D = 128."""
+    import ctypes
+    smem = build.load("flash_bwd_sm90").repro_flash_bwd_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    seen = 0
+    for mangled, (regs, spill) in sorted(ptxas_kernels(text).items()):
+        kernel = 0 if "dq_wgmma" in mangled else 1
+        d = int(mangled.split("ILi")[1].split("E")[0])
+        say(f"  ptxas {'C dq' if kernel == 0 else 'D dkv'} wgmma D={d}: "
+            f"{regs} registers, {spill} bytes spilled, "
+            f"{smem(kernel, d)} bytes dynamic shared memory")
+        check(d != 128 or spill == 0, f"kernel {mangled} spills {spill} "
+              f"bytes at D = 128")
+        seen += d == 128
+    check(seen == 2, "ptxas reported no D = 128 tensor-core kernels")
+
+
 def bound(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -817,6 +899,37 @@ def time_flash(launches):
             "launches": launches["flash_fwd"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib}
+
+
+def time_flash_train(seen):
+    """Kernel A at the training shape: the layer-1 forward inputs kept in
+    phase 6 (B 1, T 8192, 32 heads × 128, bf16, causal), beside its bound,
+    its plain version over head slices and SDPA's causal forward."""
+    (q, k, v), kw = _moved(seen["fwd"], DEV)
+    B, T, H, D = q.shape
+    ms = cuda_ms(lambda: flash_fwd(q, k, v, **kw), reps=10, warmup=2)
+    slices = _head_slices(q, k)
+    plain = cuda_ms(lambda: [chunk_attn_ref(q[:, :, sq], k[:, :, skv],
+                                            v[:, :, skv], **kw)
+                             for sq, skv in slices], reps=3, warmup=1)
+    _free()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=kw.get("scale"),
+        enable_gqa=H != k.shape[2]), reps=10, warmup=2)
+    pairs = B * H * T * (T + 1) // 2
+    flops = 4.0 * D * pairs
+    nbytes = 2 * B * T * D * (2 * H + 2 * k.shape[2]) + 4 * B * T * H
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    say(f"  flash_fwd  B{B} T{T} H{H} D{D} bf16 causal (training shape): "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / ms:.4f} of the bound), plain {plain:.4f} ms, sdpa "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e12:.3f} "
+        f"TFLOP, {nbytes / 1e6:.1f} MB)")
+    del q, k, v, qt, kt, vt
+    _free()
+    return {"train_ms": ms, "train_plain_ms": plain, "train_bound_ms": b_ms,
+            "train_bound_by": b_by, "train_library_ms": lib}
 
 
 def time_paged(launches):
@@ -894,11 +1007,13 @@ def time_bwd(launches, seen, errs):
              322)):
         b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
         say(f"  {name} B{B} T{T} H{H} D{D} bf16 causal: kernel {ms:.4f} ms "
-            f"({fl / ms / 1e9:.1f} TFLOP/s), plain {plain_ms[name]:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}; {fl / 1e12:.3f} TFLOP, "
-            f"{nbytes / 1e6:.1f} MB), max|Δ| vs plain {errs[name]:.3e}")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            f"({fl / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.4f} of the bound), "
+            f"plain {plain_ms[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{fl / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), max|Δ| vs plain "
+            f"{errs[name]:.3e}")
+        rows.append({"name": name, "route": "cuda", "design": BWD_DESIGN,
+                     "source":
+                         "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
                      "replaces": f"src/repro/kernels/flash_attention.py:"
                                  f"{src_line}",
                      "launches": launches[name], "max_abs_err": errs[name],
@@ -931,11 +1046,13 @@ def main():
     say("== phase 2: build")
     t0 = time.perf_counter()
     report = build.build_all()
-    say(f"  built {list(report)} in {time.perf_counter() - t0:.1f} s")
+    say(f"  {list(report)} built from the checkout's sources in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in report.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    tensor_core_report(report["flash_bwd_sm90"])
 
     say("== phase 3: kernels against their plain versions")
     kernel_checks()
@@ -962,6 +1079,7 @@ def main():
         f"train {tr['launches']}")
     rows = [time_flash(launches), time_paged(launches),
             *time_bwd(launches, tr["seen"], errs)]
+    rows[0].update(time_flash_train(tr["seen"]))
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ carries a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is reused.  Nothing here runs at import time: importing the
 package on a host without ``nvcc`` works, and only a CUDA launch builds.
 
-``LAUNCHES`` counts kernel launches by kernel name (``flash_bwd.cu`` holds
-two kernels, ``flash_bwd_dq`` and ``flash_bwd_dkv``); each wrapper adds one
-where it launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches by kernel name: ``flash_bwd_dq`` and
+``flash_bwd_dkv`` (kernels C and D) each count one route or the other,
+``flash_bwd_sm90.cu`` for bf16 and ``flash_bwd.cu`` for float32; each
+wrapper adds one where it launches its kernel, and nowhere else.  Headers
+(``csrc/*.cuh``) are part of every source's hash.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_fwd", "paged_decode", "flash_bwd")       # sources
+KERNELS = ("flash_fwd", "paged_decode", "flash_bwd",        # sources
+           "flash_bwd_sm90")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,17 +58,18 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{h}.so"
 
 
 def build_all() -> Dict[str, str]:
     """Compile every kernel library that is not built yet, in parallel.
-    Returns nvcc's output (with ptxas' register and spill report) for each
-    kernel it built; raises with that output on failure."""
+    Returns nvcc's output (with ptxas' register and spill report) for every
+    kernel, kept beside each library as ``.log``; raises with that output
+    on failure."""
     with _LOCK:
         todo = {n: _target(n) for n in KERNELS if not _target(n).exists()}
-        report = {}
         if todo:
             build_dir().mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
@@ -80,16 +84,18 @@ def build_all() -> Dict[str, str]:
             failed = []
             for name, (tmp, out, proc) in procs.items():
                 text, _ = proc.communicate()
-                report[name] = text
                 if proc.returncode:
                     failed.append(f"--- nvcc {name}.cu (rc "
                                   f"{proc.returncode}) ---\n{text}")
                 else:
+                    out.with_suffix(".log").write_text(text)
                     os.replace(tmp, out)
             if failed:
                 raise RuntimeError("kernel build failed:\n"
                                    + "\n".join(failed))
-        return report
+        logs = {n: _target(n).with_suffix(".log") for n in KERNELS}
+        return {n: p.read_text() if p.exists() else ""
+                for n, p in logs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

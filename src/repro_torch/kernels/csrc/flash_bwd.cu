@@ -1,29 +1,26 @@
-// Kernels C and D: the FlashAttention-2 backward of one partial attention
-// chunk, written by hand for Hopper (sm_90a), with plain C entry points bound
-// via ctypes.  Together with kernel A (flash_fwd.cu) they are the complete
-// gradient of a chunk: from the saved (o, lse) they give dq, dk and dv, and
-// they never rerun the forward.
+// Kernels C and D, float32 route: the FlashAttention-2 backward of one
+// partial attention chunk for float32 inputs, written by hand for Hopper
+// (sm_90a), with plain C entry points bound via ctypes.  bf16 inputs, the
+// training path's dtype, take the tensor-core route (flash_bwd_sm90.cu);
+// this file keeps IEEE float32 FMAs on the CUDA cores, which the float32
+// parity bar (2e-4, no TF32) needs.  Together with kernel A
+// (flash_fwd.cu) the pair is the complete gradient of a chunk: from the
+// saved (o, lse) it gives dq, dk and dv, and never reruns the forward.
 //
 // Replaces the TPU kernels of the JAX package's `flash_bwd_bhtd`
-// (src/repro/kernels/flash_attention.py):
+// (src/repro/kernels/flash_attention.py) for float32:
 //   C `_dq_kernel`  (:280, pallas_call at :417) -> flash_bwd_dq_kernel
 //   D `_dkv_kernel` (:322, pallas_call at :450) -> flash_bwd_dkv_kernel
 //
-// Bound on the H100: operations, at the training shape.  One llama-7b
-// attention backward (B 1, T 8192, 32 heads of 128, bf16, causal) has
-// 1.07e9 unmasked (row, key) pairs.  C does 6·D FLOPs per pair (s = q·kᵀ,
-// dp = do·vᵀ, dq += ds·k) and D does 8·D (s, dp, dv += pᵀ·do, dk += dsᵀ·q):
-// 0.82 and 1.10 TFLOP over about 0.40 GB each, some 2,000 FLOP per byte,
-// far above the card's ridge of 295 FLOP/byte.  So the least times are the
-// bf16 tensor-core rate's 0.83 and 1.11 ms.  This first version does every
-// product with IEEE float32 FMAs on the CUDA cores (float32 parity needs
-// them, and no TF32), so its ceiling is the card's 67 TFLOP/s of float32 and
-// its time is set by FMA throughput and shared-memory traffic; tensor-core
-// `mma`/`wgmma` for bf16 is later work.  What the design does about the
-// bound: no score, probability or ds tile reaches device memory; the host
-// tables skip every tile the mask cannot reach (half of them, causally);
-// the element-wise mask runs only on edge tiles; and D sums dk and dv over
-// the GQA group on chip, so nothing is reduced in device memory afterwards.
+// Bound on the H100: operations.  C does 6·D FLOPs per unmasked (row, key)
+// pair (s = q·kᵀ, dp = do·vᵀ, dq += ds·k) and D does 8·D (s, dp, dv += pᵀ·do,
+// dk += dsᵀ·q), some 2,000 FLOP per byte at T 8192, far above the card's
+// ridge; in float32 outside the tensor cores the ceiling is 67 TFLOP/s.
+// What the design does about the bound: no score, probability or ds tile
+// reaches device memory; the host tables skip every tile the mask cannot
+// reach (half of them, causally); the element-wise mask runs only on edge
+// tiles; and D sums dk and dv over the GQA group on chip, so nothing is
+// reduced in device memory afterwards.
 //
 // Design.
 //   C: one block (256 threads) per (64-row q tile, query head, batch row).
@@ -47,65 +44,20 @@
 // attend) gives p = 0, as the reference's `lse <= NEG_INF / 2` rule.
 // Shared memory at D = 128 is 150 KB (C) and 166 KB (D), above the 48 KB
 // default, so each launch raises the kernel's dynamic shared-memory limit.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_bwd_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using repro_bwd::BwdParams;
+using repro_bwd::Shape;
+using repro_bwd::allowed;
+using repro_bwd::kNegInf;
+
 constexpr int BR = 64;   // q rows per tile
 constexpr int BC = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  const float* lse;   // (B, Tq, Hq)
-  float* delta;       // (B, Tq, Hq): written by C when compute_delta
-  void* dq;
-  void* dk;
-  void* dv;
-  const int* bounds;   // (nq, 4): kv-tile lo, hi, interior lo, interior hi
-  const int* qbounds;  // (nk, 2): q-tile lo, hi
-  const int* qseg;     // (B, Tq) segment ids, batch stride qs_sb (may be 0)
-  const int* kseg;     // (B, Tk)
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long o_sb, o_st, o_sh;
-  long long do_sb, do_st, do_sh;
-  long long dq_sb, dq_st, dq_sh;
-  long long dk_sb, dk_st, dk_sh;
-  long long dv_sb, dv_st, dv_sh;
-  long long qs_sb, ks_sb;
-  int Tq, Tk, Hq, group;
-  int causal, window, prefix_len, q_offset, kv_offset, has_seg, masked;
-  int compute_delta;
-  float scale;
-};
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// The MaskSpec of one (query, key) position pair (core/mask.py).
-__device__ __forceinline__ bool allowed(const BwdParams& a, int qp, int kp,
-                                        const int* qs, const int* ks) {
-  const bool pre = a.prefix_len > 0 && kp < a.prefix_len;
-  bool ok = true;
-  if (a.causal) ok = kp <= qp || pre;
-  if (ok && a.window > 0) ok = qp - kp < a.window || pre;
-  if (ok && a.has_seg) ok = *qs == *ks || pre;
-  return ok;
-}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -124,20 +76,20 @@ constexpr size_t dkv_smem_bytes() {
 
 // Loads rows [t0, t0 + 64) of one head of a (B, T, H, D) tensor into a
 // padded float tile; rows at or past T read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long st, int t0, int T_len) {
   constexpr int DP = D + 1;
   for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
     const int i = idx / D, d = idx - i * D;
     const int t = t0 + i;
-    dst[i * DP + d] = t < T_len ? load_f(base + t * st + d) : 0.f;
+    dst[i * DP + d] = t < T_len ? base[t * st + d] : 0.f;
   }
 }
 
 // ---------------------------------------------------------------- kernel C
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
   constexpr int DP = D + 1;
   constexpr int PP = BC + 1;
@@ -162,13 +114,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
   const int lo = a.bounds[4 * qt], hi = a.bounds[4 * qt + 1];
   const int ilo = a.bounds[4 * qt + 2], ihi = a.bounds[4 * qt + 3];
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* dob =
+      static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  load_tile<T, D>(sQ, qb, a.q_st, q0, a.Tq);
-  load_tile<T, D>(sDO, dob, a.do_st, q0, a.Tq);
+  load_tile<D>(sQ, qb, a.q_st, q0, a.Tq);
+  load_tile<D>(sDO, dob, a.do_st, q0, a.Tq);
   if (tid < BR) {
     const int t = q0 + tid;
     const long long si = ((long long)b * a.Tq + t) * a.Hq + h;
@@ -178,14 +131,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
   }
   if (a.compute_delta) {  // delta = rowsum(o ⊙ do): one warp per row
     __syncthreads();
-    const T* ob = static_cast<const T*>(a.o) + b * a.o_sb + h * a.o_sh;
+    const float* ob =
+        static_cast<const float*>(a.o) + b * a.o_sb + h * a.o_sh;
     const int warp = tid >> 5, lane = tid & 31;
     for (int i = warp; i < BR; i += NT / 32) {
       const int t = q0 + i;
       float acc = 0.f;
       if (t < a.Tq)
         for (int d = lane; d < D; d += 32)
-          acc = fmaf(load_f(ob + t * a.o_st + d), sDO[i * DP + d], acc);
+          acc = fmaf(ob[t * a.o_st + d], sDO[i * DP + d], acc);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -205,8 +159,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * BC;
     __syncthreads();  // the previous tile's sK / sV / sS are consumed
-    load_tile<T, D>(sK, kb, a.k_st, k0, a.Tk);
-    load_tile<T, D>(sV, vb, a.v_st, k0, a.Tk);
+    load_tile<D>(sK, kb, a.k_st, k0, a.Tk);
+    load_tile<D>(sV, vb, a.v_st, k0, a.Tk);
     if (a.has_seg && tid < BC) {
       const int t = k0 + tid;
       sKs[tid] = t < a.Tk ? a.kseg[b * a.ks_sb + t] : -2;
@@ -252,8 +206,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
         const int kl = k0 + col;
         bool ok = live && kl < a.Tk;
         if (ok && edge)
-          ok = allowed(a, a.q_offset + q0 + row, a.kv_offset + kl, sQs + row,
-                       sKs + col);
+          ok = allowed(a, a.q_offset + q0 + row, a.kv_offset + kl, sQs[row],
+                       sKs[col]);
         const float p = ok ? expf(s[ii][jj] * a.scale - L) : 0.f;
         sS[row * PP + col] = p * (dp[ii][jj] - sDl[row]) * a.scale;
       }
@@ -279,15 +233,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
   for (int ii = 0; ii < 4; ++ii) {
     const int t = q0 + rg * 4 + ii;
     if (t >= a.Tq) continue;
-    T* out = static_cast<T*>(a.dq) + b * a.dq_sb + t * a.dq_st + h * a.dq_sh;
+    float* out =
+        static_cast<float*>(a.dq) + b * a.dq_sb + t * a.dq_st + h * a.dq_sh;
 #pragma unroll
-    for (int dd = 0; dd < DV; ++dd) store_f(out + cl + 16 * dd, acc[ii][dd]);
+    for (int dd = 0; dd < DV; ++dd) out[cl + 16 * dd] = acc[ii][dd];
   }
 }
 
 // ---------------------------------------------------------------- kernel D
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
   constexpr int DP = D + 1;
   constexpr int PP = BR + 1;
@@ -311,10 +266,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
   const int k0 = kt * BC;
   const int qlo = a.qbounds[2 * kt], qhi = a.qbounds[2 * kt + 1];
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  load_tile<T, D>(sK, kb, a.k_st, k0, a.Tk);
-  load_tile<T, D>(sV, vb, a.v_st, k0, a.Tk);
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  load_tile<D>(sK, kb, a.k_st, k0, a.Tk);
+  load_tile<D>(sV, vb, a.v_st, k0, a.Tk);
   if (a.has_seg && tid < BC) {
     const int t = k0 + tid;
     sKs[tid] = t < a.Tk ? a.kseg[b * a.ks_sb + t] : -2;
@@ -328,13 +283,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
 
   for (int hh = 0; hh < a.group; ++hh) {
     const int h = hk * a.group + hh;
-    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const float* dob =
+        static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
     for (int i = qlo; i <= qhi; ++i) {
       const int q0 = i * BR;
       __syncthreads();  // the previous q tile's sQ / sDO / sP / sDS consumed
-      load_tile<T, D>(sQ, qb, a.q_st, q0, a.Tq);
-      load_tile<T, D>(sDO, dob, a.do_st, q0, a.Tq);
+      load_tile<D>(sQ, qb, a.q_st, q0, a.Tq);
+      load_tile<D>(sDO, dob, a.do_st, q0, a.Tq);
       if (tid < BR) {
         const int t = q0 + tid;
         const long long si = ((long long)b * a.Tq + t) * a.Hq + h;
@@ -385,8 +341,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
           const float L = sL[qc];
           bool ok = kin && L > kNegInf * 0.5f;
           if (ok && edge)
-            ok = allowed(a, a.q_offset + q0 + qc, a.kv_offset + kl, sQs + qc,
-                         sKs + kr);
+            ok = allowed(a, a.q_offset + q0 + qc, a.kv_offset + kl, sQs[qc],
+                         sKs[kr]);
           const float p = ok ? expf(s[ii][jj] * a.scale - L) : 0.f;
           sP[kr * PP + qc] = p;
           sDS[kr * PP + qc] = p * (dp[ii][jj] - sDl[qc]) * a.scale;
@@ -420,133 +376,81 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
   for (int ii = 0; ii < 4; ++ii) {
     const int t = k0 + rg * 4 + ii;
     if (t >= a.Tk) continue;
-    T* ko = static_cast<T*>(a.dk) + b * a.dk_sb + t * a.dk_st + hk * a.dk_sh;
-    T* vo = static_cast<T*>(a.dv) + b * a.dv_sb + t * a.dv_st + hk * a.dv_sh;
+    float* ko =
+        static_cast<float*>(a.dk) + b * a.dk_sb + t * a.dk_st + hk * a.dk_sh;
+    float* vo =
+        static_cast<float*>(a.dv) + b * a.dv_sb + t * a.dv_st + hk * a.dv_sh;
 #pragma unroll
     for (int dd = 0; dd < DV; ++dd) {
-      store_f(ko + cl + 16 * dd, dk[ii][dd]);
-      store_f(vo + cl + 16 * dd, dv[ii][dd]);
+      ko[cl + 16 * dd] = dk[ii][dd];
+      vo[cl + 16 * dd] = dv[ii][dd];
     }
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const BwdParams& p, int nq, int B, cudaStream_t s) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3(nq, p.Hq, B), NT, smem, s>>>(p);
+  flash_bwd_dq_kernel<D><<<dim3(nq, p.Hq, B), NT, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const BwdParams& p, int nk, int Hkv, int B,
                        cudaStream_t s) {
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<T, D><<<dim3(nk, Hkv, B), NT, smem, s>>>(p);
+  flash_bwd_dkv_kernel<D><<<dim3(nk, Hkv, B), NT, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-struct Shape {
-  int B, Hkv, D, dtype, nq, nk;
-};
-
-// ia (int64): B, Tq, Tk, Hq, Hkv, D, dtype (0 f32, 1 bf16), nq, nk,
-//   strides (b, t, h) of q, k, v, o, do, dq, dk, dv,
-//   causal, window, prefix_len, q_offset, kv_offset, has_seg,
-//   q-segment batch stride, kv-segment batch stride, masked, compute_delta.
-Shape parse(const long long* ia, BwdParams* p) {
-  Shape sh;
-  sh.B = static_cast<int>(ia[0]);
-  p->Tq = static_cast<int>(ia[1]);
-  p->Tk = static_cast<int>(ia[2]);
-  p->Hq = static_cast<int>(ia[3]);
-  sh.Hkv = static_cast<int>(ia[4]);
-  p->group = p->Hq / sh.Hkv;
-  sh.D = static_cast<int>(ia[5]);
-  sh.dtype = static_cast<int>(ia[6]);
-  sh.nq = static_cast<int>(ia[7]);
-  sh.nk = static_cast<int>(ia[8]);
-  long long* st[8][3] = {
-      {&p->q_sb, &p->q_st, &p->q_sh},    {&p->k_sb, &p->k_st, &p->k_sh},
-      {&p->v_sb, &p->v_st, &p->v_sh},    {&p->o_sb, &p->o_st, &p->o_sh},
-      {&p->do_sb, &p->do_st, &p->do_sh}, {&p->dq_sb, &p->dq_st, &p->dq_sh},
-      {&p->dk_sb, &p->dk_st, &p->dk_sh}, {&p->dv_sb, &p->dv_st, &p->dv_sh}};
-  for (int t = 0; t < 8; ++t)
-    for (int c = 0; c < 3; ++c) *st[t][c] = ia[9 + 3 * t + c];
-  p->causal = static_cast<int>(ia[33]);
-  p->window = static_cast<int>(ia[34]);
-  p->prefix_len = static_cast<int>(ia[35]);
-  p->q_offset = static_cast<int>(ia[36]);
-  p->kv_offset = static_cast<int>(ia[37]);
-  p->has_seg = static_cast<int>(ia[38]);
-  p->qs_sb = ia[39];
-  p->ks_sb = ia[40];
-  p->masked = static_cast<int>(ia[41]);
-  p->compute_delta = static_cast<int>(ia[42]);
-  return sh;
-}
-
-template <typename T>
 cudaError_t dq_d(const BwdParams& p, const Shape& sh, cudaStream_t s) {
   switch (sh.D) {
-    case 32: return launch_dq<T, 32>(p, sh.nq, sh.B, s);
-    case 64: return launch_dq<T, 64>(p, sh.nq, sh.B, s);
-    case 128: return launch_dq<T, 128>(p, sh.nq, sh.B, s);
+    case 32: return launch_dq<32>(p, sh.nq, sh.B, s);
+    case 64: return launch_dq<64>(p, sh.nq, sh.B, s);
+    case 128: return launch_dq<128>(p, sh.nq, sh.B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 cudaError_t dkv_d(const BwdParams& p, const Shape& sh, cudaStream_t s) {
   switch (sh.D) {
-    case 32: return launch_dkv<T, 32>(p, sh.nk, sh.Hkv, sh.B, s);
-    case 64: return launch_dkv<T, 64>(p, sh.nk, sh.Hkv, sh.B, s);
-    case 128: return launch_dkv<T, 128>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 32: return launch_dkv<32>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 64: return launch_dkv<64>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 128: return launch_dkv<128>(p, sh.nk, sh.Hkv, sh.B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Kernel C.  Writes dq and, when compute_delta, delta.  Returns the CUDA
-// error code of the launch (0 = launched).
+// Kernel C, float32.  Writes dq and, when compute_delta, delta.  Returns
+// the CUDA error code of the launch (0 = launched).
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq,
                                   const void* bounds, const void* qseg,
                                   const void* kseg, const long long* ia,
                                   float scale, void* stream) {
-  BwdParams p = {};
-  const Shape sh = parse(ia, &p);
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.dq = dq;
-  p.bounds = static_cast<const int*>(bounds);
-  p.qseg = static_cast<const int*>(qseg);
-  p.kseg = static_cast<const int*>(kseg);
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.dtype == 0) return static_cast<int>(dq_d<float>(p, sh, s));
-  if (sh.dtype == 1) return static_cast<int>(dq_d<__nv_bfloat16>(p, sh, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  Shape sh;
+  const BwdParams p = repro_bwd::dq_args(q, k, v, o, dout, lse, delta, dq,
+                                         bounds, qseg, kseg, ia, scale, &sh);
+  if (sh.dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dq_d(p, sh, static_cast<cudaStream_t>(stream)));
 }
 
-// Kernel D.  Reads delta (written by kernel C or passed in); writes dk and
-// dv.  Returns the CUDA error code of the launch (0 = launched).
+// Kernel D, float32.  Reads delta (written by kernel C or passed in);
+// writes dk and dv.  Returns the CUDA error code of the launch (0 =
+// launched).
 extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -554,23 +458,10 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    const void* qbounds, const void* qseg,
                                    const void* kseg, const long long* ia,
                                    float scale, void* stream) {
-  BwdParams p = {};
-  const Shape sh = parse(ia, &p);
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = const_cast<float*>(static_cast<const float*>(delta));
-  p.dk = dk;
-  p.dv = dv;
-  p.bounds = static_cast<const int*>(bounds);
-  p.qbounds = static_cast<const int*>(qbounds);
-  p.qseg = static_cast<const int*>(qseg);
-  p.kseg = static_cast<const int*>(kseg);
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.dtype == 0) return static_cast<int>(dkv_d<float>(p, sh, s));
-  if (sh.dtype == 1) return static_cast<int>(dkv_d<__nv_bfloat16>(p, sh, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  Shape sh;
+  const BwdParams p = repro_bwd::dkv_args(q, k, v, dout, lse, delta, dk, dv,
+                                          bounds, qbounds, qseg, kseg, ia,
+                                          scale, &sh);
+  if (sh.dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dkv_d(p, sh, static_cast<cudaStream_t>(stream)));
 }

@@ -1,0 +1,733 @@
+// Kernels C and D, bf16 route: the FlashAttention-2 backward of one partial
+// attention chunk on Hopper's tensor cores (sm_90a `wgmma`), written by
+// hand, with plain C entry points bound via ctypes.  bf16 is the training
+// path's dtype; float32 inputs take the CUDA-core route (flash_bwd.cu).
+//
+// Replaces the TPU kernels of the JAX package's `flash_bwd_bhtd`
+// (src/repro/kernels/flash_attention.py) for bf16:
+//   C `_dq_kernel`  (:280, pallas_call at :417) -> flash_bwd_dq_wgmma_kernel
+//   D `_dkv_kernel` (:322, pallas_call at :450) -> flash_bwd_dkv_wgmma_kernel
+//
+// Bound on the H100: operations.  One llama-7b attention backward (B 1,
+// T 8192, 32 heads of 128, causal) has 1.07e9 unmasked (row, key) pairs.
+// C does 6·D FLOPs per pair (s = q·kᵀ, dp = do·vᵀ, dq += ds·k), D does 8·D
+// (s, dp, dv += pᵀ·do, dk += dsᵀ·q): 0.82 and 1.10 TFLOP over 0.40 GB each,
+// some 2,000 FLOP per byte against the card's ridge of 295, so the least
+// times are the bf16 tensor-core rate's (989 TFLOP/s) 0.83 and 1.11 ms.
+//
+// Design.  One warpgroup (128 threads) per block and two blocks per SM;
+// every product is `wgmma.mma_async.m64n64k16` with bf16 operands and
+// float32 accumulators in registers.
+//   Shared memory.  Tiles stay bf16, in the 128-byte-swizzled layout the
+//   wgmma operand descriptors read: a 64-row tile of head dim D is D/64
+//   slabs of 64 rows × 64 columns (D = 32 is zero-padded to one slab), and
+//   16-byte group g of row r sits at g ^ (r % 8).  16-byte `cp.async`
+//   copies fill them, double-buffered: the next kv tile (C) or q tile with
+//   its lse, delta and segments (D) lands while the current one computes.
+//   At D = 128 a block holds 6 tiles, 96 KB.
+//   C: one block per (64-row q tile, query head, batch row), heaviest q
+//      tiles first.  Its q and do tiles stay resident while it sweeps the
+//      tile's valid 64-key tiles [lo, hi] (the forward's host table,
+//      kernels/block_sparse.kv_block_bounds).  s = q·kᵀ and dp = do·vᵀ take
+//      both operands from shared memory (K-major, as (B, T, H, D) lays them
+//      out); p = exp2(s·scale·log2 e − lse·log2 e) and ds = p·(dp − delta)·
+//      scale stay in float32 registers, and ds, in bf16, is the register A
+//      operand of dq += ds·k, with k read as an MN-major B operand (the
+//      transpose bit).  ds goes in as two bf16 terms (hi and the rounding
+//      remainder lo): a row's ds sums to zero over its keys, and one bf16
+//      term would let the keys' common component into dq.  delta =
+//      rowsum(o ⊙ do) is computed in the prologue (float32, 16-byte loads)
+//      and written for D, unless the caller passed it.
+//   D: one block per (64-key kv tile, kv head, batch row).  k and v stay
+//      resident; the block sweeps every query head of its GQA group and,
+//      for each, the valid q tiles of the transposed host table
+//      (kernels/block_sparse.q_block_bounds).  It computes sᵀ = k·qᵀ and
+//      dpᵀ = v·doᵀ directly, so pᵀ and dsᵀ are accumulators already and
+//      become, in bf16, the register A operands of dv += pᵀ·do and
+//      dk += dsᵀ·q.  dk and dv (64 + 64 registers a thread at D = 128)
+//      are summed over the group on chip and written once.  With sᵀ and
+//      dpᵀ they fill the 255 registers a thread that two blocks an SM
+//      allow, without spilling (chip_smoke.py's build phase checks it).
+//   No p or ds tile goes through shared or device memory, and there are
+//   no atomics: each run gives the same bits.  The element-wise mask runs
+//   on edge tiles only (outside the table's interior range, or past a
+//   ragged Tq / Tk edge); a row whose lse is NEG_INF gives p = 0.  D rounds
+//   p and ds to bf16 before its second products, as any tensor-core
+//   backward does, so the results are held to a per-row relative bar
+//   (kernels/ref.row_rel_err) rather than an element-wise one.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_bwd_common.cuh"
+
+namespace {
+
+using repro_bwd::BwdParams;
+using repro_bwd::Shape;
+using repro_bwd::allowed;
+using repro_bwd::kNegInf;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTile = 64;        // q rows and keys per tile
+constexpr int kThreads = 128;    // one warpgroup a block
+constexpr int kSlab = 64 * 128;  // bytes of a 64-row × 64-column bf16 slab
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+__host__ __device__ constexpr int slabs() {
+  return D < 64 ? 1 : D / 64;
+}
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory (the cp.async
+// copies) visible to the async proxy that wgmma reads operands through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets (all >> 4), layout type 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A tile as a K-major operand (K = head dim), k16 step ks: slab ks / 4,
+// 32 bytes into each 128-byte row per step; 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  return sw128_desc(tile + (ks >> 2) * kSlab + (ks & 3) * 32, 16, 1024);
+}
+
+// Slab c of a tile as an MN-major B operand (N = 64 head-dim columns, K =
+// the tile's rows), k16 step kk: 16 rows, 2048 bytes, per step.  With
+// N = 64 the operand is one swizzle atom wide, so only the stride between
+// 8-row groups (1024 bytes) is read; both offsets carry it.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int c, int kk) {
+  return sw128_desc(tile + c * kSlab + kk * 2048, 1024, 1024);
+}
+
+// d (64 × 64, float32) += A · B, both operands in shared memory, K-major.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 × 64, float32) += A · B, A (64 × 16 bf16) in registers, B in
+// shared memory, MN-major (transpose bit set).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------- tile movement
+
+// Rows [t0, t0 + 64) of one head of a (B, T, H, D) bf16 tensor into a
+// swizzled tile at shared address dst; rows at or past T and the padding
+// columns of D = 32 are zero-filled.  Issued by all 128 threads, 16 bytes
+// each per copy, neighbouring threads on neighbouring addresses.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
+                                          long long st, int t0, int T_len) {
+  constexpr int G = slabs<D>() * 8;  // 16-byte groups per padded row
+#pragma unroll
+  for (int it = 0; it < 64 * G / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int r = idx / G, gg = idx % G;
+    const int g = gg & 7;
+    const int t = t0 + r;
+    const bool ok = t < T_len && gg * 8 < D;
+    const bf16* src = ok ? base + t * st + gg * 8 : base;
+    cp_async16(dst + (gg >> 3) * kSlab + r * 128 + ((g ^ (r & 7)) << 4), src,
+               ok);
+  }
+}
+
+__device__ __forceinline__ float dot8(const uint4& x, const uint4& y,
+                                      float acc) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(a[i]);
+    const float2 fb = __bfloat1622float2(b[i]);
+    acc = fmaf(fa.x, fb.x, acc);
+    acc = fmaf(fa.y, fb.y, acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + (((s + 1023u) & ~1023u) - s);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 6 * slabs<D>() * kSlab + 5 * kTile * 4 + 1024;
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return 6 * slabs<D>() * kSlab + 7 * kTile * 4 + 1024;
+}
+
+// ---------------------------------------------------------------- kernel C
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_wgmma_kernel(const BwdParams a) {
+  constexpr int NC = slabs<D>();
+  constexpr int KS = 4 * NC;             // k16 steps over the head dim
+  constexpr uint32_t TILE = NC * kSlab;  // bytes of one tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + TILE;
+  const uint32_t sK = sDO + TILE, sV = sK + 2 * TILE;  // two buffers each
+  float* sL = reinterpret_cast<float*>(smem + 6 * TILE);
+  float* sDl = sL + kTile;
+  int* sQs = reinterpret_cast<int*>(sDl + kTile);
+  int* sKs = sQs + kTile;  // two buffers
+
+  const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  const int hk = h / a.group;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = qt * kTile;
+  const int lo = a.bounds[4 * qt], hi = a.bounds[4 * qt + 1];
+  const int ilo = a.bounds[4 * qt + 2], ihi = a.bounds[4 * qt + 3];
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* dob =
+      static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  auto load_kv = [&](int j, int buf) {
+    load_tile<D>(sK + buf * TILE, kb, a.k_st, j * kTile, a.Tk);
+    load_tile<D>(sV + buf * TILE, vb, a.v_st, j * kTile, a.Tk);
+    if (a.has_seg && tid < kTile) {
+      const int t = j * kTile + tid;
+      cp_async4(sKs + buf * kTile + tid,
+                a.kseg + b * a.ks_sb + (t < a.Tk ? t : 0), t < a.Tk);
+    }
+  };
+
+  load_tile<D>(sQ, qb, a.q_st, q0, a.Tq);
+  load_tile<D>(sDO, dob, a.do_st, q0, a.Tq);
+  cp_async_commit();
+  if (lo <= hi) load_kv(lo, 0);
+  cp_async_commit();
+
+  if (tid < kTile) {
+    const int t = q0 + tid;
+    const long long si = ((long long)b * a.Tq + t) * a.Hq + h;
+    sL[tid] = t < a.Tq ? a.lse[si] : kNegInf;
+    if (!a.compute_delta) sDl[tid] = t < a.Tq ? a.delta[si] : 0.f;
+    if (a.has_seg) sQs[tid] = t < a.Tq ? a.qseg[b * a.qs_sb + t] : -1;
+  }
+  if (a.compute_delta) {  // delta = rowsum(o ⊙ do): two threads per row
+    const bf16* ob = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    const int row = tid >> 1, half = tid & 1;
+    const int t = q0 + row;
+    float acc = 0.f;
+    if (t < a.Tq) {
+      const bf16* orow = ob + t * a.o_st + half * (D / 2);
+      const bf16* grow = dob + t * a.do_st + half * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8)
+        acc = dot8(*reinterpret_cast<const uint4*>(orow + c),
+                   *reinterpret_cast<const uint4*>(grow + c), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      sDl[row] = acc;
+      if (t < a.Tq) a.delta[((long long)b * a.Tq + t) * a.Hq + h] = acc;
+    }
+  }
+  __syncthreads();
+
+  // This thread's accumulator rows: rr[0] and rr[1] = rr[0] + 8.
+  const int rr[2] = {16 * warp + (lane >> 2), 16 * warp + (lane >> 2) + 8};
+  const int c0 = 2 * (lane & 3);
+  const float scale2 = a.scale * kLog2e;
+  float Ls[2], Dl[2];
+  bool live[2];
+  int qs[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float L = sL[rr[r]];
+    live[r] = L > kNegInf * 0.5f;
+    Ls[r] = L * kLog2e;
+    Dl[r] = sDl[rr[r]];
+    qs[r] = a.has_seg ? sQs[rr[r]] : 0;
+  }
+
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  for (int j = lo; j <= hi; ++j) {
+    const int buf = (j - lo) & 1;
+    if (j < hi) load_kv(j + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the tile just requested
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t kt = sK + buf * TILE, vt = sV + buf * TILE;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) mma_ss(s, kmajor(sQ, ks), kmajor(kt, ks));
+    wg_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss(dp, kmajor(sDO, ks), kmajor(vt, ks));
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(s);
+
+    // p = exp(s·scale − lse), masked on edge tiles; dp is still in flight
+    const int k0 = j * kTile;
+    const bool edge = (a.masked && (j < ilo || j > ihi)) || k0 + kTile > a.Tk;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      bool ok = live[r];
+      if (edge) {
+        const int col = 8 * (i >> 2) + c0 + (i & 1);
+        const int kl = k0 + col;
+        ok = ok && kl < a.Tk &&
+             allowed(a, a.q_offset + q0 + rr[r], a.kv_offset + kl, qs[r],
+                     a.has_seg ? sKs[buf * kTile + col] : 0);
+      }
+      s[i] = ok ? exp2_approx(fmaf(s[i], scale2, -Ls[r])) : 0.f;
+    }
+    wg_wait<0>();
+    fence_regs(dp);
+
+    // ds = p·(dp − delta)·scale as two bf16 terms, hi + lo: the A
+    // fragments of dq += ds·k.  A row's ds sums to zero over its keys, and
+    // dq is what is left of k after that cancellation; one bf16 term alone
+    // would break the zero sum by ~2^-9 of |ds| and let the keys' common
+    // component into dq.  The lo term doubles this product.
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int i = 8 * kk + 2 * f;
+        const float d = Dl[f & 1];
+        const float x0 = s[i] * (dp[i] - d) * a.scale;
+        const float x1 = s[i + 1] * (dp[i + 1] - d) * a.scale;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h);
+        ah[kk][f] = *reinterpret_cast<const uint32_t*>(&h);
+        al[kk][f] = pack_bf16(x0 - hf.x, x1 - hf.y);
+      }
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        mma_rs(acc[c], ah[kk], mnmajor(kt, c, kk));
+        mma_rs(acc[c], al[kk], mnmajor(kt, c, kk));
+      }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ah[kk]);
+      fence_regs(al[kk]);
+    }
+    __syncthreads();  // the buffer is free for the tile after next
+  }
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int t = q0 + rr[(i >> 1) & 1];
+      const int col = 64 * c + 8 * (i >> 2) + c0;
+      if (t < a.Tq && col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + t * a.dq_st + col) =
+            __floats2bfloat162_rn(acc[c][i], acc[c][i + 1]);
+    }
+}
+
+// ---------------------------------------------------------------- kernel D
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dkv_wgmma_kernel(const BwdParams a) {
+  constexpr int NC = slabs<D>();
+  constexpr int KS = 4 * NC;
+  constexpr uint32_t TILE = NC * kSlab;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sK = smem_u32(smem), sV = sK + TILE;
+  const uint32_t sQ = sV + TILE, sDO = sQ + 2 * TILE;  // two buffers each
+  float* sL = reinterpret_cast<float*>(smem + 6 * TILE);  // two buffers
+  float* sDl = sL + 2 * kTile;                            // two buffers
+  int* sQs = reinterpret_cast<int*>(sDl + 2 * kTile);     // two buffers
+  int* sKs = sQs + 2 * kTile;
+
+  const int hk = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = kt * kTile;
+  const int qlo = a.qbounds[2 * kt], qhi = a.qbounds[2 * kt + 1];
+  const int nqt = qhi >= qlo ? qhi - qlo + 1 : 0;
+  const int items = nqt * a.group;  // (query head, q tile) pairs to sweep
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  auto load_q = [&](int n, int buf) {
+    const int h = hk * a.group + n / nqt;
+    const int q0 = (qlo + n % nqt) * kTile;
+    load_tile<D>(sQ + buf * TILE,
+                 static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh,
+                 a.q_st, q0, a.Tq);
+    load_tile<D>(sDO + buf * TILE,
+                 static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh,
+                 a.do_st, q0, a.Tq);
+    if (tid < kTile) {
+      const int t = q0 + tid;
+      const bool ok = t < a.Tq;
+      const long long si = ((long long)b * a.Tq + (ok ? t : 0)) * a.Hq + h;
+      cp_async4(sL + buf * kTile + tid, a.lse + si, ok);
+      cp_async4(sDl + buf * kTile + tid, a.delta + si, ok);
+      if (a.has_seg)
+        cp_async4(sQs + buf * kTile + tid,
+                  a.qseg + b * a.qs_sb + (ok ? t : 0), ok);
+    }
+  };
+
+  load_tile<D>(sK, kb, a.k_st, k0, a.Tk);
+  load_tile<D>(sV, vb, a.v_st, k0, a.Tk);
+  if (a.has_seg && tid < kTile) {
+    const bool ok = k0 + tid < a.Tk;
+    cp_async4(sKs + tid, a.kseg + b * a.ks_sb + (ok ? k0 + tid : 0), ok);
+  }
+  cp_async_commit();
+  if (items > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // This thread's accumulator rows are keys kr[0] and kr[1] = kr[0] + 8.
+  const int kr[2] = {16 * warp + (lane >> 2), 16 * warp + (lane >> 2) + 8};
+  const int c0 = 2 * (lane & 3);
+  const float scale2 = a.scale * kLog2e;
+
+  float dk[NC][32], dv[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+
+  for (int n = 0; n < items; ++n) {
+    const int buf = n & 1;
+    const int qi = qlo + n % nqt;
+    const int q0 = qi * kTile;
+    if (n + 1 < items) load_q(n + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t qt = sQ + buf * TILE, gt = sDO + buf * TILE;
+    const float* L = sL + buf * kTile;
+    const float* Dl = sDl + buf * kTile;
+    const int* Qs = sQs + buf * kTile;
+
+    float st[32], dpt[32];  // sᵀ and dpᵀ: rows are keys, columns q rows
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss(st, kmajor(sK, ks), kmajor(qt, ks));
+    wg_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma_ss(dpt, kmajor(sV, ks), kmajor(gt, ks));
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(st);
+
+    // interior tiles (every pair attends) come from the forward's table
+    const bool edge =
+        (a.masked && (kt < a.bounds[4 * qi + 2] || kt > a.bounds[4 * qi + 3]))
+        || k0 + kTile > a.Tk;
+    const bool qedge = q0 + kTile > a.Tq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = 8 * (i >> 2) + c0 + (i & 1);
+      const float Lq = L[col];
+      bool ok = Lq > kNegInf * 0.5f && (!qedge || q0 + col < a.Tq);
+      if (edge) {
+        const int kl = k0 + kr[r];
+        ok = ok && kl < a.Tk &&
+             allowed(a, a.q_offset + q0 + col, a.kv_offset + kl,
+                     a.has_seg ? Qs[col] : 0, a.has_seg ? sKs[kr[r]] : 0);
+      }
+      st[i] = ok ? exp2_approx(fmaf(st[i], scale2, -Lq * kLog2e)) : 0.f;
+    }
+    wg_wait<0>();
+    fence_regs(dpt);
+
+    // pᵀ and dsᵀ = pᵀ·(dpᵀ − delta)·scale in bf16: the A fragments of
+    // dv += pᵀ·do and dk += dsᵀ·q
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int i = 8 * kk + 2 * f;
+        const float2 d =
+            *reinterpret_cast<const float2*>(Dl + 8 * (i >> 2) + c0);
+        pa[kk][f] = pack_bf16(st[i], st[i + 1]);
+        da[kk][f] = pack_bf16(st[i] * (dpt[i] - d.x) * a.scale,
+                              st[i + 1] * (dpt[i + 1] - d.y) * a.scale);
+      }
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(dv[c], pa[kk], mnmajor(gt, c, kk));
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(dk[c], da[kk], mnmajor(qt, c, kk));
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      fence_regs(dk[c]);
+      fence_regs(dv[c]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(da[kk]);
+    }
+    __syncthreads();  // the buffers are free for the item after next
+  }
+  cp_async_wait<0>();
+
+  bf16* ko = static_cast<bf16*>(a.dk) + b * a.dk_sb + hk * a.dk_sh;
+  bf16* vo = static_cast<bf16*>(a.dv) + b * a.dv_sb + hk * a.dv_sh;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int t = k0 + kr[(i >> 1) & 1];
+      const int col = 64 * c + 8 * (i >> 2) + c0;
+      if (t < a.Tk && col < D) {
+        *reinterpret_cast<__nv_bfloat162*>(ko + t * a.dk_st + col) =
+            __floats2bfloat162_rn(dk[c][i], dk[c][i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + col) =
+            __floats2bfloat162_rn(dv[c][i], dv[c][i + 1]);
+      }
+    }
+}
+
+// ---------------------------------------------------------------- launch
+
+template <int D>
+cudaError_t launch_dq(const BwdParams& p, int nq, int B, cudaStream_t s) {
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_wgmma_kernel<D><<<dim3(p.Hq, nq, B), kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const BwdParams& p, int nk, int Hkv, int B,
+                       cudaStream_t s) {
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_wgmma_kernel<D><<<dim3(Hkv, nk, B), kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel C, bf16.  Writes dq and, when compute_delta, delta.  Returns the
+// CUDA error code of the launch (0 = launched).
+extern "C" int repro_flash_bwd_dq_sm90(const void* q, const void* k,
+                                       const void* v, const void* o,
+                                       const void* dout, const void* lse,
+                                       void* delta, void* dq,
+                                       const void* bounds, const void* qseg,
+                                       const void* kseg, const long long* ia,
+                                       float scale, void* stream) {
+  Shape sh;
+  const BwdParams p = repro_bwd::dq_args(q, k, v, o, dout, lse, delta, dq,
+                                         bounds, qseg, kseg, ia, scale, &sh);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (sh.D) {
+    case 32: return static_cast<int>(launch_dq<32>(p, sh.nq, sh.B, s));
+    case 64: return static_cast<int>(launch_dq<64>(p, sh.nq, sh.B, s));
+    case 128: return static_cast<int>(launch_dq<128>(p, sh.nq, sh.B, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Kernel D, bf16.  Reads delta (written by kernel C or passed in); writes
+// dk and dv.  Returns the CUDA error code of the launch (0 = launched).
+extern "C" int repro_flash_bwd_dkv_sm90(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dk, void* dv,
+                                        const void* bounds,
+                                        const void* qbounds,
+                                        const void* qseg, const void* kseg,
+                                        const long long* ia, float scale,
+                                        void* stream) {
+  Shape sh;
+  const BwdParams p = repro_bwd::dkv_args(q, k, v, dout, lse, delta, dk, dv,
+                                          bounds, qbounds, qseg, kseg, ia,
+                                          scale, &sh);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (sh.D) {
+    case 32:
+      return static_cast<int>(launch_dkv<32>(p, sh.nk, sh.Hkv, sh.B, s));
+    case 64:
+      return static_cast<int>(launch_dkv<64>(p, sh.nk, sh.Hkv, sh.B, s));
+    case 128:
+      return static_cast<int>(launch_dkv<128>(p, sh.nk, sh.Hkv, sh.B, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1) at head dim
+// d, in bytes; 0 for a head dim the kernels do not take.
+extern "C" int repro_flash_bwd_sm90_smem(int kernel, int d) {
+  switch (d) {
+    case 32: return static_cast<int>(kernel ? dkv_smem_bytes<32>()
+                                            : dq_smem_bytes<32>());
+    case 64: return static_cast<int>(kernel ? dkv_smem_bytes<64>()
+                                            : dq_smem_bytes<64>());
+    case 128: return static_cast<int>(kernel ? dkv_smem_bytes<128>()
+                                             : dq_smem_bytes<128>());
+    default: return 0;
+  }
+}

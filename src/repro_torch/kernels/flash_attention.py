@@ -19,13 +19,15 @@ that is statically fully masked returns zeros and NEG_INF without a launch.
 dense baseline).  Static document ``boundaries`` become segment-ID arrays.
 
 :func:`flash_bwd` is the backward from the saved ``(o, lse)``: kernel C
-(``csrc/flash_bwd.cu``) sweeps each q tile over the forward's table and
-writes dq (and ``delta = rowsum(o ⊙ do)``, unless the caller passes it);
-kernel D sweeps each kv tile over the transposed table
-(``block_sparse.q_block_bounds``) and every query head of its GQA group,
-and writes dk and dv.  On a CPU tensor it runs
-:func:`~repro_torch.kernels.ref.chunk_attn_bwd_ref`.  :class:`FlashAttnFn`
-makes the pair differentiable.
+sweeps each q tile over the forward's table and writes dq (and
+``delta = rowsum(o ⊙ do)``, unless the caller passes it); kernel D sweeps
+each kv tile over the transposed table (``block_sparse.q_block_bounds``)
+and every query head of its GQA group, and writes dk and dv.  Two routes:
+bf16 inputs (the training path's) run on the tensor cores
+(``csrc/flash_bwd_sm90.cu``, ``wgmma``), float32 inputs on the CUDA cores
+(``csrc/flash_bwd.cu``, IEEE float32 products for the float32 bar).  On a
+CPU tensor it runs :func:`~repro_torch.kernels.ref.chunk_attn_bwd_ref`.
+:class:`FlashAttnFn` makes the pair differentiable.
 """
 from __future__ import annotations
 
@@ -45,6 +47,9 @@ BLOCK_Q = 64
 BLOCK_KV = 64
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# kernels C and D: (library, entry-point suffix) by dtype
+BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
+              torch.bfloat16: ("flash_bwd_sm90", "_sm90")}
 
 _FNS = {}
 
@@ -133,6 +138,17 @@ def _check(q, k, v, **more):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
                              f"{tuple(q.shape)}")
+
+
+def _check_aligned(**tensors):
+    """The tensor-core route copies rows in 16-byte pieces: every row of
+    every head must start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        step = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(s % step for s in t.stride()[:3]):
+            raise ValueError(f"{name}: the bf16 backward needs 16-byte "
+                             f"aligned rows (pointer {t.data_ptr() % 16} "
+                             f"bytes past 16, strides {t.stride()})")
 
 
 def _segments(mask: MaskSpec, segs, T: int, offset: int, device):
@@ -245,6 +261,9 @@ class _BwdPlan:
                       delta.to(device=dev, dtype=torch.float32).contiguous())
         self.q, self.k, self.v, self.o, self.do = q, k, v, o, do
         self.mask = mask
+        self.lib, self.suffix = BWD_ROUTES[q.dtype]
+        if q.dtype == torch.bfloat16:
+            _check_aligned(q=q, k=k, v=v, o=o, do=do)
 
 
 def _launch_dq(pl: _BwdPlan, scale):
@@ -253,7 +272,7 @@ def _launch_dq(pl: _BwdPlan, scale):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ia = _bwd_args(q, pl.k, pl.v, pl.o, pl.do, dq, None, None, pl.mask,
                    pl.qs_sb, pl.ks_sb, pl.nq, pl.nk, pl.compute_delta)
-    err = _entry("flash_bwd", "repro_flash_bwd_dq", 11)(
+    err = _entry(pl.lib, "repro_flash_bwd_dq" + pl.suffix, 11)(
         build.ptr(q), build.ptr(pl.k), build.ptr(pl.v), build.ptr(pl.o),
         build.ptr(pl.do), build.ptr(pl.lse), build.ptr(pl.delta),
         build.ptr(dq), build.ptr(pl.bounds), build.ptr(pl.qs),
@@ -272,7 +291,7 @@ def _launch_dkv(pl: _BwdPlan, scale):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     ia = _bwd_args(pl.q, k, v, None, pl.do, None, dk, dv, pl.mask, pl.qs_sb,
                    pl.ks_sb, pl.nq, pl.nk, 0)
-    err = _entry("flash_bwd", "repro_flash_bwd_dkv", 12)(
+    err = _entry(pl.lib, "repro_flash_bwd_dkv" + pl.suffix, 12)(
         build.ptr(pl.q), build.ptr(k), build.ptr(v), build.ptr(pl.do),
         build.ptr(pl.lse), build.ptr(pl.delta), build.ptr(dk),
         build.ptr(dv), build.ptr(pl.bounds), build.ptr(pl.q_bounds),

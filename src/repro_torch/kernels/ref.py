@@ -116,6 +116,21 @@ def chunk_attn_bwd_ref(q, k, v, o, lse, do, *, mask: MaskSpec | None = None,
     return dq, dk, dv
 
 
+def row_rel_err(a, r, floor: float = 1e-3) -> float:
+    """Largest per-row relative error ‖a_row − r_row‖ / (‖r_row‖ + floor ·
+    max ‖r_row‖) over the last axis: a row is one query's dq, or one key's
+    dk / dv, in one head.  The bar for a bf16 backward whose second
+    products take p and ds rounded to bf16 (as every tensor-core backward
+    does): that rounding moves single elements of a row by far more than
+    one bf16 step of their own size, but each row only by ~2^-8 of its
+    norm, while a sweep that skips a key tile moves whole rows."""
+    a, r = a.float(), r.float()
+    dn = (a - r).norm(dim=-1)
+    rn = r.norm(dim=-1)
+    den = rn + floor * rn.max().clamp_min(1e-30)
+    return float((dn / den).max())
+
+
 def merge_ref(o1, lse1, o2, lse2):
     """Exact online-softmax merge of two partial results.  o (B,T,H,D),
     lse (B,T,H)."""

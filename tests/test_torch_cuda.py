@@ -9,6 +9,9 @@ Marked ``cuda``; every test skips on a host without CUDA.  On the card:
 
 Tolerances are the reference's kernel bars: forward float32 1e-5 (paged
 2e-5), bf16 2e-2; backward float32 2e-4, bf16 5e-2; training losses 2e-3.
+bf16 outputs of kernels C and D (their tensor-core route, which rounds p
+and ds to bf16) are also held row by row to 2e-2 of each row's norm
+(``row_rel_err``), the bar ``chip_smoke.py`` holds them to.
 """
 import numpy as np
 import pytest
@@ -22,7 +25,8 @@ from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref
-from repro_torch.kernels.ref import NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref
+from repro_torch.kernels.ref import (NEG_INF, chunk_attn_bwd_ref,
+                                     chunk_attn_ref, row_rel_err)
 from repro_torch.models.transformer import DecoderLM, trainable
 from repro_torch.optim import adamw
 from repro_torch.serve.engine import Engine
@@ -88,6 +92,16 @@ BWD = [
     (2, 128, 128, 4, 2, 32, torch.float32, mk.document(), True),
     (1, 128, 128, 2, 2, 32, torch.float32, mk.causal(rel_offset=-64), False),
     (1, 64, 96, 4, 4, 128, torch.bfloat16, mk.full(), False),
+    # the bf16 tensor-core route: head dims 32/64/128, GQA, ragged Tq/Tk,
+    # rows with nothing to attend, segments, prefix and window edge tiles
+    (1, 128, 128, 4, 2, 32, torch.bfloat16, mk.causal(), False),
+    (2, 100, 300, 4, 2, 64, torch.bfloat16, mk.causal(rel_offset=200),
+     False),
+    (1, 128, 128, 2, 2, 128, torch.bfloat16, mk.causal(rel_offset=-64),
+     False),
+    (2, 128, 256, 4, 2, 64, torch.bfloat16, mk.document(), True),
+    (1, 192, 192, 4, 2, 32, torch.bfloat16, mk.prefix_lm(50), False),
+    (1, 256, 256, 8, 2, 128, torch.bfloat16, mk.sliding_window(70), False),
 ]
 
 
@@ -117,6 +131,8 @@ def test_flash_bwd_kernels_match_plain(dev, case):
     for a, r, d in zip(got, ref, dense):
         torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
         assert float((a.float() - d.float()).abs().max()) <= 1e-6
+        if dtype == torch.bfloat16:
+            assert row_rel_err(a, r) <= 2e-2
 
 
 PAGED = [
@@ -176,6 +192,11 @@ def test_flash_bwd_raises_instead_of_falling_back(dev):
     f = torch.zeros((1, 64, 2, 32), device=dev)
     with pytest.raises(ValueError, match="dtype"):
         flash_bwd(f, f, f, f, lse, f.to(torch.bfloat16), mask=mk.causal())
+    # the tensor-core route copies 16-byte rows: an odd row start raises
+    b = torch.zeros((1, 64, 2, 33), device=dev, dtype=torch.bfloat16)
+    odd = b[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd(odd, odd, odd, odd, lse, odd, mask=mk.causal())
 
 
 def test_engine_on_card_matches_cpu(dev):

@@ -54,6 +54,8 @@ def test_port_covers_the_slice_layout():
                 "serve/scheduler.py", "serve/faults.py", "serve/engine.py",
                 "launch/serve.py", "configs/llama_7b.py",
                 "configs/llama_gqa.py", "kernels/csrc/flash_bwd.cu",
+                "kernels/csrc/flash_bwd_sm90.cu",
+                "kernels/csrc/flash_bwd_common.cuh",
                 "core/remat.py", "core/dist_attention.py", "core/tree.py",
                 "optim/adamw.py", "train/step.py", "data/pipeline.py",
                 "launch/train.py"):

@@ -24,7 +24,8 @@ from repro_torch.kernels import block_sparse as tbs
 from repro_torch.kernels.flash_attention import (flash_bwd, flash_fwd,
                                                  q_tile_bounds, tile_bounds)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref
-from repro_torch.kernels.ref import NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref
+from repro_torch.kernels.ref import (NEG_INF, chunk_attn_bwd_ref,
+                                     chunk_attn_ref, row_rel_err)
 
 O_TOL, LSE_TOL, PAGED_TOL = 1e-5, 1e-4, 2e-5
 
@@ -304,6 +305,79 @@ def test_plain_bwd_parts_equal_the_whole(only):
             assert part[i] is None
     with pytest.raises(ValueError, match="only"):
         chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m, only="dk")
+
+
+ROW_TOL = 2e-2   # chip_smoke.py's per-row bar for kernels C and D in bf16
+
+
+def _tensor_core_bwd(q, k, v, o, lse, do, mask):
+    """A tensor-core backward's arithmetic, emulated on the CPU: float32
+    scores and sums, p and ds rounded to bf16 before the second products
+    (dq = ds·k, dk = dsᵀ·q, dv = pᵀ·do), bf16 outputs.  Kernel D does
+    exactly this; kernel C takes ds as two bf16 terms, which is closer."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    allow = mask.allow(torch.arange(q.shape[1])[:, None],
+                       torch.arange(k.shape[1])[None, :])
+    p = torch.where(allow, torch.exp(s - lse.transpose(1, 2)[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (of * dof).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) * scale
+    p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, dof)
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def test_bf16_backward_row_gate_passes_rounded_p_ds_rejects_missing_tile():
+    """The bar kernels C and D's bf16 outputs are held to on the card: a
+    backward that rounds p and ds to bf16 fails the element-wise bar of
+    kernel A (3e-2 of each element) yet passes the per-row bar (2e-2 of
+    each row's norm), and the per-row bar rejects a plain backward that
+    never visits the last 64-key tile."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (1, 512, 2, 64)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    m = tmk.causal()
+    o, lse = chunk_attn_ref(q, k, v, mask=m)
+    ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=m)
+    emu = _tensor_core_bwd(q, k, v, o, lse, do, m)
+    bq, bk, bv = chunk_attn_bwd_ref(q, k[:, :-64], v[:, :-64], o, lse, do,
+                                    mask=m)
+    pad = torch.zeros_like(k[:, -64:])
+    bad = (bq, torch.cat([bk, pad], 1), torch.cat([bv, pad], 1))
+    for a, b, r in zip(emu, bad, ref):
+        rf = r.float()
+        floor = 1e-3 * rf.abs().max()
+        elementwise = float(((a.float() - rf).abs() / (rf.abs() + floor))
+                            .max())
+        assert elementwise > 3e-2
+        assert row_rel_err(a, r) <= ROW_TOL / 2
+        assert row_rel_err(b, r) > 5 * ROW_TOL
+
+
+def test_bwd_routes_and_row_alignment():
+    """Kernels C and D: bf16 goes to the tensor-core library, float32 to
+    the CUDA-core one, both built by ``build.py``; the tensor-core route,
+    which copies 16-byte pieces, refuses rows that do not start on 16
+    bytes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (BWD_ROUTES,
+                                                     _check_aligned)
+    assert BWD_ROUTES[torch.bfloat16][0] == "flash_bwd_sm90"
+    assert BWD_ROUTES[torch.float32][0] == "flash_bwd"
+    assert {lib for lib, _ in BWD_ROUTES.values()} <= set(build.KERNELS)
+    t = torch.zeros((1, 64, 2, 72), dtype=torch.bfloat16)
+    _check_aligned(q=t[..., :64], k=t[..., 8:72])
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_aligned(q=t[..., 1:65])
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_aligned(do=torch.zeros((1, 64, 2, 36),
+                                      dtype=torch.bfloat16)[..., :32])
 
 
 # ----------------------------------------------------------------- paged
