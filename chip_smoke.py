@@ -7,17 +7,22 @@ Phases, each fatal on failure (nothing is caught):
 
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
-                ptxas' registers and spills of kernels C and D's tensor-core
-                route, with their shared memory; no spill at D = 128.
+                ptxas' registers and spills of the tensor-core routes
+                (kernel A's, and kernels C and D's), with their shared
+                memory; no spill at D = 128.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
-                cases; tolerances: forward float32 1e-5 (paged 2e-5), bf16
-                2e-2; backward (kernels C and D) float32 2e-4, bf16 5e-2,
-                and the pruned sweep equal to the dense one within 1e-6.
+                cases, every case of A, C and D in both dtypes (bf16 runs
+                the tensor-core routes, float32 the CUDA-core ones);
+                tolerances: forward float32 1e-5 (paged 2e-5), bf16 2e-2;
+                backward (kernels C and D) float32 2e-4, bf16 5e-2; lse
+                1e-4; the pruned sweep equal to the dense one within 1e-6
+                (bf16 forward: 2^-9 of max |o|, under one bf16 step).
                 bf16 outputs of A are also held element by element to 3e-2
-                of their own size (``rel_err``); bf16 outputs of C and D
-                row by row to 2e-2 of each row's norm (``row_rel_err``),
-                since their tensor-core route rounds p and ds to bf16.
+                of their own size (``rel_err``; A's route feeds p to the
+                second product as two bf16 terms to meet it); bf16 outputs
+                of C and D row by row to 2e-2 of each row's norm
+                (``row_rel_err``), since their route rounds p and ds.
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -40,10 +45,11 @@ Phases, each fatal on failure (nothing is caught):
                 that step's attention inputs are kept for 6a and 5.
   6a. main    — kernels A, C and D on those inputs (T 8192), against their
                 plain versions head slice by head slice, to the phase-3
-                limits; the per-row limit must reject a plain backward
-                that never visits the last 64-key tile.  SDPA's backward on
-                the same inputs is printed under the same gate, as a
-                calibration.
+                limits; the element-wise limit must reject a plain forward,
+                and the per-row limit a plain backward, that never visits
+                the last 64-key tile.  SDPA's forward and backward on the
+                same inputs are printed under the same gates, as
+                calibrations.
   6b. grads   — at 2 layers and T 1024, full width: per leaf, max |Δg|
                 between the kernels and the plain attention is at most 5%
                 of the leaf's max |g|, and the same limit rejects a plain
@@ -55,7 +61,8 @@ Phases, each fatal on failure (nothing is caught):
                 backward of the pair, marked ``library_covers``), and the
                 least time the card could take.  Kernel A also at the
                 training shape (its layer-1 inputs, T 8192, causal), beside
-                its bound and SDPA's causal forward (``train_*`` keys).
+                its bound, its plain version and SDPA's causal forward
+                (``train_*`` keys).
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -110,6 +117,15 @@ BWD_DESIGN = ("bf16: wgmma m64n64k16 on the tensor cores (sm_90a), float32 "
               "accumulators, swizzled bf16 tiles double-buffered by 16-byte "
               "cp.async, ds into dq as two bf16 terms; float32: IEEE FMAs "
               "on the CUDA cores")
+FWD_DESIGN = ("bf16: one block per 128 q rows (two warpgroups of 64); k/v "
+              "tiles of 128 keys by TMA into a 3-stage swizzled ring with "
+              "mbarriers; s = q·kᵀ as wgmma m64n128k16, o += p·v as wgmma "
+              "with p in registers as two bf16 terms (hi, lo); float32: "
+              "IEEE FMAs on the CUDA cores")
+# bf16 pruned vs dense sweep of kernel A: both do the same arithmetic on
+# every live tile; the limit, 2^-9 of max |o|, is under half of one bf16
+# step at the largest output (a step there is at least 2^-8 of it)
+PRUNE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -9}
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 LOGIT_REL_TOL = 5e-2          # bf16, 32 layers: |Δ| ≤ 5% of max |logit|
@@ -168,9 +184,14 @@ def _flash_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False):
         s = torch.sort(torch.randint(0, 4, (B, Tk), generator=gen,
                                      device=DEV), dim=1)[0].to(torch.int32)
         kw = dict(q_segments=s[:, :Tq].contiguous(), kv_segments=s)
+    n0 = build.LAUNCHES["flash_fwd"]
     o, lse = flash_fwd(q, k, v, mask=mask, **kw)
     torch.cuda.synchronize()
+    check(build.LAUNCHES["flash_fwd"] == n0 + 1, f"flash_fwd {name}: "
+          "launches")
     o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, **kw)
+    check(bool((lse[lse_r <= NEG_INF / 2] == NEG_INF).all()),
+          f"flash_fwd {name}: an empty row's lse is not NEG_INF")
     err = float((o.float() - o_r.float()).abs().max())
     tol = TOL[dtype]
     check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol),
@@ -224,38 +245,46 @@ def _paged_case(gen, name, B, Tq, Hq, Hkv, D, bs, lengths, window, dtype):
 def kernel_checks():
     gen = torch.Generator(device=DEV).manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
-    # kernel A at llama-7b prefill shapes (Hq = Hkv = 32, D = 128) + edges
-    _flash_case(gen, "causal Tq256 Tk1024 q_off768", 1, 256, 1024, 32, 32,
-                128, bf, mk.causal(rel_offset=768))
-    _flash_case(gen, "sliding_window 300", 1, 256, 1024, 32, 32, 128, bf,
-                mk.sliding_window(300, rel_offset=768))
-    _flash_case(gen, "gqa Hkv8", 1, 256, 1024, 32, 8, 128, bf,
-                mk.causal(rel_offset=768))
-    _flash_case(gen, "ragged Tq100 Tk1000", 1, 100, 1000, 32, 32, 128, bf,
-                mk.causal(rel_offset=900))
-    _flash_case(gen, "d64", 2, 256, 512, 8, 4, 64, f32,
-                mk.causal(rel_offset=256))
-    _flash_case(gen, "prefix_lm d32", 1, 192, 192, 4, 2, 32, f32,
-                mk.prefix_lm(70))
-    _flash_case(gen, "document boundaries", 1, 256, 256, 4, 4, 64, f32,
-                mk.document(boundaries=(0, 37, 150, 151)))
-    _flash_case(gen, "document segments", 2, 128, 256, 4, 2, 32, f32,
-                mk.document(), segs=True)
-    _flash_case(gen, "full kv_offset", 1, 64, 200, 4, 4, 32, f32,
-                mk.MaskSpec(q_offset=10, kv_offset=3))
-    # pruned == dense sweep to 1e-6
-    q, k, v = (randn(gen, (1, 256, 4, 64), f32) for _ in range(3))
-    m = mk.sliding_window(70)
-    o1, l1 = flash_fwd(q, k, v, mask=m)
-    o2, l2 = flash_fwd(q, k, v, mask=m, prune=False)
-    d = float((o1 - o2).abs().max())
-    check(d <= 1e-6, f"flash_fwd pruned vs dense: {d}")
-    say(f"  A {'pruned == dense':<28} float32   max|Δo| {d:.3e}  tol 1e-06")
-    # statically fully masked chunk: zeros and NEG_INF without a launch
-    n0 = build.LAUNCHES["flash_fwd"]
-    o, lse = flash_fwd(q, k, v, mask=mk.causal(rel_offset=-1000))
-    check(build.LAUNCHES["flash_fwd"] == n0 and float(o.abs().max()) == 0
-          and bool((lse == NEG_INF).all()), "empty chunk launched")
+    # kernel A at llama-7b prefill shapes (Hq = Hkv = 32, D = 128) + edges,
+    # every case on both routes: float32 (CUDA cores), bf16 (wgmma)
+    for dt in (f32, bf):
+        _flash_case(gen, "causal Tq256 Tk1024 q_off768", 1, 256, 1024, 32,
+                    32, 128, dt, mk.causal(rel_offset=768))
+        _flash_case(gen, "sliding_window 300", 1, 256, 1024, 32, 32, 128, dt,
+                    mk.sliding_window(300, rel_offset=768))
+        _flash_case(gen, "gqa Hkv8", 1, 256, 1024, 32, 8, 128, dt,
+                    mk.causal(rel_offset=768))
+        _flash_case(gen, "ragged Tq100 Tk1000", 1, 100, 1000, 32, 32, 128, dt,
+                    mk.causal(rel_offset=900))
+        _flash_case(gen, "d64", 2, 256, 512, 8, 4, 64, dt,
+                    mk.causal(rel_offset=256))
+        _flash_case(gen, "prefix_lm d32", 1, 192, 192, 4, 2, 32, dt,
+                    mk.prefix_lm(70))
+        _flash_case(gen, "document boundaries", 1, 256, 256, 4, 4, 64, dt,
+                    mk.document(boundaries=(0, 37, 150, 151)))
+        _flash_case(gen, "document segments", 2, 128, 256, 4, 2, 32, dt,
+                    mk.document(), segs=True)
+        _flash_case(gen, "full kv_offset", 1, 64, 200, 4, 4, 32, dt,
+                    mk.MaskSpec(q_offset=10, kv_offset=3))
+        _flash_case(gen, "empty rows q_offset -64", 1, 128, 128, 2, 2, 128,
+                    dt, mk.causal(rel_offset=-64))
+        # pruned == dense sweep
+        q, k, v = (randn(gen, (1, 256, 4, 64), dt) for _ in range(3))
+        m = mk.sliding_window(70)
+        o1, l1 = flash_fwd(q, k, v, mask=m)
+        o2, l2 = flash_fwd(q, k, v, mask=m, prune=False)
+        d = float((o1.float() - o2.float()).abs().max())
+        lim = PRUNE_TOL[dt] * (1.0 if dt == f32 else float(o1.float().abs()
+                                                            .max()))
+        check(d <= lim, f"flash_fwd pruned vs dense {str(dt)[6:]}: {d} over "
+              f"{lim}")
+        say(f"  A {'pruned == dense':<28} {str(dt)[6:]:<9} max|Δo| {d:.3e}  "
+            f"tol {lim:.3e}")
+        # statically fully masked chunk: zeros and NEG_INF without a launch
+        n0 = build.LAUNCHES["flash_fwd"]
+        o, lse = flash_fwd(q, k, v, mask=mk.causal(rel_offset=-1000))
+        check(build.LAUNCHES["flash_fwd"] == n0 and float(o.abs().max()) == 0
+              and bool((lse == NEG_INF).all()), "empty chunk launched")
     # kernel B: B = 4, bs = 16, fragmented tables, mixed lengths incl. 1
     lens = [1, 700, 513, 1032]
     _paged_case(gen, "Tq1", 4, 1, 32, 32, 128, 16, lens, 0, bf)
@@ -469,7 +498,7 @@ def _device_breakdown(prof, wall):
             continue
         us = ev.self_device_time_total
         name = ev.key
-        key = ("kernel A flash_fwd" if "flash_fwd_kernel" in name else
+        key = ("kernel A flash_fwd" if "flash_fwd" in name else
                "kernel B paged_decode" if "paged_decode_kernel" in name else
                "kernel C flash_bwd_dq" if "flash_bwd_dq" in name else
                "kernel D flash_bwd_dkv" if "flash_bwd_dkv" in name else
@@ -710,21 +739,35 @@ def main_path_checks(seen):
           f"training attention {kw['mask']} {q.dtype} {tuple(q.shape)}")
     o, lse = flash_fwd(q, k, v, **kw)
     e_o = r_o = e_lse = lse_max = 0.0
+    r_bad = r_lib = None
     for sq, skv in _head_slices(q, k):
-        o_r, lse_r = chunk_attn_ref(q[:, :, sq], k[:, :, skv], v[:, :, skv],
-                                    **kw)
+        qh, kh, vh = q[:, :, sq], k[:, :, skv], v[:, :, skv]
+        o_r, lse_r = chunk_attn_ref(qh, kh, vh, **kw)
         e_o = max(e_o, float((o[:, :, sq].float() - o_r.float()).abs()
                              .max()))
         r_o = max(r_o, rel_err(o[:, :, sq], o_r))
         e_lse = max(e_lse, float((lse[:, :, sq] - lse_r).abs().max()))
         lse_max = max(lse_max, float(lse_r.abs().max()))
+        if r_bad is None:   # the control and the calibration, first slice
+            cut = kh.shape[1] - 64
+            r_bad = rel_err(chunk_attn_ref(qh, kh[:, :cut], vh[:, :cut],
+                                           **kw)[0], o_r)
+            o_lib = torch.nn.functional.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in (qh, kh, vh)), is_causal=True,
+                scale=kw.get("scale"), enable_gqa=qh.shape[2] != kh.shape[2])
+            r_lib = rel_err(o_lib.transpose(1, 2), o_r)
+            del o_lib
     say(f"  A  layer-1 forward: max|Δo| {e_o:.3e} rel {r_o:.2e} (limit "
-        f"{REL_TOL}), max|Δlse| {e_lse:.3e}")
+        f"{REL_TOL}), max|Δlse| {e_lse:.3e}; control without the last kv "
+        f"tile: rel {r_bad:.2e}; SDPA's forward (calibration, first head "
+        f"slice): rel {r_lib:.2e}")
     check(r_o <= REL_TOL and e_o <= TOL[torch.bfloat16],
           f"flash_fwd on the training path: o err {e_o}, rel {r_o}")
     check(e_lse <= LSE_TOL * (1 + lse_max),
           f"flash_fwd on the training path: lse err {e_lse}")
-    del q, k, v, o, lse, o_r, lse_r
+    check(r_bad > REL_TOL, f"the limit {REL_TOL} does not reject a forward "
+          f"without the last kv tile (rel {r_bad})")
+    del q, k, v, o, lse, o_r, lse_r, qh, kh, vh
     args, kw = _moved(seen["bwd"], DEV)
     got = flash_bwd(*args, **kw)
     e_abs, e_row, e_bad, e_lib = [0.0] * 3, [0.0] * 3, None, None
@@ -841,23 +884,32 @@ def ptxas_kernels(text):
     return out
 
 
-def tensor_core_report(text):
-    """Registers, spills and shared memory of kernels C and D's
-    tensor-core route at each head dim; none may spill at D = 128."""
+def tensor_core_report(report):
+    """Registers, spills and shared memory of the tensor-core routes at each
+    head dim: kernel A's (``flash_fwd_sm90``) and kernels C and D's
+    (``flash_bwd_sm90``); none may spill at D = 128."""
     import ctypes
-    smem = build.load("flash_bwd_sm90").repro_flash_bwd_sm90_smem
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    fwd = build.load("flash_fwd_sm90").repro_flash_fwd_sm90_smem
+    fwd.argtypes, fwd.restype = [ctypes.c_int], ctypes.c_int
+    bwd = build.load("flash_bwd_sm90").repro_flash_bwd_sm90_smem
+    bwd.argtypes, bwd.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     seen = 0
-    for mangled, (regs, spill) in sorted(ptxas_kernels(text).items()):
-        kernel = 0 if "dq_wgmma" in mangled else 1
-        d = int(mangled.split("ILi")[1].split("E")[0])
-        say(f"  ptxas {'C dq' if kernel == 0 else 'D dkv'} wgmma D={d}: "
-            f"{regs} registers, {spill} bytes spilled, "
-            f"{smem(kernel, d)} bytes dynamic shared memory")
-        check(d != 128 or spill == 0, f"kernel {mangled} spills {spill} "
-              f"bytes at D = 128")
-        seen += d == 128
-    check(seen == 2, "ptxas reported no D = 128 tensor-core kernels")
+    for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        for mangled, (regs, spill) in sorted(
+                ptxas_kernels(report[lib]).items()):
+            d = int(mangled.split("ILi")[1].split("E")[0])
+            if lib == "flash_fwd_sm90":
+                name, smem = "A fwd", fwd(d)
+            else:
+                kernel = 0 if "dq_wgmma" in mangled else 1
+                name, smem = ("C dq", "D dkv")[kernel], bwd(kernel, d)
+            say(f"  ptxas {name} wgmma D={d}: {regs} registers, {spill} "
+                f"bytes spilled, {smem} bytes dynamic shared memory")
+            check(d != 128 or spill == 0, f"kernel {mangled} spills {spill} "
+                  f"bytes at D = 128")
+            seen += d == 128
+    check(seen == 3, "ptxas reported fewer than three D = 128 tensor-core "
+          "kernels")
 
 
 def bound(flops, nbytes, peak_flops):
@@ -893,8 +945,9 @@ def time_flash(launches):
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+    return {"name": "flash_fwd", "route": "cuda", "design": FWD_DESIGN,
+            "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
+            "float32_source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:157",
             "launches": launches["flash_fwd"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
@@ -1052,7 +1105,7 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
-    tensor_core_report(report["flash_bwd_sm90"])
+    tensor_core_report(report)
 
     say("== phase 3: kernels against their plain versions")
     kernel_checks()

@@ -8,10 +8,11 @@ carries a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is reused.  Nothing here runs at import time: importing the
 package on a host without ``nvcc`` works, and only a CUDA launch builds.
 
-``LAUNCHES`` counts kernel launches by kernel name: ``flash_bwd_dq`` and
-``flash_bwd_dkv`` (kernels C and D) each count one route or the other,
-``flash_bwd_sm90.cu`` for bf16 and ``flash_bwd.cu`` for float32; each
-wrapper adds one where it launches its kernel, and nowhere else.  Headers
+``LAUNCHES`` counts kernel launches by kernel name: ``flash_fwd`` (kernel
+A), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (kernels C and D) each count one
+route or the other, ``flash_fwd_sm90.cu`` / ``flash_bwd_sm90.cu`` for bf16
+and ``flash_fwd.cu`` / ``flash_bwd.cu`` for float32; each wrapper adds one
+where it launches its kernel, and nowhere else.  Headers
 (``csrc/*.cuh``) are part of every source's hash.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_fwd", "paged_decode", "flash_bwd",        # sources
-           "flash_bwd_sm90")
+           "flash_bwd_sm90", "flash_fwd_sm90")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

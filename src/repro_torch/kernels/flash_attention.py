@@ -7,14 +7,19 @@ chunk (the port of the reference's ``_fwd_kernel``, ``_dq_kernel`` and
 :class:`~repro_torch.core.mask.MaskSpec`, and returns ``(o (B,Tq,Hq,D),
 lse (B,Tq,Hq) float32)``.  On a CPU tensor it runs the plain PyTorch version
 (:func:`~repro_torch.kernels.ref.chunk_attn_ref`); on a CUDA tensor it
-launches the hand-written kernel (``csrc/flash_fwd.cu``) or raises — there
-is no fallback.
+launches a hand-written kernel or raises — there is no fallback.  Two
+routes, chosen by dtype (``FWD_ROUTES``): bf16 inputs (the serving and
+training paths') run on the tensor cores (``csrc/flash_fwd_sm90.cu``,
+``wgmma``, 128-row q tiles over 128-key kv tiles), float32 inputs on the
+CUDA cores (``csrc/flash_fwd.cu``, 64 × 64 tiles, IEEE float32 products for
+the float32 bar).
 
-The block-sparse sweep is planned on the host: for each 64-row q tile the
-wrapper computes the reachable 64-key tile range ``[lo, hi]`` and the
-interior range where the mask cannot bite (``block_sparse.kv_block_bounds``
-/ ``interior_kv_bounds``), and ships them as one small int32 table.  A chunk
-that is statically fully masked returns zeros and NEG_INF without a launch.
+The block-sparse sweep is planned on the host: for each q tile the wrapper
+computes the reachable kv tile range ``[lo, hi]`` and the interior range
+where the mask cannot bite (``block_sparse.kv_block_bounds`` /
+``interior_kv_bounds``) at the route's tile sizes, and ships them as one
+small int32 table.  A chunk that is statically fully masked returns zeros
+and NEG_INF without a launch.
 ``prune=False`` sweeps every tile and masks every tile (the reference's
 dense baseline).  Static document ``boundaries`` become segment-ID arrays.
 
@@ -47,6 +52,9 @@ BLOCK_Q = 64
 BLOCK_KV = 64
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel A: (library, entry point, q rows and keys per tile) by dtype
+FWD_ROUTES = {torch.float32: ("flash_fwd", "repro_flash_fwd", 64),
+              torch.bfloat16: ("flash_fwd_sm90", "repro_flash_fwd_sm90", 128)}
 # kernels C and D: (library, entry-point suffix) by dtype
 BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
               torch.bfloat16: ("flash_bwd_sm90", "_sm90")}
@@ -67,20 +75,20 @@ def _entry(lib: str, name: str, n_ptrs: int):
     return _FNS[name]
 
 
-def tile_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool = True):
-    """Per q tile ``(lo, hi, interior_lo, interior_hi)`` of 64-key tiles, as
-    a list of tuples (host-side sweep plan of kernel A)."""
-    nq, nk = -(-Tq // BLOCK_Q), -(-Tk // BLOCK_KV)
+def tile_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool = True,
+                br: int = BLOCK_Q, bc: int = BLOCK_KV):
+    """Per ``br``-row q tile ``(lo, hi, interior_lo, interior_hi)`` of
+    ``bc``-key tiles, as a list of tuples (host-side sweep plan of kernels A
+    and C)."""
+    nq, nk = -(-Tq // br), -(-Tk // bc)
     rows = []
     for i in range(nq):
         if not prune:
             rows.append((0, nk - 1, 1, 0))
             continue
-        lo, hi = (kv_block_bounds(i, br=BLOCK_Q, bc=BLOCK_KV, nk=nk,
-                                  mask=mask)
+        lo, hi = (kv_block_bounds(i, br=br, bc=bc, nk=nk, mask=mask)
                   if mask.prunable else (0, nk - 1))
-        ilo, ihi = interior_kv_bounds(i, br=BLOCK_Q, bc=BLOCK_KV, nk=nk,
-                                      mask=mask)
+        ilo, ihi = interior_kv_bounds(i, br=br, bc=bc, nk=nk, mask=mask)
         rows.append((lo, hi, ilo, ihi))
     return rows
 
@@ -97,8 +105,12 @@ def q_tile_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool = True):
 
 @functools.lru_cache(maxsize=256)
 def _device_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool,
-                   device: str):
-    rows = tile_bounds(mask, Tq, Tk, prune)
+                   device: str, block: int = BLOCK_Q):
+    """The sweep table on ``device`` at ``block``-row q tiles of
+    ``block``-key tiles (64 for kernels C, D and A's float32 route, 128 for
+    A's bf16 route; each size is its own cache entry), and whether it is
+    empty."""
+    rows = tile_bounds(mask, Tq, Tk, prune, br=block, bc=block)
     empty = all(hi < lo for lo, hi, _, _ in rows)
     t = torch.tensor(rows, dtype=torch.int32).to(device)
     return t, empty
@@ -141,12 +153,12 @@ def _check(q, k, v, **more):
 
 
 def _check_aligned(**tensors):
-    """The tensor-core route copies rows in 16-byte pieces: every row of
+    """The tensor-core routes copy rows in 16-byte pieces: every row of
     every head must start on a 16-byte boundary."""
     for name, t in tensors.items():
         step = 16 // t.element_size()
         if t.data_ptr() % 16 or any(s % step for s in t.stride()[:3]):
-            raise ValueError(f"{name}: the bf16 backward needs 16-byte "
+            raise ValueError(f"{name}: the bf16 kernels need 16-byte "
                              f"aligned rows (pointer {t.data_ptr() % 16} "
                              f"bytes past 16, strides {t.stride()})")
 
@@ -163,9 +175,13 @@ def _segments(mask: MaskSpec, segs, T: int, offset: int, device):
 
 def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     _check(q, k, v)
+    lib, name, block = FWD_ROUTES[q.dtype]
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v)
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    bounds, empty = _device_bounds(mask, Tq, Tk, bool(prune), str(q.device))
+    bounds, empty = _device_bounds(mask, Tq, Tk, bool(prune), str(q.device),
+                                   block)
     if empty:                            # statically fully masked chunk
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.full((B, Tq, Hq), NEG_INF, dtype=torch.float32,
@@ -182,13 +198,13 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         mask.causal, mask.window, mask.prefix_len, mask.q_offset,
         mask.kv_offset, mask.document, qs_sb, ks_sb, mask.needs_mask)
-    err = _entry("flash_fwd", "repro_flash_fwd", 8)(
+    err = _entry(lib, name, 8)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), build.ptr(bounds), build.ptr(qs), build.ptr(ks), ia,
         float(scale), build.stream_ptr(q.device))
     if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed (CUDA error "
-                           f"{err})")
+        raise RuntimeError(f"flash_fwd kernel launch failed ({lib}, CUDA "
+                           f"error {err})")
     build.LAUNCHES["flash_fwd"] += 1
     return o, lse
 

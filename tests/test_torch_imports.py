@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` imports ``jax``
-or the JAX package ``repro``, and ``chip_smoke.py`` imports only the port,
-torch, numpy and the standard library."""
+"""The port stands alone: nothing under ``src/repro_torch/`` and none of
+the tools that drive it import ``jax`` or the JAX package ``repro``, and
+``chip_smoke.py`` imports only the port, torch, numpy and the standard
+library."""
 import ast
 import pathlib
 import sys
@@ -38,6 +39,18 @@ def test_port_module_imports_no_jax_or_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# the tools that drive the port (timing, ablation) stand alone as well
+PORT_TOOLS = sorted(p for p in (ROOT / "tools").glob("*.py")
+                    if "repro_torch" in p.read_text())
+
+
+@pytest.mark.parametrize("path", PORT_TOOLS,
+                         ids=[p.name for p in PORT_TOOLS])
+def test_port_tool_imports_no_jax_or_reference(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_chip_smoke_imports_only_port_torch_numpy_stdlib():
     allowed = {"repro_torch", "torch", "numpy"} | set(sys.stdlib_module_names)
     names = [n.split(".")[0] for n in _imports(ROOT / "chip_smoke.py")]
@@ -56,6 +69,9 @@ def test_port_covers_the_slice_layout():
                 "configs/llama_gqa.py", "kernels/csrc/flash_bwd.cu",
                 "kernels/csrc/flash_bwd_sm90.cu",
                 "kernels/csrc/flash_bwd_common.cuh",
+                "kernels/csrc/flash_fwd_sm90.cu",
+                "kernels/csrc/flash_fwd_common.cuh",
+                "kernels/csrc/sm90_common.cuh",
                 "core/remat.py", "core/dist_attention.py", "core/tree.py",
                 "optim/adamw.py", "train/step.py", "data/pipeline.py",
                 "launch/train.py"):

@@ -380,6 +380,102 @@ def test_bwd_routes_and_row_alignment():
                                       dtype=torch.bfloat16)[..., :32])
 
 
+REL_TOL = 3e-2   # chip_smoke.py's element-wise bar for kernel A in bf16
+
+
+def _rel_err(a, r, floor=1e-3):
+    """chip_smoke.py's ``rel_err``: max |a − r| / (|r| + floor · max |r|)."""
+    a, r = a.float(), r.float()
+    return float(((a - r).abs() / (r.abs() + floor * r.abs().max())).max())
+
+
+def _tensor_core_fwd(q, k, v, mask, terms):
+    """Kernel A's bf16 route emulated on the CPU: float32 scores, an online
+    softmax over 128-key tiles in log2 units, l summed from float32 p, and
+    p fed to o += p·v as ``terms`` bf16 terms (hi = bf16(p), then the
+    rounding remainder), with float32 accumulation and a bf16 output."""
+    scale2 = q.shape[-1] ** -0.5 * 1.4426950408889634
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    allow = mask.allow(mask.q_offset + torch.arange(q.shape[1])[:, None],
+                       mask.kv_offset + torch.arange(k.shape[1])[None, :])
+    B, Tq, H, D = q.shape
+    m = torch.full((B, H, Tq, 1), NEG_INF)
+    l = torch.zeros((B, H, Tq, 1))
+    acc = torch.zeros((B, H, Tq, D))
+    for k0 in range(0, k.shape[1], 128):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + 128]) * scale2
+        s = torch.where(allow[:, k0:k0 + 128], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                            torch.exp2(m - m_new))
+        p = torch.where(m_new <= NEG_INF / 2, torch.zeros_like(s),
+                        torch.exp2(s - m_new))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        rest = p
+        for _ in range(terms):
+            part = rest.to(torch.bfloat16).float()
+            acc = acc + torch.einsum("bhqk,bkhd->bhqd", part,
+                                     vf[:, k0:k0 + 128])
+            rest = rest - part
+        m = m_new
+    o = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return o.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("Tq,Tk,rel", [(512, 512, 0), (256, 1024, 768)])
+def test_bf16_forward_gate_needs_two_p_terms_rejects_missing_tile(Tq, Tk,
+                                                                  rel):
+    """The element-wise bar kernel A's bf16 outputs are held to on the
+    card (3e-2 of each element): a tensor-core forward that rounds p to one
+    bf16 term fails it, the two-term split (hi + lo) passes it by a margin,
+    and the bar rejects a plain forward that never visits the last 64-key
+    tile.  Causal, at a training-like shape and at the serving chunk's
+    offsets."""
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(rng, 1, Tq, Tk, 2, 2, 64))
+    m = tmk.causal(rel_offset=rel)
+    ref, _ = chunk_attn_ref(q, k, v, mask=m)
+    one = _rel_err(_tensor_core_fwd(q, k, v, m, terms=1), ref)
+    two = _rel_err(_tensor_core_fwd(q, k, v, m, terms=2), ref)
+    cut, _ = chunk_attn_ref(q, k[:, :-64], v[:, :-64], mask=m)
+    assert one > REL_TOL
+    assert two <= REL_TOL / 2
+    assert _rel_err(cut, ref) > REL_TOL
+
+
+def test_fwd_routes_tables_and_row_alignment():
+    """Kernel A: bf16 goes to the tensor-core library with 128 × 128 tiles,
+    float32 to the CUDA-core one with 64 × 64, both built by ``build.py``;
+    the 128-tile table equals the reference's range math at those sizes and
+    is cached apart from the 64-tile one kernels C and D read; a bf16 call
+    whose rows do not start on 16 bytes raises before any build."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (FWD_ROUTES,
+                                                     _device_bounds,
+                                                     _flash_fwd_cuda)
+    assert FWD_ROUTES[torch.bfloat16][::2] == ("flash_fwd_sm90", 128)
+    assert FWD_ROUTES[torch.float32][::2] == ("flash_fwd", 64)
+    assert {lib for lib, _, _ in FWD_ROUTES.values()} <= set(build.KERNELS)
+    rm, tm = _spec_pair("sliding_window", window=300, rel_offset=700)
+    rows = tile_bounds(tm, 300, 1000, br=128, bc=128)
+    assert len(rows) == 3
+    for i, row in enumerate(rows):
+        want = tuple(int(x) for fn in ("kv_block_bounds",
+                                       "interior_kv_bounds")
+                     for x in getattr(rbs, fn)(i, br=128, bc=128, nk=8,
+                                               mask=rm))
+        assert row == want, (i, row, want)
+    t64, _ = _device_bounds(tm, 300, 1000, True, "cpu")
+    t128, _ = _device_bounds(tm, 300, 1000, True, "cpu", 128)
+    assert t64.shape == (5, 4) and t128.tolist() == [list(r) for r in rows]
+    t = torch.zeros((1, 64, 2, 72), dtype=torch.bfloat16)
+    odd = t[..., 1:65]
+    with pytest.raises(ValueError, match="16-byte"):
+        _flash_fwd_cuda(odd, odd, odd, tm, 0.125, None, None, True)
+
+
 # ----------------------------------------------------------------- paged
 
 def _paged_inputs(seed, B, Tq, Hq, Hkv, D, bs, nb, N, lengths):
