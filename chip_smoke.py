@@ -23,6 +23,12 @@ Phases, each fatal on failure (nothing is caught):
                 second product as two bf16 terms to meet it); bf16 outputs
                 of C and D row by row to 2e-2 of each row's norm
                 (``row_rel_err``), since their route rounds p and ds.
+                Kernel B (split-KV) also at its split edges (lengths
+                L_s - 1, L_s, L_s + 1, 2 L_s), a 32768-token request, a
+                window across a split boundary and Tq 4 rows that are dead
+                in some splits, each launch counted once; and bitwise: a
+                request alone, in a batch of 4 and under a permuted block
+                table gives the same o, and so do two launches.
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -62,7 +68,11 @@ Phases, each fatal on failure (nothing is caught):
                 least time the card could take.  Kernel A also at the
                 training shape (its layer-1 inputs, T 8192, causal), beside
                 its bound, its plain version and SDPA's causal forward
-                (``train_*`` keys).
+                (``train_*`` keys).  Kernel B with a cold L2 (launches
+                rotate over 4 distinct pool pairs) at the serving step, a
+                32768-token decode (``long_*``) and GQA Tq 4 (``gqa_*``):
+                its device time (torch.profiler), the wrapper's (CUDA
+                events) and the host time of one call (1000 calls).
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -232,8 +242,11 @@ def _paged_case(gen, name, B, Tq, Hq, Hkv, D, bs, lengths, window, dtype):
     q, kp, vp, bt, lens = _paged_inputs(gen, B, Tq, Hq, Hkv, D, bs, lengths,
                                         dtype)
     mask = mk.sliding_window(window) if window else mk.causal()
+    n0 = build.LAUNCHES["paged_decode"]
     o = paged_attn(q, kp, vp, bt, lens, mask=mask)
     torch.cuda.synchronize()
+    check(build.LAUNCHES["paged_decode"] == n0 + 1,
+          f"paged_decode {name}: launches")
     o_r = paged_attn_ref(q, kp, vp, bt, lens, mask=mask)
     err = float((o.float() - o_r.float()).abs().max())
     tol = PAGED_TOL[dtype]
@@ -294,6 +307,55 @@ def kernel_checks():
     _paged_case(gen, "gqa d64 window", 4, 3, 8, 2, 64, 8, [2, 5, 40, 77],
                 20, f32)
     _paged_case(gen, "d32 bs64", 4, 1, 4, 4, 32, 64, lens, 0, f32)
+    # the split-KV design: L_s = 256 tokens at bf16 D 128 (bs 16), 512 at
+    # float32 D 32 (bs 64); lengths at the split edges L_s - 1, L_s,
+    # L_s + 1, 2 L_s
+    edges = [255, 256, 257, 512]
+    _paged_case(gen, "split edges", 4, 1, 32, 32, 128, 16, edges, 0, bf)
+    _paged_case(gen, "split edges gqa Tq4", 4, 4, 32, 8, 128, 16, edges, 0,
+                bf)
+    _paged_case(gen, "split edges f32 d32 bs64", 4, 1, 4, 4, 32, 64,
+                [511, 512, 513, 1024], 0, f32)
+    _paged_case(gen, "32768 tokens", 1, 1, 32, 32, 128, 16, [32768], 0, bf)
+    _paged_case(gen, "window across splits", 4, 1, 32, 32, 128, 16,
+                [300, 600, 700, 1000], 100, bf)
+    # window 2 at Tq 4: the first rows attend only the split before 256,
+    # the last only the one after, so each split is dead for some rows
+    _paged_case(gen, "rows dead in some splits", 2, 4, 32, 8, 128, 16,
+                [258, 770], 2, bf)
+    _paged_case(gen, "rows dead in some splits", 2, 4, 8, 2, 64, 16,
+                [514, 1026], 2, f32)
+    paged_bitwise(gen)
+
+
+def paged_bitwise(gen):
+    """Kernel B's batch invariance: one request (1000 tokens, GQA, Tq 2,
+    four splits) alone, in a batch of 4, and under a permuted block table
+    gives bitwise the same o, and so do two launches."""
+    B, Tq, Hq, Hkv, D, bs = 4, 2, 32, 8, 128, 16
+    q, kp, vp, bt, lens = _paged_inputs(gen, B, Tq, Hq, Hkv, D, bs,
+                                        [80, 1000, 529, 1100],
+                                        torch.bfloat16)
+    m = mk.sliding_window(900)
+    full = paged_attn(q, kp, vp, bt, lens, mask=m)
+    again = paged_attn(q, kp, vp, bt, lens, mask=m)
+    alone = paged_attn(q[1:2].contiguous(), kp, vp,
+                       bt[1:2, :-(-1000 // bs)].contiguous(), lens[1:2],
+                       mask=m)
+    N = kp.shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long, device=DEV),
+                      torch.randperm(N - 1, generator=gen, device=DEV) + 1])
+    kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+    kp2[perm], vp2[perm] = kp, vp
+    moved = paged_attn(q, kp2, vp2, perm[bt.long()].to(torch.int32), lens,
+                       mask=m)
+    check(torch.equal(full, again), "paged_decode: two launches differ")
+    check(torch.equal(alone[0], full[1]),
+          "paged_decode: a request alone differs from it in a batch")
+    check(torch.equal(moved, full),
+          "paged_decode: a permuted block table changes o")
+    say(f"  B {'bitwise batch invariance':<28} bfloat16  alone == in a "
+        "batch of 4 == permuted table; launch == launch")
 
 
 def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
@@ -499,7 +561,7 @@ def _device_breakdown(prof, wall):
         us = ev.self_device_time_total
         name = ev.key
         key = ("kernel A flash_fwd" if "flash_fwd" in name else
-               "kernel B paged_decode" if "paged_decode_kernel" in name else
+               "kernel B paged_decode" if "paged_decode" in name else
                "kernel C flash_bwd_dq" if "flash_bwd_dq" in name else
                "kernel D flash_bwd_dkv" if "flash_bwd_dkv" in name else
                "matmul (cuBLAS)" if any(t in name.lower() for t in
@@ -985,34 +1047,103 @@ def time_flash_train(seen):
             "train_bound_by": b_by, "train_library_ms": lib}
 
 
-def time_paged(launches):
-    """Kernel B at the serving shape: one decode step of the 4 requests
-    (lengths mid-way through their 32 new tokens), bs = 16."""
-    gen = torch.Generator(device=DEV).manual_seed(3)
-    lens = [1016, 716, 529, 80]
-    H, D, bs = 32, 128, 16
-    q, kp, vp, bt, ln = _paged_inputs(gen, 4, 1, H, H, D, bs, lens,
+PAGED_DESIGN = ("split-KV (flash-decoding): grid (Hkv, B, S) over splits of "
+                "L_s tokens (256 at bf16 D 128) fixed by the request's own "
+                "positions; 256-thread blocks stage each split's pages in "
+                "32-token tiles through a 4-stage 16-byte cp.async ring (48 "
+                "KB in flight a block, three blocks an SM); scores, one max "
+                "and sum per tile and p·v on the CUDA cores in float32; a "
+                "second kernel merges the splits in a fixed order")
+PAGED_LIBRARY = ("none: no single PyTorch call computes attention through a "
+                 "block table (SDPA takes contiguous K/V)")
+PAGED_POOLS = 4     # pool pairs the L2-cold timings rotate over
+
+
+def _paged_device_ms(call, n=40):
+    """Kernel B's own device time per call: torch.profiler's device time of
+    every kernel named ``paged_decode*`` over n calls (split and merge)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(4):
+        call(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            call(i)
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and "paged_decode" in ev.key)
+    return us / 1e3 / n
+
+
+def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens):
+    """Kernel B L2-cold at one shape: every launch reads one of PAGED_POOLS
+    distinct pool pairs in turn (together far above the 50 MB L2, as the
+    engine's 32 layers are).  Returns its device time, the wrapper's time
+    (CUDA events around one call), the host time of one call (a host clock
+    around 1000 calls, no sync inside), the plain version's time, the bound
+    and the error against the plain version."""
+    q, kp, vp, bt, ln = _paged_inputs(gen, B, Tq, Hq, Hkv, D, bs, lens,
                                       torch.bfloat16)
+    pools = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
+                          for _ in range(PAGED_POOLS - 1)]
     m = mk.causal()
-    o = paged_attn(q, kp, vp, bt, ln, mask=m)
+
+    def call(i):
+        k, v = pools[i % PAGED_POOLS]
+        return paged_attn(q, k, v, bt, ln, mask=m)
+    o = call(0)
     o_r = paged_attn_ref(q, kp, vp, bt, ln, mask=m)
     err = float((o.float() - o_r.float()).abs().max())
-    ms = cuda_ms(lambda: paged_attn(q, kp, vp, bt, ln, mask=m))
-    plain = cuda_ms(lambda: paged_attn_ref(q, kp, vp, bt, ln, mask=m))
+    dev = _paged_device_ms(call)
+    it = iter(range(1 << 30))
+    wrap = cuda_ms(lambda: call(next(it)), reps=20, warmup=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1000):
+        call(i)
+    host = 1e3 * (time.perf_counter() - t0) / 1000
+    torch.cuda.synchronize()
+    plain = cuda_ms(lambda: paged_attn_ref(q, *pools[next(it) % PAGED_POOLS],
+                                           bt, ln, mask=m), reps=5, warmup=1)
     ctx = sum(lens)
-    flops = 4.0 * ctx * H * D
-    nbytes = 2 * (2 * ctx * H * D + 2 * 4 * H * D) + 4 * (4 + bt.numel())
+    flops = 4.0 * ctx * Hq * Tq * D
+    nbytes = 2 * (2 * ctx * Hkv * D + 2 * B * Tq * Hq * D) \
+        + 4 * (B + bt.numel())
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    say(f"  paged_decode B4 Tq1 H{H} D{D} bs{bs} bf16 lengths {lens}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {nbytes / 1e6:.2f} MB), "
-        f"{nbytes / ms / 1e6:.1f} GB/s achieved")
-    return {"name": "paged_decode", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "replaces": "src/repro/kernels/paged.py:182",
-            "launches": launches["paged_decode"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    say(f"  paged_decode B{B} Tq{Tq} Hq{Hq} Hkv{Hkv} D{D} bs{bs} bf16 "
+        f"lengths {lens if len(lens) < 5 else len(lens)}, L2-cold: device "
+        f"{dev:.4f} ms ({nbytes / dev / 1e6:.1f} GB/s, {b_ms / dev:.3f} of "
+        f"the bound), wrapper {wrap:.4f} ms, host {host:.4f} ms a call, "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes / 1e6:.2f} MB), max|Δo| {err:.3e}")
+    del q, kp, vp, pools, o, o_r
+    _free()
+    return dict(ms=dev, wrapper_ms=wrap, host_ms=host, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
+def time_paged(launches):
+    """Kernel B, L2-cold, at the serving shape (one decode step of the 4
+    requests, lengths mid-way through their 32 new tokens, bs 16), at a
+    long-context decode (one 32768-token request) and at the GQA shape of
+    phase 3 (Tq 4, 32 query heads over 8 kv heads)."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    lens = [1016, 716, 529, 80]
+    serve = _paged_timing(gen, 4, 1, 32, 32, 128, 16, lens)
+    long = _paged_timing(gen, 1, 1, 32, 32, 128, 16, [32768])
+    gqa = _paged_timing(gen, 4, 4, 32, 8, 128, 16, lens)
+    row = {"name": "paged_decode", "route": "cuda", "design": PAGED_DESIGN,
+           "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+           "replaces": "src/repro/kernels/paged.py:182",
+           "launches": launches["paged_decode"], "library_ms": None,
+           "library_note": PAGED_LIBRARY}
+    row.update(serve)
+    for name, r in (("long", long), ("gqa", gqa)):
+        row.update({f"{name}_{k}": x for k, x in r.items()})
+    return row
 
 
 def time_bwd(launches, seen, errs):

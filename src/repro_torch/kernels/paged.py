@@ -17,6 +17,13 @@ The mask is ``causal`` or ``sliding_window``, evaluated per row against
 the whole table, materialise the scores); :func:`paged_attn` runs it for
 CPU tensors and launches the hand-written kernel (``csrc/paged_decode.cu``)
 for CUDA tensors, or raises.
+
+The kernel splits each request's context into splits of ``L_s`` tokens
+(:func:`split_plan`: a whole number of pages, fixed per head dim and
+dtype, ``S`` splits from the table's width), sweeps each live split in its
+own thread block and merges the splits' partial results in a fixed order.
+:func:`paged_attn_split_ref` is the same split-and-merge arithmetic in
+plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -31,6 +38,14 @@ from repro_torch.kernels.ref import NEG_INF
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_SIZES = (8, 64)           # inclusive range the kernel takes
+# tokens a split aims at, per (dtype, head dim): 64 KB of K a split for one
+# kv head (32 KB at bf16 D 32, capped at 512 tokens); a split is then
+# rounded up to whole pages.  256 tokens at bf16 D 128 balances the serving
+# step's few hundred blocks against the per-block start-up of a long
+# request (PERF.md).
+SPLIT_TOKENS = {(torch.bfloat16, 128): 256, (torch.bfloat16, 64): 512,
+                (torch.bfloat16, 32): 512, (torch.float32, 128): 128,
+                (torch.float32, 64): 256, (torch.float32, 32): 512}
 
 _FN = []
 
@@ -38,7 +53,7 @@ _FN = []
 def _fn():
     if not _FN:
         f = build.load("paged_decode").repro_paged_decode
-        f.argtypes = [ctypes.c_void_p] * 6 + [
+        f.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
             ctypes.c_void_p]
         f.restype = ctypes.c_int
@@ -62,6 +77,17 @@ def _check(q, k_pool, v_pool, block_table, lengths, mask: MaskSpec):
     if q.shape[2] % k_pool.shape[2]:
         raise ValueError(f"Hq={q.shape[2]} not a multiple of "
                          f"Hkv={k_pool.shape[2]}")
+
+
+def split_plan(nb: int, bs: int, D: int, dtype) -> tuple:
+    """(L_s, S): the split length in tokens, a whole number of ``bs``-token
+    pages, and the number of splits that cover a table ``nb`` pages wide.
+    Boundaries depend on (bs, D, dtype) only, never on the batch, the
+    table's width or the lengths, so a request's result does not depend on
+    what it is batched with."""
+    target = SPLIT_TOKENS[(dtype, D)]
+    Ls = -(-target // bs) * bs
+    return Ls, max(1, -(-(nb * bs) // Ls))
 
 
 def _allow_tokens(mask: MaskSpec, kpos, lengths, Tq: int):
@@ -107,6 +133,89 @@ def paged_attn_ref(q, k_pool, v_pool, block_table, lengths, *,
     return o.to(q.dtype)
 
 
+def paged_attn_split_ref(q, k_pool, v_pool, block_table, lengths, *,
+                         mask: MaskSpec | None = None, scale=None,
+                         split_tokens: int | None = None):
+    """Plain version of the kernel's split-and-merge arithmetic: each
+    request's live splits of ``L_s`` tokens (:func:`split_plan`, or
+    ``split_tokens`` rounded up to whole pages) are attended on their own,
+    giving a normalised partial o_s and its lse_s, and merged in split order
+    with the reference's NEG_INF rules (``kernels/ref.merge_ref``).  A
+    request's arithmetic has the same shapes whatever the batch and the
+    table's width.  Returns o (B, Tq, Hq, D)."""
+    mask = causal() if mask is None else mask
+    _check(q, k_pool, v_pool, block_table, lengths, mask)
+    B, Tq, Hq, D = q.shape
+    nb = block_table.shape[1]
+    bs, Hkv = k_pool.shape[1], k_pool.shape[2]
+    g = Hq // Hkv
+    sc = scale if scale is not None else 1.0 / (D ** 0.5)
+    if split_tokens is None:
+        Ls, _ = split_plan(nb, bs, D, q.dtype)
+    else:
+        Ls = -(-split_tokens // bs) * bs
+    P = Ls // bs
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    t_rows = torch.arange(Tq, device=q.device)
+    for b in range(B):
+        # [t_lo, t_hi): the context positions some row of the request sees
+        length = int(lengths[b])
+        t_lo = max(0, length - Tq - mask.window + 1) if mask.window else 0
+        t_hi = min(length, nb * bs)
+        if t_hi <= t_lo:
+            continue
+        parts = []
+        for s in range(t_lo // Ls, -(-t_hi // Ls)):
+            pages = block_table[b, s * P:(s + 1) * P].long()
+            kk = k_pool[pages].reshape(-1, Hkv, D).float()
+            vv = v_pool[pages].reshape(-1, Hkv, D).float()
+            pad = Ls - kk.shape[0]            # pages past the table's width
+            if pad:
+                z = kk.new_zeros((pad, Hkv, D))
+                kk, vv = torch.cat([kk, z]), torch.cat([vv, z])
+            if g > 1:
+                kk = kk.repeat_interleave(g, dim=1)
+                vv = vv.repeat_interleave(g, dim=1)
+            tok = s * Ls + torch.arange(Ls, device=q.device)
+            qpos = length - Tq + t_rows
+            ok = ((tok[None] >= t_lo) & (tok[None] < t_hi)
+                  & (tok[None] <= qpos[:, None]))
+            if mask.window:
+                ok = ok & (tok[None] > qpos[:, None] - mask.window)
+            sc_ = torch.einsum("thd,khd->htk", q[b].float(), kk) * sc
+            sc_ = torch.where(ok[None], sc_, torch.full_like(sc_, NEG_INF))
+            m = sc_.amax(dim=-1)                                  # (Hq, Tq)
+            empty = m <= NEG_INF / 2
+            p = torch.exp(sc_ - torch.where(empty, 0.0, m)[..., None])
+            p = torch.where(empty[..., None], torch.zeros_like(p), p)
+            den = p.sum(dim=-1)
+            o_s = torch.einsum("htk,khd->thd", p, vv)
+            den_t = den.transpose(0, 1)[..., None]               # (Tq, Hq, 1)
+            o_s = torch.where(den_t == 0.0, torch.zeros_like(o_s),
+                              o_s / torch.where(den_t == 0.0, 1.0, den_t))
+            lse = torch.where(den == 0.0, torch.full_like(den, NEG_INF),
+                              m + torch.log(torch.where(den == 0.0, 1.0,
+                                                        den)))
+            parts.append((o_s, lse.transpose(0, 1)))              # (Tq, Hq)
+        if len(parts) == 1:
+            out[b] = parts[0][0]
+            continue
+        mx = torch.stack([ls for _, ls in parts]).amax(dim=0)
+        live = mx > NEG_INF / 2
+        num = torch.zeros_like(parts[0][0])
+        den = torch.zeros_like(mx)
+        for o_s, ls in parts:
+            w = torch.where(live & (ls > NEG_INF / 2),
+                            torch.exp(ls - torch.where(live, mx, 0.0)),
+                            torch.zeros_like(ls))
+            den = den + w
+            num = num + w[..., None] * o_s
+        out[b] = torch.where(den[..., None] == 0.0, torch.zeros_like(num),
+                             num / torch.where(den == 0.0, 1.0,
+                                               den)[..., None])
+    return out.to(q.dtype)
+
+
 def _check_cuda(q, k_pool, v_pool, block_table, lengths, mask):
     dev = q.device
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
@@ -126,16 +235,17 @@ def _check_cuda(q, k_pool, v_pool, block_table, lengths, mask):
     if not BLOCK_SIZES[0] <= bs <= BLOCK_SIZES[1]:
         raise ValueError(f"paged decode kernel takes block sizes "
                          f"{BLOCK_SIZES[0]}..{BLOCK_SIZES[1]}, got {bs}")
-    # each lane loads D/32 consecutive elements as one vector
-    vec = D // 32
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.ndim != 4 or t.stride(-1) != 1:
             raise ValueError(f"{name} must be 4-d with a unit-stride last "
                              f"dim, got strides {t.stride()}")
-        if any(st % vec for st in t.stride()[:3]) \
-                or t.data_ptr() % (vec * t.element_size()):
-            raise ValueError(f"{name} rows must be aligned to {vec} "
-                             f"elements for the kernel's vector loads")
+    # the kernel stages pool rows with 16-byte cp.async copies
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        step = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % step for st in t.stride()[:3]):
+            raise ValueError(f"{name}: paged decode needs 16-byte aligned "
+                             f"rows (pointer {t.data_ptr() % 16} bytes past "
+                             f"16, strides {t.stride()})")
     if block_table.dtype != torch.int32 or block_table.ndim != 2 \
             or block_table.stride(1) != 1 \
             or block_table.shape[0] != q.shape[0]:
@@ -159,15 +269,24 @@ def paged_attn(q, k_pool, v_pool, block_table, lengths, *,
     _check_cuda(q, k_pool, v_pool, block_table, lengths, mask)
     B, Tq, Hq, D = q.shape
     bs, Hkv = k_pool.shape[1], k_pool.shape[2]
+    nb = block_table.shape[1]
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
+    Ls, S = split_plan(nb, bs, D, q.dtype)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o_part = lse_part = None
+    if S > 1:       # the splits' partial (o_s, lse_s), in one allocation
+        rows = B * S * Hq * Tq
+        part = torch.empty(rows * (D + 1), dtype=torch.float32,
+                           device=q.device)
+        o_part, lse_part = part[:rows * D], part[rows * D:]
     ia = build.int64_args(
-        B, Tq, Hq, Hkv, D, DTYPES[q.dtype], bs, block_table.shape[1],
-        mask.window, *q.stride()[:3], *k_pool.stride()[:3],
-        *v_pool.stride()[:3], *o.stride()[:3], block_table.stride(0))
+        B, Tq, Hq, Hkv, D, DTYPES[q.dtype], bs, nb, mask.window,
+        *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        *o.stride()[:3], block_table.stride(0), Ls, S)
     err = _fn()(build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
-                 build.ptr(o), build.ptr(block_table), build.ptr(lengths),
-                 ia, float(sc), build.stream_ptr(q.device))
+                 build.ptr(o), build.ptr(o_part), build.ptr(lse_part),
+                 build.ptr(block_table), build.ptr(lengths), ia, float(sc),
+                 build.stream_ptr(q.device))
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed (CUDA error "
                            f"{err})")

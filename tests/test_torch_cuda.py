@@ -179,6 +179,21 @@ PAGED = [
     (4, 1, 32, 32, 128, 16, [1, 700, 513, 1032], 0, torch.bfloat16),
     (4, 4, 8, 2, 64, 8, [3, 9, 40, 77], 0, torch.float32),
     (3, 2, 4, 1, 32, 64, [1, 65, 200], 30, torch.float32),
+    # split edges (L_s = 256 at bf16 D = 128 and bs 16): L_s - 1, L_s,
+    # L_s + 1, 2 L_s
+    (4, 1, 8, 8, 128, 16, [255, 256, 257, 512], 0, torch.bfloat16),
+    # one 32K-token request: 128 splits and the merge
+    (1, 1, 8, 8, 128, 16, [32768], 0, torch.bfloat16),
+    # windows across a split boundary
+    (4, 1, 8, 2, 128, 16, [300, 600, 700, 1000], 100, torch.bfloat16),
+    # Tq > 1, GQA: with window 2 the first rows attend only split 0, the
+    # last only split 1
+    (2, 4, 8, 2, 128, 16, [258, 770], 2, torch.bfloat16),
+    (2, 4, 32, 8, 128, 16, [255, 1016], 0, torch.bfloat16),
+    # float32 at D 32 with bs 64 (L_s = 512) and D 64, 128
+    (4, 1, 4, 4, 32, 64, [511, 512, 513, 1024], 0, torch.float32),
+    (2, 3, 4, 2, 64, 8, [256, 700], 40, torch.float32),
+    (2, 2, 4, 4, 128, 16, [129, 300], 0, torch.float32),
 ]
 
 
@@ -203,6 +218,53 @@ def test_paged_kernel_matches_plain(dev, case):
     torch.testing.assert_close(
         o.float(), paged_attn_ref(q, kp, vp, bt, lens, mask=mask).float(),
         atol=tol, rtol=tol)
+
+
+def test_paged_kernel_is_bitwise_batch_invariant(dev):
+    """One request (1000 tokens, 4 splits, GQA, Tq 2) gives bitwise the same
+    o alone, in a batch of 4 with a wider table, under a permuted block
+    table, and from one launch to the next."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, Tq, Hq, Hkv, D, bs, nb = 4, 2, 8, 2, 128, 16, 70
+    N = B * nb + 4
+    q = _randn(gen, (B, Tq, Hq, D), torch.bfloat16, dev)
+    kp = _randn(gen, (N, bs, Hkv, D), torch.bfloat16, dev)
+    vp = _randn(gen, (N, bs, Hkv, D), torch.bfloat16, dev)
+    bt = (torch.randperm(N - 1, generator=gen, device=dev)[:B * nb] + 1
+          ).reshape(B, nb).to(torch.int32)
+    lens = torch.tensor([80, 1000, 529, 1100], dtype=torch.int32,
+                        device=dev)
+    mask = mk.sliding_window(900)
+    full = paged_attn(q, kp, vp, bt, lens, mask=mask)
+    again = paged_attn(q, kp, vp, bt, lens, mask=mask)
+    assert torch.equal(full, again)
+    alone = paged_attn(q[1:2].contiguous(), kp, vp,
+                       bt[1:2, :-(-1000 // bs)].contiguous(), lens[1:2],
+                       mask=mask)
+    assert torch.equal(alone[0], full[1])
+    perm = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                      torch.randperm(N - 1, generator=gen, device=dev) + 1])
+    kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+    kp2[perm], vp2[perm] = kp, vp
+    moved = paged_attn(q, kp2, vp2, perm[bt.long()].to(torch.int32), lens,
+                       mask=mask)
+    assert torch.equal(moved, full)
+    torch.testing.assert_close(
+        full.float(), paged_attn_ref(q, kp, vp, bt, lens, mask=mask).float(),
+        atol=2e-2, rtol=2e-2)
+
+
+def test_paged_raises_on_unaligned_pool_rows(dev):
+    """The kernel stages pool rows with 16-byte copies: pools whose rows do
+    not start on 16-byte boundaries raise instead of falling back."""
+    q = torch.zeros((1, 1, 2, 32), device=dev, dtype=torch.bfloat16)
+    pool = torch.zeros((4, 16, 2, 33), device=dev, dtype=torch.bfloat16)
+    bt = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    ln = torch.full((1,), 20, dtype=torch.int32, device=dev)
+    n0 = build.LAUNCHES["paged_decode"]
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attn(q, pool[..., 1:], pool[..., 1:], bt, ln)
+    assert build.LAUNCHES["paged_decode"] == n0
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

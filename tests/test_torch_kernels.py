@@ -23,7 +23,8 @@ from repro_torch.core.attention import chunk_attn, chunk_attn_bwd, merge
 from repro_torch.kernels import block_sparse as tbs
 from repro_torch.kernels.flash_attention import (flash_bwd, flash_fwd,
                                                  q_tile_bounds, tile_bounds)
-from repro_torch.kernels.paged import paged_attn, paged_attn_ref
+from repro_torch.kernels.paged import (paged_attn, paged_attn_ref,
+                                       paged_attn_split_ref, split_plan)
 from repro_torch.kernels.ref import (NEG_INF, chunk_attn_bwd_ref,
                                      chunk_attn_ref, row_rel_err)
 
@@ -533,6 +534,92 @@ def test_paged_rejects_unsupported_masks():
         paged_attn(*args, mask=tmk.prefix_lm(3))
     with pytest.raises(ValueError, match="offset-free"):
         paged_attn(*args, mask=tmk.causal(rel_offset=2))
+
+
+def test_split_plan_depends_on_pages_dim_and_dtype_only():
+    """The kernel's split length is a whole number of pages near its target
+    (256 tokens for bf16 D = 128), and S covers the table's width."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert split_plan(66, 16, 128, bf) == (256, 5)
+    assert split_plan(2050, 16, 128, bf) == (256, 129)
+    assert split_plan(16, 16, 128, bf) == (256, 1)
+    assert split_plan(17, 16, 128, bf) == (256, 2)
+    assert split_plan(3, 24, 128, bf) == (264, 1)     # 11 pages of 24
+    assert split_plan(10, 64, 32, f32) == (512, 2)
+    assert split_plan(1, 8, 128, f32) == (128, 1)
+    for bs in range(8, 65):
+        for D in (32, 64, 128):
+            for dt in (bf, f32):
+                Ls, S = split_plan(40, bs, D, dt)
+                assert Ls % bs == 0 and Ls >= 128
+                assert (S - 1) * Ls < 40 * bs <= S * Ls
+                # the boundaries do not move with the table's width
+                assert split_plan(400, bs, D, dt)[0] == Ls
+
+
+SPLIT_CASES = [
+    # (B, Tq, Hq, Hkv, D, bs, nb, lengths, window, split_tokens):
+    # lengths at the split edges L_s - 1, L_s, L_s + 1, 2 L_s
+    (4, 1, 4, 2, 32, 8, 6, [15, 16, 17, 32], 0, 16),
+    (4, 2, 4, 4, 64, 8, 9, [23, 24, 25, 48], 0, 24),
+    # windows across a split boundary
+    (3, 1, 4, 2, 32, 8, 8, [21, 40, 57], 10, 16),
+    (2, 3, 4, 1, 32, 16, 4, [37, 60], 20, 32),
+    # Tq > 1 and GQA, rows with nothing attendable in some splits: with
+    # window 2 the first rows see only the earlier split, the last only the
+    # later one; length 2 at Tq 4 leaves rows with nothing at all
+    (3, 4, 4, 2, 32, 8, 6, [18, 34, 2], 2, 16),
+    (2, 4, 8, 2, 64, 8, 7, [17, 50], 0, 16),
+    # the kernel's own plan: L_s 512 at float32 D = 32, bs 64
+    (2, 2, 4, 2, 32, 64, 10, [511, 513], 0, None),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_split_and_merge_matches_reference_kernel(case):
+    B, Tq, Hq, Hkv, D, bs, nb, lengths, window, split = case
+    q, kp, vp, bt, lens = _paged_inputs(11, B, Tq, Hq, Hkv, D, bs, nb,
+                                        B * nb + 3, lengths)
+    rmask = rmk.sliding_window(window) if window else rmk.causal()
+    tmask = tmk.sliding_window(window) if window else tmk.causal()
+    o_r = paged_attn_pallas(*(jnp.asarray(x) for x in (q, kp, vp, bt, lens)),
+                            mask=rmask, interpret=True)
+    args = [torch.from_numpy(x) for x in (q, kp, vp, bt, lens)]
+    o_s = paged_attn_split_ref(*args, mask=tmask, split_tokens=split)
+    np.testing.assert_allclose(o_s.numpy(), np.asarray(o_r), atol=PAGED_TOL,
+                               rtol=PAGED_TOL)
+    np.testing.assert_allclose(o_s.numpy(),
+                               paged_attn_ref(*args, mask=tmask).numpy(),
+                               atol=PAGED_TOL, rtol=PAGED_TOL)
+
+
+def test_paged_split_result_bits_do_not_depend_on_batch_or_width():
+    """A request's split boundaries, and so its result bits, are the same
+    alone, in a batch with a wider table, and under a permuted block
+    table."""
+    B, Tq, Hq, Hkv, D, bs = 4, 2, 4, 2, 32, 8
+    q, kp, vp, bt, lens = _paged_inputs(14, B, Tq, Hq, Hkv, D, bs, 9,
+                                        B * 9 + 5, [40, 70, 9, 33])
+    args = [torch.from_numpy(x) for x in (q, kp, vp, bt, lens)]
+    m = tmk.sliding_window(30)
+    full = paged_attn_split_ref(*args, mask=m, split_tokens=16)
+    b = 1
+    alone_bt = args[3][b:b + 1, :-(-70 // bs)].contiguous()   # narrowest
+    alone = paged_attn_split_ref(args[0][b:b + 1], args[1], args[2],
+                                 alone_bt, args[4][b:b + 1], mask=m,
+                                 split_tokens=16)
+    assert torch.equal(alone[0], full[b])
+    # the same pages moved to other block ids
+    N = kp.shape[0]
+    perm = np.concatenate([[0], np.random.default_rng(3).permutation(
+        np.arange(1, N))])
+    kp2, vp2 = np.empty_like(kp), np.empty_like(vp)
+    kp2[perm], vp2[perm] = kp, vp
+    moved = paged_attn_split_ref(
+        args[0], torch.from_numpy(kp2), torch.from_numpy(vp2),
+        torch.from_numpy(perm[bt].astype(np.int32)), args[4], mask=m,
+        split_tokens=16)
+    assert torch.equal(moved, full)
 
 
 def test_registry_defaults_to_cuda_and_runs_plain_on_cpu():
