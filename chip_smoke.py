@@ -29,6 +29,17 @@ Phases, each fatal on failure (nothing is caught):
                 in some splits, each launch counted once; and bitwise: a
                 request alone, in a batch of 4 and under a permuted block
                 table gives the same o, and so do two launches.
+  3c. plans   — kernels A, C and D under every distinct mask the plan
+                steps give them: every active Work item of balanced, ring
+                and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
+                4096), of a windowed ring and a windowed zigzag (window
+                3000: whole rows empty at large q offsets, rank offsets
+                folded into static masks) and two steps of a document
+                plan with segment ids; 32 heads × 128, bf16.  The backward
+                gets the executor's inputs (o = 0, delta passed in).  Held
+                head slice by head slice to phase 3's limits; empty rows
+                must be (0, NEG_INF) and merge to the other partial; a
+                statically empty chunk launches nothing.
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -60,6 +71,26 @@ Phases, each fatal on failure (nothing is caught):
                 between the kernels and the plain attention is at most 5%
                 of the leaf's max |g|, and the same limit rejects a plain
                 backward whose causal mask is shifted by one position.
+  7. ranks    — the multi-rank path: a gloo world of 4 processes sharing
+                the card (transport "gloo-staged": every transfer staged
+                through pinned host buffers), llama-7b's width (d_model
+                4096, 32 × 128 heads, d_ff 11008, vocab 32000, bf16) at
+                depth 2 on one global sequence of 32768 tokens (8192 a
+                rank), remat_aware: 3 balanced steps, 1 ring, 1 zigzag.
+                Per rank and step: A, C and D launch counts equal to the
+                rank's Work items with a route that reaches an output
+                (the coverage rule, checked to compute every causal chunk
+                pair once) × layers, finite losses equal on every rank,
+                no skipped step; peak memory.  Held to a P = 1 run of the
+                same weights and batches in this process: the per-token
+                losses of the first batch (the limit must reject a
+                control whose plans drop the helper routes); the
+                gradients of every layer's wq, wk, wv under each schedule,
+                step 1's gradient norm and step 2's loss (the limits must
+                reject two planted backward faults: the accumulators'
+                home shift dropped, the helpers' dq dropped).  Any rank's
+                failure, or the world still running after 600 s, is
+                fatal.
   5. times    — each kernel at the shapes of its path (C and D on the
                 inputs kept in phase 6): its time (CUDA events, median
                 after warm-up), its plain version's at the same shape, a
@@ -78,10 +109,13 @@ Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
 there is no CUDA device or the port is not beside this file.
 """
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -93,16 +127,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import mask as mk  # noqa: E402
 from repro_torch.core.config import (  # noqa: E402
     ParallelConfig, ShapeSpec, TrainConfig, get_config)
+from repro_torch.core import schedule as sp  # noqa: E402
 from repro_torch.core.tree import leaves  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FlashAttnFn, _BwdPlan, _launch_dkv, _launch_dq, flash_bwd, flash_fwd)
+    FWD_ROUTES, FlashAttnFn, _BwdPlan, _device_bounds, _launch_dkv,
+    _launch_dq, flash_bwd, flash_fwd)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, row_rel_err)
+    NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, merge_ref, row_rel_err)
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.world import spawn  # noqa: E402
 from repro_torch.models.transformer import DecoderLM, trainable  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.sharding import make_parallel_config  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 
@@ -927,6 +966,485 @@ def grad_check():
     _free()
 
 
+# ---------------------------------------------------------------- phase 3c
+
+PLAN_P, PLAN_TL, PLAN_WINDOW = 4, 8192, 3000
+PLAN_SETS = (("balanced", mk.causal()), ("ring", mk.causal()),
+             ("zigzag", mk.causal()),
+             ("ring", mk.sliding_window(PLAN_WINDOW)),
+             ("zigzag", mk.sliding_window(PLAN_WINDOW)),
+             ("balanced", mk.document()))
+PLAN_DOC_STEPS = ((0, 1), (1, 3))   # (step, rank) run of the document plan
+
+
+def _plan_step_cases():
+    """The distinct kernel calls of every Work item of ``PLAN_SETS`` at
+    P 4, Tl 8192, as each rank's forward and backward make them
+    (``schedule.rank_calls``): ``{(mask, chunk tokens, q chunk, kv chunk):
+    [labels]}`` (the chunks only where segment ids make them matter:
+    document masks)."""
+    cases = {}
+    for sched, m in PLAN_SETS:
+        plan = sp.build_plan(sched, m, PLAN_P, PLAN_TL)
+        tag = sched + ("-window" if m.window else "") \
+            + ("-document" if m.document else "")
+        for backward in (False, True):
+            for si, p, qg, kg, km in sp.rank_calls(plan, backward):
+                if m.document and (si, p) not in PLAN_DOC_STEPS:
+                    continue
+                key = (km, plan.chunk_len) + ((qg, kg) if m.document
+                                              else (None, None))
+                label = f"{tag} t{si} p{p}"
+                if label not in cases.setdefault(key, []):
+                    cases[key].append(label)
+    return cases
+
+
+def plan_step_checks():
+    """Phase 3c: kernels A, C and D under every plan step's mask at
+    llama-7b width (32 heads × 128, bf16), against their plain versions
+    head slice by head slice at phase 3's limits; the backward gets the
+    executor's inputs (o = 0, delta = rowsum(o ⊙ do) passed in)."""
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    bf = torch.bfloat16
+    T = PLAN_P * PLAN_TL
+    seg_g = torch.sort(torch.randint(0, 7, (1, T), generator=gen,
+                                     device=DEV), dim=1)[0].to(torch.int32)
+    cases = _plan_step_cases()
+    n_empty_rows = n_empty_chunks = 0
+    for (m, c, qg, kg), labels in cases.items():
+        q, k, v, do = (randn(gen, (1, c, 32, 128), bf) for _ in range(4))
+        kw = {}
+        if m.document:
+            kw = dict(q_segments=seg_g[:, qg * c:(qg + 1) * c].contiguous(),
+                      kv_segments=seg_g[:, kg * c:(kg + 1) * c]
+                      .contiguous())
+        block = FWD_ROUTES[bf][2]
+        empty = _device_bounds(m, c, c, True, str(DEV), block)[1]
+        n0 = dict(build.LAUNCHES)
+        o, lse = flash_fwd(q, k, v, mask=m, **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        zero = torch.zeros_like(q)
+        got = flash_bwd(q, k, v, zero, lse, do, mask=m, delta=delta, **kw)
+        torch.cuda.synchronize()
+        want = 0 if empty else 1
+        for name in BWD_KERNELS:
+            check(build.LAUNCHES[name] - n0[name] == want,
+                  f"plan step {labels[0]}: {name} launched "
+                  f"{build.LAUNCHES[name] - n0[name]} times, want {want}")
+        e = dict(o=0.0, lse=0.0, rel=0.0, dq=0.0, dk=0.0, dv=0.0)
+        rows = [0.0] * 3
+        dead = 0
+        for sq, skv in _head_slices(q, k):
+            qh, kh, vh = q[:, :, sq], k[:, :, skv], v[:, :, skv]
+            o_r, lse_r = chunk_attn_ref(qh, kh, vh, mask=m, **kw)
+            oh, lh = o[:, :, sq], lse[:, :, sq]
+            check(torch.allclose(oh.float(), o_r.float(), atol=TOL[bf],
+                                 rtol=TOL[bf]),
+                  f"plan step {labels[0]}: o over {TOL[bf]}")
+            e["o"] = max(e["o"], float((oh.float() - o_r.float()).abs()
+                                       .max()))
+            e["rel"] = max(e["rel"], rel_err(oh, o_r))
+            gone = lse_r <= NEG_INF / 2
+            dead += int(gone.sum())
+            check(bool((lh[gone] == NEG_INF).all() and (oh[gone] == 0).all()),
+                  f"plan step {labels[0]}: an empty row is not (0, NEG_INF)")
+            if (~gone).any():
+                e["lse"] = max(e["lse"], float((lh - lse_r).abs()[~gone]
+                                               .max()))
+            ref = chunk_attn_bwd_ref(qh, kh, vh, zero[:, :, sq], lh,
+                                     do[:, :, sq], mask=m,
+                                     delta=delta[:, :, sq], **kw)
+            mine = (got[0][:, :, sq], got[1][:, :, skv], got[2][:, :, skv])
+            for i, (nm, a, r) in enumerate(zip(("dq", "dk", "dv"), mine,
+                                               ref)):
+                check(torch.allclose(a.float(), r.float(), atol=BWD_TOL[bf],
+                                     rtol=BWD_TOL[bf]),
+                      f"plan step {labels[0]}: {nm} over {BWD_TOL[bf]}")
+                e[nm] = max(e[nm], float((a.float() - r.float()).abs()
+                                         .max()))
+                rows[i] = max(rows[i], row_rel_err(a, r))
+            del o_r, lse_r, ref
+        check(e["rel"] <= REL_TOL, f"plan step {labels[0]}: o relative "
+              f"err {e['rel']} over {REL_TOL}")
+        check(max(rows) <= ROW_TOL, f"plan step {labels[0]}: per-row "
+              f"errors {rows} over {ROW_TOL}")
+        if dead:
+            # merged with another partial, the empty rows stay finite and
+            # take the other partial's value exactly
+            o2 = randn(gen, o.shape, torch.float32)
+            mo, ml = merge_ref(o.float(), lse, o2, torch.zeros_like(lse))
+            gone = lse <= NEG_INF / 2
+            check(bool(torch.isfinite(mo).all() and torch.isfinite(ml).all()
+                       and (mo[gone] == o2[gone]).all()),
+                  f"plan step {labels[0]}: merge of empty rows")
+            n_empty_rows += 1
+        n_empty_chunks += bool(empty)
+        say(f"  {labels[0]:<24} {m.kind:<14} q_off {m.q_offset:>5} kv_off "
+            f"{m.kv_offset:>5} c {c}: max|Δo| {e['o']:.2e} rel "
+            f"{e['rel']:.2e} max|Δlse| {e['lse']:.2e}; dq/dk/dv "
+            f"{e['dq']:.2e}/{e['dk']:.2e}/{e['dv']:.2e} per-row "
+            + "/".join(f"{x:.2e}" for x in rows)
+            + (f"; {dead} empty rows" if dead else "")
+            + ("; statically empty, no launch" if empty else "")
+            + f" ({len(labels)} rank-steps)")
+        del q, k, v, do, o, lse, got, zero, delta
+        _free()
+    check(n_empty_rows > 0, "no plan step had empty rows")
+    say(f"  {len(cases)} distinct plan-step kernel calls held to their "
+        f"plain versions; {n_empty_rows} with empty rows, "
+        f"{n_empty_chunks} statically empty")
+
+
+# ----------------------------------------------------------------- phase 7
+
+P7_RANKS, P7_LAYERS, P7_T = 4, 2, 32768
+P7_RUNS = (("balanced", 3), ("ring", 1), ("zigzag", 1))
+P7_TIMEOUT = 600
+P7_TRANSPORT = "gloo-staged"       # four ranks, one card
+# P = 4 against P = 1 on the same weights and first batch (bf16, width,
+# depth 2): the mean |Δ| of the per-token losses and |Δ| of the loss.
+# Calibrated on the first chip run: sound 5.03e-3 and 4.77e-5; the
+# control without the helper routes 5.36e-2 and 5.18e-4.  Each limit sits
+# about 3× above the sound run and 3× below the control.
+P7_CE_TOL, P7_LOSS_TOL = 1.5e-2, 1.5e-4
+# The backward against P = 1 on the same weights and batches: the worst
+# relative error ‖g₄ − g₁‖ / ‖g₁‖ over the gradients of every layer's wq,
+# wk and wv (each schedule), the relative |Δ| of step 1's gradient norm,
+# and |Δ| of step 2's loss (after one AdamW update).  Two planted backward
+# faults on the balanced schedule are the controls: the traveling
+# accumulators' home shift dropped ("home"), and the helpers' dq
+# accumulator emptied on its way home ("dqb").  Calibrated on the chip
+# (H100, 700 W): sound ≤ 7.61e-3 / 2.91e-5 / 9.54e-6; home 0.821 /
+# 3.39e-2 / 4.57e-2; dqb 0.223 / 5.79e-5 / 1.95e-4.  The gradient and
+# step-2 limits sit about 4× above the sound run and 5-7× below the dqb
+# control; the norm limit 34× from both the sound run and the home
+# control.  The dqb control moves the norm only twice as far as the sound
+# run does (the helpers' dq is a small part of it), so the norm limit
+# need reject only the home control.
+P7_GRAD_TOL, P7_GNORM_TOL, P7_LOSS2_TOL = 3e-2, 1e-3, 4e-5
+P7_GRAD_RUNS = (("balanced", None), ("ring", None), ("zigzag", None),
+                ("balanced", "home"), ("balanced", "dqb"))
+
+
+def _p7_tc():
+    return TrainConfig(lr=1e-4, warmup_steps=1,
+                       total_steps=sum(n for _, n in P7_RUNS))
+
+
+def _helperless(build_plan):
+    """A deliberately wrong planner (phase 7's control): the plans with
+    every shipped route dropped, so the balanced schedule's helper results
+    never reach home."""
+    def build(sched, m, P, Tl):
+        plan = build_plan(sched, m, P, Tl)
+        steps = []
+        for s in plan.steps:
+            work = [dataclasses.replace(w, routes=tuple(
+                r for r in w.routes if not r.ship)) for w in s.work]
+            steps.append(dataclasses.replace(
+                s, work=tuple(w for w in work if w.routes)))
+        return dataclasses.replace(plan, steps=tuple(steps))
+    return build
+
+
+@contextlib.contextmanager
+def _backward_fault(fault):
+    """A deliberately wrong backward while the block runs (phase 7's
+    controls): ``execute_bwd``'s multi-hop shift that sends the traveling
+    accumulators home (its only shift with negative hops) dropped
+    (``"home"``), or made with the helpers' dq accumulator emptied
+    (``"dqb"``); None leaves the backward as it is."""
+    shift_now = sp._shift_now
+
+    def faulty(comm, data, hops):
+        if hops >= 0:
+            return shift_now(comm, data, hops)
+        if fault == "home":
+            return data
+        out = shift_now(comm, data, hops)
+        out["dqb"] = torch.zeros_like(out["dqb"])
+        return out
+    if fault:
+        sp._shift_now = faulty
+    try:
+        yield
+    finally:
+        sp._shift_now = shift_now
+
+
+def _token_ce(model, params, batch):
+    """Per-token cross-entropy (B, Tl) float32 of ``model`` on its shard,
+    through the model's own layers (logits 4096 tokens at a time)."""
+    from repro_torch.models import layers as L
+    a = model.cfg.attn
+    with torch.no_grad():
+        h = model._embed(params, batch)
+        cos, sin = L.rope_tables(model.positions(h.shape[1]), a.head_dim,
+                                 a.rope_theta)
+        h = model._backbone(params, h, cos, sin)
+        labels = batch["labels"].to(model.device).long()
+        out = []
+        for i in range(0, h.shape[1], 4096):
+            lf = model._head(params, h[:, i:i + 4096]).float()
+            ll = lf.gather(-1, labels[:, i:i + 4096, None])[..., 0]
+            out.append(torch.logsumexp(lf, -1) - ll)
+        return torch.cat(out, dim=1)
+
+
+def _attn_grads(model, params, batch):
+    """Gradients of the global loss w.r.t. every layer's wq, wk and wv,
+    summed over the ranks as the train step sums them."""
+    loss, _ = model.loss(params, batch)
+    gs = list(torch.autograd.grad(loss, [
+        lp["attn"][k] for lp in params["layers"] for k in ("wq", "wk", "wv")]))
+    if model.token_group is not None:
+        model.token_group.all_reduce_(gs)
+    return gs
+
+
+def _grad_err(gs, ref):
+    return max(float((g.float() - r.float()).norm() / r.float().norm())
+               for g, r in zip(gs, ref))
+
+
+def _p7_want(sched):
+    """Per rank, the kernel calls one pass of ``sched``'s causal plan at
+    P 4 must launch, derived apart from the executor's ``work_active``:
+    the rank's Work items with a route that reaches an output
+    (``schedule.route_reaches``, the coverage rule).  Fails unless those
+    items compute every causal (q chunk, kv chunk) pair of
+    ``global_allow`` exactly once over the ranks."""
+    plan = sp.build_plan(sched, mk.causal(), P7_RANKS, P7_T // P7_RANKS)
+    n = P7_RANKS * plan.n_chunks
+    got = np.zeros((n, n), np.int64)
+    want = [0] * P7_RANKS
+    d = 0
+    for step in plan.steps:
+        d += step.shift
+        for w in step.work:
+            for p in range(P7_RANKS):
+                if any(sp.route_reaches(r, P7_RANKS, p) for r in w.routes):
+                    qg, kg, _ = sp.work_operands(plan, w, p, d)
+                    got[qg, kg] += 1
+                    want[p] += 1
+    check(bool((got == sp.global_allow(mk.causal(), n)).all()),
+          f"{sched}: the ranks' routes do not compute every causal chunk "
+          f"pair once")
+    return want
+
+
+def _p7_rank(rank, ref_path):
+    """One rank of phase 7's world (its process and world are started by
+    ``spawn``): the per-token losses of the first batch under balanced
+    and under the control, the attention projections' gradients of that
+    batch under each schedule and under the backward controls (held on
+    rank 0 to the P = 1 gradients saved at ``ref_path``), a train step
+    under each backward control (undone), then the train steps of
+    ``P7_RUNS``."""
+    mesh = make_local_mesh(seq=P7_RANKS, device=DEV)
+    p = mesh.coord("model")
+    cfg = get_config("llama-7b").replace(n_layers=P7_LAYERS)
+    shape = ShapeSpec("chip7", P7_T, 1, "train")
+    models = {s: DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+        mesh, shape, schedule=s)) for s, _ in P7_RUNS}
+    data = {s: SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                               par=m.par) for s, m in models.items()}
+    params = trainable(models["balanced"].init(seed=0))
+    out = {"transport": mesh.transport, "rank": p}
+    b0 = data["balanced"].batch(0)
+    out["ce"] = _token_ce(models["balanced"], params, b0).cpu()
+    real = sp.build_plan
+    sp.build_plan = _helperless(real)
+    try:
+        out["ce_control"] = _token_ce(models["balanced"], params, b0).cpu()
+    finally:
+        sp.build_plan = real
+    ref = torch.load(ref_path, map_location=DEV) if p == 0 else None
+    out["grad_err"] = {}
+    for sched, fault in P7_GRAD_RUNS:
+        with _backward_fault(fault):
+            gs = _attn_grads(models[sched], params, data[sched].batch(0))
+        if ref is not None:
+            out["grad_err"][f"{sched}/{fault or 'sound'}"] = _grad_err(gs,
+                                                                       ref)
+        del gs
+    del ref
+    # the controls through a whole train step from the same start: step
+    # 1's gradient norm and the loss of batch 1 after the update
+    bal, tc = models["balanced"], _p7_tc()
+    saved = [t.detach().clone() for t in leaves(params)]
+    out["control_steps"] = {}
+    for fault in ("home", "dqb"):
+        opt = adamw.init(params)
+        with _backward_fault(fault):
+            m = make_train_step(bal, tc)(params, opt, b0)
+        with torch.no_grad():
+            l2 = float(bal.loss(params, data["balanced"].batch(1))[0])
+            for t, v in zip(leaves(params), saved):
+                t.copy_(v)
+        out["control_steps"][fault] = (m["gnorm"], l2)
+        del opt
+    del saved
+    _free()
+    comms = list({id(c): c for m in models.values()
+                  for c in (m.seq_group, m.token_group)}.values())
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, i = [], 0
+    for sched, n in P7_RUNS:
+        step = make_train_step(models[sched], tc)
+        for _ in range(n):
+            batch = data[sched].batch(i)
+            torch.cuda.synchronize()
+            build.reset_launches()
+            w0 = sum(c.shift_wait_s for c in comms)
+            r0 = sum(c.reduce_s for c in comms)
+            t0 = time.perf_counter()
+            m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            steps.append(dict(
+                schedule=sched, loss=m["loss"], gnorm=m["gnorm"], sec=sec,
+                shift_wait=sum(c.shift_wait_s for c in comms) - w0,
+                reduce_sec=sum(c.reduce_s for c in comms) - r0,
+                skipped=m["skipped_nonfinite"],
+                launches={k: build.LAUNCHES[k] for k in BWD_KERNELS}))
+            i += 1
+    out["steps"] = steps
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _p7_one(cfg, shape, ref_path):
+    """P = 1 on this process: the first batch's per-token losses, its
+    attention projections' gradients (saved at ``ref_path``), and two
+    train steps from the same weights (step 1's loss and gradient norm,
+    step 2's loss)."""
+    one = DecoderLM(cfg, DEV)
+    params = trainable(one.init(seed=0))
+    ds = SyntheticTokens(cfg, shape, device=DEV, seed=0)
+    b0 = ds.batch(0)
+    ce1 = _token_ce(one, params, b0).cpu()
+    torch.save([g.cpu() for g in _attn_grads(one, params, b0)], ref_path)
+    step = make_train_step(one, _p7_tc())
+    opt = adamw.init(params)
+    s1 = step(params, opt, b0)
+    s2 = step(params, opt, ds.batch(1))
+    del one, params, opt, step
+    _free()
+    return ce1, s1, s2
+
+
+def multi_rank():
+    """Phase 7: a gloo world of 4 ranks sharing the one card, training
+    llama-7b's width at depth 2 on one sequence of 32768 tokens (8192 a
+    rank) under remat_aware: 3 balanced steps, 1 ring, 1 zigzag.  Before
+    the world starts, the same weights and batches run on one process
+    (P = 1), for the per-token losses, gradients and first two steps the
+    ranks are held to."""
+    cfg = get_config("llama-7b").replace(n_layers=P7_LAYERS)
+    shape = ShapeSpec("chip7", P7_T, 1, "train")
+    want = {s: _p7_want(s) for s, _ in P7_RUNS}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "grads1.pt")
+        ce1, s1, s2 = _p7_one(cfg, shape, ref_path)
+        say(f"  P = 1: loss {float(ce1.mean()):.6f} over {P7_T} tokens "
+            f"({cfg.name} width, {P7_LAYERS} layers, bf16); step 1 loss "
+            f"{s1['loss']:.6f} gnorm {s1['gnorm']:.4f}, step 2 loss "
+            f"{s2['loss']:.6f}")
+        t0 = time.perf_counter()
+        res = spawn(_p7_rank, P7_RANKS, (ref_path,), device=DEV,
+                    timeout=P7_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    check(all(r["transport"] == P7_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    ce4 = torch.cat([r["ce"] for r in res], dim=1)
+    ctl = torch.cat([r["ce_control"] for r in res], dim=1)
+    check(bool(torch.isfinite(ce4).all()), "P = 4 losses not finite")
+    d_tok = float((ce4 - ce1).abs().mean())
+    d_ctl = float((ctl - ce1).abs().mean())
+    d_loss = abs(float(ce4.mean()) - float(ce1.mean()))
+    d_loss_ctl = abs(float(ctl.mean()) - float(ce1.mean()))
+    st4 = res[0]["steps"]
+    step1 = abs(st4[0]["loss"] - float(ce1.mean()))
+    d_gnorm = abs(st4[0]["gnorm"] - s1["gnorm"]) / s1["gnorm"]
+    d_loss2 = abs(st4[1]["loss"] - s2["loss"])
+    gerr = res[0]["grad_err"]
+    ctl_steps = {f: (abs(gn - s1["gnorm"]) / s1["gnorm"],
+                     abs(l2 - s2["loss"]))
+                 for f, (gn, l2) in res[0]["control_steps"].items()}
+    say(f"  P = 4 (balanced) vs P = 1: |Δloss| {d_loss:.3e} (limit "
+        f"{P7_LOSS_TOL}), mean |Δce| a token {d_tok:.3e} (limit "
+        f"{P7_CE_TOL}), max {float((ce4 - ce1).abs().max()):.3e}; control "
+        f"(helper routes dropped): |Δloss| {d_loss_ctl:.3e}, mean |Δce| a "
+        f"token {d_ctl:.3e}")
+    say("  backward vs P = 1, worst ‖Δg‖/‖g‖ of wq/wk/wv (limit "
+        f"{P7_GRAD_TOL}): " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in gerr.items()))
+    say(f"  step 1 gnorm {st4[0]['gnorm']:.4f} vs {s1['gnorm']:.4f}: "
+        f"relative |Δ| {d_gnorm:.3e} (limit {P7_GNORM_TOL}); step 2 loss "
+        f"{st4[1]['loss']:.6f} vs {s2['loss']:.6f}: |Δ| {d_loss2:.3e} "
+        f"(limit {P7_LOSS2_TOL}); controls: " + ", ".join(
+            f"{f} {gn:.3e} / {l2:.3e}" for f, (gn, l2) in ctl_steps.items()))
+    check(d_tok <= P7_CE_TOL and d_loss <= P7_LOSS_TOL
+          and step1 <= P7_LOSS_TOL,
+          f"P = 4 vs P = 1: per-token {d_tok}, loss {d_loss}, first step's "
+          f"loss {step1}")
+    check(d_ctl > P7_CE_TOL and d_loss_ctl > P7_LOSS_TOL,
+          f"the limits do not reject the control without helper routes "
+          f"(per-token {d_ctl}, loss {d_loss_ctl})")
+    for sched, fault in P7_GRAD_RUNS:
+        e = gerr[f"{sched}/{fault or 'sound'}"]
+        if fault:
+            check(e > P7_GRAD_TOL, f"the gradient limit does not reject "
+                  f"the {fault} control ({e})")
+        else:
+            check(e <= P7_GRAD_TOL, f"{sched} gradients vs P = 1: {e}")
+    check(d_gnorm <= P7_GNORM_TOL and d_loss2 <= P7_LOSS2_TOL,
+          f"P = 4 vs P = 1: step 1 gnorm {d_gnorm}, step 2 loss {d_loss2}")
+    for fault, (_, e_l2) in ctl_steps.items():
+        check(e_l2 > P7_LOSS2_TOL, f"the step-2 loss limit does not reject "
+              f"the {fault} control ({e_l2})")
+    check(ctl_steps["home"][0] > P7_GNORM_TOL, f"the gradient-norm limit "
+          f"does not reject the home control ({ctl_steps['home'][0]})")
+    launches = {k: 0 for k in BWD_KERNELS}
+    for r in res:
+        for i, st in enumerate(r["steps"]):
+            check(st["skipped"] == 0, f"rank {r['rank']} step {i + 1} "
+                  "skipped")
+            check(np.isfinite(st["loss"]), f"rank {r['rank']} step {i + 1}"
+                  f" loss {st['loss']}")
+            w = P7_LAYERS * want[st["schedule"]][r["rank"]]
+            check(all(st["launches"][k] == w for k in BWD_KERNELS),
+                  f"rank {r['rank']} step {i + 1} ({st['schedule']}): "
+                  f"launches {st['launches']}, want {w} each")
+            for k in BWD_KERNELS:
+                launches[k] += st["launches"][k]
+        say(f"  rank {r['rank']}: peak {r['peak'] / 2**30:.2f} GiB; "
+            "launches A/C/D a step " + ", ".join(
+                f"{st['schedule']} {st['launches']['flash_fwd']}/"
+                f"{st['launches']['flash_bwd_dq']}/"
+                f"{st['launches']['flash_bwd_dkv']}"
+                for st in r["steps"]))
+    for i, st in enumerate(st4):
+        losses = {r["steps"][i]["loss"] for r in res}
+        check(len(losses) == 1, f"step {i + 1}: ranks disagree {losses}")
+        say(f"  step {i + 1} {st['schedule']:<8} loss {st['loss']:.5f} "
+            f"gnorm {st['gnorm']:.3f} "
+            f"{max(r['steps'][i]['sec'] for r in res):.2f} s; host blocked "
+            "on shifts / in gradient and loss all-reduces, per rank: "
+            + ", ".join(f"{r['steps'][i]['shift_wait']:.2f}/"
+                        f"{r['steps'][i]['reduce_sec']:.2f}" for r in res)
+            + " s")
+    say(f"  world of {P7_RANKS} ranks: {wall:.1f} s, spawn included")
+    return dict(launches=launches, d_tok=d_tok, d_ctl=d_ctl, d_loss=d_loss,
+                d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
+                d_loss2=d_loss2)
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -1241,6 +1759,8 @@ def main():
     say("== phase 3: kernels against their plain versions")
     kernel_checks()
     bwd_checks()
+    say("== phase 3c: kernels A, C and D under every plan step's mask")
+    plan_step_checks()
 
     say("== phase 4: serve llama-7b")
     res = serve()
@@ -1255,12 +1775,14 @@ def main():
     errs = main_path_checks(tr["seen"])
     say("== phase 6b: gradients against the plain path")
     grad_check()
+    say("== phase 7: multi-rank training, 4 ranks on the one card")
+    mr = multi_rank()
 
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
-                for k in res["launches"]}
+                + mr["launches"].get(k, 0) for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
-        f"train {tr['launches']}")
+        f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}")
     rows = [time_flash(launches), time_paged(launches),
             *time_bwd(launches, tr["seen"], errs)]
     rows[0].update(time_flash_train(tr["seen"]))

@@ -60,6 +60,15 @@ def paged_decode_attn(q, k_pool, v_pool, block_table, lengths, *,
 merge = merge_ref  # (o1, lse1, o2, lse2) -> (o, lse)
 
 
+def mask_partial(pred: bool, o, lse):
+    """The partial ``(o, lse)`` where ``pred`` holds, else the empty partial
+    (zeros, NEG_INF) of the same shapes.  ``pred`` is a Python bool: each
+    rank knows its own index, so the choice is made on the host."""
+    if pred:
+        return o, lse
+    return torch.zeros_like(o), torch.full_like(lse, NEG_INF)
+
+
 def empty_partial(q):
     """Identity element of ``merge`` for a query chunk."""
     B, T, H, _ = q.shape

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -79,10 +79,19 @@ def get_shape(name: str) -> ShapeSpec:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """How a run is laid out.  The port runs on one card, so the only
-    choice is the checkpoint policy; the reference's mesh axes and
-    ``schedule`` arrive with the multi-rank schedules slice, which reads
-    them."""
+    """How the mesh axes are used for a run (the reference's fields and
+    defaults, without the 2D ``extra_seq_axes`` / ``head_axis``).
+
+    ``batch_axes`` shard the batch; ``seq_axis`` is the sequence-parallel
+    axis whose ranks run the distributed attention ``schedule`` (auto |
+    balanced | ring | rsa | ulysses | zigzag, ``core/dist_attention``);
+    ``fsdp_axes`` name the reference's parameter-sharding axes (the port
+    replicates parameters and sums their gradients over the ranks that
+    hold distinct tokens); ``remat`` is the checkpoint policy."""
+    batch_axes: Tuple[str, ...] = ("data",)
+    seq_axis: str = "model"
+    fsdp_axes: Tuple[str, ...] = ("data",)
+    schedule: str = "balanced"
     remat: str = "remat_aware"      # remat_aware | hf | none
 
 

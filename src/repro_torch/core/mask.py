@@ -208,6 +208,61 @@ def segments_from_boundaries(T: int, boundaries: Tuple[int, ...]):
     return seg
 
 
+# --------------------------------------------------------------------------
+# Per-step specs of the distributed schedules (core/schedule.py)
+# --------------------------------------------------------------------------
+
+def ring_step(mask: MaskSpec, rel: int) -> MaskSpec:
+    """Per-step spec for a ring schedule receiving a strictly-past KV chunk
+    at distance ``rel`` (> 0): the causal constraint is statically
+    satisfied, so it is dropped; window / document constraints remain.
+    Static ``boundaries`` are stripped (absolute coordinates mean nothing
+    under per-step relative offsets): the schedule executor derives
+    per-shard segment arrays from them instead."""
+    return mask.replace(causal=False, q_offset=rel, kv_offset=0,
+                        boundaries=None)
+
+
+def strict_causal_pair(mask: MaskSpec) -> MaskSpec:
+    """Per-step spec for a (q-chunk, kv-chunk) pair the schedule proves
+    strictly causal (balanced/zigzag off-diagonal pairs): only the document
+    constraint survives; positions are irrelevant (``boundaries`` stripped,
+    as in :func:`ring_step`)."""
+    return mask.replace(causal=False, window=0, q_offset=0, kv_offset=0,
+                        boundaries=None)
+
+
+def offdiag_step(mask: MaskSpec) -> MaskSpec:
+    """Per-step spec for a strictly-causal pair whose chunk distance varies
+    per rank (zigzag mirror-chunk pairs): the causal constraint is dropped,
+    the window band survives, and each rank folds its own chunk offsets in
+    as integers (:func:`fold_offsets`), so the spec's offsets stay 0."""
+    return mask.replace(causal=False, q_offset=0, kv_offset=0,
+                        boundaries=None)
+
+
+def chunk_pair_needed(mask: MaskSpec, q_lo: int, q_hi: int,
+                      k_lo: int, k_hi: int) -> bool:
+    """Could any ``(qp, kp)`` with ``qp ∈ [q_lo, q_hi]``, ``kp ∈ [k_lo,
+    k_hi]`` attend under ``mask`` (absolute positions)?  Conservative:
+    ``False`` only when the pair is provably all-masked, which lets the
+    schedule planner drop steps and work items statically.  Dynamic
+    segment arrays are unknowable here and never cause pruning; static
+    ``boundaries`` do."""
+    if mask.prefix_len:
+        return True
+    if mask.causal and k_lo > q_hi:
+        return False                     # strictly future chunk
+    if mask.window and mask.window > 0:
+        if max(q_lo - k_hi, 0) >= mask.window:
+            return False                 # whole pair beyond the band
+    if mask.document and mask.boundaries is not None:
+        if (mask.segment_index(q_hi) < mask.segment_index(k_lo)
+                or mask.segment_index(k_hi) < mask.segment_index(q_lo)):
+            return False
+    return True
+
+
 def _static_int(x) -> int:
     """A Python int, a numpy integer, or a 0-d integer tensor, as an int."""
     if isinstance(x, torch.Tensor):

@@ -6,6 +6,12 @@ and step give the same hash-mixed Markov stream, and with ``shape.docs > 1``
 the same packed layout (``mask.doc_boundaries``), ``segment_ids`` and
 ``-100`` labels at each document's last token.  They are returned as int32
 torch tensors on an explicit device.
+
+On a process-group mesh each rank gets its (data, seq) shard of the same
+global batch: rows by its ``data`` coordinate (when the batch shards over
+``data``), columns by the global positions it holds (contiguous, or the
+zigzag layout under the zigzag schedule).  Labels are shifted before
+sharding, so a shard's last label is the next shard's first token.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.config import ModelConfig, ShapeSpec
+from repro_torch.core.config import ModelConfig, ParallelConfig, ShapeSpec
+from repro_torch.core.dist_attention import shard_positions
 from repro_torch.core.mask import doc_boundaries, segments_from_boundaries
 
 
@@ -23,11 +30,14 @@ class SyntheticTokens:
     """Reproducible pseudo-text: a Markov chain over the vocabulary that is
     learnable and fully determined by (seed, step).  When ``shape.docs >
     1`` each sequence packs ``docs`` independent documents and the batch
-    gains ``segment_ids``."""
+    gains ``segment_ids``.  With a ``mesh`` (and the run's ``par``) a
+    batch is this rank's shard."""
     cfg: ModelConfig
     shape: ShapeSpec
     device: str = "cuda"
     seed: int = 0
+    mesh: object = None
+    par: ParallelConfig = None
 
     def _tokens(self, step: int, B: int, T: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed * 1_000_003 + step)
@@ -60,8 +70,11 @@ class SyntheticTokens:
                              f"{self.cfg.arch_type!r}")
         B, T = self.shape.global_batch, self.shape.seq_len
 
+        rows, cols = self._shard(B, T)
+
         def t(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(
+                x[rows][:, cols])).to(self.device)
 
         if self.shape.kind == "train" and self.shape.docs > 1:
             tokens, labels, seg = self._packed(step, B, T)
@@ -69,3 +82,18 @@ class SyntheticTokens:
                     "segment_ids": t(seg)}
         x = self._tokens(step, B, T)
         return {"tokens": t(x[:, :-1]), "labels": t(x[:, 1:])}
+
+    def _shard(self, B: int, T: int):
+        """This rank's (row slice, column positions) of the global batch."""
+        if self.mesh is None:
+            return slice(None), np.arange(T)
+        from repro_torch.models.transformer import zigzag_layout
+        par = ParallelConfig() if self.par is None else self.par
+        rows = slice(None)
+        if "data" in par.batch_axes:
+            D, d = self.mesh.size("data"), self.mesh.coord("data")
+            rows = slice(d * B // D, (d + 1) * B // D)
+        P = self.mesh.size(par.seq_axis)
+        cols = shard_positions(T, P, self.mesh.coord(par.seq_axis),
+                               zigzag_layout(self.cfg, par, P))
+        return rows, cols

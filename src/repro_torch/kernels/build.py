@@ -3,7 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, and loaded with ``ctypes``.  The build
 happens at first use, into ``build/kernels/`` at the repository root, with
-one ``nvcc`` per source, all started together.  A library's file name
+one ``nvcc`` per source, all started together, under a file lock
+(``build/kernels/.lock``), so ranks that start together build once.  A
+library's file name
 carries a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is reused.  Nothing here runs at import time: importing the
 package on a host without ``nvcc`` works, and only a CUDA launch builds.
@@ -18,6 +20,7 @@ where it launches its kernel, and nowhere else.  Headers
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -69,10 +72,11 @@ def build_all() -> Dict[str, str]:
     Returns nvcc's output (with ptxas' register and spill report) for every
     kernel, kept beside each library as ``.log``; raises with that output
     on failure."""
-    with _LOCK:
+    build_dir().mkdir(parents=True, exist_ok=True)
+    with _LOCK, open(build_dir() / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         todo = {n: _target(n) for n in KERNELS if not _target(n).exists()}
         if todo:
-            build_dir().mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
             procs = {}
             for name, out in todo.items():

@@ -70,11 +70,18 @@ def embed(table, tokens, dtype):
     return table[tokens.long()].to(dtype)
 
 
-def cross_entropy(logits, labels):
-    """Mean token cross-entropy in float32; labels == -100 are ignored."""
+def cross_entropy_sum(logits, labels):
+    """(sum of token cross-entropies in float32, number of tokens counted);
+    labels == -100 are ignored."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     labels = labels.long()
     ll = lf.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     w = (labels >= 0).float()
-    return ((lse - ll) * w).sum() / w.sum().clamp(min=1.0)
+    return ((lse - ll) * w).sum(), w.sum()
+
+
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy in float32; labels == -100 are ignored."""
+    s, n = cross_entropy_sum(logits, labels)
+    return s / n.clamp(min=1.0)

@@ -6,8 +6,13 @@ helpers).
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
 attention goes through ``core/dist_attention`` (kernel A forward, kernels C
-and D backward, on one card).  :func:`trainable` turns a parameter tree
-into leaf tensors that require gradients.
+and D backward).  On a process-group mesh (``launch/mesh.py``) each rank
+holds its (data, seq) shard of tokens, labels and segment ids: its rope
+tables use the shard's global positions, attention runs the
+``ParallelConfig.schedule`` over the ``model`` axis, and ``loss`` is the
+global token mean (sum and count all-reduced over the ranks holding
+distinct tokens).  :func:`trainable` turns a parameter tree into leaf
+tensors that require gradients.
 
 The reference scans stacked layers with ``lax.scan``; here the parameters
 hold a Python list of per-layer dicts and the layers run in a loop.  The
@@ -33,7 +38,8 @@ from repro_torch.core import mask as mk
 from repro_torch.core.attention import chunk_attn, paged_decode_attn
 from repro_torch.core.config import ModelConfig, ParallelConfig
 from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
-                                             dist_attn_fwd, dist_flash_attn)
+                                             dist_attn_fwd, dist_flash_attn,
+                                             shard_positions)
 from repro_torch.core.remat import apply_policy, remat_aware
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
@@ -52,39 +58,64 @@ def decode_mask(window) -> mk.MaskSpec:
 # Training layer: stage functions feed the remat-aware combinator
 # --------------------------------------------------------------------------
 
-def _attn_spec(cfg: ModelConfig, impl, document: bool) -> DistAttnSpec:
-    mask = mk.MaskSpec(causal=True, window=int(cfg.attn.window or 0),
-                       document=document)
-    return DistAttnSpec(axis_size=1, mask=mask, impl=impl)
+def _zigzag_ok(cfg: ModelConfig) -> bool:
+    """The zigzag relayout is valid only for purely positionwise decoders
+    without windowed masks (a window assumes contiguous shard
+    positions)."""
+    return cfg.arch_type == "dense" and not cfg.attn.window
 
 
-def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec):
+def zigzag_layout(cfg: ModelConfig, par: ParallelConfig, P: int) -> bool:
+    """Do the ranks hold the zigzag layout of the sequence (the reference
+    permutes after the embedding; here the pipeline shards that way)?"""
+    return par.schedule == "zigzag" and _zigzag_ok(cfg) and P > 1
+
+
+def _attn_spec(cfg: ModelConfig, par: ParallelConfig, P: int, impl,
+               document: bool) -> DistAttnSpec:
+    """The reference's ``_attn_spec`` for a causal decoder (no 2D mesh)."""
+    w = int(cfg.attn.window or 0)
+    sched = par.schedule
+    if sched == "zigzag" and not _zigzag_ok(cfg):
+        sched = "balanced"
+    if sched != "auto" and w and sched not in ("balanced", "ring",
+                                               "ulysses"):
+        sched = "balanced"                   # windowed plans truncate
+    mask = mk.MaskSpec(causal=True, window=w, document=document)
+    return DistAttnSpec(axis=par.seq_axis, axis_size=P, schedule=sched,
+                        mask=mask, impl=impl)
+
+
+def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
     """Stages over x = (h, cos, sin, seg): ``seg`` holds the packed
-    batch's document ids, or None."""
+    batch's document ids, or None; ``group`` is the sequence axis's
+    Comm."""
     def pre(p, x):
         h, cos, sin, seg = x
         return L.attn_qkv(p["attn"], h, cfg, cos, sin) + (seg,)
 
     def attn_fwd(qkv):
         q, k, v, seg = qkv
-        return dist_attn_fwd(q, k, v, spec=spec, segments=seg)
+        return dist_attn_fwd(q, k, v, spec=spec, group=group, segments=seg)
 
     def attn_bwd(qkv, o, lse, do):
         q, k, v, seg = qkv
-        return dist_attn_bwd(q, k, v, o, lse, do, spec=spec, segments=seg)
+        return dist_attn_bwd(q, k, v, o, lse, do, spec=spec, group=group,
+                             segments=seg)
 
     def attn_diff(qkv):
         q, k, v, seg = qkv
-        return dist_flash_attn(q, k, v, spec, seg)
+        return dist_flash_attn(q, k, v, spec, group, seg)
 
     return pre, attn_fwd, attn_bwd, attn_diff
 
 
 def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
-                      document: bool = False):
-    """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``."""
+                      document: bool = False, P: int = 1, group=None):
+    """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``, its
+    attention over the ``P`` ranks of ``group``."""
     pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
-        cfg, _attn_spec(cfg, impl, document))
+        cfg, _attn_spec(cfg, par, P, impl, document), group)
 
     def post(p, x, o):
         h2 = L.attn_out(p["attn"], x[0], o, cfg)
@@ -100,6 +131,17 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
     return apply_policy(plain, par.remat)
 
 
+def token_group(mesh, par: ParallelConfig):
+    """The ranks holding distinct tokens: the whole world when the batch
+    shards over ``data`` (or there is no data axis), else the sequence
+    axis (data replicas then hold the same batch)."""
+    if mesh is None:
+        return None
+    if "data" in par.batch_axes or mesh.size("data") == 1:
+        return mesh.world
+    return mesh.comms[par.seq_axis]
+
+
 def trainable(params) -> dict:
     """The parameter tree as leaf tensors that require gradients (the same
     storage, in the same dtype)."""
@@ -109,11 +151,14 @@ def trainable(params) -> dict:
 class DecoderLM:
     """Dense / GQA Llama-family decoder (RMSNorm, rope, SwiGLU).
 
-    ``par`` sets the training checkpoint policy (``par.remat``); ``impl``
-    names the attention backend (``cuda``, the default, or ``ref``)."""
+    ``par`` sets the training layout (``par.remat``, ``par.schedule``);
+    ``impl`` names the attention backend (``cuda``, the default, or
+    ``ref``); ``mesh`` is this rank's process-group mesh
+    (``launch.mesh.make_local_mesh``), or None for one process."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
-                 par: Optional[ParallelConfig] = None, impl=None):
+                 par: Optional[ParallelConfig] = None, impl=None,
+                 mesh=None):
         if cfg.arch_type != "dense" or cfg.attn is None:
             raise ValueError(f"the port runs dense GQA decoders (got "
                              f"{cfg.arch_type!r})")
@@ -122,6 +167,12 @@ class DecoderLM:
         self.dtype = DTYPES[cfg.dtype]
         self.par = ParallelConfig() if par is None else par
         self.impl = impl
+        self.mesh = mesh
+        ax = self.par.seq_axis
+        self.seq_size = 1 if mesh is None else mesh.size(ax)
+        self.seq_rank = 0 if mesh is None else mesh.coord(ax)
+        self.seq_group = None if mesh is None else mesh.comms[ax]
+        self.token_group = token_group(mesh, self.par)
 
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
@@ -168,26 +219,46 @@ class DecoderLM:
 
     def _backbone(self, p, h, cos, sin, seg=None):
         """The layers under the checkpoint policy; ``seg`` = packed-batch
-        document ids (B, T) or None."""
+        document ids (B, Tl) or None."""
         layer = build_dense_layer(self.cfg, self.par, self.impl,
-                                  document=seg is not None)
+                                  document=seg is not None,
+                                  P=self.seq_size, group=self.seq_group)
         for lp in p["layers"]:
             h = layer(lp, (h, cos, sin, seg))
         return h
 
+    def positions(self, Tl: int) -> torch.Tensor:
+        """Global positions of this rank's Tl tokens."""
+        P = self.seq_size
+        pos = shard_positions(Tl * P, P, self.seq_rank,
+                              zigzag_layout(self.cfg, self.par, P))
+        return torch.as_tensor(pos, device=self.device)
+
     def loss(self, p, batch):
         """Mean next-token cross-entropy of ``batch`` = {tokens, labels
-        (B, T); optional segment_ids (B, T)}: ``(loss, {"ce": loss})``."""
+        (B, Tl); optional segment_ids (B, Tl)}, this rank's shard:
+        ``(loss, {"ce": loss})``.  On a mesh the value is the global token
+        mean, and its gradient is this rank's share of it (the train step
+        sums gradients over :func:`token_group`)."""
         a = self.cfg.attn
         h = self._embed(p, batch)
-        cos, sin = L.rope_tables(torch.arange(h.shape[1], device=self.device),
-                                 a.head_dim, a.rope_theta)
+        cos, sin = L.rope_tables(self.positions(h.shape[1]), a.head_dim,
+                                 a.rope_theta)
         seg = batch.get("segment_ids")
         if seg is not None:
             seg = seg.to(self.device)
         h = self._backbone(p, h, cos, sin, seg)
-        ce = L.cross_entropy(self._head(p, h),
-                             batch["labels"].to(self.device))
+        logits = self._head(p, h)
+        labels = batch["labels"].to(self.device)
+        if self.token_group is None or self.token_group.size == 1:
+            ce = L.cross_entropy(logits, labels)
+            return ce, {"ce": ce}
+        s, n = L.cross_entropy_sum(logits, labels)
+        tot = torch.stack([s.detach(), n])
+        self.token_group.all_reduce_([tot])
+        total = tot[1].clamp(min=1.0)
+        mine = s / total                 # its gradient: this rank's share
+        ce = tot[0] / total + (mine - mine.detach())
         return ce, {"ce": ce}
 
     def _layer(self, lp, h, attend, cos, sin):

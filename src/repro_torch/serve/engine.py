@@ -23,12 +23,12 @@ write to the null block).  Preemption is recompute-style.  A decode row
 with non-finite logits is quarantined (terminal ``FAILED``) while the rest
 of the batch streams on.
 
-Sampling: greedy at temperature 0; otherwise a draw from
-``softmax(logits / T)`` under a per-request ``torch.Generator`` seeded from
-``(seed, position)`` — so a request's stream depends only on its own
-(prompt, params), never on the batch around it.  The draw runs on the host
-CPU, so it is the same on every device.  (The reference's threefry keys
-are not reproduced: sampled streams match the reference only when greedy.)
+Sampling: greedy at temperature 0; otherwise the reference's draw,
+``categorical(fold_in(PRNGKey(seed), position), logits / T)``, reproduced
+on the host by :mod:`repro_torch.serve.prng` (threefry2x32 keys and bits,
+Gumbel-max) — so a request's stream depends only on its own (prompt,
+params), never on the batch around it, is the same on every device, and is
+the reference's stream token for token.
 """
 from __future__ import annotations
 
@@ -38,30 +38,24 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.serve import prng
 from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.scheduler import (DECODE, PREFILL, Request,
                                          SamplingParams, Scheduler)
 
 
-def _sample_seed(seed: int, position: int) -> int:
-    """A 63-bit generator seed from (request seed, context position)."""
-    state = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, int(position)])
-    return int(state.generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
-
-
 def _sample(logits, temps, seeds, positions) -> np.ndarray:
     """Per-row sampling of ``logits`` (B, V) float32: greedy where
-    ``temps[b] == 0``, else a categorical draw under the generator seeded
-    from ``(seeds[b], positions[b])``."""
+    ``temps[b] == 0``, else the reference's categorical draw of
+    ``logits / T`` under ``fold_in(PRNGKey(seeds[b]), positions[b])``."""
     out = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
     hot = [b for b in range(len(temps)) if temps[b] > 0]
     if hot:
-        rows = logits[hot].float().cpu()
+        rows = logits[hot].float().cpu().numpy()
         for i, b in enumerate(hot):
-            gen = torch.Generator().manual_seed(
-                _sample_seed(seeds[b], positions[b]))
-            probs = torch.softmax(rows[i] / max(float(temps[b]), 1e-6), -1)
-            out[b] = int(torch.multinomial(probs, 1, generator=gen))
+            key = prng.fold_in(prng.prng_key(seeds[b]), positions[b])
+            t = np.maximum(np.float32(temps[b]), np.float32(1e-6))
+            out[b] = int(prng.categorical(key, rows[i] / t))
     return out
 
 

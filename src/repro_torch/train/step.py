@@ -4,6 +4,12 @@
 metrics``: the loss and its gradients by autograd, then the AdamW update,
 which writes ``params`` and ``opt`` in place.
 
+On a process-group mesh each rank holds its shard of the batch and a
+replica of the parameters: after autograd, the gradients are summed over
+the ranks holding distinct tokens (``models.transformer.token_group``), so
+every rank holds the gradient of the global loss, and the global gradient
+norm, the non-finite decision and the update are the same on every rank.
+
 The step carries the reference's non-finite guard: when the loss or any
 gradient is NaN/Inf (a poisoned batch, an overflow, a kernel bug) the
 update is skipped — params and optimizer state stay bit-identical — and
@@ -27,6 +33,9 @@ def make_train_step(model, tc: TrainConfig):
         ps, rebuild = flatten(params)
         loss, metrics = model.loss(params, batch)
         grads = torch.autograd.grad(loss, ps)
+        group = getattr(model, "token_group", None)
+        if group is not None and group.size > 1:
+            grads = group.all_reduce_(list(grads))
         finite = torch.isfinite(loss.detach())
         for g in grads:
             finite &= torch.isfinite(g).all()

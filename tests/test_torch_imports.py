@@ -74,5 +74,8 @@ def test_port_covers_the_slice_layout():
                 "kernels/csrc/sm90_common.cuh",
                 "core/remat.py", "core/dist_attention.py", "core/tree.py",
                 "optim/adamw.py", "train/step.py", "data/pipeline.py",
-                "launch/train.py"):
+                "launch/train.py", "core/schedule.py", "parallel/comm.py",
+                "parallel/sharding.py", "launch/mesh.py", "launch/world.py",
+                "serve/prng.py", "configs/llama_16h.py",
+                "configs/llama_33h.py"):
         assert (PORT / rel).is_file(), rel

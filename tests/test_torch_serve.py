@@ -5,8 +5,9 @@ float32.  The reference ``DecoderLM.init`` weights are carried into the port
 with ``load_reference_params``; prompts come from numpy.  Logits agree to
 1e-4 — the slack is float32 matmul summation order (XLA's CPU dots against
 PyTorch's).  Greedy engine streams must be token-identical to the reference
-``Engine``; sampled streams are held to the port's own batch and
-preemption invariance (the reference's threefry keys are not reproduced).
+``Engine``; sampled streams are also held to the port's own batch and
+preemption invariance (their equality with the reference's is in
+``tests/test_torch_sampling.py``).
 """
 import dataclasses
 

@@ -345,12 +345,22 @@ def test_dist_attn_spec_raises_where_reference_raises(kw):
 
 
 def test_dist_attn_single_card_only_and_local_kernels():
+    """At ``axis_size > 1`` a call needs its axis's group of that many
+    ranks (the schedules themselves run in ``tests/test_torch_dist.py``'s
+    worlds), ``auto`` waits for the H100 cost model, and at
+    ``axis_size == 1`` every schedule is the local kernels."""
+    from repro_torch.parallel.comm import Comm
     spec = tda.DistAttnSpec(axis_size=2, schedule="ring")
     q = torch.zeros(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="group of mesh axis 'model'"):
         tda.dist_attn_fwd(q, q, q, spec=spec)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tda.dist_attn_bwd(q, q, q, q, q[..., 0], q, spec=spec)
+    with pytest.raises(ValueError, match="with that many ranks"):
+        tda.dist_attn_bwd(q, q, q, q, q[..., 0], q, spec=spec,
+                          group=Comm([0], "local", "cpu"))
+    with pytest.raises(NotImplementedError, match="tune/"):
+        tda.resolve_schedule(tda.DistAttnSpec(axis_size=2,
+                                              schedule="auto"))
+    assert tda.resolve_schedule(spec) == "ring"
     rng = np.random.default_rng(0)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
         (1, 64, 4, 32)).astype(np.float32)).requires_grad_()
@@ -366,14 +376,36 @@ def test_dist_attn_single_card_only_and_local_kernels():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)
 
 
-def test_train_cli_runs_on_cpu_and_has_no_schedule_flag(capsys):
-    """The training CLI trains the smoke config on the CPU; the schedule
-    flag, which one card cannot honour, is refused rather than ignored."""
+def test_train_cli_runs_on_cpu_and_has_no_schedule_flag(capfd,
+                                                        monkeypatch):
+    """The training CLI trains the smoke config on the CPU, on one process
+    and on a world it spawns itself: ``--nproc 2 --seq-shards 2
+    --schedule ring`` prints the single process's losses; an unknown
+    schedule is refused rather than ignored.  The CLI's world runs without
+    a time limit, so here its spawn gets one of 120 s."""
     from repro_torch.launch import train as cli
-    assert cli.main(["--arch", "llama-gqa", "--smoke", "--device", "cpu",
-                     "--steps", "2", "--seq", "32", "--batch", "1",
-                     "--log-every", "1"]) == 0
-    out = capsys.readouterr().out
-    assert "step     1 loss" in out and "skipped" not in out
+    from repro_torch.launch.world import spawn
+
+    def limited(fn, nprocs, args, *, device, timeout):
+        assert timeout is None
+        return spawn(fn, nprocs, args, device=device, timeout=120)
+
+    monkeypatch.setattr(cli, "spawn", limited)
+    base = ["--arch", "llama-gqa", "--smoke", "--device", "cpu", "--steps",
+            "2", "--seq", "32", "--batch", "1", "--log-every", "1"]
+    assert cli.main(base) == 0
+    one = capfd.readouterr().out
+    assert "step     1 loss" in one and "skipped" not in one
+    assert cli.main(base + ["--nproc", "2", "--seq-shards", "2",
+                            "--schedule", "ring"]) == 0
+    two = capfd.readouterr().out
+    assert "transport gloo: 2 ranks on the CPU" in two
+    assert "'model': 2" in two and "schedule=ring" in two
+
+    def losses(out):
+        return [ln.split(" loss ")[1].split()[0] for ln in out.splitlines()
+                if ln.startswith("step ")]
+
+    assert losses(two) == losses(one) and len(losses(one)) == 2
     with pytest.raises(SystemExit):
-        cli.main(["--smoke", "--device", "cpu", "--schedule", "ring"])
+        cli.main(["--smoke", "--device", "cpu", "--schedule", "rign"])
