@@ -91,6 +91,29 @@ Phases, each fatal on failure (nothing is caught):
                 home shift dropped, the helpers' dq dropped).  Any rank's
                 failure, or the world still running after 600 s, is
                 fatal.
+  8. long     — long-context serving across sequence ranks: a gloo world
+                of 4 processes sharing the card (``gloo-staged``),
+                llama-7b's width (d_model 4096, 32 × 128 heads, d_ff 11008,
+                vocab 32000, bf16, seed-0 weights) at depth 4, one prompt
+                of 65536 tokens (16384 a rank): ``FixedSlotEngine`` with a
+                balanced prefill across the ranks (kernel A in the plan
+                executors), the cache sharded along the sequence, 32
+                greedy tokens by flash-decoding across the shards.  Kernel
+                A's launches per rank equal the plan's coverage count ×
+                layers, kernel B never launches, every rank emits the same
+                tokens.  Decode logits are held step by step, teacher-
+                forced on the ranks' tokens, to the same dense path at
+                P = 1 and to the paged ``Engine`` at P = 1 (kernels A and
+                B) in this process, to phase 4's form of limit, which must
+                reject two planted faults (rank 1's shard left out of the
+                decode reduction; positions one off).  Then a head-parallel
+                pool of llama-7b's 32 kv heads over the 4 ranks: kernel B
+                on each rank's 8 heads, all-gathered, equals one B over
+                every head bit for bit at the serving step's shape.
+                Prefill seconds and decode ms per rank, host seconds in
+                shifts and reductions (``Comm``'s timers), peak memory.
+                Any rank's failure, or the world still running after 900
+                s, is fatal.
   5. times    — each kernel at the shapes of its path (C and D on the
                 inputs kept in phase 6): its time (CUDA events, median
                 after warm-up), its plain version's at the same shape, a
@@ -142,7 +165,9 @@ from repro_torch.launch.world import spawn  # noqa: E402
 from repro_torch.models.transformer import DecoderLM, trainable  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.sharding import make_parallel_config  # noqa: E402
-from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.serve.cache import (  # noqa: E402
+    PagedKVCache, sharded_paged_decode_attn)
+from repro_torch.serve.engine import Engine, FixedSlotEngine  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
@@ -1208,23 +1233,23 @@ def _grad_err(gs, ref):
                for g, r in zip(gs, ref))
 
 
-def _p7_want(sched):
+def _plan_launches(sched, P=P7_RANKS, T=P7_T):
     """Per rank, the kernel calls one pass of ``sched``'s causal plan at
-    P 4 must launch, derived apart from the executor's ``work_active``:
-    the rank's Work items with a route that reaches an output
-    (``schedule.route_reaches``, the coverage rule).  Fails unless those
-    items compute every causal (q chunk, kv chunk) pair of
+    P ranks and T tokens must launch, derived apart from the executor's
+    ``work_active``: the rank's Work items with a route that reaches an
+    output (``schedule.route_reaches``, the coverage rule).  Fails unless
+    those items compute every causal (q chunk, kv chunk) pair of
     ``global_allow`` exactly once over the ranks."""
-    plan = sp.build_plan(sched, mk.causal(), P7_RANKS, P7_T // P7_RANKS)
-    n = P7_RANKS * plan.n_chunks
+    plan = sp.build_plan(sched, mk.causal(), P, T // P)
+    n = P * plan.n_chunks
     got = np.zeros((n, n), np.int64)
-    want = [0] * P7_RANKS
+    want = [0] * P
     d = 0
     for step in plan.steps:
         d += step.shift
         for w in step.work:
-            for p in range(P7_RANKS):
-                if any(sp.route_reaches(r, P7_RANKS, p) for r in w.routes):
+            for p in range(P):
+                if any(sp.route_reaches(r, P, p) for r in w.routes):
                     qg, kg, _ = sp.work_operands(plan, w, p, d)
                     got[qg, kg] += 1
                     want[p] += 1
@@ -1346,7 +1371,7 @@ def multi_rank():
     ranks are held to."""
     cfg = get_config("llama-7b").replace(n_layers=P7_LAYERS)
     shape = ShapeSpec("chip7", P7_T, 1, "train")
-    want = {s: _p7_want(s) for s, _ in P7_RUNS}
+    want = {s: _plan_launches(s) for s, _ in P7_RUNS}
     with tempfile.TemporaryDirectory() as tmp:
         ref_path = os.path.join(tmp, "grads1.pt")
         ce1, s1, s2 = _p7_one(cfg, shape, ref_path)
@@ -1443,6 +1468,292 @@ def multi_rank():
     return dict(launches=launches, d_tok=d_tok, d_ctl=d_ctl, d_loss=d_loss,
                 d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
                 d_loss2=d_loss2)
+
+
+# ----------------------------------------------------------------- phase 8
+
+P8_RANKS, P8_LAYERS, P8_T, P8_GEN = 4, 4, 65536, 32
+P8_SCHED = "balanced"
+P8_CTL_GEN = 8          # decode steps of each planted-fault run
+P8_WARM_T = 4096        # the warm-up prompt
+P8_TIMEOUT = 900
+P8_TRANSPORT = "gloo-staged"       # four ranks, one card
+# Teacher-forced decode logits against the P = 1 dense path and the paged
+# Engine: at every step max |Δ| ≤ P8_LOGIT_TOL × max |logit| of the
+# reference step, phase 4's limit.  The planted faults (one rank's shard
+# left out of the decode reduction; decode positions one off) must exceed
+# it.  On the chip (H100, 700 W) the worst step read 1.40e-2 against the
+# dense path and 1.41e-2 against the paged Engine; the controls 0.417
+# (shard) and 0.155 (positions): the limit sits 3.6× above the sound run
+# and 3.1× below the nearer control.
+P8_LOGIT_TOL = 5e-2
+P8_POOL_B, P8_POOL_BS, P8_POOL_NB = 4, 16, 64     # the serving step's shape
+P8_POOL_LENS = (1000, 700, 513, 64)
+
+
+def _p8_model(mesh):
+    cfg = get_config("llama-7b").replace(n_layers=P8_LAYERS)
+    par = make_parallel_config(mesh, ShapeSpec("chip8", P8_T, 1, "decode"),
+                               schedule=P8_SCHED)
+    return DecoderLM(cfg, DEV, par=par, mesh=mesh)
+
+
+def _p8_prompt(vocab):
+    return np.random.default_rng(8).integers(0, vocab, (1, P8_T)).astype(
+        np.int32)
+
+
+def _timed(times, key, fn):
+    """``fn`` timed on the host between two device syncs (into
+    ``times[key]``)."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def _decode_fault(model, fault):
+    """A deliberately wrong decode while the block runs (phase 8's
+    controls): ``"shard"`` — rank 1's shard left out of the decode
+    reduction (its max, numerator and denominator replaced by the
+    reduction's identity before each all-reduce of the cache's group);
+    ``"pos"`` — every decode step at its position plus one."""
+    grp = model.decode_group
+    if fault == "shard":
+        reduce_ = grp.all_reduce_
+
+        def faulty(tensors, op="sum"):
+            if grp.rank == 1:
+                for t in tensors:
+                    t.fill_(NEG_INF if op == "max" else 0.0)
+            return reduce_(tensors, op)
+        grp.all_reduce_ = faulty
+    else:
+        decode = model.decode
+        model.decode = lambda p, cache, token, pos: decode(p, cache, token,
+                                                           pos + 1)
+    try:
+        yield
+    finally:
+        if fault == "shard":
+            del grp.all_reduce_
+        else:
+            del model.decode
+
+
+def _p8_pool(mesh):
+    """llama-7b's 32 kv heads × 128 in a bf16 pool sharded head-parallel
+    over the ranks, at the serving step's shape: kernel B on this rank's
+    heads, all-gathered, against one B over every head (rank 0)."""
+    cfg = get_config("llama-7b").replace(n_layers=1)
+    a, B, bs, nb = cfg.attn, P8_POOL_B, P8_POOL_BS, P8_POOL_NB
+    cache = PagedKVCache.create(cfg, block_size=bs, n_blocks=B * nb + 1,
+                                max_reqs=B, device=DEV, mesh=mesh)
+    check(cache.sharding == "heads", f"pool sharding {cache.sharding}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    full = {k: randn(gen, (1, B * nb + 1, bs, a.n_kv_heads, a.head_dim),
+                     torch.bfloat16) for k in ("k_pool", "v_pool")}
+    r, h = cache.group.rank, cache.pools["k_pool"].shape[3]
+    for k, pool in cache.pools.items():
+        pool.copy_(full[k][:, :, :, r * h:(r + 1) * h])
+    q = randn(gen, (B, 1, a.n_heads, a.head_dim), torch.bfloat16)
+    bt = (1 + torch.arange(B * nb, device=DEV, dtype=torch.int32)).view(B,
+                                                                         nb)
+    lens = torch.tensor(P8_POOL_LENS, dtype=torch.int32, device=DEV)
+    o = sharded_paged_decode_attn(q, cache, 0, bt, lens)
+    if r:
+        return None
+    one = paged_attn(q, full["k_pool"][0], full["v_pool"][0], bt, lens,
+                     mask=mk.causal())
+    return dict(equal=bool(torch.equal(o, one)),
+                max_abs=float((o.float() - one.float()).abs().max()),
+                local_shape=tuple(cache.pools["k_pool"].shape))
+
+
+def _p8_rank(rank):
+    """One rank of phase 8's world: a warm-up, then the main run (one
+    65536-token prompt, balanced prefill across the ranks, 32 greedy
+    tokens through ``FixedSlotEngine``), the two planted-fault runs
+    teacher-forced on its tokens, and the head-parallel pool."""
+    mesh = make_local_mesh(seq=P8_RANKS, device=DEV)
+    model = _p8_model(mesh)
+    params = model.init(seed=0)
+    prompt = _p8_prompt(model.cfg.vocab)
+    out = {"rank": mesh.coord("model"), "transport": mesh.transport,
+           "seq_axes": model.par.seq_axes,
+           "shards": model.decode_group.size}
+    eng = FixedSlotEngine(model, params, record_logits=True)
+    eng.generate({"tokens": prompt[:, :P8_WARM_T]}, 2)
+    comms = list({id(c): c for c in (model.seq_group,
+                                     model.decode_group)}.values())
+    times = {}
+    model.prefill = _timed(times, "prefill", model.prefill)
+    model.decode = _timed(times, "decode", model.decode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w0 = sum(c.shift_wait_s for c in comms)
+    r0 = sum(c.reduce_s for c in comms)
+    build.reset_launches()
+    toks, _ = eng.generate({"tokens": prompt}, P8_GEN)
+    launches = dict(build.LAUNCHES)
+    out.update(
+        tokens=toks.cpu(), logits=torch.stack(eng.step_logits),
+        launches=launches, prefill_s=times["prefill"][0],
+        decode_ms=[1e3 * t for t in times["decode"]],
+        shift_wait=sum(c.shift_wait_s for c in comms) - w0,
+        reduce_s=sum(c.reduce_s for c in comms) - r0,
+        peak=torch.cuda.max_memory_allocated(),
+        peak_reserved=torch.cuda.max_memory_reserved())
+    del model.prefill, model.decode
+    out["controls"] = {}
+    for fault in ("shard", "pos"):
+        with _decode_fault(model, fault):
+            eng.generate({"tokens": prompt}, P8_CTL_GEN,
+                         forced=toks[:, :P8_CTL_GEN])
+        out["controls"][fault] = torch.stack(eng.step_logits)
+    del eng, params
+    _free()
+    out["pool"] = _p8_pool(mesh)
+    return out
+
+
+class _ForcedEngine(Engine):
+    """The paged engine fed the given tokens (teacher forcing), keeping
+    every decode step's logits on the host."""
+
+    def __init__(self, *a, forced, **kw):
+        super().__init__(*a, record_logits=True, **kw)
+        self.forced, self.step_logits = list(forced), []
+
+    def _decode(self, live):
+        nxt, ok = super()._decode(live)
+        (r,) = live
+        self.step_logits.append(self.last_logits[r.rid].cpu()[None])
+        if len(self.step_logits) <= len(self.forced):
+            nxt[r.slot] = self.forced[len(self.step_logits) - 1]
+        return nxt, ok
+
+
+def _step_err(got, ref):
+    """Worst over the steps of max |Δ| / max |ref| of the step's logits."""
+    return max(float((g - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref))
+
+
+def long_serve():
+    """Phase 8: a gloo world of 4 ranks sharing the one card serves one
+    65536-token prompt through ``FixedSlotEngine`` (balanced prefill
+    across the ranks, the cache sharded along the sequence, 32 greedy
+    tokens by flash-decoding across the shards), then the same prompt at
+    P = 1 in this process through the dense path and through the paged
+    ``Engine``, teacher-forced on the ranks' tokens."""
+    cfg = get_config("llama-7b").replace(n_layers=P8_LAYERS)
+    want = _plan_launches(P8_SCHED, P8_RANKS, P8_T)
+    t0 = time.perf_counter()
+    res = spawn(_p8_rank, P8_RANKS, (), device=DEV, timeout=P8_TIMEOUT,
+                threads=2)
+    wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    check(all(r["seq_axes"] == ("model",) and r["shards"] == P8_RANKS
+              for r in res), "the cache is not sharded over the 4 ranks")
+    toks = res[0]["tokens"]
+    check(tuple(toks.shape) == (1, P8_GEN), f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "token outside the vocabulary")
+    for r in res:
+        check(torch.equal(r["tokens"], toks),
+              f"rank {r['rank']} emitted other tokens")
+        check(bool(torch.isfinite(r["logits"]).all()),
+              f"rank {r['rank']}: non-finite logits")
+        w = P8_LAYERS * want[r["rank"]]
+        check(r["launches"]["flash_fwd"] == w,
+              f"rank {r['rank']}: kernel A launched "
+              f"{r['launches']['flash_fwd']} times in prefill, want {w}")
+        check(r["launches"]["paged_decode"] == 0,
+              f"rank {r['rank']}: kernel B launched on the dense path")
+        dm = r["decode_ms"]
+        say(f"  rank {r['rank']}: prefill {r['prefill_s']:.3f} s "
+            f"({P8_T // P8_RANKS} tokens, kernel A {r['launches']['flash_fwd']}"
+            f" launches = {want[r['rank']]} items x {P8_LAYERS} layers), "
+            f"decode {np.median(dm):.2f} ms a step (median of {len(dm)}; "
+            f"{min(dm):.2f}-{max(dm):.2f}), host blocked on shifts "
+            f"{r['shift_wait']:.3f} s, in all-reduces and broadcasts "
+            f"{r['reduce_s']:.3f} s, peak {r['peak'] / 2**30:.2f} GiB "
+            f"allocated ({r['peak_reserved'] / 2**30:.2f} reserved)")
+    say(f"  world of {P8_RANKS} ranks: {wall:.1f} s, spawn included; "
+        f"tokens equal on every rank: {toks[0, :8].tolist()} ...")
+    logits4 = res[0]["logits"]
+
+    # (a) the same dense path at P = 1 in this process
+    one = DecoderLM(cfg, DEV)
+    params = one.init(seed=0)
+    prompt = _p8_prompt(cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    one.prefill = _timed(times, "prefill", one.prefill)
+    one.decode = _timed(times, "decode", one.decode)
+    fixed = FixedSlotEngine(one, params, record_logits=True)
+    fixed.generate({"tokens": prompt}, P8_GEN, forced=toks)
+    dense1 = torch.stack(fixed.step_logits)
+    peak1 = torch.cuda.max_memory_allocated()
+    del fixed, one.prefill, one.decode
+    _free()
+    # (b) the paged Engine at P = 1 (kernels A and B)
+    bs = 16
+    eng = _ForcedEngine(one, params, forced=toks[0].tolist(), max_batch=1,
+                        block_size=bs, prefill_chunk_tokens=4096,
+                        n_blocks=-(-(P8_T + P8_GEN + 1) // bs) + 2,
+                        prefix_cache=False)
+    eng.submit(prompt[0], max_new_tokens=P8_GEN + 1)
+    eng.run()
+    paged1 = torch.stack(eng.step_logits)
+    peak1 = max(peak1, torch.cuda.max_memory_allocated())
+    st = eng.stats()
+    say(f"  P = 1 in this process: dense prefill {times['prefill'][0]:.3f} "
+        f"s, decode {np.median(times['decode']) * 1e3:.2f} ms a step; "
+        f"paged Engine prefill {st['prefill_seconds']:.3f} s in "
+        f"{st['prefill_chunks']} chunks, decode "
+        f"{1e3 * st['decode_seconds'] / st['decode_steps']:.2f} ms a step "
+        f"(CUDA-event spans)")
+    del eng, one, params
+    _free()
+    check(dense1.shape == logits4.shape == paged1.shape,
+          f"steps {dense1.shape} {logits4.shape} {paged1.shape}")
+    e_dense, e_paged = _step_err(logits4, dense1), _step_err(logits4,
+                                                            paged1)
+    e_ctl = {f: _step_err(c[1:], dense1[1:P8_CTL_GEN + 1])
+             for f, c in res[0]["controls"].items()}
+    say(f"  teacher-forced decode logits, worst step max|Δ| / max|logit| "
+        f"over {P8_GEN + 1} steps (limit {P8_LOGIT_TOL}): P = 4 vs P = 1 "
+        f"dense {e_dense:.3e}, vs the paged Engine {e_paged:.3e}; "
+        f"controls vs P = 1 dense: " + ", ".join(
+            f"{f} {e:.3e}" for f, e in e_ctl.items()))
+    check(e_dense <= P8_LOGIT_TOL and e_paged <= P8_LOGIT_TOL,
+          f"P = 4 decode logits: vs dense {e_dense}, vs paged {e_paged}")
+    for f, e in e_ctl.items():
+        check(e > P8_LOGIT_TOL, f"the logit limit does not reject the "
+              f"{f} control ({e})")
+    pool = res[0]["pool"]
+    say(f"  head-parallel pool: {P8_RANKS} ranks of local shape "
+        f"{pool['local_shape']}; gathered kernel B vs one B over every "
+        f"head: bitwise equal {pool['equal']} (max |Δ| "
+        f"{pool['max_abs']:.3e})")
+    check(pool["equal"], "the head-parallel pool differs from one B")
+    total = sum(r["peak"] for r in res) + peak1
+    say(f"  peak memory: ranks {sum(r['peak'] for r in res) / 2**30:.2f} "
+        f"GiB allocated together, P = 1 runs {peak1 / 2**30:.2f} GiB, "
+        f"{total / 2**30:.2f} GiB in all")
+    return dict(launches={"flash_fwd": sum(r["launches"]["flash_fwd"]
+                                           for r in res)},
+                e_dense=e_dense, e_paged=e_paged, e_ctl=e_ctl)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1777,12 +2088,17 @@ def main():
     grad_check()
     say("== phase 7: multi-rank training, 4 ranks on the one card")
     mr = multi_rank()
+    _free()
+    say("== phase 8: long-context serving, 4 sequence ranks on the one card")
+    lg = long_serve()
 
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
-                + mr["launches"].get(k, 0) for k in res["launches"]}
+                + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
+                for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
-        f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}")
+        f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
+        f"long-context prefill (all ranks) {lg['launches']}")
     rows = [time_flash(launches), time_paged(launches),
             *time_bwd(launches, tr["seen"], errs)]
     rows[0].update(time_flash_train(tr["seen"]))

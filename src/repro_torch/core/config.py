@@ -80,19 +80,28 @@ def get_shape(name: str) -> ShapeSpec:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How the mesh axes are used for a run (the reference's fields and
-    defaults, without the 2D ``extra_seq_axes`` / ``head_axis``).
+    defaults, without the 2D seq×head ``head_axis``).
 
     ``batch_axes`` shard the batch; ``seq_axis`` is the sequence-parallel
     axis whose ranks run the distributed attention ``schedule`` (auto |
     balanced | ring | rsa | ulysses | zigzag, ``core/dist_attention``);
+    ``extra_seq_axes`` are axes folded into the sequence sharding of a
+    decode cache (``long_500k``: batch 1 leaves ``data`` idle);
     ``fsdp_axes`` name the reference's parameter-sharding axes (the port
     replicates parameters and sums their gradients over the ranks that
     hold distinct tokens); ``remat`` is the checkpoint policy."""
     batch_axes: Tuple[str, ...] = ("data",)
     seq_axis: str = "model"
+    extra_seq_axes: Tuple[str, ...] = ()
     fsdp_axes: Tuple[str, ...] = ("data",)
     schedule: str = "balanced"
     remat: str = "remat_aware"      # remat_aware | hf | none
+
+    @property
+    def seq_axes(self) -> Tuple[str, ...]:
+        """Every axis the decode cache's sequence dim shards over, the
+        minor-most last (``extra_seq_axes`` then ``seq_axis``)."""
+        return tuple(self.extra_seq_axes) + (self.seq_axis,)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """DISTFLASHATTN entry points (port of the reference
-``core/dist_attention.py``, without the 2D seq×head plans, sequence-sharded
-decode and the MLA latent ring).
+``core/dist_attention.py``, without the 2D seq×head plans and the MLA latent
+ring).
 
 Sequence-parallel exact attention over a group of ``P`` ranks (the paper's
 workers), each a ``torch.distributed`` process holding its contiguous
@@ -30,6 +30,9 @@ kernel A forward and kernels C and D backward with its own static mask.
 The baselines' backward is the ring plan's, with the reference's refusals.
 At ``axis_size == 1`` every schedule reduces to the local chunk kernels, as
 the reference's ``_fwd_local`` / ``_bwd_local`` do.
+
+:func:`dist_decode_attn` is decode against a KV cache sharded along the
+sequence (flash-decoding across ranks), the serving side of long context.
 
 The backward is exposed on its own so that the rematerialization-aware
 checkpointing (``core/remat.py``) can call it from the saved ``(o, lse)``
@@ -262,6 +265,138 @@ def dist_flash_attn(q, k, v, spec: DistAttnSpec, group=None, segments=None):
                                       segments=segments),
         lambda q, k, v, o, lse, do: dist_attn_bwd(
             q, k, v, o, lse, do, spec=spec, group=group, segments=segments))
+
+
+# --------------------------------------------------------------------------
+# Decode-time distributed attention (flash-decoding over sequence shards)
+# --------------------------------------------------------------------------
+
+def _decode_local(comm, shard_len, window, scale, q, kc, vc, k1, v1,
+                  pos=None):
+    """q: (B,1,Hq,D) the same on every rank of ``comm``; kc/vc:
+    (B,S_loc,Hkv,D) this rank's cache shard; k1/v1: (B,1,Hkv,D) the new
+    token's k/v (the same on every rank).  ``pos`` (B,): request b's new
+    token sits at position pos[b] and only cache slots < pos[b] are
+    attendable (window measured from pos[b]).  Without ``pos`` (legacy)
+    the whole cache is context: S_global cached + 1 new token at position
+    S_global.  Float32 throughout, as the reference."""
+    idx = 0 if comm is None else comm.rank
+    n_shards = 1 if comm is None else comm.size
+    S_total = n_shards * shard_len
+    offset = idx * shard_len
+    B, _, Hq, Dq = q.shape
+    Hkv = kc.shape[2]
+    g = Hq // Hkv
+    sc = scale if scale is not None else 1.0 / (Dq ** 0.5)
+    qf = q.float()
+    kf = kc.repeat_interleave(g, dim=2) if g > 1 else kc
+    vf = vc.repeat_interleave(g, dim=2) if g > 1 else vc
+    s_loc = torch.einsum("bqhd,bkhd->bhqk", qf, kf.float()) * sc
+    kpos = (offset + torch.arange(shard_len, device=q.device))[
+        None, None, None, :]
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    if pos is not None:
+        # per-request masking: slot j attendable iff j < pos_b (and inside
+        # the sliding window measured from the new token at pos_b)
+        pb = pos.to(q.device).long()[:, None, None, None]
+        ok = kpos < pb
+        if window and window > 0:
+            ok = ok & (kpos > pb - window)
+        s_loc = torch.where(ok, s_loc, neg)
+    elif window and window > 0:
+        s_loc = torch.where(kpos > S_total - window, s_loc, neg)
+    m_loc = s_loc.amax(dim=-1)                            # (B,H,1)
+    m_glb = m_loc.clone()
+    if comm is not None:
+        comm.all_reduce_([m_glb], op="max")
+    m_safe = m_glb.clamp_min(NEG_INF / 2)
+    p_loc = torch.exp(s_loc - m_safe[..., None])
+    # a shard with every slot masked contributes nothing
+    p_loc = torch.where(m_loc[..., None] <= NEG_INF / 2,
+                        torch.zeros_like(p_loc), p_loc)
+    num = torch.einsum("bhqk,bkhd->bhqd", p_loc, vf.float())
+    den = p_loc.sum(dim=-1)                               # (B,H,1)
+    if comm is not None:
+        comm.all_reduce_([num, den])
+    empty = den == 0.0
+    den_s = torch.where(empty, torch.ones_like(den), den)
+    lse_c = torch.where(empty, neg, m_safe + torch.log(den_s))
+    o_c = torch.where(empty[..., None], torch.zeros_like(num),
+                      num / den_s[..., None])
+    # merge with the new token's self-attention (the same on every rank,
+    # added once — after the cross-shard sum so it is not counted n times)
+    k1r = k1.repeat_interleave(g, dim=2) if g > 1 else k1
+    v1r = v1.repeat_interleave(g, dim=2) if g > 1 else v1
+    s1 = torch.einsum("bqhd,bkhd->bhqk", qf, k1r.float()) * sc
+    lse1 = s1[..., 0]                                     # (B,H,1): one key
+    o1 = v1r.float().transpose(1, 2)                      # (B,Hq,1,Dv)
+    o_m, _ = _merge_bh(o_c, lse_c, o1, lse1)
+    return o_m.transpose(1, 2).to(q.dtype)                # (B,1,Hq,Dv)
+
+
+def _merge_bh(o1, lse1, o2, lse2):
+    """Merge two partials in the (B,H,1,D) / (B,H,1) layout."""
+    mx = torch.maximum(torch.maximum(lse1, lse2),
+                       torch.tensor(NEG_INF, device=lse1.device))
+    w1 = torch.exp(lse1 - mx)
+    w2 = torch.exp(lse2 - mx)
+    den = w1 + w2
+    den_s = torch.where(den == 0.0, torch.ones_like(den), den)
+    o = (o1 * w1[..., None] + o2 * w2[..., None]) / den_s[..., None]
+    return o, mx + torch.log(den_s)
+
+
+def dist_decode_attn(q, k_cache, v_cache, k_new, v_new, *, group=None,
+                     mask: Optional[MaskSpec] = None, window=None,
+                     scale=None, shard_len=None, pos=None):
+    """One-token decode against a sequence-sharded KV cache.
+
+    ``k_cache`` / ``v_cache`` (B, S_loc, Hkv, D) are this rank's shard:
+    rank i of ``group`` (the :class:`~repro_torch.parallel.comm.Comm` over
+    the cache's sequence axes, e.g. ``("data", "model")`` for
+    ``long_500k``; None: one shard) holds global slots
+    ``[i·S_loc, (i+1)·S_loc)``.  The query and the new token's k/v are the
+    same on every rank.  Exact lse-weighted combine across shards
+    (distributed flash-decoding: a max reduced with MAX, numerator and
+    denominator with SUM), then one merge with the new token's
+    self-attention.
+
+    ``mask`` is of kind ``causal`` (the whole cache, the default) or
+    ``sliding_window``; the removed ``window=`` kwarg raises
+    ``TypeError``.  ``pos`` (B,) int: per-request context lengths (slots
+    >= pos[b] are masked for request b, the window is measured from
+    pos[b]); None keeps the whole-cache semantics; a scalar broadcasts
+    over the batch with a one-shot DeprecationWarning.  Returns o
+    (B, 1, Hq, D) in q's dtype.  The local part is plain PyTorch in
+    float32, as the reference's."""
+    if window is not None:
+        raise TypeError(
+            "dist_decode_attn(window=) was removed; pass "
+            "mask=repro_torch.core.mask.{causal,sliding_window}(...)")
+    if mask is None:
+        mask = mk.causal()
+    if mask.kinds - {"causal", "sliding_window"}:
+        raise ValueError(
+            f"dist_decode_attn serves causal/sliding_window masks only "
+            f"(got {mask.kind!r}) — the decode token is last, so other "
+            f"kinds have no decode meaning")
+    if mask.q_offset or mask.kv_offset:
+        raise ValueError("dist_decode_attn mask must be offset-free — "
+                         "decode positions are derived from the cache "
+                         "layout")
+    if shard_len is None:
+        shard_len = k_cache.shape[1]
+    if pos is not None:
+        pos = torch.as_tensor(pos)
+        if pos.ndim == 0:
+            mk.warn_legacy_once(
+                "dist_decode_attn(pos=<scalar>)",
+                "a (B,) per-request position vector")
+            pos = pos.expand(q.shape[0])
+    if group is not None and group.size == 1:
+        group = None
+    return _decode_local(group, shard_len, mask.window, scale, q, k_cache,
+                         v_cache, k_new, v_new, pos)
 
 
 def zigzag_perm(T: int, P: int) -> np.ndarray:

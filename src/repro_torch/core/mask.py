@@ -27,10 +27,24 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import numbers
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+_DEPRECATION_WARNED = set()
+
+
+def warn_legacy_once(site: str, hint: str) -> None:
+    """One DeprecationWarning per call site per process, for the call forms
+    the reference still accepts with a warning."""
+    if site in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(site)
+    warnings.warn(f"{site} is deprecated; pass {hint}",
+                  DeprecationWarning, stacklevel=4)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,9 @@ global rank ``r`` sits at ``(r // seq, r % seq)`` (model minor, as
 :class:`~repro_torch.parallel.comm.Comm` over the ranks that differ only
 along it.  ``model`` is the sequence-parallel axis (the paper's P
 workers), ``data`` the batch axis.  Without a world (one process) every
-axis has size 1 and the transport is ``local``.
+axis has size 1 and the transport is ``local``.  :meth:`Mesh.comm` names
+the group of several axes (``("data", "model")``: the world, ranks in
+the reference's linearized order).
 """
 from __future__ import annotations
 
@@ -37,6 +39,20 @@ class Mesh:
 
     def coord(self, name: str) -> int:
         return self.coords[self.axis_names.index(name)]
+
+    def comm(self, axes) -> cm.Comm:
+        """The Comm over mesh axes ``axes`` (a name or a tuple of names,
+        major first): its rank is the rank's linearized index over them,
+        as the reference's ``idx = idx * size(ax) + axis_index(ax)``.
+        One axis is ``comms[axis]``; every axis in mesh order is the
+        world."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(axes) == 1:
+            return self.comms[axes[0]]
+        if axes == tuple(self.axis_names):
+            return self.world
+        raise ValueError(f"no group over axes {axes} of a mesh "
+                         f"{self.axis_names}")
 
 
 def mesh_axis_size(mesh, name: str) -> int:

@@ -1,35 +1,57 @@
-"""Serving CLI: continuous-batching paged-KV serving of seeded random
-prompts with seeded random weights.
+"""Serving CLI: seeded random prompts served with seeded random weights,
+by the paged continuous-batching engine or, with ``--fixed-slot``, by the
+fixed-slot engine over a dense cache that can shard along the sequence.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
         [--prompt-len 128 --gen 16 --batch 4] [--window 64] \
         [--block-size 16 --n-blocks 0] [--temperature 0.8] \
         [--smoke --device cpu]
 
-Weights and prompts come from seed 0; prefill runs in chunks of
-``PREFILL_CHUNK`` tokens.
+    # long context: the prompt prefilled across P sequence ranks (the
+    # balanced schedule), the cache sharded along the sequence, decode reduced
+    # over the shards; a world this command spawns itself (gloo on the
+    # CPU; on one GPU the ranks share it through host-staged transfers)
+    PYTHONPATH=src python -m repro_torch.launch.serve --fixed-slot \
+        --seq-shards 4 --nproc 4 --smoke --device cpu
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+    # or under torchrun, one GPU a rank (nccl)
+    PYTHONPATH=src torchrun --nproc-per-node P -m repro_torch.launch.serve \
+        --fixed-slot --seq-shards P
+
+The ranks form a ``(data, model)`` mesh (``--mesh local``) with
+``--seq-shards`` ranks on the sequence-parallel ``model`` axis; a batch
+that does not divide over ``data`` folds it into the cache's sequence
+sharding, as the reference's ``long_500k``.  Every rank prints the same
+tokens; rank 0 reports.  Weights and prompts come from seed 0; the paged
+engine prefills in chunks of ``PREFILL_CHUNK`` tokens.  Runs on ``cuda``
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.config import get_config, smoke_config
+from repro_torch.core.config import ShapeSpec, get_config, smoke_config
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.world import spawn
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.serve.engine import Engine
+from repro_torch.parallel.comm import init_world
+from repro_torch.parallel.sharding import make_parallel_config
+from repro_torch.serve import prng
+from repro_torch.serve.engine import Engine, FixedSlotEngine
 
 PREFILL_CHUNK = 256
 SEED = 0
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-7b")
     ap.add_argument("--smoke", action="store_true")
@@ -41,24 +63,55 @@ def main(argv=None):
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="paged pool size (0 = sized to the workload)")
+    ap.add_argument("--fixed-slot", action="store_true",
+                    help="the fixed-slot engine over a dense cache")
+    ap.add_argument("--mesh", default="local", choices=("local",))
+    ap.add_argument("--seq-shards", type=int, default=1)
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="spawn this many ranks (not under torchrun)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if (args.nproc > 1 or args.seq_shards > 1) and not args.fixed_slot:
+        raise SystemExit("ranks serve through --fixed-slot (the multi-rank "
+                         "paged engine is not ported)")
+    if args.nproc > 1 and not dist.is_initialized():
+        if torch.device(args.device).type == "cuda":
+            build.build_all()            # once, before the ranks start
+        spawn(_rank_main, args.nproc, (argv,), device=args.device,
+              timeout=None)
+        return 0
+    if "RANK" in os.environ and not dist.is_initialized():
+        init_world(args.device)          # torchrun's environment
+    return run(args)
+
+
+def _rank_main(rank, argv):
+    return run(_parser().parse_args(argv))
+
+
+def run(args) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     if args.window:
         cfg = cfg.replace(attn=dataclasses.replace(cfg.attn,
                                                    window=args.window))
-    model = DecoderLM(cfg, device=args.device)
+    if args.fixed_slot:
+        mesh = make_local_mesh(seq=args.seq_shards, device=args.device)
+        shape = ShapeSpec("cli", args.prompt_len, args.batch, "decode")
+        par = make_parallel_config(mesh, shape)
+        model = DecoderLM(cfg, device=args.device, par=par, mesh=mesh)
+        lead = mesh.world.rank == 0
+    else:
+        model = DecoderLM(cfg, device=args.device)
+        lead = True
     params = model.init(SEED)
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
-    blocks_per_req = -(-(args.prompt_len + args.gen) // args.block_size)
-    n_blocks = args.n_blocks or args.batch * (blocks_per_req + 4) + 2
-    eng = Engine(model, params, max_batch=args.batch,
-                 block_size=args.block_size, n_blocks=n_blocks,
-                 prefill_chunk_tokens=PREFILL_CHUNK)
 
     def sync():
         if model.device.type == "cuda":
@@ -67,23 +120,40 @@ def main(argv=None):
     if model.device.type == "cuda":        # nvcc at first use, not timed
         t0 = time.perf_counter()
         build.build_all()
-        print(f"kernels built in {time.perf_counter() - t0:.1f}s")
+        if lead:
+            print(f"kernels built in {time.perf_counter() - t0:.1f}s")
     sync()
     t0 = time.perf_counter()
-    toks = eng.generate({"tokens": prompts}, args.gen,
-                        temperature=args.temperature)
+    if args.fixed_slot:
+        toks, _ = FixedSlotEngine(model, params).generate(
+            {"tokens": prompts}, args.gen, rng=prng.prng_key(SEED),
+            temperature=args.temperature)
+        toks = toks.cpu().numpy()
+        how = (f"fixed-slot mesh={dict(zip(mesh.axis_names, mesh.shape))} "
+               f"schedule={model.par.schedule} cache shards="
+               f"{1 if model.decode_group is None else model.decode_group.size}"
+               f" transport={mesh.transport}")
+    else:
+        blocks_per_req = -(-(args.prompt_len + args.gen) // args.block_size)
+        n_blocks = args.n_blocks or args.batch * (blocks_per_req + 4) + 2
+        eng = Engine(model, params, max_batch=args.batch,
+                     block_size=args.block_size, n_blocks=n_blocks,
+                     prefill_chunk_tokens=PREFILL_CHUNK)
+        toks = eng.generate({"tokens": prompts}, args.gen,
+                            temperature=args.temperature)
+        s = eng.stats()
+        how = (f"paged bs={args.block_size} pool={n_blocks} "
+               f"steps={s['steps']} preempt={s['n_preemptions']} "
+               f"prefill_chunks={s['prefill_chunks']}")
     sync()
     dt = time.perf_counter() - t0
-    s = eng.stats()
-    print(f"arch={cfg.name} layers={cfg.n_layers} device={model.device} "
-          f"batch={args.batch} prompt={args.prompt_len} generated="
-          f"{args.gen} tokens in {dt:.3f}s "
-          f"({args.gen * args.batch / dt:.1f} tok/s) "
-          f"[paged bs={args.block_size} pool={n_blocks} steps={s['steps']} "
-          f"preempt={s['n_preemptions']} "
-          f"prefill_chunks={s['prefill_chunks']}]")
-    print("sampled token ids (first request):",
-          [int(t) for t in toks[0][:16]])
+    if lead:
+        print(f"arch={cfg.name} layers={cfg.n_layers} device={model.device}"
+              f" batch={args.batch} prompt={args.prompt_len} generated="
+              f"{args.gen} tokens in {dt:.3f}s "
+              f"({args.gen * args.batch / dt:.1f} tok/s) [{how}]")
+        print("sampled token ids (first request):",
+              [int(t) for t in toks[0][:16]], flush=True)
     return 0
 
 

@@ -3,7 +3,7 @@ on one process or across ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-gqa \
         --smoke --steps 50 --seq 256 --batch 4 [--remat remat_aware] \
-        [--device cpu]
+        [--ckpt-dir ckpts/run0 --ckpt-every 10] [--device cpu]
 
     # P sequence-parallel ranks under torchrun (one GPU each: nccl)
     PYTHONPATH=src torchrun --nproc-per-node P -m repro_torch.launch.train \
@@ -18,8 +18,14 @@ The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
 the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
 the reference's 16 × 16 grid).  Weights come from seed 0 and batches
 from ``SyntheticTokens`` (seed 0), each rank taking its shard.  Runs on
-``cuda`` unless ``--device cpu`` is given.  The checkpoint flags come with
-the checkpoint module.
+``cuda`` unless ``--device cpu`` is given.
+
+With ``--ckpt-dir``, ``{"params": ...}`` is saved there in the reference's
+tree layout and checkpoint format (``io/checkpoint.py``; layers stacked on
+a leading axis, ``models.transformer.to_reference_params``) every
+``--ckpt-every`` steps and after the last step; on a mesh rank 0 writes
+(the parameters are replicated).  There is no resume, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -33,10 +39,12 @@ import torch.distributed as dist
 from repro_torch.core.config import (ShapeSpec, TrainConfig, get_config,
                                      smoke_config)
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.world import spawn
-from repro_torch.models.transformer import DecoderLM, trainable
+from repro_torch.models.transformer import (DecoderLM,
+                                            to_reference_params, trainable)
 from repro_torch.optim import adamw
 from repro_torch.parallel.comm import init_world
 from repro_torch.parallel.sharding import make_parallel_config
@@ -63,6 +71,8 @@ def _parser():
     ap.add_argument("--seq-shards", type=int, default=1)
     ap.add_argument("--nproc", type=int, default=1,
                     help="spawn this many ranks (not under torchrun)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -134,6 +144,14 @@ def run(args) -> int:
                   f"gnorm {m['gnorm']:.2f} tok/s {tok_s:.0f}"
                   + (f" skipped {n_skipped}" if n_skipped else ""),
                   flush=True)
+        if args.ckpt_dir and args.ckpt_every and lead and \
+                (i + 1) % args.ckpt_every == 0:
+            ckpt_io.save(args.ckpt_dir,
+                         {"params": to_reference_params(params)}, step=i + 1)
+    if args.ckpt_dir and lead:
+        ckpt_io.save(args.ckpt_dir, {"params": to_reference_params(params)},
+                     step=args.steps)
+        print(f"saved checkpoint to {args.ckpt_dir}", flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
-"""Dense decoder LM for training and paged serving (port of the reference
+"""Dense decoder LM for training and serving (port of the reference
 ``models/transformer.py``: ``DecoderLM.init``, ``loss`` with its dense layer
-stages, ``prefill_chunk``, paged ``decode``, ``_head`` and the paged-write
-helpers).
+stages, ``prefill`` across sequence ranks, ``prefill_chunk``, ``decode`` over
+a paged or a sequence-sharded dense cache, ``_head``, ``_cache_write`` and
+the paged-write helpers).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -14,6 +15,12 @@ global token mean (sum and count all-reduced over the ranks holding
 distinct tokens).  :func:`trainable` turns a parameter tree into leaf
 tensors that require gradients.
 
+Long-context serving: :meth:`DecoderLM.prefill` runs the whole prompt on
+this rank's shard of the sequence and returns its dense cache shard;
+:meth:`DecoderLM.pad_cache` lays it out as the reference's padded global
+cache sharded over ``par.seq_axes``; :meth:`DecoderLM.decode` on that cache
+runs ``dist_decode_attn`` and writes the new token into the owner shard.
+
 The reference scans stacked layers with ``lax.scan``; here the parameters
 hold a Python list of per-layer dicts and the layers run in a loop.  The
 paged KV pools are torch tensors ``(L, N, bs, Hkv, D)`` that the model
@@ -24,7 +31,8 @@ and idle decode rows write there, and it is never read unmasked.
 :func:`load_reference_params` carries the reference's ``DecoderLM.init``
 pytree (nested dicts of numpy arrays, layers stacked on a leading L axis)
 into this layout, and :func:`load_reference_opt_state` the reference's
-``AdamWState``.
+``AdamWState``; :func:`to_reference_params` is the way back (the tree the
+trainer checkpoints).
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ from repro_torch.core import mask as mk
 from repro_torch.core.attention import chunk_attn, paged_decode_attn
 from repro_torch.core.config import ModelConfig, ParallelConfig
 from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
-                                             dist_attn_fwd, dist_flash_attn,
+                                             dist_attn_fwd, dist_decode_attn,
+                                             dist_flash_attn,
                                              shard_positions)
 from repro_torch.core.remat import apply_policy, remat_aware
 from repro_torch.core.tree import tree_map
@@ -173,6 +182,9 @@ class DecoderLM:
         self.seq_rank = 0 if mesh is None else mesh.coord(ax)
         self.seq_group = None if mesh is None else mesh.comms[ax]
         self.token_group = token_group(mesh, self.par)
+        # the dense decode cache shards its sequence over par.seq_axes
+        self.decode_group = None if mesh is None else mesh.comm(
+            self.par.seq_axes)
 
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
@@ -321,28 +333,159 @@ class DecoderLM:
 
             h = self._layer(lp, h, attend, cos, sin)
 
+    # ---------------------------------------------- whole-prompt prefill
+    @torch.no_grad()
+    def prefill(self, p, tokens):
+        """Whole-prompt forward of ``tokens`` (B, T) — the same global
+        prompt on every rank — on this rank's shard of the sequence
+        (``shard_positions``; zigzag: the rank's two mirror chunks), the
+        attention through ``dist_attn_fwd`` under ``par.schedule`` (kernel
+        A in the plan executors; at P = 1 one chunk call).  Returns the
+        last prompt token's logits (B, 1, V), on every rank (broadcast from
+        the rank holding that token), and this rank's dense cache shard
+        ``{"k", "v"}`` (L, B, Tl, Hkv, D) in the stored order of the
+        sequence (zigzag: the permuted order, as the reference's cache).
+        Ranks that differ only along ``data`` compute the same batch."""
+        a, P = self.cfg.attn, self.seq_size
+        tokens = torch.as_tensor(tokens, device=self.device)
+        T = tokens.shape[1]
+        zz = zigzag_layout(self.cfg, self.par, P)
+        if T % (2 * P if zz else P):
+            raise ValueError(f"prompt of {T} tokens does not shard over "
+                             f"{P} ranks{' (zigzag: 2P chunks)' if zz else ''}")
+        pos = shard_positions(T, P, self.seq_rank, zz)
+        pos_t = torch.as_tensor(pos, device=self.device)
+        h = L.embed(p["embed"], tokens[:, pos_t], self.dtype)
+        cos, sin = L.rope_tables(pos_t, a.head_dim, a.rope_theta)
+        spec = _attn_spec(self.cfg, self.par, P, self.impl, False)
+        ks, vs = [], []
+
+        def attend(q, k, v):
+            ks.append(k)
+            vs.append(v)
+            return dist_attn_fwd(q, k, v, spec=spec,
+                                 group=self.seq_group)[0]
+
+        for lp in p["layers"]:
+            h = self._layer(lp, h, attend, cos, sin)
+        # the owner of position T - 1 computes its logits and sends them
+        owner = next(r for r in range(P)
+                     if (shard_positions(T, P, r, zz) == T - 1).any())
+        if owner == self.seq_rank:
+            i = int(np.nonzero(pos == T - 1)[0][0])
+            logits = self._head(p, h[:, i:i + 1]).contiguous()
+        else:
+            logits = torch.empty((h.shape[0], 1, self.cfg.vocab),
+                                 dtype=self.dtype, device=self.device)
+        if self.seq_group is not None:
+            self.seq_group.broadcast_([logits], owner)
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    def pad_cache(self, cache, S: int) -> dict:
+        """This rank's shard of the prefill's global cache padded with
+        zeros to ``S`` slots, in the decode layout: rank i of
+        ``decode_group`` (the sequence axes ``par.seq_axes``) holds global
+        slots ``[i·S/n, (i+1)·S/n)``, as the reference's padded cache
+        sharded over those axes.  ``cache`` is :meth:`prefill`'s shard
+        (Tl slots of the ``model`` axis, the same on every ``data``
+        replica).  The padded shard is longer than Tl, so each rank's tail
+        moves to the ranks below it: a one-time exchange of the pieces,
+        one ring shift per hop that carries any."""
+        grp = self.decode_group
+        n = 1 if grp is None else grp.size
+        w = 0 if grp is None else grp.rank
+        P = self.seq_size
+        Tl = cache["k"].shape[2]
+        if S % n or S < Tl * P:
+            raise ValueError(f"padded length {S} must divide over {n} "
+                             f"shards and hold the {Tl * P} prompt slots")
+        S_loc = S // n
+
+        def take(dst, h):
+            """The global slots [lo, hi) rank ``dst`` takes at hop ``h``,
+            from rank dst + h (which holds prefill shard (dst + h) % P),
+            unless an earlier hop's source held that shard; or None."""
+            m = (dst + h) % n % P
+            if any((dst + j) % n % P == m for j in range(h)):
+                return None
+            lo, hi = max(dst * S_loc, m * Tl), min((dst + 1) * S_loc,
+                                                   (m + 1) * Tl)
+            return (lo, hi) if lo < hi else None
+
+        mine = w % P * Tl                     # my prefill shard's first slot
+        out = {}
+        for key, x in cache.items():
+            out[key] = torch.zeros(x.shape[:2] + (S_loc,) + x.shape[3:],
+                                   dtype=x.dtype, device=x.device)
+        for h in range(n):
+            spans = [take(d, h) for d in range(n)]
+            M = max((b - a for a, b in filter(None, spans)), default=0)
+            if not M:
+                continue
+            send, recv = spans[(w - h) % n], spans[w]
+            if h == 0:
+                if recv is None:
+                    continue
+                parts = {k: x[:, :, recv[0] - mine:recv[1] - mine]
+                         for k, x in cache.items()}
+            else:
+                bufs = []
+                for x in cache.values():
+                    buf = x.new_zeros(x.shape[:2] + (M,) + x.shape[3:])
+                    if send is not None:
+                        buf[:, :, :send[1] - send[0]] = \
+                            x[:, :, send[0] - mine:send[1] - mine]
+                    bufs.append(buf)
+                got = grp.shift(bufs, -h).wait()
+                parts = dict(zip(cache, got))
+            if recv is not None:
+                lo, hi = recv
+                for k, x in parts.items():
+                    out[k][:, :, lo - w * S_loc:hi - w * S_loc] = \
+                        x[:, :, :hi - lo]
+        return out
+
     # ------------------------------------------------------------ decode
     @torch.no_grad()
     def decode(self, p, cache, token, pos):
-        """One decode step over a paged cache: ``token`` (B, 1), ``pos``
-        (B,) int32 per-request context lengths (the new token's position).
-        Per layer the new token's K/V is written into the request's current
-        block, then kernel B attends through the block table.  Returns
-        logits (B, 1, V); the pools are updated in place."""
+        """One decode step: ``token`` (B, 1), ``pos`` (B,) int32
+        per-request context lengths (the new token's position).  ``cache``
+        is a paged view (``k_pool`` / ``v_pool`` + ``block_table``: per
+        layer the new token's K/V is written into the request's current
+        block, then kernel B attends through the block table) or this
+        rank's dense shard ``{"k", "v"}`` (L, B, S_loc, Hkv, D) of a cache
+        sharded over ``par.seq_axes`` (:meth:`pad_cache`: per layer
+        ``dist_decode_attn`` over the shards, then :func:`_cache_write`
+        into the owner shard).  Returns logits (B, 1, V); the cache is
+        updated in place."""
         a = self.cfg.attn
-        bt = cache["block_table"]
         h = L.embed(p["embed"], token, self.dtype)
         cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
-        lengths = (pos + 1).to(torch.int32)
         spec = decode_mask(a.window)
+        paged = "block_table" in cache
+        if paged:
+            bt = cache["block_table"]
+            lengths = (pos + 1).to(torch.int32)
         for li, lp in enumerate(p["layers"]):
-            kp, vp = cache["k_pool"][li], cache["v_pool"][li]
+            if paged:
+                kp, vp = cache["k_pool"][li], cache["v_pool"][li]
 
-            def attend(q, k, v, kp=kp, vp=vp):
-                _paged_write(kp, k, bt, pos)
-                _paged_write(vp, v, bt, pos)
-                return paged_decode_attn(q, kp, vp, bt, lengths, mask=spec)
+                def attend(q, k, v, kp=kp, vp=vp):
+                    _paged_write(kp, k, bt, pos)
+                    _paged_write(vp, v, bt, pos)
+                    return paged_decode_attn(q, kp, vp, bt, lengths,
+                                             mask=spec)
+            else:
+                ck, cv = cache["k"][li], cache["v"][li]
+
+                def attend(q, k, v, ck=ck, cv=cv):
+                    o = dist_decode_attn(q, ck, cv, k, v,
+                                         group=self.decode_group, mask=spec,
+                                         pos=pos)
+                    _cache_write(ck, k, pos, self.decode_group)
+                    _cache_write(cv, v, pos, self.decode_group)
+                    return o
 
             h = self._layer(lp, h, attend, cos, sin)
         return self._head(p, h)
@@ -361,6 +504,26 @@ def _paged_write(pool, new, block_table, pos):
     pos = pos.long()
     bidx = block_table.long().gather(1, (pos // bs)[:, None])[:, 0]
     pool.index_put_((bidx, pos % bs), new[:, 0].to(pool.dtype))
+
+
+def _cache_write(cache, new, pos, group=None):
+    """Write ``new`` (B, 1, ...) into this rank's shard ``cache``
+    (B, S_loc, ...) of a cache sharded over the ranks of ``group`` (None:
+    one shard), in place, at each request's ring-buffer slot
+    ``pos[b] % (n·S_loc)`` (``pos`` (B,), or a scalar that broadcasts):
+    only the shard that owns the slot writes.  No host sync: every row
+    is read and written back, unchanged where this shard is not the
+    owner."""
+    n = 1 if group is None else group.size
+    idx = 0 if group is None else group.rank
+    B, S_loc = cache.shape[:2]
+    pos = torch.as_tensor(pos, device=cache.device).long().expand(B)
+    slot = pos % (n * S_loc)
+    local = slot % S_loc
+    hit = (slot // S_loc == idx).view((B,) + (1,) * (cache.ndim - 2))
+    b = torch.arange(B, device=cache.device)
+    cache[b, local] = torch.where(hit, new[:, 0].to(cache.dtype),
+                                  cache[b, local])
 
 
 def _paged_write_chunk(pool, new, block_table, start: int, end: int):
@@ -405,6 +568,19 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                           stacked[grp].items()}
                     for grp in ("attn", "mlp")} for i in range(n)]
     return p
+
+
+def to_reference_params(params: dict) -> dict:
+    """The inverse of :func:`load_reference_params`: the port's parameters
+    in the reference's pytree layout, every layer leaf stacked on a leading
+    ``L`` axis (same dtype and device)."""
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {grp: {name: torch.stack([lp[grp][name].detach()
+                                              for lp in layers])
+                           for name in layers[0][grp]}
+                     for grp in layers[0]}
+    return out
 
 
 def load_reference_opt_state(cfg: ModelConfig, state, device="cuda"

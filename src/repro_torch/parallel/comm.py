@@ -1,7 +1,9 @@
 """Collectives over a group of ranks: the port's counterpart of the
 reference's ``lax.ppermute`` (:meth:`Comm.shift`), ``lax.all_to_all``
 (:meth:`Comm.all_to_all`), ``lax.all_gather`` (:meth:`Comm.all_gather`) and
-``lax.psum`` (:meth:`Comm.all_reduce_`) over one mesh axis.
+``lax.psum`` / ``lax.pmax`` (:meth:`Comm.all_reduce_`) over one mesh axis or
+several (a group whose ranks are ordered by the axes' linearized index),
+and a broadcast from one rank (:meth:`Comm.broadcast_`).
 
 Each rank is one ``torch.distributed`` process.  How tensors travel — the
 transport — is decided once, from the world's backend and the device, when
@@ -38,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 TRANSPORTS = ("nccl", "gloo", "gloo-staged")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def choose_transport(device, world_size: int) -> str:
@@ -143,7 +146,7 @@ class Comm:
     ranks in axis order; ``group`` / ``p2p_group`` are its process groups
     for collectives and for shifts (None: the world).  ``shift_wait_s``
     and ``reduce_s`` add up the host seconds spent blocked waiting for
-    shifts and in :meth:`all_reduce_`."""
+    shifts and in :meth:`all_reduce_` / :meth:`broadcast_`."""
 
     def __init__(self, ranks, transport: str, device, group=None,
                  p2p_group=None):
@@ -245,22 +248,38 @@ class Comm:
         dist.all_gather(outs, xs, group=self.group)
         return self._back(torch.cat(outs, dim=dim))
 
-    def all_reduce_(self, tensors):
-        """Sum each tensor over the group, in place."""
+    def all_reduce_(self, tensors, op: str = "sum"):
+        """Reduce each tensor over the group in place: ``op`` ``"sum"``
+        (``lax.psum``) or ``"max"`` (``lax.pmax``)."""
         if self.size == 1:
             return tensors
+        rop = _OPS[op]
         t0 = time.perf_counter()
         works = []
         staged = []
         for t in tensors:
             h = self._host(t)
             staged.append(h)
-            works.append(dist.all_reduce(h, group=self.group,
+            works.append(dist.all_reduce(h, op=rop, group=self.group,
                                          async_op=True))
         for w in works:
             w.wait()
         if self.transport == "gloo-staged":
             for t, h in zip(tensors, staged):
+                t.copy_(h)
+        self.reduce_s += time.perf_counter() - t0
+        return tensors
+
+    def broadcast_(self, tensors, root: int):
+        """Copy each tensor of group rank ``root`` to every rank, in
+        place."""
+        if self.size == 1:
+            return tensors
+        t0 = time.perf_counter()
+        for t in tensors:
+            h = self._host(t)
+            dist.broadcast(h, self.ranks[root], group=self.group)
+            if h is not t:
                 t.copy_(h)
         self.reduce_s += time.perf_counter() - t0
         return tensors

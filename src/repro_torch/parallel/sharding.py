@@ -3,7 +3,8 @@
 
 On the port's process-group mesh (``launch/mesh.py``): the batch shards
 over ``data`` when the global batch divides by its size, and the sequence
-over ``model`` (the paper's P workers).  Parameters are replicated; the
+over ``model`` (the paper's P workers); a decode shape that leaves
+``data`` idle shards its KV cache over ``(data, model)``.  Parameters are replicated; the
 reference's FSDP layout is not ported.
 """
 from __future__ import annotations
@@ -15,14 +16,20 @@ from repro_torch.launch.mesh import mesh_axis_size
 def make_parallel_config(mesh, shape: ShapeSpec,
                          schedule: str = "balanced",
                          remat: str = "remat_aware") -> ParallelConfig:
-    """Resolve axis roles for ``shape`` on ``mesh`` (None: one process)."""
+    """Resolve axis roles for ``shape`` on ``mesh`` (None: one process).
+    For a ``decode`` shape whose batch does not divide over ``data``
+    (``long_500k``: batch 1), the idle ``data`` axis is folded into the
+    cache's sequence sharding (``extra_seq_axes``)."""
     names = ("data", "model") if mesh is None else mesh.axis_names
-    batch_axes = []
+    batch_axes, extra_seq = [], []
     if "data" in names:
         n = mesh_axis_size(mesh, "data")
         if shape.global_batch % n == 0 and shape.global_batch >= n:
             batch_axes.append("data")
+        elif shape.kind == "decode":
+            extra_seq.append("data")
     return ParallelConfig(batch_axes=tuple(batch_axes), seq_axis="model",
+                          extra_seq_axes=tuple(extra_seq),
                           fsdp_axes=tuple(a for a in ("data",)
                                           if a in names),
                           schedule=schedule, remat=remat)

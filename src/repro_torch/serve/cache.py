@@ -28,9 +28,15 @@ writer forks a private copy of a shared block only on first divergence
 *reclaim* blocks that fall wholly outside the sliding window
 (:meth:`PagedKVCache.reclaim_window`) instead of merely masking them.
 
-The pools are torch tensors on one device, updated in place by the model
-(``index_put_``) and by the copy-on-write fork here; the port serves on a
-single device, so pools are not sharded.
+The pools are torch tensors, updated in place by the model (``index_put_``)
+and by the copy-on-write fork here.  Sharding (``create(mesh=, seq_axis=)``,
+the reference's ``_pool_pspec`` choice): over the ranks of the mesh axis,
+the kv-head axis shards when the head count divides it (``"heads"``:
+head-parallel decode, each rank's query heads read only its own pool),
+otherwise the pool-block axis (``"blocks"``: rank r holds blocks
+``[r·N/n, (r+1)·N/n)``), otherwise the pool is replicated.  Each rank
+allocates only its part; :func:`sharded_paged_decode_attn` decodes over
+such a pool.  The math is the same in all three placements.
 
 The block *tables* are host-side numpy (the scheduler mutates them every
 step); a device copy ships with each decode step's inputs.
@@ -39,11 +45,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.attention import paged_decode_attn
 from repro_torch.core.config import ModelConfig
 from repro_torch.serve.faults import AuditFailure
 
@@ -324,6 +332,8 @@ class PagedKVCache:
     table: np.ndarray                # (max_reqs, max_blocks_per_req) int32
     n_assigned: np.ndarray           # (max_reqs,) blocks assigned per slot
     prefix: Optional[PrefixCache] = None
+    sharding: Optional[str] = None   # "heads" | "blocks" | None (whole)
+    group: Optional[object] = None   # the Comm of the sharded mesh axis
     counters: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict(forks=0, reclaimed=0, hit_tokens=0,
                                      hit_blocks=0, evicted=0, dedup_swaps=0))
@@ -334,19 +344,33 @@ class PagedKVCache:
                n_blocks: int = 64, max_reqs: int = 8,
                max_blocks_per_req: Optional[int] = None,
                prefix_cache: bool = False, device="cuda",
-               dtype: Optional[torch.dtype] = None) -> "PagedKVCache":
+               dtype: Optional[torch.dtype] = None, mesh=None,
+               seq_axis: str = "model") -> "PagedKVCache":
+        """A cache of ``n_blocks`` blocks (block 0 the null block).  With
+        ``mesh`` the pools shard over ``seq_axis`` (module docstring) and
+        this rank allocates its part."""
         a = cfg.attn
         if a is None:
             raise ValueError(f"the paged KV cache serves dense GQA "
                              f"attention (arch {cfg.arch_type!r})")
         if block_size is None:
-            block_size = cls.DEFAULT_BLOCK_SIZE
+            block_size = cls.default_block_size()
         if max_blocks_per_req is None:
             max_blocks_per_req = n_blocks - 1
         if dtype is None:
             dtype = {"float32": torch.float32,
                      "bfloat16": torch.bfloat16}[cfg.dtype]
         s = (cfg.n_layers, n_blocks, block_size, a.n_kv_heads, a.head_dim)
+        sharding, group = None, None
+        if mesh is not None and mesh.size(seq_axis) > 1:
+            group = mesh.comms[seq_axis]
+            sharding = cls._pool_sharding(s, group.size)
+            if sharding == "heads":
+                s = s[:3] + (s[3] // group.size,) + s[4:]
+            elif sharding == "blocks":
+                s = s[:1] + (s[1] // group.size,) + s[2:]
+            else:
+                group = None
         pools = {k: torch.zeros(s, dtype=dtype, device=device)
                  for k in ("k_pool", "v_pool")}
         allocator = BlockAllocator(n_blocks)
@@ -362,11 +386,35 @@ class PagedKVCache:
                    pools=pools, allocator=allocator,
                    table=np.zeros((max_reqs, max_blocks_per_req), np.int32),
                    n_assigned=np.zeros((max_reqs,), np.int32),
-                   prefix=prefix)
+                   prefix=prefix, sharding=sharding, group=group)
 
-    DEFAULT_BLOCK_SIZE = 16
+    @staticmethod
+    def default_block_size() -> int:
+        """The pool granularity when the caller passes none: the
+        ``REPRO_TUNE_BLOCK_SIZE`` variable, else 16 (the reference's next
+        source, a tuning table, is not ported)."""
+        env = os.environ.get("REPRO_TUNE_BLOCK_SIZE", "").strip()
+        return int(env) if env else 16
+
+    @staticmethod
+    def _pool_sharding(shape: Tuple[int, ...], size: int) -> Optional[str]:
+        """Head-parallel when the kv-head axis divides the axis size, else
+        pool-block-sharded, else replicated (None)."""
+        if size <= 1:
+            return None
+        if shape[3] % size == 0:
+            return "heads"
+        if shape[1] % size == 0:
+            return "blocks"
+        return None
 
     # ------------------------------------------------------------- queries
+    @property
+    def layout(self) -> str:
+        """The kv layout: k and v pools per kv head (``"mha"``; the latent
+        ``"mla"`` pool is not ported)."""
+        return "mha"
+
     def blocks_for(self, n_tokens: int) -> int:
         return max(1, math.ceil(n_tokens / self.block_size))
 
@@ -468,6 +516,7 @@ class PagedKVCache:
             if self.allocator.refcount(b) == 1:
                 continue
             (nb,) = self._alloc(rid, 1)
+            self._check_block_local("a copy-on-write fork")
             for pool in self.pools.values():
                 pool[:, nb] = pool[:, b]
             self.table[slot, i] = nb
@@ -500,6 +549,12 @@ class PagedKVCache:
             freed += 1
         self.counters["reclaimed"] += freed
         return freed
+
+    def _check_block_local(self, what: str) -> None:
+        if self.sharding == "blocks":
+            raise NotImplementedError(
+                f"{what} on a block-sharded pool needs the multi-rank "
+                f"Engine, which is not ported")
 
     # --------------------------------------------------- prefix indexing
     def register_prefix(self, slot: int, rid: int, tokens: Sequence[int],
@@ -534,6 +589,7 @@ class PagedKVCache:
         for i in range(n):
             b = int(self.table[slot, i])
             if b and self.allocator.owners(b) == (rid,):
+                self._check_block_local("a scrub")
                 for pool in self.pools.values():
                     pool[:, b] = 0
                 scrubbed += 1
@@ -576,3 +632,86 @@ class PagedKVCache:
                     "table_ownership",
                     f"slot {slot} has table entries beyond "
                     f"n_assigned={n}")
+
+    # ------------------------------------------------------------- page io
+    def _blocks_here(self, ids):
+        """(positions in ``ids`` of the blocks this rank holds, their
+        local ids) — every block, unless the pool is block-sharded."""
+        ids = torch.as_tensor(ids, dtype=torch.long)
+        if self.sharding != "blocks":
+            return torch.arange(len(ids)), ids
+        n_loc = self.n_blocks // self.group.size
+        lo = self.group.rank * n_loc
+        keep = ((ids >= lo) & (ids < lo + n_loc)).nonzero()[:, 0]
+        return keep, ids[keep] - lo
+
+    def page_in(self, slot: int, dense_cache: Dict[str, torch.Tensor],
+                n_tokens: int) -> None:
+        """Scatter a prefill's dense cache ``{"k", "v"}`` (L, 1, T, Hkv, D)
+        (leading layer dim, B = 1, every kv head) into the slot's blocks;
+        only the first ``n_tokens`` positions page in (T may be padded).
+        A sharded pool takes this rank's heads or blocks."""
+        n = self.blocks_for(n_tokens)
+        assert n <= int(self.n_assigned[slot])
+        bs = self.block_size
+        at, ids = self._blocks_here(self.table[slot, :n])
+        for dk in ("k", "v"):
+            pool = self.pools[dk + "_pool"]
+            x = dense_cache[dk][:, 0]                  # (L, T, Hkv, D)
+            L, T = x.shape[0], x.shape[1]
+            if self.sharding == "heads":
+                h = pool.shape[3]
+                x = x[:, :, self.group.rank * h:(self.group.rank + 1) * h]
+            x = x[:, :n * bs]
+            pad = n * bs - x.shape[1]
+            if pad:
+                x = torch.cat([x, x.new_zeros((L, pad) + x.shape[2:])], 1)
+            blocks = x.reshape(L, n, bs, *x.shape[2:])
+            pool[:, ids.to(pool.device)] = blocks[:, at.to(x.device)].to(
+                device=pool.device, dtype=pool.dtype)
+
+    def gather(self, slot: int, length: int) -> Dict[str, torch.Tensor]:
+        """Contiguous (L, length, Hkv, D) view of a slot's cache, every kv
+        head — a test / debugging aid (decode never materializes it); a
+        sharded pool is all-gathered over its ranks first."""
+        n = self.blocks_for(length)
+        ids = torch.as_tensor(self.table[slot, :n], dtype=torch.long)
+        out = {}
+        for pk, pool in self.pools.items():
+            if self.sharding == "blocks":
+                pool = self.group.all_gather(pool, dim=1)
+            p = pool[:, ids.to(pool.device)]           # (L, n, bs, ...)
+            p = p.reshape(p.shape[0], -1, *p.shape[3:])[:, :length]
+            if self.sharding == "heads":
+                p = self.group.all_gather(p.contiguous(), dim=2)
+            out[pk[:-5]] = p
+        return out
+
+
+def sharded_paged_decode_attn(q, cache: PagedKVCache, layer: int,
+                              block_table, lengths, *, mask=None,
+                              scale=None, impl=None):
+    """Paged decode over layer ``layer`` of ``cache``'s pools wherever
+    they live (``PagedKVCache.create(mesh=)``): q (B, T, Hq, D), the same
+    on every rank; returns o (B, T, Hq, D), the same on every rank.
+
+    * ``"heads"`` — kernel B on this rank's kv heads and their query heads
+      (``Hq / n`` of them), then the outputs all-gathered over heads.  B is
+      per head and batch-invariant, so this equals one B over every head
+      bit for bit.
+    * ``"blocks"`` — the owners' blocks all-gathered to every rank, then B
+      on the gathered pool (what GSPMD does for the reference).
+    * replicated — B on the pool.
+    """
+    kp, vp = cache.pools["k_pool"][layer], cache.pools["v_pool"][layer]
+    kw = dict(mask=mask, scale=scale, impl=impl)
+    if cache.sharding == "heads":
+        g = cache.group
+        hq = q.shape[2] // g.size
+        mine = q[:, :, g.rank * hq:(g.rank + 1) * hq].contiguous()
+        o = paged_decode_attn(mine, kp, vp, block_table, lengths, **kw)
+        return g.all_gather(o.contiguous(), dim=2)
+    if cache.sharding == "blocks":
+        kp = cache.group.all_gather(kp, dim=0)
+        vp = cache.group.all_gather(vp, dim=0)
+    return paged_decode_attn(q, kp, vp, block_table, lengths, **kw)

@@ -1,6 +1,7 @@
-"""Paged continuous-batching serving engine (port of the reference
-``serve/engine.py`` ``Engine``, without speculative decoding and fault
-injection).
+"""Serving engines (port of the reference ``serve/engine.py``: ``Engine``,
+without speculative decoding and fault injection, and ``FixedSlotEngine``).
+
+:class:`Engine` is the paged continuous-batching engine:
 
   * ``submit(prompt, max_new_tokens=…, temperature=…, seed=…,
     stop_tokens=…, deadline_steps=…) -> rid`` — enqueue a request; the
@@ -29,6 +30,12 @@ on the host by :mod:`repro_torch.serve.prng` (threefry2x32 keys and bits,
 Gumbel-max) — so a request's stream depends only on its own (prompt,
 params), never on the batch around it, is the same on every device, and is
 the reference's stream token for token.
+
+:class:`FixedSlotEngine` is one prefill plus a dense cache stepped one token
+at a time — the reference's dense-cache oracle of the paged engine, and its
+long-context path: on a mesh the prompt is prefilled across the sequence
+ranks and the cache stays sharded along the sequence, every rank running
+the same decode loop (flash-decoding across the shards).
 """
 from __future__ import annotations
 
@@ -334,3 +341,68 @@ class Engine:
         if self.cache.prefix is not None:
             out["prefix_cache"] = dict(self.cache.prefix.stats)
         return out
+
+
+class FixedSlotEngine:
+    """Batched fixed-slot serving: one prefill plus a dense contiguous KV
+    cache, stepped one token at a time, with per-request ``(B,)``
+    positions.  The cache is padded with ``n_tokens`` of headroom, rounded
+    up so that the padded length divides over the cache's sequence shards
+    (``model.pad_cache``), so the ring buffer never wraps.
+
+    On a mesh every rank calls :meth:`generate` with the same batch; the
+    prefill runs across the ``model`` ranks under ``par.schedule`` and each
+    decode step reduces over the cache's shards, so every rank returns the
+    same tokens.  ``record_logits`` keeps the float32 logits of the prefill
+    and of every decode step (on the host) in ``step_logits``."""
+
+    def __init__(self, model, params, record_logits: bool = False):
+        self.model = model
+        self.params = params
+        self.record_logits = bool(record_logits)
+        self.step_logits: List[torch.Tensor] = []
+
+    def generate(self, batch, n_tokens: int, rng=None,
+                 temperature: float = 0.0, forced=None):
+        """``batch["tokens"]`` (B, T): the prompts.  Returns (tokens
+        (B, n_tokens) int32, last logits (B, 1, V)).  Greedy, or at
+        ``temperature > 0`` with a key ``rng`` (``prng.prng_key(seed)``)
+        the reference's draws: ``rng, k = split(rng)`` then
+        ``categorical(k, logits / temperature)`` each step.  ``forced``
+        (B, n_tokens): feed these tokens to the decode steps instead of
+        the chosen ones (teacher forcing); the chosen ones are returned."""
+        model = self.model
+        dev = model.device
+        logits, cache = model.prefill(self.params, batch["tokens"])
+        S0 = int(np.asarray(batch["tokens"]).shape[1])
+        grp = model.decode_group
+        n_sh = 1 if grp is None else grp.size
+        pad = -(-(S0 + n_tokens) // n_sh) * n_sh - S0
+        cache = model.pad_cache(cache, S0 + pad)
+        B = logits.shape[0]
+        self.step_logits = []
+        lf = logits[:, -1].float()
+        if self.record_logits:
+            self.step_logits.append(lf.cpu())
+        tok = lf.argmax(dim=-1)[:, None].to(torch.int32)
+        if forced is not None:
+            forced = torch.as_tensor(forced, device=dev)
+        outs = []
+        for i in range(n_tokens):
+            outs.append(tok)
+            feed = tok if forced is None else forced[:, i:i + 1]
+            pos = torch.full((B,), S0 + i, dtype=torch.int32, device=dev)
+            logits = model.decode(self.params, cache, feed, pos)
+            lf = logits[:, -1].float()
+            if self.record_logits:
+                self.step_logits.append(lf.cpu())
+            if temperature > 0 and rng is not None:
+                keys = prng.split(rng)
+                rng, k = keys[0], keys[1]
+                draw = prng.categorical(k, lf.cpu().numpy()
+                                        / np.float32(temperature))
+                tok = torch.as_tensor(draw, dtype=torch.int32,
+                                      device=dev)[:, None]
+            else:
+                tok = lf.argmax(dim=-1)[:, None].to(torch.int32)
+        return torch.cat(outs, dim=1), logits

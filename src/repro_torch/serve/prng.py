@@ -9,6 +9,8 @@ streams are the reference's token for token:
 
   * ``prng_key(seed)``   — ``[seed >> 32, seed & 0xFFFFFFFF]``;
   * ``fold_in(key, d)``  — ``threefry2x32(key, (0, d))``;
+  * ``split(key, n)``    — key i is threefry2x32 of the 64-bit count i,
+                           split into its hi and lo words;
   * ``random_bits``      — threefry2x32 over the 64-bit iota of the shape,
                            split into its hi and lo words, ``bits1 ^ bits2``;
   * ``uniform``          — ``(bits >> 9) | 0x3F800000`` viewed as float32,
@@ -65,6 +67,15 @@ def fold_in(key, data: int) -> np.ndarray:
     x0, x1 = threefry2x32(key, np.zeros(1, np.uint32),
                           np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.array([x0[0], x1[0]], np.uint32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)``'s key data: (num, 2) uint32, key i
+    being ``threefry2x32(key, (hi, lo))`` of the 64-bit count i."""
+    i = np.arange(int(num), dtype=np.uint64)
+    b1, b2 = threefry2x32(key, (i >> np.uint64(32)).astype(np.uint32),
+                          (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return np.stack([b1, b2], axis=1)
 
 
 def random_bits(key, shape) -> np.ndarray:

@@ -356,3 +356,17 @@ def test_training_steps_on_card_match_cpu(dev):
     torch.testing.assert_close(p_d["layers"][0]["attn"]["wq"].detach().cpu(),
                                p_c["layers"][0]["attn"]["wq"].detach(),
                                atol=1e-4, rtol=1e-3)
+
+
+def test_head_parallel_pool_equals_one_rank_kernel_bitwise(dev):
+    """llama-7b's 32 kv heads over 4 ranks sharing the card (host-staged
+    gloo): kernel B on each rank's 8 heads, all-gathered over heads,
+    equals one launch over every head bit for bit (B is per head and
+    batch-invariant)."""
+    import _torch_long_cases as LC
+    from repro_torch.launch.world import spawn
+    build.build_all()
+    res = spawn(LC.head_parallel_world, 4, (4,), device=dev, timeout=300)
+    assert res[0][0] is True
+    assert all(r[1] == 1 for r in res)
+    assert {r[2] for r in res} == {"gloo-staged"}

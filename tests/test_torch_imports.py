@@ -77,5 +77,5 @@ def test_port_covers_the_slice_layout():
                 "launch/train.py", "core/schedule.py", "parallel/comm.py",
                 "parallel/sharding.py", "launch/mesh.py", "launch/world.py",
                 "serve/prng.py", "configs/llama_16h.py",
-                "configs/llama_33h.py"):
+                "configs/llama_33h.py", "io/checkpoint.py"):
         assert (PORT / rel).is_file(), rel
