@@ -1587,7 +1587,7 @@ def _p8_rank(rank):
     out = {"rank": mesh.coord("model"), "transport": mesh.transport,
            "seq_axes": model.par.seq_axes,
            "shards": model.decode_group.size}
-    eng = FixedSlotEngine(model, params, record_logits=True)
+    eng = FixedSlotEngine(model, params)
     eng.generate({"tokens": prompt[:, :P8_WARM_T]}, 2)
     comms = list({id(c): c for c in (model.seq_group,
                                      model.decode_group)}.values())
@@ -1599,10 +1599,11 @@ def _p8_rank(rank):
     w0 = sum(c.shift_wait_s for c in comms)
     r0 = sum(c.reduce_s for c in comms)
     build.reset_launches()
-    toks, _ = eng.generate({"tokens": prompt}, P8_GEN)
+    with _recorded(model) as logs:
+        toks, _ = eng.generate({"tokens": prompt}, P8_GEN)
     launches = dict(build.LAUNCHES)
     out.update(
-        tokens=toks.cpu(), logits=torch.stack(eng.step_logits),
+        tokens=toks.cpu(), logits=torch.stack(logs),
         launches=launches, prefill_s=times["prefill"][0],
         decode_ms=[1e3 * t for t in times["decode"]],
         shift_wait=sum(c.shift_wait_s for c in comms) - w0,
@@ -1612,31 +1613,50 @@ def _p8_rank(rank):
     del model.prefill, model.decode
     out["controls"] = {}
     for fault in ("shard", "pos"):
-        with _decode_fault(model, fault):
-            eng.generate({"tokens": prompt}, P8_CTL_GEN,
-                         forced=toks[:, :P8_CTL_GEN])
-        out["controls"][fault] = torch.stack(eng.step_logits)
+        with _decode_fault(model, fault), _recorded(
+                model, toks[:, :P8_CTL_GEN]) as logs:
+            eng.generate({"tokens": prompt}, P8_CTL_GEN)
+        out["controls"][fault] = torch.stack(logs)
     del eng, params
     _free()
     out["pool"] = _p8_pool(mesh)
     return out
 
 
-class _ForcedEngine(Engine):
-    """The paged engine fed the given tokens (teacher forcing), keeping
-    every decode step's logits on the host."""
+@contextlib.contextmanager
+def _recorded(model, forced=None):
+    """While the block runs, every ``prefill`` and ``decode`` of ``model``
+    appends its last position's float32 logits (on the host) to the list
+    it yields.  With ``forced`` (B, n) the decode that follows the k-th
+    logits is fed ``forced[:, k - 1]`` instead of the engine's token
+    (teacher forcing); a decode before any logits (the paged ``Engine``'s
+    first, fed the prompt's last token) is left alone."""
+    logs = []
+    saved = {k: model.__dict__.get(k) for k in ("prefill", "decode")}
+    prefill, decode = model.prefill, model.decode
 
-    def __init__(self, *a, forced, **kw):
-        super().__init__(*a, record_logits=True, **kw)
-        self.forced, self.step_logits = list(forced), []
+    def pre(p, tokens):
+        logits, cache = prefill(p, tokens)
+        logs.append(logits[:, -1].float().cpu())
+        return logits, cache
 
-    def _decode(self, live):
-        nxt, ok = super()._decode(live)
-        (r,) = live
-        self.step_logits.append(self.last_logits[r.rid].cpu()[None])
-        if len(self.step_logits) <= len(self.forced):
-            nxt[r.slot] = self.forced[len(self.step_logits) - 1]
-        return nxt, ok
+    def dec(p, cache, token, pos):
+        if forced is not None and logs:
+            k = len(logs)
+            token = forced[:, k - 1:k].to(token.device, token.dtype)
+        logits = decode(p, cache, token, pos)
+        logs.append(logits[:, -1].float().cpu())
+        return logits
+
+    model.prefill, model.decode = pre, dec
+    try:
+        yield logs
+    finally:
+        for k, fn in saved.items():
+            if fn is None:
+                del model.__dict__[k]
+            else:
+                setattr(model, k, fn)
 
 
 def _step_err(got, ref):
@@ -1700,21 +1720,22 @@ def long_serve():
     times = {}
     one.prefill = _timed(times, "prefill", one.prefill)
     one.decode = _timed(times, "decode", one.decode)
-    fixed = FixedSlotEngine(one, params, record_logits=True)
-    fixed.generate({"tokens": prompt}, P8_GEN, forced=toks)
-    dense1 = torch.stack(fixed.step_logits)
+    with _recorded(one, toks) as logs:
+        FixedSlotEngine(one, params).generate({"tokens": prompt}, P8_GEN)
+    dense1 = torch.stack(logs)
     peak1 = torch.cuda.max_memory_allocated()
-    del fixed, one.prefill, one.decode
+    del one.prefill, one.decode
     _free()
     # (b) the paged Engine at P = 1 (kernels A and B)
     bs = 16
-    eng = _ForcedEngine(one, params, forced=toks[0].tolist(), max_batch=1,
-                        block_size=bs, prefill_chunk_tokens=4096,
-                        n_blocks=-(-(P8_T + P8_GEN + 1) // bs) + 2,
-                        prefix_cache=False)
-    eng.submit(prompt[0], max_new_tokens=P8_GEN + 1)
-    eng.run()
-    paged1 = torch.stack(eng.step_logits)
+    eng = Engine(one, params, max_batch=1, block_size=bs,
+                 prefill_chunk_tokens=4096,
+                 n_blocks=-(-(P8_T + P8_GEN + 1) // bs) + 2,
+                 prefix_cache=False)
+    with _recorded(one, toks) as logs:
+        eng.submit(prompt[0], max_new_tokens=P8_GEN + 1)
+        eng.run()
+    paged1 = torch.stack(logs)
     peak1 = max(peak1, torch.cuda.max_memory_allocated())
     st = eng.stats()
     say(f"  P = 1 in this process: dense prefill {times['prefill'][0]:.3f} "

@@ -288,10 +288,11 @@ def _decode_local(comm, shard_len, window, scale, q, kc, vc, k1, v1,
     Hkv = kc.shape[2]
     g = Hq // Hkv
     sc = scale if scale is not None else 1.0 / (Dq ** 0.5)
-    qf = q.float()
-    kf = kc.repeat_interleave(g, dim=2) if g > 1 else kc
-    vf = vc.repeat_interleave(g, dim=2) if g > 1 else vc
-    s_loc = torch.einsum("bqhd,bkhd->bhqk", qf, kf.float()) * sc
+    # query head h*g + j reads kv head h: contract the (B, Hkv, g) grouped
+    # query against the unexpanded shard, no per-group copy of the cache
+    qf = q.float().reshape(B, 1, Hkv, g, Dq)
+    s_loc = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.float()).reshape(
+        B, Hq, 1, -1) * sc
     kpos = (offset + torch.arange(shard_len, device=q.device))[
         None, None, None, :]
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
@@ -314,7 +315,9 @@ def _decode_local(comm, shard_len, window, scale, q, kc, vc, k1, v1,
     # a shard with every slot masked contributes nothing
     p_loc = torch.where(m_loc[..., None] <= NEG_INF / 2,
                         torch.zeros_like(p_loc), p_loc)
-    num = torch.einsum("bhqk,bkhd->bhqd", p_loc, vf.float())
+    num = torch.einsum("bhgqk,bkhd->bhgqd",
+                       p_loc.reshape(B, Hkv, g, 1, -1),
+                       vc.float()).reshape(B, Hq, 1, vc.shape[-1])
     den = p_loc.sum(dim=-1)                               # (B,H,1)
     if comm is not None:
         comm.all_reduce_([num, den])
@@ -325,11 +328,10 @@ def _decode_local(comm, shard_len, window, scale, q, kc, vc, k1, v1,
                       num / den_s[..., None])
     # merge with the new token's self-attention (the same on every rank,
     # added once — after the cross-shard sum so it is not counted n times)
-    k1r = k1.repeat_interleave(g, dim=2) if g > 1 else k1
-    v1r = v1.repeat_interleave(g, dim=2) if g > 1 else v1
-    s1 = torch.einsum("bqhd,bkhd->bhqk", qf, k1r.float()) * sc
+    s1 = torch.einsum("bqhgd,bkhd->bhgqk", qf, k1.float()).reshape(
+        B, Hq, 1, 1) * sc
     lse1 = s1[..., 0]                                     # (B,H,1): one key
-    o1 = v1r.float().transpose(1, 2)                      # (B,Hq,1,Dv)
+    o1 = v1.float().transpose(1, 2).repeat_interleave(g, dim=1)  # B,Hq,1,D
     o_m, _ = _merge_bh(o_c, lse_c, o1, lse1)
     return o_m.transpose(1, 2).to(q.dtype)                # (B,1,Hq,Dv)
 

@@ -55,6 +55,20 @@ class Mesh:
                          f"{self.axis_names}")
 
 
+# the CLIs' ``--mesh``: ``local`` puts ``--seq-shards`` ranks on ``model``
+# and the rest of the world on ``data``; ``production`` is the reference's
+# 16 × 16 grid
+MESHES = {"local": None, "production": (16, 16)}
+
+
+def named_mesh(name: str, seq: int = 1, device="cuda") -> "Mesh":
+    """The mesh ``--mesh name`` selects (``seq``: ``local``'s model axis)."""
+    if MESHES[name] is None:
+        return make_local_mesh(seq=seq, device=device)
+    data, seq = MESHES[name]
+    return make_local_mesh(seq=seq, data=data, device=device)
+
+
 def mesh_axis_size(mesh, name: str) -> int:
     return 1 if mesh is None else mesh.size(name)
 

@@ -18,13 +18,14 @@ fixed-slot engine over a dense cache that can shard along the sequence.
     PYTHONPATH=src torchrun --nproc-per-node P -m repro_torch.launch.serve \
         --fixed-slot --seq-shards P
 
-The ranks form a ``(data, model)`` mesh (``--mesh local``) with
-``--seq-shards`` ranks on the sequence-parallel ``model`` axis; a batch
-that does not divide over ``data`` folds it into the cache's sequence
-sharding, as the reference's ``long_500k``.  Every rank prints the same
-tokens; rank 0 reports.  Weights and prompts come from seed 0; the paged
-engine prefills in chunks of ``PREFILL_CHUNK`` tokens.  Runs on ``cuda``
-unless ``--device cpu`` is given.
+The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
+the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
+the reference's 16 × 16 grid).  A batch that divides over ``data`` is
+split between the data replicas; one that does not folds ``data`` into
+the cache's sequence sharding, as the reference's ``long_500k``.  Every
+rank prints the same tokens; rank 0 reports.  Weights and prompts come
+from seed 0; the paged engine prefills in chunks of ``PREFILL_CHUNK``
+tokens.  Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import torch.distributed as dist
 
 from repro_torch.core.config import ShapeSpec, get_config, smoke_config
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.parallel.comm import init_world
@@ -65,7 +66,7 @@ def _parser():
                     help="paged pool size (0 = sized to the workload)")
     ap.add_argument("--fixed-slot", action="store_true",
                     help="the fixed-slot engine over a dense cache")
-    ap.add_argument("--mesh", default="local", choices=("local",))
+    ap.add_argument("--mesh", default="local", choices=tuple(MESHES))
     ap.add_argument("--seq-shards", type=int, default=1)
     ap.add_argument("--nproc", type=int, default=1,
                     help="spawn this many ranks (not under torchrun)")
@@ -75,7 +76,8 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if (args.nproc > 1 or args.seq_shards > 1) and not args.fixed_slot:
+    if (args.nproc > 1 or args.seq_shards > 1
+            or args.mesh != "local") and not args.fixed_slot:
         raise SystemExit("ranks serve through --fixed-slot (the multi-rank "
                          "paged engine is not ported)")
     if args.nproc > 1 and not dist.is_initialized():
@@ -101,7 +103,7 @@ def run(args) -> int:
         cfg = cfg.replace(attn=dataclasses.replace(cfg.attn,
                                                    window=args.window))
     if args.fixed_slot:
-        mesh = make_local_mesh(seq=args.seq_shards, device=args.device)
+        mesh = named_mesh(args.mesh, args.seq_shards, args.device)
         shape = ShapeSpec("cli", args.prompt_len, args.batch, "decode")
         par = make_parallel_config(mesh, shape)
         model = DecoderLM(cfg, device=args.device, par=par, mesh=mesh)

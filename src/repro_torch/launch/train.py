@@ -41,7 +41,7 @@ from repro_torch.core.config import (ShapeSpec, TrainConfig, get_config,
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
 from repro_torch.models.transformer import (DecoderLM,
                                             to_reference_params, trainable)
@@ -51,7 +51,6 @@ from repro_torch.parallel.sharding import make_parallel_config
 from repro_torch.train.step import make_train_step
 
 SEED = 0
-MESHES = {"local": None, "production": (16, 16)}
 
 
 def _parser():
@@ -99,11 +98,7 @@ def run(args) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    if MESHES[args.mesh] is None:
-        mesh = make_local_mesh(seq=args.seq_shards, device=args.device)
-    else:
-        data, seq = MESHES[args.mesh]
-        mesh = make_local_mesh(seq=seq, data=data, device=args.device)
+    mesh = named_mesh(args.mesh, args.seq_shards, args.device)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     par = make_parallel_config(mesh, shape, schedule=args.schedule,
                                remat=args.remat)

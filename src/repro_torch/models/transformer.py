@@ -185,6 +185,10 @@ class DecoderLM:
         # the dense decode cache shards its sequence over par.seq_axes
         self.decode_group = None if mesh is None else mesh.comm(
             self.par.seq_axes)
+        # a serving batch that shards over data: each replica its rows
+        self.batch_group = (mesh.comms["data"] if mesh is not None
+                            and "data" in self.par.batch_axes
+                            and mesh.size("data") > 1 else None)
 
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
@@ -345,9 +349,11 @@ class DecoderLM:
         the rank holding that token), and this rank's dense cache shard
         ``{"k", "v"}`` (L, B, Tl, Hkv, D) in the stored order of the
         sequence (zigzag: the permuted order, as the reference's cache).
-        Ranks that differ only along ``data`` compute the same batch."""
+        When the batch shards over ``data`` (``par.batch_axes``) each data
+        replica runs its own rows (:meth:`_rows`; the cache holds those
+        rows) and the logits are gathered over ``data``."""
         a, P = self.cfg.attn, self.seq_size
-        tokens = torch.as_tensor(tokens, device=self.device)
+        tokens = self._rows(torch.as_tensor(tokens, device=self.device))
         T = tokens.shape[1]
         zz = zigzag_layout(self.cfg, self.par, P)
         if T % (2 * P if zz else P):
@@ -379,7 +385,25 @@ class DecoderLM:
                                  dtype=self.dtype, device=self.device)
         if self.seq_group is not None:
             self.seq_group.broadcast_([logits], owner)
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return self._all_rows(logits), {"k": torch.stack(ks),
+                                        "v": torch.stack(vs)}
+
+    def _rows(self, x):
+        """This data replica's contiguous share of the rows of ``x`` (all
+        of them unless the batch shards over ``data``)."""
+        g = self.batch_group
+        if g is None:
+            return x
+        if x.shape[0] % g.size:
+            raise ValueError(f"a batch of {x.shape[0]} does not shard over "
+                             f"{g.size} data ranks")
+        n = x.shape[0] // g.size
+        return x[g.rank * n:(g.rank + 1) * n]
+
+    def _all_rows(self, x):
+        """The inverse of :meth:`_rows`: every replica's rows, gathered."""
+        g = self.batch_group
+        return x if g is None else g.all_gather(x.contiguous(), 0)
 
     def pad_cache(self, cache, S: int) -> dict:
         """This rank's shard of the prefill's global cache padded with
@@ -387,10 +411,11 @@ class DecoderLM:
         ``decode_group`` (the sequence axes ``par.seq_axes``) holds global
         slots ``[i·S/n, (i+1)·S/n)``, as the reference's padded cache
         sharded over those axes.  ``cache`` is :meth:`prefill`'s shard
-        (Tl slots of the ``model`` axis, the same on every ``data``
-        replica).  The padded shard is longer than Tl, so each rank's tail
-        moves to the ranks below it: a one-time exchange of the pieces,
-        one ring shift per hop that carries any."""
+        (Tl slots of the ``model`` axis; the same on every ``data``
+        replica when ``data`` is one of the cache's axes).  The padded
+        shard is longer than Tl, so each rank's tail moves to the ranks
+        below it: a one-time exchange of the pieces, one ring shift per
+        hop that carries any."""
         grp = self.decode_group
         n = 1 if grp is None else grp.size
         w = 0 if grp is None else grp.rank
@@ -456,14 +481,17 @@ class DecoderLM:
         rank's dense shard ``{"k", "v"}`` (L, B, S_loc, Hkv, D) of a cache
         sharded over ``par.seq_axes`` (:meth:`pad_cache`: per layer
         ``dist_decode_attn`` over the shards, then :func:`_cache_write`
-        into the owner shard).  Returns logits (B, 1, V); the cache is
+        into the owner shard; its rows are this data replica's, as
+        :meth:`prefill`'s).  Returns logits (B, 1, V); the cache is
         updated in place."""
         a = self.cfg.attn
+        paged = "block_table" in cache
+        if not paged:
+            token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
         cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
         spec = decode_mask(a.window)
-        paged = "block_table" in cache
         if paged:
             bt = cache["block_table"]
             lengths = (pos + 1).to(torch.int32)
@@ -488,7 +516,8 @@ class DecoderLM:
                     return o
 
             h = self._layer(lp, h, attend, cos, sin)
-        return self._head(p, h)
+        logits = self._head(p, h)
+        return logits if paged else self._all_rows(logits)
 
 
 # --------------------------------------------------------------------------

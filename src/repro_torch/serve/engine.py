@@ -353,24 +353,19 @@ class FixedSlotEngine:
     On a mesh every rank calls :meth:`generate` with the same batch; the
     prefill runs across the ``model`` ranks under ``par.schedule`` and each
     decode step reduces over the cache's shards, so every rank returns the
-    same tokens.  ``record_logits`` keeps the float32 logits of the prefill
-    and of every decode step (on the host) in ``step_logits``."""
+    same tokens."""
 
-    def __init__(self, model, params, record_logits: bool = False):
+    def __init__(self, model, params):
         self.model = model
         self.params = params
-        self.record_logits = bool(record_logits)
-        self.step_logits: List[torch.Tensor] = []
 
     def generate(self, batch, n_tokens: int, rng=None,
-                 temperature: float = 0.0, forced=None):
+                 temperature: float = 0.0):
         """``batch["tokens"]`` (B, T): the prompts.  Returns (tokens
         (B, n_tokens) int32, last logits (B, 1, V)).  Greedy, or at
         ``temperature > 0`` with a key ``rng`` (``prng.prng_key(seed)``)
         the reference's draws: ``rng, k = split(rng)`` then
-        ``categorical(k, logits / temperature)`` each step.  ``forced``
-        (B, n_tokens): feed these tokens to the decode steps instead of
-        the chosen ones (teacher forcing); the chosen ones are returned."""
+        ``categorical(k, logits / temperature)`` each step."""
         model = self.model
         dev = model.device
         logits, cache = model.prefill(self.params, batch["tokens"])
@@ -380,22 +375,13 @@ class FixedSlotEngine:
         pad = -(-(S0 + n_tokens) // n_sh) * n_sh - S0
         cache = model.pad_cache(cache, S0 + pad)
         B = logits.shape[0]
-        self.step_logits = []
-        lf = logits[:, -1].float()
-        if self.record_logits:
-            self.step_logits.append(lf.cpu())
-        tok = lf.argmax(dim=-1)[:, None].to(torch.int32)
-        if forced is not None:
-            forced = torch.as_tensor(forced, device=dev)
+        tok = logits[:, -1].float().argmax(dim=-1)[:, None].to(torch.int32)
         outs = []
         for i in range(n_tokens):
             outs.append(tok)
-            feed = tok if forced is None else forced[:, i:i + 1]
             pos = torch.full((B,), S0 + i, dtype=torch.int32, device=dev)
-            logits = model.decode(self.params, cache, feed, pos)
+            logits = model.decode(self.params, cache, tok, pos)
             lf = logits[:, -1].float()
-            if self.record_logits:
-                self.step_logits.append(lf.cpu())
             if temperature > 0 and rng is not None:
                 keys = prng.split(rng)
                 rng, k = keys[0], keys[1]

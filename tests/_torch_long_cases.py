@@ -38,6 +38,7 @@ ENGINE_CASES = (
     ("1x8-zigzag", (1, 8), "zigzag", 2, 0, 0.0),
     ("1x8-zigzag-w11", (1, 8), "zigzag", 2, 11, 0.0),
     ("2x4-b1", (2, 4), "balanced", 1, 0, 0.0),
+    ("2x4-b2", (2, 4), "balanced", 2, 0, 0.0),
     ("1x8-sampled", (1, 8), "balanced", 2, 0, 0.8),
 )
 SAMPLE_SEED = 3
@@ -93,6 +94,16 @@ def _decode_world(rank, meshes):
     return out
 
 
+def _cache_rows(prefill, rows):
+    """``prefill`` that also appends its cache shard's batch rows to
+    ``rows``."""
+    def run(p, tokens):
+        logits, cache = prefill(p, tokens)
+        rows.append(cache["k"].shape[1])
+        return logits, cache
+    return run
+
+
 def _engine_world(rank, meshes, tree):
     import dataclasses
     from repro_torch.core.config import ShapeSpec, get_config, smoke_config
@@ -117,12 +128,14 @@ def _engine_world(rank, meshes, tree):
         par = make_parallel_config(mesh, shape, schedule=sched)
         model = DecoderLM(cfg, "cpu", par=par, mesh=mesh)
         rng = prng.prng_key(SAMPLE_SEED) if temp else None
+        rows = []
+        model.prefill = _cache_rows(model.prefill, rows)
         toks, logits = FixedSlotEngine(model, params).generate(
             {"tokens": prompts(B)}, N_GEN, rng=rng, temperature=temp)
         out[f"engine/{name}"] = (toks.numpy(), logits[:, -1].numpy(),
                                  par.seq_axes,
                                  1 if model.decode_group is None
-                                 else model.decode_group.size)
+                                 else model.decode_group.size, rows[0])
     return out
 
 

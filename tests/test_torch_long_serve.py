@@ -154,21 +154,25 @@ def test_fixed_slot_engine_matches_reference(case, reference, port):
     logits within 1e-4 of max |logit|: prefill across the ranks (balanced,
     ring, zigzag; zigzag under a window falls back to balanced), the cache
     resharded with headroom, decode reduced over the shards — on the 2-D
-    layout over (data, model)."""
+    layout over (data, model) for batch 1, while a batch that divides over
+    data is split between the data replicas (each caches its rows)."""
     name, mesh, sched, B, window, temp = case
     ref, _, axes = reference
     want_t = ref[f"engine/{name}/tokens"]
     want_l = ref[f"engine/{name}/logits"]
     ranks = [0] if mesh == (1, 1) else range(8)
+    split = mesh[0] > 1 and axes[name] == ("model",)
     for r in ranks:
-        toks, logits, seq_axes, shards = port[r]["engine/" + name]
+        toks, logits, seq_axes, shards, rows = port[r]["engine/" + name]
         np.testing.assert_array_equal(toks, want_t)
         err = float(np.abs(logits - want_l).max())
         assert err <= LOGIT_REL * float(np.abs(want_l).max()), (name, err)
         assert seq_axes == axes[name]
-        assert shards == mesh[0] * mesh[1]
+        assert shards == (mesh[1] if split else mesh[0] * mesh[1])
+        assert rows == (B // mesh[0] if split else B)
     if mesh == (2, 4):
-        assert axes[name] == ("data", "model")
+        assert axes[name] == (("model",) if B % mesh[0] == 0
+                              else ("data", "model"))
 
 
 @pytest.mark.parametrize("case", C.POOL_CASES,
