@@ -50,6 +50,32 @@ Phases, each fatal on failure (nothing is caught):
                 and the limit must reject two deliberately wrong forwards
                 (one position off; the oldest cache block hidden).  Prefill and decode seconds come from the engine's own
                 CUDA-event spans.
+  9. spec     — speculative serving (runs right after phase 4, on its
+                llama-7b weights and prompts; request 1 sampled at
+                temperature 0.8, the rest greedy) with smollm-360m at full
+                size as the draft (32 layers, 15 heads over 5 kv heads of
+                64, vocab 49152, bf16, seed-7 weights): warm_prefill, then
+                five runs of the phase 4 engine (its pool grown by the
+                lookahead's blocks): vanilla; depth 0 (streams and every
+                row of logits bitwise vanilla's); depth 4 with an oracle
+                draft proposing the vanilla continuation (a wrong token at
+                draft index 2 for request 2), which must commit 5 tokens on
+                most full-depth steps; depth 4 n-gram; depth 4 with the
+                draft model (kernel A catches it up, kernel B rolls it).
+                The streams of the last three equal vanilla's, diverging
+                only where vanilla's top-two gap (Gumbel-perturbed when
+                sampled) is below the logit limit; every committed verify
+                row is within phase 4's 5e-2 of max |logit| of vanilla's
+                row at that position, and the limit must reject two
+                planted verify faults (rope positions one off; attention
+                before the rows' own writes).  Both allocators conserve
+                after every run.  A seeded storm (``FaultInjector.seeded(0,
+                n_steps=20, rate=0.5)``, audited) runs twice over the n-gram
+                engine: equal fault logs, every request terminal, streams
+                of untouched requests equal the zero-fault run's and the
+                rest its prefixes.  Prints decode tokens/s, tokens a step,
+                acceptance and launches of A and B a step (target and
+                draft apart).
   6. train    — llama-7b's width (d_model 4096, 32 heads × 128, d_ff 11008,
                 vocab 32000, bf16) at depth 8, one sequence of 8192 tokens:
                 4 steps of ``make_train_step`` under ``remat_aware`` on
@@ -162,12 +188,19 @@ from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, merge_ref, row_rel_err)
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.world import spawn  # noqa: E402
+from repro_torch.models import layers as LY  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.transformer import DecoderLM, trainable  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.sharding import make_parallel_config  # noqa: E402
 from repro_torch.serve.cache import (  # noqa: E402
     PagedKVCache, sharded_paged_decode_attn)
+from repro_torch.serve import prng  # noqa: E402
 from repro_torch.serve.engine import Engine, FixedSlotEngine  # noqa: E402
+from repro_torch.serve.faults import FaultEvent, FaultInjector  # noqa: E402
+from repro_torch.serve.scheduler import TERMINAL_STATES  # noqa: E402
+from repro_torch.serve.speculative import (  # noqa: E402
+    DraftSource, ModelDraft, SpecConfig)
 from repro_torch.train.step import make_train_step  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
@@ -345,6 +378,10 @@ def kernel_checks():
                     mk.MaskSpec(q_offset=10, kv_offset=3))
         _flash_case(gen, "empty rows q_offset -64", 1, 128, 128, 2, 2, 128,
                     dt, mk.causal(rel_offset=-64))
+        # the smollm-360m draft's catch-up chunk (phase 9): 32 rows, 15
+        # query heads over 5 kv heads of 64, the gathered table behind
+        _flash_case(gen, "draft chunk h15/5 d64", 1, 32, 1056, 15, 5, 64,
+                    dt, mk.causal(rel_offset=1000))
         # pruned == dense sweep
         q, k, v = (randn(gen, (1, 256, 4, 64), dt) for _ in range(3))
         m = mk.sliding_window(70)
@@ -371,6 +408,12 @@ def kernel_checks():
     _paged_case(gen, "gqa d64 window", 4, 3, 8, 2, 64, 8, [2, 5, 40, 77],
                 20, f32)
     _paged_case(gen, "d32 bs64", 4, 1, 4, 4, 32, 64, lens, 0, f32)
+    # speculative decoding (phase 9): the verify pass at Tq = depth + 1 = 5
+    # on llama-7b's heads, and the smollm-360m draft (g = 3, D 64) at Tq 1
+    # and Tq 5 (g·Tq = 15 rows a block)
+    _paged_case(gen, "verify Tq5", 4, 5, 32, 32, 128, 16, lens, 0, bf)
+    _paged_case(gen, "draft g3 d64 Tq1", 4, 1, 15, 5, 64, 16, lens, 0, bf)
+    _paged_case(gen, "draft g3 d64 Tq5", 4, 5, 15, 5, 64, 16, lens, 0, bf)
     # the split-KV design: L_s = 256 tokens at bf16 D 128 (bs 16), 512 at
     # float32 D 32 (bs 64); lengths at the split edges L_s - 1, L_s,
     # L_s + 1, 2 L_s
@@ -527,6 +570,66 @@ def bwd_checks():
 
 # ----------------------------------------------------------------- phase 4
 
+P4_LENS, P4_NEW = (1000, 700, 513, 64), 32
+P4_ENGINE = dict(max_batch=4, block_size=16, prefill_chunk_tokens=256,
+                 n_blocks=192)
+
+
+@contextlib.contextmanager
+def _meter(model, eng):
+    """While the block runs: the logits of every decode and verify row of
+    ``eng``'s target ``model`` under (rid, context position of the token the
+    row predicts), kept on the device without a copy (a later row at a
+    position replaces an earlier one, so a committed position ends up with
+    the row that committed it); and the kernel launches inside the target's
+    decode / verify calls and inside the engine's ``draft.propose``, apart,
+    and the host seconds in ``draft.propose`` (it ends in a host read)."""
+    rec = {"logits": {}, "target": dict.fromkeys(build.LAUNCHES, 0),
+           "draft": dict.fromkeys(build.LAUNCHES, 0), "draft_s": 0.0}
+    live = []
+    rows = eng._rows
+
+    def noting(lv, T):
+        live[:] = lv
+        return rows(lv, T)
+
+    def counted(key, fn, keep):
+        def run(*a):
+            n0 = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if key == "draft":       # proposals end in a host read
+                rec["draft_s"] += time.perf_counter() - t0
+            for k, n in n0.items():
+                rec[key][k] += build.LAUNCHES[k] - n
+            if keep:
+                for r in live:
+                    for t in range(out.shape[1]):
+                        rec["logits"][(r.rid, r.cached + 1 + t)] = \
+                            out[r.slot, t]
+            return out
+        return run
+
+    draft = eng.draft
+    eng._rows = noting
+    saved = {k: model.__dict__.get(k) for k in ("decode", "verify")}
+    model.decode = counted("target", model.decode, True)
+    model.verify = counted("target", model.verify, True)
+    if draft is not None:
+        draft.propose = counted("draft", draft.propose, False)
+    try:
+        yield rec
+    finally:
+        del eng._rows
+        if draft is not None:
+            del draft.propose
+        for k, fn in saved.items():
+            if fn is None:
+                del model.__dict__[k]
+            else:
+                setattr(model, k, fn)
+
+
 def serve():
     cfg = get_config("llama-7b")
     model = DecoderLM(cfg, device=DEV)
@@ -538,10 +641,9 @@ def serve():
         f"({cfg.param_count() / 1e9:.2f} B params) on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    lens, n_new = [1000, 700, 513, 64], 32
+    lens, n_new = P4_LENS, P4_NEW
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
-    kw = dict(max_batch=4, block_size=16, prefill_chunk_tokens=256,
-              n_blocks=192)
+    kw = P4_ENGINE
 
     # warm-up (cuBLAS handles, allocator) on a short request
     warm = Engine(model, params, **kw)
@@ -549,18 +651,19 @@ def serve():
     warm.run()
     del warm
 
-    eng = Engine(model, params, record_logits=True, **kw)
+    eng = Engine(model, params, **kw)
     torch.cuda.synchronize()
     build.reset_launches()
-    t_sub = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
-    ttft = {}
-    while not eng.sched.idle:
-        ev = eng.step()
-        now = time.perf_counter()
-        for rid in ev:
-            ttft.setdefault(rid, now - t_sub)
-    total = time.perf_counter() - t_sub
+    with _meter(model, eng) as rec:
+        t_sub = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+        ttft = {}
+        while not eng.sched.idle:
+            ev = eng.step()
+            now = time.perf_counter()
+            for rid in ev:
+                ttft.setdefault(rid, now - t_sub)
+        total = time.perf_counter() - t_sub
     launches = dict(build.LAUNCHES)
     out = {rid: np.asarray(eng.requests[rid].emitted) for rid in rids}
     st = eng.stats()
@@ -591,7 +694,7 @@ def serve():
     ctx = torch.from_numpy(np.concatenate([prompts[0], out[rid][:-1]])[None])
     ctx = ctx.to(DEV)
     ref = model.forward(params, ctx, last_only=True)[0, -1].float()
-    got = eng.last_logits[rid]
+    got = rec["logits"][(rid, lens[0] + n_new - 1)].float()
     d = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     check(bool(torch.isfinite(got).all()), "non-finite serving logits")
@@ -606,7 +709,8 @@ def serve():
     steps = max(st["decode_steps"], 1)
     say("== phase 4b: where the device time goes")
     trace(model, params, prompts)
-    return dict(launches=launches, cfg=cfg,
+    return dict(launches=launches, cfg=cfg, model=model, params=params,
+                prompts=prompts,
                 per_decode_step=launches["paged_decode"] / steps,
                 per_chunk=launches["flash_fwd"] / max(st["prefill_chunks"], 1),
                 prefill_tok_s=st["prefill_tokens"] / spent["prefill"],
@@ -642,8 +746,7 @@ def trace(model, params, prompts):
     """torch.profiler over the first 4 engine steps (prefill-heavy) and 6
     decode-only steps of the same 4 requests."""
     from torch.profiler import ProfilerActivity, profile
-    eng = Engine(model, params, max_batch=4, block_size=16,
-                 prefill_chunk_tokens=256, n_blocks=192)
+    eng = Engine(model, params, **P4_ENGINE)
     rids = [eng.submit(p, max_new_tokens=16) for p in prompts]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for label, cond in (("prefill steps 1-4", lambda i: i < 4),
@@ -1777,6 +1880,373 @@ def long_serve():
                 e_dense=e_dense, e_paged=e_paged, e_ctl=e_ctl)
 
 
+# ----------------------------------------------------------------- phase 9
+
+P9_DEPTH = 4
+P9_DRAFT, P9_DRAFT_SEED = "smollm-360m", 7
+P9_HOT = (1, 0.8)       # (request, temperature): the one sampled request
+P9_MISS = (2, 2)        # the oracle's wrong proposal: (request, draft index)
+P9_STORM = dict(seed=0, n_steps=20, rate=0.5)
+P9_CTL_NEW = 6          # tokens a request in each planted-fault run
+P9_CORRUPT_STEP = 8     # every request decodes by then (prefill: steps 0-3)
+
+
+class OracleDraft(DraftSource):
+    """Proposes the vanilla run's own continuation of each request
+    (``streams[rid]``), except a wrong token at index ``P9_MISS[1]`` for
+    request ``P9_MISS[0]``; keeps each step's (rid, accepted, proposed)."""
+
+    def __init__(self, streams, vocab):
+        self.streams, self.vocab, self.seen = streams, vocab, []
+
+    def propose(self, req, k):
+        e = len(req.emitted)
+        out = [int(t) for t in self.streams[req.rid][e:e + k]]
+        i = P9_MISS[1]
+        if req.rid == P9_MISS[0] and len(out) > i:
+            out[i] = (out[i] + 1) % self.vocab
+        return out
+
+    def observe(self, req, n_acc, proposed):
+        self.seen.append((req.rid, n_acc, proposed))
+
+
+def _conserved(cache, what):
+    a = cache.allocator
+    a.check_conservation()
+    check(a.n_free + cache.n_cache_blocks == a.n_usable,
+          f"{what}: {a.n_usable - a.n_free - cache.n_cache_blocks} blocks "
+          "still held after the run")
+
+
+def _p9_run(model, params, prompts, temps, kw, n_new=P4_NEW, draft=None,
+            **ekw):
+    """One engine over the phase's requests (request i: seed i), with the
+    meter on; both allocators must conserve afterwards."""
+    eng = Engine(model, params, draft=draft, **kw, **ekw)
+    with _meter(model, eng) as rec:
+        rids = [eng.submit(p, max_new_tokens=n_new, temperature=t, seed=i)
+                for i, (p, t) in enumerate(zip(prompts, temps))]
+        check(rids == list(range(len(prompts))), f"rids {rids}")
+        out = eng.run()
+        torch.cuda.synchronize()
+    _conserved(eng.cache, "target pool")
+    if isinstance(draft, ModelDraft):
+        _conserved(draft.cache, "draft pool")
+        check(not draft._slots, "draft state left after the run")
+    return dict(eng=eng, out=[out[r] for r in rids], rec=rec,
+                st=eng.stats())
+
+
+def _gap(row, temp, seed, position):
+    """Top-two gap of what a request's sampler ranks at ``position``: the
+    logits, plus T · its Gumbel draw when sampled (categorical takes the
+    argmax of logits / T + g)."""
+    lf = row.float().cpu().numpy()
+    if temp > 0:
+        key = prng.fold_in(prng.prng_key(seed), position)
+        lf = lf + np.float32(temp) * prng.gumbel(key, lf.shape)
+    top = np.sort(lf)[-2:]
+    return float(top[1] - top[0])
+
+
+def _p9_compare(ref, run, prompts, temps, gate=True):
+    """``run``'s streams and committed rows against the vanilla ``ref``:
+    per request, the rows up to the first divergence (their context is the
+    same) within LOGIT_REL_TOL of max |logit| of ref's row; a divergence
+    passes (and is listed) only where ref's top-two gap is below that limit.
+    Returns (worst relative logit error, divergences)."""
+    worst, divs = 0.0, []
+    for i, (p, T) in enumerate(zip(prompts, temps)):
+        a, b = ref["out"][i], run["out"][i]
+        n = min(len(a), len(b))
+        j = next((j for j in range(n) if a[j] != b[j]), n)
+        for jj in range(min(j + 1, len(b))):
+            r = ref["rec"]["logits"][(i, len(p) + jj)].float()
+            g = run["rec"]["logits"][(i, len(p) + jj)].float()
+            worst = max(worst, float((g - r).abs().max() / r.abs().max()))
+        if j < n:
+            r = ref["rec"]["logits"][(i, len(p) + j)]
+            gap = _gap(r, T, i, len(p) + j)
+            lim = LOGIT_REL_TOL * float(r.float().abs().max())
+            divs.append((i, j, gap, lim))
+            check(not gate or gap < lim,
+                  f"request {i} diverges at token {j} ({a[j]} vs {b[j]}) "
+                  f"where the vanilla top-two gap {gap:.4f} is not below "
+                  f"the limit {lim:.4f}")
+        elif gate:
+            check(len(b) == len(a), f"request {i}: {len(b)} tokens, vanilla "
+                  f"{len(a)}")
+    check(not gate or worst <= LOGIT_REL_TOL,
+          f"verify rows vs vanilla decode: {worst} of max |logit| over "
+          f"{LOGIT_REL_TOL}")
+    return worst, divs
+
+
+@contextlib.contextmanager
+def _verify_fault(model, fault):
+    """A deliberately wrong verify while the block runs: ``"rope"`` — the
+    rows rotated at their positions plus one (their K/V still written where
+    they belong); ``"order"`` — kernel B attends before the step's own rows
+    are written (the writes land after it, layer by layer)."""
+    if fault == "rope":
+        verify, rope = model.verify, LY.rope_tables
+
+        def shifted(*a):
+            LY.rope_tables = lambda pos, *r: rope(pos + 1, *r)
+            try:
+                return verify(*a)
+            finally:
+                LY.rope_tables = rope
+        model.verify = shifted
+        try:
+            yield
+        finally:
+            del model.verify
+        return
+    write, attend, pending = TF._paged_write_multi, TF.paged_decode_attn, []
+
+    def attend_first(*a, **kw):
+        o = attend(*a, **kw)
+        for w in pending:
+            write(*w)
+        pending.clear()
+        return o
+    TF._paged_write_multi = lambda *a: pending.append(a)
+    TF.paged_decode_attn = attend_first
+    try:
+        yield
+    finally:
+        TF._paged_write_multi, TF.paged_decode_attn = write, attend
+
+
+def _p9_report(name, r):
+    st, rec = r["st"], r["rec"]
+    n = max(st["decode_steps"], 1)
+    a_t, b_t = (rec["target"][k] / n for k in ("flash_fwd", "paged_decode"))
+    a_d, b_d = (rec["draft"][k] / n for k in ("flash_fwd", "paged_decode"))
+    tok_s = st["decode_tokens"] / st["decode_seconds"]
+    say(f"  {name:<24} {st['decode_tokens']} tokens in {st['decode_steps']} "
+        f"steps ({st['steps']} engine steps): decode {tok_s:.1f} tok/s "
+        f"({st['decode_seconds']:.3f} s, {rec['draft_s']:.3f} s of it in "
+        f"the draft), {st['decode_tokens'] / n:.3f} "
+        f"tokens a step, acceptance {st['spec_acceptance']:.3f} "
+        f"({st['spec_accepted']}/{st['spec_proposed']}, rollbacks "
+        f"{st['spec_rollbacks']}); launches a step: target A {a_t:.1f} B "
+        f"{b_t:.1f}, draft A {a_d:.1f} B {b_d:.1f}")
+    return dict(decode_tok_s=tok_s, draft_s=rec["draft_s"],
+                decode_s=st["decode_seconds"],
+                tokens_per_step=st["decode_tokens"] / n,
+                acceptance=st["spec_acceptance"], steps=st["decode_steps"],
+                target_A=a_t, target_B=b_t, draft_A=a_d, draft_B=b_d)
+
+
+def _p9_trace(model, params, prompts, temps, kw, label, n, **ekw):
+    """torch.profiler over ``n`` speculative steps once every request
+    decodes (after its first verify step, so the draft has caught up)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(model, params, **kw, **ekw)
+    rids = [eng.submit(p, max_new_tokens=P4_NEW, temperature=t, seed=i)
+            for i, (p, t) in enumerate(zip(prompts, temps))]
+    while any(eng.requests[r].state != "decode" for r in rids):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    show_breakdown(label, prof, wall)
+
+
+def speculative(model, params, prompts):
+    """Phase 9: speculative serving of phase 4's llama-7b (weights and
+    prompts) with smollm-360m at full size as the draft: vanilla, depth 0,
+    an oracle draft, n-gram and the draft model, each held to the vanilla
+    run; two planted verify faults; a seeded fault storm, twice."""
+    cfg = model.cfg
+    d_cfg = get_config(P9_DRAFT)
+    d_model = DecoderLM(d_cfg, device=DEV)
+    d_params = d_model.init(seed=P9_DRAFT_SEED)
+    say(f"  draft {d_cfg.name}: {d_cfg.n_layers} layers d_model "
+        f"{d_cfg.d_model} heads {d_cfg.attn.n_heads}/{d_cfg.attn.n_kv_heads}"
+        f"x{d_cfg.attn.head_dim} vocab {d_cfg.vocab} "
+        f"({d_cfg.param_count() / 1e9:.3f} B params, seed "
+        f"{P9_DRAFT_SEED}); target {cfg.name} "
+        f"vocab {cfg.vocab}: draft ids past it are clamped and rejected")
+    kw = dict(P4_ENGINE)
+    kw["n_blocks"] += len(prompts) * -(-P9_DEPTH // kw["block_size"])
+    temps = [0.0] * len(prompts)
+    temps[P9_HOT[0]] = P9_HOT[1]
+    depth = SpecConfig(depth=P9_DEPTH, mode="model", draft_arch=d_cfg.name)
+
+    def draft():
+        return ModelDraft(d_model, d_params, block_size=kw["block_size"],
+                          n_blocks=kw["n_blocks"], max_batch=kw["max_batch"])
+
+    t0 = time.perf_counter()
+    n_shapes = Engine(model, params, **kw).warm_prefill(
+        max(map(len, prompts)) + P4_NEW + P9_DEPTH)
+    _p9_run(model, params, prompts[-1:], temps[-1:], kw, n_new=4,
+            spec=depth, draft=draft())
+    torch.cuda.synchronize()
+    say(f"  warm-up: warm_prefill ran {n_shapes} chunk shapes, then one "
+        f"short model-draft run, in {time.perf_counter() - t0:.1f} s")
+
+    build.reset_launches()
+    runs = {"vanilla": _p9_run(model, params, prompts, temps, kw)}
+    runs["depth 0"] = _p9_run(model, params, prompts, temps, kw,
+                              spec=SpecConfig(depth=0, mode="none"))
+    oracle = OracleDraft([list(o) for o in runs["vanilla"]["out"]],
+                         cfg.vocab)
+    runs["oracle"] = _p9_run(model, params, prompts, temps, kw,
+                             spec=SpecConfig(depth=P9_DEPTH, mode="none"),
+                             draft=oracle)
+    runs["n-gram"] = _p9_run(model, params, prompts, temps, kw,
+                             spec=SpecConfig(depth=P9_DEPTH, mode="ngram"))
+    runs["model draft"] = _p9_run(model, params, prompts, temps, kw,
+                                  spec=depth, draft=draft())
+    launches = dict(build.LAUNCHES)
+    van = runs["vanilla"]
+
+    # depth 0: the same T = 1 shapes, so the same streams and bits
+    d0 = runs["depth 0"]
+    for i in range(len(prompts)):
+        check(np.array_equal(d0["out"][i], van["out"][i]),
+              f"depth 0 request {i}: stream differs from vanilla")
+    check(d0["rec"]["logits"].keys() == van["rec"]["logits"].keys(),
+          "depth 0 computed other positions than vanilla")
+    check(all(torch.equal(x, van["rec"]["logits"][k])
+              for k, x in d0["rec"]["logits"].items()),
+          "depth 0 logits are not vanilla's bit for bit")
+    say(f"  depth 0: streams and all {len(van['rec']['logits'])} rows of "
+        "logits equal vanilla's bit for bit")
+
+    # the oracle: full commits on most steps, a rollback every step of the
+    # request with the planted miss
+    full = [s for s in oracle.seen if s[2] == P9_DEPTH]
+    n_full = sum(a == P9_DEPTH for _, a, _ in full)
+    miss = [a for rid, a, _ in full if rid == P9_MISS[0]]
+    check(2 * n_full > len(full), f"oracle: {n_full} of {len(full)} "
+          f"full-depth steps committed {P9_DEPTH + 1} tokens")
+    check(miss and all(a == P9_MISS[1] for a in miss),
+          f"oracle: the planted miss was not rejected where planted {miss}")
+    say(f"  oracle: {n_full} of {len(full)} full-depth request steps "
+        f"committed {P9_DEPTH + 1} tokens; request {P9_MISS[0]} rolled back "
+        f"at draft {P9_MISS[1]} on each of its {len(miss)} steps")
+
+    say("== phase 9b: where the device time goes in verify steps")
+    _p9_trace(model, params, prompts, temps, kw, "3 oracle verify steps", 3,
+              spec=SpecConfig(depth=P9_DEPTH, mode="none"), draft=oracle)
+    _p9_trace(model, params, prompts, temps, kw, "2 model-draft steps", 2,
+              spec=depth, draft=draft())
+
+    out = {"shapes": n_shapes}
+    for name in ("oracle", "n-gram", "model draft"):
+        worst, divs = _p9_compare(van, runs[name], prompts, temps)
+        say(f"  {name}: committed rows vs vanilla decode max|Δ| {worst:.3e} "
+            f"of max |logit| (limit {LOGIT_REL_TOL}); divergences "
+            + (", ".join(f"request {i} at token {j} (gap {g:.4f} < "
+                         f"{lim:.4f})" for i, j, g, lim in divs) or "none"))
+        out[name] = worst
+    for name, r in runs.items():
+        out[name + " report"] = _p9_report(name, r)
+
+    # the limit must reject two planted faults of the verify pass
+    for fault in ("rope", "order"):
+        with _verify_fault(model, fault):
+            bad = _p9_run(model, params, prompts, temps, kw,
+                          n_new=P9_CTL_NEW,
+                          spec=SpecConfig(depth=P9_DEPTH, mode="none"),
+                          draft=oracle)
+        err, _ = _p9_compare(van, bad, prompts, temps, gate=False)
+        check(err > LOGIT_REL_TOL, f"the logit limit does not reject the "
+              f"planted {fault} fault ({err} of max |logit|)")
+        out[fault] = err
+    say(f"  controls, both rejected by the limit {LOGIT_REL_TOL}: rope "
+        f"positions one off {out['rope']:.4f}, attend before write "
+        f"{out['order']:.4f} of max |logit|")
+
+    # a seeded storm over the n-gram engine, twice
+    calm = runs["n-gram"]
+    storms = [_p9_run(model, params, prompts, temps, kw, audit=True,
+                      spec=SpecConfig(depth=P9_DEPTH, mode="ngram"),
+                      faults=FaultInjector.seeded(**P9_STORM))
+              for _ in range(2)]
+    a, b = (x["eng"] for x in storms)
+    check(a.injector.log == b.injector.log and a.injector.log,
+          "the storm's fault logs differ between the two runs")
+    touched = set()
+    for _, kind, detail in a.injector.log:
+        if kind in ("nan_logits", "corrupt_block") and "rid=" in detail:
+            touched.add(int(detail.split("rid=")[1].split()[0]))
+    divs = []
+    for x in storms:
+        for i, o in enumerate(x["out"]):
+            req = x["eng"].requests[i]
+            check(req.state in TERMINAL_STATES, f"storm: request {i} ended "
+                  f"{req.state}")
+            c = calm["out"][i]
+            if i not in touched and not req.n_preemptions:
+                check(np.array_equal(o, c), f"storm: untouched request {i} "
+                      "differs from its zero-fault stream")
+                continue
+            # a request a fault named, or preempted and prefilled again
+            # (other chunks, other bf16 roundings): a prefix of its
+            # zero-fault stream, or diverging where that run's top-two gap
+            # is below the limit
+            j = next((j for j in range(len(o)) if o[j] != c[j]), len(o))
+            if j < len(o):
+                r = calm["rec"]["logits"][(i, len(prompts[i]) + j)]
+                gap = _gap(r, temps[i], i, len(prompts[i]) + j)
+                lim = LOGIT_REL_TOL * float(r.float().abs().max())
+                check(gap < lim, f"storm: request {i} diverges from its "
+                      f"zero-fault stream at token {j} (gap {gap} >= {lim})")
+                divs.append((i, j, gap))
+    st = a.stats()
+    say(f"  storm {P9_STORM} twice, audited every step: logs equal "
+        f"({len(a.injector.log)} faults: {a.injector.log}); states "
+        f"{[a.status(i) for i in range(len(prompts))]}; quarantined "
+        f"{st['quarantined']} (named by a fault: {sorted(touched)}), "
+        f"retried {st['retried']}, backoff steps {st['backoff_steps']}, "
+        f"storm preemptions {st['storm_preempts']}, audits "
+        f"{st['audit_passes']}, preempted requests "
+        f"{[i for i in range(len(prompts)) if a.requests[i].n_preemptions]};"
+        " streams of untouched requests equal the zero-fault run's, the "
+        "rest are its prefixes; near-tie divergences " + str(divs))
+    out["storm"] = dict(log=a.injector.log, quarantined=st["quarantined"],
+                        touched=sorted(touched))
+
+    # one corrupted block (the seeded storm draws none): its owner's verify
+    # rows past n_write write NaN K/V into the null block, which the plain
+    # paged versions gather (0 · NaN) for every request with a null table
+    # entry (ROADMAP §3); kernel B reads only the pages below each length,
+    # so the card quarantines what it quarantines — counted, not gated
+    bad = _p9_run(model, params, prompts, temps, kw, audit=True,
+                  spec=SpecConfig(depth=P9_DEPTH, mode="ngram"),
+                  faults=FaultInjector([FaultEvent(step=P9_CORRUPT_STEP,
+                                                   kind="corrupt_block")]))
+    e = bad["eng"]
+    (_, _, detail), = e.injector.log
+    victim = int(detail.split("rid=")[1].split()[0])
+    check(e.status(victim) == ("failed", "nan_logits"),
+          f"corrupt_block: its owner {victim} ended {e.status(victim)}")
+    for i, o in enumerate(bad["out"]):
+        check(np.array_equal(o, calm["out"][i][:len(o)]), f"corrupt_block: "
+              f"request {i} is not a prefix of its zero-fault stream")
+    q = e.stats()["quarantined"]
+    say(f"  corrupt_block at step {P9_CORRUPT_STEP} ({detail}): quarantined "
+        f"{q} of {len(prompts)} ({q - 1} beyond the owner); states "
+        f"{[e.status(i) for i in range(len(prompts))]}")
+    out["corrupt_quarantined"] = q
+    out["launches"] = launches
+    del runs, storms, a, b, bad, e, d_model, d_params
+    return out
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -1978,20 +2448,25 @@ def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens):
 def time_paged(launches):
     """Kernel B, L2-cold, at the serving shape (one decode step of the 4
     requests, lengths mid-way through their 32 new tokens, bs 16), at a
-    long-context decode (one 32768-token request) and at the GQA shape of
-    phase 3 (Tq 4, 32 query heads over 8 kv heads)."""
+    long-context decode (one 32768-token request), at the GQA shape of
+    phase 3 (Tq 4, 32 query heads over 8 kv heads), and at phase 9's
+    shapes: the verify pass (Tq 5 on llama-7b's heads) and the draft's
+    decode (smollm-360m: 15 query heads over 5 kv heads of 64)."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     lens = [1016, 716, 529, 80]
     serve = _paged_timing(gen, 4, 1, 32, 32, 128, 16, lens)
     long = _paged_timing(gen, 1, 1, 32, 32, 128, 16, [32768])
     gqa = _paged_timing(gen, 4, 4, 32, 8, 128, 16, lens)
+    verify = _paged_timing(gen, 4, 1 + P9_DEPTH, 32, 32, 128, 16, lens)
+    draft = _paged_timing(gen, 4, 1, 15, 5, 64, 16, lens)
     row = {"name": "paged_decode", "route": "cuda", "design": PAGED_DESIGN,
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/paged.py:182",
            "launches": launches["paged_decode"], "library_ms": None,
            "library_note": PAGED_LIBRARY}
     row.update(serve)
-    for name, r in (("long", long), ("gqa", gqa)):
+    for name, r in (("long", long), ("gqa", gqa), ("verify", verify),
+                    ("draft", draft)):
         row.update({f"{name}_{k}": x for k, x in r.items()})
     return row
 
@@ -2099,6 +2574,15 @@ def main():
     say(f"  launches per decode step: paged_decode "
         f"{res['per_decode_step']:.1f}; per prefill chunk: flash_fwd "
         f"{res['per_chunk']:.1f}")
+    say("== phase 9: speculative serving, llama-7b with a smollm-360m draft")
+    t0 = time.perf_counter()
+    sp = speculative(res.pop("model"), res.pop("params"), res["prompts"])
+    for name, key in (("flash_fwd", "draft_A"), ("paged_decode", "draft_B")):
+        check(sp["launches"][name] > 0, f"kernel {name} was not launched "
+              "on the speculative serving path")
+        check(sp["model draft report"][key] > 0,
+              f"the draft model did not launch {name}")
+    say(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     _free()
 
     say("== phase 6: train at llama-7b width")
@@ -2116,10 +2600,11 @@ def main():
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
-                for k in res["launches"]}
+                + sp["launches"].get(k, 0) for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
-        f"long-context prefill (all ranks) {lg['launches']}")
+        f"long-context prefill (all ranks) {lg['launches']}, speculative "
+        f"serving (runs 1-5) {sp['launches']}")
     rows = [time_flash(launches), time_paged(launches),
             *time_bwd(launches, tr["seen"], errs)]
     rows[0].update(time_flash_train(tr["seen"]))

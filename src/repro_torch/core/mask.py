@@ -277,6 +277,75 @@ def chunk_pair_needed(mask: MaskSpec, q_lo: int, q_hi: int,
     return True
 
 
+# --------------------------------------------------------------------------
+# Speculation-tree masks (serve/speculative.py)
+# --------------------------------------------------------------------------
+#
+# A verify chunk appends a small tree of draft tokens after the committed
+# context: node i attends the whole context and its own ancestors, never a
+# sibling branch.  A chain is plain ``causal``; a star of contiguous linear
+# branches is ``causal ∧ document`` (one document per branch) with
+# ``prefix_len`` spanning the shared context.  Re-branching trees are not
+# expressible as a MaskSpec and are rejected.
+
+def chain_parents(n: int) -> Tuple[int, ...]:
+    """Parent vector of a depth-``n`` chain (node i's parent is i − 1; the
+    root's, −1, is the committed context)."""
+    return tuple(range(-1, n - 1))
+
+
+def tree_ancestor_mask(parents: Tuple[int, ...]) -> np.ndarray:
+    """(K, K) bool: ``m[i, j]`` iff node j is node i or one of its
+    ancestors — the ground truth :func:`tree_spec` must reproduce."""
+    K = len(parents)
+    m = np.zeros((K, K), bool)
+    for i, p in enumerate(parents):
+        m[i, i] = True
+        while p >= 0:
+            m[i, p] = True
+            p = parents[p]
+    return m
+
+
+def _tree_branches(parents: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Branch start indices of a star of contiguous linear branches hanging
+    off the context (parent −1); raises for any other topology."""
+    parents = tuple(int(p) for p in parents)
+    if not parents:
+        raise ValueError("empty speculation tree")
+    starts = []
+    for i, p in enumerate(parents):
+        if p == -1:
+            starts.append(i)
+        elif p != i - 1:
+            raise ValueError(
+                f"node {i} has parent {p}; only chains and stars of "
+                f"contiguous linear branches are MaskSpec-expressible")
+    if starts[0] != 0:
+        raise ValueError("node 0 must hang off the context (parent -1)")
+    return tuple(starts)
+
+
+def tree_spec(parents: Tuple[int, ...], *, prefix_len: int = 0,
+              window: int = 0) -> MaskSpec:
+    """The static MaskSpec of one verify chunk whose draft tokens form the
+    tree ``parents`` (``parents[i]`` is node i's parent, −1 = the committed
+    context).  A chain (and the single node, a vanilla decode step) is
+    ``causal``; a star of ``m > 1`` branches is ``causal ∧ document`` with
+    the branch starts as ``boundaries`` and ``prefix_len`` so that every
+    branch still sees the committed context.  ``window`` carries a
+    sliding-window model's band."""
+    starts = _tree_branches(parents)
+    if len(starts) == 1:
+        return MaskSpec(causal=True, window=int(window))
+    # the context shares segment 0 with the first branch; the other
+    # branches see it through the prefix relaxation
+    return MaskSpec(causal=True, window=int(window),
+                    prefix_len=int(prefix_len), document=True,
+                    boundaries=(0,) + tuple(int(prefix_len) + s
+                                            for s in starts[1:]))
+
+
 def _static_int(x) -> int:
     """A Python int, a numpy integer, or a 0-d integer tensor, as an int."""
     if isinstance(x, torch.Tensor):

@@ -5,6 +5,7 @@ fixed-slot engine over a dense cache that can shard along the sequence.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
         [--prompt-len 128 --gen 16 --batch 4] [--window 64] \
         [--block-size 16 --n-blocks 0] [--temperature 0.8] \
+        [--spec-depth 4 [--self-spec | --draft-config smollm-360m]] \
         [--smoke --device cpu]
 
     # long context: the prompt prefilled across P sequence ranks (the
@@ -25,7 +26,11 @@ split between the data replicas; one that does not folds ``data`` into
 the cache's sequence sharding, as the reference's ``long_500k``.  Every
 rank prints the same tokens; rank 0 reports.  Weights and prompts come
 from seed 0; the paged engine prefills in chunks of ``PREFILL_CHUNK``
-tokens.  Runs on ``cuda`` unless ``--device cpu`` is given.
+tokens.  ``--spec-depth K`` serves speculatively, K draft tokens verified a
+step: ``--self-spec`` drafts by n-gram prompt lookup, otherwise a draft
+model (``--draft-config``, default the pairing of ``configs/spec_pairs.py``)
+with weights from seed ``DRAFT_SEED``.  Runs on ``cuda`` unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.spec_pairs import draft_arch_for
 from repro_torch.core.config import ShapeSpec, get_config, smoke_config
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import MESHES, named_mesh
@@ -47,9 +53,11 @@ from repro_torch.parallel.comm import init_world
 from repro_torch.parallel.sharding import make_parallel_config
 from repro_torch.serve import prng
 from repro_torch.serve.engine import Engine, FixedSlotEngine
+from repro_torch.serve.speculative import ModelDraft, SpecConfig
 
 PREFILL_CHUNK = 256
 SEED = 0
+DRAFT_SEED = 7
 
 
 def _parser():
@@ -70,6 +78,12 @@ def _parser():
     ap.add_argument("--seq-shards", type=int, default=1)
     ap.add_argument("--nproc", type=int, default=1,
                     help="spawn this many ranks (not under torchrun)")
+    ap.add_argument("--spec-depth", type=int, default=0,
+                    help="speculative draft depth (0 = vanilla decode)")
+    ap.add_argument("--self-spec", action="store_true",
+                    help="n-gram prompt-lookup drafts (no draft model)")
+    ap.add_argument("--draft-config", default=None,
+                    help="draft arch id (default: configs/spec_pairs.py)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -80,6 +94,8 @@ def main(argv=None):
             or args.mesh != "local") and not args.fixed_slot:
         raise SystemExit("ranks serve through --fixed-slot (the multi-rank "
                          "paged engine is not ported)")
+    if args.spec_depth and args.fixed_slot:
+        raise SystemExit("--spec-depth serves through the paged engine")
     if args.nproc > 1 and not dist.is_initialized():
         if torch.device(args.device).type == "cuda":
             build.build_all()            # once, before the ranks start
@@ -136,17 +152,26 @@ def run(args) -> int:
                f"{1 if model.decode_group is None else model.decode_group.size}"
                f" transport={mesh.transport}")
     else:
-        blocks_per_req = -(-(args.prompt_len + args.gen) // args.block_size)
+        blocks_per_req = -(-(args.prompt_len + args.gen + args.spec_depth)
+                           // args.block_size)
         n_blocks = args.n_blocks or args.batch * (blocks_per_req + 4) + 2
+        spec, draft = _speculation(args, cfg, n_blocks)
         eng = Engine(model, params, max_batch=args.batch,
                      block_size=args.block_size, n_blocks=n_blocks,
-                     prefill_chunk_tokens=PREFILL_CHUNK)
+                     prefill_chunk_tokens=PREFILL_CHUNK, spec=spec,
+                     draft=draft)
         toks = eng.generate({"tokens": prompts}, args.gen,
                             temperature=args.temperature)
         s = eng.stats()
         how = (f"paged bs={args.block_size} pool={n_blocks} "
                f"steps={s['steps']} preempt={s['n_preemptions']} "
                f"prefill_chunks={s['prefill_chunks']}")
+        if spec is not None:
+            how += (f"; speculative mode={spec.mode} depth={spec.depth} "
+                    f"proposed={s['spec_proposed']} accepted="
+                    f"{s['spec_accepted']} rollbacks={s['spec_rollbacks']} "
+                    f"acceptance={s['spec_acceptance']:.2f} tokens/step="
+                    f"{s['decode_tokens'] / max(s['decode_steps'], 1):.2f}")
     sync()
     dt = time.perf_counter() - t0
     if lead:
@@ -157,6 +182,27 @@ def run(args) -> int:
         print("sampled token ids (first request):",
               [int(t) for t in toks[0][:16]], flush=True)
     return 0
+
+
+def _speculation(args, cfg, n_blocks):
+    """(SpecConfig, draft) for the paged engine, or (None, None)."""
+    if args.spec_depth <= 0:
+        return None, None
+    if args.self_spec:
+        return SpecConfig(depth=args.spec_depth, mode="ngram"), None
+    d_arch = args.draft_config or draft_arch_for(cfg.name)
+    if d_arch is None:
+        raise SystemExit(f"no draft pairing for {cfg.name!r}; pass "
+                         f"--draft-config or --self-spec")
+    d_cfg = get_config(d_arch)
+    if args.smoke:
+        d_cfg = smoke_config(d_cfg)
+    d_model = DecoderLM(d_cfg, device=args.device)
+    draft = ModelDraft(d_model, d_model.init(DRAFT_SEED),
+                       block_size=args.block_size, n_blocks=n_blocks,
+                       max_batch=args.batch)
+    return SpecConfig(depth=args.spec_depth, mode="model",
+                      draft_arch=d_cfg.name), draft
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Dense decoder LM for training and serving (port of the reference
 ``models/transformer.py``: ``DecoderLM.init``, ``loss`` with its dense layer
 stages, ``prefill`` across sequence ranks, ``prefill_chunk``, ``decode`` over
-a paged or a sequence-sharded dense cache, ``_head``, ``_cache_write`` and
-the paged-write helpers).
+a paged or a sequence-sharded dense cache, the speculative ``verify``,
+``_head``, ``_cache_write`` and the paged-write helpers).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -485,39 +485,73 @@ class DecoderLM:
         :meth:`prefill`'s).  Returns logits (B, 1, V); the cache is
         updated in place."""
         a = self.cfg.attn
-        paged = "block_table" in cache
-        if not paged:
-            token, pos = self._rows(token), self._rows(pos)
+        if "block_table" in cache:
+            bt = cache["block_table"]
+            return self._paged_layers(
+                p, cache, token, pos[:, None],
+                lambda pool, new: _paged_write(pool, new, bt, pos))
+        token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
         cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
         spec = decode_mask(a.window)
-        if paged:
-            bt = cache["block_table"]
-            lengths = (pos + 1).to(torch.int32)
         for li, lp in enumerate(p["layers"]):
-            if paged:
-                kp, vp = cache["k_pool"][li], cache["v_pool"][li]
+            ck, cv = cache["k"][li], cache["v"][li]
 
-                def attend(q, k, v, kp=kp, vp=vp):
-                    _paged_write(kp, k, bt, pos)
-                    _paged_write(vp, v, bt, pos)
-                    return paged_decode_attn(q, kp, vp, bt, lengths,
-                                             mask=spec)
-            else:
-                ck, cv = cache["k"][li], cache["v"][li]
-
-                def attend(q, k, v, ck=ck, cv=cv):
-                    o = dist_decode_attn(q, ck, cv, k, v,
-                                         group=self.decode_group, mask=spec,
-                                         pos=pos)
-                    _cache_write(ck, k, pos, self.decode_group)
-                    _cache_write(cv, v, pos, self.decode_group)
-                    return o
+            def attend(q, k, v, ck=ck, cv=cv):
+                o = dist_decode_attn(q, ck, cv, k, v,
+                                     group=self.decode_group, mask=spec,
+                                     pos=pos)
+                _cache_write(ck, k, pos, self.decode_group)
+                _cache_write(cv, v, pos, self.decode_group)
+                return o
 
             h = self._layer(lp, h, attend, cos, sin)
-        logits = self._head(p, h)
-        return logits if paged else self._all_rows(logits)
+        return self._all_rows(self._head(p, h))
+
+    @torch.no_grad()
+    def verify(self, p, cache, tokens, pos, n_write):
+        """Speculative verification over a paged view: ``tokens`` (B, T),
+        row t of request b at context position ``pos[b] + t`` (row 0 the
+        pending token, rows 1.. draft proposals).  Per layer all T rows'
+        K/V are written, then kernel B attends at ``lengths = pos + T``;
+        only the first ``n_write[b]`` rows go to real blocks, the rest to
+        the null block 0.  Token ids past the vocabulary (a draft with a
+        wider one) read the last embedding row, as the reference's gather
+        clamps.  With T = 1 and ``n_write = 1`` this is :meth:`decode`.
+        Returns logits (B, T, V); the pools are updated in place."""
+        bt = cache["block_table"]
+        tokens = tokens.clamp(0, self.cfg.vocab - 1)
+        rows = (pos.long()[:, None]
+                + torch.arange(tokens.shape[1], device=pos.device))
+        return self._paged_layers(
+            p, cache, tokens, rows,
+            lambda pool, new: _paged_write_multi(pool, new, bt, pos,
+                                                 n_write))
+
+    def _paged_layers(self, p, cache, tokens, rows, write):
+        """The layers over a paged view for ``tokens`` (B, T) at context
+        positions ``rows`` (B, T): per layer ``write(pool, new)`` stores the
+        rows' K/V, then kernel B attends through the block table at
+        ``lengths = rows[:, -1] + 1``.  Returns logits (B, T, V)."""
+        a = self.cfg.attn
+        B, T = tokens.shape
+        h = L.embed(p["embed"], tokens, self.dtype)
+        cos, sin = L.rope_tables(rows.reshape(-1), a.head_dim, a.rope_theta)
+        cos, sin = cos.reshape(B, T, -1), sin.reshape(B, T, -1)
+        spec = decode_mask(a.window)
+        bt = cache["block_table"]
+        lengths = (rows[:, -1] + 1).to(torch.int32)
+        for li, lp in enumerate(p["layers"]):
+            kp, vp = cache["k_pool"][li], cache["v_pool"][li]
+
+            def attend(q, k, v, kp=kp, vp=vp):
+                write(kp, k)
+                write(vp, v)
+                return paged_decode_attn(q, kp, vp, bt, lengths, mask=spec)
+
+            h = self._layer(lp, h, attend, cos, sin)
+        return self._head(p, h)
 
 
 # --------------------------------------------------------------------------
@@ -534,6 +568,19 @@ def _paged_write(pool, new, block_table, pos):
     bidx = block_table.long().gather(1, (pos // bs)[:, None])[:, 0]
     pool.index_put_((bidx, pos % bs), new[:, 0].to(pool.dtype))
 
+
+def _paged_write_multi(pool, new, block_table, pos, n_write):
+    """Write ``new`` (B, T, ...) into ``pool``: row t of request b holds
+    context position ``pos_b + t``; rows with ``t >= n_write_b`` (draft
+    slack, idle rows with ``n_write = 0``) go to the null block 0."""
+    bs, nb = pool.shape[1], block_table.shape[1]
+    t = torch.arange(new.shape[1], device=pool.device)
+    idx = pos.long()[:, None] + t[None, :]                        # (B, T)
+    col = torch.clamp(idx // bs, 0, nb - 1)
+    bidx = block_table.long().gather(1, col)
+    bidx = torch.where(t[None, :] < n_write.long()[:, None], bidx,
+                       torch.zeros_like(bidx))
+    pool.index_put_((bidx, idx % bs), new.to(pool.dtype))
 
 def _cache_write(cache, new, pos, group=None):
     """Write ``new`` (B, 1, ...) into this rank's shard ``cache``

@@ -579,6 +579,13 @@ class PagedKVCache:
             self.counters["dedup_swaps"] += 1
 
     # ------------------------------------------------- fault / audit hooks
+    def corrupt_block(self, b: int) -> None:
+        """Fill block ``b`` with NaN in every layer pool (fault injection:
+        the request that attends it sees NaN logits and is quarantined)."""
+        self._check_block_local("a corruption")
+        for pool in self.pools.values():
+            pool[:, b] = float("nan")
+
     def scrub_slot(self, slot: int, rid: int) -> int:
         """Zero every block of ``slot`` that ``rid`` owns exclusively —
         quarantine hygiene: poisoned content must never survive into the

@@ -64,6 +64,9 @@ FLASH = [
     (1, 64, 200, 4, 4, 32, mk.MaskSpec(q_offset=10, kv_offset=3), False),
     (1, 128, 128, 2, 2, 128, mk.causal(rel_offset=-64), False),
     (1, 64, 96, 4, 4, 128, mk.full(), False),
+    # a speculative draft's catch-up chunk: smollm-360m's 15 heads over 5
+    # kv heads of 64, 32 rows against the gathered table
+    (1, 32, 1056, 15, 5, 64, mk.causal(rel_offset=1000), False),
 ]
 # bf16: the tensor-core route is held element by element too (3e-2 of each
 # output, chip_smoke.py's rel_err); pruned and dense sweeps do the same
@@ -194,6 +197,12 @@ PAGED = [
     (4, 1, 4, 4, 32, 64, [511, 512, 513, 1024], 0, torch.float32),
     (2, 3, 4, 2, 64, 8, [256, 700], 40, torch.float32),
     (2, 2, 4, 4, 128, 16, [129, 300], 0, torch.float32),
+    # speculative decoding: the verify pass at llama-7b's heads (Tq = depth
+    # + 1 = 5), and smollm-360m's draft (g = 3, D 64) at Tq 1 and Tq 5
+    # (g·Tq = 15 rows a block)
+    (4, 5, 32, 32, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 1, 15, 5, 64, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 5, 15, 5, 64, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
 ]
 
 
@@ -329,6 +338,29 @@ def test_engine_on_card_matches_cpu(dev):
     assert build.LAUNCHES["paged_decode"] > 0
     out_c = Engine(cpu, params, **kw).generate({"tokens": prompts}, 8)
     np.testing.assert_array_equal(out_d, out_c)
+
+
+def test_depth0_spec_engine_on_card_equals_vanilla(dev):
+    """Smoke llama-7b in bf16 on the card: the depth-0 speculative engine
+    (verify at T = 1 through kernel B) emits the vanilla engine's streams,
+    greedy and sampled."""
+    from repro_torch.serve.speculative import SpecConfig
+    cfg = smoke_config(get_config("llama-7b")).replace(dtype="bfloat16")
+    model = DecoderLM(cfg, device=dev)
+    params = model.init(0)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 40))
+    kw = dict(max_batch=4, block_size=16, n_blocks=32,
+              prefill_chunk_tokens=16)
+    outs = []
+    for spec in (None, SpecConfig(depth=0, mode="none")):
+        for temp in (0.0, 0.8):
+            n0 = build.LAUNCHES["paged_decode"]
+            eng = Engine(model, params, spec=spec, **kw)
+            outs.append(eng.generate({"tokens": prompts}, 8,
+                                     temperature=temp))
+            assert build.LAUNCHES["paged_decode"] > n0
+    np.testing.assert_array_equal(outs[2], outs[0])
+    np.testing.assert_array_equal(outs[3], outs[1])
 
 
 def test_training_steps_on_card_match_cpu(dev):

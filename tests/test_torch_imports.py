@@ -77,5 +77,7 @@ def test_port_covers_the_slice_layout():
                 "launch/train.py", "core/schedule.py", "parallel/comm.py",
                 "parallel/sharding.py", "launch/mesh.py", "launch/world.py",
                 "serve/prng.py", "configs/llama_16h.py",
-                "configs/llama_33h.py", "io/checkpoint.py"):
+                "configs/llama_33h.py", "io/checkpoint.py",
+                "serve/speculative.py", "configs/smollm_360m.py",
+                "configs/spec_pairs.py"):
         assert (PORT / rel).is_file(), rel

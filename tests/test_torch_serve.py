@@ -184,18 +184,31 @@ def test_sampled_streams_are_batch_and_preemption_invariant():
 
 def test_paged_engine_logits_match_plain_forward():
     """The engine's last decode logits equal a plain whole-context forward
-    of the same port model (the check the GPU smoke makes at full size)."""
+    of the same port model (the check the GPU smoke makes at full size).
+    The logits are recorded by a wrapper of ``model.decode``: each decode
+    row's logits under the request that holds its slot."""
     model = DecoderLM(smoke_config(get_config("llama-7b")), device="cpu")
     params = model.init(3)
     prompts = _mixed_prompts(model.cfg.vocab)
     eng = Engine(model, params, max_batch=4, block_size=8, n_blocks=64,
-                 prefill_chunk_tokens=16, record_logits=True)
+                 prefill_chunk_tokens=16)
+    last = {}
+    decode = model.decode
+
+    def recording(p, cache, token, pos):
+        logits = decode(p, cache, token, pos)
+        for slot, r in eng.sched.running.items():
+            if r.state == "decode":
+                last[r.rid] = logits[slot, -1].float()
+        return logits
+
+    model.decode = recording
     rids = [eng.submit(p, max_new_tokens=5) for p in prompts]
     out = eng.run()
     for rid, p in zip(rids, prompts):
         ctx = np.concatenate([p, out[rid][:-1]])[None]
         ref = model.forward(params, torch.from_numpy(ctx), last_only=True)
-        np.testing.assert_allclose(eng.last_logits[rid].numpy(),
+        np.testing.assert_allclose(last[rid].numpy(),
                                    ref[0, -1].float().numpy(),
                                    atol=LOGIT_TOL, rtol=LOGIT_TOL)
         assert int(ref[0, -1].argmax()) == int(out[rid][-1])
