@@ -28,7 +28,10 @@ Phases, each fatal on failure (nothing is caught):
                 window across a split boundary and Tq 4 rows that are dead
                 in some splits, each launch counted once; and bitwise: a
                 request alone, in a batch of 4 and under a permuted block
-                table gives the same o, and so do two launches.
+                table gives the same o, and so do two launches.  The Qwen
+                family's head pairs (32, 8), (40, 8) and (40, 40) × 128 in
+                both dtypes: A at the serving chunk, B at the serving step
+                and at verify Tq 5 (group 5: 25 rows, two 16-row groups).
   3c. plans   — kernels A, C and D under every distinct mask the plan
                 steps give them: every active Work item of balanced, ring
                 and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
@@ -140,6 +143,37 @@ Phases, each fatal on failure (nothing is caught):
                 shifts and reductions (``Comm``'s timers), peak memory.
                 Any rank's failure, or the world still running after 900
                 s, is fatal.
+  10. qwen    — qwen3-8b (GQA group 4, qk-norm), qwen2.5-14b (group 5,
+                q/k/v bias) and qwen1.5-32b (40 heads, q/k/v bias) at full
+                size, one at a time (bf16, seed-10 weights made on the
+                card, biases moved off zero and qk-norm weights off one):
+                the depth is cut only if the weights, the pool and one
+                float32 leaf do not fit the free memory (printed).  Phase
+                4's engine and prompts, 32 greedy tokens each; the last
+                logits of the longest request within phase 4's limit of a
+                plain forward, which must reject the model with its
+                feature left out (bias dropped, qk-norm skipped) and phase
+                4's two controls; qwen3-8b also serves with n-gram drafts
+                at depth 4 (B at Tq 5 × group 4), its streams vanilla's but
+                at near-ties.  Prefill and decode tokens/s, launches of A
+                and B, peak memory per model.
+  11. mesh    — the paged engine across a gloo world of 4 processes sharing
+                the card (``gloo-staged``), each rank running the same
+                engine in lockstep over a sharded pool: (a) qwen3-8b's
+                width at depth 8 (8 kv heads: head-parallel), (b)
+                smollm-360m at full size (5 kv heads: block-sharded), with
+                request 3 sharing request 0's first 37 tokens (a prefix
+                hit whose partial block forks on write) and, in (b), one
+                corrupted block at step 10.  Every rank's streams, fault
+                log and terminal states equal the one-process ``Engine``'s
+                on the same weights; the ranks' logits agree bit for bit;
+                rank 0's are held to the one-process run's at phase 4's
+                limit, which must reject a run whose all-gathers take
+                zeros for rank 1's part; in (b) the corrupted block
+                quarantines its owner only.  Decode-step ms per rank, host
+                seconds in all-gathers and broadcasts (``Comm`` timers).
+                Any rank's failure, or the world still running after 900 s,
+                is fatal.
   5. times    — each kernel at the shapes of its path (C and D on the
                 inputs kept in phase 6): its time (CUDA events, median
                 after warm-up), its plain version's at the same shape, a
@@ -148,9 +182,12 @@ Phases, each fatal on failure (nothing is caught):
                 least time the card could take.  Kernel A also at the
                 training shape (its layer-1 inputs, T 8192, causal), beside
                 its bound, its plain version and SDPA's causal forward
-                (``train_*`` keys).  Kernel B with a cold L2 (launches
-                rotate over 4 distinct pool pairs) at the serving step, a
-                32768-token decode (``long_*``) and GQA Tq 4 (``gqa_*``):
+                (``train_*`` keys), and at the serving chunk of each
+                Qwen head pair (``qwen_*`` keys).  Kernel B with a cold L2
+                (launches rotate over 4 distinct pool pairs) at the serving
+                step, a 32768-token decode (``long_*``), GQA Tq 4
+                (``gqa_*``) and the Qwen head pairs at Tq 1 and 5
+                (``qwen_*``):
                 its device time (torch.profiler), the wrapper's (CUDA
                 events) and the host time of one call (1000 calls).
 
@@ -352,6 +389,10 @@ def _paged_case(gen, name, B, Tq, Hq, Hkv, D, bs, lengths, window, dtype):
     say(f"  B {name:<28} {str(dtype)[6:]:<9} max|Δo| {err:.3e}  tol {tol}")
 
 
+# (query heads, kv heads) of qwen3-8b, qwen2.5-14b and qwen1.5-32b (× 128)
+QWEN_HEADS = ((32, 8), (40, 8), (40, 40))
+
+
 def kernel_checks():
     gen = torch.Generator(device=DEV).manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
@@ -382,6 +423,11 @@ def kernel_checks():
         # query heads over 5 kv heads of 64, the gathered table behind
         _flash_case(gen, "draft chunk h15/5 d64", 1, 32, 1056, 15, 5, 64,
                     dt, mk.causal(rel_offset=1000))
+        # the Qwen family's serving chunk (phase 10): qwen3-8b's GQA group
+        # 4, qwen2.5-14b's group 5, qwen1.5-32b's 40 heads of group 1
+        for hq, hkv in QWEN_HEADS:
+            _flash_case(gen, f"qwen chunk h{hq}/{hkv}", 1, 256, 1024, hq,
+                        hkv, 128, dt, mk.causal(rel_offset=768))
         # pruned == dense sweep
         q, k, v = (randn(gen, (1, 256, 4, 64), dt) for _ in range(3))
         m = mk.sliding_window(70)
@@ -414,6 +460,13 @@ def kernel_checks():
     _paged_case(gen, "verify Tq5", 4, 5, 32, 32, 128, 16, lens, 0, bf)
     _paged_case(gen, "draft g3 d64 Tq1", 4, 1, 15, 5, 64, 16, lens, 0, bf)
     _paged_case(gen, "draft g3 d64 Tq5", 4, 5, 15, 5, 64, 16, lens, 0, bf)
+    # the Qwen family (phase 10) at the serving step and at verify Tq 5:
+    # group 5 at Tq 5 is 25 rows, two of the kernel's 16-row groups
+    for dt in (f32, bf):
+        for hq, hkv in QWEN_HEADS:
+            for tq in (1, 1 + P9_DEPTH):
+                _paged_case(gen, f"qwen h{hq}/{hkv} Tq{tq}", 4, tq, hq, hkv,
+                            128, 16, lens, 0, dt)
     # the split-KV design: L_s = 256 tokens at bf16 D 128 (bs 16), 512 at
     # float32 D 32 (bs 64); lengths at the split edges L_s - 1, L_s,
     # L_s + 1, 2 L_s
@@ -2004,20 +2057,28 @@ def _verify_fault(model, fault):
         finally:
             del model.verify
         return
-    write, attend, pending = TF._paged_write_multi, TF.paged_decode_attn, []
+    scatter, attend, pending = TF._scatter, TF.paged_decode_attn, []
+    verify = model.verify
 
     def attend_first(*a, **kw):
         o = attend(*a, **kw)
         for w in pending:
-            write(*w)
+            scatter(*w)
         pending.clear()
         return o
-    TF._paged_write_multi = lambda *a: pending.append(a)
-    TF.paged_decode_attn = attend_first
+
+    def faulty(*a):
+        TF._scatter = lambda *w: pending.append(w)
+        TF.paged_decode_attn = attend_first
+        try:
+            return verify(*a)
+        finally:
+            TF._scatter, TF.paged_decode_attn = scatter, attend
+    model.verify = faulty
     try:
         yield
     finally:
-        TF._paged_write_multi, TF.paged_decode_attn = write, attend
+        del model.verify
 
 
 def _p9_report(name, r):
@@ -2247,6 +2308,404 @@ def speculative(model, params, prompts):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+
+P10_ARCHS = ("qwen3-8b", "qwen2.5-14b", "qwen1.5-32b")
+P10_SEED = 10
+P10_WARM = 64           # the warm-up request's prompt
+P10_MARGIN = 4 << 30    # device bytes kept free beyond the weights and pool
+
+
+def _perturb(params, seed):
+    """Move the q/k/v biases off zero (N(0, 0.1²)) and the qk-norm weights
+    off one (U[0.5, 1.5)), in place, from a seeded generator on the card:
+    the init's zeros and ones would serve the same logits with the feature
+    left out.  Larger values make the random bf16 model degenerate: biases
+    of N(0, 0.5²) add one vector to every position's residual in every
+    layer, until the logits barely depend on the token (phase 4's
+    off-by-one control is no longer rejected); qk-norm weights of U[0.5, 3)
+    sharpen attention until bf16 rounding moves the logits by 20%."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for lp in params["layers"]:
+        for name, t in lp["attn"].items():
+            if name in ("bq", "bk", "bv"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen,
+                                          device=DEV))
+            elif name in ("q_norm", "k_norm"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen,
+                                         device=DEV))
+
+
+def _without_feature(cfg):
+    """The config with its Qwen feature left out (phase 10's control)."""
+    a = cfg.attn
+    feat = "qk_norm" if a.qk_norm else "qkv_bias"
+    return feat, cfg.replace(attn=dataclasses.replace(a, **{feat: False}))
+
+
+def _fit_depth(cfg, n_blocks, block_size):
+    """The config at the largest depth (at most its own) whose bf16
+    weights, one float32 temporary of its largest leaf, its pool of
+    ``n_blocks`` and P10_MARGIN fit in the card's free memory."""
+    a = cfg.attn
+    free, _ = torch.cuda.mem_get_info()
+    per_layer = 2 * (cfg.d_model * (a.n_heads + 2 * a.n_kv_heads)
+                     * a.head_dim + a.n_heads * a.head_dim * cfg.d_model
+                     + 3 * cfg.d_model * cfg.d_ff) \
+        + 2 * 2 * n_blocks * block_size * a.n_kv_heads * a.head_dim
+    fixed = 2 * cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2) \
+        + 4 * cfg.vocab * cfg.d_model + P10_MARGIN
+    depth = min(cfg.n_layers, int((free - fixed) // per_layer))
+    check(depth > 0, f"{cfg.name}: not one layer fits in {free} free bytes")
+    need = fixed - P10_MARGIN + cfg.n_layers * per_layer
+    say(f"  {cfg.name}: {free / 2**30:.2f} GiB free on the card; weights "
+        f"and pool {need / 2**30:.2f} GiB at full depth {cfg.n_layers} "
+        f"(float32 temporary of the "
+        f"embedding included): "
+        + ("fits" if depth == cfg.n_layers else f"depth cut to {depth}"))
+    return cfg.replace(n_layers=depth)
+
+
+def _qwen_one(arch, prompts_for):
+    """One Qwen model at full width: phase 4's engine and prompts, its
+    logits against a plain forward, the feature and phase 4's controls;
+    qwen3-8b also serves speculatively (n-gram, depth 4)."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _fit_depth(get_config(arch), P4_ENGINE["n_blocks"] + 4
+                     * -(-P9_DEPTH // P4_ENGINE["block_size"]),
+                     P4_ENGINE["block_size"])
+    model = DecoderLM(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(seed=P10_SEED)
+    _perturb(params, P10_SEED)
+    torch.cuda.synchronize()
+    a = cfg.attn
+    say(f"  {cfg.name} ({cfg.citation}): {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} heads {a.n_heads}/{a.n_kv_heads}x{a.head_dim} "
+        f"(group {a.n_heads // a.n_kv_heads}) d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab} qkv_bias {a.qkv_bias} qk_norm {a.qk_norm} "
+        f"rope_theta {a.rope_theta:g}, bf16, "
+        f"{cfg.param_count() / 1e9:.2f} B params, seed {P10_SEED} with "
+        f"perturbed biases / norms, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    prompts = prompts_for(cfg.vocab)
+    warm = Engine(model, params, **P4_ENGINE)
+    warm.submit(prompts[3][:P10_WARM], max_new_tokens=2)
+    warm.run()
+    del warm
+    temps = [0.0] * len(prompts)
+    build.reset_launches()
+    van = _p9_run(model, params, prompts, temps, P4_ENGINE, n_new=P4_NEW)
+    launches = dict(build.LAUNCHES)
+    st = van["st"]
+    for name in ("flash_fwd", "paged_decode"):
+        check(launches[name] > 0, f"{cfg.name}: kernel {name} was not "
+              "launched")
+    for i, o in enumerate(van["out"]):
+        check(len(o) == P4_NEW and bool(((o >= 0) & (o < cfg.vocab)).all()),
+              f"{cfg.name} request {i}: {o}")
+    pf, dc = st["prefill_seconds"], st["decode_seconds"]
+    res = dict(name=cfg.name, layers=cfg.n_layers, launches=launches,
+               prefill_tok_s=st["prefill_tokens"] / pf,
+               decode_tok_s=st["decode_tokens"] / dc,
+               decode_ms=1e3 * dc / st["decode_steps"])
+    say(f"  served {len(prompts)} requests ({P4_NEW} greedy tokens each): "
+        f"prefill {res['prefill_tok_s']:.1f} tok/s ({pf:.3f} s), decode "
+        f"{res['decode_tok_s']:.1f} tok/s ({res['decode_ms']:.2f} ms a "
+        f"step); launches A {launches['flash_fwd']}, B "
+        f"{launches['paged_decode']}")
+    # the longest request's last decode logits against a plain forward
+    ctx = torch.from_numpy(np.concatenate([prompts[0], van["out"][0][:-1]])
+                           [None]).to(DEV)
+    ref = model.forward(params, ctx, last_only=True)[0, -1].float()
+    got = van["rec"]["logits"][(0, ctx.shape[1])].float()
+    scale = float(ref.abs().max())
+    d = float((got - ref).abs().max())
+    lim = LOGIT_REL_TOL * scale
+    check(bool(torch.isfinite(got).all()) and d <= lim,
+          f"{cfg.name}: served logits vs plain forward max|Δ| {d} > {lim}")
+    feat, bare_cfg = _without_feature(cfg)
+    bare = DecoderLM(bare_cfg, device=DEV).forward(
+        params, ctx, last_only=True)[0, -1].float()
+    d_feat = float((bare - ref).abs().max())
+    check(d_feat > lim, f"{cfg.name}: the logit limit {lim} does not "
+          f"reject the model without {feat} (max|Δ| {d_feat})")
+    say(f"  last logits of the {len(prompts[0])}-token request vs plain "
+        f"forward: max|Δ| {d:.4f} (max|logit| {scale:.3f}, limit "
+        f"{lim:.4f}); without {feat}: max|Δ| {d_feat:.4f}, rejected")
+    logit_controls(model, params, ctx, ref, lim)
+    res.update(err=d / scale, feat=feat, feat_err=d_feat / scale)
+    if a.qk_norm:
+        kw = dict(P4_ENGINE)
+        kw["n_blocks"] += len(prompts) * -(-P9_DEPTH // kw["block_size"])
+        van2 = _p9_run(model, params, prompts, temps, kw, n_new=P4_NEW)
+        n0 = dict(build.LAUNCHES)
+        ng = _p9_run(model, params, prompts, temps, kw, n_new=P4_NEW,
+                     spec=SpecConfig(depth=P9_DEPTH, mode="ngram"))
+        worst, divs = _p9_compare(van2, ng, prompts, temps)
+        sst = ng["st"]
+        spec_b = build.LAUNCHES["paged_decode"] - n0["paged_decode"]
+        res.update(spec_err=worst, spec_divs=len(divs),
+                   spec_tok_s=sst["decode_tokens"] / sst["decode_seconds"],
+                   spec_acceptance=sst["spec_acceptance"], spec_B=spec_b)
+        say(f"  n-gram depth {P9_DEPTH} (B at Tq {1 + P9_DEPTH} x group "
+            f"{a.n_heads // a.n_kv_heads}): streams equal vanilla's but at "
+            f"near-ties ({len(divs)} divergences), committed rows max|Δ| "
+            f"{worst:.3e} of max |logit|, decode {res['spec_tok_s']:.1f} "
+            f"tok/s, acceptance {sst['spec_acceptance']:.3f}, "
+            f"{sst['decode_tokens'] / sst['decode_steps']:.3f} tokens a "
+            f"step, B launches {spec_b}")
+        for name in launches:
+            launches[name] = build.LAUNCHES[name]
+        del van2, ng
+    res["peak"] = torch.cuda.max_memory_allocated()
+    say(f"  peak {res['peak'] / 2**30:.2f} GiB allocated "
+        f"({torch.cuda.max_memory_reserved() / 2**30:.2f} reserved)")
+    del van
+    _free()
+    trace(model, params, prompts)
+    del model, params
+    _free()
+    return res
+
+
+def qwen():
+    """Phase 10: qwen3-8b, qwen2.5-14b and qwen1.5-32b at full size, one at
+    a time, through phase 4's engine and prompts."""
+    def prompts_for(vocab):
+        rng = np.random.default_rng(0)
+        return [rng.integers(0, vocab, n).astype(np.int32) for n in P4_LENS]
+    rows = []
+    for arch in P10_ARCHS:
+        t0 = time.perf_counter()
+        rows.append(_qwen_one(arch, prompts_for))
+        say(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for r in rows:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return dict(rows=rows, launches=launches)
+
+
+# ---------------------------------------------------------------- phase 11
+
+P11_RANKS = 4
+P11_TIMEOUT = 900
+P11_SEED = 11
+# (name, arch, depth or None for the config's own, pool sharding, step of
+# a corrupt_block fault or None)
+P11_CASES = (("a", "qwen3-8b", 8, "heads", None),
+             ("b", "smollm-360m", None, "blocks", 10))
+P11_SHARE = 37          # request 3 shares request 0's first 37 tokens
+P11_STAGGER = 2         # steps before request 3 arrives
+P11_CTL_NEW = 6
+
+
+def _p11_model(arch, depth, mesh):
+    cfg = get_config(arch)
+    if depth:
+        cfg = cfg.replace(n_layers=depth)
+    par = None if mesh is None else make_parallel_config(
+        mesh, ShapeSpec("chip11", 1024, P4_ENGINE["max_batch"], "prefill"))
+    model = DecoderLM(cfg, DEV, par=par, mesh=mesh)
+    params = model.init(seed=P11_SEED)
+    _perturb(params, P11_SEED)
+    return model, params
+
+
+def _p11_prompts(vocab):
+    """Phase 4's lengths; request 3 (64 tokens) shares request 0's first
+    two blocks and five tokens of its third (a partial prefix hit, forked
+    on write)."""
+    rng = np.random.default_rng(11)
+    p = [rng.integers(0, vocab, n).astype(np.int32) for n in P4_LENS]
+    p[3] = np.concatenate([p[0][:P11_SHARE], p[3][P11_SHARE:]])
+    return p
+
+
+def _p11_run(model, params, corrupt, n_new=None):
+    """Phase 11's run: requests 0-2, P11_STAGGER steps, request 3, to the
+    end, the meter on; returns streams, rows, stats and the fault log."""
+    n_new = n_new or P4_NEW
+    inj = FaultInjector([] if corrupt is None else [
+        FaultEvent(step=corrupt, kind="corrupt_block")])
+    eng = Engine(model, params, faults=inj, audit=True, **P4_ENGINE)
+    prompts = _p11_prompts(model.cfg.vocab)
+    times = []
+    with _meter(model, eng) as rec:
+        rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts[:3]]
+        for _ in range(P11_STAGGER):
+            eng.step()
+        rids.append(eng.submit(prompts[3], max_new_tokens=n_new))
+        while not eng.sched.idle:
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), eng.counters["prefill_chunks"]
+            ev = eng.step()
+            torch.cuda.synchronize()
+            if ev and eng.counters["prefill_chunks"] == c0:  # decode only
+                times.append(time.perf_counter() - t0)
+        eng.release_faults()
+    _conserved(eng.cache, "phase 11 pool")
+    st = eng.stats()
+    return dict(eng=eng, out=[np.asarray(eng.requests[r].emitted)
+                              for r in rids], rec=rec, st=st,
+                log=list(inj.log), prompts=prompts, step_s=times,
+                states=[eng.status(r) for r in rids])
+
+
+def _shard_fault(group):
+    """The planted fault of phase 11: every all-gather over the pool's
+    group takes zeros for group rank 1's part (its kv heads' outputs, or
+    its blocks)."""
+    gather = group.all_gather
+
+    def faulty(x, dim):
+        return gather(torch.zeros_like(x) if group.rank == 1 else x, dim)
+    group.all_gather = faulty
+    return lambda: delattr(group, "all_gather")
+
+
+def _host_rows(rec):
+    return {k: v.float().cpu() for k, v in rec["logits"].items()}
+
+
+def _sums(rows):
+    """Each row's float64 sum of its finite logits and its count of NaN
+    (a quarantined row's): what the ranks must agree on bit for bit."""
+    return {k: (float(v.double().nan_to_num(nan=0.0).sum()),
+                int(v.isnan().sum())) for k, v in rows.items()}
+
+
+def _same_rows(a, b):
+    """Two {key: row} dicts hold the same keys and bits (NaN equal NaN)."""
+    return a.keys() == b.keys() and all(
+        torch.equal(v.nan_to_num(nan=0.0), b[k].nan_to_num(nan=0.0))
+        and torch.equal(v.isnan(), b[k].isnan()) for k, v in a.items())
+
+
+def _p11_rank(rank):
+    """One rank of phase 11's world: each case's run, then a short run under
+    the planted fault."""
+    mesh = make_local_mesh(seq=P11_RANKS, device=DEV)
+    out = {"rank": mesh.coord("model"), "transport": mesh.transport}
+    for name, arch, depth, _, corrupt in P11_CASES:
+        model, params = _p11_model(arch, depth, mesh)
+        grp = mesh.comms["model"]
+        _p11_run(model, params, None, n_new=2)           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r0 = grp.reduce_s + grp.gather_s
+        build.reset_launches()
+        t0 = time.perf_counter()
+        r = _p11_run(model, params, corrupt)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        gather_s = grp.reduce_s + grp.gather_s - r0
+        peak = torch.cuda.max_memory_allocated()
+        undo = _shard_fault(grp)
+        bad = _p11_run(model, params, None, n_new=P11_CTL_NEW)
+        undo()
+        rows = _host_rows(r["rec"])
+        out[name] = dict(
+            sharding=r["eng"].cache.sharding,
+            local=tuple(r["eng"].cache.pools["k_pool"].shape),
+            out=r["out"], log=r["log"], states=r["states"],
+            forks=r["st"]["forks"], quarantined=r["st"]["quarantined"],
+            sums=_sums(rows),
+            rows=rows if out["rank"] == 0 else None,
+            bad=dict(out=bad["out"], rows=_host_rows(bad["rec"]))
+            if out["rank"] == 0 else None,
+            launches=launches, wall=wall, step_ms=[1e3 * t for t in
+                                                   r["step_s"]],
+            gather_s=gather_s, peak=peak)
+        del model, params, r, bad
+        _free()
+    return out
+
+
+def mesh_engine():
+    """Phase 11: a gloo world of 4 ranks sharing the card runs the paged
+    Engine over sharded pools (qwen3-8b's width at depth 8, head-parallel;
+    smollm-360m, block-sharded, with a fork and a corrupted block), held to
+    the one-process Engine on the same weights in this process."""
+    t0 = time.perf_counter()
+    res = spawn(_p11_rank, P11_RANKS, (), device=DEV, timeout=P11_TIMEOUT,
+                threads=2)
+    wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    launches = {}
+    out = {}
+    for name, arch, depth, sharding, corrupt in P11_CASES:
+        ranks = [r[name] for r in res]
+        model, params = _p11_model(arch, depth, None)
+        _p11_run(model, params, None, n_new=2)           # warm-up
+        one = _p11_run(model, params, corrupt)
+        cfg = model.cfg
+        del model, params
+        _free()
+        zero = ranks[0]
+        for r in ranks:
+            check(r["sharding"] == sharding, f"case {name}: pool sharding "
+                  f"{r['sharding']}")
+            check(r["sums"] == zero["sums"], f"case {name}: the ranks "
+                  "computed other logits")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            for i, (a, b) in enumerate(zip(r["out"], one["out"])):
+                check(np.array_equal(a, b), f"case {name} request {i}: the "
+                      f"ranks' stream differs from one process's")
+            check(r["log"] == one["log"] and r["states"] == one["states"],
+                  f"case {name}: fault log or states differ: {r['log']} "
+                  f"{r['states']} vs {one['log']} {one['states']}")
+        for k in ("flash_fwd", "paged_decode"):
+            check(zero["launches"][k] > 0, f"case {name}: kernel {k} was "
+                  "not launched on the ranks")
+        check(zero["forks"] >= 1, f"case {name}: no copy-on-write fork")
+        ref = dict(out=one["out"], rec={"logits": _host_rows(one["rec"])})
+        run = dict(out=zero["out"], rec={"logits": zero["rows"]})
+        temps = [0.0] * len(one["out"])
+        err, _ = _p9_compare(ref, run, one["prompts"], temps)
+        same = _same_rows(ref["rec"]["logits"], zero["rows"])
+        e_bad, _ = _p9_compare(ref, dict(out=zero["bad"]["out"], rec={
+            "logits": zero["bad"]["rows"]}), one["prompts"], temps,
+            gate=False)
+        check(e_bad > LOGIT_REL_TOL, f"case {name}: the logit limit does "
+              f"not reject rank 1's part left out of the gathers ({e_bad})")
+        if corrupt is not None:
+            failed = [i for i, s in enumerate(zero["states"])
+                      if s == ("failed", "nan_logits")]
+            (_, _, detail), = zero["log"]
+            victim = int(detail.split("rid=")[1].split()[0])
+            check(failed == [victim], f"case {name}: quarantined {failed}, "
+                  f"the corrupted block's owner is {victim}")
+        step_ms = [float(np.median(r["step_ms"])) for r in ranks]
+        say(f"  case {name}: {cfg.name} {cfg.n_layers} layers, pool "
+            f"{sharding}-sharded (local pool {zero['local']}), {P11_RANKS} "
+            f"ranks: streams equal the one-process Engine's on every rank; "
+            f"logits max|Δ| {err:.3e} of max |logit| (limit {LOGIT_REL_TOL})"
+            f", bitwise equal {same}; rank 1's part left out: {e_bad:.3e}, "
+            f"rejected; forks {zero['forks']}, fault log {zero['log']}, "
+            f"states {zero['states']}")
+        say(f"    decode-step ms a rank (median) "
+            + ", ".join(f"{m:.2f}" for m in step_ms)
+            + f"; one process {float(np.median(one['step_s'])) * 1e3:.2f}; "
+            f"host s in all-gathers and broadcasts a rank "
+            + ", ".join(f"{r['gather_s']:.3f}" for r in ranks)
+            + f"; run {zero['wall']:.1f} s; launches on rank 0 "
+            f"{zero['launches']}; peak a rank "
+            f"{max(r['peak'] for r in ranks) / 2**30:.2f} GiB")
+        out[name] = dict(err=err, bitwise=same, e_bad=e_bad,
+                         step_ms=step_ms, gather_s=[r["gather_s"]
+                                                    for r in ranks])
+    say(f"  world of {P11_RANKS} ranks: {wall:.1f} s, spawn included")
+    out["launches"] = launches
+    return out
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -2300,14 +2759,15 @@ def bound(flops, nbytes, peak_flops):
                                        else "bytes")
 
 
-def time_flash(launches):
-    """Kernel A at the serving shape: one 256-token chunk of the 1000-token
-    prompt at start 768 against the 1024-key (bucketed) gathered context."""
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    B, Tq, Tk, H, D, off = 1, 256, 1024, 32, 128, 768
+def _flash_timing(gen, H, Hkv):
+    """Kernel A at the serving shape with H query heads over Hkv kv heads of
+    128: one 256-token chunk of the 1000-token prompt at start 768 against
+    the 1024-key (bucketed) gathered context; its time, its plain
+    version's, SDPA's, its bound and its error."""
+    B, Tq, Tk, D, off = 1, 256, 1024, 128, 768
     q = randn(gen, (B, Tq, H, D), torch.bfloat16)
-    k = randn(gen, (B, Tk, H, D), torch.bfloat16)
-    v = randn(gen, (B, Tk, H, D), torch.bfloat16)
+    k = randn(gen, (B, Tk, Hkv, D), torch.bfloat16)
+    v = randn(gen, (B, Tk, Hkv, D), torch.bfloat16)
     m = mk.causal(rel_offset=off)
     o, _ = flash_fwd(q, k, v, mask=m)
     o_r, _ = chunk_attn_ref(q, k, v, mask=m)
@@ -2318,22 +2778,34 @@ def time_flash(launches):
     allow = (torch.arange(Tk, device=DEV)[None, :]
              <= off + torch.arange(Tq, device=DEV)[:, None])
     lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=allow))
+        qt, kt, vt, attn_mask=allow, enable_gqa=H != Hkv))
     pairs = sum(min(Tk, off + t + 1) for t in range(Tq))
     flops = 4.0 * B * H * pairs * D
-    nbytes = 2 * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
+    nbytes = 2 * B * D * (2 * Tq * H + 2 * Tk * Hkv) + 4 * B * H * Tq
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    say(f"  flash_fwd  B{B} Tq{Tq} Tk{Tk} H{H} D{D} bf16 causal@{off}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return {"name": "flash_fwd", "route": "cuda", "design": FWD_DESIGN,
-            "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
-            "float32_source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:157",
-            "launches": launches["flash_fwd"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib}
+    say(f"  flash_fwd  B{B} Tq{Tq} Tk{Tk} H{H}/{Hkv} D{D} bf16 "
+        f"causal@{off}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} "
+        f"GFLOP, {nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s "
+        f"achieved, max|Δo| {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def time_flash(launches):
+    """Kernel A at the serving shape (llama-7b's 32 heads), and at the
+    Qwen family's head pairs (phase 10: ``qwen_h{Hq}_{Hkv}_*`` keys)."""
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    row = {"name": "flash_fwd", "route": "cuda", "design": FWD_DESIGN,
+           "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
+           "float32_source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:157",
+           "launches": launches["flash_fwd"]}
+    row.update(_flash_timing(gen, 32, 32))
+    for hq, hkv in QWEN_HEADS:
+        row.update({f"qwen_h{hq}_{hkv}_{k}": x
+                    for k, x in _flash_timing(gen, hq, hkv).items()})
+    return row
 
 
 def time_flash_train(seen):
@@ -2451,7 +2923,9 @@ def time_paged(launches):
     long-context decode (one 32768-token request), at the GQA shape of
     phase 3 (Tq 4, 32 query heads over 8 kv heads), and at phase 9's
     shapes: the verify pass (Tq 5 on llama-7b's heads) and the draft's
-    decode (smollm-360m: 15 query heads over 5 kv heads of 64)."""
+    decode (smollm-360m: 15 query heads over 5 kv heads of 64); and the
+    Qwen family's head pairs at the serving step and at verify Tq 5
+    (phase 10: ``qwen_h{Hq}_{Hkv}_{serve,verify}_*`` keys)."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     lens = [1016, 716, 529, 80]
     serve = _paged_timing(gen, 4, 1, 32, 32, 128, 16, lens)
@@ -2459,6 +2933,10 @@ def time_paged(launches):
     gqa = _paged_timing(gen, 4, 4, 32, 8, 128, 16, lens)
     verify = _paged_timing(gen, 4, 1 + P9_DEPTH, 32, 32, 128, 16, lens)
     draft = _paged_timing(gen, 4, 1, 15, 5, 64, 16, lens)
+    qwen = {f"qwen_h{hq}_{hkv}_{tag}": _paged_timing(gen, 4, tq, hq, hkv,
+                                                      128, 16, lens)
+            for hq, hkv in QWEN_HEADS
+            for tag, tq in (("serve", 1), ("verify", 1 + P9_DEPTH))}
     row = {"name": "paged_decode", "route": "cuda", "design": PAGED_DESIGN,
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/paged.py:182",
@@ -2466,7 +2944,7 @@ def time_paged(launches):
            "library_note": PAGED_LIBRARY}
     row.update(serve)
     for name, r in (("long", long), ("gqa", gqa), ("verify", verify),
-                    ("draft", draft)):
+                    ("draft", draft), *qwen.items()):
         row.update({f"{name}_{k}": x for k, x in r.items()})
     return row
 
@@ -2596,15 +3074,27 @@ def main():
     _free()
     say("== phase 8: long-context serving, 4 sequence ranks on the one card")
     lg = long_serve()
+    _free()
+    say("== phase 10: the Qwen family at full size through the paged engine")
+    t0 = time.perf_counter()
+    qw = qwen()
+    say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    say("== phase 11: the paged engine across 4 ranks on the one card")
+    t0 = time.perf_counter()
+    me = mesh_engine()
+    say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    _free()
 
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
-                + sp["launches"].get(k, 0) for k in res["launches"]}
+                + sp["launches"].get(k, 0) + qw["launches"].get(k, 0)
+                + me["launches"].get(k, 0) for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
         f"long-context prefill (all ranks) {lg['launches']}, speculative "
-        f"serving (runs 1-5) {sp['launches']}")
+        f"serving (runs 1-5) {sp['launches']}, qwen {qw['launches']}, "
+        f"mesh engine (all ranks) {me['launches']}")
     rows = [time_flash(launches), time_paged(launches),
             *time_bwd(launches, tr["seen"], errs)]
     rows[0].update(time_flash_train(tr["seen"]))

@@ -1,8 +1,9 @@
 """Model and shape configuration (port of the reference ``core/config.py``).
 
 Configs are plain frozen dataclasses, so they hash and print cleanly.  The
-fields are the reference's fields for a dense / GQA decoder, so a reference
-config and its port describe the same model; the MLA, MoE, SSM, hybrid and
+fields are the reference's fields for a dense / GQA decoder (with the Qwen
+family's ``qkv_bias`` and ``qk_norm``), so a reference config and its port
+describe the same model; the MLA, MoE, SSM, hybrid and
 encoder fields arrive with the slices that serve those models.
 """
 from __future__ import annotations
@@ -19,6 +20,8 @@ class AttnConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    qkv_bias: bool = False           # Qwen2-style bias on q,k,v projections
+    qk_norm: bool = False            # Qwen3-style RMSNorm on q,k heads
     rope_theta: float = 10_000.0
     window: int = 0                  # 0 => full causal attention
 
@@ -41,7 +44,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameter count of a dense / GQA decoder."""
+        """Parameter count of a dense / GQA decoder (the reference's: the
+        q/k/v biases and qk-norm weights are not counted)."""
         a, d = self.attn, self.d_model
         attn = d * (a.n_heads * a.head_dim + 2 * a.n_kv_heads * a.head_dim) \
             + a.n_heads * a.head_dim * d

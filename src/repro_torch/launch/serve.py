@@ -8,6 +8,13 @@ fixed-slot engine over a dense cache that can shard along the sequence.
         [--spec-depth 4 [--self-spec | --draft-config smollm-360m]] \
         [--smoke --device cpu]
 
+    # the paged engine across P sequence ranks: every rank runs the same
+    # engine over a pool sharded on the sequence axis (head-parallel when
+    # the kv heads divide P, else block-sharded), the model replicated
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --smoke --device cpu --nproc 8 --seq-shards 8 [--spec-depth 4 \
+        --self-spec]
+
     # long context: the prompt prefilled across P sequence ranks (the
     # balanced schedule), the cache sharded along the sequence, decode reduced
     # over the shards; a world this command spawns itself (gloo on the
@@ -21,10 +28,11 @@ fixed-slot engine over a dense cache that can shard along the sequence.
 
 The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
 the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
-the reference's 16 × 16 grid).  A batch that divides over ``data`` is
-split between the data replicas; one that does not folds ``data`` into
-the cache's sequence sharding, as the reference's ``long_500k``.  Every
-rank prints the same tokens; rank 0 reports.  Weights and prompts come
+the reference's 16 × 16 grid).  With ``--fixed-slot``, a batch that
+divides over ``data`` is split between the data replicas; one that does
+not folds ``data`` into the cache's sequence sharding, as the reference's
+``long_500k``.  The paged engine runs batch-replicated over the ranks.
+Every rank prints the same tokens; rank 0 reports.  Weights and prompts come
 from seed 0; the paged engine prefills in chunks of ``PREFILL_CHUNK``
 tokens.  ``--spec-depth K`` serves speculatively, K draft tokens verified a
 step: ``--self-spec`` drafts by n-gram prompt lookup, otherwise a draft
@@ -90,10 +98,6 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if (args.nproc > 1 or args.seq_shards > 1
-            or args.mesh != "local") and not args.fixed_slot:
-        raise SystemExit("ranks serve through --fixed-slot (the multi-rank "
-                         "paged engine is not ported)")
     if args.spec_depth and args.fixed_slot:
         raise SystemExit("--spec-depth serves through the paged engine")
     if args.nproc > 1 and not dist.is_initialized():
@@ -118,15 +122,11 @@ def run(args) -> int:
     if args.window:
         cfg = cfg.replace(attn=dataclasses.replace(cfg.attn,
                                                    window=args.window))
-    if args.fixed_slot:
-        mesh = named_mesh(args.mesh, args.seq_shards, args.device)
-        shape = ShapeSpec("cli", args.prompt_len, args.batch, "decode")
-        par = make_parallel_config(mesh, shape)
-        model = DecoderLM(cfg, device=args.device, par=par, mesh=mesh)
-        lead = mesh.world.rank == 0
-    else:
-        model = DecoderLM(cfg, device=args.device)
-        lead = True
+    mesh = named_mesh(args.mesh, args.seq_shards, args.device)
+    shape = ShapeSpec("cli", args.prompt_len, args.batch, "decode")
+    par = make_parallel_config(mesh, shape)
+    model = DecoderLM(cfg, device=args.device, par=par, mesh=mesh)
+    lead = mesh.world.rank == 0
     params = model.init(SEED)
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
@@ -164,6 +164,7 @@ def run(args) -> int:
                             temperature=args.temperature)
         s = eng.stats()
         how = (f"paged bs={args.block_size} pool={n_blocks} "
+               f"pool sharding={eng.cache.sharding} "
                f"steps={s['steps']} preempt={s['n_preemptions']} "
                f"prefill_chunks={s['prefill_chunks']}")
         if spec is not None:

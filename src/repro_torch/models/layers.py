@@ -20,6 +20,11 @@ def rms_norm(x, w, eps=1e-5):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def head_rms_norm(x, w, eps=1e-5):
+    """Qwen3 qk-norm: RMSNorm over the head dim of (B, T, H, D)."""
+    return rms_norm(x, w, eps)
+
+
 def rope_tables(positions, dim, theta=10_000.0):
     """cos/sin tables: positions (T,) -> (T, dim/2) float32."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, device=positions.device,
@@ -43,13 +48,21 @@ def apply_rope(x, cos, sin):
 
 
 def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
-    """Norm → q/k/v projections → rope.  x: (B,T,d)."""
+    """Norm → q/k/v projections (+ ``bq``/``bk``/``bv`` under ``qkv_bias``,
+    in the projection's dtype) → qk-norm (``qk_norm``) → rope.
+    x: (B,T,d)."""
     a = cfg.attn
     B, T, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, T, a.n_heads, a.head_dim)
-    k = (h @ p["wk"]).reshape(B, T, a.n_kv_heads, a.head_dim)
-    v = (h @ p["wv"]).reshape(B, T, a.n_kv_heads, a.head_dim)
+    q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    if a.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, a.n_heads, a.head_dim)
+    k = k.reshape(B, T, a.n_kv_heads, a.head_dim)
+    v = v.reshape(B, T, a.n_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 

@@ -53,6 +53,7 @@ from repro_torch.core.remat import apply_policy, remat_aware
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.serve.cache import sharded_paged_attn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -194,7 +195,10 @@ class DecoderLM:
     def init(self, seed: int = 0) -> dict:
         """Random parameters made on ``self.device`` from a seeded
         generator: N(0, 1/d_in) projections, N(0, 0.02²) embeddings, unit
-        norms (the reference's init scheme; its bits differ)."""
+        norms, zero q/k/v biases (``qkv_bias``) and unit qk-norms
+        (``qk_norm``) — the reference's init scheme; its bits differ.  Each
+        leaf is drawn in float32 and cast at once, so the largest float32
+        temporary is one leaf, never the model."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         d, hd = cfg.d_model, a.head_dim
@@ -209,14 +213,28 @@ class DecoderLM:
         def ones(n):
             return torch.ones(n, dtype=dt, device=self.device)
 
+        def zeros(n):
+            return torch.zeros(n, dtype=dt, device=self.device)
+
         p = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": ones(d)}
         if not cfg.tie_embeddings:
             p["head"] = dense(d, cfg.vocab)
+
+        def attn():
+            q = {"wq": dense(d, a.n_heads * hd),
+                 "wk": dense(d, a.n_kv_heads * hd),
+                 "wv": dense(d, a.n_kv_heads * hd),
+                 "wo": dense(a.n_heads * hd, d), "ln": ones(d)}
+            if a.qkv_bias:
+                q.update(bq=zeros(a.n_heads * hd),
+                         bk=zeros(a.n_kv_heads * hd),
+                         bv=zeros(a.n_kv_heads * hd))
+            if a.qk_norm:
+                q.update(q_norm=ones(hd), k_norm=ones(hd))
+            return q
+
         p["layers"] = [{
-            "attn": {"wq": dense(d, a.n_heads * hd),
-                     "wk": dense(d, a.n_kv_heads * hd),
-                     "wv": dense(d, a.n_kv_heads * hd),
-                     "wo": dense(a.n_heads * hd, d), "ln": ones(d)},
+            "attn": attn(),
             "mlp": {"wg": dense(d, cfg.d_ff), "wu": dense(d, cfg.d_ff),
                     "wd": dense(cfg.d_ff, d), "ln": ones(d)},
         } for _ in range(cfg.n_layers)]
@@ -314,26 +332,45 @@ class DecoderLM:
         (kernel A, with ``q_offset = start`` folded into the causal mask).
         Rows past ``n_valid`` (bucket padding) write to the null block.
         ``cache`` = {k_pool, v_pool (L, N, bs, Hkv, D), block_table (1, nkv)
-        int32}; the pools are updated in place.  No logits: the last
-        context token enters through decode."""
+        int32; optional ``shard``, this rank's part of a sharded pool}; the
+        pools are updated in place.  No logits: the last context token
+        enters through decode.
+
+        On a sharded pool the model runs replicated and each rank writes
+        only its part: head-parallel, kernel A attends with this rank's q
+        and kv heads and the outputs are all-gathered over heads;
+        block-sharded, the owners' blocks are all-gathered and A attends
+        over the whole pool, as GSPMD does for the reference."""
         a = self.cfg.attn
         start, end = int(start), int(start) + int(n_valid)
-        bt = cache["block_table"]
+        bt, shard = cache["block_table"], cache.get("shard")
         C = tokens.shape[1]
         h = L.embed(p["embed"], tokens, self.dtype)
         cos, sin = L.rope_tables(start + torch.arange(C, device=self.device),
                                  a.head_dim, a.rope_theta)
         spec = decode_mask(a.window)
         rows = bt[0].long()
+        tgt = _targets(*_chunk_rows(bt, cache["k_pool"].shape[2], C, start,
+                                    end), shard)
         for li, lp in enumerate(p["layers"]):
             kp, vp = cache["k_pool"][li], cache["v_pool"][li]
 
             def attend(q, k, v, kp=kp, vp=vp):
-                _paged_write_chunk(kp, k, bt, start, end)
-                _paged_write_chunk(vp, v, bt, start, end)
-                kg = kp[rows].reshape(1, -1, a.n_kv_heads, a.head_dim)
-                vg = vp[rows].reshape(1, -1, a.n_kv_heads, a.head_dim)
-                return chunk_attn(q, kg, vg, mask=spec, q_offset=start)[0]
+                _scatter(kp, k, tgt, shard)
+                _scatter(vp, v, tgt, shard)
+                if shard is not None and shard.kind == "blocks":
+                    kp = shard.group.all_gather(kp, dim=0)
+                    vp = shard.group.all_gather(vp, dim=0)
+                kg = kp[rows].reshape(1, -1, *kp.shape[2:])
+                vg = vp[rows].reshape(1, -1, *vp.shape[2:])
+                if shard is None or shard.kind == "blocks":
+                    return chunk_attn(q, kg, vg, mask=spec,
+                                      q_offset=start)[0]
+                g = shard.group
+                hq = q.shape[2] // g.size
+                o = chunk_attn(q[:, :, g.rank * hq:(g.rank + 1) * hq], kg,
+                               vg, mask=spec, q_offset=start)[0]
+                return g.all_gather(o.contiguous(), dim=2)
 
             h = self._layer(lp, h, attend, cos, sin)
 
@@ -475,9 +512,10 @@ class DecoderLM:
     def decode(self, p, cache, token, pos):
         """One decode step: ``token`` (B, 1), ``pos`` (B,) int32
         per-request context lengths (the new token's position).  ``cache``
-        is a paged view (``k_pool`` / ``v_pool`` + ``block_table``: per
-        layer the new token's K/V is written into the request's current
-        block, then kernel B attends through the block table) or this
+        is a paged view (``k_pool`` / ``v_pool`` + ``block_table``, and
+        ``shard`` on a sharded pool, as :meth:`prefill_chunk`'s: per layer
+        the new token's K/V is written into the request's current block,
+        then kernel B attends through the block table) or this
         rank's dense shard ``{"k", "v"}`` (L, B, S_loc, Hkv, D) of a cache
         sharded over ``par.seq_axes`` (:meth:`pad_cache`: per layer
         ``dist_decode_attn`` over the shards, then :func:`_cache_write`
@@ -486,10 +524,10 @@ class DecoderLM:
         updated in place."""
         a = self.cfg.attn
         if "block_table" in cache:
-            bt = cache["block_table"]
             return self._paged_layers(
                 p, cache, token, pos[:, None],
-                lambda pool, new: _paged_write(pool, new, bt, pos))
+                _decode_rows(cache["block_table"], cache["k_pool"].shape[2],
+                             pos))
         token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
         cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
@@ -520,35 +558,42 @@ class DecoderLM:
         wider one) read the last embedding row, as the reference's gather
         clamps.  With T = 1 and ``n_write = 1`` this is :meth:`decode`.
         Returns logits (B, T, V); the pools are updated in place."""
-        bt = cache["block_table"]
         tokens = tokens.clamp(0, self.cfg.vocab - 1)
         rows = (pos.long()[:, None]
                 + torch.arange(tokens.shape[1], device=pos.device))
         return self._paged_layers(
             p, cache, tokens, rows,
-            lambda pool, new: _paged_write_multi(pool, new, bt, pos,
-                                                 n_write))
+            _multi_rows(cache["block_table"], cache["k_pool"].shape[2], pos,
+                        tokens.shape[1], n_write))
 
-    def _paged_layers(self, p, cache, tokens, rows, write):
+    def _paged_layers(self, p, cache, tokens, rows, dest):
         """The layers over a paged view for ``tokens`` (B, T) at context
-        positions ``rows`` (B, T): per layer ``write(pool, new)`` stores the
-        rows' K/V, then kernel B attends through the block table at
-        ``lengths = rows[:, -1] + 1``.  Returns logits (B, T, V)."""
+        positions ``rows`` (B, T): per layer the rows' K/V go to pool
+        blocks and offsets ``dest`` (two (B, T) tensors), then kernel B
+        attends through the block table at ``lengths = rows[:, -1] + 1``
+        (:func:`~repro_torch.serve.cache.sharded_paged_attn` when the view
+        holds this rank's ``shard`` of a sharded pool).  Returns logits
+        (B, T, V)."""
         a = self.cfg.attn
         B, T = tokens.shape
         h = L.embed(p["embed"], tokens, self.dtype)
         cos, sin = L.rope_tables(rows.reshape(-1), a.head_dim, a.rope_theta)
         cos, sin = cos.reshape(B, T, -1), sin.reshape(B, T, -1)
         spec = decode_mask(a.window)
-        bt = cache["block_table"]
+        bt, shard = cache["block_table"], cache.get("shard")
+        tgt = _targets(*dest, shard)
         lengths = (rows[:, -1] + 1).to(torch.int32)
         for li, lp in enumerate(p["layers"]):
             kp, vp = cache["k_pool"][li], cache["v_pool"][li]
 
             def attend(q, k, v, kp=kp, vp=vp):
-                write(kp, k)
-                write(vp, v)
-                return paged_decode_attn(q, kp, vp, bt, lengths, mask=spec)
+                _scatter(kp, k, tgt, shard)
+                _scatter(vp, v, tgt, shard)
+                if shard is None:
+                    return paged_decode_attn(q, kp, vp, bt, lengths,
+                                             mask=spec)
+                return sharded_paged_attn(q, kp, vp, bt, lengths, shard,
+                                          mask=spec)
 
             h = self._layer(lp, h, attend, cos, sin)
         return self._head(p, h)
@@ -558,29 +603,69 @@ class DecoderLM:
 # Paged-cache writes: scatter new K/V through the block table, in place
 # --------------------------------------------------------------------------
 
-def _paged_write(pool, new, block_table, pos):
-    """Write ``new`` (B, 1, ...) into ``pool`` (N, bs, ...) at each
-    request's slot for context position ``pos`` (B,): block
-    ``block_table[b, pos_b // bs]``, offset ``pos_b % bs``.  Idle rows
-    (all-zero table rows) land in the null block 0."""
-    bs = pool.shape[1]
+def _decode_rows(block_table, bs: int, pos):
+    """Pool block and offset (B, 1) of each request's new token at context
+    position ``pos`` (B,): block ``block_table[b, pos_b // bs]``, offset
+    ``pos_b % bs``.  Idle rows (all-zero table rows) land in the null block
+    0."""
     pos = pos.long()
-    bidx = block_table.long().gather(1, (pos // bs)[:, None])[:, 0]
-    pool.index_put_((bidx, pos % bs), new[:, 0].to(pool.dtype))
+    bidx = block_table.long().gather(1, (pos // bs)[:, None])
+    return bidx, (pos % bs)[:, None]
 
 
-def _paged_write_multi(pool, new, block_table, pos, n_write):
-    """Write ``new`` (B, T, ...) into ``pool``: row t of request b holds
-    context position ``pos_b + t``; rows with ``t >= n_write_b`` (draft
-    slack, idle rows with ``n_write = 0``) go to the null block 0."""
-    bs, nb = pool.shape[1], block_table.shape[1]
-    t = torch.arange(new.shape[1], device=pool.device)
+def _multi_rows(block_table, bs: int, pos, T: int, n_write):
+    """Pool blocks and offsets (B, T) of ``T`` rows a request: row t of
+    request b holds context position ``pos_b + t``; rows with ``t >=
+    n_write_b`` (draft slack, idle rows with ``n_write = 0``) go to the
+    null block 0."""
+    nb = block_table.shape[1]
+    t = torch.arange(T, device=block_table.device)
     idx = pos.long()[:, None] + t[None, :]                        # (B, T)
     col = torch.clamp(idx // bs, 0, nb - 1)
     bidx = block_table.long().gather(1, col)
     bidx = torch.where(t[None, :] < n_write.long()[:, None], bidx,
                        torch.zeros_like(bidx))
-    pool.index_put_((bidx, idx % bs), new.to(pool.dtype))
+    return bidx, idx % bs
+
+
+def _chunk_rows(block_table, bs: int, C: int, start: int, end: int):
+    """Pool blocks and offsets (1, C) of a B=1 chunk: row ``i`` holds
+    context position ``start + i``; rows at positions ``>= end`` (bucket
+    padding) go to the null block 0."""
+    idx = start + torch.arange(C, device=block_table.device)
+    col = torch.clamp(idx // bs, 0, block_table.shape[1] - 1)
+    bidx = torch.where(idx < end, block_table[0].long()[col],
+                       torch.zeros_like(idx))
+    return bidx[None], (idx % bs)[None]
+
+
+def _targets(bidx, off, shard=None):
+    """Where this rank writes rows bound for pool blocks ``bidx`` (global
+    ids) at offsets ``off`` (both (B, T)): ``(kept rows or None, local
+    blocks, offsets)`` over the flattened rows.  A block-sharded pool keeps
+    only the rows whose block this rank holds (the others go nowhere, not
+    to a local id); the null block 0 lives on group rank 0.  Computed once
+    a forward, for every layer's writes."""
+    bidx, off = bidx.reshape(-1), off.reshape(-1)
+    if shard is None or shard.kind != "blocks":
+        return None, bidx, off
+    local = bidx - shard.lo
+    keep = ((local >= 0) & (local < shard.n_local)).nonzero()[:, 0]
+    return keep, local[keep], off[keep]
+
+
+def _scatter(pool, new, tgt, shard=None):
+    """Write the rows of ``new`` (B, T, Hkv, D) into ``pool`` (N, bs, ...)
+    at :func:`_targets` ``tgt``; a head-parallel pool takes this rank's kv
+    heads."""
+    keep, bidx, off = tgt
+    x = new.reshape((-1,) + tuple(new.shape[2:]))
+    if shard is not None and shard.kind == "heads":
+        x = x[:, shard.lo:shard.lo + shard.n_local]
+    if keep is not None:
+        x = x[keep]
+    pool.index_put_((bidx, off), x.to(pool.dtype))
+
 
 def _cache_write(cache, new, pos, group=None):
     """Write ``new`` (B, 1, ...) into this rank's shard ``cache``
@@ -600,19 +685,6 @@ def _cache_write(cache, new, pos, group=None):
     b = torch.arange(B, device=cache.device)
     cache[b, local] = torch.where(hit, new[:, 0].to(cache.dtype),
                                   cache[b, local])
-
-
-def _paged_write_chunk(pool, new, block_table, start: int, end: int):
-    """Write a B=1 chunk ``new`` (1, C, ...) into ``pool`` (N, bs, ...):
-    row ``i`` holds context position ``start + i``; rows at positions
-    ``>= end`` (bucket padding) go to the null block 0."""
-    bs = pool.shape[1]
-    C = new.shape[1]
-    idx = start + torch.arange(C, device=pool.device)
-    col = torch.clamp(idx // bs, 0, block_table.shape[1] - 1)
-    bidx = torch.where(idx < end, block_table[0].long()[col],
-                       torch.zeros_like(idx))
-    pool.index_put_((bidx, idx % bs), new[0].to(pool.dtype))
 
 
 # --------------------------------------------------------------------------

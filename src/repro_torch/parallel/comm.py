@@ -144,9 +144,10 @@ class Comm:
     """One group of ranks (a mesh axis): ``rank`` / ``size`` inside the
     group and the collectives over it.  ``ranks`` lists the group's global
     ranks in axis order; ``group`` / ``p2p_group`` are its process groups
-    for collectives and for shifts (None: the world).  ``shift_wait_s``
-    and ``reduce_s`` add up the host seconds spent blocked waiting for
-    shifts and in :meth:`all_reduce_` / :meth:`broadcast_`."""
+    for collectives and for shifts (None: the world).  ``shift_wait_s``,
+    ``reduce_s`` and ``gather_s`` add up the host seconds spent blocked
+    waiting for shifts, in :meth:`all_reduce_` / :meth:`broadcast_` and in
+    :meth:`all_gather`."""
 
     def __init__(self, ranks, transport: str, device, group=None,
                  p2p_group=None):
@@ -162,7 +163,7 @@ class Comm:
         self.device = torch.device(device)
         self.group, self.p2p_group = group, p2p_group
         self._tag = 0
-        self.shift_wait_s = self.reduce_s = 0.0
+        self.shift_wait_s = self.reduce_s = self.gather_s = 0.0
         self._pool = self._side = None
         if transport == "gloo-staged":
             self._pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -243,10 +244,13 @@ class Comm:
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
         if self.size == 1:
             return x
+        t0 = time.perf_counter()
         xs = self._host(x).contiguous()
         outs = [torch.empty_like(xs) for _ in range(self.size)]
         dist.all_gather(outs, xs, group=self.group)
-        return self._back(torch.cat(outs, dim=dim))
+        out = self._back(torch.cat(outs, dim=dim))
+        self.gather_s += time.perf_counter() - t0
+        return out
 
     def all_reduce_(self, tensors, op: str = "sum"):
         """Reduce each tensor over the group in place: ``op`` ``"sum"``

@@ -35,8 +35,12 @@ the kv-head axis shards when the head count divides it (``"heads"``:
 head-parallel decode, each rank's query heads read only its own pool),
 otherwise the pool-block axis (``"blocks"``: rank r holds blocks
 ``[r·N/n, (r+1)·N/n)``), otherwise the pool is replicated.  Each rank
-allocates only its part; :func:`sharded_paged_decode_attn` decodes over
-such a pool.  The math is the same in all three placements.
+allocates only its part (:class:`PoolShard` says which);
+:func:`sharded_paged_attn` attends over such a pool.  The math is the same
+in all three placements.  The allocator, the prefix trie and the tables are
+the same on every rank (every rank runs the same steps); a fork, a scrub or
+a corruption touches the pool on the rank that holds the block, and a fork
+across two ranks broadcasts the source block from its owner.
 
 The block *tables* are host-side numpy (the scheduler mutates them every
 step); a device copy ships with each decode step's inputs.
@@ -58,6 +62,20 @@ from repro_torch.serve.faults import AuditFailure
 
 class PoolExhausted(RuntimeError):
     """No free blocks — the scheduler preempts and requeues on this."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolShard:
+    """This rank's part of a sharded pool: ``kind`` ``"heads"`` (kv heads
+    ``[lo, lo + n_local)``) or ``"blocks"`` (pool blocks ``[lo, lo +
+    n_local)``), over the ranks of ``group`` (the mesh axis's Comm)."""
+    kind: str
+    group: object
+    n_local: int
+
+    @property
+    def lo(self) -> int:
+        return self.group.rank * self.n_local
 
 
 class BlockAllocator:
@@ -410,6 +428,15 @@ class PagedKVCache:
 
     # ------------------------------------------------------------- queries
     @property
+    def shard(self) -> Optional[PoolShard]:
+        """This rank's part of a sharded pool, or None (whole pool)."""
+        if self.sharding is None:
+            return None
+        dim = 3 if self.sharding == "heads" else 1
+        return PoolShard(self.sharding, self.group,
+                         self.pools["k_pool"].shape[dim])
+
+    @property
     def layout(self) -> str:
         """The kv layout: k and v pools per kv head (``"mha"``; the latent
         ``"mla"`` pool is not ported)."""
@@ -516,9 +543,7 @@ class PagedKVCache:
             if self.allocator.refcount(b) == 1:
                 continue
             (nb,) = self._alloc(rid, 1)
-            self._check_block_local("a copy-on-write fork")
-            for pool in self.pools.values():
-                pool[:, nb] = pool[:, b]
+            self._copy_block(b, nb)
             self.table[slot, i] = nb
             self.allocator.free([b], rid)
             forks += 1
@@ -550,11 +575,36 @@ class PagedKVCache:
         self.counters["reclaimed"] += freed
         return freed
 
-    def _check_block_local(self, what: str) -> None:
-        if self.sharding == "blocks":
-            raise NotImplementedError(
-                f"{what} on a block-sharded pool needs the multi-rank "
-                f"Engine, which is not ported")
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Block ``dst`` := block ``src`` in every layer pool.  On a
+        block-sharded pool the owner of ``dst`` writes; when ``src`` lives
+        on another rank its owner broadcasts it over the group first (every
+        rank takes part: they run the same forks in the same order)."""
+        sh = self.shard
+        if sh is None or sh.kind != "blocks":
+            for pool in self.pools.values():
+                pool[:, dst] = pool[:, src]
+            return
+        (s_rank, s_loc), (d_rank, d_loc) = (divmod(b, sh.n_local)
+                                            for b in (src, dst))
+        me = sh.group.rank
+        for pool in self.pools.values():
+            if s_rank == d_rank:
+                if me == s_rank:
+                    pool[:, d_loc] = pool[:, s_loc]
+                continue
+            buf = (pool[:, s_loc].contiguous() if me == s_rank
+                   else pool.new_empty(pool[:, 0].shape))
+            sh.group.broadcast_([buf], s_rank)
+            if me == d_rank:
+                pool[:, d_loc] = buf
+
+    def _fill_block(self, b: int, value: float) -> None:
+        """Block ``b`` := ``value`` in every layer pool, on the rank that
+        holds it (every rank when the pool is not block-sharded)."""
+        for i in self._blocks_here([b])[1].tolist():
+            for pool in self.pools.values():
+                pool[:, i] = value
 
     # --------------------------------------------------- prefix indexing
     def register_prefix(self, slot: int, rid: int, tokens: Sequence[int],
@@ -582,9 +632,7 @@ class PagedKVCache:
     def corrupt_block(self, b: int) -> None:
         """Fill block ``b`` with NaN in every layer pool (fault injection:
         the request that attends it sees NaN logits and is quarantined)."""
-        self._check_block_local("a corruption")
-        for pool in self.pools.values():
-            pool[:, b] = float("nan")
+        self._fill_block(b, float("nan"))
 
     def scrub_slot(self, slot: int, rid: int) -> int:
         """Zero every block of ``slot`` that ``rid`` owns exclusively —
@@ -596,9 +644,7 @@ class PagedKVCache:
         for i in range(n):
             b = int(self.table[slot, i])
             if b and self.allocator.owners(b) == (rid,):
-                self._check_block_local("a scrub")
-                for pool in self.pools.values():
-                    pool[:, b] = 0
+                self._fill_block(b, 0.0)
                 scrubbed += 1
         return scrubbed
 
@@ -695,12 +741,13 @@ class PagedKVCache:
         return out
 
 
-def sharded_paged_decode_attn(q, cache: PagedKVCache, layer: int,
-                              block_table, lengths, *, mask=None,
-                              scale=None, impl=None):
-    """Paged decode over layer ``layer`` of ``cache``'s pools wherever
-    they live (``PagedKVCache.create(mesh=)``): q (B, T, Hq, D), the same
-    on every rank; returns o (B, T, Hq, D), the same on every rank.
+def sharded_paged_attn(q, kp, vp, block_table, lengths,
+                       shard: Optional[PoolShard], **kw):
+    """Paged decode of q (B, T, Hq, D), the same on every rank, over one
+    layer's pools ``kp`` / ``vp`` holding this rank's part ``shard`` of a
+    pool (None: the whole pool); returns o (B, T, Hq, D), the same on every
+    rank.  ``kw`` goes to ``paged_decode_attn`` (``mask``, ``scale``,
+    ``impl``).
 
     * ``"heads"`` — kernel B on this rank's kv heads and their query heads
       (``Hq / n`` of them), then the outputs all-gathered over heads.  B is
@@ -710,15 +757,24 @@ def sharded_paged_decode_attn(q, cache: PagedKVCache, layer: int,
       on the gathered pool (what GSPMD does for the reference).
     * replicated — B on the pool.
     """
-    kp, vp = cache.pools["k_pool"][layer], cache.pools["v_pool"][layer]
-    kw = dict(mask=mask, scale=scale, impl=impl)
-    if cache.sharding == "heads":
-        g = cache.group
+    if shard is not None and shard.kind == "heads":
+        g = shard.group
         hq = q.shape[2] // g.size
         mine = q[:, :, g.rank * hq:(g.rank + 1) * hq].contiguous()
         o = paged_decode_attn(mine, kp, vp, block_table, lengths, **kw)
         return g.all_gather(o.contiguous(), dim=2)
-    if cache.sharding == "blocks":
-        kp = cache.group.all_gather(kp, dim=0)
-        vp = cache.group.all_gather(vp, dim=0)
+    if shard is not None:
+        kp = shard.group.all_gather(kp, dim=0)
+        vp = shard.group.all_gather(vp, dim=0)
     return paged_decode_attn(q, kp, vp, block_table, lengths, **kw)
+
+
+def sharded_paged_decode_attn(q, cache: PagedKVCache, layer: int,
+                              block_table, lengths, *, mask=None,
+                              scale=None, impl=None):
+    """:func:`sharded_paged_attn` over layer ``layer`` of ``cache``'s
+    pools, wherever they live (``PagedKVCache.create(mesh=)``)."""
+    return sharded_paged_attn(
+        q, cache.pools["k_pool"][layer], cache.pools["v_pool"][layer],
+        block_table, lengths, cache.shard, mask=mask, scale=scale,
+        impl=impl)

@@ -40,6 +40,13 @@ capped exponential backoff, failing a request after ``max_retries``
 drops; ``audit=True`` re-checks the allocator, the prefix trie and the
 tables after every step.
 
+Across ranks (``Engine(use_mesh_sharding=True)``, the default, on a model
+built with a ``mesh``): every rank runs the same engine in lockstep — its
+own scheduler, allocator, sampler and fault injector, making the same
+decisions from the same logits — over a pool sharded on the sequence axis
+(head-parallel or block-sharded, ``serve/cache.py``); the model runs
+batch-replicated, each rank writing and reading its part of the pool.
+
 Sampling: greedy at temperature 0; otherwise the reference's draw,
 ``categorical(fold_in(PRNGKey(seed), position), logits / T)``, reproduced
 on the host by :mod:`repro_torch.serve.prng` (threefry2x32 keys and bits,
@@ -56,6 +63,8 @@ the same decode loop (flash-decoding across the shards).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -99,6 +108,7 @@ class Engine:
     def __init__(self, model, params, *, max_batch: int = 8,
                  block_size: Optional[int] = None, n_blocks: int = 128,
                  max_blocks_per_req: Optional[int] = None,
+                 use_mesh_sharding: bool = True,
                  prefill_chunk_tokens: int = 32,
                  prefix_cache: bool = True,
                  max_queue: Optional[int] = None,
@@ -112,6 +122,12 @@ class Engine:
                  spec: Optional[SpecConfig] = None,
                  draft: Optional[DraftSource] = None):
         cfg = model.cfg
+        if model.batch_group is not None:
+            # serving shapes are ragged (B = 1 chunks, a fixed slot batch
+            # for decode): run the model batch-replicated, as the
+            # reference rebuilds it with batch_axes=()
+            model = type(model)(cfg, model.device, par=dataclasses.replace(
+                model.par, batch_axes=()), impl=model.impl, mesh=model.mesh)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -120,7 +136,9 @@ class Engine:
             cfg, block_size=block_size, n_blocks=n_blocks,
             max_reqs=max_batch, max_blocks_per_req=max_blocks_per_req,
             prefix_cache=prefix_cache, device=self.device,
-            dtype=model.dtype)
+            dtype=model.dtype,
+            mesh=model.mesh if use_mesh_sharding else None,
+            seq_axis=model.par.seq_axis)
         # speculative decoding: the scheduler reserves the draft rows'
         # write span (lookahead); the decode step becomes a verify step
         self.spec = spec
@@ -139,6 +157,10 @@ class Engine:
                                lookahead=spec.depth if spec else 0)
         self.max_batch = max_batch
         self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        # whole-prompt chunks pad to a multiple of the block size and the
+        # sequence-shard count (the reference's compile bucket)
+        self._prefill_bucket = math.lcm(self.cache.block_size,
+                                        max(model.seq_size, 1))
         self.requests: Dict[int, Request] = {}
         # robustness state
         self.audit_mode = bool(audit)
@@ -216,10 +238,10 @@ class Engine:
     # ------------------------------------------------------------- prefill
     def _chunk_pad(self, n: int) -> int:
         """Padded chunk length: the fixed chunk size, or (whole-prompt
-        mode) ``n`` rounded up to the block size."""
+        mode) ``n`` rounded up to the prefill bucket."""
         if self.prefill_chunk_tokens:
             return self.prefill_chunk_tokens
-        b = self.cache.block_size
+        b = self._prefill_bucket
         return max(b, -(-n // b) * b)
 
     def _nkv_for(self, end: int) -> int:
@@ -236,8 +258,7 @@ class Engine:
         rows through the block table row ``table`` (1, nkv)."""
         dev = self.device
         self.model.prefill_chunk(
-            self.params, {**self.cache.pools,
-                          "block_table": torch.as_tensor(table, device=dev)},
+            self.params, self._view(table),
             torch.as_tensor(tokens, device=dev), start, n)
 
     def _run_chunk(self, req: Request, start: int, n: int) -> None:
@@ -282,8 +303,12 @@ class Engine:
         return tok, pos, tbl
 
     def _view(self, tbl):
-        return {**self.cache.pools,
+        """The model's view of the pools through block table ``tbl``."""
+        view = {**self.cache.pools,
                 "block_table": torch.as_tensor(tbl, device=self.device)}
+        if self.cache.shard is not None:
+            view["shard"] = self.cache.shard
+        return view
 
     # ------------------------------------------------------ fault plumbing
     def _release_due_squeezes(self) -> None:

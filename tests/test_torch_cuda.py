@@ -67,6 +67,11 @@ FLASH = [
     # a speculative draft's catch-up chunk: smollm-360m's 15 heads over 5
     # kv heads of 64, 32 rows against the gathered table
     (1, 32, 1056, 15, 5, 64, mk.causal(rel_offset=1000), False),
+    # the Qwen family's serving chunk (Tq 256 at q_offset 768, Tk 1024):
+    # qwen3-8b's GQA group 4, qwen2.5-14b's group 5, qwen1.5-32b's 40 heads
+    (1, 256, 1024, 32, 8, 128, mk.causal(rel_offset=768), False),
+    (1, 256, 1024, 40, 8, 128, mk.causal(rel_offset=768), False),
+    (1, 256, 1024, 40, 40, 128, mk.causal(rel_offset=768), False),
 ]
 # bf16: the tensor-core route is held element by element too (3e-2 of each
 # output, chip_smoke.py's rel_err); pruned and dense sweeps do the same
@@ -203,6 +208,14 @@ PAGED = [
     (4, 5, 32, 32, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
     (4, 1, 15, 5, 64, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
     (4, 5, 15, 5, 64, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    # the Qwen family at the serving step and at verify Tq 5: groups 4, 5
+    # (g·Tq = 25 rows: two 16-row groups) and 1 with 40 heads
+    (4, 1, 32, 8, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 5, 32, 8, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 1, 40, 8, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 5, 40, 8, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 1, 40, 40, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
+    (4, 5, 40, 40, 128, 16, [1016, 716, 529, 80], 0, torch.bfloat16),
 ]
 
 
@@ -334,6 +347,37 @@ def test_engine_on_card_matches_cpu(dev):
     out_d = eng.generate({"tokens": prompts}, 8)
     st = eng.stats()
     assert st["prefill_seconds"] > 0 and st["decode_seconds"] > 0
+    assert build.LAUNCHES["flash_fwd"] > 0
+    assert build.LAUNCHES["paged_decode"] > 0
+    out_c = Engine(cpu, params, **kw).generate({"tokens": prompts}, 8)
+    np.testing.assert_array_equal(out_d, out_c)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen2.5-14b", "qwen1.5-32b"])
+def test_qwen_engine_on_card_matches_cpu(dev, arch):
+    """Smoke Qwen configs (float32, D = 32) with their biases and qk-norm
+    weights moved off their init: the engine on the card, through both
+    kernels, emits the same greedy streams as on the CPU."""
+    cfg = smoke_config(get_config(arch))
+    cpu = DecoderLM(cfg, device="cpu")
+    params = cpu.init(0)
+    gen = torch.Generator().manual_seed(1)
+    for lp in params["layers"]:
+        for n, t in lp["attn"].items():
+            if n in ("bq", "bk", "bv"):
+                t.copy_(0.5 * torch.randn(t.shape, generator=gen))
+            elif n in ("q_norm", "k_norm"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+    params_d = {k: (v.to(dev) if torch.is_tensor(v) else
+                    [{g: {n: t.to(dev) for n, t in d.items()}
+                      for g, d in lp.items()} for lp in v])
+                for k, v in params.items()}
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 40))
+    kw = dict(max_batch=4, block_size=16, n_blocks=32,
+              prefill_chunk_tokens=16)
+    build.reset_launches()
+    out_d = Engine(DecoderLM(cfg, device=dev), params_d, **kw).generate(
+        {"tokens": prompts}, 8)
     assert build.LAUNCHES["flash_fwd"] > 0
     assert build.LAUNCHES["paged_decode"] > 0
     out_c = Engine(cpu, params, **kw).generate({"tokens": prompts}, 8)
