@@ -32,6 +32,12 @@ Phases, each fatal on failure (nothing is caught):
                 family's head pairs (32, 8), (40, 8) and (40, 40) × 128 in
                 both dtypes: A at the serving chunk, B at the serving step
                 and at verify Tq 5 (group 5: 25 rows, two 16-row groups).
+                deepseek-v2-lite-16b's absorbed-MLA shapes in both dtypes:
+                A's latent route at q (1, 256, 16, 576), q_offset 768, k
+                (1, 1024, 1, 576), v its 512-column view, scale 1/√192; B
+                over a latent pool (N, 16, 1, 576) with that view at Tq 1
+                and 5 (80 rows: five 16-row groups), phase 4's lengths; B
+                bitwise batch-invariant at Tq 1.
   3c. plans   — kernels A, C and D under every distinct mask the plan
                 steps give them: every active Work item of balanced, ring
                 and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
@@ -174,6 +180,25 @@ Phases, each fatal on failure (nothing is caught):
                 seconds in all-gathers and broadcasts (``Comm`` timers).
                 Any rank's failure, or the world still running after 900 s,
                 is fatal.
+  12. deepseek — deepseek-v2-lite-16b (arXiv:2405.04434) at full size: 27
+                layers, d_model 2048, MLA 16 heads (kv_lora 512, rope 64,
+                nope 128, v 128), the first layer dense (d_ff 10944), 26
+                MoE layers of 64 routed + 2 shared experts, top-6, d_expert
+                1408, capacity 1.25, vocab 102400, bf16, seed-12 weights
+                made on the card (15.50 B parameters); nothing cut.  Phase
+                4's engine and prompts, 32 greedy tokens each: chunks
+                through A's latent route, decode through B over the latent
+                pool (95.6 MB).  The longest request's last decode logits
+                within phase 4's limit of the same engine on the plain
+                versions (``impl="ref"``, same chunking; the first decode
+                step if the streams part at a near-tie), which must reject
+                the context without its last token and a window hiding the
+                oldest block (both through the plain engine); the (token,
+                layer) top-6 sets that differ between the two runs are
+                counted.  Then n-gram speculation at depth 4 (B at Tq 5),
+                held to the vanilla run as phase 9 holds its runs, and a
+                profiler trace.  Prefill and decode tokens/s, launches,
+                peak memory, the phase's seconds.
   5. times    — each kernel at the shapes of its path (C and D on the
                 inputs kept in phase 6): its time (CUDA events, median
                 after warm-up), its plain version's at the same shape, a
@@ -187,9 +212,12 @@ Phases, each fatal on failure (nothing is caught):
                 (launches rotate over 4 distinct pool pairs) at the serving
                 step, a 32768-token decode (``long_*``), GQA Tq 4
                 (``gqa_*``) and the Qwen head pairs at Tq 1 and 5
-                (``qwen_*``):
-                its device time (torch.profiler), the wrapper's (CUDA
-                events) and the host time of one call (1000 calls).
+                (``qwen_*``), and the MLA latent pool at Tq 1 and 5
+                (``mla_*``): its device time (torch.profiler), the
+                wrapper's (CUDA events) and the host time of one call (1000
+                calls).  A's latent route at phase 12's chunk (its own row,
+                ``flash_fwd_latent``) beside its plain version and SDPA
+                with an explicit mask.
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -518,6 +546,102 @@ def paged_bitwise(gen):
         "batch of 4 == permuted table; launch == launch")
 
 
+# deepseek-v2-lite-16b's absorbed MLA (phase 12): q/k 576 (latent 512 ⊕
+# rope 64), v the latent rows' first 512 columns, one kv head under 16
+# query heads, scale 1/√(nope 128 + rope 64)
+LAT_DK, LAT_DV, LAT_H = 576, 512, 16
+LAT_SCALE = 192 ** -0.5
+LAT_LENS = [1016, 716, 529, 80]     # phase 4's lengths mid-way through decode
+
+
+def _latent_chunk(gen, dtype, Tq=256, Tk=1024):
+    """A latent prefill chunk: q (1, Tq, 16, 576), the gathered latent rows
+    k (1, Tk, 1, 576) and v = k[..., :512] (a view)."""
+    q = randn(gen, (1, Tq, LAT_H, LAT_DK), dtype)
+    k = randn(gen, (1, Tk, 1, LAT_DK), dtype)
+    return q, k, k[..., :LAT_DV]
+
+
+def _latent_pool(gen, B, Tq, lengths, dtype):
+    """q (B, Tq, 16, 576), a latent pool (N, 16, 1, 576) and its 512-column
+    value view, a fragmented table and the lengths."""
+    q, kp, _, bt, lens = _paged_inputs(gen, B, Tq, LAT_H, 1, LAT_DK, 16,
+                                       lengths, dtype)
+    return q, kp, kp[..., :LAT_DV], bt, lens
+
+
+def latent_checks():
+    """Kernels A and B at the latent shapes, each in both dtypes against its
+    plain version at phase 3's limits: A's latent route on the serving
+    chunk (Tq 256 at q_offset 768 over 1024 keys), B at the serving step
+    (Tq 1) and at verify (Tq 5: 80 rows, five 16-row groups), and B's
+    bitwise batch invariance at Tq 1."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    m = mk.causal(rel_offset=768)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _latent_chunk(gen, dt)
+        n0 = dict(build.LAUNCHES)
+        o, lse = flash_fwd(q, k, v, mask=m, scale=LAT_SCALE)
+        torch.cuda.synchronize()
+        check(build.LAUNCHES["flash_fwd_latent"]
+              == n0["flash_fwd_latent"] + 1
+              and build.LAUNCHES["flash_fwd"] == n0["flash_fwd"],
+              "flash_fwd latent: launches")
+        o_r, lse_r = chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE)
+        err = float((o.float() - o_r.float()).abs().max())
+        lerr = float((lse - lse_r).abs().max())
+        tol = TOL[dt]
+        check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol),
+              f"flash_fwd latent {dt}: o err {err} over {tol}")
+        check(lerr <= LSE_TOL * (1 + float(lse_r.abs().max())),
+              f"flash_fwd latent {dt}: lse err {lerr}")
+        rel = ""
+        if dt == torch.bfloat16:
+            r = rel_err(o, o_r)
+            check(r <= REL_TOL, f"flash_fwd latent: relative err {r}")
+            rel = f"  rel {r:.2e} (limit {REL_TOL})"
+        say(f"  A {'latent 576/512 h16/1 Tq256':<28} {str(dt)[6:]:<9} "
+            f"max|Δo| {err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}")
+        for tq in (1, 1 + P9_DEPTH):
+            q, kp, vp, bt, lens = _latent_pool(gen, 4, tq, LAT_LENS, dt)
+            n0 = build.LAUNCHES["paged_decode"]
+            o = paged_attn(q, kp, vp, bt, lens, scale=LAT_SCALE)
+            torch.cuda.synchronize()
+            check(build.LAUNCHES["paged_decode"] == n0 + 1,
+                  "paged_decode latent: launches")
+            o_r = paged_attn_ref(q, kp, vp, bt, lens, scale=LAT_SCALE)
+            err = float((o.float() - o_r.float()).abs().max())
+            tol = PAGED_TOL[dt]
+            check(torch.allclose(o.float(), o_r.float(), atol=tol,
+                                 rtol=tol),
+                  f"paged_decode latent Tq{tq} {dt}: err {err} over {tol}")
+            say(f"  B {f'latent 576/512 h16/1 Tq{tq}':<28} "
+                f"{str(dt)[6:]:<9} max|Δo| {err:.3e}  tol {tol}")
+    # bitwise batch invariance at the serving step
+    q, kp, vp, bt, lens = _latent_pool(gen, 4, 1, [80, 1000, 529, 1100],
+                                       torch.bfloat16)
+
+    def run(q, kp, bt, lens):
+        return paged_attn(q, kp, kp[..., :LAT_DV], bt, lens, scale=LAT_SCALE)
+    full = run(q, kp, bt, lens)
+    alone = run(q[1:2].contiguous(), kp, bt[1:2, :-(-1000 // 16)]
+                .contiguous(), lens[1:2])
+    N = kp.shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long, device=DEV),
+                      torch.randperm(N - 1, generator=gen, device=DEV) + 1])
+    kp2 = torch.empty_like(kp)
+    kp2[perm] = kp
+    moved = run(q, kp2, perm[bt.long()].to(torch.int32), lens)
+    check(torch.equal(full, run(q, kp, bt, lens)),
+          "paged_decode latent: two launches differ")
+    check(torch.equal(alone[0], full[1]),
+          "paged_decode latent: a request alone differs from it in a batch")
+    check(torch.equal(moved, full),
+          "paged_decode latent: a permuted block table changes o")
+    say(f"  B {'latent bitwise invariance':<28} bfloat16  alone == in a "
+        "batch of 4 == permuted table; launch == launch")
+
+
 def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
               pass_delta=False):
     """Kernels C and D against the plain backward on the same saved (o,
@@ -629,14 +753,17 @@ P4_ENGINE = dict(max_batch=4, block_size=16, prefill_chunk_tokens=256,
 
 
 @contextlib.contextmanager
-def _meter(model, eng):
+def _meter(model, eng, router=None):
     """While the block runs: the logits of every decode and verify row of
     ``eng``'s target ``model`` under (rid, context position of the token the
     row predicts), kept on the device without a copy (a later row at a
     position replaces an earlier one, so a committed position ends up with
     the row that committed it); and the kernel launches inside the target's
     decode / verify calls and inside the engine's ``draft.propose``, apart,
-    and the host seconds in ``draft.propose`` (it ends in a host read)."""
+    and the host seconds in ``draft.propose`` (it ends in a host read).
+    With a ``router`` (phase 12's :class:`_Router`) each target call tells
+    it which rows it runs: a chunk's valid rows, or each decode / verify
+    row's logits key."""
     rec = {"logits": {}, "target": dict.fromkeys(build.LAUNCHES, 0),
            "draft": dict.fromkeys(build.LAUNCHES, 0), "draft_s": 0.0}
     live = []
@@ -650,7 +777,13 @@ def _meter(model, eng):
         def run(*a):
             n0 = dict(build.LAUNCHES)
             t0 = time.perf_counter()
+            if keep and router is not None:
+                T = a[2].shape[1]
+                router.begin([(r.slot * T + t, (r.rid, r.cached + 1 + t))
+                              for r in live for t in range(T)])
             out = fn(*a)
+            if keep and router is not None:
+                router.end()
             if key == "draft":       # proposals end in a host read
                 rec["draft_s"] += time.perf_counter() - t0
             for k, n in n0.items():
@@ -663,11 +796,21 @@ def _meter(model, eng):
             return out
         return run
 
+    def chunk(fn):
+        def run(*a):
+            router.begin_chunk(int(a[4]))      # its n_valid rows
+            fn(*a)
+            router.end()
+        return run
+
     draft = eng.draft
     eng._rows = noting
-    saved = {k: model.__dict__.get(k) for k in ("decode", "verify")}
+    saved = {k: model.__dict__.get(k)
+             for k in ("decode", "verify", "prefill_chunk")}
     model.decode = counted("target", model.decode, True)
     model.verify = counted("target", model.verify, True)
+    if router is not None:
+        model.prefill_chunk = chunk(model.prefill_chunk)
     if draft is not None:
         draft.propose = counted("draft", draft.propose, False)
     try:
@@ -678,7 +821,7 @@ def _meter(model, eng):
             del draft.propose
         for k, fn in saved.items():
             if fn is None:
-                del model.__dict__[k]
+                model.__dict__.pop(k, None)
             else:
                 setattr(model, k, fn)
 
@@ -1973,11 +2116,12 @@ def _conserved(cache, what):
 
 
 def _p9_run(model, params, prompts, temps, kw, n_new=P4_NEW, draft=None,
-            **ekw):
+            router=None, **ekw):
     """One engine over the phase's requests (request i: seed i), with the
-    meter on; both allocators must conserve afterwards."""
+    meter on (and ``router``, phase 12's); both allocators must conserve
+    afterwards."""
     eng = Engine(model, params, draft=draft, **kw, **ekw)
-    with _meter(model, eng) as rec:
+    with _meter(model, eng, router) as rec:
         rids = [eng.submit(p, max_new_tokens=n_new, temperature=t, seed=i)
                 for i, (p, t) in enumerate(zip(prompts, temps))]
         check(rids == list(range(len(prompts))), f"rids {rids}")
@@ -2706,6 +2850,298 @@ def mesh_engine():
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+P12_ARCH, P12_SEED = "deepseek-v2-lite-16b", 12
+
+
+class _Router:
+    """The MoE routing of one engine run, through ``models/moe.top_k``
+    while installed (``with router:``): every MoE call's top-k experts in
+    call order (``seen``), which of a call's rows are real (a chunk's
+    ``n_valid``; the live decode / verify rows), and each decode / verify
+    row's experts in every MoE layer (L, k) under its logits key (rid,
+    position of the token it predicts; ``by_key``, as :func:`_meter` keys
+    the logits).  It may force another run's choices instead of its own
+    (its own probabilities at them): ``calls`` by call order, where the
+    shapes agree; ``keys`` for decode / verify rows, by logits key."""
+
+    def __init__(self, calls=None, keys=None):
+        self.calls, self.keys = calls, keys
+        self.seen, self.valid, self.by_key = [], [], {}
+        self._rows, self._n, self._start = None, None, 0
+        self._ridx = self._forced = None
+
+    def begin(self, rows):
+        """A decode / verify call over ``rows``: [(flat row, key)]."""
+        self._rows, self._n, self._start = rows, None, len(self.seen)
+        self._ridx = self._forced = None
+        if self.keys is not None:
+            hit = [(r, self.keys[k]) for r, k in rows if k in self.keys]
+            if hit:
+                self._ridx = torch.tensor([r for r, _ in hit], device=DEV)
+                self._forced = torch.stack([f for _, f in hit])  # (n, L, k)
+
+    def begin_chunk(self, n_valid):
+        self._rows, self._n, self._start = None, n_valid, len(self.seen)
+
+    def end(self):
+        if self._rows is not None and len(self.seen) > self._start:
+            st = torch.stack(self.seen[self._start:])           # (L, R, k)
+            for r, key in self._rows:
+                self.by_key[key] = st[:, r]
+        self._rows = self._n = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._base = moe, moe.top_k
+        moe.top_k = self._top_k
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top_k = self._base
+
+    def _top_k(self, probs, k):
+        vals, idx = self._base(probs, k)
+        i, forced = len(self.seen), False
+        if self.calls is not None:
+            if i < len(self.calls) and self.calls[i].shape == idx.shape:
+                idx, forced = self.calls[i], True
+        elif self._forced is not None:
+            idx = idx.clone()
+            idx[self._ridx] = self._forced[:, i - self._start]
+            forced = True
+        if forced:
+            vals = probs.gather(-1, idx)
+        self.seen.append(idx)
+        self.valid.append(self._n if self._rows is None
+                          else [r for r, _ in self._rows])
+        return vals, idx
+
+
+def _route_diff(a, b, upto):
+    """(rows compared, rows whose top-k set differs) between two routers'
+    runs: the valid rows of their chunk calls (the same prefill chunks in
+    the same order), and the decode / verify rows of the logits keys both
+    have, up to ``upto[rid]`` (the position past which request rid's
+    streams part)."""
+    n = d = 0
+
+    def differ(x, y):
+        return int((x.sort(dim=-1)[0] != y.sort(dim=-1)[0]).any(dim=-1)
+                   .sum())
+    chunks = [[x for x, v in zip(r.seen, r.valid) if isinstance(v, int)]
+              for r in (a, b)]
+    nv = [v for v in a.valid if isinstance(v, int)]
+    for x, y, v in zip(*chunks, nv):
+        n += v
+        d += differ(x[:v], y[:v])
+    for key, x in a.by_key.items():
+        y = b.by_key.get(key)
+        if y is not None and key[1] <= upto[key[0]]:
+            n += x.shape[0]
+            d += differ(x, y)
+    return n, d
+
+
+def _p12_plain(cfg, params, prompts, temps, kw, router=None):
+    """Phase 12's workload through the same engine on the plain versions
+    (``impl="ref"``: chunk and paged attention in plain PyTorch)."""
+    model = DecoderLM(cfg, device=DEV, impl="ref")
+    return _p9_run(model, params, prompts, temps, kw, router=router)
+
+
+def _first_split(a, b):
+    """The first token where two streams differ, or None."""
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def deepseek():
+    """Phase 12: deepseek-v2-lite-16b (MLA + MoE) at full size through phase
+    4's engine and prompts: kernel A's latent route for the chunks, kernel
+    B over the latent pool; the served logits held to the same engine on
+    the plain versions, which must reject two controls; n-gram speculation
+    at depth 4 (B at Tq 5)."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    cfg = get_config(P12_ARCH)
+    a, m = cfg.attn, cfg.moe
+    model = DecoderLM(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(seed=P12_SEED)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    # param_count leaves out the norms: ln_f, two a layer, kv_ln
+    check(n_par - cfg.param_count() == (2 * cfg.n_layers + 1) * cfg.d_model
+          + cfg.n_layers * a.kv_lora_rank,
+          f"{cfg.name}: {n_par} parameters against param_count "
+          f"{cfg.param_count()} and the norms")
+    say(f"  {cfg.name} ({cfg.citation}): {cfg.n_layers} layers d_model "
+        f"{cfg.d_model}, MLA {a.n_heads} heads kv_lora {a.kv_lora_rank} "
+        f"rope {a.qk_rope_head_dim} nope {a.qk_nope_head_dim} v "
+        f"{a.v_head_dim}, {m.n_dense_layers} dense layer (d_ff "
+        f"{m.d_dense_ff}) then MoE {m.n_routed} routed + {m.n_shared} shared"
+        f" top-{m.top_k} d_expert {m.d_expert} capacity "
+        f"{m.capacity_factor}, vocab {cfg.vocab}, bf16, "
+        f"{cfg.param_count() / 1e9:.2f} B params ({n_par} with norms), "
+        f"seed {P12_SEED}, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB); nothing cut")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in P4_LENS]
+    temps = [0.0] * len(prompts)
+    warm = Engine(model, params, **P4_ENGINE)
+    warm.submit(prompts[3][:P10_WARM], max_new_tokens=2)
+    warm.run()
+    check(warm.cache.layout == "mla", "the engine's pool is not latent")
+    pool_mb = sum(t.numel() * t.element_size()
+                  for t in warm.cache.pools.values()) / 1e6
+    del warm
+    build.reset_launches()
+    rk = _Router()
+    with rk:
+        van = _p9_run(model, params, prompts, temps, P4_ENGINE, router=rk)
+    launches = dict(build.LAUNCHES)
+    st = van["st"]
+    check(launches["flash_fwd_latent"] > 0 and launches["paged_decode"] > 0,
+          f"{cfg.name}: kernels A (latent route) and B must launch: "
+          f"{launches}")
+    check(launches["flash_fwd"] == 0, "a one-D route of A ran on MLA")
+    check(st["n_preemptions"] == 0, "the phase's pool preempted")
+    for i, o in enumerate(van["out"]):
+        check(len(o) == P4_NEW and bool(((o >= 0) & (o < cfg.vocab)).all()),
+              f"{cfg.name} request {i}: {o}")
+    pf, dc = st["prefill_seconds"], st["decode_seconds"]
+    res = dict(launches=launches, prefill_tok_s=st["prefill_tokens"] / pf,
+               decode_tok_s=st["decode_tokens"] / dc,
+               decode_ms=1e3 * dc / st["decode_steps"], pool_mb=pool_mb)
+    say(f"  served {len(prompts)} requests ({P4_NEW} greedy tokens each, "
+        f"latent pool {pool_mb:.1f} MB): prefill {res['prefill_tok_s']:.1f} "
+        f"tok/s ({pf:.3f} s), decode {res['decode_tok_s']:.1f} tok/s "
+        f"({res['decode_ms']:.2f} ms a step); launches A (latent) "
+        f"{launches['flash_fwd_latent']}, B {launches['paged_decode']}")
+
+    # the same engine on the plain versions, with its own routing: a
+    # router near-tie that rounding tips one way moves a token to another
+    # expert (and, in a prefill chunk, other tokens' capacity slots), so
+    # the logits are a discontinuous function of the attention outputs;
+    # this run is reported (differing top-6 sets of real rows, streams,
+    # logits at the first decode step) and the gate takes the next one
+    n0 = len(prompts[0])
+    rp = _Router()
+    with rp:
+        free = _p12_plain(cfg, params, prompts, temps, P4_ENGINE, router=rp)
+    upto = {i: len(p) + (P4_NEW - 1 if j is None else j)
+            for i, p, j in ((i, p, _first_split(x, y)) for i, (p, x, y)
+                            in enumerate(zip(prompts, van["out"],
+                                             free["out"])))}
+    rows, differ = _route_diff(rk, rp, upto)
+    del rp
+    streams = sum(np.array_equal(x, y) for x, y in zip(van["out"],
+                                                       free["out"]))
+    fw = free["rec"]["logits"][(0, n0)].float()
+    free_err = float((van["rec"]["logits"][(0, n0)].float() - fw).abs()
+                     .max()) / float(fw.abs().max())
+    say(f"  plain engine, its own routing: top-{m.top_k} sets differing "
+        f"from the kernel run's in {differ} of {rows} (token, layer) rows "
+        f"(prompt rows, and decode rows until the streams part); streams "
+        f"equal in "
+        f"{streams} of {len(prompts)} (request 0 first parts at token "
+        f"{_first_split(van['out'][0], free['out'][0])}); first decode "
+        f"step's logits max|Δ| {free_err:.4f} of max |logit|")
+    del free
+    # the gate: the plain engine replaying the kernel run's expert choices
+    with _Router(calls=rk.seen) as rr:
+        ref = _p12_plain(cfg, params, prompts, temps, P4_ENGINE, router=rr)
+    del rr
+    j = _first_split(van["out"][0], ref["out"][0])
+    pos = n0 + P4_NEW - 1 if j is None else n0
+    if j is not None:
+        say(f"  request 0's streams part at token {j} (near-tie: kernel "
+            f"{van['out'][0][j]} vs plain {ref['out'][0][j]}); the gate "
+            f"compares the first decode step (position {pos})")
+    got = van["rec"]["logits"][(0, pos)].float()
+    want = ref["rec"]["logits"][(0, pos)].float()
+    scale = float(want.abs().max())
+    lim = LOGIT_REL_TOL * scale
+    d = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and d <= lim,
+          f"{cfg.name}: served logits vs the plain engine max|Δ| {d} > "
+          f"{lim}")
+    # control 1: the context without its last token (the plain engine's
+    # row one position earlier, or a run with that prompt)
+    if (0, pos - 1) in ref["rec"]["logits"]:
+        short = ref["rec"]["logits"][(0, pos - 1)].float()
+    else:
+        cut = _p12_plain(cfg, params, [prompts[0][:-1]] + prompts[1:],
+                         temps, P4_ENGINE)
+        short = cut["rec"]["logits"][(0, pos - 1)].float()
+    d_pos = float((short - want).abs().max())
+    # control 2: a window that hides the oldest block at that step
+    win = _p12_plain(cfg.replace(attn=dataclasses.replace(
+        a, window=pos - P4_ENGINE["block_size"])), params, prompts, temps,
+        P4_ENGINE)
+    d_blk = float((win["rec"]["logits"][(0, pos)].float() - want)
+                  .abs().max())
+    check(d_pos > lim and d_blk > lim, f"{cfg.name}: the logit limit {lim} "
+          f"does not reject both controls ({d_pos}, {d_blk})")
+    replayed = sum(np.array_equal(x, y) for x, y in zip(van["out"],
+                                                         ref["out"]))
+    say(f"  last logits of the {n0}-token request (position {pos}) vs the "
+        f"plain engine replaying the kernel run's experts: max|Δ| {d:.4f} "
+        f"(max|logit| {scale:.3f}, limit {lim:.4f}), argmax "
+        f"{int(got.argmax())} vs {int(want.argmax())}; streams equal in "
+        f"{replayed} of {len(prompts)}; controls rejected: context without "
+        f"its last token max|Δ| {d_pos:.4f}, oldest block hidden max|Δ| "
+        f"{d_blk:.4f}")
+    res.update(err=d / scale, ctl_pos=d_pos / scale, ctl_blk=d_blk / scale,
+               gate_pos=pos, route_rows=rows, route_differ=differ,
+               streams_free=streams, free_err=free_err,
+               streams_replayed=replayed)
+    del ref, win
+
+    # n-gram speculation at depth 4: verify through B at Tq 5; each row
+    # the vanilla run decoded takes the vanilla row's experts (keyed by
+    # request and position), so the verify rows are held to the decode
+    # rows without the routing discontinuity (GEMMs of B·5 rows round
+    # otherwise than of B)
+    kw = dict(P4_ENGINE)
+    kw["n_blocks"] += len(prompts) * -(-P9_DEPTH // kw["block_size"])
+    n0l = dict(build.LAUNCHES)
+    with _Router(keys=rk.by_key) as rn:
+        ng = _p9_run(model, params, prompts, temps, kw, router=rn,
+                     spec=SpecConfig(depth=P9_DEPTH, mode="ngram"))
+    del rk, rn
+    worst, divs = _p9_compare(van, ng, prompts, temps)
+    sst = ng["st"]
+    spec_b = build.LAUNCHES["paged_decode"] - n0l["paged_decode"]
+    res.update(spec_err=worst, spec_divs=len(divs),
+               spec_tok_s=sst["decode_tokens"] / sst["decode_seconds"],
+               spec_acceptance=sst["spec_acceptance"], spec_B=spec_b)
+    say(f"  n-gram depth {P9_DEPTH} (B at Tq {1 + P9_DEPTH} x 16 heads): "
+        f"streams equal vanilla's but at near-ties ({len(divs)} "
+        f"divergences), committed rows max|Δ| {worst:.3e} of max |logit|, "
+        f"decode {res['spec_tok_s']:.1f} tok/s, acceptance "
+        f"{sst['spec_acceptance']:.3f}, "
+        f"{sst['decode_tokens'] / sst['decode_steps']:.3f} tokens a step, "
+        f"B launches {spec_b}")
+    for name in launches:
+        launches[name] = build.LAUNCHES[name]
+    res["peak"] = torch.cuda.max_memory_allocated()
+    say(f"  peak {res['peak'] / 2**30:.2f} GiB allocated "
+        f"({torch.cuda.max_memory_reserved() / 2**30:.2f} reserved)")
+    del van, ng
+    _free()
+    trace(model, params, prompts)
+    del model, params
+    _free()
+    res["seconds"] = time.perf_counter() - t_all
+    say(f"  phase 12 took {res['seconds']:.1f} s")
+    return res
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -2808,6 +3244,56 @@ def time_flash(launches):
     return row
 
 
+LATENT_DESIGN = ("CUDA cores, float32 FMAs: one 256-thread block per (16-row "
+                 "q tile, head); 32-key tiles of the host's block-sparse "
+                 "table staged as float32 in shared memory (rows padded to "
+                 "DK + 4); v read from the staged k rows when it is their "
+                 "prefix view; online softmax per row in a half-warp")
+
+
+def time_latent(launches):
+    """Kernel A's latent route at phase 12's serving chunk (Tq 256 at
+    q_offset 768 over 1024 gathered latent rows, 16 heads, bf16): its time,
+    its plain version's, SDPA's with an explicit mask (q/k 576, v 512,
+    ``enable_gqa``), its bound and its error."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    q, k, v = _latent_chunk(gen, torch.bfloat16)
+    Tq, Tk, off = q.shape[1], k.shape[1], 768
+    m = mk.causal(rel_offset=off)
+    o, _ = flash_fwd(q, k, v, mask=m, scale=LAT_SCALE)
+    o_r, _ = chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE)
+    err = float((o.float() - o_r.float()).abs().max())
+    ms = cuda_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
+    plain = cuda_ms(lambda: chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    allow = (torch.arange(Tk, device=DEV)[None, :]
+             <= off + torch.arange(Tq, device=DEV)[:, None])
+    try:
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allow, scale=LAT_SCALE, enable_gqa=True))
+    except RuntimeError as e:     # no SDPA backend takes the shape
+        say(f"  sdpa at q/k {LAT_DK}, v {LAT_DV}: {str(e)[:120]}")
+        lib = None
+    pairs = sum(min(Tk, off + t + 1) for t in range(Tq))
+    flops = 2.0 * LAT_H * pairs * (LAT_DK + LAT_DV)
+    nbytes = 2 * (Tq * LAT_H * (LAT_DK + LAT_DV) + Tk * LAT_DK) \
+        + 4 * Tq * LAT_H
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    say(f"  flash_fwd_latent Tq{Tq} Tk{Tk} H{LAT_H}/1 D{LAT_DK}/{LAT_DV} "
+        f"bf16 causal@{off}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain:.4f} ms, sdpa "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
+        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+        f"max|Δo| {err:.3e}")
+    return {"name": "flash_fwd_latent", "route": "cuda",
+            "design": LATENT_DESIGN,
+            "source": "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:157",
+            "launches": launches["flash_fwd_latent"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
+
+
 def time_flash_train(seen):
     """Kernel A at the training shape: the layer-1 forward inputs kept in
     phase 6 (B 1, T 8192, 32 heads × 128, bf16, causal), beside its bound,
@@ -2870,24 +3356,33 @@ def _paged_device_ms(call, n=40):
     return us / 1e3 / n
 
 
-def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens):
+def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens, latent=False):
     """Kernel B L2-cold at one shape: every launch reads one of PAGED_POOLS
     distinct pool pairs in turn (together far above the 50 MB L2, as the
     engine's 32 layers are).  Returns its device time, the wrapper's time
     (CUDA events around one call), the host time of one call (a host clock
     around 1000 calls, no sync inside), the plain version's time, the bound
-    and the error against the plain version."""
-    q, kp, vp, bt, ln = _paged_inputs(gen, B, Tq, Hq, Hkv, D, bs, lens,
-                                      torch.bfloat16)
-    pools = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
-                          for _ in range(PAGED_POOLS - 1)]
+    and the error against the plain version.  ``latent``: the MLA latent
+    pool (q/k 576 over one kv head, v its 512-column view, Hq 16), whose
+    bytes are the latent rows read once."""
+    if latent:
+        q, kp, vp, bt, ln = _latent_pool(gen, B, Tq, lens, torch.bfloat16)
+        more = [torch.randn_like(kp) for _ in range(PAGED_POOLS - 1)]
+        pools = [(kp, vp)] + [(k, k[..., :LAT_DV]) for k in more]
+        sc = LAT_SCALE
+    else:
+        q, kp, vp, bt, ln = _paged_inputs(gen, B, Tq, Hq, Hkv, D, bs, lens,
+                                          torch.bfloat16)
+        pools = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
+                              for _ in range(PAGED_POOLS - 1)]
+        sc = None
     m = mk.causal()
 
     def call(i):
         k, v = pools[i % PAGED_POOLS]
-        return paged_attn(q, k, v, bt, ln, mask=m)
+        return paged_attn(q, k, v, bt, ln, mask=m, scale=sc)
     o = call(0)
-    o_r = paged_attn_ref(q, kp, vp, bt, ln, mask=m)
+    o_r = paged_attn_ref(q, kp, vp, bt, ln, mask=m, scale=sc)
     err = float((o.float() - o_r.float()).abs().max())
     dev = _paged_device_ms(call)
     it = iter(range(1 << 30))
@@ -2899,13 +3394,21 @@ def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens):
     host = 1e3 * (time.perf_counter() - t0) / 1000
     torch.cuda.synchronize()
     plain = cuda_ms(lambda: paged_attn_ref(q, *pools[next(it) % PAGED_POOLS],
-                                           bt, ln, mask=m), reps=5, warmup=1)
+                                           bt, ln, mask=m, scale=sc),
+                    reps=5, warmup=1)
     ctx = sum(lens)
-    flops = 4.0 * ctx * Hq * Tq * D
-    nbytes = 2 * (2 * ctx * Hkv * D + 2 * B * Tq * Hq * D) \
-        + 4 * (B + bt.numel())
+    if latent:
+        D, Hq, Hkv = LAT_DK, LAT_H, 1
+        flops = 2.0 * ctx * Hq * Tq * (LAT_DK + LAT_DV)
+        nbytes = 2 * (ctx * LAT_DK + B * Tq * Hq * (LAT_DK + LAT_DV)) \
+            + 4 * (B + bt.numel())
+    else:
+        flops = 4.0 * ctx * Hq * Tq * D
+        nbytes = 2 * (2 * ctx * Hkv * D + 2 * B * Tq * Hq * D) \
+            + 4 * (B + bt.numel())
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    say(f"  paged_decode B{B} Tq{Tq} Hq{Hq} Hkv{Hkv} D{D} bs{bs} bf16 "
+    dims = f"D{LAT_DK}/{LAT_DV} latent" if latent else f"D{D}"
+    say(f"  paged_decode B{B} Tq{Tq} Hq{Hq} Hkv{Hkv} {dims} bs{bs} bf16 "
         f"lengths {lens if len(lens) < 5 else len(lens)}, L2-cold: device "
         f"{dev:.4f} ms ({nbytes / dev / 1e6:.1f} GB/s, {b_ms / dev:.3f} of "
         f"the bound), wrapper {wrap:.4f} ms, host {host:.4f} ms a call, "
@@ -2925,7 +3428,8 @@ def time_paged(launches):
     shapes: the verify pass (Tq 5 on llama-7b's heads) and the draft's
     decode (smollm-360m: 15 query heads over 5 kv heads of 64); and the
     Qwen family's head pairs at the serving step and at verify Tq 5
-    (phase 10: ``qwen_h{Hq}_{Hkv}_{serve,verify}_*`` keys)."""
+    (phase 10: ``qwen_h{Hq}_{Hkv}_{serve,verify}_*`` keys), and the MLA
+    latent pool of phase 12 at Tq 1 and 5 (``mla_{serve,verify}_*``)."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     lens = [1016, 716, 529, 80]
     serve = _paged_timing(gen, 4, 1, 32, 32, 128, 16, lens)
@@ -2937,6 +3441,9 @@ def time_paged(launches):
                                                       128, 16, lens)
             for hq, hkv in QWEN_HEADS
             for tag, tq in (("serve", 1), ("verify", 1 + P9_DEPTH))}
+    mla = {f"mla_{tag}": _paged_timing(gen, 4, tq, LAT_H, 1, LAT_DK, 16,
+                                       LAT_LENS, latent=True)
+           for tag, tq in (("serve", 1), ("verify", 1 + P9_DEPTH))}
     row = {"name": "paged_decode", "route": "cuda", "design": PAGED_DESIGN,
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/paged.py:182",
@@ -2944,7 +3451,7 @@ def time_paged(launches):
            "library_note": PAGED_LIBRARY}
     row.update(serve)
     for name, r in (("long", long), ("gqa", gqa), ("verify", verify),
-                    ("draft", draft), *qwen.items()):
+                    ("draft", draft), *qwen.items(), *mla.items()):
         row.update({f"{name}_{k}": x for k, x in r.items()})
     return row
 
@@ -3043,6 +3550,7 @@ def main():
 
     say("== phase 3: kernels against their plain versions")
     kernel_checks()
+    latent_checks()
     bwd_checks()
     say("== phase 3c: kernels A, C and D under every plan step's mask")
     plan_step_checks()
@@ -3084,18 +3592,23 @@ def main():
     me = mesh_engine()
     say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     _free()
+    say("== phase 12: deepseek-v2-lite-16b (MLA + MoE) at full size through "
+        "the paged engine")
+    dk = deepseek()
 
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
                 + sp["launches"].get(k, 0) + qw["launches"].get(k, 0)
-                + me["launches"].get(k, 0) for k in res["launches"]}
+                + me["launches"].get(k, 0) + dk["launches"].get(k, 0)
+                for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
         f"long-context prefill (all ranks) {lg['launches']}, speculative "
         f"serving (runs 1-5) {sp['launches']}, qwen {qw['launches']}, "
-        f"mesh engine (all ranks) {me['launches']}")
-    rows = [time_flash(launches), time_paged(launches),
+        f"mesh engine (all ranks) {me['launches']}, deepseek "
+        f"{dk['launches']}")
+    rows = [time_flash(launches), time_latent(launches), time_paged(launches),
             *time_bwd(launches, tr["seen"], errs)]
     rows[0].update(time_flash_train(tr["seen"]))
     say(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -2,8 +2,9 @@
 
 Configs are plain frozen dataclasses, so they hash and print cleanly.  The
 fields are the reference's fields for a dense / GQA decoder (with the Qwen
-family's ``qkv_bias`` and ``qk_norm``), so a reference config and its port
-describe the same model; the MLA, MoE, SSM, hybrid and
+family's ``qkv_bias`` and ``qk_norm``) and for DeepSeek's multi-head latent
+attention (MLA) and mixture-of-experts FFN (:class:`MoEConfig`), so a
+reference config and its port describe the same model; the SSM, hybrid and
 encoder fields arrive with the slices that serve those models.
 """
 from __future__ import annotations
@@ -16,25 +17,51 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class AttnConfig:
-    """Attention-block configuration (dense multi-head / GQA)."""
+    """Attention-block configuration (dense multi-head / GQA / MLA)."""
     n_heads: int
     n_kv_heads: int
     head_dim: int
     qkv_bias: bool = False           # Qwen2-style bias on q,k,v projections
     qk_norm: bool = False            # Qwen3-style RMSNorm on q,k heads
     rope_theta: float = 10_000.0
+    # --- MLA (DeepSeek multi-head latent attention) ---
+    kv_lora_rank: int = 0            # 0 => standard GQA path
+    q_lora_rank: int = 0
+    qk_rope_head_dim: int = 0        # decoupled rope key dim (MLA only)
+    v_head_dim: int = 0              # MLA value head dim (defaults head_dim)
     window: int = 0                  # 0 => full causal attention
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_nope_head_dim(self) -> int:
+        return self.head_dim         # MLA: the non-rope part of a q/k head
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int                    # routed experts
+    n_shared: int                    # shared (always-on) experts
+    top_k: int
+    d_expert: int                    # per-expert FFN hidden size
+    d_dense_ff: int                  # FFN size of the leading dense layers
+    n_dense_layers: int = 1          # leading layers that use a dense FFN
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.001
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                   # "dense" is the one the port serves
+    arch_type: str                   # "dense" or "moe" (the ones served)
     n_layers: int
     d_model: int
     d_ff: int
     vocab: int
     attn: Optional[AttnConfig] = None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     citation: str = ""
@@ -44,13 +71,43 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameter count of a dense / GQA decoder (the reference's: the
-        q/k/v biases and qk-norm weights are not counted)."""
-        a, d = self.attn, self.d_model
-        attn = d * (a.n_heads * a.head_dim + 2 * a.n_kv_heads * a.head_dim) \
-            + a.n_heads * a.head_dim * d
-        n = self.vocab * d * (1 if self.tie_embeddings else 2)
-        return n + self.n_layers * (attn + 3 * d * self.d_ff)
+        """Parameter count N of a dense or MoE decoder, the reference's
+        (norms, the q/k/v biases and qk-norm weights are not counted)."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (MoE: the shared and top-k
+        routed experts)."""
+        return _param_count(self, active_only=True)
+
+
+def _attn_params(c: ModelConfig) -> int:
+    a, d = c.attn, c.d_model
+    if a.is_mla:
+        vh = a.v_head_dim or a.head_dim
+        qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+        q_in = (d * a.q_lora_rank + a.q_lora_rank * a.n_heads * qk
+                if a.q_lora_rank else d * a.n_heads * qk)
+        kv_in = d * (a.kv_lora_rank + a.qk_rope_head_dim)
+        kv_up = a.kv_lora_rank * a.n_heads * (a.qk_nope_head_dim + vh)
+        return q_in + kv_in + kv_up + a.n_heads * vh * d
+    hd = a.head_dim
+    return d * (a.n_heads * hd + 2 * a.n_kv_heads * hd) + a.n_heads * hd * d
+
+
+def _param_count(c: ModelConfig, active_only: bool = False) -> int:
+    """The reference's ``_param_count`` for dense and MoE decoders."""
+    d = c.d_model
+    n = c.vocab * d * (1 if c.tie_embeddings else 2)
+    attn = _attn_params(c)
+    if c.moe is None:
+        return n + c.n_layers * (attn + 3 * d * c.d_ff)
+    m = c.moe
+    expert = 3 * d * m.d_expert
+    routed = (m.top_k if active_only else m.n_routed) * expert
+    n += c.n_layers * attn + m.n_dense_layers * 3 * d * m.d_dense_ff
+    return n + (c.n_layers - m.n_dense_layers) * (
+        m.n_shared * expert + d * m.n_routed + routed)
 
 
 @dataclass(frozen=True)
@@ -123,14 +180,25 @@ class TrainConfig:
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family for CPU tests: 2 layers, 4 heads
-    of 32, f32 — the reference's ``smoke_config`` for dense decoders."""
+    of 32, f32, MLA ranks 32 / rope 16 / v 32, 4 routed experts (top 2,
+    capacity 4.0) — the reference's ``smoke_config`` for dense and MoE
+    decoders."""
     kw = dict(n_layers=2, vocab=512, dtype="float32")
     if cfg.attn is not None:
         a = cfg.attn
         g = max(1, a.n_heads // max(a.n_kv_heads, 1))
         n_heads = 4
         kw["attn"] = dataclasses.replace(
-            a, n_heads=n_heads, n_kv_heads=max(1, n_heads // g), head_dim=32)
+            a, n_heads=n_heads, n_kv_heads=max(1, n_heads // g), head_dim=32,
+            kv_lora_rank=32 if a.kv_lora_rank else 0,
+            q_lora_rank=32 if a.q_lora_rank else 0,
+            qk_rope_head_dim=16 if a.qk_rope_head_dim else 0,
+            v_head_dim=32 if a.v_head_dim else 0)
         kw["d_model"] = n_heads * 32
         kw["d_ff"] = 256
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_routed=4, n_shared=min(cfg.moe.n_shared, 1),
+            top_k=2, d_expert=64, d_dense_ff=128, n_dense_layers=1,
+            capacity_factor=4.0)
     return dataclasses.replace(cfg, **kw)

@@ -13,8 +13,10 @@ package on a host without ``nvcc`` works, and only a CUDA launch builds.
 ``LAUNCHES`` counts kernel launches by kernel name: ``flash_fwd`` (kernel
 A), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (kernels C and D) each count one
 route or the other, ``flash_fwd_sm90.cu`` / ``flash_bwd_sm90.cu`` for bf16
-and ``flash_fwd.cu`` / ``flash_bwd.cu`` for float32; each wrapper adds one
-where it launches its kernel, and nowhere else.  Headers
+and ``flash_fwd.cu`` / ``flash_bwd.cu`` for float32; ``flash_fwd_latent``
+counts kernel A's latent route (``flash_fwd_latent.cu``, MLA's q/k 576 and
+v 512) and ``paged_decode`` kernel B; each wrapper adds one where it
+launches its kernel, and nowhere else.  Headers
 (``csrc/*.cuh``) are part of every source's hash.
 """
 from __future__ import annotations
@@ -31,12 +33,13 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_fwd", "paged_decode", "flash_bwd",        # sources
-           "flash_bwd_sm90", "flash_fwd_sm90")
+           "flash_bwd_sm90", "flash_fwd_sm90", "flash_fwd_latent")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    "flash_fwd", "paged_decode", "flash_bwd_dq", "flash_bwd_dkv")}
+    "flash_fwd", "paged_decode", "flash_bwd_dq", "flash_bwd_dkv",
+    "flash_fwd_latent")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -46,6 +46,18 @@
 //   does.  No atomics anywhere: split boundaries depend only on the
 //   request's own positions, so a request's output is bitwise the same alone
 //   or in any batch, under any block table, launch after launch.
+//
+// Latent shape (DeepSeek MLA, absorbed): q/k head dim DK = 576 (the kv_lora
+// 512 latent ⊕ rope 64), v head dim DV = 512, one kv head under a group of 16
+// query heads, and the value pool a prefix view of the key pool (the latent
+// row's first 512 columns).  The kernel is templated on (DK, DV): a score
+// takes 8 lanes over the row's 72 (bf16) or 144 (float32) 16-byte pieces;
+// p · v gives each of the 256 threads one column pair of the 512 (NLG 1);
+// the ring has 2 stages of 32 (bf16) or 16 (float32) tokens, 68 KB each,
+// one block an SM.  When the value pool lies inside the key pool (same
+// pointer and strides) only the latent rows are staged and V is read from
+// their first DV columns: half the bytes.  Every query row of a GQA group
+// (16 heads x Tq) shares each staged tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -82,6 +94,7 @@ struct PagedParams {
   long long o_sb, o_st, o_sh;
   long long t_sb;
   int Tq, group, bs, nb, window, Ls, S, n_rg, Hq;
+  int v_in_k;          // the V pool is the K pool's first DV columns
   float qscale;        // scale · log2(e)
 };
 
@@ -123,35 +136,44 @@ __device__ __forceinline__ void pair_f(const __nv_bfloat16* p, float& x,
   y = __uint_as_float(w & 0xffff0000u);
 }
 
-// Compile-time shape of the split kernel for element type T, head dim D
-// and at most RM query rows a block (1, 4, or RG).
-template <typename T, int D, int RM>
+// Compile-time shape of the split kernel for element type T, q/k head dim
+// DK, v head dim DV and at most RM query rows a block (1, 4, or RG).
+template <typename T, int DK, int DV, int RM>
 struct Cfg {
   static constexpr int ESZ = sizeof(T);
-  static constexpr int ROWB = D * ESZ;           // bytes of one K or V row
-  static constexpr int CPR = ROWB / 16;          // 16-byte chunks per row
-  static constexpr int EPC = 16 / ESZ;           // elements per chunk
-  static constexpr int TT =                      // tokens a tile, 32..128
-      TILE_BYTES / ROWB < 32    ? 32
+  static constexpr bool LAT = DK != DV;           // the latent shape
+  static constexpr int ROWB = DK * ESZ;           // bytes of one K row
+  static constexpr int ROWV = DV * ESZ;           // bytes of one V row
+  static constexpr int CPR = ROWB / 16;           // 16-byte chunks per K row
+  static constexpr int CPRV = ROWV / 16;          // and per V row
+  static constexpr int EPC = 16 / ESZ;            // elements per chunk
+  static constexpr int TT =                       // tokens a tile
+      LAT                       ? 512 / ESZ / 16  // 32 bf16, 16 float32
+      : TILE_BYTES / ROWB < 32  ? 32
       : TILE_BYTES / ROWB > 128 ? 128
                                 : TILE_BYTES / ROWB;
-  static constexpr int LPS = CPR < 8 ? CPR : 8;  // lanes per score
-  static constexpr int CPL = CPR / LPS;          // chunks per lane
-  static constexpr int NG = NT / LPS;            // score groups per block
-  static constexpr int NCP = D / 2;              // column pairs in p · v
-  static constexpr int NLG = NT / NCP;           // token lanes in p · v
-  static constexpr int STAGE = 2 * TT * ROWB;    // K tile then V tile
-  static_assert(TT % NG == 0 && TT % 32 == 0, "tile must divide evenly");
+  static constexpr int ST = LAT ? 2 : 4;          // ring stages
+  static constexpr int MINB = LAT ? 1 : 3;        // blocks an SM
+  static constexpr int LPS = CPR < 8 ? CPR : 8;   // lanes per score
+  static constexpr int CPL = CPR / LPS;           // chunks per lane
+  static constexpr int NG = NT / LPS;             // score groups per block
+  static constexpr int NCP = DV / 2;              // column pairs in p · v
+  static constexpr int NLG = NT / NCP;            // token lanes in p · v
+  static constexpr int STAGE = TT * (ROWB + ROWV);  // K tile then V tile
+  static_assert(CPR % LPS == 0, "score lanes must divide a row");
+  static_assert(LAT || (TT % NG == 0 && TT % 32 == 0),
+                "tile must divide evenly");
   static_assert(NT % NCP == 0 && TT % NLG == 0, "p · v must divide evenly");
-  static_assert(NLG * RM * D * 4 <= ST * STAGE, "reduction must fit the ring");
+  static_assert(NLG * RM * DV * 4 <= ST * STAGE,
+                "reduction must fit the ring");
 };
 
 // Dynamic shared memory of the split kernel: the ring, q, the tile's
 // scores, the rows' (m, l, alpha) and the split's table entries.
-template <typename T, int D, int RM>
+template <typename T, int DK, int DV, int RM>
 __host__ __device__ constexpr int smem_fixed() {
-  return ST * Cfg<T, D, RM>::STAGE + RM * D * 4 + RM * Cfg<T, D, RM>::TT * 4 +
-         3 * RM * 4;
+  using C = Cfg<T, DK, DV, RM>;
+  return C::ST * C::STAGE + RM * DK * 4 + RM * C::TT * 4 + 3 * RM * 4;
 }
 
 // Live token range of request b: [t_lo, t_hi), and its live splits.
@@ -173,14 +195,16 @@ __device__ __forceinline__ Live live_range(const PagedParams& a, int b) {
   return L;
 }
 
-template <typename T, int D, int RM>
-__global__ void __launch_bounds__(NT, 3)
+template <typename T, int DK, int DV, int RM>
+__global__ void __launch_bounds__(NT, (Cfg<T, DK, DV, RM>::MINB))
     paged_decode_split_kernel(PagedParams a) {
-  using C = Cfg<T, D, RM>;
+  using C = Cfg<T, DK, DV, RM>;
   constexpr int TT = C::TT;
+  constexpr int ST = C::ST;
+  constexpr int D = DK;         // q and score width
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
-  float* sQ = reinterpret_cast<float*>(smem + ST * C::STAGE);   // RM × D
+  float* sQ = reinterpret_cast<float*>(smem + ST * C::STAGE);   // RM × DK
   float* sS = sQ + RM * D;                                       // RM × TT
   float* sM = sS + RM * TT;
   float* sL = sM + RM;
@@ -216,8 +240,8 @@ __global__ void __launch_bounds__(NT, 3)
 
   if (lo >= hi) {               // nothing attendable in this split
     if (L.s_hi == L.s_lo && s == 0) {   // nor in the request: o = 0
-      for (int i = tid; i < nr * D; i += NT) {
-        const int r = r0 + i / D, c = i % D;
+      for (int i = tid; i < nr * DV; i += NT) {
+        const int r = r0 + i / DV, c = i % DV;
         const int gi = r / a.Tq, t = r - gi * a.Tq;
         store_f(ob + t * a.o_st + (hk * a.group + gi) * a.o_sh + c, 0.f);
       }
@@ -243,6 +267,7 @@ __global__ void __launch_bounds__(NT, 3)
   const T* vb = static_cast<const T*>(a.vp) + hk * a.v_sh;
   const uint32_t ring_u = smem_u32(ring);
 
+  const bool v_in_k = a.v_in_k;
   auto load_tile = [&](int n) {
     const uint32_t dk = ring_u + (n % ST) * C::STAGE;
     const uint32_t dv = dk + TT * C::ROWB;
@@ -260,9 +285,9 @@ __global__ void __launch_bounds__(NT, 3)
         ks = kb + blk * a.k_sn + slot * a.k_ss + c * C::EPC;
         vs = vb + blk * a.v_sn + slot * a.v_ss + c * C::EPC;
       }
-      const uint32_t off = j * C::ROWB + c * 16;
-      cp_async16(dk + off, ks, ok);
-      cp_async16(dv + off, vs, ok);
+      cp_async16(dk + j * C::ROWB + c * 16, ks, ok);
+      if (!v_in_k && c < C::CPRV)
+        cp_async16(dv + j * C::ROWV + c * 16, vs, ok);
     }
   };
 
@@ -286,7 +311,10 @@ __global__ void __launch_bounds__(NT, 3)
     cp_async_commit();
 
     const unsigned char* kt = ring + (n % ST) * C::STAGE;
-    const T* vt = reinterpret_cast<const T*>(kt + TT * C::ROWB);
+    // V rows: the staged V tile, or the K tile's first DV columns
+    const T* vt = reinterpret_cast<const T*>(v_in_k ? kt
+                                                    : kt + TT * C::ROWB);
+    const int vrow = v_in_k ? DK : DV;
     const int t0 = base + (n0 + n) * TT;
 
     // scores, log2 domain: LPS lanes per (row, token)
@@ -326,12 +354,13 @@ __global__ void __launch_bounds__(NT, 3)
     __syncthreads();
 
     // one max and one sum per row and tile
+    constexpr int NPL = (TT + 31) / 32;    // tokens a lane
     for (int r = warp; r < nr; r += NW) {
-      float sv[TT / 32];
+      float sv[NPL];
       float mx = kNegInf;
 #pragma unroll
-      for (int i = 0; i < TT / 32; ++i) {
-        sv[i] = sS[r * TT + i * 32 + lane];
+      for (int i = 0; i < NPL; ++i) {
+        sv[i] = i * 32 + lane < TT ? sS[r * TT + i * 32 + lane] : kNegInf;
         mx = fmaxf(mx, sv[i]);
       }
 #pragma unroll
@@ -342,7 +371,8 @@ __global__ void __launch_bounds__(NT, 3)
       const bool empty = m_new <= kNegInf * 0.5f;
       float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < TT / 32; ++i) {
+      for (int i = 0; i < NPL; ++i) {
+        if (i * 32 + lane >= TT) continue;
         const float p = empty ? 0.f : exp2f(sv[i] - m_new);
         sS[r * TT + i * 32 + lane] = p;
         sum += p;
@@ -371,7 +401,7 @@ __global__ void __launch_bounds__(NT, 3)
 #pragma unroll 4
     for (int j = tl; j < TT; j += C::NLG) {
       float v0, v1;
-      pair_f(vt + j * D + col, v0, v1);
+      pair_f(vt + j * vrow + col, v0, v1);
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
         if (r < nr) {
@@ -386,20 +416,20 @@ __global__ void __launch_bounds__(NT, 3)
   __syncthreads();
 
   // sum the token lanes' partials in a fixed order (through the ring)
-  float* red = reinterpret_cast<float*>(ring);     // NLG × RM × D
+  float* red = reinterpret_cast<float*>(ring);     // NLG × RM × DV
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     if (r < nr) {
-      red[(tl * RM + r) * D + col] = acc[r][0];
-      red[(tl * RM + r) * D + col + 1] = acc[r][1];
+      red[(tl * RM + r) * DV + col] = acc[r][0];
+      red[(tl * RM + r) * DV + col + 1] = acc[r][1];
     }
   }
   __syncthreads();
   const int RT = a.Hq * a.Tq;
-  for (int i = tid; i < nr * D; i += NT) {
-    const int r = i / D, c = i - r * D;
-    float x = red[r * D + c];
-    for (int w = 1; w < C::NLG; ++w) x += red[(w * RM + r) * D + c];
+  for (int i = tid; i < nr * DV; i += NT) {
+    const int r = i / DV, c = i - r * DV;
+    float x = red[r * DV + c];
+    for (int w = 1; w < C::NLG; ++w) x += red[(w * RM + r) * DV + c];
     const float l = sL[r];
     const float val = l == 0.f ? 0.f : x / l;
     const int rr = r0 + r;
@@ -409,7 +439,7 @@ __global__ void __launch_bounds__(NT, 3)
     } else {
       const long long row = (static_cast<long long>(b) * a.S + s) * RT +
                             hk * R + rr;
-      a.o_part[row * D + c] = val;
+      a.o_part[row * DV + c] = val;
       if (c == 0) a.lse_part[row] = l == 0.f ? kNegInf : sM[r] + log2f(l);
     }
   }
@@ -462,51 +492,62 @@ __global__ void __launch_bounds__(MT) paged_decode_merge_kernel(PagedParams a) {
   store_f(ob + t * a.o_st + hq * a.o_sh + col, den == 0.f ? 0.f : num / den);
 }
 
-template <typename T, int D, int RM>
+template <typename T, int DK, int DV, int RM>
 cudaError_t launch_split(PagedParams& p, int Hkv, int B, cudaStream_t stream) {
-  const int smem = smem_fixed<T, D, RM>() + (p.Ls / p.bs) * 4;
+  const int smem = smem_fixed<T, DK, DV, RM>() + (p.Ls / p.bs) * 4;
   const cudaError_t e = cudaFuncSetAttribute(
-      paged_decode_split_kernel<T, D, RM>,
+      paged_decode_split_kernel<T, DK, DV, RM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   p.n_rg = (p.group * p.Tq + RM - 1) / RM;
-  paged_decode_split_kernel<T, D, RM>
+  paged_decode_split_kernel<T, DK, DV, RM>
       <<<dim3(Hkv * p.n_rg, B, p.S), NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Rows a block takes: 1 (a plain decode), 4, or RG; fewer rows than the
-// block serves would cost guarded work on every staged tile.
-template <typename T, int D>
+// block serves would cost guarded work on every staged tile.  The latent
+// shape (a group of 16 heads: 16 rows a token) always takes RG.
+template <typename T, int DK, int DV>
 cudaError_t launch(PagedParams p, int Hkv, int B, cudaStream_t stream) {
   const int R = p.group * p.Tq;
-  cudaError_t e = R == 1   ? launch_split<T, D, 1>(p, Hkv, B, stream)
-                  : R <= 4 ? launch_split<T, D, 4>(p, Hkv, B, stream)
-                           : launch_split<T, D, RG>(p, Hkv, B, stream);
+  cudaError_t e;
+  if constexpr (DK != DV)
+    e = launch_split<T, DK, DV, RG>(p, Hkv, B, stream);
+  else
+    e = R == 1   ? launch_split<T, DK, DV, 1>(p, Hkv, B, stream)
+        : R <= 4 ? launch_split<T, DK, DV, 4>(p, Hkv, B, stream)
+                 : launch_split<T, DK, DV, RG>(p, Hkv, B, stream);
   if (e != cudaSuccess || p.S == 1) return e;
-  paged_decode_merge_kernel<T, D><<<dim3(p.Hq * p.Tq, B), MT, 0, stream>>>(p);
+  paged_decode_merge_kernel<T, DV>
+      <<<dim3(p.Hq * p.Tq, B), MT, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const PagedParams& p, int D, int Hkv, int B,
+cudaError_t dispatch_d(const PagedParams& p, int DK, int DV, int Hkv, int B,
                        cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, Hkv, B, s);
-    case 64: return launch<T, 64>(p, Hkv, B, s);
-    case 128: return launch<T, 128>(p, Hkv, B, s);
+  if (DK == 576 && DV == 512) return launch<T, 576, 512>(p, Hkv, B, s);
+  if (DK != DV) return cudaErrorInvalidValue;
+  switch (DK) {
+    case 32: return launch<T, 32, 32>(p, Hkv, B, s);
+    case 64: return launch<T, 64, 64>(p, Hkv, B, s);
+    case 128: return launch<T, 128, 128>(p, Hkv, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// ia (int64): B, Tq, Hq, Hkv, D, dtype (0 f32, 1 bf16), bs, nb, window,
-//   q strides (b, t, h), k-pool strides (block, slot, head),
+// ia (int64): B, Tq, Hq, Hkv, D (of q and k), dtype (0 f32, 1 bf16), bs,
+//   nb, window, q strides (b, t, h), k-pool strides (block, slot, head),
 //   v-pool strides, o strides (b, t, h), table batch stride,
-//   split length L_s (tokens, a multiple of bs), splits S.
-// o_part / lse_part: float32 scratch (B, S, Hq·Tq, D) / (B, S, Hq·Tq), null
-// when S == 1.  Returns the CUDA error code of the launches (0 = launched).
+//   split length L_s (tokens, a multiple of bs), splits S, Dv (of v and o;
+//   equal to D, or 512 at D 576), and 1 when the v pool is the k pool's
+//   first Dv columns (same pointer and strides), else 0.
+// o_part / lse_part: float32 scratch (B, S, Hq·Tq, Dv) / (B, S, Hq·Tq),
+// null when S == 1.  Returns the CUDA error code of the launches (0 =
+// launched).
 extern "C" int repro_paged_decode(const void* q, const void* kp,
                                   const void* vp, void* o, void* o_part,
                                   void* lse_part, const void* table,
@@ -538,6 +579,8 @@ extern "C" int repro_paged_decode(const void* q, const void* kp,
   p.t_sb = ia[21];
   p.Ls = static_cast<int>(ia[22]);
   p.S = static_cast<int>(ia[23]);
+  const int DV = static_cast<int>(ia[24]);
+  p.v_in_k = static_cast<int>(ia[25]);
   p.qscale = scale * kLog2e;
   if (p.Ls <= 0 || p.Ls % p.bs || p.Ls / p.bs > NT || p.S < 1 ||
       (p.S > 1 && !o_part))
@@ -545,9 +588,9 @@ extern "C" int repro_paged_decode(const void* q, const void* kp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_d<float>(p, D, Hkv, B, s);
+    e = dispatch_d<float>(p, D, DV, Hkv, B, s);
   else if (dtype == 1)
-    e = dispatch_d<__nv_bfloat16>(p, D, Hkv, B, s);
+    e = dispatch_d<__nv_bfloat16>(p, D, DV, Hkv, B, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

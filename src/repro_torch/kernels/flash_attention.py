@@ -4,15 +4,19 @@ chunk (the port of the reference's ``_fwd_kernel``, ``_dq_kernel`` and
 ``kernels/flash_attention.py``).
 
 :func:`flash_fwd` takes the model's (B, T, H, D) layout and a static
-:class:`~repro_torch.core.mask.MaskSpec`, and returns ``(o (B,Tq,Hq,D),
+:class:`~repro_torch.core.mask.MaskSpec`, and returns ``(o (B,Tq,Hq,Dv),
 lse (B,Tq,Hq) float32)``.  On a CPU tensor it runs the plain PyTorch version
 (:func:`~repro_torch.kernels.ref.chunk_attn_ref`); on a CUDA tensor it
-launches a hand-written kernel or raises — there is no fallback.  Two
-routes, chosen by dtype (``FWD_ROUTES``): bf16 inputs (the serving and
-training paths') run on the tensor cores (``csrc/flash_fwd_sm90.cu``,
-``wgmma``, 128-row q tiles over 128-key kv tiles), float32 inputs on the
-CUDA cores (``csrc/flash_fwd.cu``, 64 × 64 tiles, IEEE float32 products for
-the float32 bar).
+launches a hand-written kernel or raises — there is no fallback.  One head
+dim D of ``HEAD_DIMS`` for q, k and v takes one of two routes, chosen by
+dtype (``FWD_ROUTES``): bf16 inputs (the serving and training paths') run
+on the tensor cores (``csrc/flash_fwd_sm90.cu``, ``wgmma``, 128-row q tiles
+over 128-key kv tiles), float32 inputs on the CUDA cores
+(``csrc/flash_fwd.cu``, 64 × 64 tiles, IEEE float32 products for the
+float32 bar).  The head-dim pairs of ``LATENT_DIMS`` (q/k 576, v 512:
+absorbed MLA, v a prefix view of k) take the latent route in both dtypes
+(``LATENT_ROUTE``, ``csrc/flash_fwd_latent.cu``: float32 on the CUDA
+cores, 16 × 32 tiles); any other pair raises.
 
 The block-sparse sweep is planned on the host: for each q tile the wrapper
 computes the reachable kv tile range ``[lo, hi]`` and the interior range
@@ -55,6 +59,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel A: (library, entry point, q rows and keys per tile) by dtype
 FWD_ROUTES = {torch.float32: ("flash_fwd", "repro_flash_fwd", 64),
               torch.bfloat16: ("flash_fwd_sm90", "repro_flash_fwd_sm90", 128)}
+# kernel A at (q/k, v) head dims other than one D: (library, entry point,
+# q rows a tile, keys a tile); it takes these (Dk, Dv) pairs, both dtypes
+LATENT_ROUTE = ("flash_fwd_latent", "repro_flash_fwd_latent", 16, 32)
+LATENT_DIMS = ((576, 512),)
 # kernels C and D: (library, entry-point suffix) by dtype
 BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
               torch.bfloat16: ("flash_bwd_sm90", "_sm90")}
@@ -105,12 +113,12 @@ def q_tile_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool = True):
 
 @functools.lru_cache(maxsize=256)
 def _device_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool,
-                   device: str, block: int = BLOCK_Q):
-    """The sweep table on ``device`` at ``block``-row q tiles of
-    ``block``-key tiles (64 for kernels C, D and A's float32 route, 128 for
-    A's bf16 route; each size is its own cache entry), and whether it is
-    empty."""
-    rows = tile_bounds(mask, Tq, Tk, prune, br=block, bc=block)
+                   device: str, block: int = BLOCK_Q, bc: int = 0):
+    """The sweep table on ``device`` at ``block``-row q tiles of ``bc``-key
+    tiles (``block`` when 0: 64 for kernels C, D and A's float32 route, 128
+    for A's bf16 route; 16 × 32 for A's latent route; each size is its own
+    cache entry), and whether it is empty."""
+    rows = tile_bounds(mask, Tq, Tk, prune, br=block, bc=bc or block)
     empty = all(hi < lo for lo, hi, _, _ in rows)
     t = torch.tensor(rows, dtype=torch.int32).to(device)
     return t, empty
@@ -123,7 +131,7 @@ def _device_q_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool,
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
-def _check(q, k, v, **more):
+def _check(q, k, v, latent: bool = False, **more):
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -137,10 +145,13 @@ def _check(q, k, v, **more):
         raise ValueError(f"each flash kernel takes {list(DTYPES)}, got "
                          f"{q.dtype}")
     B, Tq, Hq, D = q.shape
-    if D not in HEAD_DIMS or k.shape[-1] != D or v.shape[-1] != D:
+    one_d = D in HEAD_DIMS and v.shape[-1] == D
+    if k.shape[-1] != D or not (one_d or latent and (D, v.shape[-1])
+                                in LATENT_DIMS):
         raise ValueError(f"each flash kernel takes head dims {HEAD_DIMS} "
-                         f"(equal for q, k, v), got {D}/{k.shape[-1]}/"
-                         f"{v.shape[-1]}")
+                         f"(equal for q, k, v)"
+                         f"{f' or q/k and v pairs {LATENT_DIMS}' if latent else ''}"
+                         f", got {D}/{k.shape[-1]}/{v.shape[-1]}")
     if k.shape[:3] != v.shape[:3] or k.shape[0] != B:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -174,16 +185,27 @@ def _segments(mask: MaskSpec, segs, T: int, offset: int, device):
 
 
 def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
-    _check(q, k, v)
-    lib, name, block = FWD_ROUTES[q.dtype]
-    if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v)
+    _check(q, k, v, latent=True)
     B, Tq, Hq, D = q.shape
+    Dv = v.shape[-1]
+    latent = Dv != D
+    if latent:
+        lib, name, block, bc = LATENT_ROUTE
+        _check_aligned(q=q, k=k, v=v)
+        # the latent pool's value view: v is k's first Dv columns
+        extra = (Dv, v.data_ptr() == k.data_ptr()
+                 and v.stride() == k.stride())
+    else:
+        lib, name, block = FWD_ROUTES[q.dtype]
+        bc, extra = block, ()
+        if q.dtype == torch.bfloat16:
+            _check_aligned(q=q, k=k, v=v)
     Tk, Hkv = k.shape[1], k.shape[2]
     bounds, empty = _device_bounds(mask, Tq, Tk, bool(prune), str(q.device),
-                                   block)
+                                   block, bc)
+    o_shape = (B, Tq, Hq, Dv)
     if empty:                            # statically fully masked chunk
-        return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
+        return (torch.zeros(o_shape, dtype=q.dtype, device=q.device),
                 torch.full((B, Tq, Hq), NEG_INF, dtype=torch.float32,
                            device=q.device))
     qs = ks = None
@@ -191,13 +213,14 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     if mask.document:
         qs, qs_sb = _segments(mask, q_segments, Tq, mask.q_offset, q.device)
         ks, ks_sb = _segments(mask, kv_segments, Tk, mask.kv_offset, q.device)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(o_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Tq, Hq), dtype=torch.float32, device=q.device)
     ia = build.int64_args(
         B, Tq, Tk, Hq, Hkv, D, DTYPES[q.dtype], bounds.shape[0],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         mask.causal, mask.window, mask.prefix_len, mask.q_offset,
-        mask.kv_offset, mask.document, qs_sb, ks_sb, mask.needs_mask)
+        mask.kv_offset, mask.document, qs_sb, ks_sb, mask.needs_mask,
+        *extra)
     err = _entry(lib, name, 8)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), build.ptr(bounds), build.ptr(qs), build.ptr(ks), ia,
@@ -205,14 +228,15 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed ({lib}, CUDA "
                            f"error {err})")
-    build.LAUNCHES["flash_fwd"] += 1
+    build.LAUNCHES["flash_fwd_latent" if latent else "flash_fwd"] += 1
     return o, lse
 
 
 def flash_fwd(q, k, v, *, mask: MaskSpec | None = None,
               scale: float | None = None, q_segments=None, kv_segments=None,
               prune: bool = True):
-    """(B,T,H,D) partial attention -> (o (B,Tq,Hq,D), lse (B,Tq,Hq) f32)."""
+    """(B,T,H,D) partial attention -> (o (B,Tq,Hq,Dv), lse (B,Tq,Hq) f32);
+    the default scale is 1/√D of q."""
     mask = full() if mask is None else mask
     if (q_segments is None) != (kv_segments is None):
         raise ValueError("q_segments and kv_segments must be passed together")

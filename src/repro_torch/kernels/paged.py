@@ -7,7 +7,8 @@ Layout (the reference's):
   q            (B, Tq, Hq, D)     row ``t`` of request ``b`` sits at context
                                   position ``lengths[b] − Tq + t``
   k_pool       (N, bs, Hkv, D)    one layer's key pool (N = pool blocks)
-  v_pool       (N, bs, Hkv, D)
+  v_pool       (N, bs, Hkv, Dv)   Dv = D, or (absorbed MLA) a narrow view
+                                  of the latent k_pool: D 576, Dv 512
   block_table  (B, nb) int32      request b's i-th block id (0 = the reserved
                                   null block)
   lengths      (B,) int32         attendable tokens incl. the new ones
@@ -24,6 +25,11 @@ dtype, ``S`` splits from the table's width), sweeps each live split in its
 own thread block and merges the splits' partial results in a fixed order.
 :func:`paged_attn_split_ref` is the same split-and-merge arithmetic in
 plain PyTorch, for the tests.
+
+Head dims: one D of ``HEAD_DIMS`` for q, k and v, or a (D, Dv) pair of
+``LATENT_DIMS`` — the latent pool of absorbed MLA, whose value pool the
+kernel reads from the staged key rows when it is a prefix view of the key
+pool (same pointer and strides).
 """
 from __future__ import annotations
 
@@ -36,16 +42,20 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)
+LATENT_DIMS = ((576, 512),)     # (q/k, v) head dims of the latent pool
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_SIZES = (8, 64)           # inclusive range the kernel takes
 # tokens a split aims at, per (dtype, head dim): 64 KB of K a split for one
 # kv head (32 KB at bf16 D 32, capped at 512 tokens); a split is then
 # rounded up to whole pages.  256 tokens at bf16 D 128 balances the serving
 # step's few hundred blocks against the per-block start-up of a long
-# request (PERF.md).
+# request (PERF.md).  The latent shape (D 576) takes 32 tokens a split:
+# one tile of its 68 KB ring stage, and the most blocks for a serving
+# step's few thousand tokens (one kv head).
 SPLIT_TOKENS = {(torch.bfloat16, 128): 256, (torch.bfloat16, 64): 512,
                 (torch.bfloat16, 32): 512, (torch.float32, 128): 128,
-                (torch.float32, 64): 256, (torch.float32, 32): 512}
+                (torch.float32, 64): 256, (torch.float32, 32): 512,
+                (torch.bfloat16, 576): 32, (torch.float32, 576): 32}
 
 _FN = []
 
@@ -84,7 +94,7 @@ def split_plan(nb: int, bs: int, D: int, dtype) -> tuple:
     pages, and the number of splits that cover a table ``nb`` pages wide.
     Boundaries depend on (bs, D, dtype) only, never on the batch, the
     table's width or the lengths, so a request's result does not depend on
-    what it is batched with."""
+    what it is batched with.  ``D`` is the q/k head dim."""
     target = SPLIT_TOKENS[(dtype, D)]
     Ls = -(-target // bs) * bs
     return Ls, max(1, -(-(nb * bs) // Ls))
@@ -142,10 +152,11 @@ def paged_attn_split_ref(q, k_pool, v_pool, block_table, lengths, *,
     giving a normalised partial o_s and its lse_s, and merged in split order
     with the reference's NEG_INF rules (``kernels/ref.merge_ref``).  A
     request's arithmetic has the same shapes whatever the batch and the
-    table's width.  Returns o (B, Tq, Hq, D)."""
+    table's width.  Returns o (B, Tq, Hq, Dv)."""
     mask = causal() if mask is None else mask
     _check(q, k_pool, v_pool, block_table, lengths, mask)
     B, Tq, Hq, D = q.shape
+    Dv = v_pool.shape[-1]
     nb = block_table.shape[1]
     bs, Hkv = k_pool.shape[1], k_pool.shape[2]
     g = Hq // Hkv
@@ -155,7 +166,7 @@ def paged_attn_split_ref(q, k_pool, v_pool, block_table, lengths, *,
     else:
         Ls = -(-split_tokens // bs) * bs
     P = Ls // bs
-    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.zeros((B, Tq, Hq, Dv), dtype=torch.float32, device=q.device)
     t_rows = torch.arange(Tq, device=q.device)
     for b in range(B):
         # [t_lo, t_hi): the context positions some row of the request sees
@@ -168,11 +179,11 @@ def paged_attn_split_ref(q, k_pool, v_pool, block_table, lengths, *,
         for s in range(t_lo // Ls, -(-t_hi // Ls)):
             pages = block_table[b, s * P:(s + 1) * P].long()
             kk = k_pool[pages].reshape(-1, Hkv, D).float()
-            vv = v_pool[pages].reshape(-1, Hkv, D).float()
+            vv = v_pool[pages].reshape(-1, Hkv, Dv).float()
             pad = Ls - kk.shape[0]            # pages past the table's width
             if pad:
-                z = kk.new_zeros((pad, Hkv, D))
-                kk, vv = torch.cat([kk, z]), torch.cat([vv, z])
+                kk = torch.cat([kk, kk.new_zeros((pad, Hkv, D))])
+                vv = torch.cat([vv, vv.new_zeros((pad, Hkv, Dv))])
             if g > 1:
                 kk = kk.repeat_interleave(g, dim=1)
                 vv = vv.repeat_interleave(g, dim=1)
@@ -227,10 +238,12 @@ def _check_cuda(q, k_pool, v_pool, block_table, lengths, mask):
         raise ValueError(f"paged decode kernel takes one of {list(DTYPES)} "
                          f"for q and pools, got {q.dtype}/{k_pool.dtype}/"
                          f"{v_pool.dtype}")
-    D = q.shape[-1]
-    if D not in HEAD_DIMS or k_pool.shape[-1] != D or v_pool.shape[-1] != D:
-        raise ValueError(f"paged decode kernel takes head dims {HEAD_DIMS}, "
-                         f"got {D}/{k_pool.shape[-1]}/{v_pool.shape[-1]}")
+    D, Dv = q.shape[-1], v_pool.shape[-1]
+    if k_pool.shape[-1] != D or not (D in HEAD_DIMS and Dv == D
+                                     or (D, Dv) in LATENT_DIMS):
+        raise ValueError(f"paged decode kernel takes head dims {HEAD_DIMS} "
+                         f"or (q/k, v) pairs {LATENT_DIMS}, got "
+                         f"{D}/{k_pool.shape[-1]}/{Dv}")
     bs = k_pool.shape[1]
     if not BLOCK_SIZES[0] <= bs <= BLOCK_SIZES[1]:
         raise ValueError(f"paged decode kernel takes block sizes "
@@ -258,7 +271,8 @@ def _check_cuda(q, k_pool, v_pool, block_table, lengths, mask):
 
 def paged_attn(q, k_pool, v_pool, block_table, lengths, *,
                mask: MaskSpec | None = None, scale=None):
-    """Paged decode attention: plain version on the CPU, kernel B on CUDA."""
+    """Paged decode attention: plain version on the CPU, kernel B on CUDA.
+    Returns o (B, Tq, Hq, Dv)."""
     mask = causal() if mask is None else mask
     if q.device.type == "cpu":
         return paged_attn_ref(q, k_pool, v_pool, block_table, lengths,
@@ -268,21 +282,24 @@ def paged_attn(q, k_pool, v_pool, block_table, lengths, *,
     _check(q, k_pool, v_pool, block_table, lengths, mask)
     _check_cuda(q, k_pool, v_pool, block_table, lengths, mask)
     B, Tq, Hq, D = q.shape
+    Dv = v_pool.shape[-1]
     bs, Hkv = k_pool.shape[1], k_pool.shape[2]
     nb = block_table.shape[1]
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
     Ls, S = split_plan(nb, bs, D, q.dtype)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Tq, Hq, Dv), dtype=q.dtype, device=q.device)
     o_part = lse_part = None
     if S > 1:       # the splits' partial (o_s, lse_s), in one allocation
         rows = B * S * Hq * Tq
-        part = torch.empty(rows * (D + 1), dtype=torch.float32,
+        part = torch.empty(rows * (Dv + 1), dtype=torch.float32,
                            device=q.device)
-        o_part, lse_part = part[:rows * D], part[rows * D:]
+        o_part, lse_part = part[:rows * Dv], part[rows * Dv:]
+    v_in_k = (v_pool.data_ptr() == k_pool.data_ptr()
+              and v_pool.stride() == k_pool.stride())
     ia = build.int64_args(
         B, Tq, Hq, Hkv, D, DTYPES[q.dtype], bs, nb, mask.window,
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
-        *o.stride()[:3], block_table.stride(0), Ls, S)
+        *o.stride()[:3], block_table.stride(0), Ls, S, Dv, v_in_k)
     err = _fn()(build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
                  build.ptr(o), build.ptr(o_part), build.ptr(lse_part),
                  build.ptr(block_table), build.ptr(lengths), ia, float(sc),

@@ -8,6 +8,8 @@ rotates interleaved pairs ``(x[2i], x[2i+1])``, not halves.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -70,6 +72,44 @@ def attn_out(p, x, o, cfg: ModelConfig):
     """Residual add of the output projection.  o: (B,T,H,hd)."""
     B, T = x.shape[:2]
     return x + (o.reshape(B, T, -1) @ p["wo"]).to(x.dtype)
+
+
+def mla_qkv(p, x, cfg: ModelConfig, cos, sin):
+    """DeepSeek multi-head latent attention [arXiv:2405.04434], the
+    materialised form: norm → q (``wq``, or ``wq_a`` → ``q_ln`` → ``wq_b``
+    under ``q_lora_rank``) and the latent ``wkv_a`` → (``kv_ln``-normed
+    c_kv, rope key) → per-head k/v up-projected by ``wkv_b``.  Returns q, k
+    (B, T, H, nope + rope) and v (B, T, H, v_head_dim); ``cos``/``sin``
+    are rope tables of ``qk_rope_head_dim``.  The serving path attends in
+    latent space instead (``DecoderLM._mla_parts``); this form is the
+    training one and the oracle of the absorption."""
+    a = cfg.attn
+    B, T, _ = x.shape
+    nh, dn, dr = a.n_heads, a.qk_nope_head_dim, a.qk_rope_head_dim
+    dv = a.v_head_dim or a.head_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if a.q_lora_rank:
+        qc = rms_norm(h @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+        q = (qc @ p["wq_b"]).reshape(B, T, nh, dn + dr)
+    else:
+        q = (h @ p["wq"]).reshape(B, T, nh, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    kv_a = h @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :a.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
+    k_pe = kv_a[..., a.kv_lora_rank:].reshape(B, T, 1, dr)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe, cos, sin)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, T, nh, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe.expand(B, T, nh, dr)], dim=-1)
+    return q_full, k_full, v
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """Softmax scale of MLA: 1/√(nope + rope), in both forms."""
+    a = cfg.attn
+    return 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
 
 
 def mlp_apply(p, x, eps=1e-5):

@@ -1,8 +1,26 @@
-"""Dense decoder LM for training and serving (port of the reference
+"""Decoder LM for training and serving (port of the reference
 ``models/transformer.py``: ``DecoderLM.init``, ``loss`` with its dense layer
 stages, ``prefill`` across sequence ranks, ``prefill_chunk``, ``decode`` over
 a paged or a sequence-sharded dense cache, the speculative ``verify``,
 ``_head``, ``_cache_write`` and the paged-write helpers).
+
+Two families: dense / GQA decoders (``arch_type="dense"``: every path), and
+DeepSeek's MLA + MoE decoders (``arch_type="moe"``, the reference's tree:
+``dense_layers`` — the first ``moe.n_dense_layers``, a SwiGLU of
+``d_dense_ff`` — then ``moe_layers``, ``models/moe.py``).  An MoE model
+serves through the paged path at one rank: ``prefill_chunk``, ``decode``
+and ``verify`` over a latent pool, MLA *absorbed* as the reference's
+``_chunk_mla`` / ``_decode_mla_paged`` do (``_mla_parts`` / ``_mla_out``):
+the query is taken into latent space (``q_eff = q_nope · W_uk``, beside the
+roped ``q_pe``: ``kv_lora + rope`` columns), each token's cache entry is its
+latent row (normed c_kv ⊕ roped k_pe), one kv head serves every query head,
+and the value is the first ``kv_lora`` columns of the same row; the latent
+output is up-projected by ``W_uv``.  The MoE FFN takes the padded chunk's
+rows through the capacity dispatch (``moe_apply``) and the decode / verify
+rows through every expert (``moe_decode_apply``).  :meth:`forward` runs
+MLA materialised (``layers.mla_qkv``).  Training, the whole-prompt
+``prefill`` and the dense-cache ``decode`` of an MoE model are not ported
+(``NotImplementedError``, ROADMAP §1 item 7).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -52,6 +70,7 @@ from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
 from repro_torch.core.remat import apply_policy, remat_aware
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_decode_apply
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.serve.cache import sharded_paged_attn
 
@@ -152,6 +171,21 @@ def token_group(mesh, par: ParallelConfig):
     return mesh.comms[par.seq_axis]
 
 
+def layer_params(p) -> list:
+    """Every layer's parameters in order: ``layers``, or an MoE model's
+    ``dense_layers`` then ``moe_layers``."""
+    if "layers" in p:
+        return p["layers"]
+    return p["dense_layers"] + p["moe_layers"]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} of an MLA / MoE model is not ported: the port serves "
+        f"deepseek-v2-lite-16b through the paged Engine at one rank "
+        f"(ROADMAP §1 item 7)")
+
+
 def trainable(params) -> dict:
     """The parameter tree as leaf tensors that require gradients (the same
     storage, in the same dtype)."""
@@ -159,7 +193,8 @@ def trainable(params) -> dict:
 
 
 class DecoderLM:
-    """Dense / GQA Llama-family decoder (RMSNorm, rope, SwiGLU).
+    """Llama-family decoder (RMSNorm, rope, SwiGLU): dense / GQA, or MLA +
+    MoE (module docstring).
 
     ``par`` sets the training layout (``par.remat``, ``par.schedule``);
     ``impl`` names the attention backend (``cuda``, the default, or
@@ -169,10 +204,14 @@ class DecoderLM:
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  par: Optional[ParallelConfig] = None, impl=None,
                  mesh=None):
-        if cfg.arch_type != "dense" or cfg.attn is None:
-            raise ValueError(f"the port runs dense GQA decoders (got "
+        if cfg.arch_type not in ("dense", "moe") or cfg.attn is None:
+            raise ValueError(f"the port runs dense and MoE decoders (got "
                              f"{cfg.arch_type!r})")
         self.cfg = cfg
+        a = cfg.attn
+        # rope width, and the softmax scale (None: 1/sqrt(head dim))
+        self.rope_dim = a.qk_rope_head_dim if a.is_mla else a.head_dim
+        self.scale = L.mla_scale(cfg) if a.is_mla else None
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.par = ParallelConfig() if par is None else par
@@ -194,21 +233,23 @@ class DecoderLM:
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
         """Random parameters made on ``self.device`` from a seeded
-        generator: N(0, 1/d_in) projections, N(0, 0.02²) embeddings, unit
-        norms, zero q/k/v biases (``qkv_bias``) and unit qk-norms
-        (``qk_norm``) — the reference's init scheme; its bits differ.  Each
-        leaf is drawn in float32 and cast at once, so the largest float32
-        temporary is one leaf, never the model."""
+        generator: N(0, 1/d_in) projections (each expert's on its own
+        input width), N(0, 0.02²) embeddings, unit norms, zero q/k/v biases
+        (``qkv_bias``) and unit qk-norms (``qk_norm``), a float32 MoE
+        router — the reference's init scheme and tree; its bits differ.
+        Each leaf is drawn in float32 and cast at once, so the largest
+        float32 temporary is one leaf, never the model."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         d, hd = cfg.d_model, a.head_dim
 
-        def normal(shape, scale):
+        def normal(shape, scale, dtype=dt):
             x = torch.randn(shape, generator=gen, device=self.device)
-            return (x * scale).to(dt)
+            return (x * scale).to(dtype)
 
-        def dense(d_in, d_out):
-            return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
+        def dense(d_in, d_out, n=None, dtype=dt):
+            shape = (d_in, d_out) if n is None else (n, d_in, d_out)
+            return normal(shape, 1.0 / math.sqrt(d_in), dtype)
 
         def ones(n):
             return torch.ones(n, dtype=dt, device=self.device)
@@ -220,7 +261,26 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             p["head"] = dense(d, cfg.vocab)
 
+        def mla():
+            nh, qk = a.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim
+            q = {"ln": ones(d)}
+            if a.q_lora_rank:
+                q.update(wq_a=dense(d, a.q_lora_rank),
+                         q_ln=ones(a.q_lora_rank),
+                         wq_b=dense(a.q_lora_rank, nh * qk))
+            else:
+                q["wq"] = dense(d, nh * qk)
+            dv = a.v_head_dim or hd
+            q.update(wkv_a=dense(d, a.kv_lora_rank + a.qk_rope_head_dim),
+                     kv_ln=ones(a.kv_lora_rank),
+                     wkv_b=dense(a.kv_lora_rank,
+                                 nh * (a.qk_nope_head_dim + dv)),
+                     wo=dense(nh * dv, d))
+            return q
+
         def attn():
+            if a.is_mla:
+                return mla()
             q = {"wq": dense(d, a.n_heads * hd),
                  "wk": dense(d, a.n_kv_heads * hd),
                  "wv": dense(d, a.n_kv_heads * hd),
@@ -233,11 +293,32 @@ class DecoderLM:
                 q.update(q_norm=ones(hd), k_norm=ones(hd))
             return q
 
-        p["layers"] = [{
-            "attn": attn(),
-            "mlp": {"wg": dense(d, cfg.d_ff), "wu": dense(d, cfg.d_ff),
-                    "wd": dense(cfg.d_ff, d), "ln": ones(d)},
-        } for _ in range(cfg.n_layers)]
+        def mlp(d_ff):
+            return {"wg": dense(d, d_ff), "wu": dense(d, d_ff),
+                    "wd": dense(d_ff, d), "ln": ones(d)}
+
+        if cfg.moe is None:
+            p["layers"] = [{"attn": attn(), "mlp": mlp(cfg.d_ff)}
+                           for _ in range(cfg.n_layers)]
+            return p
+        m = cfg.moe
+
+        def moe():
+            q = {"ln": ones(d),
+                 "router": dense(d, m.n_routed, dtype=torch.float32),
+                 "wg": dense(d, m.d_expert, m.n_routed),
+                 "wu": dense(d, m.d_expert, m.n_routed),
+                 "wd": dense(m.d_expert, d, m.n_routed)}
+            if m.n_shared:
+                ds = m.n_shared * m.d_expert
+                q.update(sh_wg=dense(d, ds), sh_wu=dense(d, ds),
+                         sh_wd=dense(ds, d))
+            return q
+
+        p["dense_layers"] = [{"attn": attn(), "mlp": mlp(m.d_dense_ff)}
+                             for _ in range(m.n_dense_layers)]
+        p["moe_layers"] = [{"attn": attn(), "moe": moe()}
+                           for _ in range(cfg.n_layers - m.n_dense_layers)]
         return p
 
     # ------------------------------------------------------------- head
@@ -275,6 +356,8 @@ class DecoderLM:
         mean, and its gradient is this rank's share of it (the train step
         sums gradients over :func:`token_group`)."""
         a = self.cfg.attn
+        if self.cfg.moe is not None or a.is_mla:
+            raise _not_ported("training")
         h = self._embed(p, batch)
         cos, sin = L.rope_tables(self.positions(h.shape[1]), a.head_dim,
                                  a.rope_theta)
@@ -295,10 +378,66 @@ class DecoderLM:
         ce = tot[0] / total + (mine - mine.detach())
         return ce, {"ce": ce}
 
-    def _layer(self, lp, h, attend, cos, sin):
-        q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
+    def _layer(self, lp, h, attend, cos, sin, decode: bool = False):
+        """One layer with the attention ``attend(q, k, v) -> o`` (MLA
+        materialised); the FFN is :meth:`_ffn`'s."""
+        qkv = L.mla_qkv if self.cfg.attn.is_mla else L.attn_qkv
+        q, k, v = qkv(lp["attn"], h, self.cfg, cos, sin)
         h = L.attn_out(lp["attn"], h, attend(q, k, v), self.cfg)
-        return L.mlp_apply(lp["mlp"], h, self.cfg.norm_eps)
+        return self._ffn(lp, h, decode)
+
+    def _ffn(self, lp, h, decode: bool = False):
+        """The layer's FFN with residual: a SwiGLU MLP, or the MoE — the
+        capacity dispatch over ``h``'s rows, or at ``decode`` every expert
+        on every row."""
+        if "moe" not in lp:
+            return L.mlp_apply(lp["mlp"], h, self.cfg.norm_eps)
+        if decode:
+            return moe_decode_apply(lp["moe"], h, self.cfg)
+        return moe_apply(lp["moe"], h, self.cfg)[0]
+
+    # ------------------------------------------------------ absorbed MLA
+    def _mla_parts(self, lp, h, cos, sin):
+        """Absorbed-MLA projections of T tokens (the reference's
+        ``_mla_decode_parts``): the latent-space query ``q_full`` (B, T,
+        H, kv_lora + rope) — ``q_nope · W_uk`` in float32, cast back,
+        beside the roped ``q_pe`` — the tokens' latent cache rows ``new``
+        (B, T, kv_lora + rope), and the value up-projection ``W_uv``
+        (kv_lora, H, v_head_dim)."""
+        cfg, a, pa = self.cfg, self.cfg.attn, lp["attn"]
+        B, T = h.shape[:2]
+        nh, dn, dr = a.n_heads, a.qk_nope_head_dim, a.qk_rope_head_dim
+        c, dv = a.kv_lora_rank, a.v_head_dim or a.head_dim
+        hn = L.rms_norm(h, pa["ln"], cfg.norm_eps)
+        if a.q_lora_rank:
+            qc = L.rms_norm(hn @ pa["wq_a"], pa["q_ln"], cfg.norm_eps)
+            q = (qc @ pa["wq_b"]).reshape(B, T, nh, dn + dr)
+        else:
+            q = (hn @ pa["wq"]).reshape(B, T, nh, dn + dr)
+        q_pe = L.apply_rope(q[..., dn:], cos, sin)
+        wkv_b = pa["wkv_b"].reshape(c, nh, dn + dv)
+        q_eff = torch.einsum("bthn,chn->bthc", q[..., :dn].float(),
+                             wkv_b[..., :dn].float()).to(h.dtype)
+        kv_a = hn @ pa["wkv_a"]
+        ckv = L.rms_norm(kv_a[..., :c], pa["kv_ln"], cfg.norm_eps)
+        kpe = L.apply_rope(kv_a[..., c:].reshape(B, T, 1, dr), cos, sin)
+        return (torch.cat([q_eff, q_pe], dim=-1),
+                torch.cat([ckv, kpe[:, :, 0]], dim=-1), wkv_b[..., dn:])
+
+    def _mla_out(self, lp, h, o_lat, w_uv):
+        """Residual add of the latent output o_lat (B, T, H, kv_lora):
+        up-projected by ``W_uv`` in float32, cast, then ``wo``."""
+        B, T = h.shape[:2]
+        o = torch.einsum("bthc,chv->bthv", o_lat.float(),
+                         w_uv.float()).to(h.dtype)
+        return h + (o.reshape(B, T, -1) @ lp["attn"]["wo"]).to(h.dtype)
+
+    def _latent_layer(self, lp, h, cos, sin, attend, decode: bool):
+        """One absorbed-MLA layer: ``attend(q_full, new) -> o_lat`` writes
+        the tokens' latent rows and attends over the pool."""
+        q_full, new, w_uv = self._mla_parts(lp, h, cos, sin)
+        h = self._mla_out(lp, h, attend(q_full, new), w_uv)
+        return self._ffn(lp, h, decode)
 
     # ------------------------------------------------------ plain forward
     @torch.no_grad()
@@ -306,19 +445,22 @@ class DecoderLM:
         """Whole-context forward, no cache, through the plain attention
         function (backend ``ref``) on any device: logits (B, T, V), or
         (B, 1, V) for the last position.  The oracle the paged path is held
-        to."""
+        to.  MLA runs materialised; an MoE layer dispatches the whole
+        context's rows at once, so its capacity drops differ from a chunked
+        prefill's."""
         a = self.cfg.attn
         tokens = torch.as_tensor(tokens, device=self.device)
         T = tokens.shape[1]
         h = L.embed(p["embed"], tokens, self.dtype)
         cos, sin = L.rope_tables(torch.arange(T, device=self.device),
-                                 a.head_dim, a.rope_theta)
+                                 self.rope_dim, a.rope_theta)
         spec = decode_mask(a.window)
 
         def attend(q, k, v):
-            return chunk_attn(q, k, v, mask=spec, impl="ref")[0]
+            return chunk_attn(q, k, v, mask=spec, scale=self.scale,
+                              impl="ref")[0]
 
-        for lp in p["layers"]:
+        for lp in layer_params(p):
             h = self._layer(lp, h, attend, cos, sin)
         return self._head(p, h[:, -1:] if last_only else h)
 
@@ -331,10 +473,14 @@ class DecoderLM:
         then attend over the context gathered through the block table
         (kernel A, with ``q_offset = start`` folded into the causal mask).
         Rows past ``n_valid`` (bucket padding) write to the null block.
-        ``cache`` = {k_pool, v_pool (L, N, bs, Hkv, D), block_table (1, nkv)
-        int32; optional ``shard``, this rank's part of a sharded pool}; the
-        pools are updated in place.  No logits: the last context token
-        enters through decode.
+        ``cache`` = {k_pool, v_pool (L, N, bs, Hkv, D) — or an MLA model's
+        latent ``ckv_pool`` (L, N, bs, kv_lora + rope) — block_table (1,
+        nkv) int32; optional ``shard``, this rank's part of a sharded pool};
+        the pools are updated in place.  No logits: the last context token
+        enters through decode.  MLA attends in latent space: kernel A with
+        q (1, C, H, kv_lora + rope) over the gathered latent rows as the
+        one kv head, v their first kv_lora columns (a view), at scale
+        1/√(nope + rope).
 
         On a sharded pool the model runs replicated and each rank writes
         only its part: head-parallel, kernel A attends with this rank's q
@@ -347,12 +493,26 @@ class DecoderLM:
         C = tokens.shape[1]
         h = L.embed(p["embed"], tokens, self.dtype)
         cos, sin = L.rope_tables(start + torch.arange(C, device=self.device),
-                                 a.head_dim, a.rope_theta)
+                                 self.rope_dim, a.rope_theta)
         spec = decode_mask(a.window)
         rows = bt[0].long()
-        tgt = _targets(*_chunk_rows(bt, cache["k_pool"].shape[2], C, start,
-                                    end), shard)
-        for li, lp in enumerate(p["layers"]):
+        tgt = _targets(*_chunk_rows(bt, _block_size(cache), C, start, end),
+                       shard)
+        if a.is_mla:
+            c = a.kv_lora_rank
+            for li, lp in enumerate(layer_params(p)):
+                cp = cache["ckv_pool"][li]
+
+                def attend(q, new, cp=cp):
+                    _scatter(cp, new, tgt)
+                    g = cp[rows].reshape(1, -1, 1, cp.shape[-1])
+                    return chunk_attn(q, g, g[..., :c], mask=spec,
+                                      scale=self.scale, q_offset=start,
+                                      impl=self.impl)[0]
+
+                h = self._latent_layer(lp, h, cos, sin, attend, False)
+            return
+        for li, lp in enumerate(layer_params(p)):
             kp, vp = cache["k_pool"][li], cache["v_pool"][li]
 
             def attend(q, k, v, kp=kp, vp=vp):
@@ -364,12 +524,13 @@ class DecoderLM:
                 kg = kp[rows].reshape(1, -1, *kp.shape[2:])
                 vg = vp[rows].reshape(1, -1, *vp.shape[2:])
                 if shard is None or shard.kind == "blocks":
-                    return chunk_attn(q, kg, vg, mask=spec,
-                                      q_offset=start)[0]
+                    return chunk_attn(q, kg, vg, mask=spec, q_offset=start,
+                                      impl=self.impl)[0]
                 g = shard.group
                 hq = q.shape[2] // g.size
                 o = chunk_attn(q[:, :, g.rank * hq:(g.rank + 1) * hq], kg,
-                               vg, mask=spec, q_offset=start)[0]
+                               vg, mask=spec, q_offset=start,
+                               impl=self.impl)[0]
                 return g.all_gather(o.contiguous(), dim=2)
 
             h = self._layer(lp, h, attend, cos, sin)
@@ -390,6 +551,8 @@ class DecoderLM:
         replica runs its own rows (:meth:`_rows`; the cache holds those
         rows) and the logits are gathered over ``data``."""
         a, P = self.cfg.attn, self.seq_size
+        if self.cfg.moe is not None or a.is_mla:
+            raise _not_ported("the whole-prompt prefill")
         tokens = self._rows(torch.as_tensor(tokens, device=self.device))
         T = tokens.shape[1]
         zz = zigzag_layout(self.cfg, self.par, P)
@@ -521,13 +684,14 @@ class DecoderLM:
         ``dist_decode_attn`` over the shards, then :func:`_cache_write`
         into the owner shard; its rows are this data replica's, as
         :meth:`prefill`'s).  Returns logits (B, 1, V); the cache is
-        updated in place."""
+        updated in place.  An MLA model takes the paged view only."""
         a = self.cfg.attn
         if "block_table" in cache:
             return self._paged_layers(
                 p, cache, token, pos[:, None],
-                _decode_rows(cache["block_table"], cache["k_pool"].shape[2],
-                             pos))
+                _decode_rows(cache["block_table"], _block_size(cache), pos))
+        if self.cfg.moe is not None or a.is_mla:
+            raise _not_ported("the dense-cache decode")
         token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
         cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
@@ -563,7 +727,7 @@ class DecoderLM:
                 + torch.arange(tokens.shape[1], device=pos.device))
         return self._paged_layers(
             p, cache, tokens, rows,
-            _multi_rows(cache["block_table"], cache["k_pool"].shape[2], pos,
+            _multi_rows(cache["block_table"], _block_size(cache), pos,
                         tokens.shape[1], n_write))
 
     def _paged_layers(self, p, cache, tokens, rows, dest):
@@ -572,18 +736,34 @@ class DecoderLM:
         blocks and offsets ``dest`` (two (B, T) tensors), then kernel B
         attends through the block table at ``lengths = rows[:, -1] + 1``
         (:func:`~repro_torch.serve.cache.sharded_paged_attn` when the view
-        holds this rank's ``shard`` of a sharded pool).  Returns logits
-        (B, T, V)."""
+        holds this rank's ``shard`` of a sharded pool).  MLA: kernel B with
+        q (B, T, H, kv_lora + rope) over the latent pool as one kv head, v
+        its first kv_lora columns.  Returns logits (B, T, V)."""
         a = self.cfg.attn
         B, T = tokens.shape
         h = L.embed(p["embed"], tokens, self.dtype)
-        cos, sin = L.rope_tables(rows.reshape(-1), a.head_dim, a.rope_theta)
+        cos, sin = L.rope_tables(rows.reshape(-1), self.rope_dim,
+                                 a.rope_theta)
         cos, sin = cos.reshape(B, T, -1), sin.reshape(B, T, -1)
         spec = decode_mask(a.window)
         bt, shard = cache["block_table"], cache.get("shard")
         tgt = _targets(*dest, shard)
         lengths = (rows[:, -1] + 1).to(torch.int32)
-        for li, lp in enumerate(p["layers"]):
+        if a.is_mla:
+            c = a.kv_lora_rank
+            for li, lp in enumerate(layer_params(p)):
+                cp = cache["ckv_pool"][li]
+
+                def attend(q, new, cp=cp):
+                    _scatter(cp, new, tgt)
+                    kv = cp[:, :, None, :]
+                    return paged_decode_attn(q, kv, kv[..., :c], bt, lengths,
+                                             mask=spec, scale=self.scale,
+                                             impl=self.impl)
+
+                h = self._latent_layer(lp, h, cos, sin, attend, True)
+            return self._head(p, h)
+        for li, lp in enumerate(layer_params(p)):
             kp, vp = cache["k_pool"][li], cache["v_pool"][li]
 
             def attend(q, k, v, kp=kp, vp=vp):
@@ -591,17 +771,23 @@ class DecoderLM:
                 _scatter(vp, v, tgt, shard)
                 if shard is None:
                     return paged_decode_attn(q, kp, vp, bt, lengths,
-                                             mask=spec)
+                                             mask=spec, impl=self.impl)
                 return sharded_paged_attn(q, kp, vp, bt, lengths, shard,
-                                          mask=spec)
+                                          mask=spec, impl=self.impl)
 
-            h = self._layer(lp, h, attend, cos, sin)
+            h = self._layer(lp, h, attend, cos, sin, decode=True)
         return self._head(p, h)
 
 
 # --------------------------------------------------------------------------
 # Paged-cache writes: scatter new K/V through the block table, in place
 # --------------------------------------------------------------------------
+
+def _block_size(cache) -> int:
+    """The block size of a paged view's pools (L, N, bs, ...)."""
+    pool = cache["ckv_pool"] if "ckv_pool" in cache else cache["k_pool"]
+    return pool.shape[2]
+
 
 def _decode_rows(block_table, bs: int, pos):
     """Pool block and offset (B, 1) of each request's new token at context
@@ -659,7 +845,7 @@ def _scatter(pool, new, tgt, shard=None):
     at :func:`_targets` ``tgt``; a head-parallel pool takes this rank's kv
     heads."""
     keep, bidx, off = tgt
-    x = new.reshape((-1,) + tuple(new.shape[2:]))
+    x = new.reshape((-1,) + tuple(new.shape[2:]))     # (B·T, ...)
     if shard is not None and shard.kind == "heads":
         x = x[:, shard.lo:shard.lo + shard.n_local]
     if keep is not None:
@@ -691,30 +877,40 @@ def _cache_write(cache, new, pos, group=None):
 # Weights importer
 # --------------------------------------------------------------------------
 
+# the stacked layer groups of the reference's tree, in order
+_LAYER_KEYS = ("layers", "dense_layers", "moe_layers")
+
 def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                           dtype: Optional[torch.dtype] = None) -> dict:
     """Carry the reference ``DecoderLM.init`` pytree into the port's layout.
 
     ``tree`` is nested dicts of numpy arrays with the layers stacked on a
-    leading ``L`` axis (``tree["layers"]["attn"]["wq"]`` is (L, d, H·hd));
-    returns the port's parameters (a list of per-layer dicts) on ``device``
-    in ``dtype`` (default: the config's)."""
+    leading ``L`` axis (``tree["layers"]["attn"]["wq"]`` is (L, d, H·hd);
+    an MoE model's ``dense_layers`` and ``moe_layers`` alike); returns the
+    port's parameters (lists of per-layer dicts) on ``device`` in ``dtype``
+    (default: the config's).  The MoE router stays float32, as the
+    reference keeps it."""
     dt = dtype if dtype is not None else DTYPES[cfg.dtype]
 
-    def t(x):
+    def t(x, name=""):
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(
-            device=device, dtype=dt)
+            device=device, dtype=torch.float32 if name == "router" else dt)
 
     p = {"embed": t(tree["embed"]), "ln_f": t(tree["ln_f"])}
     if "head" in tree:
         p["head"] = t(tree["head"])
-    stacked = tree["layers"]
-    n = len(stacked["attn"]["wq"])
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
-    p["layers"] = [{grp: {name: t(arr[i]) for name, arr in
-                          stacked[grp].items()}
-                    for grp in ("attn", "mlp")} for i in range(n)]
+    n_all = 0
+    for key in _LAYER_KEYS:
+        if key not in tree:
+            continue
+        stacked = tree[key]
+        n = len(stacked["attn"]["wo"])
+        p[key] = [{grp: {name: t(arr[i], name)
+                         for name, arr in stacked[grp].items()}
+                   for grp in stacked} for i in range(n)]
+        n_all += n
+    if n_all != cfg.n_layers:
+        raise ValueError(f"tree has {n_all} layers, config {cfg.n_layers}")
     return p
 
 
@@ -722,12 +918,15 @@ def to_reference_params(params: dict) -> dict:
     """The inverse of :func:`load_reference_params`: the port's parameters
     in the reference's pytree layout, every layer leaf stacked on a leading
     ``L`` axis (same dtype and device)."""
-    layers = params["layers"]
-    out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = {grp: {name: torch.stack([lp[grp][name].detach()
-                                              for lp in layers])
-                           for name in layers[0][grp]}
-                     for grp in layers[0]}
+    out = {k: v for k, v in params.items() if k not in _LAYER_KEYS}
+    for key in _LAYER_KEYS:
+        if key not in params:
+            continue
+        layers = params[key]
+        out[key] = {grp: {name: torch.stack([lp[grp][name].detach()
+                                             for lp in layers])
+                          for name in layers[0][grp]}
+                    for grp in layers[0]}
     return out
 
 

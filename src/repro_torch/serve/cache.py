@@ -6,6 +6,7 @@ fragmentation-free growth one block at a time).
 Layout (one pool entry per transformer layer, stacked on a leading L dim):
 
   k_pool, v_pool : (L, N, block_size, n_kv_heads, head_dim)
+  MLA latent     : ckv_pool (L, N, block_size, kv_lora + rope_dim)
 
 Block id 0 is the **reserved null block**: unused table entries and idle
 batch rows point at it, so gathers are always in-bounds and garbage is
@@ -369,8 +370,8 @@ class PagedKVCache:
         this rank allocates its part."""
         a = cfg.attn
         if a is None:
-            raise ValueError(f"the paged KV cache serves dense GQA "
-                             f"attention (arch {cfg.arch_type!r})")
+            raise ValueError(f"the paged KV cache serves attention layers "
+                             f"(arch {cfg.arch_type!r} has none)")
         if block_size is None:
             block_size = cls.default_block_size()
         if max_blocks_per_req is None:
@@ -379,8 +380,17 @@ class PagedKVCache:
             dtype = {"float32": torch.float32,
                      "bfloat16": torch.bfloat16}[cfg.dtype]
         s = (cfg.n_layers, n_blocks, block_size, a.n_kv_heads, a.head_dim)
+        names = ("k_pool", "v_pool")
+        if a.is_mla:
+            s = (cfg.n_layers, n_blocks, block_size,
+                 a.kv_lora_rank + a.qk_rope_head_dim)
+            names = ("ckv_pool",)
         sharding, group = None, None
         if mesh is not None and mesh.size(seq_axis) > 1:
+            if a.is_mla:
+                raise NotImplementedError(
+                    "a latent pool sharded over ranks is not ported "
+                    "(ROADMAP §1 item 7)")
             group = mesh.comms[seq_axis]
             sharding = cls._pool_sharding(s, group.size)
             if sharding == "heads":
@@ -390,7 +400,7 @@ class PagedKVCache:
             else:
                 group = None
         pools = {k: torch.zeros(s, dtype=dtype, device=device)
-                 for k in ("k_pool", "v_pool")}
+                 for k in names}
         allocator = BlockAllocator(n_blocks)
         prefix = None
         if prefix_cache:
@@ -438,9 +448,9 @@ class PagedKVCache:
 
     @property
     def layout(self) -> str:
-        """The kv layout: k and v pools per kv head (``"mha"``; the latent
-        ``"mla"`` pool is not ported)."""
-        return "mha"
+        """The kv layout: k and v pools per kv head (``"mha"``), or one
+        latent pool (``"mla"``)."""
+        return "mla" if self.cfg.attn.is_mla else "mha"
 
     def blocks_for(self, n_tokens: int) -> int:
         return max(1, math.ceil(n_tokens / self.block_size))
@@ -701,14 +711,17 @@ class PagedKVCache:
     def page_in(self, slot: int, dense_cache: Dict[str, torch.Tensor],
                 n_tokens: int) -> None:
         """Scatter a prefill's dense cache ``{"k", "v"}`` (L, 1, T, Hkv, D)
-        (leading layer dim, B = 1, every kv head) into the slot's blocks;
-        only the first ``n_tokens`` positions page in (T may be padded).
-        A sharded pool takes this rank's heads or blocks."""
+        (leading layer dim, B = 1, every kv head), or ``{"ckv"}`` (L, 1, T,
+        kv_lora + rope) into a latent pool, into the slot's blocks; only
+        the first ``n_tokens`` positions page in (T may be padded).  A
+        sharded pool takes this rank's heads or blocks."""
         n = self.blocks_for(n_tokens)
         assert n <= int(self.n_assigned[slot])
         bs = self.block_size
         at, ids = self._blocks_here(self.table[slot, :n])
-        for dk in ("k", "v"):
+        for dk in ("k", "v", "ckv"):
+            if dk + "_pool" not in self.pools:
+                continue
             pool = self.pools[dk + "_pool"]
             x = dense_cache[dk][:, 0]                  # (L, T, Hkv, D)
             L, T = x.shape[0], x.shape[1]
@@ -725,7 +738,8 @@ class PagedKVCache:
 
     def gather(self, slot: int, length: int) -> Dict[str, torch.Tensor]:
         """Contiguous (L, length, Hkv, D) view of a slot's cache, every kv
-        head — a test / debugging aid (decode never materializes it); a
+        head (a latent pool: ``{"ckv"}`` (L, length, kv_lora + rope)) — a
+        test / debugging aid (decode never materializes it); a
         sharded pool is all-gathered over its ranks first."""
         n = self.blocks_for(length)
         ids = torch.as_tensor(self.table[slot, :n], dtype=torch.long)

@@ -122,6 +122,13 @@ class Engine:
                  spec: Optional[SpecConfig] = None,
                  draft: Optional[DraftSource] = None):
         cfg = model.cfg
+        if (use_mesh_sharding and model.mesh is not None
+                and model.mesh.world.size > 1
+                and (cfg.moe is not None or cfg.attn.is_mla)):
+            raise NotImplementedError(
+                "the paged Engine across ranks for an MLA / MoE model (MoE "
+                "dispatch across ranks, a latent pool sharded over them) "
+                "is not ported (ROADMAP §1 item 7)")
         if model.batch_group is not None:
             # serving shapes are ragged (B = 1 chunks, a fixed slot batch
             # for decode): run the model batch-replicated, as the
@@ -666,6 +673,11 @@ class FixedSlotEngine:
     same tokens."""
 
     def __init__(self, model, params):
+        if model.cfg.moe is not None or model.cfg.attn.is_mla:
+            raise NotImplementedError(
+                "FixedSlotEngine of an MLA / MoE model (a dense latent "
+                "cache, the whole-prompt MLA prefill) is not ported "
+                "(ROADMAP §1 item 7)")
         self.model = model
         self.params = params
 

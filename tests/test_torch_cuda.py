@@ -446,3 +446,176 @@ def test_head_parallel_pool_equals_one_rank_kernel_bitwise(dev):
     assert res[0][0] is True
     assert all(r[1] == 1 for r in res)
     assert {r[2] for r in res} == {"gloo-staged"}
+
+
+# ------------------------------------------------- the MLA latent shape
+# absorbed MLA (deepseek-v2-lite-16b): q/k 576 (latent 512 ⊕ rope 64), v
+# the first 512 columns of the latent rows, one kv head under 16 query
+# heads, scale 1/√192
+
+LATENT_SCALE = 192 ** -0.5
+
+
+def _latent_chunk(gen, dev, dtype, Tq, Tk, view=True):
+    q = _randn(gen, (1, Tq, 16, 576), dtype, dev)
+    k = _randn(gen, (1, Tk, 1, 576), dtype, dev)
+    v = k[..., :512] if view else _randn(gen, (1, Tk, 1, 512), dtype, dev)
+    return q, k, v
+
+
+LATENT_FLASH = [
+    # (Tq, Tk, mask, v a view of k): the serving chunk (Tq 256 at q_offset
+    # 768 over 1024 gathered keys); ragged tiles under a window; a v of
+    # its own; a first chunk whose early rows see few keys
+    (256, 1024, mk.causal(rel_offset=768), True),
+    (37, 100, mk.sliding_window(40), True),
+    (64, 160, mk.causal(rel_offset=96), False),
+    (256, 256, mk.causal(), True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LATENT_FLASH,
+                         ids=[f"{c[0]}x{c[1]}{'v' if c[3] else ''}"
+                              for c in LATENT_FLASH])
+def test_latent_flash_kernel_matches_plain(dev, case, dtype):
+    """Kernel A's latent route (q/k 576, v 512) against the plain version:
+    o within the forward bar (bf16 also element by element), lse 1e-4;
+    one launch, counted as ``flash_fwd_latent``."""
+    Tq, Tk, mask, view = case
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = _latent_chunk(gen, dev, dtype, Tq, Tk, view)
+    n0 = dict(build.LAUNCHES)
+    o, lse = flash_fwd(q, k, v, mask=mask, scale=LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd_latent"] == n0["flash_fwd_latent"] + 1
+    assert build.LAUNCHES["flash_fwd"] == n0["flash_fwd"]
+    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, scale=LATENT_SCALE)
+    assert o.shape == (1, Tq, 16, 512)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
+    if dtype == torch.bfloat16:
+        assert _rel_err(o, o_r) <= 3e-2
+
+
+LATENT_PAGED = [
+    # (B, Tq, lengths, window, v a view of k): the serving step and verify
+    # Tq 5 at phase 4's lengths; a window across splits; a v pool of its
+    # own; a request with one token
+    (4, 1, [1016, 716, 529, 80], 0, True),
+    (4, 5, [1016, 716, 529, 80], 0, True),
+    (3, 2, [31, 33, 300], 40, True),
+    (2, 5, [64, 97], 0, False),
+    (2, 1, [1, 17], 0, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LATENT_PAGED,
+                         ids=[f"B{c[0]}T{c[1]}{'v' if c[4] else ''}"
+                              for c in LATENT_PAGED])
+def test_latent_paged_kernel_matches_plain(dev, case, dtype):
+    """Kernel B over a latent pool (N, 16, 1, 576) with 16 query heads, v
+    its 512-column view (or a pool of its own): within the paged bar of
+    the plain version, one launch."""
+    B, Tq, lengths, window, view = case
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bs = 16
+    nb = -(-max(lengths) // bs) + 1
+    N = B * nb + 4
+    q = _randn(gen, (B, Tq, 16, 576), dtype, dev)
+    kp = _randn(gen, (N, bs, 1, 576), dtype, dev)
+    vp = kp[..., :512] if view else _randn(gen, (N, bs, 1, 512), dtype, dev)
+    bt = (torch.randperm(N - 1, generator=gen, device=dev)[:B * nb] + 1
+          ).reshape(B, nb).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    mask = mk.sliding_window(window) if window else mk.causal()
+    n0 = build.LAUNCHES["paged_decode"]
+    o = paged_attn(q, kp, vp, bt, lens, mask=mask, scale=LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["paged_decode"] == n0 + 1
+    assert o.shape == (B, Tq, 16, 512)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        o.float(), paged_attn_ref(q, kp, vp, bt, lens, mask=mask,
+                                  scale=LATENT_SCALE).float(),
+        atol=tol, rtol=tol)
+
+
+def test_latent_paged_kernel_is_bitwise_batch_invariant(dev):
+    """At the latent shape (bf16, Tq 1): a 1000-token request gives bitwise
+    the same o alone, in a batch of 4 with a wider table, under a permuted
+    block table, and from one launch to the next."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, bs, nb = 4, 16, 70
+    N = B * nb + 4
+    q = _randn(gen, (B, 1, 16, 576), torch.bfloat16, dev)
+    kp = _randn(gen, (N, bs, 1, 576), torch.bfloat16, dev)
+    bt = (torch.randperm(N - 1, generator=gen, device=dev)[:B * nb] + 1
+          ).reshape(B, nb).to(torch.int32)
+    lens = torch.tensor([80, 1000, 529, 1100], dtype=torch.int32,
+                        device=dev)
+
+    def run(q, kp, bt, lens):
+        return paged_attn(q, kp, kp[..., :512], bt, lens,
+                          scale=LATENT_SCALE)
+    full = run(q, kp, bt, lens)
+    assert torch.equal(full, run(q, kp, bt, lens))
+    alone = run(q[1:2].contiguous(), kp,
+                bt[1:2, :-(-1000 // bs)].contiguous(), lens[1:2])
+    assert torch.equal(alone[0], full[1])
+    perm = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                      torch.randperm(N - 1, generator=gen, device=dev) + 1])
+    kp2 = torch.empty_like(kp)
+    kp2[perm] = kp
+    assert torch.equal(run(q, kp2, perm[bt.long()].to(torch.int32), lens),
+                       full)
+
+
+def test_latent_kernels_raise_on_other_head_dim_pairs(dev):
+    """A q/k and v pair the latent routes do not serve raises before a
+    launch."""
+    q = torch.zeros((1, 32, 16, 576), device=dev)
+    k = torch.zeros((1, 32, 1, 576), device=dev)
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd(q, k, k[..., :256], mask=mk.causal())
+    pool = torch.zeros((4, 16, 1, 576), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_attn(q[:, :1], pool, pool[..., :256],
+                   torch.ones((1, 2), dtype=torch.int32, device=dev),
+                   torch.full((1,), 20, dtype=torch.int32, device=dev))
+    assert dict(build.LAUNCHES) == n0
+
+
+def test_deepseek_engine_on_card_matches_cpu(dev):
+    """Smoke deepseek-v2-lite-16b (float32, 2 layers, an MoE layer of 4
+    experts) widened to the served latent (kv_lora 512, rope 64): the
+    engine on the card — kernel A's latent route for chunks, kernel B over
+    the latent pool — emits the same greedy streams as on the CPU, and so
+    does n-gram speculation at depth 3."""
+    import dataclasses
+
+    from repro_torch.serve.speculative import SpecConfig
+    base = smoke_config(get_config("deepseek-v2-lite-16b"))
+    cfg = base.replace(attn=dataclasses.replace(
+        base.attn, kv_lora_rank=512, qk_rope_head_dim=64))
+    cpu = DecoderLM(cfg, device="cpu")
+    params = cpu.init(0)
+    params_d = tree_map(lambda t: t.to(dev), params)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 40))
+    kw = dict(max_batch=4, block_size=16, n_blocks=32,
+              prefill_chunk_tokens=16)
+    for spec in (None, SpecConfig(depth=3, mode="ngram")):
+        build.reset_launches()
+        out_d = Engine(DecoderLM(cfg, device=dev), params_d, spec=spec,
+                       **kw).generate({"tokens": prompts}, 8)
+        assert build.LAUNCHES["flash_fwd_latent"] > 0
+        assert build.LAUNCHES["paged_decode"] > 0
+        assert build.LAUNCHES["flash_fwd"] == 0
+        out_c = Engine(cpu, params, spec=spec, **kw).generate(
+            {"tokens": prompts}, 8)
+        np.testing.assert_array_equal(out_d, out_c)

@@ -79,5 +79,8 @@ def test_port_covers_the_slice_layout():
                 "serve/prng.py", "configs/llama_16h.py",
                 "configs/llama_33h.py", "io/checkpoint.py",
                 "serve/speculative.py", "configs/smollm_360m.py",
-                "configs/spec_pairs.py"):
+                "configs/spec_pairs.py", "configs/qwen3_8b.py",
+                "configs/qwen2_5_14b.py", "configs/qwen1_5_32b.py",
+                "models/moe.py", "configs/deepseek_v2_lite_16b.py",
+                "kernels/csrc/flash_fwd_latent.cu"):
         assert (PORT / rel).is_file(), rel
