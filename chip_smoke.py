@@ -9,7 +9,7 @@ Phases, each fatal on failure (nothing is caught):
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
                 ptxas' registers and spills of the tensor-core routes
                 (kernel A's, and kernels C and D's), with their shared
-                memory; no spill at D = 128.
+                memory; no spill at D = 128; none in A's latent route.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
                 cases, every case of A, C and D in both dtypes (bf16 runs
@@ -33,7 +33,8 @@ Phases, each fatal on failure (nothing is caught):
                 both dtypes: A at the serving chunk, B at the serving step
                 and at verify Tq 5 (group 5: 25 rows, two 16-row groups).
                 deepseek-v2-lite-16b's absorbed-MLA shapes in both dtypes:
-                A's latent route at q (1, 256, 16, 576), q_offset 768, k
+                A's latent route (bf16 on the tensor cores, float32 on the
+                CUDA cores) at q (1, 256, 16, 576), q_offset 768, k
                 (1, 1024, 1, 576), v its 512-column view, scale 1/√192; B
                 over a latent pool (N, 16, 1, 576) with that view at Tq 1
                 and 5 (80 rows: five 16-row groups), phase 4's lengths; B
@@ -216,8 +217,10 @@ Phases, each fatal on failure (nothing is caught):
                 (``mla_*``): its device time (torch.profiler), the
                 wrapper's (CUDA events) and the host time of one call (1000
                 calls).  A's latent route at phase 12's chunk (its own row,
-                ``flash_fwd_latent``) beside its plain version and SDPA
-                with an explicit mask.
+                ``flash_fwd_latent``, bf16): its time and its device time
+                (20 calls replayed as one CUDA graph) beside its plain
+                version, SDPA with an explicit mask (which it must beat)
+                and its bound.
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -246,8 +249,8 @@ from repro_torch.core.tree import leaves  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FWD_ROUTES, FlashAttnFn, _BwdPlan, _device_bounds, _launch_dkv,
-    _launch_dq, flash_bwd, flash_fwd)
+    FWD_ROUTES, LATENT_ROUTES, FlashAttnFn, _BwdPlan, _device_bounds,
+    _launch_dkv, _launch_dq, flash_bwd, flash_fwd)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, merge_ref, row_rel_err)
@@ -334,6 +337,36 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Device milliseconds a call of ``fn``: n calls captured in one CUDA
+    graph, its replays timed with CUDA events (median of reps), so no host
+    work sits between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(g, stream=s):
+            for _ in range(n):
+                fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
 
 
 def rel_err(a, r):
@@ -601,7 +634,8 @@ def latent_checks():
             check(r <= REL_TOL, f"flash_fwd latent: relative err {r}")
             rel = f"  rel {r:.2e} (limit {REL_TOL})"
         say(f"  A {'latent 576/512 h16/1 Tq256':<28} {str(dt)[6:]:<9} "
-            f"max|Δo| {err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}")
+            f"max|Δo| {err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}  "
+            f"({LATENT_ROUTES[dt][0]})")
         for tq in (1, 1 + P9_DEPTH):
             q, kp, vp, bt, lens = _latent_pool(gen, 4, tq, LAT_LENS, dt)
             n0 = build.LAUNCHES["paged_decode"]
@@ -3164,12 +3198,30 @@ def ptxas_kernels(text):
 def tensor_core_report(report):
     """Registers, spills and shared memory of the tensor-core routes at each
     head dim: kernel A's (``flash_fwd_sm90``) and kernels C and D's
-    (``flash_bwd_sm90``); none may spill at D = 128."""
+    (``flash_bwd_sm90``), none of which may spill at D = 128; and kernel
+    A's latent route (``flash_fwd_latent_sm90``, v k's prefix view or a
+    tensor of its own), which may not spill at all."""
     import ctypes
     fwd = build.load("flash_fwd_sm90").repro_flash_fwd_sm90_smem
     fwd.argtypes, fwd.restype = [ctypes.c_int], ctypes.c_int
     bwd = build.load("flash_bwd_sm90").repro_flash_bwd_sm90_smem
     bwd.argtypes, bwd.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    lat = build.load("flash_fwd_latent_sm90").repro_flash_fwd_latent_sm90_smem
+    lat.argtypes, lat.restype = [ctypes.c_int], ctypes.c_int
+    views = set()
+    for mangled, (regs, spill) in sorted(
+            ptxas_kernels(report["flash_fwd_latent_sm90"]).items()):
+        if "wgmma_kernel" not in mangled:      # the split's merge kernel
+            continue
+        own_v = int(mangled.split("ILb")[1][0])
+        views.add(own_v)
+        say(f"  ptxas A fwd latent wgmma 576/512 "
+            f"{'v of its own' if own_v else 'v in k'}: {regs} registers, "
+            f"{spill} bytes spilled, {lat(1 - own_v)} bytes dynamic shared "
+            "memory")
+        check(spill == 0, f"kernel {mangled} spills {spill} bytes")
+    check(views == {0, 1}, "ptxas reported fewer than two latent tensor-core "
+          "kernels")
     seen = 0
     for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
         for mangled, (regs, spill) in sorted(
@@ -3244,11 +3296,14 @@ def time_flash(launches):
     return row
 
 
-LATENT_DESIGN = ("CUDA cores, float32 FMAs: one 256-thread block per (16-row "
-                 "q tile, head); 32-key tiles of the host's block-sparse "
-                 "table staged as float32 in shared memory (rows padded to "
-                 "DK + 4); v read from the staged k rows when it is their "
-                 "prefix view; online softmax per row in a half-warp")
+LATENT_DESIGN = ("bf16 on the tensor cores: 64-row tiles of (position, head) "
+                 "pairs (4 positions x 16 heads) that share one staged latent "
+                 "tile; q by TMA once, 64-key latent tiles by TMA into a "
+                 "2-stage swizzled ring with mbarriers, v the staged tile's "
+                 "first 8 slabs; two warpgroups each compute s = q.k^T "
+                 "(wgmma m64n64k16) and own 256 of o's 512 columns, o += p.v "
+                 "as wgmma m64n128k16 with p in registers as two bf16 terms; "
+                 "float32: IEEE FMAs on the CUDA cores, 16 x 32 tiles")
 
 
 def time_latent(launches):
@@ -3264,6 +3319,7 @@ def time_latent(launches):
     o_r, _ = chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE)
     err = float((o.float() - o_r.float()).abs().max())
     ms = cuda_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
+    dev_ms = graph_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
     plain = cuda_ms(lambda: chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     allow = (torch.arange(Tk, device=DEV)[None, :]
@@ -3280,17 +3336,24 @@ def time_latent(launches):
         + 4 * Tq * LAT_H
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     say(f"  flash_fwd_latent Tq{Tq} Tk{Tk} H{LAT_H}/1 D{LAT_DK}/{LAT_DV} "
-        f"bf16 causal@{off}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"bf16 causal@{off} ({LATENT_ROUTES[torch.bfloat16][0]}): kernel "
+        f"{ms:.4f} ms, device {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} "
         f"TFLOP/s), plain {plain:.4f} ms, sdpa "
         f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
-        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
-        f"max|Δo| {err:.3e}")
+        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+        f"{b_ms / ms:.3f} of the kernel's time, {b_ms / dev_ms:.3f} of its "
+        f"device time), max|Δo| {err:.3e}")
+    check(lib is None or ms < lib, f"flash_fwd_latent: {ms:.4f} ms is not "
+          f"faster than SDPA's {lib:.4f} ms")
     return {"name": "flash_fwd_latent", "route": "cuda",
             "design": LATENT_DESIGN,
-            "source": "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_fwd_latent_sm90.cu",
+            "float32_source":
+                "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
             "replaces": "src/repro/kernels/flash_attention.py:157",
             "launches": launches["flash_fwd_latent"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / ms,
             "library_ms": lib}
 
 

@@ -14,9 +14,10 @@ package on a host without ``nvcc`` works, and only a CUDA launch builds.
 A), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (kernels C and D) each count one
 route or the other, ``flash_fwd_sm90.cu`` / ``flash_bwd_sm90.cu`` for bf16
 and ``flash_fwd.cu`` / ``flash_bwd.cu`` for float32; ``flash_fwd_latent``
-counts kernel A's latent route (``flash_fwd_latent.cu``, MLA's q/k 576 and
-v 512) and ``paged_decode`` kernel B; each wrapper adds one where it
-launches its kernel, and nowhere else.  Headers
+counts kernel A's latent route at MLA's q/k 576 and v 512, again one of
+two by dtype (``flash_fwd_latent_sm90.cu`` for bf16,
+``flash_fwd_latent.cu`` for float32), and ``paged_decode`` kernel B; each
+wrapper adds one where it launches its kernel, and nowhere else.  Headers
 (``csrc/*.cuh``) are part of every source's hash.
 """
 from __future__ import annotations
@@ -33,7 +34,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_fwd", "paged_decode", "flash_bwd",        # sources
-           "flash_bwd_sm90", "flash_fwd_sm90", "flash_fwd_latent")
+           "flash_bwd_sm90", "flash_fwd_sm90", "flash_fwd_latent",
+           "flash_fwd_latent_sm90")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,37 +1,37 @@
-// Kernel A, latent route: FlashAttention-2 forward of one partial attention
-// chunk whose q/k head dim DK differs from v's DV, on the CUDA cores, written
-// by hand for Hopper (sm_90a), with a plain C entry point bound via ctypes.
-// It serves absorbed multi-head latent attention (DeepSeek MLA): DK = 576
-// (the kv_lora 512 latent ⊕ rope 64), DV = 512, one kv head under a GQA
-// group of every query head, v the first 512 columns of k (a strided view).
+// Kernel A, latent route, float32: FlashAttention-2 forward of one partial
+// attention chunk whose q/k head dim DK differs from v's DV, on the CUDA
+// cores, written by hand for Hopper (sm_90a), with a plain C entry point
+// bound via ctypes.  It serves absorbed multi-head latent attention
+// (DeepSeek MLA): DK = 576 (the kv_lora 512 latent ⊕ rope 64), DV = 512,
+// one kv head under a GQA group of every query head, v the first 512
+// columns of k (a strided view).  IEEE float32 products, for the float32
+// bar (1e-5); bf16 inputs take the tensor-core route
+// (flash_fwd_latent_sm90.cu).
 //
 // Replaces the TPU kernel `_fwd_kernel` / `flash_fwd_bhtd` of the JAX package
 // (src/repro/kernels/flash_attention.py:157, pallas_call at :252) at that
-// shape.  The other routes (flash_fwd.cu, flash_fwd_sm90.cu) take one D of
-// 32, 64 or 128: a 128 x 576 bf16 q tile alone is 147 KB, and a float32 o
-// accumulator of 64 x 512 is 256 registers a thread for one warpgroup.
+// shape.  The one-D routes (flash_fwd.cu, flash_fwd_sm90.cu) take one D of
+// 32, 64 or 128.
 //
 // Bound on the H100: operations.  One deepseek-v2-lite-16b prefill chunk
 // (Tq 256 at q_offset 768, Tk 1024, 16 heads) does 2·(576 + 512) FLOPs for
 // each of the 16 x 229,504 (row, key) pairs the causal mask allows (7.99
 // GFLOP) over 1.2 MB of latent rows and 4.7 MB of q and o: 8.1 us at the
-// bf16 tensor-core rate.  This route runs its products as float32 FMAs on
-// the CUDA cores (about 1/15 of that rate), staged through shared memory, so
-// its time is several times the bound; it is the simple, right version.
+// bf16 tensor-core rate; float32 FMAs on the CUDA cores (67 TFLOP/s) take
+// at least 0.12 ms.
 //
 // Design.  One 256-thread block per (16-row q tile, query head, batch row).
 // The block stages its q tile once and loops over the 32-key tiles [lo, hi]
 // of the host's block-sparse table (kernels/block_sparse.kv_block_bounds at
-// 16 x 32 tiles), each tile's k (and v, unless v lies inside k) converted to
-// float32 in shared memory with rows padded to DK + 4 floats (16-byte
-// aligned, conflict-free float4 reads).  Thread (r, c) owns row r = tid / 16
+// 16 x 32 tiles), each tile's k (and v, unless v lies inside k) staged in
+// shared memory with rows padded to DK + 4 floats (16-byte aligned,
+// conflict-free float4 reads).  Thread (r, c) owns row r = tid / 16
 // and keys c, c + 16 of the score tile (four FMA chains each), then output
 // columns 4c + 64j .. 4c + 64j + 3 of row r.  When v is a prefix view of k
 // (the latent pool's value view: same pointer and strides) the v tile is the
 // k tile's first DV columns: nothing more is read or staged, and two blocks
 // fit an SM.  The MaskSpec is evaluated element-wise only on edge tiles;
 // NEG_INF handling is the reference's (an empty row: o = 0, lse = NEG_INF).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_fwd_common.cuh"
@@ -51,37 +51,17 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// 8 elements (16 bytes) at p as two float4.
-__device__ __forceinline__ void load8(const float* p, float4& a, float4& b) {
-  a = load4(p);
-  b = load4(p + 4);
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float4& a,
-                                      float4& b) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  a = make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                  __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-  b = make_float4(__uint_as_float(v.z << 16), __uint_as_float(v.z & 0xffff0000u),
-                  __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xffff0000u));
-}
-
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // Rows [0, n) of a (rows x D) tile from global rows at src + t·st, rows past
 // `valid` zero-filled, into shared rows of `ss` floats.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, int ss, const T* src,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, int ss, const float* src,
                                       long long st, int n, int valid) {
-  constexpr int CPR = D / 8;  // 8-element pieces a row
+  constexpr int CPR = D / 4;  // 4-element pieces a row
   for (int idx = threadIdx.x; idx < n * CPR; idx += NT) {
     const int i = idx / CPR, c = idx - i * CPR;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (i < valid) load8(src + i * st + c * 8, a, b);
-    *reinterpret_cast<float4*>(dst + i * ss + c * 8) = a;
-    *reinterpret_cast<float4*>(dst + i * ss + c * 8 + 4) = b;
+    const float4 a = i < valid ? load4(src + i * st + c * 4)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + i * ss + c * 4) = a;
   }
 }
 
@@ -92,7 +72,7 @@ constexpr size_t smem_bytes(bool v_in_k) {
          sizeof(int) * (BR + BC);
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT)
     flash_fwd_latent_kernel(FwdParams a, int v_in_k) {
   static_assert(DK % 8 == 0 && DV % 64 == 0 && DV <= DK, "head dims");
@@ -117,11 +97,11 @@ __global__ void __launch_bounds__(NT)
   const int lo = a.bounds[4 * qt], hi = a.bounds[4 * qt + 1];
   const int ilo = a.bounds[4 * qt + 2], ihi = a.bounds[4 * qt + 3];
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  stage<T, DK>(sQ, KS, qb + q0 * a.q_st, a.q_st, BR, a.Tq - q0);
+  stage<DK>(sQ, KS, qb + q0 * a.q_st, a.q_st, BR, a.Tq - q0);
   if (a.has_seg && tid < BR) {
     const int t = q0 + tid;
     sQs[tid] = t < a.Tq ? a.qseg[b * a.qs_sb + t] : -1;
@@ -136,8 +116,8 @@ __global__ void __launch_bounds__(NT)
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * BC;
     __syncthreads();  // the previous tile's sK / sV / sP are consumed
-    stage<T, DK>(sK, KS, kb + k0 * a.k_st, a.k_st, BC, a.Tk - k0);
-    if (!v_in_k) stage<T, DV>(sV, VS, vb + k0 * a.v_st, a.v_st, BC, a.Tk - k0);
+    stage<DK>(sK, KS, kb + k0 * a.k_st, a.k_st, BC, a.Tk - k0);
+    if (!v_in_k) stage<DV>(sV, VS, vb + k0 * a.v_st, a.v_st, BC, a.Tk - k0);
     if (a.has_seg && tid < BC) {
       const int t = k0 + tid;
       sKs[tid] = t < a.Tk ? a.kseg[b * a.ks_sb + t] : -2;
@@ -223,36 +203,33 @@ __global__ void __launch_bounds__(NT)
   const int t = q0 + r;
   if (t >= a.Tq) return;
   const float ls = l == 0.f ? 1.f : l;
-  T* ob = static_cast<T*>(a.o) + b * a.o_sb + t * a.o_st + h * a.o_sh;
+  float* ob = static_cast<float*>(a.o) + b * a.o_sb + t * a.o_st + h * a.o_sh;
 #pragma unroll
-  for (int jv = 0; jv < NV; ++jv) {
-    const int c = 4 * cl + 64 * jv;
-    store_f(ob + c, acc[jv].x / ls);
-    store_f(ob + c + 1, acc[jv].y / ls);
-    store_f(ob + c + 2, acc[jv].z / ls);
-    store_f(ob + c + 3, acc[jv].w / ls);
-  }
+  for (int jv = 0; jv < NV; ++jv)
+    *reinterpret_cast<float4*>(ob + 4 * cl + 64 * jv) =
+        make_float4(acc[jv].x / ls, acc[jv].y / ls, acc[jv].z / ls,
+                    acc[jv].w / ls);
   if (cl == 0)
     a.lse[((long long)b * a.Tq + t) * a.Hq + h] =
         l == 0.f ? kNegInf : m + logf(ls);
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 cudaError_t launch(const FwdParams& p, int nq, int B, int v_in_k,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<DK, DV>(v_in_k != 0);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_latent_kernel<T, DK, DV>,
+      flash_fwd_latent_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_fwd_latent_kernel<T, DK, DV>
+  flash_fwd_latent_kernel<DK, DV>
       <<<dim3(nq, p.Hq, B), NT, smem, stream>>>(p, v_in_k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Head dims (DK, DV) = (576, 512), float32 or bf16 (ia's dtype 0 or 1); ia
+// Head dims (DK, DV) = (576, 512), float32 (ia's dtype must be 0); ia
 // as in flash_fwd_common.cuh with D = DK, then ia[29] = DV and ia[30] = 1
 // when v is a prefix view of k (same pointer and strides).  Rows must be
 // 16-byte aligned.  Returns the CUDA error code of the launch (0 =
@@ -268,11 +245,7 @@ extern "C" int repro_flash_fwd_latent(const void* q, const void* k,
   const int dv = static_cast<int>(ia[29]);
   const int v_in_k = static_cast<int>(ia[30]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.D != 576 || dv != 512) return static_cast<int>(cudaErrorInvalidValue);
-  if (sh.dtype == 0)
-    return static_cast<int>(launch<float, 576, 512>(p, sh.nq, sh.B, v_in_k, s));
-  if (sh.dtype == 1)
-    return static_cast<int>(
-        launch<__nv_bfloat16, 576, 512>(p, sh.nq, sh.B, v_in_k, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.dtype != 0 || sh.D != 576 || dv != 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<576, 512>(p, sh.nq, sh.B, v_in_k, s));
 }

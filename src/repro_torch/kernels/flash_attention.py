@@ -14,9 +14,14 @@ on the tensor cores (``csrc/flash_fwd_sm90.cu``, ``wgmma``, 128-row q tiles
 over 128-key kv tiles), float32 inputs on the CUDA cores
 (``csrc/flash_fwd.cu``, 64 × 64 tiles, IEEE float32 products for the
 float32 bar).  The head-dim pairs of ``LATENT_DIMS`` (q/k 576, v 512:
-absorbed MLA, v a prefix view of k) take the latent route in both dtypes
-(``LATENT_ROUTE``, ``csrc/flash_fwd_latent.cu``: float32 on the CUDA
-cores, 16 × 32 tiles); any other pair raises.
+absorbed MLA, v a prefix view of k) take the latent route, again chosen by
+dtype (``LATENT_ROUTES``): bf16 on the tensor cores
+(``csrc/flash_fwd_latent_sm90.cu``, ``wgmma`` over 64-row tiles of
+(position, head) pairs of one kv head's group that share one staged
+latent tile, 64-key tiles, each tile's sweep cut into parts merged by a
+second kernel when the tiles alone leave half the SMs idle; the group must
+divide 64 or be a multiple of it), float32 on the CUDA cores
+(``csrc/flash_fwd_latent.cu``, 16 × 32 tiles); any other pair raises.
 
 The block-sparse sweep is planned on the host: for each q tile the wrapper
 computes the reachable kv tile range ``[lo, hi]`` and the interior range
@@ -59,9 +64,19 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel A: (library, entry point, q rows and keys per tile) by dtype
 FWD_ROUTES = {torch.float32: ("flash_fwd", "repro_flash_fwd", 64),
               torch.bfloat16: ("flash_fwd_sm90", "repro_flash_fwd_sm90", 128)}
-# kernel A at (q/k, v) head dims other than one D: (library, entry point,
-# q rows a tile, keys a tile); it takes these (Dk, Dv) pairs, both dtypes
-LATENT_ROUTE = ("flash_fwd_latent", "repro_flash_fwd_latent", 16, 32)
+# kernel A at (q/k, v) head dims other than one D, by dtype: (library,
+# entry point, q rows a tile, keys a tile); it takes these (Dk, Dv) pairs.
+# The bf16 route's rows are (position, head) pairs: 64 // G positions of a
+# group of G heads (latent_tile); with a v of its own (not k's prefix view)
+# it takes LATENT_OWN_V_KEYS keys a tile, so that two stages of k and v fit
+LATENT_ROUTES = {
+    torch.float32: ("flash_fwd_latent", "repro_flash_fwd_latent", 16, 32),
+    torch.bfloat16: ("flash_fwd_latent_sm90", "repro_flash_fwd_latent_sm90",
+                     64, 64)}
+LATENT_OWN_V_KEYS = 32
+# the bf16 latent route cuts a tile's kv sweep into parts of at least this
+# many kv tiles (latent_splits)
+LATENT_SPLIT_TILES = 4
 LATENT_DIMS = ((576, 512),)
 # kernels C and D: (library, entry-point suffix) by dtype
 BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
@@ -81,6 +96,20 @@ def _entry(lib: str, name: str, n_ptrs: int):
         f.restype = ctypes.c_int
         _FNS[name] = f
     return _FNS[name]
+
+
+def latent_tile(group: int, rows: int = 64):
+    """(positions, heads) of one ``rows``-row tile of (position, head)
+    pairs over a GQA group of ``group`` query heads: ``rows // group``
+    positions of the whole group, or ``rows`` heads of one position when
+    the group is a multiple of ``rows``.  Any other group raises."""
+    if rows % group == 0:
+        return rows // group, group
+    if group % rows == 0:
+        return 1, rows
+    raise ValueError(f"the bf16 latent route tiles {rows} (position, head) "
+                     f"rows: a GQA group of {group} heads neither divides "
+                     f"{rows} nor is a multiple of it")
 
 
 def tile_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool = True,
@@ -116,8 +145,9 @@ def _device_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool,
                    device: str, block: int = BLOCK_Q, bc: int = 0):
     """The sweep table on ``device`` at ``block``-row q tiles of ``bc``-key
     tiles (``block`` when 0: 64 for kernels C, D and A's float32 route, 128
-    for A's bf16 route; 16 × 32 for A's latent route; each size is its own
-    cache entry), and whether it is empty."""
+    for A's bf16 route; 16 × 32 for A's float32 latent route; 64 // G
+    positions × 64 keys for its bf16 one; each size is its own cache
+    entry), and whether it is empty."""
     rows = tile_bounds(mask, Tq, Tk, prune, br=block, bc=bc or block)
     empty = all(hi < lo for lo, hi, _, _ in rows)
     t = torch.tensor(rows, dtype=torch.int32).to(device)
@@ -184,25 +214,51 @@ def _segments(mask: MaskSpec, segs, T: int, offset: int, device):
     return mask.segment_of(pos).contiguous(), 0
 
 
+def latent_splits(blocks: int, longest: int, sms: int) -> int:
+    """Parts each tile's kv sweep of the bf16 latent route is cut into
+    (their partial o and lse merged by a second kernel): enough for a block
+    on every SM when the tiles alone leave half of them idle, with at least
+    ``LATENT_SPLIT_TILES`` kv tiles in the longest sweep's parts."""
+    if 2 * blocks > sms:
+        return 1
+    return max(1, min(sms // blocks, longest // LATENT_SPLIT_TILES))
+
+
+@functools.lru_cache(maxsize=256)
+def _longest_sweep(mask: MaskSpec, Tq: int, Tk: int, prune: bool, br: int,
+                   bc: int) -> int:
+    return max([hi - lo + 1 for lo, hi, _, _ in
+                tile_bounds(mask, Tq, Tk, prune, br=br, bc=bc)] + [0])
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: str) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     _check(q, k, v, latent=True)
     B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     latent = Dv != D
+    tc_latent = latent and q.dtype == torch.bfloat16
     if latent:
-        lib, name, block, bc = LATENT_ROUTE
+        lib, name, block, bc = LATENT_ROUTES[q.dtype]
         _check_aligned(q=q, k=k, v=v)
         # the latent pool's value view: v is k's first Dv columns
-        extra = (Dv, v.data_ptr() == k.data_ptr()
-                 and v.stride() == k.stride())
+        v_in_k = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+        extra = (Dv, v_in_k)
+        if tc_latent:
+            block, heads = latent_tile(Hq // Hkv, block)
+            bc = bc if v_in_k else LATENT_OWN_V_KEYS
     else:
         lib, name, block = FWD_ROUTES[q.dtype]
         bc, extra = block, ()
         if q.dtype == torch.bfloat16:
             _check_aligned(q=q, k=k, v=v)
-    Tk, Hkv = k.shape[1], k.shape[2]
-    bounds, empty = _device_bounds(mask, Tq, Tk, bool(prune), str(q.device),
-                                   block, bc)
+    dev = str(q.device)
+    bounds, empty = _device_bounds(mask, Tq, Tk, bool(prune), dev, block, bc)
     o_shape = (B, Tq, Hq, Dv)
     if empty:                            # statically fully masked chunk
         return (torch.zeros(o_shape, dtype=q.dtype, device=q.device),
@@ -215,16 +271,29 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
         ks, ks_sb = _segments(mask, kv_segments, Tk, mask.kv_offset, q.device)
     o = torch.empty(o_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Tq, Hq), dtype=torch.float32, device=q.device)
+    parts = ()
+    if tc_latent:       # the sweep's parts, and room for their partials
+        n = latent_splits(bounds.shape[0] * (Hq // heads) * B,
+                          _longest_sweep(mask, Tq, Tk, bool(prune), block,
+                                         bc), _sm_count(dev))
+        o_part = lse_part = None
+        if n > 1:       # one allocation: o's parts, then lse's
+            rows = n * B * Tq * Hq
+            buf = torch.empty(rows * (Dv + 1), dtype=torch.float32,
+                              device=q.device)
+            o_part, lse_part = buf[:rows * Dv], buf[rows * Dv:]
+        extra += (n,)
+        parts = (build.ptr(o_part), build.ptr(lse_part))
     ia = build.int64_args(
         B, Tq, Tk, Hq, Hkv, D, DTYPES[q.dtype], bounds.shape[0],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         mask.causal, mask.window, mask.prefix_len, mask.q_offset,
         mask.kv_offset, mask.document, qs_sb, ks_sb, mask.needs_mask,
         *extra)
-    err = _entry(lib, name, 8)(
+    err = _entry(lib, name, 8 + len(parts))(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
-        build.ptr(lse), build.ptr(bounds), build.ptr(qs), build.ptr(ks), ia,
-        float(scale), build.stream_ptr(q.device))
+        build.ptr(lse), build.ptr(bounds), build.ptr(qs), build.ptr(ks),
+        *parts, ia, float(scale), build.stream_ptr(q.device))
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed ({lib}, CUDA "
                            f"error {err})")

@@ -466,11 +466,18 @@ def _latent_chunk(gen, dev, dtype, Tq, Tk, view=True):
 LATENT_FLASH = [
     # (Tq, Tk, mask, v a view of k): the serving chunk (Tq 256 at q_offset
     # 768 over 1024 gathered keys); ragged tiles under a window; a v of
-    # its own; a first chunk whose early rows see few keys
+    # its own; a first chunk whose early rows see few keys; a document mask
+    # with two boundaries inside the chunk; a window under which rows 13 on
+    # see no key (whole position tiles and rows inside a live tile: o = 0,
+    # lse = NEG_INF); 99 positions, 1584 (position, head) rows, not a
+    # multiple of the bf16 route's 64-row tiles
     (256, 1024, mk.causal(rel_offset=768), True),
     (37, 100, mk.sliding_window(40), True),
     (64, 160, mk.causal(rel_offset=96), False),
     (256, 256, mk.causal(), True),
+    (192, 960, mk.document(boundaries=(0, 850, 940), rel_offset=768), True),
+    (64, 64, mk.MaskSpec(causal=True, window=150, q_offset=200), True),
+    (99, 300, mk.causal(rel_offset=201), True),
 ]
 
 
@@ -496,8 +503,108 @@ def test_latent_flash_kernel_matches_plain(dev, case, dtype):
     torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
+    dead = lse_r <= NEG_INF / 2
+    assert bool((lse[dead] == NEG_INF).all())
+    assert bool((o[dead] == 0).all())
     if dtype == torch.bfloat16:
         assert _rel_err(o, o_r) <= 3e-2
+
+
+def test_latent_flash_bf16_route_is_deterministic(dev):
+    """Two launches of the bf16 latent route on the serving chunk give
+    bitwise equal o and lse (a fixed sweep order, no atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    q, k, v = _latent_chunk(gen, dev, torch.bfloat16, 256, 1024)
+    m = mk.causal(rel_offset=768)
+    o1, l1 = flash_fwd(q, k, v, mask=m, scale=LATENT_SCALE)
+    o2, l2 = flash_fwd(q, k, v, mask=m, scale=LATENT_SCALE)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("case", [LATENT_FLASH[0], LATENT_FLASH[5]],
+                         ids=["serve", "dead_rows"])
+def test_latent_flash_bf16_split_sweep_matches_plain(dev, case, parts,
+                                                     monkeypatch):
+    """The bf16 latent route with each tile's kv sweep cut into parts and
+    merged (rows some part or every part does not see included): within
+    the forward bar of the plain version and element by element, dead rows
+    (0, NEG_INF), one counted launch; bitwise deterministic."""
+    import repro_torch.kernels.flash_attention as fa
+    monkeypatch.setattr(fa, "latent_splits", lambda *a: parts)
+    Tq, Tk, mask, view = case
+    gen = torch.Generator(device=dev).manual_seed(27)
+    q, k, v = _latent_chunk(gen, dev, torch.bfloat16, Tq, Tk, view)
+    n0 = build.LAUNCHES["flash_fwd_latent"]
+    o, lse = flash_fwd(q, k, v, mask=mask, scale=LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd_latent"] == n0 + 1
+    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, scale=LATENT_SCALE)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
+    dead = lse_r <= NEG_INF / 2
+    assert bool((lse[dead] == NEG_INF).all()) and bool((o[dead] == 0).all())
+    assert _rel_err(o, o_r) <= 3e-2
+    o2, lse2 = flash_fwd(q, k, v, mask=mask, scale=LATENT_SCALE)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_latent_flash_bf16_route_serves_strided_q(dev):
+    """The bf16 latent route loads q by TMA boxes over (column, head,
+    position), so a q whose rows are strided (the 576 columns of a wider
+    tensor) is served, bitwise as its contiguous copy."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    wide = _randn(gen, (1, 64, 16, 640), torch.bfloat16, dev)
+    _, k, v = _latent_chunk(gen, dev, torch.bfloat16, 64, 200)
+    q = wide[..., :576]
+    m = mk.causal(rel_offset=136)
+    o, lse = flash_fwd(q, k, v, mask=m, scale=LATENT_SCALE)
+    o_c, lse_c = flash_fwd(q.contiguous(), k, v, mask=m, scale=LATENT_SCALE)
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    o_r, _ = chunk_attn_ref(q, k, v, mask=m, scale=LATENT_SCALE)
+    assert _rel_err(o, o_r) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", [(8, 1), (4, 2), (128, 1)],
+                         ids=["g8", "g2x2", "g128"])
+def test_latent_flash_kernel_tiles_other_groups(dev, heads, dtype):
+    """Groups other than MLA's 16: 8 and 2 (over two kv heads) divide the
+    bf16 route's 64-row tiles (8 and 32 positions a tile), 128 is a
+    multiple of them (two 64-head tiles a position).  Within the forward
+    bar of the plain version, one launch."""
+    Hq, Hkv = heads
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q = _randn(gen, (1, 40, Hq, 576), dtype, dev)
+    k = _randn(gen, (1, 100, Hkv, 576), dtype, dev)
+    m = mk.causal(rel_offset=60)
+    n0 = build.LAUNCHES["flash_fwd_latent"]
+    o, lse = flash_fwd(q, k, k[..., :512], mask=m, scale=LATENT_SCALE)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd_latent"] == n0 + 1
+    o_r, lse_r = chunk_attn_ref(q, k, k[..., :512], mask=m,
+                                scale=LATENT_SCALE)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
+    if dtype == torch.bfloat16:
+        assert _rel_err(o, o_r) <= 3e-2
+
+
+def test_latent_flash_bf16_refuses_other_groups(dev):
+    """A bf16 latent call whose group neither divides 64 nor is a multiple
+    of it raises before a launch (no fallback to the CUDA-core route);
+    float32 takes it."""
+    q = torch.zeros((1, 8, 48, 576), device=dev)
+    k = torch.zeros((1, 8, 1, 576), device=dev)
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="GQA group"):
+        flash_fwd(q.bfloat16(), k.bfloat16(), k.bfloat16()[..., :512],
+                  mask=mk.causal())
+    assert dict(build.LAUNCHES) == n0
+    flash_fwd(q, k, k[..., :512], mask=mk.causal())
+    assert build.LAUNCHES["flash_fwd_latent"] == n0["flash_fwd_latent"] + 1
 
 
 LATENT_PAGED = [

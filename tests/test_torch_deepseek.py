@@ -240,12 +240,13 @@ def test_latent_paged_plain_versions_match_reference_kernel(Tq):
 
 
 def test_latent_routes_take_only_their_head_dims():
-    """Kernel A's latent route is built by ``build.py`` and plans 16 × 32
-    tiles; its check takes (576, 512) alone, and the backward none of it;
-    kernel B's takes (576, 512) beside the one-D dims.  Every refusal
-    raises before a build."""
-    lib, _, br, bc = fa.LATENT_ROUTE
+    """Kernel A's latent routes (one by dtype) are built by ``build.py``,
+    and the float32 one plans 16 × 32 tiles; its check takes (576, 512)
+    alone, and the backward none of it; kernel B's takes (576, 512) beside
+    the one-D dims.  Every refusal raises before a build."""
+    lib, _, br, bc = fa.LATENT_ROUTES[torch.float32]
     assert lib in build.KERNELS and (br, bc) == (16, 32)
+    assert fa.LATENT_ROUTES[torch.bfloat16][0] in build.KERNELS
     assert "flash_fwd_latent" in build.LAUNCHES
     t, _ = fa._device_bounds(mk.causal(rel_offset=768), 256, 1024, True,
                              "cpu", br, bc)

@@ -82,5 +82,6 @@ def test_port_covers_the_slice_layout():
                 "configs/spec_pairs.py", "configs/qwen3_8b.py",
                 "configs/qwen2_5_14b.py", "configs/qwen1_5_32b.py",
                 "models/moe.py", "configs/deepseek_v2_lite_16b.py",
-                "kernels/csrc/flash_fwd_latent.cu"):
+                "kernels/csrc/flash_fwd_latent.cu",
+                "kernels/csrc/flash_fwd_latent_sm90.cu"):
         assert (PORT / rel).is_file(), rel

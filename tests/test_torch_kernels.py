@@ -390,22 +390,26 @@ def _rel_err(a, r, floor=1e-3):
     return float(((a - r).abs() / (r.abs() + floor * r.abs().max())).max())
 
 
-def _tensor_core_fwd(q, k, v, mask, terms):
-    """Kernel A's bf16 route emulated on the CPU: float32 scores, an online
-    softmax over 128-key tiles in log2 units, l summed from float32 p, and
-    p fed to o += p·v as ``terms`` bf16 terms (hi = bf16(p), then the
-    rounding remainder), with float32 accumulation and a bf16 output."""
-    scale2 = q.shape[-1] ** -0.5 * 1.4426950408889634
-    qf, kf, vf = (x.float() for x in (q, k, v))
-    allow = mask.allow(mask.q_offset + torch.arange(q.shape[1])[:, None],
-                       mask.kv_offset + torch.arange(k.shape[1])[None, :])
+def _tensor_core_fwd(q, k, v, mask, terms, bc=128, scale=None):
+    """Kernel A's bf16 routes emulated on the CPU: float32 scores, an online
+    softmax over ``bc``-key tiles in log2 units, l summed from float32 p,
+    and p fed to o += p·v as ``terms`` bf16 terms (hi = bf16(p), then the
+    rounding remainder), with float32 accumulation and a bf16 output.  v's
+    head dim may differ from q/k's (the latent route), and each kv head
+    serves a GQA group of Hq / Hkv query heads."""
     B, Tq, H, D = q.shape
+    g = H // k.shape[2]
+    scale2 = (D ** -0.5 if scale is None else scale) * 1.4426950408889634
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, dim=2) for x in (k, v))
+    allow = mask.allow(mask.q_offset + torch.arange(Tq)[:, None],
+                       mask.kv_offset + torch.arange(k.shape[1])[None, :])
     m = torch.full((B, H, Tq, 1), NEG_INF)
     l = torch.zeros((B, H, Tq, 1))
-    acc = torch.zeros((B, H, Tq, D))
-    for k0 in range(0, k.shape[1], 128):
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + 128]) * scale2
-        s = torch.where(allow[:, k0:k0 + 128], s, torch.full_like(s, NEG_INF))
+    acc = torch.zeros((B, H, Tq, v.shape[-1]))
+    for k0 in range(0, k.shape[1], bc):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + bc]) * scale2
+        s = torch.where(allow[:, k0:k0 + bc], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
                             torch.exp2(m - m_new))
@@ -417,30 +421,41 @@ def _tensor_core_fwd(q, k, v, mask, terms):
         for _ in range(terms):
             part = rest.to(torch.bfloat16).float()
             acc = acc + torch.einsum("bhqk,bkhd->bhqd", part,
-                                     vf[:, k0:k0 + 128])
+                                     vf[:, k0:k0 + bc])
             rest = rest - part
         m = m_new
     o = acc / torch.where(l == 0, torch.ones_like(l), l)
     return o.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("Tq,Tk,rel", [(512, 512, 0), (256, 1024, 768)])
+@pytest.mark.parametrize("Tq,Tk,rel,latent", [
+    pytest.param(512, 512, 0, False, id="512-512-0"),
+    pytest.param(256, 1024, 768, False, id="256-1024-768"),
+    pytest.param(256, 1024, 768, True, id="latent-256-1024-768")])
 def test_bf16_forward_gate_needs_two_p_terms_rejects_missing_tile(Tq, Tk,
-                                                                  rel):
+                                                                  rel,
+                                                                  latent):
     """The element-wise bar kernel A's bf16 outputs are held to on the
     card (3e-2 of each element): a tensor-core forward that rounds p to one
     bf16 term fails it, the two-term split (hi + lo) passes it by a margin,
-    and the bar rejects a plain forward that never visits the last 64-key
-    tile.  Causal, at a training-like shape and at the serving chunk's
-    offsets."""
+    and the bar rejects a plain forward that never visits the last 64 keys
+    (a tile of the latent route).  Causal, at a training-like shape and at the serving chunk's
+    offsets; and at the latent route's (16 query heads over one latent kv
+    head, q/k 576, v its 512-column view, scale 1/√192, its 64-key tiles)."""
     rng = np.random.default_rng(13)
-    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
-               for x in _qkv(rng, 1, Tq, Tk, 2, 2, 64))
+    if latent:
+        q, k, _ = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _qkv(rng, 1, Tq, Tk, 16, 1, 576))
+        v, scale, bc = k[..., :512], 192 ** -0.5, 64
+    else:
+        q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _qkv(rng, 1, Tq, Tk, 2, 2, 64))
+        scale, bc = None, 128
     m = tmk.causal(rel_offset=rel)
-    ref, _ = chunk_attn_ref(q, k, v, mask=m)
-    one = _rel_err(_tensor_core_fwd(q, k, v, m, terms=1), ref)
-    two = _rel_err(_tensor_core_fwd(q, k, v, m, terms=2), ref)
-    cut, _ = chunk_attn_ref(q, k[:, :-64], v[:, :-64], mask=m)
+    ref, _ = chunk_attn_ref(q, k, v, mask=m, scale=scale)
+    one = _rel_err(_tensor_core_fwd(q, k, v, m, 1, bc, scale), ref)
+    two = _rel_err(_tensor_core_fwd(q, k, v, m, 2, bc, scale), ref)
+    cut, _ = chunk_attn_ref(q, k[:, :-64], v[:, :-64], mask=m, scale=scale)
     assert one > REL_TOL
     assert two <= REL_TOL / 2
     assert _rel_err(cut, ref) > REL_TOL
@@ -475,6 +490,71 @@ def test_fwd_routes_tables_and_row_alignment():
     odd = t[..., 1:65]
     with pytest.raises(ValueError, match="16-byte"):
         _flash_fwd_cuda(odd, odd, odd, tm, 0.125, None, None, True)
+
+
+def test_latent_routes_by_dtype_and_position_head_tiles():
+    """Kernel A's latent route: bf16 goes to the tensor-core library, whose
+    64-row tiles are (position, head) pairs of one kv head's group (64 // G
+    positions × G heads, or 64 heads of one position), float32 to the
+    CUDA-core one; both built by ``build.py``.  The bf16 route's table at
+    64 // G positions × 64 keys equals the reference's range math at those
+    sizes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (LATENT_OWN_V_KEYS,
+                                                     LATENT_ROUTES,
+                                                     _device_bounds,
+                                                     latent_tile)
+    assert LATENT_ROUTES[torch.bfloat16][:2] == (
+        "flash_fwd_latent_sm90", "repro_flash_fwd_latent_sm90")
+    assert LATENT_ROUTES[torch.float32][:2] == (
+        "flash_fwd_latent", "repro_flash_fwd_latent")
+    assert {r[0] for r in LATENT_ROUTES.values()} <= set(build.KERNELS)
+    rows, keys = LATENT_ROUTES[torch.bfloat16][2:]
+    assert (rows, keys, LATENT_OWN_V_KEYS) == (64, 64, 32)
+    assert [latent_tile(g) for g in (1, 2, 16, 64, 128, 256)] == [
+        (64, 1), (32, 2), (4, 16), (1, 64), (1, 64), (1, 64)]
+    for rel, kind, kw in ((768, "causal", {}),
+                          (700, "sliding_window", {"window": 300}),
+                          (768, "document", {"boundaries": (0, 850, 940)})):
+        rm, tm = _spec_pair(kind, rel_offset=rel, **kw)
+        br = latent_tile(16)[0]
+        got = tile_bounds(tm, 256, 1024, br=br, bc=keys)
+        assert len(got) == 64
+        for i, row in enumerate(got):
+            want = tuple(int(x) for fn in ("kv_block_bounds",
+                                           "interior_kv_bounds")
+                         for x in getattr(rbs, fn)(i, br=br, bc=keys, nk=16,
+                                                   mask=rm))
+            assert row == want, (kind, i, row, want)
+        t, _ = _device_bounds(tm, 256, 1024, True, "cpu", br, keys)
+        assert t.tolist() == [list(r) for r in got]
+
+
+@pytest.mark.parametrize("why", ["group48", "group5", "unaligned"])
+def test_latent_bf16_route_refuses_before_any_build(why, monkeypatch):
+    """A bf16 latent call the tensor-core route cannot take (a GQA group
+    that neither divides 64 nor is a multiple of it; rows that do not start
+    on 16 bytes) raises before any build or launch; it is never handed to
+    the CUDA-core route or the plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _flash_fwd_cuda
+
+    def no_build(*a, **kw):
+        raise AssertionError("a refused call reached the build")
+    monkeypatch.setattr(build, "load", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    bf = torch.bfloat16
+    hq = {"group48": 48, "group5": 5, "unaligned": 16}[why]
+    q = torch.zeros((1, 8, hq, 576), dtype=bf)
+    k = torch.zeros((1, 8, 1, 576), dtype=bf)
+    if why == "unaligned":
+        q = torch.zeros((1, 8, hq, 584), dtype=bf)[..., 1:577]
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="GQA group" if why != "unaligned"
+                       else "16-byte"):
+        _flash_fwd_cuda(q, k, k[..., :512], tmk.causal(), 192 ** -0.5, None,
+                        None, True)
+    assert dict(build.LAUNCHES) == n0
 
 
 # ----------------------------------------------------------------- paged
