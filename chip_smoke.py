@@ -9,7 +9,8 @@ Phases, each fatal on failure (nothing is caught):
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
                 ptxas' registers and spills of the tensor-core routes
                 (kernel A's, and kernels C and D's), with their shared
-                memory; no spill at D = 128; none in A's latent route.
+                memory; no spill at D = 128; none in A's latent and pair
+                routes.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
                 cases, every case of A, C and D in both dtypes (bf16 runs
@@ -38,7 +39,13 @@ Phases, each fatal on failure (nothing is caught):
                 (1, 1024, 1, 576), v its 512-column view, scale 1/√192; B
                 over a latent pool (N, 16, 1, 576) with that view at Tq 1
                 and 5 (80 rows: five 16-row groups), phase 4's lengths; B
-                bitwise batch-invariant at Tq 1.
+                bitwise batch-invariant at Tq 1.  Materialised MLA (phase
+                13) in both dtypes: A's pair route (bf16 on the tensor
+                cores, float32 on the CUDA cores) at q/k 192, v 128 (the
+                last 128 columns of a 256-column tensor), 16 heads, scale
+                1/√192: phase 13's prefill (B 2, T 4096, causal; launch ==
+                launch bitwise), a chunk at q_offset 768 (Tq 256, Tk 1024),
+                a ragged T of 1000; pairs outside its table raise.
   3c. plans   — kernels A, C and D under every distinct mask the plan
                 steps give them: every active Work item of balanced, ring
                 and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
@@ -199,7 +206,23 @@ Phases, each fatal on failure (nothing is caught):
                 counted.  Then n-gram speculation at depth 4 (B at Tq 5),
                 held to the vanilla run as phase 9 holds its runs, and a
                 profiler trace.  Prefill and decode tokens/s, launches,
-                peak memory, the phase's seconds.
+                peak memory, the phase's seconds.  Phase 12's model and
+                weights go on to phase 13.
+  13. fixed   — deepseek-v2-lite-16b at full size (phase 12's model and
+                seed-12 weights) through ``FixedSlotEngine``: 2 prompts of
+                4,096 tokens in one whole-prompt prefill (MLA materialised:
+                A's pair route once a layer, 27 launches, and nothing
+                else; the MoE dispatch over all 8,192 rows; the latent rows
+                kept as the dense cache), 32 greedy tokens by the absorbed
+                dense-cache decode (plain float32 attention over the latent
+                rows, every expert a row).  Every step's logits within
+                phase 12's limit (5% of max |logit|) of the same engine on
+                the plain versions, teacher-forced on this run's tokens and
+                replaying its expert choices; the limit must reject decode
+                positions one off and a prefill that caches k_pe without
+                its rope.  Prefill seconds, decode ms a step, peak memory,
+                a profiler trace of the prefill and of 6 decode steps
+                (device breakdown, idle share).
   5. times    — each kernel at the shapes of its path (C and D on the
                 inputs kept in phase 6): its time (CUDA events, median
                 after warm-up), its plain version's at the same shape, a
@@ -220,7 +243,11 @@ Phases, each fatal on failure (nothing is caught):
                 ``flash_fwd_latent``, bf16): its time and its device time
                 (20 calls replayed as one CUDA graph) beside its plain
                 version, SDPA with an explicit mask (which it must beat)
-                and its bound.
+                and its bound.  A's pair route at phase 13's prefill (its
+                own row, ``flash_fwd_pair``, bf16): its device time (CUDA-
+                graph replay) and event time beside its plain version,
+                SDPA's causal forward on the same tensors (the backend its
+                dispatcher takes, named) and its bound.
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -249,8 +276,8 @@ from repro_torch.core.tree import leaves  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FWD_ROUTES, LATENT_ROUTES, FlashAttnFn, _BwdPlan, _device_bounds,
-    _launch_dkv, _launch_dq, flash_bwd, flash_fwd)
+    FWD_ROUTES, LATENT_ROUTES, PAIR_ROUTES, FlashAttnFn, _BwdPlan,
+    _device_bounds, _launch_dkv, _launch_dq, flash_bwd, flash_fwd)
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, merge_ref, row_rel_err)
@@ -674,6 +701,90 @@ def latent_checks():
           "paged_decode latent: a permuted block table changes o")
     say(f"  B {'latent bitwise invariance':<28} bfloat16  alone == in a "
         "batch of 4 == permuted table; launch == launch")
+
+
+# deepseek-v2-lite-16b's materialised MLA (phase 13's whole-prompt
+# prefill): per head q/k 192 (nope 128 ⊕ rope 64) and v 128, 16 heads with
+# a kv head each, scale 1/√192; v is the last 128 columns of the (..., 256)
+# up-projection it shares with k_nope, as the model hands it over
+PAIR_DK, PAIR_DV, PAIR_H = 192, 128, 16
+P13_B, P13_T = 2, 4096          # phase 13's prompts
+
+
+def _pair_inputs(gen, B, Tq, Tk, dtype):
+    q = randn(gen, (B, Tq, PAIR_H, PAIR_DK), dtype)
+    k = randn(gen, (B, Tk, PAIR_H, PAIR_DK), dtype)
+    v = randn(gen, (B, Tk, PAIR_H, 2 * PAIR_DV), dtype)[..., PAIR_DV:]
+    return q, k, v
+
+
+def _pair_case(gen, name, B, Tq, Tk, dtype, mask):
+    """Kernel A's pair route against its plain version at phase 3's limits
+    (o, element-wise for bf16, lse); one launch, counted as
+    ``flash_fwd_pair``.  Returns the inputs and the output."""
+    q, k, v = _pair_inputs(gen, B, Tq, Tk, dtype)
+    n0 = dict(build.LAUNCHES)
+    o, lse = flash_fwd(q, k, v, mask=mask, scale=LAT_SCALE)
+    torch.cuda.synchronize()
+    check(all(build.LAUNCHES[n] == n0[n] + (n == "flash_fwd_pair")
+              for n in n0), f"flash_fwd pair {name}: launches")
+    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, scale=LAT_SCALE)
+    check(o.shape == o_r.shape == (B, Tq, PAIR_H, PAIR_DV),
+          f"flash_fwd pair {name}: o {tuple(o.shape)}")
+    check(bool(torch.isfinite(o.float()).all()),
+          f"flash_fwd pair {name}: non-finite")
+    err = float((o.float() - o_r.float()).abs().max())
+    lerr = float((lse - lse_r).abs().max())
+    tol = TOL[dtype]
+    check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol),
+          f"flash_fwd pair {name}: o err {err} over {tol}")
+    check(lerr <= LSE_TOL * (1 + float(lse_r.abs().max())),
+          f"flash_fwd pair {name}: lse err {lerr}")
+    rel = ""
+    if dtype == torch.bfloat16:
+        r = rel_err(o, o_r)
+        check(r <= REL_TOL, f"flash_fwd pair {name}: relative err {r} over "
+              f"{REL_TOL}")
+        rel = f"  rel {r:.2e} (limit {REL_TOL})"
+    say(f"  A {'pair 192/128 ' + name:<28} {str(dtype)[6:]:<9} max|Δo| "
+        f"{err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}  "
+        f"({PAIR_ROUTES[dtype][0]})")
+    return (q, k, v), o, lse
+
+
+def pair_checks():
+    """Kernel A's pair route (q/k 192, v 128), each dtype against its plain
+    version at phase 3's limits: phase 13's whole-prompt prefill (B 2,
+    T 4096, 16 heads, causal), a chunk at q offset 768 (Tq 256, Tk 1024),
+    a ragged T of 1000; launch == launch bitwise; pairs outside the table
+    raise before a launch."""
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    for dt in (torch.float32, torch.bfloat16):
+        m = mk.causal()
+        args, o, lse = _pair_case(gen, f"B{P13_B} T{P13_T} causal", P13_B,
+                                  P13_T, P13_T, dt, m)
+        o2, lse2 = flash_fwd(*args, mask=m, scale=LAT_SCALE)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd pair {dt}: two launches differ")
+        del args, o, lse, o2, lse2
+        _pair_case(gen, "Tq256 Tk1024 q_off768", 1, 256, 1024, dt,
+                   mk.causal(rel_offset=768))
+        _pair_case(gen, "ragged T1000", 1, 1000, 1000, dt, mk.causal())
+        say(f"  A {'pair 192/128 bitwise':<28} {str(dt)[6:]:<9} launch == "
+            f"launch at B{P13_B} T{P13_T}")
+    _free()
+    n0 = dict(build.LAUNCHES)
+    for dk, dv in ((192, 64), (160, 128), (256, 128)):
+        q = torch.zeros((1, 64, 4, dk), device=DEV, dtype=torch.bfloat16)
+        v = torch.zeros((1, 64, 4, dv), device=DEV, dtype=torch.bfloat16)
+        try:
+            flash_fwd(q, q, v, mask=mk.causal())
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_fwd took the pair {dk}/{dv}")
+    check(dict(build.LAUNCHES) == n0, "a refused pair launched")
+    say(f"  A {'pairs outside the table':<28} bfloat16  192/64, 160/128, "
+        "256/128 raise before a launch")
 
 
 def _bwd_case(gen, name, B, Tq, Tk, Hq, Hkv, D, dtype, mask, segs=False,
@@ -3169,10 +3280,184 @@ def deepseek():
     del van, ng
     _free()
     trace(model, params, prompts)
-    del model, params
-    _free()
     res["seconds"] = time.perf_counter() - t_all
     say(f"  phase 12 took {res['seconds']:.1f} s")
+    res.update(model=model, params=params)    # phase 13 serves them again
+    return res
+
+
+# ---------------------------------------------------------------- phase 13
+
+P13_NEW = 32            # greedy tokens a prompt
+P13_CTL_GEN = 8         # decode steps of each planted-fault run
+P13_WARM_T = 256        # the warm-up prompts
+
+
+@contextlib.contextmanager
+def _kpe_fault():
+    """A deliberately wrong prefill cache while the block runs (phase 13's
+    second control): each latent row keeps its k_pe without the rope (the
+    roped columns rotated back), its c_kv as it is."""
+    base = LY.mla_qkv
+
+    def faulty(p, x, cfg, cos, sin, return_latent=False):
+        out = base(p, x, cfg, cos, sin, return_latent)
+        if not return_latent:
+            return out
+        *qkv, lat = out
+        c = cfg.attn.kv_lora_rank
+        pe = LY.apply_rope(lat[..., None, c:], cos, -sin)[..., 0, :]
+        return (*qkv, torch.cat([lat[..., :c], pe], dim=-1))
+    LY.mla_qkv = faulty
+    try:
+        yield
+    finally:
+        LY.mla_qkv = base
+
+
+def _show_top(prof, n=6):
+    """The ``n`` device kernels of a trace with the most self device
+    time."""
+    from torch.autograd import DeviceType
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    evs.sort(key=lambda ev: -ev.self_device_time_total)
+    for ev in evs[:n]:
+        say(f"      {ev.self_device_time_total / 1e3:9.2f} ms {ev.count:6d} "
+            f"launches  {ev.key[:90]}")
+
+
+def _p13_trace(model, params, prompts):
+    """torch.profiler over one whole-prompt prefill of the phase's prompts,
+    then over 6 dense decode steps after 2 unprofiled ones: the device
+    breakdown and idle share of each, and the kernels with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    label = f"fixed-slot prefill ({P13_B} x {P13_T} tokens)"
+    show_breakdown(label, prof, wall)
+    _show_top(prof)
+    fam, busy, wall_ms = _device_breakdown(prof, wall)
+    out["prefill"] = dict(wall_ms=wall_ms, busy_ms=busy,
+                          idle=1 - busy / wall_ms,
+                          attn_ms=fam.get("kernel A flash_fwd", (0, 0.0))[1])
+    S0 = prompts.shape[1]
+    cache = model.pad_cache(cache, S0 + 8)
+    tok = logits[:, -1].float().argmax(dim=-1)[:, None].to(torch.int32)
+
+    def step(i):
+        pos = torch.full((P13_B,), S0 + i, dtype=torch.int32, device=DEV)
+        lg = model.decode(params, cache, tok, pos)
+        return lg[:, -1].float().argmax(dim=-1)[:, None].to(torch.int32)
+    for i in range(2):
+        tok = step(i)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, 8):
+            tok = step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    show_breakdown("6 fixed-slot decode steps", prof, wall)
+    _show_top(prof)
+    fam, busy, wall_ms = _device_breakdown(prof, wall)
+    out["decode"] = dict(wall_ms=wall_ms, busy_ms=busy,
+                         idle=1 - busy / wall_ms)
+    return out
+
+
+def fixed_slot(model, params):
+    """Phase 13: deepseek-v2-lite-16b at full size (phase 12's model and
+    seed-12 weights) through ``FixedSlotEngine``: one whole-prompt prefill
+    of 2 prompts of 4,096 tokens with MLA materialised (kernel A's pair
+    route, q/k 192, v 128, once a layer), the latent rows as the dense
+    cache, 32 greedy tokens by the absorbed dense-cache decode.  Every
+    step's logits are held to the same engine on the plain versions
+    (``impl="ref"``), teacher-forced on this run's tokens and replaying its
+    expert choices; the limit must reject two planted faults."""
+    t_all = time.perf_counter()
+    cfg = model.cfg
+    prompts = np.random.default_rng(13).integers(
+        0, cfg.vocab, (P13_B, P13_T)).astype(np.int32)
+    batch = {"tokens": prompts}
+    FixedSlotEngine(model, params).generate(
+        {"tokens": prompts[:, :P13_WARM_T]}, 2)
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    model.prefill = _timed(times, "prefill", model.prefill)
+    model.decode = _timed(times, "decode", model.decode)
+    build.reset_launches()
+    rk = _Router()
+    with rk, _recorded(model) as logs:
+        toks, _ = FixedSlotEngine(model, params).generate(batch, P13_NEW)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del model.prefill, model.decode
+    kern = torch.stack(logs)
+    check(launches["flash_fwd_pair"] == cfg.n_layers and all(
+        n == 0 for k, n in launches.items() if k != "flash_fwd_pair"),
+        f"{cfg.name} fixed-slot: kernel A's pair route must launch once a "
+        f"layer and nothing else: {launches}")
+    toks = toks.cpu()
+    check(tuple(toks.shape) == (P13_B, P13_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab)).all()), f"tokens {toks}")
+    check(bool(torch.isfinite(kern).all()), "non-finite fixed-slot logits")
+    pf, dc = times["prefill"][0], times["decode"]
+    res = dict(launches=launches, prefill_s=pf,
+               decode_ms=1e3 * float(np.median(dc)),
+               decode_ms_mean=1e3 * float(np.mean(dc)),
+               prefill_tok_s=P13_B * P13_T / pf,
+               decode_tok_s=P13_B * len(dc) / sum(dc), peak=peak)
+    say(f"  served {P13_B} prompts of {P13_T} tokens, {P13_NEW} greedy "
+        f"tokens each: prefill {pf:.3f} s ({res['prefill_tok_s']:.1f} "
+        f"tok/s), decode {res['decode_ms']:.2f} ms a step (median; mean "
+        f"{res['decode_ms_mean']:.2f}, {res['decode_tok_s']:.1f} tok/s), "
+        f"peak {peak / 2**30:.2f} GiB allocated; launches {launches}")
+
+    # the same engine on the plain versions, teacher-forced on this run's
+    # tokens and replaying its expert choices (phase 12: a near-tie the
+    # rounding tips moves a token to another expert)
+    ref_model = DecoderLM(cfg, device=DEV, impl="ref")
+
+    def plain(n_new, fault=None):
+        ctx = (_decode_fault(ref_model, "pos") if fault == "pos" else
+               _kpe_fault() if fault == "kpe" else contextlib.nullcontext())
+        with _Router(calls=rk.seen), ctx, _recorded(ref_model,
+                                                     toks) as lg:
+            FixedSlotEngine(ref_model, params).generate(batch, n_new)
+        _free()
+        return torch.stack(lg)
+    ref = plain(P13_NEW)
+    check(ref.shape == kern.shape, f"steps {ref.shape} {kern.shape}")
+    err = _step_err(kern, ref)
+    ctl = {f: _step_err(plain(P13_CTL_GEN, f)[1:], ref[1:P13_CTL_GEN + 1])
+           for f in ("pos", "kpe")}
+    say(f"  teacher-forced logits, worst step max|Δ| / max|logit| over "
+        f"{P13_NEW + 1} steps (limit {LOGIT_REL_TOL}): kernels vs the plain "
+        f"engine replaying the experts {err:.3e}; controls: decode "
+        f"positions one off {ctl['pos']:.3e}, latent cached without its k_pe "
+        f"rope {ctl['kpe']:.3e}")
+    check(err <= LOGIT_REL_TOL, f"{cfg.name} fixed-slot logits vs the plain "
+          f"engine: {err} over {LOGIT_REL_TOL}")
+    for f, e in ctl.items():
+        check(e > LOGIT_REL_TOL, f"the logit limit does not reject the {f} "
+              f"control ({e})")
+    res.update(err=err, ctl_pos=ctl["pos"], ctl_kpe=ctl["kpe"])
+    del ref_model, rk
+    _free()
+    res["trace"] = _p13_trace(model, params, prompts)
+    _free()
+    res["seconds"] = time.perf_counter() - t_all
+    say(f"  phase 13 took {res['seconds']:.1f} s")
     return res
 
 
@@ -3200,7 +3485,8 @@ def tensor_core_report(report):
     head dim: kernel A's (``flash_fwd_sm90``) and kernels C and D's
     (``flash_bwd_sm90``), none of which may spill at D = 128; and kernel
     A's latent route (``flash_fwd_latent_sm90``, v k's prefix view or a
-    tensor of its own), which may not spill at all."""
+    tensor of its own) and pair route (``flash_fwd_pair_sm90``, q/k 192,
+    v 128), which may not spill at all."""
     import ctypes
     fwd = build.load("flash_fwd_sm90").repro_flash_fwd_sm90_smem
     fwd.argtypes, fwd.restype = [ctypes.c_int], ctypes.c_int
@@ -3222,6 +3508,14 @@ def tensor_core_report(report):
         check(spill == 0, f"kernel {mangled} spills {spill} bytes")
     check(views == {0, 1}, "ptxas reported fewer than two latent tensor-core "
           "kernels")
+    pair = build.load("flash_fwd_pair_sm90").repro_flash_fwd_pair_sm90_smem
+    pair.argtypes, pair.restype = [], ctypes.c_int
+    got = ptxas_kernels(report["flash_fwd_pair_sm90"])
+    check(len(got) == 1, f"ptxas reported {len(got)} pair kernels")
+    for mangled, (regs, spill) in got.items():
+        say(f"  ptxas A fwd pair wgmma 192/128: {regs} registers, {spill} "
+            f"bytes spilled, {pair()} bytes dynamic shared memory")
+        check(spill == 0, f"kernel {mangled} spills {spill} bytes")
     seen = 0
     for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
         for mangled, (regs, spill) in sorted(
@@ -3355,6 +3649,79 @@ def time_latent(launches):
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / ms,
             "library_ms": lib}
+
+
+PAIR_DESIGN = ("bf16 on the tensor cores: one block per 128 q rows (two "
+               "warpgroups of 64) of one head; q by TMA once, 64-key k and v "
+               "tiles by TMA into a 3-stage swizzled ring with mbarriers; s = "
+               "q.k^T as wgmma m64n64k16 over 12 k16 steps, o += p.v as "
+               "wgmma m64n128k16 with p in registers as two bf16 terms; "
+               "float32: IEEE FMAs on the CUDA cores, 16 x 32 tiles")
+
+
+def _sdpa_backend(q, k, v, **kw):
+    """The backend SDPA's dispatcher picks for these (B, H, T, D) inputs, by
+    name."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def time_pair(launches):
+    """Kernel A's pair route at phase 13's whole-prompt prefill (B 2, T
+    4096, 16 heads of q/k 192 and v 128, causal, bf16): its device time
+    (20 calls replayed as one CUDA graph) and event time around a call,
+    its plain version's, SDPA's on the same tensors (with the backend its
+    dispatcher takes), its bound and its error."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    B, T = P13_B, P13_T
+    q, k, v = _pair_inputs(gen, B, T, T, torch.bfloat16)
+    m = mk.causal()
+    o, _ = flash_fwd(q, k, v, mask=m, scale=LAT_SCALE)
+    o_r, _ = chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE)
+    err = float((o.float() - o_r.float()).abs().max())
+    del o, o_r
+    _free()
+    dev_ms = graph_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
+    ms = cuda_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
+    plain = cuda_ms(lambda: chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE),
+                    reps=5, warmup=1)
+    _free()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    backend = _sdpa_backend(qt, kt, vt, is_causal=True, scale=LAT_SCALE)
+    try:
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=LAT_SCALE), reps=10, warmup=2)
+    except RuntimeError as e:     # no SDPA backend takes the shape
+        say(f"  sdpa at q/k {PAIR_DK}, v {PAIR_DV}: {str(e)[:160]}")
+        lib, backend = None, f"none: {str(e)[:120]}"
+    del qt, kt, vt
+    _free()
+    pairs = B * PAIR_H * T * (T + 1) // 2
+    flops = 2.0 * pairs * (PAIR_DK + PAIR_DV)
+    nbytes = 2 * B * T * PAIR_H * (2 * PAIR_DK + 2 * PAIR_DV) \
+        + 4 * B * T * PAIR_H
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    say(f"  flash_fwd_pair B{B} T{T} H{PAIR_H} D{PAIR_DK}/{PAIR_DV} bf16 "
+        f"causal ({PAIR_ROUTES[torch.bfloat16][0]}): device {dev_ms:.4f} ms "
+        f"({flops / dev_ms / 1e9:.1f} TFLOP/s, {b_ms / dev_ms:.3f} of the "
+        f"bound), event {ms:.4f} ms a call, plain {plain:.4f} ms, sdpa "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'} (backend {backend}), "
+        f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e12:.4f} TFLOP, "
+        f"{nbytes / 1e6:.1f} MB), max|Δo| {err:.3e}")
+    del q, k, v
+    _free()
+    return {"name": "flash_fwd_pair", "route": "cuda", "design": PAIR_DESIGN,
+            "source": "src/repro_torch/kernels/csrc/flash_fwd_pair_sm90.cu",
+            "float32_source":
+                "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:157",
+            "launches": launches["flash_fwd_pair"], "max_abs_err": err,
+            "ms": dev_ms, "event_ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / dev_ms,
+            "library_ms": lib, "library_backend": backend}
 
 
 def time_flash_train(seen):
@@ -3614,6 +3981,7 @@ def main():
     say("== phase 3: kernels against their plain versions")
     kernel_checks()
     latent_checks()
+    pair_checks()
     bwd_checks()
     say("== phase 3c: kernels A, C and D under every plan step's mask")
     plan_step_checks()
@@ -3658,21 +4026,26 @@ def main():
     say("== phase 12: deepseek-v2-lite-16b (MLA + MoE) at full size through "
         "the paged engine")
     dk = deepseek()
+    say("== phase 13: deepseek-v2-lite-16b through the fixed-slot engine "
+        "(whole-prompt MLA prefill, dense latent-cache decode)")
+    fs = fixed_slot(dk.pop("model"), dk.pop("params"))
+    _free()
 
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
                 + sp["launches"].get(k, 0) + qw["launches"].get(k, 0)
                 + me["launches"].get(k, 0) + dk["launches"].get(k, 0)
+                + fs["launches"].get(k, 0)
                 for k in res["launches"]}
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
         f"long-context prefill (all ranks) {lg['launches']}, speculative "
         f"serving (runs 1-5) {sp['launches']}, qwen {qw['launches']}, "
         f"mesh engine (all ranks) {me['launches']}, deepseek "
-        f"{dk['launches']}")
-    rows = [time_flash(launches), time_latent(launches), time_paged(launches),
-            *time_bwd(launches, tr["seen"], errs)]
+        f"{dk['launches']}, deepseek fixed-slot {fs['launches']}")
+    rows = [time_flash(launches), time_latent(launches), time_pair(launches),
+            time_paged(launches), *time_bwd(launches, tr["seen"], errs)]
     rows[0].update(time_flash_train(tr["seen"]))
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,16 +1,19 @@
-// Kernel A, latent route, float32: FlashAttention-2 forward of one partial
-// attention chunk whose q/k head dim DK differs from v's DV, on the CUDA
-// cores, written by hand for Hopper (sm_90a), with a plain C entry point
-// bound via ctypes.  It serves absorbed multi-head latent attention
-// (DeepSeek MLA): DK = 576 (the kv_lora 512 latent ⊕ rope 64), DV = 512,
-// one kv head under a GQA group of every query head, v the first 512
-// columns of k (a strided view).  IEEE float32 products, for the float32
-// bar (1e-5); bf16 inputs take the tensor-core route
-// (flash_fwd_latent_sm90.cu).
+// Kernel A, latent and pair routes, float32: FlashAttention-2 forward of
+// one partial attention chunk whose q/k head dim DK differs from v's DV, on
+// the CUDA cores, written by hand for Hopper (sm_90a), with a plain C entry
+// point bound via ctypes.  Two instantiations.  <576, 512> serves absorbed
+// multi-head latent attention (DeepSeek MLA's chunks and the paged path):
+// DK = 576 (the kv_lora 512 latent ⊕ rope 64), DV = 512, one kv head under
+// a GQA group of every query head, v the first 512 columns of k (a strided
+// view).  <192, 128> serves materialised MLA (the whole-prompt prefill):
+// per head q/k of nope 128 ⊕ rope 64 and a v of its own, 16 kv heads under
+// a group of 1.  IEEE float32 products, for the float32 bar (1e-5); bf16
+// inputs take the tensor-core routes (flash_fwd_latent_sm90.cu,
+// flash_fwd_pair_sm90.cu).
 //
 // Replaces the TPU kernel `_fwd_kernel` / `flash_fwd_bhtd` of the JAX package
-// (src/repro/kernels/flash_attention.py:157, pallas_call at :252) at that
-// shape.  The one-D routes (flash_fwd.cu, flash_fwd_sm90.cu) take one D of
+// (src/repro/kernels/flash_attention.py:157, pallas_call at :252) at those
+// shapes.  The one-D routes (flash_fwd.cu, flash_fwd_sm90.cu) take one D of
 // 32, 64 or 128.
 //
 // Bound on the H100: operations.  One deepseek-v2-lite-16b prefill chunk
@@ -18,7 +21,9 @@
 // each of the 16 x 229,504 (row, key) pairs the causal mask allows (7.99
 // GFLOP) over 1.2 MB of latent rows and 4.7 MB of q and o: 8.1 us at the
 // bf16 tensor-core rate; float32 FMAs on the CUDA cores (67 TFLOP/s) take
-// at least 0.12 ms.
+// at least 0.12 ms.  The whole-prompt prefill (2 prompts of 4096, 16 heads)
+// does 2·(192 + 128) FLOPs for each of 2.685e8 pairs: at least 2.6 ms on
+// the CUDA cores.
 //
 // Design.  One 256-thread block per (16-row q tile, query head, batch row).
 // The block stages its q tile once and loops over the 32-key tiles [lo, hi]
@@ -229,10 +234,10 @@ cudaError_t launch(const FwdParams& p, int nq, int B, int v_in_k,
 
 }  // namespace
 
-// Head dims (DK, DV) = (576, 512), float32 (ia's dtype must be 0); ia
-// as in flash_fwd_common.cuh with D = DK, then ia[29] = DV and ia[30] = 1
-// when v is a prefix view of k (same pointer and strides).  Rows must be
-// 16-byte aligned.  Returns the CUDA error code of the launch (0 =
+// Head dims (DK, DV) = (576, 512) or (192, 128), float32 (ia's dtype must
+// be 0); ia as in flash_fwd_common.cuh with D = DK, then ia[29] = DV and
+// ia[30] = 1 when v is a prefix view of k (same pointer and strides).  Rows
+// must be 16-byte aligned.  Returns the CUDA error code of the launch (0 =
 // launched).
 extern "C" int repro_flash_fwd_latent(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
@@ -245,7 +250,10 @@ extern "C" int repro_flash_fwd_latent(const void* q, const void* k,
   const int dv = static_cast<int>(ia[29]);
   const int v_in_k = static_cast<int>(ia[30]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.dtype != 0 || sh.D != 576 || dv != 512)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<576, 512>(p, sh.nq, sh.B, v_in_k, s));
+  if (sh.dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.D == 576 && dv == 512)
+    return static_cast<int>(launch<576, 512>(p, sh.nq, sh.B, v_in_k, s));
+  if (sh.D == 192 && dv == 128)
+    return static_cast<int>(launch<192, 128>(p, sh.nq, sh.B, v_in_k, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,7 +21,13 @@ dtype (``LATENT_ROUTES``): bf16 on the tensor cores
 latent tile, 64-key tiles, each tile's sweep cut into parts merged by a
 second kernel when the tiles alone leave half the SMs idle; the group must
 divide 64 or be a multiple of it), float32 on the CUDA cores
-(``csrc/flash_fwd_latent.cu``, 16 × 32 tiles); any other pair raises.
+(``csrc/flash_fwd_latent.cu``, 16 × 32 tiles).  The pairs of
+``PAIR_DIMS`` (q/k 192, v 128: materialised MLA, per-head k and v, one kv
+head a query head) take the pair route (``PAIR_ROUTES``): bf16 on the
+tensor cores (``csrc/flash_fwd_pair_sm90.cu``, the one-D bf16 route's
+design — 128-row q tiles on two warpgroups, ``wgmma`` — over 64-key tiles),
+float32 on the CUDA cores (``csrc/flash_fwd_latent.cu`` at <192, 128>).
+Any other pair raises.
 
 The block-sparse sweep is planned on the host: for each q tile the wrapper
 computes the reachable kv tile range ``[lo, hi]`` and the interior range
@@ -78,6 +84,13 @@ LATENT_OWN_V_KEYS = 32
 # many kv tiles (latent_splits)
 LATENT_SPLIT_TILES = 4
 LATENT_DIMS = ((576, 512),)
+# kernel A at these (Dk, Dv) pairs, by dtype: (library, entry point, q rows
+# a tile, keys a tile)
+PAIR_ROUTES = {
+    torch.float32: ("flash_fwd_latent", "repro_flash_fwd_latent", 16, 32),
+    torch.bfloat16: ("flash_fwd_pair_sm90", "repro_flash_fwd_pair_sm90",
+                     128, 64)}
+PAIR_DIMS = ((192, 128),)
 # kernels C and D: (library, entry-point suffix) by dtype
 BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
               torch.bfloat16: ("flash_bwd_sm90", "_sm90")}
@@ -176,11 +189,12 @@ def _check(q, k, v, latent: bool = False, **more):
                          f"{q.dtype}")
     B, Tq, Hq, D = q.shape
     one_d = D in HEAD_DIMS and v.shape[-1] == D
+    both = LATENT_DIMS + PAIR_DIMS
     if k.shape[-1] != D or not (one_d or latent and (D, v.shape[-1])
-                                in LATENT_DIMS):
+                                in both):
         raise ValueError(f"each flash kernel takes head dims {HEAD_DIMS} "
                          f"(equal for q, k, v)"
-                         f"{f' or q/k and v pairs {LATENT_DIMS}' if latent else ''}"
+                         f"{f' or q/k and v pairs {both}' if latent else ''}"
                          f", got {D}/{k.shape[-1]}/{v.shape[-1]}")
     if k.shape[:3] != v.shape[:3] or k.shape[0] != B:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "
@@ -241,10 +255,13 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
-    latent = Dv != D
+    latent = (D, Dv) in LATENT_DIMS
     tc_latent = latent and q.dtype == torch.bfloat16
-    if latent:
-        lib, name, block, bc = LATENT_ROUTES[q.dtype]
+    count = ("flash_fwd" if Dv == D else "flash_fwd_latent" if latent
+             else "flash_fwd_pair")
+    if Dv != D:
+        lib, name, block, bc = (LATENT_ROUTES if latent
+                                else PAIR_ROUTES)[q.dtype]
         _check_aligned(q=q, k=k, v=v)
         # the latent pool's value view: v is k's first Dv columns
         v_in_k = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
@@ -297,7 +314,7 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed ({lib}, CUDA "
                            f"error {err})")
-    build.LAUNCHES["flash_fwd_latent" if latent else "flash_fwd"] += 1
+    build.LAUNCHES[count] += 1
     return o, lse
 
 

@@ -74,15 +74,18 @@ def attn_out(p, x, o, cfg: ModelConfig):
     return x + (o.reshape(B, T, -1) @ p["wo"]).to(x.dtype)
 
 
-def mla_qkv(p, x, cfg: ModelConfig, cos, sin):
+def mla_qkv(p, x, cfg: ModelConfig, cos, sin, return_latent=False):
     """DeepSeek multi-head latent attention [arXiv:2405.04434], the
     materialised form: norm → q (``wq``, or ``wq_a`` → ``q_ln`` → ``wq_b``
     under ``q_lora_rank``) and the latent ``wkv_a`` → (``kv_ln``-normed
     c_kv, rope key) → per-head k/v up-projected by ``wkv_b``.  Returns q, k
     (B, T, H, nope + rope) and v (B, T, H, v_head_dim); ``cos``/``sin``
-    are rope tables of ``qk_rope_head_dim``.  The serving path attends in
-    latent space instead (``DecoderLM._mla_parts``); this form is the
-    training one and the oracle of the absorption."""
+    are rope tables of ``qk_rope_head_dim``.  ``return_latent`` also
+    returns the latent rows (B, T, kv_lora + rope), normed c_kv ⊕ roped
+    k_pe: the dense decode cache the whole-prompt prefill keeps.  The paged
+    serving path attends in latent space instead (``DecoderLM._mla_parts``);
+    this form is the training and whole-prompt prefill one, and the oracle
+    of the absorption."""
     a = cfg.attn
     B, T, _ = x.shape
     nh, dn, dr = a.n_heads, a.qk_nope_head_dim, a.qk_rope_head_dim
@@ -103,6 +106,8 @@ def mla_qkv(p, x, cfg: ModelConfig, cos, sin):
     k_nope, v = kv[..., :dn], kv[..., dn:]
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     k_full = torch.cat([k_nope, k_pe.expand(B, T, nh, dr)], dim=-1)
+    if return_latent:
+        return q_full, k_full, v, torch.cat([c_kv, k_pe[:, :, 0]], dim=-1)
     return q_full, k_full, v
 
 

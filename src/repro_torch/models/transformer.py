@@ -8,8 +8,13 @@ Two families: dense / GQA decoders (``arch_type="dense"``: every path), and
 DeepSeek's MLA + MoE decoders (``arch_type="moe"``, the reference's tree:
 ``dense_layers`` — the first ``moe.n_dense_layers``, a SwiGLU of
 ``d_dense_ff`` — then ``moe_layers``, ``models/moe.py``).  An MoE model
-serves through the paged path at one rank: ``prefill_chunk``, ``decode``
-and ``verify`` over a latent pool, MLA *absorbed* as the reference's
+serves at one rank through the paged path — ``prefill_chunk``, ``decode``
+and ``verify`` over a latent pool — and through the dense one: the
+whole-prompt ``prefill`` runs MLA *materialised* (``layers.mla_qkv``, per
+head q/k of nope + rope and v of ``v_head_dim``, kernel A's pair route)
+and keeps each token's latent row as the dense cache ``{"ckv"}``, which
+the dense-cache ``decode`` attends absorbed.  Absorbed MLA is as the
+reference's
 ``_chunk_mla`` / ``_decode_mla_paged`` do (``_mla_parts`` / ``_mla_out``):
 the query is taken into latent space (``q_eff = q_nope · W_uk``, beside the
 roped ``q_pe``: ``kv_lora + rope`` columns), each token's cache entry is its
@@ -17,10 +22,11 @@ latent row (normed c_kv ⊕ roped k_pe), one kv head serves every query head,
 and the value is the first ``kv_lora`` columns of the same row; the latent
 output is up-projected by ``W_uv``.  The MoE FFN takes the padded chunk's
 rows through the capacity dispatch (``moe_apply``) and the decode / verify
-rows through every expert (``moe_decode_apply``).  :meth:`forward` runs
-MLA materialised (``layers.mla_qkv``).  Training, the whole-prompt
-``prefill`` and the dense-cache ``decode`` of an MoE model are not ported
-(``NotImplementedError``, ROADMAP §1 item 7).
+rows through every expert (``moe_decode_apply``); the whole-prompt
+prefill dispatches all of its B·T rows at once.  :meth:`forward` runs MLA
+materialised.  Training of an MoE model (ROADMAP §1 item 7.2), and any of
+its paths across ranks (items 7.3 and 7.4), are not ported
+(``NotImplementedError``).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -101,8 +107,9 @@ def zigzag_layout(cfg: ModelConfig, par: ParallelConfig, P: int) -> bool:
 
 
 def _attn_spec(cfg: ModelConfig, par: ParallelConfig, P: int, impl,
-               document: bool) -> DistAttnSpec:
-    """The reference's ``_attn_spec`` for a causal decoder (no 2D mesh)."""
+               document: bool, scale=None) -> DistAttnSpec:
+    """The reference's ``_attn_spec`` for a causal decoder (no 2D mesh);
+    ``scale`` the softmax scale (None: 1/√D; MLA's ``mla_scale``)."""
     w = int(cfg.attn.window or 0)
     sched = par.schedule
     if sched == "zigzag" and not _zigzag_ok(cfg):
@@ -112,7 +119,7 @@ def _attn_spec(cfg: ModelConfig, par: ParallelConfig, P: int, impl,
         sched = "balanced"                   # windowed plans truncate
     mask = mk.MaskSpec(causal=True, window=w, document=document)
     return DistAttnSpec(axis=par.seq_axis, axis_size=P, schedule=sched,
-                        mask=mask, impl=impl)
+                        mask=mask, scale=scale, impl=impl)
 
 
 def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
@@ -179,11 +186,17 @@ def layer_params(p) -> list:
     return p["dense_layers"] + p["moe_layers"]
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str = "item 7.2"):
     return NotImplementedError(
         f"{what} of an MLA / MoE model is not ported: the port serves "
-        f"deepseek-v2-lite-16b through the paged Engine at one rank "
-        f"(ROADMAP §1 item 7)")
+        f"deepseek-v2-lite-16b at one rank, through the paged Engine and "
+        f"the fixed-slot one (ROADMAP §1 {item})")
+
+
+def ranks_not_ported(what: str):
+    """The refusal of an MLA / MoE model's ``what`` across ranks."""
+    return _not_ported(f"{what} across ranks", "items 7.3, MoE dispatch "
+                       "across ranks, and 7.4, the latent ring")
 
 
 def trainable(params) -> dict:
@@ -378,11 +391,18 @@ class DecoderLM:
         ce = tot[0] / total + (mine - mine.detach())
         return ce, {"ce": ce}
 
-    def _layer(self, lp, h, attend, cos, sin, decode: bool = False):
+    def _layer(self, lp, h, attend, cos, sin, decode: bool = False,
+               latents=None):
         """One layer with the attention ``attend(q, k, v) -> o`` (MLA
-        materialised); the FFN is :meth:`_ffn`'s."""
-        qkv = L.mla_qkv if self.cfg.attn.is_mla else L.attn_qkv
-        q, k, v = qkv(lp["attn"], h, self.cfg, cos, sin)
+        materialised; ``latents``, a list, then takes the layer's latent
+        rows); the FFN is :meth:`_ffn`'s."""
+        if self.cfg.attn.is_mla:
+            q, k, v, lat = L.mla_qkv(lp["attn"], h, self.cfg, cos, sin,
+                                     return_latent=True)
+            if latents is not None:
+                latents.append(lat)
+        else:
+            q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
         h = L.attn_out(lp["attn"], h, attend(q, k, v), self.cfg)
         return self._ffn(lp, h, decode)
 
@@ -549,10 +569,16 @@ class DecoderLM:
         sequence (zigzag: the permuted order, as the reference's cache).
         When the batch shards over ``data`` (``par.batch_axes``) each data
         replica runs its own rows (:meth:`_rows`; the cache holds those
-        rows) and the logits are gathered over ``data``."""
+        rows) and the logits are gathered over ``data``.
+
+        An MLA / MoE model runs at one rank only (:meth:`check_one_rank`):
+        MLA materialised (q/k of nope + rope, v of ``v_head_dim``: kernel A's
+        pair route at scale 1/√(nope + rope)), the MoE capacity dispatch
+        over all B·T rows, and the cache ``{"ckv"}`` (L, B, T, kv_lora +
+        rope) of each token's latent row, as the reference's
+        ``_infer_layer_dense``."""
         a, P = self.cfg.attn, self.seq_size
-        if self.cfg.moe is not None or a.is_mla:
-            raise _not_ported("the whole-prompt prefill")
+        self.check_one_rank("the whole-prompt prefill")
         tokens = self._rows(torch.as_tensor(tokens, device=self.device))
         T = tokens.shape[1]
         zz = zigzag_layout(self.cfg, self.par, P)
@@ -562,18 +588,20 @@ class DecoderLM:
         pos = shard_positions(T, P, self.seq_rank, zz)
         pos_t = torch.as_tensor(pos, device=self.device)
         h = L.embed(p["embed"], tokens[:, pos_t], self.dtype)
-        cos, sin = L.rope_tables(pos_t, a.head_dim, a.rope_theta)
-        spec = _attn_spec(self.cfg, self.par, P, self.impl, False)
-        ks, vs = [], []
+        cos, sin = L.rope_tables(pos_t, self.rope_dim, a.rope_theta)
+        spec = _attn_spec(self.cfg, self.par, P, self.impl, False,
+                          self.scale)
+        ks, vs, latents = [], [], []
 
         def attend(q, k, v):
-            ks.append(k)
-            vs.append(v)
+            if not a.is_mla:
+                ks.append(k)
+                vs.append(v)
             return dist_attn_fwd(q, k, v, spec=spec,
                                  group=self.seq_group)[0]
 
-        for lp in p["layers"]:
-            h = self._layer(lp, h, attend, cos, sin)
+        for lp in layer_params(p):
+            h = self._layer(lp, h, attend, cos, sin, latents=latents)
         # the owner of position T - 1 computes its logits and sends them
         owner = next(r for r in range(P)
                      if (shard_positions(T, P, r, zz) == T - 1).any())
@@ -585,8 +613,16 @@ class DecoderLM:
                                  dtype=self.dtype, device=self.device)
         if self.seq_group is not None:
             self.seq_group.broadcast_([logits], owner)
-        return self._all_rows(logits), {"k": torch.stack(ks),
-                                        "v": torch.stack(vs)}
+        cache = ({"ckv": torch.stack(latents)} if a.is_mla else
+                 {"k": torch.stack(ks), "v": torch.stack(vs)})
+        return self._all_rows(logits), cache
+
+    def check_one_rank(self, what: str):
+        """Raise :func:`ranks_not_ported` for ``what`` of an MLA / MoE
+        model on a mesh of more than one rank."""
+        if ((self.cfg.moe is not None or self.cfg.attn.is_mla)
+                and self.mesh is not None and self.mesh.world.size > 1):
+            raise ranks_not_ported(what)
 
     def _rows(self, x):
         """This data replica's contiguous share of the rows of ``x`` (all
@@ -620,7 +656,7 @@ class DecoderLM:
         n = 1 if grp is None else grp.size
         w = 0 if grp is None else grp.rank
         P = self.seq_size
-        Tl = cache["k"].shape[2]
+        Tl = next(iter(cache.values())).shape[2]
         if S % n or S < Tl * P:
             raise ValueError(f"padded length {S} must divide over {n} "
                              f"shards and hold the {Tl * P} prompt slots")
@@ -684,20 +720,43 @@ class DecoderLM:
         ``dist_decode_attn`` over the shards, then :func:`_cache_write`
         into the owner shard; its rows are this data replica's, as
         :meth:`prefill`'s).  Returns logits (B, 1, V); the cache is
-        updated in place.  An MLA model takes the paged view only."""
+        updated in place.
+
+        An MLA model's dense cache is :meth:`prefill`'s ``{"ckv"}``
+        (L, B, S, kv_lora + rope), at one rank: per layer the absorbed
+        query (:meth:`_mla_parts`) attends the latent rows as one kv head
+        with v their first kv_lora columns (``dist_decode_attn``, plain
+        float32), the token's latent row is written, the output is
+        up-projected (:meth:`_mla_out`), and an MoE layer runs every expert
+        (``moe_decode_apply``): the reference's ``_decode_mla``."""
         a = self.cfg.attn
         if "block_table" in cache:
             return self._paged_layers(
                 p, cache, token, pos[:, None],
                 _decode_rows(cache["block_table"], _block_size(cache), pos))
-        if self.cfg.moe is not None or a.is_mla:
-            raise _not_ported("the dense-cache decode")
+        self.check_one_rank("the dense-cache decode")
         token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
-        cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
+        cos, sin = L.rope_tables(pos, self.rope_dim, a.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
         spec = decode_mask(a.window)
-        for li, lp in enumerate(p["layers"]):
+        if a.is_mla:
+            c = a.kv_lora_rank
+            for li, lp in enumerate(layer_params(p)):
+                ck = cache["ckv"][li]
+
+                def attend(q, new, ck=ck):
+                    kv, new4 = ck[:, :, None], new[:, :, None]
+                    o = dist_decode_attn(q, kv, kv[..., :c], new4,
+                                         new4[..., :c],
+                                         group=self.decode_group, mask=spec,
+                                         scale=self.scale, pos=pos)
+                    _cache_write(ck, new, pos, self.decode_group)
+                    return o
+
+                h = self._latent_layer(lp, h, cos, sin, attend, True)
+            return self._all_rows(self._head(p, h))
+        for li, lp in enumerate(layer_params(p)):
             ck, cv = cache["k"][li], cache["v"][li]
 
             def attend(q, k, v, ck=ck, cv=cv):
@@ -708,7 +767,7 @@ class DecoderLM:
                 _cache_write(cv, v, pos, self.decode_group)
                 return o
 
-            h = self._layer(lp, h, attend, cos, sin)
+            h = self._layer(lp, h, attend, cos, sin, decode=True)
         return self._all_rows(self._head(p, h))
 
     @torch.no_grad()

@@ -128,7 +128,7 @@ class Engine:
             raise NotImplementedError(
                 "the paged Engine across ranks for an MLA / MoE model (MoE "
                 "dispatch across ranks, a latent pool sharded over them) "
-                "is not ported (ROADMAP §1 item 7)")
+                "is not ported (ROADMAP §1 item 7.3)")
         if model.batch_group is not None:
             # serving shapes are ragged (B = 1 chunks, a fixed slot batch
             # for decode): run the model batch-replicated, as the
@@ -670,14 +670,11 @@ class FixedSlotEngine:
     On a mesh every rank calls :meth:`generate` with the same batch; the
     prefill runs across the ``model`` ranks under ``par.schedule`` and each
     decode step reduces over the cache's shards, so every rank returns the
-    same tokens."""
+    same tokens.  An MLA / MoE model (its cache the latent rows ``{"ckv"}``)
+    is served at one rank; across ranks it raises."""
 
     def __init__(self, model, params):
-        if model.cfg.moe is not None or model.cfg.attn.is_mla:
-            raise NotImplementedError(
-                "FixedSlotEngine of an MLA / MoE model (a dense latent "
-                "cache, the whole-prompt MLA prefill) is not ported "
-                "(ROADMAP §1 item 7)")
+        model.check_one_rank("FixedSlotEngine")
         self.model = model
         self.params = params
 

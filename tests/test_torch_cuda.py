@@ -698,6 +698,110 @@ def test_latent_kernels_raise_on_other_head_dim_pairs(dev):
     assert dict(build.LAUNCHES) == n0
 
 
+
+PAIR_SCALE = 192 ** -0.5
+
+
+def _pair_chunk(gen, dev, dtype, B, Tq, Tk, Hq, Hkv, v_kind):
+    """q (B, Tq, Hq, 192), k (B, Tk, Hkv, 192) and v (B, Tk, Hkv, 128):
+    a tensor of its own (``own``), the last 128 columns of a (.., 256)
+    tensor (``kv``: materialised MLA's v beside k_nope) or k's first 128
+    columns (``prefix``)."""
+    q = _randn(gen, (B, Tq, Hq, 192), dtype, dev)
+    k = _randn(gen, (B, Tk, Hkv, 192), dtype, dev)
+    if v_kind == "own":
+        v = _randn(gen, (B, Tk, Hkv, 128), dtype, dev)
+    elif v_kind == "kv":
+        v = _randn(gen, (B, Tk, Hkv, 256), dtype, dev)[..., 128:]
+    else:
+        v = k[..., :128]
+    return q, k, v
+
+
+PAIR_FLASH = [
+    # (B, Tq, Tk, Hq, Hkv, mask, v): the fixed-slot prefill of two 4096-token
+    # prompts (16 heads, causal, v beside k_nope); a chunk at q offset 768;
+    # a ragged T of 1000; a window across tiles with ragged Tq and Tk; a
+    # document mask with segment ids; GQA group 2 over k's prefix view;
+    # rows with nothing to attend; a bidirectional chunk with offsets
+    (2, 4096, 4096, 16, 16, mk.causal(), "kv"),
+    (1, 256, 1024, 16, 16, mk.causal(rel_offset=768), "own"),
+    (1, 1000, 1000, 16, 16, mk.causal(), "kv"),
+    (1, 200, 333, 4, 4, mk.sliding_window(70, rel_offset=133), "own"),
+    (2, 128, 256, 4, 4, mk.document(), "own"),
+    (1, 192, 192, 8, 4, mk.causal(), "prefix"),
+    (1, 128, 128, 2, 2, mk.causal(rel_offset=-64), "own"),
+    (1, 64, 100, 2, 2, mk.MaskSpec(q_offset=10, kv_offset=3), "kv"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PAIR_FLASH,
+                         ids=[f"B{c[0]}x{c[1]}x{c[2]}{c[5].kind}{c[6]}"
+                              for c in PAIR_FLASH])
+def test_pair_flash_kernel_matches_plain(dev, case, dtype):
+    """Kernel A's pair route (q/k 192, v 128) against the plain version: o
+    within the forward bar (bf16 also element by element), lse 1e-4, empty
+    rows (0, NEG_INF); one launch, counted as ``flash_fwd_pair``."""
+    B, Tq, Tk, Hq, Hkv, mask, v_kind = case
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = _pair_chunk(gen, dev, dtype, B, Tq, Tk, Hq, Hkv, v_kind)
+    kw = {}
+    if mask.document:
+        s = torch.sort(torch.randint(0, 4, (B, Tk), generator=gen,
+                                     device=dev), dim=1)[0].to(torch.int32)
+        kw = dict(q_segments=s[:, :Tq].contiguous(), kv_segments=s)
+    n0 = dict(build.LAUNCHES)
+    o, lse = flash_fwd(q, k, v, mask=mask, scale=PAIR_SCALE, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd_pair"] == n0["flash_fwd_pair"] + 1
+    assert all(build.LAUNCHES[n] == n0[n] for n in n0
+               if n != "flash_fwd_pair")
+    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, scale=PAIR_SCALE, **kw)
+    assert o.shape == (B, Tq, Hq, 128)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    live = lse_r > NEG_INF / 2
+    torch.testing.assert_close(lse[live], lse_r[live], atol=1e-4, rtol=1e-4)
+    assert bool((lse[~live] == NEG_INF).all())
+    assert bool((o[~live] == 0).all())
+    if dtype == torch.bfloat16:
+        assert _rel_err(o, o_r) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_pair_flash_route_is_deterministic(dev, dtype):
+    """Two launches of the pair route on the serving chunk give bitwise
+    equal o and lse (a fixed sweep order, no atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, k, v = _pair_chunk(gen, dev, dtype, 1, 256, 1024, 16, 16, "kv")
+    m = mk.causal(rel_offset=768)
+    o1, l1 = flash_fwd(q, k, v, mask=m, scale=PAIR_SCALE)
+    o2, l2 = flash_fwd(q, k, v, mask=m, scale=PAIR_SCALE)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+def test_pair_kernels_raise_on_other_pairs(dev):
+    """Pairs outside ``PAIR_DIMS`` and ``LATENT_DIMS`` raise before a
+    launch, in both dtypes, and so does the backward at 192 / 128 (kernels C
+    and D take one D): no fallback."""
+    n0 = dict(build.LAUNCHES)
+    for dt in (torch.float32, torch.bfloat16):
+        for dk, dv in ((192, 64), (160, 128), (128, 192), (256, 128)):
+            q = torch.zeros((1, 64, 4, dk), device=dev, dtype=dt)
+            v = torch.zeros((1, 64, 4, dv), device=dev, dtype=dt)
+            with pytest.raises(ValueError, match="head dims"):
+                flash_fwd(q, q, v, mask=mk.causal())
+        q = torch.zeros((1, 64, 4, 192), device=dev, dtype=dt)
+        v = torch.zeros((1, 64, 4, 128), device=dev, dtype=dt)
+        o = torch.zeros((1, 64, 4, 128), device=dev, dtype=dt)
+        lse = torch.zeros((1, 64, 4), device=dev)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_bwd(q, q, v, o, lse, o, mask=mk.causal())
+    assert dict(build.LAUNCHES) == n0
+
 def test_deepseek_engine_on_card_matches_cpu(dev):
     """Smoke deepseek-v2-lite-16b (float32, 2 layers, an MoE layer of 4
     experts) widened to the served latent (kv_lora 512, rope 64): the

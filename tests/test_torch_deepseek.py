@@ -241,9 +241,10 @@ def test_latent_paged_plain_versions_match_reference_kernel(Tq):
 
 def test_latent_routes_take_only_their_head_dims():
     """Kernel A's latent routes (one by dtype) are built by ``build.py``,
-    and the float32 one plans 16 × 32 tiles; its check takes (576, 512)
-    alone, and the backward none of it; kernel B's takes (576, 512) beside
-    the one-D dims.  Every refusal raises before a build."""
+    and the float32 one plans 16 × 32 tiles; of pairs its check takes
+    (576, 512) and the pair route's (192, 128) only, and the backward none;
+    kernel B's takes (576, 512) beside the one-D dims.  Every refusal raises
+    before a build."""
     lib, _, br, bc = fa.LATENT_ROUTES[torch.float32]
     assert lib in build.KERNELS and (br, bc) == (16, 32)
     assert fa.LATENT_ROUTES[torch.bfloat16][0] in build.KERNELS
@@ -529,12 +530,22 @@ def test_corrupt_latent_block_matches_reference(ds):
 
 
 def test_unported_paths_raise(ds):
-    """The fixed-slot engine, the paged engine across ranks and training of
-    an MLA / MoE model name the ROADMAP item that ports them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FixedSlotEngine(ds.t_model, ds.t_params)
+    """The fixed-slot engine (its prefill and dense decode) and the paged
+    engine across ranks, and training, of an MLA / MoE model name the
+    ROADMAP items that port them; at one rank the fixed-slot engine serves
+    (``tests/test_torch_deepseek_fixed.py``)."""
+    FixedSlotEngine(ds.t_model, ds.t_params)
     ranks = DecoderLM(ds.t_model.cfg, device="cpu")
     ranks.mesh = types.SimpleNamespace(world=types.SimpleNamespace(size=2))
+    across = "ROADMAP §1 items 7.3.*7.4"
+    with pytest.raises(NotImplementedError, match=across):
+        FixedSlotEngine(ranks, ds.t_params)
+    tok = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match=across):
+        ranks.prefill(ds.t_params, tok)
+    with pytest.raises(NotImplementedError, match=across):
+        ranks.decode(ds.t_params, {"ckv": torch.zeros((2, 1, 8, 48))},
+                     tok[:, :1], torch.zeros((1,), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(ranks, ds.t_params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

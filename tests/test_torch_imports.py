@@ -83,5 +83,7 @@ def test_port_covers_the_slice_layout():
                 "configs/qwen2_5_14b.py", "configs/qwen1_5_32b.py",
                 "models/moe.py", "configs/deepseek_v2_lite_16b.py",
                 "kernels/csrc/flash_fwd_latent.cu",
-                "kernels/csrc/flash_fwd_latent_sm90.cu"):
+                "kernels/csrc/flash_fwd_latent_sm90.cu",
+                "kernels/csrc/sm90_tma.cuh",
+                "kernels/csrc/flash_fwd_pair_sm90.cu"):
         assert (PORT / rel).is_file(), rel

@@ -431,7 +431,8 @@ def _tensor_core_fwd(q, k, v, mask, terms, bc=128, scale=None):
 @pytest.mark.parametrize("Tq,Tk,rel,latent", [
     pytest.param(512, 512, 0, False, id="512-512-0"),
     pytest.param(256, 1024, 768, False, id="256-1024-768"),
-    pytest.param(256, 1024, 768, True, id="latent-256-1024-768")])
+    pytest.param(256, 1024, 768, True, id="latent-256-1024-768"),
+    pytest.param(512, 512, 0, "pair", id="pair-512-512-0")])
 def test_bf16_forward_gate_needs_two_p_terms_rejects_missing_tile(Tq, Tk,
                                                                   rel,
                                                                   latent):
@@ -440,10 +441,16 @@ def test_bf16_forward_gate_needs_two_p_terms_rejects_missing_tile(Tq, Tk,
     bf16 term fails it, the two-term split (hi + lo) passes it by a margin,
     and the bar rejects a plain forward that never visits the last 64 keys
     (a tile of the latent route).  Causal, at a training-like shape and at the serving chunk's
-    offsets; and at the latent route's (16 query heads over one latent kv
-    head, q/k 576, v its 512-column view, scale 1/√192, its 64-key tiles)."""
+    offsets; at the latent route's (16 query heads over one latent kv
+    head, q/k 576, v its 512-column view, scale 1/√192, its 64-key tiles);
+    and at the pair route's (16 heads of q/k 192 and v 128, as materialised
+    MLA's whole-prompt prefill, scale 1/√192, its 64-key tiles)."""
     rng = np.random.default_rng(13)
-    if latent:
+    if latent == "pair":
+        q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _qkv(rng, 1, Tq, Tk, 16, 16, 192))
+        v, scale, bc = v[..., :128].contiguous(), 192 ** -0.5, 64
+    elif latent:
         q, k, _ = (torch.from_numpy(x).to(torch.bfloat16)
                    for x in _qkv(rng, 1, Tq, Tk, 16, 1, 576))
         v, scale, bc = k[..., :512], 192 ** -0.5, 64
@@ -528,6 +535,66 @@ def test_latent_routes_by_dtype_and_position_head_tiles():
             assert row == want, (kind, i, row, want)
         t, _ = _device_bounds(tm, 256, 1024, True, "cpu", br, keys)
         assert t.tolist() == [list(r) for r in got]
+
+
+def test_pair_routes_by_dtype_tables_and_refusals(monkeypatch):
+    """Kernel A's pair route (q/k 192, v 128: materialised MLA): bf16 goes
+    to its tensor-core library at 128-row q tiles of 64-key tiles, float32
+    to the CUDA-core latent library's <192, 128> at 16 × 32; both are built
+    by ``build.py`` and counted as ``flash_fwd_pair``.  The 128 × 64 table
+    of the fixed-slot prefill (T 4096, causal) and of a chunk under a window
+    equals the reference's range math at those sizes.  A bf16 call whose
+    rows do not start on 16 bytes, a pair outside ``PAIR_DIMS`` and the
+    backward at 192 / 128 raise before any build or launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (LATENT_ROUTES,
+                                                     PAIR_DIMS, PAIR_ROUTES,
+                                                     _BwdPlan,
+                                                     _device_bounds,
+                                                     _flash_fwd_cuda)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert PAIR_DIMS == ((192, 128),)
+    assert PAIR_ROUTES[bf] == ("flash_fwd_pair_sm90",
+                               "repro_flash_fwd_pair_sm90", 128, 64)
+    assert PAIR_ROUTES[f32] == LATENT_ROUTES[f32]
+    assert {r[0] for r in PAIR_ROUTES.values()} <= set(build.KERNELS)
+    assert "flash_fwd_pair" in build.LAUNCHES
+    for T, Tk, kind, kw in ((4096, 4096, "causal", {}),
+                            (256, 1024, "sliding_window",
+                             {"window": 300, "rel_offset": 768})):
+        rm, tm = _spec_pair(kind, **kw)
+        got = tile_bounds(tm, T, Tk, br=128, bc=64)
+        assert len(got) == -(-T // 128)
+        for i, row in enumerate(got):
+            want = tuple(int(x) for fn in ("kv_block_bounds",
+                                           "interior_kv_bounds")
+                         for x in getattr(rbs, fn)(i, br=128, bc=64,
+                                                   nk=-(-Tk // 64), mask=rm))
+            assert row == want, (kind, i, row, want)
+        t, _ = _device_bounds(tm, T, Tk, True, "cpu", 128, 64)
+        assert t.tolist() == [list(r) for r in got]
+
+    def no_build(*a, **kw):
+        raise AssertionError("a refused call reached the build")
+    monkeypatch.setattr(build, "load", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    n0 = dict(build.LAUNCHES)
+    k = torch.zeros((1, 8, 4, 192), dtype=bf)
+    q = torch.zeros((1, 8, 4, 200), dtype=bf)[..., 1:193]
+    with pytest.raises(ValueError, match="16-byte"):
+        _flash_fwd_cuda(q, k, k[..., :128], tmk.causal(), 0.07, None, None,
+                        True)
+    for dt in (bf, f32):
+        q = torch.zeros((1, 8, 4, 192), dtype=dt)
+        for dv in (64, 192 + 64):
+            with pytest.raises(ValueError, match="head dims"):
+                _flash_fwd_cuda(q, q, torch.zeros((1, 8, 4, dv), dtype=dt),
+                                tmk.causal(), 0.07, None, None, True)
+        v = torch.zeros((1, 8, 4, 128), dtype=dt)
+        with pytest.raises(ValueError, match="head dims"):
+            _BwdPlan(q, q, v, v, torch.zeros((1, 8, 4)), v, tmk.causal(),
+                     None, None, None, True)
+    assert dict(build.LAUNCHES) == n0
 
 
 @pytest.mark.parametrize("why", ["group48", "group5", "unaligned"])
