@@ -8,9 +8,11 @@ Phases, each fatal on failure (nothing is caught):
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
                 ptxas' registers and spills of the tensor-core routes
-                (kernel A's, and kernels C and D's), with their shared
-                memory; no spill at D = 128; none in A's latent and pair
-                routes.
+                (kernel A's, and kernels C and D's, also at q/k 192, v 128:
+                C and D's two passes, and their float32 instantiations),
+                with their shared memory; no spill at D = 128 nor in A's
+                latent and pair routes or the float32 192/128 kernels; a
+                spill of the bf16 192/128 kernels is reported.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
                 cases, every case of A, C and D in both dtypes (bf16 runs
@@ -45,7 +47,14 @@ Phases, each fatal on failure (nothing is caught):
                 last 128 columns of a 256-column tensor), 16 heads, scale
                 1/√192: phase 13's prefill (B 2, T 4096, causal; launch ==
                 launch bitwise), a chunk at q_offset 768 (Tq 256, Tk 1024),
-                a ragged T of 1000; pairs outside its table raise.
+                a ragged T of 1000; pairs outside its table raise.  Kernels
+                C and D at that pair in both dtypes (bf16 on the tensor
+                cores, D in two passes; float32 on the CUDA cores), v the
+                strided view: phase 14's training shape (B 1, T 8192, 16
+                heads, causal), a ragged T, a document mask, a q-offset
+                chunk, each held to phase 3's bars, which must reject the
+                plain backward without the last 64-key tile; other
+                (Dk, Dv) pairs and the latent pair raise.
   3c. plans   — kernels A, C and D under every distinct mask the plan
                 steps give them: every active Work item of balanced, ring
                 and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
@@ -223,6 +232,21 @@ Phases, each fatal on failure (nothing is caught):
                 its rope.  Prefill seconds, decode ms a step, peak memory,
                 a profiler trace of the prefill and of 6 decode steps
                 (device breakdown, idle share).
+  14. train-moe — deepseek-v2-lite-16b trained at full width, cut to 8 of
+                27 layers (the dense layer 0 and 7 MoE layers, 4.38 B
+                parameters), one 8,192-token ``SyntheticTokens`` sequence a
+                step, bf16, seed-14 weights, MoE capacity 960: step 1's
+                loss (within 2^-8 of itself) and every gradient leaf (5% of
+                its max |g|) against the same weights and batch through
+                the plain attention replaying the kernel run's expert
+                choices by call order (the remat recompute's included;
+                the recomputed top-6 sets that differ from the forward's
+                are counted), a planted fault (v from the wrong columns of
+                the ``wkv_b`` up-projection) rejected; A, C and D on the
+                training path's own inputs as in 6a; then 4 steps each
+                under ``remat_aware`` and ``hf`` (A 8 / 16 launches a
+                step, C and D 8), finite ce and aux, tokens/s, peak memory
+                and a profiled step's device breakdown and top kernels.
   5. times    — each kernel at the shapes of its path (C and D on the
                 inputs kept in phase 6): its time (CUDA events, median
                 after warm-up), its plain version's at the same shape, a
@@ -247,7 +271,11 @@ Phases, each fatal on failure (nothing is caught):
                 own row, ``flash_fwd_pair``, bf16): its device time (CUDA-
                 graph replay) and event time beside its plain version,
                 SDPA's causal forward on the same tensors (the backend its
-                dispatcher takes, named) and its bound.
+                dispatcher takes, named) and its bound.  C and D at 192/128
+                on phase 14's own backward inputs (their own rows,
+                ``flash_bwd_dq_pair`` / ``flash_bwd_dkv_pair``): device and
+                event time, plain versions, SDPA's autograd backward of the
+                pair (its backend named), bounds.
 
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
@@ -890,6 +918,137 @@ def bwd_checks():
         f"tol 0.0002")
 
 
+def _bwd_bar(a, r, dtype):
+    """Phase 3's bar on one backward output: element-wise BWD_TOL, and for
+    bf16 also ROW_TOL row by row.  Returns (passes, max |Δ|, per-row
+    relative error or None)."""
+    tol = BWD_TOL[dtype]
+    ok = torch.allclose(a.float(), r.float(), atol=tol, rtol=tol)
+    err = float((a.float() - r.float()).abs().max())
+    row = row_rel_err(a, r) if dtype == torch.bfloat16 else None
+    return ok and (row is None or row <= ROW_TOL), err, row
+
+
+def _pair_bwd_ref(args, kw, cut=None):
+    """The plain backward of a pair case head slice by head slice (each
+    (h, T, T) float32 tensor at most 2.1 GB); ``cut`` drops every key from
+    that index on (dk and dv of those keys read 0): the control."""
+    q, k, v, o, lse, do = args
+    out = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+    for sq, skv in _head_slices(q, k):
+        (qs, ks, vs, os_, ls, ds), kws = _bwd_slice(args, kw, sq, skv)
+        if cut is not None:
+            ks, vs = ks[:, :cut], vs[:, :cut]
+            if "kv_segments" in kws:
+                kws["kv_segments"] = kws["kv_segments"][:, :cut]
+        g = chunk_attn_bwd_ref(qs, ks, vs, os_, ls, ds, **kws)
+        out[0][:, :, sq] = g[0]
+        for i in (1, 2):
+            out[i][:, :, skv] = 0
+            out[i][:, :g[i].shape[1], skv] = g[i]
+    return out
+
+
+def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
+                   segs=False):
+    """Kernels C and D at q/k 192, v 128 (materialised MLA, 16 heads,
+    scale 1/√192) against the plain backward on the same saved (o, lse)
+    (kernel A's pair route) at phase 3's bar, which must reject the plain
+    backward without the last 64-key tile; the pruned sweep equals the
+    dense one.  v is the last 128 columns of a (.., 256) tensor (``kv``,
+    as the model hands it over) or a tensor of its own (``own``)."""
+    q = randn(gen, (B, Tq, PAIR_H, PAIR_DK), dtype)
+    k = randn(gen, (B, Tk, PAIR_H, PAIR_DK), dtype)
+    if v_kind == "kv":
+        v = randn(gen, (B, Tk, PAIR_H, 2 * PAIR_DV), dtype)[..., PAIR_DV:]
+    else:
+        v = randn(gen, (B, Tk, PAIR_H, PAIR_DV), dtype)
+    do = randn(gen, (B, Tq, PAIR_H, PAIR_DV), dtype)
+    kw = dict(mask=mask, scale=LAT_SCALE)
+    if segs:
+        s = torch.sort(torch.randint(0, 4, (B, Tk), generator=gen,
+                                     device=DEV), dim=1)[0].to(torch.int32)
+        kw.update(q_segments=s[:, :Tq].contiguous(), kv_segments=s)
+    o, lse = flash_fwd(q, k, v, **kw)
+    n0 = dict(build.LAUNCHES)
+    got = flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    check(all(build.LAUNCHES[n] == n0[n] + (n in ("flash_bwd_dq",
+                                                   "flash_bwd_dkv"))
+              for n in n0), f"flash_bwd pair {name}: launches")
+    dense = flash_bwd(q, k, v, o, lse, do, prune=False, **kw)
+    args = (q, k, v, o, lse, do)
+    ref = _pair_bwd_ref(args, kw)
+    errs, rows = [], []
+    for nm, a, r, d in zip(("dq", "dk", "dv"), got, ref, dense):
+        check(a.shape == r.shape and a.dtype == r.dtype and
+              a.is_contiguous(), f"flash_bwd pair {name}: {nm} "
+              f"{tuple(a.shape)} {a.dtype}")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"flash_bwd pair {name}: {nm} non-finite")
+        ok, err, row = _bwd_bar(a, r, dtype)
+        check(ok, f"flash_bwd pair {name}: {nm} err {err} row {row}")
+        pd = float((a.float() - d.float()).abs().max())
+        check(pd <= 1e-6, f"flash_bwd pair {name}: {nm} pruned vs dense {pd}")
+        errs.append(err)
+        rows.append(row)
+    del dense
+    bad = _pair_bwd_ref(args, kw, cut=Tk - 64)
+    ctl = [_bwd_bar(b, r, dtype) for b, r in zip(bad, ref)]
+    check(not any(c[0] for c in ctl), f"flash_bwd pair {name}: the bar "
+          f"does not reject the plain backward without the last key tile "
+          f"({ctl})")
+    show = (lambda c: f"{c[2]:.2e}" if c[2] is not None else f"{c[1]:.2e}")
+    rel = (f"; row {'/'.join(f'{x:.2e}' for x in rows)} (limit {ROW_TOL})"
+           if dtype == torch.bfloat16 else "")
+    say(f"  C/D {'192/128 ' + name:<30} {str(dtype)[6:]:<9} max|Δdq| "
+        f"{errs[0]:.3e}  max|Δdk| {errs[1]:.3e}  max|Δdv| {errs[2]:.3e}  "
+        f"tol {BWD_TOL[dtype]}; pruned == dense{rel}; control without the "
+        f"last key tile {'/'.join(show(c) for c in ctl)} (rejected)")
+    return errs
+
+
+PAIR_BWD_CASES = (
+    # (name, B, Tq, Tk, mask, v, segments): phase 14's training shape, a
+    # ragged T, a document mask with segment ids, a chunk at q offset 768
+    ("train B1 T8192 causal v-view", 1, 8192, 8192, mk.causal(), "kv", False),
+    ("ragged T1000 causal", 1, 1000, 1000, mk.causal(), "own", False),
+    ("document segments v-view", 2, 512, 512, mk.document(), "kv", True),
+    ("Tq256 Tk1024 q_off768 v-view", 1, 256, 1024, mk.causal(rel_offset=768),
+     "kv", False),
+)
+
+
+def pair_bwd_checks():
+    """Kernels C and D at materialised MLA's q/k 192, v 128 in both dtypes
+    (bf16 on the tensor cores, D in two passes; float32 on the CUDA cores)
+    over ``PAIR_BWD_CASES``, each held to its plain version at phase 3's
+    bar, which must reject the control; other (Dk, Dv) pairs and the latent
+    pair raise before a launch."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, B, Tq, Tk, m, vk, segs in PAIR_BWD_CASES:
+            e = _pair_bwd_case(gen, name, B, Tq, Tk, dt, m, vk, segs)
+            errs[(name, dt)] = e
+            _free()
+    n0 = dict(build.LAUNCHES)
+    for dt in (torch.float32, torch.bfloat16):
+        for dk, dv in ((192, 64), (160, 128), (128, 192), (576, 512)):
+            q = torch.zeros((1, 64, 4, dk), device=DEV, dtype=dt)
+            v = torch.zeros((1, 64, 4, dv), device=DEV, dtype=dt)
+            lse = torch.zeros((1, 64, 4), device=DEV)
+            try:
+                flash_bwd(q, q, v, v, lse, v, mask=mk.causal())
+            except ValueError:
+                continue
+            raise AssertionError(f"flash_bwd took the pair {dk}/{dv}")
+    check(dict(build.LAUNCHES) == n0, "a refused backward pair launched")
+    say(f"  C/D {'pairs outside the table':<30} both      192/64, 160/128, "
+        "128/192, 576/512 raise before a launch")
+    return errs
+
+
 # ----------------------------------------------------------------- phase 4
 
 P4_LENS, P4_NEW = (1000, 700, 513, 64), 32
@@ -1108,12 +1267,14 @@ def trace(model, params, prompts):
 
 
 def show_breakdown(label, prof, wall):
+    """Prints the device time by kernel family; returns the idle share."""
     fam, busy, wall_ms = _device_breakdown(prof, wall)
     say(f"  trace {label}: wall {wall_ms:.1f} ms (under the profiler), "
         f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     for key, (n, t) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
         say(f"    {key:<40} {t:9.2f} ms  {n:6d} launches  "
             f"{t / wall_ms:.3f} of wall")
+    return 1 - busy / wall_ms
 
 
 def logit_controls(model, params, ctx, ref, limit):
@@ -1174,15 +1335,18 @@ def _moved(call, dev):
     return tuple(map(to, a)), {k: to(x) for k, x in kw.items()}
 
 
-def _train_policy(cfg, policy, batches, tc, seen=None):
-    """``len(batches)`` steps from the seed-0 init under ``policy``: losses,
-    step seconds (CUDA events), launches and peak device memory.  With
-    ``seen``, one more step runs under torch.profiler and leaves the inputs
-    of its first attention forward (layer 1) and first attention backward
-    (layer 8) in ``seen``, on the host."""
+def _train_policy(cfg, policy, batches, tc, seen=None, seed=0,
+                  kernels=BWD_KERNELS, profile=False):
+    """``len(batches)`` steps from the seed-``seed`` init under ``policy``:
+    metrics, step seconds (CUDA events), launches of ``kernels`` and peak
+    device memory, and the device's idle share in one more step run under
+    torch.profiler when ``seen`` or ``profile`` is given (else None); with
+    ``seen`` that step leaves the inputs of its first attention forward
+    (layer 1) and first attention backward (the last layer) in ``seen``,
+    on the host."""
     model = DecoderLM(cfg, device=DEV, par=ParallelConfig(remat=policy),
                       impl=None if seen is None else _capturing(seen))
-    params = trainable(model.init(seed=0))
+    params = trainable(model.init(seed=seed))
     opt = adamw.init(params)
     step = make_train_step(model, tc)
     torch.cuda.synchronize()
@@ -1197,23 +1361,28 @@ def _train_policy(cfg, policy, batches, tc, seen=None):
         e.record()
         e.synchronize()
         out.append((m, s.elapsed_time(e) / 1e3))
-    launches = {k: build.LAUNCHES[k] for k in BWD_KERNELS}
+    launches = {k: build.LAUNCHES[k] for k in kernels}
     peak = torch.cuda.max_memory_allocated()
-    if seen is not None:
-        from torch.profiler import ProfilerActivity, profile
-        seen["armed"] = True
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    idle = None
+    if seen is not None or profile:
+        from torch.profiler import ProfilerActivity, profile as prof_
+        if seen is not None:
+            seen["armed"] = True
+        with prof_(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(params, opt, batches[0])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        show_breakdown(f"one {policy} training step", prof, wall)
-        for k in ("fwd", "bwd"):
-            seen[k] = _moved(seen[k], "cpu")
+        idle = show_breakdown(f"one {policy} training step", prof, wall)
+        if profile:
+            _show_top(prof)
+        if seen is not None:
+            for k in ("fwd", "bwd"):
+                seen[k] = _moved(seen[k], "cpu")
     del model, params, opt, step
     _free()
-    return out, launches, peak
+    return out, launches, peak, idle
 
 
 def train():
@@ -1228,7 +1397,7 @@ def train():
     say(f"  {cfg.name} width, {L} of 32 layers ({cfg.param_count() / 1e9:.2f}"
         f" B params), B 1 T {T}, bf16 params, fp32 moments, lr {tc.lr}")
     seen = {}
-    runs, launches, peak = _train_policy(cfg, "remat_aware", batches, tc,
+    runs, launches, peak, _ = _train_policy(cfg, "remat_aware", batches, tc,
                                          seen=seen)
     for i, (m, sec) in enumerate(runs):
         check(m["skipped_nonfinite"] == 0, f"step {i + 1} was skipped")
@@ -1245,7 +1414,8 @@ def train():
         + f"; peak memory {peak / 2**30:.2f} GiB")
     peaks = {"remat_aware": peak}
     for policy, n_fwd in (("hf", 2 * L), ("none", L)):
-        one, got, peaks[policy] = _train_policy(cfg, policy, batches[:1], tc)
+        one, got, peaks[policy], _ = _train_policy(cfg, policy, batches[:1],
+                                                   tc)
         (m1, sec1), = one
         want = {"flash_fwd": n_fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L}
         check(got == want, f"{policy} launches {got}, want {want}")
@@ -1297,15 +1467,30 @@ def _sdpa_bwd(q, k, v, do, scale):
             tuple(x.transpose(1, 2) for x in g))
 
 
-def main_path_checks(seen):
-    """Kernels A, C and D on the inputs the training path gave them (B 1,
-    T 8192, 32 heads × 128, bf16, causal), each held against its plain
-    version head slice by head slice, and the same limits held to a plain
-    backward that never visits the last 64-key tile, which they must
-    reject."""
+def _library(fn):
+    """``fn()``, SDPA's call beside a kernel as a calibration, or None when
+    no SDPA backend takes the shape (the port never calls it)."""
+    try:
+        return fn()
+    except RuntimeError as e:
+        say(f"  sdpa: {str(e)[:160]}")
+        return None
+
+
+def _fmt(x):
+    return "n/a" if x is None else f"{x:.2e}"
+
+
+def main_path_checks(seen, shape=(1, TRAIN_T, 32, 128), last=TRAIN_LAYERS):
+    """Kernels A, C and D on the inputs the training path gave them (phase
+    6: B 1, T 8192, 32 heads × 128; phase 14: 16 heads of q/k 192, v 128;
+    bf16, causal; the backward's are the last layer's), each held against
+    its plain version head slice by head slice, and the same limits held to
+    a plain backward that never visits the last 64-key tile, which they
+    must reject."""
     (q, k, v), kw = _moved(seen["fwd"], DEV)
     check(kw["mask"] == mk.causal() and q.dtype == torch.bfloat16
-          and q.shape == (1, TRAIN_T, 32, 128),
+          and q.shape == shape,
           f"training attention {kw['mask']} {q.dtype} {tuple(q.shape)}")
     o, lse = flash_fwd(q, k, v, **kw)
     e_o = r_o = e_lse = lse_max = 0.0
@@ -1322,15 +1507,18 @@ def main_path_checks(seen):
             cut = kh.shape[1] - 64
             r_bad = rel_err(chunk_attn_ref(qh, kh[:, :cut], vh[:, :cut],
                                            **kw)[0], o_r)
-            o_lib = torch.nn.functional.scaled_dot_product_attention(
-                *(x.transpose(1, 2) for x in (qh, kh, vh)), is_causal=True,
-                scale=kw.get("scale"), enable_gqa=qh.shape[2] != kh.shape[2])
-            r_lib = rel_err(o_lib.transpose(1, 2), o_r)
+            o_lib = _library(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *(x.transpose(1, 2) for x in (qh, kh, vh)),
+                    is_causal=True, scale=kw.get("scale"),
+                    enable_gqa=qh.shape[2] != kh.shape[2]))
+            r_lib = (None if o_lib is None else
+                     rel_err(o_lib.transpose(1, 2), o_r))
             del o_lib
     say(f"  A  layer-1 forward: max|Δo| {e_o:.3e} rel {r_o:.2e} (limit "
         f"{REL_TOL}), max|Δlse| {e_lse:.3e}; control without the last kv "
         f"tile: rel {r_bad:.2e}; SDPA's forward (calibration, first head "
-        f"slice): rel {r_lib:.2e}")
+        f"slice): rel {_fmt(r_lib)}")
     check(r_o <= REL_TOL and e_o <= TOL[torch.bfloat16],
           f"flash_fwd on the training path: o err {e_o}, rel {r_o}")
     check(e_lse <= LSE_TOL * (1 + lse_max),
@@ -1357,25 +1545,29 @@ def main_path_checks(seen):
             cut = k.shape[1] - 64
             bq, bk, bv = chunk_attn_bwd_ref(q, k[:, :cut], v[:, :cut], o,
                                             lse, do, **kw_s)
-            pad = torch.zeros_like(k[:, cut:])
-            bad = (bq, torch.cat([bk, pad], 1), torch.cat([bv, pad], 1))
+            bad = (bq, torch.cat([bk, torch.zeros_like(k[:, cut:])], 1),
+                   torch.cat([bv, torch.zeros_like(v[:, cut:])], 1))
             e_bad = [row_rel_err(b, r) for b, r in zip(bad, ref)]
             del bad, bq, bk, bv
             # SDPA's backward uses its own forward's output in delta =
             # rowsum(o ⊙ do), so it is held to the plain backward from that
             # output
-            o_lib, g_lib = _sdpa_bwd(q, k, v, do, kw_s.get("scale"))
-            ref_lib = chunk_attn_bwd_ref(q, k, v, o_lib, lse, do, **kw_s)
-            e_lib = [row_rel_err(b, r) for b, r in zip(g_lib, ref_lib)]
-            del o_lib, g_lib, ref_lib
+            lib = _library(lambda: _sdpa_bwd(q, k, v, do, kw_s.get("scale")))
+            e_lib = [None] * 3
+            if lib is not None:
+                ref_lib = chunk_attn_bwd_ref(q, k, v, lib[0], lse, do,
+                                             **kw_s)
+                e_lib = [row_rel_err(b, r) for b, r in zip(lib[1], ref_lib)]
+                del ref_lib
+            del lib
         del ref
-    say(f"  C/D layer-8 backward: max|Δdq| {e_abs[0]:.3e} max|Δdk| "
+    say(f"  C/D layer-{last} backward: max|Δdq| {e_abs[0]:.3e} max|Δdk| "
         f"{e_abs[1]:.3e} max|Δdv| {e_abs[2]:.3e} (tol {tol}); per-row dq/dk/"
         "dv " + "/".join(f"{x:.2e}" for x in e_row) + f" (limit {ROW_TOL}); "
         "control without the last kv tile: per-row "
         + "/".join(f"{x:.2e}" for x in e_bad) + "; SDPA's backward "
         "(calibration, first head slice): per-row "
-        + "/".join(f"{x:.2e}" for x in e_lib))
+        + "/".join(_fmt(x) for x in e_lib))
     check(max(e_row) <= ROW_TOL, f"flash_bwd on the training path: per-row "
           f"errors {e_row} over {ROW_TOL}")
     check(min(e_bad) > ROW_TOL, f"the limit {ROW_TOL} does not reject a "
@@ -1651,7 +1843,7 @@ def _token_ce(model, params, batch):
         h = model._embed(params, batch)
         cos, sin = L.rope_tables(model.positions(h.shape[1]), a.head_dim,
                                  a.rope_theta)
-        h = model._backbone(params, h, cos, sin)
+        h, _ = model._backbone(params, h, cos, sin)
         labels = batch["labels"].to(model.device).long()
         out = []
         for i in range(0, h.shape[1], 4096):
@@ -3461,6 +3653,187 @@ def fixed_slot(model, params):
     return res
 
 
+# ---------------------------------------------------------------- phase 14
+
+P14_ARCH, P14_SEED = "deepseek-v2-lite-16b", 14
+P14_LAYERS, P14_T, P14_STEPS = 8, 8192, 4
+P14_CAP = 960           # slots an expert takes: 8192 · 6 · 1.25 / 64
+P14_KERNELS = ("flash_fwd_pair", "flash_bwd_dq", "flash_bwd_dkv")
+# step 1's loss, kernels against the plain attention: the logits are bf16,
+# so each token's cross-entropy is known to one bf16 step of the logits'
+# size (2^-8 of it); the mean over 8,192 tokens is held to that step of its
+# own size
+P14_LOSS_TOL = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def _v_columns_fault():
+    """A planted fault: materialised MLA's v taken from the wrong columns
+    of the ``wkv_b`` up-projection (each head's first 128, k_nope's,
+    instead of its last 128)."""
+    base = LY.mla_qkv
+
+    def faulty(p, x, cfg, cos, sin, return_latent=False):
+        out = base(p, x, cfg, cos, sin, return_latent)
+        q, k, v = out[:3]
+        return (q, k, k[..., :v.shape[-1]]) + tuple(out[3:])
+    LY.mla_qkv = faulty
+    try:
+        yield
+    finally:
+        LY.mla_qkv = base
+
+
+def _leaf_names(tree, prefix=""):
+    """Names of a parameter tree's leaves, in ``core.tree.flatten``'s
+    order (sorted dict keys, list order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree)
+                for n in _leaf_names(x, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def _worst_leaf(gs, ref, names):
+    """(largest per-leaf max |Δg| / max |g_ref|, that leaf's name)."""
+    errs = [float((a.float() - r.float()).abs().max())
+            / max(float(r.float().abs().max()), 1e-30)
+            for a, r in zip(gs, ref)]
+    i = int(np.argmax(errs))
+    return errs[i], names[i]
+
+
+def train_moe():
+    """Phase 14: deepseek-v2-lite-16b (MLA + MoE) trained at full width,
+    depth cut to 8 of 27 layers (the dense layer 0 and 7 MoE layers), one
+    8,192-token sequence a step, bf16, seed-14 weights: step 1's loss and
+    every gradient leaf against the plain attention replaying the kernel
+    run's experts (a planted fault rejected), kernels A (pair route), C
+    and D on the training path's own inputs, then 4 steps each under
+    remat_aware and hf."""
+    from repro_torch.models.moe import capacity
+    t_all = time.perf_counter()
+    cfg = get_config(P14_ARCH).replace(n_layers=P14_LAYERS)
+    m, L, T, n = cfg.moe, P14_LAYERS, P14_T, P14_STEPS
+    n_moe = L - m.n_dense_layers
+    cap = capacity(cfg, T)
+    tc = TrainConfig(lr=1e-4, warmup_steps=min(20, n // 5 + 1),
+                     total_steps=n)
+    batches = [SyntheticTokens(cfg, ShapeSpec("chip", T, 1, "train"),
+                               device=DEV, seed=0).batch(i)
+               for i in range(n)]
+    at = cfg.attn
+    say(f"  {cfg.name} at full width (d_model {cfg.d_model}, MLA "
+        f"{at.n_heads} heads of q/k "
+        f"{at.qk_nope_head_dim + at.qk_rope_head_dim} and v {at.v_head_dim}, "
+        f"latent {at.kv_lora_rank}, {m.n_routed} routed + {m.n_shared} shared "
+        f"experts, top-{m.top_k}, vocab {cfg.vocab}), {L} of 27 layers "
+        f"({m.n_dense_layers} dense + {n_moe} MoE; "
+        f"{cfg.param_count() / 1e9:.2f} B params), B 1 T {T}, bf16 params, "
+        f"fp32 moments, seed {P14_SEED}; MoE capacity {cap} a layer for "
+        f"{T * m.top_k} (token, expert) pairs over {m.n_routed} experts")
+    check(cap == P14_CAP, f"capacity {cap}, want {P14_CAP}")
+
+    # step 1: the kernels against the plain attention from the same weights
+    # and batch, the plain run replaying the kernel run's experts by call
+    # order (remat_aware routes each MoE layer twice: the forward, then the
+    # recompute in the backward)
+    base = DecoderLM(cfg, device=DEV).init(seed=P14_SEED)
+    names = _leaf_names(base)
+
+    def step1(impl, router, fault=False):
+        model = DecoderLM(cfg, device=DEV, impl=impl)
+        params = trainable(base)
+        with router, (_v_columns_fault() if fault
+                      else contextlib.nullcontext()):
+            loss, met = model.loss(params, batches[0])
+            g = torch.autograd.grad(loss, leaves(params))
+        torch.cuda.synchronize()
+        return [float(x.detach()) for x in (loss, met["ce"], met["aux"])], g
+
+    seen = {"armed": True}
+    build.reset_launches()
+    rk = _Router()
+    (l_k, ce_k, aux_k), g_k = step1(_capturing(seen), rk)
+    got = dict(build.LAUNCHES)
+    want = {k: L if k in P14_KERNELS else 0 for k in got}
+    check(got == want, f"step 1 launches {got}, want {want}")
+    check(len(rk.seen) == 2 * n_moe, f"{len(rk.seen)} MoE routings in a "
+          f"remat_aware step, want {2 * n_moe}")
+    fwd, rec = rk.seen[:n_moe], rk.seen[n_moe:][::-1]
+    redo = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+               for a, b in zip(fwd, rec))
+    say(f"  step 1 (remat_aware, kernels): loss {l_k:.6f} ce {ce_k:.6f} aux "
+        f"{aux_k:.6e}; launches {got}; {len(rk.seen)} MoE routings; "
+        f"recomputed top-{m.top_k} sets that differ from their forward's: "
+        f"{redo} of {n_moe * T}")
+    rr = _Router(calls=rk.seen)
+    (l_r, ce_r, aux_r), g_r = step1("ref", rr)
+    check(len(rr.seen) == len(rk.seen) and all(
+        torch.equal(a, b) for a, b in zip(rr.seen, rk.seen)),
+        "the plain run did not replay every expert choice")
+    err, leaf = _worst_leaf(g_k, g_r, names)
+    del g_k
+    (l_f, _, _), g_f = step1("ref", _Router(calls=rk.seen), fault=True)
+    bad, bad_leaf = _worst_leaf(g_f, g_r, names)
+    del g_f
+    d_loss = abs(l_k - l_r)
+    say(f"  step 1 plain attention replaying the experts: loss {l_r:.6f} ce "
+        f"{ce_r:.6f} aux {aux_r:.6e}; |Δloss| {d_loss:.3e} (limit "
+        f"{P14_LOSS_TOL:.3e} of |loss|), |Δce| {abs(ce_k - ce_r):.3e}, "
+        f"|Δaux| {abs(aux_k - aux_r):.3e}")
+    say(f"  worst gradient leaf max|Δg| / max|g| over {len(names)} leaves: "
+        f"kernels {err:.4f} ({leaf}; limit {GRAD_REL_TOL}); control, v from "
+        f"the wrong wkv_b columns: {bad:.4f} ({bad_leaf}), loss {l_f:.6f}")
+    check(d_loss <= P14_LOSS_TOL * abs(l_r), f"step 1 loss {l_k} vs plain "
+          f"{l_r}")
+    check(err <= GRAD_REL_TOL, f"kernel grads vs plain: {leaf} {err}")
+    check(bad > GRAD_REL_TOL, f"the grad limit does not reject v taken from "
+          f"the wrong columns ({bad_leaf} {bad})")
+    del base, g_r, rk, rr
+    _free()
+    say("  kernels A (pair route), C and D on the training path's inputs:")
+    errs = main_path_checks(seen, shape=(1, T, PAIR_H, PAIR_DK), last=L)
+    res = dict(seen=seen, errs=errs, redo=redo, step1_err=err,
+               step1_ctl=bad, d_loss=d_loss, launches={}, peaks={}, tok_s={},
+               idle={})
+    first = None
+    for policy, n_fwd in (("remat_aware", L), ("hf", 2 * L)):
+        runs, got, peak, idle = _train_policy(cfg, policy, batches, tc,
+                                              seed=P14_SEED,
+                                              kernels=P14_KERNELS,
+                                              profile=True)
+        want = {"flash_fwd_pair": n_fwd * n, "flash_bwd_dq": L * n,
+                "flash_bwd_dkv": L * n}
+        check(got == want, f"{policy} launches {got}, want {want}")
+        for i, (mt, sec) in enumerate(runs):
+            check(mt["skipped_nonfinite"] == 0, f"{policy} step {i + 1} was "
+                  "skipped")
+            check(all(np.isfinite(mt[k]) for k in ("loss", "ce", "aux")),
+                  f"{policy} step {i + 1}: {mt}")
+            say(f"  {policy} step {i + 1}: loss {mt['loss']:.4f} ce "
+                f"{mt['ce']:.4f} aux {mt['aux']:.6e} gnorm {mt['gnorm']:.3f} "
+                f"step {sec:.3f} s")
+        l1 = runs[0][0]["loss"]
+        first = l1 if first is None else first
+        check(abs(l1 - first) <= 1e-2 * abs(first), f"{policy} step 1 loss "
+              f"{l1} vs remat_aware {first}")
+        tok_s = (n - 1) * T / sum(sec for _, sec in runs[1:])
+        say(f"  {policy}: {tok_s:.1f} tokens/s over steps 2-{n}; launches "
+            f"per step " + ", ".join(f"{k} {got[k] / n:g}"
+                                     for k in P14_KERNELS)
+            + f"; peak memory {peak / 2**30:.2f} GiB; idle share {idle:.3f}")
+        for k in P14_KERNELS:
+            res["launches"][k] = res["launches"].get(k, 0) + got[k]
+        res["peaks"][policy], res["tok_s"][policy] = peak, tok_s
+        res["idle"][policy] = idle
+    res["seconds"] = time.perf_counter() - t_all
+    say(f"  phase 14 took {res['seconds']:.1f} s")
+    return res
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -3480,18 +3853,32 @@ def ptxas_kernels(text):
     return out
 
 
+BWD_PARTS = {0: "", 1: " (dv pass)", 2: " (dk pass)"}
+
+
+def _template_args(mangled):
+    """The integer template arguments of a mangled kernel name."""
+    import re
+    return [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
+
+
 def tensor_core_report(report):
     """Registers, spills and shared memory of the tensor-core routes at each
     head dim: kernel A's (``flash_fwd_sm90``) and kernels C and D's
-    (``flash_bwd_sm90``), none of which may spill at D = 128; and kernel
-    A's latent route (``flash_fwd_latent_sm90``, v k's prefix view or a
-    tensor of its own) and pair route (``flash_fwd_pair_sm90``, q/k 192,
-    v 128), which may not spill at all."""
+    (``flash_bwd_sm90``), none of which may spill at D = 128 (at
+    materialised MLA's q/k 192, v 128 — C, and D's two passes — a spill is
+    reported); kernel A's
+    latent route (``flash_fwd_latent_sm90``, v k's prefix view or a tensor
+    of its own) and pair route (``flash_fwd_pair_sm90``, q/k 192, v 128),
+    which may not spill at all; and kernels C and D's float32 route
+    (``flash_bwd``) at 192 / 128, which may not spill either."""
     import ctypes
     fwd = build.load("flash_fwd_sm90").repro_flash_fwd_sm90_smem
     fwd.argtypes, fwd.restype = [ctypes.c_int], ctypes.c_int
     bwd = build.load("flash_bwd_sm90").repro_flash_bwd_sm90_smem
-    bwd.argtypes, bwd.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    bwd.argtypes, bwd.restype = [ctypes.c_int] * 3, ctypes.c_int
+    bwd32 = build.load("flash_bwd").repro_flash_bwd_smem
+    bwd32.argtypes, bwd32.restype = [ctypes.c_int] * 3, ctypes.c_int
     lat = build.load("flash_fwd_latent_sm90").repro_flash_fwd_latent_sm90_smem
     lat.argtypes, lat.restype = [ctypes.c_int], ctypes.c_int
     views = set()
@@ -3516,23 +3903,46 @@ def tensor_core_report(report):
         say(f"  ptxas A fwd pair wgmma 192/128: {regs} registers, {spill} "
             f"bytes spilled, {pair()} bytes dynamic shared memory")
         check(spill == 0, f"kernel {mangled} spills {spill} bytes")
-    seen = 0
+    seen, pairs = 0, []
     for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
         for mangled, (regs, spill) in sorted(
                 ptxas_kernels(report[lib]).items()):
-            d = int(mangled.split("ILi")[1].split("E")[0])
+            targs = _template_args(mangled)
+            d = targs[0]
+            dv = targs[1] if len(targs) > 1 else d
             if lib == "flash_fwd_sm90":
                 name, smem = "A fwd", fwd(d)
             else:
                 kernel = 0 if "dq_wgmma" in mangled else 1
-                name, smem = ("C dq", "D dkv")[kernel], bwd(kernel, d)
-            say(f"  ptxas {name} wgmma D={d}: {regs} registers, {spill} "
+                part = BWD_PARTS[targs[2]] if kernel else ""
+                name = ("C dq", "D dkv")[kernel] + part
+                smem = bwd(kernel, d, dv)
+            dims = f"D={d}" if dv == d else f"D={d}/{dv}"
+            say(f"  ptxas {name} wgmma {dims}: {regs} registers, {spill} "
                 f"bytes spilled, {smem} bytes dynamic shared memory")
+            # a spill at 192 / 128 is reported, not fatal: the bar of
+            # those kernels is correctness (phase 3), their speed phase 5's
             check(d != 128 or spill == 0, f"kernel {mangled} spills {spill} "
-                  f"bytes at D = 128")
+                  f"bytes at {dims}")
             seen += d == 128
+            pairs += [name] if dv != d else []
     check(seen == 3, "ptxas reported fewer than three D = 128 tensor-core "
           "kernels")
+    check(sorted(pairs) == ["C dq", "D dkv (dk pass)", "D dkv (dv pass)"],
+          f"ptxas reported the 192/128 tensor-core kernels {pairs}")
+    f32 = 0
+    for mangled, (regs, spill) in sorted(
+            ptxas_kernels(report["flash_bwd"]).items()):
+        d, dv = _template_args(mangled)[:2]
+        if dv == d:
+            continue
+        kernel = 0 if "dq_kernel" in mangled else 1
+        say(f"  ptxas {('C dq', 'D dkv')[kernel]} float32 D={d}/{dv}: "
+            f"{regs} registers, {spill} bytes spilled, "
+            f"{bwd32(kernel, d, dv)} bytes dynamic shared memory")
+        check(spill == 0, f"kernel {mangled} spills {spill} bytes")
+        f32 += 1
+    check(f32 == 2, f"ptxas reported {f32} float32 192/128 kernels")
 
 
 def bound(flops, nbytes, peak_flops):
@@ -3950,6 +4360,100 @@ def time_bwd(launches, seen, errs):
     return rows
 
 
+PAIR_BWD_DESIGN = ("bf16 on the tensor cores: wgmma m64n64k16, one "
+                   "warpgroup a block over 64-row q tiles (C) or 64-key "
+                   "tiles (D), swizzled tiles double-buffered by 16-byte "
+                   "cp.async (v read through its strides), ds into dq as "
+                   "two bf16 terms; D in two passes (dv, then dk) so that "
+                   "its accumulators fit the registers; float32: IEEE FMAs "
+                   "on the CUDA cores at <192, 128>")
+
+
+def time_pair_bwd(launches, seen, errs):
+    """Kernels C and D at materialised MLA's q/k 192, v 128 on phase 14's
+    own backward inputs (B 1, T 8192, 16 heads, bf16, causal, v the strided
+    view): device time (20 calls replayed as one CUDA graph) and event time
+    of each, its plain version's (the plain backward computing just its
+    part, head slice by head slice), SDPA's autograd backward of the pair on
+    the same tensors (the backend its dispatcher takes, named) and the
+    bound."""
+    (q, k, v, o, lse, do), kw = _moved(seen["bwd"], DEV)
+    B, T, H, D = q.shape
+    Dv = v.shape[-1]
+    scale = kw["scale"]
+    pl = _BwdPlan(q, k, v, o, lse, do, kw["mask"], kw.get("delta"),
+                  kw.get("q_segments"), kw.get("kv_segments"), True)
+    dev_ms = {"flash_bwd_dq": graph_ms(lambda: _launch_dq(pl, scale)),
+              "flash_bwd_dkv": graph_ms(lambda: _launch_dkv(pl, scale))}
+    ev_ms = {"flash_bwd_dq": cuda_ms(lambda: _launch_dq(pl, scale), reps=10,
+                                     warmup=2),
+             "flash_bwd_dkv": cuda_ms(lambda: _launch_dkv(pl, scale),
+                                      reps=10, warmup=2)}
+    slices = [_bwd_slice((q, k, v, o, lse, do), kw, sq, skv)
+              for sq, skv in _head_slices(q, k)]
+
+    def plain(only):
+        return lambda: [chunk_attn_bwd_ref(*a, **k2, only=only)
+                        for a, k2 in slices]
+    plain_ms = {"flash_bwd_dq": cuda_ms(plain("dq"), reps=3, warmup=1),
+                "flash_bwd_dkv": cuda_ms(plain("dkv"), reps=3, warmup=1)}
+    del pl, slices
+    _free()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    backend = _sdpa_backend(qt, kt, vt, is_causal=True, scale=scale)
+    out = _library(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale))
+    lib = None
+    if out is not None:
+        dot = do.transpose(1, 2).contiguous()
+        lib = _library(lambda: cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps=10, warmup=2))
+        del dot
+    if lib is None:
+        backend = f"none ({backend})"
+    del qt, kt, vt, out, q, k, v, o, lse, do
+    _free()
+    pairs = B * H * T * (T + 1) // 2
+    tk, tv = 2 * B * T * H * D, 2 * B * T * H * Dv   # one bf16 tensor each
+    stats = 4 * B * T * H                            # one float32 (B,T,H)
+    rows = []
+    for name, fl, nbytes, src_line in (
+            # C reads q, k, v, o, do, lse; writes dq and delta
+            ("flash_bwd_dq", 2.0 * (2 * D + Dv) * pairs,
+             3 * tk + 3 * tv + 2 * stats, 280),
+            # D reads q, k, v, do, lse, delta; writes dk and dv
+            ("flash_bwd_dkv", 2.0 * (2 * D + 2 * Dv) * pairs,
+             3 * tk + 3 * tv + 2 * stats, 322)):
+        b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
+        ms = dev_ms[name]
+        say(f"  {name} pair B{B} T{T} H{H} D{D}/{Dv} bf16 causal: device "
+            f"{ms:.4f} ms ({fl / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.4f} of "
+            f"the bound), event {ev_ms[name]:.4f} ms a call, plain "
+            f"{plain_ms[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{fl / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), max|Δ| vs plain "
+            f"{errs[name]:.3e}")
+        rows.append({"name": name + "_pair", "route": "cuda",
+                     "design": PAIR_BWD_DESIGN,
+                     "source":
+                         "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
+                     "float32_source":
+                         "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                     "replaces": f"src/repro/kernels/flash_attention.py:"
+                                 f"{src_line}",
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "event_ms": ev_ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_fraction": b_ms / ms,
+                     "library_ms": lib, "library_backend": backend,
+                     "library_covers": "flash_bwd_dq+flash_bwd_dkv"})
+    say(f"  pair C+D at T {T}: kernels {sum(dev_ms.values()):.4f} ms "
+        f"(device), plain {sum(plain_ms.values()):.4f} ms (each part on its "
+        f"own), SDPA autograd backward "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'} (backend {backend})")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3983,6 +4487,7 @@ def main():
     latent_checks()
     pair_checks()
     bwd_checks()
+    pair_bwd_checks()
     say("== phase 3c: kernels A, C and D under every plan step's mask")
     plan_step_checks()
 
@@ -4030,6 +4535,10 @@ def main():
         "(whole-prompt MLA prefill, dense latent-cache decode)")
     fs = fixed_slot(dk.pop("model"), dk.pop("params"))
     _free()
+    say(f"== phase 14: train deepseek-v2-lite-16b (MLA + MoE) at full width, "
+        f"{P14_LAYERS} of 27 layers")
+    tm = train_moe()
+    _free()
 
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
@@ -4038,14 +4547,19 @@ def main():
                 + me["launches"].get(k, 0) + dk["launches"].get(k, 0)
                 + fs["launches"].get(k, 0)
                 for k in res["launches"]}
+    # kernel A's pair route also trains (phase 14); C and D's one-D rows
+    # keep the llama paths' counts, their 192/128 rows phase 14's
+    launches["flash_fwd_pair"] += tm["launches"]["flash_fwd_pair"]
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
         f"long-context prefill (all ranks) {lg['launches']}, speculative "
         f"serving (runs 1-5) {sp['launches']}, qwen {qw['launches']}, "
         f"mesh engine (all ranks) {me['launches']}, deepseek "
-        f"{dk['launches']}, deepseek fixed-slot {fs['launches']}")
+        f"{dk['launches']}, deepseek fixed-slot {fs['launches']}, deepseek "
+        f"training (remat_aware and hf, 4 steps each) {tm['launches']}")
     rows = [time_flash(launches), time_latent(launches), time_pair(launches),
-            time_paged(launches), *time_bwd(launches, tr["seen"], errs)]
+            time_paged(launches), *time_bwd(launches, tr["seen"], errs),
+            *time_pair_bwd(tm["launches"], tm.pop("seen"), tm["errs"])]
     rows[0].update(time_flash_train(tr["seen"]))
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,7 +17,11 @@ as a ``torch.autograd.Function``: the forward runs all three and saves
 ``torch.enable_grad()``, takes their vector-Jacobian products with
 ``torch.autograd.grad``, and calls ``attn_bwd(qkv, o, lse, do)`` — never the
 attention forward.  Memory per layer: the layer input ``x`` plus
-``(o, lse)``.
+``(o, lse)``.  ``post`` may return a tuple of tensors — an MoE-family
+layer's ``(h, aux)``, its load-balance loss — and the layer then returns
+that tuple; the backward takes the cotangent of each output and the
+vector-Jacobian product of all of them at once (the recomputed ``post``
+routes the MoE again, on the same inputs).
 
 Policies (``ParallelConfig.remat``): ``remat_aware`` (the combinator),
 ``hf`` (``torch.utils.checkpoint`` around the plain layer, which recomputes
@@ -43,7 +47,7 @@ class _RematAware(torch.autograd.Function):
     """apply(stages, rebuild, n_params, h, *params, *aux): ``h`` is the
     hidden state (the only differentiable part of ``x``), ``aux`` the rest
     of ``x`` (rope tables, segment ids), ``params`` the layer's parameters
-    as flat tensors."""
+    as flat tensors.  Returns ``post``'s output: a tensor, or a tuple."""
 
     @staticmethod
     def forward(ctx, stages, rebuild, n_params, h, *flat):
@@ -58,7 +62,7 @@ class _RematAware(torch.autograd.Function):
         return y
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, *dys):
         pre, _, attn_bwd, post = ctx.stages
         h, o, lse, *leaves = ctx.saved_tensors
         with torch.enable_grad():
@@ -67,8 +71,14 @@ class _RematAware(torch.autograd.Function):
             params, x = ctx.rebuild(ps), (hd, *ctx.aux)
             od = o.detach().requires_grad_(True)
             y = post(params, x, od)
+            ys = y if isinstance(y, tuple) else (y,)
+            # an output that depends on no input (a dense layer's aux of 0)
+            # has no vector-Jacobian product to take
+            outs = [(t, d) for t, d in zip(ys, dys) if t.requires_grad]
             want = [hd, od] + [p for p in ps if p.requires_grad]
-            g_post = torch.autograd.grad(y, want, dy, allow_unused=True)
+            g_post = torch.autograd.grad([t for t, _ in outs],
+                                         want, [d for _, d in outs],
+                                         allow_unused=True)
             qkv = pre(params, x)
         dh, do = g_post[0], g_post[1]
         with torch.no_grad():
@@ -92,7 +102,7 @@ def remat_aware(pre: Callable, attn_fwd: Callable, attn_bwd: Callable,
                 q, k, v (later entries, e.g. segment ids, pass through)
       attn_fwd: qkv -> (o, lse)
       attn_bwd: (qkv, o, lse, do) -> (dq, dk, dv), from the saved stats
-      post:     (params, x, o) -> y
+      post:     (params, x, o) -> y, a tensor or a tuple of tensors
 
     ``x = (h, *aux)``: only ``h`` gets a gradient.
     """
@@ -108,7 +118,8 @@ def remat_aware(pre: Callable, attn_fwd: Callable, attn_bwd: Callable,
 
 
 def apply_policy(layer: Callable, policy: str) -> Callable:
-    """Wrap a plain ``layer(params, x) -> y`` by checkpoint policy: ``hf``
+    """Wrap a plain ``layer(params, x) -> y`` (a tensor or a tuple) by
+    checkpoint policy: ``hf``
     checkpoints it at the layer boundary (the attention forward is rerun in
     the backward); ``none`` stores everything.  ``remat_aware`` layers are
     built with :func:`remat_aware` instead."""

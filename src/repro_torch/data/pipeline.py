@@ -65,9 +65,9 @@ class SyntheticTokens:
         return tokens, labels, seg
 
     def batch(self, step: int) -> dict:
-        if self.cfg.arch_type != "dense":
-            raise ValueError(f"the port's pipeline feeds dense decoders, not "
-                             f"{self.cfg.arch_type!r}")
+        if self.cfg.arch_type not in ("dense", "moe"):
+            raise ValueError(f"the port's pipeline feeds dense and MoE "
+                             f"decoders, not {self.cfg.arch_type!r}")
         B, T = self.shape.global_batch, self.shape.seq_len
 
         rows, cols = self._shard(B, T)

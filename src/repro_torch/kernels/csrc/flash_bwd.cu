@@ -14,8 +14,10 @@
 //
 // Bound on the H100: operations.  C does 6·D FLOPs per unmasked (row, key)
 // pair (s = q·kᵀ, dp = do·vᵀ, dq += ds·k) and D does 8·D (s, dp, dv += pᵀ·do,
-// dk += dsᵀ·q), some 2,000 FLOP per byte at T 8192, far above the card's
-// ridge; in float32 outside the tensor cores the ceiling is 67 TFLOP/s.
+// dk += dsᵀ·q) — 2·(2·Dk + Dv) and 2·(2·Dk + 2·Dv) when v's head dim Dv
+// differs from q's and k's Dk — some 2,000 FLOP per byte at T 8192, far
+// above the card's ridge; in float32 outside the tensor cores the ceiling
+// is 67 TFLOP/s.
 // What the design does about the bound: no score, probability or ds tile
 // reaches device memory; the host tables skip every tile the mask cannot
 // reach (half of them, causally); the element-wise mask runs only on edge
@@ -42,8 +44,13 @@
 // Ragged Tq and Tk are masked at the edge: missing q rows carry lse =
 // NEG_INF, missing keys are masked.  A row whose lse is NEG_INF (nothing to
 // attend) gives p = 0, as the reference's `lse <= NEG_INF / 2` rule.
-// Shared memory at D = 128 is 150 KB (C) and 166 KB (D), above the 48 KB
-// default, so each launch raises the kernel's dynamic shared-memory limit.
+// The kernels are templated on <DK, DV>, the head dims of q / k and of v
+// (the reference's kernels take Dv != Dk): one head dim D of 32, 64 or 128
+// is <D, D>; materialised MLA (deepseek-v2-lite-16b's training path) is
+// <192, 128>, where v may be a strided view (read through its strides).
+// Shared memory at D = 128 is 150 KB (C) and 166 KB (D), at 192 / 128
+// 183 KB and 199 KB, above the 48 KB default, so each launch raises the
+// kernel's dynamic shared-memory limit.
 #include <cuda_runtime.h>
 
 #include "flash_bwd_common.cuh"
@@ -59,18 +66,17 @@ constexpr int BR = 64;   // q rows per tile
 constexpr int BC = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) *
-             (2 * BR * (D + 1) + 2 * BC * (D + 1) + BR * (BC + 1) + 2 * BR) +
+  return sizeof(float) * (BR * (DK + 1) + BR * (DV + 1) + BC * (DK + 1) +
+                          BC * (DV + 1) + BR * (BC + 1) + 2 * BR) +
          sizeof(int) * (BR + BC);
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-             (2 * BC * (D + 1) + 2 * BR * (D + 1) + 2 * BC * (BR + 1) +
-              2 * BR) +
+  return sizeof(float) * (BC * (DK + 1) + BC * (DV + 1) + BR * (DK + 1) +
+                          BR * (DV + 1) + 2 * BC * (BR + 1) + 2 * BR) +
          sizeof(int) * (BR + BC);
 }
 
@@ -89,17 +95,19 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base,
 
 // ---------------------------------------------------------------- kernel C
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
-  constexpr int DP = D + 1;
+  constexpr int DPK = DK + 1;  // padded row of a q or k tile
+  constexpr int DPV = DV + 1;  // padded row of a do or v tile
+  constexpr int DM = DK < DV ? DK : DV;
   constexpr int PP = BC + 1;
-  constexpr int DV = D / 16;
+  constexpr int NCK = DK / 16;  // dq columns a thread
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sDO = sQ + BR * DP;
-  float* sK = sDO + BR * DP;
-  float* sV = sK + BC * DP;
-  float* sS = sV + BC * DP;  // ds tile
+  float* sDO = sQ + BR * DPK;
+  float* sK = sDO + BR * DPV;
+  float* sV = sK + BC * DPK;
+  float* sS = sV + BC * DPV;  // ds tile
   float* sL = sS + BR * PP;
   float* sDl = sL + BR;
   int* sQs = reinterpret_cast<int*>(sDl + BR);
@@ -120,8 +128,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  load_tile<D>(sQ, qb, a.q_st, q0, a.Tq);
-  load_tile<D>(sDO, dob, a.do_st, q0, a.Tq);
+  load_tile<DK>(sQ, qb, a.q_st, q0, a.Tq);
+  load_tile<DV>(sDO, dob, a.do_st, q0, a.Tq);
   if (tid < BR) {
     const int t = q0 + tid;
     const long long si = ((long long)b * a.Tq + t) * a.Hq + h;
@@ -138,8 +146,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
       const int t = q0 + i;
       float acc = 0.f;
       if (t < a.Tq)
-        for (int d = lane; d < D; d += 32)
-          acc = fmaf(ob[t * a.o_st + d], sDO[i * DP + d], acc);
+        for (int d = lane; d < DV; d += 32)
+          acc = fmaf(ob[t * a.o_st + d], sDO[i * DPV + d], acc);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -150,17 +158,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
     }
   }
 
-  float acc[4][DV];
+  float acc[4][NCK];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-    for (int dd = 0; dd < DV; ++dd) acc[ii][dd] = 0.f;
+    for (int dd = 0; dd < NCK; ++dd) acc[ii][dd] = 0.f;
 
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * BC;
     __syncthreads();  // the previous tile's sK / sV / sS are consumed
-    load_tile<D>(sK, kb, a.k_st, k0, a.Tk);
-    load_tile<D>(sV, vb, a.v_st, k0, a.Tk);
+    load_tile<DK>(sK, kb, a.k_st, k0, a.Tk);
+    load_tile<DV>(sV, vb, a.v_st, k0, a.Tk);
     if (a.has_seg && tid < BC) {
       const int t = k0 + tid;
       sKs[tid] = t < a.Tk ? a.kseg[b * a.ks_sb + t] : -2;
@@ -173,17 +181,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[ii][jj] = dp[ii][jj] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DM; ++d) {
       float qv[4], gv[4], kv[4], vv[4];
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) {
-        qv[ii] = sQ[(rg * 4 + ii) * DP + d];
-        gv[ii] = sDO[(rg * 4 + ii) * DP + d];
+        qv[ii] = sQ[(rg * 4 + ii) * DPK + d];
+        gv[ii] = sDO[(rg * 4 + ii) * DPV + d];
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        kv[jj] = sK[(cl + 16 * jj) * DP + d];
-        vv[jj] = sV[(cl + 16 * jj) * DP + d];
+        kv[jj] = sK[(cl + 16 * jj) * DPK + d];
+        vv[jj] = sV[(cl + 16 * jj) * DPV + d];
       }
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
@@ -193,6 +201,23 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
           dp[ii][jj] = fmaf(gv[ii], vv[jj], dp[ii][jj]);
         }
     }
+    // the rest of the wider head dim (none when DK == DV)
+#pragma unroll 4
+    for (int d = DM; d < DK; ++d)
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          s[ii][jj] = fmaf(sQ[(rg * 4 + ii) * DPK + d],
+                           sK[(cl + 16 * jj) * DPK + d], s[ii][jj]);
+#pragma unroll 4
+    for (int d = DM; d < DV; ++d)
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          dp[ii][jj] = fmaf(sDO[(rg * 4 + ii) * DPV + d],
+                            sV[(cl + 16 * jj) * DPV + d], dp[ii][jj]);
 
     const bool edge = a.masked && (j < ilo || j > ihi);
 #pragma unroll
@@ -216,14 +241,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
 
 #pragma unroll 4
     for (int jj = 0; jj < BC; ++jj) {
-      float kv[DV];
+      float kv[NCK];
 #pragma unroll
-      for (int dd = 0; dd < DV; ++dd) kv[dd] = sK[jj * DP + cl + 16 * dd];
+      for (int dd = 0; dd < NCK; ++dd) kv[dd] = sK[jj * DPK + cl + 16 * dd];
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) {
         const float ds = sS[(rg * 4 + ii) * PP + jj];
 #pragma unroll
-        for (int dd = 0; dd < DV; ++dd)
+        for (int dd = 0; dd < NCK; ++dd)
           acc[ii][dd] = fmaf(ds, kv[dd], acc[ii][dd]);
       }
     }
@@ -236,23 +261,26 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdParams a) {
     float* out =
         static_cast<float*>(a.dq) + b * a.dq_sb + t * a.dq_st + h * a.dq_sh;
 #pragma unroll
-    for (int dd = 0; dd < DV; ++dd) out[cl + 16 * dd] = acc[ii][dd];
+    for (int dd = 0; dd < NCK; ++dd) out[cl + 16 * dd] = acc[ii][dd];
   }
 }
 
 // ---------------------------------------------------------------- kernel D
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
-  constexpr int DP = D + 1;
+  constexpr int DPK = DK + 1;
+  constexpr int DPV = DV + 1;
+  constexpr int DM = DK < DV ? DK : DV;
   constexpr int PP = BR + 1;
-  constexpr int DV = D / 16;
+  constexpr int NCK = DK / 16;  // dk columns a thread
+  constexpr int NCV = DV / 16;  // dv columns a thread
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BC * DP;
-  float* sQ = sV + BC * DP;
-  float* sDO = sQ + BR * DP;
-  float* sP = sDO + BR * DP;   // p tile, key rows × q columns
+  float* sV = sK + BC * DPK;
+  float* sQ = sV + BC * DPV;
+  float* sDO = sQ + BR * DPK;
+  float* sP = sDO + BR * DPV;  // p tile, key rows × q columns
   float* sDS = sP + BC * PP;   // ds tile, key rows × q columns
   float* sL = sDS + BC * PP;
   float* sDl = sL + BR;
@@ -268,18 +296,21 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
 
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  load_tile<D>(sK, kb, a.k_st, k0, a.Tk);
-  load_tile<D>(sV, vb, a.v_st, k0, a.Tk);
+  load_tile<DK>(sK, kb, a.k_st, k0, a.Tk);
+  load_tile<DV>(sV, vb, a.v_st, k0, a.Tk);
   if (a.has_seg && tid < BC) {
     const int t = k0 + tid;
     sKs[tid] = t < a.Tk ? a.kseg[b * a.ks_sb + t] : -2;
   }
 
-  float dk[4][DV], dv[4][DV];
+  float dk[4][NCK], dv[4][NCV];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+  for (int ii = 0; ii < 4; ++ii) {
 #pragma unroll
-    for (int dd = 0; dd < DV; ++dd) dk[ii][dd] = dv[ii][dd] = 0.f;
+    for (int dd = 0; dd < NCK; ++dd) dk[ii][dd] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < NCV; ++dd) dv[ii][dd] = 0.f;
+  }
 
   for (int hh = 0; hh < a.group; ++hh) {
     const int h = hk * a.group + hh;
@@ -289,8 +320,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
     for (int i = qlo; i <= qhi; ++i) {
       const int q0 = i * BR;
       __syncthreads();  // the previous q tile's sQ / sDO / sP / sDS consumed
-      load_tile<D>(sQ, qb, a.q_st, q0, a.Tq);
-      load_tile<D>(sDO, dob, a.do_st, q0, a.Tq);
+      load_tile<DK>(sQ, qb, a.q_st, q0, a.Tq);
+      load_tile<DV>(sDO, dob, a.do_st, q0, a.Tq);
       if (tid < BR) {
         const int t = q0 + tid;
         const long long si = ((long long)b * a.Tq + t) * a.Hq + h;
@@ -306,17 +337,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) s[ii][jj] = dp[ii][jj] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DM; ++d) {
         float kv[4], vv[4], qv[4], gv[4];
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
-          kv[ii] = sK[(rg * 4 + ii) * DP + d];
-          vv[ii] = sV[(rg * 4 + ii) * DP + d];
+          kv[ii] = sK[(rg * 4 + ii) * DPK + d];
+          vv[ii] = sV[(rg * 4 + ii) * DPV + d];
         }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
-          qv[jj] = sQ[(cl + 16 * jj) * DP + d];
-          gv[jj] = sDO[(cl + 16 * jj) * DP + d];
+          qv[jj] = sQ[(cl + 16 * jj) * DPK + d];
+          gv[jj] = sDO[(cl + 16 * jj) * DPV + d];
         }
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii)
@@ -326,6 +357,23 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
             dp[ii][jj] = fmaf(vv[ii], gv[jj], dp[ii][jj]);
           }
       }
+      // the rest of the wider head dim (none when DK == DV)
+#pragma unroll 4
+      for (int d = DM; d < DK; ++d)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            s[ii][jj] = fmaf(sK[(rg * 4 + ii) * DPK + d],
+                             sQ[(cl + 16 * jj) * DPK + d], s[ii][jj]);
+#pragma unroll 4
+      for (int d = DM; d < DV; ++d)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            dp[ii][jj] = fmaf(sV[(rg * 4 + ii) * DPV + d],
+                              sDO[(cl + 16 * jj) * DPV + d], dp[ii][jj]);
 
       // interior tiles (every pair attends) come from the forward's table
       const bool edge =
@@ -352,21 +400,21 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
 
 #pragma unroll 4
       for (int qc = 0; qc < BR; ++qc) {
-        float qv[DV], gv[DV];
+        float qv[NCK], gv[NCV];
 #pragma unroll
-        for (int dd = 0; dd < DV; ++dd) {
-          qv[dd] = sQ[qc * DP + cl + 16 * dd];
-          gv[dd] = sDO[qc * DP + cl + 16 * dd];
-        }
+        for (int dd = 0; dd < NCK; ++dd) qv[dd] = sQ[qc * DPK + cl + 16 * dd];
+#pragma unroll
+        for (int dd = 0; dd < NCV; ++dd) gv[dd] = sDO[qc * DPV + cl + 16 * dd];
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
           const float p = sP[(rg * 4 + ii) * PP + qc];
           const float ds = sDS[(rg * 4 + ii) * PP + qc];
 #pragma unroll
-          for (int dd = 0; dd < DV; ++dd) {
+          for (int dd = 0; dd < NCV; ++dd)
             dv[ii][dd] = fmaf(p, gv[dd], dv[ii][dd]);
+#pragma unroll
+          for (int dd = 0; dd < NCK; ++dd)
             dk[ii][dd] = fmaf(ds, qv[dd], dk[ii][dd]);
-          }
         }
       }
     }
@@ -381,52 +429,57 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdParams a) {
     float* vo =
         static_cast<float*>(a.dv) + b * a.dv_sb + t * a.dv_st + hk * a.dv_sh;
 #pragma unroll
-    for (int dd = 0; dd < DV; ++dd) {
-      ko[cl + 16 * dd] = dk[ii][dd];
-      vo[cl + 16 * dd] = dv[ii][dd];
-    }
+    for (int dd = 0; dd < NCK; ++dd) ko[cl + 16 * dd] = dk[ii][dd];
+#pragma unroll
+    for (int dd = 0; dd < NCV; ++dd) vo[cl + 16 * dd] = dv[ii][dd];
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_dq(const BwdParams& p, int nq, int B, cudaStream_t s) {
-  const size_t smem = dq_smem_bytes<D>();
+  const size_t smem = dq_smem_bytes<DK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<D><<<dim3(nq, p.Hq, B), NT, smem, s>>>(p);
+  flash_bwd_dq_kernel<DK, DV><<<dim3(nq, p.Hq, B), NT, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_dkv(const BwdParams& p, int nk, int Hkv, int B,
                        cudaStream_t s) {
-  const size_t smem = dkv_smem_bytes<D>();
+  const size_t smem = dkv_smem_bytes<DK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dkv_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<D><<<dim3(nk, Hkv, B), NT, smem, s>>>(p);
+  flash_bwd_dkv_kernel<DK, DV><<<dim3(nk, Hkv, B), NT, smem, s>>>(p);
   return cudaGetLastError();
 }
 
 cudaError_t dq_d(const BwdParams& p, const Shape& sh, cudaStream_t s) {
+  if (sh.D == 192 && sh.Dv == 128)
+    return launch_dq<192, 128>(p, sh.nq, sh.B, s);
+  if (sh.Dv != sh.D) return cudaErrorInvalidValue;
   switch (sh.D) {
-    case 32: return launch_dq<32>(p, sh.nq, sh.B, s);
-    case 64: return launch_dq<64>(p, sh.nq, sh.B, s);
-    case 128: return launch_dq<128>(p, sh.nq, sh.B, s);
+    case 32: return launch_dq<32, 32>(p, sh.nq, sh.B, s);
+    case 64: return launch_dq<64, 64>(p, sh.nq, sh.B, s);
+    case 128: return launch_dq<128, 128>(p, sh.nq, sh.B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dkv_d(const BwdParams& p, const Shape& sh, cudaStream_t s) {
+  if (sh.D == 192 && sh.Dv == 128)
+    return launch_dkv<192, 128>(p, sh.nk, sh.Hkv, sh.B, s);
+  if (sh.Dv != sh.D) return cudaErrorInvalidValue;
   switch (sh.D) {
-    case 32: return launch_dkv<32>(p, sh.nk, sh.Hkv, sh.B, s);
-    case 64: return launch_dkv<64>(p, sh.nk, sh.Hkv, sh.B, s);
-    case 128: return launch_dkv<128>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 32: return launch_dkv<32, 32>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 64: return launch_dkv<64, 64>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 128: return launch_dkv<128, 128>(p, sh.nk, sh.Hkv, sh.B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -464,4 +517,22 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                           scale, &sh);
   if (sh.dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dkv_d(p, sh, static_cast<cudaStream_t>(stream)));
+}
+
+// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1) at head dims
+// (dk, dv), in bytes; 0 for a pair the kernels do not take.
+extern "C" int repro_flash_bwd_smem(int kernel, int dk, int dv) {
+  if (dk == 192 && dv == 128)
+    return static_cast<int>(kernel ? dkv_smem_bytes<192, 128>()
+                                   : dq_smem_bytes<192, 128>());
+  if (dk != dv) return 0;
+  switch (dk) {
+    case 32: return static_cast<int>(kernel ? dkv_smem_bytes<32, 32>()
+                                            : dq_smem_bytes<32, 32>());
+    case 64: return static_cast<int>(kernel ? dkv_smem_bytes<64, 64>()
+                                            : dq_smem_bytes<64, 64>());
+    case 128: return static_cast<int>(kernel ? dkv_smem_bytes<128, 128>()
+                                             : dq_smem_bytes<128, 128>());
+    default: return 0;
+  }
 }

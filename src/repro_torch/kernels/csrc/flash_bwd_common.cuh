@@ -51,14 +51,17 @@ __device__ __forceinline__ bool allowed(const BwdParams& a, int qp, int kp,
   return ok;
 }
 
+// D is the head dim of q and k (and dq, dk), Dv that of v and o (and do,
+// dv); one-D calls have Dv = D.
 struct Shape {
-  int B, Hkv, D, dtype, nq, nk;
+  int B, Hkv, D, Dv, dtype, nq, nk;
 };
 
 // ia (int64): B, Tq, Tk, Hq, Hkv, D, dtype (0 f32, 1 bf16), nq, nk,
 //   strides (b, t, h) of q, k, v, o, do, dq, dk, dv,
 //   causal, window, prefix_len, q_offset, kv_offset, has_seg,
-//   q-segment batch stride, kv-segment batch stride, masked, compute_delta.
+//   q-segment batch stride, kv-segment batch stride, masked, compute_delta,
+//   Dv.
 inline Shape parse(const long long* ia, BwdParams* p) {
   Shape sh;
   sh.B = static_cast<int>(ia[0]);
@@ -88,6 +91,7 @@ inline Shape parse(const long long* ia, BwdParams* p) {
   p->ks_sb = ia[40];
   p->masked = static_cast<int>(ia[41]);
   p->compute_delta = static_cast<int>(ia[42]);
+  sh.Dv = static_cast<int>(ia[43]);
   return sh;
 }
 

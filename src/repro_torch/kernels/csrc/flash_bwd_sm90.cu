@@ -48,6 +48,21 @@
 //      are summed over the group on chip and written once.  With sᵀ and
 //      dpᵀ they fill the 255 registers a thread that two blocks an SM
 //      allow, without spilling (chip_smoke.py's build phase checks it).
+//   Materialised MLA (q/k 192, v 128: deepseek-v2-lite-16b's training
+//   path).  The kernels are templated on <DK, DV>, the head dims of q / k
+//   and of v; one head dim D is <D, D>.  At 192 / 128 a q or k tile is 3
+//   slabs and a do or v tile 2, 120 KB of tiles a block (one block an SM).
+//   C keeps dq (3 × 32 float32 accumulators a thread) beside s and dp.
+//   D's accumulators would not fit: dk (96) + dv (64) + sᵀ and dpᵀ (64) is
+//   224 of the 255 registers a thread may hold, before addresses and the
+//   packed pᵀ / dsᵀ fragments.  So at 192 / 128 D runs as two passes over
+//   the same grid, launched back to back by one call: the first computes
+//   sᵀ and dv (dpᵀ, dsᵀ and dk never exist; v and delta are not read), the
+//   second sᵀ, dpᵀ and dk.  sᵀ is computed twice, a third more tensor-core
+//   work for D than one pass would do (5 products of 64 × 64 × 192 or
+//   × 128 against 4).  v is read through its strides: it is the last 128
+//   columns of the (…, 256) up-projection it shares with k_nope, rows 16
+//   × 256 elements apart, each row's 16-byte groups copied as they lie.
 //   No p or ds tile goes through shared or device memory, and there are
 //   no atomics: each run gives the same bits.  The element-wise mask runs
 //   on edge tiles only (outside the table's interior range, or past a
@@ -88,29 +103,46 @@ __device__ __forceinline__ float dot8(const uint4& x, const uint4& y,
   return acc;
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 6 * slabs<D>() * kSlab + 5 * kTile * 4 + 1024;
+// Which of D's outputs a launch computes: both (one head dim), or one of
+// the two passes it takes at 192 / 128.
+enum Part { kBoth = 0, kDvOnly = 1, kDkOnly = 2 };
+
+// Each block holds one q / k-sized and one do / v-sized tile, and two
+// buffers of each of the other pair: 3 tiles of each size.
+// x, opaque to the compiler: a resident tile's address read through it in
+// each sweep step keeps the step's operand descriptors (2 registers each,
+// 20 of them for q / do at 192 / 128) from being hoisted out of the loop
+// and held in registers across it; recomputing them is a few integer adds.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
-template <int D>
+template <int DK, int DV>
+constexpr size_t dq_smem_bytes() {
+  return 3 * (slabs<DK>() + slabs<DV>()) * kSlab + 5 * kTile * 4 + 1024;
+}
+
+template <int DK, int DV>
 constexpr size_t dkv_smem_bytes() {
-  return 6 * slabs<D>() * kSlab + 7 * kTile * 4 + 1024;
+  return 3 * (slabs<DK>() + slabs<DV>()) * kSlab + 7 * kTile * 4 + 1024;
 }
 
 // ---------------------------------------------------------------- kernel C
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dq_wgmma_kernel(const BwdParams a) {
-  constexpr int NC = slabs<D>();
-  constexpr int KS = 4 * NC;             // k16 steps over the head dim
-  constexpr uint32_t TILE = NC * kSlab;  // bytes of one tile
+  constexpr int NC = slabs<DK>();        // dq's 64-column slabs
+  constexpr int KS = 4 * NC;             // k16 steps over q·kᵀ's depth
+  constexpr int KSV = 4 * slabs<DV>();   // k16 steps over do·vᵀ's depth
+  constexpr uint32_t TK = NC * kSlab;              // bytes of a q / k tile
+  constexpr uint32_t TV = slabs<DV>() * kSlab;     // of a do / v tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  const uint32_t sQ = smem_u32(smem), sDO = sQ + TILE;
-  const uint32_t sK = sDO + TILE, sV = sK + 2 * TILE;  // two buffers each
-  float* sL = reinterpret_cast<float*>(smem + 6 * TILE);
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + TK;
+  const uint32_t sK = sDO + TV, sV = sK + 2 * TK;  // two buffers each
+  float* sL = reinterpret_cast<float*>(smem + 3 * (TK + TV));
   float* sDl = sL + kTile;
   int* sQs = reinterpret_cast<int*>(sDl + kTile);
   int* sKs = sQs + kTile;  // two buffers
@@ -129,10 +161,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
   auto load_kv = [&](int j, int buf) {
-    load_tile<D, kTile, kThreads>(sK + buf * TILE, kb, a.k_st, j * kTile,
-                                  a.Tk, threadIdx.x);
-    load_tile<D, kTile, kThreads>(sV + buf * TILE, vb, a.v_st, j * kTile,
-                                  a.Tk, threadIdx.x);
+    load_tile<DK, kTile, kThreads>(sK + buf * TK, kb, a.k_st, j * kTile,
+                                   a.Tk, threadIdx.x);
+    load_tile<DV, kTile, kThreads>(sV + buf * TV, vb, a.v_st, j * kTile,
+                                   a.Tk, threadIdx.x);
     if (a.has_seg && tid < kTile) {
       const int t = j * kTile + tid;
       cp_async4(sKs + buf * kTile + tid,
@@ -140,9 +172,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   };
 
-  load_tile<D, kTile, kThreads>(sQ, qb, a.q_st, q0, a.Tq, threadIdx.x);
-  load_tile<D, kTile, kThreads>(sDO, dob, a.do_st, q0, a.Tq,
-                                threadIdx.x);
+  load_tile<DK, kTile, kThreads>(sQ, qb, a.q_st, q0, a.Tq, threadIdx.x);
+  load_tile<DV, kTile, kThreads>(sDO, dob, a.do_st, q0, a.Tq,
+                                 threadIdx.x);
   cp_async_commit();
   if (lo <= hi) load_kv(lo, 0);
   cp_async_commit();
@@ -160,10 +192,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int t = q0 + row;
     float acc = 0.f;
     if (t < a.Tq) {
-      const bf16* orow = ob + t * a.o_st + half * (D / 2);
-      const bf16* grow = dob + t * a.do_st + half * (D / 2);
+      const bf16* orow = ob + t * a.o_st + half * (DV / 2);
+      const bf16* grow = dob + t * a.do_st + half * (DV / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 8)
+      for (int c = 0; c < DV / 2; c += 8)
         acc = dot8(*reinterpret_cast<const uint4*>(orow + c),
                    *reinterpret_cast<const uint4*>(grow + c), acc);
     }
@@ -204,7 +236,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();  // everything but the tile just requested
     fence_proxy_async();
     __syncthreads();
-    const uint32_t kt = sK + buf * TILE, vt = sV + buf * TILE;
+    const uint32_t kt = sK + buf * TK, vt = sV + buf * TV;
+    const uint32_t q_at = opaque(sQ), g_at = opaque(sDO);
 
     float s[32], dp[32];
 #pragma unroll
@@ -212,11 +245,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
-      mma_ss(s, kmajor<kTile>(sQ, ks), kmajor<kTile>(kt, ks));
+      mma_ss(s, kmajor<kTile>(q_at, ks), kmajor<kTile>(kt, ks));
     wg_commit();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      mma_ss(dp, kmajor<kTile>(sDO, ks), kmajor<kTile>(vt, ks));
+    for (int ks = 0; ks < KSV; ++ks)
+      mma_ss(dp, kmajor<kTile>(g_at, ks), kmajor<kTile>(vt, ks));
     wg_commit();
     wg_wait<1>();
     fence_regs(s);
@@ -287,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < 32; i += 2) {
       const int t = q0 + rr[(i >> 1) & 1];
       const int col = 64 * c + 8 * (i >> 2) + c0;
-      if (t < a.Tq && col < D)
+      if (t < a.Tq && col < DK)
         *reinterpret_cast<__nv_bfloat162*>(out + t * a.dq_st + col) =
             __floats2bfloat162_rn(acc[c][i], acc[c][i + 1]);
     }
@@ -295,17 +328,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ---------------------------------------------------------------- kernel D
 
-template <int D>
+template <int DK, int DV, int PART>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dkv_wgmma_kernel(const BwdParams a) {
-  constexpr int NC = slabs<D>();
+  constexpr bool WANT_DV = PART != kDkOnly, WANT_DK = PART != kDvOnly;
+  constexpr int NC = slabs<DK>();        // dk's 64-column slabs
+  constexpr int NCV = slabs<DV>();       // dv's
   constexpr int KS = 4 * NC;
-  constexpr uint32_t TILE = NC * kSlab;
+  constexpr int KSV = 4 * NCV;
+  constexpr uint32_t TK = NC * kSlab, TV = NCV * kSlab;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  const uint32_t sK = smem_u32(smem), sV = sK + TILE;
-  const uint32_t sQ = sV + TILE, sDO = sQ + 2 * TILE;  // two buffers each
-  float* sL = reinterpret_cast<float*>(smem + 6 * TILE);  // two buffers
+  const uint32_t sK = smem_u32(smem), sV = sK + TK;
+  const uint32_t sQ = sV + TV, sDO = sQ + 2 * TK;  // two buffers each
+  float* sL = reinterpret_cast<float*>(smem + 3 * (TK + TV));  // two buffers
   float* sDl = sL + 2 * kTile;                            // two buffers
   int* sQs = reinterpret_cast<int*>(sDl + 2 * kTile);     // two buffers
   int* sKs = sQs + 2 * kTile;
@@ -323,10 +359,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto load_q = [&](int n, int buf) {
     const int h = hk * a.group + n / nqt;
     const int q0 = (qlo + n % nqt) * kTile;
-    load_tile<D, kTile, kThreads>(sQ + buf * TILE,
+    load_tile<DK, kTile, kThreads>(sQ + buf * TK,
                  static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh,
                  a.q_st, q0, a.Tq, threadIdx.x);
-    load_tile<D, kTile, kThreads>(sDO + buf * TILE,
+    load_tile<DV, kTile, kThreads>(sDO + buf * TV,
                  static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh,
                  a.do_st, q0, a.Tq, threadIdx.x);
     if (tid < kTile) {
@@ -334,15 +370,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       const bool ok = t < a.Tq;
       const long long si = ((long long)b * a.Tq + (ok ? t : 0)) * a.Hq + h;
       cp_async4(sL + buf * kTile + tid, a.lse + si, ok);
-      cp_async4(sDl + buf * kTile + tid, a.delta + si, ok);
+      if (WANT_DK) cp_async4(sDl + buf * kTile + tid, a.delta + si, ok);
       if (a.has_seg)
         cp_async4(sQs + buf * kTile + tid,
                   a.qseg + b * a.qs_sb + (ok ? t : 0), ok);
     }
   };
 
-  load_tile<D, kTile, kThreads>(sK, kb, a.k_st, k0, a.Tk, threadIdx.x);
-  load_tile<D, kTile, kThreads>(sV, vb, a.v_st, k0, a.Tk, threadIdx.x);
+  load_tile<DK, kTile, kThreads>(sK, kb, a.k_st, k0, a.Tk, threadIdx.x);
+  if (WANT_DK)
+    load_tile<DV, kTile, kThreads>(sV, vb, a.v_st, k0, a.Tk, threadIdx.x);
   if (a.has_seg && tid < kTile) {
     const bool ok = k0 + tid < a.Tk;
     cp_async4(sKs + tid, a.kseg + b * a.ks_sb + (ok ? k0 + tid : 0), ok);
@@ -356,11 +393,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int c0 = 2 * (lane & 3);
   const float scale2 = a.scale * kLog2e;
 
-  float dk[NC][32], dv[NC][32];
+  float dk[NC][32], dv[NCV][32];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+    for (int i = 0; i < 32; ++i) dk[c][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCV; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv[c][i] = 0.f;
 
   for (int n = 0; n < items; ++n) {
     const int buf = n & 1;
@@ -371,7 +412,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();
     fence_proxy_async();
     __syncthreads();
-    const uint32_t qt = sQ + buf * TILE, gt = sDO + buf * TILE;
+    const uint32_t qt = sQ + buf * TK, gt = sDO + buf * TV;
+    const uint32_t k_at = opaque(sK), v_at = opaque(sV);
     const float* L = sL + buf * kTile;
     const float* Dl = sDl + buf * kTile;
     const int* Qs = sQs + buf * kTile;
@@ -382,13 +424,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
-      mma_ss(st, kmajor<kTile>(sK, ks), kmajor<kTile>(qt, ks));
+      mma_ss(st, kmajor<kTile>(k_at, ks), kmajor<kTile>(qt, ks));
     wg_commit();
+    if constexpr (WANT_DK) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      mma_ss(dpt, kmajor<kTile>(sV, ks), kmajor<kTile>(gt, ks));
-    wg_commit();
-    wg_wait<1>();
+      for (int ks = 0; ks < KSV; ++ks)
+        mma_ss(dpt, kmajor<kTile>(v_at, ks), kmajor<kTile>(gt, ks));
+      wg_commit();
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
     fence_regs(st);
 
     // interior tiles (every pair attends) come from the forward's table
@@ -410,8 +456,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       st[i] = ok ? exp2_approx(fmaf(st[i], scale2, -Lq * kLog2e)) : 0.f;
     }
-    wg_wait<0>();
-    fence_regs(dpt);
+    if constexpr (WANT_DK) {
+      wg_wait<0>();
+      fence_regs(dpt);
+    }
 
     // pᵀ and dsᵀ = pᵀ·(dpᵀ − delta)·scale in bf16: the A fragments of
     // dv += pᵀ·do and dk += dsᵀ·q
@@ -421,78 +469,99 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
         const int i = 8 * kk + 2 * f;
-        const float2 d =
-            *reinterpret_cast<const float2*>(Dl + 8 * (i >> 2) + c0);
-        pa[kk][f] = pack_bf16(st[i], st[i + 1]);
-        da[kk][f] = pack_bf16(st[i] * (dpt[i] - d.x) * a.scale,
-                              st[i + 1] * (dpt[i + 1] - d.y) * a.scale);
+        if constexpr (WANT_DV) pa[kk][f] = pack_bf16(st[i], st[i + 1]);
+        if constexpr (WANT_DK) {
+          const float2 d =
+              *reinterpret_cast<const float2*>(Dl + 8 * (i >> 2) + c0);
+          da[kk][f] = pack_bf16(st[i] * (dpt[i] - d.x) * a.scale,
+                                st[i + 1] * (dpt[i + 1] - d.y) * a.scale);
+        }
       }
     wg_fence();
+    if constexpr (WANT_DV) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NCV; ++c)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dv[c], pa[kk], mnmajor<kTile>(gt, c, kk));
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs(dv[c], pa[kk], mnmajor<kTile>(gt, c, kk));
+    }
+    if constexpr (WANT_DK) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dk[c], da[kk], mnmajor<kTile>(qt, c, kk));
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs(dk[c], da[kk], mnmajor<kTile>(qt, c, kk));
+    }
     wg_commit();
     wg_wait<0>();
+    if constexpr (WANT_DK) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      fence_regs(dk[c]);
-      fence_regs(dv[c]);
+      for (int c = 0; c < NC; ++c) fence_regs(dk[c]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(da[kk]);
     }
+    if constexpr (WANT_DV) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      fence_regs(pa[kk]);
-      fence_regs(da[kk]);
+      for (int c = 0; c < NCV; ++c) fence_regs(dv[c]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
     }
     __syncthreads();  // the buffers are free for the item after next
   }
   cp_async_wait<0>();
 
-  bf16* ko = static_cast<bf16*>(a.dk) + b * a.dk_sb + hk * a.dk_sh;
-  bf16* vo = static_cast<bf16*>(a.dv) + b * a.dv_sb + hk * a.dv_sh;
+  if constexpr (WANT_DK) {
+    bf16* ko = static_cast<bf16*>(a.dk) + b * a.dk_sb + hk * a.dk_sh;
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int t = k0 + kr[(i >> 1) & 1];
-      const int col = 64 * c + 8 * (i >> 2) + c0;
-      if (t < a.Tk && col < D) {
-        *reinterpret_cast<__nv_bfloat162*>(ko + t * a.dk_st + col) =
-            __floats2bfloat162_rn(dk[c][i], dk[c][i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + col) =
-            __floats2bfloat162_rn(dv[c][i], dv[c][i + 1]);
+      for (int i = 0; i < 32; i += 2) {
+        const int t = k0 + kr[(i >> 1) & 1];
+        const int col = 64 * c + 8 * (i >> 2) + c0;
+        if (t < a.Tk && col < DK)
+          *reinterpret_cast<__nv_bfloat162*>(ko + t * a.dk_st + col) =
+              __floats2bfloat162_rn(dk[c][i], dk[c][i + 1]);
       }
-    }
+  }
+  if constexpr (WANT_DV) {
+    bf16* vo = static_cast<bf16*>(a.dv) + b * a.dv_sb + hk * a.dv_sh;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int t = k0 + kr[(i >> 1) & 1];
+        const int col = 64 * c + 8 * (i >> 2) + c0;
+        if (t < a.Tk && col < DV)
+          *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + col) =
+              __floats2bfloat162_rn(dv[c][i], dv[c][i + 1]);
+      }
+  }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_dq(const BwdParams& p, int nq, int B, cudaStream_t s) {
-  const size_t smem = dq_smem_bytes<D>();
+  const size_t smem = dq_smem_bytes<DK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>,
+      flash_bwd_dq_wgmma_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_wgmma_kernel<D><<<dim3(p.Hq, nq, B), kThreads, smem, s>>>(p);
+  flash_bwd_dq_wgmma_kernel<DK, DV>
+      <<<dim3(p.Hq, nq, B), kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV, int PART>
 cudaError_t launch_dkv(const BwdParams& p, int nk, int Hkv, int B,
                        cudaStream_t s) {
-  const size_t smem = dkv_smem_bytes<D>();
+  const size_t smem = dkv_smem_bytes<DK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>,
+      flash_bwd_dkv_wgmma_kernel<DK, DV, PART>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_wgmma_kernel<D><<<dim3(Hkv, nk, B), kThreads, smem, s>>>(p);
+  flash_bwd_dkv_wgmma_kernel<DK, DV, PART>
+      <<<dim3(Hkv, nk, B), kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -512,16 +581,21 @@ extern "C" int repro_flash_bwd_dq_sm90(const void* q, const void* k,
                                          bounds, qseg, kseg, ia, scale, &sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.D == 192 && sh.Dv == 128)
+    return static_cast<int>(launch_dq<192, 128>(p, sh.nq, sh.B, s));
+  if (sh.Dv != sh.D) return static_cast<int>(cudaErrorInvalidValue);
   switch (sh.D) {
-    case 32: return static_cast<int>(launch_dq<32>(p, sh.nq, sh.B, s));
-    case 64: return static_cast<int>(launch_dq<64>(p, sh.nq, sh.B, s));
-    case 128: return static_cast<int>(launch_dq<128>(p, sh.nq, sh.B, s));
+    case 32: return static_cast<int>(launch_dq<32, 32>(p, sh.nq, sh.B, s));
+    case 64: return static_cast<int>(launch_dq<64, 64>(p, sh.nq, sh.B, s));
+    case 128:
+      return static_cast<int>(launch_dq<128, 128>(p, sh.nq, sh.B, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Kernel D, bf16.  Reads delta (written by kernel C or passed in); writes
-// dk and dv.  Returns the CUDA error code of the launch (0 = launched).
+// dk and dv (at 192 / 128 in two launches, dv's pass then dk's).  Returns
+// the CUDA error code of the launches (0 = launched).
 extern "C" int repro_flash_bwd_dkv_sm90(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const void* lse, const void* delta,
@@ -537,27 +611,43 @@ extern "C" int repro_flash_bwd_dkv_sm90(const void* q, const void* k,
                                           scale, &sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.D == 192 && sh.Dv == 128) {
+    const cudaError_t e =
+        launch_dkv<192, 128, kDvOnly>(p, sh.nk, sh.Hkv, sh.B, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(
+        launch_dkv<192, 128, kDkOnly>(p, sh.nk, sh.Hkv, sh.B, s));
+  }
+  if (sh.Dv != sh.D) return static_cast<int>(cudaErrorInvalidValue);
   switch (sh.D) {
     case 32:
-      return static_cast<int>(launch_dkv<32>(p, sh.nk, sh.Hkv, sh.B, s));
+      return static_cast<int>(
+          launch_dkv<32, 32, kBoth>(p, sh.nk, sh.Hkv, sh.B, s));
     case 64:
-      return static_cast<int>(launch_dkv<64>(p, sh.nk, sh.Hkv, sh.B, s));
+      return static_cast<int>(
+          launch_dkv<64, 64, kBoth>(p, sh.nk, sh.Hkv, sh.B, s));
     case 128:
-      return static_cast<int>(launch_dkv<128>(p, sh.nk, sh.Hkv, sh.B, s));
+      return static_cast<int>(
+          launch_dkv<128, 128, kBoth>(p, sh.nk, sh.Hkv, sh.B, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1) at head dim
-// d, in bytes; 0 for a head dim the kernels do not take.
-extern "C" int repro_flash_bwd_sm90_smem(int kernel, int d) {
-  switch (d) {
-    case 32: return static_cast<int>(kernel ? dkv_smem_bytes<32>()
-                                            : dq_smem_bytes<32>());
-    case 64: return static_cast<int>(kernel ? dkv_smem_bytes<64>()
-                                            : dq_smem_bytes<64>());
-    case 128: return static_cast<int>(kernel ? dkv_smem_bytes<128>()
-                                             : dq_smem_bytes<128>());
+// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1, each of its
+// passes) at head dims (dk, dv), in bytes; 0 for a pair the kernels do not
+// take.
+extern "C" int repro_flash_bwd_sm90_smem(int kernel, int dk, int dv) {
+  if (dk == 192 && dv == 128)
+    return static_cast<int>(kernel ? dkv_smem_bytes<192, 128>()
+                                   : dq_smem_bytes<192, 128>());
+  if (dk != dv) return 0;
+  switch (dk) {
+    case 32: return static_cast<int>(kernel ? dkv_smem_bytes<32, 32>()
+                                            : dq_smem_bytes<32, 32>());
+    case 64: return static_cast<int>(kernel ? dkv_smem_bytes<64, 64>()
+                                            : dq_smem_bytes<64, 64>());
+    case 128: return static_cast<int>(kernel ? dkv_smem_bytes<128, 128>()
+                                             : dq_smem_bytes<128, 128>());
     default: return 0;
   }
 }

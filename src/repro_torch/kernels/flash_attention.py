@@ -45,7 +45,14 @@ each kv tile over the transposed table (``block_sparse.q_block_bounds``)
 and every query head of its GQA group, and writes dk and dv.  Two routes:
 bf16 inputs (the training path's) run on the tensor cores
 (``csrc/flash_bwd_sm90.cu``, ``wgmma``), float32 inputs on the CUDA cores
-(``csrc/flash_bwd.cu``, IEEE float32 products for the float32 bar).  On a
+(``csrc/flash_bwd.cu``, IEEE float32 products for the float32 bar).  The
+pair of ``PAIR_DIMS`` (q/k 192, v 128: materialised MLA, which the MoE
+model trains through) takes the same two libraries, whose entry points
+launch their <192, 128> instantiations (bf16 D as two passes over the same
+grid, dv's then dk's: its accumulators do not fit one pass's registers);
+v may be a strided view, dk and dv are fresh contiguous tensors.  The
+latent pair stays forward-only (absorbed MLA is never trained), and any
+other pair raises.  On a
 CPU tensor it runs :func:`~repro_torch.kernels.ref.chunk_attn_bwd_ref`.
 :class:`FlashAttnFn` makes the pair differentiable.
 """
@@ -175,6 +182,11 @@ def _device_q_bounds(mask: MaskSpec, Tq: int, Tk: int, prune: bool,
 
 
 def _check(q, k, v, latent: bool = False, **more):
+    """Device, dtype, layout and head dims of a flash call; ``more`` holds
+    the backward's o and do, (B, Tq, Hq, Dv).  One head dim of
+    ``HEAD_DIMS`` for q, k and v, or q/k and v pairs: ``PAIR_DIMS`` (the
+    forward and the backward), ``LATENT_DIMS`` (the forward, ``latent``:
+    absorbed MLA, which is never trained)."""
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -188,23 +200,23 @@ def _check(q, k, v, latent: bool = False, **more):
         raise ValueError(f"each flash kernel takes {list(DTYPES)}, got "
                          f"{q.dtype}")
     B, Tq, Hq, D = q.shape
-    one_d = D in HEAD_DIMS and v.shape[-1] == D
-    both = LATENT_DIMS + PAIR_DIMS
-    if k.shape[-1] != D or not (one_d or latent and (D, v.shape[-1])
-                                in both):
+    Dv = v.shape[-1]
+    one_d = D in HEAD_DIMS and Dv == D
+    pairs = LATENT_DIMS + PAIR_DIMS if latent else PAIR_DIMS
+    if k.shape[-1] != D or not (one_d or (D, Dv) in pairs):
         raise ValueError(f"each flash kernel takes head dims {HEAD_DIMS} "
-                         f"(equal for q, k, v)"
-                         f"{f' or q/k and v pairs {both}' if latent else ''}"
-                         f", got {D}/{k.shape[-1]}/{v.shape[-1]}")
+                         f"(equal for q, k, v) or q/k and v pairs {pairs}"
+                         f"{'' if latent else ' (backward)'}, got "
+                         f"{D}/{k.shape[-1]}/{Dv}")
     if k.shape[:3] != v.shape[:3] or k.shape[0] != B:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
     if Hq % k.shape[2]:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={k.shape[2]}")
     for name, t in more.items():
-        if t.shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
-                             f"{tuple(q.shape)}")
+        if t.shape != (B, Tq, Hq, Dv):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{(B, Tq, Hq, Dv)}")
 
 
 def _check_aligned(**tensors):
@@ -353,7 +365,7 @@ def _bwd_args(q, k, v, o, do, dq, dk, dv, mask, qs_sb, ks_sb, nq, nk,
         B, Tq, Tk, Hq, Hkv, D, DTYPES[q.dtype], nq, nk, *strides,
         mask.causal, mask.window, mask.prefix_len, mask.q_offset,
         mask.kv_offset, mask.document, qs_sb, ks_sb, mask.needs_mask,
-        compute_delta)
+        compute_delta, v.shape[-1])
 
 
 class _BwdPlan:
@@ -414,7 +426,7 @@ def _launch_dkv(pl: _BwdPlan, scale):
     """Kernel D: dk and dv, summed over each GQA group on chip."""
     k, v = pl.k, pl.v
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)   # contiguous
     ia = _bwd_args(pl.q, k, v, None, pl.do, None, dk, dv, pl.mask, pl.qs_sb,
                    pl.ks_sb, pl.nq, pl.nk, 0)
     err = _entry(pl.lib, "repro_flash_bwd_dkv" + pl.suffix, 12)(
@@ -436,7 +448,9 @@ def flash_bwd(q, k, v, o, lse, do, *, mask: MaskSpec | None = None,
     """Backward of :func:`flash_fwd` from its saved ``(o, lse)``, in the
     (B, T, H, D) layout: returns (dq, dk, dv) in the dtypes of q, k, v,
     with dk/dv summed over each GQA group.  ``delta = rowsum(o ⊙ do)``
-    (B, Tq, Hq) may be passed precomputed."""
+    (B, Tq, Hq) may be passed precomputed.  One head dim of ``HEAD_DIMS``,
+    or q/k and v of ``PAIR_DIMS`` (o and do then (B, Tq, Hq, Dv)); the
+    default scale is 1/√D of q."""
     mask = full() if mask is None else mask
     if (q_segments is None) != (kv_segments is None):
         raise ValueError("q_segments and kv_segments must be passed together")

@@ -1,5 +1,7 @@
-"""Training CLI: a dense decoder trained on the synthetic token stream,
-on one process or across ranks.
+"""Training CLI: a decoder trained on the synthetic token stream, on one
+process or across ranks (a dense model), or on one (an MLA + MoE model:
+``--arch deepseek-v2-lite-16b``, whose loss adds the MoE load-balance
+``aux`` to ``ce``; both are printed).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-gqa \
         --smoke --steps 50 --seq 256 --batch 4 [--remat remat_aware] \
@@ -13,6 +15,10 @@ on one process or across ranks.
     # the ranks share it through host-staged transfers)
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 \
         --seq-shards 4 --schedule balanced --smoke --device cpu
+
+    # DeepSeek-V2-Lite (MLA + MoE), one rank
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --smoke --device cpu --steps 4
 
 The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
 the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
@@ -43,7 +49,7 @@ from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
-from repro_torch.models.transformer import (DecoderLM,
+from repro_torch.models.transformer import (DecoderLM, ranks_not_ported,
                                             to_reference_params, trainable)
 from repro_torch.optim import adamw
 from repro_torch.parallel.comm import init_world
@@ -79,6 +85,11 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if (cfg.moe is not None or cfg.attn.is_mla) and (
+            args.nproc > 1 or args.seq_shards > 1
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        raise SystemExit(str(ranks_not_ported("training")))
     if args.nproc > 1 and not dist.is_initialized():
         if torch.device(args.device).type == "cuda":
             build.build_all()            # once, before the ranks start
@@ -135,8 +146,9 @@ def run(args) -> int:
                 torch.cuda.synchronize(model.device)
             dt = time.time() - t0
             tok_s = (i + 1) * args.batch * args.seq / max(dt, 1e-9)
-            print(f"step {i:5d} loss {m['loss']:.4f} lr {m['lr']:.2e} "
-                  f"gnorm {m['gnorm']:.2f} tok/s {tok_s:.0f}"
+            print(f"step {i:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} aux "
+                  f"{m['aux']:.6f} lr {m['lr']:.2e} gnorm {m['gnorm']:.2f} "
+                  f"tok/s {tok_s:.0f}"
                   + (f" skipped {n_skipped}" if n_skipped else ""),
                   flush=True)
         if args.ckpt_dir and args.ckpt_every and lead and \

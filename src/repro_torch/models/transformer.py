@@ -24,9 +24,12 @@ output is up-projected by ``W_uv``.  The MoE FFN takes the padded chunk's
 rows through the capacity dispatch (``moe_apply``) and the decode / verify
 rows through every expert (``moe_decode_apply``); the whole-prompt
 prefill dispatches all of its B·T rows at once.  :meth:`forward` runs MLA
-materialised.  Training of an MoE model (ROADMAP §1 item 7.2), and any of
-its paths across ranks (items 7.3 and 7.4), are not ported
-(``NotImplementedError``).
+materialised.  An MoE model trains at one rank: MLA materialised (q/k of
+nope + rope, v of ``v_head_dim``: kernel A's pair route forward, kernels C
+and D's backward), every layer returning ``(h, aux)`` — the MoE layers'
+capacity dispatch with its load-balance loss, the dense layers an aux of 0
+— and ``loss = ce + aux``.  Any of its paths across ranks (ROADMAP §1
+items 7.3 and 7.4) is not ported (``NotImplementedError``).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -125,10 +128,12 @@ def _attn_spec(cfg: ModelConfig, par: ParallelConfig, P: int, impl,
 def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
     """Stages over x = (h, cos, sin, seg): ``seg`` holds the packed
     batch's document ids, or None; ``group`` is the sequence axis's
-    Comm."""
+    Comm.  MLA runs materialised (``layers.mla_qkv``)."""
+    qkv = L.mla_qkv if cfg.attn.is_mla else L.attn_qkv
+
     def pre(p, x):
         h, cos, sin, seg = x
-        return L.attn_qkv(p["attn"], h, cfg, cos, sin) + (seg,)
+        return qkv(p["attn"], h, cfg, cos, sin) + (seg,)
 
     def attn_fwd(qkv):
         q, k, v, seg = qkv
@@ -147,15 +152,24 @@ def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
 
 
 def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
-                      document: bool = False, P: int = 1, group=None):
+                      document: bool = False, P: int = 1, group=None,
+                      use_moe: bool = False):
     """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``, its
-    attention over the ``P`` ranks of ``group``."""
+    attention over the ``P`` ranks of ``group``.  A layer of an MoE-family
+    model returns ``(h', aux)``: its MoE FFN's load-balance loss
+    (``use_moe``), or 0 for a SwiGLU MLP."""
+    scale = L.mla_scale(cfg) if cfg.attn.is_mla else None
     pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
-        cfg, _attn_spec(cfg, par, P, impl, document), group)
+        cfg, _attn_spec(cfg, par, P, impl, document, scale), group)
 
     def post(p, x, o):
         h2 = L.attn_out(p["attn"], x[0], o, cfg)
-        return L.mlp_apply(p["mlp"], h2, cfg.norm_eps)
+        if use_moe:
+            return moe_apply(p["moe"], h2, cfg)
+        h3 = L.mlp_apply(p["mlp"], h2, cfg.norm_eps)
+        if cfg.moe is None:
+            return h3
+        return h3, torch.zeros((), dtype=torch.float32, device=h3.device)
 
     if par.remat == "remat_aware":
         return remat_aware(pre, attn_fwd, attn_bwd, post)
@@ -186,17 +200,13 @@ def layer_params(p) -> list:
     return p["dense_layers"] + p["moe_layers"]
 
 
-def _not_ported(what: str, item: str = "item 7.2"):
-    return NotImplementedError(
-        f"{what} of an MLA / MoE model is not ported: the port serves "
-        f"deepseek-v2-lite-16b at one rank, through the paged Engine and "
-        f"the fixed-slot one (ROADMAP §1 {item})")
-
-
 def ranks_not_ported(what: str):
     """The refusal of an MLA / MoE model's ``what`` across ranks."""
-    return _not_ported(f"{what} across ranks", "items 7.3, MoE dispatch "
-                       "across ranks, and 7.4, the latent ring")
+    return NotImplementedError(
+        f"{what} across ranks of an MLA / MoE model is not ported: the port "
+        f"serves deepseek-v2-lite-16b at one rank, through the paged Engine "
+        f"and the fixed-slot one, and trains it at one rank (ROADMAP §1 "
+        f"items 7.3, MoE dispatch across ranks, and 7.4, the latent ring)")
 
 
 def trainable(params) -> dict:
@@ -347,13 +357,27 @@ class DecoderLM:
 
     def _backbone(self, p, h, cos, sin, seg=None):
         """The layers under the checkpoint policy; ``seg`` = packed-batch
-        document ids (B, Tl) or None."""
-        layer = build_dense_layer(self.cfg, self.par, self.impl,
-                                  document=seg is not None,
-                                  P=self.seq_size, group=self.seq_group)
-        for lp in p["layers"]:
-            h = layer(lp, (h, cos, sin, seg))
-        return h
+        document ids (B, Tl) or None.  Returns ``(h, aux)``: the sum of the
+        layers' load-balance losses in the reference's order (the dense
+        layers' sum, plus the MoE layers' sum), or None for a dense-family
+        model."""
+        kw = dict(document=seg is not None, P=self.seq_size,
+                  group=self.seq_group)
+        if self.cfg.moe is None:
+            layer = build_dense_layer(self.cfg, self.par, self.impl, **kw)
+            for lp in p["layers"]:
+                h = layer(lp, (h, cos, sin, seg))
+            return h, None
+        total = None
+        for key, use_moe in (("dense_layers", False), ("moe_layers", True)):
+            layer = build_dense_layer(self.cfg, self.par, self.impl,
+                                      use_moe=use_moe, **kw)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            for lp in p[key]:
+                h, a = layer(lp, (h, cos, sin, seg))
+                aux = aux + a
+            total = aux if total is None else total + aux
+        return h, total
 
     def positions(self, Tl: int) -> torch.Tensor:
         """Global positions of this rank's Tl tokens."""
@@ -364,32 +388,38 @@ class DecoderLM:
 
     def loss(self, p, batch):
         """Mean next-token cross-entropy of ``batch`` = {tokens, labels
-        (B, Tl); optional segment_ids (B, Tl)}, this rank's shard:
-        ``(loss, {"ce": loss})``.  On a mesh the value is the global token
-        mean, and its gradient is this rank's share of it (the train step
-        sums gradients over :func:`token_group`)."""
+        (B, Tl); optional segment_ids (B, Tl)}, this rank's shard, plus an
+        MoE model's load-balance loss: ``(ce + aux, {"ce": ce, "aux":
+        aux})`` (a dense model's aux is 0 and its loss is ce).  On a mesh
+        the value is the global token mean, and its gradient is this rank's
+        share of it (the train step sums gradients over
+        :func:`token_group`).  An MLA / MoE model trains at one rank only
+        (:meth:`check_one_rank`)."""
         a = self.cfg.attn
-        if self.cfg.moe is not None or a.is_mla:
-            raise _not_ported("training")
+        self.check_one_rank("training")
         h = self._embed(p, batch)
-        cos, sin = L.rope_tables(self.positions(h.shape[1]), a.head_dim,
+        cos, sin = L.rope_tables(self.positions(h.shape[1]), self.rope_dim,
                                  a.rope_theta)
         seg = batch.get("segment_ids")
         if seg is not None:
             seg = seg.to(self.device)
-        h = self._backbone(p, h, cos, sin, seg)
+        h, aux = self._backbone(p, h, cos, sin, seg)
         logits = self._head(p, h)
         labels = batch["labels"].to(self.device)
+        if aux is not None:
+            ce = L.cross_entropy(logits, labels)
+            return ce + aux, {"ce": ce, "aux": aux}
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.token_group is None or self.token_group.size == 1:
             ce = L.cross_entropy(logits, labels)
-            return ce, {"ce": ce}
+            return ce, {"ce": ce, "aux": zero}
         s, n = L.cross_entropy_sum(logits, labels)
         tot = torch.stack([s.detach(), n])
         self.token_group.all_reduce_([tot])
         total = tot[1].clamp(min=1.0)
         mine = s / total                 # its gradient: this rank's share
         ce = tot[0] / total + (mine - mine.detach())
-        return ce, {"ce": ce}
+        return ce, {"ce": ce, "aux": zero}
 
     def _layer(self, lp, h, attend, cos, sin, decode: bool = False,
                latents=None):

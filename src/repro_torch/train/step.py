@@ -26,9 +26,11 @@ from repro_torch.optim import adamw
 
 
 def make_train_step(model, tc: TrainConfig):
-    """``step(params, opt, batch) -> {"loss", "ce", "lr", "gnorm",
-    "skipped_nonfinite"}`` (Python numbers); ``params`` are leaf tensors
-    with ``requires_grad`` (``models.transformer.trainable``)."""
+    """``step(params, opt, batch) -> {"loss", "ce", "aux", "lr", "gnorm",
+    "skipped_nonfinite"}`` (Python numbers): ``loss = ce + aux``, ``aux``
+    an MoE model's load-balance loss (0 for a dense one); ``params`` are
+    leaf tensors with ``requires_grad``
+    (``models.transformer.trainable``)."""
     def step(params, opt: adamw.AdamWState, batch) -> dict:
         ps, rebuild = flatten(params)
         loss, metrics = model.loss(params, batch)

@@ -785,8 +785,8 @@ def test_pair_flash_route_is_deterministic(dev, dtype):
 
 def test_pair_kernels_raise_on_other_pairs(dev):
     """Pairs outside ``PAIR_DIMS`` and ``LATENT_DIMS`` raise before a
-    launch, in both dtypes, and so does the backward at 192 / 128 (kernels C
-    and D take one D): no fallback."""
+    launch, in both dtypes; the backward takes the pair 192 / 128 and
+    raises on any other, the latent pair included: no fallback."""
     n0 = dict(build.LAUNCHES)
     for dt in (torch.float32, torch.bfloat16):
         for dk, dv in ((192, 64), (160, 128), (128, 192), (256, 128)):
@@ -794,13 +794,72 @@ def test_pair_kernels_raise_on_other_pairs(dev):
             v = torch.zeros((1, 64, 4, dv), device=dev, dtype=dt)
             with pytest.raises(ValueError, match="head dims"):
                 flash_fwd(q, q, v, mask=mk.causal())
-        q = torch.zeros((1, 64, 4, 192), device=dev, dtype=dt)
-        v = torch.zeros((1, 64, 4, 128), device=dev, dtype=dt)
-        o = torch.zeros((1, 64, 4, 128), device=dev, dtype=dt)
-        lse = torch.zeros((1, 64, 4), device=dev)
+            lse = torch.zeros((1, 64, 4), device=dev)
+            with pytest.raises(ValueError, match="head dims"):
+                flash_bwd(q, q, v, v, lse, v, mask=mk.causal())
+        q = torch.zeros((1, 64, 1, 576), device=dev, dtype=dt)
         with pytest.raises(ValueError, match="head dims"):
-            flash_bwd(q, q, v, o, lse, o, mask=mk.causal())
+            flash_bwd(q, q, q[..., :512], q[..., :512],
+                      torch.zeros((1, 64, 1), device=dev), q[..., :512],
+                      mask=mk.causal())
     assert dict(build.LAUNCHES) == n0
+
+
+PAIR_BWD = [
+    # (B, Tq, Tk, H, mask, v): phase 14's training shape (16 heads, causal,
+    # v beside k_nope); a ragged T; a document mask with segment ids; a
+    # chunk at q offset 768; a window; rows with nothing to attend
+    (1, 8192, 8192, 16, mk.causal(), "kv"),
+    (1, 1000, 1000, 16, mk.causal(), "own"),
+    (2, 256, 256, 4, mk.document(), "kv"),
+    (1, 256, 1024, 16, mk.causal(rel_offset=768), "kv"),
+    (1, 200, 333, 4, mk.sliding_window(70, rel_offset=133), "own"),
+    (1, 128, 128, 2, mk.causal(rel_offset=-64), "own"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PAIR_BWD,
+                         ids=[f"B{c[0]}x{c[1]}x{c[2]}{c[4].kind}{c[5]}"
+                              for c in PAIR_BWD])
+def test_pair_bwd_kernels_match_plain(dev, case, dtype):
+    """Kernels C and D at q/k 192, v 128 (bf16 on the tensor cores, D in
+    two passes; float32 on the CUDA cores) against the plain backward on
+    the same saved (o, lse): the backward bars (bf16 also row by row),
+    the pruned sweep equal to the dense one, one launch of each counted,
+    dk and dv contiguous in k's and v's shapes."""
+    B, Tq, Tk, H, mask, v_kind = case
+    gen = torch.Generator(device=dev).manual_seed(33)
+    q, k, v = _pair_chunk(gen, dev, dtype, B, Tq, Tk, H, H, v_kind)
+    do = _randn(gen, (B, Tq, H, 128), dtype, dev)
+    kw = dict(mask=mask, scale=PAIR_SCALE)
+    if mask.document:
+        s = torch.sort(torch.randint(0, 4, (B, Tk), generator=gen,
+                                     device=dev), dim=1)[0].to(torch.int32)
+        kw.update(q_segments=s[:, :Tq].contiguous(), kv_segments=s)
+    o, lse = flash_fwd(q, k, v, **kw)
+    n0 = (build.LAUNCHES["flash_bwd_dq"], build.LAUNCHES["flash_bwd_dkv"])
+    got = flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["flash_bwd_dq"],
+            build.LAUNCHES["flash_bwd_dkv"]) == (n0[0] + 1, n0[1] + 1)
+    dense = flash_bwd(q, k, v, o, lse, do, prune=False, **kw)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}[dtype]
+    for i, (a, d) in enumerate(zip(got, dense)):
+        assert a.is_contiguous() and a.shape == (q, k, v)[i].shape
+        assert float((a.float() - d.float()).abs().max()) <= 1e-6
+    for h in range(0, H, 8):     # the plain version, 8 heads at a time
+        sl = slice(h, h + 8)
+        ref = chunk_attn_bwd_ref(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                 o[:, :, sl], lse[:, :, sl], do[:, :, sl],
+                                 **kw)
+        for a, r in zip(got, ref):
+            a = a[:, :, sl]
+            torch.testing.assert_close(a.float(), r.float(), atol=tol,
+                                       rtol=tol)
+            if dtype == torch.bfloat16:
+                assert row_rel_err(a, r) <= 2e-2
 
 def test_deepseek_engine_on_card_matches_cpu(dev):
     """Smoke deepseek-v2-lite-16b (float32, 2 layers, an MoE layer of 4

@@ -530,10 +530,11 @@ def test_corrupt_latent_block_matches_reference(ds):
 
 
 def test_unported_paths_raise(ds):
-    """The fixed-slot engine (its prefill and dense decode) and the paged
-    engine across ranks, and training, of an MLA / MoE model name the
-    ROADMAP items that port them; at one rank the fixed-slot engine serves
-    (``tests/test_torch_deepseek_fixed.py``)."""
+    """The fixed-slot engine (its prefill and dense decode), the paged
+    engine and training across ranks of an MLA / MoE model name the ROADMAP
+    items that port them; at one rank the fixed-slot engine serves
+    (``tests/test_torch_deepseek_fixed.py``) and the model trains
+    (``tests/test_torch_deepseek_train.py``)."""
     FixedSlotEngine(ds.t_model, ds.t_params)
     ranks = DecoderLM(ds.t_model.cfg, device="cpu")
     ranks.mesh = types.SimpleNamespace(world=types.SimpleNamespace(size=2))
@@ -548,8 +549,8 @@ def test_unported_paths_raise(ds):
                      tok[:, :1], torch.zeros((1,), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(ranks, ds.t_params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.t_model.loss(ds.t_params, {
+    with pytest.raises(NotImplementedError, match=across):
+        ranks.loss(ds.t_params, {
             "tokens": torch.zeros((1, 8), dtype=torch.int64),
             "labels": torch.zeros((1, 8), dtype=torch.int64)})
 

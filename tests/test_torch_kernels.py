@@ -544,10 +544,13 @@ def test_pair_routes_by_dtype_tables_and_refusals(monkeypatch):
     by ``build.py`` and counted as ``flash_fwd_pair``.  The 128 × 64 table
     of the fixed-slot prefill (T 4096, causal) and of a chunk under a window
     equals the reference's range math at those sizes.  A bf16 call whose
-    rows do not start on 16 bytes, a pair outside ``PAIR_DIMS`` and the
-    backward at 192 / 128 raise before any build or launch."""
+    rows do not start on 16 bytes and a pair outside ``PAIR_DIMS`` raise
+    before any build or launch; the backward plans the pair (kernels C and
+    D at 192 / 128, by dtype through ``BWD_ROUTES``) and refuses the
+    others."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import (LATENT_ROUTES,
+    from repro_torch.kernels.flash_attention import (BWD_ROUTES,
+                                                     LATENT_ROUTES,
                                                      PAIR_DIMS, PAIR_ROUTES,
                                                      _BwdPlan,
                                                      _device_bounds,
@@ -591,10 +594,98 @@ def test_pair_routes_by_dtype_tables_and_refusals(monkeypatch):
                 _flash_fwd_cuda(q, q, torch.zeros((1, 8, 4, dv), dtype=dt),
                                 tmk.causal(), 0.07, None, None, True)
         v = torch.zeros((1, 8, 4, 128), dtype=dt)
-        with pytest.raises(ValueError, match="head dims"):
-            _BwdPlan(q, q, v, v, torch.zeros((1, 8, 4)), v, tmk.causal(),
-                     None, None, None, True)
+        pl = _BwdPlan(q, q, v, v, torch.zeros((1, 8, 4)), v, tmk.causal(),
+                      None, None, None, True)
+        assert (pl.lib, pl.suffix) == BWD_ROUTES[dt]
+        for dv in (64, 192 + 64):
+            w = torch.zeros((1, 8, 4, dv), dtype=dt)
+            with pytest.raises(ValueError, match="head dims"):
+                _BwdPlan(q, q, w, w, torch.zeros((1, 8, 4)), w,
+                         tmk.causal(), None, None, None, True)
     assert dict(build.LAUNCHES) == n0
+
+
+# materialised MLA's backward: (mask kind, kwargs, Tq, Tk, dtype); v is the
+# last 128 columns of a (.., 256) array, as ``layers.mla_qkv`` hands it over
+PAIR_BWD_CASES = [
+    ("causal", {}, 128, 128, "float32"),
+    ("causal", {"rel_offset": 64}, 64, 128, "float32"),
+    ("sliding_window", {"window": 40}, 96, 96, "float32"),
+    ("causal", {}, 128, 128, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", PAIR_BWD_CASES,
+                         ids=[f"{c[0]}{c[2]}x{c[3]}{c[4]}"
+                              for c in PAIR_BWD_CASES])
+def test_pair_bwd_plain_matches_reference_kernel(case):
+    """The plain version of kernels C and D at q/k 192, v 128 (v a strided
+    view), through ``flash_bwd`` on CPU tensors, against the reference's
+    ``flash_bwd_bhtd`` in interpret mode at 1/√192, the chunk backward's
+    bars (2e-4 float32, 5e-2 bf16); dk and dv keep the shapes of k and
+    v."""
+    kind, kw, Tq, Tk, dt = case
+    rng = np.random.default_rng(23)
+    H, scale = 4, 192 ** -0.5
+    q = rng.standard_normal((1, Tq, H, 192)).astype(np.float32)
+    k = rng.standard_normal((1, Tk, H, 192)).astype(np.float32)
+    kv = rng.standard_normal((1, Tk, H, 256)).astype(np.float32)
+    v = kv[..., 128:]
+    do = rng.standard_normal((1, Tq, H, 128)).astype(np.float32)
+    r_mask, t_mask = _spec_pair(kind, **kw)
+    jd, td = jnp.dtype(dt), getattr(torch, dt)
+    jq, jk, jv, jdo = (jnp.asarray(x, jd) for x in (q, k, v, do))
+    o, lse = r_chunk_attn_ref(jq, jk, jv, mask=r_mask, scale=scale)
+    ref = ops.flash_bwd(jq, jk, jv, o, lse, jdo, mask=r_mask, scale=scale,
+                        block_q=64, block_kv=64, interpret=True)
+    tq, tk, tdo = (torch.from_numpy(x).to(td) for x in (q, k, do))
+    tv = torch.from_numpy(kv).to(td)[..., 128:]
+    assert tv.stride()[2] == 256
+    to = torch.from_numpy(np.array(o, np.float32)).to(td)
+    got = flash_bwd(tq, tk, tv, to, torch.from_numpy(np.array(lse)), tdo,
+                    mask=t_mask, scale=scale)
+    tol = 2e-4 if dt == "float32" else 5e-2
+    for a, r, shape in zip(got, ref, (q.shape, k.shape, v.shape)):
+        assert a.dtype == td and tuple(a.shape) == shape
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r, np.float32), atol=tol,
+                                   rtol=tol)
+
+
+def test_backward_refuses_other_pairs_before_any_build(monkeypatch):
+    """Kernels C and D take one head dim or the pair (192, 128); any other
+    (Dk, Dv), the latent pair (576, 512: absorbed MLA is never trained)
+    included, and o / do not of v's head dim raise before a build, in both
+    dtypes.  The default scale is 1/√Dk."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _BwdPlan
+
+    def no_build(*a, **kw):
+        raise AssertionError("a refused call reached the build")
+    monkeypatch.setattr(build, "load", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    for dt in (torch.bfloat16, torch.float32):
+        for dk, dv in ((192, 64), (160, 128), (128, 192), (576, 512)):
+            q = torch.zeros((1, 8, 4, dk), dtype=dt)
+            v = torch.zeros((1, 8, 4, dv), dtype=dt)
+            with pytest.raises(ValueError, match="head dims"):
+                _BwdPlan(q, q, v, v, torch.zeros((1, 8, 4)), v,
+                         tmk.causal(), None, None, None, True)
+        q = torch.zeros((1, 8, 4, 192), dtype=dt)
+        v = torch.zeros((1, 8, 4, 128), dtype=dt)
+        with pytest.raises(ValueError, match="do shape"):
+            _BwdPlan(q, q, v, v, torch.zeros((1, 8, 4)), q, tmk.causal(),
+                     None, None, None, True)
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(rng.standard_normal((1, 16, 2, 192)).astype(
+        np.float32)) for _ in range(2))
+    v, do = (torch.from_numpy(rng.standard_normal((1, 16, 2, 128)).astype(
+        np.float32)) for _ in range(2))
+    o, lse = chunk_attn_ref(q, k, v, mask=tmk.causal())
+    for a, b in zip(flash_bwd(q, k, v, o, lse, do, mask=tmk.causal()),
+                    chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=tmk.causal(),
+                                       scale=192 ** -0.5)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("why", ["group48", "group5", "unaligned"])
