@@ -8,11 +8,11 @@ Phases, each fatal on failure (nothing is caught):
   1. device   — the card's name and power limit (nvidia-smi); TF32 off.
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
                 ptxas' registers and spills of the tensor-core routes
-                (kernel A's, and kernels C and D's, also at q/k 192, v 128:
-                C and D's two passes, and their float32 instantiations),
-                with their shared memory; no spill at D = 128 nor in A's
-                latent and pair routes or the float32 192/128 kernels; a
-                spill of the bf16 192/128 kernels is reported.
+                (kernel A's, kernels C and D's at one D and their pair
+                route at q/k 192, v 128, and the float32 192/128
+                instantiations), with their shared memory; none may spill
+                at D = 128, in A's latent and pair routes, in C and D's
+                pair route or in the float32 192/128 kernels.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
                 cases, every case of A, C and D in both dtypes (bf16 runs
@@ -49,12 +49,13 @@ Phases, each fatal on failure (nothing is caught):
                 launch bitwise), a chunk at q_offset 768 (Tq 256, Tk 1024),
                 a ragged T of 1000; pairs outside its table raise.  Kernels
                 C and D at that pair in both dtypes (bf16 on the tensor
-                cores, D in two passes; float32 on the CUDA cores), v the
+                cores, the pair library; float32 on the CUDA cores), v the
                 strided view: phase 14's training shape (B 1, T 8192, 16
-                heads, causal), a ragged T, a document mask, a q-offset
-                chunk, each held to phase 3's bars, which must reject the
-                plain backward without the last 64-key tile; other
-                (Dk, Dv) pairs and the latent pair raise.
+                heads, causal; launch == launch bitwise), a ragged T, a
+                document mask, a q-offset chunk, each held to phase 3's
+                bars, which must reject the plain backward without the
+                last 64-key tile; other (Dk, Dv) pairs and the latent pair
+                raise.
   3c. plans   — kernels A, C and D under every distinct mask the plan
                 steps give them: every active Work item of balanced, ring
                 and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
@@ -950,13 +951,14 @@ def _pair_bwd_ref(args, kw, cut=None):
 
 
 def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
-                   segs=False):
+                   segs=False, repeat=False):
     """Kernels C and D at q/k 192, v 128 (materialised MLA, 16 heads,
     scale 1/√192) against the plain backward on the same saved (o, lse)
     (kernel A's pair route) at phase 3's bar, which must reject the plain
     backward without the last 64-key tile; the pruned sweep equals the
-    dense one.  v is the last 128 columns of a (.., 256) tensor (``kv``,
-    as the model hands it over) or a tensor of its own (``own``)."""
+    dense one; with ``repeat``, a second launch gives the same bits.  v is
+    the last 128 columns of a (.., 256) tensor (``kv``, as the model hands
+    it over) or a tensor of its own (``own``)."""
     q = randn(gen, (B, Tq, PAIR_H, PAIR_DK), dtype)
     k = randn(gen, (B, Tk, PAIR_H, PAIR_DK), dtype)
     if v_kind == "kv":
@@ -976,6 +978,13 @@ def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
     check(all(build.LAUNCHES[n] == n0[n] + (n in ("flash_bwd_dq",
                                                    "flash_bwd_dkv"))
               for n in n0), f"flash_bwd pair {name}: launches")
+    same = ""
+    if repeat:     # a fixed sweep order and no atomics: the same bits
+        again = flash_bwd(q, k, v, o, lse, do, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_bwd pair {name}: two launches differ")
+        same = "; launch == launch bitwise"
+        del again
     dense = flash_bwd(q, k, v, o, lse, do, prune=False, **kw)
     args = (q, k, v, o, lse, do)
     ref = _pair_bwd_ref(args, kw)
@@ -1003,14 +1012,15 @@ def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
            if dtype == torch.bfloat16 else "")
     say(f"  C/D {'192/128 ' + name:<30} {str(dtype)[6:]:<9} max|Δdq| "
         f"{errs[0]:.3e}  max|Δdk| {errs[1]:.3e}  max|Δdv| {errs[2]:.3e}  "
-        f"tol {BWD_TOL[dtype]}; pruned == dense{rel}; control without the "
-        f"last key tile {'/'.join(show(c) for c in ctl)} (rejected)")
+        f"tol {BWD_TOL[dtype]}; pruned == dense{same}{rel}; control without "
+        f"the last key tile {'/'.join(show(c) for c in ctl)} (rejected)")
     return errs
 
 
 PAIR_BWD_CASES = (
-    # (name, B, Tq, Tk, mask, v, segments): phase 14's training shape, a
-    # ragged T, a document mask with segment ids, a chunk at q offset 768
+    # (name, B, Tq, Tk, mask, v, segments): phase 14's training shape (its
+    # two launches also compared bit for bit), a ragged T, a document mask
+    # with segment ids, a chunk at q offset 768
     ("train B1 T8192 causal v-view", 1, 8192, 8192, mk.causal(), "kv", False),
     ("ragged T1000 causal", 1, 1000, 1000, mk.causal(), "own", False),
     ("document segments v-view", 2, 512, 512, mk.document(), "kv", True),
@@ -1021,15 +1031,17 @@ PAIR_BWD_CASES = (
 
 def pair_bwd_checks():
     """Kernels C and D at materialised MLA's q/k 192, v 128 in both dtypes
-    (bf16 on the tensor cores, D in two passes; float32 on the CUDA cores)
+    (bf16 on the tensor cores, the pair library; float32 on the CUDA cores)
     over ``PAIR_BWD_CASES``, each held to its plain version at phase 3's
-    bar, which must reject the control; other (Dk, Dv) pairs and the latent
-    pair raise before a launch."""
+    bar, which must reject the control, the training shape's two launches
+    bitwise equal; other (Dk, Dv) pairs and the latent pair raise before a
+    launch."""
     gen = torch.Generator(device=DEV).manual_seed(23)
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         for name, B, Tq, Tk, m, vk, segs in PAIR_BWD_CASES:
-            e = _pair_bwd_case(gen, name, B, Tq, Tk, dt, m, vk, segs)
+            e = _pair_bwd_case(gen, name, B, Tq, Tk, dt, m, vk, segs,
+                               repeat=name.startswith("train"))
             errs[(name, dt)] = e
             _free()
     n0 = dict(build.LAUNCHES)
@@ -3853,9 +3865,6 @@ def ptxas_kernels(text):
     return out
 
 
-BWD_PARTS = {0: "", 1: " (dv pass)", 2: " (dk pass)"}
-
-
 def _template_args(mangled):
     """The integer template arguments of a mangled kernel name."""
     import re
@@ -3865,13 +3874,12 @@ def _template_args(mangled):
 def tensor_core_report(report):
     """Registers, spills and shared memory of the tensor-core routes at each
     head dim: kernel A's (``flash_fwd_sm90``) and kernels C and D's
-    (``flash_bwd_sm90``), none of which may spill at D = 128 (at
-    materialised MLA's q/k 192, v 128 — C, and D's two passes — a spill is
-    reported); kernel A's
+    (``flash_bwd_sm90``), none of which may spill at D = 128; kernel A's
     latent route (``flash_fwd_latent_sm90``, v k's prefix view or a tensor
     of its own) and pair route (``flash_fwd_pair_sm90``, q/k 192, v 128),
-    which may not spill at all; and kernels C and D's float32 route
-    (``flash_bwd``) at 192 / 128, which may not spill either."""
+    and kernels C and D's pair route (``flash_bwd_pair_sm90``), which may
+    not spill at all; and kernels C and D's float32 route (``flash_bwd``)
+    at 192 / 128, which may not spill either."""
     import ctypes
     fwd = build.load("flash_fwd_sm90").repro_flash_fwd_sm90_smem
     fwd.argtypes, fwd.restype = [ctypes.c_int], ctypes.c_int
@@ -3903,33 +3911,39 @@ def tensor_core_report(report):
         say(f"  ptxas A fwd pair wgmma 192/128: {regs} registers, {spill} "
             f"bytes spilled, {pair()} bytes dynamic shared memory")
         check(spill == 0, f"kernel {mangled} spills {spill} bytes")
-    seen, pairs = 0, []
+    # C and D's pair route: three warpgroups, `setmaxnreg` hands the
+    # consumers 240 registers a thread (ptxas reports the launch's 168)
+    bpair = build.load("flash_bwd_pair_sm90").repro_flash_bwd_pair_sm90_smem
+    bpair.argtypes, bpair.restype = [ctypes.c_int], ctypes.c_int
+    got = ptxas_kernels(report["flash_bwd_pair_sm90"])
+    names = sorted("C dq" if "dq_pair" in m else "D dkv" for m in got)
+    check(names == ["C dq", "D dkv"],
+          f"ptxas reported the pair backward kernels {names}")
+    for mangled, (regs, spill) in sorted(got.items()):
+        kernel = 0 if "dq_pair" in mangled else 1
+        say(f"  ptxas {('C dq', 'D dkv')[kernel]} pair wgmma 192/128: "
+            f"{regs} registers at launch, {spill} bytes spilled, "
+            f"{bpair(kernel)} bytes dynamic shared memory")
+        check(spill == 0, f"kernel {mangled} spills {spill} bytes")
+    seen = 0
     for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
         for mangled, (regs, spill) in sorted(
                 ptxas_kernels(report[lib]).items()):
             targs = _template_args(mangled)
             d = targs[0]
-            dv = targs[1] if len(targs) > 1 else d
             if lib == "flash_fwd_sm90":
                 name, smem = "A fwd", fwd(d)
             else:
                 kernel = 0 if "dq_wgmma" in mangled else 1
-                part = BWD_PARTS[targs[2]] if kernel else ""
-                name = ("C dq", "D dkv")[kernel] + part
-                smem = bwd(kernel, d, dv)
-            dims = f"D={d}" if dv == d else f"D={d}/{dv}"
-            say(f"  ptxas {name} wgmma {dims}: {regs} registers, {spill} "
+                name = ("C dq", "D dkv")[kernel]
+                smem = bwd(kernel, d, d)
+            say(f"  ptxas {name} wgmma D={d}: {regs} registers, {spill} "
                 f"bytes spilled, {smem} bytes dynamic shared memory")
-            # a spill at 192 / 128 is reported, not fatal: the bar of
-            # those kernels is correctness (phase 3), their speed phase 5's
             check(d != 128 or spill == 0, f"kernel {mangled} spills {spill} "
-                  f"bytes at {dims}")
+                  f"bytes at D={d}")
             seen += d == 128
-            pairs += [name] if dv != d else []
     check(seen == 3, "ptxas reported fewer than three D = 128 tensor-core "
           "kernels")
-    check(sorted(pairs) == ["C dq", "D dkv (dk pass)", "D dkv (dv pass)"],
-          f"ptxas reported the 192/128 tensor-core kernels {pairs}")
     f32 = 0
     for mangled, (regs, spill) in sorted(
             ptxas_kernels(report["flash_bwd"]).items()):
@@ -4360,13 +4374,14 @@ def time_bwd(launches, seen, errs):
     return rows
 
 
-PAIR_BWD_DESIGN = ("bf16 on the tensor cores: wgmma m64n64k16, one "
-                   "warpgroup a block over 64-row q tiles (C) or 64-key "
-                   "tiles (D), swizzled tiles double-buffered by 16-byte "
-                   "cp.async (v read through its strides), ds into dq as "
-                   "two bf16 terms; D in two passes (dv, then dk) so that "
-                   "its accumulators fit the registers; float32: IEEE FMAs "
-                   "on the CUDA cores at <192, 128>")
+PAIR_BWD_DESIGN = ("bf16 on the tensor cores: three warpgroups a block, a "
+                   "TMA producer warp (3-stage ring, mbarriers, row "
+                   "statistics by cp.async) and two consumers that split "
+                   "each tile pair's wgmma products and hand p (pᵀ) across "
+                   "in float32 through shared memory; D in one pass, C with "
+                   "ds as hi (shared-shared) and lo (register A) terms; "
+                   "setmaxnreg 24 / 240; float32: IEEE FMAs on the CUDA "
+                   "cores at <192, 128>")
 
 
 def time_pair_bwd(launches, seen, errs):
@@ -4436,7 +4451,8 @@ def time_pair_bwd(launches, seen, errs):
         rows.append({"name": name + "_pair", "route": "cuda",
                      "design": PAIR_BWD_DESIGN,
                      "source":
-                         "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
+                         "src/repro_torch/kernels/csrc/"
+                         "flash_bwd_pair_sm90.cu",
                      "float32_source":
                          "src/repro_torch/kernels/csrc/flash_bwd.cu",
                      "replaces": f"src/repro/kernels/flash_attention.py:"

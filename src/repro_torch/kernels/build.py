@@ -12,10 +12,10 @@ package on a host without ``nvcc`` works, and only a CUDA launch builds.
 
 ``LAUNCHES`` counts kernel launches by kernel name: ``flash_fwd`` (kernel
 A), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (kernels C and D) each count one
-route or the other, ``flash_fwd_sm90.cu`` / ``flash_bwd_sm90.cu`` for bf16
-and ``flash_fwd.cu`` / ``flash_bwd.cu`` for float32, at one head dim or at
-materialised MLA's q/k 192 and v 128 (one count a call of D, whose bf16
-route launches two passes there); ``flash_fwd_latent``
+route or another, ``flash_fwd_sm90.cu`` / ``flash_bwd_sm90.cu`` for bf16
+and ``flash_fwd.cu`` / ``flash_bwd.cu`` for float32 at one head dim, and at
+materialised MLA's q/k 192 and v 128 ``flash_bwd_pair_sm90.cu`` for bf16
+and ``flash_bwd.cu``'s <192, 128> for float32; ``flash_fwd_latent``
 counts kernel A's latent route at MLA's q/k 576 and v 512, again one of
 two by dtype (``flash_fwd_latent_sm90.cu`` for bf16,
 ``flash_fwd_latent.cu`` for float32), ``flash_fwd_pair`` its pair route at
@@ -40,7 +40,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_fwd", "paged_decode", "flash_bwd",        # sources
            "flash_bwd_sm90", "flash_fwd_sm90", "flash_fwd_latent",
-           "flash_fwd_latent_sm90", "flash_fwd_pair_sm90")
+           "flash_fwd_latent_sm90", "flash_fwd_pair_sm90",
+           "flash_bwd_pair_sm90")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,6 +2,8 @@
 // attention chunk on Hopper's tensor cores (sm_90a `wgmma`), written by
 // hand, with plain C entry points bound via ctypes.  bf16 is the training
 // path's dtype; float32 inputs take the CUDA-core route (flash_bwd.cu).
+// One head dim D (32, 64, 128) for q, k and v; materialised MLA's q/k 192,
+// v 128 takes flash_bwd_pair_sm90.cu.
 //
 // Replaces the TPU kernels of the JAX package's `flash_bwd_bhtd`
 // (src/repro/kernels/flash_attention.py) for bf16:
@@ -48,21 +50,8 @@
 //      are summed over the group on chip and written once.  With sᵀ and
 //      dpᵀ they fill the 255 registers a thread that two blocks an SM
 //      allow, without spilling (chip_smoke.py's build phase checks it).
-//   Materialised MLA (q/k 192, v 128: deepseek-v2-lite-16b's training
-//   path).  The kernels are templated on <DK, DV>, the head dims of q / k
-//   and of v; one head dim D is <D, D>.  At 192 / 128 a q or k tile is 3
-//   slabs and a do or v tile 2, 120 KB of tiles a block (one block an SM).
-//   C keeps dq (3 × 32 float32 accumulators a thread) beside s and dp.
-//   D's accumulators would not fit: dk (96) + dv (64) + sᵀ and dpᵀ (64) is
-//   224 of the 255 registers a thread may hold, before addresses and the
-//   packed pᵀ / dsᵀ fragments.  So at 192 / 128 D runs as two passes over
-//   the same grid, launched back to back by one call: the first computes
-//   sᵀ and dv (dpᵀ, dsᵀ and dk never exist; v and delta are not read), the
-//   second sᵀ, dpᵀ and dk.  sᵀ is computed twice, a third more tensor-core
-//   work for D than one pass would do (5 products of 64 × 64 × 192 or
-//   × 128 against 4).  v is read through its strides: it is the last 128
-//   columns of the (…, 256) up-projection it shares with k_nope, rows 16
-//   × 256 elements apart, each row's 16-byte groups copied as they lie.
+//   The kernels are templated on <DK, DV>, the head dims of q / k and of
+//   v, instantiated at <D, D>.
 //   No p or ds tile goes through shared or device memory, and there are
 //   no atomics: each run gives the same bits.  The element-wise mask runs
 //   on edge tiles only (outside the table's interior range, or past a
@@ -103,16 +92,12 @@ __device__ __forceinline__ float dot8(const uint4& x, const uint4& y,
   return acc;
 }
 
-// Which of D's outputs a launch computes: both (one head dim), or one of
-// the two passes it takes at 192 / 128.
-enum Part { kBoth = 0, kDvOnly = 1, kDkOnly = 2 };
-
 // Each block holds one q / k-sized and one do / v-sized tile, and two
 // buffers of each of the other pair: 3 tiles of each size.
 // x, opaque to the compiler: a resident tile's address read through it in
-// each sweep step keeps the step's operand descriptors (2 registers each,
-// 20 of them for q / do at 192 / 128) from being hoisted out of the loop
-// and held in registers across it; recomputing them is a few integer adds.
+// each sweep step keeps the step's operand descriptors (2 registers each)
+// from being hoisted out of the loop and held in registers across it;
+// recomputing them is a few integer adds.
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   asm volatile("" : "+r"(x));
   return x;
@@ -328,10 +313,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ---------------------------------------------------------------- kernel D
 
-template <int DK, int DV, int PART>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dkv_wgmma_kernel(const BwdParams a) {
-  constexpr bool WANT_DV = PART != kDkOnly, WANT_DK = PART != kDvOnly;
   constexpr int NC = slabs<DK>();        // dk's 64-column slabs
   constexpr int NCV = slabs<DV>();       // dv's
   constexpr int KS = 4 * NC;
@@ -370,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const bool ok = t < a.Tq;
       const long long si = ((long long)b * a.Tq + (ok ? t : 0)) * a.Hq + h;
       cp_async4(sL + buf * kTile + tid, a.lse + si, ok);
-      if (WANT_DK) cp_async4(sDl + buf * kTile + tid, a.delta + si, ok);
+      cp_async4(sDl + buf * kTile + tid, a.delta + si, ok);
       if (a.has_seg)
         cp_async4(sQs + buf * kTile + tid,
                   a.qseg + b * a.qs_sb + (ok ? t : 0), ok);
@@ -378,8 +362,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
 
   load_tile<DK, kTile, kThreads>(sK, kb, a.k_st, k0, a.Tk, threadIdx.x);
-  if (WANT_DK)
-    load_tile<DV, kTile, kThreads>(sV, vb, a.v_st, k0, a.Tk, threadIdx.x);
+  load_tile<DV, kTile, kThreads>(sV, vb, a.v_st, k0, a.Tk, threadIdx.x);
   if (a.has_seg && tid < kTile) {
     const bool ok = k0 + tid < a.Tk;
     cp_async4(sKs + tid, a.kseg + b * a.ks_sb + (ok ? k0 + tid : 0), ok);
@@ -426,15 +409,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int ks = 0; ks < KS; ++ks)
       mma_ss(st, kmajor<kTile>(k_at, ks), kmajor<kTile>(qt, ks));
     wg_commit();
-    if constexpr (WANT_DK) {
 #pragma unroll
-      for (int ks = 0; ks < KSV; ++ks)
-        mma_ss(dpt, kmajor<kTile>(v_at, ks), kmajor<kTile>(gt, ks));
-      wg_commit();
-      wg_wait<1>();
-    } else {
-      wg_wait<0>();
-    }
+    for (int ks = 0; ks < KSV; ++ks)
+      mma_ss(dpt, kmajor<kTile>(v_at, ks), kmajor<kTile>(gt, ks));
+    wg_commit();
+    wg_wait<1>();
     fence_regs(st);
 
     // interior tiles (every pair attends) come from the forward's table
@@ -456,10 +435,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       st[i] = ok ? exp2_approx(fmaf(st[i], scale2, -Lq * kLog2e)) : 0.f;
     }
-    if constexpr (WANT_DK) {
-      wg_wait<0>();
-      fence_regs(dpt);
-    }
+    wg_wait<0>();
+    fence_regs(dpt);
 
     // pᵀ and dsᵀ = pᵀ·(dpᵀ − delta)·scale in bf16: the A fragments of
     // dv += pᵀ·do and dk += dsᵀ·q
@@ -469,73 +446,59 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
         const int i = 8 * kk + 2 * f;
-        if constexpr (WANT_DV) pa[kk][f] = pack_bf16(st[i], st[i + 1]);
-        if constexpr (WANT_DK) {
-          const float2 d =
-              *reinterpret_cast<const float2*>(Dl + 8 * (i >> 2) + c0);
-          da[kk][f] = pack_bf16(st[i] * (dpt[i] - d.x) * a.scale,
-                                st[i + 1] * (dpt[i + 1] - d.y) * a.scale);
-        }
+        pa[kk][f] = pack_bf16(st[i], st[i + 1]);
+        const float2 d =
+            *reinterpret_cast<const float2*>(Dl + 8 * (i >> 2) + c0);
+        da[kk][f] = pack_bf16(st[i] * (dpt[i] - d.x) * a.scale,
+                              st[i + 1] * (dpt[i + 1] - d.y) * a.scale);
       }
     wg_fence();
-    if constexpr (WANT_DV) {
 #pragma unroll
-      for (int c = 0; c < NCV; ++c)
+    for (int c = 0; c < NCV; ++c)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          mma_rs(dv[c], pa[kk], mnmajor<kTile>(gt, c, kk));
-    }
-    if constexpr (WANT_DK) {
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(dv[c], pa[kk], mnmajor<kTile>(gt, c, kk));
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          mma_rs(dk[c], da[kk], mnmajor<kTile>(qt, c, kk));
-    }
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(dk[c], da[kk], mnmajor<kTile>(qt, c, kk));
     wg_commit();
     wg_wait<0>();
-    if constexpr (WANT_DK) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) fence_regs(dk[c]);
+    for (int c = 0; c < NC; ++c) fence_regs(dk[c]);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) fence_regs(da[kk]);
-    }
-    if constexpr (WANT_DV) {
+    for (int kk = 0; kk < 4; ++kk) fence_regs(da[kk]);
 #pragma unroll
-      for (int c = 0; c < NCV; ++c) fence_regs(dv[c]);
+    for (int c = 0; c < NCV; ++c) fence_regs(dv[c]);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-    }
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
     __syncthreads();  // the buffers are free for the item after next
   }
   cp_async_wait<0>();
 
-  if constexpr (WANT_DK) {
-    bf16* ko = static_cast<bf16*>(a.dk) + b * a.dk_sb + hk * a.dk_sh;
+  bf16* ko = static_cast<bf16*>(a.dk) + b * a.dk_sb + hk * a.dk_sh;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int t = k0 + kr[(i >> 1) & 1];
-        const int col = 64 * c + 8 * (i >> 2) + c0;
-        if (t < a.Tk && col < DK)
-          *reinterpret_cast<__nv_bfloat162*>(ko + t * a.dk_st + col) =
-              __floats2bfloat162_rn(dk[c][i], dk[c][i + 1]);
-      }
-  }
-  if constexpr (WANT_DV) {
-    bf16* vo = static_cast<bf16*>(a.dv) + b * a.dv_sb + hk * a.dv_sh;
+    for (int i = 0; i < 32; i += 2) {
+      const int t = k0 + kr[(i >> 1) & 1];
+      const int col = 64 * c + 8 * (i >> 2) + c0;
+      if (t < a.Tk && col < DK)
+        *reinterpret_cast<__nv_bfloat162*>(ko + t * a.dk_st + col) =
+            __floats2bfloat162_rn(dk[c][i], dk[c][i + 1]);
+    }
+  bf16* vo = static_cast<bf16*>(a.dv) + b * a.dv_sb + hk * a.dv_sh;
 #pragma unroll
-    for (int c = 0; c < NCV; ++c)
+  for (int c = 0; c < NCV; ++c)
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int t = k0 + kr[(i >> 1) & 1];
-        const int col = 64 * c + 8 * (i >> 2) + c0;
-        if (t < a.Tk && col < DV)
-          *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + col) =
-              __floats2bfloat162_rn(dv[c][i], dv[c][i + 1]);
-      }
-  }
+    for (int i = 0; i < 32; i += 2) {
+      const int t = k0 + kr[(i >> 1) & 1];
+      const int col = 64 * c + 8 * (i >> 2) + c0;
+      if (t < a.Tk && col < DV)
+        *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + col) =
+            __floats2bfloat162_rn(dv[c][i], dv[c][i + 1]);
+    }
 }
 
 // ---------------------------------------------------------------- launch
@@ -552,15 +515,15 @@ cudaError_t launch_dq(const BwdParams& p, int nq, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int DK, int DV, int PART>
+template <int DK, int DV>
 cudaError_t launch_dkv(const BwdParams& p, int nk, int Hkv, int B,
                        cudaStream_t s) {
   const size_t smem = dkv_smem_bytes<DK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<DK, DV, PART>,
+      flash_bwd_dkv_wgmma_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_wgmma_kernel<DK, DV, PART>
+  flash_bwd_dkv_wgmma_kernel<DK, DV>
       <<<dim3(Hkv, nk, B), kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
@@ -580,10 +543,8 @@ extern "C" int repro_flash_bwd_dq_sm90(const void* q, const void* k,
   const BwdParams p = repro_bwd::dq_args(q, k, v, o, dout, lse, delta, dq,
                                          bounds, qseg, kseg, ia, scale, &sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (sh.D == 192 && sh.Dv == 128)
-    return static_cast<int>(launch_dq<192, 128>(p, sh.nq, sh.B, s));
-  if (sh.Dv != sh.D) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.dtype != 1 || sh.Dv != sh.D)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (sh.D) {
     case 32: return static_cast<int>(launch_dq<32, 32>(p, sh.nq, sh.B, s));
     case 64: return static_cast<int>(launch_dq<64, 64>(p, sh.nq, sh.B, s));
@@ -594,8 +555,7 @@ extern "C" int repro_flash_bwd_dq_sm90(const void* q, const void* k,
 }
 
 // Kernel D, bf16.  Reads delta (written by kernel C or passed in); writes
-// dk and dv (at 192 / 128 in two launches, dv's pass then dk's).  Returns
-// the CUDA error code of the launches (0 = launched).
+// dk and dv.  Returns the CUDA error code of the launch (0 = launched).
 extern "C" int repro_flash_bwd_dkv_sm90(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const void* lse, const void* delta,
@@ -610,36 +570,25 @@ extern "C" int repro_flash_bwd_dkv_sm90(const void* q, const void* k,
                                           bounds, qbounds, qseg, kseg, ia,
                                           scale, &sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (sh.D == 192 && sh.Dv == 128) {
-    const cudaError_t e =
-        launch_dkv<192, 128, kDvOnly>(p, sh.nk, sh.Hkv, sh.B, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(
-        launch_dkv<192, 128, kDkOnly>(p, sh.nk, sh.Hkv, sh.B, s));
-  }
-  if (sh.Dv != sh.D) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.dtype != 1 || sh.Dv != sh.D)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (sh.D) {
     case 32:
       return static_cast<int>(
-          launch_dkv<32, 32, kBoth>(p, sh.nk, sh.Hkv, sh.B, s));
+          launch_dkv<32, 32>(p, sh.nk, sh.Hkv, sh.B, s));
     case 64:
       return static_cast<int>(
-          launch_dkv<64, 64, kBoth>(p, sh.nk, sh.Hkv, sh.B, s));
+          launch_dkv<64, 64>(p, sh.nk, sh.Hkv, sh.B, s));
     case 128:
       return static_cast<int>(
-          launch_dkv<128, 128, kBoth>(p, sh.nk, sh.Hkv, sh.B, s));
+          launch_dkv<128, 128>(p, sh.nk, sh.Hkv, sh.B, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1, each of its
-// passes) at head dims (dk, dv), in bytes; 0 for a pair the kernels do not
-// take.
+// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1) at head dims
+// (dk, dv), in bytes; 0 for a pair the kernels do not take.
 extern "C" int repro_flash_bwd_sm90_smem(int kernel, int dk, int dv) {
-  if (dk == 192 && dv == 128)
-    return static_cast<int>(kernel ? dkv_smem_bytes<192, 128>()
-                                   : dq_smem_bytes<192, 128>());
   if (dk != dv) return 0;
   switch (dk) {
     case 32: return static_cast<int>(kernel ? dkv_smem_bytes<32, 32>()

@@ -47,12 +47,12 @@ bf16 inputs (the training path's) run on the tensor cores
 (``csrc/flash_bwd_sm90.cu``, ``wgmma``), float32 inputs on the CUDA cores
 (``csrc/flash_bwd.cu``, IEEE float32 products for the float32 bar).  The
 pair of ``PAIR_DIMS`` (q/k 192, v 128: materialised MLA, which the MoE
-model trains through) takes the same two libraries, whose entry points
-launch their <192, 128> instantiations (bf16 D as two passes over the same
-grid, dv's then dk's: its accumulators do not fit one pass's registers);
-v may be a strided view, dk and dv are fresh contiguous tensors.  The
-latent pair stays forward-only (absorbed MLA is never trained), and any
-other pair raises.  On a
+model trains through) takes ``PAIR_BWD_ROUTES``: bf16 on the tensor cores
+(``csrc/flash_bwd_pair_sm90.cu``: a TMA producer warp and two consumer
+warpgroups that hand p across, D in one pass), float32 the CUDA-core
+library's <192, 128>; v may be a strided view, dk and dv are fresh
+contiguous tensors.  The latent pair stays forward-only (absorbed MLA is
+never trained), and any other pair raises.  On a
 CPU tensor it runs :func:`~repro_torch.kernels.ref.chunk_attn_bwd_ref`.
 :class:`FlashAttnFn` makes the pair differentiable.
 """
@@ -101,6 +101,9 @@ PAIR_DIMS = ((192, 128),)
 # kernels C and D: (library, entry-point suffix) by dtype
 BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
               torch.bfloat16: ("flash_bwd_sm90", "_sm90")}
+# kernels C and D at the pairs of PAIR_DIMS, by dtype
+PAIR_BWD_ROUTES = {torch.float32: ("flash_bwd", ""),
+                   torch.bfloat16: ("flash_bwd_pair_sm90", "_pair_sm90")}
 
 _FNS = {}
 
@@ -399,7 +402,8 @@ class _BwdPlan:
                       delta.to(device=dev, dtype=torch.float32).contiguous())
         self.q, self.k, self.v, self.o, self.do = q, k, v, o, do
         self.mask = mask
-        self.lib, self.suffix = BWD_ROUTES[q.dtype]
+        routes = BWD_ROUTES if v.shape[-1] == q.shape[-1] else PAIR_BWD_ROUTES
+        self.lib, self.suffix = routes[q.dtype]
         if q.dtype == torch.bfloat16:
             _check_aligned(q=q, k=k, v=v, o=o, do=do)
 

@@ -824,8 +824,8 @@ PAIR_BWD = [
                          ids=[f"B{c[0]}x{c[1]}x{c[2]}{c[4].kind}{c[5]}"
                               for c in PAIR_BWD])
 def test_pair_bwd_kernels_match_plain(dev, case, dtype):
-    """Kernels C and D at q/k 192, v 128 (bf16 on the tensor cores, D in
-    two passes; float32 on the CUDA cores) against the plain backward on
+    """Kernels C and D at q/k 192, v 128 (bf16 on the tensor cores, the
+    pair library; float32 on the CUDA cores) against the plain backward on
     the same saved (o, lse): the backward bars (bf16 also row by row),
     the pruned sweep equal to the dense one, one launch of each counted,
     dk and dv contiguous in k's and v's shapes."""
@@ -860,6 +860,53 @@ def test_pair_bwd_kernels_match_plain(dev, case, dtype):
                                        rtol=tol)
             if dtype == torch.bfloat16:
                 assert row_rel_err(a, r) <= 2e-2
+
+def _pair_train_inputs(dev, seed):
+    """Phase 14's backward shape: B 1, T 8192, 16 heads, causal, q/k 192, v
+    the strided last 128 columns of a (.., 256) tensor, bf16, with (o, lse)
+    from kernel A's pair route."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = _pair_chunk(gen, dev, torch.bfloat16, 1, 8192, 8192, 16, 16,
+                          "kv")
+    do = _randn(gen, (1, 8192, 16, 128), torch.bfloat16, dev)
+    o, lse = flash_fwd(q, k, v, mask=mk.causal(), scale=PAIR_SCALE)
+    return q, k, v, o, lse, do
+
+
+def test_pair_bwd_bf16_route_is_deterministic(dev):
+    """Two launches of kernels C and D's bf16 pair route at phase 14's shape
+    give bitwise equal dq, dk and dv (a fixed sweep order, no atomics)."""
+    q, k, v, o, lse, do = _pair_train_inputs(dev, 34)
+    kw = dict(mask=mk.causal(), scale=PAIR_SCALE)
+    first = flash_bwd(q, k, v, o, lse, do, **kw)
+    second = flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_pair_bwd_dkv_is_one_launch_of_one_kernel(dev):
+    """At q/k 192, v 128, kernel D is one launch of one kernel (sᵀ computed
+    once per tile pair, no second pass), and kernel C one launch too: the
+    profiler sees exactly one device kernel for each call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (_BwdPlan, _launch_dkv,
+                                                     _launch_dq)
+    q, k, v, o, lse, do = _pair_train_inputs(dev, 35)
+    pl = _BwdPlan(q, k, v, o, lse, do, mk.causal(), None, None, None, True)
+    _launch_dq(pl, PAIR_SCALE)     # builds and warms both
+    _launch_dkv(pl, PAIR_SCALE)
+    torch.cuda.synchronize()
+    for launch, name in ((_launch_dq, "flash_bwd_dq_pair_kernel"),
+                         (_launch_dkv, "flash_bwd_dkv_pair_kernel")):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            launch(pl, PAIR_SCALE)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type.name == "CUDA"]
+        assert len(kernels) == 1 and name in kernels[0], kernels
+
 
 def test_deepseek_engine_on_card_matches_cpu(dev):
     """Smoke deepseek-v2-lite-16b (float32, 2 layers, an MoE layer of 4

@@ -68,6 +68,7 @@ def test_port_covers_the_slice_layout():
                 "launch/serve.py", "configs/llama_7b.py",
                 "configs/llama_gqa.py", "kernels/csrc/flash_bwd.cu",
                 "kernels/csrc/flash_bwd_sm90.cu",
+                "kernels/csrc/flash_bwd_pair_sm90.cu",
                 "kernels/csrc/flash_bwd_common.cuh",
                 "kernels/csrc/flash_fwd_sm90.cu",
                 "kernels/csrc/flash_fwd_common.cuh",

@@ -361,6 +361,70 @@ def test_bf16_backward_row_gate_passes_rounded_p_ds_rejects_missing_tile():
         assert row_rel_err(b, r) > 5 * ROW_TOL
 
 
+def _pair_route_bwd(q, k, v, o, lse, do, mask, scale):
+    """Kernels C and D's bf16 pair route (q/k 192, v 128) emulated on the
+    CPU: float32 scores and p; D in one pass, pᵀ handed across in float32,
+    dv from bf16 pᵀ, dk from bf16 dsᵀ; C takes ds as two bf16 terms (hi and
+    the rounding remainder lo) into two float32 accumulators, dq = hi·k +
+    lo·k added at the end."""
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    allow = mask.allow(mask.q_offset + torch.arange(q.shape[1])[:, None],
+                       mask.kv_offset + torch.arange(k.shape[1])[None, :])
+    p = torch.where(allow, torch.exp(s - lse.transpose(1, 2)[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (of * dof).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) * scale
+    hi = ds.to(torch.bfloat16).float()
+    lo = (ds - hi).to(torch.bfloat16).float()
+    dq = (torch.einsum("bhqk,bkhd->bqhd", hi, kf)
+          + torch.einsum("bhqk,bkhd->bqhd", lo, kf))
+    dk = torch.einsum("bhqk,bqhd->bkhd", hi, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(torch.bfloat16).float(), dof)
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def test_bf16_pair_backward_route_passes_row_gate_rejects_missing_tile():
+    """The arithmetic of kernels C and D's bf16 pair route (q/k 192, v 128,
+    v the strided last 128 columns of a (.., 256) array, causal, 1/√192),
+    emulated on the CPU, meets the per-row bar the card holds it to (2e-2)
+    against the plain backward and against the reference's
+    ``flash_bwd_bhtd`` in interpret mode, by a margin; the bar rejects a
+    plain backward that never visits the last 64-key tile."""
+    rng = np.random.default_rng(24)
+    T, H, scale = 512, 2, 192 ** -0.5
+    q = rng.standard_normal((1, T, H, 192)).astype(np.float32)
+    k = rng.standard_normal((1, T, H, 192)).astype(np.float32)
+    kv = rng.standard_normal((1, T, H, 256)).astype(np.float32)
+    do = rng.standard_normal((1, T, H, 128)).astype(np.float32)
+    r_mask, t_mask = _spec_pair("causal")
+    bf = jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(x, bf) for x in (q, k, kv[..., 128:], do))
+    o, lse = r_chunk_attn_ref(jq, jk, jv, mask=r_mask, scale=scale)
+    ref = ops.flash_bwd(jq, jk, jv, o, lse, jdo, mask=r_mask, scale=scale,
+                        block_q=64, block_kv=64, interpret=True)
+    tq, tk, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, do))
+    tv = torch.from_numpy(kv).to(torch.bfloat16)[..., 128:]
+    assert tv.stride()[2] == 256
+    to = torch.from_numpy(np.array(o, np.float32)).to(torch.bfloat16)
+    tlse = torch.from_numpy(np.array(lse))
+    plain = chunk_attn_bwd_ref(tq, tk, tv, to, tlse, tdo, mask=t_mask,
+                               scale=scale)
+    emu = _pair_route_bwd(tq, tk, tv, to, tlse, tdo, t_mask, scale)
+    bq, bk, bv = chunk_attn_bwd_ref(tq, tk[:, :-64], tv[:, :-64], to, tlse,
+                                    tdo, mask=t_mask, scale=scale)
+    pad = torch.zeros_like(tk[:, -64:, :, :1])
+    bad = (bq, torch.cat([bk, pad.expand(-1, -1, -1, 192)], 1),
+           torch.cat([bv, pad.expand(-1, -1, -1, 128)], 1))
+    for e, b, p, r in zip(emu, bad, plain, ref):
+        r = torch.from_numpy(np.asarray(r, np.float32))
+        assert e.shape == p.shape == r.shape
+        assert row_rel_err(e, p) <= ROW_TOL / 2
+        assert row_rel_err(e, r) <= ROW_TOL / 2
+        assert row_rel_err(b, p) > 5 * ROW_TOL
+
+
 def test_bwd_routes_and_row_alignment():
     """Kernels C and D: bf16 goes to the tensor-core library, float32 to
     the CUDA-core one, both built by ``build.py``; the tensor-core route,
@@ -546,11 +610,12 @@ def test_pair_routes_by_dtype_tables_and_refusals(monkeypatch):
     equals the reference's range math at those sizes.  A bf16 call whose
     rows do not start on 16 bytes and a pair outside ``PAIR_DIMS`` raise
     before any build or launch; the backward plans the pair (kernels C and
-    D at 192 / 128, by dtype through ``BWD_ROUTES``) and refuses the
+    D at 192 / 128, by dtype through ``PAIR_BWD_ROUTES``: bf16 to the
+    pair library, float32 to the CUDA-core one) and refuses the
     others."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import (BWD_ROUTES,
-                                                     LATENT_ROUTES,
+    from repro_torch.kernels.flash_attention import (LATENT_ROUTES,
+                                                     PAIR_BWD_ROUTES,
                                                      PAIR_DIMS, PAIR_ROUTES,
                                                      _BwdPlan,
                                                      _device_bounds,
@@ -561,6 +626,9 @@ def test_pair_routes_by_dtype_tables_and_refusals(monkeypatch):
                                "repro_flash_fwd_pair_sm90", 128, 64)
     assert PAIR_ROUTES[f32] == LATENT_ROUTES[f32]
     assert {r[0] for r in PAIR_ROUTES.values()} <= set(build.KERNELS)
+    assert PAIR_BWD_ROUTES == {bf: ("flash_bwd_pair_sm90", "_pair_sm90"),
+                               f32: ("flash_bwd", "")}
+    assert {r[0] for r in PAIR_BWD_ROUTES.values()} <= set(build.KERNELS)
     assert "flash_fwd_pair" in build.LAUNCHES
     for T, Tk, kind, kw in ((4096, 4096, "causal", {}),
                             (256, 1024, "sliding_window",
@@ -596,7 +664,7 @@ def test_pair_routes_by_dtype_tables_and_refusals(monkeypatch):
         v = torch.zeros((1, 8, 4, 128), dtype=dt)
         pl = _BwdPlan(q, q, v, v, torch.zeros((1, 8, 4)), v, tmk.causal(),
                       None, None, None, True)
-        assert (pl.lib, pl.suffix) == BWD_ROUTES[dt]
+        assert (pl.lib, pl.suffix) == PAIR_BWD_ROUTES[dt]
         for dv in (64, 192 + 64):
             w = torch.zeros((1, 8, 4, dv), dtype=dt)
             with pytest.raises(ValueError, match="head dims"):
