@@ -66,7 +66,13 @@ Phases, each fatal on failure (nothing is caught):
                 gets the executor's inputs (o = 0, delta passed in).  Held
                 head slice by head slice to phase 3's limits; empty rows
                 must be (0, NEG_INF) and merge to the other partial; a
-                statically empty chunk launches nothing.
+                statically empty chunk launches nothing.  Then A, C and D's
+                pair routes (q/k 192, v 128, 16 heads, v a strided view)
+                under every distinct step of the balanced and zigzag plans
+                at P 4, Tl 8192, the backward with o zeros of v's width,
+                held to their plain versions at phase 3's bars (the
+                backward's must reject the control without the last key
+                tile).
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -129,7 +135,7 @@ Phases, each fatal on failure (nothing is caught):
                 through pinned host buffers), llama-7b's width (d_model
                 4096, 32 × 128 heads, d_ff 11008, vocab 32000, bf16) at
                 depth 2 on one global sequence of 32768 tokens (8192 a
-                rank), remat_aware: 3 balanced steps, 1 ring, 1 zigzag.
+                rank), remat_aware: 2 balanced steps, 1 ring, 1 zigzag.
                 Per rank and step: A, C and D launch counts equal to the
                 rank's Work items with a route that reaches an output
                 (the coverage rule, checked to compute every causal chunk
@@ -278,6 +284,37 @@ Phases, each fatal on failure (nothing is caught):
                 event time, plain versions, SDPA's autograd backward of the
                 pair (its backend named), bounds.
 
+  15. moe-ranks — (after phase 5: torch.profiler, which phase 5 reads, has
+                seen no device kernel in a process that ran phases 15 and
+                16 first) deepseek-v2-lite-16b trained across 4 ``gloo-staged``
+                ranks sharing the card, its 64 routed experts 16 a rank
+                (the dispatch's two all_to_alls, the aux loss's sums over
+                the ranks): full width cut to 3 of 27 layers (the dense
+                layer 0 and 2 MoE layers), one 16,384-token sequence a step
+                (4,096 a rank: the head's float32 logits of 32,768 tokens
+                do not fit 4 ranks on one card), capacity 480, bf16, seed
+                15, remat_aware: 3 balanced steps and 1 zigzag step.  One
+                process (P = 1) first runs the same weights and tokens
+                keeping the pairs each rank keeps of its own rows; the
+                ranks replay its expert choices.  Step 1's loss and aux
+                within 2^-8 of P = 1's, every gradient leaf (experts
+                gathered) within 5% of its max |g|, step 1's gnorm and
+                step 2's loss within 2^-8; the ranks agree; no step
+                skipped; A / C / D launches a step equal the plan's Work
+                items × layers.  Rejected controls: the return all_to_all
+                rotated by one rank, the aux without its cross-rank mean,
+                expert gradients also summed over the sequence ranks.
+  16. moe-serve — deepseek-v2-lite-16b at full size (nothing cut) across
+                4 ``gloo-staged`` ranks through ``FixedSlotEngine``: one
+                16,384-token prompt, a balanced whole-prompt prefill (A's
+                pair route under the plan's steps, the MoE dispatched over
+                the ranks), 32 greedy tokens over the sharded latent cache
+                (each step's expert outputs summed over the ranks).  Every
+                step's logits within 5% of max |logit| of one process on
+                the same weights and prompt (phase 13's path) replaying
+                the ranks' expert choices and kept pairs, teacher-forced on
+                their tokens; rejected controls: the decode without its sum
+                over the ranks' experts, the return all_to_all rotated.
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
 there is no CUDA device or the port is not beside this file.
@@ -290,6 +327,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1769,10 +1807,125 @@ def plan_step_checks():
         f"{n_empty_chunks} statically empty")
 
 
+PAIR_PLAN_SETS = (("balanced", mk.causal()), ("zigzag", mk.causal()))
+
+
+def _pair_plan_cases():
+    """The distinct kernel calls of ``PAIR_PLAN_SETS``'s plans at P 4, Tl
+    8192, and at the P and Tl with which phase 15's training and phase
+    16's prefill run these plans at q/k 192, v 128 (4,096 tokens a rank):
+    ``{(mask, chunk tokens): [labels]}``."""
+    cases = {}
+    runs = sorted({(PLAN_P, PLAN_TL), (P15_RANKS, P15_T // P15_RANKS),
+                   (P16_RANKS, P16_T // P16_RANKS)}, reverse=True)
+    for P, Tl in runs:
+        for sched, m in PAIR_PLAN_SETS:
+            plan = sp.build_plan(sched, m, P, Tl)
+            for backward in (False, True):
+                for si, p, _, _, km in sp.rank_calls(plan, backward):
+                    label = f"{sched} P{P} Tl{Tl} t{si} p{p}"
+                    key = (km, plan.chunk_len)
+                    if label not in cases.setdefault(key, []):
+                        cases[key].append(label)
+    return cases
+
+
+def pair_plan_step_checks():
+    """Phase 3c at materialised MLA's q/k 192, v 128 (16 heads, bf16,
+    scale 1/√192, v the last 128 columns of a 256-wide tensor): kernels
+    A, C and D's pair routes under every distinct plan-step mask of the
+    balanced and zigzag plans at P 4, Tl 8192 and phases 15 and 16's Tl
+    (``_pair_plan_cases``), with the executor's
+    backward inputs (o zeros of v's width, delta = rowsum(o ⊙ do) passed
+    in), held to their plain versions head slice by head slice at phase
+    3's bars (the backward's must reject the plain backward without the
+    last key tile); empty rows come out (0, NEG_INF)."""
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    bf = torch.bfloat16
+    cases = _pair_plan_cases()
+    for (m, c), labels in cases.items():
+        q = randn(gen, (1, c, PAIR_H, PAIR_DK), bf)
+        k = randn(gen, (1, c, PAIR_H, PAIR_DK), bf)
+        v = randn(gen, (1, c, PAIR_H, 2 * PAIR_DV), bf)[..., PAIR_DV:]
+        do = randn(gen, (1, c, PAIR_H, PAIR_DV), bf)
+        kw = dict(mask=m, scale=LAT_SCALE)
+        empty = _device_bounds(m, c, c, True, str(DEV),
+                               PAIR_ROUTES[bf][2])[1]
+        n0 = dict(build.LAUNCHES)
+        o, lse = flash_fwd(q, k, v, **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        zero = torch.zeros_like(do)
+        got = flash_bwd(q, k, v, zero, lse, do, delta=delta, **kw)
+        torch.cuda.synchronize()
+        want = 0 if empty else 1
+        for name in P14_KERNELS:
+            check(build.LAUNCHES[name] - n0[name] == want,
+                  f"pair plan step {labels[0]}: {name} launched "
+                  f"{build.LAUNCHES[name] - n0[name]} times, want {want}")
+        e = dict(o=0.0, lse=0.0, rel=0.0)
+        dead = 0
+        for sq, skv in _head_slices(q, k):
+            o_r, lse_r = chunk_attn_ref(q[:, :, sq], k[:, :, skv],
+                                        v[:, :, skv], **kw)
+            oh, lh = o[:, :, sq], lse[:, :, sq]
+            check(torch.allclose(oh.float(), o_r.float(), atol=TOL[bf],
+                                 rtol=TOL[bf]),
+                  f"pair plan step {labels[0]}: o over {TOL[bf]}")
+            e["o"] = max(e["o"], float((oh.float() - o_r.float()).abs()
+                                       .max()))
+            e["rel"] = max(e["rel"], rel_err(oh, o_r))
+            gone = lse_r <= NEG_INF / 2
+            dead += int(gone.sum())
+            check(bool((lh[gone] == NEG_INF).all() and (oh[gone] == 0).all()),
+                  f"pair plan step {labels[0]}: an empty row is not "
+                  f"(0, NEG_INF)")
+            if (~gone).any():
+                e["lse"] = max(e["lse"], float((lh - lse_r).abs()[~gone]
+                                               .max()))
+            del o_r, lse_r
+        check(e["rel"] <= REL_TOL, f"pair plan step {labels[0]}: o relative "
+              f"err {e['rel']} over {REL_TOL}")
+        args = (q, k, v, zero, lse, do)
+        bkw = dict(kw, delta=delta)
+        ref = _pair_bwd_ref(args, bkw)
+        bars = [_bwd_bar(a, r, bf) for a, r in zip(got, ref)]
+        check(all(b[0] for b in bars), f"pair plan step {labels[0]}: "
+              f"dq/dk/dv {bars}")
+        ctl = ""
+        if not empty:
+            bad = _pair_bwd_ref(args, bkw, cut=c - 64)
+            cb = [_bwd_bar(b, r, bf) for b, r in zip(bad, ref)]
+            check(not all(x[0] for x in cb), f"pair plan step {labels[0]}: "
+                  f"the bar does not reject the control without the last "
+                  f"key tile ({cb})")
+            ctl = "; control without the last key tile " + "/".join(
+                f"{x[2]:.2e}" for x in cb) + " (rejected)"
+            del bad
+        say(f"  pair {labels[0]:<27} {m.kind:<10} q_off {m.q_offset:>5} "
+            f"kv_off {m.kv_offset:>5} c {c}: max|Δo| {e['o']:.2e} rel "
+            f"{e['rel']:.2e} max|Δlse| {e['lse']:.2e}; dq/dk/dv "
+            + "/".join(f"{b[1]:.2e}" for b in bars) + " per-row "
+            + "/".join(f"{b[2]:.2e}" for b in bars)
+            + (f"; {dead} empty rows" if dead else "")
+            + ("; statically empty, no launch" if empty else "") + ctl
+            + f" ({len(labels)} rank-steps)")
+        del q, k, v, do, o, lse, got, zero, delta, ref
+        _free()
+    tls = {f"P{P15_RANKS} Tl{P15_T // P15_RANKS} ",
+           f"P{P16_RANKS} Tl{P16_T // P16_RANKS} "}
+    main = sum(any(t in x for t in tls for x in labels)
+               for labels in cases.values())
+    say(f"  {len(cases)} distinct pair plan-step kernel calls held to their "
+        f"plain versions, {main} of them calls of phases 15 and 16")
+
+
 # ----------------------------------------------------------------- phase 7
 
 P7_RANKS, P7_LAYERS, P7_T = 4, 2, 32768
-P7_RUNS = (("balanced", 3), ("ring", 1), ("zigzag", 1))
+# two balanced steps (the gates read steps 1 and 2), one ring, one zigzag:
+# a third balanced step went to keep the whole run near 1,000 s once
+# phases 15 and 16 joined it
+P7_RUNS = (("balanced", 2), ("ring", 1), ("zigzag", 1))
 P7_TIMEOUT = 600
 P7_TRANSPORT = "gloo-staged"       # four ranks, one card
 # P = 4 against P = 1 on the same weights and first batch (bf16, width,
@@ -2013,7 +2166,7 @@ def _p7_one(cfg, shape, ref_path):
 def multi_rank():
     """Phase 7: a gloo world of 4 ranks sharing the one card, training
     llama-7b's width at depth 2 on one sequence of 32768 tokens (8192 a
-    rank) under remat_aware: 3 balanced steps, 1 ring, 1 zigzag.  Before
+    rank) under remat_aware: 2 balanced steps, 1 ring, 1 zigzag.  Before
     the world starts, the same weights and batches run on one process
     (P = 1), for the per-token losses, gradients and first two steps the
     ranks are held to."""
@@ -3846,6 +3999,610 @@ def train_moe():
     return res
 
 
+# ------------------------------------------------------- phases 15 and 16
+
+class _Keep:
+    """The kept (token, choice) pairs of every MoE dispatch, through
+    ``models/moe.dispatch_slots`` while installed (``with keep:``): each
+    call's keep mask (n·k,) in call order (``seen``).  It may force them
+    instead, the slots then each kept pair's rank among its expert's kept
+    pairs: ``split`` — the call's rows cut into ``split`` equal blocks,
+    each dispatched on its own at ``cap`` slots an expert (the pairs P
+    ranks keep of their own rows); ``calls`` — recorded masks by call
+    order."""
+
+    def __init__(self, split=None, cap=None, calls=None):
+        self.split, self.cap, self.calls = split, cap, calls
+        self.seen = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._base = moe, moe.dispatch_slots
+        moe.dispatch_slots = self._slots
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.dispatch_slots = self._base
+
+    def _slots(self, flat_e, E, cap):
+        i = len(self.seen)
+        if self.split:
+            n = flat_e.shape[0] // self.split
+            keep = torch.cat([self._base(flat_e[j * n:(j + 1) * n], E,
+                                         self.cap)[1]
+                              for j in range(self.split)])
+        elif self.calls is not None and i < len(self.calls):
+            keep = self.calls[i].to(flat_e.device)
+            check(keep.shape == flat_e.shape, f"kept pairs of call {i}: "
+                  f"{tuple(keep.shape)} for {tuple(flat_e.shape)}")
+        else:
+            slot, keep = self._base(flat_e, E, cap)
+            self.seen.append(keep)
+            return slot, keep
+        hot = torch.nn.functional.one_hot(flat_e, E) * keep[:, None]
+        pos = ((hot.cumsum(dim=0) - 1) * hot).sum(dim=-1)
+        check(int(pos.max()) < cap, f"call {i}: {int(pos.max()) + 1} kept "
+              f"pairs for an expert of {cap} slots")
+        self.seen.append(keep)
+        return torch.where(keep, pos, torch.full_like(pos, cap)), keep
+
+
+@contextlib.contextmanager
+def _moe_fault(fault):
+    """A deliberately wrong MoE while the block runs (phases 15 and 16's
+    controls): ``"rotate"`` — the return ``all_to_all`` of every dispatch
+    rotated by one rank (each rank gets its next rank's results);
+    ``"aux"`` — the mean probabilities of the aux loss left without their
+    cross-rank mean; ``"psum"`` — ``moe_decode_apply``'s sum over the
+    ranks' experts left out; ``"grads"`` — the routed experts' gradients
+    also summed over the sequence axis (whose ranks hold other
+    experts)."""
+    from repro_torch.models import moe
+    from repro_torch.train import step as st
+    saved = []
+
+    def patch(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    if fault == "rotate":
+        a2a, n = moe.all_to_all, [0]
+
+        def rotated(comm, x, split, concat):
+            y = a2a(comm, x, split, concat)
+            n[0] += 1
+            return torch.roll(y, 1, dims=0) if n[0] % 2 == 0 else y
+        patch(moe, "all_to_all", rotated)
+    elif fault == "aux":
+        red = moe.all_reduce
+        patch(moe, "all_reduce",
+              lambda comm, x, op="sum": x if op == "mean" else red(comm, x,
+                                                                   op))
+    elif fault == "psum":
+        dec = TF.moe_decode_apply
+
+        def no_psum(p, x, cfg, *, group=None):
+            idle = None if group is None else types.SimpleNamespace(
+                size=group.size, rank=group.rank,
+                all_reduce_=lambda ts, op="sum": ts)
+            return dec(p, x, cfg, group=idle)
+        patch(TF, "moe_decode_apply", no_psum)
+    elif fault == "grads":
+        sg = st.sum_grads
+
+        def twice(model, params, grads):
+            grads, sharded = sg(model, params, grads)
+            model.expert_group.all_reduce_([g for g, s in zip(grads, sharded)
+                                            if s])
+            return grads, sharded
+        patch(st, "sum_grads", twice)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def _comm_seconds(comms):
+    """Host seconds the Comms spent blocked: shifts, all_to_alls, and
+    all-reduces / broadcasts / all-gathers."""
+    return dict(shift=sum(c.shift_wait_s for c in comms),
+                a2a=sum(c.a2a_s for c in comms),
+                reduce=sum(c.reduce_s + c.gather_s for c in comms))
+
+
+P15_ARCH, P15_SEED, P15_RANKS = "deepseek-v2-lite-16b", 15, 4
+# the dense layer 0 and 2 MoE layers: with a third MoE layer each rank
+# reserved 17.67 GiB (15.61 allocated), 70.7 GiB of the card for the four,
+# leaving under 8 GiB free beside their contexts
+P15_LAYERS = 3
+P15_T = 16384           # one sequence a step: 4,096 tokens a rank
+P15_CAP = 480           # slots an expert takes from a rank: 4096 · 6 · 1.25 / 64
+P15_RUNS = (("balanced", 3), ("zigzag", 1))
+P15_TIMEOUT = 900
+# P = 4 against P = 1 on the same weights, tokens, expert choices and kept
+# pairs: the logits are bf16, so the bar on the losses and the gradient
+# norm is one bf16 step of their size (phase 14's); gradients phase 14's
+# 5% of each leaf's max |g|
+P15_TOL = 2.0 ** -8
+
+
+def _p15_cfg():
+    return get_config(P15_ARCH).replace(n_layers=P15_LAYERS)
+
+
+def _p15_tc():
+    return TrainConfig(lr=1e-4, warmup_steps=1,
+                       total_steps=sum(n for _, n in P15_RUNS))
+
+
+def _p15_one(cfg, shape, tmp):
+    """P = 1 on this process under remat_aware, its MoE dispatches keeping
+    the pairs the 4 ranks keep of their own rows (``_Keep(split=4)``):
+    step 1's loss, ce, aux and gradients (saved on the host: the
+    replicated leaves at ``tmp/grads1.pt``, rank r's rows of the routed
+    experts' at ``tmp/grads1_r{r}.pt``), then two train steps from the
+    same weights (step 1's gradient norm, step 2's loss).  Its expert
+    choices, call by call, are saved at ``tmp/calls.pt`` for the ranks to
+    replay."""
+    one = DecoderLM(cfg, DEV)
+    params = trainable(one.init(seed=P15_SEED))
+    ds = SyntheticTokens(cfg, shape, device=DEV, seed=0)
+    b0 = ds.batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    rk, kp = _Router(), _Keep(split=P15_RANKS, cap=P15_CAP)
+    with rk, kp:
+        loss, met = one.loss(params, b0)
+        gs = torch.autograd.grad(loss, leaves(params))
+        first = [float(x.detach()) for x in (loss, met["ce"], met["aux"])]
+        sharded = TF.expert_mask(params)
+        torch.save([None if s else g.cpu() for g, s in zip(gs, sharded)],
+                   os.path.join(tmp, "grads1.pt"))
+        e = cfg.moe.n_routed // P15_RANKS
+        for r in range(P15_RANKS):
+            torch.save([g[r * e:(r + 1) * e].cpu() if s else None
+                        for g, s in zip(gs, sharded)],
+                       os.path.join(tmp, f"grads1_r{r}.pt"))
+        del gs, loss, met
+        step = make_train_step(one, _p15_tc())
+        opt = adamw.init(params)
+        s1 = step(params, opt, b0)
+        s2 = step(params, opt, ds.batch(1))
+    peak = torch.cuda.max_memory_allocated()
+    torch.save({"calls": [c.cpu() for c in rk.seen],
+                "keep": [k.cpu() for k in kp.seen]},
+               os.path.join(tmp, "calls.pt"))
+    names = _leaf_names(params)
+    del one, params, opt, step
+    _free()
+    return first, s1, s2, peak, names
+
+
+def _p15_grads(model, params, batch, calls):
+    """Step 1's loss, ce and aux on this rank and its own gradients (not
+    yet summed over the ranks), replaying ``calls``'s expert choices (this
+    rank's rows of P = 1's); and the pairs each dispatch kept."""
+    rk = _Router(calls=calls)
+    with rk, _Keep() as kp:
+        loss, met = model.loss(params, batch)
+        gs = torch.autograd.grad(loss, leaves(params))
+    return ([float(x.detach()) for x in (loss, met["ce"], met["aux"])],
+            list(gs), kp.seen)
+
+
+def _p15_summed(model, params, raw):
+    """``train.step.sum_grads`` of a copy of this rank's gradients."""
+    from repro_torch.train import step as st
+    return st.sum_grads(model, params, [g.clone() for g in raw])
+
+
+def _p15_grad_err(model, grads, sharded, ref, names):
+    """(worst leaf max|Δg| / max|g₁|, its name) of the ranks' summed
+    gradients against P = 1's ``ref`` (this rank's part of it, on the
+    host: the replicated leaves on rank 0, its rows of the experts on
+    every rank; None elsewhere).  Each rank measures its part on the card
+    and the numerators and denominators are max-reduced over the ranks
+    (a collective: every rank calls it)."""
+    num = torch.zeros(len(grads), device=DEV)
+    den = torch.zeros(len(grads), device=DEV)
+    for i, g in enumerate(grads):
+        if ref[i] is not None:
+            r = ref[i].to(DEV).float()
+            num[i] = (g.float() - r).abs().max()
+            den[i] = r.abs().max()
+            del r
+    model.expert_group.all_reduce_([num, den], op="max")
+    err = (num / den.clamp(min=1e-30)).cpu()
+    i = int(err.argmax())
+    return float(err[i]), names[i]
+
+
+def _p15_rank(rank, tmp):
+    """One rank of phase 15's world: step 1's loss, aux and gradients
+    replaying P = 1's expert choices (held to P = 1's), the same under each
+    planted fault (the gradient fault on the same gradients, with its
+    norm), then the train steps of ``P15_RUNS`` (the first two replaying
+    P = 1's choices)."""
+    mesh = make_local_mesh(seq=P15_RANKS, device=DEV)
+    p = mesh.coord("model")
+    cfg = _p15_cfg()
+    shape = ShapeSpec("chip15", P15_T, 1, "train")
+    models = {s: DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+        mesh, shape, schedule=s)) for s, _ in P15_RUNS}
+    data = {s: SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                               par=m.par) for s, m in models.items()}
+    bal = models["balanced"]
+    params = trainable(bal.init(seed=P15_SEED))
+    n = P15_T // P15_RANKS
+    rec = torch.load(os.path.join(tmp, "calls.pt"))
+    calls = [c[p * n:(p + 1) * n].to(DEV) for c in rec["calls"]]
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    out = {"rank": p, "transport": mesh.transport,
+           "expert_rows": tuple(params["moe_layers"][0]["moe"]["wg"].shape)}
+    rep = torch.load(os.path.join(tmp, "grads1.pt"))
+    ref = [x if p == 0 else None for x in rep]
+    for i, x in enumerate(torch.load(os.path.join(tmp, f"grads1_r{p}.pt"))):
+        if x is not None:
+            ref[i] = x
+    del rep
+    names = _leaf_names(params)
+    b0 = data["balanced"].batch(0)
+    first, raw, kept = _p15_grads(bal, params, b0, calls[:2 * n_moe])
+    out["first"] = first
+    # the pairs this rank kept are the ones P = 1 kept of its rows
+    out["kept_same"] = all(
+        torch.equal(k.cpu(), r.view(P15_RANKS, -1)[p])
+        for k, r in zip(kept, rec["keep"][:2 * n_moe]))
+    grads, sharded = _p15_summed(bal, params, raw)
+    out["grad_err"] = _p15_grad_err(bal, grads, sharded, ref, names)
+    del grads
+    out["faults"] = {}
+    # the gradient fault reuses step 1's gradients: only their sum changes
+    with _moe_fault("grads"):
+        grads, sharded = _p15_summed(bal, params, raw)
+    out["faults"]["grads"] = dict(first=first, grad_err=_p15_grad_err(
+        bal, grads, sharded, ref, names), gnorm=float(adamw.global_norm(
+            grads, sharded, bal.expert_group)))
+    del grads, raw
+    for fault in ("rotate", "aux"):
+        with _moe_fault(fault):
+            f, raw, _ = _p15_grads(bal, params, b0, calls[:2 * n_moe])
+        grads, sharded = _p15_summed(bal, params, raw)
+        out["faults"][fault] = dict(first=f, grad_err=_p15_grad_err(
+            bal, grads, sharded, ref, names))
+        del grads, raw
+        _free()
+    del ref
+    comms = list({id(c): c for m in models.values()
+                  for c in (m.seq_group, m.token_group, m.mesh.world)
+                  if c is not None}.values())
+    opt = adamw.init(params)
+    tc = _p15_tc()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, i = [], 0
+    for sched, k in P15_RUNS:
+        step = make_train_step(models[sched], tc)
+        for _ in range(k):
+            batch = data[sched].batch(i)
+            replay = (_Router(calls=calls[(2 + 2 * i) * n_moe:
+                                          (4 + 2 * i) * n_moe])
+                      if i < 2 else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            build.reset_launches()
+            c0 = _comm_seconds(comms)
+            t0 = time.perf_counter()
+            with replay:
+                m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            c1 = _comm_seconds(comms)
+            steps.append(dict(
+                schedule=sched, loss=m["loss"], ce=m["ce"], aux=m["aux"],
+                gnorm=m["gnorm"], sec=sec, skipped=m["skipped_nonfinite"],
+                comm={k2: c1[k2] - c0[k2] for k2 in c1},
+                launches={k2: build.LAUNCHES[k2] for k2 in P14_KERNELS}))
+            i += 1
+    out["steps"] = steps
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["peak_reserved"] = torch.cuda.max_memory_reserved()
+    return out
+
+
+def train_moe_ranks():
+    """Phase 15: a gloo world of 4 ranks sharing the one card trains
+    deepseek-v2-lite-16b at full width, depth cut to 3 of 27 layers (the
+    dense layer 0 and 2 MoE layers), its 64 routed experts 16 a rank,
+    one sequence of 16,384 tokens a step (4,096 a rank), bf16, seed-15
+    weights, under remat_aware: 3 balanced steps and 1 zigzag step.
+    Before the world starts, one process (P = 1) runs the same weights
+    and tokens through the same kernels, keeping the pairs the ranks keep
+    of their rows; the ranks replay its expert choices, so both compute
+    one function up to float order.  Three planted faults must be
+    rejected."""
+    t_all = time.perf_counter()
+    cfg = _p15_cfg()
+    m = cfg.moe
+    shape = ShapeSpec("chip15", P15_T, 1, "train")
+    n_moe = cfg.n_layers - m.n_dense_layers
+    from repro_torch.models.moe import capacity
+    check(capacity(cfg, P15_T // P15_RANKS) == P15_CAP,
+          f"capacity {capacity(cfg, P15_T // P15_RANKS)}, want {P15_CAP}")
+    want = {s: _plan_launches(s, P15_RANKS, P15_T) for s, _ in P15_RUNS}
+    say(f"  {cfg.name} at full width, {cfg.n_layers} of 27 layers "
+        f"({m.n_dense_layers} dense + {n_moe} MoE, "
+        f"{cfg.param_count() / 1e9:.2f} B params; {m.n_routed} routed "
+        f"experts, {m.n_routed // P15_RANKS} a rank), one sequence of "
+        f"{P15_T} tokens a step ({P15_T // P15_RANKS} a rank), bf16, seed "
+        f"{P15_SEED}; capacity {P15_CAP} an expert from each rank's "
+        f"{P15_T // P15_RANKS * m.top_k} pairs")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        first, s1, s2, peak1, names = _p15_one(cfg, shape, tmp)
+        say(f"  P = 1 ({time.perf_counter() - t0:.1f} s, peak "
+            f"{peak1 / 2**30:.2f} GiB): step 1 loss {first[0]:.6f} ce "
+            f"{first[1]:.6f} aux {first[2]:.6e}; train step 1 loss "
+            f"{s1['loss']:.6f} gnorm {s1['gnorm']:.4f}, step 2 loss "
+            f"{s2['loss']:.6f}")
+        _free()
+        t0 = time.perf_counter()
+        res = spawn(_p15_rank, P15_RANKS, (tmp,), device=DEV,
+                    timeout=P15_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    r0 = res[0]
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    check(all(r["expert_rows"][0] == m.n_routed // P15_RANKS for r in res),
+          f"expert leaves {[r['expert_rows'] for r in res]}")
+    check(all(r["kept_same"] for r in res), "a rank kept other pairs than "
+          "P = 1 kept of its rows")
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    d_loss, d_aux = rel(r0["first"][0], first[0]), rel(r0["first"][2],
+                                                        first[2])
+    err, leaf = r0["grad_err"]
+    st = r0["steps"]
+    d_gn, d_l2 = rel(st[0]["gnorm"], s1["gnorm"]), rel(st[1]["loss"],
+                                                       s2["loss"])
+    say(f"  P = 4 vs P = 1, step 1: loss {r0['first'][0]:.6f} relative |Δ| "
+        f"{d_loss:.3e}, aux {r0['first'][2]:.6e} relative |Δ| {d_aux:.3e} "
+        f"(limit {P15_TOL:.3e}); worst gradient leaf max|Δg| / max|g| "
+        f"{err:.4f} ({leaf}; limit {GRAD_REL_TOL}); gnorm "
+        f"{st[0]['gnorm']:.4f} vs {s1['gnorm']:.4f} relative |Δ| "
+        f"{d_gn:.3e}; step 2 loss {st[1]['loss']:.6f} vs {s2['loss']:.6f} "
+        f"relative |Δ| {d_l2:.3e} (limits {P15_TOL:.3e})")
+    check(d_loss <= P15_TOL and d_aux <= P15_TOL, f"step 1 loss {d_loss} / "
+          f"aux {d_aux} vs P = 1")
+    check(err <= GRAD_REL_TOL, f"gradients vs P = 1: {leaf} {err}")
+    check(d_gn <= P15_TOL and d_l2 <= P15_TOL, f"step 1 gnorm {d_gn}, step "
+          f"2 loss {d_l2} vs P = 1")
+    fl = {f: r0["faults"][f] for f in ("rotate", "aux", "grads")}
+    agree = {f: len({tuple(r["faults"][f]["first"]) for r in res}) == 1
+             for f in fl}
+    ctl = {f: dict(loss=rel(x["first"][0], first[0]),
+                   aux=max(rel(r["faults"][f]["first"][2], first[2])
+                           for r in res),
+                   grad=x["grad_err"][0]) for f, x in fl.items()}
+    d_gn_ctl = rel(fl["grads"]["gnorm"], s1["gnorm"])
+    say("  controls (step 1, relative |Δloss| / worst rank's |Δaux| / worst "
+        "leaf |Δg|; ranks agree): " + "; ".join(
+            f"{f} {c['loss']:.3e} / {c['aux']:.3e} / {c['grad']:.4f}; "
+            f"{agree[f]}" for f, c in ctl.items())
+        + f"; gradient fault's gnorm relative |Δ| {d_gn_ctl:.3e}")
+    check(ctl["rotate"]["grad"] > GRAD_REL_TOL, "the gradient limit does "
+          f"not reject the rotated return all_to_all ({ctl['rotate']})")
+    check(ctl["aux"]["aux"] > P15_TOL or not agree["aux"], "neither the aux "
+          f"limit nor the ranks' agreement rejects the aux without its "
+          f"cross-rank mean ({ctl['aux']})")
+    check(ctl["grads"]["grad"] > GRAD_REL_TOL, f"the gradient limit does "
+          f"not reject expert gradients summed over the sequence axis "
+          f"({ctl['grads']})")
+    check(d_gn_ctl > P15_TOL, f"the gnorm limit does not reject expert "
+          f"gradients summed over the sequence axis ({d_gn_ctl})")
+    launches = {k: 0 for k in P14_KERNELS}
+    for r in res:
+        for i, s in enumerate(r["steps"]):
+            check(s["skipped"] == 0, f"rank {r['rank']} step {i + 1} "
+                  "skipped")
+            check(all(np.isfinite(s[k]) for k in ("loss", "ce", "aux")),
+                  f"rank {r['rank']} step {i + 1}: {s}")
+            w = cfg.n_layers * want[s["schedule"]][r["rank"]]
+            check(all(s["launches"][k] == w for k in P14_KERNELS),
+                  f"rank {r['rank']} step {i + 1} ({s['schedule']}): "
+                  f"launches {s['launches']}, want {w} each")
+            for k in P14_KERNELS:
+                launches[k] += s["launches"][k]
+        say(f"  rank {r['rank']}: peak {r['peak'] / 2**30:.2f} GiB "
+            f"allocated, {r['peak_reserved'] / 2**30:.2f} reserved; "
+            "launches A/C/D a step " + ", ".join(
+                f"{s['schedule']} " + "/".join(
+                    str(s["launches"][k]) for k in P14_KERNELS)
+                for s in r["steps"]))
+    for i, s in enumerate(st):
+        vals = {(r["steps"][i]["loss"], r["steps"][i]["gnorm"]) for r in res}
+        check(len(vals) == 1, f"step {i + 1}: ranks disagree {vals}")
+        say(f"  step {i + 1} {s['schedule']:<8} loss {s['loss']:.5f} ce "
+            f"{s['ce']:.5f} aux {s['aux']:.6e} gnorm {s['gnorm']:.4f} "
+            f"{max(r['steps'][i]['sec'] for r in res):.3f} s; host blocked "
+            "in shifts / all_to_alls / all-reduces, per rank: " + ", ".join(
+                "/".join(f"{r['steps'][i]['comm'][k]:.3f}"
+                         for k in ("shift", "a2a", "reduce")) for r in res)
+            + " s")
+    say(f"  world of {P15_RANKS} ranks: {wall:.1f} s, spawn included")
+    out = dict(launches=launches, d_loss=d_loss, d_aux=d_aux, grad_err=err,
+               d_gnorm=d_gn, d_loss2=d_l2, controls=ctl, d_gnorm_ctl=d_gn_ctl,
+               peaks=[r["peak"] for r in res], peak1=peak1,
+               step_s=[max(r["steps"][i]["sec"] for r in res)
+                       for i in range(len(st))],
+               seconds=time.perf_counter() - t_all)
+    say(f"  phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
+P16_SEED, P16_RANKS = 16, 4
+P16_T, P16_NEW = 16384, 32      # one prompt, 4,096 tokens a rank
+P16_CTL_GEN = 4                 # decode steps of the decode fault's run
+P16_WARM_T = 256
+P16_TIMEOUT = 900
+
+
+def _p16_rank(rank, tmp):
+    """One rank of phase 16's world: deepseek-v2-lite-16b at full size, its
+    routed experts 16 a rank; a warm-up, then one 16,384-token prompt
+    through ``FixedSlotEngine`` (balanced whole-prompt prefill across the
+    ranks, the latent cache sharded along the sequence, 32 greedy tokens),
+    recording every MoE call's expert choices and kept pairs; then the
+    planted-fault runs teacher-forced on its tokens."""
+    mesh = make_local_mesh(seq=P16_RANKS, device=DEV)
+    cfg = get_config(P12_ARCH)
+    par = make_parallel_config(mesh, ShapeSpec("chip16", P16_T, 1,
+                                               "decode"), schedule="balanced")
+    model = DecoderLM(cfg, DEV, par=par, mesh=mesh)
+    params = model.init(seed=P16_SEED)
+    prompt = np.random.default_rng(16).integers(
+        0, cfg.vocab, (1, P16_T)).astype(np.int32)
+    out = {"rank": mesh.coord("model"), "transport": mesh.transport,
+           "n_params": sum(t.numel() for t in leaves(params)),
+           "shards": model.decode_group.size}
+    eng = FixedSlotEngine(model, params)
+    eng.generate({"tokens": prompt[:, :P16_WARM_T]}, 2)
+    comms = list({id(c): c for c in (model.seq_group, model.decode_group,
+                                     model.token_group)}.values())
+    times = {}
+    model.prefill = _timed(times, "prefill", model.prefill)
+    model.decode = _timed(times, "decode", model.decode)
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _comm_seconds(comms)
+    build.reset_launches()
+    rk = _Router()
+    with rk, _Keep() as kp, _recorded(model) as logs:
+        toks, _ = eng.generate({"tokens": prompt}, P16_NEW)
+    launches = dict(build.LAUNCHES)
+    c1 = _comm_seconds(comms)
+    out.update(tokens=toks.cpu(), logits=torch.stack(logs),
+               launches=launches, prefill_s=times["prefill"][0],
+               decode_ms=[1e3 * t for t in times["decode"]],
+               comm={k: c1[k] - c0[k] for k in c1},
+               peak=torch.cuda.max_memory_allocated())
+    del model.prefill, model.decode
+    torch.save({"calls": [c.cpu() for c in rk.seen],
+                "keep": [k.cpu() for k in kp.seen]},
+               os.path.join(tmp, f"rank{out['rank']}.pt"))
+    out["controls"] = {}
+    # the dispatch fault shows in the prefill's logits, one step is enough
+    for fault, n in (("psum", P16_CTL_GEN), ("rotate", 1)):
+        with _moe_fault(fault), _recorded(model, toks[:, :n]) as logs:
+            eng.generate({"tokens": prompt}, n)
+        out["controls"][fault] = torch.stack(logs)
+    return out
+
+
+def serve_moe_ranks():
+    """Phase 16: a gloo world of 4 ranks sharing the one card serves
+    deepseek-v2-lite-16b at full size (nothing cut; its routed experts 16
+    a rank) through ``FixedSlotEngine``: one prompt of 16,384 tokens, a
+    balanced whole-prompt prefill across the ranks (kernel A's pair route
+    under the plan's steps, the MoE dispatched over the ranks), 32 greedy
+    tokens over the sharded latent cache (each step's MoE summed over the
+    ranks' experts).  Then one process runs the same weights and prompt
+    through phase 13's path, replaying the ranks' expert choices and kept
+    pairs, teacher-forced on their tokens: every step's logits within 5%
+    of max |logit|, which must reject two planted faults."""
+    t_all = time.perf_counter()
+    cfg = get_config(P12_ARCH)
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.n_dense_layers
+    want = _plan_launches("balanced", P16_RANKS, P16_T)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = spawn(_p16_rank, P16_RANKS, (tmp,), device=DEV,
+                    timeout=P16_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+        res.sort(key=lambda r: r["rank"])
+        recs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(P16_RANKS)]
+    r0 = res[0]
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    toks = r0["tokens"]
+    check(tuple(toks.shape) == (1, P16_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab)).all()), f"tokens {toks}")
+    check(all(torch.equal(r["tokens"], toks) for r in res),
+          "the ranks' tokens differ")
+    for r in res:
+        w = cfg.n_layers * want[r["rank"]]
+        check(r["launches"]["flash_fwd_pair"] == w and all(
+            n == 0 for k, n in r["launches"].items()
+            if k != "flash_fwd_pair"), f"rank {r['rank']}: launches "
+            f"{r['launches']}, want flash_fwd_pair {w} and nothing else")
+        check(bool(torch.isfinite(r["logits"]).all()), "non-finite logits")
+        dc = r["decode_ms"]
+        say(f"  rank {r['rank']}: {r['n_params'] / 1e9:.2f} B parameters, "
+            f"peak {r['peak'] / 2**30:.2f} GiB; prefill {r['prefill_s']:.3f} "
+            f"s, decode {float(np.median(dc)):.2f} ms a step (median); host "
+            "blocked in shifts / all_to_alls / all-reduces "
+            + "/".join(f"{r['comm'][k]:.3f}" for k in ("shift", "a2a",
+                                                       "reduce"))
+            + f" s; launches {r['launches']}")
+    # the prefill's dispatches (one a MoE layer, each rank its rows), then
+    # 32 decode steps' (every rank routes the same row: rank 0's)
+    calls = [torch.cat([rec["calls"][i] for rec in recs]) for i in
+             range(n_moe)] + recs[0]["calls"][n_moe:]
+    keep = [torch.cat([rec["keep"][i] for rec in recs])
+            for i in range(n_moe)]
+    check(all(len(rec["keep"]) == n_moe for rec in recs),
+          "a decode step dispatched")
+    del recs
+    _free()
+    t0 = time.perf_counter()
+    one = DecoderLM(cfg, DEV)
+    params = one.init(seed=P16_SEED)
+    prompt = np.random.default_rng(16).integers(
+        0, cfg.vocab, (1, P16_T)).astype(np.int32)
+    from repro_torch.models.moe import capacity
+    cap1 = capacity(cfg, P16_T)
+    rr = _Router(calls=[c.to(DEV) for c in calls])
+    with rr, _Keep(calls=keep), _recorded(one, toks) as lg:
+        FixedSlotEngine(one, params).generate({"tokens": prompt}, P16_NEW)
+    ref = torch.stack(lg)
+    check(len(rr.seen) == len(calls) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(rr.seen, calls)),
+        "the one process did not replay every expert choice")
+    del one, params
+    _free()
+    check(ref.shape == r0["logits"].shape, f"steps {ref.shape} "
+          f"{r0['logits'].shape}")
+    err = max(_step_err(r["logits"], ref) for r in res)
+    ctl = {"psum": _step_err(r0["controls"]["psum"][1:],
+                             ref[1:P16_CTL_GEN + 1]),
+           "rotate": _step_err(r0["controls"]["rotate"], ref[:2])}
+    say(f"  one process replaying the ranks' experts and kept pairs "
+        f"({time.perf_counter() - t0:.1f} s; capacity {cap1} an expert for "
+        f"the whole prompt, the ranks' {capacity(cfg, P16_T // P16_RANKS)} "
+        f"each): teacher-forced logits, worst step max|Δ| / max|logit| over "
+        f"{P16_NEW + 1} steps (limit {LOGIT_REL_TOL}): {err:.3e}; controls: "
+        f"decode without the experts' sum over the ranks {ctl['psum']:.3e}, "
+        f"return all_to_all rotated {ctl['rotate']:.3e}")
+    check(err <= LOGIT_REL_TOL, f"P = 4 fixed-slot logits vs one process: "
+          f"{err} over {LOGIT_REL_TOL}")
+    for f, e in ctl.items():
+        check(e > LOGIT_REL_TOL, f"the logit limit does not reject the {f} "
+              f"control ({e})")
+    launches = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
+    out = dict(launches=launches, err=err, controls=ctl,
+               prefill_s=max(r["prefill_s"] for r in res),
+               decode_ms=[float(np.median(r["decode_ms"])) for r in res],
+               peaks=[r["peak"] for r in res], world_s=wall,
+               seconds=time.perf_counter() - t_all)
+    say(f"  world of {P16_RANKS} ranks: {wall:.1f} s, spawn included; phase "
+        f"16 took {out['seconds']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -4506,6 +5263,7 @@ def main():
     pair_bwd_checks()
     say("== phase 3c: kernels A, C and D under every plan step's mask")
     plan_step_checks()
+    pair_plan_step_checks()
 
     say("== phase 4: serve llama-7b")
     res = serve()
@@ -4555,7 +5313,6 @@ def main():
         f"{P14_LAYERS} of 27 layers")
     tm = train_moe()
     _free()
-
     say("== phase 5: times at the shapes of each path")
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
@@ -4563,9 +5320,13 @@ def main():
                 + me["launches"].get(k, 0) + dk["launches"].get(k, 0)
                 + fs["launches"].get(k, 0)
                 for k in res["launches"]}
-    # kernel A's pair route also trains (phase 14); C and D's one-D rows
-    # keep the llama paths' counts, their 192/128 rows phase 14's
+    # kernel A's pair route also trains (phases 14 and 15) and prefills
+    # across ranks (phase 16, all ranks; added once they have run); C and
+    # D's one-D rows keep the llama paths' counts, their 192/128 rows
+    # phases 14 and 15's
     launches["flash_fwd_pair"] += tm["launches"]["flash_fwd_pair"]
+    pair_bwd = {k: tm["launches"][k] for k in ("flash_bwd_dq",
+                                                "flash_bwd_dkv")}
     say(f"  launches on the main paths: serve {res['launches']}, "
         f"train {tr['launches']}, multi-rank (all ranks) {mr['launches']}, "
         f"long-context prefill (all ranks) {lg['launches']}, speculative "
@@ -4575,8 +5336,30 @@ def main():
         f"training (remat_aware and hf, 4 steps each) {tm['launches']}")
     rows = [time_flash(launches), time_latent(launches), time_pair(launches),
             time_paged(launches), *time_bwd(launches, tr["seen"], errs),
-            *time_pair_bwd(tm["launches"], tm.pop("seen"), tm["errs"])]
+            *time_pair_bwd(pair_bwd, tm.pop("seen"), tm["errs"])]
     rows[0].update(time_flash_train(tr["seen"]))
+    _free()
+    # phases 15 and 16 after the times: torch.profiler, which the times
+    # read, has seen no device kernel in a process that ran them first
+    say("== phase 15: train deepseek-v2-lite-16b across 4 ranks on the one "
+        f"card (experts sharded over the sequence ranks), {P15_LAYERS} of 27 "
+        "layers")
+    em = train_moe_ranks()
+    _free()
+    say("== phase 16: serve deepseek-v2-lite-16b at full size across 4 ranks "
+        "through the fixed-slot engine")
+    es = serve_moe_ranks()
+    _free()
+
+    for row in rows:
+        if row["name"] == "flash_fwd_pair":
+            row["launches"] += (em["launches"]["flash_fwd_pair"]
+                                + es["launches"]["flash_fwd_pair"])
+        elif row["name"] in ("flash_bwd_dq_pair", "flash_bwd_dkv_pair"):
+            row["launches"] += em["launches"][row["name"][:-5]]
+    say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
+        f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
+        f"{es['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

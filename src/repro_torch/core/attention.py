@@ -69,9 +69,12 @@ def mask_partial(pred: bool, o, lse):
     return torch.zeros_like(o), torch.full_like(lse, NEG_INF)
 
 
-def empty_partial(q):
-    """Identity element of ``merge`` for a query chunk."""
-    B, T, H, _ = q.shape
-    return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
+def empty_partial(q, dv=None):
+    """Identity element of ``merge`` for a query chunk: o zeros of the
+    value width ``dv`` (default q's own; MLA's v is narrower than its
+    q/k), lse NEG_INF."""
+    B, T, H, dk = q.shape
+    return (torch.zeros((B, T, H, dk if dv is None else dv), dtype=q.dtype,
+                        device=q.device),
             torch.full((B, T, H), NEG_INF, dtype=torch.float32,
                        device=q.device))

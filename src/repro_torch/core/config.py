@@ -149,8 +149,9 @@ class ParallelConfig:
     ``extra_seq_axes`` are axes folded into the sequence sharding of a
     decode cache (``long_500k``: batch 1 leaves ``data`` idle);
     ``fsdp_axes`` name the reference's parameter-sharding axes (the port
-    replicates parameters and sums their gradients over the ranks that
-    hold distinct tokens); ``remat`` is the checkpoint policy."""
+    replicates parameters, except an MoE model's routed experts, which
+    shard over ``seq_axis``, and sums gradients over the ranks that hold
+    distinct tokens); ``remat`` is the checkpoint policy."""
     batch_axes: Tuple[str, ...] = ("data",)
     seq_axis: str = "model"
     extra_seq_axes: Tuple[str, ...] = ()

@@ -595,7 +595,7 @@ def execute_fwd(plan: SchedulePlan, q, k, v, seg=None, *, comm, tune):
                 o_t, s_t = chunk_attn(qc, kc, vc, **kw)
             elif any(r.ship for r in w.routes):
                 # the receiver discards it, but the shift is collective
-                o_t, s_t = empty_partial(ctx.cut(q, 0))
+                o_t, s_t = empty_partial(ctx.cut(q, 0), v.shape[-1])
             else:
                 continue
             for r in w.routes:
@@ -610,7 +610,8 @@ def execute_fwd(plan: SchedulePlan, q, k, v, seg=None, *, comm, tune):
                         else merge(*acc[r.chunk], o_r, s_r)
 
     _run_steps(plan, ctx, comm, run, ctx.data_containers())
-    outs = [a if a is not None else empty_partial(ctx.cut(q, i))
+    outs = [a if a is not None else empty_partial(ctx.cut(q, i),
+                                                  v.shape[-1])
             for i, a in enumerate(acc)]
     if plan.n_chunks == 1:
         return outs[0]
@@ -653,8 +654,8 @@ def execute_bwd(plan: SchedulePlan, q, k, v, o, lse, do, seg=None, *,
             (qc, do_c, lse_c, dlt_c), (kc, vc), kw = _call(
                 ctx, w, (do, lse, delta))
             dq_t, dk_t, dv_t = chunk_attn_bwd(
-                qc, kc, vc, torch.zeros_like(qc), lse_c, do_c, delta=dlt_c,
-                **kw)
+                qc, kc, vc, do_c.new_zeros(do_c.shape), lse_c, do_c,
+                delta=dlt_c, **kw)
             for r in w.routes:
                 for preds, ref in _grad_branches(w.q, r.pred):
                     if all(_pred_int(pr, p) for pr in preds):

@@ -26,10 +26,13 @@ fixed-slot engine over a dense cache that can shard along the sequence.
     PYTHONPATH=src torchrun --nproc-per-node P -m repro_torch.launch.serve \
         --fixed-slot --seq-shards P
 
-    # an MLA / MoE model through the fixed-slot engine, at one rank only:
-    # the whole-prompt prefill with MLA materialised, a dense latent cache
+    # an MLA / MoE model through the fixed-slot engine: the whole-prompt
+    # prefill with MLA materialised, a dense latent cache; across P ranks
+    # the routed experts shard over the sequence ranks (the paged engine
+    # serves it at one rank)
     PYTHONPATH=src python -m repro_torch.launch.serve --fixed-slot \
-        --arch deepseek-v2-lite-16b --smoke --device cpu
+        --arch deepseek-v2-lite-16b --smoke --device cpu \
+        [--nproc 4 --seq-shards 4]
 
 The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
 the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
@@ -61,7 +64,7 @@ from repro_torch.core.config import ShapeSpec, get_config, smoke_config
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
-from repro_torch.models.transformer import DecoderLM, ranks_not_ported
+from repro_torch.models.transformer import DecoderLM
 from repro_torch.parallel.comm import init_world
 from repro_torch.parallel.sharding import make_parallel_config
 from repro_torch.serve import prng
@@ -105,11 +108,6 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     if args.spec_depth and args.fixed_slot:
         raise SystemExit("--spec-depth serves through the paged engine")
-    cfg = get_config(args.arch)
-    if (args.fixed_slot and (cfg.moe is not None or cfg.attn.is_mla)
-            and max(args.nproc, args.seq_shards,
-                    int(os.environ.get("WORLD_SIZE", 1))) > 1):
-        raise SystemExit(str(ranks_not_ported("FixedSlotEngine")))
     if args.nproc > 1 and not dist.is_initialized():
         if torch.device(args.device).type == "cuda":
             build.build_all()            # once, before the ranks start

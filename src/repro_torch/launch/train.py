@@ -1,7 +1,8 @@
 """Training CLI: a decoder trained on the synthetic token stream, on one
-process or across ranks (a dense model), or on one (an MLA + MoE model:
-``--arch deepseek-v2-lite-16b``, whose loss adds the MoE load-balance
-``aux`` to ``ce``; both are printed).
+process or across ranks — a dense model, or an MLA + MoE one
+(``--arch deepseek-v2-lite-16b``, whose loss adds the MoE load-balance
+``aux`` to ``ce``; both are printed), its routed experts sharded over the
+sequence ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-gqa \
         --smoke --steps 50 --seq 256 --batch 4 [--remat remat_aware] \
@@ -16,9 +17,10 @@ process or across ranks (a dense model), or on one (an MLA + MoE model:
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 \
         --seq-shards 4 --schedule balanced --smoke --device cpu
 
-    # DeepSeek-V2-Lite (MLA + MoE), one rank
+    # DeepSeek-V2-Lite (MLA + MoE), one rank or 4 (experts 16 a rank)
     PYTHONPATH=src python -m repro_torch.launch.train \
-        --arch deepseek-v2-lite-16b --smoke --device cpu --steps 4
+        --arch deepseek-v2-lite-16b --smoke --device cpu --steps 4 \
+        [--nproc 4 --seq-shards 4]
 
 The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
 the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
@@ -29,9 +31,10 @@ from ``SyntheticTokens`` (seed 0), each rank taking its shard.  Runs on
 With ``--ckpt-dir``, ``{"params": ...}`` is saved there in the reference's
 tree layout and checkpoint format (``io/checkpoint.py``; layers stacked on
 a leading axis, ``models.transformer.to_reference_params``) every
-``--ckpt-every`` steps and after the last step; on a mesh rank 0 writes
-(the parameters are replicated).  There is no resume, as in the
-reference.
+``--ckpt-every`` steps and after the last step; on a mesh the routed
+experts' shards are gathered first (the global tree: the bytes of a
+one-rank checkpoint of the same parameters) and rank 0 writes.  There is
+no resume, as in the reference.
 """
 from __future__ import annotations
 
@@ -49,8 +52,8 @@ from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
-from repro_torch.models.transformer import (DecoderLM, ranks_not_ported,
-                                            to_reference_params, trainable)
+from repro_torch.models.transformer import (DecoderLM, to_reference_params,
+                                            trainable)
 from repro_torch.optim import adamw
 from repro_torch.parallel.comm import init_world
 from repro_torch.parallel.sharding import make_parallel_config
@@ -85,11 +88,6 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    cfg = get_config(args.arch)
-    if (cfg.moe is not None or cfg.attn.is_mla) and (
-            args.nproc > 1 or args.seq_shards > 1
-            or int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        raise SystemExit(str(ranks_not_ported("training")))
     if args.nproc > 1 and not dist.is_initialized():
         if torch.device(args.device).type == "cuda":
             build.build_all()            # once, before the ranks start
@@ -151,15 +149,25 @@ def run(args) -> int:
                   f"tok/s {tok_s:.0f}"
                   + (f" skipped {n_skipped}" if n_skipped else ""),
                   flush=True)
-        if args.ckpt_dir and args.ckpt_every and lead and \
+        if args.ckpt_dir and args.ckpt_every and \
                 (i + 1) % args.ckpt_every == 0:
-            ckpt_io.save(args.ckpt_dir,
-                         {"params": to_reference_params(params)}, step=i + 1)
-    if args.ckpt_dir and lead:
-        ckpt_io.save(args.ckpt_dir, {"params": to_reference_params(params)},
-                     step=args.steps)
-        print(f"saved checkpoint to {args.ckpt_dir}", flush=True)
+            _save(args.ckpt_dir, model, params, i + 1, lead)
+    if args.ckpt_dir:
+        _save(args.ckpt_dir, model, params, args.steps, lead)
+        if lead:
+            print(f"saved checkpoint to {args.ckpt_dir}", flush=True)
     return 0
+
+
+def _save(path, model, params, step, lead):
+    """The global parameter tree, written by rank 0 (every rank of the
+    expert group takes part in gathering the expert shards)."""
+    if not lead and model.expert_group is None:
+        return
+    tree = {"params": to_reference_params(params,
+                                          experts=model.expert_group)}
+    if lead:
+        ckpt_io.save(path, tree, step=step)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Mixture-of-experts FFN on one rank (port of the reference
-``models/moe.py`` at sequence-parallel size 1).
+"""Mixture-of-experts FFN with expert parallelism over the sequence axis
+(port of the reference ``models/moe.py``).
 
 DeepSeek-style MoE [arXiv:2405.04434]: ``n_shared`` always-on experts
 (fused into one SwiGLU of ``n_shared · d_expert``) plus ``n_routed`` routed
@@ -14,10 +14,22 @@ residual carry the token).  The reference ships each expert's buffer to
 its owner with two ``all_to_all``s; at one rank they are the identity.  It
 also returns the load-balance auxiliary loss.
 
+Across S ranks of the sequence group (the ``model`` axis, whose ranks
+already hold distinct tokens) each rank holds ``E / S`` of the routed
+experts — rows ``[r·E/S, (r+1)·E/S)`` of ``wg`` / ``wu`` / ``wd`` — and
+every other leaf whole, as the reference's ``pspec``.  The capacity comes
+from this rank's rows; the ``(E, cap, d)`` buffer goes to the experts'
+owners by an ``all_to_all`` and comes back by a second one; the expert
+counts are summed and the mean probabilities averaged over the ranks
+holding distinct tokens (``all_group``), so ``aux`` is the global value
+on every rank.  Every rank issues the same collectives in the same order,
+kept pairs or not.
+
 :func:`moe_decode_apply` is the decode / verify form, the reference's
 design: every expert runs on every token and the outputs combine in
 float32 with weights that are zero off the token's top k — no dispatch,
-no capacity, no drops.
+no capacity, no drops.  Across ranks each rank runs its local experts on
+every row and the float32 sums are all-reduced over the sequence group.
 
 The expert products are batched matrix products (``torch.bmm``), computed
 outside any attention kernel, as the reference computes them outside any
@@ -31,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel.comm import all_reduce, all_to_all
 
 
 def top_k(probs, k: int):
@@ -46,6 +59,29 @@ def capacity(cfg: ModelConfig, n: int) -> int:
     reference's float arithmetic)."""
     m = cfg.moe
     return int(max(4, -(-n * m.top_k * m.capacity_factor // m.n_routed)))
+
+
+def local_experts(cfg: ModelConfig, S: int) -> int:
+    """Routed experts a rank holds when ``S`` ranks share them."""
+    E = cfg.moe.n_routed
+    if E % S:
+        raise ValueError(f"{E} routed experts do not shard over {S} ranks")
+    return E // S
+
+
+def dispatch_slots(flat_e, E: int, cap: int):
+    """(slot, keep) of each (token, choice) pair ``flat_e`` (n·K,): its
+    rank among the earlier pairs routed to the same expert, and whether
+    that rank is below ``cap``; a dropped pair's slot is ``cap`` (the
+    overflow row)."""
+    onehot = F.one_hot(flat_e, E)
+    pos = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=-1)  # rank in expert
+    keep = pos < cap
+    return torch.where(keep, pos, torch.full_like(pos, cap)), keep
+
+
+def _size(group) -> int:
+    return 1 if group is None else group.size
 
 
 def _route(p, x, cfg: ModelConfig):
@@ -70,27 +106,43 @@ def _shared(p, h):
     return (F.silu(h @ p["sh_wg"]) * (h @ p["sh_wu"])) @ p["sh_wd"]
 
 
-def moe_apply(p, x, cfg: ModelConfig):
+def moe_apply(p, x, cfg: ModelConfig, *, group=None, all_group=None):
     """Capacity-dispatched MoE layer with residual: x (b, t, d) →
-    (x + y, aux), ``aux`` the float32 load-balance loss."""
+    (x + y, aux), ``aux`` the float32 load-balance loss.  ``group`` is the
+    sequence axis's Comm over which the routed experts shard (None: one
+    rank, every expert here); ``all_group`` the ranks holding distinct
+    tokens (the data and sequence axes), over which the expert counts are
+    summed and the mean probabilities averaged."""
     m = cfg.moe
     b, t, d = x.shape
     n, E, K = b * t, m.n_routed, m.top_k
+    S = _size(group)
+    e_loc = local_experts(cfg, S)
     h, probs, top_p, top_e = _route(p, x, cfg)
     flat_e = top_e.reshape(-1)                               # (n·K,)
     counts = torch.zeros(E, dtype=torch.float32, device=x.device)
     counts.index_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    pm = probs.mean(dim=0)
+    if _size(all_group) > 1:
+        all_group.all_reduce_([counts])
+        pm = all_reduce(all_group, pm, "mean")
     f = counts / counts.sum().clamp(min=1.0)
-    aux = E * (f * probs.mean(dim=0)).sum() * m.aux_loss_coef
+    aux = E * (f * pm).sum() * m.aux_loss_coef
     cap = capacity(cfg, n)
-    onehot = F.one_hot(flat_e, E)
-    pos = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=-1)  # rank in expert
-    keep = pos < cap
-    slot = torch.where(keep, pos, torch.full_like(pos, cap))
+    slot, keep = dispatch_slots(flat_e, E, cap)
     xk = h.repeat_interleave(K, dim=0)                       # (n·K, d)
     buf = h.new_zeros((E, cap + 1, d))
     buf[flat_e[keep], slot[keep]] = xk[keep]
-    out = _expert_ffn(p, buf[:, :cap])                       # (E, cap, d)
+    buf = buf[:, :cap]
+    if S > 1:                        # each expert's rows to its owner
+        buf = all_to_all(group, buf.reshape(S, e_loc * cap, d), 0, 0)
+        buf = buf.reshape(S, e_loc, cap, d).transpose(0, 1) \
+                 .reshape(e_loc, S * cap, d)
+    out = _expert_ffn(p, buf)                                # local experts
+    if S > 1:                        # and the results back
+        out = out.reshape(e_loc, S, cap, d).transpose(0, 1) \
+                 .reshape(S, e_loc * cap, d)
+        out = all_to_all(group, out, 0, 0).reshape(E, cap, d)
     out = F.pad(out, (0, 0, 0, 1))                           # overflow → 0
     got = out[flat_e, slot]                                  # (n·K, d)
     got = got * (keep.to(got.dtype)
@@ -101,18 +153,25 @@ def moe_apply(p, x, cfg: ModelConfig):
     return x + y.reshape(b, t, d).to(x.dtype), aux
 
 
-def moe_decode_apply(p, x, cfg: ModelConfig):
+def moe_decode_apply(p, x, cfg: ModelConfig, *, group=None):
     """Decode / verify MoE layer with residual, x (b, t, d): every expert on
     every row, combined in float32 with the top-k weights (zero
-    elsewhere)."""
+    elsewhere).  Across the ranks of ``group`` (the sequence axis; the
+    rows are the same on each) a rank runs its own experts and the float32
+    sums are all-reduced."""
     m = cfg.moe
     b, t, d = x.shape
+    S = _size(group)
+    e_loc = local_experts(cfg, S)
+    lo = 0 if group is None else group.rank * e_loc
     h, _, top_p, top_e = _route(p, x, cfg)
     n = h.shape[0]
     w = torch.zeros((n, m.n_routed), dtype=torch.float32, device=x.device)
     w.scatter_(1, top_e, top_p)
-    oe = _expert_ffn(p, h[None].expand(m.n_routed, n, d))    # (E, n, d)
-    y = torch.einsum("ne,end->nd", w, oe.float())
+    oe = _expert_ffn(p, h[None].expand(e_loc, n, d))         # (e_loc, n, d)
+    y = torch.einsum("ne,end->nd", w[:, lo:lo + e_loc], oe.float())
+    if S > 1:
+        group.all_reduce_([y])
     if m.n_shared:
         y = y + _shared(p, h).float()
     return x + y.reshape(b, t, d).to(x.dtype)

@@ -24,12 +24,22 @@ output is up-projected by ``W_uv``.  The MoE FFN takes the padded chunk's
 rows through the capacity dispatch (``moe_apply``) and the decode / verify
 rows through every expert (``moe_decode_apply``); the whole-prompt
 prefill dispatches all of its B·T rows at once.  :meth:`forward` runs MLA
-materialised.  An MoE model trains at one rank: MLA materialised (q/k of
-nope + rope, v of ``v_head_dim``: kernel A's pair route forward, kernels C
-and D's backward), every layer returning ``(h, aux)`` — the MoE layers'
-capacity dispatch with its load-balance loss, the dense layers an aux of 0
-— and ``loss = ce + aux``.  Any of its paths across ranks (ROADMAP §1
-items 7.3 and 7.4) is not ported (``NotImplementedError``).
+materialised.  An MoE model trains with MLA materialised (q/k of nope +
+rope, v of ``v_head_dim``: kernel A's pair route forward, kernels C and D's
+backward), every layer returning ``(h, aux)`` — the MoE layers' capacity
+dispatch with its load-balance loss, the dense layers an aux of 0 — and
+``loss = ce + aux``.
+
+Expert parallelism: on a mesh whose sequence axis has S > 1 ranks, each
+rank holds rows ``[r·E/S, (r+1)·E/S)`` of every MoE layer's ``wg`` /
+``wu`` / ``wd`` (:attr:`DecoderLM.expert_group`) and every other leaf
+whole; ``moe_apply`` dispatches over the sequence group and
+``moe_decode_apply`` sums its local experts over it, so training, the
+whole-prompt prefill and the dense-cache decode (``FixedSlotEngine``) run
+across ranks.  The paged ``Engine`` across ranks over a block-sharded
+latent pool (ROADMAP §1 item 7.3b) is not ported
+(``NotImplementedError``), nor is the reference's latent ring (item 7.4,
+``Runtime.latent_ring``, which the port has no option for).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -77,9 +87,10 @@ from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
                                              dist_flash_attn,
                                              shard_positions)
 from repro_torch.core.remat import apply_policy, remat_aware
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import layers as L
-from repro_torch.models.moe import moe_apply, moe_decode_apply
+from repro_torch.models.moe import (local_experts, moe_apply,
+                                    moe_decode_apply)
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.serve.cache import sharded_paged_attn
 
@@ -98,9 +109,9 @@ def decode_mask(window) -> mk.MaskSpec:
 
 def _zigzag_ok(cfg: ModelConfig) -> bool:
     """The zigzag relayout is valid only for purely positionwise decoders
-    without windowed masks (a window assumes contiguous shard
-    positions)."""
-    return cfg.arch_type == "dense" and not cfg.attn.window
+    (dense and MoE) without windowed masks (a window assumes contiguous
+    shard positions)."""
+    return cfg.arch_type in ("dense", "moe") and not cfg.attn.window
 
 
 def zigzag_layout(cfg: ModelConfig, par: ParallelConfig, P: int) -> bool:
@@ -153,11 +164,13 @@ def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
 
 def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
                       document: bool = False, P: int = 1, group=None,
-                      use_moe: bool = False):
+                      use_moe: bool = False, all_group=None):
     """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``, its
     attention over the ``P`` ranks of ``group``.  A layer of an MoE-family
     model returns ``(h', aux)``: its MoE FFN's load-balance loss
-    (``use_moe``), or 0 for a SwiGLU MLP."""
+    (``use_moe``: experts sharded over ``group``, the loss's statistics
+    over ``all_group``), or 0 for a SwiGLU MLP."""
+    experts = group if P > 1 else None
     scale = L.mla_scale(cfg) if cfg.attn.is_mla else None
     pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
         cfg, _attn_spec(cfg, par, P, impl, document, scale), group)
@@ -165,7 +178,8 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
     def post(p, x, o):
         h2 = L.attn_out(p["attn"], x[0], o, cfg)
         if use_moe:
-            return moe_apply(p["moe"], h2, cfg)
+            return moe_apply(p["moe"], h2, cfg, group=experts,
+                             all_group=all_group)
         h3 = L.mlp_apply(p["mlp"], h2, cfg.norm_eps)
         if cfg.moe is None:
             return h3
@@ -204,9 +218,38 @@ def ranks_not_ported(what: str):
     """The refusal of an MLA / MoE model's ``what`` across ranks."""
     return NotImplementedError(
         f"{what} across ranks of an MLA / MoE model is not ported: the port "
-        f"serves deepseek-v2-lite-16b at one rank, through the paged Engine "
-        f"and the fixed-slot one, and trains it at one rank (ROADMAP §1 "
-        f"items 7.3, MoE dispatch across ranks, and 7.4, the latent ring)")
+        f"trains deepseek-v2-lite-16b and serves it through FixedSlotEngine "
+        f"across ranks, and through the paged Engine at one rank (ROADMAP "
+        f"§1 item 7.3b, the paged Engine over a block-sharded latent pool)")
+
+
+def is_expert_leaf(group, name) -> bool:
+    """Is leaf ``name`` of a layer's ``group`` a routed-expert leaf
+    (``moe_layers[i]["moe"]`` ``wg`` / ``wu`` / ``wd``), one of the leaves
+    sharded over the sequence axis?"""
+    return group == "moe" and name in ("wg", "wu", "wd")
+
+
+def expert_rows(cfg: ModelConfig, t, group):
+    """This rank's rows ``[r·E/S, (r+1)·E/S)`` of a routed-expert leaf
+    ``t`` (E, ...), a tensor or an array, when ``group`` (S ranks) shares
+    the experts (``t`` itself when ``group`` is None); a view."""
+    if group is None:
+        return t
+    n = local_experts(cfg, group.size)
+    return t[group.rank * n:(group.rank + 1) * n]
+
+
+def expert_mask(params) -> list:
+    """Per leaf of ``params`` (``core.tree.flatten``'s order): is it a
+    routed-expert leaf (:func:`is_expert_leaf`)?"""
+    def mark(tree, group=None, name=None):
+        if isinstance(tree, dict):
+            return {k: mark(v, name, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(mark(x, group, name) for x in tree)
+        return is_expert_leaf(group, name)
+    return leaves(mark(params))
 
 
 def trainable(params) -> dict:
@@ -245,6 +288,14 @@ class DecoderLM:
         self.seq_rank = 0 if mesh is None else mesh.coord(ax)
         self.seq_group = None if mesh is None else mesh.comms[ax]
         self.token_group = token_group(mesh, self.par)
+        # the routed experts shard over the sequence axis
+        self.expert_group = self.seq_group if self.seq_size > 1 else None
+        # the ranks holding the same experts and distinct tokens: their
+        # gradients add up (the data axis when the batch shards over it)
+        self.expert_grad_group = (
+            mesh.comms["data"] if self.expert_group is not None
+            and "data" in self.par.batch_axes and mesh.size("data") > 1
+            else None)
         # the dense decode cache shards its sequence over par.seq_axes
         self.decode_group = None if mesh is None else mesh.comm(
             self.par.seq_axes)
@@ -261,7 +312,10 @@ class DecoderLM:
         (``qkv_bias``) and unit qk-norms (``qk_norm``), a float32 MoE
         router — the reference's init scheme and tree; its bits differ.
         Each leaf is drawn in float32 and cast at once, so the largest
-        float32 temporary is one leaf, never the model."""
+        float32 temporary is one leaf, never the model.  Across expert
+        ranks (:attr:`expert_group`) each rank draws every leaf whole and
+        keeps its rows of the routed experts: bit for bit the slice of the
+        one-rank init with the same seed."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         d, hd = cfg.d_model, a.head_dim
@@ -326,12 +380,18 @@ class DecoderLM:
             return p
         m = cfg.moe
 
+        def experts(d_in, d_out):
+            t = dense(d_in, d_out, m.n_routed)
+            if self.expert_group is None:
+                return t
+            return expert_rows(cfg, t, self.expert_group).clone()
+
         def moe():
             q = {"ln": ones(d),
                  "router": dense(d, m.n_routed, dtype=torch.float32),
-                 "wg": dense(d, m.d_expert, m.n_routed),
-                 "wu": dense(d, m.d_expert, m.n_routed),
-                 "wd": dense(m.d_expert, d, m.n_routed)}
+                 "wg": experts(d, m.d_expert),
+                 "wu": experts(d, m.d_expert),
+                 "wd": experts(m.d_expert, d)}
             if m.n_shared:
                 ds = m.n_shared * m.d_expert
                 q.update(sh_wg=dense(d, ds), sh_wu=dense(d, ds),
@@ -371,7 +431,8 @@ class DecoderLM:
         total = None
         for key, use_moe in (("dense_layers", False), ("moe_layers", True)):
             layer = build_dense_layer(self.cfg, self.par, self.impl,
-                                      use_moe=use_moe, **kw)
+                                      use_moe=use_moe,
+                                      all_group=self.token_group, **kw)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
             for lp in p[key]:
                 h, a = layer(lp, (h, cos, sin, seg))
@@ -393,10 +454,9 @@ class DecoderLM:
         aux})`` (a dense model's aux is 0 and its loss is ce).  On a mesh
         the value is the global token mean, and its gradient is this rank's
         share of it (the train step sums gradients over
-        :func:`token_group`).  An MLA / MoE model trains at one rank only
-        (:meth:`check_one_rank`)."""
+        :func:`token_group`); an MoE model's aux is the global value on
+        every rank, its gradient again this rank's share."""
         a = self.cfg.attn
-        self.check_one_rank("training")
         h = self._embed(p, batch)
         cos, sin = L.rope_tables(self.positions(h.shape[1]), self.rope_dim,
                                  a.rope_theta)
@@ -406,20 +466,19 @@ class DecoderLM:
         h, aux = self._backbone(p, h, cos, sin, seg)
         logits = self._head(p, h)
         labels = batch["labels"].to(self.device)
-        if aux is not None:
-            ce = L.cross_entropy(logits, labels)
-            return ce + aux, {"ce": ce, "aux": aux}
-        zero = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.token_group is None or self.token_group.size == 1:
             ce = L.cross_entropy(logits, labels)
-            return ce, {"ce": ce, "aux": zero}
-        s, n = L.cross_entropy_sum(logits, labels)
-        tot = torch.stack([s.detach(), n])
-        self.token_group.all_reduce_([tot])
-        total = tot[1].clamp(min=1.0)
-        mine = s / total                 # its gradient: this rank's share
-        ce = tot[0] / total + (mine - mine.detach())
-        return ce, {"ce": ce, "aux": zero}
+        else:
+            s, n = L.cross_entropy_sum(logits, labels)
+            tot = torch.stack([s.detach(), n])
+            self.token_group.all_reduce_([tot])
+            total = tot[1].clamp(min=1.0)
+            mine = s / total             # its gradient: this rank's share
+            ce = tot[0] / total + (mine - mine.detach())
+        if aux is not None:
+            return ce + aux, {"ce": ce, "aux": aux}
+        return ce, {"ce": ce, "aux": torch.zeros(
+            (), dtype=torch.float32, device=h.device)}
 
     def _layer(self, lp, h, attend, cos, sin, decode: bool = False,
                latents=None):
@@ -443,8 +502,10 @@ class DecoderLM:
         if "moe" not in lp:
             return L.mlp_apply(lp["mlp"], h, self.cfg.norm_eps)
         if decode:
-            return moe_decode_apply(lp["moe"], h, self.cfg)
-        return moe_apply(lp["moe"], h, self.cfg)[0]
+            return moe_decode_apply(lp["moe"], h, self.cfg,
+                                    group=self.expert_group)
+        return moe_apply(lp["moe"], h, self.cfg, group=self.expert_group,
+                         all_group=self.token_group)[0]
 
     # ------------------------------------------------------ absorbed MLA
     def _mla_parts(self, lp, h, cos, sin):
@@ -601,14 +662,13 @@ class DecoderLM:
         replica runs its own rows (:meth:`_rows`; the cache holds those
         rows) and the logits are gathered over ``data``.
 
-        An MLA / MoE model runs at one rank only (:meth:`check_one_rank`):
-        MLA materialised (q/k of nope + rope, v of ``v_head_dim``: kernel A's
-        pair route at scale 1/√(nope + rope)), the MoE capacity dispatch
-        over all B·T rows, and the cache ``{"ckv"}`` (L, B, T, kv_lora +
-        rope) of each token's latent row, as the reference's
+        An MLA / MoE model runs MLA materialised (q/k of nope + rope, v of
+        ``v_head_dim``: kernel A's pair route at scale 1/√(nope + rope)),
+        the MoE capacity dispatch over this rank's B·Tl rows (its experts
+        across the sequence group), and the cache ``{"ckv"}`` (L, B, Tl,
+        kv_lora + rope) of each token's latent row, as the reference's
         ``_infer_layer_dense``."""
         a, P = self.cfg.attn, self.seq_size
-        self.check_one_rank("the whole-prompt prefill")
         tokens = self._rows(torch.as_tensor(tokens, device=self.device))
         T = tokens.shape[1]
         zz = zigzag_layout(self.cfg, self.par, P)
@@ -646,13 +706,6 @@ class DecoderLM:
         cache = ({"ckv": torch.stack(latents)} if a.is_mla else
                  {"k": torch.stack(ks), "v": torch.stack(vs)})
         return self._all_rows(logits), cache
-
-    def check_one_rank(self, what: str):
-        """Raise :func:`ranks_not_ported` for ``what`` of an MLA / MoE
-        model on a mesh of more than one rank."""
-        if ((self.cfg.moe is not None or self.cfg.attn.is_mla)
-                and self.mesh is not None and self.mesh.world.size > 1):
-            raise ranks_not_ported(what)
 
     def _rows(self, x):
         """This data replica's contiguous share of the rows of ``x`` (all
@@ -753,18 +806,19 @@ class DecoderLM:
         updated in place.
 
         An MLA model's dense cache is :meth:`prefill`'s ``{"ckv"}``
-        (L, B, S, kv_lora + rope), at one rank: per layer the absorbed
-        query (:meth:`_mla_parts`) attends the latent rows as one kv head
-        with v their first kv_lora columns (``dist_decode_attn``, plain
-        float32), the token's latent row is written, the output is
+        (L, B, S_loc, kv_lora + rope) padded by :meth:`pad_cache`: per
+        layer the absorbed query (:meth:`_mla_parts`) attends the latent
+        rows as one kv head with v their first kv_lora columns
+        (``dist_decode_attn`` over the shards, plain float32), the token's
+        latent row is written into the owner shard, the output is
         up-projected (:meth:`_mla_out`), and an MoE layer runs every expert
-        (``moe_decode_apply``): the reference's ``_decode_mla``."""
+        (``moe_decode_apply``, its experts summed over the sequence group):
+        the reference's ``_decode_mla``."""
         a = self.cfg.attn
         if "block_table" in cache:
             return self._paged_layers(
                 p, cache, token, pos[:, None],
                 _decode_rows(cache["block_table"], _block_size(cache), pos))
-        self.check_one_rank("the dense-cache decode")
         token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
         cos, sin = L.rope_tables(pos, self.rope_dim, a.rope_theta)
@@ -970,7 +1024,8 @@ def _cache_write(cache, new, pos, group=None):
 _LAYER_KEYS = ("layers", "dense_layers", "moe_layers")
 
 def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
-                          dtype: Optional[torch.dtype] = None) -> dict:
+                          dtype: Optional[torch.dtype] = None, *,
+                          experts=None) -> dict:
     """Carry the reference ``DecoderLM.init`` pytree into the port's layout.
 
     ``tree`` is nested dicts of numpy arrays with the layers stacked on a
@@ -978,10 +1033,15 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     an MoE model's ``dense_layers`` and ``moe_layers`` alike); returns the
     port's parameters (lists of per-layer dicts) on ``device`` in ``dtype``
     (default: the config's).  The MoE router stays float32, as the
-    reference keeps it."""
+    reference keeps it.  ``experts`` is the Comm the routed experts shard
+    over (``DecoderLM.expert_group``; None: all here): each rank keeps its
+    rows of them."""
     dt = dtype if dtype is not None else DTYPES[cfg.dtype]
 
-    def t(x, name=""):
+    def t(x, name="", grp=""):
+        x = np.asarray(x)
+        if is_expert_leaf(grp, name):
+            x = expert_rows(cfg, x, experts)
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(
             device=device, dtype=torch.float32 if name == "router" else dt)
 
@@ -994,7 +1054,7 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
             continue
         stacked = tree[key]
         n = len(stacked["attn"]["wo"])
-        p[key] = [{grp: {name: t(arr[i], name)
+        p[key] = [{grp: {name: t(arr[i], name, grp)
                          for name, arr in stacked[grp].items()}
                    for grp in stacked} for i in range(n)]
         n_all += n
@@ -1003,29 +1063,40 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     return p
 
 
-def to_reference_params(params: dict) -> dict:
+def to_reference_params(params: dict, *, experts=None) -> dict:
     """The inverse of :func:`load_reference_params`: the port's parameters
     in the reference's pytree layout, every layer leaf stacked on a leading
-    ``L`` axis (same dtype and device)."""
+    ``L`` axis (same dtype and device).  ``experts``: the Comm the routed
+    experts shard over, whose shards are gathered (every rank of it must
+    call), so each rank returns the global tree."""
+    def leaf(grp, name, x):
+        x = x.detach()
+        if is_expert_leaf(grp, name) and experts is not None:
+            x = experts.all_gather(x.contiguous(), 0)
+        return x
+
     out = {k: v for k, v in params.items() if k not in _LAYER_KEYS}
     for key in _LAYER_KEYS:
         if key not in params:
             continue
         layers = params[key]
-        out[key] = {grp: {name: torch.stack([lp[grp][name].detach()
+        out[key] = {grp: {name: torch.stack([leaf(grp, name, lp[grp][name])
                                              for lp in layers])
                           for name in layers[0][grp]}
                     for grp in layers[0]}
     return out
 
 
-def load_reference_opt_state(cfg: ModelConfig, state, device="cuda"
-                             ) -> AdamWState:
+def load_reference_opt_state(cfg: ModelConfig, state, device="cuda", *,
+                             experts=None) -> AdamWState:
     """Carry the reference ``AdamWState`` (``step``, and ``m``/``v`` trees
     of numpy arrays in the reference's parameter layout) into the port's
-    :class:`~repro_torch.optim.adamw.AdamWState` with float32 moments."""
+    :class:`~repro_torch.optim.adamw.AdamWState` with float32 moments
+    (``experts`` as :func:`load_reference_params`'s)."""
     step, m, v = state
     return AdamWState(
         step=int(np.asarray(step)),
-        m=load_reference_params(cfg, m, device, torch.float32),
-        v=load_reference_params(cfg, v, device, torch.float32))
+        m=load_reference_params(cfg, m, device, torch.float32,
+                                experts=experts),
+        v=load_reference_params(cfg, v, device, torch.float32,
+                                experts=experts))

@@ -43,9 +43,20 @@ def schedule(step: int, tc: TrainConfig) -> float:
     return 0.5 * tc.lr * (1 + math.cos(math.pi * min(max(prog, 0.0), 1.0)))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt(Σ g²) over every leaf, in float32 (0-d tensor)."""
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
+def global_norm(grads, sharded=None, group=None) -> torch.Tensor:
+    """sqrt(Σ g²) over every leaf, in float32 (0-d tensor).  ``sharded``
+    (a bool per leaf, ``core.tree.flatten``'s order) marks the leaves whose
+    rows shard over ``group`` (an MoE model's routed experts over the
+    sequence axis): their squares are summed over the group, so each row
+    counts once and every rank gets the same norm."""
+    gs = leaves(grads)
+    if sharded is None or group is None or group.size == 1:
+        return torch.sqrt(sum(g.float().square().sum() for g in gs))
+    sq = [g.float().square().sum() for g in gs]
+    part = torch.stack([x for x, s in zip(sq, sharded) if s]).sum()[None]
+    group.all_reduce_([part])
+    rest = [x for x, s in zip(sq, sharded) if not s]
+    return torch.sqrt(sum(rest) + part[0])
 
 
 def _clip_scale(gn, max_norm):
@@ -60,12 +71,14 @@ def clip_by_global_norm(grads, max_norm):
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params, tc: TrainConfig) -> dict:
+def update(grads, state: AdamWState, params, tc: TrainConfig, *,
+           sharded=None, group=None) -> dict:
     """One AdamW step, in place on ``params`` and ``state``.  Returns the
-    metrics ``{"lr", "gnorm"}`` (gnorm before clipping, a 0-d tensor).
-    The clipped gradient is formed one leaf at a time, as
-    :func:`clip_by_global_norm` would give it."""
-    gn = global_norm(grads)
+    metrics ``{"lr", "gnorm"}`` (gnorm before clipping, a 0-d tensor; over
+    the sharded leaves as :func:`global_norm`).  The clipped gradient is
+    formed one leaf at a time, as :func:`clip_by_global_norm` would give
+    it."""
+    gn = global_norm(grads, sharded, group)
     scale = _clip_scale(gn, tc.max_grad_norm)
     lr = schedule(state.step, tc)
     state.step += 1

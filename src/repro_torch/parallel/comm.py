@@ -3,7 +3,11 @@ reference's ``lax.ppermute`` (:meth:`Comm.shift`), ``lax.all_to_all``
 (:meth:`Comm.all_to_all`), ``lax.all_gather`` (:meth:`Comm.all_gather`) and
 ``lax.psum`` / ``lax.pmax`` (:meth:`Comm.all_reduce_`) over one mesh axis or
 several (a group whose ranks are ordered by the axes' linearized index),
-and a broadcast from one rank (:meth:`Comm.broadcast_`).
+and a broadcast from one rank (:meth:`Comm.broadcast_`).  Inside an
+autograd graph, :func:`all_to_all` (backward: the inverse ``all_to_all``)
+and :func:`all_reduce` (``lax.psum`` / ``lax.pmean``; backward: the
+cotangent passed through, each rank keeping its own share, which the
+train step's gradient sum adds up) are their differentiable forms.
 
 Each rank is one ``torch.distributed`` process.  How tensors travel — the
 transport — is decided once, from the world's backend and the device, when
@@ -146,8 +150,8 @@ class Comm:
     ranks in axis order; ``group`` / ``p2p_group`` are its process groups
     for collectives and for shifts (None: the world).  ``shift_wait_s``,
     ``reduce_s`` and ``gather_s`` add up the host seconds spent blocked
-    waiting for shifts, in :meth:`all_reduce_` / :meth:`broadcast_` and in
-    :meth:`all_gather`."""
+    waiting for shifts, in :meth:`all_reduce_` / :meth:`broadcast_`, in
+    :meth:`all_gather` and in :meth:`all_to_all` (``a2a_s``)."""
 
     def __init__(self, ranks, transport: str, device, group=None,
                  p2p_group=None):
@@ -164,6 +168,7 @@ class Comm:
         self.group, self.p2p_group = group, p2p_group
         self._tag = 0
         self.shift_wait_s = self.reduce_s = self.gather_s = 0.0
+        self.a2a_s = 0.0
         self._pool = self._side = None
         if transport == "gloo-staged":
             self._pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -234,11 +239,15 @@ class Comm:
         ``concat_dim`` in rank order (``lax.all_to_all(..., tiled=True)``)."""
         if self.size == 1:
             return x
-        parts = [self._host(t).contiguous()
-                 for t in x.chunk(self.size, dim=split_dim)]
-        outs = [torch.empty_like(parts[0]) for _ in range(self.size)]
-        dist.all_to_all(outs, parts, group=self.group)
-        return self._back(torch.cat(outs, dim=concat_dim))
+        t0 = time.perf_counter()
+        # one buffer of the parts, for all_to_all_single (gloo has no
+        # list form)
+        parts = self._host(torch.stack(x.chunk(self.size, dim=split_dim)))
+        outs = torch.empty_like(parts)
+        dist.all_to_all_single(outs, parts, group=self.group)
+        out = self._back(torch.cat(outs.unbind(0), dim=concat_dim))
+        self.a2a_s += time.perf_counter() - t0
+        return out
 
     def all_gather(self, x, dim: int):
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
@@ -287,3 +296,56 @@ class Comm:
                 t.copy_(h)
         self.reduce_s += time.perf_counter() - t0
         return tensors
+
+
+# ------------------------------------------------- differentiable forms
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_dim, concat_dim):
+        ctx.comm, ctx.dims = comm, (split_dim, concat_dim)
+        return comm.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.comm.all_to_all(g.contiguous(), concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all(comm, x, split_dim: int, concat_dim: int):
+    """:meth:`Comm.all_to_all` inside an autograd graph: its backward is
+    the inverse ``all_to_all`` (split and concat dims swapped).  ``comm``
+    None or of one rank: ``x`` itself."""
+    if comm is None or comm.size == 1:
+        return x
+    return _AllToAll.apply(x, comm, split_dim, concat_dim)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, mean):
+        ctx.scale = 1.0 / comm.size if mean else 1.0
+        y = x.detach().clone()
+        comm.all_reduce_([y])
+        return y * ctx.scale if mean else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g * ctx.scale if ctx.scale != 1.0 else g), None, None
+
+
+def all_reduce(comm, x, op: str = "sum"):
+    """``lax.psum`` (``op="sum"``) or ``lax.pmean`` (``"mean"``) of ``x``
+    over ``comm`` inside an autograd graph.  Every rank computes the same
+    value from it; its backward passes the cotangent through (scaled by
+    1/size for the mean) without reducing it again, so each rank's
+    gradient is its own share of the global one, and the train step's sum
+    of gradients over the ranks adds the shares up (a backward that
+    all-reduced would count them ``size`` times).  ``comm`` None or of one
+    rank: ``x`` itself."""
+    if op not in ("sum", "mean"):
+        raise ValueError(f"unknown op {op!r}")
+    if comm is None or comm.size == 1:
+        return x
+    return _AllReduce.apply(x, comm, op == "mean")

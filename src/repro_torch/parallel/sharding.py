@@ -4,8 +4,10 @@
 On the port's process-group mesh (``launch/mesh.py``): the batch shards
 over ``data`` when the global batch divides by its size, and the sequence
 over ``model`` (the paper's P workers); a decode shape that leaves
-``data`` idle shards its KV cache over ``(data, model)``.  Parameters are replicated; the
-reference's FSDP layout is not ported.
+``data`` idle shards its KV cache over ``(data, model)``.  An MoE model's
+routed experts (``wg`` / ``wu`` / ``wd`` of each MoE layer) shard over
+``model``, as the reference's ``moe_apply`` declares them; every other
+parameter is replicated (the reference's FSDP layout is not ported).
 """
 from __future__ import annotations
 

@@ -390,7 +390,7 @@ class PagedKVCache:
             if a.is_mla:
                 raise NotImplementedError(
                     "a latent pool sharded over ranks is not ported "
-                    "(ROADMAP §1 item 7.3)")
+                    "(ROADMAP §1 item 7.3b)")
             group = mesh.comms[seq_axis]
             sharding = cls._pool_sharding(s, group.size)
             if sharding == "heads":

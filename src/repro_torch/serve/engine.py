@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import ranks_not_ported
 from repro_torch.serve import prng
 from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.faults import FAULT_OWNER, FaultInjector
@@ -125,10 +126,7 @@ class Engine:
         if (use_mesh_sharding and model.mesh is not None
                 and model.mesh.world.size > 1
                 and (cfg.moe is not None or cfg.attn.is_mla)):
-            raise NotImplementedError(
-                "the paged Engine across ranks for an MLA / MoE model (MoE "
-                "dispatch across ranks, a latent pool sharded over them) "
-                "is not ported (ROADMAP §1 item 7.3)")
+            raise ranks_not_ported("the paged Engine")
         if model.batch_group is not None:
             # serving shapes are ragged (B = 1 chunks, a fixed slot batch
             # for decode): run the model batch-replicated, as the
@@ -670,11 +668,12 @@ class FixedSlotEngine:
     On a mesh every rank calls :meth:`generate` with the same batch; the
     prefill runs across the ``model`` ranks under ``par.schedule`` and each
     decode step reduces over the cache's shards, so every rank returns the
-    same tokens.  An MLA / MoE model (its cache the latent rows ``{"ckv"}``)
-    is served at one rank; across ranks it raises."""
+    same tokens.  An MLA / MoE model keeps the latent rows ``{"ckv"}`` as
+    its cache; across ranks its routed experts shard over the ``model``
+    ranks (the prefill dispatches over them, each decode step sums their
+    outputs)."""
 
     def __init__(self, model, params):
-        model.check_one_rank("FixedSlotEngine")
         self.model = model
         self.params = params
 

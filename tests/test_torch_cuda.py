@@ -936,3 +936,83 @@ def test_deepseek_engine_on_card_matches_cpu(dev):
         out_c = Engine(cpu, params, spec=spec, **kw).generate(
             {"tokens": prompts}, 8)
         np.testing.assert_array_equal(out_d, out_c)
+
+
+# ------------------------------------------ expert parallelism (7.3a)
+
+def test_pair_routes_under_a_balanced_plan_step_mask(dev):
+    """Kernels A, C and D's pair routes (q/k 192, v 128, 16 heads, bf16, v
+    a strided view) under the mask the balanced plan gives one rank's
+    off-diagonal step at P 4 (a whole kv chunk before the q chunk), with
+    the executor's backward inputs (o zeros of v's width, delta passed
+    in), against their plain versions at the kernel bars."""
+    from repro_torch.core import schedule as sp
+    plan = sp.build_plan("balanced", mk.causal(), 4, 1024)
+    calls = [c for c in sp.rank_calls(plan, True) if not c[4].causal]
+    assert calls
+    km, c = calls[0][4], plan.chunk_len
+    gen = torch.Generator(device=dev).manual_seed(37)
+    q, k, v = _pair_chunk(gen, dev, torch.bfloat16, 1, c, c, 16, 16, "kv")
+    do = _randn(gen, (1, c, 16, 128), torch.bfloat16, dev)
+    kw = dict(mask=km, scale=PAIR_SCALE)
+    n0 = dict(build.LAUNCHES)
+    o, lse = flash_fwd(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1)
+    zero = torch.zeros_like(do)
+    got = flash_bwd(q, k, v, zero, lse, do, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert {n: build.LAUNCHES[n] - n0[n] for n in
+            ("flash_fwd_pair", "flash_bwd_dq", "flash_bwd_dkv")} == {
+        "flash_fwd_pair": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for h in range(0, 16, 8):
+        sl = slice(h, h + 8)
+        o_r, lse_r = chunk_attn_ref(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                    **kw)
+        torch.testing.assert_close(o[:, :, sl].float(), o_r.float(),
+                                   atol=2e-2, rtol=2e-2)
+        live = lse_r > NEG_INF / 2
+        torch.testing.assert_close(lse[:, :, sl][live], lse_r[live],
+                                   atol=1e-4, rtol=1e-4)
+        ref = chunk_attn_bwd_ref(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                 zero[:, :, sl], lse[:, :, sl],
+                                 do[:, :, sl], delta=delta[:, :, sl], **kw)
+        for a, r in zip(got, ref):
+            a = a[:, :, sl]
+            torch.testing.assert_close(a.float(), r.float(), atol=5e-2,
+                                       rtol=5e-2)
+            assert row_rel_err(a, r) <= 2e-2
+
+
+def test_moe_apply_two_ranks_on_card_matches_one_rank(dev):
+    """``moe_apply`` over 2 ranks sharing the card (host-staged gloo; each
+    rank half the experts, the dispatch's two all_to_alls, the aux
+    statistics summed over the ranks), float32 at capacity 4.0, against
+    the one-rank dispatch on the card replaying the ranks' expert choices:
+    each rank's rows and aux within 1e-5."""
+    import _torch_moe_cases as MC
+    from repro_torch.launch.world import spawn
+    from repro_torch.models import moe as M
+    res = sorted(spawn(MC.card_moe_world, 2, (), device=dev, timeout=300),
+                 key=lambda r: r[0])
+    assert {r[1] for r in res} == {"gloo-staged"}
+    assert all(r[5] > 0 for r in res)
+    cfg = smoke_config(get_config(MC.ARCH))
+    p, x = MC.card_moe_inputs(cfg)
+    n = MC.MT // 2
+    forced = torch.cat([torch.cat([r[4][b * n:(b + 1) * n] for r in res])
+                        for b in range(MC.MB)]).to(dev)
+    base = M.top_k
+
+    def top_k(probs, k):
+        return probs.gather(-1, forced), forced
+    M.top_k = top_k
+    try:
+        y, aux = M.moe_apply({k: torch.from_numpy(v).to(dev)
+                              for k, v in p.items()},
+                             torch.from_numpy(x).to(dev), cfg)
+    finally:
+        M.top_k = base
+    for r, (_, _, y_r, aux_r, _, _) in enumerate(res):
+        torch.testing.assert_close(y_r, y[:, r * n:(r + 1) * n].cpu(),
+                                   atol=1e-5, rtol=1e-5)
+        assert abs(aux_r - float(aux)) <= 1e-5 * abs(float(aux))

@@ -48,6 +48,7 @@ from repro_torch.kernels.ref import chunk_attn_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import DecoderLM, to_reference_params
+from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.engine import Engine, FixedSlotEngine
 from repro_torch.serve.faults import FaultEvent, FaultInjector
 from repro_torch.serve.speculative import SpecConfig
@@ -530,29 +531,41 @@ def test_corrupt_latent_block_matches_reference(ds):
 
 
 def test_unported_paths_raise(ds):
-    """The fixed-slot engine (its prefill and dense decode), the paged
-    engine and training across ranks of an MLA / MoE model name the ROADMAP
-    items that port them; at one rank the fixed-slot engine serves
-    (``tests/test_torch_deepseek_fixed.py``) and the model trains
-    (``tests/test_torch_deepseek_train.py``)."""
+    """The paged engine across ranks of an MLA / MoE model names the
+    ROADMAP item that ports it (7.3b, a block-sharded latent pool), as does
+    a latent pool sharded over ranks; on a model whose mesh has more than
+    one rank, ``loss``, the whole-prompt ``prefill``, the dense ``decode``
+    and ``FixedSlotEngine`` run (here on a mesh record of 2 ranks whose
+    groups are those of one, so they compute the one-rank values; across
+    real ranks: ``tests/test_torch_deepseek_dist.py``)."""
     FixedSlotEngine(ds.t_model, ds.t_params)
     ranks = DecoderLM(ds.t_model.cfg, device="cpu")
     ranks.mesh = types.SimpleNamespace(world=types.SimpleNamespace(size=2))
-    across = "ROADMAP §1 items 7.3.*7.4"
-    with pytest.raises(NotImplementedError, match=across):
-        FixedSlotEngine(ranks, ds.t_params)
-    tok = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=across):
-        ranks.prefill(ds.t_params, tok)
-    with pytest.raises(NotImplementedError, match=across):
-        ranks.decode(ds.t_params, {"ckv": torch.zeros((2, 1, 8, 48))},
-                     tok[:, :1], torch.zeros((1,), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7.3b"):
         Engine(ranks, ds.t_params)
-    with pytest.raises(NotImplementedError, match=across):
-        ranks.loss(ds.t_params, {
-            "tokens": torch.zeros((1, 8), dtype=torch.int64),
-            "labels": torch.zeros((1, 8), dtype=torch.int64)})
+    with pytest.raises(NotImplementedError, match="item 7.3b"):
+        PagedKVCache.create(ds.t_model.cfg, block_size=4, n_blocks=8,
+                            mesh=_two_seq_ranks())
+    tok = torch.zeros((1, 8), dtype=torch.int64)
+    want, _ = ds.t_model.prefill(ds.t_params, tok)
+    got, cache = ranks.prefill(ds.t_params, tok)
+    assert torch.equal(got, want)
+    out, _ = FixedSlotEngine(ranks, ds.t_params).generate(
+        {"tokens": tok.numpy()}, 2)
+    assert out.shape == (1, 2)
+    cache = ranks.pad_cache(cache, 9)
+    ranks.decode(ds.t_params, cache, tok[:, :1],
+                 torch.full((1,), 8, dtype=torch.int32))
+    loss, met = ranks.loss(ds.t_params, {
+        "tokens": torch.zeros((1, 8), dtype=torch.int64),
+        "labels": torch.zeros((1, 8), dtype=torch.int64)})
+    assert float(met["aux"]) > 0 and torch.isfinite(loss)
+
+
+def _two_seq_ranks():
+    """A mesh record whose sequence axis has 2 ranks (no world needed: the
+    latent pool refuses before it builds a group)."""
+    return types.SimpleNamespace(size=lambda ax: 2)
 
 
 # --------------------------------------------------------- checkpoints

@@ -185,3 +185,23 @@ def test_fixed_slot_engine_matches_reference(ds, B, cf, temp):
         {"tokens": toks}, N_GEN, rng=t_rng, temperature=temp)
     np.testing.assert_array_equal(out.numpy(), np.asarray(r_out))
     _close(logits.numpy(), r_logits)
+
+
+def test_fixed_slot_cli_serves_across_four_ranks(capfd):
+    """``python -m repro_torch.launch.serve --fixed-slot --arch
+    deepseek-v2-lite-16b --smoke --device cpu`` on one rank and on a
+    self-spawned 4-rank world (``--nproc 4 --seq-shards 4``: the prefill
+    across the ranks, the routed experts one a rank, the ``{"ckv"}`` cache
+    sharded along the sequence) prints the same tokens."""
+    from repro_torch.launch import serve as cli
+    base = ["--fixed-slot", "--arch", ARCH, "--smoke", "--device", "cpu",
+            "--prompt-len", "32", "--gen", "6", "--batch", "2"]
+    toks = []
+    for extra in ([], ["--nproc", "4", "--seq-shards", "4"]):
+        assert cli.main(base + extra) == 0
+        out = capfd.readouterr().out
+        toks.append([x for x in out.splitlines()
+                     if x.startswith("sampled token ids")])
+        assert len(toks[-1]) == 1, out
+    assert "cache shards=4" in out
+    assert toks[0] == toks[1]

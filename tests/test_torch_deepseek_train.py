@@ -269,14 +269,42 @@ def test_four_steps_and_resume_from_a_reference_checkpoint(cases,
 
 def test_train_cli_trains_deepseek_and_refuses_ranks(capfd):
     """``python -m repro_torch.launch.train --arch deepseek-v2-lite-16b
-    --smoke --device cpu`` prints ``ce`` and ``aux`` each step; with
-    ``--nproc`` or ``--seq-shards`` above 1 it exits naming item 7.3."""
+    --smoke --device cpu`` prints ``ce`` and ``aux`` each step, on one rank
+    and on a self-spawned 4-rank world (``--nproc 4 --seq-shards 4``, the
+    routed experts one a rank; the name predates that world, when ranks
+    were refused): both print the reference's losses — its train step from
+    the CLI's seed-0 weights on the same batches — to the printed digits.
+    """
     from repro_torch.launch import train as cli
-    base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2",
-            "--seq", "32", "--batch", "1", "--log-every", "1"]
-    assert cli.main(base) == 0
-    out = capfd.readouterr().out
-    assert "step     1 loss" in out and " ce " in out and " aux " in out
-    for extra in (["--nproc", "2"], ["--seq-shards", "2"]):
-        with pytest.raises(SystemExit, match="items 7.3"):
-            cli.main(base + extra)
+    steps = 2
+    base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
+            str(steps), "--seq", str(T), "--batch", str(B), "--log-every",
+            "1"]
+    r_cfg = r_smoke_config(r_get_config(ARCH))
+    mesh = _mesh()
+    shape = RShapeSpec("cli", T, B, "train")
+    r_model = build_model(r_cfg, Runtime(mesh=mesh, par=make_parallel_config(
+        mesh, shape), impl="ref"))
+    t_cfg = smoke_config(get_config(ARCH))
+    params = jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()),
+                          to_reference_params(DecoderLM(t_cfg, "cpu").init(
+                              cli.SEED)))
+    r_step = jax.jit(r_make_train_step(r_model, RTrainConfig(
+        lr=1e-3, warmup_steps=min(20, steps // 5 + 1), total_steps=steps)))
+    opt = radamw.init(params)
+    data = RSyntheticTokens(r_cfg, shape, make_parallel_config(mesh, shape),
+                            mesh)
+    want = []
+    for i in range(steps):
+        params, opt, m = r_step(params, opt, data.batch(i))
+        want.append([float(m[k]) for k in ("loss", "ce", "aux")])
+    for extra in ([], ["--nproc", "4", "--seq-shards", "4"]):
+        assert cli.main(base + extra) == 0
+        out = capfd.readouterr().out
+        got = [[float(x.split()[i]) for i in (3, 5, 7)]
+               for x in out.splitlines() if x.startswith("step ")]
+        assert len(got) == steps, out
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0,
+                                   err_msg=str(extra))
+        if extra:
+            assert "mesh={'data': 1, 'model': 4}" in out
