@@ -315,6 +315,44 @@ Phases, each fatal on failure (nothing is caught):
                 the ranks' expert choices and kept pairs, teacher-forced on
                 their tokens; rejected controls: the decode without its sum
                 over the ranks' experts, the return all_to_all rotated.
+                Then the latent ring: the prompt prefilled again under
+                zigzag with ``latent_ring=True`` (each rank ships its 576
+                latent columns a position on the ring, not 16 × (192 +
+                128) of K/V, and expands what arrives; A's pair route under
+                the zigzag plan's steps), replaying the balanced run's
+                expert choices and kept pairs at each row's zigzag
+                position: its last logits within 5% of max |logit| of the
+                one process, its latent cache un-permuted within the same
+                bar of the balanced run's; rejected control: each
+                expansion with the next layer's ``wkv_b``.  Each layer's
+                attention inputs then go through the zigzag K/V ring and
+                the latent ring alone: host seconds, seconds in shifts and
+                elements a position shipped of each.
+  17. moe-paged — deepseek-v2-lite-16b at full width, cut to 9 of 27
+                layers (the dense layer 0 and 8 MoE layers: at full depth
+                the phase took 152 s on an H100 80GB HBM3 at 700 W; seed
+                17), across 4 ``gloo-staged``
+                ranks through phase 4's paged ``Engine``, its latent pool
+                block-sharded (48 of the 192
+                blocks a rank): phase 11's requests (request 3 shares
+                request 0's first 37 tokens, a fork across ranks' blocks;
+                a corrupted block at step 10), 32 greedy tokens each.
+                Chunks through A's latent route over the gathered pool,
+                each chunk's MoE rows split over the ranks (64 of 256 a
+                rank, capacity 8 an expert); decode through B over the
+                gathered pool, the experts summed over the ranks.  Every
+                rank's streams, fault log and states equal, logits
+                checksums bitwise equal; the corrupted block quarantines
+                its owner only; the pools conserve; on rank 0 one chunk's
+                A call and one decode's B call held to their plain
+                versions at phase 12's limits.  Every step's logits within
+                5% of max |logit| of one process's paged Engine replaying
+                the ranks' expert choices and kept pairs, teacher-forced
+                on their tokens; rejected controls: every rank
+                dispatching the whole chunk (capacity 30 an expert), the
+                decode without the experts' sum, the pool gather rotated
+                by one rank.  Decode ms a step, the decode's host seconds
+                in pool gathers and in the MoE sums.
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
 there is no CUDA device or the port is not beside this file.
@@ -3171,16 +3209,41 @@ def _p11_prompts(vocab):
     return p
 
 
-def _p11_run(model, params, corrupt, n_new=None):
+@contextlib.contextmanager
+def _forcing(eng, forced):
+    """Teacher forcing of a paged Engine while the block runs: each decode
+    step samples ``forced[(rid, context position)]`` for a running request
+    that has one, and its own draw otherwise (``forced`` None: no change)."""
+    from repro_torch.serve import engine as em
+    base = em._sample
+
+    def sample(logits, temps, seeds, positions):
+        out = base(logits, temps, seeds, positions)
+        for slot, req in eng.sched.running.items():
+            t = forced.get((req.rid, int(positions[slot])))
+            if t is not None:
+                out[slot] = t
+        return out
+    if forced is not None:
+        em._sample = sample
+    try:
+        yield
+    finally:
+        em._sample = base
+
+
+def _p11_run(model, params, corrupt, n_new=None, router=None, forced=None):
     """Phase 11's run: requests 0-2, P11_STAGGER steps, request 3, to the
-    end, the meter on; returns streams, rows, stats and the fault log."""
+    end, the meter on (with phase 12's ``router``; teacher-forced on
+    ``forced``, :func:`_forcing`); returns streams, rows, stats and the
+    fault log."""
     n_new = n_new or P4_NEW
     inj = FaultInjector([] if corrupt is None else [
         FaultEvent(step=corrupt, kind="corrupt_block")])
     eng = Engine(model, params, faults=inj, audit=True, **P4_ENGINE)
     prompts = _p11_prompts(model.cfg.vocab)
     times = []
-    with _meter(model, eng) as rec:
+    with _meter(model, eng, router) as rec, _forcing(eng, forced):
         rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts[:3]]
         for _ in range(P11_STAGGER):
             eng.step()
@@ -3193,7 +3256,7 @@ def _p11_run(model, params, corrupt, n_new=None):
             if ev and eng.counters["prefill_chunks"] == c0:  # decode only
                 times.append(time.perf_counter() - t0)
         eng.release_faults()
-    _conserved(eng.cache, "phase 11 pool")
+    _conserved(eng.cache, "the paged pool")
     st = eng.stats()
     return dict(eng=eng, out=[np.asarray(eng.requests[r].emitted)
                               for r in rids], rec=rec, st=st,
@@ -4448,13 +4511,158 @@ P16_WARM_T = 256
 P16_TIMEOUT = 900
 
 
+@contextlib.contextmanager
+def _capacity(fn):
+    """``models/moe.capacity`` is ``fn(cfg, n, base)`` while the block runs:
+    room for the pairs a replay forces (its kept pairs came from other
+    dispatches, so an expert may hold more than its own capacity; the
+    buffer's extra slots stay empty and change nothing)."""
+    from repro_torch.models import moe
+    base = moe.capacity
+    moe.capacity = lambda cfg, n: fn(cfg, n, base)
+    try:
+        yield
+    finally:
+        moe.capacity = base
+
+
+@contextlib.contextmanager
+def _expand_fault(params):
+    """The latent ring's planted fault: every expansion up-projects with the
+    next layer's ``wkv_b`` instead of its own."""
+    ws = [lp["attn"]["wkv_b"] for lp in TF.layer_params(params)]
+    base = LY.mla_expand
+
+    def wrong(latent, w_up, cfg):
+        i = next(j for j, w in enumerate(ws) if w is w_up)
+        return base(latent, ws[(i + 1) % len(ws)], cfg)
+    LY.mla_expand = wrong
+    try:
+        yield
+    finally:
+        LY.mla_expand = base
+
+
+def _ring_compare(grp, calls, cfg):
+    """Each layer's inputs of the latent-ring prefill (``calls``: q, k, v,
+    payload, w_up) through the zigzag K/V ring (``dist_attn_fwd``) and the
+    latent ring, one after the other: host seconds a ring (device synced)
+    and blocked in shifts, the elements a position each shift carries
+    (summed over its tensors), and the outputs' largest difference
+    relative to the K/V ring's."""
+    from repro_torch.core.dist_attention import (DistAttnSpec,
+                                                 dist_attn_fwd,
+                                                 dist_attn_fwd_latent)
+    spec = DistAttnSpec(axis="model", axis_size=grp.size, schedule="zigzag",
+                        scale=LY.mla_scale(cfg))
+    expand = lambda x, w: LY.mla_expand(x, w, cfg)
+    out = {k: dict(s=0.0, shift=0.0, elems=[]) for k in ("kv", "latent")}
+    shift, err = grp.shift, 0.0
+    for q, k, v, payload, w_up in calls:
+        o = {}
+        for name in ("kv", "latent"):
+            rec = out[name]
+
+            def noted(ts, hops, rec=rec):
+                rec["elems"].append(sum(t.numel() // (t.shape[0]
+                                                      * t.shape[1])
+                                        for t in ts))
+                return shift(ts, hops)
+            grp.shift = noted
+            torch.cuda.synchronize()
+            t0, w0 = time.perf_counter(), grp.shift_wait_s
+            o[name] = (dist_attn_fwd(q, k, v, spec=spec, group=grp)[0]
+                       if name == "kv" else dist_attn_fwd_latent(
+                           q, k, v, payload, w_up, expand, spec=spec,
+                           group=grp)[0])
+            torch.cuda.synchronize()
+            rec["s"] += time.perf_counter() - t0
+            rec["shift"] += grp.shift_wait_s - w0
+            del grp.shift
+        err = max(err, float((o["latent"].float() - o["kv"].float()).abs()
+                             .max() / o["kv"].float().abs().max()))
+    for rec in out.values():
+        rec["elems"] = sorted(set(rec.pop("elems")))
+    out["err"] = err
+    return out
+
+
+def _p16_ring(mesh, model, params, prompt, kept, rk, kp):
+    """Phase 16's latent ring on this rank: the prompt prefilled again
+    under zigzag with ``latent_ring=True``, replaying the balanced run's
+    expert choices and kept pairs (``rk`` / ``kp``: this rank's; every
+    rank's are all-gathered and each row takes its own, at its zigzag
+    position; a zigzag rank's rows come from two balanced ranks, so an
+    expert gets the most slots any zigzag rank's kept pairs need); its
+    last logits, launches, host seconds and its latent
+    cache held to the balanced run's (``kept``: this rank's ``{"ckv"}``
+    shard), un-permuted; the same prefill under the planted expand fault;
+    then each layer's attention inputs through both rings
+    (:func:`_ring_compare`)."""
+    from repro_torch.core.dist_attention import shard_positions
+    cfg, grp = model.cfg, model.seq_group
+    P, n_moe = grp.size, cfg.n_layers - cfg.moe.n_dense_layers
+    every = lambda x: grp.all_gather(x.contiguous(), dim=1)
+    calls = every(torch.stack(rk.seen[:n_moe]))           # (n_moe, T, k)
+    keep = every(torch.stack(kp.seen[:n_moe]).view(n_moe, -1, cfg.moe.top_k)
+                 .to(torch.uint8))
+    zig = [torch.as_tensor(shard_positions(P16_T, P, r, True), device=DEV)
+           for r in range(P)]
+    pos = zig[grp.rank]
+    # each MoE layer's slots an expert: the most pairs any zigzag rank's
+    # rows keep for one expert (the same on every rank)
+    E = cfg.moe.n_routed
+    caps = [max(int(torch.bincount(c[z][k[z].bool()], minlength=E).max())
+                for z in zig) for c, k in zip(calls, keep)]
+    zz = DecoderLM(cfg, DEV, par=dataclasses.replace(model.par,
+                                                     schedule="zigzag"),
+                   mesh=mesh, latent_ring=True)
+    seen = []
+    base = TF.dist_attn_fwd_latent
+
+    def noted(*a, **kw):
+        seen.append(a[:5])
+        return base(*a, **kw)
+
+    def replay(fault=False):
+        cap = iter(caps)
+        with _Router(calls=[c[pos] for c in calls]), _Keep(calls=[
+                c[pos].reshape(-1).bool() for c in keep]), _capacity(
+                lambda c, n, b: max(b(c, n), next(cap))), (
+                _expand_fault(params) if fault
+                else contextlib.nullcontext()):
+            return zz.prefill(params, prompt)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0, w0, a0 = time.perf_counter(), grp.shift_wait_s, grp.a2a_s
+    TF.dist_attn_fwd_latent = noted
+    try:
+        logits, cache = replay()
+        torch.cuda.synchronize()
+    finally:
+        TF.dist_attn_fwd_latent = base
+    out = dict(launches=dict(build.LAUNCHES), s=time.perf_counter() - t0,
+               shift=grp.shift_wait_s - w0, a2a=grp.a2a_s - a0,
+               logits=logits[:, -1].float().cpu(), ring_calls=len(seen),
+               caps=(min(caps), max(caps)))
+    whole = grp.all_gather(kept.contiguous(), dim=2)[:, :, pos].float()
+    out["cache_err"] = float((cache["ckv"].float() - whole).abs().max()
+                             / whole.abs().max())
+    del whole, cache, logits
+    out["ctl"] = replay(fault=True)[0][:, -1].float().cpu()
+    out["rings"] = _ring_compare(grp, seen, cfg)
+    del seen, zz
+    return out
+
+
 def _p16_rank(rank, tmp):
     """One rank of phase 16's world: deepseek-v2-lite-16b at full size, its
     routed experts 16 a rank; a warm-up, then one 16,384-token prompt
     through ``FixedSlotEngine`` (balanced whole-prompt prefill across the
     ranks, the latent cache sharded along the sequence, 32 greedy tokens),
     recording every MoE call's expert choices and kept pairs; then the
-    planted-fault runs teacher-forced on its tokens."""
+    planted-fault runs teacher-forced on its tokens, and the latent ring
+    (:func:`_p16_ring`)."""
     mesh = make_local_mesh(seq=P16_RANKS, device=DEV)
     cfg = get_config(P12_ARCH)
     par = make_parallel_config(mesh, ShapeSpec("chip16", P16_T, 1,
@@ -4470,8 +4678,14 @@ def _p16_rank(rank, tmp):
     eng.generate({"tokens": prompt[:, :P16_WARM_T]}, 2)
     comms = list({id(c): c for c in (model.seq_group, model.decode_group,
                                      model.token_group)}.values())
-    times = {}
-    model.prefill = _timed(times, "prefill", model.prefill)
+    times, kept = {}, {}
+    prefill = model.prefill
+
+    def keeping(p, tokens):
+        logits, cache = prefill(p, tokens)
+        kept["ckv"] = cache["ckv"]
+        return logits, cache
+    model.prefill = _timed(times, "prefill", keeping)
     model.decode = _timed(times, "decode", model.decode)
     _free()
     torch.cuda.synchronize()
@@ -4498,6 +4712,10 @@ def _p16_rank(rank, tmp):
         with _moe_fault(fault), _recorded(model, toks[:, :n]) as logs:
             eng.generate({"tokens": prompt}, n)
         out["controls"][fault] = torch.stack(logs)
+    del eng
+    _free()
+    out["ring"] = _p16_ring(mesh, model, params, prompt, kept.pop("ckv"),
+                            rk, kp)
     return out
 
 
@@ -4592,14 +4810,402 @@ def serve_moe_ranks():
     for f, e in ctl.items():
         check(e > LOGIT_REL_TOL, f"the logit limit does not reject the {f} "
               f"control ({e})")
+    ring = _p16_ring_gates(cfg, res, ref[:1])
     launches = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
     out = dict(launches=launches, err=err, controls=ctl,
                prefill_s=max(r["prefill_s"] for r in res),
                decode_ms=[float(np.median(r["decode_ms"])) for r in res],
-               peaks=[r["peak"] for r in res], world_s=wall,
+               peaks=[r["peak"] for r in res], world_s=wall, ring=ring,
                seconds=time.perf_counter() - t_all)
     say(f"  world of {P16_RANKS} ranks: {wall:.1f} s, spawn included; phase "
         f"16 took {out['seconds']:.1f} s")
+    return out
+
+
+def _p16_ring_gates(cfg, res, ref):
+    """Phase 16's latent-ring gates over the ranks' :func:`_p16_ring`
+    results: A's pair route launched the zigzag plan's coverage count ×
+    layers on every rank and nothing else; the last logits within 5% of max
+    |logit| of the one process (``ref``: its prefill logits, replaying the
+    same expert choices and kept pairs); the latent cache un-permuted
+    within the same bar of the balanced run's; the expand fault rejected;
+    the K/V ring shipping 16 × (192 + 128) elements a position, the latent
+    ring kv_lora + rope, their outputs within bf16's 2e-2 of each other."""
+    a = cfg.attn
+    want = _plan_launches("zigzag", P16_RANKS, P16_T)
+    lat = a.kv_lora_rank + a.qk_rope_head_dim
+    kv = a.n_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim
+                      + a.v_head_dim)
+    for r in res:
+        g = r["ring"]
+        w = cfg.n_layers * want[r["rank"]]
+        check(g["launches"]["flash_fwd_pair"] == w and all(
+            n == 0 for k, n in g["launches"].items()
+            if k != "flash_fwd_pair"), f"rank {r['rank']}: latent ring "
+            f"launches {g['launches']}, want flash_fwd_pair {w} only")
+        check(g["ring_calls"] == cfg.n_layers, f"rank {r['rank']}: "
+              f"{g['ring_calls']} latent-ring attention calls")
+        rg = g["rings"]
+        check(rg["latent"]["elems"] == [lat] and rg["kv"]["elems"] == [kv],
+              f"rank {r['rank']}: elements a position shipped: latent "
+              f"{rg['latent']['elems']}, K/V {rg['kv']['elems']}")
+        check(rg["err"] <= TOL[torch.bfloat16], f"rank {r['rank']}: the "
+              f"rings' outputs differ by {rg['err']} of max |o|")
+    from repro_torch.models.moe import capacity
+    own = capacity(cfg, P16_T // P16_RANKS)
+    err = max(_step_err([r["ring"]["logits"]], ref) for r in res)
+    cache = max(r["ring"]["cache_err"] for r in res)
+    ctl = max(_step_err([r["ring"]["ctl"]], ref) for r in res)
+    for r in res:
+        g, rg = r["ring"], r["ring"]["rings"]
+        say(f"  rank {r['rank']}: latent-ring zigzag prefill "
+            f"{g['s']:.3f} s (host blocked in shifts {g['shift']:.3f} s, "
+            f"all_to_alls {g['a2a']:.3f} s; the replayed pairs take "
+            f"{g['caps'][0]}-{g['caps'][1]} slots an expert, the ranks' "
+            f"own dispatch {own}); attention alone over the "
+            f"{cfg.n_layers} layers' inputs: K/V ring {rg['kv']['s']:.3f} s "
+            f"({rg['kv']['shift']:.3f} s in shifts, {kv} elements = "
+            f"{2 * kv} bytes a position), latent ring "
+            f"{rg['latent']['s']:.3f} s ({rg['latent']['shift']:.3f} s in "
+            f"shifts, {lat} elements = {2 * lat} bytes a position); "
+            f"outputs max|Δ| {rg['err']:.3e} of max |o|; launches "
+            f"{g['launches']}")
+    say(f"  latent ring (zigzag, replaying the balanced run's experts and "
+        f"kept pairs): last logits max|Δ| / max|logit| {err:.3e} against "
+        f"the one process (limit {LOGIT_REL_TOL}); latent cache "
+        f"un-permuted against the balanced run's {cache:.3e} of max |ckv|; "
+        f"control (each expansion with the next layer's wkv_b) {ctl:.3e}")
+    check(err <= LOGIT_REL_TOL, f"latent-ring logits vs one process: {err}")
+    check(cache <= LOGIT_REL_TOL, f"latent-ring cache vs balanced: {cache}")
+    check(ctl > LOGIT_REL_TOL, f"the logit limit does not reject the "
+          f"expand control ({ctl})")
+    return dict(err=err, cache_err=cache, ctl=ctl,
+                launches=sum(r["ring"]["launches"]["flash_fwd_pair"]
+                             for r in res),
+                s=[r["ring"]["s"] for r in res],
+                shift=[r["ring"]["shift"] for r in res],
+                rings={k: dict(s=[r["ring"]["rings"][k]["s"] for r in res],
+                               shift=[r["ring"]["rings"][k]["shift"]
+                                      for r in res])
+                       for k in ("kv", "latent")})
+
+
+# ---------------------------------------------------------------- phase 17
+
+P17_SEED, P17_RANKS = 17, 4
+# the dense layer 0 and 8 MoE layers of 27: at full depth the phase took
+# 152.2 s on an H100 80GB HBM3 at 700 W (a decode step 1.42 s a rank, four
+# ranks' expert reads serialised on the one card), beyond its share of
+# the run's time
+P17_LAYERS = 9
+P17_CORRUPT = 10        # phase 11 (b)'s corrupted block's step
+P17_CTL_NEW = 2         # tokens a request in each planted-fault run
+P17_TIMEOUT = 900
+
+
+@contextlib.contextmanager
+def _gather_fault():
+    """Phase 17's pool control: every latent-pool gather rotated by one
+    rank (each rank's blocks land where the next rank's belong)."""
+    from repro_torch.serve import cache as cm
+    base = cm.gather_pool
+
+    def rotated(pool, shard):
+        g = base(pool, shard)
+        return g if shard is None else torch.roll(g, shard.n_local, dims=0)
+    cm.gather_pool = TF.gather_pool = rotated
+    try:
+        yield
+    finally:
+        cm.gather_pool = TF.gather_pool = base
+
+
+@contextlib.contextmanager
+def _chunk_moe_fault():
+    """Phase 17's dispatch control: every rank dispatches all of a chunk's
+    replicated rows (each expert's capacity from the chunk's C rows, not
+    from the rank's C/S)."""
+    from repro_torch.models.moe import moe_apply
+    base = DecoderLM._split_moe
+    DecoderLM._split_moe = lambda self, p, h: moe_apply(
+        p, h, self.cfg, group=self.expert_group)[0]
+    try:
+        yield
+    finally:
+        DecoderLM._split_moe = base
+
+
+@contextlib.contextmanager
+def _captured():
+    """Kernel A's first chunk call past the first chunk (q_offset > 0) and
+    kernel B's first decode call (Tq 1, over the gathered pool) while the
+    block runs, inputs cloned: {"A": (q, k, v width, kwargs), "B": (q, k,
+    v width, table, lengths, kwargs)}."""
+    from repro_torch.serve import cache as cm
+    got = {}
+    a_base, b_base = TF.chunk_attn, cm.paged_decode_attn
+
+    def a(q, k, v, **kw):
+        if "A" not in got and kw.get("q_offset", 0) > 0:
+            got["A"] = (q.clone(), k.clone(), v.shape[-1], dict(kw))
+        return a_base(q, k, v, **kw)
+
+    def b(q, k, v, bt, lens, **kw):
+        if "B" not in got and q.shape[1] == 1:
+            got["B"] = (q.clone(), k.clone(), v.shape[-1], bt.clone(),
+                        lens.clone(), dict(kw))
+        return b_base(q, k, v, bt, lens, **kw)
+    TF.chunk_attn, cm.paged_decode_attn = a, b
+    try:
+        yield got
+    finally:
+        TF.chunk_attn, cm.paged_decode_attn = a_base, b_base
+
+
+def _held(got):
+    """The captured A and B calls (:func:`_captured`) through the kernels
+    and their plain versions (``impl="ref"``), at phase 12's limits: A's
+    o element-wise 2e-2 and relative 3e-2, its lse 1e-4; B's o 2e-2."""
+    from repro_torch.serve import cache as cm
+    q, k, c, kw = got["A"]
+    o, lse = TF.chunk_attn(q, k, k[..., :c], **kw)
+    o_r, lse_r = TF.chunk_attn(q, k, k[..., :c], **{**kw, "impl": "ref"})
+    tol = TOL[q.dtype]
+    a_err = float((o.float() - o_r.float()).abs().max())
+    a_rel = rel_err(o, o_r) if q.dtype == torch.bfloat16 else 0.0
+    valid = lse_r > NEG_INF / 2
+    l_err = float((lse - lse_r).abs()[valid].max())
+    check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol)
+          and a_rel <= REL_TOL
+          and l_err <= LSE_TOL * (1 + float(lse_r[valid].abs().max())),
+          f"phase 17 chunk: A against its plain version o {a_err}, rel "
+          f"{a_rel}, lse {l_err}")
+    q, k, c, bt, lens, kw = got["B"]
+    o = cm.paged_decode_attn(q, k, k[..., :c], bt, lens, **kw)
+    o_r = cm.paged_decode_attn(q, k, k[..., :c], bt, lens,
+                               **{**kw, "impl": "ref"})
+    b_err = float((o.float() - o_r.float()).abs().max())
+    tol = PAGED_TOL[q.dtype]
+    check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol),
+          f"phase 17 decode: B against its plain version {b_err}")
+    return dict(A=(a_err, a_rel, l_err, tuple(got["A"][0].shape),
+                   got["A"][3]["q_offset"]), B=(b_err, tuple(k.shape)))
+
+
+def _p17_cfg():
+    return get_config(P12_ARCH).replace(n_layers=P17_LAYERS)
+
+
+def _p17_rank(rank, tmp):
+    """One rank of phase 17's world: deepseek-v2-lite-16b at full width,
+    P17_LAYERS deep, its routed experts 16 a rank, through phase 4's paged
+    engine over a latent pool block-sharded on the 4 ranks; a warm-up,
+    then phase 11's run (a
+    fork, a corrupted block) recording every MoE call's expert choices and
+    kept pairs, the pool gathers' and the MoE sums' host seconds in each
+    decode, and on rank 0 one chunk's A call and one decode's B call held
+    to their plain versions; then the three planted-fault runs."""
+    mesh = make_local_mesh(seq=P17_RANKS, device=DEV)
+    cfg = _p17_cfg()
+    par = make_parallel_config(mesh, ShapeSpec(
+        "chip17", 1024, P4_ENGINE["max_batch"], "prefill"))
+    model = DecoderLM(cfg, DEV, par=par, mesh=mesh)
+    params = model.init(seed=P17_SEED)
+    grp = model.seq_group
+    out = {"rank": mesh.coord("model"), "transport": mesh.transport,
+           "n_params": sum(t.numel() for t in leaves(params))}
+    warm = Engine(model, params, **P4_ENGINE)
+    warm.submit(_p11_prompts(cfg.vocab)[3], max_new_tokens=2)
+    warm.run()
+    del warm
+    dec = dict(s=[], gather=0.0, reduce=0.0)
+    decode = model.decode
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0, g0, r0 = time.perf_counter(), grp.gather_s, grp.reduce_s
+        logits = decode(*a)
+        torch.cuda.synchronize()
+        dec["s"].append(time.perf_counter() - t0)
+        dec["gather"] += grp.gather_s - g0
+        dec["reduce"] += grp.reduce_s - r0
+        return logits
+    model.decode = timed
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _comm_seconds([grp])
+    build.reset_launches()
+    rk = _Router()
+    t0 = time.perf_counter()
+    with rk, _Keep() as kp, (_captured() if out["rank"] == 0
+                             else contextlib.nullcontext({})) as got:
+        r = _p11_run(model, params, P17_CORRUPT, router=rk)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    c1 = _comm_seconds([grp])
+    del model.decode
+    rows = _host_rows(r["rec"])
+    out.update(
+        sharding=r["eng"].cache.sharding,
+        local=tuple(r["eng"].cache.pools["ckv_pool"].shape),
+        out=r["out"], log=r["log"], states=r["states"],
+        forks=r["st"]["forks"], quarantined=r["st"]["quarantined"],
+        sums=_sums(rows), rows=rows if out["rank"] == 0 else None,
+        launches=launches, wall=wall, step_ms=[1e3 * t for t in r["step_s"]],
+        decode=dec, comm={k: c1[k] - c0[k] for k in c1},
+        peak=torch.cuda.max_memory_allocated(),
+        held=_held(got) if out["rank"] == 0 else None)
+    torch.save({"calls": [c.cpu() for c in rk.seen], "valid": rk.valid,
+                "keep": [k.cpu() for k in kp.seen]},
+               os.path.join(tmp, f"rank{out['rank']}.pt"))
+    del r, rk, kp, got
+    _free()
+    out["controls"] = {}
+    for name, fault in (("chunk", _chunk_moe_fault), ("psum", lambda:
+                        _moe_fault("psum")), ("gather", _gather_fault)):
+        with fault():
+            bad = _p11_run(model, params, None, n_new=P17_CTL_NEW)
+        out["controls"][name] = (dict(out=bad["out"],
+                                      rows=_host_rows(bad["rec"]))
+                                 if out["rank"] == 0 else None)
+        del bad
+    return out
+
+
+def serve_moe_paged():
+    """Phase 17: a gloo world of 4 ranks sharing the one card serves
+    deepseek-v2-lite-16b at full width, P17_LAYERS of its 27 layers deep
+    (its routed experts 16 a rank) through phase 4's paged Engine over a
+    latent pool block-sharded on the
+    ranks: chunks through A's latent route over the gathered pool, each
+    chunk's MoE rows split over the ranks, decode through B over the
+    gathered pool with the experts summed over the ranks; phase 11's
+    requests (a fork, a corrupted block).  Then one process runs the paged
+    Engine on the same weights, replaying the ranks' expert choices and
+    kept pairs, teacher-forced on their tokens: every step's logits within
+    5% of max |logit|, which must reject three planted faults."""
+    from repro_torch.models.moe import capacity
+    t_all = time.perf_counter()
+    cfg = _p17_cfg()
+    P = P17_RANKS
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = spawn(_p17_rank, P, (tmp,), device=DEV, timeout=P17_TIMEOUT,
+                    threads=2)
+        world = time.perf_counter() - t0
+        res.sort(key=lambda r: r["rank"])
+        recs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(P)]
+    zero = res[0]
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    nb = P4_ENGINE["n_blocks"] // P
+    for r in res:
+        check(r["sharding"] == "blocks" and r["local"][1] == nb,
+              f"rank {r['rank']}: pool {r['sharding']} {r['local']}")
+        check(r["sums"] == zero["sums"], "the ranks computed other logits")
+        check(all(np.array_equal(a, b) for a, b in zip(r["out"],
+                                                       zero["out"]))
+              and r["log"] == zero["log"] and r["states"] == zero["states"],
+              f"rank {r['rank']}: streams, fault log or states differ")
+        L = r["launches"]
+        check(L["flash_fwd_latent"] > 0 and L["paged_decode"] > 0
+              and L["flash_fwd"] == 0 and L["flash_fwd_pair"] == 0,
+              f"rank {r['rank']}: launches {L}")
+    check(zero["forks"] >= 1, "phase 17: no copy-on-write fork")
+    failed = [i for i, s in enumerate(zero["states"])
+              if s == ("failed", "nan_logits")]
+    (_, _, detail), = zero["log"]
+    victim = int(detail.split("rid=")[1].split()[0])
+    check(failed == [victim], f"phase 17: quarantined {failed}, the "
+          f"corrupted block's owner is {victim}")
+    # one process replays the ranks: their chunk calls' rows concatenated
+    # in rank order, each decode call's from rank 0 (every rank routes the
+    # same rows); the kept pairs of every dispatch likewise
+    calls = [torch.cat([rec["calls"][i] for rec in recs])
+             if isinstance(v, int) else recs[0]["calls"][i]
+             for i, v in enumerate(recs[0]["valid"])]
+    keep = [torch.cat([rec["keep"][j] for rec in recs])
+            for j in range(len(recs[0]["keep"]))]
+    del recs
+    prompts = _p11_prompts(cfg.vocab)
+    forced = {(i, len(p) + j): int(t) for i, p in enumerate(prompts)
+              for j, t in enumerate(zero["out"][i])}
+    t0 = time.perf_counter()
+    one = DecoderLM(cfg, DEV)
+    params = one.init(seed=P17_SEED)
+    rr = _Router(calls=[c.to(DEV) for c in calls])
+    with rr, _Keep(calls=keep), _capacity(lambda c, n, b: max(
+            b(c, n), P * b(c, n // P))):
+        ref = _p11_run(one, params, P17_CORRUPT, router=rr, forced=forced)
+    del ref["eng"]
+    check(len(rr.seen) == len(calls) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(rr.seen, calls)),
+        "the one process did not replay every expert choice")
+    del one, params, rr
+    _free()
+    one_s = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for a, b in zip(ref["out"], zero["out"]))
+          and ref["log"] == zero["log"] and ref["states"] == zero["states"],
+          "the teacher-forced one process took another course")
+    ref = dict(out=ref["out"], rec={"logits": _host_rows(ref["rec"])},
+               step_s=ref["step_s"])
+    temps = [0.0] * len(prompts)
+    err, _ = _p9_compare(ref, dict(out=zero["out"], rec={
+        "logits": zero["rows"]}), prompts, temps)
+    ctl = {k: _p9_compare(ref, dict(out=v["out"], rec={"logits": v["rows"]}),
+                          prompts, temps, gate=False)[0]
+           for k, v in zero["controls"].items()}
+    h = zero["held"]
+    say(f"  {cfg.name} at full width, {cfg.n_layers} of 27 layers, {P} "
+        f"ranks ({zero['n_params'] / 1e9:.2f} B parameters a rank), latent pool block-sharded (local "
+        f"{zero['local']}): streams, fault log and states equal on every "
+        f"rank, logits checksums equal; forks {zero['forks']}, fault log "
+        f"{zero['log']}, states {zero['states']}")
+    say(f"  rank 0's chunk call of A (latent route, q "
+        f"{tuple(h['A'][3])}, q_offset {h['A'][4]}) against its plain "
+        f"version: max|Δo| {h['A'][0]:.3e}, rel {h['A'][1]:.3e}, max|Δlse| "
+        f"{h['A'][2]:.3e}; a decode call of B over the gathered pool "
+        f"{h['B'][1]}: max|Δo| {h['B'][0]:.3e}")
+    say(f"  one process replaying the ranks' experts and kept pairs, "
+        f"teacher-forced ({one_s:.1f} s; capacity a chunk "
+        f"{capacity(cfg, P4_ENGINE['prefill_chunk_tokens'])} an expert, "
+        f"a rank's {capacity(cfg, P4_ENGINE['prefill_chunk_tokens'] // P)}"
+        f" of its {P4_ENGINE['prefill_chunk_tokens'] // P} rows): every "
+        f"row max|Δ| / max|logit| {err:.3e} (limit {LOGIT_REL_TOL}); "
+        f"controls: every rank dispatching the whole chunk "
+        f"{ctl['chunk']:.3e}, decode without the experts' sum "
+        f"{ctl['psum']:.3e}, pool gather rotated by a rank "
+        f"{ctl['gather']:.3e}")
+    check(err <= LOGIT_REL_TOL, f"phase 17 logits vs one process: {err}")
+    for k, e in ctl.items():
+        check(e > LOGIT_REL_TOL, f"the logit limit does not reject the {k} "
+              f"control ({e})")
+    for r in res:
+        d = r["decode"]
+        tot = sum(d["s"])
+        say(f"  rank {r['rank']}: decode-step ms (median) "
+            f"{float(np.median(r['step_ms'])):.2f}; decode calls "
+            f"{len(d['s'])}, {tot:.3f} s: pool gathers {d['gather']:.3f} s "
+            f"({d['gather'] / tot:.3f}), MoE sums {d['reduce']:.3f} s "
+            f"({d['reduce'] / tot:.3f}); the run {r['wall']:.1f} s, host "
+            f"blocked in all_to_alls / all-reduces and gathers "
+            f"{r['comm']['a2a']:.3f} / {r['comm']['reduce']:.3f} s; peak "
+            f"{r['peak'] / 2**30:.2f} GiB; launches {r['launches']}")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in zero["launches"]}
+    out = dict(launches=launches, err=err, controls=ctl, held=h,
+               step_ms=[float(np.median(r["step_ms"])) for r in res],
+               one_step_ms=1e3 * float(np.median(ref["step_s"])),
+               gather_share=[r["decode"]["gather"] / sum(r["decode"]["s"])
+                             for r in res],
+               sum_share=[r["decode"]["reduce"] / sum(r["decode"]["s"])
+                          for r in res],
+               world_s=world, seconds=time.perf_counter() - t_all)
+    say(f"  one process: decode-step ms (median) {out['one_step_ms']:.2f}; "
+        f"world of {P} ranks {world:.1f} s, spawn included; phase 17 took "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -5350,16 +5956,26 @@ def main():
         "through the fixed-slot engine")
     es = serve_moe_ranks()
     _free()
+    say(f"== phase 17: serve deepseek-v2-lite-16b at full width, {P17_LAYERS} "
+        "of 27 layers, across 4 ranks through the paged engine (latent pool "
+        "block-sharded)")
+    ep = serve_moe_paged()
+    _free()
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
             row["launches"] += (em["launches"]["flash_fwd_pair"]
-                                + es["launches"]["flash_fwd_pair"])
+                                + es["launches"]["flash_fwd_pair"]
+                                + es["ring"]["launches"])
+        elif row["name"] in ("flash_fwd_latent", "paged_decode"):
+            row["launches"] += ep["launches"][row["name"]]
         elif row["name"] in ("flash_bwd_dq_pair", "flash_bwd_dkv_pair"):
             row["launches"] += em["launches"][row["name"][:-5]]
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
-        f"{es['launches']}")
+        f"{es['launches']}, its latent-ring prefill (all ranks) "
+        f"flash_fwd_pair {es['ring']['launches']}, deepseek paged across 4 "
+        f"ranks (all ranks) {ep['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

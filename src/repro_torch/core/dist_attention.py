@@ -1,6 +1,5 @@
 """DISTFLASHATTN entry points (port of the reference
-``core/dist_attention.py``, without the 2D seq×head plans and the MLA latent
-ring).
+``core/dist_attention.py``, without the 2D seq×head plans).
 
 Sequence-parallel exact attention over a group of ``P`` ranks (the paper's
 workers), each a ``torch.distributed`` process holding its contiguous
@@ -30,6 +29,12 @@ kernel A forward and kernels C and D backward with its own static mask.
 The baselines' backward is the ring plan's, with the reference's refusals.
 At ``axis_size == 1`` every schedule reduces to the local chunk kernels, as
 the reference's ``_fwd_local`` / ``_bwd_local`` do.
+
+:func:`dist_attn_fwd_latent` is the MLA latent ring (beyond the paper): the
+zigzag plan run with each rank's latent rows (kv_lora + rope, 576 a
+position for deepseek-v2-lite-16b) on the KV ring in place of its
+materialised K/V (16 × (192 + 128) = 5,120), every rank up-projecting what
+arrives — recompute over communication.
 
 :func:`dist_decode_attn` is decode against a KV cache sharded along the
 sequence (flash-decoding across ranks), the serving side of long context.
@@ -225,6 +230,25 @@ def dist_attn_fwd(q, k, v, *, spec: DistAttnSpec, group=None,
     plan = sp.build_plan(sched, spec.mask, spec.axis_size, q.shape[1])
     return sp.execute_fwd(plan, q, k, v, segments, comm=comm,
                           tune=_tune(spec))
+
+
+def dist_attn_fwd_latent(q, k, v, payload, w_up, expand, *,
+                         spec: DistAttnSpec, group=None):
+    """Latent-ring forward → (o, lse) of this rank's shard, under the
+    zigzag plan (the ranks hold the zigzag layout).  q, k, v (B, Tl, H, ·)
+    are this rank's materialised projections; ``payload`` (B, Tl, d_lat)
+    the latent rows they come from, which travel on the KV ring instead of
+    (k, v); ``w_up`` the up-projection, the same on every rank; ``expand(
+    payload, w_up) -> (k, v)`` (``layers.mla_expand``) rebuilds them on
+    arrival.  Plain causal masks only, as the reference."""
+    if spec.mask.kinds - {"causal"}:
+        raise ValueError("latent ring supports plain causal masks only "
+                         f"(got {spec.mask.kind!r})")
+    if spec.axis_size == 1:
+        return chunk_attn(q, k, v, mask=spec.mask, **_tune(spec))
+    plan = sp.build_plan("zigzag", spec.mask, spec.axis_size, q.shape[1])
+    return sp.execute_fwd(plan, q, k, v, None, comm=_comm(spec, group),
+                          tune=_tune(spec), latent=(payload, w_up, expand))
 
 
 def dist_attn_bwd(q, k, v, o, lse, do, *, spec: DistAttnSpec, group=None,

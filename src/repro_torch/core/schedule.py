@@ -454,7 +454,7 @@ class _Ctx:
     """Per-call executor state: local shards, the traveling containers at
     the current ring distance, and the static plan."""
 
-    def __init__(self, plan, comm, tune, q, k, v, seg):
+    def __init__(self, plan, comm, tune, q, k, v, seg, latent=None):
         if comm.size != plan.P:
             raise ValueError(f"plan for P={plan.P} on a group of "
                              f"{comm.size} ranks")
@@ -465,6 +465,7 @@ class _Ctx:
         self.c = q.shape[1] // self.nc
         self.B = q.shape[0]
         self.q, self.k, self.v, self.seg = q, k, v, seg
+        self.latent = latent                  # (payload, w_up, expand)
         m = plan.mask
         self.doc = m.document
         self.derive_seg = (m.document and seg is None
@@ -498,7 +499,7 @@ class _Ctx:
         plan = self.plan
         data = {}
         if plan.uses_ring:
-            data["kv"] = (self.k, self.v)
+            data["kv"] = self.latent[0] if self.latent else (self.k, self.v)
         if plan.ship_q:
             data["bundle"] = (self.q,) if bwd_bundle is None \
                 else (self.q,) + tuple(bwd_bundle)
@@ -508,9 +509,14 @@ class _Ctx:
         return data
 
     def install(self, data: dict):
-        """Point the ctx at a (shifted) container dict."""
+        """Point the ctx at a (shifted) container dict; a latent payload
+        is expanded into the (k, v) it stands for on arrival."""
         if "kv" in data:
-            self.ring_kv = data["kv"]
+            if self.latent:
+                _, w_up, expand = self.latent
+                self.ring_kv = expand(data["kv"], w_up)
+            else:
+                self.ring_kv = data["kv"]
         self.ring_seg = data.get("seg")
         self.bundle = data.get("bundle")
 
@@ -579,12 +585,16 @@ def _run_steps(plan, ctx, comm, run, data, after_shift=None):
 # Forward executor
 # ---------------------------------------------------------------------------
 
-def execute_fwd(plan: SchedulePlan, q, k, v, seg=None, *, comm, tune):
+def execute_fwd(plan: SchedulePlan, q, k, v, seg=None, *, comm, tune,
+                latent=None):
     """Run any SchedulePlan forward on this rank's shards; returns
     (o, lse).  ``comm`` is the sequence-parallel group
     (:class:`~repro_torch.parallel.comm.Comm`); ``tune`` the chunk
-    kernels' keyword arguments (scale, impl)."""
-    ctx = _Ctx(plan, comm, tune, q, k, v, seg)
+    kernels' keyword arguments (scale, impl).  ``latent=(payload, w_up,
+    expand)`` ships ``payload`` (B, Tl, d_lat) on the KV ring in place of
+    (k, v), and every rank expands what arrives, ``expand(payload, w_up)
+    -> (k, v)`` (the MLA latent ring: recompute over communication)."""
+    ctx = _Ctx(plan, comm, tune, q, k, v, seg, latent)
     p, P = ctx.p, plan.P
     acc = [None] * plan.n_chunks
 

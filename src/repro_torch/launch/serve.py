@@ -28,11 +28,17 @@ fixed-slot engine over a dense cache that can shard along the sequence.
 
     # an MLA / MoE model through the fixed-slot engine: the whole-prompt
     # prefill with MLA materialised, a dense latent cache; across P ranks
-    # the routed experts shard over the sequence ranks (the paged engine
-    # serves it at one rank)
+    # the routed experts shard over the sequence ranks
     PYTHONPATH=src python -m repro_torch.launch.serve --fixed-slot \
         --arch deepseek-v2-lite-16b --smoke --device cpu \
         [--nproc 4 --seq-shards 4]
+
+    # and through the paged engine across P ranks: the latent pool
+    # block-sharded, each chunk's MoE rows split over the ranks, decode
+    # summing the ranks' experts
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --smoke --device cpu \
+        --nproc 4 --seq-shards 4 [--spec-depth 3 --self-spec]
 
 The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on
 the sequence-parallel ``model`` axis (``--mesh local``; ``production`` is
@@ -42,7 +48,9 @@ not folds ``data`` into the cache's sequence sharding, as the reference's
 ``long_500k``.  The paged engine runs batch-replicated over the ranks.
 Every rank prints the same tokens; rank 0 reports.  Weights and prompts come
 from seed 0; the paged engine prefills in chunks of ``PREFILL_CHUNK``
-tokens.  ``--spec-depth K`` serves speculatively, K draft tokens verified a
+tokens, and a pool sized to the workload rounds up to a multiple of
+``--seq-shards`` blocks, so that it shards by blocks where it cannot by
+heads.  ``--spec-depth K`` serves speculatively, K draft tokens verified a
 step: ``--self-spec`` drafts by n-gram prompt lookup, otherwise a draft
 model (``--draft-config``, default the pairing of ``configs/spec_pairs.py``)
 with weights from seed ``DRAFT_SEED``.  Runs on ``cuda`` unless ``--device
@@ -162,7 +170,9 @@ def run(args) -> int:
     else:
         blocks_per_req = -(-(args.prompt_len + args.gen + args.spec_depth)
                            // args.block_size)
-        n_blocks = args.n_blocks or args.batch * (blocks_per_req + 4) + 2
+        P = args.seq_shards
+        n_blocks = args.n_blocks or -(-(args.batch * (blocks_per_req + 4)
+                                        + 2) // P) * P
         spec, draft = _speculation(args, cfg, n_blocks)
         eng = Engine(model, params, max_batch=args.batch,
                      block_size=args.block_size, n_blocks=n_blocks,

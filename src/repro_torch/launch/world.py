@@ -3,6 +3,9 @@ processes on this host, with a time limit.
 
     results = spawn(fn, nprocs, args, device="cpu", timeout=180)
 
+``device`` has no default: a world says where its ranks run (``"cpu"``:
+``gloo``; ``"cuda"``: the card's transport).
+
 Each child starts its world with :func:`~repro_torch.parallel.comm.
 init_world` (a ``file://`` store in a temporary directory), calls
 ``fn(rank, *args)`` and saves its return value with ``torch.save``; the
@@ -42,7 +45,7 @@ def _kill(procs):
         p.join(5)
 
 
-def spawn(fn, nprocs: int, args=(), *, device="cpu",
+def spawn(fn, nprocs: int, args=(), *, device,
           timeout: float | None = 180.0, threads: int = 1):
     """``[fn(0, *args), ..., fn(nprocs - 1, *args)]``, each on its own rank
     (see the module docstring)."""

@@ -111,6 +111,23 @@ def mla_qkv(p, x, cfg: ModelConfig, cos, sin, return_latent=False):
     return q_full, k_full, v
 
 
+def mla_expand(latent, w_up, cfg: ModelConfig):
+    """The receive side of the MLA latent ring (``core/dist_attention.
+    dist_attn_fwd_latent``): latent rows (B, T, kv_lora + rope) — normed
+    c_kv ⊕ roped k_pe, :func:`mla_qkv`'s ``return_latent`` — up-projected
+    by ``w_up`` (``wkv_b``, kv_lora × H·(nope + v)) into per-head k (B, T,
+    H, nope + rope), the one k_pe broadcast over the heads, and v (B, T,
+    H, v_head_dim)."""
+    a = cfg.attn
+    B, T, _ = latent.shape
+    nh, dn, dr = a.n_heads, a.qk_nope_head_dim, a.qk_rope_head_dim
+    dv = a.v_head_dim or a.head_dim
+    c_kv, k_pe = latent[..., :a.kv_lora_rank], latent[..., a.kv_lora_rank:]
+    kv = (c_kv @ w_up).reshape(B, T, nh, dn + dv)
+    k_pe = k_pe[:, :, None, :].expand(B, T, nh, dr)
+    return torch.cat([kv[..., :dn], k_pe], dim=-1), kv[..., dn:]
+
+
 def mla_scale(cfg: ModelConfig) -> float:
     """Softmax scale of MLA: 1/√(nope + rope), in both forms."""
     a = cfg.attn

@@ -8,8 +8,8 @@ Two families: dense / GQA decoders (``arch_type="dense"``: every path), and
 DeepSeek's MLA + MoE decoders (``arch_type="moe"``, the reference's tree:
 ``dense_layers`` — the first ``moe.n_dense_layers``, a SwiGLU of
 ``d_dense_ff`` — then ``moe_layers``, ``models/moe.py``).  An MoE model
-serves at one rank through the paged path — ``prefill_chunk``, ``decode``
-and ``verify`` over a latent pool — and through the dense one: the
+serves through the paged path — ``prefill_chunk``, ``decode`` and
+``verify`` over a latent pool — and through the dense one: the
 whole-prompt ``prefill`` runs MLA *materialised* (``layers.mla_qkv``, per
 head q/k of nope + rope and v of ``v_head_dim``, kernel A's pair route)
 and keeps each token's latent row as the dense cache ``{"ckv"}``, which
@@ -36,10 +36,17 @@ rank holds rows ``[r·E/S, (r+1)·E/S)`` of every MoE layer's ``wg`` /
 whole; ``moe_apply`` dispatches over the sequence group and
 ``moe_decode_apply`` sums its local experts over it, so training, the
 whole-prompt prefill and the dense-cache decode (``FixedSlotEngine``) run
-across ranks.  The paged ``Engine`` across ranks over a block-sharded
-latent pool (ROADMAP §1 item 7.3b) is not ported
-(``NotImplementedError``), nor is the reference's latent ring (item 7.4,
-``Runtime.latent_ring``, which the port has no option for).
+across ranks.  The paged ``Engine`` runs across them too, the model
+batch-replicated over a latent pool sharded by blocks: a chunk's rows are
+the same on every rank, so its MoE splits them into S contiguous blocks,
+one a rank (capacity from C/S rows), and all-gathers the outputs, as the
+reference's ``shard_map`` over ``P(b, seq_axis, None)`` does
+(:meth:`DecoderLM._split_moe`); the chunk and the decode / verify steps
+read the pool all-gathered from the blocks' owners.  With
+``latent_ring=True`` (the reference's ``Runtime.latent_ring``) the
+whole-prompt prefill under zigzag ships each chunk's latent rows on the
+ring instead of its K/V (``dist_attn_fwd_latent``), every rank expanding
+what arrives (``layers.mla_expand``).
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -73,6 +80,7 @@ trainer checkpoints).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -83,7 +91,9 @@ from repro_torch.core import mask as mk
 from repro_torch.core.attention import chunk_attn, paged_decode_attn
 from repro_torch.core.config import ModelConfig, ParallelConfig
 from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
-                                             dist_attn_fwd, dist_decode_attn,
+                                             dist_attn_fwd,
+                                             dist_attn_fwd_latent,
+                                             dist_decode_attn,
                                              dist_flash_attn,
                                              shard_positions)
 from repro_torch.core.remat import apply_policy, remat_aware
@@ -92,7 +102,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import (local_experts, moe_apply,
                                     moe_decode_apply)
 from repro_torch.optim.adamw import AdamWState
-from repro_torch.serve.cache import sharded_paged_attn
+from repro_torch.serve.cache import (gather_pool, sharded_latent_attn,
+                                     sharded_paged_attn)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -214,15 +225,6 @@ def layer_params(p) -> list:
     return p["dense_layers"] + p["moe_layers"]
 
 
-def ranks_not_ported(what: str):
-    """The refusal of an MLA / MoE model's ``what`` across ranks."""
-    return NotImplementedError(
-        f"{what} across ranks of an MLA / MoE model is not ported: the port "
-        f"trains deepseek-v2-lite-16b and serves it through FixedSlotEngine "
-        f"across ranks, and through the paged Engine at one rank (ROADMAP "
-        f"§1 item 7.3b, the paged Engine over a block-sharded latent pool)")
-
-
 def is_expert_leaf(group, name) -> bool:
     """Is leaf ``name`` of a layer's ``group`` a routed-expert leaf
     (``moe_layers[i]["moe"]`` ``wg`` / ``wu`` / ``wd``), one of the leaves
@@ -265,11 +267,13 @@ class DecoderLM:
     ``par`` sets the training layout (``par.remat``, ``par.schedule``);
     ``impl`` names the attention backend (``cuda``, the default, or
     ``ref``); ``mesh`` is this rank's process-group mesh
-    (``launch.mesh.make_local_mesh``), or None for one process."""
+    (``launch.mesh.make_local_mesh``), or None for one process;
+    ``latent_ring`` makes an MLA model's whole-prompt prefill under the
+    zigzag schedule ship latent rows on the ring (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  par: Optional[ParallelConfig] = None, impl=None,
-                 mesh=None):
+                 mesh=None, latent_ring: bool = False):
         if cfg.arch_type not in ("dense", "moe") or cfg.attn is None:
             raise ValueError(f"the port runs dense and MoE decoders (got "
                              f"{cfg.arch_type!r})")
@@ -283,6 +287,7 @@ class DecoderLM:
         self.par = ParallelConfig() if par is None else par
         self.impl = impl
         self.mesh = mesh
+        self.latent_ring = bool(latent_ring)
         ax = self.par.seq_axis
         self.seq_size = 1 if mesh is None else mesh.size(ax)
         self.seq_rank = 0 if mesh is None else mesh.coord(ax)
@@ -481,7 +486,7 @@ class DecoderLM:
             (), dtype=torch.float32, device=h.device)}
 
     def _layer(self, lp, h, attend, cos, sin, decode: bool = False,
-               latents=None):
+               latents=None, replicated: bool = False):
         """One layer with the attention ``attend(q, k, v) -> o`` (MLA
         materialised; ``latents``, a list, then takes the layer's latent
         rows); the FFN is :meth:`_ffn`'s."""
@@ -493,19 +498,40 @@ class DecoderLM:
         else:
             q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
         h = L.attn_out(lp["attn"], h, attend(q, k, v), self.cfg)
-        return self._ffn(lp, h, decode)
+        return self._ffn(lp, h, decode, replicated)
 
-    def _ffn(self, lp, h, decode: bool = False):
+    def _ffn(self, lp, h, decode: bool = False, replicated: bool = False):
         """The layer's FFN with residual: a SwiGLU MLP, or the MoE — the
-        capacity dispatch over ``h``'s rows, or at ``decode`` every expert
-        on every row."""
+        capacity dispatch over ``h``'s rows (``replicated``: rows every
+        sequence rank holds alike, :meth:`_split_moe`), or at ``decode``
+        every expert on every row."""
         if "moe" not in lp:
             return L.mlp_apply(lp["mlp"], h, self.cfg.norm_eps)
         if decode:
             return moe_decode_apply(lp["moe"], h, self.cfg,
                                     group=self.expert_group)
+        if replicated and self.expert_group is not None:
+            return self._split_moe(lp["moe"], h)
         return moe_apply(lp["moe"], h, self.cfg, group=self.expert_group,
                          all_group=self.token_group)[0]
+
+    def _split_moe(self, p, h):
+        """The capacity dispatch of rows (B, C, d) that every rank of the
+        sequence group holds alike (a prefill chunk's): rank r dispatches
+        its contiguous block of columns ``[r·C/S, (r+1)·C/S)`` over the
+        expert group, each expert's capacity taken from those C/S rows, and
+        the outputs are all-gathered back — the reference's ``shard_map``
+        with ``in_specs P(b, seq_axis, None)``.  Its load-balance loss is
+        not needed (serving) and not reduced."""
+        g = self.expert_group
+        C = h.shape[1]
+        if C % g.size:
+            raise ValueError(f"a chunk of {C} rows does not split over "
+                             f"{g.size} sequence ranks")
+        n = C // g.size
+        y = moe_apply(p, h[:, g.rank * n:(g.rank + 1) * n], self.cfg,
+                      group=g)[0]
+        return g.all_gather(y.contiguous(), dim=1)
 
     # ------------------------------------------------------ absorbed MLA
     def _mla_parts(self, lp, h, cos, sin):
@@ -545,10 +571,11 @@ class DecoderLM:
 
     def _latent_layer(self, lp, h, cos, sin, attend, decode: bool):
         """One absorbed-MLA layer: ``attend(q_full, new) -> o_lat`` writes
-        the tokens' latent rows and attends over the pool."""
+        the tokens' latent rows and attends over the pool; its rows are the
+        same on every rank (a chunk, or decode / verify rows)."""
         q_full, new, w_uv = self._mla_parts(lp, h, cos, sin)
         h = self._mla_out(lp, h, attend(q_full, new), w_uv)
-        return self._ffn(lp, h, decode)
+        return self._ffn(lp, h, decode, replicated=True)
 
     # ------------------------------------------------------ plain forward
     @torch.no_grad()
@@ -596,8 +623,11 @@ class DecoderLM:
         On a sharded pool the model runs replicated and each rank writes
         only its part: head-parallel, kernel A attends with this rank's q
         and kv heads and the outputs are all-gathered over heads;
-        block-sharded, the owners' blocks are all-gathered and A attends
-        over the whole pool, as GSPMD does for the reference."""
+        block-sharded (every latent pool across ranks), the owners' blocks
+        are all-gathered and A attends over the whole pool, as GSPMD does
+        for the reference.  Across sequence ranks the chunk's MoE splits
+        its rows over them (:meth:`_split_moe`), so ``C`` must divide by
+        their number."""
         a = self.cfg.attn
         start, end = int(start), int(start) + int(n_valid)
         bt, shard = cache["block_table"], cache.get("shard")
@@ -615,8 +645,9 @@ class DecoderLM:
                 cp = cache["ckv_pool"][li]
 
                 def attend(q, new, cp=cp):
-                    _scatter(cp, new, tgt)
-                    g = cp[rows].reshape(1, -1, 1, cp.shape[-1])
+                    _scatter(cp, new, tgt, shard)
+                    g = gather_pool(cp, shard)[rows]
+                    g = g.reshape(1, -1, 1, cp.shape[-1])
                     return chunk_attn(q, g, g[..., :c], mask=spec,
                                       scale=self.scale, q_offset=start,
                                       impl=self.impl)[0]
@@ -629,9 +660,7 @@ class DecoderLM:
             def attend(q, k, v, kp=kp, vp=vp):
                 _scatter(kp, k, tgt, shard)
                 _scatter(vp, v, tgt, shard)
-                if shard is not None and shard.kind == "blocks":
-                    kp = shard.group.all_gather(kp, dim=0)
-                    vp = shard.group.all_gather(vp, dim=0)
+                kp, vp = gather_pool(kp, shard), gather_pool(vp, shard)
                 kg = kp[rows].reshape(1, -1, *kp.shape[2:])
                 vg = vp[rows].reshape(1, -1, *vp.shape[2:])
                 if shard is None or shard.kind == "blocks":
@@ -644,7 +673,7 @@ class DecoderLM:
                                impl=self.impl)[0]
                 return g.all_gather(o.contiguous(), dim=2)
 
-            h = self._layer(lp, h, attend, cos, sin)
+            h = self._layer(lp, h, attend, cos, sin, replicated=True)
 
     # ---------------------------------------------- whole-prompt prefill
     @torch.no_grad()
@@ -667,7 +696,9 @@ class DecoderLM:
         the MoE capacity dispatch over this rank's B·Tl rows (its experts
         across the sequence group), and the cache ``{"ckv"}`` (L, B, Tl,
         kv_lora + rope) of each token's latent row, as the reference's
-        ``_infer_layer_dense``."""
+        ``_infer_layer_dense``.  With :attr:`latent_ring` under zigzag its
+        attention ships those latent rows on the ring instead of K/V
+        (``dist_attn_fwd_latent``)."""
         a, P = self.cfg.attn, self.seq_size
         tokens = self._rows(torch.as_tensor(tokens, device=self.device))
         T = tokens.shape[1]
@@ -682,8 +713,15 @@ class DecoderLM:
         spec = _attn_spec(self.cfg, self.par, P, self.impl, False,
                           self.scale)
         ks, vs, latents = [], [], []
+        ring = (a.is_mla and self.latent_ring
+                and spec.schedule == "zigzag")
+        expand = functools.partial(L.mla_expand, cfg=self.cfg)
 
-        def attend(q, k, v):
+        def attend(q, k, v, lp):
+            if ring:
+                return dist_attn_fwd_latent(
+                    q, k, v, latents[-1], lp["attn"]["wkv_b"], expand,
+                    spec=spec, group=self.seq_group)[0]
             if not a.is_mla:
                 ks.append(k)
                 vs.append(v)
@@ -691,7 +729,8 @@ class DecoderLM:
                                  group=self.seq_group)[0]
 
         for lp in layer_params(p):
-            h = self._layer(lp, h, attend, cos, sin, latents=latents)
+            h = self._layer(lp, h, functools.partial(attend, lp=lp), cos,
+                            sin, latents=latents)
         # the owner of position T - 1 computes its logits and sends them
         owner = next(r for r in range(P)
                      if (shard_positions(T, P, r, zz) == T - 1).any())
@@ -881,7 +920,9 @@ class DecoderLM:
         (:func:`~repro_torch.serve.cache.sharded_paged_attn` when the view
         holds this rank's ``shard`` of a sharded pool).  MLA: kernel B with
         q (B, T, H, kv_lora + rope) over the latent pool as one kv head, v
-        its first kv_lora columns.  Returns logits (B, T, V)."""
+        its first kv_lora columns (:func:`~repro_torch.serve.cache.
+        sharded_latent_attn`: a block-sharded pool gathered first).
+        Returns logits (B, T, V)."""
         a = self.cfg.attn
         B, T = tokens.shape
         h = L.embed(p["embed"], tokens, self.dtype)
@@ -898,11 +939,10 @@ class DecoderLM:
                 cp = cache["ckv_pool"][li]
 
                 def attend(q, new, cp=cp):
-                    _scatter(cp, new, tgt)
-                    kv = cp[:, :, None, :]
-                    return paged_decode_attn(q, kv, kv[..., :c], bt, lengths,
-                                             mask=spec, scale=self.scale,
-                                             impl=self.impl)
+                    _scatter(cp, new, tgt, shard)
+                    return sharded_latent_attn(q, cp, c, bt, lengths, shard,
+                                               mask=spec, scale=self.scale,
+                                               impl=self.impl)
 
                 h = self._latent_layer(lp, h, cos, sin, attend, True)
             return self._head(p, h)

@@ -32,12 +32,13 @@ writer forks a private copy of a shared block only on first divergence
 The pools are torch tensors, updated in place by the model (``index_put_``)
 and by the copy-on-write fork here.  Sharding (``create(mesh=, seq_axis=)``,
 the reference's ``_pool_pspec`` choice): over the ranks of the mesh axis,
-the kv-head axis shards when the head count divides it (``"heads"``:
-head-parallel decode, each rank's query heads read only its own pool),
-otherwise the pool-block axis (``"blocks"``: rank r holds blocks
-``[r·N/n, (r+1)·N/n)``), otherwise the pool is replicated.  Each rank
-allocates only its part (:class:`PoolShard` says which);
-:func:`sharded_paged_attn` attends over such a pool.  The math is the same
+the kv-head axis of a k / v pool shards when the head count divides it
+(``"heads"``: head-parallel decode, each rank's query heads read only its
+own pool), otherwise the pool-block axis (``"blocks"``: rank r holds
+blocks ``[r·N/n, (r+1)·N/n)``; always for an MLA latent pool, which has
+one kv head), otherwise the pool is replicated.  Each rank allocates only
+its part (:class:`PoolShard` says which); :func:`sharded_paged_attn` and
+:func:`sharded_latent_attn` attend over such a pool.  The math is the same
 in all three placements.  The allocator, the prefix trie and the tables are
 the same on every rank (every rank runs the same steps); a fork, a scrub or
 a corruption touches the pool on the rank that holds the block, and a fork
@@ -387,10 +388,6 @@ class PagedKVCache:
             names = ("ckv_pool",)
         sharding, group = None, None
         if mesh is not None and mesh.size(seq_axis) > 1:
-            if a.is_mla:
-                raise NotImplementedError(
-                    "a latent pool sharded over ranks is not ported "
-                    "(ROADMAP §1 item 7.3b)")
             group = mesh.comms[seq_axis]
             sharding = cls._pool_sharding(s, group.size)
             if sharding == "heads":
@@ -426,11 +423,13 @@ class PagedKVCache:
 
     @staticmethod
     def _pool_sharding(shape: Tuple[int, ...], size: int) -> Optional[str]:
-        """Head-parallel when the kv-head axis divides the axis size, else
-        pool-block-sharded, else replicated (None)."""
+        """Head-parallel when a k / v pool's kv-head axis (``shape`` (L, N,
+        bs, Hkv, D)) divides the axis size, else pool-block-sharded, else
+        replicated (None).  A latent pool (L, N, bs, kv_lora + rope) has no
+        head axis: blocks or nothing."""
         if size <= 1:
             return None
-        if shape[3] % size == 0:
+        if len(shape) == 5 and shape[3] % size == 0:
             return "heads"
         if shape[1] % size == 0:
             return "blocks"
@@ -444,7 +443,7 @@ class PagedKVCache:
             return None
         dim = 3 if self.sharding == "heads" else 1
         return PoolShard(self.sharding, self.group,
-                         self.pools["k_pool"].shape[dim])
+                         next(iter(self.pools.values())).shape[dim])
 
     @property
     def layout(self) -> str:
@@ -755,6 +754,15 @@ class PagedKVCache:
         return out
 
 
+def gather_pool(pool, shard: Optional[PoolShard]):
+    """One layer's whole pool (N, bs, ...) on every rank: a block-sharded
+    pool's blocks all-gathered from their owners in rank order (what GSPMD
+    does for the reference); any other pool as it is."""
+    if shard is None or shard.kind != "blocks":
+        return pool
+    return shard.group.all_gather(pool, dim=0)
+
+
 def sharded_paged_attn(q, kp, vp, block_table, lengths,
                        shard: Optional[PoolShard], **kw):
     """Paged decode of q (B, T, Hq, D), the same on every rank, over one
@@ -767,8 +775,8 @@ def sharded_paged_attn(q, kp, vp, block_table, lengths,
       (``Hq / n`` of them), then the outputs all-gathered over heads.  B is
       per head and batch-invariant, so this equals one B over every head
       bit for bit.
-    * ``"blocks"`` — the owners' blocks all-gathered to every rank, then B
-      on the gathered pool (what GSPMD does for the reference).
+    * ``"blocks"`` — the owners' blocks all-gathered to every rank
+      (:func:`gather_pool`), then B on the gathered pool.
     * replicated — B on the pool.
     """
     if shard is not None and shard.kind == "heads":
@@ -777,18 +785,36 @@ def sharded_paged_attn(q, kp, vp, block_table, lengths,
         mine = q[:, :, g.rank * hq:(g.rank + 1) * hq].contiguous()
         o = paged_decode_attn(mine, kp, vp, block_table, lengths, **kw)
         return g.all_gather(o.contiguous(), dim=2)
-    if shard is not None:
-        kp = shard.group.all_gather(kp, dim=0)
-        vp = shard.group.all_gather(vp, dim=0)
-    return paged_decode_attn(q, kp, vp, block_table, lengths, **kw)
+    return paged_decode_attn(q, gather_pool(kp, shard),
+                             gather_pool(vp, shard), block_table, lengths,
+                             **kw)
+
+
+def sharded_latent_attn(q, cp, kv_lora: int, block_table, lengths,
+                        shard: Optional[PoolShard], **kw):
+    """Absorbed-MLA paged attention of q (B, T, H, kv_lora + rope) over one
+    layer's latent pool ``cp`` (N, bs, kv_lora + rope), this rank's part
+    ``shard`` of it (a latent pool has one kv head, so it is block-sharded
+    or whole): the pool gathered once (:func:`gather_pool`), then kernel B
+    with its rows as the one kv head and v their first ``kv_lora`` columns
+    (a view).  Returns the latent output (B, T, H, kv_lora), the same on
+    every rank."""
+    kv = gather_pool(cp, shard)[:, :, None, :]
+    return paged_decode_attn(q, kv, kv[..., :kv_lora], block_table, lengths,
+                             **kw)
 
 
 def sharded_paged_decode_attn(q, cache: PagedKVCache, layer: int,
                               block_table, lengths, *, mask=None,
                               scale=None, impl=None):
-    """:func:`sharded_paged_attn` over layer ``layer`` of ``cache``'s
-    pools, wherever they live (``PagedKVCache.create(mesh=)``)."""
+    """:func:`sharded_paged_attn` (a latent pool:
+    :func:`sharded_latent_attn`) over layer ``layer`` of ``cache``'s pools,
+    wherever they live (``PagedKVCache.create(mesh=)``)."""
+    kw = dict(mask=mask, scale=scale, impl=impl)
+    if "ckv_pool" in cache.pools:
+        return sharded_latent_attn(
+            q, cache.pools["ckv_pool"][layer], cache.cfg.attn.kv_lora_rank,
+            block_table, lengths, cache.shard, **kw)
     return sharded_paged_attn(
         q, cache.pools["k_pool"][layer], cache.pools["v_pool"][layer],
-        block_table, lengths, cache.shard, mask=mask, scale=scale,
-        impl=impl)
+        block_table, lengths, cache.shard, **kw)

@@ -44,8 +44,12 @@ Across ranks (``Engine(use_mesh_sharding=True)``, the default, on a model
 built with a ``mesh``): every rank runs the same engine in lockstep — its
 own scheduler, allocator, sampler and fault injector, making the same
 decisions from the same logits — over a pool sharded on the sequence axis
-(head-parallel or block-sharded, ``serve/cache.py``); the model runs
-batch-replicated, each rank writing and reading its part of the pool.
+(head-parallel or block-sharded, ``serve/cache.py``; an MLA model's latent
+pool by blocks); the model runs batch-replicated, each rank writing and
+reading its part of the pool, and an MoE model's chunks split their rows
+over the ranks for the expert dispatch, so a fixed
+``prefill_chunk_tokens`` must divide by the rank count (whole-prompt
+chunks pad to a multiple of it).
 
 Sampling: greedy at temperature 0; otherwise the reference's draw,
 ``categorical(fold_in(PRNGKey(seed), position), logits / T)``, reproduced
@@ -71,7 +75,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import ranks_not_ported
 from repro_torch.serve import prng
 from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.faults import FAULT_OWNER, FaultInjector
@@ -123,16 +126,20 @@ class Engine:
                  spec: Optional[SpecConfig] = None,
                  draft: Optional[DraftSource] = None):
         cfg = model.cfg
-        if (use_mesh_sharding and model.mesh is not None
-                and model.mesh.world.size > 1
-                and (cfg.moe is not None or cfg.attn.is_mla)):
-            raise ranks_not_ported("the paged Engine")
+        if (cfg.moe is not None and prefill_chunk_tokens
+                and prefill_chunk_tokens % max(model.seq_size, 1)):
+            # a chunk's MoE rows split over the sequence ranks
+            raise ValueError(
+                f"prefill_chunk_tokens={prefill_chunk_tokens} does not "
+                f"split over the {model.seq_size} sequence ranks of an MoE "
+                f"model")
         if model.batch_group is not None:
             # serving shapes are ragged (B = 1 chunks, a fixed slot batch
             # for decode): run the model batch-replicated, as the
             # reference rebuilds it with batch_axes=()
             model = type(model)(cfg, model.device, par=dataclasses.replace(
-                model.par, batch_axes=()), impl=model.impl, mesh=model.mesh)
+                model.par, batch_axes=()), impl=model.impl, mesh=model.mesh,
+                latent_ring=model.latent_ring)
         self.model = model
         self.params = params
         self.cfg = cfg

@@ -531,21 +531,25 @@ def test_corrupt_latent_block_matches_reference(ds):
 
 
 def test_unported_paths_raise(ds):
-    """The paged engine across ranks of an MLA / MoE model names the
-    ROADMAP item that ports it (7.3b, a block-sharded latent pool), as does
-    a latent pool sharded over ranks; on a model whose mesh has more than
-    one rank, ``loss``, the whole-prompt ``prefill``, the dense ``decode``
-    and ``FixedSlotEngine`` run (here on a mesh record of 2 ranks whose
+    """The paged engine across ranks of an MLA / MoE model builds over a
+    latent pool sharded by blocks, and so does a latent pool created over
+    ranks on its own (the reference's ``_pool_pspec``: a rank-4 latent
+    shape never shards by heads); on a model whose mesh has more than one
+    rank, ``loss``, the whole-prompt ``prefill``, the dense ``decode`` and
+    ``FixedSlotEngine`` run (here on a mesh record of 2 ranks whose model
     groups are those of one, so they compute the one-rank values; across
-    real ranks: ``tests/test_torch_deepseek_dist.py``)."""
+    real ranks: ``tests/test_torch_deepseek_dist.py`` and
+    ``tests/test_torch_deepseek_mesh.py``)."""
     FixedSlotEngine(ds.t_model, ds.t_params)
     ranks = DecoderLM(ds.t_model.cfg, device="cpu")
-    ranks.mesh = types.SimpleNamespace(world=types.SimpleNamespace(size=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7.3b"):
-        Engine(ranks, ds.t_params)
-    with pytest.raises(NotImplementedError, match="item 7.3b"):
-        PagedKVCache.create(ds.t_model.cfg, block_size=4, n_blocks=8,
-                            mesh=_two_seq_ranks())
+    ranks.mesh = _two_seq_ranks()
+    eng = Engine(ranks, ds.t_params, n_blocks=16)
+    assert eng.cache.layout == "mla" and eng.cache.sharding == "blocks"
+    assert eng.cache.shard.n_local == 8
+    assert tuple(eng.cache.pools["ckv_pool"].shape[:2]) == (2, 8)
+    cache = PagedKVCache.create(ds.t_model.cfg, block_size=4, n_blocks=8,
+                                mesh=_two_seq_ranks(), device="cpu")
+    assert cache.sharding == "blocks" and cache.shard.n_local == 4
     tok = torch.zeros((1, 8), dtype=torch.int64)
     want, _ = ds.t_model.prefill(ds.t_params, tok)
     got, cache = ranks.prefill(ds.t_params, tok)
@@ -563,9 +567,11 @@ def test_unported_paths_raise(ds):
 
 
 def _two_seq_ranks():
-    """A mesh record whose sequence axis has 2 ranks (no world needed: the
-    latent pool refuses before it builds a group)."""
-    return types.SimpleNamespace(size=lambda ax: 2)
+    """A mesh record whose sequence axis has 2 ranks, this one rank 0 (no
+    world needed: building a pool or an engine runs no collective)."""
+    two = types.SimpleNamespace(size=2, rank=0)
+    return types.SimpleNamespace(size=lambda ax: 2, world=two,
+                                 comms={"model": two})
 
 
 # --------------------------------------------------------- checkpoints

@@ -143,12 +143,13 @@ def reference(tmp_path_factory):
 def train(reference, tmp_path_factory):
     d = str(tmp_path_factory.mktemp("ckpt") / "p4")
     return spawn(C.deepseek_train_world, 8, (reference[1], d),
-                 timeout=240), d
+                 device="cpu", timeout=240), d
 
 
 @pytest.fixture(scope="module")
 def serve(reference):
-    return spawn(C.deepseek_serve_world, 4, (reference[1],), timeout=180)
+    return spawn(C.deepseek_serve_world, 4, (reference[1],), device="cpu",
+                 timeout=180)
 
 
 def _cfg():

@@ -91,7 +91,7 @@ def reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port():
-    return spawn(C.port_world, 8, (C.NAMES,), timeout=180)
+    return spawn(C.port_world, 8, (C.NAMES,), device="cpu", timeout=180)
 
 
 def _gathered(port, name, P, key):
@@ -136,7 +136,7 @@ def test_shift_is_issued_before_and_waited_after_each_steps_kernels(sched):
     plan = build_plan(sched, causal(), 4, 16)
     steps = len(plan.steps) - 1
     for r, (fwd, bwd) in enumerate(spawn(C.order_world, 4, (sched,),
-                                         timeout=120)):
+                                         device="cpu", timeout=120)):
         for events, kind in ((fwd, "fwd"), (bwd, "bwd")):
             kernels = [i for i, e in enumerate(events) if e[0] == kind]
             assert len(kernels) == plan.kernel_calls_on(r, kind == "bwd")

@@ -78,7 +78,8 @@ def reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world(reference):
-    return spawn(C.train_world, 8, (reference[0],), timeout=180)
+    return spawn(C.train_world, 8, (reference[0],), device="cpu",
+                 timeout=180)
 
 
 @pytest.fixture(scope="module")

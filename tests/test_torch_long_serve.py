@@ -119,7 +119,8 @@ def reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port(reference):
-    return spawn(C.port_world, 8, (reference[1],), timeout=180)
+    return spawn(C.port_world, 8, (reference[1],), device="cpu",
+                 timeout=180)
 
 
 @pytest.mark.parametrize("case", C.DECODE_CASES,

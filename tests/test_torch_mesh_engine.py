@@ -134,7 +134,8 @@ def test_8_ranks_replay_the_reference_batch_invariance(reference):
     d, ref = reference
     prompts = np.load(os.path.join(d, "inv_prompts.npy"))
     ranks = spawn(C.invariance_world, 8,
-                  (os.path.join(d, "inv.npz"), prompts), timeout=180)
+                  (os.path.join(d, "inv.npz"), prompts), device="cpu",
+                  timeout=180)
     _agree(ranks)
     for r in ranks:
         assert r["sharding"] == "blocks"
@@ -153,7 +154,7 @@ def pool_world(reference):
     d, _ = reference
     trees = {name: os.path.join(d, name + ".npz")
              for name, *_ in C.POOL_CASES}
-    return spawn(C.pool_world, 4, (trees,), timeout=180)
+    return spawn(C.pool_world, 4, (trees,), device="cpu", timeout=180)
 
 
 @pytest.mark.parametrize("case", C.POOL_CASES,

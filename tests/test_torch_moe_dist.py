@@ -95,7 +95,8 @@ def reference(tmp_path_factory):
 def port(reference):
     """Every rank's results, by mesh name."""
     return {C.mesh_name(s): spawn(C.moe_world, s[0] * s[1],
-                                  (reference[1], s), timeout=180)
+                                  (reference[1], s), device="cpu",
+                                  timeout=180)
             for s in C.MESHES}
 
 
