@@ -353,6 +353,28 @@ Phases, each fatal on failure (nothing is caught):
                 decode without the experts' sum, the pool gather rotated
                 by one rank.  Decode ms a step, the decode's host seconds
                 in pool gathers and in the MoE sums.
+  18. seq2d   — the 2D sequence × head plans on 4 ``gloo-staged`` ranks
+                (run right after phase 8): (a) phase 7's model and batch
+                (llama-7b width, depth 2, T 32768, bf16, remat_aware) on
+                ``make_seq2d_mesh(2, 2)`` under balanced and on (1, 4)
+                under ring (scatter mode), held to phase 7's P = 1 run
+                (per-token losses, wq/wk/wv gradients, step 1's gradient
+                norm) at phase 7's limits; rejected controls: the head
+                scatter concatenating its peers rotated by one, the
+                backward's dk/dv all-to-all rotated by one; each rank's
+                A/C/D launches in one train step equal to the inner plan's
+                ``rank_calls``; step seconds, host seconds in head
+                all_to_alls and seq shifts, peak memory.  (b) replicate
+                mode: the attention alone on (2, 2), q 32 heads × 128, k/v
+                one kv head, T 32768, bf16, causal, against one kernel call
+                on the whole inputs at phase 3's bf16 bars (o row by row,
+                as the backward: it merges bf16 partials); rejected
+                control: the home step without its all-reduce over
+                ``head``.  (c) ``FixedSlotEngine`` (phase 8's model, one
+                16,384-token prompt, 8 greedy tokens) on (2, 2) against the
+                same world's ``make_local_mesh(seq=4)``, teacher-forced:
+                logits within phase 8's limit at every step, tokens equal
+                at every step.
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
 there is no CUDA device or the port is not beside this file.
@@ -386,7 +408,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged import paged_attn, paged_attn_ref  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref, merge_ref, row_rel_err)
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_local_mesh, make_seq2d_mesh)
 from repro_torch.launch.world import spawn  # noqa: E402
 from repro_torch.models import layers as LY  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
@@ -2222,6 +2245,8 @@ def multi_rank():
         res = spawn(_p7_rank, P7_RANKS, (ref_path,), device=DEV,
                     timeout=P7_TIMEOUT, threads=2)
         wall = time.perf_counter() - t0
+        # phase 18 holds its 2D runs to the same P = 1 run
+        p1 = dict(ce=ce1, gnorm=s1["gnorm"], grads=torch.load(ref_path))
     res.sort(key=lambda r: r["rank"])
     check(all(r["transport"] == P7_TRANSPORT for r in res),
           f"transport {[r['transport'] for r in res]}")
@@ -2306,7 +2331,7 @@ def multi_rank():
     say(f"  world of {P7_RANKS} ranks: {wall:.1f} s, spawn included")
     return dict(launches=launches, d_tok=d_tok, d_ctl=d_ctl, d_loss=d_loss,
                 d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
-                d_loss2=d_loss2)
+                d_loss2=d_loss2, p1=p1)
 
 
 # ----------------------------------------------------------------- phase 8
@@ -5209,6 +5234,437 @@ def serve_moe_paged():
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+
+P18_RANKS = 4
+# (r, u) of make_seq2d_mesh and the inner schedule of each training run:
+# both scatter mode (llama-7b's 32 kv heads divide u)
+P18_TRAIN = (((2, 2), "balanced"), ((1, 4), "ring"))
+P18_TIMEOUT = 600
+P18_TRANSPORT = "gloo-staged"      # four ranks, one card
+P18_SEED = 18
+P18_REP_HEADS = (32, 1)            # replicate mode: 1 kv head, 1 % 2 != 0
+P18_SERVE_T, P18_GEN = 16384, 8    # (c): one prompt, greedy tokens
+P18_WARM_T = 1024
+
+
+def _rotated(x, dim, n):
+    """``x``'s n equal parts along ``dim`` concatenated rotated by one."""
+    parts = x.chunk(n, dim=dim)
+    return torch.cat(parts[1:] + parts[:1], dim=dim)
+
+
+@contextlib.contextmanager
+def _p18_fault(fault, head=None):
+    """A deliberately wrong 2D plan while the block runs (phase 18's
+    controls): ``"scatter"`` — the head scatter concatenates its peers'
+    parts rotated by one; ``"dkv"`` — the backward's inverse all-to-all
+    of dk and dv concatenates its peers' parts rotated by one;
+    ``"home"`` — replicate mode's home step without the all-reduce over
+    the ``head`` Comm."""
+    a2a_heads, a2a_seq, bwd = sp._a2a_heads, sp._a2a_seq, sp.execute_bwd
+    if fault == "scatter":
+        sp._a2a_heads = lambda x, h: _rotated(a2a_heads(x, h), 1, h.size)
+    elif fault == "dkv":
+        n = [None]                  # inverse all-to-alls since the inner bwd
+
+        def inner(*a, **kw):
+            out = bwd(*a, **kw)
+            n[0] = 0
+            return out
+
+        def seq(x, h):
+            y = a2a_seq(x, h)
+            if n[0] is not None:
+                n[0] += 1           # dq, then dk and dv
+                if n[0] > 1:
+                    y = _rotated(y, 2, h.size)
+                if n[0] == 3:
+                    n[0] = None
+            return y
+        sp.execute_bwd, sp._a2a_seq = inner, seq
+    else:
+        head.all_reduce_ = lambda tensors, op="sum": tensors
+    try:
+        yield
+    finally:
+        sp._a2a_heads, sp._a2a_seq, sp.execute_bwd = a2a_heads, a2a_seq, bwd
+        if fault == "home":
+            del head.all_reduce_
+
+
+@contextlib.contextmanager
+def _step_grads(params, out):
+    """While the block runs, the train step's gradients of every layer's
+    wq, wk and wv, summed over the ranks, go into the list ``out`` (what
+    ``_attn_grads`` computes, taken from the step instead of another
+    forward and backward)."""
+    from repro_torch.train import step as st
+    want = [lp["attn"][k] for lp in params["layers"]
+            for k in ("wq", "wk", "wv")]
+    summed = st.sum_grads
+
+    def capture(model, ps, grads):
+        grads, sharded = summed(model, ps, grads)
+        pos = {id(t): i for i, t in enumerate(leaves(ps))}
+        out[:] = [grads[pos[id(t)]] for t in want]
+        return grads, sharded
+    st.sum_grads = capture
+    try:
+        yield
+    finally:
+        st.sum_grads = summed
+
+
+def _p18_calls(plan, s, backward=False):
+    """Kernel calls rank ``s`` of ``plan`` launches in one pass
+    (``schedule.rank_calls``)."""
+    return sum(1 for c in sp.rank_calls(plan, backward) if c[1] == s)
+
+
+def _p18_train(rank, meshes, ref):
+    """(a): phase 7's model and batch on each 2D mesh of ``P18_TRAIN``:
+    per-token losses, the planted controls on (2, 2), then one counted and
+    timed train step from the same start, whose attention projections'
+    gradients are held on rank 0 to ``ref`` (phase 7's P = 1
+    gradients)."""
+    cfg = get_config("llama-7b").replace(n_layers=P7_LAYERS)
+    shape = ShapeSpec("chip7", P7_T, 1, "train")
+    params, runs = None, {}
+    for (r, u), sched in P18_TRAIN:
+        mesh = meshes[(r, u)]
+        par = make_parallel_config(mesh, shape, schedule=sched)
+        model = DecoderLM(cfg, DEV, par=par, mesh=mesh)
+        if params is None:
+            params = trainable(model.init(seed=0))
+        b0 = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                             par=par).batch(0)
+        run = dict(seq=mesh.coord("seq"), seq_rank=model.seq_rank,
+                   axes=par.seq_axes, ce=_token_ce(model, params, b0).cpu())
+        if (r, u) == (2, 2):
+            with _p18_fault("scatter"):
+                run["ce_scatter"] = _token_ce(model, params, b0).cpu()
+            with _p18_fault("dkv"):
+                gs = _attn_grads(model, params, b0)
+            run["grad_err_dkv"] = None if ref is None else _grad_err(gs,
+                                                                      ref)
+            del gs
+        saved = [t.detach().clone() for t in leaves(params)]
+        opt = adamw.init(params)
+        step = make_train_step(model, _p7_tc())
+        seq_c, head_c = mesh.comm("seq"), mesh.comm("head")
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        a0, w0 = head_c.a2a_s, seq_c.shift_wait_s
+        g0, r0 = head_c.gather_s, model.token_group.reduce_s
+        gs = []
+        t0 = time.perf_counter()
+        with _step_grads(params, gs):
+            m = step(params, opt, b0)
+        torch.cuda.synchronize()
+        run["grad_err"] = None if ref is None else _grad_err(gs, ref)
+        del gs
+        run.update(sec=time.perf_counter() - t0, loss=m["loss"],
+                   gnorm=m["gnorm"], skipped=m["skipped_nonfinite"],
+                   launches={k: build.LAUNCHES[k] for k in BWD_KERNELS},
+                   a2a=head_c.a2a_s - a0, gather=head_c.gather_s - g0,
+                   shift=seq_c.shift_wait_s - w0,
+                   reduce=model.token_group.reduce_s - r0,
+                   peak=torch.cuda.max_memory_allocated())
+        with torch.no_grad():
+            for t, v in zip(leaves(params), saved):
+                t.copy_(v)
+        del opt, saved, step, model
+        runs[f"{sched}@r{r}u{u}"] = run
+    del params
+    _free()
+    return runs
+
+
+def _p18_replicate(rank, mesh):
+    """(b): the attention alone on (2, 2) under balanced, q at 32 heads ×
+    128 and k/v at one kv head (replicate mode), T 32768, bf16, causal:
+    this rank's slice of o, lse, dq, dk, dv against one kernel call on the
+    whole inputs, and of dk, dv under the home control."""
+    from repro_torch.core import dist_attention as da
+    Hq, Hkv = P18_REP_HEADS
+    D, T, bf = 128, P7_T, torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(P18_SEED)
+    q, do = (randn(gen, (1, T, Hq, D), bf) for _ in range(2))
+    k, v = (randn(gen, (1, T, Hkv, D), bf) for _ in range(2))
+    p = mesh.comm(("seq", "head")).rank
+    sl = slice(p * T // P18_RANKS, (p + 1) * T // P18_RANKS)
+    ql, kl, vl, dol = (x[:, sl].contiguous() for x in (q, k, v, do))
+    spec = da.DistAttnSpec(axis="seq", axis_size=P18_RANKS,
+                           schedule="balanced", mask=mk.causal(),
+                           mesh2d=da.Mesh2DSpec(r=2, u=2))
+    p2 = da._plan2d(spec, "balanced", ql, kl)
+    pair = (mesh.comm("seq"), mesh.comm("head"))
+    build.reset_launches()
+    o, lse = da.dist_attn_fwd(ql, kl, vl, spec=spec, group=pair)
+    grads = da.dist_attn_bwd(ql, kl, vl, o, lse, dol, spec=spec, group=pair)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in BWD_KERNELS}
+    with _p18_fault("home", pair[1]):
+        ctl = da.dist_attn_bwd(ql, kl, vl, o, lse, dol, spec=spec,
+                               group=pair)
+    o1, lse1 = flash_fwd(q, k, v, mask=mk.causal())
+    g1 = flash_bwd(q, k, v, o1, lse1, do, mask=mk.causal())
+    torch.cuda.synchronize()
+    res = dict(kv_mode=p2.kv_mode, launches=launches,
+               want=(_p18_calls(p2.inner, mesh.coord("seq")),
+                     _p18_calls(p2.inner, mesh.coord("seq"), True)),
+               o_err=float((o.float() - o1[:, sl].float()).abs().max()),
+               o_ok=torch.allclose(o.float(), o1[:, sl].float(),
+                                   atol=TOL[bf], rtol=TOL[bf]),
+               o_row=row_rel_err(o, o1[:, sl]), o_rel=rel_err(o, o1[:, sl]),
+               lse_err=float((lse - lse1[:, sl]).abs().max()),
+               lse_max=float(lse1.abs().max()), bwd={}, ctl={})
+    for nm, a, b, c in zip(("dq", "dk", "dv"), grads, g1, (None,) + ctl[1:]):
+        res["bwd"][nm] = _bwd_bar(a, b[:, sl], bf)
+        if c is not None:
+            res["ctl"][nm] = _bwd_bar(c, b[:, sl], bf)
+    del q, k, v, do, o1, lse1, g1, grads, ctl, o, lse
+    _free()
+    return res
+
+
+def _p18_serve(rank, mesh2):
+    """(c): phase 8's model (llama-7b width, depth 4) serves one 16384-token
+    prompt, 8 greedy tokens, through ``FixedSlotEngine`` on
+    ``make_local_mesh(seq=4)`` and then on the (2, 2) mesh, teacher-forced
+    on the first run's tokens; the 2D prefill's launches and the ranks'
+    seconds."""
+    cfg = get_config("llama-7b").replace(n_layers=P8_LAYERS)
+    shape = ShapeSpec("chip18", P18_SERVE_T, 1, "decode")
+    prompt = np.random.default_rng(P18_SEED).integers(
+        0, cfg.vocab, (1, P18_SERVE_T)).astype(np.int32)
+    mesh1 = make_local_mesh(seq=P18_RANKS, device=DEV)
+    one = DecoderLM(cfg, DEV, par=make_parallel_config(
+        mesh1, shape, schedule="balanced"), mesh=mesh1)
+    params = one.init(seed=0)
+    eng = FixedSlotEngine(one, params)
+    eng.generate({"tokens": prompt[:, :P18_WARM_T]}, 2)
+    with _recorded(one) as logs:
+        toks1, _ = eng.generate({"tokens": prompt}, P18_GEN)
+    out = dict(tokens1=toks1.cpu(), logits1=torch.stack(logs))
+    par2 = make_parallel_config(mesh2, shape, schedule="balanced")
+    two = DecoderLM(cfg, DEV, par=par2, mesh=mesh2)
+    eng = FixedSlotEngine(two, params)
+    eng.generate({"tokens": prompt[:, :P18_WARM_T]}, 2)
+    seq_c, head_c = mesh2.comm("seq"), mesh2.comm("head")
+    times = {}
+    two.prefill = _timed(times, "prefill", two.prefill)
+    two.decode = _timed(times, "decode", two.decode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    a0, w0, r0 = head_c.a2a_s, seq_c.shift_wait_s, two.decode_group.reduce_s
+    with _recorded(two, toks1) as logs:
+        toks2, _ = eng.generate({"tokens": prompt}, P18_GEN)
+    p2 = sp.build_plan2d("balanced", mk.causal(), 2, 2,
+                         P18_SERVE_T // P18_RANKS, Hq=cfg.attn.n_heads,
+                         Hkv=cfg.attn.n_kv_heads)
+    out.update(tokens2=toks2.cpu(), logits2=torch.stack(logs),
+               launches=build.LAUNCHES["flash_fwd"],
+               want=P8_LAYERS * _p18_calls(p2.inner, mesh2.coord("seq")),
+               shards=two.decode_group.size, prefill_s=times["prefill"][0],
+               decode_ms=[1e3 * t for t in times["decode"]],
+               a2a=head_c.a2a_s - a0, shift=seq_c.shift_wait_s - w0,
+               reduce=two.decode_group.reduce_s - r0,
+               peak=torch.cuda.max_memory_allocated())
+    del two.prefill, two.decode, eng, one, two, params
+    _free()
+    return out
+
+
+def _p18_rank(rank, ref_path):
+    """One rank of phase 18's world: (a) training, (b) replicate mode, (c)
+    serving."""
+    meshes = {ru: make_seq2d_mesh(*ru, device=DEV) for ru, _ in P18_TRAIN}
+    ref = torch.load(ref_path, map_location=DEV) if rank == 0 else None
+    out = {"rank": rank, "transport": meshes[(2, 2)].transport}
+    out["train"] = _p18_train(rank, meshes, ref)
+    del ref
+    out["replicate"] = _p18_replicate(rank, meshes[(2, 2)])
+    out["serve"] = _p18_serve(rank, meshes[(2, 2)])
+    return out
+
+
+def _p18_train_gates(res, p1):
+    """Phase 18 (a)'s gates: phase 7's limits against its P = 1 run, the
+    controls rejected, the launches equal to the inner plans'."""
+    ce1, gnorm1 = p1["ce"], p1["gnorm"]
+    launches = {k: 0 for k in BWD_KERNELS}
+    a = get_config("llama-7b").attn
+    for (r, u), sched in P18_TRAIN:
+        key = f"{sched}@r{r}u{u}"
+        runs = [x["train"][key] for x in res]
+        p2 = sp.build_plan2d(sched, mk.causal(), r, u, P7_T // P18_RANKS,
+                             Hq=a.n_heads, Hkv=a.n_kv_heads)
+        check(p2.kv_mode == "scatter", f"{key}: kv mode {p2.kv_mode}")
+        ce = torch.cat([x["ce"] for x in sorted(runs, key=lambda x:
+                                                x["seq_rank"])], dim=1)
+        check(bool(torch.isfinite(ce).all()), f"{key}: losses not finite")
+        d_tok = float((ce - ce1).abs().mean())
+        d_loss = abs(float(ce.mean()) - float(ce1.mean()))
+        st = runs[0]
+        step1 = abs(st["loss"] - float(ce1.mean()))
+        d_gnorm = abs(st["gnorm"] - gnorm1) / gnorm1
+        say(f"  {key} vs P = 1: |Δloss| {d_loss:.3e} (limit {P7_LOSS_TOL}), "
+            f"mean |Δce| a token {d_tok:.3e} (limit {P7_CE_TOL}); worst "
+            f"‖Δg‖/‖g‖ of wq/wk/wv {st['grad_err']:.3e} (limit "
+            f"{P7_GRAD_TOL}); step 1 loss {st['loss']:.6f} |Δ| {step1:.3e}, "
+            f"gnorm {st['gnorm']:.4f} vs {gnorm1:.4f} relative |Δ| "
+            f"{d_gnorm:.3e} (limit {P7_GNORM_TOL})")
+        check(d_tok <= P7_CE_TOL and d_loss <= P7_LOSS_TOL
+              and step1 <= P7_LOSS_TOL, f"{key} vs P = 1: per-token "
+              f"{d_tok}, loss {d_loss}, step 1's loss {step1}")
+        check(st["grad_err"] <= P7_GRAD_TOL, f"{key} gradients vs P = 1: "
+              f"{st['grad_err']}")
+        check(d_gnorm <= P7_GNORM_TOL, f"{key} step 1 gnorm {d_gnorm}")
+        if "ce_scatter" in st:
+            ctl = torch.cat([x["ce_scatter"] for x in sorted(
+                runs, key=lambda x: x["seq_rank"])], dim=1)
+            c_tok = float((ctl - ce1).abs().mean())
+            c_loss = abs(float(ctl.mean()) - float(ce1.mean()))
+            say(f"  controls on {key}: head scatter rotated by one: "
+                f"|Δloss| {c_loss:.3e}, mean |Δce| a token {c_tok:.3e}; dk/dv "
+                f"home all-to-all rotated by one: ‖Δg‖/‖g‖ "
+                f"{st['grad_err_dkv']:.3e}")
+            check(c_tok > P7_CE_TOL or c_loss > P7_LOSS_TOL, "the limits do "
+                  f"not reject the rotated head scatter ({c_tok}, {c_loss})")
+            check(st["grad_err_dkv"] > P7_GRAD_TOL, "the gradient limit "
+                  f"does not reject the rotated dk/dv all-to-all "
+                  f"({st['grad_err_dkv']})")
+        losses = {x["loss"] for x in runs}
+        check(len(losses) == 1, f"{key}: ranks disagree {losses}")
+        for x, rk in zip(runs, range(P18_RANKS)):
+            check(x["axes"] == ("seq", "head") and x["seq_rank"] == rk,
+                  f"{key}: rank {rk} shard {x['seq_rank']} over {x['axes']}")
+            check(x["skipped"] == 0 and np.isfinite(x["loss"]),
+                  f"{key} rank {rk}: step skipped or loss {x['loss']}")
+            want = (P7_LAYERS * _p18_calls(p2.inner, x["seq"]),
+                    P7_LAYERS * _p18_calls(p2.inner, x["seq"], True))
+            got = x["launches"]
+            check(want[0] > 0 and want[1] > 0 and got["flash_fwd"] == want[0]
+                  and got["flash_bwd_dq"] == got["flash_bwd_dkv"] == want[1],
+                  f"{key} rank {rk}: launches {got}, want A {want[0]}, C/D "
+                  f"{want[1]}")
+            for k in BWD_KERNELS:
+                launches[k] += got[k]
+            say(f"  {key} rank {rk}: step {x['sec']:.2f} s, host in head "
+                f"all_to_alls {x['a2a']:.3f} s, blocked on seq shifts "
+                f"{x['shift']:.3f} s, in all-reduces {x['reduce']:.3f} s; "
+                f"peak {x['peak'] / 2**30:.2f} GiB; launches A/C/D "
+                f"{got['flash_fwd']}/{got['flash_bwd_dq']}/"
+                f"{got['flash_bwd_dkv']} (predicted {want[0]}/{want[1]}/"
+                f"{want[1]})")
+    return launches
+
+
+def _p18_replicate_gates(res):
+    bf = torch.bfloat16
+    for x in res:
+        rep = x["replicate"]
+        check(rep["kv_mode"] == "replicate", f"kv mode {rep['kv_mode']}")
+        # o merges the plan steps' bf16 partials, so it is held as the
+        # backward is (element-wise and row by row), not element by
+        # element to its own size (rel_err: reported)
+        ok_l = rep["lse_err"] <= LSE_TOL * (1 + rep["lse_max"])
+        check(rep["o_ok"] and rep["o_row"] <= ROW_TOL and ok_l,
+              f"replicate rank {x['rank']}: o err {rep['o_err']} (row "
+              f"{rep['o_row']}), lse err {rep['lse_err']}")
+        for nm, (ok, err, row) in rep["bwd"].items():
+            check(ok, f"replicate rank {x['rank']}: {nm} err {err}, row "
+                  f"{row}")
+        check(any(not ok for ok, _, _ in rep["ctl"].values()),
+              f"replicate rank {x['rank']}: the bars do not reject the home "
+              f"step without the all-reduce ({rep['ctl']})")
+        got, (wf, wb) = rep["launches"], rep["want"]
+        check(got["flash_fwd"] == wf and got["flash_bwd_dq"] == wb
+              and got["flash_bwd_dkv"] == wb and wf > 0 and wb > 0,
+              f"replicate rank {x['rank']}: launches {got}, want {wf}/{wb}")
+        say(f"  replicate (q 32 heads, k/v 1 head, T {P7_T}) rank "
+            f"{x['rank']}: max|Δo| {rep['o_err']:.3e} (row "
+            f"{rep['o_row']:.3e}, element {rep['o_rel']:.3e}), max|Δlse| "
+            f"{rep['lse_err']:.3e}; "
+            + ", ".join(f"{nm} max|Δ| {e:.3e} row {r:.3e}"
+                        for nm, (_, e, r) in rep["bwd"].items())
+            + " (limits " + f"{BWD_TOL[bf]}, row {ROW_TOL}); control without "
+            "the all-reduce: " + ", ".join(
+                f"{nm} max|Δ| {e:.3e} row {r:.3e}"
+                for nm, (_, e, r) in rep["ctl"].items())
+            + f"; launches A/C/D {got['flash_fwd']}/{got['flash_bwd_dq']}/"
+            f"{got['flash_bwd_dkv']} (predicted {wf}/{wb}/{wb})")
+
+
+def _p18_serve_gates(res):
+    sv = [x["serve"] for x in res]
+    t1, l1 = sv[0]["tokens1"], sv[0]["logits1"]
+    for x, s in zip(res, sv):
+        check(s["shards"] == P18_RANKS, f"rank {x['rank']}: cache over "
+              f"{s['shards']} shards")
+        check(torch.equal(s["tokens1"], t1) and torch.equal(s["tokens2"],
+                                                            sv[0]["tokens2"]),
+              f"rank {x['rank']} emitted other tokens")
+        check(s["launches"] == s["want"] > 0, f"rank {x['rank']}: kernel A "
+              f"launched {s['launches']} times in the 2D run, want "
+              f"{s['want']}")
+    l2, t2 = sv[0]["logits2"], sv[0]["tokens2"]
+    check(l1.shape == l2.shape, f"steps {l1.shape} {l2.shape}")
+    err = _step_err(l2, l1)
+    # reported, not gated: each step's top-two gap of the (seq) run and
+    # the step's max |Δ| between the runs
+    top2 = l1.float().topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).amin(dim=-1)
+    moved = [float((a - b).abs().max()) for a, b in zip(l2, l1)]
+    same = [i for i in range(t1.shape[1]) if torch.equal(t1[:, i], t2[:, i])]
+    say(f"  serving (2, 2) vs (seq=4), teacher-forced: worst step max|Δ| / "
+        f"max|logit| {err:.3e} (limit {P8_LOGIT_TOL}) over {l1.shape[0]} "
+        f"steps; tokens equal at {len(same)} of {t1.shape[1]} steps "
+        f"{t1[0].tolist()}; top-two gap / max|Δ| a step "
+        + ", ".join(f"{float(g) / max(m, 1e-30):.2f}"
+                    for g, m in zip(gaps[:t1.shape[1]], moved)))
+    check(err <= P8_LOGIT_TOL, f"2D serving logits {err}")
+    check(len(same) == t1.shape[1],
+          f"2D tokens {t2[0].tolist()} vs {t1[0].tolist()}")
+    for x, s in zip(res, sv):
+        dm = s["decode_ms"]
+        say(f"  serving (2, 2) rank {x['rank']}: prefill {s['prefill_s']:.3f}"
+            f" s ({P18_SERVE_T // P18_RANKS} tokens, A {s['launches']} "
+            f"launches, predicted {s['want']}), decode {np.median(dm):.2f} ms "
+            f"a step (median of {len(dm)}), host in head all_to_alls "
+            f"{s['a2a']:.3f} s, blocked on seq shifts {s['shift']:.3f} s, "
+            f"in all-reduces {s['reduce']:.3f} s, peak "
+            f"{s['peak'] / 2**30:.2f} GiB")
+    return sum(s["launches"] for s in sv)
+
+
+def seq2d(p1):
+    """Phase 18: the 2D sequence × head plans on a gloo world of 4 ranks
+    sharing the one card: (a) phase 7's training on (2, 2) and (1, 4),
+    held to phase 7's P = 1 run ``p1``; (b) replicate mode; (c)
+    ``FixedSlotEngine`` on (2, 2) against the same world's (seq = 4)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "grads1.pt")
+        torch.save(p1["grads"], ref_path)
+        t0 = time.perf_counter()
+        res = spawn(_p18_rank, P18_RANKS, (ref_path,), device=DEV,
+                    timeout=P18_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    check(all(r["transport"] == P18_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+    launches = _p18_train_gates(res, p1)
+    _p18_replicate_gates(res)
+    launches["flash_fwd"] += _p18_serve_gates(res)
+    say(f"  world of {P18_RANKS} ranks: {wall:.1f} s, spawn included")
+    return dict(launches=launches)
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -5899,6 +6355,11 @@ def main():
     say("== phase 8: long-context serving, 4 sequence ranks on the one card")
     lg = long_serve()
     _free()
+    say("== phase 18: 2D sequence x head plans, 4 ranks on the one card")
+    t0 = time.perf_counter()
+    s2 = seq2d(mr.pop("p1"))
+    say(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    _free()
     say("== phase 10: the Qwen family at full size through the paged engine")
     t0 = time.perf_counter()
     qw = qwen()
@@ -5924,7 +6385,7 @@ def main():
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
                 + sp["launches"].get(k, 0) + qw["launches"].get(k, 0)
                 + me["launches"].get(k, 0) + dk["launches"].get(k, 0)
-                + fs["launches"].get(k, 0)
+                + fs["launches"].get(k, 0) + s2["launches"].get(k, 0)
                 for k in res["launches"]}
     # kernel A's pair route also trains (phases 14 and 15) and prefills
     # across ranks (phase 16, all ranks; added once they have run); C and
@@ -5939,7 +6400,9 @@ def main():
         f"serving (runs 1-5) {sp['launches']}, qwen {qw['launches']}, "
         f"mesh engine (all ranks) {me['launches']}, deepseek "
         f"{dk['launches']}, deepseek fixed-slot {fs['launches']}, deepseek "
-        f"training (remat_aware and hf, 4 steps each) {tm['launches']}")
+        f"training (remat_aware and hf, 4 steps each) {tm['launches']}, 2D "
+        f"plans (all ranks: a train step on each mesh, the 2D prefill) "
+        f"{s2['launches']}")
     rows = [time_flash(launches), time_latent(launches), time_pair(launches),
             time_paged(launches), *time_bwd(launches, tr["seen"], errs),
             *time_pair_bwd(pair_bwd, tm.pop("seen"), tm["errs"])]

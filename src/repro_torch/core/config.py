@@ -141,11 +141,15 @@ def get_shape(name: str) -> ShapeSpec:
 @dataclass(frozen=True)
 class ParallelConfig:
     """How the mesh axes are used for a run (the reference's fields and
-    defaults, without the 2D seq×head ``head_axis``).
+    defaults).
 
     ``batch_axes`` shard the batch; ``seq_axis`` is the sequence-parallel
     axis whose ranks run the distributed attention ``schedule`` (auto |
     balanced | ring | rsa | ulysses | zigzag, ``core/dist_attention``);
+    ``head_axis`` names the head sub-axis of a factored 2D (seq × head)
+    mesh (``launch.mesh.make_seq2d_mesh``): activations then shard the
+    sequence over the (``seq_axis``, ``head_axis``) pair, head minor, and
+    attention runs the 2D plans (``core/schedule.Plan2D``);
     ``extra_seq_axes`` are axes folded into the sequence sharding of a
     decode cache (``long_500k``: batch 1 leaves ``data`` idle);
     ``fsdp_axes`` name the reference's parameter-sharding axes (the port
@@ -158,12 +162,16 @@ class ParallelConfig:
     fsdp_axes: Tuple[str, ...] = ("data",)
     schedule: str = "balanced"
     remat: str = "remat_aware"      # remat_aware | hf | none
+    head_axis: Optional[str] = None
 
     @property
     def seq_axes(self) -> Tuple[str, ...]:
-        """Every axis the decode cache's sequence dim shards over, the
-        minor-most last (``extra_seq_axes`` then ``seq_axis``)."""
-        return tuple(self.extra_seq_axes) + (self.seq_axis,)
+        """Every axis the sequence dim shards over, the minor-most last
+        (``extra_seq_axes``, ``seq_axis``, then the 2D ``head_axis``)."""
+        axes = tuple(self.extra_seq_axes) + (self.seq_axis,)
+        if self.head_axis is not None:
+            axes += (self.head_axis,)
+        return axes
 
 
 @dataclass(frozen=True)

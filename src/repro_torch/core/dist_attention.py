@@ -1,5 +1,5 @@
 """DISTFLASHATTN entry points (port of the reference
-``core/dist_attention.py``, without the 2D seq×head plans).
+``core/dist_attention.py``).
 
 Sequence-parallel exact attention over a group of ``P`` ranks (the paper's
 workers), each a ``torch.distributed`` process holding its contiguous
@@ -26,6 +26,14 @@ shard of the sequence (zigzag: its two mirror chunks).  Schedules
 The ring-family schedules are plans (:mod:`repro_torch.core.schedule`)
 run by one forward and one backward executor; every plan step launches
 kernel A forward and kernels C and D backward with its own static mask.
+
+``DistAttnSpec.mesh2d`` (:class:`Mesh2DSpec`) factors the P ranks into a
+(seq = r) × (head = u) grid: the sequence is sharded over the pair (seq
+major, head minor), a head all-to-all over ``head`` gives each rank a
+contiguous T/r shard of Hq/u query heads, the ring-family plan runs over
+``seq``, and the inverse all-to-all brings the results home
+(``schedule.execute2d_fwd`` / ``execute2d_bwd``).  Such a call takes the
+two groups, ``group=(seq, head)``.
 The baselines' backward is the ring plan's, with the reference's refusals.
 At ``axis_size == 1`` every schedule reduces to the local chunk kernels, as
 the reference's ``_fwd_local`` / ``_bwd_local`` do.
@@ -66,6 +74,26 @@ _MASK_HINT = ("mask=repro_torch.core.mask.{full,causal,sliding_window,"
 
 
 @dataclasses.dataclass(frozen=True)
+class Mesh2DSpec:
+    """The factored 2D (sequence × head) axis pair of one call: the
+    ``axis_size = r·u`` sequence-parallel ranks form an (``seq_axis`` = r)
+    × (``head_axis`` = u) grid; the sequence is sharded over the pair, seq
+    major, head minor."""
+    r: int
+    u: int
+    seq_axis: str = "seq"
+    head_axis: str = "head"
+
+    def __post_init__(self):
+        if self.r < 1 or self.u < 1:
+            raise ValueError(f"Mesh2DSpec needs r, u >= 1 "
+                             f"(got r={self.r}, u={self.u})")
+        if self.seq_axis == self.head_axis:
+            raise ValueError("Mesh2DSpec seq_axis and head_axis must be "
+                             "distinct mesh axes")
+
+
+@dataclasses.dataclass(frozen=True)
 class DistAttnSpec:
     """Static description of one distributed-attention call site.
 
@@ -77,6 +105,12 @@ class DistAttnSpec:
     ``causal=`` / ``window=`` kwargs raise ``TypeError``.  The
     mask/schedule checks for ``axis_size > 1`` are the reference's, so a
     spec the reference refuses is refused here too.
+
+    ``mesh2d`` factors the ``axis_size`` ranks into a (seq = r, head = u)
+    grid (:class:`Mesh2DSpec`); the ring-family schedules then run on the
+    seq sub-axis after a head scatter on the head sub-axis, and the mask
+    checks follow the seq sub-axis: at r == 1 the inner plan is one local
+    full-sequence kernel, so any mask goes.
     """
     axis: str = "model"
     axis_size: int = 1
@@ -86,6 +120,7 @@ class DistAttnSpec:
     window: dataclasses.InitVar[Optional[int]] = None
     scale: Optional[float] = None
     impl: Optional[object] = None   # a registry name, or a Backend
+    mesh2d: Optional[Mesh2DSpec] = None
 
     def __post_init__(self, causal, window):
         if causal is not None or window is not None:
@@ -100,24 +135,40 @@ class DistAttnSpec:
         if m.q_offset or m.kv_offset:
             raise ValueError("DistAttnSpec.mask must be offset-free — the "
                              "schedules derive per-step offsets")
-        if self.axis_size > 1:
-            if self.schedule in ("balanced", "zigzag") and \
-                    not (m.causal and not m.prefix_len):
-                raise ValueError(f"{self.schedule!r} handles causal-kind "
-                                 f"masks only (got {m.kind!r}); use "
-                                 f"ring/ulysses")
-            if m.prefix_len and self.schedule == "ring":
+        ring_P = self.axis_size
+        if self.mesh2d is not None:
+            md = self.mesh2d
+            if md.r * md.u != self.axis_size:
+                raise ValueError(f"mesh2d r·u = {md.r * md.u} must equal "
+                                 f"axis_size = {self.axis_size}")
+            if self.schedule not in ("auto",) + sp.PLAN_SCHEDULES:
                 raise ValueError(
-                    "prefix_lm needs absolute kv positions, which the ring "
-                    "schedule's per-shard chunks don't have; use "
-                    "ulysses/rsa or a single-shard axis")
+                    f"2D (seq×head) attention runs ring-family plans only "
+                    f"(got {self.schedule!r}); the ulysses/rsa baselines "
+                    f"have their own 1D topology")
+            ring_P = md.r
+        if ring_P > 1:
+            if self.schedule in sp.PLAN_SCHEDULES and \
+                    not sp.plan_capable(self.schedule, m):
+                raise ValueError(_incapable(self.schedule, m))
             if m.window and self.schedule == "rsa":
                 raise ValueError("rsa baseline has no sliding-window path")
-            if m.window and not m.causal and self.schedule == "ring":
-                raise ValueError(
-                    "a non-causal sliding window needs future-direction "
-                    "band steps the ring's strictly-past step masks can't "
-                    "express; use ulysses or a single-shard axis")
+
+
+def _incapable(schedule: str, m: MaskSpec) -> str:
+    """Why a plan schedule cannot serve mask ``m`` on more than one
+    shard (``schedule.plan_capable`` is false)."""
+    if schedule in ("balanced", "zigzag") and not (m.causal
+                                                   and not m.prefix_len):
+        return (f"{schedule!r} handles causal-kind masks only (got "
+                f"{m.kind!r}); use ring/ulysses")
+    if m.prefix_len:
+        return ("prefix_lm needs absolute kv positions, which the ring "
+                "schedule's per-shard chunks don't have; use ulysses/rsa, "
+                "a 2D mesh with r == 1, or a single-shard axis")
+    return ("a non-causal sliding window needs future-direction band steps "
+            "the ring's strictly-past step masks can't express; use "
+            "ulysses, a 2D mesh with r == 1, or a single-shard axis")
 
 
 def _tune(spec: DistAttnSpec) -> dict:
@@ -141,15 +192,42 @@ def _comm(spec: DistAttnSpec, group):
     return group
 
 
+def _comms2d(spec: DistAttnSpec, group):
+    """The (seq, head) Comms of a 2D call, ``group``."""
+    md = spec.mesh2d
+    if not isinstance(group, (tuple, list)) or len(group) != 2:
+        raise ValueError(
+            f"a 2D spec (r={md.r}, u={md.u}) needs the groups of mesh axes "
+            f"{md.seq_axis!r} and {md.head_axis!r}: group=(seq, head), got "
+            f"{type(group).__name__}")
+    seq, head = group
+    if seq.size != md.r or head.size != md.u:
+        raise ValueError(f"a 2D spec (r={md.r}, u={md.u}) on groups of "
+                         f"{seq.size} and {head.size} ranks")
+    return seq, head
+
+
 def resolve_schedule(spec: DistAttnSpec) -> str:
-    """The concrete schedule of a call at ``axis_size > 1``."""
+    """The concrete schedule of a call at ``axis_size > 1`` (on a 2D mesh:
+    the inner seq-axis schedule)."""
     if spec.schedule != "auto":
         return spec.schedule
+    what = ("the inner schedule of a 2D spec (choose_inner_schedule)"
+            if spec.mesh2d is not None else "the candidates")
     raise NotImplementedError(
-        "schedule='auto' at axis_size > 1 ranks the candidates with the "
-        "plan cost model's roofline constants and the tune/ table, which "
-        "the port does not have for the H100 yet (ROADMAP §1 item 10: "
-        "tune/ and analysis/roofline.py); name a schedule")
+        f"schedule='auto' at axis_size > 1 ranks {what} with the plan cost "
+        f"model's roofline constants and the tune/ table, which the port "
+        f"does not have for the H100 yet (ROADMAP §1 item 10: tune/ and "
+        f"analysis/roofline.py); name a schedule")
+
+
+def _plan2d(spec: DistAttnSpec, sched: str, q, k):
+    """The 2D plan of a call; at r == 1 every ring-family schedule is the
+    same local full-sequence kernel, so it builds as ``ring``."""
+    md = spec.mesh2d
+    sched = "ring" if md.r == 1 else sched
+    return sp.build_plan2d(sched, spec.mask, md.r, md.u, q.shape[1],
+                           Hq=q.shape[2], Hkv=k.shape[2])
 
 
 # --------------------------------------------------------------------------
@@ -217,10 +295,22 @@ def dist_attn_fwd(q, k, v, *, spec: DistAttnSpec, group=None,
     """Forward → (o, lse) of this rank's shard.  q (B,Tl,Hq,D), k/v
     (B,Tl,Hkv,D); ``group`` is the sequence axis's
     :class:`~repro_torch.parallel.comm.Comm` (unused at ``axis_size ==
-    1``); ``segments`` (B, Tl) document ids (document masks only)."""
+    1``), or for a 2D spec the ``(seq, head)`` pair of Comms;
+    ``segments`` (B, Tl) document ids (document masks only)."""
     if spec.axis_size == 1:
         return chunk_attn(q, k, v, mask=spec.mask, **_tune(spec),
                           **_seg_kw(spec.mask, segments))
+    if spec.mesh2d is not None:
+        sched = resolve_schedule(spec)
+        seq, head = _comms2d(spec, group)
+        if spec.mesh2d.u == 1:      # degenerate: the plain 1D seq plan
+            plan = sp.build_plan(sched, spec.mask, spec.mesh2d.r,
+                                 q.shape[1])
+            return sp.execute_fwd(plan, q, k, v, segments, comm=seq,
+                                  tune=_tune(spec))
+        return sp.execute2d_fwd(_plan2d(spec, sched, q, k), q, k, v,
+                                segments, seq=seq, head=head,
+                                tune=_tune(spec))
     comm = _comm(spec, group)
     sched = resolve_schedule(spec)
     if sched == "rsa":
@@ -244,6 +334,10 @@ def dist_attn_fwd_latent(q, k, v, payload, w_up, expand, *,
     if spec.mask.kinds - {"causal"}:
         raise ValueError("latent ring supports plain causal masks only "
                          f"(got {spec.mask.kind!r})")
+    if spec.mesh2d is not None:
+        raise NotImplementedError(
+            "the latent ring on a 2D (seq×head) mesh is ROADMAP §1 item "
+            "8.1 (MLA + MoE on a 2D mesh)")
     if spec.axis_size == 1:
         return chunk_attn(q, k, v, mask=spec.mask, **_tune(spec))
     plan = sp.build_plan("zigzag", spec.mask, spec.axis_size, q.shape[1])
@@ -258,6 +352,17 @@ def dist_attn_bwd(q, k, v, o, lse, do, *, spec: DistAttnSpec, group=None,
     if spec.axis_size == 1:
         return chunk_attn_bwd(q, k, v, o, lse, do, mask=spec.mask,
                               **_tune(spec), **_seg_kw(spec.mask, segments))
+    if spec.mesh2d is not None:
+        sched = resolve_schedule(spec)
+        seq, head = _comms2d(spec, group)
+        if spec.mesh2d.u == 1:
+            plan = sp.build_plan(sched, spec.mask, spec.mesh2d.r,
+                                 q.shape[1])
+            return sp.execute_bwd(plan, q, k, v, o, lse, do, segments,
+                                  comm=seq, tune=_tune(spec))
+        return sp.execute2d_bwd(_plan2d(spec, sched, q, k), q, k, v, o, lse,
+                                do, segments, seq=seq, head=head,
+                                tune=_tune(spec))
     comm = _comm(spec, group)
     sched = resolve_schedule(spec)
     if sched in ("rsa", "ulysses"):

@@ -1,7 +1,9 @@
 """Schedule-plan IR: one step engine for every distributed-attention
 schedule (port of the reference ``core/schedule.py``: the IR, the
-ring / balanced / zigzag builders, the two executors and the coverage
-simulator).
+ring / balanced / zigzag builders, the two executors, the coverage
+simulator, the capability rules, and the 2D sequence × head plans —
+:class:`Plan2D`, :func:`build_plan2d` and the executors
+:func:`execute2d_fwd` / :func:`execute2d_bwd` on a 2-D grid of groups).
 
 DISTFLASHATTN's schedules differ only in *placement and per-step routing*:
 which (q-chunk, kv-chunk) pair each rank computes at each ring step, and
@@ -57,6 +59,7 @@ from repro_torch.core import mask as mk
 from repro_torch.core.attention import (chunk_attn, chunk_attn_bwd,
                                         empty_partial, merge)
 from repro_torch.core.mask import MaskSpec
+from repro_torch.parallel.comm import all_to_all
 
 # ---------------------------------------------------------------------------
 # Predicates on the rank index p — static tuples
@@ -391,6 +394,125 @@ def build_plan(schedule: str, mask: MaskSpec, P: int, Tl: int) \
     return _BUILDERS[schedule](mask, P, Tl)
 
 
+def plan_capable(schedule: str, mask: MaskSpec) -> bool:
+    """Can this plan schedule serve the mask?  (prefix_lm needs absolute
+    kv positions on every chunk — ulysses/rsa territory; balanced/zigzag
+    additionally need a causal-kind mask for their strictly-causal pair
+    placement.  A *non-causal* sliding window needs future-direction band
+    steps the ring's strictly-past step masks can't express — ulysses
+    only.)"""
+    if mask.prefix_len:
+        return False
+    if mask.window and not mask.causal:
+        return False
+    if schedule in ("balanced", "zigzag"):
+        return bool(mask.causal)
+    return schedule == "ring"
+
+
+def ulysses_capable(mask: MaskSpec, P: int, Hq: int, Hkv: int, *,
+                    include_bwd: bool = True) -> bool:
+    """Can the ulysses baseline serve this call without raising at
+    execution time?  Forward needs both head counts divisible by P; a
+    backward additionally rules out prefix_lm and non-causal sliding
+    windows, because the baselines reuse the ring backward, whose
+    per-shard chunks cannot see absolute positions / future-direction
+    bands."""
+    if Hq % P or Hkv % P:
+        return False
+    if include_bwd and mask.prefix_len:
+        return False
+    if include_bwd and mask.window and not mask.causal:
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# 2D sequence × head (ring × ulysses) factored plans
+# ---------------------------------------------------------------------------
+#
+# The P sequence-parallel ranks form a (seq = r) × (head = u) grid, P = r·u,
+# and the global sequence is sharded over the pair (seq major, head minor).
+# An all-to-all over the head sub-axis — DeepSpeed-Ulysses' head scatter —
+# leaves each rank a contiguous T/r sequence shard of Hq/u query heads; any
+# ring-family SchedulePlan then runs unchanged over the seq sub-axis, and
+# the results travel home through the inverse all-to-all.  GQA-aware: query
+# heads always scatter; KV heads scatter when ``Hkv % u == 0`` and are
+# otherwise all-gathered over the head sub-axis, each rank selecting the KV
+# heads its query heads read (the inner plan is then locally MHA).
+
+PLAN2D_SCHEDULES = PLAN_SCHEDULES
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan2D:
+    """A factored 2D schedule: head scatter over ``u`` ranks wrapping the
+    ``inner`` ring-family plan over ``r`` ranks (``inner.P == r``,
+    ``inner.Tl == u · Tl_dev``).  ``Hq`` / ``Hkv`` are the global head
+    counts; ``kv_mode`` is ``"scatter"`` or ``"replicate"``."""
+    inner: SchedulePlan
+    r: int
+    u: int
+    Hq: int
+    Hkv: int
+    kv_mode: str
+
+    @property
+    def name(self) -> str:
+        return f"{self.inner.name}@r{self.r}u{self.u}"
+
+    @property
+    def P(self) -> int:
+        return self.r * self.u
+
+
+def plan2d_capable(schedule: str, mask: MaskSpec, *, r: int, u: int,
+                   Hq: int, Hkv: int) -> bool:
+    """Can the (schedule, r, u) factorization serve this mask × head
+    shape?  Query heads must split evenly over the head sub-axis and the
+    GQA groups must be uniform; the inner schedule follows
+    :func:`plan_capable` — except at r == 1, where the ring is one local
+    full-sequence kernel after the head scatter, which serves any mask
+    (prefix_lm and non-causal windows included)."""
+    if schedule not in PLAN2D_SCHEDULES:
+        return False
+    if Hq % u or Hq % Hkv:
+        return False
+    if r == 1:
+        return schedule == "ring"
+    return plan_capable(schedule, mask)
+
+
+def build_plan2d(schedule: str, mask: MaskSpec, r: int, u: int,
+                 Tl_dev: int, *, Hq: int, Hkv: int) -> Plan2D:
+    """The 2D plan of one factorization: the inner seq-axis plan at P = r
+    over the post-scatter shard length u·Tl_dev, and the KV heads' mode."""
+    if not plan2d_capable(schedule, mask, r=r, u=u, Hq=Hq, Hkv=Hkv):
+        raise ValueError(
+            f"2D factorization (schedule={schedule!r}, r={r}, u={u}) "
+            f"cannot serve mask {mask.kind!r} with heads ({Hq}, {Hkv}) — "
+            f"query heads must divide u and the inner schedule must be "
+            f"plan-capable for the mask (any mask goes at r == 1)")
+    inner = build_plan(schedule, mask, r, u * Tl_dev)
+    kv_mode = "scatter" if Hkv % u == 0 else "replicate"
+    return Plan2D(inner=inner, r=r, u=u, Hq=Hq, Hkv=Hkv, kv_mode=kv_mode)
+
+
+def plan2d_head_map(p2: Plan2D, j: int):
+    """Head routing of head-rank ``j``: ``(q_ids, kv_ids)``, the global
+    head indices of its local slots after the scatter.  Scatter mode: the
+    rank's all-to-all share of KV heads; replicate mode: the selection
+    ``(global q head) // g``, one KV slot per query slot."""
+    Hql = p2.Hq // p2.u
+    q_ids = np.arange(j * Hql, (j + 1) * Hql)
+    if p2.kv_mode == "scatter":
+        Hkvl = p2.Hkv // p2.u
+        kv_ids = np.arange(j * Hkvl, (j + 1) * Hkvl)
+    else:
+        kv_ids = (j * Hql + np.arange(Hql)) // (p2.Hq // p2.Hkv)
+    return q_ids, kv_ids
+
+
 # ---------------------------------------------------------------------------
 # Shared executor machinery
 # ---------------------------------------------------------------------------
@@ -693,6 +815,78 @@ def execute_bwd(plan: SchedulePlan, q, k, v, o, lse, do, seg=None, *,
         acc["dq"] += travel["dqb"]
     return (acc["dq"].to(q.dtype), acc["dk"].to(k.dtype),
             acc["dv"].to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# 2D executors: head scatter, the inner plan over seq, home
+# ---------------------------------------------------------------------------
+
+def _a2a_heads(x, head):
+    """Scatter heads, gather sequence: (B, Tc, H, ...) → (B, u·Tc, H/u,
+    ...).  Concatenating the head group's parts in rank order rebuilds a
+    contiguous stretch of the sequence, since the sequence is sharded seq
+    major, head minor."""
+    return all_to_all(head, x, split_dim=2, concat_dim=1)
+
+
+def _a2a_seq(x, head):
+    """The inverse: split the sequence, gather heads."""
+    return all_to_all(head, x, split_dim=1, concat_dim=2)
+
+
+def _scatter_heads(p2: Plan2D, q, k, v, seg, head):
+    """This rank's shards in the inner plan's layout: (qh, kh, vh, segh,
+    kv_ids).  ``kv_ids`` (replicate mode only, else None) is the global
+    KV selection the backward scatters gradients back through."""
+    qh = _a2a_heads(q, head)
+    kv_ids = None
+    if p2.kv_mode == "scatter":
+        kh, vh = _a2a_heads(k, head), _a2a_heads(v, head)
+    else:
+        kv_ids = torch.as_tensor(plan2d_head_map(p2, head.rank)[1],
+                                 device=k.device)
+        kh = head.all_gather(k, dim=1).index_select(2, kv_ids)
+        vh = head.all_gather(v, dim=1).index_select(2, kv_ids)
+    segh = None if seg is None else head.all_gather(seg, dim=1)
+    return qh, kh, vh, segh, kv_ids
+
+
+def execute2d_fwd(p2: Plan2D, q, k, v, seg=None, *, seq, head, tune):
+    """Run a 2D plan forward on this rank's shards: head scatter over
+    ``head`` (the head sub-axis's Comm), the inner plan over ``seq``, the
+    inverse scatter home.  Returns (o, lse) in the caller's (seq-major,
+    head-minor) sharding."""
+    qh, kh, vh, segh, _ = _scatter_heads(p2, q, k, v, seg, head)
+    o_h, s_h = execute_fwd(p2.inner, qh, kh, vh, segh, comm=seq, tune=tune)
+    return _a2a_seq(o_h, head), _a2a_seq(s_h, head)
+
+
+def execute2d_bwd(p2: Plan2D, q, k, v, o, lse, do, seg=None, *, seq, head,
+                  tune):
+    """Run a 2D plan backward from the saved (o, lse): the operands
+    scattered as in the forward, the inner plan's backward over ``seq``,
+    then the gradients home — an all-to-all for dq (and dk / dv in scatter
+    mode); in replicate mode each selected head's float32 KV gradient is
+    added into the full head dimension, summed over ``head``, and each rank
+    keeps its own token chunk."""
+    qh, kh, vh, segh, kv_ids = _scatter_heads(p2, q, k, v, seg, head)
+    oh, doh, lseh = (_a2a_heads(x, head) for x in (o, do, lse))
+    dqh, dkh, dvh = execute_bwd(p2.inner, qh, kh, vh, oh, lseh, doh, segh,
+                                comm=seq, tune=tune)
+    dq = _a2a_seq(dqh, head)
+    if p2.kv_mode == "scatter":
+        return dq, _a2a_seq(dkh, head), _a2a_seq(dvh, head)
+    B, Tc = k.shape[0], k.shape[1]
+    j = head.rank
+
+    def home(dx, x):
+        full = torch.zeros((B, Tc * p2.u, p2.Hkv) + tuple(x.shape[3:]),
+                           dtype=torch.float32, device=x.device)
+        full.index_add_(2, kv_ids, dx.float())
+        head.all_reduce_([full])
+        return full[:, j * Tc:(j + 1) * Tc].to(x.dtype)
+
+    return dq, home(dkh, k), home(dvh, v)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ torch tensors on an explicit device.
 On a process-group mesh each rank gets its (data, seq) shard of the same
 global batch: rows by its ``data`` coordinate (when the batch shards over
 ``data``), columns by the global positions it holds (contiguous, or the
-zigzag layout under the zigzag schedule).  Labels are shifted before
+zigzag layout under the zigzag schedule) — on a 2D mesh its slice of the
+(seq, head) pair, seq major.  Labels are shifted before
 sharding, so a shard's last label is the next shard's first token.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.config import ModelConfig, ParallelConfig, ShapeSpec
 from repro_torch.core.dist_attention import shard_positions
 from repro_torch.core.mask import doc_boundaries, segments_from_boundaries
+from repro_torch.parallel.sharding import seq_group
 
 
 @dataclasses.dataclass
@@ -93,7 +95,7 @@ class SyntheticTokens:
         if "data" in par.batch_axes:
             D, d = self.mesh.size("data"), self.mesh.coord("data")
             rows = slice(d * B // D, (d + 1) * B // D)
-        P = self.mesh.size(par.seq_axis)
-        cols = shard_positions(T, P, self.mesh.coord(par.seq_axis),
-                               zigzag_layout(self.cfg, par, P))
+        g = seq_group(self.mesh, par)
+        cols = shard_positions(T, g.size, g.rank,
+                               zigzag_layout(self.cfg, par, g.size))
         return rows, cols

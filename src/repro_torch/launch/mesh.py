@@ -1,22 +1,29 @@
 """Process-group meshes (port of the reference ``launch/mesh.py``).
 
-The reference lays devices out as a ``(data, model)`` grid of a
-``jax.sharding.Mesh``; here each rank is one ``torch.distributed`` process
-and :func:`make_local_mesh` builds the same grid over the running world:
-global rank ``r`` sits at ``(r // seq, r % seq)`` (model minor, as
-``jax.make_mesh`` orders devices), and each axis gets a
-:class:`~repro_torch.parallel.comm.Comm` over the ranks that differ only
-along it.  ``model`` is the sequence-parallel axis (the paper's P
-workers), ``data`` the batch axis.  Without a world (one process) every
-axis has size 1 and the transport is ``local``.  :meth:`Mesh.comm` names
-the group of several axes (``("data", "model")``: the world, ranks in
-the reference's linearized order).
+The reference lays devices out as a grid of a ``jax.sharding.Mesh``; here
+each rank is one ``torch.distributed`` process and the same grid is built
+over the running world, the last axis minor, as ``jax.make_mesh`` orders
+devices.  :func:`make_local_mesh` is the ``(data, model)`` grid: global
+rank ``r`` sits at ``(r // seq, r % seq)``; ``model`` is the
+sequence-parallel axis (the paper's P workers), ``data`` the batch axis.
+:func:`make_seq2d_mesh` is the factored ``(data, seq, head)`` grid of the
+2D sequence × head plans: global rank ``(d·r + s)·u + h``.  Each axis gets
+a :class:`~repro_torch.parallel.comm.Comm` over the ranks that differ only
+along it, and every other set of two or more axes, in mesh order, a Comm
+over the ranks that differ only along those (:meth:`Mesh.comm`:
+``("seq", "head")`` is the sequence group of a 2D mesh, every axis the
+world; ranks in the reference's linearized order).  The groups are built
+when the mesh is, in the same order on every rank (``dist.new_group`` is
+collective).  Without a world (one process) every axis has size 1 and the
+transport is ``local``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Tuple
 
+import numpy as np
 import torch.distributed as dist
 
 from repro_torch.parallel import comm as cm
@@ -25,12 +32,13 @@ from repro_torch.parallel import comm as cm
 @dataclasses.dataclass
 class Mesh:
     """This rank's view of the grid: axis names and sizes, its coordinate
-    on each axis, one :class:`~repro_torch.parallel.comm.Comm` per axis and
+    on each axis, a :class:`~repro_torch.parallel.comm.Comm` per axis (keyed
+    by name) and per larger set of axes in mesh order (keyed by the tuple),
     one over the whole world, and the world's transport."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     coords: Tuple[int, ...]
-    comms: Dict[str, cm.Comm]
+    comms: Dict[object, cm.Comm]
     world: cm.Comm
     transport: str
 
@@ -41,18 +49,20 @@ class Mesh:
         return self.coords[self.axis_names.index(name)]
 
     def comm(self, axes) -> cm.Comm:
-        """The Comm over mesh axes ``axes`` (a name or a tuple of names,
-        major first): its rank is the rank's linearized index over them,
-        as the reference's ``idx = idx * size(ax) + axis_index(ax)``.
-        One axis is ``comms[axis]``; every axis in mesh order is the
-        world."""
+        """The Comm over mesh axes ``axes`` (a name, or a tuple of names in
+        mesh order, major first): its rank is the rank's linearized index
+        over them, as the reference's ``idx = idx * size(ax) +
+        axis_index(ax)``.  Every axis is the world."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if len(axes) == 1:
-            return self.comms[axes[0]]
         if axes == tuple(self.axis_names):
             return self.world
-        raise ValueError(f"no group over axes {axes} of a mesh "
-                         f"{self.axis_names}")
+        if len(axes) == 1:
+            return self.comms[axes[0]]
+        if axes not in self.comms:
+            raise ValueError(f"no group over axes {axes} of a mesh "
+                             f"{self.axis_names}: name mesh axes in mesh "
+                             f"order")
+        return self.comms[axes]
 
 
 # the CLIs' ``--mesh``: ``local`` puts ``--seq-shards`` ranks on ``model``
@@ -86,6 +96,39 @@ def _comm(ranks, transport, device):
     return cm.Comm(ranks, transport, device, group=group, p2p_group=p2p)
 
 
+def _make_mesh(names, shape, device) -> Mesh:
+    """The grid ``shape`` of axes ``names`` (last minor) over the running
+    world, with a Comm for each axis and each larger set of axes in mesh
+    order (the world last)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if int(np.prod(shape)) != n:
+        raise ValueError(f"mesh {dict(zip(names, shape))} needs "
+                         f"{int(np.prod(shape))} ranks, the world has {n}")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    transport = cm.transport_of(device) if n > 1 else "local"
+    grid = np.arange(n).reshape(shape)
+    comms = {}
+    # one axis at a time, minor first, then the sets of axes between one
+    # axis and the world
+    subsets = [(i,) for i in reversed(range(len(names)))]
+    subsets += [c for k in range(2, len(names))
+                for c in itertools.combinations(range(len(names)), k)]
+    for sub in subsets:
+        rest = [i for i in range(len(names)) if i not in sub]
+        groups = np.transpose(grid, rest + list(sub)).reshape(
+            -1, int(np.prod([shape[i] for i in sub])))
+        key = names[sub[0]] if len(sub) == 1 else tuple(names[i]
+                                                         for i in sub)
+        comms[key] = None
+        for ranks in groups:
+            c = _comm([int(r) for r in ranks], transport, device)
+            comms[key] = comms[key] or c
+    world = _comm(list(range(n)), transport, device)
+    coords = tuple(int(x) for x in np.unravel_index(rank, shape))
+    return Mesh(axis_names=tuple(names), shape=tuple(shape), coords=coords,
+                comms=comms, world=world, transport=transport)
+
+
 def make_local_mesh(seq: int = 1, data: int | None = None,
                     device="cuda") -> Mesh:
     """A ``(data, model)`` mesh of ``data × seq`` ranks over the running
@@ -98,16 +141,14 @@ def make_local_mesh(seq: int = 1, data: int | None = None,
     if data * seq != n:
         raise ValueError(f"mesh (data={data}, model={seq}) needs "
                          f"{data * seq} ranks, the world has {n}")
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    transport = cm.transport_of(device) if n > 1 else "local"
-    comms = {"model": None, "data": None}
-    for d in range(data):
-        c = _comm([d * seq + s for s in range(seq)], transport, device)
-        comms["model"] = comms["model"] or c
-    for s in range(seq):
-        c = _comm([d * seq + s for d in range(data)], transport, device)
-        comms["data"] = comms["data"] or c
-    world = _comm(list(range(n)), transport, device)
-    return Mesh(axis_names=("data", "model"), shape=(data, seq),
-                coords=divmod(rank, seq), comms=comms, world=world,
-                transport=transport)
+    return _make_mesh(("data", "model"), (data, seq), device)
+
+
+def make_seq2d_mesh(r: int, u: int, data: int = 1, *, device) -> Mesh:
+    """The factored sequence × head mesh of the 2D plans: ``r·u``
+    sequence-parallel ranks as a (``seq`` = r) × (``head`` = u) grid, head
+    minor (the head all-to-all stays inside a group of neighbours), times
+    ``data``.  Activations shard the sequence over the ``("seq",
+    "head")`` pair; ``parallel.sharding.make_parallel_config`` picks the
+    axes up by name."""
+    return _make_mesh(("data", "seq", "head"), (data, r, u), device)

@@ -56,7 +56,12 @@ holds its (data, seq) shard of tokens, labels and segment ids: its rope
 tables use the shard's global positions, attention runs the
 ``ParallelConfig.schedule`` over the ``model`` axis, and ``loss`` is the
 global token mean (sum and count all-reduced over the ranks holding
-distinct tokens).  :func:`trainable` turns a parameter tree into leaf
+distinct tokens).  On a 2D mesh (``make_seq2d_mesh``) the sequence shards
+over the (seq, head) pair and attention runs the 2D plan (head scatter,
+the schedule over ``seq``); the whole-prompt ``prefill`` and the dense
+``decode`` run over the pair too.  An MLA / MoE model on a mesh with a
+head axis raises (ROADMAP §1 item 8.1), and so does zigzag at u > 1
+(fault 3.6).  :func:`trainable` turns a parameter tree into leaf
 tensors that require gradients.
 
 Long-context serving: :meth:`DecoderLM.prefill` runs the whole prompt on
@@ -90,8 +95,8 @@ import torch
 from repro_torch.core import mask as mk
 from repro_torch.core.attention import chunk_attn, paged_decode_attn
 from repro_torch.core.config import ModelConfig, ParallelConfig
-from repro_torch.core.dist_attention import (DistAttnSpec, dist_attn_bwd,
-                                             dist_attn_fwd,
+from repro_torch.core.dist_attention import (DistAttnSpec, Mesh2DSpec,
+                                             dist_attn_bwd, dist_attn_fwd,
                                              dist_attn_fwd_latent,
                                              dist_decode_attn,
                                              dist_flash_attn,
@@ -102,6 +107,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import (local_experts, moe_apply,
                                     moe_decode_apply)
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.parallel.sharding import seq_group
 from repro_torch.serve.cache import (gather_pool, sharded_latent_attn,
                                      sharded_paged_attn)
 
@@ -132,25 +138,36 @@ def zigzag_layout(cfg: ModelConfig, par: ParallelConfig, P: int) -> bool:
 
 
 def _attn_spec(cfg: ModelConfig, par: ParallelConfig, P: int, impl,
-               document: bool, scale=None) -> DistAttnSpec:
-    """The reference's ``_attn_spec`` for a causal decoder (no 2D mesh);
-    ``scale`` the softmax scale (None: 1/√D; MLA's ``mla_scale``)."""
+               document: bool, scale=None, group=None) -> DistAttnSpec:
+    """The reference's ``_attn_spec`` for a causal decoder over P ranks;
+    ``group`` a 2D mesh's (seq, head) pair of Comms (P = r·u): ring-family
+    plans on the seq sub-axis after the head scatter, a baseline schedule
+    becoming balanced (r > 1) or ring (r == 1).  ``scale`` the softmax
+    scale (None: 1/√D; MLA's ``mla_scale``)."""
     w = int(cfg.attn.window or 0)
     sched = par.schedule
     if sched == "zigzag" and not _zigzag_ok(cfg):
         sched = "balanced"
-    if sched != "auto" and w and sched not in ("balanced", "ring",
-                                               "ulysses"):
-        sched = "balanced"                   # windowed plans truncate
     mask = mk.MaskSpec(causal=True, window=w, document=document)
+    mesh2d = None
+    if isinstance(group, tuple):
+        seq, head = group
+        mesh2d = Mesh2DSpec(r=seq.size, u=head.size, seq_axis=par.seq_axis,
+                            head_axis=par.head_axis)
+        if sched not in ("auto", "ring", "balanced", "zigzag"):
+            sched = "balanced" if mesh2d.r > 1 else "ring"
+    elif sched != "auto" and w and sched not in ("balanced", "ring",
+                                                 "ulysses"):
+        sched = "balanced"                   # windowed plans truncate
     return DistAttnSpec(axis=par.seq_axis, axis_size=P, schedule=sched,
-                        mask=mask, scale=scale, impl=impl)
+                        mask=mask, scale=scale, impl=impl, mesh2d=mesh2d)
 
 
 def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
     """Stages over x = (h, cos, sin, seg): ``seg`` holds the packed
     batch's document ids, or None; ``group`` is the sequence axis's
-    Comm.  MLA runs materialised (``layers.mla_qkv``)."""
+    Comm (a 2D mesh: the (seq, head) pair).  MLA runs materialised
+    (``layers.mla_qkv``)."""
     qkv = L.mla_qkv if cfg.attn.is_mla else L.attn_qkv
 
     def pre(p, x):
@@ -177,14 +194,15 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
                       document: bool = False, P: int = 1, group=None,
                       use_moe: bool = False, all_group=None):
     """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``, its
-    attention over the ``P`` ranks of ``group``.  A layer of an MoE-family
-    model returns ``(h', aux)``: its MoE FFN's load-balance loss
-    (``use_moe``: experts sharded over ``group``, the loss's statistics
-    over ``all_group``), or 0 for a SwiGLU MLP."""
+    attention over the ``P`` ranks of ``group`` (a 2D mesh: the (seq,
+    head) pair of Comms).  A layer of an
+    MoE-family model returns ``(h', aux)``: its MoE FFN's load-balance
+    loss (``use_moe``: experts sharded over ``group``, the loss's
+    statistics over ``all_group``), or 0 for a SwiGLU MLP."""
     experts = group if P > 1 else None
     scale = L.mla_scale(cfg) if cfg.attn.is_mla else None
     pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
-        cfg, _attn_spec(cfg, par, P, impl, document, scale), group)
+        cfg, _attn_spec(cfg, par, P, impl, document, scale, group), group)
 
     def post(p, x, o):
         h2 = L.attn_out(p["attn"], x[0], o, cfg)
@@ -209,12 +227,13 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
 def token_group(mesh, par: ParallelConfig):
     """The ranks holding distinct tokens: the whole world when the batch
     shards over ``data`` (or there is no data axis), else the sequence
-    axis (data replicas then hold the same batch)."""
+    axes — ``seq_axis``, and a 2D mesh's ``head_axis`` — (data replicas
+    then hold the same batch)."""
     if mesh is None:
         return None
     if "data" in par.batch_axes or mesh.size("data") == 1:
         return mesh.world
-    return mesh.comms[par.seq_axis]
+    return seq_group(mesh, par)
 
 
 def layer_params(p) -> list:
@@ -289,9 +308,29 @@ class DecoderLM:
         self.mesh = mesh
         self.latent_ring = bool(latent_ring)
         ax = self.par.seq_axis
-        self.seq_size = 1 if mesh is None else mesh.size(ax)
-        self.seq_rank = 0 if mesh is None else mesh.coord(ax)
-        self.seq_group = None if mesh is None else mesh.comms[ax]
+        # a 2D mesh: the sequence shards over the (seq, head) pair
+        if mesh is not None and self.par.head_axis is not None:
+            if cfg.attn.is_mla or cfg.moe is not None or latent_ring:
+                raise NotImplementedError(
+                    "MLA and MoE models (and the latent ring) on a mesh "
+                    "with a head axis are ROADMAP §1 item 8.1 (deepseek on "
+                    "a 2D mesh)")
+        self.seq_group = seq_group(mesh, self.par)
+        self.seq_size = 1 if mesh is None else self.seq_group.size
+        self.seq_rank = 0 if mesh is None else self.seq_group.rank
+        # the groups the attention runs over: the sequence axis, or a 2D
+        # mesh's (seq, head) pair of Comms when its head axis has u > 1
+        head = (None if mesh is None or self.par.head_axis is None
+                else mesh.comms[self.par.head_axis])
+        self.attn_group = (self.seq_group if head is None or head.size == 1
+                           else (mesh.comms[ax], head))
+        if isinstance(self.attn_group, tuple) and zigzag_layout(
+                cfg, self.par, self.seq_size):
+            raise ValueError(
+                "zigzag on a 2D mesh with u > 1: the reference permutes "
+                "the tokens by zigzag_perm(T, r·u) where its executor "
+                "needs zigzag_perm(T, r), and its loss is off (ROADMAP "
+                "fault 3.6); name balanced or ring")
         self.token_group = token_group(mesh, self.par)
         # the routed experts shard over the sequence axis
         self.expert_group = self.seq_group if self.seq_size > 1 else None
@@ -427,7 +466,7 @@ class DecoderLM:
         layers' sum, plus the MoE layers' sum), or None for a dense-family
         model."""
         kw = dict(document=seg is not None, P=self.seq_size,
-                  group=self.seq_group)
+                  group=self.attn_group)
         if self.cfg.moe is None:
             layer = build_dense_layer(self.cfg, self.par, self.impl, **kw)
             for lp in p["layers"]:
@@ -711,7 +750,7 @@ class DecoderLM:
         h = L.embed(p["embed"], tokens[:, pos_t], self.dtype)
         cos, sin = L.rope_tables(pos_t, self.rope_dim, a.rope_theta)
         spec = _attn_spec(self.cfg, self.par, P, self.impl, False,
-                          self.scale)
+                          self.scale, self.attn_group)
         ks, vs, latents = [], [], []
         ring = (a.is_mla and self.latent_ring
                 and spec.schedule == "zigzag")
@@ -726,7 +765,7 @@ class DecoderLM:
                 ks.append(k)
                 vs.append(v)
             return dist_attn_fwd(q, k, v, spec=spec,
-                                 group=self.seq_group)[0]
+                                 group=self.attn_group)[0]
 
         for lp in layer_params(p):
             h = self._layer(lp, h, functools.partial(attend, lp=lp), cos,

@@ -3,8 +3,9 @@
 
 On the port's process-group mesh (``launch/mesh.py``): the batch shards
 over ``data`` when the global batch divides by its size, and the sequence
-over ``model`` (the paper's P workers); a decode shape that leaves
-``data`` idle shards its KV cache over ``(data, model)``.  An MoE model's
+over ``model`` (the paper's P workers), or over the ``(seq, head)`` pair of
+a 2D mesh (``make_seq2d_mesh``); a decode shape that leaves ``data`` idle
+shards its KV cache over ``data`` too.  An MoE model's
 routed experts (``wg`` / ``wu`` / ``wd`` of each MoE layer) shard over
 ``model``, as the reference's ``moe_apply`` declares them; every other
 parameter is replicated (the reference's FSDP layout is not ported).
@@ -30,8 +31,22 @@ def make_parallel_config(mesh, shape: ShapeSpec,
             batch_axes.append("data")
         elif shape.kind == "decode":
             extra_seq.append("data")
-    return ParallelConfig(batch_axes=tuple(batch_axes), seq_axis="model",
+    # a 2D (seq × head) mesh names its sequence sub-axis "seq" and
+    # exposes "head" for the head scatter; the 1D mesh has "model"
+    return ParallelConfig(batch_axes=tuple(batch_axes),
+                          seq_axis="seq" if "seq" in names else "model",
                           extra_seq_axes=tuple(extra_seq),
                           fsdp_axes=tuple(a for a in ("data",)
                                           if a in names),
-                          schedule=schedule, remat=remat)
+                          schedule=schedule, remat=remat,
+                          head_axis="head" if "head" in names else None)
+
+
+def seq_group(mesh, par: ParallelConfig):
+    """The Comm over the ranks a sequence shards over: ``seq_axis``, and a
+    2D mesh's ``head_axis`` (seq major); its rank is the rank's shard
+    index.  None without a mesh."""
+    if mesh is None:
+        return None
+    return mesh.comm((par.seq_axis,) + ((par.head_axis,) if par.head_axis
+                                        else ()))

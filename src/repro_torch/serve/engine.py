@@ -126,6 +126,11 @@ class Engine:
                  spec: Optional[SpecConfig] = None,
                  draft: Optional[DraftSource] = None):
         cfg = model.cfg
+        if model.par.head_axis is not None:
+            raise NotImplementedError(
+                "the paged Engine on a mesh with a head axis is ROADMAP §1 "
+                "item 8.2 (the paged Engine on a 2D mesh); serve it "
+                "through FixedSlotEngine, or on a (data, model) mesh")
         if (cfg.moe is not None and prefill_chunk_tokens
                 and prefill_chunk_tokens % max(model.seq_size, 1)):
             # a chunk's MoE rows split over the sequence ranks
@@ -673,9 +678,10 @@ class FixedSlotEngine:
     (``model.pad_cache``), so the ring buffer never wraps.
 
     On a mesh every rank calls :meth:`generate` with the same batch; the
-    prefill runs across the ``model`` ranks under ``par.schedule`` and each
-    decode step reduces over the cache's shards, so every rank returns the
-    same tokens.  An MLA / MoE model keeps the latent rows ``{"ckv"}`` as
+    prefill runs across the sequence ranks under ``par.schedule`` (on a 2D
+    mesh the 2D plan over the (seq, head) pair) and each decode step
+    reduces over the cache's shards (``par.seq_axes``), so every rank
+    returns the same tokens.  An MLA / MoE model keeps the latent rows ``{"ckv"}`` as
     its cache; across ranks its routed experts shard over the ``model``
     ranks (the prefill dispatches over them, each decode step sums their
     outputs)."""

@@ -8,7 +8,8 @@ On a process-group mesh each rank holds its shard of the batch and a
 replica of the parameters, except an MoE model's routed experts, whose
 rows shard over the sequence axis (``DecoderLM.expert_group``).  After
 autograd, the replicated leaves' gradients are summed over the ranks
-holding distinct tokens (``models.transformer.token_group``) and the
+holding distinct tokens (``models.transformer.token_group``: on a 2D mesh the (seq, head)
+pair, times ``data`` where the batch shards over it) and the
 expert shards' over the ranks holding the same experts and distinct
 tokens (``DecoderLM.expert_grad_group``: the data axis when the batch
 shards over it), so every rank holds the gradient of the global loss for
