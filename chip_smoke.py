@@ -73,6 +73,14 @@ Phases, each fatal on failure (nothing is caught):
                 held to their plain versions at phase 3's bars (the
                 backward's must reject the control without the last key
                 tile).
+  3d. comm    — the ``cuda-ipc`` transport on 4 ranks sharing the card
+                against ``gloo-staged`` on the same seeded inputs: shifts,
+                all_to_all, all_gather, broadcast_ and max bitwise, sums
+                bitwise equal on every rank and within float32 rounding of
+                the float64 sum, messages past the mailbox's slot whole; a
+                planted fault (reads of the next peer's mailbox) must break
+                every transfer; each transport timed at phase 18's 64 MiB
+                all_to_all and shift and phase 16's decode all-reduce.
   4. serve    — llama-7b at full width and depth (32 layers, d_model 4096,
                 32 heads × 128, bf16, seeded random weights made on the
                 card) through the paged engine: 4 prompts of 1000, 700, 513
@@ -131,8 +139,8 @@ Phases, each fatal on failure (nothing is caught):
                 of the leaf's max |g|, and the same limit rejects a plain
                 backward whose causal mask is shifted by one position.
   7. ranks    — the multi-rank path: a gloo world of 4 processes sharing
-                the card (transport "gloo-staged": every transfer staged
-                through pinned host buffers), llama-7b's width (d_model
+                the card (transport "cuda-ipc": every transfer device to
+                device through CUDA IPC mailboxes), llama-7b's width (d_model
                 4096, 32 × 128 heads, d_ff 11008, vocab 32000, bf16) at
                 depth 2 on one global sequence of 32768 tokens (8192 a
                 rank), remat_aware: 2 balanced steps, 1 ring, 1 zigzag.
@@ -151,7 +159,7 @@ Phases, each fatal on failure (nothing is caught):
                 failure, or the world still running after 600 s, is
                 fatal.
   8. long     — long-context serving across sequence ranks: a gloo world
-                of 4 processes sharing the card (``gloo-staged``),
+                of 4 processes sharing the card (``cuda-ipc``),
                 llama-7b's width (d_model 4096, 32 × 128 heads, d_ff 11008,
                 vocab 32000, bf16, seed-0 weights) at depth 4, one prompt
                 of 65536 tokens (16384 a rank): ``FixedSlotEngine`` with a
@@ -188,7 +196,7 @@ Phases, each fatal on failure (nothing is caught):
                 at near-ties.  Prefill and decode tokens/s, launches of A
                 and B, peak memory per model.
   11. mesh    — the paged engine across a gloo world of 4 processes sharing
-                the card (``gloo-staged``), each rank running the same
+                the card (``cuda-ipc``), each rank running the same
                 engine in lockstep over a sharded pool: (a) qwen3-8b's
                 width at depth 8 (8 kv heads: head-parallel), (b)
                 smollm-360m at full size (5 kv heads: block-sharded), with
@@ -286,7 +294,7 @@ Phases, each fatal on failure (nothing is caught):
 
   15. moe-ranks — (after phase 5: torch.profiler, which phase 5 reads, has
                 seen no device kernel in a process that ran phases 15 and
-                16 first) deepseek-v2-lite-16b trained across 4 ``gloo-staged``
+                16 first) deepseek-v2-lite-16b trained across 4 ``cuda-ipc``
                 ranks sharing the card, its 64 routed experts 16 a rank
                 (the dispatch's two all_to_alls, the aux loss's sums over
                 the ranks): full width cut to 3 of 27 layers (the dense
@@ -305,7 +313,7 @@ Phases, each fatal on failure (nothing is caught):
                 rotated by one rank, the aux without its cross-rank mean,
                 expert gradients also summed over the sequence ranks.
   16. moe-serve — deepseek-v2-lite-16b at full size (nothing cut) across
-                4 ``gloo-staged`` ranks through ``FixedSlotEngine``: one
+                4 ``cuda-ipc`` ranks through ``FixedSlotEngine``: one
                 16,384-token prompt, a balanced whole-prompt prefill (A's
                 pair route under the plan's steps, the MoE dispatched over
                 the ranks), 32 greedy tokens over the sharded latent cache
@@ -331,7 +339,7 @@ Phases, each fatal on failure (nothing is caught):
   17. moe-paged — deepseek-v2-lite-16b at full width, cut to 9 of 27
                 layers (the dense layer 0 and 8 MoE layers: at full depth
                 the phase took 152 s on an H100 80GB HBM3 at 700 W; seed
-                17), across 4 ``gloo-staged``
+                17), across 4 ``cuda-ipc``
                 ranks through phase 4's paged ``Engine``, its latent pool
                 block-sharded (48 of the 192
                 blocks a rank): phase 11's requests (request 3 shares
@@ -353,7 +361,7 @@ Phases, each fatal on failure (nothing is caught):
                 decode without the experts' sum, the pool gather rotated
                 by one rank.  Decode ms a step, the decode's host seconds
                 in pool gathers and in the MoE sums.
-  18. seq2d   — the 2D sequence × head plans on 4 ``gloo-staged`` ranks
+  18. seq2d   — the 2D sequence × head plans on 4 ``cuda-ipc`` ranks
                 (run right after phase 8): (a) phase 7's model and batch
                 (llama-7b width, depth 2, T 32768, bf16, remat_aware) on
                 ``make_seq2d_mesh(2, 2)`` under balanced and on (1, 4)
@@ -375,6 +383,34 @@ Phases, each fatal on failure (nothing is caught):
                 same world's ``make_local_mesh(seq=4)``, teacher-forced:
                 logits within phase 8's limit at every step, tokens equal
                 at every step.
+  19. moe2d   — deepseek-v2-lite-16b on a 2D (seq = 2) × (head = 2) mesh
+                of 4 ``cuda-ipc`` ranks (after phase 17): the routed
+                experts 32 a rank over seq, each head rank gathering its
+                seq shard's 4,096 MoE rows over head (capacity 480), the
+                aux statistics over seq, MLA through A / C / D's pair
+                routes under the head scatter.  (a) 2 of 27 layers (the
+                dense layer 0 and one MoE layer: a third adds 277 M expert
+                parameters a rank with their moments), 8,192 tokens a
+                step, 2 balanced steps, seed 19, held to one process that
+                the ranks replay (its expert choices; its kept pairs are
+                the seq shards'): step 1's loss and aux within 2^-8, every
+                gradient leaf and the aux loss's router gradients alone
+                within 5% of their max |g|, step 1's gnorm and step 2's
+                loss within 2^-8; rejected faults: expert gradients summed
+                over head not at all and twice, the aux statistics reduced
+                over head too, the head scatter rotated; A / C / D launches
+                a step equal the inner plan's ``rank_calls`` × layers.
+                (b) 9 of 27 layers through ``FixedSlotEngine``: one
+                8,192-token prompt, a balanced 2D prefill, the latent cache
+                over the (seq, head) pair, 8 greedy tokens; tokens equal on
+                every rank, every step's logits within 5% of max |logit|
+                of one process replaying the ranks' expert choices and
+                kept pairs, teacher-forced; rejected controls: the decode
+                MoE without its sum over seq, each head rank dispatching
+                only its own 2,048 rows.  (c) the latent ring on (2, 2)
+                raises (ROADMAP fault 3.7), printed.
+Every phase prints its seconds, and every multi-rank phase its ranks'
+host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero with no result when
 there is no CUDA device or the port is not beside this file.
@@ -415,6 +451,7 @@ from repro_torch.models import layers as LY  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.transformer import DecoderLM, trainable  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.comm import MAILBOX_CAP  # noqa: E402
 from repro_torch.parallel.sharding import make_parallel_config  # noqa: E402
 from repro_torch.serve.cache import (  # noqa: E402
     PagedKVCache, sharded_paged_decode_attn)
@@ -1158,6 +1195,196 @@ def pair_bwd_checks():
     say(f"  C/D {'pairs outside the table':<30} both      192/64, 160/128, "
         "128/192, 576/512 raise before a launch")
     return errs
+
+
+# ---------------------------------------------------------------- phase 3d
+
+P3D_RANKS = 4
+P3D_TIMEOUT = 300
+P3D_REPS = 20
+# the sizes timed: phase 18's head all_to_all (64 MiB a rank: llama-7b's
+# q of 8,192 tokens, 32 heads × 128, bf16) and phase 16's decode
+# all-reduce (the flash-decoding numerator and denominator of one token,
+# 16 heads over the 512-column latent, float32)
+P3D_A2A = (1, 8192, 32, 128)
+P3D_REDUCE = ((1, 16, 1, 512), (1, 16, 1))
+
+
+def _p3d_inputs(rank):
+    """This rank's seeded tensors: small ones of several dtypes and shapes,
+    and ones past the mailbox cap."""
+    from repro_torch.parallel.comm import MAILBOX_CAP
+    gen = torch.Generator(device=DEV).manual_seed(300 + rank)
+
+    def r(shape, dtype):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    big = MAILBOX_CAP // 2 + 4096           # bf16 elements: past one slot
+    return dict(small=[r((4, 1000, 7), torch.bfloat16), r((5,), torch.float32),
+                       r((8, 33), torch.float32)],
+                big=r((big,), torch.bfloat16),
+                a2a=r((P3D_RANKS * 3, 513, 2), torch.bfloat16),
+                a2a_big=r((P3D_RANKS, MAILBOX_CAP // 2 // P3D_RANKS * 3
+                           + 100), torch.bfloat16),
+                red=[r((1000, 37), torch.float32), r((64, 129), torch.bfloat16),
+                     r((3,), torch.float32)],
+                red_big=r((MAILBOX_CAP // 4 + 1000,), torch.float32))
+
+
+def _p3d_run(comm, x):
+    """Every collective of ``comm`` on this rank's inputs ``x``: results on
+    the host."""
+    out = {}
+    for h in (1, -1, 2):
+        out[f"shift{h}"] = [t.cpu() for t in comm.shift(x["small"], h).wait()]
+    out["shift_big"] = comm.shift([x["big"], x["small"][0]], 1).wait()[0].cpu()
+    out["a2a"] = comm.all_to_all(x["a2a"], 0, 1).cpu()
+    out["a2a_big"] = comm.all_to_all(x["a2a_big"], 0, 1).cpu()
+    out["gather"] = comm.all_gather(x["small"][2], 1).cpu()
+    out["gather_big"] = comm.all_gather(x["big"], 0).cpu()
+    out["bcast"] = [t.cpu() for t in comm.broadcast_(
+        [t.clone() for t in x["small"]], 2)]
+    out["sum"] = [t.cpu() for t in comm.all_reduce_(
+        [t.clone() for t in x["red"]])]
+    out["max"] = [t.cpu() for t in comm.all_reduce_(
+        [t.clone() for t in x["red"]], op="max")]
+    out["sum_big"] = comm.all_reduce_([x["red_big"].clone()])[0].cpu()
+    torch.cuda.synchronize()
+    return out
+
+
+def _p3d_time(comm, fn, reps=P3D_REPS):
+    fn()
+    torch.cuda.synchronize()
+    comm.group and torch.distributed.barrier(group=comm.group)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+@contextlib.contextmanager
+def _wrong_peer():
+    """Planted transport fault: every read of a peer's mailbox reads the
+    next peer's."""
+    from repro_torch.parallel import comm as cm
+    base = cm.Comm._peer_slot
+
+    def wrong(self, box, i, s):
+        return base(self, box, (i + 1) % self.size, s)
+    cm.Comm._peer_slot = wrong
+    try:
+        yield
+    finally:
+        cm.Comm._peer_slot = base
+
+
+def _p3d_rank(rank):
+    """One rank of phase 3d's world: every collective under cuda-ipc and
+    gloo-staged on the same inputs, the inputs all-gathered (for the
+    float64 sums), cuda-ipc again under the planted fault, and times."""
+    ipc = make_local_mesh(seq=P3D_RANKS, device=DEV).comms["model"]
+    stg = make_local_mesh(seq=P3D_RANKS, device=DEV,
+                          transport="gloo-staged").comms["model"]
+    x = _p3d_inputs(rank)
+    out = {"rank": rank, "transports": (ipc.transport, stg.transport)}
+    out["ipc"] = _p3d_run(ipc, x)
+    out["staged"] = _p3d_run(stg, x)
+    out["inputs"] = dict(red=[stg.all_gather(t[None], 0).cpu()
+                              for t in x["red"]],
+                         red_big=stg.all_gather(x["red_big"][None], 0).cpu())
+    with _wrong_peer():
+        out["fault"] = _p3d_run(ipc, x)
+    a2a = torch.randn(P3D_A2A, generator=torch.Generator(device=DEV)
+                      .manual_seed(rank), device=DEV).to(torch.bfloat16)
+    red = [torch.rand(s, device=DEV) for s in P3D_REDUCE]
+    out["ms"] = {}
+    for name, c in (("cuda-ipc", ipc), ("gloo-staged", stg)):
+        out["ms"][name] = dict(
+            a2a=_p3d_time(c, lambda: c.all_to_all(a2a, 2, 1)),
+            reduce=_p3d_time(c, lambda: c.all_reduce_(red)),
+            shift=_p3d_time(c, lambda: c.shift([a2a], 1).wait()))
+    return out
+
+
+def _bitwise(a, b):
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_bitwise(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(-1).view(torch.uint8) if a.dtype != torch.bool else a,
+        b.view(-1).view(torch.uint8) if b.dtype != torch.bool else b)
+
+
+def _p3d_sum_err(got, parts):
+    """max |got − Σ parts (float64)| over the float32 rounding bound
+    P · 2^-24 · Σ|parts| (+ one rounding of got's own dtype)."""
+    exact = parts.double().sum(0)
+    ulp = 2.0 ** -8 if got.dtype == torch.bfloat16 else 2.0 ** -24
+    bound = (parts.shape[0] * 2.0 ** -24 * parts.double().abs().sum(0)
+             + ulp * exact.abs() + 1e-30)
+    return float(((got.double() - exact).abs() / bound).max())
+
+
+def transport_checks():
+    """Phase 3d: the cuda-ipc transport on 4 ranks sharing the card against
+    gloo-staged, on the same seeded inputs: shifts (hops 1, -1, 2),
+    all_to_all, all_gather and broadcast_ bitwise; all_reduce_ (sum and
+    max) bitwise equal across the ranks and each sum within its float32
+    rounding bound of the float64 sum of the ranks' inputs; messages past
+    the mailbox cap (a shift, an all_to_all, an all_gather and an
+    all-reduce) arrive whole.  A planted fault (every read of a peer's
+    mailbox reads the next peer's) must break the bitwise checks.  Times
+    each transport at phase 18's 64 MiB all_to_all and shift and phase
+    16's decode all-reduce."""
+    t0 = time.perf_counter()
+    res = spawn(_p3d_rank, P3D_RANKS, (), device=DEV, timeout=P3D_TIMEOUT)
+    check(all(r["transports"] == ("cuda-ipc", "gloo-staged") for r in res),
+          f"transports {[r['transports'] for r in res]}")
+    copies = [k for k in res[0]["ipc"] if k not in ("sum", "max",
+                                                     "sum_big")]
+    for r in res:
+        for k in copies:
+            check(_bitwise(r["ipc"][k], r["staged"][k]),
+                  f"rank {r['rank']}: cuda-ipc's {k} is not gloo-staged's")
+        for k in ("sum", "max", "sum_big"):
+            check(_bitwise(r["ipc"][k], res[0]["ipc"][k]),
+                  f"rank {r['rank']}: cuda-ipc's {k} differs from rank 0's")
+        check(_bitwise(r["ipc"]["max"], r["staged"]["max"]),
+              f"rank {r['rank']}: cuda-ipc's max is not gloo-staged's")
+    ins = res[0]["inputs"]
+    errs = [_p3d_sum_err(g, p) for g, p in zip(res[0]["ipc"]["sum"],
+                                               ins["red"])]
+    errs.append(_p3d_sum_err(res[0]["ipc"]["sum_big"], ins["red_big"]))
+    staged = [_p3d_sum_err(g, p) for g, p in zip(res[0]["staged"]["sum"],
+                                                 ins["red"])]
+    check(max(errs) <= 1.0, f"cuda-ipc sums off their float64 sums by "
+          f"{max(errs):.3f} of the rounding bound")
+    diff = sum(not _bitwise(r["ipc"][k], r["staged"][k]) for r in res
+               for k in ("sum", "sum_big"))
+    caught = [k for k in copies
+              if any(not _bitwise(r["fault"][k], r["staged"][k])
+                     for r in res)]
+    check(set(caught) == set(copies),
+          f"the wrong-peer fault passes {sorted(set(copies) - set(caught))}")
+    say(f"  cuda-ipc: {len(copies)} transfers bitwise gloo-staged's on 4 "
+        f"ranks (shifts, all_to_all, all_gather, broadcast_, max; past the "
+        f"{MAILBOX_CAP >> 20} MiB slot too); sums equal on every rank, "
+        f"within {max(errs):.3f} of their float32 rounding bound "
+        f"(gloo-staged {max(staged):.3f}); {diff} of 8 sum results differ "
+        f"from gloo-staged's bitwise; the wrong-peer fault breaks "
+        f"{len(caught)} of {len(copies)}")
+    for name in ("cuda-ipc", "gloo-staged"):
+        ms = {k: max(r["ms"][name][k] for r in res)
+              for k in res[0]["ms"][name]}
+        say(f"  {name}: all_to_all of {_mib(P3D_A2A)} MiB {ms['a2a']:.3f} "
+            f"ms, shift of it {ms['shift']:.3f} ms, decode all-reduce "
+            f"{ms['reduce']:.3f} ms (slowest rank, mean of {P3D_REPS})")
+    say(f"  phase 3d took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def _mib(shape, nbytes=2):
+    return int(np.prod(shape)) * nbytes / 2 ** 20
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1988,7 +2215,7 @@ P7_RANKS, P7_LAYERS, P7_T = 4, 2, 32768
 # phases 15 and 16 joined it
 P7_RUNS = (("balanced", 2), ("ring", 1), ("zigzag", 1))
 P7_TIMEOUT = 600
-P7_TRANSPORT = "gloo-staged"       # four ranks, one card
+P7_TRANSPORT = "cuda-ipc"          # four ranks, one card
 # P = 4 against P = 1 on the same weights and first batch (bf16, width,
 # depth 2): the mean |Δ| of the per-token losses and |Δ| of the loss.
 # Calibrated on the first chip run: sound 5.03e-3 and 4.77e-5; the
@@ -2172,7 +2399,18 @@ def _p7_rank(rank, ref_path):
                 t.copy_(v)
         out["control_steps"][fault] = (m["gnorm"], l2)
         del opt
-    del saved
+    # the same step under gloo-staged (printed beside the gated reading:
+    # the transports sum the gradients in different orders)
+    stg = make_local_mesh(seq=P7_RANKS, device=DEV, transport="gloo-staged")
+    st_bal = DecoderLM(cfg, DEV, mesh=stg, par=bal.par)
+    opt = adamw.init(params)
+    m = make_train_step(st_bal, tc)(params, opt, b0)
+    with torch.no_grad():
+        l2 = float(st_bal.loss(params, data["balanced"].batch(1))[0])
+        for t, v in zip(leaves(params), saved):
+            t.copy_(v)
+    out["staged_step"] = (m["gnorm"], l2)
+    del saved, opt, st_bal
     _free()
     comms = list({id(c): c for m in models.values()
                   for c in (m.seq_group, m.token_group)}.values())
@@ -2201,6 +2439,7 @@ def _p7_rank(rank, ref_path):
             i += 1
     out["steps"] = steps
     out["peak"] = torch.cuda.max_memory_allocated()
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -2248,6 +2487,7 @@ def multi_rank():
         # phase 18 holds its 2D runs to the same P = 1 run
         p1 = dict(ce=ce1, gnorm=s1["gnorm"], grads=torch.load(ref_path))
     res.sort(key=lambda r: r["rank"])
+    _say_comm(7, res)
     check(all(r["transport"] == P7_TRANSPORT for r in res),
           f"transport {[r['transport'] for r in res]}")
     ce4 = torch.cat([r["ce"] for r in res], dim=1)
@@ -2265,6 +2505,8 @@ def multi_rank():
     ctl_steps = {f: (abs(gn - s1["gnorm"]) / s1["gnorm"],
                      abs(l2 - s2["loss"]))
                  for f, (gn, l2) in res[0]["control_steps"].items()}
+    gn_st, l2_st = res[0]["staged_step"]
+    staged = (abs(gn_st - s1["gnorm"]) / s1["gnorm"], abs(l2_st - s2["loss"]))
     say(f"  P = 4 (balanced) vs P = 1: |Δloss| {d_loss:.3e} (limit "
         f"{P7_LOSS_TOL}), mean |Δce| a token {d_tok:.3e} (limit "
         f"{P7_CE_TOL}), max {float((ce4 - ce1).abs().max()):.3e}; control "
@@ -2278,6 +2520,9 @@ def multi_rank():
         f"{st4[1]['loss']:.6f} vs {s2['loss']:.6f}: |Δ| {d_loss2:.3e} "
         f"(limit {P7_LOSS2_TOL}); controls: " + ", ".join(
             f"{f} {gn:.3e} / {l2:.3e}" for f, (gn, l2) in ctl_steps.items()))
+    say(f"  the same readings with step 1's gradients summed by "
+        f"gloo-staged instead of {P7_TRANSPORT} (printed, not gated): gnorm "
+        f"relative |Δ| {staged[0]:.3e}, step 2 loss |Δ| {staged[1]:.3e}")
     check(d_tok <= P7_CE_TOL and d_loss <= P7_LOSS_TOL
           and step1 <= P7_LOSS_TOL,
           f"P = 4 vs P = 1: per-token {d_tok}, loss {d_loss}, first step's "
@@ -2331,7 +2576,7 @@ def multi_rank():
     say(f"  world of {P7_RANKS} ranks: {wall:.1f} s, spawn included")
     return dict(launches=launches, d_tok=d_tok, d_ctl=d_ctl, d_loss=d_loss,
                 d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
-                d_loss2=d_loss2, p1=p1)
+                d_loss2=d_loss2, staged=staged, p1=p1)
 
 
 # ----------------------------------------------------------------- phase 8
@@ -2341,7 +2586,7 @@ P8_SCHED = "balanced"
 P8_CTL_GEN = 8          # decode steps of each planted-fault run
 P8_WARM_T = 4096        # the warm-up prompt
 P8_TIMEOUT = 900
-P8_TRANSPORT = "gloo-staged"       # four ranks, one card
+P8_TRANSPORT = "cuda-ipc"          # four ranks, one card
 # Teacher-forced decode logits against the P = 1 dense path and the paged
 # Engine: at every step max |Δ| ≤ P8_LOGIT_TOL × max |logit| of the
 # reference step, phase 4's limit.  The planted faults (one rank's shard
@@ -2484,6 +2729,7 @@ def _p8_rank(rank):
     del eng, params
     _free()
     out["pool"] = _p8_pool(mesh)
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -2543,6 +2789,7 @@ def long_serve():
                 threads=2)
     wall = time.perf_counter() - t0
     res.sort(key=lambda r: r["rank"])
+    _say_comm(8, res)
     check(all(r["transport"] == P8_TRANSPORT for r in res),
           f"transport {[r['transport'] for r in res]}")
     check(all(r["seq_axes"] == ("model",) and r["shards"] == P8_RANKS
@@ -3356,6 +3603,7 @@ def _p11_rank(rank):
             gather_s=gather_s, peak=peak)
         del model, params, r, bad
         _free()
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -3369,6 +3617,7 @@ def mesh_engine():
                 threads=2)
     wall = time.perf_counter() - t0
     res.sort(key=lambda r: r["rank"])
+    _say_comm(11, res)
     check(all(r["transport"] == P8_TRANSPORT for r in res),
           f"transport {[r['transport'] for r in res]}")
     launches = {}
@@ -4199,6 +4448,27 @@ def _comm_seconds(comms):
                 reduce=sum(c.reduce_s + c.gather_s for c in comms))
 
 
+def _process_comm_seconds():
+    """Host seconds every Comm of this process spent blocked, summed
+    (:func:`_comm_seconds`); the gloo-staged Comms of phases 7 and 15's
+    printed readings left out."""
+    import gc
+    from repro_torch.parallel.comm import Comm
+    return _comm_seconds([o for o in gc.get_objects()
+                          if type(o) is Comm
+                          and o.transport != "gloo-staged"])
+
+
+def _say_comm(phase, res):
+    """Print a world's host seconds in collectives, rank by rank."""
+    say(f"  phase {phase} host seconds in collectives over the world's run "
+        f"({res[0]['transport']}), per rank shifts / all_to_alls / "
+        "all-reduces, broadcasts and gathers: " + ", ".join(
+            "/".join(f"{r['comm_s'][k]:.3f}" for k in ("shift", "a2a",
+                                                       "reduce"))
+            for r in res))
+
+
 P15_ARCH, P15_SEED, P15_RANKS = "deepseek-v2-lite-16b", 15, 4
 # the dense layer 0 and 2 MoE layers: with a third MoE layer each rank
 # reserved 17.67 GiB (15.61 allocated), 70.7 GiB of the card for the four,
@@ -4224,21 +4494,25 @@ def _p15_tc():
                        total_steps=sum(n for _, n in P15_RUNS))
 
 
-def _p15_one(cfg, shape, tmp):
+def _p15_one(cfg, shape, tmp, split=P15_RANKS, cap=P15_CAP, seed=P15_SEED,
+             tc=None, aux_router=False):
     """P = 1 on this process under remat_aware, its MoE dispatches keeping
-    the pairs the 4 ranks keep of their own rows (``_Keep(split=4)``):
-    step 1's loss, ce, aux and gradients (saved on the host: the
-    replicated leaves at ``tmp/grads1.pt``, rank r's rows of the routed
-    experts' at ``tmp/grads1_r{r}.pt``), then two train steps from the
-    same weights (step 1's gradient norm, step 2's loss).  Its expert
-    choices, call by call, are saved at ``tmp/calls.pt`` for the ranks to
-    replay."""
+    the pairs the ranks keep of their own rows (``_Keep(split=split)``:
+    ``split`` expert shards, each dispatching one block of the rows at
+    ``cap`` slots an expert): step 1's loss, ce, aux and gradients (saved
+    on the host: the replicated leaves at ``tmp/grads1.pt``, shard r's
+    rows of the routed experts' at ``tmp/grads1_r{r}.pt``), then two train
+    steps from the same weights (step 1's gradient norm, step 2's loss).
+    Its expert choices, call by call, are saved at ``tmp/calls.pt`` for
+    the ranks to replay.  ``aux_router``: between the two, another forward
+    whose aux loss alone is differentiated for the MoE routers
+    (:func:`_aux_router`, saved at ``tmp/aux_router.pt``)."""
     one = DecoderLM(cfg, DEV)
-    params = trainable(one.init(seed=P15_SEED))
+    params = trainable(one.init(seed=seed))
     ds = SyntheticTokens(cfg, shape, device=DEV, seed=0)
     b0 = ds.batch(0)
     torch.cuda.reset_peak_memory_stats()
-    rk, kp = _Router(), _Keep(split=P15_RANKS, cap=P15_CAP)
+    rk, kp = _Router(), _Keep(split=split, cap=cap)
     with rk, kp:
         loss, met = one.loss(params, b0)
         gs = torch.autograd.grad(loss, leaves(params))
@@ -4246,13 +4520,16 @@ def _p15_one(cfg, shape, tmp):
         sharded = TF.expert_mask(params)
         torch.save([None if s else g.cpu() for g, s in zip(gs, sharded)],
                    os.path.join(tmp, "grads1.pt"))
-        e = cfg.moe.n_routed // P15_RANKS
-        for r in range(P15_RANKS):
+        e = cfg.moe.n_routed // split
+        for r in range(split):
             torch.save([g[r * e:(r + 1) * e].cpu() if s else None
                         for g, s in zip(gs, sharded)],
                        os.path.join(tmp, f"grads1_r{r}.pt"))
         del gs, loss, met
-        step = make_train_step(one, _p15_tc())
+        if aux_router:
+            torch.save([g.cpu() for g in _aux_router(one, params, b0)],
+                       os.path.join(tmp, "aux_router.pt"))
+        step = make_train_step(one, tc or _p15_tc())
         opt = adamw.init(params)
         s1 = step(params, opt, b0)
         s2 = step(params, opt, ds.batch(1))
@@ -4264,6 +4541,22 @@ def _p15_one(cfg, shape, tmp):
     del one, params, opt, step
     _free()
     return first, s1, s2, peak, names
+
+
+def _aux_router(model, params, batch, calls=None):
+    """The gradient of the aux loss alone for every MoE layer's router (its
+    own term of the router's gradient, which reducing the aux statistics
+    over the wrong ranks scales), summed over the ranks holding distinct
+    tokens; ``calls`` replays expert choices."""
+    with (_Router(calls=calls) if calls is not None
+          else contextlib.nullcontext()):
+        _, met = model.loss(params, batch)
+        ga = list(torch.autograd.grad(met["aux"], [
+            lp["moe"]["router"] for lp in params["moe_layers"]]))
+    tg = getattr(model, "token_group", None)
+    if tg is not None and tg.size > 1:
+        tg.all_reduce_(ga)
+    return ga
 
 
 def _p15_grads(model, params, batch, calls):
@@ -4351,7 +4644,19 @@ def _p15_rank(rank, tmp):
     out["faults"]["grads"] = dict(first=first, grad_err=_p15_grad_err(
         bal, grads, sharded, ref, names), gnorm=float(adamw.global_norm(
             grads, sharded, bal.expert_group)))
-    del grads, raw
+    del grads
+    # the gradient norms again with the sums made by gloo-staged (printed
+    # beside the gated readings: another summation order)
+    stg = make_local_mesh(seq=P15_RANKS, device=DEV, transport="gloo-staged")
+    st_bal = DecoderLM(cfg, DEV, mesh=stg, par=bal.par)
+    out["staged_gnorm"] = []
+    for fault in (None, "grads"):
+        with (_moe_fault(fault) if fault else contextlib.nullcontext()):
+            grads, sharded = _p15_summed(st_bal, params, raw)
+        out["staged_gnorm"].append(float(adamw.global_norm(
+            grads, sharded, st_bal.expert_group)))
+        del grads
+    del raw, st_bal
     for fault in ("rotate", "aux"):
         with _moe_fault(fault):
             f, raw, _ = _p15_grads(bal, params, b0, calls[:2 * n_moe])
@@ -4394,6 +4699,7 @@ def _p15_rank(rank, tmp):
     out["steps"] = steps
     out["peak"] = torch.cuda.max_memory_allocated()
     out["peak_reserved"] = torch.cuda.max_memory_reserved()
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -4438,6 +4744,7 @@ def train_moe_ranks():
                     timeout=P15_TIMEOUT, threads=2)
         wall = time.perf_counter() - t0
     res.sort(key=lambda r: r["rank"])
+    _say_comm(15, res)
     r0 = res[0]
     check(all(r["transport"] == P8_TRANSPORT for r in res),
           f"transport {[r['transport'] for r in res]}")
@@ -4474,11 +4781,15 @@ def train_moe_ranks():
                            for r in res),
                    grad=x["grad_err"][0]) for f, x in fl.items()}
     d_gn_ctl = rel(fl["grads"]["gnorm"], s1["gnorm"])
+    st_gn = [rel(g, s1["gnorm"]) for g in r0["staged_gnorm"]]
     say("  controls (step 1, relative |Δloss| / worst rank's |Δaux| / worst "
         "leaf |Δg|; ranks agree): " + "; ".join(
             f"{f} {c['loss']:.3e} / {c['aux']:.3e} / {c['grad']:.4f}; "
             f"{agree[f]}" for f, c in ctl.items())
         + f"; gradient fault's gnorm relative |Δ| {d_gn_ctl:.3e}")
+    say(f"  step 1's gnorm from the sums of gloo-staged instead of "
+        f"{P8_TRANSPORT} (printed, not gated): relative |Δ| {st_gn[0]:.3e}, "
+        f"the gradient fault's {st_gn[1]:.3e} (limit {P15_TOL:.3e})")
     check(ctl["rotate"]["grad"] > GRAD_REL_TOL, "the gradient limit does "
           f"not reject the rotated return all_to_all ({ctl['rotate']})")
     check(ctl["aux"]["aux"] > P15_TOL or not agree["aux"], "neither the aux "
@@ -4521,6 +4832,7 @@ def train_moe_ranks():
     say(f"  world of {P15_RANKS} ranks: {wall:.1f} s, spawn included")
     out = dict(launches=launches, d_loss=d_loss, d_aux=d_aux, grad_err=err,
                d_gnorm=d_gn, d_loss2=d_l2, controls=ctl, d_gnorm_ctl=d_gn_ctl,
+               staged_gnorm=st_gn,
                peaks=[r["peak"] for r in res], peak1=peak1,
                step_s=[max(r["steps"][i]["sec"] for r in res)
                        for i in range(len(st))],
@@ -4741,6 +5053,7 @@ def _p16_rank(rank, tmp):
     _free()
     out["ring"] = _p16_ring(mesh, model, params, prompt, kept.pop("ckv"),
                             rk, kp)
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -4766,6 +5079,7 @@ def serve_moe_ranks():
                     timeout=P16_TIMEOUT, threads=2)
         wall = time.perf_counter() - t0
         res.sort(key=lambda r: r["rank"])
+        _say_comm(16, res)
         recs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
                 for r in range(P16_RANKS)]
     r0 = res[0]
@@ -5095,6 +5409,7 @@ def _p17_rank(rank, tmp):
                                       rows=_host_rows(bad["rec"]))
                                  if out["rank"] == 0 else None)
         del bad
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -5120,6 +5435,7 @@ def serve_moe_paged():
                     threads=2)
         world = time.perf_counter() - t0
         res.sort(key=lambda r: r["rank"])
+        _say_comm(17, res)
         recs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
                 for r in range(P)]
     zero = res[0]
@@ -5241,7 +5557,7 @@ P18_RANKS = 4
 # both scatter mode (llama-7b's 32 kv heads divide u)
 P18_TRAIN = (((2, 2), "balanced"), ((1, 4), "ring"))
 P18_TIMEOUT = 600
-P18_TRANSPORT = "gloo-staged"      # four ranks, one card
+P18_TRANSPORT = "cuda-ipc"         # four ranks, one card
 P18_SEED = 18
 P18_REP_HEADS = (32, 1)            # replicate mode: 1 kv head, 1 % 2 != 0
 P18_SERVE_T, P18_GEN = 16384, 8    # (c): one prompt, greedy tokens
@@ -5490,6 +5806,7 @@ def _p18_rank(rank, ref_path):
     del ref
     out["replicate"] = _p18_replicate(rank, meshes[(2, 2)])
     out["serve"] = _p18_serve(rank, meshes[(2, 2)])
+    out["comm_s"] = _process_comm_seconds()
     return out
 
 
@@ -5656,6 +5973,7 @@ def seq2d(p1):
                     timeout=P18_TIMEOUT, threads=2)
         wall = time.perf_counter() - t0
     res.sort(key=lambda r: r["rank"])
+    _say_comm(18, res)
     check(all(r["transport"] == P18_TRANSPORT for r in res),
           f"transport {[r['transport'] for r in res]}")
     launches = _p18_train_gates(res, p1)
@@ -5663,6 +5981,469 @@ def seq2d(p1):
     launches["flash_fwd"] += _p18_serve_gates(res)
     say(f"  world of {P18_RANKS} ranks: {wall:.1f} s, spawn included")
     return dict(launches=launches)
+
+
+# ---------------------------------------------------------------- phase 19
+
+P19_SEED, P19_RANKS, P19_RU = 19, 4, (2, 2)
+# (a): the dense layer 0 and one MoE layer: a third layer adds 277 M
+# expert parameters a rank with their moments, and phase 15's headroom is
+# thin
+P19_LAYERS, P19_T, P19_STEPS = 2, 8192, 2
+# slots an expert takes from a seq shard: its 4,096 rows (gathered over
+# head) · 6 · 1.25 / 64, as phase 15's ranks
+P19_CAP = 480
+# (b): phase 17's cut, 9 of 27 layers; one prompt, greedy tokens
+P19_SERVE_LAYERS, P19_SERVE_T, P19_NEW = 9, 8192, 8
+P19_CTL_GEN = 4                 # decode steps of the decode fault's run
+P19_WARM_T = 256
+P19_TIMEOUT = 900
+P19_TRANSPORT = "cuda-ipc"         # four ranks, one card
+
+
+def _p19_tc():
+    return TrainConfig(lr=1e-4, warmup_steps=1, total_steps=P19_STEPS)
+
+
+@contextlib.contextmanager
+def _p19_fault(model, fault):
+    """Phase 19's planted faults on a 2D-mesh model while the block runs:
+    ``"aux"`` — the aux loss's statistics reduced over ``head`` as well
+    (the world); ``"scatter"`` — the head scatter rotated by one
+    (``_p18_fault``); ``"rows"`` — each head rank dispatching only its
+    own T/(r·u) rows (no gather over ``head``)."""
+    if fault == "scatter":
+        with _p18_fault("scatter"):
+            yield
+        return
+    key, val = {"aux": ("moe_token_group", model.token_group),
+                "rows": ("moe_rows", None)}[fault]
+    saved = getattr(model, key)
+    setattr(model, key, val)
+    try:
+        yield
+    finally:
+        setattr(model, key, saved)
+
+
+def _p19_head_sums(model, params, raw, times):
+    """``sum_grads`` of a copy of ``raw`` with the expert shards summed over
+    ``head`` ``times`` times (the right sum is once)."""
+    grads = [g.clone() for g in raw]
+    sharded = TF.expert_mask(params)
+    model.token_group.all_reduce_([g for g, s in zip(grads, sharded)
+                                   if not s])
+    for _ in range(times):
+        model.expert_grad_group.all_reduce_(
+            [g for g, s in zip(grads, sharded) if s])
+    return grads, sharded
+
+
+def _p19_train(rank, mesh, tmp):
+    """(a) on this rank: step 1's loss, aux and gradients replaying P = 1's
+    expert choices (held to P = 1's), the planted faults, then
+    ``P19_STEPS`` counted and timed train steps (replaying P = 1's
+    choices)."""
+    cfg = get_config(P12_ARCH).replace(n_layers=P19_LAYERS)
+    shape = ShapeSpec("chip19", P19_T, 1, "train")
+    par = make_parallel_config(mesh, shape, schedule="balanced")
+    model = DecoderLM(cfg, DEV, mesh=mesh, par=par)
+    data = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                           par=par)
+    params = trainable(model.init(seed=P19_SEED))
+    s, r = mesh.coord("seq"), P19_RU[0]
+    n = P19_T // r                   # a seq shard's MoE rows
+    rec = torch.load(os.path.join(tmp, "calls.pt"))
+    calls = [c[s * n:(s + 1) * n].to(DEV) for c in rec["calls"]]
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    out = {"seq": s, "seq_rank": model.seq_rank,
+           "groups": (model.expert_group.size, model.moe_rows.size,
+                      model.expert_grad_group.size,
+                      model.moe_token_group.size),
+           "expert_rows": tuple(params["moe_layers"][0]["moe"]["wg"].shape)}
+    rep = torch.load(os.path.join(tmp, "grads1.pt"))
+    ref = [x if rank == 0 else None for x in rep]
+    for i, x in enumerate(torch.load(os.path.join(tmp, f"grads1_r{s}.pt"))):
+        if x is not None:
+            ref[i] = x
+    del rep
+    names = _leaf_names(params)
+    b0 = data.batch(0)
+    first, raw, kept = _p15_grads(model, params, b0, calls[:2 * n_moe])
+    out["first"] = first
+    out["kept_same"] = all(torch.equal(k.cpu(), x.view(r, -1)[s])
+                           for k, x in zip(kept, rec["keep"][:2 * n_moe]))
+    grads, sharded = _p15_summed(model, params, raw)
+    out["grad_err"] = _p15_grad_err(model, grads, sharded, ref, names)
+    out["gnorm1"] = float(adamw.global_norm(grads, sharded,
+                                            model.expert_group))
+    del grads
+    ref_aux = [g.to(DEV) for g in torch.load(os.path.join(tmp,
+                                                          "aux_router.pt"))]
+
+    def aux_err(ga):
+        return max(float((g - r).abs().max() / r.abs().max())
+                   for g, r in zip(ga, ref_aux))
+    aux_calls = calls[2 * n_moe:4 * n_moe]
+    out["aux_err"] = aux_err(_aux_router(model, params, b0, aux_calls))
+    out["faults"] = {}
+    for name, times in (("head_none", 0), ("head_twice", 2)):
+        grads, sharded = _p19_head_sums(model, params, raw, times)
+        out["faults"][name] = dict(first=first, grad_err=_p15_grad_err(
+            model, grads, sharded, ref, names))
+        del grads
+    del raw
+    for fault in ("aux", "scatter"):
+        with _p19_fault(model, fault):
+            f, raw, _ = _p15_grads(model, params, b0, calls[:2 * n_moe])
+            ae = aux_err(_aux_router(model, params, b0, aux_calls))
+        grads, sharded = _p15_summed(model, params, raw)
+        out["faults"][fault] = dict(first=f, grad_err=_p15_grad_err(
+            model, grads, sharded, ref, names), aux_err=ae)
+        del grads, raw
+        _free()
+    del ref, ref_aux
+    comms = list({id(c): c for c in (
+        mesh.comm("seq"), mesh.comm("head"), model.token_group,
+        model.moe_token_group, model.expert_grad_group)}.values())
+    opt = adamw.init(params)
+    step = make_train_step(model, _p19_tc())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(P19_STEPS):
+        batch = data.batch(i)
+        replay = _Router(calls=calls[(4 + 2 * i) * n_moe:
+                                     (6 + 2 * i) * n_moe])
+        torch.cuda.synchronize()
+        build.reset_launches()
+        c0 = _comm_seconds(comms)
+        t0 = time.perf_counter()
+        with replay:
+            m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        c1 = _comm_seconds(comms)
+        steps.append(dict(
+            loss=m["loss"], ce=m["ce"], aux=m["aux"], gnorm=m["gnorm"],
+            sec=sec, skipped=m["skipped_nonfinite"],
+            comm={k: c1[k] - c0[k] for k in c1},
+            launches={k: build.LAUNCHES[k] for k in P14_KERNELS}))
+    out["steps"] = steps
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del params, opt, step, model
+    _free()
+    return out
+
+
+def _p19_serve(rank, mesh, tmp):
+    """(b) on this rank: deepseek at full width, 9 of 27 layers, through
+    ``FixedSlotEngine`` on the (2, 2) mesh — a warm-up, then one 8,192-token
+    prompt (balanced 2D prefill under the head scatter, the latent cache
+    over the (seq, head) pair, 8 greedy tokens), recording every MoE
+    call's expert choices and kept pairs; the planted controls
+    teacher-forced on its tokens; (c) the latent ring's refusal."""
+    cfg = get_config(P12_ARCH).replace(n_layers=P19_SERVE_LAYERS)
+    shape = ShapeSpec("chip19s", P19_SERVE_T, 1, "decode")
+    par = make_parallel_config(mesh, shape, schedule="balanced")
+    model = DecoderLM(cfg, DEV, par=par, mesh=mesh)
+    params = model.init(seed=P19_SEED)
+    prompt = np.random.default_rng(P19_SEED).integers(
+        0, cfg.vocab, (1, P19_SERVE_T)).astype(np.int32)
+    eng = FixedSlotEngine(model, params)
+    eng.generate({"tokens": prompt[:, :P19_WARM_T]}, 2)
+    comms = list({id(c): c for c in (
+        mesh.comm("seq"), mesh.comm("head"), model.decode_group,
+        model.seq_group)}.values())
+    times = {}
+    model.prefill = _timed(times, "prefill", model.prefill)
+    model.decode = _timed(times, "decode", model.decode)
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _comm_seconds(comms)
+    build.reset_launches()
+    rk = _Router()
+    with rk, _Keep() as kp, _recorded(model) as logs:
+        toks, _ = eng.generate({"tokens": prompt}, P19_NEW)
+    launches = dict(build.LAUNCHES)
+    c1 = _comm_seconds(comms)
+    out = dict(tokens=toks.cpu(), logits=torch.stack(logs),
+               launches=launches, prefill_s=times["prefill"][0],
+               decode_ms=[1e3 * t for t in times["decode"]],
+               comm={k: c1[k] - c0[k] for k in c1},
+               shards=model.decode_group.size,
+               rows=[int(k.shape[0]) // cfg.moe.top_k for k in kp.seen],
+               peak=torch.cuda.max_memory_allocated())
+    del model.prefill, model.decode
+    if mesh.coord("head") == 0:
+        torch.save({"calls": [c.cpu() for c in rk.seen],
+                    "keep": [k.cpu() for k in kp.seen]},
+                   os.path.join(tmp, f"serve{mesh.coord('seq')}.pt"))
+    out["controls"] = {}
+    with _moe_fault("psum"), _recorded(model, toks[:, :P19_CTL_GEN]) as lg:
+        eng.generate({"tokens": prompt}, P19_CTL_GEN)
+    out["controls"]["psum"] = torch.stack(lg)
+    with _p19_fault(model, "rows"), _Keep() as kp2, \
+            _recorded(model, toks[:, :1]) as lg:
+        eng.generate({"tokens": prompt}, 1)
+    out["controls"]["rows"] = torch.stack(lg)
+    out["rows_ctl"] = [int(k.shape[0]) // cfg.moe.top_k for k in kp2.seen]
+    del eng
+    zz = make_parallel_config(mesh, shape, schedule="zigzag")
+    try:
+        DecoderLM(cfg, DEV, par=zz, mesh=mesh, latent_ring=True)
+        out["ring"] = "no error"
+    except ValueError as e:
+        out["ring"] = f"ValueError: {e}"
+    del model, params
+    _free()
+    return out
+
+
+def _p19_rank(rank, tmp):
+    mesh = make_seq2d_mesh(*P19_RU, device=DEV)
+    out = {"rank": rank, "transport": mesh.transport}
+    out["train"] = _p19_train(rank, mesh, tmp)
+    out["serve"] = _p19_serve(rank, mesh, tmp)
+    out["comm_s"] = _process_comm_seconds()
+    return out
+
+
+def _p19_train_gates(cfg, res, first, s1, s2):
+    """(a)'s gates against P = 1 (phase 15's bars), the planted faults
+    rejected, the pair routes' launches equal to the inner plan's."""
+    t0 = res[0]["train"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    for x in res:
+        tr = x["train"]
+        check(tr["groups"] == (2, 2, 2, 2), f"rank {x['rank']}: experts / "
+              f"rows / expert gradients / aux over {tr['groups']} ranks")
+        check(tr["expert_rows"][0] == cfg.moe.n_routed // P19_RU[0],
+              f"rank {x['rank']}: expert leaves {tr['expert_rows']}")
+        check(tr["kept_same"], f"rank {x['rank']} kept other pairs than "
+              "P = 1 kept of its seq shard's rows")
+    d_loss, d_aux = rel(t0["first"][0], first[0]), rel(t0["first"][2],
+                                                        first[2])
+    err, leaf = t0["grad_err"]
+    st = t0["steps"]
+    d_gn, d_l2 = rel(st[0]["gnorm"], s1["gnorm"]), rel(st[1]["loss"],
+                                                       s2["loss"])
+    aux_e = max(x["train"]["aux_err"] for x in res)
+    say(f"  (a) (2, 2) vs P = 1, step 1: loss {t0['first'][0]:.6f} relative "
+        f"|Δ| {d_loss:.3e}, aux {t0['first'][2]:.6e} relative |Δ| "
+        f"{d_aux:.3e} (limit {P15_TOL:.3e}); worst gradient leaf max|Δg| / "
+        f"max|g| {err:.4f} ({leaf}; limit {GRAD_REL_TOL}), of the aux "
+        f"loss's router gradients alone {aux_e:.4f}; gnorm "
+        f"{st[0]['gnorm']:.4f} vs {s1['gnorm']:.4f} relative |Δ| "
+        f"{d_gn:.3e}; step 2 loss {st[1]['loss']:.6f} vs {s2['loss']:.6f} "
+        f"relative |Δ| {d_l2:.3e} (limits {P15_TOL:.3e})")
+    check(d_loss <= P15_TOL and d_aux <= P15_TOL, f"(a) step 1 loss "
+          f"{d_loss} / aux {d_aux} vs P = 1")
+    check(err <= GRAD_REL_TOL, f"(a) gradients vs P = 1: {leaf} {err}")
+    check(aux_e <= GRAD_REL_TOL, f"(a) the aux loss's router gradients vs "
+          f"P = 1: {aux_e}")
+    check(d_gn <= P15_TOL and d_l2 <= P15_TOL, f"(a) step 1 gnorm {d_gn}, "
+          f"step 2 loss {d_l2} vs P = 1")
+    ctl = {f: dict(loss=rel(v["first"][0], first[0]), grad=v["grad_err"][0],
+                   leaf=v["grad_err"][1],
+                   aux=max(x["train"]["faults"][f].get("aux_err", 0.0)
+                           for x in res))
+           for f, v in t0["faults"].items()}
+    say("  (a) controls (step 1 relative |Δloss| / worst leaf |Δg| / the "
+        "aux loss's router gradients): " + "; ".join(
+            f"{f} {c['loss']:.3e} / {c['grad']:.4f} ({c['leaf']}) / "
+            f"{c['aux']:.4f}" for f, c in ctl.items()))
+    for f, c in ctl.items():
+        check(c["loss"] > P15_TOL or c["grad"] > GRAD_REL_TOL
+              or c["aux"] > GRAD_REL_TOL, f"(a) the bars do not reject the "
+              f"{f} fault ({c})")
+    a = cfg.attn
+    p2 = sp.build_plan2d("balanced", mk.causal(), *P19_RU,
+                         P19_T // P19_RANKS, Hq=a.n_heads, Hkv=a.n_heads)
+    launches = {k: 0 for k in P14_KERNELS}
+    for x in res:
+        tr = x["train"]
+        want = (cfg.n_layers * _p18_calls(p2.inner, tr["seq"]),
+                cfg.n_layers * _p18_calls(p2.inner, tr["seq"], True))
+        for i, s in enumerate(tr["steps"]):
+            got = s["launches"]
+            check(s["skipped"] == 0 and np.isfinite(s["loss"]),
+                  f"(a) rank {x['rank']} step {i + 1}: {s}")
+            check(want[0] > 0 and got["flash_fwd_pair"] == want[0]
+                  and got["flash_bwd_dq"] == got["flash_bwd_dkv"] == want[1],
+                  f"(a) rank {x['rank']} step {i + 1}: launches {got}, want "
+                  f"A {want[0]}, C/D {want[1]}")
+            for k in P14_KERNELS:
+                launches[k] += got[k]
+        say(f"  (a) rank {x['rank']}: peak {tr['peak'] / 2**30:.2f} GiB; "
+            f"steps " + ", ".join(f"{s['sec']:.3f}" for s in tr["steps"])
+            + " s; host in shifts / all_to_alls / all-reduces and gathers "
+            + ", ".join("/".join(f"{s['comm'][k]:.3f}" for k in
+                                 ("shift", "a2a", "reduce"))
+                        for s in tr["steps"])
+            + f" s; launches A/C/D a step {want[0]}/{want[1]}/{want[1]} "
+            f"(rank_calls of the inner plan × {cfg.n_layers} layers)")
+    for i in range(P19_STEPS):
+        vals = {(x["train"]["steps"][i]["loss"],
+                 x["train"]["steps"][i]["gnorm"]) for x in res}
+        check(len(vals) == 1, f"(a) step {i + 1}: ranks disagree {vals}")
+    return launches, dict(d_loss=d_loss, d_aux=d_aux, grad_err=err,
+                          aux_err=aux_e,
+                          d_gnorm=d_gn, d_loss2=d_l2, controls=ctl,
+                          step_s=[max(x["train"]["steps"][i]["sec"]
+                                      for x in res)
+                                  for i in range(P19_STEPS)])
+
+
+def _p19_serve_gates(cfg, res, tmp):
+    """(b)'s gates: equal tokens on every rank, the 2D prefill's launches,
+    every MoE dispatch over a seq shard's rows; then one process replays
+    the ranks' expert choices and kept pairs teacher-forced on their
+    tokens: every step's logits within 5% of max |logit|, the controls
+    rejected; (c) the latent ring's refusal printed."""
+    sv = [x["serve"] for x in res]
+    toks = sv[0]["tokens"]
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    a = cfg.attn
+    p2 = sp.build_plan2d("balanced", mk.causal(), *P19_RU,
+                         P19_SERVE_T // P19_RANKS, Hq=a.n_heads,
+                         Hkv=a.n_heads)
+    check(tuple(toks.shape) == (1, P19_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab)).all()), f"(b) tokens {toks}")
+    rows = P19_SERVE_T // P19_RU[0]
+    for x, s in zip(res, sv):
+        tr = x["train"]
+        check(torch.equal(s["tokens"], toks), f"(b) rank {x['rank']}'s "
+              "tokens differ")
+        check(s["shards"] == P19_RANKS, f"(b) cache over {s['shards']}")
+        w = cfg.n_layers * _p18_calls(p2.inner, tr["seq"])
+        check(s["launches"]["flash_fwd_pair"] == w and all(
+            v == 0 for k, v in s["launches"].items()
+            if k != "flash_fwd_pair"), f"(b) rank {x['rank']}: launches "
+            f"{s['launches']}, want flash_fwd_pair {w} and nothing else")
+        check(s["rows"][:n_moe] == [rows] * n_moe, f"(b) rank {x['rank']}: "
+              f"the prefill dispatched {s['rows'][:n_moe]} rows a layer")
+        check(bool(torch.isfinite(s["logits"]).all()), "(b) non-finite")
+    recs = [torch.load(os.path.join(tmp, f"serve{i}.pt"))
+            for i in range(P19_RU[0])]
+    calls = [torch.cat([rec["calls"][i] for rec in recs]) for i in
+             range(n_moe)] + recs[0]["calls"][n_moe:]
+    keep = [torch.cat([rec["keep"][i] for rec in recs])
+            for i in range(n_moe)]
+    check(all(len(rec["keep"]) == n_moe for rec in recs),
+          "(b) a decode step dispatched")
+    del recs
+    t0 = time.perf_counter()
+    one = DecoderLM(cfg, DEV)
+    params = one.init(seed=P19_SEED)
+    prompt = np.random.default_rng(P19_SEED).integers(
+        0, cfg.vocab, (1, P19_SERVE_T)).astype(np.int32)
+    rr = _Router(calls=[c.to(DEV) for c in calls])
+    with rr, _Keep(calls=keep), _recorded(one, toks) as lg:
+        FixedSlotEngine(one, params).generate({"tokens": prompt}, P19_NEW)
+    ref = torch.stack(lg)
+    check(len(rr.seen) == len(calls) and all(
+        torch.equal(x.cpu(), y) for x, y in zip(rr.seen, calls)),
+        "(b) the one process did not replay every expert choice")
+    del one, params
+    _free()
+    err = max(_step_err(s["logits"], ref) for s in sv)
+    ctl = {"psum": _step_err(sv[0]["controls"]["psum"][1:],
+                             ref[1:P19_CTL_GEN + 1]),
+           "rows": _step_err(sv[0]["controls"]["rows"], ref[:1])}
+    own = P19_SERVE_T // P19_RANKS
+    rows_ctl = sv[0]["rows_ctl"][:n_moe]
+    say(f"  (b) one process replaying the ranks' experts and kept pairs "
+        f"({time.perf_counter() - t0:.1f} s): teacher-forced logits, worst "
+        f"step max|Δ| / max|logit| over {P19_NEW + 1} steps (limit "
+        f"{LOGIT_REL_TOL}): {err:.3e}; controls: decode without the "
+        f"experts' sum over seq {ctl['psum']:.3e}; each head rank "
+        f"dispatching only its own {own} rows: prefill logits "
+        f"{ctl['rows']:.3e}, dispatches of {sorted(set(rows_ctl))} rows "
+        f"(a seq shard holds {rows})")
+    check(err <= LOGIT_REL_TOL, f"(b) (2, 2) fixed-slot logits vs one "
+          f"process: {err}")
+    check(ctl["psum"] > LOGIT_REL_TOL, f"(b) the logit limit does not "
+          f"reject the decode without its seq sum ({ctl['psum']})")
+    check(ctl["rows"] > LOGIT_REL_TOL or rows_ctl != [rows] * n_moe,
+          f"(b) neither the logits nor the dispatch's rows reject the "
+          f"head ranks' own-rows dispatch ({ctl['rows']}, {rows_ctl})")
+    for x, s in zip(res, sv):
+        dc = s["decode_ms"]
+        say(f"  (b) rank {x['rank']}: peak {s['peak'] / 2**30:.2f} GiB; "
+            f"prefill {s['prefill_s']:.3f} s, decode "
+            f"{float(np.median(dc)):.2f} ms a step (median); host in "
+            "shifts / all_to_alls / all-reduces and gathers "
+            + "/".join(f"{s['comm'][k]:.3f}" for k in ("shift", "a2a",
+                                                       "reduce"))
+            + f" s; launches {s['launches']}")
+    msgs = {s["ring"] for s in sv}
+    say(f"  (c) the latent ring on (2, 2): {msgs.pop()}")
+    check(not msgs and all(s["ring"].startswith("ValueError: the latent "
+                                                "ring on a 2D mesh")
+                           and "fault 3.7" in s["ring"] for s in sv),
+          f"(c) the latent ring on (2, 2): {[s['ring'] for s in sv]}")
+    return sum(s["launches"]["flash_fwd_pair"] for s in sv), dict(
+        err=err, controls=ctl,
+        prefill_s=max(s["prefill_s"] for s in sv),
+        decode_ms=[float(np.median(s["decode_ms"])) for s in sv])
+
+
+def moe2d():
+    """Phase 19: deepseek-v2-lite-16b (MLA + MoE) on a 2D (seq = 2) ×
+    (head = 2) mesh of 4 ranks sharing the one card — the routed experts
+    32 a rank over ``seq`` (the same on the two head ranks), each head
+    rank gathering its seq shard's 4,096 MoE rows over ``head``, the aux
+    statistics over ``seq``, MLA materialised through A / C / D's pair
+    routes under the head scatter.  (a) trains 2 of 27 layers at full
+    width, 8,192 tokens a step, 2 balanced steps, against one process that
+    the ranks replay (its expert choices; its kept pairs are the ranks'),
+    with four planted faults; (b) serves 9 of 27 layers through
+    ``FixedSlotEngine`` (one 8,192-token prompt, 8 greedy tokens) against
+    one process replaying the ranks' choices and kept pairs, with two
+    controls; (c) prints the latent ring's refusal (fault 3.7)."""
+    t_all = time.perf_counter()
+    cfg = get_config(P12_ARCH).replace(n_layers=P19_LAYERS)
+    scfg = get_config(P12_ARCH).replace(n_layers=P19_SERVE_LAYERS)
+    shape = ShapeSpec("chip19", P19_T, 1, "train")
+    from repro_torch.models.moe import capacity
+    check(capacity(cfg, P19_T // P19_RU[0]) == P19_CAP,
+          f"capacity {capacity(cfg, P19_T // P19_RU[0])}, want {P19_CAP}")
+    say(f"  (a) {cfg.name} at full width, {cfg.n_layers} of 27 layers, "
+        f"{P19_T} tokens a step on (seq, head) = {P19_RU}: "
+        f"{cfg.moe.n_routed // P19_RU[0]} routed experts a rank, "
+        f"{P19_T // P19_RU[0]} MoE rows a seq shard, capacity {P19_CAP}; "
+        f"(b) {P19_SERVE_LAYERS} of 27 layers, a {P19_SERVE_T}-token "
+        f"prompt, {P19_NEW} greedy tokens")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        first, s1, s2, peak1, _ = _p15_one(cfg, shape, tmp, split=P19_RU[0],
+                                           cap=P19_CAP, seed=P19_SEED,
+                                           tc=_p19_tc(), aux_router=True)
+        say(f"  (a) P = 1 ({time.perf_counter() - t0:.1f} s, peak "
+            f"{peak1 / 2**30:.2f} GiB): step 1 loss {first[0]:.6f} aux "
+            f"{first[2]:.6e}; train step 1 gnorm {s1['gnorm']:.4f}, step 2 "
+            f"loss {s2['loss']:.6f}")
+        _free()
+        t0 = time.perf_counter()
+        res = spawn(_p19_rank, P19_RANKS, (tmp,), device=DEV,
+                    timeout=P19_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+        res.sort(key=lambda r: r["rank"])
+        _say_comm(19, res)
+        check(all(r["transport"] == P19_TRANSPORT for r in res),
+              f"transport {[r['transport'] for r in res]}")
+        say(f"  world of {P19_RANKS} ranks: {wall:.1f} s, spawn included")
+        launches, tr = _p19_train_gates(cfg, res, first, s1, s2)
+        a_serve, sv = _p19_serve_gates(scfg, res, tmp)
+    launches["flash_fwd_pair"] += a_serve
+    out = dict(launches=launches, train=tr, serve=sv, world_s=wall,
+               seconds=time.perf_counter() - t_all)
+    say(f"  phase 19 took {out['seconds']:.1f} s")
+    return out
 
 
 # ----------------------------------------------------------------- phase 5
@@ -6294,6 +7075,10 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
+
+    def took(n, t0):
+        say(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     say("== phase 1: device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6305,6 +7090,7 @@ def main():
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    took(1, t0)
 
     say("== phase 2: build")
     t0 = time.perf_counter()
@@ -6316,22 +7102,32 @@ def main():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
     tensor_core_report(report)
+    took(2, t0)
 
     say("== phase 3: kernels against their plain versions")
+    t0 = time.perf_counter()
     kernel_checks()
     latent_checks()
     pair_checks()
     bwd_checks()
     pair_bwd_checks()
+    took(3, t0)
     say("== phase 3c: kernels A, C and D under every plan step's mask")
+    t0 = time.perf_counter()
     plan_step_checks()
     pair_plan_step_checks()
+    took("3c", t0)
+    say("== phase 3d: the cuda-ipc transport against gloo-staged, 4 ranks "
+        "on the one card")
+    transport_checks()
 
     say("== phase 4: serve llama-7b")
+    t0 = time.perf_counter()
     res = serve()
     say(f"  launches per decode step: paged_decode "
         f"{res['per_decode_step']:.1f}; per prefill chunk: flash_fwd "
         f"{res['per_chunk']:.1f}")
+    took(4, t0)
     say("== phase 9: speculative serving, llama-7b with a smollm-360m draft")
     t0 = time.perf_counter()
     sp = speculative(res.pop("model"), res.pop("params"), res["prompts"])
@@ -6344,17 +7140,27 @@ def main():
     _free()
 
     say("== phase 6: train at llama-7b width")
+    t0 = time.perf_counter()
     tr = train()
+    took(6, t0)
     say("== phase 6a: kernels A, C and D on the training path's inputs")
+    t0 = time.perf_counter()
     errs = main_path_checks(tr["seen"])
+    took("6a", t0)
     say("== phase 6b: gradients against the plain path")
+    t0 = time.perf_counter()
     grad_check()
+    took("6b", t0)
     say("== phase 7: multi-rank training, 4 ranks on the one card")
+    t0 = time.perf_counter()
     mr = multi_rank()
     _free()
+    took(7, t0)
     say("== phase 8: long-context serving, 4 sequence ranks on the one card")
+    t0 = time.perf_counter()
     lg = long_serve()
     _free()
+    took(8, t0)
     say("== phase 18: 2D sequence x head plans, 4 ranks on the one card")
     t0 = time.perf_counter()
     s2 = seq2d(mr.pop("p1"))
@@ -6381,6 +7187,7 @@ def main():
     tm = train_moe()
     _free()
     say("== phase 5: times at the shapes of each path")
+    t0 = time.perf_counter()
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
                 + mr["launches"].get(k, 0) + lg["launches"].get(k, 0)
                 + sp["launches"].get(k, 0) + qw["launches"].get(k, 0)
@@ -6408,6 +7215,7 @@ def main():
             *time_pair_bwd(pair_bwd, tm.pop("seen"), tm["errs"])]
     rows[0].update(time_flash_train(tr["seen"]))
     _free()
+    took(5, t0)
     # phases 15 and 16 after the times: torch.profiler, which the times
     # read, has seen no device kernel in a process that ran them first
     say("== phase 15: train deepseek-v2-lite-16b across 4 ranks on the one "
@@ -6424,6 +7232,10 @@ def main():
         "block-sharded)")
     ep = serve_moe_paged()
     _free()
+    say("== phase 19: deepseek-v2-lite-16b (MLA + MoE) on a 2D (seq x head) "
+        "mesh of 4 ranks on the one card: training and fixed-slot serving")
+    e2 = moe2d()
+    _free()
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
@@ -6433,12 +7245,16 @@ def main():
         elif row["name"] in ("flash_fwd_latent", "paged_decode"):
             row["launches"] += ep["launches"][row["name"]]
         elif row["name"] in ("flash_bwd_dq_pair", "flash_bwd_dkv_pair"):
-            row["launches"] += em["launches"][row["name"][:-5]]
+            row["launches"] += (em["launches"][row["name"][:-5]]
+                                + e2["launches"][row["name"][:-5]])
+        if row["name"] == "flash_fwd_pair":
+            row["launches"] += e2["launches"]["flash_fwd_pair"]
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
         f"{es['launches']}, its latent-ring prefill (all ranks) "
         f"flash_fwd_pair {es['ring']['launches']}, deepseek paged across 4 "
-        f"ranks (all ranks) {ep['launches']}")
+        f"ranks (all ranks) {ep['launches']}, deepseek on the 2D mesh "
+        f"(all ranks: 2 train steps, the prefill) {e2['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -322,6 +322,14 @@ def dist_attn_fwd(q, k, v, *, spec: DistAttnSpec, group=None,
                           tune=_tune(spec))
 
 
+FAULT_37 = (
+    "the latent ring on a 2D mesh with u > 1: the reference's "
+    "dist_attn_fwd_latent builds the zigzag plan for r·u ranks but "
+    "shard_maps it over the seq axis alone (r ranks), and its ppermute "
+    "refuses the permutation (ROADMAP fault 3.7); serve with "
+    "latent_ring=False, balanced or ring")
+
+
 def dist_attn_fwd_latent(q, k, v, payload, w_up, expand, *,
                          spec: DistAttnSpec, group=None):
     """Latent-ring forward → (o, lse) of this rank's shard, under the
@@ -330,14 +338,13 @@ def dist_attn_fwd_latent(q, k, v, payload, w_up, expand, *,
     the latent rows they come from, which travel on the KV ring instead of
     (k, v); ``w_up`` the up-projection, the same on every rank; ``expand(
     payload, w_up) -> (k, v)`` (``layers.mla_expand``) rebuilds them on
-    arrival.  Plain causal masks only, as the reference."""
+    arrival.  Plain causal masks only, as the reference; a 2D spec raises
+    (:data:`FAULT_37`)."""
     if spec.mask.kinds - {"causal"}:
         raise ValueError("latent ring supports plain causal masks only "
                          f"(got {spec.mask.kind!r})")
     if spec.mesh2d is not None:
-        raise NotImplementedError(
-            "the latent ring on a 2D (seq×head) mesh is ROADMAP §1 item "
-            "8.1 (MLA + MoE on a 2D mesh)")
+        raise ValueError(FAULT_37)
     if spec.axis_size == 1:
         return chunk_attn(q, k, v, mask=spec.mask, **_tune(spec))
     plan = sp.build_plan("zigzag", spec.mask, spec.axis_size, q.shape[1])

@@ -96,16 +96,18 @@ def _comm(ranks, transport, device):
     return cm.Comm(ranks, transport, device, group=group, p2p_group=p2p)
 
 
-def _make_mesh(names, shape, device) -> Mesh:
+def _make_mesh(names, shape, device, transport=None) -> Mesh:
     """The grid ``shape`` of axes ``names`` (last minor) over the running
     world, with a Comm for each axis and each larger set of axes in mesh
-    order (the world last)."""
+    order (the world last).  ``transport`` None: the world's
+    (:func:`~repro_torch.parallel.comm.transport_of`); ``"gloo-staged"``
+    may be named for CUDA tensors of ranks that share a GPU."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     if int(np.prod(shape)) != n:
         raise ValueError(f"mesh {dict(zip(names, shape))} needs "
                          f"{int(np.prod(shape))} ranks, the world has {n}")
     rank = dist.get_rank() if dist.is_initialized() else 0
-    transport = cm.transport_of(device) if n > 1 else "local"
+    transport = "local" if n == 1 else _transport(device, transport)
     grid = np.arange(n).reshape(shape)
     comms = {}
     # one axis at a time, minor first, then the sets of axes between one
@@ -129,26 +131,39 @@ def _make_mesh(names, shape, device) -> Mesh:
                 comms=comms, world=world, transport=transport)
 
 
+def _transport(device, named):
+    auto = cm.transport_of(device)
+    if named is None or named == auto:
+        return auto
+    if named == "gloo-staged" and auto == "cuda-ipc":
+        return named
+    raise ValueError(f"transport {named!r} does not carry {device} tensors "
+                     f"in this world (its transport is {auto!r})")
+
+
 def make_local_mesh(seq: int = 1, data: int | None = None,
-                    device="cuda") -> Mesh:
+                    device="cuda", transport=None) -> Mesh:
     """A ``(data, model)`` mesh of ``data × seq`` ranks over the running
     world (``data`` defaults to world size // seq).  Tensors on
     ``device`` travel by the transport :func:`~repro_torch.parallel.comm.
-    transport_of` decides once here."""
+    transport_of` decides once here, or by ``transport`` where a caller
+    names ``"gloo-staged"`` for ranks that share a GPU."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     if data is None:
         data = n // seq
     if data * seq != n:
         raise ValueError(f"mesh (data={data}, model={seq}) needs "
                          f"{data * seq} ranks, the world has {n}")
-    return _make_mesh(("data", "model"), (data, seq), device)
+    return _make_mesh(("data", "model"), (data, seq), device, transport)
 
 
-def make_seq2d_mesh(r: int, u: int, data: int = 1, *, device) -> Mesh:
+def make_seq2d_mesh(r: int, u: int, data: int = 1, *, device,
+                    transport=None) -> Mesh:
     """The factored sequence × head mesh of the 2D plans: ``r·u``
     sequence-parallel ranks as a (``seq`` = r) × (``head`` = u) grid, head
     minor (the head all-to-all stays inside a group of neighbours), times
     ``data``.  Activations shard the sequence over the ``("seq",
     "head")`` pair; ``parallel.sharding.make_parallel_config`` picks the
-    axes up by name."""
-    return _make_mesh(("data", "seq", "head"), (data, r, u), device)
+    axes up by name.  ``transport`` as :func:`make_local_mesh`'s."""
+    return _make_mesh(("data", "seq", "head"), (data, r, u), device,
+                      transport)

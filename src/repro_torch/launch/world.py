@@ -16,6 +16,7 @@ must be importable by name (``spawn`` start method).
 """
 from __future__ import annotations
 
+import gc
 import os
 import tempfile
 import time
@@ -33,6 +34,12 @@ def _child(rank, nprocs, store, device, fn, args, outdir, threads):
     try:
         out = fn(rank, *args)
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+        # under cuda-ipc a peer may still read this rank's mailboxes, and
+        # this rank holds its peers' open until its Comms are collected
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

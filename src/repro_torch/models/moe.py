@@ -25,6 +25,20 @@ holding distinct tokens (``all_group``), so ``aux`` is the global value
 on every rank.  Every rank issues the same collectives in the same order,
 kept pairs or not.
 
+On a 2D (seq = r) × (head = u) mesh the reference's ``shard_map`` over
+``P(b, seq_axis, None)`` holds a seq shard's T/r rows whole on each of its
+u head ranks, so the routed experts shard over ``seq`` alone (E/r a rank,
+the same on the u head ranks), the capacity comes from T/r rows and the
+aux statistics reduce over the batch and ``seq`` axes, not ``head``.
+Here (``rows``, the head Comm) each rank gathers its seq shard's rows over
+``head`` (:func:`~repro_torch.parallel.comm.gather_rows`), dispatches them
+all and keeps its own piece of the output.  The u head ranks compute the
+same thing; each carries the gradient of its own rows only — of the
+output (the gather's backward keeps this rank's piece) and of the aux
+loss's mean probabilities (the other pieces' rows enter detached) — so the
+train step's sums over the ranks count every row once: the replicated
+leaves over every rank, the expert shards over ``head``.
+
 :func:`moe_decode_apply` is the decode / verify form, the reference's
 design: every expert runs on every token and the outputs combine in
 float32 with weights that are zero off the token's top k — no dispatch,
@@ -43,7 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.parallel.comm import all_reduce, all_to_all
+from repro_torch.parallel.comm import all_reduce, all_to_all, gather_rows
 
 
 def top_k(probs, k: int):
@@ -106,13 +120,30 @@ def _shared(p, h):
     return (F.silu(h @ p["sh_wg"]) * (h @ p["sh_wu"])) @ p["sh_wd"]
 
 
-def moe_apply(p, x, cfg: ModelConfig, *, group=None, all_group=None):
+def moe_apply(p, x, cfg: ModelConfig, *, group=None, all_group=None,
+              rows=None):
     """Capacity-dispatched MoE layer with residual: x (b, t, d) →
     (x + y, aux), ``aux`` the float32 load-balance loss.  ``group`` is the
     sequence axis's Comm over which the routed experts shard (None: one
     rank, every expert here); ``all_group`` the ranks holding distinct
-    tokens (the data and sequence axes), over which the expert counts are
-    summed and the mean probabilities averaged."""
+    rows (the data and sequence axes), over which the expert counts are
+    summed and the mean probabilities averaged; ``rows`` a 2D mesh's head
+    Comm, whose ranks hold the pieces of one seq shard's rows (module
+    docstring): the dispatch runs over the gathered rows and this rank's
+    piece of the output comes back."""
+    if rows is None or rows.size == 1:
+        return _moe_apply(p, x, cfg, group, all_group)
+    t = x.shape[1]
+    xs = gather_rows(rows, x, dim=1)
+    own = torch.zeros(xs.shape[:2], dtype=torch.bool, device=x.device)
+    own[:, rows.rank * t:(rows.rank + 1) * t] = True
+    y, aux = _moe_apply(p, xs, cfg, group, all_group, own.reshape(-1))
+    return y[:, rows.rank * t:(rows.rank + 1) * t], aux
+
+
+def _moe_apply(p, x, cfg, group, all_group, own=None):
+    """:func:`moe_apply` over the rows of ``x``; ``own`` (n,) marks the
+    rows whose probabilities carry the aux loss's gradient (None: all)."""
     m = cfg.moe
     b, t, d = x.shape
     n, E, K = b * t, m.n_routed, m.top_k
@@ -122,6 +153,8 @@ def moe_apply(p, x, cfg: ModelConfig, *, group=None, all_group=None):
     flat_e = top_e.reshape(-1)                               # (n·K,)
     counts = torch.zeros(E, dtype=torch.float32, device=x.device)
     counts.index_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    if own is not None:
+        probs = torch.where(own[:, None], probs, probs.detach())
     pm = probs.mean(dim=0)
     if _size(all_group) > 1:
         all_group.all_reduce_([counts])

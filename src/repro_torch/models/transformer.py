@@ -59,9 +59,12 @@ global token mean (sum and count all-reduced over the ranks holding
 distinct tokens).  On a 2D mesh (``make_seq2d_mesh``) the sequence shards
 over the (seq, head) pair and attention runs the 2D plan (head scatter,
 the schedule over ``seq``); the whole-prompt ``prefill`` and the dense
-``decode`` run over the pair too.  An MLA / MoE model on a mesh with a
-head axis raises (ROADMAP §1 item 8.1), and so does zigzag at u > 1
-(fault 3.6).  :func:`trainable` turns a parameter tree into leaf
+``decode`` run over the pair too.  There an MoE model's routed experts
+shard over ``seq`` alone and each head rank gathers its seq shard's MoE
+rows over ``head`` (``models/moe.py``, :attr:`DecoderLM.moe_rows`), as
+the reference's ``shard_map`` over ``P(b, seq_axis, None)`` does; MLA
+runs materialised through the 2D plan.  Zigzag at u > 1 raises (fault
+3.6), and so does the latent ring there (fault 3.7).  :func:`trainable` turns a parameter tree into leaf
 tensors that require gradients.
 
 Long-context serving: :meth:`DecoderLM.prefill` runs the whole prompt on
@@ -95,8 +98,9 @@ import torch
 from repro_torch.core import mask as mk
 from repro_torch.core.attention import chunk_attn, paged_decode_attn
 from repro_torch.core.config import ModelConfig, ParallelConfig
-from repro_torch.core.dist_attention import (DistAttnSpec, Mesh2DSpec,
-                                             dist_attn_bwd, dist_attn_fwd,
+from repro_torch.core.dist_attention import (FAULT_37, DistAttnSpec,
+                                             Mesh2DSpec, dist_attn_bwd,
+                                             dist_attn_fwd,
                                              dist_attn_fwd_latent,
                                              dist_decode_attn,
                                              dist_flash_attn,
@@ -192,14 +196,15 @@ def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
 
 def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
                       document: bool = False, P: int = 1, group=None,
-                      use_moe: bool = False, all_group=None):
+                      use_moe: bool = False, all_group=None, experts=None,
+                      rows=None):
     """``layer(params, (h, cos, sin, seg)) -> h'`` under ``par.remat``, its
     attention over the ``P`` ranks of ``group`` (a 2D mesh: the (seq,
     head) pair of Comms).  A layer of an
     MoE-family model returns ``(h', aux)``: its MoE FFN's load-balance
-    loss (``use_moe``: experts sharded over ``group``, the loss's
-    statistics over ``all_group``), or 0 for a SwiGLU MLP."""
-    experts = group if P > 1 else None
+    loss (``use_moe``: experts sharded over ``experts``, the loss's
+    statistics over ``all_group``, a 2D mesh's rows split over ``rows``:
+    ``moe_apply``'s groups), or 0 for a SwiGLU MLP."""
     scale = L.mla_scale(cfg) if cfg.attn.is_mla else None
     pre, attn_fwd, attn_bwd, attn_diff = _dense_stages(
         cfg, _attn_spec(cfg, par, P, impl, document, scale, group), group)
@@ -208,7 +213,7 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
         h2 = L.attn_out(p["attn"], x[0], o, cfg)
         if use_moe:
             return moe_apply(p["moe"], h2, cfg, group=experts,
-                             all_group=all_group)
+                             all_group=all_group, rows=rows)
         h3 = L.mlp_apply(p["mlp"], h2, cfg.norm_eps)
         if cfg.moe is None:
             return h3
@@ -234,6 +239,19 @@ def token_group(mesh, par: ParallelConfig):
     if "data" in par.batch_axes or mesh.size("data") == 1:
         return mesh.world
     return seq_group(mesh, par)
+
+
+def moe_token_group(mesh, par: ParallelConfig):
+    """The ranks holding distinct MoE rows, over which the aux loss's
+    statistics reduce: :func:`token_group`, less a 2D mesh's head axis
+    (its ranks dispatch one seq shard's rows alike; the reference's
+    ``moe_apply`` reduces over the batch axes and ``seq_axis``)."""
+    if mesh is None or par.head_axis is None or \
+            mesh.size(par.head_axis) == 1:
+        return token_group(mesh, par)
+    if "data" in par.batch_axes and mesh.size("data") > 1:
+        return mesh.comm(("data", par.seq_axis))
+    return mesh.comms[par.seq_axis]
 
 
 def layer_params(p) -> list:
@@ -308,13 +326,6 @@ class DecoderLM:
         self.mesh = mesh
         self.latent_ring = bool(latent_ring)
         ax = self.par.seq_axis
-        # a 2D mesh: the sequence shards over the (seq, head) pair
-        if mesh is not None and self.par.head_axis is not None:
-            if cfg.attn.is_mla or cfg.moe is not None or latent_ring:
-                raise NotImplementedError(
-                    "MLA and MoE models (and the latent ring) on a mesh "
-                    "with a head axis are ROADMAP §1 item 8.1 (deepseek on "
-                    "a 2D mesh)")
         self.seq_group = seq_group(mesh, self.par)
         self.seq_size = 1 if mesh is None else self.seq_group.size
         self.seq_rank = 0 if mesh is None else self.seq_group.rank
@@ -322,24 +333,34 @@ class DecoderLM:
         # mesh's (seq, head) pair of Comms when its head axis has u > 1
         head = (None if mesh is None or self.par.head_axis is None
                 else mesh.comms[self.par.head_axis])
-        self.attn_group = (self.seq_group if head is None or head.size == 1
-                           else (mesh.comms[ax], head))
-        if isinstance(self.attn_group, tuple) and zigzag_layout(
-                cfg, self.par, self.seq_size):
+        two_d = head is not None and head.size > 1
+        self.attn_group = (mesh.comms[ax], head) if two_d \
+            else self.seq_group
+        if two_d and zigzag_layout(cfg, self.par, self.seq_size):
+            if latent_ring and cfg.attn.is_mla:
+                raise ValueError(FAULT_37)
             raise ValueError(
                 "zigzag on a 2D mesh with u > 1: the reference permutes "
                 "the tokens by zigzag_perm(T, r·u) where its executor "
                 "needs zigzag_perm(T, r), and its loss is off (ROADMAP "
                 "fault 3.6); name balanced or ring")
         self.token_group = token_group(mesh, self.par)
-        # the routed experts shard over the sequence axis
-        self.expert_group = self.seq_group if self.seq_size > 1 else None
-        # the ranks holding the same experts and distinct tokens: their
-        # gradients add up (the data axis when the batch shards over it)
-        self.expert_grad_group = (
-            mesh.comms["data"] if self.expert_group is not None
-            and "data" in self.par.batch_axes and mesh.size("data") > 1
-            else None)
+        # the routed experts shard over the sequence axis — on a 2D mesh
+        # over seq alone, each seq shard's experts the same on its head
+        # ranks, which split its MoE rows (moe_apply's ``rows``)
+        ex = None if mesh is None else mesh.comms[ax]
+        self.expert_group = ex if ex is not None and ex.size > 1 else None
+        self.moe_rows = head if two_d else None
+        # the ranks holding distinct MoE rows: the aux statistics' group
+        self.moe_token_group = moe_token_group(mesh, self.par)
+        # the ranks holding the same experts and distinct rows' shares:
+        # their gradients add up (a 2D mesh's head axis, and the data axis
+        # when the batch shards over it)
+        axes = ((("data",) if mesh is not None and "data" in
+                 self.par.batch_axes and mesh.size("data") > 1 else ())
+                + ((self.par.head_axis,) if two_d else ()))
+        self.expert_grad_group = (mesh.comm(axes) if axes and
+                                  self.expert_group is not None else None)
         # the dense decode cache shards its sequence over par.seq_axes
         self.decode_group = None if mesh is None else mesh.comm(
             self.par.seq_axes)
@@ -476,7 +497,9 @@ class DecoderLM:
         for key, use_moe in (("dense_layers", False), ("moe_layers", True)):
             layer = build_dense_layer(self.cfg, self.par, self.impl,
                                       use_moe=use_moe,
-                                      all_group=self.token_group, **kw)
+                                      all_group=self.moe_token_group,
+                                      experts=self.expert_group,
+                                      rows=self.moe_rows, **kw)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
             for lp in p[key]:
                 h, a = layer(lp, (h, cos, sin, seg))
@@ -552,7 +575,8 @@ class DecoderLM:
         if replicated and self.expert_group is not None:
             return self._split_moe(lp["moe"], h)
         return moe_apply(lp["moe"], h, self.cfg, group=self.expert_group,
-                         all_group=self.token_group)[0]
+                         all_group=self.moe_token_group,
+                         rows=self.moe_rows)[0]
 
     def _split_moe(self, p, h):
         """The capacity dispatch of rows (B, C, d) that every rank of the

@@ -47,8 +47,10 @@ def global_norm(grads, sharded=None, group=None) -> torch.Tensor:
     """sqrt(Σ g²) over every leaf, in float32 (0-d tensor).  ``sharded``
     (a bool per leaf, ``core.tree.flatten``'s order) marks the leaves whose
     rows shard over ``group`` (an MoE model's routed experts over the
-    sequence axis): their squares are summed over the group, so each row
-    counts once and every rank gets the same norm."""
+    sequence axis; on a 2D mesh over ``seq``, whose ranks hold distinct
+    experts, not the (seq, head) pair, whose head ranks hold the same
+    ones): their squares are summed over the group, so each row counts
+    once and every rank gets the same norm."""
     gs = leaves(grads)
     if sharded is None or group is None or group.size == 1:
         return torch.sqrt(sum(g.float().square().sum() for g in gs))

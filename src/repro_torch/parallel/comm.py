@@ -4,10 +4,11 @@ reference's ``lax.ppermute`` (:meth:`Comm.shift`), ``lax.all_to_all``
 ``lax.psum`` / ``lax.pmax`` (:meth:`Comm.all_reduce_`) over one mesh axis or
 several (a group whose ranks are ordered by the axes' linearized index),
 and a broadcast from one rank (:meth:`Comm.broadcast_`).  Inside an
-autograd graph, :func:`all_to_all` (backward: the inverse ``all_to_all``)
-and :func:`all_reduce` (``lax.psum`` / ``lax.pmean``; backward: the
+autograd graph, :func:`all_to_all` (backward: the inverse ``all_to_all``),
+:func:`all_reduce` (``lax.psum`` / ``lax.pmean``; backward: the
 cotangent passed through, each rank keeping its own share, which the
-train step's gradient sum adds up) are their differentiable forms.
+train step's gradient sum adds up) and :func:`gather_rows` (an all-gather
+whose backward keeps this rank's piece) are their differentiable forms.
 
 Each rank is one ``torch.distributed`` process.  How tensors travel — the
 transport — is decided once, from the world's backend and the device, when
@@ -16,13 +17,40 @@ the world is started (:func:`init_world`) or a group is built
 
   * ``nccl``        — CUDA tensors where every rank has a GPU of its own;
   * ``gloo``        — CPU tensors;
-  * ``gloo-staged`` — CUDA tensors on ranks that share a GPU (NCCL refuses
-                      two ranks on one device): every transfer is staged
-                      through pinned host buffers and sent with gloo.
+  * ``cuda-ipc``    — CUDA tensors on ranks that share a GPU (NCCL refuses
+                      two ranks on one device): every transfer moves
+                      device to device through mailboxes the ranks export
+                      to each other with CUDA IPC, and a doorbell in
+                      shared host memory says when a mailbox is full and
+                      when it is free again;
+  * ``gloo-staged`` — the same ranks, every transfer staged through pinned
+                      host buffers and sent with gloo.  Only a caller that
+                      names it gets it (``make_local_mesh(...,
+                      transport="gloo-staged")``).
 
-No transport is ever reached by catching another's failure.  A single
-process (no world) has the transport ``local``: its groups have one rank
-and move nothing.
+No transport is ever reached by catching another's failure: a mailbox
+that cannot be exported or opened raises.
+
+**The mailboxes** (``cuda-ipc``).  Each :class:`Comm` has two, made at
+first use: one for its collectives (main thread) and one for its shifts
+(worker thread).  A mailbox is a device buffer of two slots of up to
+:data:`MAILBOX_CAP` bytes each; it grows (never shrinks) to the largest
+message it has carried, the new handles exchanged with
+``all_gather_object`` over the Comm's process group, and a larger message
+goes in pieces of a slot each.  One piece is one round: the sender copies
+into its slot, synchronises its stream and rings its doorbell (a counter
+in a page of host memory the group's ranks share); each peer, once the
+senders it reads have rung the round, copies what it needs out of their
+slots.  Rounds alternate between the two slots, so a slot is written
+again only two rounds later: a collective's slot once every reader has
+rung the next round (it rings only after its stream has finished the
+reads), a shift's once its reader has rung that it is done.  The
+doorbells replace gloo tokens, whose round trip between four ranks
+sharing one card's host is milliseconds (``PERF.md`` §5).  Shifts,
+all-to-alls, all-gathers and broadcasts are bitwise the transfers
+``gloo-staged`` makes; :meth:`Comm.all_reduce_` sums the ranks' slots in
+rank order, in float32 (float64 for float64 tensors, int64 for
+integers), on every rank, so the ranks hold bitwise equal results.
 
 A shift is asynchronous: :meth:`Comm.shift` issues it and returns a handle
 whose ``wait()`` gives the received tensors, so a caller issues the next
@@ -31,19 +59,29 @@ of KV communication with compute).  Under ``gloo`` the transfer runs on
 gloo's threads; under ``nccl`` on NCCL's stream; under ``gloo-staged`` a
 worker thread copies to pinned buffers on a side CUDA stream, sends and
 receives with gloo, and copies back on that stream, and ``wait()`` makes
-the caller's stream wait for the copy.  Shifts use a process group of
-their own, so their message tags never meet the collectives'.
+the caller's stream wait for the copy; under ``cuda-ipc`` the same worker
+thread and side stream carry it through the shift mailbox.  Shifts use a
+process group of their own, so their message tags never meet the
+collectives'.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import os
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-TRANSPORTS = ("nccl", "gloo", "gloo-staged")
+TRANSPORTS = ("nccl", "gloo", "cuda-ipc", "gloo-staged")
+# the bytes a mailbox slot holds at most.  Phase 16 of chip_smoke.py (four
+# ranks serving deepseek-v2-lite-16b on one card) all-to-alls 126 MB a
+# rank and has little memory to spare: at 32 MiB a slot such a message
+# goes in 4 pieces, and a Comm's two mailboxes hold at most 128 MiB
+MAILBOX_CAP = 32 << 20
+_ALIGN = 256            # bytes: every piece and segment starts aligned
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -56,13 +94,13 @@ def choose_transport(device, world_size: int) -> str:
         raise ValueError(f"no transport for {device}")
     if torch.cuda.device_count() >= world_size:
         return "nccl"
-    return "gloo-staged"
+    return "cuda-ipc"
 
 
 def transport_of(device) -> str:
     """The transport of the running world for tensors on ``device``: its
     backend (``nccl`` or ``gloo``) and, under gloo, whether the tensors
-    live on a GPU."""
+    live on a GPU (``cuda-ipc``: the ranks share it)."""
     device = torch.device(device)
     backend = dist.get_backend()
     if backend == "nccl":
@@ -72,7 +110,7 @@ def transport_of(device) -> str:
         return "nccl"
     if backend != "gloo":
         raise ValueError(f"unsupported backend {backend!r}")
-    return "gloo" if device.type == "cpu" else "gloo-staged"
+    return "gloo" if device.type == "cpu" else "cuda-ipc"
 
 
 def init_world(device, *, rank=None, world_size=None,
@@ -97,9 +135,9 @@ def init_world(device, *, rank=None, world_size=None,
                             **kw)
     if dist.get_rank() == 0:
         how = {"nccl": "one GPU each", "gloo": "on the CPU",
-               "gloo-staged": f"share {torch.cuda.device_count()} GPU(s); "
-                              f"transfers staged through pinned host "
-                              f"buffers"}[transport]
+               "cuda-ipc": f"share {torch.cuda.device_count()} GPU(s); "
+                           f"transfers device to device through CUDA IPC "
+                           f"mailboxes"}[transport]
         print(f"transport {transport}: {ws} ranks {how}", flush=True)
     return transport
 
@@ -128,7 +166,8 @@ class _Works:
 
 
 class _Staged:
-    """A host-staged shift running on the group's worker thread."""
+    """A shift running on the group's worker thread (``gloo-staged`` or
+    ``cuda-ipc``)."""
 
     def __init__(self, comm, future):
         self.comm, self.future = comm, future
@@ -142,6 +181,135 @@ class _Staged:
         for t in outs:
             t.record_stream(stream)
         return outs
+
+
+def _bytes(t):
+    """A contiguous tensor's storage as a flat uint8 view."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _up(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _rounds(sizes, cap):
+    """Pack messages of ``sizes`` bytes into rounds of at most ``cap``
+    bytes: a list of rounds, each a list of (message, byte lo, byte hi,
+    offset in the slot); a message larger than ``cap`` is cut into pieces
+    (aligned cuts), each piece its own round."""
+    out, cur, used = [], [], 0
+    for i, n in enumerate(sizes):
+        lo = 0
+        while lo < n:
+            take = min(n - lo, cap)
+            if cur and used + _up(take) > cap:
+                out.append(cur)
+                cur, used = [], 0
+            cur.append((i, lo, lo + take, used))
+            used += _up(take)
+            lo += take
+    if cur:
+        out.append(cur)
+    return out
+
+
+class _Mailbox:
+    """This rank's exported device buffer of two slots, every group rank's
+    slots opened through CUDA IPC (its own for itself), and the group's
+    doorbell: a row of host memory per rank, shared by the ranks (a file
+    mapped by each, unlinked once mapped), holding its round counter
+    (``READY``), the bytes of its last two rounds (``SIZE`` + parity) and,
+    for shifts, how many pieces it has finished reading (``DONE``).
+    ``ensure(n)`` grows the slots to hold ``n`` bytes — a collective over
+    ``group``: every rank grows at the same round, since every rank
+    carries the same sizes."""
+
+    READY, SIZE, DONE = 0, 1, 3
+
+    def __init__(self, comm, group):
+        self.comm, self.group = comm, group
+        self.slot_bytes = 0
+        self.slots = None          # per group rank: uint8 (2, slot_bytes)
+        self.bell = None           # int64 (size, 8): a row per group rank
+        self.n = 0                 # rounds so far: slot n % 2 is next
+
+    def ensure(self, nbytes: int):
+        if nbytes <= self.slot_bytes:
+            return
+        from torch.multiprocessing.reductions import reduce_tensor
+        c = self.comm
+        size = min(MAILBOX_CAP, max(1 << 20, 1 << (nbytes - 1).bit_length()))
+        # the old slots are read by nobody once every rank is here
+        torch.cuda.current_stream(c.device).synchronize()
+        mine = torch.empty((2, size), dtype=torch.uint8, device=c.device)
+        path = None
+        if self.bell is None and c.rank == 0:
+            fd, path = tempfile.mkstemp(prefix="doorbell-")
+            os.write(fd, bytes(8 * 8 * c.size))
+            os.close(fd)
+        got = [None] * c.size
+        dist.all_gather_object(got, (reduce_tensor(mine), path),
+                               group=self.group)
+        slots = []
+        for i, ((rebuild, args), _) in enumerate(got):
+            if i == c.rank:
+                slots.append(mine)
+                continue
+            t = rebuild(*args)
+            if t.device != mine.device or t.numel() != mine.numel():
+                raise RuntimeError(f"rank {c.ranks[i]}'s mailbox opened as "
+                                   f"{tuple(t.shape)} on {t.device}")
+            slots.append(t)
+        self.slots, self.slot_bytes = slots, size
+        if self.bell is None:
+            self.bell = np.memmap(got[0][1], dtype=np.int64, mode="r+",
+                                  shape=(c.size, 8))
+            dist.barrier(group=self.group)      # every rank has mapped it
+            if path is not None:
+                os.unlink(path)
+
+    def slot(self, i: int, s: int):
+        """Group rank ``i``'s slot ``s`` (bytes)."""
+        return self.slots[i][s]
+
+    def ring(self, n: int, nbytes: int):
+        """This rank's round ``n`` (counted from 1) of ``nbytes`` is in its
+        slot."""
+        row = self.bell[self.comm.rank]
+        row[self.SIZE + n % 2] = nbytes
+        row[self.READY] = n
+
+    def wait(self, ranks, n: int, nbytes: int, col=READY):
+        """Until every group rank of ``ranks`` has rung round ``n``
+        (``col=DONE``: has read piece ``n``); a rung round must carry this
+        rank's ``nbytes``."""
+        b = self.bell
+        _spin(lambda: all(b[i, col] >= n for i in ranks),
+              f"rank {self.comm.ranks[self.comm.rank]} waited for group "
+              f"ranks {list(ranks)} at round {n}")
+        if col == self.READY:
+            got = [int(b[i, self.SIZE + n % 2]) for i in ranks]
+            if any(x != nbytes for x in got):
+                raise RuntimeError(f"round {n} of {nbytes} bytes: the "
+                                   f"ranks {list(ranks)} sent {got}")
+
+
+WAIT_LIMIT_S = 600.0     # a peer that never rings is a fault, not a wait
+
+
+def _spin(ready, what):
+    """Poll ``ready()``: a few quick tries, then yielding the GIL (the
+    shift worker and the main thread both wait here), then 50 µs naps."""
+    i, t0 = 0, None
+    while not ready():
+        i += 1
+        if i < 64:
+            continue
+        if t0 is None:
+            t0 = time.perf_counter()
+        time.sleep(0 if i < 4096 else 5e-5)
+        if i % 1024 == 0 and time.perf_counter() - t0 > WAIT_LIMIT_S:
+            raise RuntimeError(f"{what}: no answer in {WAIT_LIMIT_S:.0f} s")
 
 
 class Comm:
@@ -170,9 +338,14 @@ class Comm:
         self.shift_wait_s = self.reduce_s = self.gather_s = 0.0
         self.a2a_s = 0.0
         self._pool = self._side = None
-        if transport == "gloo-staged":
+        if transport in ("gloo-staged", "cuda-ipc"):
             self._pool = concurrent.futures.ThreadPoolExecutor(1)
             self._side = torch.cuda.Stream(self.device)
+        self._box = self._p2p_box = None
+        self._readers = [None, None]       # a shift slot's last reader
+        if transport == "cuda-ipc" and self.size > 1:
+            self._box = _Mailbox(self, group)
+            self._p2p_box = _Mailbox(self, p2p_group)
 
     # ---------------------------------------------------------- shifts
     def shift(self, tensors, hops: int):
@@ -186,11 +359,12 @@ class Comm:
         dst = self.ranks[(self.rank + h) % self.size]
         src = self.ranks[(self.rank - h) % self.size]
         self._tag += 1
-        if self.transport == "gloo-staged":
+        if self._pool is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
+            work = self._ipc_shift if self._box else self._staged
             return _Staged(self, self._pool.submit(
-                self._staged, tensors, ready, src, dst, self._tag))
+                work, tensors, ready, src, dst, self._tag))
         outs = [torch.empty_like(t) for t in tensors]
         return _Works(self, self._p2p(tensors, outs, src, dst, self._tag),
                       outs)
@@ -226,7 +400,66 @@ class Comm:
             self._side.synchronize()
         return outs, done
 
+    def _ipc_shift(self, tensors, ready, src, dst, tag):
+        """Worker thread: a shift through the shift mailbox, on the side
+        stream, piece by piece: once slot m % 2's last reader has rung
+        that it is done, copy in and ring; once ``src`` has rung piece m,
+        copy out of its slot and ring that this rank is done.  Returns the
+        received tensors and an event after their copy."""
+        box = self._p2p_box
+        i_src, i_dst = self.ranks.index(src), self.ranks.index(dst)
+        with torch.cuda.stream(self._side):
+            self._side.wait_event(ready)
+            outs = [torch.empty_like(t) for t in tensors]
+            ins = [_bytes(t) for t in tensors]
+            got = [_bytes(t) for t in outs]
+            for rnd in _rounds([b.numel() for b in ins], MAILBOX_CAP):
+                need = rnd[-1][3] + rnd[-1][2] - rnd[-1][1]
+                box.ensure(need)
+                s = box.n % 2
+                box.n += 1
+                m = box.n
+                if m > 2:                # slot s's reader of piece m - 2
+                    box.wait([self._readers[s]], m - 2, 0, col=box.DONE)
+                self._readers[s] = i_dst
+                mine = box.slot(self.rank, s)
+                for i, lo, hi, off in rnd:
+                    mine[off:off + hi - lo].copy_(ins[i][lo:hi])
+                self._side.synchronize()
+                box.ring(m, need)
+                box.wait([i_src], m, need)
+                theirs = self._peer_slot(box, i_src, s)
+                for i, lo, hi, off in rnd:
+                    got[i][lo:hi].copy_(theirs[off:off + hi - lo])
+                self._side.synchronize()
+                box.bell[self.rank, box.DONE] = m
+            done = torch.cuda.Event()
+            done.record(self._side)
+        return outs, done
+
+    def _peer_slot(self, box, i, s):
+        """Group rank ``i``'s slot ``s`` of ``box``, as this rank reads
+        it."""
+        return box.slot(i, s)
+
     # ----------------------------------------------------- collectives
+    def _round(self, need: int, write, read):
+        """One round through the collective mailbox: ``write(slot)``
+        enqueues this rank's bytes into its slot; once every rank has rung
+        the round, ``read(slots)`` enqueues the reads from the group ranks'
+        slots (rank order).  The stream sync before the ring also covers
+        this rank's reads of the round before, which frees that round's
+        slot for its writer."""
+        box = self._box
+        box.ensure(need)
+        s = box.n % 2
+        box.n += 1
+        write(box.slot(self.rank, s))
+        torch.cuda.current_stream(self.device).synchronize()
+        box.ring(box.n, need)
+        box.wait(range(self.size), box.n, need)
+        read([self._peer_slot(box, i, s) for i in range(self.size)])
+
     def _host(self, x):
         return x.cpu() if self.transport == "gloo-staged" else x
 
@@ -244,19 +477,57 @@ class Comm:
         # list form)
         parts = self._host(torch.stack(x.chunk(self.size, dim=split_dim)))
         outs = torch.empty_like(parts)
-        dist.all_to_all_single(outs, parts, group=self.group)
+        if self._box is None:
+            dist.all_to_all_single(outs, parts, group=self.group)
+        else:
+            self._ipc_all_to_all(parts, outs)
         out = self._back(torch.cat(outs.unbind(0), dim=concat_dim))
         self.a2a_s += time.perf_counter() - t0
         return out
+
+    def _ipc_all_to_all(self, parts, outs):
+        S, me = self.size, self.rank
+        pb, ob = parts.view(S, -1).view(torch.uint8), \
+            outs.view(S, -1).view(torch.uint8)
+        L = pb.shape[1]
+        step = max(_ALIGN, MAILBOX_CAP // S // _ALIGN * _ALIGN)
+        for lo in range(0, L, step):
+            n = min(step, L - lo)
+            w = _up(n)
+
+            def write(slot, lo=lo, n=n, w=w):
+                slot[:S * w].view(S, w)[:, :n].copy_(pb[:, lo:lo + n])
+
+            def read(slots, lo=lo, n=n, w=w):
+                for i, sl in enumerate(slots):
+                    ob[i, lo:lo + n].copy_(sl[me * w:me * w + n])
+            self._round(S * w, write, read)
 
     def all_gather(self, x, dim: int):
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
         if self.size == 1:
             return x
         t0 = time.perf_counter()
-        xs = self._host(x).contiguous()
-        outs = [torch.empty_like(xs) for _ in range(self.size)]
-        dist.all_gather(outs, xs, group=self.group)
+        if self._box is None:
+            xs = self._host(x).contiguous()
+            outs = [torch.empty_like(xs) for _ in range(self.size)]
+            dist.all_gather(outs, xs, group=self.group)
+        else:
+            xs = x.contiguous()
+            outs = torch.empty((self.size,) + xs.shape, dtype=xs.dtype,
+                               device=xs.device)
+            xb, ob = _bytes(xs), outs.view(self.size, -1).view(torch.uint8)
+            for rnd in _rounds([xb.numel()], MAILBOX_CAP):
+                (_, lo, hi, _), = rnd
+
+                def write(slot, lo=lo, hi=hi):
+                    slot[:hi - lo].copy_(xb[lo:hi])
+
+                def read(slots, lo=lo, hi=hi):
+                    for i, sl in enumerate(slots):
+                        ob[i, lo:hi].copy_(sl[:hi - lo])
+                self._round(hi - lo, write, read)
+            outs = outs.unbind(0)
         out = self._back(torch.cat(outs, dim=dim))
         self.gather_s += time.perf_counter() - t0
         return out
@@ -268,6 +539,10 @@ class Comm:
             return tensors
         rop = _OPS[op]
         t0 = time.perf_counter()
+        if self._box is not None:
+            self._ipc_reduce(tensors, op)
+            self.reduce_s += time.perf_counter() - t0
+            return tensors
         works = []
         staged = []
         for t in tensors:
@@ -283,12 +558,76 @@ class Comm:
         self.reduce_s += time.perf_counter() - t0
         return tensors
 
+    def _ipc_reduce(self, tensors, op):
+        """Every rank's tensors through the mailbox; each rank reduces the
+        ranks' slots in rank order (sums in float32, float64 for float64
+        tensors, integers in int64) and writes the result in place."""
+        flats = [t if t.is_contiguous() else t.contiguous() for t in tensors]
+        bs = [_bytes(f) for f in flats]
+        for rnd in _rounds([b.numel() for b in bs], MAILBOX_CAP):
+            need = rnd[-1][3] + rnd[-1][2] - rnd[-1][1]
+
+            def write(slot, rnd=rnd):
+                for i, lo, hi, off in rnd:
+                    slot[off:off + hi - lo].copy_(bs[i][lo:hi])
+
+            def read(slots, rnd=rnd):
+                # one reduction over each run of segments of one dtype
+                runs = []
+                for seg in rnd:
+                    dt = flats[seg[0]].dtype
+                    if runs and runs[-1][0] == dt:
+                        runs[-1][1].append(seg)
+                    else:
+                        runs.append((dt, [seg]))
+                for dt, segs in runs:
+                    a, b = segs[0][3], segs[-1][3] + segs[-1][2] - segs[-1][1]
+                    xs = [sl[a:b].view(dt) for sl in slots]
+                    if op == "max":
+                        acc = xs[0].clone()
+                        for x in xs[1:]:
+                            torch.maximum(acc, x, out=acc)
+                    else:
+                        acc = xs[0].to(_acc_dtype(dt), copy=True)
+                        for x in xs[1:]:
+                            acc += x
+                    acc = _bytes(acc.to(dt))
+                    for i, lo, hi, off in segs:
+                        bs[i][lo:hi].copy_(acc[off - a:off - a + hi - lo])
+            self._round(need, write, read)
+        for t, f in zip(tensors, flats):
+            if f is not t:
+                t.copy_(f)
+
     def broadcast_(self, tensors, root: int):
         """Copy each tensor of group rank ``root`` to every rank, in
         place."""
         if self.size == 1:
             return tensors
         t0 = time.perf_counter()
+        if self._box is not None:
+            flats = [t if t.is_contiguous() else t.contiguous()
+                     for t in tensors]
+            bs = [_bytes(f) for f in flats]
+            for rnd in _rounds([b.numel() for b in bs], MAILBOX_CAP):
+                need = rnd[-1][3] + rnd[-1][2] - rnd[-1][1]
+
+                def write(slot, rnd=rnd):
+                    if self.rank == root:
+                        for i, lo, hi, off in rnd:
+                            slot[off:off + hi - lo].copy_(bs[i][lo:hi])
+
+                def read(slots, rnd=rnd):
+                    if self.rank != root:
+                        for i, lo, hi, off in rnd:
+                            bs[i][lo:hi].copy_(slots[root][off:off + hi
+                                                           - lo])
+                self._round(need, write, read)
+            for t, f in zip(tensors, flats):
+                if f is not t:
+                    t.copy_(f)
+            self.reduce_s += time.perf_counter() - t0
+            return tensors
         for t in tensors:
             h = self._host(t)
             dist.broadcast(h, self.ranks[root], group=self.group)
@@ -296,6 +635,15 @@ class Comm:
                 t.copy_(h)
         self.reduce_s += time.perf_counter() - t0
         return tensors
+
+
+def _acc_dtype(dt):
+    """The dtype the mailbox sum accumulates a ``dt`` tensor in."""
+    if dt == torch.float64:
+        return torch.float64
+    if dt.is_floating_point:
+        return torch.float32
+    return torch.int64
 
 
 # ------------------------------------------------- differentiable forms
@@ -349,3 +697,26 @@ def all_reduce(comm, x, op: str = "sum"):
     if comm is None or comm.size == 1:
         return x
     return _AllReduce.apply(x, comm, op == "mean")
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim, ctx.n = comm, dim, x.shape[dim]
+        return comm.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        return g.narrow(ctx.dim, c.rank * ctx.n, ctx.n), None, None
+
+
+def gather_rows(comm, x, dim: int):
+    """:meth:`Comm.all_gather` inside an autograd graph where each rank
+    goes on to use only its own piece of the gathered rows' results: the
+    backward keeps this rank's piece of the cotangent and sends nothing,
+    so each rank's gradient is its own share (as :func:`all_reduce`'s).
+    ``comm`` None or of one rank: ``x`` itself."""
+    if comm is None or comm.size == 1:
+        return x
+    return _GatherRows.apply(x, comm, dim)

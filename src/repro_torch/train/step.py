@@ -6,17 +6,19 @@ which writes ``params`` and ``opt`` in place.
 
 On a process-group mesh each rank holds its shard of the batch and a
 replica of the parameters, except an MoE model's routed experts, whose
-rows shard over the sequence axis (``DecoderLM.expert_group``).  After
-autograd, the replicated leaves' gradients are summed over the ranks
-holding distinct tokens (``models.transformer.token_group``: on a 2D mesh the (seq, head)
-pair, times ``data`` where the batch shards over it) and the
-expert shards' over the ranks holding the same experts and distinct
-tokens (``DecoderLM.expert_grad_group``: the data axis when the batch
-shards over it), so every rank holds the gradient of the global loss for
-its leaves; the global gradient norm counts each expert once (its squares
-summed over the sequence axis), and the non-finite decision is a max over
-the world, so the norm, the clip, the decision and the replicated leaves'
-update are the same on every rank.
+rows shard over the sequence axis (``DecoderLM.expert_group``; on a 2D
+mesh over ``seq`` alone).  After autograd, the replicated leaves'
+gradients are summed over the ranks holding distinct tokens
+(``models.transformer.token_group``: on a 2D mesh the (seq, head) pair,
+times ``data`` where the batch shards over it) and the expert shards'
+over the ranks holding the same experts and distinct rows' shares
+(``DecoderLM.expert_grad_group``: a 2D mesh's ``head`` axis, and the data
+axis when the batch shards over it), so every rank holds the gradient of
+the global loss for its leaves; the global gradient norm counts each
+expert once (its squares summed over ``expert_group``, whose ranks hold
+distinct experts), and the non-finite decision is a max over the world,
+so the norm, the clip, the decision and the replicated leaves' update are
+the same on every rank.
 
 The step carries the reference's non-finite guard: when the loss or any
 gradient is NaN/Inf (a poisoned batch, an overflow, a kernel bug) the

@@ -435,8 +435,8 @@ def test_training_steps_on_card_match_cpu(dev):
 
 
 def test_head_parallel_pool_equals_one_rank_kernel_bitwise(dev):
-    """llama-7b's 32 kv heads over 4 ranks sharing the card (host-staged
-    gloo): kernel B on each rank's 8 heads, all-gathered over heads,
+    """llama-7b's 32 kv heads over 4 ranks sharing the card (cuda-ipc):
+    kernel B on each rank's 8 heads, all-gathered over heads,
     equals one launch over every head bit for bit (B is per head and
     batch-invariant)."""
     import _torch_long_cases as LC
@@ -445,7 +445,7 @@ def test_head_parallel_pool_equals_one_rank_kernel_bitwise(dev):
     res = spawn(LC.head_parallel_world, 4, (4,), device=dev, timeout=300)
     assert res[0][0] is True
     assert all(r[1] == 1 for r in res)
-    assert {r[2] for r in res} == {"gloo-staged"}
+    assert {r[2] for r in res} == {"cuda-ipc"}
 
 
 # ------------------------------------------------- the MLA latent shape
@@ -984,7 +984,7 @@ def test_pair_routes_under_a_balanced_plan_step_mask(dev):
 
 
 def test_moe_apply_two_ranks_on_card_matches_one_rank(dev):
-    """``moe_apply`` over 2 ranks sharing the card (host-staged gloo; each
+    """``moe_apply`` over 2 ranks sharing the card (cuda-ipc; each
     rank half the experts, the dispatch's two all_to_alls, the aux
     statistics summed over the ranks), float32 at capacity 4.0, against
     the one-rank dispatch on the card replaying the ranks' expert choices:
@@ -994,7 +994,7 @@ def test_moe_apply_two_ranks_on_card_matches_one_rank(dev):
     from repro_torch.models import moe as M
     res = sorted(spawn(MC.card_moe_world, 2, (), device=dev, timeout=300),
                  key=lambda r: r[0])
-    assert {r[1] for r in res} == {"gloo-staged"}
+    assert {r[1] for r in res} == {"cuda-ipc"}
     assert all(r[5] > 0 for r in res)
     cfg = smoke_config(get_config(MC.ARCH))
     p, x = MC.card_moe_inputs(cfg)
@@ -1016,3 +1016,69 @@ def test_moe_apply_two_ranks_on_card_matches_one_rank(dev):
         torch.testing.assert_close(y_r, y[:, r * n:(r + 1) * n].cpu(),
                                    atol=1e-5, rtol=1e-5)
         assert abs(aux_r - float(aux)) <= 1e-5 * abs(float(aux))
+
+
+# ------------------------------------- the cuda-ipc transport (4 ranks)
+
+@pytest.fixture(scope="module")
+def ipc_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    import _torch_comm_cases as CC
+    from repro_torch.launch.world import spawn
+    return sorted(spawn(CC.transport_world, CC.RANKS, (), device="cuda",
+                        timeout=300), key=lambda r: r["rank"])
+
+
+def _bits(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _same_bits(a, b):
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        _bits(a), _bits(b))
+
+
+def test_cuda_ipc_transfers_are_gloo_staged_bitwise(ipc_world):
+    """On 4 ranks of one card: shifts, all_to_all, all_gather and
+    broadcast_ under cuda-ipc give bitwise what gloo-staged gives, and
+    every rank's meshes took the transports named."""
+    for r in ipc_world:
+        assert r["transports"] == ("cuda-ipc", "gloo-staged")
+        for k in ("shift1", "shift3", "a2a", "gather", "bcast"):
+            assert _same_bits(r["ipc"][k], r["staged"][k]), (r["rank"], k)
+
+
+def test_cuda_ipc_all_reduce_is_rank_equal_and_float32_close(ipc_world):
+    """``all_reduce_`` under cuda-ipc is bitwise the same on every rank, and
+    each sum is within its float32 rounding bound (P · 2^-24 · Σ|x|, plus
+    one rounding of the tensor's own dtype) of the float64 sum of the
+    ranks' inputs."""
+    for k in ("sum", "sum_big"):
+        for r in ipc_world[1:]:
+            assert _same_bits(r["ipc"][k], ipc_world[0]["ipc"][k]), k
+    parts = [torch.stack([r["red"][i] for r in ipc_world])
+             for i in range(len(ipc_world[0]["red"]))]
+    parts.append(torch.stack([r["red_big"] for r in ipc_world]))
+    got = ipc_world[0]["ipc"]["sum"] + [ipc_world[0]["ipc"]["sum_big"]]
+    for g, p in zip(got, parts):
+        exact = p.double().sum(0)
+        ulp = 2.0 ** -8 if g.dtype == torch.bfloat16 else 2.0 ** -24
+        bound = (p.shape[0] * 2.0 ** -24 * p.double().abs().sum(0)
+                 + ulp * exact.abs())
+        assert bool(((g.double() - exact).abs() <= bound).all())
+
+
+def test_cuda_ipc_message_above_the_mailbox_cap_arrives_whole(ipc_world):
+    """A shift, an all_to_all, an all_gather and an all-reduce larger than
+    one mailbox slot go in pieces and arrive whole: bitwise gloo-staged's
+    (the sum: bitwise on every rank)."""
+    from repro_torch.parallel.comm import MAILBOX_CAP
+    r0 = ipc_world[0]
+    assert r0["ipc"]["gather_big"].numel() * 2 > MAILBOX_CAP
+    for r in ipc_world:
+        for k in ("shift_big", "a2a_big", "gather_big"):
+            assert _same_bits(r["ipc"][k], r["staged"][k]), (r["rank"], k)
+        assert _same_bits(r["ipc"]["sum_big"], r0["ipc"]["sum_big"])
