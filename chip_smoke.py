@@ -155,9 +155,18 @@ Phases, each fatal on failure (nothing is caught):
                 gradients of every layer's wq, wk, wv under each schedule,
                 step 1's gradient norm and step 2's loss (the limits must
                 reject two planted backward faults: the accumulators'
-                home shift dropped, the helpers' dq dropped).  Any rank's
-                failure, or the world still running after 600 s, is
-                fatal.
+                home shift dropped, the helpers' dq dropped).  An
+                ``auto`` step: one train step under ``schedule="auto"``
+                from the world's own init and first batch; every rank
+                resolves ``choose_schedule``'s pick for the cell (ulysses
+                at the H100 constants: its forward A once a layer over the
+                whole 32,768-token sequence at 8 heads a rank, its
+                backward the ring plan's C and D), its loss and gradient
+                norm bitwise a named-ulysses step's from the same start,
+                its loss within the P = 1 bar; rank 0's first
+                whole-sequence A call held to its plain version on its
+                first and last 2,048 query rows.  Any rank's failure, or
+                the world still running after 600 s, is fatal.
   8. long     — long-context serving across sequence ranks: a gloo world
                 of 4 processes sharing the card (``cuda-ipc``),
                 llama-7b's width (d_model 4096, 32 × 128 heads, d_ff 11008,
@@ -372,9 +381,13 @@ Phases, each fatal on failure (nothing is caught):
                 backward's dk/dv all-to-all rotated by one; each rank's
                 A/C/D launches in one train step equal to the inner plan's
                 ``rank_calls``; step seconds, host seconds in head
-                all_to_alls and seq shifts, peak memory.  (b) replicate
-                mode: the attention alone on (2, 2), q 32 heads × 128, k/v
-                one kv head, T 32768, bf16, causal, against one kernel call
+                all_to_alls and seq shifts, peak memory; on (2, 2) an
+                ``auto`` step from the named step's start: every rank
+                resolves ``choose_inner_schedule``'s pick (balanced), its
+                loss, norm and launches bitwise the named step's.  (b)
+                replicate mode: the attention alone on (2, 2), q 32
+                heads × 128, k/v one kv head, T 32768, bf16, causal,
+                against one kernel call
                 on the whole inputs at phase 3's bf16 bars (o row by row,
                 as the backward: it merges bf16 partials); rejected
                 control: the home step without its all-reduce over
@@ -409,6 +422,30 @@ Phases, each fatal on failure (nothing is caught):
                 MoE without its sum over seq, each head rank dispatching
                 only its own 2,048 rows.  (c) the latent ring on (2, 2)
                 raises (ROADMAP fault 3.7), printed.
+  20. engine2d — the paged Engine on a 2D (seq = 2) × (head = 2) mesh of
+                4 ``cuda-ipc`` ranks (after phase 19), every pool sharded
+                over seq alone (the two head ranks of a seq shard hold the
+                same part), seed 20, phase 4's engine, phase 11's requests
+                (a prefix fork), 32 greedy tokens.  (a) qwen3-8b's width at
+                depth 8 of 36 (phase 11 (a)'s cut), its K/V pool
+                head-parallel (4 of 8 kv heads a seq rank): streams equal
+                a one-process engine's on the same weights.  (b)
+                deepseek-v2-lite-16b at full width, 9 of 27 layers (phase
+                17's cut), its latent pool block-sharded (96 of 192 blocks
+                a seq rank), a chunk's MoE rows split over seq (128 of 256
+                a seq rank), a corrupted block at step 10: every step's
+                logits within 5% of max |logit| of one process replaying
+                the seq shards' expert choices and kept pairs,
+                teacher-forced; the block's owner alone quarantined;
+                controls: the fault applied on one head replica only
+                (rejected by the replica check), each head rank
+                dispatching only its own 64 rows (rejected by its dispatch
+                size).  Both: streams, states, fault log and logits
+                checksums equal on every rank, each seq shard's two
+                replicas' pools bitwise equal (digests), A and B on rank
+                0's chunk and decode inputs held to their plain versions;
+                decode ms a step and host seconds in pool gathers and MoE
+                sums a rank.
 Every phase prints its seconds, and every multi-rank phase its ranks'
 host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
@@ -2348,14 +2385,166 @@ def _plan_launches(sched, P=P7_RANKS, T=P7_T):
     return want
 
 
-def _p7_rank(rank, ref_path):
+@contextlib.contextmanager
+def _resolved():
+    """While the block runs, every name ``resolve_schedule`` gives an
+    ``auto`` spec goes into the list it yields."""
+    from repro_torch.core import dist_attention as da
+    base, names = da.resolve_schedule, []
+
+    def noted(spec, *a, **kw):
+        name = base(spec, *a, **kw)
+        if spec.schedule == "auto":
+            names.append(name)
+        return name
+    da.resolve_schedule = noted
+    try:
+        yield names
+    finally:
+        da.resolve_schedule = base
+
+
+@contextlib.contextmanager
+def _local_calls(save_to=None):
+    """While the block runs, the q shape of every whole-sequence kernel-A
+    call the ulysses baseline makes (``dist_attention.chunk_attn``) goes
+    into the list it yields; ``save_to``: the first call's q, k, v saved
+    there (on the host)."""
+    from repro_torch.core import dist_attention as da
+    base, shapes = da.chunk_attn, []
+
+    def noted(q, k, v, **kw):
+        if save_to is not None and not shapes:
+            torch.save(dict(q=q.cpu(), k=k.cpu(), v=v.cpu(),
+                            mask=kw["mask"]), save_to)
+        shapes.append(tuple(q.shape))
+        return base(q, k, v, **kw)
+    da.chunk_attn = noted
+    try:
+        yield shapes
+    finally:
+        da.chunk_attn = base
+
+
+def _p7_auto_name():
+    """``choose_schedule``'s pick for phase 7's cell (causal, P 4, Tl
+    8192, llama-7b's 32 / 32 heads of 128, bf16, with the backward)."""
+    a = get_config("llama-7b").attn
+    return sp.choose_schedule(mk.causal(), P7_RANKS, Tl=P7_T // P7_RANKS,
+                              B=1, Hq=a.n_heads, Hkv=a.n_kv_heads,
+                              Dqk=a.head_dim, bpe=2, include_bwd=True)
+
+
+def _p7_auto(cfg, mesh, shape, params, batch, saved, save_to=None):
+    """Phase 7's ``auto`` step: one train step under ``schedule="auto"``
+    from the world's own init and first batch, then one under the name
+    ``choose_schedule`` gives the cell, each from the same start (undone):
+    losses, norms, the names ``auto`` resolved, launches, the whole-sequence
+    A calls' shapes (rank 0's first saved at ``save_to``)."""
+    runs = {}
+    for sched in ("auto", _p7_auto_name()):
+        model = DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+            mesh, shape, schedule=sched))
+        opt = adamw.init(params)
+        step = make_train_step(model, _p7_tc())
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with _resolved() as names, _local_calls(
+                save_to if sched == "auto" else None) as shapes:
+            m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        runs[sched] = dict(loss=m["loss"], gnorm=m["gnorm"],
+                           skipped=m["skipped_nonfinite"],
+                           sec=time.perf_counter() - t0, names=names,
+                           shapes=shapes,
+                           launches={k: build.LAUNCHES[k]
+                                     for k in BWD_KERNELS})
+        with torch.no_grad():
+            for t, v in zip(leaves(params), saved):
+                t.copy_(v)
+        del opt, step, model
+    return runs
+
+
+def _p7_auto_gates(res, ce1, auto_path, want):
+    """The ``auto`` step's gates: every rank resolved ``choose_schedule``'s
+    name (ulysses expected) in its forward and backward; its loss and
+    gradient norm bitwise the named step's, its loss within phase 7's bar
+    of P = 1's; A once a layer over the whole sequence at 8 heads a rank,
+    C and D the ring plan's (the baseline's backward); rank 0's first
+    whole-sequence A call held to its plain version on its first and last
+    2,048 query rows.  Returns the auto step's launches (all ranks)."""
+    name = _p7_auto_name()
+    check(name == "ulysses", f"choose_schedule picks {name} for phase 7's "
+          "cell, not ulysses")
+    launches = {k: 0 for k in BWD_KERNELS}
+    cfg = get_config("llama-7b")
+    hl = cfg.attn.n_heads // P7_RANKS
+    for r in res:
+        au, named = r["auto"]["auto"], r["auto"][name]
+        check(au["names"] and set(au["names"]) == {name}, f"rank "
+              f"{r['rank']}: auto resolved {au['names']}, want {name}")
+        check(au["loss"] == named["loss"] and au["gnorm"] == named["gnorm"],
+              f"rank {r['rank']}: auto step loss / gnorm {au['loss']} / "
+              f"{au['gnorm']} vs {name} {named['loss']} / {named['gnorm']}")
+        check(au["skipped"] == 0 and abs(au["loss"] - float(ce1.mean()))
+              <= P7_LOSS_TOL, f"rank {r['rank']}: auto step loss "
+              f"{au['loss']} vs P = 1 {float(ce1.mean())}")
+        w_bwd = P7_LAYERS * want["ring"][r["rank"]]
+        check(au["launches"] == {"flash_fwd": P7_LAYERS, "flash_bwd_dq":
+                                 w_bwd, "flash_bwd_dkv": w_bwd}
+              and au["shapes"] == [(1, P7_T, hl, cfg.attn.head_dim)]
+              * P7_LAYERS, f"rank {r['rank']}: auto launches "
+              f"{au['launches']}, A shapes {au['shapes']}")
+        for k in BWD_KERNELS:
+            launches[k] += au["launches"][k]
+    x = torch.load(auto_path, weights_only=False)
+    q, k, v = (x[n].to(DEV) for n in ("q", "k", "v"))
+    o, lse = flash_fwd(q, k, v, mask=x["mask"])
+    e_o = r_o = e_l = l_max = 0.0
+    n = min(2048, P7_T // 2)
+    for a in (0, P7_T - n):
+        o_r, lse_r = chunk_attn_ref(q[:, a:a + n], k[:, :a + n],
+                                    v[:, :a + n], mask=mk.causal(a))
+        e_o = max(e_o, float((o[:, a:a + n].float() - o_r.float()).abs()
+                             .max()))
+        r_o = max(r_o, rel_err(o[:, a:a + n], o_r))
+        e_l = max(e_l, float((lse[:, a:a + n] - lse_r).abs().max()))
+        l_max = max(l_max, float(lse_r.abs().max()))
+    del q, k, v, o, lse, o_r, lse_r, x
+    _free()
+    au0, nm0 = res[0]["auto"]["auto"], res[0]["auto"][name]
+    say(f"  auto step: every rank resolved {name} (choose_schedule's pick "
+        f"for the cell at the H100 constants; ulysses expected); loss "
+        f"{au0['loss']:.6f} gnorm {au0['gnorm']:.4f}, bitwise the named "
+        f"{name} step's ({nm0['loss']:.6f} / {nm0['gnorm']:.4f}); |Δloss| "
+        f"vs P = 1 {abs(au0['loss'] - float(ce1.mean())):.3e} (limit "
+        f"{P7_LOSS_TOL}); steps " + ", ".join(
+            f"{r['auto']['auto']['sec']:.2f}" for r in res) + " s a rank")
+    say(f"  auto step launches a rank: A {P7_LAYERS} over q "
+        f"{au0['shapes'][0]} (the ulysses forward, one a layer), C/D "
+        + ", ".join(f"{r['auto']['auto']['launches']['flash_bwd_dq']}"
+                    for r in res)
+        + " (the ring plan's backward); rank 0's first A call against its "
+        f"plain version on query rows [0, {n}) and [{P7_T - n}, {P7_T}): "
+        f"max|Δo| {e_o:.3e} rel {r_o:.2e} (limits {TOL[torch.bfloat16]}, "
+        f"{REL_TOL}), max|Δlse| {e_l:.3e}")
+    check(e_o <= TOL[torch.bfloat16] and r_o <= REL_TOL
+          and e_l <= LSE_TOL * (1 + l_max), f"A at the ulysses shape: o "
+          f"{e_o}, rel {r_o}, lse {e_l}")
+    return launches
+
+
+def _p7_rank(rank, ref_path, auto_path):
     """One rank of phase 7's world (its process and world are started by
     ``spawn``): the per-token losses of the first batch under balanced
     and under the control, the attention projections' gradients of that
     batch under each schedule and under the backward controls (held on
     rank 0 to the P = 1 gradients saved at ``ref_path``), a train step
-    under each backward control (undone), then the train steps of
-    ``P7_RUNS``."""
+    under each backward control (undone), the ``auto`` step and its named
+    schedule's (undone; :func:`_p7_auto`, rank 0's first whole-sequence A
+    call saved at ``auto_path``), then the train steps of ``P7_RUNS``."""
     mesh = make_local_mesh(seq=P7_RANKS, device=DEV)
     p = mesh.coord("model")
     cfg = get_config("llama-7b").replace(n_layers=P7_LAYERS)
@@ -2410,7 +2599,11 @@ def _p7_rank(rank, ref_path):
         for t, v in zip(leaves(params), saved):
             t.copy_(v)
     out["staged_step"] = (m["gnorm"], l2)
-    del saved, opt, st_bal
+    del opt, st_bal
+    _free()
+    out["auto"] = _p7_auto(cfg, mesh, shape, params, b0, saved,
+                           auto_path if p == 0 else None)
+    del saved
     _free()
     comms = list({id(c): c for m in models.values()
                   for c in (m.seq_group, m.token_group)}.values())
@@ -2475,17 +2668,20 @@ def multi_rank():
     want = {s: _plan_launches(s) for s, _ in P7_RUNS}
     with tempfile.TemporaryDirectory() as tmp:
         ref_path = os.path.join(tmp, "grads1.pt")
+        auto_path = os.path.join(tmp, "auto_a.pt")
         ce1, s1, s2 = _p7_one(cfg, shape, ref_path)
         say(f"  P = 1: loss {float(ce1.mean()):.6f} over {P7_T} tokens "
             f"({cfg.name} width, {P7_LAYERS} layers, bf16); step 1 loss "
             f"{s1['loss']:.6f} gnorm {s1['gnorm']:.4f}, step 2 loss "
             f"{s2['loss']:.6f}")
         t0 = time.perf_counter()
-        res = spawn(_p7_rank, P7_RANKS, (ref_path,), device=DEV,
+        res = spawn(_p7_rank, P7_RANKS, (ref_path, auto_path), device=DEV,
                     timeout=P7_TIMEOUT, threads=2)
         wall = time.perf_counter() - t0
         # phase 18 holds its 2D runs to the same P = 1 run
         p1 = dict(ce=ce1, gnorm=s1["gnorm"], grads=torch.load(ref_path))
+        res.sort(key=lambda r: r["rank"])
+        auto_launches = _p7_auto_gates(res, ce1, auto_path, want)
     res.sort(key=lambda r: r["rank"])
     _say_comm(7, res)
     check(all(r["transport"] == P7_TRANSPORT for r in res),
@@ -2573,6 +2769,8 @@ def multi_rank():
             + ", ".join(f"{r['steps'][i]['shift_wait']:.2f}/"
                         f"{r['steps'][i]['reduce_sec']:.2f}" for r in res)
             + " s")
+    for k in BWD_KERNELS:
+        launches[k] += auto_launches[k]
     say(f"  world of {P7_RANKS} ranks: {wall:.1f} s, spawn included")
     return dict(launches=launches, d_tok=d_tok, d_ctl=d_ctl, d_loss=d_loss,
                 d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
@@ -5274,24 +5472,34 @@ def _chunk_moe_fault():
         DecoderLM._split_moe = base
 
 
+def _v_of(k, v):
+    """What :func:`_captured` keeps of v: its width when it is k's leading
+    columns (a latent pool's view), else a clone."""
+    return v.shape[-1] if v.data_ptr() == k.data_ptr() else v.clone()
+
+
+def _v_back(k, v):
+    return k[..., :v] if isinstance(v, int) else v
+
+
 @contextlib.contextmanager
 def _captured():
     """Kernel A's first chunk call past the first chunk (q_offset > 0) and
     kernel B's first decode call (Tq 1, over the gathered pool) while the
-    block runs, inputs cloned: {"A": (q, k, v width, kwargs), "B": (q, k,
-    v width, table, lengths, kwargs)}."""
+    block runs, inputs cloned: {"A": (q, k, v, kwargs), "B": (q, k, v,
+    table, lengths, kwargs)}, v as :func:`_v_of` keeps it."""
     from repro_torch.serve import cache as cm
     got = {}
     a_base, b_base = TF.chunk_attn, cm.paged_decode_attn
 
     def a(q, k, v, **kw):
         if "A" not in got and kw.get("q_offset", 0) > 0:
-            got["A"] = (q.clone(), k.clone(), v.shape[-1], dict(kw))
+            got["A"] = (q.clone(), k.clone(), _v_of(k, v), dict(kw))
         return a_base(q, k, v, **kw)
 
     def b(q, k, v, bt, lens, **kw):
         if "B" not in got and q.shape[1] == 1:
-            got["B"] = (q.clone(), k.clone(), v.shape[-1], bt.clone(),
+            got["B"] = (q.clone(), k.clone(), _v_of(k, v), bt.clone(),
                         lens.clone(), dict(kw))
         return b_base(q, k, v, bt, lens, **kw)
     TF.chunk_attn, cm.paged_decode_attn = a, b
@@ -5301,14 +5509,14 @@ def _captured():
         TF.chunk_attn, cm.paged_decode_attn = a_base, b_base
 
 
-def _held(got):
+def _held(got, phase=17):
     """The captured A and B calls (:func:`_captured`) through the kernels
     and their plain versions (``impl="ref"``), at phase 12's limits: A's
     o element-wise 2e-2 and relative 3e-2, its lse 1e-4; B's o 2e-2."""
     from repro_torch.serve import cache as cm
     q, k, c, kw = got["A"]
-    o, lse = TF.chunk_attn(q, k, k[..., :c], **kw)
-    o_r, lse_r = TF.chunk_attn(q, k, k[..., :c], **{**kw, "impl": "ref"})
+    o, lse = TF.chunk_attn(q, k, _v_back(k, c), **kw)
+    o_r, lse_r = TF.chunk_attn(q, k, _v_back(k, c), **{**kw, "impl": "ref"})
     tol = TOL[q.dtype]
     a_err = float((o.float() - o_r.float()).abs().max())
     a_rel = rel_err(o, o_r) if q.dtype == torch.bfloat16 else 0.0
@@ -5317,16 +5525,16 @@ def _held(got):
     check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol)
           and a_rel <= REL_TOL
           and l_err <= LSE_TOL * (1 + float(lse_r[valid].abs().max())),
-          f"phase 17 chunk: A against its plain version o {a_err}, rel "
-          f"{a_rel}, lse {l_err}")
+          f"phase {phase} chunk: A against its plain version o {a_err}, "
+          f"rel {a_rel}, lse {l_err}")
     q, k, c, bt, lens, kw = got["B"]
-    o = cm.paged_decode_attn(q, k, k[..., :c], bt, lens, **kw)
-    o_r = cm.paged_decode_attn(q, k, k[..., :c], bt, lens,
+    o = cm.paged_decode_attn(q, k, _v_back(k, c), bt, lens, **kw)
+    o_r = cm.paged_decode_attn(q, k, _v_back(k, c), bt, lens,
                                **{**kw, "impl": "ref"})
     b_err = float((o.float() - o_r.float()).abs().max())
     tol = PAGED_TOL[q.dtype]
     check(torch.allclose(o.float(), o_r.float(), atol=tol, rtol=tol),
-          f"phase 17 decode: B against its plain version {b_err}")
+          f"phase {phase} decode: B against its plain version {b_err}")
     return dict(A=(a_err, a_rel, l_err, tuple(got["A"][0].shape),
                    got["A"][3]["q_offset"]), B=(b_err, tuple(k.shape)))
 
@@ -5638,6 +5846,38 @@ def _p18_calls(plan, s, backward=False):
     return sum(1 for c in sp.rank_calls(plan, backward) if c[1] == s)
 
 
+def _p18_auto_name():
+    """``choose_inner_schedule``'s pick for phase 7's cell on (2, 2)."""
+    a = get_config("llama-7b").attn
+    return sp.choose_inner_schedule(
+        mk.causal(), 2, 2, Tl_dev=P7_T // P18_RANKS, B=1, Hq=a.n_heads,
+        Hkv=a.n_kv_heads, Dqk=a.head_dim, bpe=2, include_bwd=True)
+
+
+def _p18_auto(cfg, mesh, shape, params, batch, saved):
+    """(a)'s ``auto`` step on (2, 2): one train step under
+    ``schedule="auto"`` from the named step's start (undone): the inner
+    schedules it resolved, its loss, norm and launches."""
+    model = DecoderLM(cfg, DEV, par=make_parallel_config(
+        mesh, shape, schedule="auto"), mesh=mesh)
+    opt = adamw.init(params)
+    step = make_train_step(model, _p7_tc())
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with _resolved() as names:
+        m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    out = dict(names=names, loss=m["loss"], gnorm=m["gnorm"],
+               sec=time.perf_counter() - t0,
+               launches={k: build.LAUNCHES[k] for k in BWD_KERNELS})
+    with torch.no_grad():
+        for t, v in zip(leaves(params), saved):
+            t.copy_(v)
+    del opt, step, model
+    return out
+
+
 def _p18_train(rank, meshes, ref):
     """(a): phase 7's model and batch on each 2D mesh of ``P18_TRAIN``:
     per-token losses, the planted controls on (2, 2), then one counted and
@@ -5692,7 +5932,11 @@ def _p18_train(rank, meshes, ref):
         with torch.no_grad():
             for t, v in zip(leaves(params), saved):
                 t.copy_(v)
-        del opt, saved, step, model
+        del opt, step, model
+        if (r, u) == (2, 2):
+            _free()
+            run["auto"] = _p18_auto(cfg, mesh, shape, params, b0, saved)
+        del saved
         runs[f"{sched}@r{r}u{u}"] = run
     del params
     _free()
@@ -5858,6 +6102,29 @@ def _p18_train_gates(res, p1):
                   f"({st['grad_err_dkv']})")
         losses = {x["loss"] for x in runs}
         check(len(losses) == 1, f"{key}: ranks disagree {losses}")
+        if "auto" in st:
+            name = _p18_auto_name()
+            check(name == sched == "balanced", f"choose_inner_schedule "
+                  f"picks {name} on {key}, not balanced")
+            for x, rk in zip(runs, range(P18_RANKS)):
+                au = x["auto"]
+                check(au["names"] and set(au["names"]) == {name}
+                      and au["loss"] == x["loss"]
+                      and au["gnorm"] == x["gnorm"]
+                      and au["launches"] == x["launches"],
+                      f"{key} rank {rk}: the auto step resolved "
+                      f"{set(au['names'])}, loss / gnorm {au['loss']} / "
+                      f"{au['gnorm']}, launches {au['launches']} against the "
+                      f"named step's {x['loss']} / {x['gnorm']}, "
+                      f"{x['launches']}")
+                for k in BWD_KERNELS:
+                    launches[k] += au["launches"][k]
+            say(f"  auto step on {key}: every rank resolved the inner "
+                f"schedule {name} (choose_inner_schedule's pick; balanced "
+                f"expected); loss {st['auto']['loss']:.6f} gnorm "
+                f"{st['auto']['gnorm']:.4f}, bitwise the named step's; "
+                f"steps " + ", ".join(f"{x['auto']['sec']:.2f}"
+                                      for x in runs) + " s a rank")
         for x, rk in zip(runs, range(P18_RANKS)):
             check(x["axes"] == ("seq", "head") and x["seq_rank"] == rk,
                   f"{key}: rank {rk} shard {x['seq_rank']} over {x['axes']}")
@@ -6443,6 +6710,395 @@ def moe2d():
     out = dict(launches=launches, train=tr, serve=sv, world_s=wall,
                seconds=time.perf_counter() - t_all)
     say(f"  phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- phase 20
+
+P20_SEED, P20_RANKS, P20_RU = 20, 4, (2, 2)
+# (name, arch, depth, pool sharding over seq, step of a corrupt_block fault
+# or None): (a) qwen3-8b's width at phase 11 (a)'s cut, its 8 kv heads 4 a
+# seq rank; (b) deepseek at phase 17's cut, its latent pool 96 of 192
+# blocks a seq rank, the corrupted block at phase 17's step
+P20_CASES = (("a", "qwen3-8b", 8, "heads", None),
+             ("b", P12_ARCH, P17_LAYERS, "blocks", P17_CORRUPT))
+# tokens a request in the one-replica fault's run: its decode must still
+# run at the corrupted block's step
+P20_CTL_NEW = 16
+P20_TIMEOUT = 900
+
+
+def _p20_model(arch, depth, mesh):
+    """A phase 20 model at full width, ``depth`` layers, seed 20 (the Qwen
+    features off their init values, :func:`_perturb`)."""
+    cfg = get_config(arch).replace(n_layers=depth)
+    par = None if mesh is None else make_parallel_config(
+        mesh, ShapeSpec("chip20", 1024, P4_ENGINE["max_batch"], "prefill"))
+    model = DecoderLM(cfg, DEV, par=par, mesh=mesh)
+    params = model.init(seed=P20_SEED)
+    if cfg.moe is None:
+        _perturb(params, P20_SEED)
+    return model, params
+
+
+def _digest(cache):
+    """A sha256 of each local block's bytes in every layer of each pool
+    (what two head replicas compare), with the local index of the null
+    block where this rank holds it: padded chunk rows and idle decode rows
+    all write there, to the same slots, and on the card a scatter with
+    repeated indices keeps any one of the rows."""
+    import hashlib
+    out = {}
+    for k, p in sorted(cache.pools.items()):
+        x = p.detach().contiguous().view(torch.uint8).cpu().numpy()
+        out[k] = [hashlib.sha256(x[:, n].tobytes()).hexdigest()
+                  for n in range(x.shape[1])]
+    held = cache.sharding != "blocks" or cache.group.rank == 0
+    return dict(blocks=out, null=0 if held else None)
+
+
+@contextlib.contextmanager
+def _one_replica_fault(mesh):
+    """Phase 20's replica control: ``corrupt_block`` poisons the owner's
+    block on head replica 0 only."""
+    base = PagedKVCache.corrupt_block
+
+    def corrupt(self, b):
+        if mesh.coord("head") == 0:
+            base(self, b)
+    PagedKVCache.corrupt_block = corrupt
+    try:
+        yield
+    finally:
+        PagedKVCache.corrupt_block = base
+
+
+@contextlib.contextmanager
+def _own_rows_fault():
+    """Phase 20's dispatch control: each head rank dispatches only its own
+    C/(r·u) of a chunk's rows (split over the (seq, head) pair, not over
+    the seq axis), all-gathered back over the pair."""
+    from repro_torch.models.moe import moe_apply
+    base = DecoderLM._split_moe
+
+    def own(self, p, h):
+        g, n = self.seq_group, h.shape[1] // self.seq_group.size
+        y = moe_apply(p, h[:, g.rank * n:(g.rank + 1) * n], self.cfg,
+                      group=self.expert_group)[0]
+        return g.all_gather(y.contiguous(), dim=1)
+    DecoderLM._split_moe = own
+    try:
+        yield
+    finally:
+        DecoderLM._split_moe = base
+
+
+def _p20_case(rank, mesh, case, tmp):
+    """One case of phase 20 on this rank: a warm-up, then phase 11's run
+    (a fork; (b): a corrupted block), recording each decode's seconds and
+    its host seconds in pool gathers and MoE sums, the pools' digests, on
+    rank 0 one chunk's A call and one decode's B call held to their plain
+    versions, and for (b) every MoE dispatch's choices and kept pairs
+    (saved by head rank 0 of each seq shard) and its rows; then (b)'s two
+    controls."""
+    _, arch, depth, _, corrupt = case
+    model, params = _p20_model(arch, depth, mesh)
+    cfg = model.cfg
+    moe = cfg.moe is not None
+    grp = mesh.comm("seq")
+    warm = Engine(model, params, **P4_ENGINE)
+    warm.submit(_p11_prompts(cfg.vocab)[3], max_new_tokens=2)
+    warm.run()
+    del warm
+    dec = dict(s=[], gather=0.0, reduce=0.0)
+    decode = model.decode
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0, g0, r0 = time.perf_counter(), grp.gather_s, grp.reduce_s
+        logits = decode(*a)
+        torch.cuda.synchronize()
+        dec["s"].append(time.perf_counter() - t0)
+        dec["gather"] += grp.gather_s - g0
+        dec["reduce"] += grp.reduce_s - r0
+        return logits
+    model.decode = timed
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    rk, kp = (_Router(), _Keep()) if moe else (None, None)
+    t0 = time.perf_counter()
+    with (rk or contextlib.nullcontext()), (kp or contextlib.nullcontext()), \
+            (_captured() if rank == 0 else contextlib.nullcontext({})) as got:
+        r = _p11_run(model, params, corrupt, router=rk)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    del model.decode
+    rows = _host_rows(r["rec"])
+    cache = r["eng"].cache
+    out = dict(
+        sharding=cache.sharding, group=cache.group.size,
+        local=tuple(next(iter(cache.pools.values())).shape),
+        out=r["out"], log=r["log"], states=r["states"],
+        forks=r["st"]["forks"], quarantined=r["st"]["quarantined"],
+        sums=_sums(rows), rows=rows if rank == 0 else None,
+        launches=launches, wall=wall,
+        step_ms=[1e3 * t for t in r["step_s"]], decode=dec,
+        peak=torch.cuda.max_memory_allocated(), digest=_digest(cache),
+        held=_held(got, 20) if rank == 0 else None,
+        n_params=sum(t.numel() for t in leaves(params)),
+        prompts=r["prompts"] if rank == 0 else None)
+    if moe:
+        out["dispatch"] = [int(k.shape[0]) // cfg.moe.top_k
+                           for k in kp.seen]
+        if mesh.coord("head") == 0:
+            torch.save({"calls": [c.cpu() for c in rk.seen],
+                        "valid": rk.valid,
+                        "keep": [k.cpu() for k in kp.seen]},
+                       os.path.join(tmp, f"p20_seq{mesh.coord('seq')}.pt"))
+    del r, rk, kp, got, cache
+    _free()
+    out["controls"] = {}
+    if moe:
+        with _one_replica_fault(mesh):
+            bad = _p11_run(model, params, corrupt, n_new=P20_CTL_NEW)
+        out["controls"]["replica"] = dict(
+            digest=_digest(bad["eng"].cache), log=bad["log"],
+            out=bad["out"])
+        del bad
+        with _own_rows_fault(), _Keep() as kp2:
+            bad = _p11_run(model, params, None, n_new=P17_CTL_NEW)
+        out["controls"]["rows"] = dict(
+            dispatch=[int(k.shape[0]) // cfg.moe.top_k for k in kp2.seen],
+            out=bad["out"],
+            rows=_host_rows(bad["rec"]) if rank == 0 else None)
+        del bad, kp2
+    del model, params
+    _free()
+    return out
+
+
+def _p20_rank(rank, tmp):
+    mesh = make_seq2d_mesh(*P20_RU, device=DEV)
+    out = {"rank": rank, "transport": mesh.transport,
+           "coords": (mesh.coord("seq"), mesh.coord("head"))}
+    for case in P20_CASES:
+        out[case[0]] = _p20_case(rank, mesh, case, tmp)
+    out["comm_s"] = _process_comm_seconds()
+    return out
+
+
+def _replicas_equal(res, name, key=None):
+    """Whether each seq shard's two head replicas hold bitwise-equal pools
+    past the null block (:func:`_digest`; ``key``: a control's run), the
+    (seq shard, pool, local block)s that differ, and whether the two seq
+    shards hold other parts."""
+    dig = {x["coords"]: (x[name] if key is None
+                         else x[name]["controls"][key])["digest"]
+           for x in res}
+    diff = []
+    for s in range(P20_RU[0]):
+        a, b = dig[(s, 0)], dig[(s, 1)]
+        for k in a["blocks"]:
+            diff += [(s, k, n) for n, (x, y) in enumerate(zip(
+                a["blocks"][k], b["blocks"][k])) if x != y and n != a["null"]]
+    return not diff, diff, dig[(0, 0)]["blocks"] != dig[(1, 0)]["blocks"]
+
+
+def _p20_gates(res, case, tmp):
+    """One case's gates: sharding, ranks' streams, states, fault log and
+    logits checksums equal, replicas' pools bitwise equal, launches; (a)
+    against one process's engine on the same weights (streams equal),
+    (b) against one process replaying the seq shards' expert choices and
+    kept pairs, teacher-forced on their tokens (logits within 5% of max
+    |logit|), the corrupted block's owner alone quarantined, the two
+    controls rejected.  Returns the case's launches (all ranks)."""
+    from repro_torch.models.moe import capacity
+    name, arch, depth, sharding, corrupt = case
+    ranks = [x[name] for x in res]
+    zero = ranks[0]
+    cfg = get_config(arch).replace(n_layers=depth)
+    r_seq = P20_RU[0]
+    a = cfg.attn
+    want_local = ((cfg.n_layers, P4_ENGINE["n_blocks"], P4_ENGINE[
+        "block_size"], a.n_kv_heads // r_seq, a.head_dim)
+        if sharding == "heads" else
+        (cfg.n_layers, P4_ENGINE["n_blocks"] // r_seq,
+         P4_ENGINE["block_size"], a.kv_lora_rank + a.qk_rope_head_dim))
+    keys = (("flash_fwd", "paged_decode") if sharding == "heads"
+            else ("flash_fwd_latent", "paged_decode"))
+    for x, rr in zip(res, ranks):
+        check(rr["sharding"] == sharding and rr["group"] == r_seq
+              and rr["local"] == want_local, f"({name}) rank {x['rank']}: "
+              f"pool {rr['sharding']} over {rr['group']}, local "
+              f"{rr['local']}, want {sharding} over {r_seq}, {want_local}")
+        check(rr["sums"] == zero["sums"], f"({name}) rank {x['rank']} "
+              "computed other logits")
+        check(all(np.array_equal(p, q) for p, q in zip(rr["out"],
+                                                       zero["out"]))
+              and rr["log"] == zero["log"] and rr["states"] == zero["states"],
+              f"({name}) rank {x['rank']}: streams, fault log or states "
+              "differ")
+        check(all(rr["launches"][k] > 0 for k in keys), f"({name}) rank "
+              f"{x['rank']}: launches {rr['launches']}")
+    same, diff, apart = _replicas_equal(res, name)
+    check(same and apart, f"({name}) replicas' pools equal {same} (blocks "
+          f"that differ: {diff[:8]}), seq shards apart {apart}")
+    check(zero["forks"] >= 1, f"({name}) no copy-on-write fork")
+    h = zero["held"]
+    temps = [0.0] * len(zero["out"])
+    prompts = zero["prompts"]
+    t0 = time.perf_counter()
+    one, params = _p20_model(arch, depth, None)
+    if corrupt is None:
+        ref = _p11_run(one, params, None)
+        check(all(np.array_equal(p, q) for p, q in zip(ref["out"],
+                                                       zero["out"])),
+              f"({name}) the ranks' streams differ from one process's")
+    else:
+        recs = [torch.load(os.path.join(tmp, f"p20_seq{i}.pt"))
+                for i in range(r_seq)]
+        calls = [torch.cat([rec["calls"][i] for rec in recs])
+                 if isinstance(v, int) else recs[0]["calls"][i]
+                 for i, v in enumerate(recs[0]["valid"])]
+        keep = [torch.cat([rec["keep"][j] for rec in recs])
+                for j in range(len(recs[0]["keep"]))]
+        del recs
+        forced = {(i, len(p) + j): int(t) for i, p in enumerate(prompts)
+                  for j, t in enumerate(zero["out"][i])}
+        rr = _Router(calls=[c.to(DEV) for c in calls])
+        with rr, _Keep(calls=keep), _capacity(lambda c, n, b: max(
+                b(c, n), r_seq * b(c, n // r_seq))):
+            ref = _p11_run(one, params, corrupt, router=rr, forced=forced)
+        check(len(rr.seen) == len(calls) and all(
+            torch.equal(p.cpu(), q) for p, q in zip(rr.seen, calls)),
+            f"({name}) the one process did not replay every expert choice")
+        check(all(np.array_equal(p, q) for p, q in zip(ref["out"],
+                                                       zero["out"]))
+              and ref["log"] == zero["log"]
+              and ref["states"] == zero["states"],
+              f"({name}) the teacher-forced one process took another course")
+        del rr
+    one_s = time.perf_counter() - t0
+    one_ms = 1e3 * float(np.median(ref["step_s"]))
+    del ref["eng"], one, params
+    _free()
+    ref = dict(out=ref["out"], rec={"logits": _host_rows(ref["rec"])})
+    err, _ = _p9_compare(ref, dict(out=zero["out"], rec={
+        "logits": zero["rows"]}), prompts, temps)
+    same_rows = _same_rows(ref["rec"]["logits"], zero["rows"])
+    say(f"  ({name}) {cfg.name} at full width, {cfg.n_layers} layers "
+        f"({zero['n_params'] / 1e9:.2f} B parameters a rank), on (seq, head)"
+        f" = {P20_RU}: pool {sharding}-sharded over seq (local "
+        f"{zero['local']}), the head replicas' pools bitwise equal; streams, "
+        f"fault log, states and logits checksums equal on every rank; "
+        f"forks {zero['forks']}, fault log {zero['log']}, states "
+        f"{zero['states']}")
+    say(f"  ({name}) one process ({one_s:.1f} s"
+        + (", replaying the seq shards' experts and kept pairs, "
+           "teacher-forced" if corrupt is not None else "")
+        + f"): streams equal; logits max|Δ| / max|logit| {err:.3e} (limit "
+        f"{LOGIT_REL_TOL}), bitwise equal {same_rows}")
+    say(f"  ({name}) rank 0's chunk call of A (q {h['A'][3]}, q_offset "
+        f"{h['A'][4]}) against its plain version: max|Δo| {h['A'][0]:.3e}, "
+        f"rel {h['A'][1]:.3e}, max|Δlse| {h['A'][2]:.3e}; a decode call of "
+        f"B (pool {h['B'][1]}): max|Δo| {h['B'][0]:.3e}")
+    check(err <= LOGIT_REL_TOL, f"({name}) logits vs one process: {err}")
+    out = dict(err=err, bitwise=same_rows, one_step_ms=one_ms)
+    if corrupt is not None:
+        failed = [i for i, st in enumerate(zero["states"])
+                  if st == ("failed", "nan_logits")]
+        (_, _, detail), = zero["log"]
+        victim = int(detail.split("rid=")[1].split()[0])
+        check(failed == [victim], f"({name}) quarantined {failed}, the "
+              f"corrupted block's owner is {victim}")
+        C = P4_ENGINE["prefill_chunk_tokens"]
+        n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+        for x, rr in zip(res, ranks):
+            check(rr["dispatch"] and set(rr["dispatch"]) == {C // r_seq},
+                  f"({name}) rank {x['rank']} dispatched "
+                  f"{sorted(set(rr['dispatch']))} rows, want {C // r_seq}")
+        same_ctl, diff_ctl, _ = _replicas_equal(res, name, "replica")
+        logs = {tuple(map(str, x[name]["controls"]["replica"]["log"]))
+                for x in res}
+        rows_ctl = sorted({n for x in ranks
+                           for n in x["controls"]["rows"]["dispatch"]})
+        ctl_rows = zero["controls"]["rows"]
+        e_rows, _ = _p9_compare(ref, dict(out=ctl_rows["out"], rec={
+            "logits": ctl_rows["rows"]}), prompts, temps, gate=False)
+        say(f"  ({name}) a chunk's MoE: {C // r_seq} of its {C} rows a seq "
+            f"rank (the same on its head ranks; capacity "
+            f"{capacity(cfg, C // r_seq)} an expert), {n_moe} MoE layers; "
+            f"controls: the corrupted block poisoned on head replica 0 only "
+            f"— replicas' pools bitwise equal {same_ctl} ({len(diff_ctl)} "
+            f"blocks differ; rejected: {not same_ctl}), fault logs across "
+            f"ranks {len(logs)}; each "
+            f"head rank dispatching only its own {C // P20_RANKS} rows — "
+            f"dispatches of {rows_ctl} rows (a seq rank holds {C // r_seq}),"
+            f" logits max|Δ| / max|logit| {e_rows:.3e}")
+        check(not same_ctl, f"({name}) the replica check does not reject "
+              "the fault applied on one head replica")
+        check(rows_ctl != [C // r_seq] or e_rows > LOGIT_REL_TOL,
+              f"({name}) neither the dispatch size nor the logits reject "
+              f"the own-rows dispatch ({rows_ctl}, {e_rows})")
+        out["controls"] = dict(replica=not same_ctl, rows=e_rows,
+                               rows_dispatch=rows_ctl)
+    for x, rr in zip(res, ranks):
+        d = rr["decode"]
+        tot = sum(d["s"])
+        say(f"  ({name}) rank {x['rank']} {x['coords']}: decode-step ms "
+            f"(median) {float(np.median(rr['step_ms'])):.2f}; decode calls "
+            f"{len(d['s'])}, {tot:.3f} s: pool gathers {d['gather']:.3f} s "
+            f"({d['gather'] / tot:.3f}), MoE sums {d['reduce']:.3f} s "
+            f"({d['reduce'] / tot:.3f}); run {rr['wall']:.1f} s; peak "
+            f"{rr['peak'] / 2**30:.2f} GiB; launches {rr['launches']}")
+    say(f"  ({name}) one process: decode-step ms (median) {one_ms:.2f}")
+    out.update(step_ms=[float(np.median(rr["step_ms"])) for rr in ranks],
+               gather_s=[rr["decode"]["gather"] for rr in ranks],
+               sum_s=[rr["decode"]["reduce"] for rr in ranks])
+    launches = {}
+    for rr in ranks:
+        for k, n in rr["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, out
+
+
+def engine2d():
+    """Phase 20: the paged Engine on a 2D (seq = 2) × (head = 2) mesh of 4
+    ranks sharing the one card, every pool sharded over seq alone (the u
+    head ranks of a seq shard hold the same part): (a) qwen3-8b's width at
+    depth 8 of 36, its K/V pool head-parallel (4 of 8 kv heads a seq
+    rank), held to one process's engine on the same weights; (b)
+    deepseek-v2-lite-16b at full width, 9 of 27 layers, its latent pool
+    block-sharded (96 of 192 blocks a seq rank), each chunk's MoE rows
+    split over seq (128 of 256 a seq rank), a corrupted block, held to one
+    process replaying the seq shards' expert choices and kept pairs, with
+    two controls.  Phase 11's requests (a prefix fork), 32 greedy
+    tokens."""
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = spawn(_p20_rank, P20_RANKS, (tmp,), device=DEV,
+                    timeout=P20_TIMEOUT, threads=2)
+        world = time.perf_counter() - t0
+        res.sort(key=lambda r: r["rank"])
+        _say_comm(20, res)
+        check(all(r["transport"] == P8_TRANSPORT for r in res),
+              f"transport {[r['transport'] for r in res]}")
+        launches, out = {}, {}
+        for case in P20_CASES:
+            t0 = time.perf_counter()
+            got, out[case[0]] = _p20_gates(res, case, tmp)
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            say(f"  ({case[0]}) gates {time.perf_counter() - t0:.1f} s")
+    say(f"  launches on the ranks (all ranks, both cases) "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    out.update(launches=launches, world_s=world,
+               seconds=time.perf_counter() - t_all)
+    say(f"  world of {P20_RANKS} ranks: {world:.1f} s, spawn included; "
+        f"phase 20 took {out['seconds']:.1f} s")
     return out
 
 
@@ -7236,6 +7892,12 @@ def main():
         "mesh of 4 ranks on the one card: training and fixed-slot serving")
     e2 = moe2d()
     _free()
+    say("== phase 20: the paged engine on a 2D (seq x head) mesh of 4 ranks "
+        "on the one card: qwen3-8b's width (head-parallel pool) and "
+        f"deepseek-v2-lite-16b, {P17_LAYERS} of 27 layers (latent pool "
+        "block-sharded)")
+    g2 = engine2d()
+    _free()
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
@@ -7249,12 +7911,15 @@ def main():
                                 + e2["launches"][row["name"][:-5]])
         if row["name"] == "flash_fwd_pair":
             row["launches"] += e2["launches"]["flash_fwd_pair"]
+        row["launches"] += g2["launches"].get(row["name"], 0)
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
         f"{es['launches']}, its latent-ring prefill (all ranks) "
         f"flash_fwd_pair {es['ring']['launches']}, deepseek paged across 4 "
         f"ranks (all ranks) {ep['launches']}, deepseek on the 2D mesh "
-        f"(all ranks: 2 train steps, the prefill) {e2['launches']}")
+        f"(all ranks: 2 train steps, the prefill) {e2['launches']}, the "
+        f"paged engine on the 2D mesh (all ranks, both cases) "
+        f"{ {k: n for k, n in g2['launches'].items() if n} }")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,12 @@ shard of the sequence (zigzag: its two mirror chunks).  Schedules
   raises on head counts not divisible by P (paper §4.2/§4.6).
 * ``rsa`` — the Ring Self-Attention baseline: all-gathers K and V and
   materializes the full score matrix.  Forward only; benchmark baseline.
-* ``auto`` — at P = 1 every schedule is the local kernel; at P > 1 it
-  needs the cost model's H100 constants and tune table, which the port does
-  not have yet, and raises ``NotImplementedError``.
+* ``auto`` — at P = 1 every schedule is the local kernel; at P > 1 the
+  cheapest capable one by ``core/schedule.choose_schedule`` (a tuning
+  table's measured row, its calibrated coefficients, or the roofline at
+  the H100's constants, ``analysis/roofline.py``), on a 2D spec the
+  cheapest inner schedule (``choose_inner_schedule``):
+  :func:`resolve_schedule`.
 
 The ring-family schedules are plans (:mod:`repro_torch.core.schedule`)
 run by one forward and one backward executor; every plan step launches
@@ -207,18 +210,29 @@ def _comms2d(spec: DistAttnSpec, group):
     return seq, head
 
 
-def resolve_schedule(spec: DistAttnSpec) -> str:
-    """The concrete schedule of a call at ``axis_size > 1`` (on a 2D mesh:
-    the inner seq-axis schedule)."""
+def resolve_schedule(spec: DistAttnSpec, q, k, v, seg=None, *,
+                     for_bwd: bool = False) -> str:
+    """The concrete schedule of a call at ``axis_size > 1``.  ``auto``
+    ranks the capable candidates by ``core/schedule``'s cost model (a
+    tuning table's measured row first, then its calibrated coefficients,
+    then the roofline at ``analysis/roofline``'s H100 constants);
+    ``for_bwd`` says the choice must also serve the distributed backward
+    (the baselines, whose backward is the ring plan's, drop out where it
+    would raise) and ranks by forward and backward together.  On a 2D spec
+    the grid is fixed and only the inner seq-axis schedule is chosen.
+    The shapes are the same on every rank, so every rank resolves the same
+    name."""
     if spec.schedule != "auto":
         return spec.schedule
-    what = ("the inner schedule of a 2D spec (choose_inner_schedule)"
-            if spec.mesh2d is not None else "the candidates")
-    raise NotImplementedError(
-        f"schedule='auto' at axis_size > 1 ranks {what} with the plan cost "
-        f"model's roofline constants and the tune/ table, which the port "
-        f"does not have for the H100 yet (ROADMAP §1 item 10: tune/ and "
-        f"analysis/roofline.py); name a schedule")
+    kw = dict(B=q.shape[0], Hq=q.shape[2], Hkv=k.shape[2], Dqk=q.shape[3],
+              Dv=v.shape[3], bpe=q.dtype.itemsize,
+              dynamic_seg=seg is not None, include_bwd=for_bwd)
+    if spec.mesh2d is not None:
+        return sp.choose_inner_schedule(spec.mask, spec.mesh2d.r,
+                                        spec.mesh2d.u, Tl_dev=q.shape[1],
+                                        **kw)
+    return sp.choose_schedule(spec.mask, spec.axis_size, Tl=q.shape[1],
+                              **kw)
 
 
 def _plan2d(spec: DistAttnSpec, sched: str, q, k):
@@ -291,17 +305,20 @@ def _fwd_rsa(spec, comm, q, k, v, seg=None):
 # --------------------------------------------------------------------------
 
 def dist_attn_fwd(q, k, v, *, spec: DistAttnSpec, group=None,
-                  segments=None):
+                  segments=None, for_bwd: bool = False):
     """Forward → (o, lse) of this rank's shard.  q (B,Tl,Hq,D), k/v
     (B,Tl,Hkv,D); ``group`` is the sequence axis's
     :class:`~repro_torch.parallel.comm.Comm` (unused at ``axis_size ==
     1``), or for a 2D spec the ``(seq, head)`` pair of Comms;
-    ``segments`` (B, Tl) document ids (document masks only)."""
+    ``segments`` (B, Tl) document ids (document masks only).
+    ``for_bwd``: :func:`dist_attn_bwd` will run from this forward's
+    (o, lse), so ``auto`` resolves with the backward's horizon and both
+    run the same schedule (:func:`resolve_schedule`)."""
     if spec.axis_size == 1:
         return chunk_attn(q, k, v, mask=spec.mask, **_tune(spec),
                           **_seg_kw(spec.mask, segments))
     if spec.mesh2d is not None:
-        sched = resolve_schedule(spec)
+        sched = resolve_schedule(spec, q, k, v, segments, for_bwd=for_bwd)
         seq, head = _comms2d(spec, group)
         if spec.mesh2d.u == 1:      # degenerate: the plain 1D seq plan
             plan = sp.build_plan(sched, spec.mask, spec.mesh2d.r,
@@ -312,7 +329,7 @@ def dist_attn_fwd(q, k, v, *, spec: DistAttnSpec, group=None,
                                 segments, seq=seq, head=head,
                                 tune=_tune(spec))
     comm = _comm(spec, group)
-    sched = resolve_schedule(spec)
+    sched = resolve_schedule(spec, q, k, v, segments, for_bwd=for_bwd)
     if sched == "rsa":
         return _fwd_rsa(spec, comm, q, k, v, segments)
     if sched == "ulysses":
@@ -360,7 +377,7 @@ def dist_attn_bwd(q, k, v, o, lse, do, *, spec: DistAttnSpec, group=None,
         return chunk_attn_bwd(q, k, v, o, lse, do, mask=spec.mask,
                               **_tune(spec), **_seg_kw(spec.mask, segments))
     if spec.mesh2d is not None:
-        sched = resolve_schedule(spec)
+        sched = resolve_schedule(spec, q, k, v, segments, for_bwd=True)
         seq, head = _comms2d(spec, group)
         if spec.mesh2d.u == 1:
             plan = sp.build_plan(sched, spec.mask, spec.mesh2d.r,
@@ -371,7 +388,7 @@ def dist_attn_bwd(q, k, v, o, lse, do, *, spec: DistAttnSpec, group=None,
                                 do, segments, seq=seq, head=head,
                                 tune=_tune(spec))
     comm = _comm(spec, group)
-    sched = resolve_schedule(spec)
+    sched = resolve_schedule(spec, q, k, v, segments, for_bwd=True)
     if sched in ("rsa", "ulysses"):
         # the baselines reuse the exact ring backward, which cannot express
         # absolute coordinates (prefix masks) in its per-shard chunks
@@ -395,10 +412,12 @@ def dist_flash_attn(q, k, v, spec: DistAttnSpec, group=None, segments=None):
     :func:`dist_attn_bwd` from the saved (o, lse).  lse is a residual
     output (its gradient is ignored); ``segments`` is not
     differentiable."""
+    bwd = torch.is_grad_enabled() and any(t.requires_grad
+                                          for t in (q, k, v))
     return FlashAttnFn.apply(
         q, k, v,
         lambda q, k, v: dist_attn_fwd(q, k, v, spec=spec, group=group,
-                                      segments=segments),
+                                      segments=segments, for_bwd=bwd),
         lambda q, k, v, o, lse, do: dist_attn_bwd(
             q, k, v, o, lse, do, spec=spec, group=group, segments=segments))
 

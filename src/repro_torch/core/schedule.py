@@ -1,9 +1,13 @@
 """Schedule-plan IR: one step engine for every distributed-attention
 schedule (port of the reference ``core/schedule.py``: the IR, the
 ring / balanced / zigzag builders, the two executors, the coverage
-simulator, the capability rules, and the 2D sequence × head plans —
+simulator, the capability rules, the 2D sequence × head plans —
 :class:`Plan2D`, :func:`build_plan2d` and the executors
-:func:`execute2d_fwd` / :func:`execute2d_bwd` on a 2-D grid of groups).
+:func:`execute2d_fwd` / :func:`execute2d_bwd` on a 2-D grid of groups —
+and the static cost model that ``schedule="auto"`` ranks by:
+:class:`PlanCost`, :func:`plan_cost`, :func:`ulysses_cost`,
+:func:`plan2d_cost`, :func:`choose_schedule` and
+:func:`choose_inner_schedule`).
 
 DISTFLASHATTN's schedules differ only in *placement and per-step routing*:
 which (q-chunk, kv-chunk) pair each rank computes at each ring step, and
@@ -1004,3 +1008,309 @@ def global_allow(mask: MaskSpec, T: int, segments=None) -> np.ndarray:
     if allow is None:
         return np.ones((T, T), bool)
     return np.asarray(allow)
+
+
+# ---------------------------------------------------------------------------
+# Static comm / compute cost model (drives schedule="auto")
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PlanCost:
+    """Per-rank static cost of one plan (or the ulysses baseline):
+    ``comm_bytes_*`` are hop-weighted link bytes, ``flops_*`` the kernels'
+    matmul FLOPs after static mask pruning (items whose offsets depend on
+    the rank count dense)."""
+    schedule: str
+    exec_steps: int
+    total_steps: int
+    kernel_calls: int
+    flops_fwd: float
+    flops_bwd: float
+    comm_bytes_fwd: float
+    comm_bytes_bwd: float
+
+    def time_estimate(self, include_bwd: bool = True) -> dict:
+        """Two-term (compute, collective) seconds at
+        ``analysis.roofline``'s H100 constants; no HBM term (the same for
+        every schedule)."""
+        from repro_torch.analysis.roofline import schedule_cost_terms
+        fl = self.flops_fwd + (self.flops_bwd if include_bwd else 0.0)
+        by = self.comm_bytes_fwd + (self.comm_bytes_bwd if include_bwd
+                                    else 0.0)
+        return schedule_cost_terms(flops=fl, comm_bytes=by)
+
+
+def _band_pairs(mask: MaskSpec, cq: int, ck: int) -> float:
+    """Unmasked (q, kv) pairs of a static work mask over a (cq, ck) chunk
+    pair (document refinement is dynamic and left out: an upper bound)."""
+    if not (mask.causal or (mask.window and mask.window > 0)):
+        return float(cq * ck)
+    qpos = mask.q_offset - mask.kv_offset + np.arange(cq)
+    hi = np.minimum(qpos, ck - 1) if mask.causal \
+        else np.full(cq, ck - 1)
+    lo = np.maximum(qpos - mask.window + 1, 0) if mask.window \
+        else np.zeros(cq)
+    return float(np.maximum(hi - lo + 1, 0).sum())
+
+
+def plan_cost(plan: SchedulePlan, *, B: int = 1, Hq: int = 8,
+              Hkv: Optional[int] = None, Dqk: int = 64,
+              Dv: Optional[int] = None, bpe: int = 2,
+              dynamic_seg: bool = False) -> PlanCost:
+    """Static per-rank cost of a plan: kernel FLOPs a Work item (after
+    static mask pruning) and hop-weighted ring bytes an executed shift,
+    forward and backward."""
+    Hkv = Hq if Hkv is None else Hkv
+    Dv = Dqk if Dv is None else Dv
+    c = plan.chunk_len
+    f_fwd = f_bwd = 0.0
+    for s in plan.steps:
+        for w in s.work:
+            pairs = float(c * c) if w.dyn_offsets \
+                else _band_pairs(w.mask, c, c)
+            f_fwd += 2.0 * B * Hq * pairs * (Dqk + Dv)
+            f_bwd += 2.0 * B * Hq * pairs * (3 * Dqk + 2 * Dv)
+    kv_bytes = B * plan.Tl * Hkv * (Dqk + Dv) * bpe if plan.uses_ring \
+        else 0.0
+    seg_bytes = B * plan.Tl * 4 if (plan.mask.document and dynamic_seg
+                                    and (plan.uses_ring or plan.ship_q)) \
+        else 0.0
+    q_bytes = B * plan.Tl * Hq * Dqk * bpe if plan.ship_q else 0.0
+    do_bytes = B * plan.Tl * Hq * Dv * bpe if plan.ship_q else 0.0
+    stat_bytes = 2 * B * plan.Tl * Hq * 4 if plan.ship_q else 0.0
+    dkv_bytes = B * plan.Tl * Hkv * (Dqk + Dv) * 4 if plan.uses_ring \
+        else 0.0
+    dqb_bytes = B * plan.Tl * Hq * Dqk * 4 if plan.ship_q else 0.0
+    shifts = [s.shift for s in plan.steps[1:]]
+    D = sum(shifts)
+    c_fwd = (kv_bytes + seg_bytes + q_bytes) * D
+    for s in plan.steps:
+        for w in s.work:
+            for r in w.routes:
+                if r.ship:
+                    c_fwd += (B * c * Hq * Dv * bpe
+                              + B * c * Hq * 4) * abs(r.ship)
+    # backward: data containers travel D hops; the traveling accumulators
+    # move on every transition after the first executed step (D − s1 hops)
+    # and go home with one D-hop shift
+    acc_hops = (D - shifts[0] if shifts else 0) + (D if shifts else 0)
+    c_bwd = (kv_bytes + seg_bytes + q_bytes + do_bytes + stat_bytes) * D \
+        + (dkv_bytes + dqb_bytes) * acc_hops
+    return PlanCost(schedule=plan.name, exec_steps=plan.exec_steps,
+                    total_steps=plan.total_steps,
+                    kernel_calls=plan.kernel_calls,
+                    flops_fwd=f_fwd, flops_bwd=f_bwd,
+                    comm_bytes_fwd=c_fwd, comm_bytes_bwd=c_bwd)
+
+
+def ulysses_cost(mask: MaskSpec, P: int, *, Tl: int, B: int = 1,
+                 Hq: int = 8, Hkv: Optional[int] = None, Dqk: int = 64,
+                 Dv: Optional[int] = None, bpe: int = 2) -> PlanCost:
+    """Analytic per-rank cost of the DeepSpeed-Ulysses baseline: q/k/v and
+    o all-to-all, whole-sequence attention over Hq/P heads."""
+    Hkv = Hq if Hkv is None else Hkv
+    Dv = Dqk if Dv is None else Dv
+    Tg = P * Tl
+    pairs = _band_pairs(mask, Tg, Tg)
+    f_fwd = 2.0 * B * (Hq / P) * pairs * (Dqk + Dv)
+    f_bwd = 2.0 * B * (Hq / P) * pairs * (3 * Dqk + 2 * Dv)
+    a2a = (P - 1) / P
+    io_fwd = B * Tl * (Hq * Dqk + Hkv * (Dqk + Dv) + Hq * Dv) * bpe \
+        + B * Tl * Hq * 4                     # q, k, v in; o, lse back
+    c_fwd = io_fwd * a2a
+    c_bwd = 2.0 * c_fwd                       # dq, dk, dv and do
+    return PlanCost(schedule="ulysses", exec_steps=1, total_steps=1,
+                    kernel_calls=1, flops_fwd=f_fwd, flops_bwd=f_bwd,
+                    comm_bytes_fwd=c_fwd, comm_bytes_bwd=c_bwd)
+
+
+def plan2d_cost(p2: Plan2D, *, B: int = 1, Dqk: int = 64,
+                Dv: Optional[int] = None, bpe: int = 2,
+                dynamic_seg: bool = False) -> PlanCost:
+    """Static per-rank cost of a 2D plan: the inner plan's at the factored
+    shapes (Hq/u heads over T/r tokens) plus the head axis's traffic
+    (all-to-all factor (u − 1)/u, all-gather u − 1)."""
+    from repro_torch.analysis.roofline import a2a_bytes, allgather_bytes
+    Dv = Dqk if Dv is None else Dv
+    u = p2.u
+    Hql = p2.Hq // u
+    Hkv_in = Hql if p2.kv_mode == "replicate" else p2.Hkv // u
+    inner = plan_cost(p2.inner, B=B, Hq=Hql, Hkv=Hkv_in, Dqk=Dqk, Dv=Dv,
+                      bpe=bpe, dynamic_seg=dynamic_seg)
+    Tc = p2.inner.Tl // u                       # tokens a rank
+    q_b = B * Tc * p2.Hq * Dqk * bpe
+    o_b = B * Tc * p2.Hq * Dv * bpe
+    lse_b = B * Tc * p2.Hq * 4
+    kv_b = B * Tc * p2.Hkv * (Dqk + Dv) * bpe
+    seg_b = B * Tc * 4 if dynamic_seg else 0.0
+    if p2.kv_mode == "scatter":
+        kv_in = a2a_bytes(kv_b, u)
+        kv_grad_home = a2a_bytes(kv_b, u)
+    else:
+        kv_in = allgather_bytes(kv_b, u)
+        # the ring all-reduce of the whole-row float32 KV gradients
+        kv_grad_home = 2.0 * a2a_bytes(
+            B * (Tc * u) * p2.Hkv * (Dqk + Dv) * 4, u)
+    c_fwd = inner.comm_bytes_fwd + a2a_bytes(q_b + o_b + lse_b, u) \
+        + kv_in + allgather_bytes(seg_b, u)
+    c_bwd = inner.comm_bytes_bwd \
+        + a2a_bytes(2 * q_b + 2 * o_b + lse_b, u) \
+        + kv_in + kv_grad_home + allgather_bytes(seg_b, u)
+    return PlanCost(schedule=p2.name, exec_steps=inner.exec_steps,
+                    total_steps=inner.total_steps,
+                    kernel_calls=inner.kernel_calls,
+                    flops_fwd=inner.flops_fwd, flops_bwd=inner.flops_bwd,
+                    comm_bytes_fwd=c_fwd, comm_bytes_bwd=c_bwd)
+
+
+def factorizations(P: int):
+    """Every (r, u) with r·u == P: the 2D search space of
+    ``choose_schedule(..., factorize=True)``."""
+    return [(r, P // r) for r in range(1, P + 1) if P % r == 0]
+
+
+def choose_inner_schedule(mask: MaskSpec, r: int, u: int, *, Tl_dev: int,
+                          B: int = 1, Hq: int = 8,
+                          Hkv: Optional[int] = None, Dqk: int = 64,
+                          Dv: Optional[int] = None, bpe: int = 2,
+                          dynamic_seg: bool = False,
+                          include_bwd: bool = True) -> str:
+    """``schedule="auto"`` for a fixed (r, u) grid (the mesh is built, so
+    only the inner seq-axis schedule is free): the cheapest capable
+    ring-family plan by the 2D cost.  zigzag is left out: its layout
+    permutation is the caller's contract."""
+    Hkv = Hq if Hkv is None else Hkv
+    if r == 1:
+        return "ring"
+    scored = []
+    for i, name in enumerate(("balanced", "ring")):
+        if not plan2d_capable(name, mask, r=r, u=u, Hq=Hq, Hkv=Hkv):
+            continue
+        p2 = build_plan2d(name, mask, r, u, Tl_dev, Hq=Hq, Hkv=Hkv)
+        t = plan2d_cost(p2, B=B, Dqk=Dqk, Dv=Dv, bpe=bpe,
+                        dynamic_seg=dynamic_seg) \
+            .time_estimate(include_bwd)["step_s_lower_bound"]
+        scored.append((t, i, name))
+    if not scored:
+        raise ValueError(
+            f"schedule='auto': no capable inner schedule for mask "
+            f"{mask.kind!r} on a 2D (r={r}, u={u}) mesh with heads "
+            f"({Hq}, {Hkv}) — prefix_lm and non-causal sliding windows "
+            f"need r == 1 (head-only scatter) or a single-shard axis")
+    return min(scored)[2]
+
+
+def choose_schedule(mask: MaskSpec, P: int, *, Tl: int, B: int = 1,
+                    Hq: int = 8, Hkv: Optional[int] = None, Dqk: int = 64,
+                    Dv: Optional[int] = None, bpe: int = 2,
+                    dynamic_seg: bool = False, include_bwd: bool = True,
+                    factorize: bool = False):
+    """``schedule="auto"``: the cheapest capable schedule for (mask, P,
+    shapes).  Candidates: balanced and ring where the plan serves the mask
+    (zigzag is left out: its layout permutation is the caller's), and
+    ulysses where the head counts divide P.
+
+    The ranking reads the active tuning table (:mod:`repro_torch.tune`)
+    first: a measured row at the nearest (mask kind, P, seq) bucket decides
+    outright; else the table's calibrated coefficients rank the
+    candidates; with no table the roofline (``PlanCost.time_estimate``)
+    decides.  Ties break toward balanced, then ring, then ulysses.
+
+    ``include_bwd`` is the cost horizon and a capability rule: with it,
+    ulysses under a mask its ring backward cannot serve is left out, so
+    the name never raises at execution.  ``factorize=True`` searches the
+    2D (seq = r, head = u) grids too and returns ``(name, r, u)``, ranked
+    by the analytic cost alone (a table's rows are 1D walls)."""
+    Hkv = Hq if Hkv is None else Hkv
+    if factorize:
+        return _choose_factorized(mask, P, Tl=Tl, B=B, Hq=Hq, Hkv=Hkv,
+                                  Dqk=Dqk, Dv=Dv, bpe=bpe,
+                                  dynamic_seg=dynamic_seg,
+                                  include_bwd=include_bwd)
+    if P <= 1:
+        return "ring"
+    names = [n for n in ("balanced", "ring") if plan_capable(n, mask)]
+    if ulysses_capable(mask, P, Hq, Hkv, include_bwd=include_bwd):
+        names.append("ulysses")
+    if not names:
+        raise ValueError(
+            f"schedule='auto': no capable schedule for mask {mask.kind!r} "
+            f"with P={P}, heads=({Hq}, {Hkv}) — prefix_lm and non-causal "
+            f"sliding windows need absolute positions (ulysses, which "
+            f"needs head counts divisible by P) or a single-shard axis")
+    if len(names) == 1:
+        return names[0]
+
+    from repro_torch.tune.table import active_table
+    tab = active_table()
+    if tab is not None:
+        hit = tab.best_schedule(mask_kind=mask.kind, P=P, seq=P * Tl,
+                                candidates=names)
+        if hit is not None:
+            return hit
+    coeffs = tab.coeffs() if tab is not None else None
+
+    scored = []
+    order = {"balanced": 0, "ring": 1, "ulysses": 2}
+    for name in names:
+        if coeffs is not None:
+            from repro_torch.tune.calibrate import (predict_s,
+                                                    schedule_features)
+            feats = schedule_features(
+                name, mask_kind=mask.kind, P=P, seq=P * Tl, B=B, Hq=Hq,
+                Hkv=Hkv, Dqk=Dqk, bpe=bpe, window=mask.window or None,
+                dynamic_seg=dynamic_seg, include_bwd=include_bwd)
+            if feats is None:
+                continue
+            t = predict_s(feats, coeffs)
+        elif name == "ulysses":
+            t = ulysses_cost(mask, P, Tl=Tl, B=B, Hq=Hq, Hkv=Hkv, Dqk=Dqk,
+                             Dv=Dv, bpe=bpe).time_estimate(
+                                 include_bwd)["step_s_lower_bound"]
+        else:
+            t = plan_cost(build_plan(name, mask, P, Tl), B=B, Hq=Hq,
+                          Hkv=Hkv, Dqk=Dqk, Dv=Dv, bpe=bpe,
+                          dynamic_seg=dynamic_seg).time_estimate(
+                              include_bwd)["step_s_lower_bound"]
+        scored.append((t, order[name], name))
+    return min(scored)[2]
+
+
+def _choose_factorized(mask: MaskSpec, P: int, *, Tl: int, B: int,
+                       Hq: int, Hkv: int, Dqk: int, Dv: Optional[int],
+                       bpe: int, dynamic_seg: bool, include_bwd: bool):
+    """The 2D branch of :func:`choose_schedule`: every capable (schedule,
+    r, u) with r·u == P ranked by the analytic cost; (r = P, u = 1) are
+    the 1D plans, (r = 1, u = P) pure head parallelism through the plan
+    path (any mask: the kernel after the scatter sees the whole sequence).
+    Ties break toward smaller u, then balanced before ring."""
+    if P <= 1:
+        return ("ring", 1, 1)
+    order = {"balanced": 0, "ring": 1}
+    scored = []
+    for r, u in factorizations(P):
+        for name in ("balanced", "ring"):
+            if u == 1:
+                if not plan_capable(name, mask):
+                    continue
+                cost = plan_cost(build_plan(name, mask, P, Tl), B=B,
+                                 Hq=Hq, Hkv=Hkv, Dqk=Dqk, Dv=Dv, bpe=bpe,
+                                 dynamic_seg=dynamic_seg)
+            else:
+                if name == "balanced" and r == 1:
+                    continue          # the same plan as ring
+                if not plan2d_capable(name, mask, r=r, u=u, Hq=Hq,
+                                      Hkv=Hkv):
+                    continue
+                p2 = build_plan2d(name, mask, r, u, Tl, Hq=Hq, Hkv=Hkv)
+                cost = plan2d_cost(p2, B=B, Dqk=Dqk, Dv=Dv, bpe=bpe,
+                                   dynamic_seg=dynamic_seg)
+            t = cost.time_estimate(include_bwd)["step_s_lower_bound"]
+            scored.append((t, u, order[name], (name, r, u)))
+    if not scored:
+        raise ValueError(
+            f"schedule='auto': no capable (schedule, r, u) factorization "
+            f"of P={P} for mask {mask.kind!r} with heads ({Hq}, {Hkv}) — "
+            f"head-parallel factorizations need Hq % u == 0 and a uniform "
+            f"GQA group structure")
+    return min(scored)[3]

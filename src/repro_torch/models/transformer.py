@@ -179,8 +179,11 @@ def _dense_stages(cfg: ModelConfig, spec: DistAttnSpec, group):
         return qkv(p["attn"], h, cfg, cos, sin) + (seg,)
 
     def attn_fwd(qkv):
+        # the remat-aware forward, whose backward is attn_bwd: ``auto``
+        # resolves with the backward's horizon
         q, k, v, seg = qkv
-        return dist_attn_fwd(q, k, v, spec=spec, group=group, segments=seg)
+        return dist_attn_fwd(q, k, v, spec=spec, group=group, segments=seg,
+                             for_bwd=True)
 
     def attn_bwd(qkv, o, lse, do):
         q, k, v, seg = qkv

@@ -42,7 +42,11 @@ its part (:class:`PoolShard` says which); :func:`sharded_paged_attn` and
 in all three placements.  The allocator, the prefix trie and the tables are
 the same on every rank (every rank runs the same steps); a fork, a scrub or
 a corruption touches the pool on the rank that holds the block, and a fork
-across two ranks broadcasts the source block from its owner.
+across two ranks broadcasts the source block from its owner.  On a 2D
+(seq, head) mesh the axis is ``seq`` alone: each head index has its own
+seq Comm (``mesh.comms["seq"]``), so the u head ranks of a seq shard hold
+the same part and run the same writes, forks and broadcasts, bitwise
+alike.
 
 The block *tables* are host-side numpy (the scheduler mutates them every
 step); a device copy ships with each decode step's inputs.
@@ -51,7 +55,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -374,7 +377,7 @@ class PagedKVCache:
             raise ValueError(f"the paged KV cache serves attention layers "
                              f"(arch {cfg.arch_type!r} has none)")
         if block_size is None:
-            block_size = cls.default_block_size()
+            block_size = cls.default_block_size(a, mesh, seq_axis)
         if max_blocks_per_req is None:
             max_blocks_per_req = n_blocks - 1
         if dtype is None:
@@ -414,12 +417,26 @@ class PagedKVCache:
                    prefix=prefix, sharding=sharding, group=group)
 
     @staticmethod
-    def default_block_size() -> int:
+    def default_block_size(a=None, mesh=None, seq_axis: str = "model") -> int:
         """The pool granularity when the caller passes none: the
-        ``REPRO_TUNE_BLOCK_SIZE`` variable, else 16 (the reference's next
-        source, a tuning table, is not ported)."""
-        env = os.environ.get("REPRO_TUNE_BLOCK_SIZE", "").strip()
-        return int(env) if env else 16
+        ``REPRO_TUNE_BLOCK_SIZE`` variable, else the active tuning table's
+        winner for this kv layout (``a``, the attention config: a latent
+        pool is ``"mla"``) and pool sharding (``"pool"`` when ``mesh``'s
+        ``seq_axis`` has more than one rank), else 16 (``repro_torch.
+        tune``; no table ships with the port yet)."""
+        from repro_torch.tune import table as tt
+        bs = tt.env_int("REPRO_TUNE_BLOCK_SIZE")
+        if bs is not None:
+            return bs
+        tab = tt.active_table()
+        if tab is not None:
+            size = 1 if mesh is None else mesh.size(seq_axis)
+            hit = tab.best_block_size(
+                layout="mla" if a is not None and a.is_mla else "mha",
+                sharding="none" if size <= 1 else "pool")
+            if hit is not None:
+                return hit
+        return 16
 
     @staticmethod
     def _pool_sharding(shape: Tuple[int, ...], size: int) -> Optional[str]:

@@ -49,7 +49,11 @@ pool by blocks); the model runs batch-replicated, each rank writing and
 reading its part of the pool, and an MoE model's chunks split their rows
 over the ranks for the expert dispatch, so a fixed
 ``prefill_chunk_tokens`` must divide by the rank count (whole-prompt
-chunks pad to a multiple of it).
+chunks pad to a multiple of it).  On a 2D (seq, head) mesh the pool
+shards over the seq axis alone, as the reference's: the u head ranks of a
+seq shard hold the same part, bitwise, and a chunk's MoE rows split over
+the seq axis (the expert group), each head rank dispatching its seq
+rank's rows.
 
 Sampling: greedy at temperature 0; otherwise the reference's draw,
 ``categorical(fold_in(PRNGKey(seed), position), logits / T)``, reproduced
@@ -126,18 +130,16 @@ class Engine:
                  spec: Optional[SpecConfig] = None,
                  draft: Optional[DraftSource] = None):
         cfg = model.cfg
-        if model.par.head_axis is not None:
-            raise NotImplementedError(
-                "the paged Engine on a mesh with a head axis is ROADMAP §1 "
-                "item 8.2 (the paged Engine on a 2D mesh); serve it "
-                "through FixedSlotEngine, or on a (data, model) mesh")
+        # a chunk's MoE rows split over the expert group: the sequence
+        # axis (a 2D mesh's seq axis alone, r of its r·u ranks)
+        split = (model.expert_group.size if model.expert_group is not None
+                 else max(model.seq_size, 1))
         if (cfg.moe is not None and prefill_chunk_tokens
-                and prefill_chunk_tokens % max(model.seq_size, 1)):
-            # a chunk's MoE rows split over the sequence ranks
+                and prefill_chunk_tokens % split):
             raise ValueError(
                 f"prefill_chunk_tokens={prefill_chunk_tokens} does not "
-                f"split over the {model.seq_size} sequence ranks of an MoE "
-                f"model")
+                f"split over the {split} sequence ranks of an MoE model's "
+                f"expert group")
         if model.batch_group is not None:
             # serving shapes are ragged (B = 1 chunks, a fixed slot batch
             # for decode): run the model batch-replicated, as the
@@ -175,7 +177,8 @@ class Engine:
         self.max_batch = max_batch
         self.prefill_chunk_tokens = int(prefill_chunk_tokens)
         # whole-prompt chunks pad to a multiple of the block size and the
-        # sequence-shard count (the reference's compile bucket)
+        # sequence-shard count, r·u on a 2D mesh (the reference's compile
+        # bucket)
         self._prefill_bucket = math.lcm(self.cache.block_size,
                                         max(model.seq_size, 1))
         self.requests: Dict[int, Request] = {}

@@ -29,6 +29,8 @@ EXEC_CASES += [
     ("8-2/zigzag/r4u2", "zigzag", "causal", 4, 2, 8, 2),
 ]
 EXEC_NAMES = [c[0] for c in EXEC_CASES]
+# the causal cases ``auto`` also runs on, in scatter and replicate mode
+AUTO_CASES = ("4-4/causal/r2u4", "4-2/causal/r4u2")
 
 
 def make_mask(mk, kind):
@@ -111,6 +113,33 @@ def exec_world(rank, names):
         out[name] = dict(o=o.detach().numpy(), lse=lse.numpy(),
                          dq=dq.numpy(), dk=dk.numpy(), dv=dv.numpy(),
                          modes=tuple(modes))
+    # schedule="auto": the inner schedule it resolves, and its results
+    # against the same call under that name
+    out["auto"] = {}
+    for name in AUTO_CASES:
+        case = EXEC_CASES[EXEC_NAMES.index(name)]
+        _, _, kind, r, u, _, _ = case
+        mesh = meshes[(r, u)]
+        p = mesh.comm(("seq", "head")).rank
+        q, k, v, do = (torch.from_numpy(np.ascontiguousarray(
+            a[:, p * Tl:(p + 1) * Tl])) for a in inputs(case))
+        runs = {}
+        for sched in ("auto", None):
+            if sched is None:
+                sched = da.resolve_schedule(spec, q, k, v, for_bwd=True)
+            spec = da.DistAttnSpec(axis="seq", axis_size=8, schedule=sched,
+                                   mask=make_mask(tmk, kind),
+                                   mesh2d=da.Mesh2DSpec(r=r, u=u))
+            x = [t.clone().requires_grad_() for t in (q, k, v)]
+            o, lse = da.dist_flash_attn(*x, spec, (mesh.comm("seq"),
+                                                   mesh.comm("head")))
+            loss = (o * do).sum()
+            runs[sched] = [loss.detach(), o.detach(), lse] + list(
+                torch.autograd.grad(loss, x))
+        (_, got), (named, want) = runs.items()
+        out["auto"][name] = dict(
+            name=named, shapes=(tuple(q.shape), tuple(k.shape)),
+            same=all(torch.equal(a, b) for a, b in zip(got, want)))
     # a 2D spec given one Comm is refused
     mesh = meshes[(2, 4)]
     q = torch.zeros(B, Tl, 4, D)
@@ -165,8 +194,8 @@ def load_tree(path, prefix):
 def model_world(rank, params_path):
     """One rank of the 4-rank world: each arch's 3-step losses on each
     mesh of ``TRAIN_MESHES`` (with the KV modes the 2D plans took),
-    ``FixedSlotEngine`` on ``SERVE_MESH``, and the refusals of a 2D mesh:
-    zigzag at u > 1, the paged Engine (an MoE model builds there)."""
+    ``FixedSlotEngine`` on ``SERVE_MESH``, and what a 2D mesh refuses:
+    zigzag at u > 1 (an MoE model and the paged Engine build there)."""
     from repro_torch.core import schedule as sp
     from repro_torch.core.config import (ShapeSpec, TrainConfig,
                                          get_config, smoke_config)
@@ -241,5 +270,9 @@ def model_world(rank, params_path):
     ds_cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
     refusal("moe", lambda: DecoderLM(ds_cfg, "cpu", par=par, mesh=mesh),
             (NotImplementedError, ValueError))
-    refusal("engine", lambda: Engine(model, params), NotImplementedError)
+    built = []
+    refusal("engine", lambda: built.append(Engine(model, params)),
+            (NotImplementedError, ValueError))
+    out["engine_pool"] = (built[0].cache.sharding,
+                          built[0].cache.group.size) if built else None
     return out

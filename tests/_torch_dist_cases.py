@@ -148,13 +148,44 @@ def port_world(rank, names):
         out["ulysses-3-heads"] = "no error"
     except ValueError as e:
         out["ulysses-3-heads"] = f"ValueError: {e}"
-    spec_a = da.DistAttnSpec(axis="model", axis_size=8, schedule="auto")
-    try:
-        da.dist_attn_fwd(q3, q3, q3, spec=spec_a, group=comms[8])
-        out["auto"] = "no error"
-    except NotImplementedError as e:
-        out["auto"] = f"NotImplementedError: {e}"
+    out["auto"] = {n: auto_run(n, rank, comms[8]) for n in AUTO_CASES}
     return out
+
+
+# cases whose inputs ``auto`` runs on: 8 heads over 8 kv heads (ulysses is
+# a candidate), and 4 over 2 (it is not)
+AUTO_CASES = ("ulysses-causal", "balanced-causal")
+
+
+def auto_run(name, rank, comm):
+    """``schedule="auto"`` forward and backward on this rank's shard of a
+    case's inputs (its mask), the name it resolves to with the backward's
+    horizon, and whether (o, lse, dq, dk, dv) equal bit for bit those of
+    the same call under that name."""
+    import torch
+    from repro_torch.core import dist_attention as da
+    from repro_torch.core import mask as tmk
+    case = CASES[NAMES.index(name)]
+    _, _, spec, P, _, _ = case
+    T = seq_len(P)
+    Tl = T // P
+    q, k, v, _ = (torch.from_numpy(np.ascontiguousarray(
+        a[:, rank * Tl:(rank + 1) * Tl])) for a in inputs(P, case[4]))
+
+    def run(sched):
+        dspec = da.DistAttnSpec(axis="model", axis_size=P, schedule=sched,
+                                mask=make_mask(tmk, spec, T))
+        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o, lse = da.dist_flash_attn(*x, dspec, comm)
+        grads = torch.autograd.grad((o ** 2).sum(), x)
+        return dspec, [o.detach(), lse] + list(grads)
+
+    dspec, got = run("auto")
+    resolved = da.resolve_schedule(dspec, q, k, v, for_bwd=True)
+    _, want = run(resolved)
+    return dict(name=resolved, shapes=(q.shape, k.shape),
+                same=all(torch.equal(a, b) for a, b in zip(got, want)),
+                loss=float((got[0] ** 2).sum()))
 
 
 def order_world(rank, sched):

@@ -114,13 +114,34 @@ def test_dist_attention_matches_reference(case, reference, port):
 
 
 def test_ulysses_refuses_indivisible_heads_and_auto_waits(reference, port):
+    """ulysses refuses 3 heads over 8 ranks, as the reference does;
+    ``schedule="auto"`` resolves at P = 8 — the same name on every rank,
+    ``choose_schedule``'s with the backward's horizon (ulysses where 8
+    heads divide 8 ranks; ring at 4 query / 2 kv heads, where balanced's
+    shipped queries cost more link bytes at this size) — and runs:
+    its outputs, gradients and loss equal the named schedule's bit for
+    bit."""
+    from repro_torch.core import mask as tmk
+    from repro_torch.core.schedule import choose_schedule
     _, stdout = reference
     assert "ULYSSES-3 ValueError" in stdout
+    picks = {}
+    for name in C.AUTO_CASES:
+        case = C.CASES[C.NAMES.index(name)]
+        (B, Tl, H, D), (_, _, Hkv, _) = port[0]["auto"][name]["shapes"]
+        picks[name] = choose_schedule(
+            C.make_mask(tmk, case[2], C.seq_len(case[3])), case[3], Tl=Tl,
+            B=B, Hq=H, Hkv=Hkv, Dqk=D, bpe=4, include_bwd=True)
+    assert picks == {"ulysses-causal": "ulysses",
+                     "balanced-causal": "ring"}, picks
     for r in range(8):
         assert port[r]["ulysses-3-heads"].startswith(
             "ValueError: ulysses needs heads % P == 0"), port[r]
-        assert port[r]["auto"].startswith("NotImplementedError"), port[r]
-        assert "tune/" in port[r]["auto"]
+        for name, pick in picks.items():
+            got = port[r]["auto"][name]
+            assert got["name"] == pick, (r, name, got["name"])
+            assert got["same"], (r, name)
+            assert np.isfinite(got["loss"])
 
 
 @pytest.mark.parametrize("sched", ["balanced", "ring", "zigzag"])

@@ -172,10 +172,13 @@ def test_reference_2d_zigzag_is_off_and_the_port_refuses_it(reference,
 
 
 def test_what_waits_on_a_2d_mesh_raises_naming_its_item(world):
-    """The paged Engine on a 2D mesh waits on ROADMAP item 8.2; an MoE
-    model (item 8.1, tests/test_torch_deepseek2d.py) builds there."""
+    """Nothing waits on a 2D mesh any more: an MoE model (item 8.1,
+    tests/test_torch_deepseek2d.py) and the paged Engine (item 8.2,
+    tests/test_torch_engine2d.py) both build there, the Engine's pool
+    sharded over the seq axis alone."""
     for r in range(4):
         err = world[r]["errors"]
         assert err["moe"] == "no error", err["moe"]
-        assert err["engine"].startswith("NotImplementedError") and \
-            "item 8.2" in err["engine"], err["engine"]
+        assert err["engine"] == "no error", err["engine"]
+        assert world[r]["engine_pool"] == ("blocks", 2), \
+            world[r]["engine_pool"]

@@ -204,19 +204,30 @@ def test_mesh2d_spec_checks_and_r1_masks():
                         mesh2d=da.Mesh2DSpec(r=1, u=8))
 
 
-def test_auto_and_one_group_are_refused_on_a_2d_spec():
-    """``auto`` on a 2D spec waits for ROADMAP item 10's cost model, as at
-    P > 1 in one dimension; a 2D call given one group raises."""
+def test_auto_and_one_group_are_refused_on_a_2d_spec(port):
+    """``auto`` on a 2D spec resolves the inner schedule
+    (``choose_inner_schedule`` with the backward's horizon; nothing
+    raises) and runs in the 8-rank world: every rank resolves the same
+    name, and its loss, outputs and gradients equal the named schedule's
+    bit for bit; a 2D call given one group raises."""
     import torch
+    from repro_torch.core.schedule import choose_inner_schedule
     x = torch.zeros(1, 8, 4, 32)
     auto = tda.DistAttnSpec(axis="seq", axis_size=4, schedule="auto",
                             mesh2d=tda.Mesh2DSpec(r=2, u=2))
-    for fn in (lambda: tda.dist_attn_fwd(x, x, x, spec=auto),
-               lambda: tda.dist_attn_bwd(x, x, x, x, x[..., 0], x,
-                                         spec=auto)):
-        with pytest.raises(NotImplementedError,
-                           match="choose_inner_schedule.*item 10"):
-            fn()
+    assert tda.resolve_schedule(auto, x, x, x, for_bwd=True) == \
+        choose_inner_schedule(tmk.causal(), 2, 2, Tl_dev=8, Hq=4, Hkv=4,
+                              Dqk=32, bpe=4, include_bwd=True)
+    for name in C.AUTO_CASES:
+        _, _, kind, r, u, _, _ = C.EXEC_CASES[C.EXEC_NAMES.index(name)]
+        (B, Tl, Hq, D), (_, _, Hkv, _) = port[0]["auto"][name]["shapes"]
+        want = choose_inner_schedule(C.make_mask(tmk, kind), r, u,
+                                     Tl_dev=Tl, B=B, Hq=Hq, Hkv=Hkv, Dqk=D,
+                                     bpe=4, include_bwd=True)
+        for p in range(8):
+            got = port[p]["auto"][name]
+            assert got["name"] == want, (name, p, got["name"])
+            assert got["same"], (name, p)
     spec = dataclasses.replace(auto, schedule="balanced")
     one = Comm([0], "local", "cpu")
     with pytest.raises(ValueError, match=r"group=\(seq, head\)"):

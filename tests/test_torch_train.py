@@ -347,7 +347,8 @@ def test_dist_attn_spec_raises_where_reference_raises(kw):
 def test_dist_attn_single_card_only_and_local_kernels():
     """At ``axis_size > 1`` a call needs its axis's group of that many
     ranks (the schedules themselves run in ``tests/test_torch_dist.py``'s
-    worlds), ``auto`` waits for the H100 cost model, and at
+    worlds), ``auto`` resolves from the call's shapes to the cost model's
+    pick (``choose_schedule``; a named schedule passes through), and at
     ``axis_size == 1`` every schedule is the local kernels."""
     from repro_torch.parallel.comm import Comm
     spec = tda.DistAttnSpec(axis_size=2, schedule="ring")
@@ -357,10 +358,13 @@ def test_dist_attn_single_card_only_and_local_kernels():
     with pytest.raises(ValueError, match="with that many ranks"):
         tda.dist_attn_bwd(q, q, q, q, q[..., 0], q, spec=spec,
                           group=Comm([0], "local", "cpu"))
-    with pytest.raises(NotImplementedError, match="tune/"):
-        tda.resolve_schedule(tda.DistAttnSpec(axis_size=2,
-                                              schedule="auto"))
-    assert tda.resolve_schedule(spec) == "ring"
+    from repro_torch.core.schedule import choose_schedule
+    auto = tda.DistAttnSpec(axis_size=2, schedule="auto")
+    for bwd in (False, True):
+        assert tda.resolve_schedule(auto, q, q, q, for_bwd=bwd) == \
+            choose_schedule(tmk.causal(), 2, Tl=8, Hq=2, Dqk=32, bpe=4,
+                            include_bwd=bwd)
+    assert tda.resolve_schedule(spec, q, q, q) == "ring"
     rng = np.random.default_rng(0)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
         (1, 64, 4, 32)).astype(np.float32)).requires_grad_()
