@@ -11,8 +11,9 @@ Phases, each fatal on failure (nothing is caught):
                 (kernel A's, kernels C and D's at one D and their pair
                 route at q/k 192, v 128, and the float32 192/128
                 instantiations), with their shared memory; none may spill
-                at D = 128, in A's latent and pair routes, in C and D's
-                pair route or in the float32 192/128 kernels.
+                at D = 128, in A's latent and pair routes (192/128 and
+                160/160), in C and D's pair route (both instantiations) or
+                in the float32 192/128 and 160 kernels.
   3. kernels  — each kernel's wrapper against its plain PyTorch version on
                 the card, at llama-7b serving and training shapes plus edge
                 cases, every case of A, C and D in both dtypes (bf16 runs
@@ -55,7 +56,15 @@ Phases, each fatal on failure (nothing is caught):
                 document mask, a q-offset chunk, each held to phase 3's
                 bars, which must reject the plain backward without the
                 last 64-key tile; other (Dk, Dv) pairs and the latent pair
-                raise.
+                raise.  Kernels A, C and D at head dim 160 (zamba2's shared
+                block, scale 1/√160) in both dtypes (bf16: the pair
+                libraries at <160, 160>; float32: flash_fwd.cu /
+                flash_bwd.cu at 160): A at B 1, T 4096, 32 heads, causal
+                (launch == launch bitwise), a q-offset chunk, a ragged T;
+                C and D at T 8192, 32 heads (launch == launch bitwise), a
+                ragged T, a document mask, a q-offset chunk, at phase 3's
+                bars, which must reject the control without the last key
+                tile; head dims 144, 176 and 256 raise.
   3c. plans   — kernels A, C and D under every distinct mask the plan
                 steps give them: every active Work item of balanced, ring
                 and zigzag (causal) at P 4, Tl 8192 (zigzag: two chunks of
@@ -285,7 +294,9 @@ Phases, each fatal on failure (nothing is caught):
                 step, a 32768-token decode (``long_*``), GQA Tq 4
                 (``gqa_*``) and the Qwen head pairs at Tq 1 and 5
                 (``qwen_*``), and the MLA latent pool at Tq 1 and 5
-                (``mla_*``): its device time (torch.profiler), the
+                (``mla_*``): its device time (40 calls replayed as one
+                CUDA graph; torch.profiler's reading printed beside it, as
+                the profiler has dropped kernels late in a run), the
                 wrapper's (CUDA events) and the host time of one call (1000
                 calls).  A's latent route at phase 12's chunk (its own row,
                 ``flash_fwd_latent``, bf16): its time and its device time
@@ -299,7 +310,13 @@ Phases, each fatal on failure (nothing is caught):
                 on phase 14's own backward inputs (their own rows,
                 ``flash_bwd_dq_pair`` / ``flash_bwd_dkv_pair``): device and
                 event time, plain versions, SDPA's autograd backward of the
-                pair (its backend named), bounds.
+                pair (its backend named), bounds.  A, C and D at head dim
+                160 (their own rows, ``flash_fwd_160``, ``flash_bwd_dq_160``,
+                ``flash_bwd_dkv_160``) at zamba2's training shape, q, k, v
+                (1, 8192, 32, 160) bf16, causal: device time (CUDA-graph
+                replay) and event time, plain versions head slice by head
+                slice, SDPA's causal forward and autograd backward (backend
+                named), bounds (640, 960 and 1,280 FLOPs a pair).
 
   15. moe-ranks — (after phase 5: torch.profiler, which phase 5 reads, has
                 seen no device kernel in a process that ran phases 15 and
@@ -446,6 +463,32 @@ Phases, each fatal on failure (nothing is caught):
                 0's chunk and decode inputs held to their plain versions;
                 decode ms a step and host seconds in pool gathers and MoE
                 sums a rank.
+  21. ssm     — the SSM and hybrid families, bf16 (a and b run after phase
+                14, c after phase 20).  (a) mamba2-2.7b at full size (64
+                layers, d_model 2560, 80 SSM heads of 64, d_state 128,
+                seed 0): 3 training steps of 8,192 tokens under remat_aware
+                (the mixers checkpointed at their boundary), one more step
+                traced on the device alone for the idle share; tokens/s
+                over steps 2-3, peak memory.  Then the recurrent decode
+                from the empty cache (seed 21): a 64-token prompt token by
+                token and 32 greedy tokens, every prompt position's logits
+                within 5% of max |logit| of the training forward's on a
+                float32 copy of the weights (the bf16 model's drift read
+                and printed), ms a greedy bf16 step.  (b) zamba2-2.7b at
+                full size (54 layers, a shared block of 32 heads × 160
+                every 6 layers): the same, kernels A, C and D at head dim
+                160 launched 9 times a step each; its gradients at full
+                width, 6 layers, T 4,096 within 5% of max |g| of the plain
+                attention path, a backward shifted by one position
+                rejected.  (c) zamba2 at 12 of 54 layers on 4 cuda-ipc
+                ranks, 16,384 tokens (4,096 a rank), balanced, the state
+                relayed and the conv halo shifted between the ranks: step
+                1's loss within 2^-8 and every gradient leaf within 5% of
+                one process's on the same weights and tokens, the logits
+                at every shard's first 64 positions within 5% of max
+                |logit| of its; both planted relay faults (every rank from
+                a zero state; the halo zeroed) rejected; host seconds in
+                shifts and all-reduces.
 Every phase prints its seconds, and every multi-rank phase its ranks'
 host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
@@ -913,25 +956,52 @@ PAIR_DK, PAIR_DV, PAIR_H = 192, 128, 16
 P13_B, P13_T = 2, 4096          # phase 13's prompts
 
 
-def _pair_inputs(gen, B, Tq, Tk, dtype):
-    q = randn(gen, (B, Tq, PAIR_H, PAIR_DK), dtype)
-    k = randn(gen, (B, Tk, PAIR_H, PAIR_DK), dtype)
-    v = randn(gen, (B, Tk, PAIR_H, 2 * PAIR_DV), dtype)[..., PAIR_DV:]
+# (heads, q/k head dim, v head dim, softmax scale) of the pair route's
+# cases: materialised MLA's, and zamba2's shared attention block (32 heads
+# of 160, one kv head a query head)
+PAIR_SHAPE = (PAIR_H, PAIR_DK, PAIR_DV, LAT_SCALE)
+D160 = 160
+D160_DIMS = (32, D160, D160, D160 ** -0.5)
+
+
+def _pair_inputs(gen, B, Tq, Tk, dtype, dims=PAIR_SHAPE):
+    """q, k, v of a pair case: v the last Dv columns of a (.., 2·Dv)
+    tensor (as materialised MLA hands it over) when Dv != Dk, else a
+    tensor of its own."""
+    H, dk, dv, _ = dims
+    q = randn(gen, (B, Tq, H, dk), dtype)
+    k = randn(gen, (B, Tk, H, dk), dtype)
+    if dv == dk:
+        return q, k, randn(gen, (B, Tk, H, dv), dtype)
+    v = randn(gen, (B, Tk, H, 2 * dv), dtype)[..., dv:]
     return q, k, v
 
 
-def _pair_case(gen, name, B, Tq, Tk, dtype, mask):
-    """Kernel A's pair route against its plain version at phase 3's limits
-    (o, element-wise for bf16, lse); one launch, counted as
-    ``flash_fwd_pair``.  Returns the inputs and the output."""
-    q, k, v = _pair_inputs(gen, B, Tq, Tk, dtype)
+def _fwd_count(dk, dv):
+    """The launch counter of kernel A's call at q/k ``dk``, v ``dv``."""
+    return "flash_fwd_pair" if dk != dv else f"flash_fwd_{dk}"
+
+
+def _pair_case(gen, name, B, Tq, Tk, dtype, mask, dims=PAIR_SHAPE):
+    """Kernel A's pair route (or its <160, 160> instantiation, ``dims``)
+    against its plain version at phase 3's limits (o, element-wise for
+    bf16, lse), the plain version run head slice by head slice; one
+    launch, counted as ``flash_fwd_pair`` (or ``flash_fwd_160``).  Returns
+    the inputs and the output."""
+    H, dk, dv, scale = dims
+    q, k, v = _pair_inputs(gen, B, Tq, Tk, dtype, dims)
     n0 = dict(build.LAUNCHES)
-    o, lse = flash_fwd(q, k, v, mask=mask, scale=LAT_SCALE)
+    o, lse = flash_fwd(q, k, v, mask=mask, scale=scale)
     torch.cuda.synchronize()
-    check(all(build.LAUNCHES[n] == n0[n] + (n == "flash_fwd_pair")
+    check(all(build.LAUNCHES[n] == n0[n] + (n == _fwd_count(dk, dv))
               for n in n0), f"flash_fwd pair {name}: launches")
-    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, scale=LAT_SCALE)
-    check(o.shape == o_r.shape == (B, Tq, PAIR_H, PAIR_DV),
+    refs = [chunk_attn_ref(q[:, :, sq], k[:, :, skv], v[:, :, skv],
+                           mask=mask, scale=scale)
+            for sq, skv in _head_slices(q, k)]
+    o_r = torch.cat([r[0] for r in refs], dim=2)
+    lse_r = torch.cat([r[1] for r in refs], dim=2)
+    del refs
+    check(o.shape == o_r.shape == (B, Tq, H, dv),
           f"flash_fwd pair {name}: o {tuple(o.shape)}")
     check(bool(torch.isfinite(o.float()).all()),
           f"flash_fwd pair {name}: non-finite")
@@ -948,9 +1018,10 @@ def _pair_case(gen, name, B, Tq, Tk, dtype, mask):
         check(r <= REL_TOL, f"flash_fwd pair {name}: relative err {r} over "
               f"{REL_TOL}")
         rel = f"  rel {r:.2e} (limit {REL_TOL})"
-    say(f"  A {'pair 192/128 ' + name:<28} {str(dtype)[6:]:<9} max|Δo| "
-        f"{err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}  "
-        f"({PAIR_ROUTES[dtype][0]})")
+    lib = (PAIR_ROUTES if dk != dv or dtype == torch.bfloat16
+           else FWD_ROUTES)[dtype][0]
+    say(f"  A {f'pair {dk}/{dv} ' + name:<28} {str(dtype)[6:]:<9} max|Δo| "
+        f"{err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}  ({lib})")
     return (q, k, v), o, lse
 
 
@@ -1124,22 +1195,26 @@ def _pair_bwd_ref(args, kw, cut=None):
 
 
 def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
-                   segs=False, repeat=False):
+                   segs=False, repeat=False, dims=PAIR_SHAPE):
     """Kernels C and D at q/k 192, v 128 (materialised MLA, 16 heads,
-    scale 1/√192) against the plain backward on the same saved (o, lse)
-    (kernel A's pair route) at phase 3's bar, which must reject the plain
-    backward without the last 64-key tile; the pruned sweep equals the
-    dense one; with ``repeat``, a second launch gives the same bits.  v is
-    the last 128 columns of a (.., 256) tensor (``kv``, as the model hands
-    it over) or a tensor of its own (``own``)."""
-    q = randn(gen, (B, Tq, PAIR_H, PAIR_DK), dtype)
-    k = randn(gen, (B, Tk, PAIR_H, PAIR_DK), dtype)
+    scale 1/√192), or at ``dims`` (zamba2's 32 heads of 160), against the
+    plain backward on the same saved (o, lse) (kernel A's pair route) at
+    phase 3's bar, which must reject the plain backward without the last
+    64-key tile; the pruned sweep equals the dense one; with ``repeat``, a
+    second launch gives the same bits.  v is the last Dv columns of a
+    (.., 2·Dv) tensor (``kv``, as the model hands it over) or a tensor of
+    its own (``own``)."""
+    H, dk, dv, scale = dims
+    q = randn(gen, (B, Tq, H, dk), dtype)
+    k = randn(gen, (B, Tk, H, dk), dtype)
     if v_kind == "kv":
-        v = randn(gen, (B, Tk, PAIR_H, 2 * PAIR_DV), dtype)[..., PAIR_DV:]
+        v = randn(gen, (B, Tk, H, 2 * dv), dtype)[..., dv:]
     else:
-        v = randn(gen, (B, Tk, PAIR_H, PAIR_DV), dtype)
-    do = randn(gen, (B, Tq, PAIR_H, PAIR_DV), dtype)
-    kw = dict(mask=mask, scale=LAT_SCALE)
+        v = randn(gen, (B, Tk, H, dv), dtype)
+    do = randn(gen, (B, Tq, H, dv), dtype)
+    kw = dict(mask=mask, scale=scale)
+    counts = (("flash_bwd_dq", "flash_bwd_dkv") if dk != dv else
+              (f"flash_bwd_dq_{dk}", f"flash_bwd_dkv_{dk}"))
     if segs:
         s = torch.sort(torch.randint(0, 4, (B, Tk), generator=gen,
                                      device=DEV), dim=1)[0].to(torch.int32)
@@ -1148,9 +1223,8 @@ def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
     n0 = dict(build.LAUNCHES)
     got = flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    check(all(build.LAUNCHES[n] == n0[n] + (n in ("flash_bwd_dq",
-                                                   "flash_bwd_dkv"))
-              for n in n0), f"flash_bwd pair {name}: launches")
+    check(all(build.LAUNCHES[n] == n0[n] + (n in counts) for n in n0),
+          f"flash_bwd pair {name}: launches")
     same = ""
     if repeat:     # a fixed sweep order and no atomics: the same bits
         again = flash_bwd(q, k, v, o, lse, do, **kw)
@@ -1183,7 +1257,7 @@ def _pair_bwd_case(gen, name, B, Tq, Tk, dtype, mask, v_kind="kv",
     show = (lambda c: f"{c[2]:.2e}" if c[2] is not None else f"{c[1]:.2e}")
     rel = (f"; row {'/'.join(f'{x:.2e}' for x in rows)} (limit {ROW_TOL})"
            if dtype == torch.bfloat16 else "")
-    say(f"  C/D {'192/128 ' + name:<30} {str(dtype)[6:]:<9} max|Δdq| "
+    say(f"  C/D {f'{dk}/{dv} ' + name:<30} {str(dtype)[6:]:<9} max|Δdq| "
         f"{errs[0]:.3e}  max|Δdk| {errs[1]:.3e}  max|Δdv| {errs[2]:.3e}  "
         f"tol {BWD_TOL[dtype]}; pruned == dense{same}{rel}; control without "
         f"the last key tile {'/'.join(show(c) for c in ctl)} (rejected)")
@@ -1231,6 +1305,70 @@ def pair_bwd_checks():
     check(dict(build.LAUNCHES) == n0, "a refused backward pair launched")
     say(f"  C/D {'pairs outside the table':<30} both      192/64, 160/128, "
         "128/192, 576/512 raise before a launch")
+    return errs
+
+
+D160_BWD_CASES = (
+    # (name, B, Tq, Tk, heads, mask, segments): zamba2's training shape (its
+    # two launches also compared bit for bit), a ragged T, a document mask
+    # with segment ids, a chunk at q offset 768
+    ("train B1 T8192 H32 causal", 1, 8192, 8192, 32, mk.causal(), False),
+    ("ragged T1000 causal", 1, 1000, 1000, 4, mk.causal(), False),
+    ("document segments", 2, 512, 512, 4, mk.document(), True),
+    ("Tq256 Tk1024 q_off768", 1, 256, 1024, 4, mk.causal(rel_offset=768),
+     False),
+)
+
+
+def d160_checks():
+    """Kernels A, C and D at head dim 160 (zamba2-2.7b's shared attention
+    block, scale 1/√160) in both dtypes: bf16 through the pair libraries'
+    <160, 160> instantiations (three 64-column slabs, the last half zeros),
+    float32 through ``flash_fwd.cu`` / ``flash_bwd.cu`` at 160.  A at B1
+    T8192 H32 causal, zamba2's training shape (launch == launch bitwise),
+    a q-offset chunk and a ragged T; C and D over ``D160_BWD_CASES`` at phase 3's bars, which must
+    reject the control without the last key tile; one head dims the
+    kernels do not take (144, 176, 256) raise before a launch.  Returns
+    the backward's errors by (case, dtype)."""
+    gen = torch.Generator(device=DEV).manual_seed(30)
+    H, _, _, scale = D160_DIMS
+    small = (4,) + D160_DIMS[1:]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m = mk.causal()
+        args, o, lse = _pair_case(gen, D160_BWD_CASES[0][0], 1, P21_T,
+                                  P21_T, dt, m, dims=D160_DIMS)
+        o2, lse2 = flash_fwd(*args, mask=m, scale=scale)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd 160 {dt}: two launches differ")
+        del args, o, lse, o2, lse2
+        _pair_case(gen, "Tq256 Tk1024 q_off768", 1, 256, 1024, dt,
+                   mk.causal(rel_offset=768), dims=small)
+        _pair_case(gen, "ragged T1000", 1, 1000, 1000, dt, mk.causal(),
+                   dims=small)
+        say(f"  A {'160/160 bitwise':<28} {str(dt)[6:]:<9} launch == launch "
+            f"at B1 T{P21_T} H32")
+        for name, B, Tq, Tk, h, m, segs in D160_BWD_CASES:
+            errs[(name, dt)] = _pair_bwd_case(
+                gen, name, B, Tq, Tk, dt, m, "own", segs,
+                repeat=name.startswith("train"), dims=(h,) + D160_DIMS[1:])
+            _free()
+    n0 = dict(build.LAUNCHES)
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (144, 176, 256):
+            q = torch.zeros((1, 64, 4, d), device=DEV, dtype=dt)
+            lse = torch.zeros((1, 64, 4), device=DEV)
+            for call in (lambda: flash_fwd(q, q, q, mask=mk.causal()),
+                         lambda: flash_bwd(q, q, q, q, lse, q,
+                                           mask=mk.causal())):
+                try:
+                    call()
+                except ValueError:
+                    continue
+                raise AssertionError(f"a flash kernel took head dim {d}")
+    check(dict(build.LAUNCHES) == n0, "a refused head dim launched")
+    say(f"  A/C/D {'head dims outside the table':<26} both      144, 176, "
+        "256 raise before a launch")
     return errs
 
 
@@ -1593,16 +1731,29 @@ def serve():
                 ttft_ms=[1e3 * ttft[r] for r in rids])
 
 
+def _kernels(prof):
+    """Device time by kernel name in a torch.profiler trace, {name:
+    (launches, µs)}, summed once a trace from its raw device events (the
+    profiler's own tables build an event for every host operator too:
+    seconds for a traced step of 37,659 launches)."""
+    if not hasattr(prof, "_by_kernel"):
+        from torch.autograd import DeviceType
+        res = prof.profiler.kineto_results
+        out = {}
+        for ev in res.events() if res is not None else ():
+            if ev.device_type() == DeviceType.CUDA:
+                n, us = out.get(ev.name(), (0, 0.0))
+                out[ev.name()] = (n + 1,
+                                  us + (ev.end_ns() - ev.start_ns()) / 1e3)
+        prof._by_kernel = out
+    return prof._by_kernel
+
+
 def _device_breakdown(prof, wall):
     """Device time by kernel family from a torch.profiler trace, and the
     share of the wall clock the device was busy."""
-    from torch.autograd import DeviceType
     fam = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = ev.self_device_time_total
-        name = ev.key
+    for name, (count, us) in _kernels(prof).items():
         key = ("kernel A flash_fwd" if "flash_fwd" in name else
                "kernel B paged_decode" if "paged_decode" in name else
                "kernel C flash_bwd_dq" if "flash_bwd_dq" in name else
@@ -1612,7 +1763,7 @@ def _device_breakdown(prof, wall):
                                          "splitk", "nvjet"))
                else "other (elementwise, copies, index_put)")
         n, t = fam.get(key, (0, 0.0))
-        fam[key] = (n + ev.count, t + us / 1e3)
+        fam[key] = (n + count, t + us / 1e3)
     busy = sum(t for _, t in fam.values())
     return fam, busy, 1e3 * wall
 
@@ -1642,8 +1793,13 @@ def trace(model, params, prompts):
 
 
 def show_breakdown(label, prof, wall):
-    """Prints the device time by kernel family; returns the idle share."""
+    """Prints the device time by kernel family; returns the idle share, or
+    nan where the trace holds no device kernel (not measured)."""
     fam, busy, wall_ms = _device_breakdown(prof, wall)
+    if not fam:
+        say(f"  trace {label}: wall {wall_ms:.1f} ms (under the profiler); "
+            "the profiler recorded no device kernel, idle share not measured")
+        return float("nan")
     say(f"  trace {label}: wall {wall_ms:.1f} ms (under the profiler), "
         f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     for key, (n, t) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
@@ -4210,13 +4366,9 @@ def _kpe_fault():
 def _show_top(prof, n=6):
     """The ``n`` device kernels of a trace with the most self device
     time."""
-    from torch.autograd import DeviceType
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA]
-    evs.sort(key=lambda ev: -ev.self_device_time_total)
-    for ev in evs[:n]:
-        say(f"      {ev.self_device_time_total / 1e3:9.2f} ms {ev.count:6d} "
-            f"launches  {ev.key[:90]}")
+    top = sorted(_kernels(prof).items(), key=lambda kv: -kv[1][1])
+    for name, (count, us) in top[:n]:
+        say(f"      {us / 1e3:9.2f} ms {count:6d} launches  {name[:90]}")
 
 
 def _p13_trace(model, params, prompts):
@@ -4234,11 +4386,10 @@ def _p13_trace(model, params, prompts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     label = f"fixed-slot prefill ({P13_B} x {P13_T} tokens)"
-    show_breakdown(label, prof, wall)
+    idle = show_breakdown(label, prof, wall)
     _show_top(prof)
     fam, busy, wall_ms = _device_breakdown(prof, wall)
-    out["prefill"] = dict(wall_ms=wall_ms, busy_ms=busy,
-                          idle=1 - busy / wall_ms,
+    out["prefill"] = dict(wall_ms=wall_ms, busy_ms=busy, idle=idle,
                           attn_ms=fam.get("kernel A flash_fwd", (0, 0.0))[1])
     S0 = prompts.shape[1]
     cache = model.pad_cache(cache, S0 + 8)
@@ -4257,11 +4408,10 @@ def _p13_trace(model, params, prompts):
             tok = step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    show_breakdown("6 fixed-slot decode steps", prof, wall)
+    idle = show_breakdown("6 fixed-slot decode steps", prof, wall)
     _show_top(prof)
     fam, busy, wall_ms = _device_breakdown(prof, wall)
-    out["decode"] = dict(wall_ms=wall_ms, busy_ms=busy,
-                         idle=1 - busy / wall_ms)
+    out["decode"] = dict(wall_ms=wall_ms, busy_ms=busy, idle=idle)
     return out
 
 
@@ -7102,6 +7252,392 @@ def engine2d():
     return out
 
 
+# ---------------------------------------------------------------- phase 21
+
+P21_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+P21_T, P21_STEPS, P21_SEED = 8192, 3, 21
+P21_PROMPT, P21_NEW = 64, 32     # the recurrent decode: prompt, greedy
+# bf16 rounds the chunked and the recurrent scans apart, and 64 layers of
+# random weights carry it: the bf16 training forward of mamba2-2.7b reads
+# 0.18 of max |logit| off its float32 run (tools/ssm_bf16_drift.py), so
+# the bf16 decode is held to the forward's own bf16 rounding: its distance
+# from the float32 decode within this multiple of the forward's from the
+# float32 forward (the tool read 0.92-1.12 at 4 to 64 layers)
+DECODE16_RATIO = 1.5
+# zamba2's gradients against the plain attention path: full width, one
+# group of 6 layers (one shared-block call), 4,096 tokens (the plain
+# version's (32, T, T) float32 scores 2 GiB)
+P21_GRAD_LAYERS, P21_GRAD_T = 6, 4096
+# (c): zamba2 on 4 ranks sharing the card, 12 of 54 layers (the shared
+# block twice), one 16,384-token sequence a step (4,096 a rank), balanced
+P21C_LAYERS, P21C_T, P21C_RANKS, P21C_TIMEOUT = 12, 16384, 4, 600
+# the first P21C_EDGE positions of every rank's shard: where the relayed
+# state and the conv halo weigh most (the reference init's A = −1 decays a
+# carried state within tens of tokens, so the loss alone barely sees it)
+P21C_EDGE = 64
+D160_KERNELS = ("flash_fwd_160", "flash_bwd_dq_160", "flash_bwd_dkv_160")
+
+
+def _p21_decode(cfg):
+    """The recurrent decode of seed-21 weights from the empty cache, in
+    float32 and in bf16 (the float32 weights cast): the 64-token prompt
+    fed token by token, then (bf16) 32 greedy tokens, each step timed with
+    CUDA events.  Readings, each the largest over the prompt's positions
+    of max |Δlogit| / max |logit| of the second term: the decode against
+    the training forward (:func:`_trunk_logits`) in float32 (``e32``, the
+    gate: ≤ LOGIT_REL_TOL) and in bf16 (``e16``, read); each path's bf16
+    run against its float32 run, the bf16 rounding it carries (the gate:
+    the decode's ``n_dec`` within DECODE16_RATIO × the forward's
+    ``n_fwd``); the bf16 forward at a quarter of its SSD chunk against
+    itself (``order16``, read: what another float32 summation order alone
+    moves once rounded to bf16).  Returns the readings and ``ms``, the
+    median ms of a greedy bf16 step."""
+    from repro_torch.data.pipeline import empty_decode_cache
+    prompt = torch.from_numpy(np.random.default_rng(P21_SEED).integers(
+        0, cfg.vocab, (1, P21_PROMPT)).astype(np.int32)).to(DEV)
+    fwd, dec, ms, r = {}, {}, [], {}
+    base = DecoderLM(cfg.replace(dtype="float32"), DEV).init(seed=P21_SEED)
+    for dt in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dt)
+        model = DecoderLM(c, DEV)
+        params = base if dt == "float32" else _cast(base, torch.bfloat16)
+        fwd[dt] = _trunk_logits(model, params, prompt)[0]
+        cache = empty_decode_cache(c, 1, P21_PROMPT + P21_NEW, DEV)
+        rows, tok = [], None
+        n = P21_PROMPT + (P21_NEW if dt == "bfloat16" else 0)
+        for t in range(n):
+            cur = prompt[:, t:t + 1] if t < P21_PROMPT else tok
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            lg = model.decode(params, cache, cur, torch.full(
+                (1,), t, dtype=torch.int32, device=DEV))
+            b.record()
+            b.synchronize()
+            if t < P21_PROMPT:
+                rows.append(lg[0, 0].float())
+            else:
+                ms.append(a.elapsed_time(b))
+            tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        dec[dt] = torch.stack(rows)
+        check(all(torch.isfinite(x).all() for x in cache.values()),
+              f"{c.name} {dt}: a non-finite decode cache")
+        if dt == "bfloat16":
+            fine = c.replace(ssm=dataclasses.replace(
+                c.ssm, chunk=P21_PROMPT // 4))
+            r["order16"] = _row_rel(_trunk_logits(
+                DecoderLM(fine, DEV), params, prompt)[0], fwd[dt])
+        del model, params, cache
+    del base
+    _free()
+    r["e32"] = _row_rel(dec["float32"], fwd["float32"])
+    r["e16"] = _row_rel(dec["bfloat16"], fwd["bfloat16"])
+    r["n_fwd"] = _row_rel(fwd["bfloat16"], fwd["float32"])
+    r["n_dec"] = _row_rel(dec["bfloat16"], dec["float32"])
+    check(r["e32"] <= LOGIT_REL_TOL, f"{cfg.name}: recurrent decode logits "
+          f"{r['e32']:.4e} of max |logit| off the training forward's "
+          "(float32)")
+    check(r["n_dec"] <= DECODE16_RATIO * r["n_fwd"], f"{cfg.name}: the bf16 "
+          f"decode {r['n_dec']:.4e} of max |logit| off the float32 decode, "
+          f"over {DECODE16_RATIO} × the bf16 training forward's "
+          f"{r['n_fwd']:.4e} off the float32 forward")
+    r["ms"] = float(np.median(ms))
+    return r
+
+
+def _row_rel(got, ref):
+    """The largest over rows of max |got − ref| / max |ref|."""
+    return float(((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+
+
+def _trunk_logits(model, params, tokens):
+    """An SSM or hybrid model's training trunk (``prefill``'s SSM arm) with
+    the logits of every position of this rank's shard, float32."""
+    with torch.no_grad():
+        h, cos, sin, _, _ = model._trunk_input(params, tokens)
+        return model._head(params, model._ssm_trunk(params, h, cos,
+                                                    sin)).float()
+
+
+def _cast(tree, dtype, name=None):
+    """A parameter tree in ``dtype``, the leaves the model keeps in float32
+    kept (``init`` draws every leaf in float32 and casts it: this is the
+    ``dtype`` init of the same seed, bit for bit)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(x, dtype, name) for x in tree]
+    return tree if name in TF._FLOAT32_LEAVES else tree.to(dtype)
+
+
+def _p21_grad_check():
+    """(b): zamba2 at full width, 6 layers, T 4096: per-leaf gradients
+    through kernels A, C and D against the plain attention path; the limit
+    must reject a backward shifted by one position (phase 6b's control)."""
+    cfg = get_config("zamba2-2.7b").replace(n_layers=P21_GRAD_LAYERS)
+    batch = SyntheticTokens(cfg, ShapeSpec("g", P21_GRAD_T, 1, "train"),
+                            device=DEV).batch(0)
+    base = DecoderLM(cfg, DEV).init(seed=P21_SEED)
+
+    def grads(impl):
+        model = DecoderLM(cfg, DEV, impl=impl)
+        params = trainable(base)
+        loss, _ = model.loss(params, batch)
+        return float(loss.detach()), torch.autograd.grad(loss,
+                                                         leaves(params))
+    names = _leaf_names(base)
+    l_ref, g_ref = grads("ref")
+    l_cuda, g_cuda = grads("cuda")
+    ok, leaf = _worst_leaf(g_cuda, g_ref, names)
+    check(ok <= GRAD_REL_TOL, f"zamba2 kernel grads vs plain: {leaf} {ok}")
+    del g_cuda
+    _, g_bad = grads(_shifted_backend())
+    bad, bad_leaf = _worst_leaf(g_bad, g_ref, names)
+    check(bad > GRAD_REL_TOL, f"the grad limit does not reject a shifted "
+          f"backward (worst leaf {bad_leaf} {bad:.4f})")
+    say(f"  (b) gradients at full width, {P21_GRAD_LAYERS} layers, T "
+        f"{P21_GRAD_T}: loss kernels {l_cuda:.5f} vs plain {l_ref:.5f}; "
+        f"worst leaf max|Δg| / max|g| {ok:.4f} ({leaf}; limit "
+        f"{GRAD_REL_TOL}), shifted-backward control {bad:.4f} ({bad_leaf}; "
+        "rejected)")
+    del base, g_ref, g_bad
+    _free()
+
+
+def ssm_models():
+    """Phase 21 (a) and (b): mamba2-2.7b and zamba2-2.7b at full size on
+    one card, bf16, seed-0 weights: 3 training steps of 8,192 tokens under
+    remat_aware (the SSM layers checkpointed at their boundary, zamba2's
+    shared block remat-aware through kernels A, C and D at head dim 160,
+    each launched once a call: 9 calls a step), one more step traced for
+    the device's idle share; then the recurrent decode of seed-21 weights
+    (:func:`_p21_decode`); zamba2's gradients against the plain attention
+    path (:func:`_p21_grad_check`)."""
+    out = {"launches": dict.fromkeys(D160_KERNELS, 0)}
+    for arch in P21_ARCHS:
+        t0 = time.perf_counter()
+        part = "(a)" if arch == "mamba2-2.7b" else "(b)"
+        cfg = get_config(arch)
+        tc = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=P21_STEPS)
+        ds = SyntheticTokens(cfg, ShapeSpec("chip21", P21_T, 1, "train"),
+                             device=DEV, seed=0)
+        batches = [ds.batch(i) for i in range(P21_STEPS)]
+        say(f"  {part} {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} SSM heads of "
+            f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}"
+            + (f", a shared block of {cfg.attn.n_heads} heads × "
+               f"{cfg.attn.head_dim} every {cfg.hybrid_period} layers"
+               if cfg.attn else "")
+            + f" ({cfg.param_count() / 1e9:.2f} B params), B 1 T {P21_T}, "
+            "bf16 params, fp32 moments")
+        runs, launches, peak, idle = _train_policy(
+            cfg, "remat_aware", batches, tc, kernels=D160_KERNELS,
+            profile=True)
+        for i, (m, sec) in enumerate(runs):
+            check(m["skipped_nonfinite"] == 0 and np.isfinite(m["loss"]),
+                  f"{arch} step {i + 1}: loss {m['loss']}")
+            say(f"  {part} step {i + 1}: loss {m['loss']:.4f} gnorm "
+                f"{m['gnorm']:.3f} step {sec:.3f} s")
+        tok_s = (P21_STEPS - 1) * P21_T / sum(s for _, s in runs[1:])
+        calls = cfg.n_layers // cfg.hybrid_period if cfg.attn else 0
+        for k in D160_KERNELS:
+            check(launches[k] == calls * P21_STEPS, f"{arch}: {k} launched "
+                  f"{launches[k]} times, want {calls} a step")
+            out["launches"][k] += launches[k]
+        say(f"  {part} {tok_s:.1f} tokens/s over steps 2-{P21_STEPS}, peak "
+            f"memory {peak / 2**30:.2f} GiB, device idle share {idle:.3f}; "
+            f"launches over the {P21_STEPS} steps "
+            + ", ".join(f"{k} {launches[k]}" for k in D160_KERNELS)
+            + f"; training {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        d = _p21_decode(cfg)
+        say(f"  {part} recurrent decode, max |Δlogit| / max |logit| over the "
+            f"{P21_PROMPT} prompt positions: decode vs training forward "
+            f"{d['e32']:.4e} in float32 (limit {LOGIT_REL_TOL}), "
+            f"{d['e16']:.4e} in bf16 (read); bf16 vs float32 on the same "
+            f"weights: decode {d['n_dec']:.4e}, training forward "
+            f"{d['n_fwd']:.4e} (limit: the decode within {DECODE16_RATIO} × "
+            f"the forward's), the bf16 forward at SSD chunk "
+            f"{P21_PROMPT // 4} vs {P21_PROMPT} {d['order16']:.4e} (read); "
+            f"{d['ms']:.2f} ms a greedy bf16 step (median of {P21_NEW}); "
+            f"{time.perf_counter() - t1:.1f} s")
+        out[arch] = dict(tok_s=tok_s, peak=peak, idle=idle, decode_ms=d["ms"],
+                         decode=d)
+        if cfg.attn:
+            t1 = time.perf_counter()
+            _p21_grad_check()
+            say(f"  {part} gradient check {time.perf_counter() - t1:.1f} s")
+        say(f"  {part} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _p21c_cfg():
+    return get_config("zamba2-2.7b").replace(n_layers=P21C_LAYERS)
+
+
+def _p21c_edges(T, P):
+    """The first P21C_EDGE positions of every rank's shard."""
+    return np.concatenate([np.arange(r * (T // P), r * (T // P) + P21C_EDGE)
+                           for r in range(P)])
+
+
+def _p21c_one(tmp):
+    """(c)'s P = 1 on this process, the ranks' weights and tokens: step 1's
+    loss and gradients, and the logits at every shard's first positions,
+    saved on the host at ``tmp/p1.pt``."""
+    cfg = _p21c_cfg()
+    one = DecoderLM(cfg, DEV)
+    params = trainable(one.init(seed=P21_SEED))
+    batch = SyntheticTokens(cfg, ShapeSpec("chip21c", P21C_T, 1, "train"),
+                            device=DEV, seed=0).batch(0)
+    loss, _ = one.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves(params))
+    edges = torch.as_tensor(_p21c_edges(P21C_T, P21C_RANKS), device=DEV)
+    logits = _trunk_logits(one, params, batch["tokens"])[0, edges]
+    torch.save({"loss": float(loss.detach()),
+                "grads": [g.cpu() for g in grads], "logits": logits.cpu(),
+                "names": _leaf_names(params)}, os.path.join(tmp, "p1.pt"))
+    del one, params, grads, logits
+    _free()
+    return float(loss.detach())
+
+
+def _p21c_rank(rank, tmp):
+    """One rank of (c): step 1's loss, summed gradients and shard-edge
+    logits held to P = 1's (the worst leaf, the worst edge), the forward
+    and backward timed with their host seconds in shifts and all-reduces;
+    then the loss and the edges under each planted relay fault."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.train.step import sum_grads
+    mesh = make_local_mesh(seq=P21C_RANKS, device=DEV)
+    p = mesh.coord("model")
+    cfg = _p21c_cfg()
+    shape = ShapeSpec("chip21c", P21C_T, 1, "train")
+    model = DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+        mesh, shape, schedule="balanced"))
+    params = trainable(model.init(seed=P21_SEED))
+    ds = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                         par=model.par)
+    b0 = ds.batch(0)
+    glob = SyntheticTokens(cfg, shape, device=DEV, seed=0).batch(0)["tokens"]
+    one = torch.load(os.path.join(tmp, "p1.pt"))
+    Tl, E = P21C_T // P21C_RANKS, P21C_EDGE
+    ref_edge = one["logits"][p * E:(p + 1) * E].to(DEV).float()
+
+    def readings(grad=True):
+        if grad:
+            loss, _ = model.loss(params, b0)
+            raw = torch.autograd.grad(loss, leaves(params))
+            grads, _ = sum_grads(model, params, list(raw))
+            err = _worst_leaf(grads, [g.to(DEV) for g in one["grads"]],
+                              one["names"])
+            del raw, grads
+        else:
+            with torch.no_grad():
+                loss, _ = model.loss(params, b0)
+            err = None
+        edge = _trunk_logits(model, params, glob)[0, :E]
+        d_edge = float((edge - ref_edge).abs().max()
+                       / ref_edge.abs().max())
+        return dict(loss=float(loss.detach()), grad_err=err, edge=d_edge)
+    comms = [model.seq_group, model.token_group]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    c0 = _comm_seconds(comms)
+    t0 = time.perf_counter()
+    out = {"rank": p, "transport": mesh.transport, "first": readings()}
+    torch.cuda.synchronize()
+    c1 = _comm_seconds(comms)
+    out["step"] = dict(sec=time.perf_counter() - t0,
+                       comm={k: c1[k] - c0[k] for k in c1})
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {k: build.LAUNCHES[k] for k in D160_KERNELS}
+
+    def zero_state(group, decay, state):
+        return torch.zeros_like(state)
+
+    def zero_halo(group, xbc, k):
+        return torch.zeros_like(xbc[:, -(k - 1):])
+    out["faults"] = {}
+    for name, where, fn in (("zero_state", "_device_prefix", zero_state),
+                            ("zero_halo", "_halo", zero_halo)):
+        right = getattr(SSM, where)
+        setattr(SSM, where, fn)
+        try:
+            out["faults"][name] = readings(grad=False)
+        finally:
+            setattr(SSM, where, right)
+    out["comm_s"] = _process_comm_seconds()
+    return out
+
+
+def ssm_ranks():
+    """Phase 21 (c): zamba2-2.7b at full width, 12 of 54 layers (the shared
+    block twice), on 4 ``cuda-ipc`` ranks sharing the card, one 16,384-token
+    sequence a step (4,096 a rank), balanced, seed-21 weights: the SSD state
+    relayed between the ranks, the conv halo shifted, the shared block's
+    attention through the balanced plan (kernels A, C and D at 160).  Held
+    to one process on the same weights and tokens: step 1's loss within
+    2^-8 of its size (phase 15's bar), every gradient leaf within 5% of its
+    max |g|, the logits at each shard's first 64 positions within 5% of max
+    |logit|; each planted relay fault (every rank starting from a zero
+    state; the conv halo zeroed) must be rejected."""
+    cfg = _p21c_cfg()
+    say(f"  (c) {cfg.name} at full width, {cfg.n_layers} of 54 layers "
+        f"({cfg.param_count() / 1e9:.2f} B params, the shared block "
+        f"{cfg.n_layers // cfg.hybrid_period} times), one sequence of "
+        f"{P21C_T} tokens a step ({P21C_T // P21C_RANKS} a rank), bf16, "
+        f"balanced, seed {P21_SEED}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        loss1 = _p21c_one(tmp)
+        say(f"  (c) P = 1 ({time.perf_counter() - t0:.1f} s): step 1 loss "
+            f"{loss1:.6f}")
+        t0 = time.perf_counter()
+        res = spawn(_p21c_rank, P21C_RANKS, (tmp,), device=DEV,
+                    timeout=P21C_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    _say_comm(21, res)
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+
+    def rel(a):
+        return abs(a - loss1) / abs(loss1)
+    launches = {k: sum(r["launches"][k] for r in res) for k in D160_KERNELS}
+    for r in res:
+        f = r["first"]
+        err, leaf = f["grad_err"]
+        say(f"  (c) rank {r['rank']}: step 1 loss {f['loss']:.6f} relative "
+            f"|Δ| {rel(f['loss']):.3e} (limit {P15_TOL:.3e}); worst "
+            f"gradient leaf {err:.4f} ({leaf}; limit {GRAD_REL_TOL}); "
+            f"shard-edge logits {f['edge']:.4e} of max |logit| (limit "
+            f"{LOGIT_REL_TOL}); step 1 forward, backward and gradient sum "
+            f"with the edges' forward {r['step']['sec']:.3f} s, host in "
+            f"shifts / all-reduces and gathers "
+            f"{r['step']['comm']['shift']:.3f} / "
+            f"{r['step']['comm']['reduce']:.3f} s; peak "
+            f"{r['peak'] / 2**30:.2f} GiB; launches "
+            + ", ".join(f"{k} {r['launches'][k]}" for k in D160_KERNELS))
+        check(rel(f["loss"]) <= P15_TOL, f"rank {r['rank']}: loss vs P = 1")
+        check(err <= GRAD_REL_TOL, f"rank {r['rank']}: {leaf} {err}")
+        check(f["edge"] <= LOGIT_REL_TOL, f"rank {r['rank']}: shard-edge "
+              f"logits {f['edge']}")
+        check(all(r["launches"][k] > 0 for k in D160_KERNELS),
+              f"rank {r['rank']}: D 160 launches {r['launches']}")
+    for name in ("zero_state", "zero_halo"):
+        worst = max(r["faults"][name]["edge"] for r in res)
+        d_loss = max(rel(r["faults"][name]["loss"]) for r in res)
+        rejected = worst > LOGIT_REL_TOL or d_loss > P15_TOL
+        say(f"  (c) fault {name}: shard-edge logits {worst:.4e} of max "
+            f"|logit|, step 1 loss relative |Δ| {d_loss:.3e} "
+            f"({'rejected' if rejected else 'NOT rejected'})")
+        check(rejected, f"relay fault {name} passes the gates")
+    say(f"  (c) world of {P21C_RANKS} ranks: {wall:.1f} s, spawn included")
+    return dict(launches=launches, res=res)
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -7160,26 +7696,32 @@ def tensor_core_report(report):
     check(views == {0, 1}, "ptxas reported fewer than two latent tensor-core "
           "kernels")
     pair = build.load("flash_fwd_pair_sm90").repro_flash_fwd_pair_sm90_smem
-    pair.argtypes, pair.restype = [], ctypes.c_int
+    pair.argtypes, pair.restype = [ctypes.c_int] * 2, ctypes.c_int
     got = ptxas_kernels(report["flash_fwd_pair_sm90"])
-    check(len(got) == 1, f"ptxas reported {len(got)} pair kernels")
-    for mangled, (regs, spill) in got.items():
-        say(f"  ptxas A fwd pair wgmma 192/128: {regs} registers, {spill} "
-            f"bytes spilled, {pair()} bytes dynamic shared memory")
+    dims = sorted(tuple(_template_args(m)[:2]) for m in got)
+    check(dims == [(160, 160), (192, 128)],
+          f"ptxas reported the pair kernels {dims}")
+    for mangled, (regs, spill) in sorted(got.items()):
+        dk, dv = _template_args(mangled)[:2]
+        say(f"  ptxas A fwd pair wgmma {dk}/{dv}: {regs} registers, {spill} "
+            f"bytes spilled, {pair(dk, dv)} bytes dynamic shared memory")
         check(spill == 0, f"kernel {mangled} spills {spill} bytes")
     # C and D's pair route: three warpgroups, `setmaxnreg` hands the
     # consumers 240 registers a thread (ptxas reports the launch's 168)
     bpair = build.load("flash_bwd_pair_sm90").repro_flash_bwd_pair_sm90_smem
-    bpair.argtypes, bpair.restype = [ctypes.c_int], ctypes.c_int
+    bpair.argtypes, bpair.restype = [ctypes.c_int] * 3, ctypes.c_int
     got = ptxas_kernels(report["flash_bwd_pair_sm90"])
-    names = sorted("C dq" if "dq_pair" in m else "D dkv" for m in got)
-    check(names == ["C dq", "D dkv"],
+    names = sorted(("C dq" if "dq_pair" in m else "D dkv",)
+                   + tuple(_template_args(m)[:2]) for m in got)
+    check(names == [("C dq", 160, 160), ("C dq", 192, 128),
+                    ("D dkv", 160, 160), ("D dkv", 192, 128)],
           f"ptxas reported the pair backward kernels {names}")
     for mangled, (regs, spill) in sorted(got.items()):
         kernel = 0 if "dq_pair" in mangled else 1
-        say(f"  ptxas {('C dq', 'D dkv')[kernel]} pair wgmma 192/128: "
+        dk, dv = _template_args(mangled)[:2]
+        say(f"  ptxas {('C dq', 'D dkv')[kernel]} pair wgmma {dk}/{dv}: "
             f"{regs} registers at launch, {spill} bytes spilled, "
-            f"{bpair(kernel)} bytes dynamic shared memory")
+            f"{bpair(kernel, dk, dv)} bytes dynamic shared memory")
         check(spill == 0, f"kernel {mangled} spills {spill} bytes")
     seen = 0
     for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
@@ -7204,7 +7746,7 @@ def tensor_core_report(report):
     for mangled, (regs, spill) in sorted(
             ptxas_kernels(report["flash_bwd"]).items()):
         d, dv = _template_args(mangled)[:2]
-        if dv == d:
+        if dv == d and d != D160:
             continue
         kernel = 0 if "dq_kernel" in mangled else 1
         say(f"  ptxas {('C dq', 'D dkv')[kernel]} float32 D={d}/{dv}: "
@@ -7212,7 +7754,14 @@ def tensor_core_report(report):
             f"{bwd32(kernel, d, dv)} bytes dynamic shared memory")
         check(spill == 0, f"kernel {mangled} spills {spill} bytes")
         f32 += 1
-    check(f32 == 2, f"ptxas reported {f32} float32 192/128 kernels")
+    check(f32 == 4, f"ptxas reported {f32} float32 192/128 and 160 kernels")
+    for mangled, (regs, spill) in sorted(
+            ptxas_kernels(report["flash_fwd"]).items()):
+        if _template_args(mangled)[:1] != [D160]:
+            continue
+        say(f"  ptxas A fwd float32 D={D160}: {regs} registers, {spill} bytes "
+            "spilled")
+        check(spill == 0, f"kernel {mangled} spills {spill} bytes")
 
 
 def bound(flops, nbytes, peak_flops):
@@ -7448,22 +7997,24 @@ PAGED_POOLS = 4     # pool pairs the L2-cold timings rotate over
 
 
 def _paged_device_ms(call, n=40):
-    """Kernel B's own device time per call: torch.profiler's device time of
-    every kernel named ``paged_decode*`` over n calls (split and merge)."""
-    from torch.autograd import DeviceType
+    """Kernel B's own device time per call: n calls replayed as one CUDA
+    graph (:func:`graph_ms`); and, beside it, torch.profiler's device time
+    of every kernel named ``paged_decode*`` over n calls (split and merge),
+    None where the trace holds no such kernel.  Late in this script's run
+    the profiler has dropped kernels (readings past the bytes bound) or
+    recorded none, so only the replay is the device time."""
     from torch.profiler import ProfilerActivity, profile
-    for i in range(4):
-        call(i)
+    it = iter(range(1 << 30))
+    replay = graph_ms(lambda: call(next(it)), n=n)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             call(i)
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and "paged_decode" in ev.key)
-    return us / 1e3 / n
+    us = sum(t for name, (_, t) in _kernels(prof).items()
+             if "paged_decode" in name)
+    return replay, (us / 1e3 / n if us > 0 else None)
 
 
 def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens, latent=False):
@@ -7494,7 +8045,7 @@ def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens, latent=False):
     o = call(0)
     o_r = paged_attn_ref(q, kp, vp, bt, ln, mask=m, scale=sc)
     err = float((o.float() - o_r.float()).abs().max())
-    dev = _paged_device_ms(call)
+    dev, prof_ms = _paged_device_ms(call)
     it = iter(range(1 << 30))
     wrap = cuda_ms(lambda: call(next(it)), reps=20, warmup=4)
     torch.cuda.synchronize()
@@ -7521,12 +8072,15 @@ def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens, latent=False):
     say(f"  paged_decode B{B} Tq{Tq} Hq{Hq} Hkv{Hkv} {dims} bs{bs} bf16 "
         f"lengths {lens if len(lens) < 5 else len(lens)}, L2-cold: device "
         f"{dev:.4f} ms ({nbytes / dev / 1e6:.1f} GB/s, {b_ms / dev:.3f} of "
-        f"the bound), wrapper {wrap:.4f} ms, host {host:.4f} ms a call, "
+        f"the bound), profiler "
+        f"{'n/a' if prof_ms is None else f'{prof_ms:.4f} ms'}, wrapper "
+        f"{wrap:.4f} ms, host {host:.4f} ms a call, "
         f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
         f"{nbytes / 1e6:.2f} MB), max|Δo| {err:.3e}")
     del q, kp, vp, pools, o, o_r
     _free()
-    return dict(ms=dev, wrapper_ms=wrap, host_ms=host, plain_ms=plain,
+    return dict(ms=dev, profiler_ms=prof_ms, wrapper_ms=wrap, host_ms=host,
+                plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
 
@@ -7726,6 +8280,125 @@ def time_pair_bwd(launches, seen, errs):
     return rows
 
 
+D160_DESIGN = ("bf16 on the tensor cores, the pair libraries at <160, 160>: "
+               "160 columns as three 64-column TMA slabs, the last half "
+               "zeros; A: 128-row q tiles on two warpgroups over 64-key "
+               "tiles in a 3-stage ring, o += p·v as wgmma m64n192 with p "
+               "as two bf16 terms; C and D: a TMA producer warp and two "
+               "consumer warpgroups over a 2-stage ring, the first products "
+               "shared-shared, the second m64n192; float32: IEEE FMAs on "
+               "the CUDA cores")
+
+
+def time_d160(launches):
+    """Kernels A, C and D at zamba2-2.7b's training shape: q, k, v (1, 8192,
+    32, 160) bf16, causal, scale 1/√160: device time of each (20 calls
+    replayed as one CUDA graph) and event time a call, its plain version's
+    (head slice by head slice), SDPA's causal forward and autograd
+    backward on the same tensors (the backend its dispatcher takes,
+    named), each bound and the error against the plain version."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    H, D, _, scale = D160_DIMS
+    B, T = 1, 8192
+    q, k, v = _pair_inputs(gen, B, T, T, torch.bfloat16, D160_DIMS)
+    do = randn(gen, (B, T, H, D), torch.bfloat16)
+    m = mk.causal()
+    o, lse = flash_fwd(q, k, v, mask=m, scale=scale)
+    kw = dict(mask=m, scale=scale)
+    args = (q, k, v, o, lse, do)
+    slices = [_bwd_slice(args, kw, sq, skv) for sq, skv in _head_slices(q, k)]
+    o_r = torch.cat([chunk_attn_ref(a[0], a[1], a[2], **kw)[0]
+                     for a, _ in slices], dim=2)
+    err = {"flash_fwd_160": float((o.float() - o_r.float()).abs().max())}
+    del o_r
+    got = flash_bwd(*args, **kw)
+    ref = _pair_bwd_ref(args, kw)
+    err["flash_bwd_dq_160"] = float((got[0].float() - ref[0].float()).abs()
+                                    .max())
+    err["flash_bwd_dkv_160"] = max(float((a.float() - r.float()).abs().max())
+                                   for a, r in zip(got[1:], ref[1:]))
+    del got, ref
+    _free()
+    pl = _BwdPlan(q, k, v, o, lse, do, m, None, None, None, True)
+    fwd = (lambda: flash_fwd(q, k, v, mask=m, scale=scale))
+    dev_ms = {"flash_fwd_160": graph_ms(fwd),
+              "flash_bwd_dq_160": graph_ms(lambda: _launch_dq(pl, scale)),
+              "flash_bwd_dkv_160": graph_ms(lambda: _launch_dkv(pl, scale))}
+    ev_ms = {"flash_fwd_160": cuda_ms(fwd, reps=10, warmup=2),
+             "flash_bwd_dq_160": cuda_ms(lambda: _launch_dq(pl, scale),
+                                         reps=10, warmup=2),
+             "flash_bwd_dkv_160": cuda_ms(lambda: _launch_dkv(pl, scale),
+                                          reps=10, warmup=2)}
+
+    def plain(only=None):
+        if only is None:
+            return lambda: [chunk_attn_ref(a[0], a[1], a[2], **k2)
+                            for a, k2 in slices]
+        return lambda: [chunk_attn_bwd_ref(*a, **k2, only=only)
+                        for a, k2 in slices]
+    plain_ms = {"flash_fwd_160": cuda_ms(plain(), reps=3, warmup=1),
+                "flash_bwd_dq_160": cuda_ms(plain("dq"), reps=3, warmup=1),
+                "flash_bwd_dkv_160": cuda_ms(plain("dkv"), reps=3, warmup=1)}
+    del pl, slices
+    _free()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    backend = _sdpa_backend(qt, kt, vt, is_causal=True, scale=scale)
+    sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale))
+    lib_fwd = _library(lambda: cuda_ms(sdpa, reps=10, warmup=2))
+    out = _library(sdpa)
+    lib_bwd = None
+    if out is not None:
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = _library(lambda: cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps=10, warmup=2))
+        del dot
+    del qt, kt, vt, out, q, k, v, o, lse, do
+    _free()
+    pairs = B * H * T * (T + 1) // 2
+    t16, stats = 2 * B * T * H * D, 4 * B * T * H
+    rows = []
+    for name, fl, nbytes, src_line, lib in (
+            # A reads q, k, v; writes o and lse
+            ("flash_fwd_160", 2.0 * 2 * D * pairs, 4 * t16 + stats, 157,
+             lib_fwd),
+            # C reads q, k, v, o, do, lse; writes dq and delta
+            ("flash_bwd_dq_160", 2.0 * 3 * D * pairs, 6 * t16 + 2 * stats,
+             280, lib_bwd),
+            # D reads q, k, v, do, lse, delta; writes dk and dv
+            ("flash_bwd_dkv_160", 2.0 * 4 * D * pairs, 6 * t16 + 2 * stats,
+             322, lib_bwd)):
+        b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
+        ms = dev_ms[name]
+        say(f"  {name} B{B} T{T} H{H} D{D} bf16 causal: device {ms:.4f} ms "
+            f"({fl / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.4f} of the bound), "
+            f"event {ev_ms[name]:.4f} ms a call, plain {plain_ms[name]:.4f} "
+            f"ms, sdpa {'n/a' if lib is None else f'{lib:.4f} ms'} (backend "
+            f"{backend}{'' if name == 'flash_fwd_160' else ', autograd backward'}"
+            f"), bound {b_ms:.4f} ms ({b_by}; {fl / 1e12:.3f} TFLOP, "
+            f"{nbytes / 1e6:.1f} MB), max|Δ| vs plain {err[name]:.3e}")
+        rows.append({"name": name, "route": "cuda", "design": D160_DESIGN,
+                     "source": "src/repro_torch/kernels/csrc/" + (
+                         "flash_fwd_pair_sm90.cu" if name == "flash_fwd_160"
+                         else "flash_bwd_pair_sm90.cu"),
+                     "float32_source": "src/repro_torch/kernels/csrc/" + (
+                         "flash_fwd.cu" if name == "flash_fwd_160"
+                         else "flash_bwd.cu"),
+                     "replaces": f"src/repro/kernels/flash_attention.py:"
+                                 f"{src_line}",
+                     "launches": launches.get(name, 0),
+                     "max_abs_err": err[name], "ms": ms,
+                     "event_ms": ev_ms[name], "plain_ms": plain_ms[name],
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_fraction": b_ms / ms, "library_ms": lib,
+                     "library_backend": backend,
+                     **({} if name == "flash_fwd_160" else
+                        {"library_covers":
+                         "flash_bwd_dq_160+flash_bwd_dkv_160"})})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7767,6 +8440,7 @@ def main():
     pair_checks()
     bwd_checks()
     pair_bwd_checks()
+    d160_checks()
     took(3, t0)
     say("== phase 3c: kernels A, C and D under every plan step's mask")
     t0 = time.perf_counter()
@@ -7842,6 +8516,12 @@ def main():
         f"{P14_LAYERS} of 27 layers")
     tm = train_moe()
     _free()
+    say("== phase 21 (a, b): mamba2-2.7b and zamba2-2.7b at full size on "
+        "the one card: training, the recurrent decode, kernels A, C and D at "
+        "head dim 160")
+    t0 = time.perf_counter()
+    sm = ssm_models()
+    took("21 (a, b)", t0)
     say("== phase 5: times at the shapes of each path")
     t0 = time.perf_counter()
     launches = {k: res["launches"][k] + tr["launches"].get(k, 0)
@@ -7868,7 +8548,8 @@ def main():
         f"{s2['launches']}")
     rows = [time_flash(launches), time_latent(launches), time_pair(launches),
             time_paged(launches), *time_bwd(launches, tr["seen"], errs),
-            *time_pair_bwd(pair_bwd, tm.pop("seen"), tm["errs"])]
+            *time_pair_bwd(pair_bwd, tm.pop("seen"), tm["errs"]),
+            *time_d160(sm["launches"])]
     rows[0].update(time_flash_train(tr["seen"]))
     _free()
     took(5, t0)
@@ -7898,6 +8579,13 @@ def main():
         "block-sharded)")
     g2 = engine2d()
     _free()
+    say("== phase 21 (c): zamba2-2.7b at full width, "
+        f"{P21C_LAYERS} of 54 layers, across 4 ranks on the one card (the "
+        "SSD state relayed between them)")
+    t0 = time.perf_counter()
+    sr = ssm_ranks()
+    _free()
+    took("21 (c)", t0)
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
@@ -7912,6 +8600,7 @@ def main():
         if row["name"] == "flash_fwd_pair":
             row["launches"] += e2["launches"]["flash_fwd_pair"]
         row["launches"] += g2["launches"].get(row["name"], 0)
+        row["launches"] += sr["launches"].get(row["name"], 0)
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
         f"{es['launches']}, its latent-ring prefill (all ranks) "
@@ -7919,7 +8608,9 @@ def main():
         f"ranks (all ranks) {ep['launches']}, deepseek on the 2D mesh "
         f"(all ranks: 2 train steps, the prefill) {e2['launches']}, the "
         f"paged engine on the 2D mesh (all ranks, both cases) "
-        f"{ {k: n for k, n in g2['launches'].items() if n} }")
+        f"{ {k: n for k, n in g2['launches'].items() if n} }, zamba2 "
+        f"training and across 4 ranks (all ranks) "
+        f"{sm['launches']} / {sr['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

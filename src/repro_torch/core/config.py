@@ -3,9 +3,11 @@
 Configs are plain frozen dataclasses, so they hash and print cleanly.  The
 fields are the reference's fields for a dense / GQA decoder (with the Qwen
 family's ``qkv_bias`` and ``qk_norm``) and for DeepSeek's multi-head latent
-attention (MLA) and mixture-of-experts FFN (:class:`MoEConfig`), so a
-reference config and its port describe the same model; the SSM, hybrid and
-encoder fields arrive with the slices that serve those models.
+attention (MLA) and mixture-of-experts FFN (:class:`MoEConfig`), and for
+the Mamba2 SSM and Zamba2 hybrid families (:class:`SSMConfig`,
+``hybrid_period``), so a reference config and its port describe the same
+model; the encoder, image and MTP fields arrive with the slices that run
+those models.
 """
 from __future__ import annotations
 
@@ -53,15 +55,34 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD, arXiv:2405.21060)."""
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128                 # SSD intra-chunk block length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                   # "dense" or "moe" (the ones served)
+    arch_type: str                   # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     d_ff: int
     vocab: int
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (Zamba2): a shared attention block every `hybrid_period` layers
+    hybrid_period: int = 0
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     citation: str = ""
@@ -70,9 +91,14 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def uses_attention(self) -> bool:
+        return self.arch_type != "ssm"
+
     def param_count(self) -> int:
-        """Parameter count N of a dense or MoE decoder, the reference's
-        (norms, the q/k/v biases and qk-norm weights are not counted)."""
+        """Parameter count N, the reference's (norms, the q/k/v biases and
+        qk-norm weights, the SSM's A_log / D / dt_bias and conv bias are not
+        counted)."""
         return _param_count(self)
 
     def active_param_count(self) -> int:
@@ -95,10 +121,28 @@ def _attn_params(c: ModelConfig) -> int:
     return d * (a.n_heads * hd + 2 * a.n_kv_heads * hd) + a.n_heads * hd * d
 
 
+def _ssm_params(c: ModelConfig) -> int:
+    """One Mamba2 mixer: in_proj to [z, x, B, C, dt], out_proj, the conv."""
+    s = c.ssm
+    di, nh = s.d_inner(c.d_model), s.n_heads(c.d_model)
+    zxbcdt = 2 * di + 2 * s.d_state + nh
+    return (c.d_model * zxbcdt + di * c.d_model
+            + s.d_conv * (di + 2 * s.d_state))
+
+
 def _param_count(c: ModelConfig, active_only: bool = False) -> int:
-    """The reference's ``_param_count`` for dense and MoE decoders."""
+    """The reference's ``_param_count`` for dense, MoE, SSM and hybrid
+    decoders (a hybrid's one shared block: attention and SwiGLU at
+    2·d_model, and its down projection)."""
     d = c.d_model
     n = c.vocab * d * (1 if c.tie_embeddings else 2)
+    if c.arch_type in ("ssm", "hybrid"):
+        n += c.n_layers * _ssm_params(c)
+        if c.arch_type == "ssm":
+            return n
+        a, d2 = c.attn, 2 * d
+        hd = a.n_heads * a.head_dim
+        return n + d2 * 3 * hd + hd * d2 + 3 * d2 * c.d_ff + d2 * d
     attn = _attn_params(c)
     if c.moe is None:
         return n + c.n_layers * (attn + 3 * d * c.d_ff)
@@ -190,8 +234,9 @@ class TrainConfig:
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family for CPU tests: 2 layers, 4 heads
     of 32, f32, MLA ranks 32 / rope 16 / v 32, 4 routed experts (top 2,
-    capacity 4.0) — the reference's ``smoke_config`` for dense and MoE
-    decoders."""
+    capacity 4.0); an SSM of d_model 64, d_state 16, head dim 8, chunk 16;
+    a hybrid of d_model 64, d_ff 128, 4 heads of 32 (4·32 = 2·64) and a
+    shared block every layer — the reference's ``smoke_config``."""
     kw = dict(n_layers=2, vocab=512, dtype="float32")
     if cfg.attn is not None:
         a = cfg.attn
@@ -205,6 +250,17 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             v_head_dim=32 if a.v_head_dim else 0)
         kw["d_model"] = n_heads * 32
         kw["d_ff"] = 256
+    if cfg.arch_type == "hybrid":
+        kw["d_model"] = 64
+        kw["attn"] = dataclasses.replace(kw["attn"], head_dim=32,
+                                         n_kv_heads=4)  # 4·32 == 2·64
+        kw["hybrid_period"] = 1
+        kw["d_ff"] = 128
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=8,
+                                        chunk=16)
+        if cfg.arch_type == "ssm":
+            kw["d_model"] = 64
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(
             cfg.moe, n_routed=4, n_shared=min(cfg.moe.n_shared, 1),

@@ -1,5 +1,7 @@
-"""Synthetic training data (port of the reference ``data/pipeline.py``,
-``SyntheticTokens``, for dense decoders).
+"""Synthetic training data (port of the reference ``data/pipeline.py``:
+``SyntheticTokens`` for dense, MoE, SSM and hybrid decoders) and the empty
+decode cache of an SSM or hybrid model (:func:`empty_decode_cache`, the
+reference's ``cache_specs`` arms for them).
 
 The tokens are the reference's, bit for bit: the same numpy generator, seed
 and step give the same hash-mixed Markov stream, and with ``shape.docs > 1``
@@ -67,9 +69,10 @@ class SyntheticTokens:
         return tokens, labels, seg
 
     def batch(self, step: int) -> dict:
-        if self.cfg.arch_type not in ("dense", "moe"):
-            raise ValueError(f"the port's pipeline feeds dense and MoE "
-                             f"decoders, not {self.cfg.arch_type!r}")
+        if self.cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(f"the port's pipeline feeds dense, MoE, SSM "
+                             f"and hybrid decoders, not "
+                             f"{self.cfg.arch_type!r}")
         B, T = self.shape.global_batch, self.shape.seq_len
 
         rows, cols = self._shard(B, T)
@@ -99,3 +102,35 @@ class SyntheticTokens:
         cols = shard_positions(T, g.size, g.rank,
                                zigzag_layout(self.cfg, par, g.size))
         return rows, cols
+
+
+def empty_decode_cache(cfg: ModelConfig, batch: int, seq_len: int = 0,
+                       device="cuda", shards: int = 1) -> dict:
+    """The zero decode cache of an SSM or hybrid model on ``device``, shaped
+    as the reference's ``cache_specs``: ``state`` (L, B, nh, d_state,
+    head_dim) float32 and ``conv`` (L, B, d_conv − 1, d_inner + 2·d_state)
+    in the model's dtype, replicated on every rank; a hybrid's
+    ``shared_k`` / ``shared_v`` (G, B, S_loc, H_kv, head_dim) for its G =
+    n_layers / hybrid_period shared-block calls, this rank's ``seq_len /
+    shards`` slots of a cache sharded over the sequence axes."""
+    from repro_torch.models.transformer import DTYPES
+    if cfg.ssm is None:
+        raise ValueError(f"{cfg.arch_type!r} models decode from their "
+                         "prefill's cache")
+    s, d, dt = cfg.ssm, cfg.d_model, DTYPES[cfg.dtype]
+    nh, ch = s.n_heads(d), s.d_inner(d) + 2 * s.d_state
+    L = cfg.n_layers
+    cache = {"state": torch.zeros((L, batch, nh, s.d_state, s.head_dim),
+                                  dtype=torch.float32, device=device),
+             "conv": torch.zeros((L, batch, s.d_conv - 1, ch), dtype=dt,
+                                 device=device)}
+    if cfg.arch_type == "hybrid":
+        if seq_len % shards:
+            raise ValueError(f"{seq_len} cache slots do not shard over "
+                             f"{shards} ranks")
+        a = cfg.attn
+        shape = (L // cfg.hybrid_period, batch, seq_len // shards,
+                 a.n_kv_heads, a.head_dim)
+        cache["shared_k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["shared_v"] = torch.zeros(shape, dtype=dt, device=device)
+    return cache

@@ -20,8 +20,10 @@ counts kernel A's latent route at MLA's q/k 576 and v 512, again one of
 two by dtype (``flash_fwd_latent_sm90.cu`` for bf16,
 ``flash_fwd_latent.cu`` for float32), ``flash_fwd_pair`` its pair route at
 materialised MLA's q/k 192 and v 128 (``flash_fwd_pair_sm90.cu`` for bf16,
-``flash_fwd_latent.cu``'s <192, 128> for float32), and ``paged_decode``
-kernel B; each
+``flash_fwd_latent.cu``'s <192, 128> for float32), ``flash_fwd_160``,
+``flash_bwd_dq_160`` and ``flash_bwd_dkv_160`` kernels A, C and D at head
+dim 160 (the pair libraries' <160, 160> for bf16, ``flash_fwd.cu`` and
+``flash_bwd.cu`` for float32), and ``paged_decode`` kernel B; each
 wrapper adds one where it launches its kernel, and nowhere else.  Headers
 (``csrc/*.cuh``) are part of every source's hash.
 """
@@ -47,7 +49,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "flash_fwd", "paged_decode", "flash_bwd_dq", "flash_bwd_dkv",
-    "flash_fwd_latent", "flash_fwd_pair")}
+    "flash_fwd_latent", "flash_fwd_pair", "flash_fwd_160",
+    "flash_bwd_dq_160", "flash_bwd_dkv_160")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

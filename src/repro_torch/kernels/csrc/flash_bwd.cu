@@ -45,11 +45,12 @@
 // NEG_INF, missing keys are masked.  A row whose lse is NEG_INF (nothing to
 // attend) gives p = 0, as the reference's `lse <= NEG_INF / 2` rule.
 // The kernels are templated on <DK, DV>, the head dims of q / k and of v
-// (the reference's kernels take Dv != Dk): one head dim D of 32, 64 or 128
-// is <D, D>; materialised MLA (deepseek-v2-lite-16b's training path) is
-// <192, 128>, where v may be a strided view (read through its strides).
-// Shared memory at D = 128 is 150 KB (C) and 166 KB (D), at 192 / 128
-// 183 KB and 199 KB, above the 48 KB default, so each launch raises the
+// (the reference's kernels take Dv != Dk): one head dim D of 32, 64, 128 or
+// 160 (zamba2's shared attention block) is <D, D>; materialised MLA
+// (deepseek-v2-lite-16b's training path) is <192, 128>, where v may be a
+// strided view (read through its strides).  Shared memory at D = 128 is
+// 150 KB (C) and 166 KB (D), at 192 / 128 183 KB and 199 KB, at 160 183 KB
+// and 199 KB, above the 48 KB default, so each launch raises the
 // kernel's dynamic shared-memory limit.
 #include <cuda_runtime.h>
 
@@ -468,6 +469,7 @@ cudaError_t dq_d(const BwdParams& p, const Shape& sh, cudaStream_t s) {
     case 32: return launch_dq<32, 32>(p, sh.nq, sh.B, s);
     case 64: return launch_dq<64, 64>(p, sh.nq, sh.B, s);
     case 128: return launch_dq<128, 128>(p, sh.nq, sh.B, s);
+    case 160: return launch_dq<160, 160>(p, sh.nq, sh.B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -480,6 +482,7 @@ cudaError_t dkv_d(const BwdParams& p, const Shape& sh, cudaStream_t s) {
     case 32: return launch_dkv<32, 32>(p, sh.nk, sh.Hkv, sh.B, s);
     case 64: return launch_dkv<64, 64>(p, sh.nk, sh.Hkv, sh.B, s);
     case 128: return launch_dkv<128, 128>(p, sh.nk, sh.Hkv, sh.B, s);
+    case 160: return launch_dkv<160, 160>(p, sh.nk, sh.Hkv, sh.B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -533,6 +536,8 @@ extern "C" int repro_flash_bwd_smem(int kernel, int dk, int dv) {
                                             : dq_smem_bytes<64, 64>());
     case 128: return static_cast<int>(kernel ? dkv_smem_bytes<128, 128>()
                                              : dq_smem_bytes<128, 128>());
+    case 160: return static_cast<int>(kernel ? dkv_smem_bytes<160, 160>()
+                                             : dq_smem_bytes<160, 160>());
     default: return 0;
   }
 }

@@ -1,11 +1,15 @@
 // Kernels C and D, pair route, bf16: the FlashAttention-2 backward of one
-// partial attention chunk whose q/k head dim (192) differs from v's (128),
-// on Hopper's tensor cores (sm_90a `wgmma`), written by hand, with plain C
-// entry points bound via ctypes.  It serves materialised multi-head latent
-// attention (DeepSeek MLA), which deepseek-v2-lite-16b trains through: per
-// head, q/k are the nope 128 ⊕ rope 64 columns and v the 128 up-projected
-// value columns.  float32 inputs take the CUDA-core route (flash_bwd.cu at
-// <192, 128>); one head dim takes flash_bwd_sm90.cu.
+// partial attention chunk on Hopper's tensor cores (sm_90a `wgmma`),
+// written by hand, with plain C entry points bound via ctypes, templated on
+// the q/k and v head dims <DK, DV>.  Two instantiations:
+//   <192, 128>: materialised multi-head latent attention (DeepSeek MLA),
+//     which deepseek-v2-lite-16b trains through: per head, q/k are the nope
+//     128 ⊕ rope 64 columns and v the 128 up-projected value columns.
+//   <160, 160>: the shared attention block of zamba2-2.7b (32 heads of 160).
+//     The one-D route (flash_bwd_sm90.cu) holds dk and dv in registers of
+//     two blocks an SM and has none left at 128.
+// float32 inputs take the CUDA-core route (flash_bwd.cu at the same pairs);
+// the other one-D head dims take flash_bwd_sm90.cu.
 //
 // Replaces the TPU kernels of the JAX package's `flash_bwd_bhtd`
 // (src/repro/kernels/flash_attention.py) at that shape, for bf16:
@@ -80,8 +84,16 @@
 //      the register A operand of its own dq_b += lo·k (both m64n192, k
 //      MN-major).  At the end dq = dq_a + dq_b, summed in float32 through
 //      shared memory.  s and dp are each computed once per tile pair.
-//   Registers: D 223 and C 235 of the 240 a consumer thread holds, no spill
-//   (chip_smoke.py's build phase checks it).  No p or ds tile goes through
+//   Registers: D 223 and C 235 of the 240 a consumer thread holds at
+//   <192, 128>, no spill (chip_smoke.py's build phase checks it).
+//   At <160, 160> every tile is three slabs, the last one's 32 columns past
+//   160 read as zeros by TMA and never written back; dv and dk, and C's
+//   dq_a and dq_b, run as m64n192 (96 float32 accumulators a thread), so the
+//   first products read their resident A operand from shared memory (mma_ss)
+//   instead of registers, and the ring holds two 48 KiB stages (three would
+//   need 240 KiB of shared memory in C).  zamba2's training step (T 8192, 32
+//   heads, causal: 1.074e9 pairs) is bound at 1.042 ms (C: 960 FLOPs a
+//   pair) and 1.390 ms (D: 1,280).  No p or ds tile goes through
 //   device memory, and there are no atomics: each run gives the same bits.
 //   A row whose lse is NEG_INF (nothing to attend) gives p = 0, and so does
 //   a row past a ragged Tq.  p and ds are rounded to bf16 before the second
@@ -103,17 +115,32 @@ using repro_bwd::Shape;
 using repro_bwd::kNegInf;
 using namespace repro_sm90;
 
-constexpr int DK = 192, DV = 128;   // q/k and v head dims
-constexpr int KSL = DK / 64;        // 64-column slabs of a q or k tile
-constexpr int VSL = DV / 64;        // of a do or v tile
 constexpr int kTile = 64;           // q rows and keys a tile
 constexpr int kThreads = 384;       // consumers 0 and 1, producer 2
-constexpr int kStages = 3;          // items (D) or kv tiles (C) in the ring
 constexpr uint32_t kSlab = kTile * 128;          // a 64 × 64 bf16 slab
-constexpr uint32_t TK = KSL * kSlab;             // a q or k tile
-constexpr uint32_t TV = VSL * kSlab;             // a do or v tile
-constexpr uint32_t kPair = TK + TV;              // resident tiles; a stage
 constexpr uint32_t kHand = 32 * 128 * 4;         // a float32 hand-off buffer
+
+// The tiles at head dims <DK, DV> (q/k and v): 64-column slabs, the last
+// one zero-padded (TMA reads the columns past a head dim as zeros) when a
+// head dim is not a multiple of 64.
+template <int DK, int DV>
+struct Dims {
+  static constexpr int KSL = (DK + 63) / 64;  // slabs of a q or k tile
+  static constexpr int VSL = (DV + 63) / 64;  // of a do or v tile
+  static constexpr uint32_t TK = KSL * kSlab;       // a q or k tile
+  static constexpr uint32_t TV = VSL * kSlab;       // a do or v tile
+  static constexpr uint32_t kPair = TK + TV;        // resident tiles; a stage
+  // items (D) or kv tiles (C) in the ring: three 40 KiB stages at
+  // <192, 128>, two 48 KiB ones at <160, 160> (three would need 240 KiB in C)
+  static constexpr int kStages = DV == 128 ? 3 : 2;
+  // the first product's A operand (the resident tile) in registers; at
+  // <160, 160> the second product's accumulators are 96 floats in every
+  // consumer, and the A operand is read from shared memory instead, so that
+  // no consumer needs more than its 240 registers
+  static constexpr bool kRegA = DV == 128;
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && KSL == 3 &&
+                    (VSL == 2 || VSL == 3), "head dims");
+};
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // named barriers (0 is __syncthreads)
 constexpr int kDeltaBar = 1;   // warpgroup 1 alone, C's prologue
@@ -258,52 +285,6 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
-// d (64 × 192, float32, as the 64-column thirds d0, d1, d2) += A · B, A
-// (64 × 16 bf16) in registers, B in shared memory, MN-major (transpose
-// bit set) across three 64-column slabs.
-__device__ __forceinline__ void mma_rs_n192(float (&d0)[32], float (&d1)[32],
-                                            float (&d2)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
-        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
-        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]),
-        "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
-        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]),
-        "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
-        "+f"(d0[30]), "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]),
-        "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
-        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]),
-        "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]),
-        "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
-        "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
-        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31]), "+f"(d2[0]),
-        "+f"(d2[1]), "+f"(d2[2]), "+f"(d2[3]), "+f"(d2[4]), "+f"(d2[5]),
-        "+f"(d2[6]), "+f"(d2[7]), "+f"(d2[8]), "+f"(d2[9]), "+f"(d2[10]),
-        "+f"(d2[11]), "+f"(d2[12]), "+f"(d2[13]), "+f"(d2[14]), "+f"(d2[15]),
-        "+f"(d2[16]), "+f"(d2[17]), "+f"(d2[18]), "+f"(d2[19]), "+f"(d2[20]),
-        "+f"(d2[21]), "+f"(d2[22]), "+f"(d2[23]), "+f"(d2[24]), "+f"(d2[25]),
-        "+f"(d2[26]), "+f"(d2[27]), "+f"(d2[28]), "+f"(d2[29]), "+f"(d2[30]),
-        "+f"(d2[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // d (64 × 192, float32) += A · B, A (64 × 16 bf16) in shared memory,
 // K-major, B in shared memory, MN-major (transpose bit set) across three
 // 64-column slabs.
@@ -353,27 +334,38 @@ __device__ __forceinline__ void mma_ss_n192(float (&d0)[32], float (&d1)[32],
 // two hand-off buffers, each stage's lse, delta and q segment ids and its
 // edge flag (padded to 8 bytes), the mbarriers (kv, full and empty a
 // stage), room to align to 1024 bytes.
+template <int DK, int DV>
 constexpr size_t dkv_smem_bytes() {
-  return (1 + kStages) * kPair + 2 * kHand + kStages * 3 * kTile * 4 +
+  using T = Dims<DK, DV>;
+  constexpr int kStages = T::kStages;
+  return (1 + kStages) * T::kPair + 2 * kHand + kStages * 3 * kTile * 4 +
          2 * kStages * 4 + (1 + 2 * kStages) * 8 + 1024;
 }
 
 // Of kernel C: q and do, the ring's stages (k, v), two hand-off buffers,
 // two hi tiles, each stage's key segment ids, delta, the mbarriers (q, full
 // and empty a stage), room to align.
+template <int DK, int DV>
 constexpr size_t dq_smem_bytes() {
-  return (1 + kStages) * kPair + 2 * kHand + 2 * kSlab + kStages * kTile * 4 +
+  using T = Dims<DK, DV>;
+  constexpr int kStages = T::kStages;
+  return (1 + kStages) * T::kPair + 2 * kHand + 2 * kSlab + kStages * kTile * 4 +
          kTile * 4 + (1 + 2 * kStages) * 8 + 1024;
 }
 
 // ---------------------------------------------------------------- kernel D
 
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_pair_kernel(const BwdParams a,
                               const __grid_constant__ CUtensorMap tmq,
                               const __grid_constant__ CUtensorMap tmk,
                               const __grid_constant__ CUtensorMap tmv,
                               const __grid_constant__ CUtensorMap tmdo) {
+  using T = Dims<DK, DV>;
+  constexpr int KSL = T::KSL, VSL = T::VSL, kStages = T::kStages;
+  constexpr uint32_t TK = T::TK, kPair = T::kPair;
+  constexpr bool kRegA = T::kRegA;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t sK = smem_u32(smem), sV = sK + TK;
@@ -467,23 +459,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int kl = k0 + kr[r];
       ks[r] = a.has_seg && kl < a.Tk ? a.kseg[b * a.ks_sb + kl] : 0;
     }
-    float dv0[32], dv1[32];
-    zero(dv0);
-    zero(dv1);
+    float dv[VSL][32];  // dv's 64-column slabs
+#pragma unroll
+    for (int c = 0; c < VSL; ++c) zero(dv[c]);
     // Item n issues sᵀ(n), then dv += pᵀ(n − 1)·do(n − 1), and forms pᵀ(n)
     // while the second product runs.
     uint32_t pa[4][4];  // pᵀ(n − 1) in bf16, the A fragments of dv's product
     auto dv_product = [&](int n) {
       const uint32_t gt = sRing + (n % kStages) * kPair + TK;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs_n128(dv0, dv1, pa[kk], mn_wide(gt, kk));
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (VSL == 2)
+          mma_rs_n128(dv[0], dv[1], pa[kk], mn_wide(gt, kk));
+        else
+          mma_rs_n192(dv[0], dv[1], dv[2], pa[kk], mn_wide(gt, kk));
+      }
       wg_commit();
     };
-    uint32_t ka[4 * KSL][4];  // k, the A operand of every sᵀ
+    uint32_t ka[DK / 16][4];  // k, the A operand of every sᵀ (kRegA)
     if (items > 0) {
       wait_phase(kvfull, 0);
-      load_a(ka, smem, warp, lane);
+      if constexpr (kRegA) load_a(ka, smem, warp, lane);
     }
     for (int n = 0; n < items; ++n) {
       const int s = n % kStages;
@@ -491,10 +487,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t qt = sRing + s * kPair;
       wait_phase(full + s, (n / kStages) & 1);
       float st[32];  // sᵀ: rows are keys, columns q rows
+      if constexpr (!kRegA) {
+        zero(st);
+        fence_regs(st);  // written before the fence, not sunk past it
+      }
       wg_fence();
 #pragma unroll
-      for (int k = 0; k < 4 * KSL; ++k)
-        mma64_rs(st, ka[k], kmajor<kTile>(qt, k), k > 0);
+      for (int k = 0; k < DK / 16; ++k) {
+        if constexpr (kRegA)
+          mma64_rs(st, ka[k], kmajor<kTile>(qt, k), k > 0);
+        else
+          mma_ss(st, kmajor<kTile>(sK, k), kmajor<kTile>(qt, k));
+      }
       wg_commit();
       if (n > 0) {
         dv_product(n - 1);
@@ -550,8 +554,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       if (n > 0) {  // item n − 1's products are done: free its stage
         wg_wait<0>();
-        fence_regs(dv0);
-        fence_regs(dv1);
+#pragma unroll
+        for (int c = 0; c < VSL; ++c) fence_regs(dv[c]);
         release(empty + (n - 1) % kStages);
       }
 #pragma unroll
@@ -566,8 +570,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_fence();
       dv_product(items - 1);
       wg_wait<0>();
-      fence_regs(dv0);
-      fence_regs(dv1);
+#pragma unroll
+      for (int c = 0; c < VSL; ++c) fence_regs(dv[c]);
       release(empty + (items - 1) % kStages);
     }
 
@@ -577,10 +581,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int t = k0 + kr[(i >> 1) & 1];
       const int col = 8 * (i >> 2) + c0;
       if (t < a.Tk) {
-        *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + col) =
-            __floats2bfloat162_rn(dv0[i], dv0[i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + 64 + col) =
-            __floats2bfloat162_rn(dv1[i], dv1[i + 1]);
+#pragma unroll
+        for (int c = 0; c < VSL; ++c)
+          if (64 * c + 8 * (i >> 2) < DV)  // the zero slab's columns stay
+            *reinterpret_cast<__nv_bfloat162*>(vo + t * a.dv_st + 64 * c +
+                                               col) =
+                __floats2bfloat162_rn(dv[c][i], dv[c][i + 1]);
       }
     }
   } else {  // ------------------------------ consumer 1: dpᵀ, dsᵀ and dk
@@ -601,20 +607,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         mma_rs_n192(dk0, dk1, dk2, da[kk], mn_wide(qt, kk));
       wg_commit();
     };
-    uint32_t va[4 * VSL][4];  // v, the A operand of every dpᵀ
+    uint32_t va[DV / 16][4];  // v, the A operand of every dpᵀ (kRegA)
     if (items > 0) {
       wait_phase(kvfull, 0);
-      load_a(va, smem + TK, warp, lane);
+      if constexpr (kRegA) load_a(va, smem + TK, warp, lane);
     }
     for (int n = 0; n < items; ++n) {
       const int s = n % kStages;
       const uint32_t gt = sRing + s * kPair + TK;
       wait_phase(full + s, (n / kStages) & 1);
       float dpt[32];  // dpᵀ, then dsᵀ in float32
+      if constexpr (!kRegA) {
+        zero(dpt);
+        fence_regs(dpt);
+      }
       wg_fence();
 #pragma unroll
-      for (int k = 0; k < 4 * VSL; ++k)
-        mma64_rs(dpt, va[k], kmajor<kTile>(gt, k), k > 0);
+      for (int k = 0; k < DV / 16; ++k) {
+        if constexpr (kRegA)
+          mma64_rs(dpt, va[k], kmajor<kTile>(gt, k), k > 0);
+        else
+          mma_ss(dpt, kmajor<kTile>(sV, k), kmajor<kTile>(gt, k));
+      }
       wg_commit();
       if (n > 0) {
         dk_product(n - 1);
@@ -678,8 +692,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             __floats2bfloat162_rn(dk0[i], dk0[i + 1]);
         *reinterpret_cast<__nv_bfloat162*>(row + 64) =
             __floats2bfloat162_rn(dk1[i], dk1[i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(row + 128) =
-            __floats2bfloat162_rn(dk2[i], dk2[i + 1]);
+        if (128 + 8 * (i >> 2) < DK)  // the zero slab's columns stay
+          *reinterpret_cast<__nv_bfloat162*>(row + 128) =
+              __floats2bfloat162_rn(dk2[i], dk2[i + 1]);
       }
     }
   }
@@ -701,12 +716,17 @@ __device__ __forceinline__ float dot8(const uint4& x, const uint4& y,
   return acc;
 }
 
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_pair_kernel(const BwdParams a,
                              const __grid_constant__ CUtensorMap tmq,
                              const __grid_constant__ CUtensorMap tmk,
                              const __grid_constant__ CUtensorMap tmv,
                              const __grid_constant__ CUtensorMap tmdo) {
+  using T = Dims<DK, DV>;
+  constexpr int KSL = T::KSL, VSL = T::VSL, kStages = T::kStages;
+  constexpr uint32_t TK = T::TK, kPair = T::kPair;
+  constexpr bool kRegA = T::kRegA;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t sQ = smem_u32(smem), sDO = sQ + TK;
@@ -811,10 +831,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         mma_ss_n192(dq0, dq1, dq2, kmajor<kTile>(ht, kk), mn_wide(kt, kk));
       wg_commit();
     };
-    uint32_t qa[4 * KSL][4];  // q, the A operand of every s
+    uint32_t qa[DK / 16][4];  // q, the A operand of every s (kRegA)
     if (ntiles > 0) {
       wait_phase(qfull, 0);
-      load_a(qa, smem, warp, lane);
+      if constexpr (kRegA) load_a(qa, smem, warp, lane);
     }
     for (int n = 0; n < ntiles; ++n) {
       const int s = n % kStages;
@@ -822,10 +842,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t kt = sRing + s * kPair;
       wait_phase(full + s, (n / kStages) & 1);
       float sc[32];
+      if constexpr (!kRegA) {
+        zero(sc);
+        fence_regs(sc);
+      }
       wg_fence();
 #pragma unroll
-      for (int k = 0; k < 4 * KSL; ++k)
-        mma64_rs(sc, qa[k], kmajor<kTile>(kt, k), k > 0);
+      for (int k = 0; k < DK / 16; ++k) {
+        if constexpr (kRegA)
+          mma64_rs(sc, qa[k], kmajor<kTile>(kt, k), k > 0);
+        else
+          mma_ss(sc, kmajor<kTile>(sQ, k), kmajor<kTile>(kt, k));
+      }
       wg_commit();
       if (n > 0) {
         dq_product(n - 1);
@@ -896,6 +924,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int jj = 0; jj < 8; ++jj) {
         const float4 x = red[(8 * c + jj) * 128 + t128];
         const int col = 64 * c + 8 * jj + c0;
+        if (64 * c + 8 * jj >= DK) continue;  // the zero slab's columns
         if (t0 < a.Tq)
           *reinterpret_cast<__nv_bfloat162*>(out + t0 * a.dq_st + col) =
               __floats2bfloat162_rn(d[4 * jj] + x.x, d[4 * jj + 1] + x.y);
@@ -952,20 +981,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         mma_rs_n192(dq0, dq1, dq2, al[kk], mn_wide(kt, kk));
       wg_commit();
     };
-    uint32_t ga[4 * VSL][4];  // do, the A operand of every dp
+    uint32_t ga[DV / 16][4];  // do, the A operand of every dp (kRegA)
     if (ntiles > 0) {
       wait_phase(qfull, 0);
-      load_a(ga, smem + TK, warp, lane);
+      if constexpr (kRegA) load_a(ga, smem + TK, warp, lane);
     }
     for (int n = 0; n < ntiles; ++n) {
       const int s = n % kStages;
       const uint32_t vt = sRing + s * kPair + TK;
       wait_phase(full + s, (n / kStages) & 1);
       float dp[32];  // dp, then ds in float32
+      if constexpr (!kRegA) {
+        zero(dp);
+        fence_regs(dp);
+      }
       wg_fence();
 #pragma unroll
-      for (int k = 0; k < 4 * VSL; ++k)
-        mma64_rs(dp, ga[k], kmajor<kTile>(vt, k), k > 0);
+      for (int k = 0; k < DV / 16; ++k) {
+        if constexpr (kRegA)
+          mma64_rs(dp, ga[k], kmajor<kTile>(vt, k), k > 0);
+        else
+          mma_ss(dp, kmajor<kTile>(sDO, k), kmajor<kTile>(vt, k));
+      }
       wg_commit();
       if (n > 0) {
         dq_product(n - 1);
@@ -1057,6 +1094,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The four tensor maps of one call (q, k, v, do), 64-row boxes of one head;
 // 0, or the CUresult of the one that could not be encoded.
+template <int DK, int DV>
 int maps(const BwdParams& p, const Shape& sh, CUtensorMap* m) {
   int r = tile_map(m, p.q, DK, p.Hq, p.Tq, sh.B, p.q_sh, p.q_st, p.q_sb, 1,
                    kTile);
@@ -1072,11 +1110,11 @@ int maps(const BwdParams& p, const Shape& sh, CUtensorMap* m) {
   return r;
 }
 
-template <typename K>
+template <int DK, int DV, typename K>
 int launch(K kernel, size_t smem, bool* sized, const BwdParams& p,
            const Shape& sh, dim3 grid, cudaStream_t s) {
   CUtensorMap m[4];
-  const int r = maps(p, sh, m);
+  const int r = maps<DK, DV>(p, sh, m);
   if (r != 0) return 1000 + r;
   if (!*sized) {  // the attribute is set once a process
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1089,12 +1127,30 @@ int launch(K kernel, size_t smem, bool* sized, const BwdParams& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool dq_sized = false, dkv_sized = false;
+// the shared-memory attribute is set once a process for each kernel
+template <int DK, int DV>
+bool dq_sized = false;
+template <int DK, int DV>
+bool dkv_sized = false;
+
+template <int DK, int DV>
+int launch_dq(const BwdParams& p, const Shape& sh, cudaStream_t s) {
+  return launch<DK, DV>(flash_bwd_dq_pair_kernel<DK, DV>,
+                        dq_smem_bytes<DK, DV>(), &dq_sized<DK, DV>, p, sh,
+                        dim3(p.Hq, sh.nq, sh.B), s);
+}
+
+template <int DK, int DV>
+int launch_dkv(const BwdParams& p, const Shape& sh, cudaStream_t s) {
+  return launch<DK, DV>(flash_bwd_dkv_pair_kernel<DK, DV>,
+                        dkv_smem_bytes<DK, DV>(), &dkv_sized<DK, DV>, p, sh,
+                        dim3(sh.Hkv, sh.nk, sh.B), s);
+}
 
 }  // namespace
 
-// Kernel C's pair route, bf16 (ia's dtype must be 1, D 192, Dv 128; ia as
-// in flash_bwd_common.cuh).  Writes dq and, when compute_delta, delta.
+// Kernel C's pair route, bf16 (ia's dtype must be 1, (D, Dv) (192, 128) or
+// (160, 160); ia as in flash_bwd_common.cuh).  Writes dq and, when compute_delta, delta.
 // Every row must start on 16 bytes.  Returns 0 when launched, else the CUDA
 // error of the launch, or 1000 plus the CUresult of a tensor map that could
 // not be encoded.
@@ -1109,10 +1165,11 @@ extern "C" int repro_flash_bwd_dq_pair_sm90(const void* q, const void* k,
   Shape sh;
   const BwdParams p = repro_bwd::dq_args(q, k, v, o, dout, lse, delta, dq,
                                          bounds, qseg, kseg, ia, scale, &sh);
-  if (sh.dtype != 1 || sh.D != DK || sh.Dv != DV)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(flash_bwd_dq_pair_kernel, dq_smem_bytes(), &dq_sized, p, sh,
-                dim3(p.Hq, sh.nq, sh.B), static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.D == 192 && sh.Dv == 128) return launch_dq<192, 128>(p, sh, s);
+  if (sh.D == 160 && sh.Dv == 160) return launch_dq<160, 160>(p, sh, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Kernel D's pair route, bf16: reads delta (written by kernel C or passed
@@ -1131,14 +1188,21 @@ extern "C" int repro_flash_bwd_dkv_pair_sm90(const void* q, const void* k,
   const BwdParams p = repro_bwd::dkv_args(q, k, v, dout, lse, delta, dk, dv,
                                           bounds, qbounds, qseg, kseg, ia,
                                           scale, &sh);
-  if (sh.dtype != 1 || sh.D != DK || sh.Dv != DV)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(flash_bwd_dkv_pair_kernel, dkv_smem_bytes(), &dkv_sized, p,
-                sh, dim3(sh.Hkv, sh.nk, sh.B),
-                static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.D == 192 && sh.Dv == 128) return launch_dkv<192, 128>(p, sh, s);
+  if (sh.D == 160 && sh.Dv == 160) return launch_dkv<160, 160>(p, sh, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1), in bytes.
-extern "C" int repro_flash_bwd_pair_sm90_smem(int kernel) {
-  return static_cast<int>(kernel ? dkv_smem_bytes() : dq_smem_bytes());
+// Dynamic shared memory of kernel C (kernel 0) or D (kernel 1) at head dims
+// (dk, dv), in bytes; 0 for a pair the kernels do not take.
+extern "C" int repro_flash_bwd_pair_sm90_smem(int kernel, int dk, int dv) {
+  if (dk == 192 && dv == 128)
+    return static_cast<int>(kernel ? dkv_smem_bytes<192, 128>()
+                                   : dq_smem_bytes<192, 128>());
+  if (dk == 160 && dv == 160)
+    return static_cast<int>(kernel ? dkv_smem_bytes<160, 160>()
+                                   : dq_smem_bytes<160, 160>());
+  return 0;
 }

@@ -29,6 +29,8 @@
 // and key columns cl + 16·j of the score tile, and output columns cl + 16·j.
 // The MaskSpec is evaluated element-wise only on edge tiles, those outside
 // the interior range [ilo, ihi] (kernels/block_sparse.interior_kv_bounds).
+// Head dims 32, 64, 128 and 160 (zamba2's shared attention block; 141 KB of
+// shared memory).
 // Tensors are read in the model's (B, T, H, D) layout through strides; ragged
 // Tq and Tk are masked at the edge.  GQA maps query head h to kv head
 // h / group.  NEG_INF handling reproduces the reference's m_safe / alpha rules
@@ -238,6 +240,7 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
     case 32: return static_cast<int>(launch<32>(p, sh.nq, sh.B, s));
     case 64: return static_cast<int>(launch<64>(p, sh.nq, sh.B, s));
     case 128: return static_cast<int>(launch<128>(p, sh.nq, sh.B, s));
+    case 160: return static_cast<int>(launch<160>(p, sh.nq, sh.B, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,27 +1,36 @@
 // Kernel A, pair route, bf16: the FlashAttention-2 forward of one partial
-// attention chunk whose q/k head dim (192) differs from v's (128), on
-// Hopper's tensor cores (sm_90a `wgmma`), written by hand, with a plain C
-// entry point bound via ctypes.  It serves materialised multi-head latent
-// attention (DeepSeek MLA's whole-prompt prefill): per head, q/k are the
-// nope 128 ⊕ rope 64 columns and v the 128 up-projected value columns, with
-// one kv head a query head (a GQA group of 1; any group works).  float32
-// inputs take the CUDA-core route (flash_fwd_latent.cu at <192, 128>).
+// attention chunk on Hopper's tensor cores (sm_90a `wgmma`), written by
+// hand, with a plain C entry point bound via ctypes, templated on the q/k
+// and v head dims <DK, DV>.  Two instantiations:
+//   <192, 128>: materialised multi-head latent attention (DeepSeek MLA's
+//     whole-prompt prefill): per head, q/k are the nope 128 ⊕ rope 64
+//     columns and v the 128 up-projected value columns, with one kv head a
+//     query head (a GQA group of 1; any group works).  float32 inputs take
+//     the CUDA-core route (flash_fwd_latent.cu at <192, 128>).
+//   <160, 160>: the shared attention block of zamba2-2.7b (32 heads of 160
+//     over concat(h, embed), 5120 wide).  The one-D bf16 route
+//     (flash_fwd_sm90.cu) does not fit there: 160 columns are three 64-column
+//     slabs, and its 128-key stages would need 344 KB of shared memory.
+//     float32 inputs take flash_fwd.cu at <160>.
 //
 // Replaces the TPU kernel `_fwd_kernel` / `flash_fwd_bhtd` of the JAX
 // package (src/repro/kernels/flash_attention.py:157, pallas_call at :252,
-// where Dv may differ from Dk, :212-213) at that shape.
+// where Dv may differ from Dk, :212-213) at those shapes.
 //
 // Bound on the H100: operations.  deepseek-v2-lite-16b's whole-prompt
 // prefill of 2 prompts of 4096 tokens (16 heads, causal) does
 // 2·(192 + 128) = 640 FLOPs for each of the 2.685e8 (row, key) pairs the
 // mask allows (0.172 TFLOP) over 168 MB of q, k, v, o and lse: 0.174 ms at
 // the bf16 tensor-core rate (989 TFLOP/s), against 0.050 ms for the bytes.
-// What the design does about it: both products run on the tensor cores
-// with float32 accumulators; every k and v tile is read once per 128 q rows
-// and shared by two warpgroups; no score tile leaves the registers; the
-// block-sparse table skips every kv tile the mask cannot reach.  p goes into
-// the second product as two bf16 terms, so the design does 2·192 + 4·128 =
-// 896 tensor FLOPs a pair: its least time is 1.4× the bound.
+// zamba2's training step (T 8192, 32 heads of 160, causal: 1.074e9 pairs of
+// 640 FLOPs) is bound at 0.695 ms.  What the design does about it: both
+// products run on the tensor cores with float32 accumulators; every k and v
+// tile is read once per 128 q rows and shared by two warpgroups; no score
+// tile leaves the registers; the block-sparse table skips every kv tile the
+// mask cannot reach.  p goes into the second product as two bf16 terms, so
+// the design does 2·192 + 4·128 = 896 tensor FLOPs a pair at <192, 128>
+// (1.4× the bound), and 2·160 + 4·192 = 1,088 at <160, 160> (1.7×: o += p·v
+// runs as n192 over a zero third slab).
 //
 // Design.  One block per (128-row q tile, query head, batch row), heaviest
 // q tiles first: two warpgroups (256 threads), warpgroup w owning q rows
@@ -30,25 +39,27 @@
 // rows fit: a 128 × 192 q tile is 48 KiB, and a 128-key stage of k (48 KiB)
 // and v (32 KiB) is 80 KiB, so three such stages would need 288 KiB of the
 // 227 KiB a block may use.  A 64-key stage is 40 KiB: q and three stages
-// take 168 KiB.
-//   Loads.  Thread 0 requests both warpgroups' q slabs once by TMA (three
-//   64-column slabs of 64 rows each, in the 128-byte-swizzled layout
-//   `wgmma` reads; rows past Tq arrive as zeros), and the q tile's 64-key
+// take 168 KiB (at <160, 160>: 48 KiB stages of three slabs each, 193 KiB).
+//   Loads.  Thread 0 requests both warpgroups' q slabs once by TMA (64-column
+//   slabs of 64 rows each, in the 128-byte-swizzled layout `wgmma` reads;
+//   rows past Tq and columns past DK arrive as zeros, so at 160 the third
+//   slab's box holds 32 real columns and 32 zeros), and the q tile's 64-key
 //   kv tiles [lo, hi] (the wrapper's host table,
 //   kernels/block_sparse.kv_block_bounds at 128 × 64) through a ring of
-//   three stages: k's three slabs, then v's two, each a TMA box of 64 rows ×
+//   three stages: k's slabs, then v's, each a TMA box of 64 rows ×
 //   64 columns (rows past Tk zero-filled).  Each stage has a `full`
 //   `mbarrier` (its bytes have landed) and an `empty` one (every thread
 //   arrives once its products no longer read it).  Tile n + 2 is requested
 //   while the s product of tile n runs, once both warpgroups have released
 //   tile n − 1, so loads run two tiles ahead.
-//   Products.  For each kv tile: s = q·kᵀ as 12 k16 steps of `wgmma`
+//   Products.  For each kv tile: s = q·kᵀ as DK / 16 k16 steps of `wgmma`
 //   m64n64k16 (both operands in shared memory, K-major), the mask on edge
 //   tiles only (outside the table's interior range, or past a ragged Tk),
 //   the online softmax in float32 registers in the log2 domain, l summed
-//   from float32 p, then o += p·v as `wgmma` m64n128k16 with p as the
-//   register A operand (the s accumulator's layout is the A fragment
-//   layout, so p never leaves the registers) and v MN-major across its two
+//   from float32 p, then o += p·v as `wgmma` m64n128k16 (DV 128) or
+//   m64n192k16 (DV 160, the third slab's zero columns never written) with p
+//   as the register A operand (the s accumulator's layout is the A fragment
+//   layout, so p never leaves the registers) and v MN-major across its
 //   slabs.
 //   p goes in as two bf16 terms, hi = bf16(p) and lo = bf16(p − hi), into
 //   one accumulator, for the element-wise bar (3e-2 of each output; a CPU
@@ -73,31 +84,45 @@ using repro_fwd::allowed;
 using repro_fwd::kNegInf;
 using namespace repro_sm90;
 
-constexpr int DK = 192, DV = 128;  // q/k and v head dims
-constexpr int KSL = DK / 64;       // 64-column slabs of a q or k tile
-constexpr int VSL = DV / 64;       // of a v tile
 constexpr int kRows = 128;         // q rows a block: two warpgroups of 64
 constexpr int kKeys = 64;          // keys a kv tile
 constexpr int kStages = 3;         // kv tiles in the shared-memory ring
 constexpr int kThreads = 256;      // two warpgroups
-constexpr uint32_t kQBytes = KSL * 64 * 128;      // one warpgroup's q slabs
-constexpr uint32_t kKBytes = KSL * kKeys * 128;   // a k tile
-constexpr uint32_t kVBytes = VSL * kKeys * 128;   // a v tile
-constexpr uint32_t kStageBytes = kKBytes + kVBytes;
+
+// The tile sizes at head dims <DK, DV> (q/k and v): 64-column slabs, the
+// last one zero-padded when a head dim is not a multiple of 64.
+template <int DK, int DV>
+struct Dims {
+  static constexpr int KSL = (DK + 63) / 64;  // slabs of a q or k tile
+  static constexpr int VSL = (DV + 63) / 64;  // of a v tile
+  static constexpr uint32_t kQBytes = KSL * 64 * 128;     // one warpgroup's q
+  static constexpr uint32_t kKBytes = KSL * kKeys * 128;  // a k tile
+  static constexpr uint32_t kVBytes = VSL * kKeys * 128;  // a v tile
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
+  static_assert(DK % 16 == 0 && (VSL == 2 || VSL == 3), "head dims");
+};
 
 // Two warpgroups' q slabs, kStages stages, 2·kStages + 1 mbarriers, and
 // room to align the start to 1024 bytes.
+template <int DK, int DV>
 constexpr size_t pair_smem_bytes() {
-  return 2 * kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8 + 1024;
+  using T = Dims<DK, DV>;
+  return 2 * T::kQBytes + kStages * T::kStageBytes + (2 * kStages + 1) * 8 +
+         1024;
 }
 
 // ---------------------------------------------------------------- kernel
 
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_pair_wgmma_kernel(const FwdParams a,
                                 const __grid_constant__ CUtensorMap tmq,
                                 const __grid_constant__ CUtensorMap tmk,
                                 const __grid_constant__ CUtensorMap tmv) {
+  using T = Dims<DK, DV>;
+  constexpr int KSL = T::KSL, VSL = T::VSL;
+  constexpr uint32_t kQBytes = T::kQBytes, kKBytes = T::kKBytes;
+  constexpr uint32_t kStageBytes = T::kStageBytes;
   constexpr int NS = kKeys / 2;   // score entries a thread: 64 × 64 / 128
   constexpr int KK = kKeys / 16;  // k16 steps of o += p·v
   extern __shared__ unsigned char smem_raw[];
@@ -191,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);  // written before the fence, not sunk past it
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4 * KSL; ++ks)
+    for (int ks = 0; ks < DK / 16; ++ks)
       mma_ss(sc, kmajor<64>(sQw, ks), kmajor<kKeys>(kt, ks));
     wg_commit();
 
@@ -273,8 +298,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
       const uint64_t dv = sw128_desc(vt + kk * 2048, kKeys * 128, 1024);
-      mma_rs_n128(acc[0], acc[1], ph[kk], dv);
-      mma_rs_n128(acc[0], acc[1], pl[kk], dv);
+      if constexpr (VSL == 2) {
+        mma_rs_n128(acc[0], acc[1], ph[kk], dv);
+        mma_rs_n128(acc[0], acc[1], pl[kk], dv);
+      } else {
+        mma_rs_n192(acc[0], acc[1], acc[2], ph[kk], dv);
+        mma_rs_n192(acc[0], acc[1], acc[2], pl[kk], dv);
+      }
     }
     wg_commit();
     wg_wait<0>();
@@ -302,7 +332,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < VSL; ++c)
 #pragma unroll
       for (int i = 2 * r; i < 32; i += 4)
-        *reinterpret_cast<__nv_bfloat162*>(ob + t * a.o_st + 64 * c +
+        if (64 * c + 8 * (i >> 2) < DV)  // the zero slab's columns stay
+          *reinterpret_cast<__nv_bfloat162*>(ob + t * a.o_st + 64 * c +
                                            8 * (i >> 2) + c0) =
             __floats2bfloat162_rn(acc[c][i] * inv, acc[c][i + 1] * inv);
     if ((lane & 3) == 0)
@@ -313,6 +344,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Launches the kernel; returns the CUDA error of the launch, or 1000 plus
 // the CUresult when a tensor map cannot be encoded.
+template <int DK, int DV>
 int launch(const FwdParams& p, int nq, int B, cudaStream_t s) {
   CUtensorMap mq, mk, mv;
   const int Hkv = p.Hq / p.group;
@@ -325,16 +357,16 @@ int launch(const FwdParams& p, int nq, int B, cudaStream_t s) {
     r = tile_map(&mv, p.v, DV, Hkv, p.Tk, B, p.v_sh, p.v_st, p.v_sb, 1,
                  kKeys);
   if (r != 0) return 1000 + r;
-  const size_t smem = pair_smem_bytes();
+  const size_t smem = pair_smem_bytes<DK, DV>();
   static bool sized = false;  // the attribute is set once a process
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_pair_wgmma_kernel,
+        flash_fwd_pair_wgmma_kernel<DK, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
   }
-  flash_fwd_pair_wgmma_kernel<<<dim3(p.Hq, nq, B), kThreads, smem, s>>>(
+  flash_fwd_pair_wgmma_kernel<DK, DV><<<dim3(p.Hq, nq, B), kThreads, smem, s>>>(
       p, mq, mk, mv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -342,12 +374,12 @@ int launch(const FwdParams& p, int nq, int B, cudaStream_t s) {
 }  // namespace
 
 // Kernel A's pair route, bf16 (ia's dtype must be 1): head dims (DK, DV) =
-// (192, 128); ia as in flash_fwd_common.cuh with D = DK, then ia[29] = DV
-// (ia[30], whether v is a view into k, is not read: v has its own tensor
-// map either way).  nq and the bounds table are in 128-row q tiles of
-// 64-key kv tiles.  Every row must start on 16 bytes.  Returns 0 when
-// launched, else the CUDA error of the launch, or 1000 plus the CUresult of
-// a tensor map that could not be encoded.
+// (192, 128) or (160, 160); ia as in flash_fwd_common.cuh with D = DK, then
+// ia[29] = DV (ia[30], whether v is a view into k, is not read: v has its
+// own tensor map either way).  nq and the bounds table are in 128-row q
+// tiles of 64-key kv tiles.  Every row must start on 16 bytes.  Returns 0
+// when launched, else the CUDA error of the launch, or 1000 plus the
+// CUresult of a tensor map that could not be encoded.
 extern "C" int repro_flash_fwd_pair_sm90(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          const void* bounds,
@@ -358,12 +390,16 @@ extern "C" int repro_flash_fwd_pair_sm90(const void* q, const void* k,
   const FwdParams p = repro_fwd::parse(q, k, v, o, lse, bounds, qseg, kseg,
                                        ia, scale, &sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sh.dtype != 1 || sh.D != DK || ia[29] != DV)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(p, sh.nq, sh.B, s);
+  if (sh.dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.D == 192 && ia[29] == 128) return launch<192, 128>(p, sh.nq, sh.B, s);
+  if (sh.D == 160 && ia[29] == 160) return launch<160, 160>(p, sh.nq, sh.B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of the kernel, in bytes.
-extern "C" int repro_flash_fwd_pair_sm90_smem() {
-  return static_cast<int>(pair_smem_bytes());
+// Dynamic shared memory of the kernel at head dims (dk, dv), in bytes; 0
+// for a pair it does not take.
+extern "C" int repro_flash_fwd_pair_sm90_smem(int dk, int dv) {
+  if (dk == 192 && dv == 128) return static_cast<int>(pair_smem_bytes<192, 128>());
+  if (dk == 160 && dv == 160) return static_cast<int>(pair_smem_bytes<160, 160>());
+  return 0;
 }

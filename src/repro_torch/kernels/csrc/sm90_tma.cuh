@@ -3,7 +3,8 @@
 // and their tensor maps, the row reductions of an m64nN accumulator, and the
 // register-A m64n128k16 product.  (The one-D route, flash_fwd_sm90.cu, keeps
 // its own copies of the ones it uses: moving them there changed the rounding
-// of its outputs in the last bits.)
+// of its outputs in the last bits.)  The register-A m64n192k16 product
+// serves the pair routes (flash_fwd_pair_sm90.cu, flash_bwd_pair_sm90.cu).
 #pragma once
 
 #include <cuda.h>
@@ -132,6 +133,52 @@ __device__ __forceinline__ void mma_rs_n128(float (&d0)[32], float (&d1)[32],
         "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
         "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
         "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 × 192, float32, as the 64-column thirds d0, d1, d2) += A · B, A
+// (64 × 16 bf16) in registers, B in shared memory, MN-major (transpose
+// bit set) across three 64-column slabs.
+__device__ __forceinline__ void mma_rs_n192(float (&d0)[32], float (&d1)[32],
+                                            float (&d2)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
+        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
+        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]),
+        "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]),
+        "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]),
+        "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]),
+        "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]),
+        "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
+        "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31]), "+f"(d2[0]),
+        "+f"(d2[1]), "+f"(d2[2]), "+f"(d2[3]), "+f"(d2[4]), "+f"(d2[5]),
+        "+f"(d2[6]), "+f"(d2[7]), "+f"(d2[8]), "+f"(d2[9]), "+f"(d2[10]),
+        "+f"(d2[11]), "+f"(d2[12]), "+f"(d2[13]), "+f"(d2[14]), "+f"(d2[15]),
+        "+f"(d2[16]), "+f"(d2[17]), "+f"(d2[18]), "+f"(d2[19]), "+f"(d2[20]),
+        "+f"(d2[21]), "+f"(d2[22]), "+f"(d2[23]), "+f"(d2[24]), "+f"(d2[25]),
+        "+f"(d2[26]), "+f"(d2[27]), "+f"(d2[28]), "+f"(d2[29]), "+f"(d2[30]),
+        "+f"(d2[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

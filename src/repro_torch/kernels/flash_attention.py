@@ -27,7 +27,11 @@ head a query head) take the pair route (``PAIR_ROUTES``): bf16 on the
 tensor cores (``csrc/flash_fwd_pair_sm90.cu``, the one-D bf16 route's
 design — 128-row q tiles on two warpgroups, ``wgmma`` — over 64-key tiles),
 float32 on the CUDA cores (``csrc/flash_fwd_latent.cu`` at <192, 128>).
-Any other pair raises.
+Any other pair raises.  Head dim 160 (zamba2's shared attention block) is
+one D of ``HEAD_DIMS`` whose bf16 inputs take the pair route's library at
+<160, 160> (``WIDE_DIMS``: the one-D bf16 route's 128-key stages do not fit
+three 64-column slabs), and float32 inputs ``csrc/flash_fwd.cu`` at <160>;
+its launches count as ``flash_fwd_160``.
 
 The block-sparse sweep is planned on the host: for each q tile the wrapper
 computes the reachable kv tile range ``[lo, hi]`` and the interior range
@@ -51,9 +55,10 @@ model trains through) takes ``PAIR_BWD_ROUTES``: bf16 on the tensor cores
 (``csrc/flash_bwd_pair_sm90.cu``: a TMA producer warp and two consumer
 warpgroups that hand p across, D in one pass), float32 the CUDA-core
 library's <192, 128>; v may be a strided view, dk and dv are fresh
-contiguous tensors.  The latent pair stays forward-only (absorbed MLA is
-never trained), and any other pair raises.  On a
-CPU tensor it runs :func:`~repro_torch.kernels.ref.chunk_attn_bwd_ref`.
+contiguous tensors.  Head dim 160 takes the same routes at <160, 160>
+(counted as ``flash_bwd_dq_160`` / ``flash_bwd_dkv_160``).  The latent
+pair stays forward-only (absorbed MLA is never trained), and any other
+pair raises.  On a CPU tensor it runs :func:`~repro_torch.kernels.ref.chunk_attn_bwd_ref`.
 :class:`FlashAttnFn` makes the pair differentiable.
 """
 from __future__ import annotations
@@ -72,7 +77,10 @@ from repro_torch.kernels.ref import NEG_INF, chunk_attn_bwd_ref, chunk_attn_ref
 
 BLOCK_Q = 64
 BLOCK_KV = 64
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
+# one head dims whose bf16 route is the pair library's (kernels A, C and D
+# at <D, D>), each counted under its own name (``flash_fwd_160``, ...)
+WIDE_DIMS = (160,)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel A: (library, entry point, q rows and keys per tile) by dtype
 FWD_ROUTES = {torch.float32: ("flash_fwd", "repro_flash_fwd", 64),
@@ -272,9 +280,9 @@ def _flash_fwd_cuda(q, k, v, mask, scale, q_segments, kv_segments, prune):
     Dv = v.shape[-1]
     latent = (D, Dv) in LATENT_DIMS
     tc_latent = latent and q.dtype == torch.bfloat16
-    count = ("flash_fwd" if Dv == D else "flash_fwd_latent" if latent
-             else "flash_fwd_pair")
-    if Dv != D:
+    count = ("flash_fwd_latent" if latent else "flash_fwd_pair" if Dv != D
+             else f"flash_fwd_{D}" if D in WIDE_DIMS else "flash_fwd")
+    if Dv != D or (D in WIDE_DIMS and q.dtype == torch.bfloat16):
         lib, name, block, bc = (LATENT_ROUTES if latent
                                 else PAIR_ROUTES)[q.dtype]
         _check_aligned(q=q, k=k, v=v)
@@ -402,8 +410,11 @@ class _BwdPlan:
                       delta.to(device=dev, dtype=torch.float32).contiguous())
         self.q, self.k, self.v, self.o, self.do = q, k, v, o, do
         self.mask = mask
-        routes = BWD_ROUTES if v.shape[-1] == q.shape[-1] else PAIR_BWD_ROUTES
+        D, Dv = q.shape[-1], v.shape[-1]
+        wide = Dv == D and D in WIDE_DIMS
+        routes = PAIR_BWD_ROUTES if Dv != D or wide else BWD_ROUTES
         self.lib, self.suffix = routes[q.dtype]
+        self.count = f"_{D}" if wide else ""
         if q.dtype == torch.bfloat16:
             _check_aligned(q=q, k=k, v=v, o=o, do=do)
 
@@ -422,7 +433,7 @@ def _launch_dq(pl: _BwdPlan, scale):
     if err:
         raise RuntimeError(f"flash_bwd dq kernel launch failed (CUDA error "
                            f"{err})")
-    build.LAUNCHES["flash_bwd_dq"] += 1
+    build.LAUNCHES["flash_bwd_dq" + pl.count] += 1
     return dq
 
 
@@ -442,7 +453,7 @@ def _launch_dkv(pl: _BwdPlan, scale):
     if err:
         raise RuntimeError(f"flash_bwd dkv kernel launch failed (CUDA error "
                            f"{err})")
-    build.LAUNCHES["flash_bwd_dkv"] += 1
+    build.LAUNCHES["flash_bwd_dkv" + pl.count] += 1
     return dk, dv
 
 

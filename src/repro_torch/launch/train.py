@@ -1,8 +1,10 @@
 """Training CLI: a decoder trained on the synthetic token stream, on one
-process or across ranks — a dense model, or an MLA + MoE one
+process or across ranks — a dense model, an MLA + MoE one
 (``--arch deepseek-v2-lite-16b``, whose loss adds the MoE load-balance
 ``aux`` to ``ce``; both are printed), its routed experts sharded over the
-sequence ranks.
+sequence ranks, or an SSM or hybrid one (``--arch mamba2-2.7b`` /
+``zamba2-2.7b``: each rank scans its contiguous shard and the ranks relay
+the recurrent state; zigzag falls back to balanced).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-gqa \
         --smoke --steps 50 --seq 256 --batch 4 [--remat remat_aware] \
@@ -20,6 +22,11 @@ sequence ranks.
     # DeepSeek-V2-Lite (MLA + MoE), one rank or 4 (experts 16 a rank)
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-v2-lite-16b --smoke --device cpu --steps 4 \
+        [--nproc 4 --seq-shards 4]
+
+    # Mamba2 / Zamba2 (the SSD state relayed across the ranks)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --smoke --device cpu --steps 4 --seq 64 --batch 2 \
         [--nproc 4 --seq-shards 4]
 
 The ranks form a ``(data, model)`` mesh with ``--seq-shards`` ranks on

@@ -4,10 +4,11 @@ stages, ``prefill`` across sequence ranks, ``prefill_chunk``, ``decode`` over
 a paged or a sequence-sharded dense cache, the speculative ``verify``,
 ``_head``, ``_cache_write`` and the paged-write helpers).
 
-Two families: dense / GQA decoders (``arch_type="dense"``: every path), and
+Four families: dense / GQA decoders (``arch_type="dense"``: every path), and
 DeepSeek's MLA + MoE decoders (``arch_type="moe"``, the reference's tree:
 ``dense_layers`` — the first ``moe.n_dense_layers``, a SwiGLU of
-``d_dense_ff`` — then ``moe_layers``, ``models/moe.py``).  An MoE model
+``d_dense_ff`` — then ``moe_layers``, ``models/moe.py``), and the SSM
+and hybrid families (below).  An MoE model
 serves through the paged path — ``prefill_chunk``, ``decode`` and
 ``verify`` over a latent pool — and through the dense one: the
 whole-prompt ``prefill`` runs MLA *materialised* (``layers.mla_qkv``, per
@@ -47,6 +48,15 @@ read the pool all-gathered from the blocks' owners.  With
 whole-prompt prefill under zigzag ships each chunk's latent rows on the
 ring instead of its K/V (``dist_attn_fwd_latent``), every rank expanding
 what arrives (``layers.mla_expand``).
+
+The SSM and hybrid families (``arch_type="ssm"``, mamba2-2.7b; ``"hybrid"``,
+zamba2-2.7b) stack Mamba2 mixers (``models/ssm.py``): each rank scans its
+contiguous shard and the ranks relay the recurrent state and the conv halo
+(zigzag falls back to balanced); a hybrid adds one shared attention block,
+a dense layer 2·d_model wide on concat(h, the embedding output), after
+every ``hybrid_period`` mixers (:meth:`DecoderLM._ssm_trunk`).  They train
+(``loss``), ``prefill`` without a cache, and ``decode`` recurrently from
+``data.pipeline.empty_decode_cache``; a 2D mesh raises.
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -88,6 +98,7 @@ trainer checkpoints).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -110,6 +121,7 @@ from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (local_experts, moe_apply,
                                     moe_decode_apply)
+from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_params
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.parallel.sharding import seq_group
 from repro_torch.serve.cache import (gather_pool, sharded_latent_attn,
@@ -314,14 +326,16 @@ class DecoderLM:
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  par: Optional[ParallelConfig] = None, impl=None,
                  mesh=None, latent_ring: bool = False):
-        if cfg.arch_type not in ("dense", "moe") or cfg.attn is None:
-            raise ValueError(f"the port runs dense and MoE decoders (got "
-                             f"{cfg.arch_type!r})")
+        if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or \
+                (cfg.attn is None) != (cfg.arch_type == "ssm"):
+            raise ValueError(f"the port runs dense, MoE, SSM and hybrid "
+                             f"decoders (got {cfg.arch_type!r})")
         self.cfg = cfg
         a = cfg.attn
         # rope width, and the softmax scale (None: 1/sqrt(head dim))
-        self.rope_dim = a.qk_rope_head_dim if a.is_mla else a.head_dim
-        self.scale = L.mla_scale(cfg) if a.is_mla else None
+        self.rope_dim = (None if a is None else a.qk_rope_head_dim
+                         if a.is_mla else a.head_dim)
+        self.scale = L.mla_scale(cfg) if a is not None and a.is_mla else None
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.par = ParallelConfig() if par is None else par
@@ -339,6 +353,23 @@ class DecoderLM:
         two_d = head is not None and head.size > 1
         self.attn_group = (mesh.comms[ax], head) if two_d \
             else self.seq_group
+        if two_d and cfg.ssm is not None:
+            raise ValueError(
+                f"{cfg.arch_type} on a 2D (seq, head) mesh: the SSD state "
+                "relay and the conv halo run over the sequence axis alone; "
+                "ROADMAP §1 item 11 queues SSM and hybrid models on a 2D "
+                "mesh")
+        # a hybrid's shared attention block: a dense layer on concat(h,
+        # embedding), 2·d_model wide; zigzag falls back to balanced for the
+        # SSM families (their tokens stay contiguous), the shared block's
+        # attention included
+        self.shared_cfg = (cfg.replace(d_model=2 * cfg.d_model,
+                                       arch_type="dense", ssm=None,
+                                       hybrid_period=0)
+                           if cfg.arch_type == "hybrid" else None)
+        self.trunk_par = (dataclasses.replace(self.par, schedule="balanced")
+                          if cfg.ssm is not None and
+                          self.par.schedule == "zigzag" else self.par)
         if two_d and zigzag_layout(cfg, self.par, self.seq_size):
             if latent_ring and cfg.attn.is_mla:
                 raise ValueError(FAULT_37)
@@ -386,7 +417,8 @@ class DecoderLM:
         one-rank init with the same seed."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        d, hd = cfg.d_model, a.head_dim
+        d = cfg.d_model
+        hd = None if a is None else a.head_dim
 
         def normal(shape, scale, dtype=dt):
             x = torch.randn(shape, generator=gen, device=self.device)
@@ -423,7 +455,7 @@ class DecoderLM:
                      wo=dense(nh * dv, d))
             return q
 
-        def attn():
+        def attn(d=d):
             if a.is_mla:
                 return mla()
             q = {"wq": dense(d, a.n_heads * hd),
@@ -438,10 +470,18 @@ class DecoderLM:
                 q.update(q_norm=ones(hd), k_norm=ones(hd))
             return q
 
-        def mlp(d_ff):
+        def mlp(d_ff, d=d):
             return {"wg": dense(d, d_ff), "wu": dense(d, d_ff),
                     "wd": dense(d_ff, d), "ln": ones(d)}
 
+        if cfg.ssm is not None:
+            p["layers"] = [{"ssm": ssm_params(cfg, normal, dt, self.device)}
+                           for _ in range(cfg.n_layers)]
+            if cfg.arch_type == "hybrid":
+                d2 = 2 * d
+                p["shared"] = {"attn": attn(d2), "mlp": mlp(cfg.d_ff, d2),
+                               "down": dense(d2, d)}
+            return p
         if cfg.moe is None:
             p["layers"] = [{"attn": attn(), "mlp": mlp(cfg.d_ff)}
                            for _ in range(cfg.n_layers)]
@@ -489,6 +529,8 @@ class DecoderLM:
         layers' load-balance losses in the reference's order (the dense
         layers' sum, plus the MoE layers' sum), or None for a dense-family
         model."""
+        if self.cfg.ssm is not None:
+            return self._ssm_trunk(p, h, cos, sin), None
         kw = dict(document=seg is not None, P=self.seq_size,
                   group=self.attn_group)
         if self.cfg.moe is None:
@@ -510,6 +552,41 @@ class DecoderLM:
             total = aux if total is None else total + aux
         return h, total
 
+    def _ssm_trunk(self, p, h, cos, sin):
+        """The layers of an SSM or hybrid model on this rank's contiguous
+        shard: Mamba2 mixers (``models/ssm.py``, the state relayed across
+        the sequence group) under layer-boundary checkpointing for ``hf``
+        and ``remat_aware`` (the paper's remat-aware placement is
+        attention's), and after every ``hybrid_period`` of them a hybrid's
+        shared block — a dense layer under ``par.remat`` on concat(h, the
+        embedding output), 2·d_model wide, its attention through
+        ``dist_flash_attn`` over the sequence group — added back through
+        ``down``.  The shared block's parameters are one set for all G =
+        n_layers / period calls, so their gradient sums over the calls."""
+        cfg = self.cfg
+        policy = "hf" if self.par.remat in ("hf", "remat_aware") else "none"
+        layer = apply_policy(self._ssm_layer, policy)
+        shared = None
+        if cfg.arch_type == "hybrid":
+            if cfg.n_layers % cfg.hybrid_period:
+                raise ValueError(f"{cfg.n_layers} layers do not group by "
+                                 f"the hybrid period {cfg.hybrid_period}")
+            shared = build_dense_layer(self.shared_cfg, self.trunk_par,
+                                       self.impl, P=self.seq_size,
+                                       group=self.attn_group)
+        emb0 = h
+        for i, lp in enumerate(p["layers"]):
+            h = layer(lp, h)
+            if shared is not None and (i + 1) % cfg.hybrid_period == 0:
+                sp = p["shared"]
+                y2 = shared(sp, (torch.cat([h, emb0], dim=-1), cos, sin,
+                                 None))
+                h = h + (y2 @ sp["down"]).to(h.dtype)
+        return h
+
+    def _ssm_layer(self, lp, h):
+        return ssm_apply(lp["ssm"], h, self.cfg, self.seq_group)
+
     def positions(self, Tl: int) -> torch.Tensor:
         """Global positions of this rank's Tl tokens."""
         P = self.seq_size
@@ -526,12 +603,18 @@ class DecoderLM:
         share of it (the train step sums gradients over
         :func:`token_group`); an MoE model's aux is the global value on
         every rank, its gradient again this rank's share."""
-        a = self.cfg.attn
+        cfg = self.cfg
         h = self._embed(p, batch)
-        cos, sin = L.rope_tables(self.positions(h.shape[1]), self.rope_dim,
-                                 a.rope_theta)
+        cos = sin = None
+        if cfg.uses_attention:
+            cos, sin = L.rope_tables(self.positions(h.shape[1]),
+                                     self.rope_dim, cfg.attn.rope_theta)
         seg = batch.get("segment_ids")
         if seg is not None:
+            if cfg.ssm is not None:
+                raise ValueError(
+                    f"packed (segment_ids) training is supported for "
+                    f"dense/moe decoders, not {cfg.arch_type!r}")
             seg = seg.to(self.device)
         h, aux = self._backbone(p, h, cos, sin, seg)
         logits = self._head(p, h)
@@ -764,7 +847,16 @@ class DecoderLM:
         kv_lora + rope) of each token's latent row, as the reference's
         ``_infer_layer_dense``.  With :attr:`latent_ring` under zigzag its
         attention ships those latent rows on the ring instead of K/V
-        (``dist_attn_fwd_latent``)."""
+        (``dist_attn_fwd_latent``).
+
+        An SSM or hybrid model runs its training trunk on this rank's
+        contiguous shard (the reference reuses ``_backbone``: the SSM's
+        decode state is O(1), not a cache) and returns no cache, ``{}``;
+        its decode starts from ``data.pipeline.empty_decode_cache``."""
+        if self.cfg.ssm is not None:
+            h, cos, sin, pos, T = self._trunk_input(p, tokens)
+            h = self._ssm_trunk(p, h, cos, sin)
+            return self._last_logits(p, h, pos, T), {}
         a, P = self.cfg.attn, self.seq_size
         tokens = self._rows(torch.as_tensor(tokens, device=self.device))
         T = tokens.shape[1]
@@ -797,7 +889,16 @@ class DecoderLM:
         for lp in layer_params(p):
             h = self._layer(lp, h, functools.partial(attend, lp=lp), cos,
                             sin, latents=latents)
-        # the owner of position T - 1 computes its logits and sends them
+        cache = ({"ckv": torch.stack(latents)} if a.is_mla else
+                 {"k": torch.stack(ks), "v": torch.stack(vs)})
+        return self._last_logits(p, h, pos, T), cache
+
+    def _last_logits(self, p, h, pos, T):
+        """The logits (B, 1, V) of position T − 1: the rank whose shard
+        positions ``pos`` hold it computes them and broadcasts them over
+        the sequence group; every data replica's rows, gathered."""
+        P = self.seq_size
+        zz = zigzag_layout(self.cfg, self.par, P)
         owner = next(r for r in range(P)
                      if (shard_positions(T, P, r, zz) == T - 1).any())
         if owner == self.seq_rank:
@@ -808,9 +909,26 @@ class DecoderLM:
                                  dtype=self.dtype, device=self.device)
         if self.seq_group is not None:
             self.seq_group.broadcast_([logits], owner)
-        cache = ({"ckv": torch.stack(latents)} if a.is_mla else
-                 {"k": torch.stack(ks), "v": torch.stack(vs)})
-        return self._all_rows(logits), cache
+        return self._all_rows(logits)
+
+    def _trunk_input(self, p, tokens):
+        """This rank's contiguous shard of ``tokens`` (the same global
+        batch on every rank; this data replica's rows) through the
+        embedding: (h, cos, sin, positions, T), the rope tables None for
+        an attention-free model."""
+        P = self.seq_size
+        tokens = self._rows(torch.as_tensor(tokens, device=self.device))
+        T = tokens.shape[1]
+        if T % P:
+            raise ValueError(f"{T} tokens do not shard over {P} ranks")
+        pos = shard_positions(T, P, self.seq_rank)
+        pos_t = torch.as_tensor(pos, device=self.device)
+        h = L.embed(p["embed"], tokens[:, pos_t], self.dtype)
+        cos = sin = None
+        if self.cfg.uses_attention:
+            cos, sin = L.rope_tables(pos_t, self.rope_dim,
+                                     self.cfg.attn.rope_theta)
+        return h, cos, sin, pos, T
 
     def _rows(self, x):
         """This data replica's contiguous share of the rows of ``x`` (all
@@ -918,7 +1036,13 @@ class DecoderLM:
         latent row is written into the owner shard, the output is
         up-projected (:meth:`_mla_out`), and an MoE layer runs every expert
         (``moe_decode_apply``, its experts summed over the sequence group):
-        the reference's ``_decode_mla``."""
+        the reference's ``_decode_mla``.
+
+        An SSM or hybrid model's cache is
+        ``data.pipeline.empty_decode_cache``'s (``state``, ``conv``; a
+        hybrid's ``shared_k`` / ``shared_v`` too): :meth:`_decode_ssm`."""
+        if self.cfg.ssm is not None:
+            return self._decode_ssm(p, cache, token, pos)
         a = self.cfg.attn
         if "block_table" in cache:
             return self._paged_layers(
@@ -957,6 +1081,44 @@ class DecoderLM:
                 return o
 
             h = self._layer(lp, h, attend, cos, sin, decode=True)
+        return self._all_rows(self._head(p, h))
+
+    def _decode_ssm(self, p, cache, token, pos):
+        """One recurrent decode step of an SSM or hybrid model (the
+        reference's ``decode`` / ``_decode_hybrid``): per layer
+        ``ssm_decode_step`` on ``cache["state"][l]`` (B, nh, N, hd) float32
+        and ``cache["conv"][l]`` (B, k − 1, ch), the same on every rank;
+        after every ``hybrid_period`` layers the shared block on concat(h,
+        the token's embedding), its attention reading group g's dense K/V
+        ``cache["shared_k"][g]`` / ``["shared_v"][g]`` (B, S_loc, H, hd),
+        sharded over ``par.seq_axes`` as :meth:`pad_cache`'s, through
+        ``dist_decode_attn``, the token's k/v written into the owner shard.
+        The cache is updated in place; returns logits (B, 1, V)."""
+        cfg = self.cfg
+        token, pos = self._rows(token), self._rows(pos)
+        h = L.embed(p["embed"], token, self.dtype)
+        cos = sin = None
+        if cfg.uses_attention:
+            cos, sin = L.rope_tables(pos, self.rope_dim, cfg.attn.rope_theta)
+            cos, sin = cos[:, None], sin[:, None]
+        emb0 = h
+        for li, lp in enumerate(p["layers"]):
+            h, cache["state"][li], cache["conv"][li] = ssm_decode_step(
+                lp["ssm"], h, cache["state"][li], cache["conv"][li], cfg)
+            if cfg.arch_type != "hybrid" or (li + 1) % cfg.hybrid_period:
+                continue
+            g, sp, scfg = (li // cfg.hybrid_period, p["shared"],
+                           self.shared_cfg)
+            ck, cv = cache["shared_k"][g], cache["shared_v"][g]
+            x2 = torch.cat([h, emb0], dim=-1)
+            q, k, v = L.attn_qkv(sp["attn"], x2, scfg, cos, sin)
+            o = dist_decode_attn(q, ck, cv, k, v, group=self.decode_group,
+                                 mask=mk.causal(), pos=pos)
+            _cache_write(ck, k, pos, self.decode_group)
+            _cache_write(cv, v, pos, self.decode_group)
+            y2 = L.mlp_apply(sp["mlp"], L.attn_out(sp["attn"], x2, o, scfg),
+                             cfg.norm_eps)
+            h = h + (y2 @ sp["down"]).to(h.dtype)
         return self._all_rows(self._head(p, h))
 
     @torch.no_grad()
@@ -1128,6 +1290,8 @@ def _cache_write(cache, new, pos, group=None):
 
 # the stacked layer groups of the reference's tree, in order
 _LAYER_KEYS = ("layers", "dense_layers", "moe_layers")
+# leaves the reference keeps in float32 whatever the model's dtype
+_FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
 def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                           dtype: Optional[torch.dtype] = None, *,
@@ -1141,7 +1305,9 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     (default: the config's).  The MoE router stays float32, as the
     reference keeps it.  ``experts`` is the Comm the routed experts shard
     over (``DecoderLM.expert_group``; None: all here): each rank keeps its
-    rows of them."""
+    rows of them.  An SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32,
+    as the reference keeps them; a hybrid's ``shared`` block is one set of
+    leaves, not stacked."""
     dt = dtype if dtype is not None else DTYPES[cfg.dtype]
 
     def t(x, name="", grp=""):
@@ -1149,17 +1315,23 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
         if is_expert_leaf(grp, name):
             x = expert_rows(cfg, x, experts)
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(
-            device=device, dtype=torch.float32 if name == "router" else dt)
+            device=device,
+            dtype=torch.float32 if name in _FLOAT32_LEAVES else dt)
 
     p = {"embed": t(tree["embed"]), "ln_f": t(tree["ln_f"])}
     if "head" in tree:
         p["head"] = t(tree["head"])
+    if "shared" in tree:
+        p["shared"] = {grp: ({name: t(arr, name, grp)
+                              for name, arr in sub.items()}
+                             if isinstance(sub, dict) else t(sub, grp))
+                       for grp, sub in tree["shared"].items()}
     n_all = 0
     for key in _LAYER_KEYS:
         if key not in tree:
             continue
         stacked = tree[key]
-        n = len(stacked["attn"]["wo"])
+        n = len(next(iter(next(iter(stacked.values())).values())))
         p[key] = [{grp: {name: t(arr[i], name, grp)
                          for name, arr in stacked[grp].items()}
                    for grp in stacked} for i in range(n)]
@@ -1181,7 +1353,8 @@ def to_reference_params(params: dict, *, experts=None) -> dict:
             x = experts.all_gather(x.contiguous(), 0)
         return x
 
-    out = {k: v for k, v in params.items() if k not in _LAYER_KEYS}
+    out = {k: (tree_map(lambda x: x.detach(), v) if k == "shared" else v)
+           for k, v in params.items() if k not in _LAYER_KEYS}
     for key in _LAYER_KEYS:
         if key not in params:
             continue

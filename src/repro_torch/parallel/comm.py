@@ -7,8 +7,10 @@ and a broadcast from one rank (:meth:`Comm.broadcast_`).  Inside an
 autograd graph, :func:`all_to_all` (backward: the inverse ``all_to_all``),
 :func:`all_reduce` (``lax.psum`` / ``lax.pmean``; backward: the
 cotangent passed through, each rank keeping its own share, which the
-train step's gradient sum adds up) and :func:`gather_rows` (an all-gather
-whose backward keeps this rank's piece) are their differentiable forms.
+train step's gradient sum adds up), :func:`gather_rows` (an all-gather
+whose backward keeps this rank's piece) and :func:`shift` (``lax.ppermute``
+by a fixed hop; backward: the opposite shift) are their differentiable
+forms.
 
 Each rank is one ``torch.distributed`` process.  How tensors travel — the
 transport — is decided once, from the world's backend and the device, when
@@ -720,3 +722,27 @@ def gather_rows(comm, x, dim: int):
     if comm is None or comm.size == 1:
         return x
     return _GatherRows.apply(x, comm, dim)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, hops):
+        ctx.comm, ctx.hops = comm, hops
+        return comm.shift([x], hops).wait()[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.shift([g.contiguous()], -ctx.hops).wait()[0], None, \
+            None
+
+
+def shift(comm, x, hops: int):
+    """:meth:`Comm.shift` of one tensor inside an autograd graph: rank p
+    receives rank (p − hops)'s ``x``; the backward shifts the cotangent by
+    −hops, back to the rank that sent it.  Every rank of ``comm`` must
+    call it, and must keep its result in the graph (masking it by
+    arithmetic, not dropping it), so that every rank runs the backward's
+    shift too.  ``comm`` None or of one rank: ``x`` itself."""
+    if comm is None or comm.size == 1:
+        return x
+    return _Shift.apply(x, comm, int(hops))

@@ -1082,3 +1082,75 @@ def test_cuda_ipc_message_above_the_mailbox_cap_arrives_whole(ipc_world):
         for k in ("shift_big", "a2a_big", "gather_big"):
             assert _same_bits(r["ipc"][k], r["staged"][k]), (r["rank"], k)
         assert _same_bits(r["ipc"]["sum_big"], r0["ipc"]["sum_big"])
+
+
+D160_CASES = [
+    # (B, Tq, Tk, H, mask, segments), zamba2's shared block (heads of 160,
+    # one kv head a query head), each in float32 and bf16: a causal
+    # prompt, a q-offset chunk, a ragged T, a document mask
+    (1, 512, 512, 4, mk.causal(), False),
+    (1, 128, 384, 2, mk.causal(rel_offset=256), False),
+    (1, 200, 200, 2, mk.causal(), False),
+    (2, 128, 128, 2, mk.document(), True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", D160_CASES,
+                         ids=[c[4].kind + str(i)
+                              for i, c in enumerate(D160_CASES)])
+def test_d160_kernels_match_plain(dev, case, dtype):
+    """Kernels A, C and D at head dim 160 (bf16: the pair libraries'
+    <160, 160>; float32: ``flash_fwd.cu`` / ``flash_bwd.cu`` at 160)
+    against their plain versions at the kernel bars, each launch counted
+    under its own name (``flash_fwd_160`` ...) and nowhere else."""
+    B, Tq, Tk, H, mask, segs = case
+    gen = torch.Generator(device=dev).manual_seed(160)
+    q = _randn(gen, (B, Tq, H, 160), dtype, dev)
+    k = _randn(gen, (B, Tk, H, 160), dtype, dev)
+    v = _randn(gen, (B, Tk, H, 160), dtype, dev)
+    do = _randn(gen, (B, Tq, H, 160), dtype, dev)
+    kw = {}
+    if segs:
+        s = torch.sort(torch.randint(0, 3, (B, Tk), generator=gen,
+                                     device=dev), dim=1)[0].to(torch.int32)
+        kw = dict(q_segments=s[:, :Tq].contiguous(), kv_segments=s)
+    n0 = dict(build.LAUNCHES)
+    o, lse = flash_fwd(q, k, v, mask=mask, **kw)
+    got = flash_bwd(q, k, v, o, lse, do, mask=mask, **kw)
+    torch.cuda.synchronize()
+    want = {"flash_fwd_160": 1, "flash_bwd_dq_160": 1,
+            "flash_bwd_dkv_160": 1}
+    assert {n: build.LAUNCHES[n] - n0[n] for n in n0} == \
+        {n: want.get(n, 0) for n in n0}
+    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask, **kw)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    ok = lse_r > NEG_INF / 2
+    torch.testing.assert_close(lse[ok], lse_r[ok], atol=1e-4, rtol=1e-4)
+    if dtype == torch.bfloat16:
+        assert _rel_err(o, o_r) <= 3e-2
+    ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=mask, **kw)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}[dtype]
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
+        if dtype == torch.bfloat16:
+            assert row_rel_err(a, r) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_refuse_head_dims_they_do_not_take(dev, dtype):
+    """A head dim outside ``HEAD_DIMS`` (32, 64, 128, 160) — 96, 144, 176,
+    256 — raises in A's and in C / D's wrappers before any launch; there is
+    no fallback."""
+    n0 = dict(build.LAUNCHES)
+    for d in (96, 144, 176, 256):
+        q = torch.zeros((1, 64, 2, d), device=dev, dtype=dtype)
+        lse = torch.zeros((1, 64, 2), device=dev)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_fwd(q, q, q, mask=mk.causal())
+        with pytest.raises(ValueError, match="head dims"):
+            flash_bwd(q, q, q, q, lse, q, mask=mk.causal())
+    assert dict(build.LAUNCHES) == n0

@@ -88,5 +88,7 @@ def test_port_covers_the_slice_layout():
                 "kernels/csrc/sm90_tma.cuh",
                 "kernels/csrc/flash_fwd_pair_sm90.cu",
                 "analysis/roofline.py", "tune/__init__.py",
-                "tune/table.py", "tune/calibrate.py", "tune/timing.py"):
+                "tune/table.py", "tune/calibrate.py", "tune/timing.py",
+                "models/ssm.py", "configs/mamba2_2_7b.py",
+                "configs/zamba2_2_7b.py"):
         assert (PORT / rel).is_file(), rel
