@@ -489,6 +489,48 @@ Phases, each fatal on failure (nothing is caught):
                 |logit| of its; both planted relay faults (every rank from
                 a zero state; the halo zeroed) rejected; host seconds in
                 shifts and all-reduces.
+  22. ssm2d   — zamba2-2.7b at full width, 12 of 54 layers, on a 2D (seq =
+                2) × (head = 2) mesh of 4 cuda-ipc ranks (after phase 21
+                (c)), 16,384 tokens (4,096 a rank), balanced: the relay
+                and the halo over all 4 ranks in sequence order, the
+                shared block through the 2D plan (A, C, D at 160).  Held to
+                one process as 21 (c) is (loss 2^-8, every summed leaf 5%,
+                shard edges 5%); rejected faults: the SSM leaves summed
+                over head once more, a zero relayed state.  Then a
+                56-token prompt's prefill and the recurrent decode (the
+                prompt token by token, 8 greedy tokens, the shared K/V
+                sharded over 4 ranks), teacher-forced: prefill logits,
+                every step's logits and every shared call's attention
+                output within 5% of the one process's; rejected: the
+                prefill's head scatter rotated by one, rank 1's shard
+                left out of the decode's reductions.
+  23. vlm     — internvl2-2b at full size (256 image positions before
+                the text), bf16, seed 23: (a) 3 remat_aware steps of 8,192
+                positions, A / C / D once a layer a step; (b) gradients at
+                4 layers, T 4,096 within 5% of the plain attention path's
+                (controls: a shifted backward, the image labels
+                unmasked); (c) FixedSlotEngine, 4 requests of 256 image
+                rows + 1,000 / 700 / 513 / 64 tokens, 32 greedy tokens,
+                every step within 5% of max |logit| of the plain forward
+                (control: the decode at S0 − 256, S0 from the text
+                alone); (d) one zigzag step on 4 cuda-ipc ranks at 4 of
+                24 layers held to one process (loss 2^-8, leaves 5%;
+                control: the image labels unmasked).
+  24. whisper — whisper-tiny at full size (4 + 4 layers, 1,536 frames),
+                bf16, seed 24: (0) A, C and D at the cross shape q (2,
+                4096, 6, 64) against k / v (2, 1536, 6, 64), full mask,
+                and A at Tq = 1 against 1,536 keys, both dtypes, at phase
+                3's bars, then their bf16 device times (CUDA-graph
+                replay), plain and SDPA times and bounds (the ``whisper_*``
+                keys of the A, C and D rows); (a) 2 remat_aware steps, B
+                2, decoder T 4,096, A 16 and C / D 12 launches a step; (b)
+                gradients within 5% of the plain path's (controls: a
+                shifted backward, a causal cross-attention); (c) 4
+                cuda-ipc ranks held to (b) (loss 2^-8, leaves 5%; control:
+                the encoder's gradients summed twice); (d)
+                FixedSlotEngine, 4 requests of 1,536 frames and 64-token
+                prompts, 32 greedy tokens, within 5% of the plain forward
+                (control: a causal cross-attention).
 Every phase prints its seconds, and every multi-rank phase its ranks'
 host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
@@ -1875,8 +1917,8 @@ def _train_policy(cfg, policy, batches, tc, seen=None, seed=0,
     ``seen`` that step leaves the inputs of its first attention forward
     (layer 1) and first attention backward (the last layer) in ``seen``,
     on the host."""
-    model = DecoderLM(cfg, device=DEV, par=ParallelConfig(remat=policy),
-                      impl=None if seen is None else _capturing(seen))
+    model = TF.build_model(cfg, device=DEV, par=ParallelConfig(remat=policy),
+                           impl=None if seen is None else _capturing(seen))
     params = trainable(model.init(seed=seed))
     opt = adamw.init(params)
     step = make_train_step(model, tc)
@@ -2980,12 +3022,12 @@ def _timed(times, key, fn):
 
 
 @contextlib.contextmanager
-def _decode_fault(model, fault):
+def _decode_fault(model, fault, by=1):
     """A deliberately wrong decode while the block runs (phase 8's
     controls): ``"shard"`` — rank 1's shard left out of the decode
     reduction (its max, numerator and denominator replaced by the
     reduction's identity before each all-reduce of the cache's group);
-    ``"pos"`` — every decode step at its position plus one."""
+    ``"pos"`` — every decode step at its position plus ``by``."""
     grp = model.decode_group
     if fault == "shard":
         reduce_ = grp.all_reduce_
@@ -2999,7 +3041,7 @@ def _decode_fault(model, fault):
     else:
         decode = model.decode
         model.decode = lambda p, cache, token, pos: decode(p, cache, token,
-                                                           pos + 1)
+                                                           pos + by)
     try:
         yield
     finally:
@@ -3099,8 +3141,8 @@ def _recorded(model, forced=None):
     saved = {k: model.__dict__.get(k) for k in ("prefill", "decode")}
     prefill, decode = model.prefill, model.decode
 
-    def pre(p, tokens):
-        logits, cache = prefill(p, tokens)
+    def pre(p, tokens, **kw):
+        logits, cache = prefill(p, tokens, **kw)
         logs.append(logits[:, -1].float().cpu())
         return logits, cache
 
@@ -7377,30 +7419,8 @@ def _p21_grad_check():
     cfg = get_config("zamba2-2.7b").replace(n_layers=P21_GRAD_LAYERS)
     batch = SyntheticTokens(cfg, ShapeSpec("g", P21_GRAD_T, 1, "train"),
                             device=DEV).batch(0)
-    base = DecoderLM(cfg, DEV).init(seed=P21_SEED)
-
-    def grads(impl):
-        model = DecoderLM(cfg, DEV, impl=impl)
-        params = trainable(base)
-        loss, _ = model.loss(params, batch)
-        return float(loss.detach()), torch.autograd.grad(loss,
-                                                         leaves(params))
-    names = _leaf_names(base)
-    l_ref, g_ref = grads("ref")
-    l_cuda, g_cuda = grads("cuda")
-    ok, leaf = _worst_leaf(g_cuda, g_ref, names)
-    check(ok <= GRAD_REL_TOL, f"zamba2 kernel grads vs plain: {leaf} {ok}")
-    del g_cuda
-    _, g_bad = grads(_shifted_backend())
-    bad, bad_leaf = _worst_leaf(g_bad, g_ref, names)
-    check(bad > GRAD_REL_TOL, f"the grad limit does not reject a shifted "
-          f"backward (worst leaf {bad_leaf} {bad:.4f})")
-    say(f"  (b) gradients at full width, {P21_GRAD_LAYERS} layers, T "
-        f"{P21_GRAD_T}: loss kernels {l_cuda:.5f} vs plain {l_ref:.5f}; "
-        f"worst leaf max|Δg| / max|g| {ok:.4f} ({leaf}; limit "
-        f"{GRAD_REL_TOL}), shifted-backward control {bad:.4f} ({bad_leaf}; "
-        "rejected)")
-    del base, g_ref, g_bad
+    _grads_vs_plain(cfg, batch, P21_SEED, f"(b) gradients at full width, "
+                    f"{P21_GRAD_LAYERS} layers, T {P21_GRAD_T}:")
     _free()
 
 
@@ -7636,6 +7656,888 @@ def ssm_ranks():
         check(rejected, f"relay fault {name} passes the gates")
     say(f"  (c) world of {P21C_RANKS} ranks: {wall:.1f} s, spawn included")
     return dict(launches=launches, res=res)
+
+
+# ----------------------------------------------------------------- phase 22
+
+P22_MESH = (2, 2)                # (seq, head): r·u = 4 ranks
+# the recurrent decode: the prompt token by token from the empty cache,
+# then greedy tokens; 64 slots of the shared K/V, 16 a rank
+P22_PROMPT, P22_NEW, P22_SEED = 56, 8, 22
+P22_TIMEOUT = 600
+
+
+def _p22_prompt(vocab):
+    return torch.from_numpy(np.random.default_rng(P22_SEED).integers(
+        0, vocab, (1, P22_PROMPT)).astype(np.int32)).to(DEV)
+
+
+@contextlib.contextmanager
+def _decode_attn_outputs():
+    """While the block runs, every ``dist_decode_attn`` of the models (a
+    hybrid's shared-block calls in the decode) appends its output, float32
+    on the host, to the list it yields."""
+    outs, right = [], TF.dist_decode_attn
+
+    def rec(*a, **kw):
+        o = right(*a, **kw)
+        outs.append(o.float().cpu())
+        return o
+    TF.dist_decode_attn = rec
+    try:
+        yield outs
+    finally:
+        TF.dist_decode_attn = right
+
+
+def _p22_decode(model, params, prompt, forced=None):
+    """The recurrent decode from the empty cache (the hybrid's shared K/V
+    sharded over the model's decode group): the prompt token by token, then
+    P22_NEW greedy tokens, or the tokens of ``forced`` (1, P22_NEW).
+    Returns every step's logits and every shared call's attention output
+    (float32, on the host), the tokens fed after the prompt, and ms a
+    step."""
+    from repro_torch.data.pipeline import empty_decode_cache
+    grp = model.decode_group
+    cache = empty_decode_cache(model.cfg, 1, P22_PROMPT + P22_NEW, DEV,
+                               shards=1 if grp is None else grp.size)
+    rows, fed, tok = [], [], None
+    with _decode_attn_outputs() as outs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(P22_PROMPT + P22_NEW):
+            if t < P22_PROMPT:
+                cur = prompt[:, t:t + 1]
+            else:
+                i = t - P22_PROMPT
+                cur = tok if forced is None else forced[:, i:i + 1].to(DEV)
+                fed.append(cur.cpu())
+            lg = model.decode(params, cache, cur, torch.full(
+                (1,), t, dtype=torch.int32, device=DEV))
+            rows.append(lg[0, -1].float().cpu())
+            tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (P22_PROMPT + P22_NEW)
+    return dict(rows=torch.stack(rows), attn=torch.stack(outs),
+                fed=torch.cat(fed, dim=1), ms=ms)
+
+
+def _p22_one(tmp):
+    """Phase 22's one process: (c)'s P = 1 readings (:func:`_p21c_one`),
+    then the prefill of the seed-22 prompt and the recurrent decode
+    (:func:`_p22_decode`) on the same weights, saved at ``tmp/serve.pt``."""
+    loss1 = _p21c_one(tmp)
+    cfg = _p21c_cfg()
+    model = DecoderLM(cfg, DEV)
+    params = model.init(seed=P21_SEED)
+    prompt = _p22_prompt(cfg.vocab)
+    logits, _ = model.prefill(params, prompt)
+    dec = _p22_decode(model, params, prompt)
+    torch.save(dict(prefill=logits[0, -1].float().cpu(), **dec),
+               os.path.join(tmp, "serve.pt"))
+    del model, params
+    _free()
+    return loss1, dec["ms"]
+
+
+def _p22_rank(rank, tmp):
+    """One rank of phase 22 on the (seq, head) mesh: step 1's loss, summed
+    gradients and shard-edge logits held to P = 1's, timed; the gradients
+    with the SSM leaves summed over ``head`` once more, and the loss and
+    edges with every rank starting from a zero state (the planted faults);
+    then the prefill and the recurrent decode teacher-forced on P = 1's
+    tokens, the prefill with the 2D plan's head scatter rotated by one,
+    and the decode with rank 1's shard left out of its reductions."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.train.step import sum_grads
+    mesh = make_seq2d_mesh(*P22_MESH, device=DEV)
+    cfg = _p21c_cfg()
+    shape = ShapeSpec("chip21c", P21C_T, 1, "train")
+    model = DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+        mesh, shape, schedule="balanced"))
+    p = model.seq_rank
+    params = trainable(model.init(seed=P21_SEED))
+    b0 = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                         par=model.par).batch(0)
+    glob = SyntheticTokens(cfg, shape, device=DEV, seed=0).batch(0)["tokens"]
+    one = torch.load(os.path.join(tmp, "p1.pt"))
+    names, E = one["names"], P21C_EDGE
+    ref = [g.to(DEV) for g in one["grads"]]
+    ref_edge = one["logits"][p * E:(p + 1) * E].to(DEV).float()
+
+    def edge():
+        e = _trunk_logits(model, params, glob)[0, :E]
+        return float((e - ref_edge).abs().max() / ref_edge.abs().max())
+    comms = [model.seq_group, model.token_group, mesh.comms["head"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    c0 = _comm_seconds(comms)
+    t0 = time.perf_counter()
+    loss, _ = model.loss(params, b0)
+    grads, _ = sum_grads(model, params, list(torch.autograd.grad(
+        loss, leaves(params))))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    c1 = _comm_seconds(comms)
+    out = {"rank": p, "transport": mesh.transport,
+           "launches": {k: build.LAUNCHES[k] for k in D160_KERNELS},
+           "first": dict(loss=float(loss.detach()),
+                         grad_err=_worst_leaf(grads, ref, names),
+                         edge=edge()),
+           "step": dict(sec=sec, comm={k: c1[k] - c0[k] for k in c1}),
+           "peak": torch.cuda.max_memory_allocated()}
+    mesh.comms["head"].all_reduce_([g for g, n in zip(grads, names)
+                                    if "/ssm/" in n])
+    out["faults"] = {"head": dict(grad_err=_worst_leaf(grads, ref, names))}
+    del grads, ref
+
+    def zero_state(group, decay, state):
+        return torch.zeros_like(state)
+    right = SSM._device_prefix
+    SSM._device_prefix = zero_state
+    try:
+        with torch.no_grad():
+            bad, _ = model.loss(params, b0)
+        out["faults"]["zero_state"] = dict(loss=float(bad), edge=edge())
+    finally:
+        SSM._device_prefix = right
+    srv = torch.load(os.path.join(tmp, "serve.pt"))
+    smodel = DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+        mesh, ShapeSpec("chip22", P22_PROMPT + P22_NEW, 1, "decode")))
+    prompt = _p22_prompt(cfg.vocab)
+    build.reset_launches()
+    logits, _ = smodel.prefill(params, prompt)
+    out["serve_launches"] = {k: build.LAUNCHES[k] for k in D160_KERNELS}
+    dec = _p22_decode(smodel, params, prompt, forced=srv["fed"])
+    pre = logits[0, -1].float().cpu()
+    out["serve"] = dict(
+        prefill=float((pre - srv["prefill"]).abs().max()
+                      / srv["prefill"].abs().max()),
+        logits=_step_err(dec["rows"], srv["rows"]),
+        attn=_step_err(dec["attn"], srv["attn"]), ms=dec["ms"],
+        shards=smodel.decode_group.size,
+        argmax=int((dec["rows"].argmax(-1) == srv["rows"].argmax(-1))
+                   .sum()))
+    with _decode_fault(smodel, "shard"):
+        bad = _p22_decode(smodel, params, prompt, forced=srv["fed"])
+    out["faults"]["shard"] = dict(logits=_step_err(bad["rows"], srv["rows"]),
+                                  attn=_step_err(bad["attn"], srv["attn"]))
+    with _p18_fault("scatter"):
+        bad, _ = smodel.prefill(params, prompt)
+    bad = bad[0, -1].float().cpu()
+    out["faults"]["scatter"] = float((bad - srv["prefill"]).abs().max()
+                                     / srv["prefill"].abs().max())
+    out["comm_s"] = _process_comm_seconds()
+    return out
+
+
+def ssm2d():
+    """Phase 22: zamba2-2.7b at full width, 12 of 54 layers (the shared
+    block twice), on a 2D (seq = 2) × (head = 2) mesh of 4 ``cuda-ipc``
+    ranks, one 16,384-token sequence a step (4,096 a rank), balanced,
+    seed-21 weights: the SSD state relayed and the conv halo shifted over
+    all 4 ranks in sequence order, the shared block's attention through the
+    2D plan (kernels A, C and D at head dim 160).  Held to one process on
+    the same weights and tokens as phase 21 (c): step 1's loss within 2^-8,
+    every summed gradient leaf within 5% of max |g| (each rank's SSM
+    gradients its own share, summed once), the logits at every shard's
+    first 64 positions within 5% of max |logit|; rejected faults: the SSM
+    leaves summed over head once more, every rank starting from a zero
+    state.  Then the prefill of a 56-token prompt and the recurrent decode
+    (the prompt token by token, then 8 greedy tokens; the shared K/V
+    sharded over the 4 ranks), teacher-forced on the one process's tokens:
+    the prefill's logits, every step's logits and every shared call's
+    attention output within 5% of the one process's; rejected faults: the
+    prefill's head scatter rotated by one, rank 1's shard left out of the
+    decode's reductions."""
+    cfg = _p21c_cfg()
+    say(f"  {cfg.name} at full width, {cfg.n_layers} of 54 layers on a "
+        f"(seq, head) = {P22_MESH} mesh, one sequence of {P21C_T} tokens "
+        f"a step ({P21C_T // 4} a rank), bf16, balanced, seed {P21_SEED}; "
+        f"serving: a {P22_PROMPT}-token prompt, {P22_NEW} greedy tokens")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        loss1, ms1 = _p22_one(tmp)
+        say(f"  P = 1 ({time.perf_counter() - t0:.1f} s): step 1 loss "
+            f"{loss1:.6f}; recurrent decode {ms1:.2f} ms a step")
+        t0 = time.perf_counter()
+        res = spawn(_p22_rank, 4, (tmp,), device=DEV, timeout=P22_TIMEOUT,
+                    threads=2)
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    _say_comm(22, res)
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+
+    def rel(a):
+        return abs(a - loss1) / abs(loss1)
+    for r in res:
+        f, s = r["first"], r["serve"]
+        err, leaf = f["grad_err"]
+        say(f"  rank {r['rank']}: step 1 loss {f['loss']:.6f} relative |Δ| "
+            f"{rel(f['loss']):.3e} (limit {P15_TOL:.3e}); worst gradient "
+            f"leaf {err:.4f} ({leaf}; limit {GRAD_REL_TOL}); shard-edge "
+            f"logits {f['edge']:.4e} (limit {LOGIT_REL_TOL}); step "
+            f"{r['step']['sec']:.3f} s, host in shifts / all_to_alls / "
+            f"all-reduces {r['step']['comm']['shift']:.3f} / "
+            f"{r['step']['comm']['a2a']:.3f} / "
+            f"{r['step']['comm']['reduce']:.3f} s; peak "
+            f"{r['peak'] / 2**30:.2f} GiB; train launches "
+            + ", ".join(f"{k} {r['launches'][k]}" for k in D160_KERNELS))
+        say(f"  rank {r['rank']} serving ({s['shards']} cache shards): "
+            f"prefill logits {s['prefill']:.4e}, decode logits "
+            f"{s['logits']:.4e}, shared-block attention outputs "
+            f"{s['attn']:.4e} of max (limit {LOGIT_REL_TOL}); argmax equal "
+            f"at {s['argmax']} of {P22_PROMPT + P22_NEW} steps; "
+            f"{s['ms']:.2f} ms a step; prefill launches "
+            + ", ".join(f"{k} {r['serve_launches'][k]}"
+                        for k in D160_KERNELS))
+        check(rel(f["loss"]) <= P15_TOL, f"rank {r['rank']}: loss vs P = 1")
+        check(err <= GRAD_REL_TOL, f"rank {r['rank']}: {leaf} {err}")
+        check(f["edge"] <= LOGIT_REL_TOL, f"rank {r['rank']}: edges")
+        check(all(r["launches"][k] > 0 for k in D160_KERNELS),
+              f"rank {r['rank']}: D 160 launches {r['launches']}")
+        check(r["serve_launches"]["flash_fwd_160"] > 0,
+              f"rank {r['rank']}: the prefill did not launch A at 160")
+        check(max(s["prefill"], s["logits"], s["attn"]) <= LOGIT_REL_TOL,
+              f"rank {r['rank']}: serving vs P = 1 {s}")
+        check(s["shards"] == 4, f"rank {r['rank']}: {s['shards']} shards")
+    head = max(r["faults"]["head"]["grad_err"][0] for r in res)
+    zs = max(max(r["faults"]["zero_state"]["edge"] / LOGIT_REL_TOL,
+                 rel(r["faults"]["zero_state"]["loss"]) / P15_TOL)
+             for r in res)
+    shard = max(max(r["faults"]["shard"]["logits"],
+                    r["faults"]["shard"]["attn"]) for r in res)
+    scatter = min(r["faults"]["scatter"] for r in res)
+    say(f"  faults: SSM leaves summed over head twice, worst leaf "
+        f"{head:.4f} (limit {GRAD_REL_TOL}); zero relayed state, the "
+        f"larger of edge and loss over their limits {zs:.3f}; rank 1's "
+        f"decode shard left out, logits / attention outputs "
+        + ", ".join(f"{r['faults']['shard']['logits']:.4e}/"
+                    f"{r['faults']['shard']['attn']:.4e}" for r in res)
+        + f" (limit {LOGIT_REL_TOL}); the prefill with the head scatter "
+        "rotated, logits " + ", ".join(f"{r['faults']['scatter']:.4e}"
+                                       for r in res))
+    check(head > GRAD_REL_TOL, "the SSM leaves counted twice pass")
+    check(zs > 1, "the zero relayed state passes")
+    check(shard > LOGIT_REL_TOL, "the decode without rank 1's shard passes")
+    check(scatter > LOGIT_REL_TOL, "the prefill's rotated head scatter "
+          "passes")
+    say(f"  world of 4 ranks: {wall:.1f} s, spawn included")
+    launches = {k: sum(r["launches"][k] + r["serve_launches"][k]
+                       for r in res) for k in D160_KERNELS}
+    return dict(launches=launches, res=res)
+
+
+# ----------------------------------------------------------------- phase 23
+
+P23_ARCH, P23_SEED = "internvl2-2b", 23
+P23_T, P23_STEPS = 8192, 3              # 256 image positions + 7,936 text
+# its gradients against the plain attention path: full width, 4 layers,
+# 4,096 positions (the plain version's (16, T, T) float32 scores 1 GiB)
+P23_GRAD_LAYERS, P23_GRAD_T = 4, 4096
+P23_LENS, P23_NEW = (1000, 700, 513, 64), 32     # text tokens a request
+# one zigzag step at 4 ranks, 4 of 24 layers
+P23_RANKS, P23_ZZ_LAYERS, P23_TIMEOUT = 4, 4, 600
+
+
+def _unmask_images(model):
+    """A planted fault: a VLM's image positions labelled with token 0
+    instead of −100 (its loss then counts them)."""
+    right = model._labels
+
+    def labels(batch):
+        got = right(batch).clone()
+        got[:, :batch["image_embeds"].shape[1]] = 0
+        return got
+    model._labels = labels
+
+
+def _grads_vs_plain(cfg, batch, seed, label, faults=()):
+    """Per-leaf gradients of ``cfg``'s model from the seed-``seed`` init on
+    ``batch`` through kernels A, C and D against the plain attention path,
+    each leaf within GRAD_REL_TOL of its max |g|; a backward shifted by one
+    position (phase 6b's control) and each planted fault of ``faults``
+    ((name, fn(model))) must be rejected.  Returns the kernel path's (loss,
+    gradients, leaf names)."""
+    base = TF.build_model(cfg, DEV).init(seed=seed)
+    names = _leaf_names(base)
+
+    def grads(impl=None, fault=None):
+        model = TF.build_model(cfg, DEV, impl=impl)
+        if fault is not None:
+            fault(model)
+        params = trainable(base)
+        loss, _ = model.loss(params, batch)
+        return float(loss.detach()), torch.autograd.grad(loss,
+                                                         leaves(params))
+    l_ref, g_ref = grads("ref")
+    l_cuda, g_cuda = grads()
+    ok, leaf = _worst_leaf(g_cuda, g_ref, names)
+    check(ok <= GRAD_REL_TOL, f"{label} kernel grads vs plain: {leaf} {ok}")
+    controls = []
+    for name, impl, fault in ((("backward shifted by one",
+                                _shifted_backend(), None),)
+                              + tuple((n, None, f) for n, f in faults)):
+        _, g_bad = grads(impl, fault)
+        bad, bad_leaf = _worst_leaf(g_bad, g_ref, names)
+        del g_bad
+        check(bad > GRAD_REL_TOL, f"{label}: the gradient limit does not "
+              f"reject {name} (worst leaf {bad_leaf} {bad:.4f})")
+        controls.append(f"{name} {bad:.4f} ({bad_leaf}; rejected)")
+    say(f"  {label} loss kernels {l_cuda:.5f} vs plain {l_ref:.5f}; worst "
+        f"leaf max|Δg| / max|g| {ok:.4f} ({leaf}; limit {GRAD_REL_TOL}); "
+        "controls: " + ", ".join(controls))
+    del base, g_ref
+    _free()
+    return l_cuda, g_cuda, names
+
+
+def _p23_one(tmp):
+    """(d)'s one process: 4 of 24 layers, step 1's loss and gradients on
+    the seed-23 init and batch 0, saved at ``tmp/p1.pt``."""
+    cfg = get_config(P23_ARCH).replace(n_layers=P23_ZZ_LAYERS)
+    model = DecoderLM(cfg, DEV)
+    params = trainable(model.init(seed=P23_SEED))
+    batch = SyntheticTokens(cfg, ShapeSpec("chip23", P23_T, 1, "train"),
+                            device=DEV, seed=0).batch(0)
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves(params))
+    torch.save({"loss": float(loss.detach()),
+                "grads": [g.cpu() for g in grads],
+                "names": _leaf_names(params)}, os.path.join(tmp, "p1.pt"))
+    del model, params, grads
+    _free()
+    return float(loss.detach())
+
+
+def _p23_rank(rank, tmp):
+    """One rank of (d): one zigzag step's loss and summed gradients held
+    to one process's, its columns of the concatenated (image, text)
+    sequence, timed; then the same with the image labels unmasked."""
+    from repro_torch.train.step import sum_grads
+    mesh = make_local_mesh(seq=P23_RANKS, device=DEV)
+    cfg = get_config(P23_ARCH).replace(n_layers=P23_ZZ_LAYERS)
+    shape = ShapeSpec("chip23", P23_T, 1, "train")
+    model = DecoderLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+        mesh, shape, schedule="zigzag"))
+    params = trainable(model.init(seed=P23_SEED))
+    b0 = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                         par=model.par).batch(0)
+    one = torch.load(os.path.join(tmp, "p1.pt"))
+    ref = [g.to(DEV) for g in one["grads"]]
+
+    def step():
+        loss, _ = model.loss(params, b0)
+        grads, _ = sum_grads(model, params, list(torch.autograd.grad(
+            loss, leaves(params))))
+        return dict(loss=float(loss.detach()),
+                    grad_err=_worst_leaf(grads, ref, one["names"]))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    first = step()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: build.LAUNCHES[k] for k in BWD_KERNELS}
+    n_img = b0["image_embeds"].shape[1]
+    pos = model.positions(n_img + b0["tokens"].shape[1]).cpu().numpy()
+    _unmask_images(model)
+    return {"rank": model.seq_rank, "transport": mesh.transport,
+            "first": first, "sec": sec, "launches": launches,
+            "n_img": n_img, "chunks": (int(pos[0]), int(pos[-1])),
+            "fault": step(), "comm_s": _process_comm_seconds()}
+
+
+def _p23_serve(cfg):
+    """(c): ``FixedSlotEngine`` on 4 requests, each 256 image rows then
+    P23_LENS text tokens, P23_NEW greedy tokens, one request at a time;
+    every step's logits (the prefill's last, then each decode's) held to
+    the plain forward over the image rows, the prompt and the greedy
+    tokens; the control: the first request's decode at positions 256 too
+    low (S0 taken from the text's length), teacher-forced."""
+    model = DecoderLM(cfg, DEV)
+    params = model.init(seed=P23_SEED)
+    rng = np.random.default_rng(P23_SEED)
+    n = cfg.n_image_tokens
+    reqs = [(torch.from_numpy(rng.integers(0, cfg.vocab, (1, m)).astype(
+                np.int32)).to(DEV),
+             torch.from_numpy(rng.standard_normal(
+                 (1, n, cfg.d_model)).astype(np.float32)).to(DEV, model.dtype))
+            for m in P23_LENS]
+    eng = FixedSlotEngine(model, params)
+    build.reset_launches()
+    errs, secs, ctl = [], [], None
+    for i, (toks, img) in enumerate(reqs):
+        batch = {"tokens": toks, "image_embeds": img}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recorded(model) as logs:
+            gen, _ = eng.generate(batch, P23_NEW)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = build.LAUNCHES["flash_fwd"]
+        s0 = n + toks.shape[1] - 1
+        ref = model.forward(params, torch.cat([toks, gen], dim=1),
+                            image_embeds=img)[0, s0:].float().cpu()
+        errs.append(_step_err([x[0] for x in logs], ref))
+        if i == 0:
+            with _decode_fault(model, "pos", by=-n), \
+                    _recorded(model, forced=gen) as bad:
+                eng.generate(batch, P23_NEW)
+            ctl = _step_err([x[0] for x in bad], ref)
+    del model, params, eng
+    _free()
+    return dict(errs=errs, secs=secs, ctl=ctl, launches=launches)
+
+
+def vlm():
+    """Phase 23: internvl2-2b at full size (24 layers, d_model 2048, 16 /
+    8 heads × 128, vocab 92,553, 256 image positions), bf16, nothing cut.
+    (a) 3 training steps of 8,192 positions (256 image + 7,936 text) under
+    remat_aware, seed 23: finite losses, kernels A, C and D once a layer a
+    step.  (b) its gradients at 4 layers, T 4,096, against the plain
+    attention path (:func:`_grads_vs_plain`; controls: a shifted backward,
+    the image labels unmasked).  (c) ``FixedSlotEngine``
+    (:func:`_p23_serve`).  (d) one zigzag step at 4 ``cuda-ipc`` ranks, 4
+    of 24 layers, the zigzag permutation of the concatenated sequence (the
+    image rows in rank 0's first chunk), held to one process: the loss
+    within 2^-8 and every summed gradient leaf within 5% of max |g|; the
+    control: the image labels unmasked on the ranks."""
+    cfg = get_config(P23_ARCH)
+    a = cfg.attn
+    out = {"launches": dict.fromkeys(BWD_KERNELS, 0)}
+    t0 = time.perf_counter()
+    say(f"  (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{a.n_heads} / {a.n_kv_heads} heads × {a.head_dim}, vocab "
+        f"{cfg.vocab}, {cfg.n_image_tokens} image positions "
+        f"({cfg.param_count() / 1e9:.2f} B params), B 1 T {P23_T} "
+        f"({P23_T - cfg.n_image_tokens} text tokens), bf16 params, fp32 "
+        "moments, remat_aware")
+    tc = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=P23_STEPS)
+    ds = SyntheticTokens(cfg, ShapeSpec("chip23", P23_T, 1, "train"),
+                         device=DEV, seed=0)
+    batches = [ds.batch(i) for i in range(P23_STEPS)]
+    runs, launches, peak, _ = _train_policy(cfg, "remat_aware", batches, tc,
+                                            seed=P23_SEED)
+    for i, (m, sec) in enumerate(runs):
+        check(m["skipped_nonfinite"] == 0 and np.isfinite(m["loss"]),
+              f"{cfg.name} step {i + 1}: loss {m['loss']}")
+        say(f"  (a) step {i + 1}: loss {m['loss']:.4f} gnorm "
+            f"{m['gnorm']:.3f} step {sec:.3f} s")
+    for k in BWD_KERNELS:
+        check(launches[k] == cfg.n_layers * P23_STEPS, f"{cfg.name}: {k} "
+              f"launched {launches[k]} times, want {cfg.n_layers} a step")
+        out["launches"][k] += launches[k]
+    tok_s = (P23_STEPS - 1) * P23_T / sum(s for _, s in runs[1:])
+    say(f"  (a) {tok_s:.1f} positions/s over steps 2-{P23_STEPS}, peak "
+        f"memory {peak / 2**30:.2f} GiB; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in BWD_KERNELS)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    out.update(tok_s=tok_s, peak=peak, step_s=[s for _, s in runs],
+               losses=[m["loss"] for m, _ in runs])
+    del batches
+    _free()
+    t0 = time.perf_counter()
+    gcfg = cfg.replace(n_layers=P23_GRAD_LAYERS)
+    gb = SyntheticTokens(gcfg, ShapeSpec("g", P23_GRAD_T, 1, "train"),
+                         device=DEV).batch(0)
+    _grads_vs_plain(gcfg, gb, P23_SEED, f"(b) {P23_GRAD_LAYERS} layers, T "
+                    f"{P23_GRAD_T}:", faults=(("image labels unmasked",
+                                               _unmask_images),))
+    del gb
+    say(f"  (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sv = _p23_serve(cfg)
+    for m, err, sec in zip(P23_LENS, sv["errs"], sv["secs"]):
+        say(f"  (c) request of {cfg.n_image_tokens} image rows + {m} "
+            f"tokens: {P23_NEW} greedy tokens in {sec:.3f} s; logits "
+            f"{err:.4e} of max |logit| off the plain forward (limit "
+            f"{LOGIT_REL_TOL})")
+        check(err <= LOGIT_REL_TOL, f"(c) logits {err}")
+    say(f"  (c) control, decode positions {cfg.n_image_tokens} too low (S0 "
+        f"from the text alone): {sv['ctl']:.4e} "
+        f"({'rejected' if sv['ctl'] > LOGIT_REL_TOL else 'NOT rejected'}); "
+        f"flash_fwd launches on the first request {sv['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(sv["ctl"] > LOGIT_REL_TOL, "the decode at S0 - 256 passes")
+    check(sv["launches"] == cfg.n_layers, f"(c) the prefill launched A "
+          f"{sv['launches']} times, want {cfg.n_layers}")
+    out["launches"]["flash_fwd"] += sv["launches"]
+    out["serve"] = sv
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        loss1 = _p23_one(tmp)
+        res = spawn(_p23_rank, P23_RANKS, (tmp,), device=DEV,
+                    timeout=P23_TIMEOUT, threads=2)
+    res.sort(key=lambda r: r["rank"])
+    _say_comm(23, res)
+    for r in res:
+        f, bad = r["first"], r["fault"]
+        d = abs(f["loss"] - loss1) / abs(loss1)
+        say(f"  (d) rank {r['rank']}: columns from {r['chunks'][0]} to "
+            f"{r['chunks'][1]}, {r['n_img']} image rows; step loss "
+            f"{f['loss']:.6f} relative |Δ| {d:.3e} (limit {P15_TOL:.3e}); "
+            f"worst leaf {f['grad_err'][0]:.4f} ({f['grad_err'][1]}; limit "
+            f"{GRAD_REL_TOL}); step {r['sec']:.3f} s; launches "
+            + ", ".join(f"{k} {r['launches'][k]}" for k in BWD_KERNELS)
+            + f"; image labels unmasked: loss {bad['loss']:.6f}, worst leaf "
+            f"{bad['grad_err'][0]:.4f} ({bad['grad_err'][1]})")
+        check(d <= P15_TOL, f"(d) rank {r['rank']}: loss vs P = 1")
+        check(f["grad_err"][0] <= GRAD_REL_TOL, f"(d) rank {r['rank']}: "
+              f"{f['grad_err']}")
+        check(all(r["launches"][k] > 0 for k in BWD_KERNELS),
+              f"(d) rank {r['rank']}: launches {r['launches']}")
+        check(bad["grad_err"][0] > GRAD_REL_TOL
+              or abs(bad["loss"] - loss1) / abs(loss1) > P15_TOL,
+              f"(d) rank {r['rank']}: unmasked image labels pass")
+        for k in BWD_KERNELS:
+            out["launches"][k] += r["launches"][k]
+    check([r["n_img"] for r in res] == [cfg.n_image_tokens, 0, 0, 0],
+          f"(d) image rows a rank {[r['n_img'] for r in res]}")
+    say(f"  (d) P = 1 loss {loss1:.6f}; {time.perf_counter() - t0:.1f} s, "
+        "spawn included")
+    out["ranks"] = res
+    return out
+
+
+# ----------------------------------------------------------------- phase 24
+
+P24_ARCH, P24_SEED = "whisper-tiny", 24
+P24_T, P24_B, P24_STEPS = 4096, 2, 2     # decoder tokens beside 1,536 frames
+P24_PROMPT, P24_NEW, P24_REQS = 64, 32, 4
+P24_RANKS, P24_TIMEOUT = 4, 600
+
+
+def _whisper_shapes(cfg):
+    """(B, Tq, Tk, H, D) of whisper's cross-attention in training and at
+    decode."""
+    a, F = cfg.attn, cfg.n_audio_frames
+    return ((P24_B, P24_T, F, a.n_heads, a.head_dim),
+            (P24_REQS, 1, F, a.n_heads, a.head_dim))
+
+
+def whisper_kernels(cfg):
+    """Kernels A, C and D at whisper's cross shape — q (2, 4096, 6, 64)
+    against k / v (2, 1536, 6, 64), the full mask — and A at Tq = 1
+    against 1,536 keys (B 4), in both dtypes, held to their plain versions
+    at phase 3's bars (``_flash_case`` / ``_bwd_case``); then the bf16
+    times: device ms (20 calls replayed as one CUDA graph), the plain
+    version's, SDPA's (non-causal forward; its autograd backward for C and
+    D, which computes the pair), each bound.  Returns the extra keys of
+    the A, C and D rows."""
+    gen = torch.Generator(device=DEV).manual_seed(P24_SEED)
+    cross, dec = _whisper_shapes(cfg)
+    full = mk.full()
+    for dt in (torch.float32, torch.bfloat16):
+        _flash_case(gen, "whisper cross {1}x{2}".format(*cross), *cross[:4],
+                    cross[3], cross[4], dt, full)
+        _bwd_case(gen, "whisper cross {1}x{2}".format(*cross), *cross[:4],
+                  cross[3], cross[4], dt, full)
+        _flash_case(gen, "whisper decode {1}x{2}".format(*dec), *dec[:4],
+                    dec[3], dec[4], dt, full)
+    extra = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for tag, (B, Tq, Tk, H, D) in (("whisper_cross", cross),
+                                   ("whisper_decode", dec)):
+        q = randn(gen, (B, Tq, H, D), torch.bfloat16)
+        k = randn(gen, (B, Tk, H, D), torch.bfloat16)
+        v = randn(gen, (B, Tk, H, D), torch.bfloat16)
+        do = randn(gen, (B, Tq, H, D), torch.bfloat16)
+        scale = D ** -0.5
+        o, lse = flash_fwd(q, k, v, mask=full)
+        o_r, _ = chunk_attn_ref(q, k, v, mask=full)
+        errs = {"flash_fwd": float((o.float() - o_r.float()).abs().max())}
+        dev = {"flash_fwd": graph_ms(lambda: flash_fwd(q, k, v, mask=full))}
+        plain = {"flash_fwd": cuda_ms(lambda: chunk_attn_ref(
+            q, k, v, mask=full), reps=5, warmup=1)}
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        backend = _sdpa_backend(qt, kt, vt, scale=scale)
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale))
+        lib = {"flash_fwd": _library(lambda: cuda_ms(sdpa, reps=10,
+                                                     warmup=2))}
+        tq, tk, st = 2 * B * Tq * H * D, 2 * B * Tk * H * D, 4 * B * Tq * H
+        pairs = B * H * Tq * Tk
+        cost = {"flash_fwd": (4.0 * D * pairs, 2 * tq + 2 * tk + st)}
+        if tag == "whisper_cross":
+            got = flash_bwd(q, k, v, o, lse, do, mask=full)
+            ref = chunk_attn_bwd_ref(q, k, v, o, lse, do, mask=full)
+            errs["flash_bwd_dq"] = float((got[0].float() - ref[0].float())
+                                         .abs().max())
+            errs["flash_bwd_dkv"] = max(float((a.float() - r.float()).abs()
+                                              .max())
+                                        for a, r in zip(got[1:], ref[1:]))
+            del got, ref
+            pl = _BwdPlan(q, k, v, o, lse, do, full, None, None, None, True)
+            dev["flash_bwd_dq"] = graph_ms(lambda: _launch_dq(pl, scale))
+            dev["flash_bwd_dkv"] = graph_ms(lambda: _launch_dkv(pl, scale))
+            for nm, only in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+                plain[nm] = cuda_ms(lambda: chunk_attn_bwd_ref(
+                    q, k, v, o, lse, do, mask=full, only=only), reps=3,
+                    warmup=1)
+            out_ = _library(sdpa)
+            lb = None
+            if out_ is not None:
+                dot = do.transpose(1, 2).contiguous()
+                lb = _library(lambda: cuda_ms(lambda: torch.autograd.grad(
+                    out_, (qt, kt, vt), dot, retain_graph=True), reps=10,
+                    warmup=2))
+            lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lb
+            # C reads q, o, do, k, v, lse, writes dq and delta; D reads q,
+            # do, k, v, lse, delta, writes dk and dv
+            cost["flash_bwd_dq"] = (6.0 * D * pairs, 4 * tq + 2 * tk + 2 * st)
+            cost["flash_bwd_dkv"] = (8.0 * D * pairs,
+                                     2 * tq + 4 * tk + 2 * st)
+            del pl, out_
+        del qt, kt, vt, q, k, v, o, lse, do, o_r
+        _free()
+        for nm, (fl, nbytes) in cost.items():
+            b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
+            ms = dev[nm]
+            say(f"  {nm} {tag} B{B} Tq{Tq} Tk{Tk} H{H} D{D} bf16 full: "
+                f"device {ms:.4f} ms ({fl / ms / 1e9:.1f} TFLOP/s, "
+                f"{b_ms / ms:.4f} of the bound), plain {plain[nm]:.4f} ms, "
+                f"sdpa {_fmt(lib[nm])} ms (backend {backend}"
+                f"{'' if nm == 'flash_fwd' else ', autograd backward'}), "
+                f"bound {b_ms:.4f} ms ({b_by}; {fl / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB), max|Δ| vs plain {errs[nm]:.3e}")
+            extra[nm].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain[nm],
+                              f"{tag}_bound_ms": b_ms,
+                              f"{tag}_bound_by": b_by,
+                              f"{tag}_library_ms": lib[nm],
+                              f"{tag}_library_backend": backend,
+                              f"{tag}_max_abs_err": errs[nm]})
+    return extra
+
+
+def _causal_cross(model):
+    """A planted fault: a causal mask on the encoder-decoder's
+    cross-attention."""
+    model.cross_mask = mk.causal()
+
+
+def _p24_step(cfg, params, batch, model):
+    """``model.loss`` and its gradients summed over the ranks."""
+    from repro_torch.train.step import sum_grads
+    loss, _ = model.loss(params, batch)
+    grads, _ = sum_grads(model, params, list(torch.autograd.grad(
+        loss, leaves(params))))
+    return float(loss.detach()), grads
+
+
+def _p24_one(cfg, tmp):
+    """(c)'s float32 one process: step 1's loss and gradients from the
+    seed-24 init (the bf16 init's float32 weights) on batch 0, kernel A,
+    C and D's float32 routes, saved at ``tmp/p1_float32.pt``."""
+    c32 = cfg.replace(dtype="float32")
+    model = TF.EncDecLM(c32, DEV)
+    params = trainable(model.init(seed=P24_SEED))
+    batch = SyntheticTokens(c32, ShapeSpec("chip24", P24_T, P24_B, "train"),
+                            device=DEV, seed=0).batch(0)
+    loss, grads = _p24_step(c32, params, batch, model)
+    torch.save({"loss": loss, "grads": [g.cpu() for g in grads],
+                "names": _leaf_names(params)},
+               os.path.join(tmp, "p1_float32.pt"))
+    del model, params, grads
+    _free()
+    return loss
+
+
+def _p24_rank(rank, tmp):
+    """One rank of (c), in bf16 then in float32: step 1's loss and summed
+    gradients against one process's in the same dtype (the whole clip's
+    frames on every rank), timed; in float32 also the gradients with the
+    encoder's leaves summed over the ranks once more."""
+    mesh = make_local_mesh(seq=P24_RANKS, device=DEV)
+    shape = ShapeSpec("chip24", P24_T, P24_B, "train")
+    out = {"rank": mesh.world.rank, "transport": mesh.transport}
+    for dt in ("bfloat16", "float32"):
+        cfg = get_config(P24_ARCH).replace(dtype=dt)
+        model = TF.EncDecLM(cfg, DEV, mesh=mesh, par=make_parallel_config(
+            mesh, shape, schedule="balanced"))
+        params = trainable(model.init(seed=P24_SEED))
+        b0 = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                             par=model.par).batch(0)
+        one = torch.load(os.path.join(tmp, f"p1_{dt}.pt"))
+        names, ref = one["names"], [g.to(DEV) for g in one["grads"]]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = _p24_step(cfg, params, b0, model)
+        torch.cuda.synchronize()
+        r = {"sec": time.perf_counter() - t0, "loss": loss,
+             "loss1": one["loss"], "grad_err": _worst_leaf(grads, ref, names),
+             "launches": {k: build.LAUNCHES[k] for k in BWD_KERNELS},
+             "frames": tuple(b0["frames"].shape),
+             "tokens": tuple(b0["tokens"].shape)}
+        if dt == "float32":
+            model.token_group.all_reduce_(
+                [g for g, n in zip(grads, names)
+                 if n.startswith("/enc_layers") or n == "/ln_enc"])
+            r["fault"] = _worst_leaf(grads, ref, names)
+        out[dt] = r
+        del model, params, grads, ref
+        _free()
+    out["comm_s"] = _process_comm_seconds()
+    return out
+
+
+def _p24_serve(cfg):
+    """(d): ``FixedSlotEngine`` on P24_REQS requests of 1,536 frames and
+    64-token prompts, P24_NEW greedy tokens: every step's logits held to
+    the plain forward; the control: a causal mask on the cross-attention,
+    teacher-forced."""
+    model = TF.EncDecLM(cfg, DEV)
+    params = model.init(seed=P24_SEED)
+    rng = np.random.default_rng(P24_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        P24_REQS, P24_PROMPT)).astype(np.int32)).to(DEV)
+    frames = torch.from_numpy(rng.standard_normal(
+        (P24_REQS, cfg.n_audio_frames, cfg.d_model)).astype(
+            np.float32)).to(DEV, model.dtype)
+    batch = {"tokens": toks, "frames": frames}
+    eng = FixedSlotEngine(model, params)
+    eng.generate(batch, 2)                      # warm-up
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _recorded(model) as logs:
+        gen, _ = eng.generate(batch, P24_NEW)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = build.LAUNCHES["flash_fwd"]
+    ref = model.forward(params, torch.cat([toks, gen], dim=1),
+                        frames=frames)[:, P24_PROMPT - 1:].float().cpu()
+    ref = ref.transpose(0, 1)                   # (steps, B, V)
+    err = _step_err(logs, ref)
+    _causal_cross(model)
+    with _recorded(model, forced=gen) as bad:
+        eng.generate(batch, P24_NEW)
+    del model.cross_mask
+    ctl = _step_err(bad, ref)
+    del model, params, eng
+    _free()
+    return dict(err=err, ctl=ctl, sec=sec, launches=launches)
+
+
+def whisper():
+    """Phase 24: whisper-tiny at full size (4 encoder + 4 decoder layers,
+    d_model 384, 6 heads × 64, vocab 51,865, 1,536 frames), bf16, nothing
+    cut.  (0) :func:`whisper_kernels`.  (a) 2 training steps at P = 1,
+    B 2, decoder T 4,096 beside 1,536 frames, remat_aware (the encoder
+    layers checkpointed whole, the decoder's self- and cross-attention
+    remat-aware), seed 24: finite losses; A 16, C and D 12 launches a
+    step.  (b) its gradients against the plain attention path
+    (:func:`_grads_vs_plain`; controls: a shifted backward, a causal
+    cross-attention).  (c) 4 ``cuda-ipc`` ranks of 1,024 decoder tokens
+    each, the encoder whole on every rank, step 1 held to one process's
+    in bf16 (against (b)'s kernel gradients) and in float32 (the float32
+    routes): the loss within 2^-8 in both; every summed leaf within 5% of
+    max |g| in float32, read in bf16 (the per-rank bf16 partial sums
+    round apart from one process's: PERF.md §6); the control, in
+    float32: the encoder's gradients summed twice.  (d)
+    :func:`_p24_serve`."""
+    cfg = get_config(P24_ARCH)
+    a = cfg.attn
+    out = {"launches": dict.fromkeys(BWD_KERNELS, 0)}
+    t0 = time.perf_counter()
+    out["rows"] = whisper_kernels(cfg)
+    say(f"  (0) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    say(f"  (a) {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {a.n_heads} heads × "
+        f"{a.head_dim}, vocab {cfg.vocab} ({cfg.param_count() / 1e6:.1f} M "
+        f"params), B {P24_B}, {cfg.n_audio_frames} frames, decoder T "
+        f"{P24_T}, bf16, remat_aware")
+    tc = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=P24_STEPS)
+    ds = SyntheticTokens(cfg, ShapeSpec("chip24", P24_T, P24_B, "train"),
+                         device=DEV, seed=0)
+    batches = [ds.batch(i) for i in range(P24_STEPS)]
+    runs, launches, peak, _ = _train_policy(cfg, "remat_aware", batches, tc,
+                                            seed=P24_SEED)
+    for i, (m, sec) in enumerate(runs):
+        check(m["skipped_nonfinite"] == 0 and np.isfinite(m["loss"]),
+              f"{cfg.name} step {i + 1}: loss {m['loss']}")
+        say(f"  (a) step {i + 1}: loss {m['loss']:.4f} gnorm "
+            f"{m['gnorm']:.3f} step {sec:.3f} s")
+    want = {"flash_fwd": 2 * (cfg.n_enc_layers + cfg.n_layers),
+            "flash_bwd_dq": cfg.n_enc_layers + 2 * cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_enc_layers + 2 * cfg.n_layers}
+    for k in BWD_KERNELS:
+        check(launches[k] == want[k] * P24_STEPS, f"{cfg.name}: {k} "
+              f"launched {launches[k]} times, want {want[k]} a step")
+        out["launches"][k] += launches[k]
+    tok_s = (P24_STEPS - 1) * P24_B * P24_T / sum(s for _, s in runs[1:])
+    say(f"  (a) {tok_s:.1f} decoder tokens/s over steps 2-{P24_STEPS}, peak "
+        f"memory {peak / 2**30:.2f} GiB; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in BWD_KERNELS)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    out.update(tok_s=tok_s, peak=peak, step_s=[s for _, s in runs],
+               losses=[m["loss"] for m, _ in runs])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        loss1, g1, names = _grads_vs_plain(
+            cfg, batches[0], P24_SEED, "(b) full size, step 1:",
+            faults=(("causal cross-attention", _causal_cross),))
+        torch.save({"loss": loss1, "grads": [g.cpu() for g in g1],
+                    "names": names}, os.path.join(tmp, "p1_bfloat16.pt"))
+        del g1, batches
+        _free()
+        say(f"  (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _p24_one(cfg, tmp)
+        res = spawn(_p24_rank, P24_RANKS, (tmp,), device=DEV,
+                    timeout=P24_TIMEOUT, threads=2)
+    res.sort(key=lambda r: r["rank"])
+    _say_comm(24, res)
+    for r in res:
+        for dt in ("bfloat16", "float32"):
+            x = r[dt]
+            d = abs(x["loss"] - x["loss1"]) / abs(x["loss1"])
+            say(f"  (c) rank {r['rank']} {dt}: tokens {x['tokens']}, frames "
+                f"{x['frames']}; step 1 loss {x['loss']:.6f} relative |Δ| "
+                f"{d:.3e} (limit {P15_TOL:.3e}); worst leaf "
+                f"{x['grad_err'][0]:.4f} ({x['grad_err'][1]}"
+                + (f"; limit {GRAD_REL_TOL}" if dt == "float32" else
+                   "; read") + f"); step {x['sec']:.3f} s; launches "
+                + ", ".join(f"{k} {x['launches'][k]}" for k in BWD_KERNELS)
+                + (f"; encoder summed twice: worst leaf "
+                   f"{x['fault'][0]:.4f} ({x['fault'][1]})"
+                   if "fault" in x else ""))
+            check(d <= P15_TOL, f"(c) rank {r['rank']} {dt}: loss vs P = 1")
+            check(x["frames"] == (P24_B, cfg.n_audio_frames, cfg.d_model),
+                  f"(c) rank {r['rank']}: frames {x['frames']}")
+            check(all(x["launches"][k] > 0 for k in BWD_KERNELS),
+                  f"(c) rank {r['rank']}: launches {x['launches']}")
+        x = r["float32"]
+        check(x["grad_err"][0] <= GRAD_REL_TOL,
+              f"(c) rank {r['rank']} float32: {x['grad_err']}")
+        check(x["fault"][0] > GRAD_REL_TOL,
+              f"(c) rank {r['rank']}: the encoder summed twice passes")
+        for k in BWD_KERNELS:
+            out["launches"][k] += r["bfloat16"]["launches"][k]
+    say(f"  (c) {time.perf_counter() - t0:.1f} s, spawn included")
+    t0 = time.perf_counter()
+    sv = _p24_serve(cfg)
+    say(f"  (d) FixedSlotEngine, {P24_REQS} requests of "
+        f"{cfg.n_audio_frames} frames and {P24_PROMPT}-token prompts, "
+        f"{P24_NEW} greedy tokens in {sv['sec']:.3f} s; logits "
+        f"{sv['err']:.4e} of max |logit| off the plain forward (limit "
+        f"{LOGIT_REL_TOL}); control, a causal cross-attention "
+        f"{sv['ctl']:.4e} "
+        f"({'rejected' if sv['ctl'] > LOGIT_REL_TOL else 'NOT rejected'}); "
+        f"flash_fwd launches {sv['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(sv["err"] <= LOGIT_REL_TOL, f"(d) logits {sv['err']}")
+    check(sv["ctl"] > LOGIT_REL_TOL, "(d) the causal cross-attention passes")
+    check(sv["launches"] >= cfg.n_layers * P24_NEW, "(d) the decode's "
+          f"cross-attention launched A {sv['launches']} times")
+    out["launches"]["flash_fwd"] += sv["launches"]
+    out["serve"], out["ranks"] = sv, res
+    return out
 
 
 # ----------------------------------------------------------------- phase 5
@@ -8586,6 +9488,26 @@ def main():
     sr = ssm_ranks()
     _free()
     took("21 (c)", t0)
+    say(f"== phase 22: zamba2-2.7b at full width, {P21C_LAYERS} of 54 "
+        "layers, on a 2D (seq x head) = (2, 2) mesh of 4 ranks on the one "
+        "card: training, the prefill and the recurrent decode")
+    t0 = time.perf_counter()
+    s2d = ssm2d()
+    _free()
+    took(22, t0)
+    say("== phase 23: internvl2-2b (VLM) at full size: training, gradients "
+        "against the plain path, FixedSlotEngine, a zigzag step on 4 ranks")
+    t0 = time.perf_counter()
+    vl = vlm()
+    _free()
+    took(23, t0)
+    say("== phase 24: whisper-tiny (encoder-decoder) at full size: kernels "
+        "A, C and D at its cross shape, training at 1 and 4 ranks, "
+        "gradients against the plain path, FixedSlotEngine")
+    t0 = time.perf_counter()
+    wh = whisper()
+    _free()
+    took(24, t0)
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
@@ -8601,6 +9523,14 @@ def main():
             row["launches"] += e2["launches"]["flash_fwd_pair"]
         row["launches"] += g2["launches"].get(row["name"], 0)
         row["launches"] += sr["launches"].get(row["name"], 0)
+        row["launches"] += s2d["launches"].get(row["name"], 0)
+        # the one-D rows also count phases 23 and 24, and keep whisper's
+        # cross and decode shapes' times (``whisper_*`` keys)
+        for ph in (vl, wh):
+            row["launches"] += ph["launches"].get(row["name"], 0)
+        row.update(wh["rows"].get(row["name"], {}))
+        if row["name"] in wh["launches"]:
+            row["whisper_launches"] = wh["launches"][row["name"]]
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
         f"{es['launches']}, its latent-ring prefill (all ranks) "
@@ -8610,7 +9540,11 @@ def main():
         f"paged engine on the 2D mesh (all ranks, both cases) "
         f"{ {k: n for k, n in g2['launches'].items() if n} }, zamba2 "
         f"training and across 4 ranks (all ranks) "
-        f"{sm['launches']} / {sr['launches']}")
+        f"{sm['launches']} / {sr['launches']}, zamba2 on the 2D mesh (all "
+        f"ranks: a train step, the prefill) {s2d['launches']}, internvl2 "
+        f"(3 steps, the engine's first request, a zigzag step on all "
+        f"ranks) {vl['launches']}, whisper (2 steps, a step on all ranks, "
+        f"the engine's decode) {wh['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

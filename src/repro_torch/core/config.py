@@ -5,9 +5,11 @@ fields are the reference's fields for a dense / GQA decoder (with the Qwen
 family's ``qkv_bias`` and ``qk_norm``) and for DeepSeek's multi-head latent
 attention (MLA) and mixture-of-experts FFN (:class:`MoEConfig`), and for
 the Mamba2 SSM and Zamba2 hybrid families (:class:`SSMConfig`,
-``hybrid_period``), so a reference config and its port describe the same
-model; the encoder, image and MTP fields arrive with the slices that run
-those models.
+``hybrid_period``), the InternVL2 vision-language model's stub image
+tokens (``n_image_tokens``) and the Whisper encoder–decoder's encoder
+layers and frame count (``n_enc_layers``, ``n_audio_frames``), so a
+reference config and its port describe the same model; the MTP field
+arrives with the slice that runs it.
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                   # dense | moe | ssm | hybrid
+    arch_type: str                   # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     d_ff: int
@@ -83,6 +85,11 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (Zamba2): a shared attention block every `hybrid_period` layers
     hybrid_period: int = 0
+    # enc-dec (Whisper): encoder layers & fixed frame count (stub frontend)
+    n_enc_layers: int = 0
+    n_audio_frames: int = 0
+    # VLM: number of stub patch-embedding tokens prepended to the text
+    n_image_tokens: int = 0
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     citation: str = ""
@@ -131,9 +138,10 @@ def _ssm_params(c: ModelConfig) -> int:
 
 
 def _param_count(c: ModelConfig, active_only: bool = False) -> int:
-    """The reference's ``_param_count`` for dense, MoE, SSM and hybrid
+    """The reference's ``_param_count`` for dense, MoE, SSM, hybrid and VLM
     decoders (a hybrid's one shared block: attention and SwiGLU at
-    2·d_model, and its down projection)."""
+    2·d_model, and its down projection) and the encoder–decoder (its
+    encoder layers, and a cross-attention block a decoder layer)."""
     d = c.d_model
     n = c.vocab * d * (1 if c.tie_embeddings else 2)
     if c.arch_type in ("ssm", "hybrid"):
@@ -145,7 +153,8 @@ def _param_count(c: ModelConfig, active_only: bool = False) -> int:
         return n + d2 * 3 * hd + hd * d2 + 3 * d2 * c.d_ff + d2 * d
     attn = _attn_params(c)
     if c.moe is None:
-        return n + c.n_layers * (attn + 3 * d * c.d_ff)
+        n += (c.n_layers + c.n_enc_layers) * (attn + 3 * d * c.d_ff)
+        return n + (c.n_layers * attn if c.n_enc_layers else 0)
     m = c.moe
     expert = 3 * d * m.d_expert
     routed = (m.top_k if active_only else m.n_routed) * expert
@@ -236,7 +245,8 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     of 32, f32, MLA ranks 32 / rope 16 / v 32, 4 routed experts (top 2,
     capacity 4.0); an SSM of d_model 64, d_state 16, head dim 8, chunk 16;
     a hybrid of d_model 64, d_ff 128, 4 heads of 32 (4·32 = 2·64) and a
-    shared block every layer — the reference's ``smoke_config``."""
+    shared block every layer; 2 encoder layers and 64 frames; 16 image
+    tokens — the reference's ``smoke_config``."""
     kw = dict(n_layers=2, vocab=512, dtype="float32")
     if cfg.attn is not None:
         a = cfg.attn
@@ -266,4 +276,9 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             cfg.moe, n_routed=4, n_shared=min(cfg.moe.n_shared, 1),
             top_k=2, d_expert=64, d_dense_ff=128, n_dense_layers=1,
             capacity_factor=4.0)
+    if cfg.n_enc_layers:
+        kw["n_enc_layers"] = 2
+        kw["n_audio_frames"] = 64
+    if cfg.n_image_tokens:
+        kw["n_image_tokens"] = 16
     return dataclasses.replace(cfg, **kw)

@@ -21,7 +21,10 @@ attention forward.  Memory per layer: the layer input ``x`` plus
 layer's ``(h, aux)``, its load-balance loss — and the layer then returns
 that tuple; the backward takes the cotangent of each output and the
 vector-Jacobian product of all of them at once (the recomputed ``post``
-routes the MoE again, on the same inputs).
+routes the MoE again, on the same inputs).  ``x = (h, *aux)``: ``h`` gets
+a gradient, and so does any tensor of ``aux`` that requires one (an
+encoder–decoder's cross-attention layer takes the encoder output there);
+the rest of ``aux`` (rope tables, segment ids) is passed through.
 
 Policies (``ParallelConfig.remat``): ``remat_aware`` (the combinator),
 ``hf`` (``torch.utils.checkpoint`` around the plain layer, which recomputes
@@ -45,9 +48,10 @@ def _add(a, b):
 
 class _RematAware(torch.autograd.Function):
     """apply(stages, rebuild, n_params, h, *params, *aux): ``h`` is the
-    hidden state (the only differentiable part of ``x``), ``aux`` the rest
-    of ``x`` (rope tables, segment ids), ``params`` the layer's parameters
-    as flat tensors.  Returns ``post``'s output: a tensor, or a tuple."""
+    hidden state, ``aux`` the rest of ``x`` (rope tables, segment ids; an
+    encoder output, which takes a gradient when it requires one),
+    ``params`` the layer's parameters as flat tensors.  Returns ``post``'s
+    output: a tensor, or a tuple."""
 
     @staticmethod
     def forward(ctx, stages, rebuild, n_params, h, *flat):
@@ -65,33 +69,43 @@ class _RematAware(torch.autograd.Function):
     def backward(ctx, *dys):
         pre, _, attn_bwd, post = ctx.stages
         h, o, lse, *leaves = ctx.saved_tensors
+        first = 4 + ctx.n_params                 # aux's first input index
+        diff = [i for i in range(len(ctx.aux))
+                if ctx.needs_input_grad[first + i]]
         with torch.enable_grad():
             hd = h.detach().requires_grad_(True)
             ps = [p.detach().requires_grad_(p.requires_grad) for p in leaves]
-            params, x = ctx.rebuild(ps), (hd, *ctx.aux)
+            aux = list(ctx.aux)
+            for i in diff:
+                aux[i] = aux[i].detach().requires_grad_(True)
+            params, x = ctx.rebuild(ps), (hd, *aux)
             od = o.detach().requires_grad_(True)
             y = post(params, x, od)
             ys = y if isinstance(y, tuple) else (y,)
             # an output that depends on no input (a dense layer's aux of 0)
             # has no vector-Jacobian product to take
             outs = [(t, d) for t, d in zip(ys, dys) if t.requires_grad]
-            want = [hd, od] + [p for p in ps if p.requires_grad]
+            extra = [aux[i] for i in diff] + [p for p in ps
+                                              if p.requires_grad]
             g_post = torch.autograd.grad([t for t, _ in outs],
-                                         want, [d for _, d in outs],
+                                         [hd, od] + extra,
+                                         [d for _, d in outs],
                                          allow_unused=True)
             qkv = pre(params, x)
         dh, do = g_post[0], g_post[1]
         with torch.no_grad():
             dq, dk, dv = attn_bwd(tuple(t.detach() if torch.is_tensor(t)
                                         else t for t in qkv), o, lse, do)
-        want_pre = [hd] + [p for p in ps if p.requires_grad]
-        g_pre = torch.autograd.grad(qkv[:3], want_pre, (dq, dk, dv),
+        g_pre = torch.autograd.grad(qkv[:3], [hd] + extra, (dq, dk, dv),
                                     allow_unused=True)
         dh = _add(dh, g_pre[0])
         it_post, it_pre = iter(g_post[2:]), iter(g_pre[1:])
+        daux = [None] * len(ctx.aux)
+        for i in diff:
+            daux[i] = _add(next(it_post), next(it_pre))
         dparams = [_add(next(it_post), next(it_pre)) if p.requires_grad
                    else None for p in ps]
-        return (None, None, None, dh, *dparams) + (None,) * len(ctx.aux)
+        return (None, None, None, dh, *dparams, *daux)
 
 
 def remat_aware(pre: Callable, attn_fwd: Callable, attn_bwd: Callable,
@@ -104,7 +118,8 @@ def remat_aware(pre: Callable, attn_fwd: Callable, attn_bwd: Callable,
       attn_bwd: (qkv, o, lse, do) -> (dq, dk, dv), from the saved stats
       post:     (params, x, o) -> y, a tensor or a tuple of tensors
 
-    ``x = (h, *aux)``: only ``h`` gets a gradient.
+    ``x = (h, *aux)``: ``h`` gets a gradient, and so does each tensor of
+    ``aux`` that requires one.
     """
     stages = (pre, attn_fwd, attn_bwd, post)
 

@@ -1,7 +1,15 @@
 """Synthetic training data (port of the reference ``data/pipeline.py``:
-``SyntheticTokens`` for dense, MoE, SSM and hybrid decoders) and the empty
-decode cache of an SSM or hybrid model (:func:`empty_decode_cache`, the
-reference's ``cache_specs`` arms for them).
+``SyntheticTokens`` for dense, VLM, MoE, SSM and hybrid decoders and the
+encoder–decoder), the empty decode cache of an SSM or hybrid model
+(:func:`empty_decode_cache`) and the encoder–decoder's decode-cache shapes
+(:func:`audio_cache_shapes`): the reference's ``cache_specs`` arms for
+them.
+
+A VLM's batch of ``seq_len`` T positions is ``n_image_tokens`` image
+embeddings — standard normals from ``np.random.default_rng(step)``, in the
+model's dtype — then T − n text tokens; an encoder–decoder's adds the
+clip's ``frames`` (B, n_audio_frames, d_model), drawn the same way, to T
+tokens.
 
 The tokens are the reference's, bit for bit: the same numpy generator, seed
 and step give the same hash-mixed Markov stream, and with ``shape.docs > 1``
@@ -14,7 +22,11 @@ global batch: rows by its ``data`` coordinate (when the batch shards over
 ``data``), columns by the global positions it holds (contiguous, or the
 zigzag layout under the zigzag schedule) — on a 2D mesh its slice of the
 (seq, head) pair, seq major.  Labels are shifted before
-sharding, so a shard's last label is the next shard's first token.
+sharding, so a shard's last label is the next shard's first token.  A
+VLM's columns are positions of the concatenated (image, text) sequence:
+a rank gets the image rows and the text tokens and labels its columns
+hold (the image rows a prefix of them).  The frames are not sharded over
+the sequence: every rank gets the whole clip of its rows.
 """
 from __future__ import annotations
 
@@ -68,19 +80,36 @@ class SyntheticTokens:
             labels[:, b0:b1 - 1] = stream[:, 1:]     # last token: no target
         return tokens, labels, seg
 
+    def _embeds(self, step: int, B: int, n: int) -> torch.Tensor:
+        """(B, n, d_model) standard normals from ``default_rng(step)`` in
+        the model's dtype: the stub frontend's image or frame rows."""
+        from repro_torch.models.transformer import DTYPES
+        x = np.random.default_rng(step).standard_normal(
+            (B, n, self.cfg.d_model)).astype(np.float32)
+        return torch.from_numpy(x).to(DTYPES[self.cfg.dtype])
+
     def batch(self, step: int) -> dict:
-        if self.cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-            raise ValueError(f"the port's pipeline feeds dense, MoE, SSM "
-                             f"and hybrid decoders, not "
-                             f"{self.cfg.arch_type!r}")
+        cfg = self.cfg
         B, T = self.shape.global_batch, self.shape.seq_len
 
         rows, cols = self._shard(B, T)
 
-        def t(x):
+        def t(x, cols=cols):
             return torch.from_numpy(np.ascontiguousarray(
                 x[rows][:, cols])).to(self.device)
 
+        if cfg.arch_type == "vlm":
+            n = cfg.n_image_tokens
+            x = self._tokens(step, B, T - n)
+            img = self._embeds(step, B, n)[rows]
+            return {"tokens": t(x[:, :-1], cols[cols >= n] - n),
+                    "labels": t(x[:, 1:], cols[cols >= n] - n),
+                    "image_embeds": img[:, cols[cols < n]].to(self.device)}
+        if cfg.arch_type == "audio":
+            x = self._tokens(step, B, T)
+            frames = self._embeds(step, B, cfg.n_audio_frames)[rows]
+            return {"tokens": t(x[:, :-1]), "labels": t(x[:, 1:]),
+                    "frames": frames.to(self.device)}
         if self.shape.kind == "train" and self.shape.docs > 1:
             tokens, labels, seg = self._packed(step, B, T)
             return {"tokens": t(tokens), "labels": t(labels),
@@ -102,6 +131,27 @@ class SyntheticTokens:
         cols = shard_positions(T, g.size, g.rank,
                                zigzag_layout(self.cfg, par, g.size))
         return rows, cols
+
+
+def audio_cache_shapes(cfg: ModelConfig, batch: int, seq_len: int,
+                       shards: int = 1) -> dict:
+    """The encoder–decoder's decode cache as ``{key: (shape, dtype)}``, the
+    reference's ``cache_specs`` arm on this rank: ``k`` / ``v`` (L, B,
+    seq_len / shards, H_kv, head_dim), its shard of a cache sharded over
+    the sequence axes, and the cross keys and values ``ek`` / ``ev`` (L,
+    B, n_audio_frames, H, head_dim), whole on every rank — what
+    ``EncDecLM.prefill`` then ``pad_cache`` hold."""
+    from repro_torch.models.transformer import DTYPES
+    if cfg.arch_type != "audio":
+        raise ValueError(f"{cfg.arch_type!r} is not an encoder-decoder")
+    if seq_len % shards:
+        raise ValueError(f"{seq_len} cache slots do not shard over "
+                         f"{shards} ranks")
+    a, L, dt = cfg.attn, cfg.n_layers, DTYPES[cfg.dtype]
+    kv = (L, batch, seq_len // shards, a.n_kv_heads, a.head_dim)
+    cross = (L, batch, cfg.n_audio_frames, a.n_heads, a.head_dim)
+    return {"k": (kv, dt), "v": (kv, dt), "ek": (cross, dt),
+            "ev": (cross, dt)}
 
 
 def empty_decode_cache(cfg: ModelConfig, batch: int, seq_len: int = 0,

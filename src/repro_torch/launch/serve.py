@@ -33,6 +33,14 @@ fixed-slot engine over a dense cache that can shard along the sequence.
         --arch deepseek-v2-lite-16b --smoke --device cpu \
         [--nproc 4 --seq-shards 4]
 
+    # the vision-language model (256 image rows before each prompt) and
+    # the encoder-decoder (a clip of 1,536 frames beside it) serve through
+    # the fixed-slot engine alone (the paged engine refuses them)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
+        --smoke --device cpu [--nproc 4 --seq-shards 4]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --smoke --device cpu [--nproc 4 --seq-shards 4]
+
     # and through the paged engine across P ranks: the latent pool
     # block-sharded, each chunk's MoE rows split over the ranks, decode
     # summing the ranks' experts
@@ -53,8 +61,10 @@ tokens, and a pool sized to the workload rounds up to a multiple of
 heads.  ``--spec-depth K`` serves speculatively, K draft tokens verified a
 step: ``--self-spec`` drafts by n-gram prompt lookup, otherwise a draft
 model (``--draft-config``, default the pairing of ``configs/spec_pairs.py``)
-with weights from seed ``DRAFT_SEED``.  Runs on ``cuda`` unless ``--device
-cpu`` is given.
+with weights from seed ``DRAFT_SEED``.  A VLM's image rows and an
+encoder–decoder's frames are standard normals from seed 0 (``--prompt-len``
+counts the text tokens).  Runs on ``cuda`` unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 
@@ -72,7 +82,7 @@ from repro_torch.core.config import ShapeSpec, get_config, smoke_config
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, build_model
 from repro_torch.parallel.comm import init_world
 from repro_torch.parallel.sharding import make_parallel_config
 from repro_torch.serve import prng
@@ -141,11 +151,19 @@ def run(args) -> int:
     mesh = named_mesh(args.mesh, args.seq_shards, args.device)
     shape = ShapeSpec("cli", args.prompt_len, args.batch, "decode")
     par = make_parallel_config(mesh, shape)
-    model = DecoderLM(cfg, device=args.device, par=par, mesh=mesh)
+    model = build_model(cfg, device=args.device, par=par, mesh=mesh)
     lead = mesh.world.rank == 0
     params = model.init(SEED)
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    batch = {"tokens": prompts}
+    extra = {"vlm": ("image_embeds", cfg.n_image_tokens),
+             "audio": ("frames", cfg.n_audio_frames)}.get(cfg.arch_type)
+    if extra is not None:                   # the stub frontend's rows
+        batch[extra[0]] = torch.from_numpy(rng.standard_normal(
+            (args.batch, extra[1], cfg.d_model)).astype(np.float32)).to(
+            device=args.device, dtype=model.dtype)
 
     def sync():
         if model.device.type == "cuda":
@@ -158,9 +176,9 @@ def run(args) -> int:
             print(f"kernels built in {time.perf_counter() - t0:.1f}s")
     sync()
     t0 = time.perf_counter()
-    if args.fixed_slot:
+    if args.fixed_slot or extra is not None:
         toks, _ = FixedSlotEngine(model, params).generate(
-            {"tokens": prompts}, args.gen, rng=prng.prng_key(SEED),
+            batch, args.gen, rng=prng.prng_key(SEED),
             temperature=args.temperature)
         toks = toks.cpu().numpy()
         how = (f"fixed-slot mesh={dict(zip(mesh.axis_names, mesh.shape))} "

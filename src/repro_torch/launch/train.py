@@ -4,7 +4,11 @@ process or across ranks — a dense model, an MLA + MoE one
 ``aux`` to ``ce``; both are printed), its routed experts sharded over the
 sequence ranks, or an SSM or hybrid one (``--arch mamba2-2.7b`` /
 ``zamba2-2.7b``: each rank scans its contiguous shard and the ranks relay
-the recurrent state; zigzag falls back to balanced).
+the recurrent state; zigzag falls back to balanced), the vision-language
+``internvl2-2b`` (``--seq`` counts its 256 image positions, 16 at
+``--smoke``) or the encoder–decoder ``whisper-tiny`` (``--seq`` decoder
+tokens beside each clip's 1,536 frames, 64 at ``--smoke``; the encoder
+runs whole on every rank).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-gqa \
         --smoke --steps 50 --seq 256 --batch 4 [--remat remat_aware] \
@@ -26,6 +30,14 @@ the recurrent state; zigzag falls back to balanced).
 
     # Mamba2 / Zamba2 (the SSD state relayed across the ranks)
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --smoke --device cpu --steps 4 --seq 64 --batch 2 \
+        [--nproc 4 --seq-shards 4]
+
+    # InternVL2-2B (image rows before the text) / Whisper-tiny
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \
+        --smoke --device cpu --steps 4 --seq 64 --batch 2 \
+        [--nproc 4 --seq-shards 4 --schedule zigzag]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
         --smoke --device cpu --steps 4 --seq 64 --batch 2 \
         [--nproc 4 --seq-shards 4]
 
@@ -59,7 +71,7 @@ from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import MESHES, named_mesh
 from repro_torch.launch.world import spawn
-from repro_torch.models.transformer import (DecoderLM, to_reference_params,
+from repro_torch.models.transformer import (build_model, to_reference_params,
                                             trainable)
 from repro_torch.optim import adamw
 from repro_torch.parallel.comm import init_world
@@ -118,7 +130,7 @@ def run(args) -> int:
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     par = make_parallel_config(mesh, shape, schedule=args.schedule,
                                remat=args.remat)
-    model = DecoderLM(cfg, device=args.device, par=par, mesh=mesh)
+    model = build_model(cfg, device=args.device, par=par, mesh=mesh)
     lead = mesh.world.rank == 0
     if lead:
         axes = dict(zip(mesh.axis_names, mesh.shape))

@@ -56,7 +56,28 @@ contiguous shard and the ranks relay the recurrent state and the conv halo
 a dense layer 2·d_model wide on concat(h, the embedding output), after
 every ``hybrid_period`` mixers (:meth:`DecoderLM._ssm_trunk`).  They train
 (``loss``), ``prefill`` without a cache, and ``decode`` recurrently from
-``data.pipeline.empty_decode_cache``; a 2D mesh raises.
+``data.pipeline.empty_decode_cache``.  On a 2D (seq, head) mesh the relay
+and the halo run over all r·u ranks of the pair in sequence order — each
+rank scans its own T/(r·u) rows, so no rank repeats another's and every
+SSM gradient is one rank's share, summed once by the train step — while
+the shared block's attention runs the 2D plan (the reference relays over
+``seq`` alone, each head rank repeating its seq shard's T/r rows: the same
+function of the sequence).
+
+The vision-language family (``arch_type="vlm"``, internvl2-2b) is a dense
+decoder whose sequence is ``n_image_tokens`` stub patch embeddings
+(``batch["image_embeds"]``) followed by the text: rope, the shards and
+zigzag's permutation run over the whole concatenated sequence, and the
+image positions carry no loss.  A rank's image rows are always a prefix
+of its columns (the image is the sequence's prefix, and a zigzag rank's
+first chunk comes before its second), so :meth:`DecoderLM._embed` builds
+them by one concatenation, as the reference does.
+
+:class:`EncDecLM` is the Whisper-style encoder–decoder (``arch_type=
+"audio"``, whisper-tiny): a non-causal encoder over ``batch["frames"]``,
+run whole on every rank, and a decoder whose self-attention runs the
+distributed plan and whose cross-attention attends the encoder output
+locally.
 
 Training runs each layer under the checkpoint policy of
 ``ParallelConfig.remat`` (``remat_aware`` by default, ``core/remat.py``):
@@ -105,9 +126,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mask as mk
-from repro_torch.core.attention import chunk_attn, paged_decode_attn
+from repro_torch.core.attention import (chunk_attn, chunk_attn_bwd,
+                                        paged_decode_attn)
 from repro_torch.core.config import ModelConfig, ParallelConfig
 from repro_torch.core.dist_attention import (FAULT_37, DistAttnSpec,
                                              Mesh2DSpec, dist_attn_bwd,
@@ -118,6 +141,7 @@ from repro_torch.core.dist_attention import (FAULT_37, DistAttnSpec,
                                              shard_positions)
 from repro_torch.core.remat import apply_policy, remat_aware
 from repro_torch.core.tree import leaves, tree_map
+from repro_torch.kernels.flash_attention import FlashAttnFn
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (local_experts, moe_apply,
                                     moe_decode_apply)
@@ -142,9 +166,10 @@ def decode_mask(window) -> mk.MaskSpec:
 
 def _zigzag_ok(cfg: ModelConfig) -> bool:
     """The zigzag relayout is valid only for purely positionwise decoders
-    (dense and MoE) without windowed masks (a window assumes contiguous
-    shard positions)."""
-    return cfg.arch_type in ("dense", "moe") and not cfg.attn.window
+    (dense, VLM and MoE) without windowed masks (a window assumes
+    contiguous shard positions)."""
+    return (cfg.arch_type in ("dense", "vlm", "moe")
+            and not cfg.attn.window)
 
 
 def zigzag_layout(cfg: ModelConfig, par: ParallelConfig, P: int) -> bool:
@@ -313,8 +338,8 @@ def trainable(params) -> dict:
 
 
 class DecoderLM:
-    """Llama-family decoder (RMSNorm, rope, SwiGLU): dense / GQA, or MLA +
-    MoE (module docstring).
+    """Llama-family decoder (RMSNorm, rope, SwiGLU): dense / GQA, VLM, MLA
+    + MoE, SSM or hybrid (module docstring).
 
     ``par`` sets the training layout (``par.remat``, ``par.schedule``);
     ``impl`` names the attention backend (``cuda``, the default, or
@@ -323,13 +348,17 @@ class DecoderLM:
     ``latent_ring`` makes an MLA model's whole-prompt prefill under the
     zigzag schedule ship latent rows on the ring (module docstring)."""
 
+    ARCHS = ("dense", "vlm", "moe", "ssm", "hybrid")
+
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  par: Optional[ParallelConfig] = None, impl=None,
                  mesh=None, latent_ring: bool = False):
-        if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or \
+        if cfg.arch_type not in self.ARCHS or \
                 (cfg.attn is None) != (cfg.arch_type == "ssm"):
-            raise ValueError(f"the port runs dense, MoE, SSM and hybrid "
-                             f"decoders (got {cfg.arch_type!r})")
+            raise ValueError(f"{type(self).__name__} runs "
+                             f"{' / '.join(self.ARCHS)} models (got "
+                             f"{cfg.arch_type!r}; build_model picks the "
+                             f"class)")
         self.cfg = cfg
         a = cfg.attn
         # rope width, and the softmax scale (None: 1/sqrt(head dim))
@@ -353,12 +382,6 @@ class DecoderLM:
         two_d = head is not None and head.size > 1
         self.attn_group = (mesh.comms[ax], head) if two_d \
             else self.seq_group
-        if two_d and cfg.ssm is not None:
-            raise ValueError(
-                f"{cfg.arch_type} on a 2D (seq, head) mesh: the SSD state "
-                "relay and the conv halo run over the sequence axis alone; "
-                "ROADMAP §1 item 11 queues SSM and hybrid models on a 2D "
-                "mesh")
         # a hybrid's shared attention block: a dense layer on concat(h,
         # embedding), 2·d_model wide; zigzag falls back to balanced for the
         # SSM families (their tokens stay contiguous), the shared block's
@@ -520,8 +543,40 @@ class DecoderLM:
 
     # ------------------------------------------------------------ train
     def _embed(self, p, batch):
-        return L.embed(p["embed"], batch["tokens"].to(self.device),
-                       self.dtype)
+        """This rank's rows of the embedded sequence: a VLM's image rows
+        (``batch["image_embeds"]``, the prefix of its columns) then its
+        token rows."""
+        h = L.embed(p["embed"], batch["tokens"].to(self.device), self.dtype)
+        if self.cfg.arch_type != "vlm":
+            return h
+        img = batch["image_embeds"].to(device=self.device, dtype=self.dtype)
+        return torch.cat([img, h], dim=1)
+
+    def _prompt_embed(self, p, tokens, pos_t, img=None):
+        """The embedded rows at global positions ``pos_t`` of a prompt
+        (``tokens`` (B, Tt), after the image rows ``img`` (B, n, d) of a
+        VLM): the image rows are a prefix of any rank's positions
+        (module docstring)."""
+        if img is None:
+            return L.embed(p["embed"], tokens[:, pos_t], self.dtype)
+        n = img.shape[1]
+        k = int((pos_t < n).sum())
+        return torch.cat([img[:, pos_t[:k]].to(self.dtype),
+                          L.embed(p["embed"], tokens[:, pos_t[k:] - n],
+                                  self.dtype)], dim=1)
+
+    def _image_input(self, image_embeds, n_tokens: int):
+        """A VLM prompt's image embeddings (this data replica's rows) and
+        the prompt's whole length; None and ``n_tokens`` for a text-only
+        model."""
+        if (image_embeds is None) != (self.cfg.arch_type != "vlm"):
+            raise ValueError(f"image embeddings are the input of a vlm "
+                             f"model, and only of one "
+                             f"({self.cfg.arch_type!r})")
+        if image_embeds is None:
+            return None, n_tokens
+        img = self._rows(torch.as_tensor(image_embeds, device=self.device))
+        return img, img.shape[1] + n_tokens
 
     def _backbone(self, p, h, cos, sin, seg=None):
         """The layers under the checkpoint policy; ``seg`` = packed-batch
@@ -598,7 +653,10 @@ class DecoderLM:
         """Mean next-token cross-entropy of ``batch`` = {tokens, labels
         (B, Tl); optional segment_ids (B, Tl)}, this rank's shard, plus an
         MoE model's load-balance loss: ``(ce + aux, {"ce": ce, "aux":
-        aux})`` (a dense model's aux is 0 and its loss is ce).  On a mesh
+        aux})`` (a dense model's aux is 0 and its loss is ce).  A VLM's
+        batch adds this rank's ``image_embeds`` (B, n, d), the prefix of
+        its columns, whose positions carry the label −100; its tokens and
+        labels are then its text columns.  On a mesh
         the value is the global token mean, and its gradient is this rank's
         share of it (the train step sums gradients over
         :func:`token_group`); an MoE model's aux is the global value on
@@ -617,21 +675,33 @@ class DecoderLM:
                     f"dense/moe decoders, not {cfg.arch_type!r}")
             seg = seg.to(self.device)
         h, aux = self._backbone(p, h, cos, sin, seg)
-        logits = self._head(p, h)
-        labels = batch["labels"].to(self.device)
-        if self.token_group is None or self.token_group.size == 1:
-            ce = L.cross_entropy(logits, labels)
-        else:
-            s, n = L.cross_entropy_sum(logits, labels)
-            tot = torch.stack([s.detach(), n])
-            self.token_group.all_reduce_([tot])
-            total = tot[1].clamp(min=1.0)
-            mine = s / total             # its gradient: this rank's share
-            ce = tot[0] / total + (mine - mine.detach())
+        ce = self._ce(self._head(p, h), self._labels(batch))
         if aux is not None:
             return ce + aux, {"ce": ce, "aux": aux}
         return ce, {"ce": ce, "aux": torch.zeros(
             (), dtype=torch.float32, device=h.device)}
+
+    def _labels(self, batch):
+        """This rank's labels: a VLM's image positions (the prefix of its
+        columns) carry −100, no loss."""
+        labels = batch["labels"].to(self.device)
+        if self.cfg.arch_type != "vlm":
+            return labels
+        return torch.cat([labels.new_full(batch["image_embeds"].shape[:2],
+                                          -100), labels], dim=1)
+
+    def _ce(self, logits, labels):
+        """The mean cross-entropy over the tokens of every rank in
+        :attr:`token_group` (labels −100 ignored); its gradient is this
+        rank's share."""
+        if self.token_group is None or self.token_group.size == 1:
+            return L.cross_entropy(logits, labels)
+        s, n = L.cross_entropy_sum(logits, labels)
+        tot = torch.stack([s.detach(), n])
+        self.token_group.all_reduce_([tot])
+        total = tot[1].clamp(min=1.0)
+        mine = s / total                 # its gradient: this rank's share
+        return tot[0] / total + (mine - mine.detach())
 
     def _layer(self, lp, h, attend, cos, sin, decode: bool = False,
                latents=None, replicated: bool = False):
@@ -728,17 +798,22 @@ class DecoderLM:
 
     # ------------------------------------------------------ plain forward
     @torch.no_grad()
-    def forward(self, p, tokens, *, last_only: bool = False):
+    def forward(self, p, tokens, *, last_only: bool = False,
+                image_embeds=None):
         """Whole-context forward, no cache, through the plain attention
         function (backend ``ref``) on any device: logits (B, T, V), or
-        (B, 1, V) for the last position.  The oracle the paged path is held
+        (B, 1, V) for the last position (a VLM's T counts its
+        ``image_embeds`` rows first).  The oracle the paged path is held
         to.  MLA runs materialised; an MoE layer dispatches the whole
         context's rows at once, so its capacity drops differ from a chunked
         prefill's."""
         a = self.cfg.attn
         tokens = torch.as_tensor(tokens, device=self.device)
-        T = tokens.shape[1]
         h = L.embed(p["embed"], tokens, self.dtype)
+        if image_embeds is not None:
+            h = torch.cat([torch.as_tensor(image_embeds, device=self.device)
+                           .to(self.dtype), h], dim=1)
+        T = h.shape[1]
         cos, sin = L.rope_tables(torch.arange(T, device=self.device),
                                  self.rope_dim, a.rope_theta)
         spec = decode_mask(a.window)
@@ -826,9 +901,11 @@ class DecoderLM:
 
     # ---------------------------------------------- whole-prompt prefill
     @torch.no_grad()
-    def prefill(self, p, tokens):
+    def prefill(self, p, tokens, image_embeds=None):
         """Whole-prompt forward of ``tokens`` (B, T) — the same global
-        prompt on every rank — on this rank's shard of the sequence
+        prompt on every rank; a VLM's prompt is ``image_embeds`` (B, n,
+        d) then the tokens, T = n + their count — on this rank's shard of
+        the sequence
         (``shard_positions``; zigzag: the rank's two mirror chunks), the
         attention through ``dist_attn_fwd`` under ``par.schedule`` (kernel
         A in the plan executors; at P = 1 one chunk call).  Returns the
@@ -859,14 +936,14 @@ class DecoderLM:
             return self._last_logits(p, h, pos, T), {}
         a, P = self.cfg.attn, self.seq_size
         tokens = self._rows(torch.as_tensor(tokens, device=self.device))
-        T = tokens.shape[1]
+        img, T = self._image_input(image_embeds, tokens.shape[1])
         zz = zigzag_layout(self.cfg, self.par, P)
         if T % (2 * P if zz else P):
             raise ValueError(f"prompt of {T} tokens does not shard over "
                              f"{P} ranks{' (zigzag: 2P chunks)' if zz else ''}")
         pos = shard_positions(T, P, self.seq_rank, zz)
         pos_t = torch.as_tensor(pos, device=self.device)
-        h = L.embed(p["embed"], tokens[:, pos_t], self.dtype)
+        h = self._prompt_embed(p, tokens, pos_t, img)
         cos, sin = L.rope_tables(pos_t, self.rope_dim, a.rope_theta)
         spec = _attn_spec(self.cfg, self.par, P, self.impl, False,
                           self.scale, self.attn_group)
@@ -1191,6 +1268,292 @@ class DecoderLM:
 
 
 # --------------------------------------------------------------------------
+# Whisper-style encoder–decoder (the conv frontend is a stub: batch["frames"]
+# are precomputed frame embeddings) [arXiv:2212.04356]
+# --------------------------------------------------------------------------
+
+class EncDecLM(DecoderLM):
+    """The reference's ``EncDecLM``: a non-causal encoder over the frames,
+    run whole on every sequence rank (the frames are few beside the
+    decoder's sequence), then decoder layers of causal self-attention —
+    the distributed plan over the sequence ranks, the decoder's tokens
+    sharded as a dense decoder's (zigzag falls back to balanced) — and
+    cross-attention to the encoder output, local to each rank (kernel A
+    under the full mask at Tq ≠ Tk; C and D in its backward).  Under
+    ``remat_aware`` a decoder layer is two remat-aware sub-layers, the
+    self-attention's and the cross-attention's with the MLP; each encoder
+    layer is checkpointed whole.  Embeddings are tied.
+
+    Across ranks every rank's decoder shard reads the whole encoder
+    output, so the encoder's leaves and the cross ``wk`` / ``wv`` take a
+    share of their gradient on every rank: the loss's gradient is this
+    rank's share (:meth:`DecoderLM._ce`), and the train step sums every
+    leaf over the sequence ranks once.  The decode cache is ``{"k", "v"}``
+    sharded over ``par.seq_axes`` and the encoder's cross keys and values
+    ``{"ek", "ev"}`` (L, B, F, H, hd), whole on every rank and never
+    padded."""
+
+    ARCHS = ("audio",)
+    # the decoder's cross-attention mask: every query sees every frame
+    cross_mask = mk.full()
+
+    def init(self, seed: int = 0) -> dict:
+        """Random parameters in the reference's tree — ``embed``,
+        ``enc_layers`` (attn, mlp), ``dec_layers`` (attn, cross, mlp),
+        ``ln_enc``, ``ln_f`` — by :meth:`DecoderLM.init`'s scheme; its bits
+        differ from the reference's."""
+        cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        d, hd, H = cfg.d_model, a.head_dim, a.n_heads
+
+        def dense(d_in, d_out):
+            x = torch.randn((d_in, d_out), generator=gen, device=self.device)
+            return (x / math.sqrt(d_in)).to(dt)
+
+        def ones():
+            return torch.ones(d, dtype=dt, device=self.device)
+
+        def attn(kv_heads):
+            return {"wq": dense(d, H * hd), "wk": dense(d, kv_heads * hd),
+                    "wv": dense(d, kv_heads * hd), "wo": dense(H * hd, d),
+                    "ln": ones()}
+
+        def mlp():
+            return {"wg": dense(d, cfg.d_ff), "wu": dense(d, cfg.d_ff),
+                    "wd": dense(cfg.d_ff, d), "ln": ones()}
+
+        emb = torch.randn((cfg.vocab, d), generator=gen, device=self.device)
+        return {"embed": (emb * 0.02).to(dt),
+                "enc_layers": [{"attn": attn(a.n_kv_heads), "mlp": mlp()}
+                               for _ in range(cfg.n_enc_layers)],
+                "dec_layers": [{"attn": attn(a.n_kv_heads),
+                                "cross": attn(H), "mlp": mlp()}
+                               for _ in range(cfg.n_layers)],
+                "ln_enc": ones(), "ln_f": ones()}
+
+    # ---------------------------------------------------------- encoder
+    def _full_attn(self, q, k, v, impl=None, mask=None):
+        """Attention under ``mask`` (the full one by default),
+        differentiable (kernel A forward, C and D backward)."""
+        impl = self.impl if impl is None else impl
+        mask = mk.full() if mask is None else mask
+        return FlashAttnFn.apply(
+            q, k, v,
+            lambda q, k, v: chunk_attn(q, k, v, mask=mask, impl=impl),
+            lambda q, k, v, o, lse, do: chunk_attn_bwd(
+                q, k, v, o, lse, do, mask=mask, impl=impl))[0]
+
+    def encode(self, p, frames, impl=None):
+        """The encoder over ``frames`` (B, F, d): non-causal attention at
+        Tq = Tk = F, each layer checkpointed whole, then ``ln_enc``."""
+        cfg, a = self.cfg, self.cfg.attn
+        h = torch.as_tensor(frames, device=self.device).to(self.dtype)
+        cos, sin = L.rope_tables(torch.arange(h.shape[1],
+                                              device=self.device),
+                                 a.head_dim, a.rope_theta)
+
+        def layer(lp, h):
+            q, k, v = L.attn_qkv(lp["attn"], h, cfg, cos, sin)
+            h2 = L.attn_out(lp["attn"], h, self._full_attn(q, k, v, impl),
+                            cfg)
+            return L.mlp_apply(lp["mlp"], h2, cfg.norm_eps)
+
+        for lp in p["enc_layers"]:
+            h = (checkpoint(layer, lp, h, use_reentrant=False)
+                 if torch.is_grad_enabled() else layer(lp, h))
+        return L.rms_norm(h, p["ln_enc"], cfg.norm_eps)
+
+    # ----------------------------------------------------- decoder layer
+    def _cross_q(self, c, h):
+        a = self.cfg.attn
+        hn = L.rms_norm(h, c["ln"], self.cfg.norm_eps)
+        return (hn @ c["wq"]).reshape(*h.shape[:2], a.n_heads, a.head_dim)
+
+    def _cross_kv(self, c, enc):
+        a = self.cfg.attn
+        shape = (*enc.shape[:2], a.n_heads, a.head_dim)
+        return (enc @ c["wk"]).reshape(shape), (enc @ c["wv"]).reshape(shape)
+
+    def _cross_out(self, lp, h, o):
+        """The cross-attention's residual add through ``wo``, then the
+        MLP."""
+        h2 = h + (o.reshape(*h.shape[:2], -1)
+                  @ lp["cross"]["wo"]).to(h.dtype)
+        return L.mlp_apply(lp["mlp"], h2, self.cfg.norm_eps)
+
+    def _dec_layer(self):
+        """``layer(params, (h, enc, cos, sin)) -> h'`` under
+        ``par.remat``: the self-attention over the sequence ranks, then
+        the cross-attention with the MLP."""
+        cfg, group, impl = self.cfg, self.attn_group, self.impl
+        spec = _attn_spec(cfg, self.par, self.seq_size, impl, False,
+                          group=group)
+        cross = self.cross_mask
+
+        def pre_self(lp, x):
+            return L.attn_qkv(lp["attn"], x[0], cfg, x[1], x[2])
+
+        def self_fwd(qkv):
+            return dist_attn_fwd(*qkv, spec=spec, group=group, for_bwd=True)
+
+        def self_bwd(qkv, o, lse, do):
+            return dist_attn_bwd(*qkv, o, lse, do, spec=spec, group=group)
+
+        def post_self(lp, x, o):
+            return L.attn_out(lp["attn"], x[0], o, cfg)
+
+        def pre_cross(lp, x):
+            return (self._cross_q(lp["cross"], x[0]),
+                    *self._cross_kv(lp["cross"], x[1]))
+
+        def cross_fwd(qkv):
+            return chunk_attn(*qkv, mask=cross, impl=impl)
+
+        def cross_bwd(qkv, o, lse, do):
+            return chunk_attn_bwd(*qkv, o, lse, do, mask=cross, impl=impl)
+
+        def post_cross(lp, x, o):
+            return self._cross_out(lp, x[0], o)
+
+        if self.par.remat == "remat_aware":
+            sub_a = remat_aware(pre_self, self_fwd, self_bwd, post_self)
+            sub_b = remat_aware(pre_cross, cross_fwd, cross_bwd, post_cross)
+            return lambda lp, x: sub_b(lp, (sub_a(lp, (x[0], x[2], x[3])),
+                                            x[1]))
+
+        def plain(lp, x):
+            h, enc, cos, sin = x
+            o, _ = dist_flash_attn(*pre_self(lp, (h, cos, sin)), spec,
+                                   group)
+            h = post_self(lp, (h,), o)
+            return self._cross_out(lp, h, self._full_attn(
+                *pre_cross(lp, (h, enc)), mask=cross))
+
+        return apply_policy(plain, self.par.remat)
+
+    # ------------------------------------------------------------ train
+    def loss(self, p, batch):
+        """Mean next-token cross-entropy of ``batch`` = {frames (B, F, d),
+        the whole clip; tokens, labels (B, Tl), this rank's shard}:
+        ``(ce, {"ce": ce, "aux": 0})``.  On a mesh the value is the global
+        token mean and its gradient this rank's share, the encoder's
+        included."""
+        cfg, a = self.cfg, self.cfg.attn
+        enc = self.encode(p, batch["frames"])
+        h = L.embed(p["embed"], batch["tokens"].to(self.device), self.dtype)
+        cos, sin = L.rope_tables(self.positions(h.shape[1]), a.head_dim,
+                                 a.rope_theta)
+        layer = self._dec_layer()
+        for lp in p["dec_layers"]:
+            h = layer(lp, (h, enc, cos, sin))
+        ce = self._ce(self._head(p, h), batch["labels"].to(self.device))
+        return ce, {"ce": ce, "aux": torch.zeros(
+            (), dtype=torch.float32, device=h.device)}
+
+    # ---------------------------------------------------------- serving
+    @torch.no_grad()
+    def forward(self, p, tokens, *, frames, last_only: bool = False):
+        """Whole-context forward, no cache, through the plain attention
+        function (backend ``ref``) on any device: logits (B, T, V), or
+        (B, 1, V) for the last position."""
+        a = self.cfg.attn
+        tokens = torch.as_tensor(tokens, device=self.device)
+        enc = self.encode(p, frames, impl="ref")
+        h = L.embed(p["embed"], tokens, self.dtype)
+        cos, sin = L.rope_tables(torch.arange(tokens.shape[1],
+                                              device=self.device),
+                                 a.head_dim, a.rope_theta)
+        for lp in p["dec_layers"]:
+            q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
+            h = L.attn_out(lp["attn"], h, chunk_attn(
+                q, k, v, mask=decode_mask(a.window), impl="ref")[0],
+                self.cfg)
+            o = chunk_attn(self._cross_q(lp["cross"], h),
+                           *self._cross_kv(lp["cross"], enc),
+                           mask=mk.full(), impl="ref")[0]
+            h = self._cross_out(lp, h, o)
+        return self._head(p, h[:, -1:] if last_only else h)
+
+    @torch.no_grad()
+    def prefill(self, p, tokens, frames):
+        """The encoder over ``frames`` (B, F, d), then the decoder over
+        ``tokens`` (B, T) — the same on every rank — on this rank's
+        contiguous shard, its self-attention through ``dist_attn_fwd``
+        under ``par.schedule``.  Returns the last prompt token's logits
+        (B, 1, V) on every rank and the cache ``{"k", "v"}`` (L, B, Tl,
+        H, hd), this rank's shard, with ``{"ek", "ev"}`` (L, B, F, H,
+        hd), the encoder's cross keys and values, whole."""
+        a, P = self.cfg.attn, self.seq_size
+        enc = self.encode(p, self._rows(torch.as_tensor(
+            frames, device=self.device)))
+        tokens = self._rows(torch.as_tensor(tokens, device=self.device))
+        T = tokens.shape[1]
+        if T % P:
+            raise ValueError(f"prompt of {T} tokens does not shard over "
+                             f"{P} ranks")
+        pos = shard_positions(T, P, self.seq_rank)
+        pos_t = torch.as_tensor(pos, device=self.device)
+        h = L.embed(p["embed"], tokens[:, pos_t], self.dtype)
+        cos, sin = L.rope_tables(pos_t, a.head_dim, a.rope_theta)
+        spec = _attn_spec(self.cfg, self.par, P, self.impl, False,
+                          group=self.attn_group)
+        cache = {"k": [], "v": [], "ek": [], "ev": []}
+        for lp in p["dec_layers"]:
+            q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
+            h = L.attn_out(lp["attn"], h, dist_attn_fwd(
+                q, k, v, spec=spec, group=self.attn_group)[0], self.cfg)
+            ek, ev = self._cross_kv(lp["cross"], enc)
+            o = chunk_attn(self._cross_q(lp["cross"], h), ek, ev,
+                           mask=self.cross_mask, impl=self.impl)[0]
+            h = self._cross_out(lp, h, o)
+            for key, t in (("k", k), ("v", v), ("ek", ek), ("ev", ev)):
+                cache[key].append(t)
+        return (self._last_logits(p, h, pos, T),
+                {key: torch.stack(ts) for key, ts in cache.items()})
+
+    def pad_cache(self, cache, S: int) -> dict:
+        """:meth:`DecoderLM.pad_cache` of ``k`` / ``v``; ``ek`` / ``ev``
+        stay whole and unpadded (the reference's ``_PAD_KEYS``)."""
+        out = super().pad_cache({k: cache[k] for k in ("k", "v")}, S)
+        out.update(ek=cache["ek"], ev=cache["ev"])
+        return out
+
+    @torch.no_grad()
+    def decode(self, p, cache, token, pos):
+        """One decode step on :meth:`pad_cache`'s layout: per layer the
+        self-attention through ``dist_decode_attn`` over the ``k`` / ``v``
+        shards (the token's k/v written into the owner shard), then the
+        cross-attention at Tq = 1 against the layer's ``ek`` / ``ev``
+        (kernel A, full mask).  Returns logits (B, 1, V); the cache is
+        updated in place."""
+        a = self.cfg.attn
+        token, pos = self._rows(token), self._rows(pos)
+        h = L.embed(p["embed"], token, self.dtype)
+        cos, sin = L.rope_tables(pos, a.head_dim, a.rope_theta)
+        cos, sin = cos[:, None], sin[:, None]
+        for li, lp in enumerate(p["dec_layers"]):
+            ck, cv = cache["k"][li], cache["v"][li]
+            q, k, v = L.attn_qkv(lp["attn"], h, self.cfg, cos, sin)
+            o = dist_decode_attn(q, ck, cv, k, v, group=self.decode_group,
+                                 mask=decode_mask(a.window), pos=pos)
+            _cache_write(ck, k, pos, self.decode_group)
+            _cache_write(cv, v, pos, self.decode_group)
+            h = L.attn_out(lp["attn"], h, o, self.cfg)
+            o = chunk_attn(self._cross_q(lp["cross"], h), cache["ek"][li],
+                           cache["ev"][li], mask=self.cross_mask,
+                           impl=self.impl)[0]
+            h = self._cross_out(lp, h, o)
+        return self._all_rows(self._head(p, h))
+
+
+def build_model(cfg: ModelConfig, device="cuda", **kw):
+    """The model class of ``cfg``'s family: :class:`EncDecLM` for an
+    encoder–decoder, else :class:`DecoderLM` (keywords as theirs)."""
+    cls = EncDecLM if cfg.arch_type == "audio" else DecoderLM
+    return cls(cfg, device, **kw)
+
+
+# --------------------------------------------------------------------------
 # Paged-cache writes: scatter new K/V through the block table, in place
 # --------------------------------------------------------------------------
 
@@ -1289,7 +1652,8 @@ def _cache_write(cache, new, pos, group=None):
 # --------------------------------------------------------------------------
 
 # the stacked layer groups of the reference's tree, in order
-_LAYER_KEYS = ("layers", "dense_layers", "moe_layers")
+_LAYER_KEYS = ("layers", "dense_layers", "moe_layers", "enc_layers",
+               "dec_layers")
 # leaves the reference keeps in float32 whatever the model's dtype
 _FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
@@ -1307,7 +1671,8 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     over (``DecoderLM.expert_group``; None: all here): each rank keeps its
     rows of them.  An SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32,
     as the reference keeps them; a hybrid's ``shared`` block is one set of
-    leaves, not stacked."""
+    leaves, not stacked.  An encoder–decoder's tree has ``enc_layers`` and
+    ``dec_layers`` (each with its ``cross`` block) and ``ln_enc``."""
     dt = dtype if dtype is not None else DTYPES[cfg.dtype]
 
     def t(x, name="", grp=""):
@@ -1318,9 +1683,8 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
             device=device,
             dtype=torch.float32 if name in _FLOAT32_LEAVES else dt)
 
-    p = {"embed": t(tree["embed"]), "ln_f": t(tree["ln_f"])}
-    if "head" in tree:
-        p["head"] = t(tree["head"])
+    p = {k: t(tree[k]) for k in ("embed", "ln_f", "head", "ln_enc")
+         if k in tree}
     if "shared" in tree:
         p["shared"] = {grp: ({name: t(arr, name, grp)
                               for name, arr in sub.items()}
@@ -1336,8 +1700,9 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                          for name, arr in stacked[grp].items()}
                    for grp in stacked} for i in range(n)]
         n_all += n
-    if n_all != cfg.n_layers:
-        raise ValueError(f"tree has {n_all} layers, config {cfg.n_layers}")
+    if n_all != cfg.n_layers + cfg.n_enc_layers:
+        raise ValueError(f"tree has {n_all} layers, config "
+                         f"{cfg.n_layers + cfg.n_enc_layers}")
     return p
 
 

@@ -67,7 +67,10 @@ scheduling, never a surviving request's tokens.
 at a time — the reference's dense-cache oracle of the paged engine, and its
 long-context path: on a mesh the prompt is prefilled across the sequence
 ranks and the cache stays sharded along the sequence, every rank running
-the same decode loop (flash-decoding across the shards).
+the same decode loop (flash-decoding across the shards).  It also serves
+the VLM (image rows before the prompt) and the encoder–decoder (a clip's
+frames beside it), which the paged engine refuses, as the reference's
+does.
 """
 from __future__ import annotations
 
@@ -130,6 +133,10 @@ class Engine:
                  spec: Optional[SpecConfig] = None,
                  draft: Optional[DraftSource] = None):
         cfg = model.cfg
+        if cfg.arch_type not in ("dense", "moe"):
+            raise ValueError(
+                f"the paged engine serves dense/moe decoders "
+                f"(got {cfg.arch_type!r}); use FixedSlotEngine")
         # a chunk's MoE rows split over the expert group: the sequence
         # axis (a 2D mesh's seq axis alone, r of its r·u ranks)
         split = (model.expert_group.size if model.expert_group is not None
@@ -673,6 +680,10 @@ class Engine:
         return out
 
 
+# dense-cache keys whose sequence axis (2) gets decode headroom padding
+_PAD_KEYS = ("k", "v", "ckv")
+
+
 class FixedSlotEngine:
     """Batched fixed-slot serving: one prefill plus a dense contiguous KV
     cache, stepped one token at a time, with per-request ``(B,)``
@@ -687,7 +698,10 @@ class FixedSlotEngine:
     returns the same tokens.  An MLA / MoE model keeps the latent rows ``{"ckv"}`` as
     its cache; across ranks its routed experts shard over the ``model``
     ranks (the prefill dispatches over them, each decode step sums their
-    outputs)."""
+    outputs).  A VLM's batch adds ``image_embeds`` and an
+    encoder–decoder's ``frames``, which go to the prefill beside the
+    tokens; the prompt's length S0 is the cache's, so a VLM's counts its
+    image rows, as the reference's does."""
 
     def __init__(self, model, params):
         self.model = model
@@ -695,15 +709,23 @@ class FixedSlotEngine:
 
     def generate(self, batch, n_tokens: int, rng=None,
                  temperature: float = 0.0):
-        """``batch["tokens"]`` (B, T): the prompts.  Returns (tokens
-        (B, n_tokens) int32, last logits (B, 1, V)).  Greedy, or at
+        """``batch["tokens"]`` (B, T): the prompts (and a VLM's
+        ``image_embeds`` / an encoder–decoder's ``frames``).  Returns
+        (tokens (B, n_tokens) int32, last logits (B, 1, V)).  Greedy, or at
         ``temperature > 0`` with a key ``rng`` (``prng.prng_key(seed)``)
         the reference's draws: ``rng, k = split(rng)`` then
         ``categorical(k, logits / temperature)`` each step."""
         model = self.model
         dev = model.device
-        logits, cache = model.prefill(self.params, batch["tokens"])
-        S0 = int(np.asarray(batch["tokens"]).shape[1])
+        extra = {k: batch[k] for k in ("image_embeds", "frames")
+                 if k in batch}
+        logits, cache = model.prefill(self.params, batch["tokens"], **extra)
+        if not any(k in cache for k in _PAD_KEYS):
+            raise ValueError("FixedSlotEngine serves attention-cache "
+                             "decoders only")
+        # the cache's length: this rank's shard of the prompt's slots
+        S0 = next(cache[k].shape[2] for k in _PAD_KEYS
+                  if k in cache) * model.seq_size
         grp = model.decode_group
         n_sh = 1 if grp is None else grp.size
         pad = -(-(S0 + n_tokens) // n_sh) * n_sh - S0

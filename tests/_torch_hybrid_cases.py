@@ -111,8 +111,9 @@ def mixer_world(rank):
 def model_world(rank, params_dir):
     """One rank of the decoder cases at 4 ranks: per arch and schedule,
     ``model.loss`` and every gradient leaf summed over the ranks
-    (``train.step.sum_grads``), on the reference's weights; and the error
-    ``DecoderLM`` raises on a 2D (seq, head) mesh."""
+    (``train.step.sum_grads``), on the reference's weights; and whether
+    ``DecoderLM`` builds on a 2D (seq, head) mesh ("accepted", else the
+    error it raises)."""
     import torch
     from repro_torch.core.config import ShapeSpec, get_config, smoke_config
     from repro_torch.core.tree import leaves

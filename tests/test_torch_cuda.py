@@ -1154,3 +1154,51 @@ def test_flash_kernels_refuse_head_dims_they_do_not_take(dev, dtype):
         with pytest.raises(ValueError, match="head dims"):
             flash_bwd(q, q, q, q, lse, q, mask=mk.causal())
     assert dict(build.LAUNCHES) == n0
+
+
+WHISPER = [
+    # whisper-tiny's cross-attention (6 heads of 64, the full mask): the
+    # training shape, decoder T 4,096 against 1,536 frames (A forward, C
+    # and D backward), and the decode's Tq = 1 against them (A)
+    ("cross", 2, 4096, 1536),
+    ("decode", 4, 1, 1536),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WHISPER, ids=[c[0] for c in WHISPER])
+def test_whisper_cross_shapes_match_plain(dev, case, dtype):
+    """Kernel A under the full mask at Tq ≠ Tk (and at Tq = 1), and C and
+    D at the training cross shape, each launched once and held to its
+    plain version at the kernel bars (bf16: A element by element to 3e-2,
+    C and D row by row to 2e-2)."""
+    _, B, Tq, Tk = case
+    H, D, mask = 6, 64, mk.full()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    q = _randn(gen, (B, Tq, H, D), dtype, dev)
+    k = _randn(gen, (B, Tk, H, D), dtype, dev)
+    v = _randn(gen, (B, Tk, H, D), dtype, dev)
+    do = _randn(gen, (B, Tq, H, D), dtype, dev)
+    n0 = dict(build.LAUNCHES)
+    o, lse = flash_fwd(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 1
+    o_r, lse_r = chunk_attn_ref(q, k, v, mask=mask)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
+    if dtype == torch.bfloat16:
+        assert _rel_err(o, o_r) <= 3e-2
+    if Tq == 1:
+        return
+    got = flash_bwd(q, k, v, o_r, lse_r, do, mask=mask)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["flash_bwd_dq"], build.LAUNCHES["flash_bwd_dkv"]) \
+        == (n0["flash_bwd_dq"] + 1, n0["flash_bwd_dkv"] + 1)
+    ref = chunk_attn_bwd_ref(q, k, v, o_r, lse_r, do, mask=mask)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}[dtype]
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
+        if dtype == torch.bfloat16:
+            assert row_rel_err(a, r) <= 2e-2
