@@ -531,6 +531,37 @@ Phases, each fatal on failure (nothing is caught):
                 FixedSlotEngine, 4 requests of 1,536 frames and 64-token
                 prompts, 32 greedy tokens, within 5% of the plain forward
                 (control: a causal cross-attention).
+  25. v3      — deepseek-v3-671b with multi-token prediction (MTP), bf16,
+                seed 25, at full width (d_model 7168, MLA of 128 heads,
+                q_lora 1536, kv_lora 512, rope 64, nope 128, v 128;
+                d_expert 2048, d_dense_ff 18,432, top-8, 1 shared expert,
+                vocab 129,280), 2 of 61 layers (1 dense + 1 MoE) beside
+                the MTP block; training keeps 16 of 256 routed experts at
+                capacity factor E / k (no pair drops).  (a) step 1 at T
+                2,048 within 5% of max |g| of the plain attention path
+                replaying the experts, every leaf and the MTP block's
+                (control: MTP labels of t + 1), then 3 AdamW steps of
+                4,096 tokens: loss, ce, aux, mtp_ce, A / C / D 3 a step.
+                (b) 4 cuda-ipc ranks on (seq, head) = (4, 1), 8,192
+                tokens, balanced, experts 4 a rank, and (c) the same on
+                (2, 2), experts 8 a seq rank: held to one process on the
+                same weights, tokens and expert choices (loss, aux, mtp_ce
+                2^-8; every summed leaf 5%; the MTP logits at every
+                shard's last 64 positions 5% of max |logit|); a step
+                asked for as zigzag runs balanced; controls: each rank
+                rolling its own shard (b), the shift over seq alone (c).
+                (d) all 256 experts, the MTP block loaded and unused: the
+                paged Engine (A latent, B over the latent pool, 128 heads
+                on one latent head) and FixedSlotEngine (A pair) serve
+                1,000 / 700 / 513 / 64-token prompts, 32 greedy tokens,
+                every decode step within 5% of max |logit| of the plain
+                engines replaying the experts, teacher-forced (control:
+                each decode one position early); tokens/s, ms a step,
+                idle share.  (e) A, C and D's pair route at (1, 4096, 128
+                heads) and A's latent route and B at 128 heads, held to
+                their plain versions at phase 3's bars, then timed by
+                CUDA-graph replay beside bound and SDPA (the ``v3_*`` keys
+                of the rows).
 Every phase prints its seconds, and every multi-rank phase its ranks'
 host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
@@ -901,32 +932,35 @@ LAT_SCALE = 192 ** -0.5
 LAT_LENS = [1016, 716, 529, 80]     # phase 4's lengths mid-way through decode
 
 
-def _latent_chunk(gen, dtype, Tq=256, Tk=1024):
-    """A latent prefill chunk: q (1, Tq, 16, 576), the gathered latent rows
-    k (1, Tk, 1, 576) and v = k[..., :512] (a view)."""
-    q = randn(gen, (1, Tq, LAT_H, LAT_DK), dtype)
+def _latent_chunk(gen, dtype, Tq=256, Tk=1024, H=LAT_H):
+    """A latent prefill chunk: q (1, Tq, H, 576) (H 16: deepseek-v2-lite's
+    heads), the gathered latent rows k (1, Tk, 1, 576) and v =
+    k[..., :512] (a view)."""
+    q = randn(gen, (1, Tq, H, LAT_DK), dtype)
     k = randn(gen, (1, Tk, 1, LAT_DK), dtype)
     return q, k, k[..., :LAT_DV]
 
 
-def _latent_pool(gen, B, Tq, lengths, dtype):
-    """q (B, Tq, 16, 576), a latent pool (N, 16, 1, 576) and its 512-column
+def _latent_pool(gen, B, Tq, lengths, dtype, H=LAT_H):
+    """q (B, Tq, H, 576), a latent pool (N, 16, 1, 576) and its 512-column
     value view, a fragmented table and the lengths."""
-    q, kp, _, bt, lens = _paged_inputs(gen, B, Tq, LAT_H, 1, LAT_DK, 16,
+    q, kp, _, bt, lens = _paged_inputs(gen, B, Tq, H, 1, LAT_DK, 16,
                                        lengths, dtype)
     return q, kp, kp[..., :LAT_DV], bt, lens
 
 
-def latent_checks():
-    """Kernels A and B at the latent shapes, each in both dtypes against its
-    plain version at phase 3's limits: A's latent route on the serving
+def latent_checks(H=LAT_H, seed=12):
+    """Kernels A and B at the latent shapes with H query heads (16:
+    deepseek-v2-lite's; 128: deepseek-v3's), each in both dtypes against
+    its plain version at phase 3's limits: A's latent route on the serving
     chunk (Tq 256 at q_offset 768 over 1024 keys), B at the serving step
-    (Tq 1) and at verify (Tq 5: 80 rows, five 16-row groups), and B's
-    bitwise batch invariance at Tq 1."""
-    gen = torch.Generator(device=DEV).manual_seed(12)
+    (Tq 1) and at verify (Tq 5: 5·H rows), and B's bitwise batch
+    invariance at Tq 1."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     m = mk.causal(rel_offset=768)
+    tag = f"latent 576/512 h{H}/1"
     for dt in (torch.float32, torch.bfloat16):
-        q, k, v = _latent_chunk(gen, dt)
+        q, k, v = _latent_chunk(gen, dt, H=H)
         n0 = dict(build.LAUNCHES)
         o, lse = flash_fwd(q, k, v, mask=m, scale=LAT_SCALE)
         torch.cuda.synchronize()
@@ -947,11 +981,11 @@ def latent_checks():
             r = rel_err(o, o_r)
             check(r <= REL_TOL, f"flash_fwd latent: relative err {r}")
             rel = f"  rel {r:.2e} (limit {REL_TOL})"
-        say(f"  A {'latent 576/512 h16/1 Tq256':<28} {str(dt)[6:]:<9} "
+        say(f"  A {tag + ' Tq256':<28} {str(dt)[6:]:<9} "
             f"max|Δo| {err:.3e}  max|Δlse| {lerr:.3e}  tol {tol}{rel}  "
             f"({LATENT_ROUTES[dt][0]})")
         for tq in (1, 1 + P9_DEPTH):
-            q, kp, vp, bt, lens = _latent_pool(gen, 4, tq, LAT_LENS, dt)
+            q, kp, vp, bt, lens = _latent_pool(gen, 4, tq, LAT_LENS, dt, H)
             n0 = build.LAUNCHES["paged_decode"]
             o = paged_attn(q, kp, vp, bt, lens, scale=LAT_SCALE)
             torch.cuda.synchronize()
@@ -963,11 +997,11 @@ def latent_checks():
             check(torch.allclose(o.float(), o_r.float(), atol=tol,
                                  rtol=tol),
                   f"paged_decode latent Tq{tq} {dt}: err {err} over {tol}")
-            say(f"  B {f'latent 576/512 h16/1 Tq{tq}':<28} "
+            say(f"  B {f'{tag} Tq{tq}':<28} "
                 f"{str(dt)[6:]:<9} max|Δo| {err:.3e}  tol {tol}")
     # bitwise batch invariance at the serving step
     q, kp, vp, bt, lens = _latent_pool(gen, 4, 1, [80, 1000, 529, 1100],
-                                       torch.bfloat16)
+                                       torch.bfloat16, H)
 
     def run(q, kp, bt, lens):
         return paged_attn(q, kp, kp[..., :LAT_DV], bt, lens, scale=LAT_SCALE)
@@ -986,7 +1020,7 @@ def latent_checks():
           "paged_decode latent: a request alone differs from it in a batch")
     check(torch.equal(moved, full),
           "paged_decode latent: a permuted block table changes o")
-    say(f"  B {'latent bitwise invariance':<28} bfloat16  alone == in a "
+    say(f"  B {f'latent h{H} bitwise invariance':<28} bfloat16  alone == in a "
         "batch of 4 == permuted table; launch == launch")
 
 
@@ -1812,11 +1846,13 @@ def _device_breakdown(prof, wall):
 
 def trace(model, params, prompts):
     """torch.profiler over the first 4 engine steps (prefill-heavy) and 6
-    decode-only steps of the same 4 requests."""
+    decode-only steps of the same 4 requests; returns each trace's idle
+    share by label (nan: not measured)."""
     from torch.profiler import ProfilerActivity, profile
     eng = Engine(model, params, **P4_ENGINE)
     rids = [eng.submit(p, max_new_tokens=16) for p in prompts]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    idle = {}
     for label, cond in (("prefill steps 1-4", lambda i: i < 4),
                         ("6 decode-only steps", lambda i: i < 6)):
         if label.startswith("6"):
@@ -1831,7 +1867,8 @@ def trace(model, params, prompts):
                 i += 1
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        show_breakdown(label, prof, wall)
+        idle[label] = show_breakdown(label, prof, wall)
+    return idle
 
 
 def show_breakdown(label, prof, wall):
@@ -3027,7 +3064,8 @@ def _decode_fault(model, fault, by=1):
     controls): ``"shard"`` — rank 1's shard left out of the decode
     reduction (its max, numerator and denominator replaced by the
     reduction's identity before each all-reduce of the cache's group);
-    ``"pos"`` — every decode step at its position plus ``by``."""
+    ``"pos"`` — every decode step at its position plus ``by`` (a paged
+    engine's idle rows, at position 0, left alone)."""
     grp = model.decode_group
     if fault == "shard":
         reduce_ = grp.all_reduce_
@@ -3040,8 +3078,8 @@ def _decode_fault(model, fault, by=1):
         grp.all_reduce_ = faulty
     else:
         decode = model.decode
-        model.decode = lambda p, cache, token, pos: decode(p, cache, token,
-                                                           pos + by)
+        model.decode = lambda p, cache, token, pos: decode(
+            p, cache, token, torch.where(pos > 0, pos + by, pos))
     try:
         yield
     finally:
@@ -3324,12 +3362,12 @@ def _conserved(cache, what):
 
 
 def _p9_run(model, params, prompts, temps, kw, n_new=P4_NEW, draft=None,
-            router=None, **ekw):
+            router=None, forced=None, **ekw):
     """One engine over the phase's requests (request i: seed i), with the
-    meter on (and ``router``, phase 12's); both allocators must conserve
-    afterwards."""
+    meter on (and ``router``, phase 12's), teacher-forced on ``forced``
+    (:func:`_forcing`); both allocators must conserve afterwards."""
     eng = Engine(model, params, draft=draft, **kw, **ekw)
-    with _meter(model, eng, router) as rec:
+    with _meter(model, eng, router) as rec, _forcing(eng, forced):
         rids = [eng.submit(p, max_new_tokens=n_new, temperature=t, seed=i)
                 for i, (p, t) in enumerate(zip(prompts, temps))]
         check(rids == list(range(len(prompts))), f"rids {rids}")
@@ -4971,17 +5009,22 @@ def _p15_grad_err(model, grads, sharded, ref, names):
     """(worst leaf max|Δg| / max|g₁|, its name) of the ranks' summed
     gradients against P = 1's ``ref`` (this rank's part of it, on the
     host: the replicated leaves on rank 0, its rows of the experts on
-    every rank; None elsewhere).  Each rank measures its part on the card
-    and the numerators and denominators are max-reduced over the ranks
-    (a collective: every rank calls it)."""
+    every rank; None elsewhere).  Each rank measures its part on the card,
+    a block of at most 2^24 elements at a time (an embedding's gradient is
+    3.7 GB in float32), and the numerators and denominators are
+    max-reduced over the ranks (a collective: every rank calls it)."""
     num = torch.zeros(len(grads), device=DEV)
     den = torch.zeros(len(grads), device=DEV)
+    n = 1 << 24
     for i, g in enumerate(grads):
         if ref[i] is not None:
-            r = ref[i].to(DEV).float()
-            num[i] = (g.float() - r).abs().max()
-            den[i] = r.abs().max()
-            del r
+            a, b = g.reshape(-1), ref[i].reshape(-1)
+            for j in range(0, a.numel(), n):
+                r = b[j:j + n].to(DEV).float()
+                num[i] = torch.maximum(num[i],
+                                       (a[j:j + n].float() - r).abs().max())
+                den[i] = torch.maximum(den[i], r.abs().max())
+                del r
     model.expert_group.all_reduce_([num, den], op="max")
     err = (num / den.clamp(min=1e-30)).cpu()
     i = int(err.argmax())
@@ -8540,6 +8583,761 @@ def whisper():
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+
+P25_ARCH, P25_SEED = "deepseek-v3-671b", 25
+P25_LAYERS = 2          # the dense layer 0 and one MoE layer, of 61
+P25_EXPERTS = 16        # routed experts in training, of 256 (top-8 kept)
+P25_T, P25_STEPS = 4096, 3      # (a): one sequence a step
+# (a)'s gate: the plain path holds (128, T, T) float32 scores, 2.1 GB at
+# T 2,048 (8.6 GB at 4,096)
+P25_GRAD_T = 2048
+# (b) and (c): 2,048 tokens a rank; at 4,096 a rank each rank's two
+# vocab-wide heads hold ~6 GB of float32 logits beside its 9.7 GB of
+# parameters and gradients, and four ranks leave no room on the card
+P25_RANKS, P25_RANK_T = 4, 8192
+P25_MESHES = ((4, 1), (2, 2))   # (seq, head)
+P25_EDGE = 64           # the shard-edge gate's positions a shard
+P25_TIMEOUT = 600
+# each rank's share of the card, and the allocator setting of the world:
+# large blocks are not split, so a rank's cache fragments less
+P25_RANK_MEM = 0.235
+P25_ALLOC = "max_split_size_mb:512"
+P25_CTL_NEW = 4         # tokens a request in the control's runs
+P25_B_LENS = (1000, 1000, 1000, 1000)   # (e): kernel B's latent step
+# kernels A, C and D's pair route at deepseek-v3's 128 heads
+V3_DIMS = (128, PAIR_DK, PAIR_DV, LAT_SCALE)
+
+
+def _p25_cfg(experts=None):
+    """deepseek-v3-671b at full width, depth cut to ``P25_LAYERS`` of 61
+    (the dense layer 0 and one MoE layer) beside its MTP block, with
+    ``experts`` routed experts: 256, the config's, for serving, at its
+    capacity factor; fewer for training, at capacity factor E / k, so no
+    (token, expert) pair can drop (DeepSeek-V3 trains without dropping
+    tokens) and one process and any layout of ranks dispatch alike."""
+    cfg = get_config(P25_ARCH)
+    m = cfg.moe
+    experts = experts or P25_EXPERTS
+    moe = dataclasses.replace(m, n_dense_layers=1, n_routed=experts)
+    if experts != m.n_routed:
+        moe = dataclasses.replace(moe, capacity_factor=experts / m.top_k)
+    return cfg.replace(n_layers=P25_LAYERS, moe=moe)
+
+
+@contextlib.contextmanager
+def _p25_fault(model, kind):
+    """A planted fault of the MTP block's shift (``DecoderLM._next_rows``:
+    its t + 1 rows and labels) while the block runs: ``"t_plus_1"`` — the
+    labels left unshifted (the block predicts t + 1, not t + 2);
+    ``"local"`` — each rank rolling its own shard, no shift across ranks;
+    ``"seq_only"`` — on a 2D mesh the shift over ``seq`` alone instead of
+    the (seq, head) pair's sequence order."""
+    from repro_torch.parallel.comm import shift as comm_shift
+    right, g = model._next_rows, model.seq_group
+
+    def ended(out, labels):
+        if labels and (g is None or g.rank == g.size - 1):
+            out[:, -1] = -100
+        return out
+
+    def t_plus_1(x, labels=False):
+        return x.clone() if labels else right(x)
+
+    def local(x, labels=False):
+        return ended(torch.cat([x[:, 1:], x[:, :1]], dim=1), labels)
+
+    def seq_only(x, labels=False):
+        s = model.mesh.comms[model.par.seq_axis]
+        nxt = (s.shift([x[:, :1]], -1).wait()[0] if labels
+               else comm_shift(s, x[:, :1], -1))
+        return ended(torch.cat([x[:, 1:], nxt], dim=1), labels)
+    model._next_rows = {"t_plus_1": t_plus_1, "local": local,
+                        "seq_only": seq_only}[kind]
+    try:
+        yield
+    finally:
+        del model._next_rows
+
+
+@contextlib.contextmanager
+def _mtp_rows(model, rows):
+    """While the block runs, the MTP head's logits (each ``loss``'s second
+    cross-entropy) at this rank's positions ``rows``, in float32, appended
+    to the list it yields."""
+    got, base, n = [], model._ce, [0]
+
+    def ce(logits, labels):
+        n[0] += 1
+        if n[0] % 2 == 0:
+            got.append(logits[:, rows].detach().float())
+        return base(logits, labels)
+    model._ce = ce
+    try:
+        yield got
+    finally:
+        del model._ce
+
+
+def _metrics(loss, met):
+    out = {k: float(v.detach()) for k, v in met.items()}
+    out["loss"] = float(loss.detach())
+    return out
+
+
+def _p25_train(cfg):
+    """(a) at one rank: step 1's loss and every gradient leaf at T
+    ``P25_GRAD_T`` through kernels A, C and D against the plain attention
+    replaying the kernel run's experts (the MTP block's leaves read apart),
+    MTP labels of t + 1 rejected; then ``P25_STEPS`` AdamW steps of
+    ``P25_T`` tokens under remat_aware."""
+    m = cfg.moe
+    sites = cfg.n_layers + cfg.mtp_depth      # attention calls a pass
+    b = SyntheticTokens(cfg, ShapeSpec("chip25", P25_GRAD_T, 1, "train"),
+                        device=DEV, seed=0).batch(0)
+    base = DecoderLM(cfg, DEV).init(seed=P25_SEED)
+    names = _leaf_names(base)
+    mtp = [i for i, n in enumerate(names) if n.startswith("/mtp/")]
+    say(f"  (a) {sum(t.numel() for t in leaves(base)) / 1e9:.3f} B "
+        f"parameters with the MTP block's "
+        f"{sum(t.numel() for t in leaves(base['mtp'])) / 1e9:.3f} B")
+    check(len(mtp) == len(leaves(base["mtp"])), "the MTP block's leaves")
+
+    def grads(impl, router, fault=None):
+        model = DecoderLM(cfg, DEV, impl=impl)
+        params = trainable(base)
+        with router, (_p25_fault(model, fault) if fault
+                      else contextlib.nullcontext()):
+            loss, met = model.loss(params, b)
+            g = torch.autograd.grad(loss, leaves(params))
+        torch.cuda.synchronize()
+        return _metrics(loss, met), g
+
+    build.reset_launches()
+    rk = _Router()
+    mk_, g_k = grads(None, rk)
+    got = {k: build.LAUNCHES[k] for k in P14_KERNELS}
+    check(all(got[k] == sites for k in P14_KERNELS), f"(a) step 1 "
+          f"launches {got}, want {sites} each (2 layers and the MTP block)")
+    rr = _Router(calls=rk.seen)
+    mr, g_r = grads("ref", rr)
+    check(len(rr.seen) == len(rk.seen) and all(
+        torch.equal(x, y) for x, y in zip(rr.seen, rk.seen)),
+        "(a) the plain run did not replay every expert choice")
+    err, leaf = _worst_leaf(g_k, g_r, names)
+    err_m, leaf_m = _worst_leaf([g_k[i] for i in mtp], [g_r[i] for i in mtp],
+                                [names[i] for i in mtp])
+    del g_k
+    mf, g_f = grads(None, _Router(calls=rk.seen), "t_plus_1")
+    bad, bad_leaf = _worst_leaf(g_f, g_r, names)
+    del g_f, g_r, base
+    _free()
+    d_loss = abs(mk_["loss"] - mr["loss"])
+    say(f"  (a) step 1 at T {P25_GRAD_T} (remat_aware, {len(rk.seen)} MoE "
+        f"routings): kernels loss {mk_['loss']:.6f} ce {mk_['ce']:.6f} aux "
+        f"{mk_['aux']:.6e} mtp_ce {mk_['mtp_ce']:.6f}; plain attention "
+        f"replaying the experts loss {mr['loss']:.6f} mtp_ce "
+        f"{mr['mtp_ce']:.6f}; |Δloss| {d_loss:.3e} (limit "
+        f"{P14_LOSS_TOL:.3e} of |loss|), |Δmtp_ce| "
+        f"{abs(mk_['mtp_ce'] - mr['mtp_ce']):.3e}; launches {got}")
+    say(f"  (a) worst gradient leaf max|Δg| / max|g| over {len(names)} "
+        f"leaves: {err:.4f} ({leaf}; limit {GRAD_REL_TOL}), over the MTP "
+        f"block's {len(mtp)}: {err_m:.4f} ({leaf_m}); control, MTP labels "
+        f"of t + 1: {bad:.4f} ({bad_leaf}), mtp_ce {mf['mtp_ce']:.6f}")
+    check(d_loss <= P14_LOSS_TOL * abs(mr["loss"]), f"(a) step 1 loss "
+          f"{mk_['loss']} vs plain {mr['loss']}")
+    check(err <= GRAD_REL_TOL, f"(a) kernel grads vs plain: {leaf} {err}")
+    check(bad > GRAD_REL_TOL, f"(a) the gradient limit does not reject MTP "
+          f"labels of t + 1 ({bad_leaf} {bad})")
+    ds = SyntheticTokens(cfg, ShapeSpec("chip25", P25_T, 1, "train"),
+                         device=DEV, seed=0)
+    batches = [ds.batch(i) for i in range(P25_STEPS)]
+    tc = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=P25_STEPS)
+    runs, launches, peak, _ = _train_policy(cfg, "remat_aware", batches, tc,
+                                            seed=P25_SEED,
+                                            kernels=P14_KERNELS)
+    for i, (mt, sec) in enumerate(runs):
+        check(mt["skipped_nonfinite"] == 0 and all(
+            np.isfinite(mt[k]) for k in ("loss", "ce", "aux", "mtp_ce")),
+            f"(a) step {i + 1}: {mt}")
+        say(f"  (a) step {i + 1}: loss {mt['loss']:.4f} ce {mt['ce']:.4f} "
+            f"aux {mt['aux']:.6e} mtp_ce {mt['mtp_ce']:.4f} gnorm "
+            f"{mt['gnorm']:.3f} step {sec:.3f} s")
+    for k in P14_KERNELS:
+        check(launches[k] == sites * P25_STEPS, f"(a) {k} launched "
+              f"{launches[k]} times, want {sites} a step")
+    tok_s = (P25_STEPS - 1) * P25_T / sum(sec for _, sec in runs[1:])
+    say(f"  (a) {tok_s:.1f} tokens/s over steps 2-{P25_STEPS}; launches a "
+        "step " + ", ".join(f"{k} {launches[k] // P25_STEPS}"
+                            for k in P14_KERNELS)
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    return dict(launches=launches, err=err, err_mtp=err_m, ctl=bad,
+                d_loss=d_loss, tok_s=tok_s, peak=peak,
+                losses=[mt["loss"] for mt, _ in runs],
+                step_s=[sec for _, sec in runs])
+
+
+def _dropless_capacity(cfg, calls, splits):
+    """The least capacity factor (a multiple of 1/64) at which no (token,
+    expert) pair of the recorded routing ``calls`` drops when each call's
+    rows are dispatched in ``split`` equal blocks, for every split of
+    ``splits``."""
+    m, cf = cfg.moe, 0.0
+    for split in splits:
+        for c in calls:
+            n = c.shape[0] // split
+            for j in range(split):
+                load = int(torch.bincount(c[j * n:(j + 1) * n].reshape(-1),
+                                          minlength=m.n_routed).max())
+                cf = max(cf, load * m.n_routed / (n * m.top_k))
+    return -(-cf * 64 // 1) / 64
+
+
+def _p25_one(cfg, tmp):
+    """(b) and (c)'s one process: ``P25_RANK_T`` tokens through the kernels
+    on the seed-25 weights, its MTP logits at every shard's last
+    ``P25_EDGE`` positions (the ranks' shards: 4 of ``P25_RANK_T / 4``, on
+    both meshes), saved with its loss, ce, aux, mtp_ce and expert choices
+    at ``tmp/one.pt``, its gradients at ``tmp/grads1.pt``; and the least
+    capacity factor at which the ranks' dispatches of its routing drop no
+    pair (:func:`_dropless_capacity`; their MoE buffers shrink with it)."""
+    one = DecoderLM(cfg, DEV)
+    params = trainable(one.init(seed=P25_SEED))
+    b0 = SyntheticTokens(cfg, ShapeSpec("chip25r", P25_RANK_T, 1, "train"),
+                         device=DEV, seed=0).batch(0)
+    n = P25_RANK_T // P25_RANKS
+    edges = torch.cat([torch.arange((p + 1) * n - P25_EDGE, (p + 1) * n)
+                       for p in range(P25_RANKS)]).to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rk = _Router()
+    with rk, _mtp_rows(one, edges) as lg:
+        loss, met = one.loss(params, b0)
+        gs = torch.autograd.grad(loss, leaves(params))
+    first = _metrics(loss, met)
+    peak = torch.cuda.max_memory_allocated()
+    del loss, met
+    torch.save([g.cpu() for g in gs], os.path.join(tmp, "grads1.pt"))
+    del gs
+    cf = _dropless_capacity(cfg, rk.seen, [r for r, _ in P25_MESHES])
+    torch.save({"calls": [c.cpu() for c in rk.seen], "edges": lg[0].cpu(),
+                "first": first, "capacity_factor": cf},
+               os.path.join(tmp, "one.pt"))
+    names = _leaf_names(params)
+    del one, params, rk, lg
+    _free()
+    return first, peak, names, cf
+
+
+def _p25_mesh(rank, mesh, cfg, shape, one, ref_all):
+    """One mesh of the world: step 1's loss, ce, aux, mtp_ce and summed
+    gradients replaying the one process's expert choices, held to its on
+    the card (:func:`_p15_grad_err`), the MTP logits at this shard's last
+    ``P25_EDGE`` positions against its; on the 1D mesh a step asked for as
+    zigzag; the planted shift fault of the mesh, forward only."""
+    par = make_parallel_config(mesh, shape, schedule="balanced")
+    two_d = par.head_axis is not None and mesh.size(par.head_axis) > 1
+    model = DecoderLM(cfg, DEV, mesh=mesh, par=par)
+    params = trainable(model.init(seed=P25_SEED))
+    data = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                           par=par)
+    b0 = data.batch(0)
+    s, r = mesh.coord(par.seq_axis), mesh.size(par.seq_axis)
+    n = P25_RANK_T // r              # the MoE rows seq shard s dispatches
+    calls = [c[s * n:(s + 1) * n].to(DEV) for c in one["calls"]]
+    shard, n_loc = model.seq_rank, b0["tokens"].shape[1]
+    ref_e = one["edges"][:, shard * P25_EDGE:(shard + 1) * P25_EDGE].to(DEV)
+    names = _leaf_names(params)
+    out = {"seq": s, "shard": shard, "tokens": n_loc,
+           "expert_rows": (params["moe_layers"][0]["moe"]["wg"].shape[0],
+                           params["mtp"]["layer"]["moe"]["wg"].shape[0])}
+
+    def run(m, batch, fault=None, grad=True):
+        rr, kp = _Router(calls=calls), _Keep()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with rr, kp, (_p25_fault(m, fault) if fault
+                      else contextlib.nullcontext()), \
+                _mtp_rows(m, slice(-P25_EDGE, None)) as lg, \
+                (contextlib.nullcontext() if grad else torch.no_grad()):
+            loss, met = m.loss(params, batch)
+            g = torch.autograd.grad(loss, leaves(params)) if grad else None
+        torch.cuda.synchronize()
+        got = dict(first=_metrics(loss, met),
+                   sec=time.perf_counter() - t0,
+                   edge=float((lg[0] - ref_e).abs().max()
+                              / ref_e.abs().max()),
+                   launches={k: build.LAUNCHES[k] for k in P14_KERNELS},
+                   dropped=sum(int((~k).sum()) for k in kp.seen),
+                   replayed=all(torch.equal(a, c) for a, c in
+                                zip(rr.seen, calls))
+                   and len(rr.seen) == (len(calls) if grad
+                                        else len(calls) // 2))
+        return got, g
+
+    torch.cuda.reset_peak_memory_stats()
+    res, raw = run(model, b0)
+    from repro_torch.train.step import sum_grads
+    grads, sharded = sum_grads(model, params, raw)     # in place
+    del raw
+    _free()
+    ref = [TF.expert_rows(cfg, x, model.expert_group) if sh
+           else (x if rank == 0 else None)
+           for x, sh in zip(ref_all, sharded)]
+    res["grad_err"] = _p15_grad_err(model, grads, sharded, ref, names)
+    del grads, ref
+    res["peak"] = torch.cuda.max_memory_allocated()
+    out["balanced"] = res
+    _free()
+    if not two_d:
+        zpar = make_parallel_config(mesh, shape, schedule="zigzag")
+        mz = DecoderLM(cfg, DEV, mesh=mesh, par=zpar)
+        bz = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                             par=zpar).batch(0)
+        res, gz = run(mz, bz)
+        del gz
+        res["contiguous"] = bool(torch.equal(
+            mz.positions(n_loc).cpu(),
+            torch.arange(shard * n_loc, (shard + 1) * n_loc)))
+        res["same_tokens"] = bool(torch.equal(bz["tokens"], b0["tokens"]))
+        out["zigzag"] = res
+        _free()
+    fault = "seq_only" if two_d else "local"
+    out["fault"], _ = run(model, b0, fault, grad=False)
+    out["fault"]["name"] = fault
+    out["comm_s"] = _comm_seconds(list({
+        id(c): c for c in (*mesh.comms.values(), mesh.world)}.values()))
+    del params, model
+    _free()
+    return out
+
+
+def _p25_rank(rank, tmp):
+    """One rank of (b) and (c)'s world: :func:`_p25_mesh` on the
+    (seq, head) = (4, 1) mesh, then on (2, 2).  Each rank keeps to its
+    quarter of the card (``P25_RANK_MEM``), so its allocator returns its
+    cached blocks before it takes memory another rank needs."""
+    if DEV.type == "cuda":
+        torch.cuda.set_per_process_memory_fraction(P25_RANK_MEM)
+    shape = ShapeSpec("chip25r", P25_RANK_T, 1, "train")
+    one = torch.load(os.path.join(tmp, "one.pt"))
+    cfg = _p25_cfg()
+    cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=one["capacity_factor"]))
+    ref_all = torch.load(os.path.join(tmp, "grads1.pt"), mmap=True)
+    out = {"rank": rank}
+    for r, u in P25_MESHES:
+        mesh = (make_local_mesh(seq=r, device=DEV) if u == 1
+                else make_seq2d_mesh(r, u, device=DEV))
+        out[(r, u)] = _p25_mesh(rank, mesh, cfg, shape, one, ref_all)
+        out["transport"] = mesh.transport
+        del mesh
+        _free()
+    out["comm_s"] = {k: sum(out[m]["comm_s"][k] for m in P25_MESHES)
+                     for k in ("shift", "a2a", "reduce")}
+    return out
+
+
+def _p25_ranks(cfg):
+    """(b) 4 cuda-ipc ranks on (seq, head) = (4, 1) and (c) on (2, 2),
+    ``P25_RANK_T`` tokens, balanced, held to one process on the same
+    weights, tokens and expert choices: the loss, aux and mtp_ce within
+    2^-8, every summed gradient leaf within 5% of max |g|, the MTP logits
+    at every shard's last 64 positions within 5% of max |logit| (the
+    shard-edge gate, which each mesh's planted shift fault must miss); a
+    step asked for as zigzag runs balanced on contiguous tokens."""
+    m, a = cfg.moe, cfg.attn
+    sites = cfg.n_layers + cfg.mtp_depth
+    n_loc = P25_RANK_T // P25_RANKS
+    say(f"  (b, c) {P25_RANK_T} tokens ({n_loc} a rank; at 4,096 a rank "
+        f"the four ranks' two vocab-wide heads and gradients do not fit "
+        f"the card), experts {m.n_routed // P25_MESHES[0][0]} a rank on "
+        f"(4, 1) and {m.n_routed // P25_MESHES[1][0]} a seq rank on (2, 2), "
+        "no optimizer state")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        first, peak1, names, cf = _p25_one(cfg, tmp)
+        free, total = (torch.cuda.mem_get_info() if DEV.type == "cuda"
+                       else (0, 0))
+        say(f"  (b, c) P = 1 ({time.perf_counter() - t0:.1f} s, saves "
+            f"included; peak {peak1 / 2**30:.2f} GiB): loss "
+            f"{first['loss']:.6f} ce {first['ce']:.6f} aux "
+            f"{first['aux']:.6e} mtp_ce {first['mtp_ce']:.6f}; the ranks "
+            f"dispatch its routing at capacity factor {cf:g}, the least "
+            f"at which none of their pairs drops; the card has "
+            f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+        t0 = time.perf_counter()
+        saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = P25_ALLOC
+        try:
+            res = spawn(_p25_rank, P25_RANKS, (tmp,), device=DEV,
+                        timeout=P25_TIMEOUT, threads=2)
+        finally:
+            if saved is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    _say_comm(25, res)
+    check(all(r["transport"] == P8_TRANSPORT for r in res),
+          f"transport {[r['transport'] for r in res]}")
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+    p2 = sp.build_plan2d("balanced", mk.causal(), *P25_MESHES[1],
+                         n_loc, Hq=a.n_heads, Hkv=a.n_heads)
+    plan1 = _plan_launches("balanced", P25_RANKS, P25_RANK_T)
+    launches = dict.fromkeys(P14_KERNELS, 0)
+    out = {}
+    for (r, u), tag in zip(P25_MESHES, ("b", "c")):
+        xs = [x[(r, u)] for x in res]
+        bal = [x["balanced"] for x in xs]
+        f0 = bal[0]["first"]
+        d = {k: rel(f0[k], first[k]) for k in ("loss", "aux", "mtp_ce")}
+        err, leaf = bal[0]["grad_err"]
+        edge = max(b["edge"] for b in bal)
+        ctl = max(x["fault"]["edge"] for x in xs)
+        say(f"  ({tag}) (seq, head) = ({r}, {u}): loss {f0['loss']:.6f} ce "
+            f"{f0['ce']:.6f} aux {f0['aux']:.6e} mtp_ce {f0['mtp_ce']:.6f}; "
+            "relative |Δ| vs P = 1: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in d.items())
+            + f" (limit {P15_TOL:.3e}); worst gradient leaf max|Δg| / "
+            f"max|g| {err:.4f} ({leaf}; limit {GRAD_REL_TOL}); MTP logits "
+            f"at the shards' last {P25_EDGE} positions, worst shard "
+            f"{edge:.4e} of max |logit| (limit {LOGIT_REL_TOL}); control "
+            f"{xs[0]['fault']['name']}: edges {ctl:.4e}, loss "
+            f"{xs[0]['fault']['first']['loss']:.6f}")
+        check(all(v <= P15_TOL for v in d.values()), f"({tag}) vs P = 1: "
+              f"{d}")
+        check(len({b["first"]["loss"] for b in bal}) == 1,
+              f"({tag}) the ranks' losses disagree")
+        check(all(b["replayed"] for b in bal), f"({tag}) a rank did not "
+              "replay every expert choice")
+        check(all(x["dropped"] == 0 for x in bal + [x["fault"] for x in xs]
+                  + [x["zigzag"] for x in xs if "zigzag" in x]),
+              f"({tag}) a rank dropped (token, expert) pairs")
+        check(err <= GRAD_REL_TOL, f"({tag}) gradients vs P = 1: {leaf} "
+              f"{err}")
+        check(edge <= LOGIT_REL_TOL, f"({tag}) shard-edge MTP logits {edge}")
+        check(ctl > LOGIT_REL_TOL, f"({tag}) the shard-edge gate does not "
+              f"reject {xs[0]['fault']['name']} ({ctl})")
+        for x in xs:
+            ex = m.n_routed // r
+            check(x["expert_rows"] == (ex, ex), f"({tag}) rank expert rows "
+                  f"{x['expert_rows']}, want {ex}")
+            check(x["tokens"] == n_loc, f"({tag}) tokens {x['tokens']}")
+            if u == 1:
+                want = (sites * plan1[x["shard"]],) * 2
+            else:
+                want = (sites * _p18_calls(p2.inner, x["seq"]),
+                        sites * _p18_calls(p2.inner, x["seq"], True))
+            got = x["balanced"]["launches"]
+            check(want[0] > 0 and got["flash_fwd_pair"] == want[0]
+                  and got["flash_bwd_dq"] == got["flash_bwd_dkv"] == want[1],
+                  f"({tag}) rank {x['shard']}: launches {got}, want A "
+                  f"{want[0]}, C/D {want[1]}")
+            for k in P14_KERNELS:
+                launches[k] += got[k]
+            say(f"  ({tag}) shard {x['shard']}: step {x['balanced']['sec']:.3f}"
+                f" s, peak {x['balanced']['peak'] / 2**30:.2f} GiB, launches "
+                f"A/C/D {want[0]}/{want[1]}/{want[1]}, edge "
+                f"{x['balanced']['edge']:.4e}, control edge "
+                f"{x['fault']['edge']:.4e}")
+        if u == 1:
+            zz = [x["zigzag"] for x in xs]
+            same = all(z["first"]["loss"] == b["first"]["loss"]
+                       for z, b in zip(zz, bal))
+            check(all(z["contiguous"] and z["same_tokens"] for z in zz),
+                  "(b) zigzag asked: the tokens are not the contiguous "
+                  "shards")
+            check(all(z["launches"] == b["launches"] for z, b in
+                      zip(zz, bal)) and all(z["replayed"] for z in zz),
+                  "(b) zigzag asked did not run balanced's kernel calls")
+            check(rel(zz[0]["first"]["loss"], first["loss"]) <= P15_TOL,
+                  f"(b) zigzag asked: loss {zz[0]['first']['loss']}")
+            say(f"  (b) a step asked for as zigzag ran balanced on "
+                f"contiguous tokens: loss {zz[0]['first']['loss']:.6f} "
+                f"({'bitwise' if same else 'not bitwise'} balanced's), the "
+                f"same kernel calls a rank")
+            for z in zz:
+                for k in P14_KERNELS:
+                    launches[k] += z["launches"][k]
+        out[tag] = dict(d=d, grad_err=err, edge=edge, ctl=ctl)
+    say(f"  (b, c) world of {P25_RANKS} ranks: {wall:.1f} s, spawn included")
+    out.update(launches=launches, peak1=peak1, wall=wall)
+    return out
+
+
+def _key_err(got, ref, show=0):
+    """Worst over the keys both hold of max |Δ| / max |ref| of a row, and
+    the number of rows; with ``show``, the rows over LOGIT_REL_TOL and
+    the ``show`` worst (request, position) keys are printed."""
+    keys = [k for k in ref if k in got]
+    check(keys, "no logits row in common")
+    errs = {k: float((got[k].float() - ref[k].float()).abs().max()
+                     / ref[k].float().abs().max()) for k in keys}
+    if show:
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:show]
+        say(f"    rows over {LOGIT_REL_TOL}: "
+            f"{sum(e > LOGIT_REL_TOL for e in errs.values())} of "
+            f"{len(errs)}; worst (request, position): " + ", ".join(
+                f"{k} {e:.4e}" for k, e in worst))
+    return max(errs.values()), len(keys)
+
+
+def _p25_serve():
+    """(d) deepseek-v3-671b at full width, 2 of 61 layers, all 256 routed
+    experts, its MTP block loaded and unused, bf16, seed 25: the paged
+    Engine (kernel A's latent route for the chunks, kernel B over the
+    latent pool: 128 query heads on one latent head) and FixedSlotEngine
+    (A's pair route for the whole-prompt prefill) serve phase 4's prompts,
+    32 greedy tokens; every decode step's logits within 5% of max |logit|
+    of the same engine on the plain versions replaying the kernel run's
+    expert choices, teacher-forced; the control, each decode one position
+    early, rejected."""
+    cfg = _p25_cfg(get_config(P25_ARCH).moe.n_routed)
+    m, a = cfg.moe, cfg.attn
+    model = DecoderLM(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(seed=P25_SEED)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    n_mtp = sum(t.numel() for t in leaves(params["mtp"]))
+    check("mtp" in params and n_mtp > 0, "the MTP block is not loaded")
+    say(f"  (d) {cfg.name}: {cfg.n_layers} layers ({m.n_dense_layers} dense, "
+        f"d_ff {m.d_dense_ff}, + {cfg.n_layers - m.n_dense_layers} MoE of "
+        f"{m.n_routed} routed + {m.n_shared} shared top-{m.top_k}, d_expert "
+        f"{m.d_expert}, capacity {m.capacity_factor}) and the MTP block, "
+        f"d_model {cfg.d_model}, MLA {a.n_heads} heads q_lora "
+        f"{a.q_lora_rank} kv_lora {a.kv_lora_rank}, vocab {cfg.vocab}, "
+        f"{n_par / 1e9:.3f} B parameters ({n_mtp / 1e9:.3f} B in the MTP "
+        f"block, loaded and unused), made on the card in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    rng = np.random.default_rng(P25_SEED)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in P4_LENS]
+    warm = Engine(model, params, **P4_ENGINE)
+    warm.submit(prompts[3][:P10_WARM], max_new_tokens=2)
+    warm.run()
+    FixedSlotEngine(model, params).generate(
+        {"tokens": prompts[3][None, :P10_WARM]}, 2)
+    del warm
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    # the paged Engine
+    greedy = [0.0] * len(prompts)
+
+    def paged(m, router, forced=None, n_new=P4_NEW):
+        with router:
+            return _p9_run(m, params, prompts, greedy, P4_ENGINE, n_new,
+                           router=router, forced=forced)
+    build.reset_launches()
+    rk = _Router()
+    van = paged(model, rk)
+    lp = dict(build.LAUNCHES)
+    check(van["eng"].cache.layout == "mla", "the engine's pool is not "
+          "latent")
+    check(lp["flash_fwd_latent"] > 0 and lp["paged_decode"] > 0
+          and lp["flash_fwd"] == lp["flash_fwd_pair"] == 0,
+          f"(d) paged Engine launches {lp}")
+    for i, o in enumerate(van["out"]):
+        check(len(o) == P4_NEW and bool(((o >= 0) & (o < cfg.vocab)).all()),
+              f"(d) request {i}: {o}")
+    st = van["st"]
+    pf, dc = st["prefill_seconds"], st["decode_seconds"]
+    forced = {(i, len(p) + j): int(t) for i, p in enumerate(prompts)
+              for j, t in enumerate(van["out"][i])}
+    plain = DecoderLM(cfg, device=DEV, impl="ref")
+    rr = _Router(calls=rk.seen)
+    ref = paged(plain, rr, forced)
+    check(len(rr.seen) == len(rk.seen) and all(
+        torch.equal(a, b) for a, b in zip(rr.seen, rk.seen)),
+        "(d) the plain engine did not replay every expert choice")
+    err, n_rows = _key_err(van["rec"]["logits"], ref["rec"]["logits"], 4)
+    with _decode_fault(plain, "pos", by=-1):
+        ctl = paged(plain, _Router(calls=rk.seen), forced, P25_CTL_NEW)
+    bad, _ = _key_err(ctl["rec"]["logits"], ref["rec"]["logits"])
+    del ref, ctl, rk
+    _free()
+    out["paged"] = dict(launches=lp, err=err, ctl=bad,
+                        prefill_tok_s=st["prefill_tokens"] / pf,
+                        decode_tok_s=st["decode_tokens"] / dc,
+                        decode_ms=1e3 * dc / st["decode_steps"])
+    say(f"  (d) paged Engine: prefill {out['paged']['prefill_tok_s']:.1f} "
+        f"tok/s ({pf:.3f} s), decode {out['paged']['decode_tok_s']:.1f} "
+        f"tok/s ({out['paged']['decode_ms']:.2f} ms a step); launches A "
+        f"(latent) {lp['flash_fwd_latent']}, B {lp['paged_decode']}; "
+        f"{n_rows} decode rows, worst max|Δ| / max|logit| vs the plain "
+        f"engine replaying the experts {err:.4e} (limit {LOGIT_REL_TOL}); "
+        f"control, decode one position early: {bad:.4e}")
+    check(err <= LOGIT_REL_TOL, f"(d) paged Engine logits {err}")
+    check(bad > LOGIT_REL_TOL, f"(d) the paged gate does not reject the "
+          f"early decode ({bad})")
+    # FixedSlotEngine: one prompt at a time (its batch shares one length)
+    times, logs, toks, calls = {}, [], [], []
+    model.prefill = _timed(times, "prefill", model.prefill)
+    model.decode = _timed(times, "decode", model.decode)
+    build.reset_launches()
+    for p in prompts:
+        r = _Router()
+        with r, _recorded(model) as lg:
+            t, _ = FixedSlotEngine(model, params).generate(
+                {"tokens": p[None]}, P4_NEW)
+        logs.append(torch.stack(lg))
+        toks.append(t.cpu())
+        calls.append(r.seen)
+    lf = dict(build.LAUNCHES)
+    del model.prefill, model.decode
+    check(lf["flash_fwd_pair"] == cfg.n_layers * len(prompts),
+          f"(d) FixedSlotEngine launches {lf}: kernel A's pair route must "
+          f"launch once a layer a prompt")
+    errs, first = [], None
+    for p, kern, t, c in zip(prompts, logs, toks, calls):
+        with _Router(calls=c), _recorded(plain, t) as lg:
+            FixedSlotEngine(plain, params).generate({"tokens": p[None]},
+                                                    P4_NEW)
+        first = torch.stack(lg) if first is None else first
+        errs.append(_step_err(kern, torch.stack(lg)))
+    with _Router(calls=calls[0]), _decode_fault(plain, "pos", by=-1), \
+            _recorded(plain, toks[0]) as lg:
+        FixedSlotEngine(plain, params).generate({"tokens": prompts[0][None]},
+                                                P25_CTL_NEW)
+    bad = _step_err(torch.stack(lg)[1:], first[1:P25_CTL_NEW + 1])
+    pf, dc = sum(times["prefill"]), times["decode"]
+    out["fixed"] = dict(launches=lf, err=max(errs), ctl=bad,
+                        prefill_tok_s=sum(P4_LENS) / pf,
+                        decode_ms=1e3 * float(np.median(dc)),
+                        decode_tok_s=len(dc) / sum(dc))
+    say(f"  (d) FixedSlotEngine: prefill {out['fixed']['prefill_tok_s']:.1f}"
+        f" tok/s ({pf:.3f} s for the 4 prompts), decode "
+        f"{out['fixed']['decode_ms']:.2f} ms a step (median; B 1), launches "
+        f"{ {k: n for k, n in lf.items() if n} }; worst step max|Δ| / "
+        f"max|logit| vs the plain engine replaying the experts, per prompt "
+        + ", ".join(f"{e:.4e}" for e in errs)
+        + f" (limit {LOGIT_REL_TOL}); control, decode one position early: "
+        f"{bad:.4e}")
+    check(max(errs) <= LOGIT_REL_TOL, f"(d) FixedSlotEngine logits {errs}")
+    check(bad > LOGIT_REL_TOL, f"(d) the fixed-slot gate does not reject "
+          f"the early decode ({bad})")
+    del plain
+    _free()
+    out["idle"] = trace(model, params, prompts)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    say(f"  (d) peak {out['peak'] / 2**30:.2f} GiB allocated")
+    del model, params
+    _free()
+    return out
+
+
+def _p25_kernels():
+    """(e) kernels A, C and D's pair route at deepseek-v3's (1, 4096, 128
+    heads, q/k 192 / v 128), causal, and A's latent route and B at 128
+    heads over one latent head, each held to its plain version at phase
+    3's bars first (A, C, D in bf16 at T 4,096 and float32 at 1,024; the
+    latent shapes in both dtypes, B bitwise batch-invariant); then the
+    bf16 device times by CUDA-graph replay beside the bound, the plain
+    version's and SDPA's (its forward for A, its autograd backward for C
+    and D). Returns the ``v3_*`` keys of the rows."""
+    gen = torch.Generator(device=DEV).manual_seed(P25_SEED)
+    H = V3_DIMS[0]
+    for dt, T in ((torch.bfloat16, P25_T), (torch.float32, 1024)):
+        _pair_case(gen, f"h{H} B1 T{T} causal", 1, T, T, dt, mk.causal(),
+                   dims=V3_DIMS)
+        _free()
+        _pair_bwd_case(gen, f"h{H} B1 T{T} causal v-view", 1, T, T,
+                              dt, mk.causal(), "kv",
+                              repeat=dt == torch.bfloat16, dims=V3_DIMS)
+        _free()
+    latent_checks(H=H, seed=P25_SEED)
+    _free()
+    rows = {}
+    fwd = _pair_fwd_timing(gen, 1, P25_T, V3_DIMS)
+    rows["flash_fwd_pair"] = fwd
+    q, k, v = _pair_inputs(gen, 1, P25_T, P25_T, torch.bfloat16, V3_DIMS)
+    do = randn(gen, (1, P25_T, H, PAIR_DV), torch.bfloat16)
+    kw = dict(mask=mk.causal(), scale=LAT_SCALE)
+    o, lse = flash_fwd(q, k, v, **kw)
+    got = flash_bwd(q, k, v, o, lse, do, **kw)
+    ref = _pair_bwd_ref((q, k, v, o, lse, do), kw)
+    e = {"flash_bwd_dq": float((got[0].float() - ref[0].float()).abs()
+                               .max()),
+         "flash_bwd_dkv": max(float((x.float() - y.float()).abs().max())
+                              for x, y in zip(got[1:], ref[1:]))}
+    del got, ref
+    _free()
+    bwd = _pair_bwd_timing((q, k, v, o, lse, do), kw, e)
+    del q, k, v, o, lse, do
+    _free()
+    rows["flash_bwd_dq_pair"] = bwd["flash_bwd_dq"]
+    rows["flash_bwd_dkv_pair"] = bwd["flash_bwd_dkv"]
+    rows["flash_fwd_latent"] = _latent_fwd_timing(gen, H)
+    rows["paged_decode"] = _paged_timing(gen, 4, 1, H, 1, LAT_DK, 16,
+                                         list(P25_B_LENS), latent=True)
+    return {name: {f"v3_{k}": x for k, x in r.items()}
+            for name, r in rows.items()}
+
+
+def deepseek_v3():
+    """Phase 25: deepseek-v3-671b with multi-token prediction, bf16, seed
+    25, at full width (d_model 7168, MLA of 128 heads with q_lora 1536,
+    kv_lora 512, rope 64, nope 128, v 128; d_expert 2048, d_dense_ff
+    18,432, top-8, 1 shared expert, vocab 129,280), depth cut to 2 of 61
+    layers (1 dense + 1 MoE) beside the MTP block; training keeps 16 of
+    the 256 routed experts.  (a) :func:`_p25_train`; (b, c)
+    :func:`_p25_ranks`; (d) :func:`_p25_serve` at all 256 experts; (e)
+    :func:`_p25_kernels`.  Returns the launches on its paths by kernel row
+    and the rows' ``v3_*`` keys."""
+    t_all = time.perf_counter()
+    cfg = _p25_cfg()
+    m = cfg.moe
+    from repro_torch.models.moe import capacity
+    check(capacity(cfg, P25_T) >= P25_T, f"capacity {capacity(cfg, P25_T)} "
+          f"at capacity factor {m.capacity_factor}: pairs can drop")
+    say(f"  cuts: depth 2 of 61 layers (1 of 3 dense + 1 of 58 MoE) beside "
+        f"the MTP block, to fit the card; training {m.n_routed} of 256 "
+        f"routed experts ({cfg.param_count() / 1e9:.3f} B parameters "
+        f"without the MTP block, bf16 weights and gradients, float32 AdamW "
+        f"moments), capacity factor {m.capacity_factor:g} = E / k (no pair "
+        f"drops, as DeepSeek-V3 trains); the router is the reference's "
+        f"softmax top-k, not DeepSeek-V3's sigmoid with a bias")
+    out = {"launches": {}, "rows": {}}
+
+    def add(name, n):
+        out["launches"][name] = out["launches"].get(name, 0) + n
+    t0 = time.perf_counter()
+    tr = _p25_train(cfg)
+    _free()
+    say(f"  (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rk = _p25_ranks(cfg)
+    _free()
+    say(f"  (b, c) {time.perf_counter() - t0:.1f} s")
+    for src in (tr["launches"], rk["launches"]):
+        add("flash_fwd_pair", src["flash_fwd_pair"])
+        add("flash_bwd_dq_pair", src["flash_bwd_dq"])
+        add("flash_bwd_dkv_pair", src["flash_bwd_dkv"])
+    t0 = time.perf_counter()
+    sv = _p25_serve()
+    say(f"  (d) {time.perf_counter() - t0:.1f} s")
+    for name in ("flash_fwd_latent", "paged_decode", "flash_fwd_pair"):
+        add(name, sv["paged"]["launches"][name]
+            + sv["fixed"]["launches"][name])
+    t0 = time.perf_counter()
+    out["rows"] = _p25_kernels()
+    _free()
+    say(f"  (e) {time.perf_counter() - t0:.1f} s")
+    for name, n in out["launches"].items():
+        out["rows"].setdefault(name, {})["v3_launches"] = n
+    out.update(train=tr, ranks=rk, serve=sv,
+               seconds=time.perf_counter() - t_all)
+    say(f"  phase 25 took {out['seconds']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 5
 
 def ptxas_kernels(text):
@@ -8731,13 +9529,12 @@ LATENT_DESIGN = ("bf16 on the tensor cores: 64-row tiles of (position, head) "
                  "float32: IEEE FMAs on the CUDA cores, 16 x 32 tiles")
 
 
-def time_latent(launches):
-    """Kernel A's latent route at phase 12's serving chunk (Tq 256 at
-    q_offset 768 over 1024 gathered latent rows, 16 heads, bf16): its time,
-    its plain version's, SDPA's with an explicit mask (q/k 576, v 512,
+def _latent_fwd_timing(gen, H):
+    """Kernel A's latent route at a serving chunk (Tq 256 at q_offset 768
+    over 1024 gathered latent rows, H heads, bf16): its time, its plain
+    version's, SDPA's with an explicit mask (q/k 576, v 512,
     ``enable_gqa``), its bound and its error."""
-    gen = torch.Generator(device=DEV).manual_seed(4)
-    q, k, v = _latent_chunk(gen, torch.bfloat16)
+    q, k, v = _latent_chunk(gen, torch.bfloat16, H=H)
     Tq, Tk, off = q.shape[1], k.shape[1], 768
     m = mk.causal(rel_offset=off)
     o, _ = flash_fwd(q, k, v, mask=m, scale=LAT_SCALE)
@@ -8756,11 +9553,10 @@ def time_latent(launches):
         say(f"  sdpa at q/k {LAT_DK}, v {LAT_DV}: {str(e)[:120]}")
         lib = None
     pairs = sum(min(Tk, off + t + 1) for t in range(Tq))
-    flops = 2.0 * LAT_H * pairs * (LAT_DK + LAT_DV)
-    nbytes = 2 * (Tq * LAT_H * (LAT_DK + LAT_DV) + Tk * LAT_DK) \
-        + 4 * Tq * LAT_H
+    flops = 2.0 * H * pairs * (LAT_DK + LAT_DV)
+    nbytes = 2 * (Tq * H * (LAT_DK + LAT_DV) + Tk * LAT_DK) + 4 * Tq * H
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    say(f"  flash_fwd_latent Tq{Tq} Tk{Tk} H{LAT_H}/1 D{LAT_DK}/{LAT_DV} "
+    say(f"  flash_fwd_latent Tq{Tq} Tk{Tk} H{H}/1 D{LAT_DK}/{LAT_DV} "
         f"bf16 causal@{off} ({LATENT_ROUTES[torch.bfloat16][0]}): kernel "
         f"{ms:.4f} ms, device {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} "
         f"TFLOP/s), plain {plain:.4f} ms, sdpa "
@@ -8768,18 +9564,27 @@ def time_latent(launches):
         f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
         f"{b_ms / ms:.3f} of the kernel's time, {b_ms / dev_ms:.3f} of its "
         f"device time), max|Δo| {err:.3e}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fraction": b_ms / ms, "library_ms": lib}
+
+
+def time_latent(launches):
+    """Kernel A's latent route at phase 12's serving chunk (16 heads):
+    :func:`_latent_fwd_timing`; it must beat SDPA's time."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    row = {"name": "flash_fwd_latent", "route": "cuda",
+           "design": LATENT_DESIGN,
+           "source": "src/repro_torch/kernels/csrc/flash_fwd_latent_sm90.cu",
+           "float32_source":
+               "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:157",
+           "launches": launches["flash_fwd_latent"]}
+    row.update(_latent_fwd_timing(gen, LAT_H))
+    ms, lib = row["ms"], row["library_ms"]
     check(lib is None or ms < lib, f"flash_fwd_latent: {ms:.4f} ms is not "
           f"faster than SDPA's {lib:.4f} ms")
-    return {"name": "flash_fwd_latent", "route": "cuda",
-            "design": LATENT_DESIGN,
-            "source": "src/repro_torch/kernels/csrc/flash_fwd_latent_sm90.cu",
-            "float32_source":
-                "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:157",
-            "launches": launches["flash_fwd_latent"], "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / ms,
-            "library_ms": lib}
+    return row
 
 
 PAIR_DESIGN = ("bf16 on the tensor cores: one block per 128 q rows (two "
@@ -8800,25 +9605,32 @@ def _sdpa_backend(q, k, v, **kw):
         return f"unknown ({type(e).__name__})"
 
 
-def time_pair(launches):
-    """Kernel A's pair route at phase 13's whole-prompt prefill (B 2, T
-    4096, 16 heads of q/k 192 and v 128, causal, bf16): its device time
-    (20 calls replayed as one CUDA graph) and event time around a call,
-    its plain version's, SDPA's on the same tensors (with the backend its
-    dispatcher takes), its bound and its error."""
-    gen = torch.Generator(device=DEV).manual_seed(5)
-    B, T = P13_B, P13_T
-    q, k, v = _pair_inputs(gen, B, T, T, torch.bfloat16)
+def _pair_fwd_timing(gen, B, T, dims=PAIR_SHAPE):
+    """Kernel A's pair route at a causal whole-prompt shape (B, T, ``dims``'
+    heads of q/k 192 and v 128, bf16): its device time (20 calls replayed
+    as one CUDA graph) and event time around a call, its plain version's,
+    SDPA's on the same tensors (with the backend its dispatcher takes),
+    its bound and its error."""
+    H = dims[0]
+    q, k, v = _pair_inputs(gen, B, T, T, torch.bfloat16, dims)
     m = mk.causal()
+    # the plain version over every head at once, or (more than 16 heads)
+    # head slice by head slice, each (h, T, T) float32 at most 2.1 GB
+    slices = ([(slice(None), slice(None))] if H <= PAIR_H
+              else _head_slices(q, k))
+
+    def ref():
+        return [chunk_attn_ref(q[:, :, sq], k[:, :, skv], v[:, :, skv],
+                               mask=m, scale=LAT_SCALE)[0]
+                for sq, skv in slices]
     o, _ = flash_fwd(q, k, v, mask=m, scale=LAT_SCALE)
-    o_r, _ = chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE)
+    o_r = torch.cat(ref(), dim=2)
     err = float((o.float() - o_r.float()).abs().max())
     del o, o_r
     _free()
     dev_ms = graph_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
     ms = cuda_ms(lambda: flash_fwd(q, k, v, mask=m, scale=LAT_SCALE))
-    plain = cuda_ms(lambda: chunk_attn_ref(q, k, v, mask=m, scale=LAT_SCALE),
-                    reps=5, warmup=1)
+    plain = cuda_ms(ref, reps=5, warmup=1)
     _free()
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     backend = _sdpa_backend(qt, kt, vt, is_causal=True, scale=LAT_SCALE)
@@ -8830,12 +9642,11 @@ def time_pair(launches):
         lib, backend = None, f"none: {str(e)[:120]}"
     del qt, kt, vt
     _free()
-    pairs = B * PAIR_H * T * (T + 1) // 2
+    pairs = B * H * T * (T + 1) // 2
     flops = 2.0 * pairs * (PAIR_DK + PAIR_DV)
-    nbytes = 2 * B * T * PAIR_H * (2 * PAIR_DK + 2 * PAIR_DV) \
-        + 4 * B * T * PAIR_H
+    nbytes = 2 * B * T * H * (2 * PAIR_DK + 2 * PAIR_DV) + 4 * B * T * H
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    say(f"  flash_fwd_pair B{B} T{T} H{PAIR_H} D{PAIR_DK}/{PAIR_DV} bf16 "
+    say(f"  flash_fwd_pair B{B} T{T} H{H} D{PAIR_DK}/{PAIR_DV} bf16 "
         f"causal ({PAIR_ROUTES[torch.bfloat16][0]}): device {dev_ms:.4f} ms "
         f"({flops / dev_ms / 1e9:.1f} TFLOP/s, {b_ms / dev_ms:.3f} of the "
         f"bound), event {ms:.4f} ms a call, plain {plain:.4f} ms, sdpa "
@@ -8844,15 +9655,24 @@ def time_pair(launches):
         f"{nbytes / 1e6:.1f} MB), max|Δo| {err:.3e}")
     del q, k, v
     _free()
-    return {"name": "flash_fwd_pair", "route": "cuda", "design": PAIR_DESIGN,
-            "source": "src/repro_torch/kernels/csrc/flash_fwd_pair_sm90.cu",
-            "float32_source":
-                "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:157",
-            "launches": launches["flash_fwd_pair"], "max_abs_err": err,
-            "ms": dev_ms, "event_ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "bound_fraction": b_ms / dev_ms,
-            "library_ms": lib, "library_backend": backend}
+    return {"max_abs_err": err, "ms": dev_ms, "event_ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fraction": b_ms / dev_ms, "library_ms": lib,
+            "library_backend": backend}
+
+
+def time_pair(launches):
+    """Kernel A's pair route at phase 13's whole-prompt prefill (B 2, T
+    4096, 16 heads): :func:`_pair_fwd_timing`."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    row = {"name": "flash_fwd_pair", "route": "cuda", "design": PAIR_DESIGN,
+           "source": "src/repro_torch/kernels/csrc/flash_fwd_pair_sm90.cu",
+           "float32_source":
+               "src/repro_torch/kernels/csrc/flash_fwd_latent.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:157",
+           "launches": launches["flash_fwd_pair"]}
+    row.update(_pair_fwd_timing(gen, P13_B, P13_T))
+    return row
 
 
 def time_flash_train(seen):
@@ -8926,10 +9746,11 @@ def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens, latent=False):
     (CUDA events around one call), the host time of one call (a host clock
     around 1000 calls, no sync inside), the plain version's time, the bound
     and the error against the plain version.  ``latent``: the MLA latent
-    pool (q/k 576 over one kv head, v its 512-column view, Hq 16), whose
-    bytes are the latent rows read once."""
+    pool (q/k 576 over one kv head, v its 512-column view, Hq query
+    heads), whose bytes are the latent rows read once."""
     if latent:
-        q, kp, vp, bt, ln = _latent_pool(gen, B, Tq, lens, torch.bfloat16)
+        q, kp, vp, bt, ln = _latent_pool(gen, B, Tq, lens, torch.bfloat16,
+                                         Hq)
         more = [torch.randn_like(kp) for _ in range(PAGED_POOLS - 1)]
         pools = [(kp, vp)] + [(k, k[..., :LAT_DV]) for k in more]
         sc = LAT_SCALE
@@ -8961,7 +9782,7 @@ def _paged_timing(gen, B, Tq, Hq, Hkv, D, bs, lens, latent=False):
                     reps=5, warmup=1)
     ctx = sum(lens)
     if latent:
-        D, Hq, Hkv = LAT_DK, LAT_H, 1
+        D, Hkv = LAT_DK, 1
         flops = 2.0 * ctx * Hq * Tq * (LAT_DK + LAT_DV)
         nbytes = 2 * (ctx * LAT_DK + B * Tq * Hq * (LAT_DK + LAT_DV)) \
             + 4 * (B + bt.numel())
@@ -9096,15 +9917,17 @@ PAIR_BWD_DESIGN = ("bf16 on the tensor cores: three warpgroups a block, a "
                    "cores at <192, 128>")
 
 
-def time_pair_bwd(launches, seen, errs):
-    """Kernels C and D at materialised MLA's q/k 192, v 128 on phase 14's
-    own backward inputs (B 1, T 8192, 16 heads, bf16, causal, v the strided
-    view): device time (20 calls replayed as one CUDA graph) and event time
-    of each, its plain version's (the plain backward computing just its
-    part, head slice by head slice), SDPA's autograd backward of the pair on
-    the same tensors (the backend its dispatcher takes, named) and the
-    bound."""
-    (q, k, v, o, lse, do), kw = _moved(seen["bwd"], DEV)
+def _pair_bwd_timing(args, kw, errs):
+    """Kernels C and D at q/k 192, v 128 on causal inputs ``args`` = (q, k,
+    v, o, lse, do) (bf16, v the strided view): device time (20 calls
+    replayed as one CUDA graph) and event time of each, its plain
+    version's (the plain backward computing just its part, head slice by
+    head slice), SDPA's autograd backward of the pair on the same tensors
+    (the backend its dispatcher takes, named) and the bound, printed
+    beside ``errs`` (each kernel's max |Δ| against its plain version).
+    Returns {kernel: its keys}."""
+    q, k, v, o, lse, do = args
+    del args
     B, T, H, D = q.shape
     Dv = v.shape[-1]
     scale = kw["scale"]
@@ -9144,14 +9967,14 @@ def time_pair_bwd(launches, seen, errs):
     pairs = B * H * T * (T + 1) // 2
     tk, tv = 2 * B * T * H * D, 2 * B * T * H * Dv   # one bf16 tensor each
     stats = 4 * B * T * H                            # one float32 (B,T,H)
-    rows = []
-    for name, fl, nbytes, src_line in (
+    out = {}
+    for name, fl, nbytes in (
             # C reads q, k, v, o, do, lse; writes dq and delta
             ("flash_bwd_dq", 2.0 * (2 * D + Dv) * pairs,
-             3 * tk + 3 * tv + 2 * stats, 280),
+             3 * tk + 3 * tv + 2 * stats),
             # D reads q, k, v, do, lse, delta; writes dk and dv
             ("flash_bwd_dkv", 2.0 * (2 * D + 2 * Dv) * pairs,
-             3 * tk + 3 * tv + 2 * stats, 322)):
+             3 * tk + 3 * tv + 2 * stats)):
         b_ms, b_by = bound(fl, nbytes, PEAK_BF16_FLOPS)
         ms = dev_ms[name]
         say(f"  {name} pair B{B} T{T} H{H} D{D}/{Dv} bf16 causal: device "
@@ -9160,25 +9983,34 @@ def time_pair_bwd(launches, seen, errs):
             f"{plain_ms[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
             f"{fl / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), max|Δ| vs plain "
             f"{errs[name]:.3e}")
-        rows.append({"name": name + "_pair", "route": "cuda",
-                     "design": PAIR_BWD_DESIGN,
-                     "source":
-                         "src/repro_torch/kernels/csrc/"
-                         "flash_bwd_pair_sm90.cu",
-                     "float32_source":
-                         "src/repro_torch/kernels/csrc/flash_bwd.cu",
-                     "replaces": f"src/repro/kernels/flash_attention.py:"
-                                 f"{src_line}",
-                     "launches": launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "event_ms": ev_ms[name],
-                     "plain_ms": plain_ms[name], "bound_ms": b_ms,
-                     "bound_by": b_by, "bound_fraction": b_ms / ms,
-                     "library_ms": lib, "library_backend": backend,
-                     "library_covers": "flash_bwd_dq+flash_bwd_dkv"})
+        out[name] = {"max_abs_err": errs[name], "ms": ms,
+                     "event_ms": ev_ms[name], "plain_ms": plain_ms[name],
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_fraction": b_ms / ms, "library_ms": lib,
+                     "library_backend": backend}
     say(f"  pair C+D at T {T}: kernels {sum(dev_ms.values()):.4f} ms "
         f"(device), plain {sum(plain_ms.values()):.4f} ms (each part on its "
         f"own), SDPA autograd backward "
         f"{'n/a' if lib is None else f'{lib:.4f} ms'} (backend {backend})")
+    return out
+
+
+def time_pair_bwd(launches, seen, errs):
+    """Kernels C and D at materialised MLA's q/k 192, v 128 on phase 14's
+    own backward inputs (B 1, T 8192, 16 heads, bf16, causal, v the strided
+    view): :func:`_pair_bwd_timing`."""
+    got = _pair_bwd_timing(*_moved(seen["bwd"], DEV), errs)
+    rows = []
+    for name, src_line in (("flash_bwd_dq", 280), ("flash_bwd_dkv", 322)):
+        row = {"name": name + "_pair", "route": "cuda",
+               "design": PAIR_BWD_DESIGN,
+               "source": "src/repro_torch/kernels/csrc/flash_bwd_pair_sm90.cu",
+               "float32_source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+               "replaces": f"src/repro/kernels/flash_attention.py:{src_line}",
+               "launches": launches[name]}
+        row.update(got[name])
+        row["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
+        rows.append(row)
     return rows
 
 
@@ -9508,6 +10340,12 @@ def main():
     wh = whisper()
     _free()
     took(24, t0)
+    say("== phase 25: deepseek-v3-671b with multi-token prediction at full "
+        "width, 2 of 61 layers and the MTP block: training at 1 rank, on 4 "
+        "ranks and on a (2, 2) mesh, serving at 256 experts, kernels A-D "
+        "at 128 heads")
+    v3 = deepseek_v3()
+    _free()
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
@@ -9531,6 +10369,9 @@ def main():
         row.update(wh["rows"].get(row["name"], {}))
         if row["name"] in wh["launches"]:
             row["whisper_launches"] = wh["launches"][row["name"]]
+        # phase 25's paths (``v3_launches``) and times at its shapes
+        row["launches"] += v3["launches"].get(row["name"], 0)
+        row.update(v3["rows"].get(row["name"], {}))
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
         f"{es['launches']}, its latent-ring prefill (all ranks) "
@@ -9544,7 +10385,9 @@ def main():
         f"ranks: a train step, the prefill) {s2d['launches']}, internvl2 "
         f"(3 steps, the engine's first request, a zigzag step on all "
         f"ranks) {vl['launches']}, whisper (2 steps, a step on all ranks, "
-        f"the engine's decode) {wh['launches']}")
+        f"the engine's decode) {wh['launches']}, deepseek-v3 (3 training "
+        f"steps, the 4-rank and (2, 2) steps on all ranks, both engines' "
+        f"kernel runs) {v3['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -249,8 +249,12 @@ def prefix_cache_terms(cfg, *, prompt_len, hit_rate, chunk_tokens=0,
 
 def attention_analytic(cfg, shape, *, seq_shards, batch_shards):
     """The analytic kernel (FLOPs, bytes) a device of every attention site
-    of one (config, shape): the decoders the port runs (dense and MLA;
-    MLA's decode attends its latent rows)."""
+    of one (config, shape): a decoder's self-attention layers and its MTP
+    blocks, a hybrid's shared block (one site every ``hybrid_period``
+    layers, none in an SSM), and the encoder–decoder's encoder
+    self-attention (bidirectional, replicated over the sequence ranks) and
+    decoder cross-attention (queries sharded, the encoder's keys
+    replicated).  MLA's decode attends its latent rows."""
     a = cfg.attn
     if a is None:
         return 0.0, 0.0
@@ -260,12 +264,52 @@ def attention_analytic(cfg, shape, *, seq_shards, batch_shards):
         else a.head_dim
     hd_v = (a.v_head_dim or a.head_dim) if is_mla else a.head_dim
     Hkv = a.n_heads if is_mla else a.n_kv_heads
+    n_self = cfg.n_layers + (cfg.mtp_depth or 0)
+    if cfg.arch_type == "hybrid":
+        n_self = cfg.n_layers // cfg.hybrid_period
+    if cfg.arch_type == "ssm":
+        n_self = 0
+    audio = cfg.arch_type == "audio"
+    F = cfg.n_audio_frames
+    fl = by = 0.0
     if shape.kind in ("train", "prefill"):
-        f, b = _self_attn_site(B_loc=B_loc, T_glob=shape.seq_len,
-                               P=seq_shards, H=a.n_heads, hd_qk=hd_qk,
-                               hd_v=hd_v, Hkv=Hkv, window=a.window,
-                               causal=True, train=shape.kind == "train")
-        return cfg.n_layers * f, cfg.n_layers * b
+        train = shape.kind == "train"
+        T = shape.seq_len
+        if n_self:
+            f, b = _self_attn_site(B_loc=B_loc, T_glob=T, P=seq_shards,
+                                   H=a.n_heads, hd_qk=hd_qk, hd_v=hd_v,
+                                   Hkv=Hkv, window=a.window, causal=True,
+                                   train=train)
+            fl += n_self * f
+            by += n_self * b
+        if audio:
+            f, b = _self_attn_site(B_loc=B_loc, T_glob=F, P=1, H=a.n_heads,
+                                   hd_qk=hd_qk, hd_v=hd_v, Hkv=a.n_heads,
+                                   window=0, causal=False, train=train)
+            fl += cfg.n_enc_layers * f
+            by += cfg.n_enc_layers * b
+            pairs = B_loc * (T // seq_shards) * F
+            f_fwd = 2 * pairs * a.n_heads * 2 * a.head_dim
+            b_fwd = B_loc * F * a.n_heads * a.head_dim * 2 * 2
+            fl += cfg.n_layers * f_fwd * (2.5 if train else 1.0)
+            by += cfg.n_layers * b_fwd * (2.0 if train else 1.0)
+        return fl, by
+    if is_mla:
+        hd_qk, hd_v, Hkv = _decode_dims(a)
+        shards = (seq_shards * batch_shards if shape.global_batch == 1
+                  else seq_shards)
+    else:
+        shards = seq_shards
+    f, b = _decode_attn_site(B=shape.global_batch, S=shape.seq_len,
+                             seq_shards=shards, H=a.n_heads, hd_qk=hd_qk,
+                             hd_v=hd_v, Hkv=Hkv, window=a.window)
+    fl += n_self * f
+    by += n_self * b
+    if audio:
+        B = shape.global_batch
+        fl += cfg.n_layers * 2 * B * F * a.n_heads * 2 * a.head_dim
+        by += cfg.n_layers * B * F * a.n_heads * a.head_dim * 2 * 2
+    return fl, by
     if is_mla:
         hd_qk, hd_v, Hkv = _decode_dims(a)
         shards = (seq_shards * batch_shards if shape.global_batch == 1

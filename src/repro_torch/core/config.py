@@ -7,9 +7,11 @@ attention (MLA) and mixture-of-experts FFN (:class:`MoEConfig`), and for
 the Mamba2 SSM and Zamba2 hybrid families (:class:`SSMConfig`,
 ``hybrid_period``), the InternVL2 vision-language model's stub image
 tokens (``n_image_tokens``) and the Whisper encoder–decoder's encoder
-layers and frame count (``n_enc_layers``, ``n_audio_frames``), so a
-reference config and its port describe the same model; the MTP field
-arrives with the slice that runs it.
+layers and frame count (``n_enc_layers``, ``n_audio_frames``) and
+DeepSeek-V3's multi-token prediction depth (``mtp_depth``), so a
+reference config and its port describe the same model.  ``ARCH_IDS`` and
+``PAPER_ARCH_IDS`` are the reference's lists: every entry has a config
+under ``repro_torch/configs``.
 """
 from __future__ import annotations
 
@@ -90,6 +92,8 @@ class ModelConfig:
     n_audio_frames: int = 0
     # VLM: number of stub patch-embedding tokens prepended to the text
     n_image_tokens: int = 0
+    # DeepSeek-V3 multi-token prediction depth (extra MTP modules)
+    mtp_depth: int = 0
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     citation: str = ""
@@ -178,6 +182,16 @@ SHAPES = {
     "decode_32k":  ShapeSpec("decode_32k",  32_768,  128, "decode"),
     "long_500k":   ShapeSpec("long_500k",   524_288, 1,   "decode"),
 }
+
+
+ARCH_IDS = (
+    "smollm-360m", "mamba2-2.7b", "qwen2.5-14b", "qwen3-8b", "internvl2-2b",
+    "deepseek-v2-lite-16b", "whisper-tiny", "deepseek-v3-671b",
+    "qwen1.5-32b", "zamba2-2.7b",
+)
+
+# the paper's own evaluation models (§4: LLaMA-7B and variants)
+PAPER_ARCH_IDS = ("llama-7b", "llama-gqa", "llama-33h", "llama-16h")
 
 
 def get_config(arch: str) -> ModelConfig:

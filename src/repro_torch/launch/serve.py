@@ -33,6 +33,12 @@ fixed-slot engine over a dense cache that can shard along the sequence.
         --arch deepseek-v2-lite-16b --smoke --device cpu \
         [--nproc 4 --seq-shards 4]
 
+    # DeepSeek-V3 serves as a deepseek model, through either engine: its
+    # multi-token prediction block is loaded and unused
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --smoke --device cpu [--fixed-slot] \
+        [--nproc 4 --seq-shards 4]
+
     # the vision-language model (256 image rows before each prompt) and
     # the encoder-decoder (a clip of 1,536 frames beside it) serve through
     # the fixed-slot engine alone (the paged engine refuses them)

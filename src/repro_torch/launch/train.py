@@ -2,7 +2,9 @@
 process or across ranks — a dense model, an MLA + MoE one
 (``--arch deepseek-v2-lite-16b``, whose loss adds the MoE load-balance
 ``aux`` to ``ce``; both are printed), its routed experts sharded over the
-sequence ranks, or an SSM or hybrid one (``--arch mamba2-2.7b`` /
+sequence ranks, DeepSeek-V3 (``--arch deepseek-v3-671b``, whose loss adds
+0.3 · ``mtp_ce``, its multi-token prediction block's cross-entropy, printed
+beside them; zigzag falls back to balanced), or an SSM or hybrid one (``--arch mamba2-2.7b`` /
 ``zamba2-2.7b``: each rank scans its contiguous shard and the ranks relay
 the recurrent state; zigzag falls back to balanced), the vision-language
 ``internvl2-2b`` (``--seq`` counts its 256 image positions, 16 at
@@ -27,6 +29,11 @@ runs whole on every rank).
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-v2-lite-16b --smoke --device cpu --steps 4 \
         [--nproc 4 --seq-shards 4]
+
+    # DeepSeek-V3 with MTP (the t + 2 rows cross the shard edges)
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --smoke --device cpu --steps 4 --seq 64 \
+        --batch 2 [--nproc 4 --seq-shards 4]
 
     # Mamba2 / Zamba2 (the SSD state relayed across the ranks)
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
@@ -163,8 +170,10 @@ def run(args) -> int:
                 torch.cuda.synchronize(model.device)
             dt = time.time() - t0
             tok_s = (i + 1) * args.batch * args.seq / max(dt, 1e-9)
+            mtp = f" mtp_ce {m['mtp_ce']:.4f}" if "mtp_ce" in m else ""
             print(f"step {i:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} aux "
-                  f"{m['aux']:.6f} lr {m['lr']:.2e} gnorm {m['gnorm']:.2f} "
+                  f"{m['aux']:.6f}{mtp} lr {m['lr']:.2e} "
+                  f"gnorm {m['gnorm']:.2f} "
                   f"tok/s {tok_s:.0f}"
                   + (f" skipped {n_skipped}" if n_skipped else ""),
                   flush=True)

@@ -30,6 +30,10 @@ rope, v of ``v_head_dim``: kernel A's pair route forward, kernels C and D's
 backward), every layer returning ``(h, aux)`` — the MoE layers' capacity
 dispatch with its load-balance loss, the dense layers an aux of 0 — and
 ``loss = ce + aux``.
+A config with ``mtp_depth`` (deepseek-v3-671b) adds DeepSeek-V3's
+multi-token prediction block (``p["mtp"]``, :meth:`DecoderLM._mtp_loss`):
+``loss = ce + aux + 0.3 · mtp_ce``, and zigzag falls back to balanced;
+serving loads the block and leaves it unused, as the reference does.
 
 Expert parallelism: on a mesh whose sequence axis has S > 1 ranks, each
 rank holds rows ``[r·E/S, (r+1)·E/S)`` of every MoE layer's ``wg`` /
@@ -147,6 +151,7 @@ from repro_torch.models.moe import (local_experts, moe_apply,
                                     moe_decode_apply)
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_params
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.parallel.comm import shift as comm_shift
 from repro_torch.parallel.sharding import seq_group
 from repro_torch.serve.cache import (gather_pool, sharded_latent_attn,
                                      sharded_paged_attn)
@@ -166,9 +171,11 @@ def decode_mask(window) -> mk.MaskSpec:
 
 def _zigzag_ok(cfg: ModelConfig) -> bool:
     """The zigzag relayout is valid only for purely positionwise decoders
-    (dense, VLM and MoE) without windowed masks (a window assumes
-    contiguous shard positions)."""
+    (dense, VLM and MoE) without MTP (its t + 2 shift crosses positions)
+    and without windowed masks (a window assumes contiguous shard
+    positions)."""
     return (cfg.arch_type in ("dense", "vlm", "moe")
+            and not cfg.mtp_depth
             and not cfg.attn.window)
 
 
@@ -533,6 +540,11 @@ class DecoderLM:
                              for _ in range(m.n_dense_layers)]
         p["moe_layers"] = [{"attn": attn(), "moe": moe()}
                            for _ in range(cfg.n_layers - m.n_dense_layers)]
+        if cfg.mtp_depth:
+            p["mtp"] = {"proj": dense(2 * d, d), "ln_h": ones(d),
+                        "ln_e": ones(d),
+                        "layer": {"attn": attn(), "moe": moe()},
+                        "ln_f": ones(d)}
         return p
 
     # ------------------------------------------------------------- head
@@ -586,26 +598,31 @@ class DecoderLM:
         model."""
         if self.cfg.ssm is not None:
             return self._ssm_trunk(p, h, cos, sin), None
-        kw = dict(document=seg is not None, P=self.seq_size,
-                  group=self.attn_group)
+        document = seg is not None
         if self.cfg.moe is None:
-            layer = build_dense_layer(self.cfg, self.par, self.impl, **kw)
+            layer = self._train_layer(False, document)
             for lp in p["layers"]:
                 h = layer(lp, (h, cos, sin, seg))
             return h, None
         total = None
         for key, use_moe in (("dense_layers", False), ("moe_layers", True)):
-            layer = build_dense_layer(self.cfg, self.par, self.impl,
-                                      use_moe=use_moe,
-                                      all_group=self.moe_token_group,
-                                      experts=self.expert_group,
-                                      rows=self.moe_rows, **kw)
+            layer = self._train_layer(use_moe, document)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
             for lp in p[key]:
                 h, a = layer(lp, (h, cos, sin, seg))
                 aux = aux + a
             total = aux if total is None else total + aux
         return h, total
+
+    def _train_layer(self, use_moe: bool, document: bool = False):
+        """A training layer under ``par.remat``, its attention over
+        :attr:`attn_group`; an MoE-family model's MoE over the expert
+        groups (:func:`build_dense_layer`)."""
+        kw = dict(document=document, P=self.seq_size, group=self.attn_group)
+        if self.cfg.moe is not None:
+            kw.update(use_moe=use_moe, all_group=self.moe_token_group,
+                      experts=self.expert_group, rows=self.moe_rows)
+        return build_dense_layer(self.cfg, self.par, self.impl, **kw)
 
     def _ssm_trunk(self, p, h, cos, sin):
         """The layers of an SSM or hybrid model on this rank's contiguous
@@ -673,13 +690,63 @@ class DecoderLM:
                 raise ValueError(
                     f"packed (segment_ids) training is supported for "
                     f"dense/moe decoders, not {cfg.arch_type!r}")
+            if cfg.mtp_depth:
+                raise ValueError("packed training does not compose with "
+                                 "MTP (the t+2 roll crosses documents)")
             seg = seg.to(self.device)
         h, aux = self._backbone(p, h, cos, sin, seg)
         ce = self._ce(self._head(p, h), self._labels(batch))
-        if aux is not None:
-            return ce + aux, {"ce": ce, "aux": aux}
-        return ce, {"ce": ce, "aux": torch.zeros(
-            (), dtype=torch.float32, device=h.device)}
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            total = ce
+        else:
+            total = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth and "mtp" in p:
+            mtp_ce = self._mtp_loss(p, h, batch, cos, sin)
+            total = total + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        return total, metrics
+
+    def _next_rows(self, x, labels: bool = False):
+        """``x`` (B, Tl, ...) one position on along the global sequence:
+        row t holds row t + 1, this rank's last row the next rank's first
+        (the reference's ``jnp.roll(x, -1, axis=1)`` on the global array,
+        whose last row wraps to the first).  A tensor in the graph crosses
+        ranks by the differentiable shift, so its gradient returns to the
+        rank that owns the row; ``labels`` (integers) by :meth:`Comm.shift`
+        outside autograd, the global last position then set to −100."""
+        g = self.seq_group
+        if g is None or g.size == 1:
+            nxt = x[:, :1]
+        elif labels:
+            nxt = g.shift([x[:, :1]], -1).wait()[0]
+        else:
+            nxt = comm_shift(g, x[:, :1], -1)
+        out = torch.cat([x[:, 1:], nxt], dim=1)
+        if labels and (g is None or g.rank == g.size - 1):
+            out[:, -1] = -100
+        return out
+
+    def _mtp_loss(self, p, h, batch, cos, sin):
+        """DeepSeek-V3 multi-token prediction [arXiv:2412.19437]: one extra
+        MLA + MoE block predicts token t + 2 from (h_t, emb_{t+1}), ``h``
+        the backbone's output before ``ln_f``; the block's load-balance
+        loss is discarded, as the reference discards it.  On a mesh the
+        t + 1 rows cross the shard edge (:meth:`_next_rows`); the last
+        rank's wrapped row stays in the graph, its label −100."""
+        cfg, mp, eps = self.cfg, p["mtp"], self.cfg.norm_eps
+        emb = L.embed(p["embed"], batch["tokens"].to(self.device),
+                      self.dtype)
+        hcat = torch.cat([L.rms_norm(h, mp["ln_h"], eps),
+                          L.rms_norm(self._next_rows(emb), mp["ln_e"], eps)],
+                         dim=-1)
+        h2 = (hcat @ mp["proj"]).to(self.dtype)
+        h2, _aux = self._train_layer(True)(mp["layer"], (h2, cos, sin, None))
+        h2 = L.rms_norm(h2, mp["ln_f"], eps)
+        logits = h2 @ p["embed"].T.to(h2.dtype)
+        labels = self._next_rows(batch["labels"].to(self.device), True)
+        return self._ce(logits, labels)
 
     def _labels(self, batch):
         """This rank's labels: a VLM's image positions (the prefix of its
@@ -1656,6 +1723,19 @@ _LAYER_KEYS = ("layers", "dense_layers", "moe_layers", "enc_layers",
                "dec_layers")
 # leaves the reference keeps in float32 whatever the model's dtype
 _FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
+# subtrees held once, not stacked by layer: a hybrid's shared block, and
+# the MTP block (``proj``, its norms and one MLA + MoE ``layer``)
+_ONCE_KEYS = ("shared", "mtp")
+
+
+def _map_named(fn, tree, group="", name=""):
+    """``fn(leaf, name, group)`` on every leaf of nested dicts, ``name`` the
+    leaf's key and ``group`` its parent's (:func:`is_expert_leaf`'s
+    pair)."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, name, k) for k, v in tree.items()}
+    return fn(tree, name, group)
+
 
 def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                           dtype: Optional[torch.dtype] = None, *,
@@ -1670,8 +1750,10 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     reference keeps it.  ``experts`` is the Comm the routed experts shard
     over (``DecoderLM.expert_group``; None: all here): each rank keeps its
     rows of them.  An SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32,
-    as the reference keeps them; a hybrid's ``shared`` block is one set of
-    leaves, not stacked.  An encoder–decoder's tree has ``enc_layers`` and
+    as the reference keeps them; a hybrid's ``shared`` block and the MTP
+    block (``mtp``, its routed experts sharded like the MoE layers') are
+    one set of leaves each, not stacked, and not counted as layers.  An
+    encoder–decoder's tree has ``enc_layers`` and
     ``dec_layers`` (each with its ``cross`` block) and ``ln_enc``."""
     dt = dtype if dtype is not None else DTYPES[cfg.dtype]
 
@@ -1685,11 +1767,9 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
 
     p = {k: t(tree[k]) for k in ("embed", "ln_f", "head", "ln_enc")
          if k in tree}
-    if "shared" in tree:
-        p["shared"] = {grp: ({name: t(arr, name, grp)
-                              for name, arr in sub.items()}
-                             if isinstance(sub, dict) else t(sub, grp))
-                       for grp, sub in tree["shared"].items()}
+    for key in _ONCE_KEYS:
+        if key in tree:
+            p[key] = _map_named(t, tree[key], name=key)
     n_all = 0
     for key in _LAYER_KEYS:
         if key not in tree:
@@ -1712,19 +1792,19 @@ def to_reference_params(params: dict, *, experts=None) -> dict:
     ``L`` axis (same dtype and device).  ``experts``: the Comm the routed
     experts shard over, whose shards are gathered (every rank of it must
     call), so each rank returns the global tree."""
-    def leaf(grp, name, x):
+    def leaf(x, name, grp):
         x = x.detach()
         if is_expert_leaf(grp, name) and experts is not None:
             x = experts.all_gather(x.contiguous(), 0)
         return x
 
-    out = {k: (tree_map(lambda x: x.detach(), v) if k == "shared" else v)
+    out = {k: (_map_named(leaf, v, name=k) if k in _ONCE_KEYS else v)
            for k, v in params.items() if k not in _LAYER_KEYS}
     for key in _LAYER_KEYS:
         if key not in params:
             continue
         layers = params[key]
-        out[key] = {grp: {name: torch.stack([leaf(grp, name, lp[grp][name])
+        out[key] = {grp: {name: torch.stack([leaf(lp[grp][name], name, grp)
                                              for lp in layers])
                           for name in layers[0][grp]}
                     for grp in layers[0]}

@@ -56,7 +56,8 @@ def sum_grads(model, params, grads):
 def make_train_step(model, tc: TrainConfig):
     """``step(params, opt, batch) -> {"loss", "ce", "aux", "lr", "gnorm",
     "skipped_nonfinite"}`` (Python numbers): ``loss = ce + aux``, ``aux``
-    an MoE model's load-balance loss (0 for a dense one); ``params`` are
+    an MoE model's load-balance loss (0 for a dense one), and with an MTP
+    block ``+ 0.3 · mtp_ce`` (its ``"mtp_ce"`` added); ``params`` are
     leaf tensors with ``requires_grad``
     (``models.transformer.trainable``)."""
     def step(params, opt: adamw.AdamWState, batch) -> dict:

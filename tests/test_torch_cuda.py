@@ -1018,6 +1018,60 @@ def test_moe_apply_two_ranks_on_card_matches_one_rank(dev):
         assert abs(aux_r - float(aux)) <= 1e-5 * abs(float(aux))
 
 
+def test_deepseek_v3_mtp_training_on_card_matches_plain(dev):
+    """Smoke deepseek-v3-671b (2 layers and its MTP block, q_lora 32, 4
+    experts) widened to the served MLA head dims (q/k 128 + 64, v 128:
+    the pair routes of kernels A, C and D) in bf16 at T 256: the loss, ce,
+    aux and mtp_ce and every gradient leaf through the kernels within the
+    chunk backward's bf16 bars (2e-2 of each value, 5e-2 of each leaf's
+    max |g|) of impl ``ref`` on the card, the plain run replaying the
+    kernel run's expert choices (bf16 routers route near-ties either
+    way); A, C and D launch once a layer and once for the MTP block."""
+    import dataclasses
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import moe as M
+    base = smoke_config(get_config("deepseek-v3-671b"))
+    cfg = base.replace(dtype="bfloat16", attn=dataclasses.replace(
+        base.attn, head_dim=128, qk_rope_head_dim=64, v_head_dim=128))
+    batch = SyntheticTokens(cfg, ShapeSpec("t", 256, 2, "train"),
+                            device=dev).batch(0)
+    init = DecoderLM(cfg, device=dev).init(0)
+    real, calls = M.top_k, []
+
+    def record(probs, k):
+        out = real(probs, k)
+        calls.append(out[1])
+        return out
+
+    def replay(probs, k):
+        idx = calls.pop(0)
+        return probs.gather(-1, idx), idx
+    out = {}
+    for impl, top_k in (("cuda", record), ("ref", replay)):
+        model = DecoderLM(cfg, device=dev, impl=impl)
+        params = trainable(tree_map(lambda t: t.clone(), init))
+        build.reset_launches()
+        M.top_k = top_k
+        try:
+            loss, met = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves(params))
+        finally:
+            M.top_k = real
+        out[impl] = ({k: float(v.detach()) for k, v in met.items()} | {
+            "loss": float(loss.detach())}, [g.float() for g in grads],
+            dict(build.LAUNCHES))
+    assert not calls
+    (m_d, g_d, n_d), (m_r, g_r, _) = out["cuda"], out["ref"]
+    for k in ("loss", "ce", "aux", "mtp_ce"):
+        assert abs(m_d[k] - m_r[k]) <= 2e-2 * max(abs(m_r[k]), 1.0), \
+            (k, m_d[k], m_r[k])
+    for a, r in zip(g_d, g_r):
+        assert float((a - r).abs().max()) <= 5e-2 * float(r.abs().max())
+    for k in ("flash_fwd_pair", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert n_d[k] == cfg.n_layers + cfg.mtp_depth, (k, n_d)
+
+
 # ------------------------------------- the cuda-ipc transport (4 ranks)
 
 @pytest.fixture(scope="module")

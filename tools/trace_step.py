@@ -4,7 +4,9 @@ idle share, in a fresh process (late in a long run the profiler drops
 kernels, so ``chip_smoke.py``'s phases 22-24 read none).
 
 The model is the architecture's config at full width (``--layers`` cuts
-the depth), bf16, seed-0 weights, ``remat_aware``, one batch of
+the depth; an MoE model's ``--dense-layers``, ``--experts`` and
+``--capacity`` set its leading dense layers, routed experts and capacity
+factor), bf16, seed-0 weights, ``remat_aware``, one batch of
 ``SyntheticTokens`` (a VLM's image rows and an encoder-decoder's frames
 included); two untimed steps warm it up, then one is traced.
 
@@ -12,6 +14,9 @@ included); two untimed steps warm it up, then one is traced.
         --seq 8192 --batch 1
     PYTHONPATH=src python3 tools/trace_step.py --arch whisper-tiny \
         --seq 4096 --batch 2
+    # chip_smoke.py phase 25's training cell (deepseek-v3 with MTP)
+    PYTHONPATH=src python3 tools/trace_step.py --arch deepseek-v3-671b \
+        --layers 2 --dense-layers 1 --experts 16 --capacity 2 --seq 4096
     # a CPU check of the script (no device kernels: idle not measured)
     PYTHONPATH=src python3 tools/trace_step.py --arch whisper-tiny --smoke \
         --device cpu --seq 64 --batch 2
@@ -19,6 +24,7 @@ included); two untimed steps warm it up, then one is traced.
 Prints the card's name and power limit (nvidia-smi) when it runs on one.
 """
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -69,6 +75,9 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=8192)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--dense-layers", type=int, default=0)
+    ap.add_argument("--experts", type=int, default=0)
+    ap.add_argument("--capacity", type=float, default=0.0)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -84,6 +93,11 @@ def main(argv=None):
         cfg = smoke_config(cfg)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
+    moe = {k: v for k, v in (("n_dense_layers", args.dense_layers),
+                             ("n_routed", args.experts),
+                             ("capacity_factor", args.capacity)) if v}
+    if moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
     model = build_model(cfg, dev)
     params = trainable(model.init(seed=0))
     opt = adamw.init(params)
