@@ -562,6 +562,27 @@ Phases, each fatal on failure (nothing is caught):
                 their plain versions at phase 3's bars, then timed by
                 CUDA-graph replay beside bound and SDPA (the ``v3_*`` keys
                 of the rows).
+  26. tuning  — the autotuner's sweeps on the card (``tune/sweep.py``):
+                (a) kernels A, C and D in bf16 at 32 heads × D 64, 128,
+                160 and 192/128, T 2,048 and 8,192, four mask kinds,
+                forward and backward, the causal D 128 row at T 8,192
+                within 0.9-2.0x phase 5's device times (A; C + D); (b)
+                every schedule's forward on 4 cuda-ipc ranks at T 8,192
+                and 12,288 (32 × 128), rank 0's output at the first T
+                within 2e-2 of the plain attention, then ``calibrate``;
+                (c) the paged block sizes 8-64 of smollm-360m and
+                deepseek-v2-lite-16b at full size on the reference's
+                microtrace (greedy): every request's whole budget, the
+                table written to ``build/`` and every winner back out of
+                its lookups; (d) ``launch/dryrun`` on the meta device for
+                llama-7b and deepseek-v3-671b ``train_4k`` on the
+                production mesh: FLOPs, bytes, collective bytes and peak
+                nonzero, within 60 s (its runs, and (e)'s counts, go to
+                worker processes beside phases 14 and 21 (a, b)); (e) the
+                meta peak of one rank of
+                phase 7's cell within 0.8-1.25x that rank's
+                ``max_memory_allocated``, and phase 6's counted FLOPs over
+                its step time as a share of peak (not gated).
 Every phase prints its seconds, and every multi-rank phase its ranks'
 host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
@@ -3009,7 +3030,8 @@ def multi_rank():
     say(f"  world of {P7_RANKS} ranks: {wall:.1f} s, spawn included")
     return dict(launches=launches, d_tok=d_tok, d_ctl=d_ctl, d_loss=d_loss,
                 d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
-                d_loss2=d_loss2, staged=staged, p1=p1)
+                d_loss2=d_loss2, staged=staged, p1=p1,
+                peaks=[r["peak"] for r in res])
 
 
 # ----------------------------------------------------------------- phase 8
@@ -9340,6 +9362,241 @@ def deepseek_v3():
 
 # ----------------------------------------------------------------- phase 5
 
+# ---------------------------------------------------------------- phase 26
+
+P26_KERNEL_SHAPES = None          # kernel_grid's (T, D, Dv) list on the card
+P26_PAIR = (192, 128)             # counted under the pair rows
+P26_GATE_SHAPE = (8192, 128)      # (T, D) of (a)'s gate, 32 heads, causal
+P26_GATE = (0.9, 2.0)             # the sweep's wall / phase 5's device ms
+P26_SCHED_SEQS = None             # schedule_grid's seqs on the card
+P26_SCHED_TOL = 2e-2              # bf16: rank 0's output vs the plain one
+P26_SCHED_TIMEOUT = 600
+P26_PAGED_SMOKE = False
+P26_TABLE = Path(__file__).resolve().parent / "build" / "tuning_table.json"
+P26_DRYRUN = (("deepseek-v3-671b", "train_4k"), ("llama-7b", "train_4k"))
+P26_DRYRUN_KW = {}                # run_one's smoke= / mesh_shape= (rehearsal)
+P26_DRYRUN_S = 60.0
+P26_DRYRUN_JOBS = 6               # one pool; two cores for the main process
+P26_PEAK = (0.8, 1.25)            # meta peak / phase 7's rank peak
+
+
+def _p26_kernels(rows):
+    """(a): ``tune/sweep.sweep_kernels`` on the card; its causal row at
+    phase 5's training shape held to phase 5's device times (A forward,
+    C + D backward).  Returns (data, launches, pair launches, gate
+    ratios)."""
+    from repro_torch.tune import sweep as tsw
+    data = tsw.new_table_data(DEV)
+    _, _, grid, _, _ = tsw.kernel_grid(DEV)
+    grid = P26_KERNEL_SHAPES or grid
+    build.reset_launches()
+    tsw.sweep_kernels(data, device=DEV, log=say,
+                      shapes=[g for g in grid if g[1:] != P26_PAIR])
+    launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    tsw.sweep_kernels(data, device=DEV, log=say,
+                      shapes=[g for g in grid if g[1:] == P26_PAIR])
+    pair = dict(build.LAUNCHES)
+    T, D = P26_GATE_SHAPE
+    got = {r["op"]: r["wall_us"] / 1e3 for r in data["kernel"]
+           if r["mask_kind"] == "causal" and r["seq"] == T
+           and r["head_dim"] == D and r["dv"] == D}
+    by = {r["name"]: r for r in rows}
+    want = {"fwd": by["flash_fwd"].get("train_ms"),
+            "bwd": by["flash_bwd_dq"]["ms"] + by["flash_bwd_dkv"]["ms"]}
+    ratios = {}
+    for op in ("fwd", "bwd"):
+        if want[op] is None or op not in got:
+            continue
+        ratios[op] = got[op] / want[op]
+        say(f"  (a) gate: sweep {op} causal T {T} D {D} {got[op]:.4f} ms, "
+            f"phase 5's device time {want[op]:.4f} ms: ratio "
+            f"{ratios[op]:.3f} (limits {P26_GATE})")
+        check(P26_GATE[0] <= ratios[op] <= P26_GATE[1],
+              f"the kernel sweep's {op} row reads {ratios[op]:.3f}x phase "
+              f"5's device time, outside {P26_GATE}")
+    return data, launches, pair, ratios
+
+
+def _p26_meta_counts():
+    """(e)'s counts on the meta device (a worker process's job): the peak
+    of one rank of phase 7's cell under each of its schedules ((1, 4)
+    meta mesh, the ``null`` backend standing in for the kernels' outputs:
+    no O(T²) scores), and phase 6's step FLOPs (``null`` plus the
+    kernels' analytic FLOPs)."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.analysis.meta_count import counting
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.mesh import make_meta_mesh
+    torch.set_num_threads(1)
+    cfg = get_config("llama-7b").replace(n_layers=P7_LAYERS)
+    shape = ShapeSpec("chip7", P7_T, 1, "train")
+    peaks = {}
+    for sched, _ in P7_RUNS:
+        mesh = make_meta_mesh(("data", "model"), (1, P7_RANKS))
+        step, live = build_step(cfg, shape, mesh, schedule=sched,
+                                impl="null")
+        with counting(*live) as c:
+            step()
+        peaks[sched] = c.peak_bytes
+    cfg6 = get_config("llama-7b").replace(n_layers=TRAIN_LAYERS)
+    shape6 = ShapeSpec("chip", TRAIN_T, 1, "train")
+    step, live = build_step(cfg6, shape6, None, impl="null")
+    with counting(*live) as c:
+        step()
+    an_f, _ = RL.attention_analytic(cfg6, shape6, seq_shards=1,
+                                    batch_shards=1)
+    return dict(peaks=peaks, flops=c.flops + an_f, attn_flops=an_f)
+
+
+def p26_start():
+    """Start phase 26's (d) and (e) on the meta device in a pool of
+    P26_DRYRUN_JOBS worker processes, which need only CPU, while the main
+    process goes on with single-process card phases (14 and 21 (a, b)):
+    every run of ``launch/dryrun``'s pairs P26_DRYRUN, the longest first,
+    then :func:`_p26_meta_counts`.  A thread waits for the pairs and
+    keeps their wall from the pool's start."""
+    import threading
+    from repro_torch.launch import dryrun
+    ex = dryrun.worker_pool(P26_DRYRUN_JOBS)
+    t0 = time.perf_counter()
+    collect = dryrun.submit_many(ex, P26_DRYRUN, **P26_DRYRUN_KW)
+    bg = dict(ex=ex, meta=ex.submit(_p26_meta_counts))
+
+    def wait():
+        try:
+            bg["recs"] = collect()
+        except BaseException as e:      # re-raised by _p26_dryrun
+            bg["err"] = e
+        bg["dry_s"] = time.perf_counter() - t0
+    bg["thread"] = threading.Thread(target=wait, daemon=True)
+    bg["thread"].start()
+    return bg
+
+
+def _p26_dryrun(bg):
+    """(d): the records of P26_DRYRUN on the single-pod production mesh
+    (started by :func:`p26_start`): FLOPs, bytes, collective bytes and
+    peak nonzero; the records printed; the pairs' wall within
+    P26_DRYRUN_S."""
+    bg["thread"].join()
+    if "err" in bg:
+        raise bg["err"]
+    recs, sec = {}, bg["dry_s"]
+    for (arch, shape), rec in zip(P26_DRYRUN, bg["recs"]):
+        rec.pop("flops_by_op")
+        say(f"  (d) {arch} {shape}: " + json.dumps(rec))
+        for what, x in (("flops", rec["flops"]),
+                        ("bytes", rec["bytes_accessed"]),
+                        ("collective bytes",
+                         rec["collectives"]["total_bytes"]),
+                        ("peak", rec["memory"]["peak_device_bytes"])):
+            check(x > 0, f"dry-run {arch} {shape}: {what} {x}")
+        recs[(arch, shape)] = rec
+    say(f"  (d) both pairs in {sec:.1f} s from their pool's start, "
+        f"{P26_DRYRUN_JOBS} worker processes beside phases 14 and 21 "
+        f"(limit {P26_DRYRUN_S:.0f} s)")
+    check(sec <= P26_DRYRUN_S, f"the dry-run pairs took {sec:.1f} s")
+    return recs
+
+
+def _p26_meta(tr, mr, counts):
+    """(e): the meta peak of one rank of phase 7's cell (the largest over
+    its schedules) against that rank's ``max_memory_allocated``; phase
+    6's counted step FLOPs over its step seconds and the peak rate (not
+    gated)."""
+    from repro_torch.analysis import roofline as RL
+    peaks = counts["peaks"]
+    meta = max(peaks.values())
+    card = mr["peaks"][0]
+    ratio = meta / card
+    say(f"  (e) one rank of phase 7's cell on meta: peak "
+        + ", ".join(f"{s} {b / 2**30:.3f}" for s, b in peaks.items())
+        + f" GiB; phase 7's rank 0 (max_memory_allocated) "
+        f"{card / 2**30:.3f} GiB; ratio {ratio:.3f} (limits {P26_PEAK})")
+    check(P26_PEAK[0] <= ratio <= P26_PEAK[1],
+          f"the meta peak reads {ratio:.3f}x phase 7's rank peak")
+    flops, an_f = counts["flops"], counts["attn_flops"]
+    step_s = TRAIN_T / tr["tok_s"]
+    share = flops / (step_s * RL.PEAK_FLOPS)
+    say(f"  (e) phase 6's step counted on meta: {flops / 1e12:.3f} TFLOP "
+        f"({(flops - an_f) / 1e12:.3f} outside the attention, "
+        f"{an_f / 1e12:.3f} the kernels' analytic), step {step_s:.4f} s: "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, {share:.4f} of the "
+        f"{RL.PEAK_FLOPS / 1e12:.1f} TFLOP/s peak (not gated)")
+    return dict(meta_peaks=peaks, card_peak=card, ratio=ratio,
+                step_flops=flops, peak_share=share)
+
+
+def tuning(rows, tr, mr, bg):
+    """Phase 26: the autotuner's sweeps on the card (``tune/sweep.py``:
+    kernels (a), schedules on 4 cuda-ipc ranks (b), paged block sizes
+    (c)), the dry-run's records on the meta device (d) and its peak
+    against the card (e), whose counts ``bg`` (:func:`p26_start`) ran
+    earlier in worker processes."""
+    from repro_torch.tune import calibrate as cal
+    from repro_torch.tune import sweep as tsw
+    from repro_torch.tune.table import TuningTable
+    t0 = time.perf_counter()
+    data, launches, pair, ratios = _p26_kernels(rows)
+    say(f"  (a) {len(data['kernel'])} kernel rows in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}, pair "
+        f"{pair}")
+    _free()
+    t1 = time.perf_counter()
+    errs = tsw.sweep_schedules(data, log=say, device=DEV,
+                               seqs=P26_SCHED_SEQS,
+                               timeout=P26_SCHED_TIMEOUT)
+    worst = max(errs.values())
+    say(f"  (b) {len(data['schedule'])} schedule rows in "
+        f"{time.perf_counter() - t1:.1f} s (transport "
+        f"{data['host']['schedule_transport']}); rank 0 vs the plain "
+        f"attention at seq {data['schedule'][0]['seq']}: " + ", ".join(
+            f"{r}/{s} {e:.2e}" for (r, s), e in sorted(errs.items()))
+        + f" (limit {P26_SCHED_TOL})")
+    check(worst <= P26_SCHED_TOL, f"a schedule's output is {worst} off the "
+          "plain attention")
+    data["calibration"] = cal.calibrate(data["schedule"])
+    fit = data["calibration"]["fit"]
+    say(f"  (b) calibrate: coefficients {data['calibration']['coeffs']}; "
+        f"spearman {fit['spearman']} (roofline {fit['spearman_roofline']}),"
+        f" best-match {fit['best_match']} (roofline "
+        f"{fit['best_match_roofline']})")
+    _free()
+    t1 = time.perf_counter()
+    build.reset_launches()
+    paged = tsw.sweep_paged(data, device=DEV, log=say,
+                            smoke=P26_PAGED_SMOKE)
+    for k, n in build.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + n
+    for arch, meas in paged.items():
+        streams = [tuple(map(tuple, r["streams"])) for r in meas.values()]
+        same = sum(len({s[i] for s in streams}) == 1
+                   for i in range(len(streams[0])))
+        say(f"  (c) {arch}: " + ", ".join(
+            f"bs {b} {r['tokens_per_s']:.1f} tok/s {r['preemptions']} "
+            f"preemptions" for b, r in meas.items())
+            + f"; {same} of {len(streams[0])} streams equal across sizes")
+        for b, r in meas.items():
+            check(all(r["full_budgets"]), f"{arch} block size {b}: a "
+                  "request ended short of its budget")
+    tab = TuningTable(data)
+    P26_TABLE.parent.mkdir(parents=True, exist_ok=True)
+    tab.save(str(P26_TABLE))
+    tsw.check_roundtrip(TuningTable.load(str(P26_TABLE)), log=say)
+    say(f"  (c) in {time.perf_counter() - t1:.1f} s; table written to "
+        f"{P26_TABLE}")
+    _free()
+    recs = _p26_dryrun(bg)
+    meta = _p26_meta(tr, mr, bg["meta"].result())
+    bg["ex"].shutdown()
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "paged_decode"):
+        check(launches.get(k, 0) > 0, f"phase 26 launched no {k}")
+    return dict(launches=launches, pair=pair, ratios=ratios, errs=errs,
+                table=data, dryrun=recs, meta=meta)
+
+
 def ptxas_kernels(text):
     """{kernel name: (registers, spill bytes)} from nvcc's ``-Xptxas -v``
     output, by the entry function each report follows."""
@@ -10246,6 +10503,9 @@ def main():
         "(whole-prompt MLA prefill, dense latent-cache decode)")
     fs = fixed_slot(dk.pop("model"), dk.pop("params"))
     _free()
+    # phase 26 (d, e) count on the meta device in worker processes while
+    # the single-process card phases 14 and 21 (a, b) run
+    p26 = p26_start()
     say(f"== phase 14: train deepseek-v2-lite-16b (MLA + MoE) at full width, "
         f"{P14_LAYERS} of 27 layers")
     tm = train_moe()
@@ -10346,6 +10606,13 @@ def main():
         "at 128 heads")
     v3 = deepseek_v3()
     _free()
+    say("== phase 26: the autotuner's sweeps on the card (kernels, "
+        "schedules on 4 cuda-ipc ranks, paged block sizes), the dry-run on "
+        "the meta device, its peak against phase 7's")
+    t0 = time.perf_counter()
+    tu = tuning(rows, tr, mr, p26)
+    _free()
+    took(26, t0)
 
     for row in rows:
         if row["name"] == "flash_fwd_pair":
@@ -10372,6 +10639,15 @@ def main():
         # phase 25's paths (``v3_launches``) and times at its shapes
         row["launches"] += v3["launches"].get(row["name"], 0)
         row.update(v3["rows"].get(row["name"], {}))
+        # phase 26's sweeps: the pair rows count the 192/128 shapes'
+        name = row["name"]
+        if name in ("flash_bwd_dq_pair", "flash_bwd_dkv_pair"):
+            p26 = tu["pair"].get(name[:-5], 0)
+        else:
+            p26 = tu["launches"].get(name, 0) + (
+                tu["pair"].get(name, 0) if name == "flash_fwd_pair" else 0)
+        row["launches"] += p26
+        row["p26_launches"] = p26
     say(f"  deepseek training across 4 ranks (all ranks, 4 steps) "
         f"{em['launches']}, deepseek fixed-slot across 4 ranks (all ranks) "
         f"{es['launches']}, its latent-ring prefill (all ranks) "
@@ -10387,7 +10663,8 @@ def main():
         f"ranks) {vl['launches']}, whisper (2 steps, a step on all ranks, "
         f"the engine's decode) {wh['launches']}, deepseek-v3 (3 training "
         f"steps, the 4-rank and (2, 2) steps on all ranks, both engines' "
-        f"kernel runs) {v3['launches']}")
+        f"kernel runs) {v3['launches']}, the sweeps (phase 26 (a, c); the "
+        f"192/128 shapes {tu['pair']}) {tu['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

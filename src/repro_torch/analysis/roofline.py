@@ -310,13 +310,3 @@ def attention_analytic(cfg, shape, *, seq_shards, batch_shards):
         fl += cfg.n_layers * 2 * B * F * a.n_heads * 2 * a.head_dim
         by += cfg.n_layers * B * F * a.n_heads * a.head_dim * 2 * 2
     return fl, by
-    if is_mla:
-        hd_qk, hd_v, Hkv = _decode_dims(a)
-        shards = (seq_shards * batch_shards if shape.global_batch == 1
-                  else seq_shards)
-    else:
-        shards = seq_shards
-    f, b = _decode_attn_site(B=shape.global_batch, S=shape.seq_len,
-                             seq_shards=shards, H=a.n_heads, hd_qk=hd_qk,
-                             hd_v=hd_v, Hkv=Hkv, window=a.window)
-    return cfg.n_layers * f, cfg.n_layers * b

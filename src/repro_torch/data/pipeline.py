@@ -3,7 +3,8 @@
 encoder–decoder), the empty decode cache of an SSM or hybrid model
 (:func:`empty_decode_cache`) and the encoder–decoder's decode-cache shapes
 (:func:`audio_cache_shapes`): the reference's ``cache_specs`` arms for
-them.
+them, and :func:`input_specs`, one rank's inputs of a step on the ``meta``
+device for the dry-run (the reference's shape-only specs).
 
 A VLM's batch of ``seq_len`` T positions is ``n_image_tokens`` image
 embeddings — standard normals from ``np.random.default_rng(step)``, in the
@@ -38,7 +39,7 @@ import torch
 from repro_torch.core.config import ModelConfig, ParallelConfig, ShapeSpec
 from repro_torch.core.dist_attention import shard_positions
 from repro_torch.core.mask import doc_boundaries, segments_from_boundaries
-from repro_torch.parallel.sharding import seq_group
+from repro_torch.parallel.sharding import batch_group, seq_group
 
 
 @dataclasses.dataclass
@@ -124,8 +125,9 @@ class SyntheticTokens:
         from repro_torch.models.transformer import zigzag_layout
         par = ParallelConfig() if self.par is None else self.par
         rows = slice(None)
-        if "data" in par.batch_axes:
-            D, d = self.mesh.size("data"), self.mesh.coord("data")
+        bg = batch_group(self.mesh, par)
+        if bg is not None:
+            D, d = bg.size, bg.rank
             rows = slice(d * B // D, (d + 1) * B // D)
         g = seq_group(self.mesh, par)
         cols = shard_positions(T, g.size, g.rank,
@@ -184,3 +186,81 @@ def empty_decode_cache(cfg: ModelConfig, batch: int, seq_len: int = 0,
         cache["shared_k"] = torch.zeros(shape, dtype=dt, device=device)
         cache["shared_v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, par: ParallelConfig,
+                mesh, device="meta") -> dict:
+    """One rank's inputs of a step of ``shape.kind`` on ``mesh``, as empty
+    tensors on ``device`` (no data is made): the port's counterpart of the
+    reference's ``input_specs`` / ``cache_specs``, at the shapes the port's
+    entry points take on this rank.
+
+    * ``train``: :class:`SyntheticTokens`' shard — ``tokens`` / ``labels``
+      (B_loc, T_loc) int32 (a VLM's text columns of the shard, with its
+      ``image_embeds`` rows; an encoder–decoder's ``frames`` (B_loc, F,
+      d_model) whole; ``segment_ids`` when ``shape.docs > 1``).
+    * ``prefill``: the global prompt ``tokens`` (B, T) (a VLM's ``image
+      _embeds`` (B, n, d_model) and T − n tokens; an encoder–decoder's
+      ``frames`` (B, F, d_model)): ``DecoderLM.prefill`` takes the same
+      prompt on every rank and keeps its own rows and positions.
+    * ``decode``: ``token`` (B, 1) and ``pos`` (B,) int32, global as
+      ``decode`` takes them, and ``cache``, this rank's shard: its data
+      replica's rows, ``shape.seq_len / n`` slots of the sequence axes'
+      ``n`` ranks — dense ``{"k", "v"}`` (L, B_loc, S_loc, H_kv, head_dim)
+      or an MLA model's ``{"ckv"}`` (L, B_loc, S_loc, kv_lora + rope),
+      :func:`empty_decode_cache`'s for the SSM families and
+      :func:`audio_cache_shapes`' for the encoder–decoder."""
+    from repro_torch.models.transformer import DTYPES
+    B, T = shape.global_batch, shape.seq_len
+    dt, i32 = DTYPES[cfg.dtype], torch.int32
+    d = cfg.d_model
+
+    def empty(*dims, dtype=i32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    bg = batch_group(mesh, par)
+    b_loc = B // (1 if bg is None else bg.size)
+    if shape.kind == "train":
+        rows, cols = SyntheticTokens(cfg, shape, device=device, mesh=mesh,
+                                     par=par)._shard(B, T)
+        if cfg.arch_type == "vlm":
+            n = int((cols < cfg.n_image_tokens).sum())
+            t = len(cols) - n
+            return {"tokens": empty(b_loc, t), "labels": empty(b_loc, t),
+                    "image_embeds": empty(b_loc, n, d, dtype=dt)}
+        batch = {"tokens": empty(b_loc, len(cols)),
+                 "labels": empty(b_loc, len(cols))}
+        if cfg.arch_type == "audio":
+            batch["frames"] = empty(b_loc, cfg.n_audio_frames, d, dtype=dt)
+        elif shape.docs > 1:
+            batch["segment_ids"] = empty(b_loc, len(cols))
+        return batch
+    if shape.kind == "prefill":
+        if cfg.arch_type == "vlm":
+            n = cfg.n_image_tokens
+            return {"tokens": empty(B, T - n),
+                    "image_embeds": empty(B, n, d, dtype=dt)}
+        batch = {"tokens": empty(B, T)}
+        if cfg.arch_type == "audio":
+            batch["frames"] = empty(B, cfg.n_audio_frames, d, dtype=dt)
+        return batch
+    if shape.kind != "decode":
+        raise ValueError(f"unknown step kind {shape.kind!r}")
+    n = 1 if mesh is None else mesh.comm(
+        tuple(a for a in mesh.axis_names if a in par.seq_axes)).size
+    if T % n:
+        raise ValueError(f"{T} cache slots do not shard over {n} ranks")
+    a = cfg.attn
+    if cfg.ssm is not None:
+        cache = empty_decode_cache(cfg, b_loc, T, device=device, shards=n)
+    elif cfg.arch_type == "audio":
+        cache = {k: empty(*s, dtype=t) for k, (s, t) in
+                 audio_cache_shapes(cfg, b_loc, T, n).items()}
+    elif a.is_mla:
+        cache = {"ckv": empty(cfg.n_layers, b_loc, T // n,
+                              a.kv_lora_rank + a.qk_rope_head_dim,
+                              dtype=dt)}
+    else:
+        kv = (cfg.n_layers, b_loc, T // n, a.n_kv_heads, a.head_dim)
+        cache = {"k": empty(*kv, dtype=dt), "v": empty(*kv, dtype=dt)}
+    return {"token": empty(B, 1), "pos": empty(B), "cache": cache}

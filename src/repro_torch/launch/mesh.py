@@ -16,6 +16,12 @@ world; ranks in the reference's linearized order).  The groups are built
 when the mesh is, in the same order on every rank (``dist.new_group`` is
 collective).  Without a world (one process) every axis has size 1 and the
 transport is ``local``.
+
+:func:`make_production_mesh` is the reference's production grid, (data 16,
+model 16) or (pod 2, data 16, model 16), as one rank's view over the
+``meta`` transport (:func:`make_meta_mesh`): the same fields, Comms of the
+production sizes that move no data and count what they would move
+(``parallel.comm.MetaComm``), for the dry-run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -110,12 +116,7 @@ def _make_mesh(names, shape, device, transport=None) -> Mesh:
     transport = "local" if n == 1 else _transport(device, transport)
     grid = np.arange(n).reshape(shape)
     comms = {}
-    # one axis at a time, minor first, then the sets of axes between one
-    # axis and the world
-    subsets = [(i,) for i in reversed(range(len(names)))]
-    subsets += [c for k in range(2, len(names))
-                for c in itertools.combinations(range(len(names)), k)]
-    for sub in subsets:
+    for sub in _subsets(len(names)):
         rest = [i for i in range(len(names)) if i not in sub]
         groups = np.transpose(grid, rest + list(sub)).reshape(
             -1, int(np.prod([shape[i] for i in sub])))
@@ -139,6 +140,53 @@ def _transport(device, named):
         return named
     raise ValueError(f"transport {named!r} does not carry {device} tensors "
                      f"in this world (its transport is {auto!r})")
+
+
+def _subsets(n: int):
+    """The axis sets a mesh has a Comm for, by index: one axis at a time,
+    minor first, then the sets of two or more axes short of the world."""
+    subsets = [(i,) for i in reversed(range(n))]
+    return subsets + [c for k in range(2, n)
+                      for c in itertools.combinations(range(n), k)]
+
+
+def make_meta_mesh(names, shape, *, rank: int = 0, device="meta") -> Mesh:
+    """Global rank ``rank``'s view of the grid ``shape`` of axes ``names``
+    (last minor) with no world behind it: a :class:`~repro_torch.parallel.
+    comm.MetaComm` for each axis and each larger set of axes, as
+    :func:`_make_mesh` builds them, all counting into one
+    :class:`~repro_torch.parallel.comm.CommCounts` (``mesh.world.counts``);
+    transport ``meta``."""
+    shape = tuple(int(x) for x in shape)
+    n = int(np.prod(shape))
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not in a mesh of {n} ranks")
+    grid = np.arange(n).reshape(shape)
+    coords = tuple(int(x) for x in np.unravel_index(rank, shape))
+    counts = cm.CommCounts()
+    comms = {}
+    for sub in _subsets(len(names)):
+        idx = tuple(slice(None) if i in sub else coords[i]
+                    for i in range(len(names)))
+        ranks = [int(r) for r in grid[idx].reshape(-1)]
+        key = names[sub[0]] if len(sub) == 1 else tuple(names[i]
+                                                         for i in sub)
+        comms[key] = cm.MetaComm(ranks, rank, counts, device)
+    world = cm.MetaComm(list(range(n)), rank, counts, device)
+    return Mesh(axis_names=tuple(names), shape=shape, coords=coords,
+                comms=comms, world=world, transport="meta")
+
+
+def make_production_mesh(multi_pod: bool = False, *, rank: int = 0,
+                         device="meta") -> Mesh:
+    """The reference's production mesh as rank ``rank``'s meta view:
+    (data 16, model 16) = 256 ranks, or (pod 2, data 16, model 16) = 512
+    with ``multi_pod``; ``model`` is the sequence-parallel axis."""
+    if multi_pod:
+        return make_meta_mesh(("pod", "data", "model"), (2, 16, 16),
+                              rank=rank, device=device)
+    return make_meta_mesh(("data", "model"), (16, 16), rank=rank,
+                          device=device)
 
 
 def make_local_mesh(seq: int = 1, data: int | None = None,

@@ -88,7 +88,9 @@ def dispatch_slots(flat_e, E: int, cap: int):
     rank among the earlier pairs routed to the same expert, and whether
     that rank is below ``cap``; a dropped pair's slot is ``cap`` (the
     overflow row)."""
-    onehot = F.one_hot(flat_e, E)
+    # one-hot by comparison (F.one_hot checks its input's range on the
+    # host: a device sync, and no such check on the meta device)
+    onehot = (flat_e[:, None] == torch.arange(E, device=flat_e.device)).long()
     pos = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=-1)  # rank in expert
     keep = pos < cap
     return torch.where(keep, pos, torch.full_like(pos, cap)), keep
@@ -165,7 +167,10 @@ def _moe_apply(p, x, cfg, group, all_group, own=None):
     slot, keep = dispatch_slots(flat_e, E, cap)
     xk = h.repeat_interleave(K, dim=0)                       # (n·K, d)
     buf = h.new_zeros((E, cap + 1, d))
-    buf[flat_e[keep], slot[keep]] = xk[keep]
+    # every pair writes: a kept one its own slot, a dropped one the
+    # overflow row, cut off below (no boolean index: no host sync, and the
+    # shapes do not depend on the routing)
+    buf[flat_e, slot] = xk
     buf = buf[:, :cap]
     if S > 1:                        # each expert's rows to its owner
         buf = all_to_all(group, buf.reshape(S, e_loc * cap, d), 0, 0)

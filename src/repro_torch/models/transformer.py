@@ -152,7 +152,7 @@ from repro_torch.models.moe import (local_experts, moe_apply,
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_params
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.parallel.comm import shift as comm_shift
-from repro_torch.parallel.sharding import seq_group
+from repro_torch.parallel.sharding import batch_group, seq_group
 from repro_torch.serve.cache import (gather_pool, sharded_latent_attn,
                                      sharded_paged_attn)
 
@@ -276,14 +276,33 @@ def build_dense_layer(cfg: ModelConfig, par: ParallelConfig, impl=None, *,
     return apply_policy(plain, par.remat)
 
 
+def _generator(device, seed):
+    """The seeded generator of an init on ``device`` (None on ``meta``,
+    whose tensors hold no values)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _randn(shape, gen, device):
+    """Standard normals from ``gen``; on ``meta`` a tensor of the shape
+    (the dry-run builds full-size models there)."""
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=gen, device=device)
+
+
 def token_group(mesh, par: ParallelConfig):
     """The ranks holding distinct tokens: the whole world when the batch
-    shards over ``data`` (or there is no data axis), else the sequence
-    axes — ``seq_axis``, and a 2D mesh's ``head_axis`` — (data replicas
-    then hold the same batch)."""
+    shards over every axis off the sequence (``data``, and a multi-pod
+    mesh's ``pod``; or they have one rank), else the sequence axes —
+    ``seq_axis``, and a 2D mesh's ``head_axis`` — (data replicas then hold
+    the same batch)."""
     if mesh is None:
         return None
-    if "data" in par.batch_axes or mesh.size("data") == 1:
+    seq = {par.seq_axis, par.head_axis}
+    if all(a in par.batch_axes or mesh.size(a) == 1
+           for a in mesh.axis_names if a not in seq):
         return mesh.world
     return seq_group(mesh, par)
 
@@ -296,8 +315,11 @@ def moe_token_group(mesh, par: ParallelConfig):
     if mesh is None or par.head_axis is None or \
             mesh.size(par.head_axis) == 1:
         return token_group(mesh, par)
-    if "data" in par.batch_axes and mesh.size("data") > 1:
-        return mesh.comm(("data", par.seq_axis))
+    bg = batch_group(mesh, par)
+    if bg is not None:
+        return mesh.comm(tuple(a for a in mesh.axis_names
+                               if a in par.batch_axes
+                               or a == par.seq_axis))
     return mesh.comms[par.seq_axis]
 
 
@@ -420,18 +442,17 @@ class DecoderLM:
         # the ranks holding the same experts and distinct rows' shares:
         # their gradients add up (a 2D mesh's head axis, and the data axis
         # when the batch shards over it)
-        axes = ((("data",) if mesh is not None and "data" in
-                 self.par.batch_axes and mesh.size("data") > 1 else ())
-                + ((self.par.head_axis,) if two_d else ()))
+        bg = batch_group(mesh, self.par)
+        axes = (tuple(a for a in mesh.axis_names if a in self.par.batch_axes)
+                if bg is not None else ()) + ((self.par.head_axis,)
+                                              if two_d else ())
         self.expert_grad_group = (mesh.comm(axes) if axes and
                                   self.expert_group is not None else None)
         # the dense decode cache shards its sequence over par.seq_axes
         self.decode_group = None if mesh is None else mesh.comm(
             self.par.seq_axes)
         # a serving batch that shards over data: each replica its rows
-        self.batch_group = (mesh.comms["data"] if mesh is not None
-                            and "data" in self.par.batch_axes
-                            and mesh.size("data") > 1 else None)
+        self.batch_group = batch_group(mesh, self.par)
 
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
@@ -446,12 +467,12 @@ class DecoderLM:
         keeps its rows of the routed experts: bit for bit the slice of the
         one-rank init with the same seed."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = _generator(self.device, seed)
         d = cfg.d_model
         hd = None if a is None else a.head_dim
 
         def normal(shape, scale, dtype=dt):
-            x = torch.randn(shape, generator=gen, device=self.device)
+            x = _randn(shape, gen, self.device)
             return (x * scale).to(dtype)
 
         def dense(d_in, d_out, n=None, dtype=dt):
@@ -564,15 +585,15 @@ class DecoderLM:
         img = batch["image_embeds"].to(device=self.device, dtype=self.dtype)
         return torch.cat([img, h], dim=1)
 
-    def _prompt_embed(self, p, tokens, pos_t, img=None):
-        """The embedded rows at global positions ``pos_t`` of a prompt
-        (``tokens`` (B, Tt), after the image rows ``img`` (B, n, d) of a
-        VLM): the image rows are a prefix of any rank's positions
-        (module docstring)."""
+    def _prompt_embed(self, p, tokens, pos, pos_t, img=None):
+        """The embedded rows at global positions ``pos`` (host integers;
+        ``pos_t`` on the device) of a prompt (``tokens`` (B, Tt), after the
+        image rows ``img`` (B, n, d) of a VLM): the image rows are a prefix
+        of any rank's positions (module docstring)."""
         if img is None:
             return L.embed(p["embed"], tokens[:, pos_t], self.dtype)
         n = img.shape[1]
-        k = int((pos_t < n).sum())
+        k = int((pos < n).sum())
         return torch.cat([img[:, pos_t[:k]].to(self.dtype),
                           L.embed(p["embed"], tokens[:, pos_t[k:] - n],
                                   self.dtype)], dim=1)
@@ -1010,7 +1031,7 @@ class DecoderLM:
                              f"{P} ranks{' (zigzag: 2P chunks)' if zz else ''}")
         pos = shard_positions(T, P, self.seq_rank, zz)
         pos_t = torch.as_tensor(pos, device=self.device)
-        h = self._prompt_embed(p, tokens, pos_t, img)
+        h = self._prompt_embed(p, tokens, pos, pos_t, img)
         cos, sin = L.rope_tables(pos_t, self.rope_dim, a.rope_theta)
         spec = _attn_spec(self.cfg, self.par, P, self.impl, False,
                           self.scale, self.attn_group)
@@ -1370,11 +1391,11 @@ class EncDecLM(DecoderLM):
         ``ln_enc``, ``ln_f`` — by :meth:`DecoderLM.init`'s scheme; its bits
         differ from the reference's."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = _generator(self.device, seed)
         d, hd, H = cfg.d_model, a.head_dim, a.n_heads
 
         def dense(d_in, d_out):
-            x = torch.randn((d_in, d_out), generator=gen, device=self.device)
+            x = _randn((d_in, d_out), gen, self.device)
             return (x / math.sqrt(d_in)).to(dt)
 
         def ones():
@@ -1389,7 +1410,7 @@ class EncDecLM(DecoderLM):
             return {"wg": dense(d, cfg.d_ff), "wu": dense(d, cfg.d_ff),
                     "wd": dense(cfg.d_ff, d), "ln": ones()}
 
-        emb = torch.randn((cfg.vocab, d), generator=gen, device=self.device)
+        emb = _randn((cfg.vocab, d), gen, self.device)
         return {"embed": (emb * 0.02).to(dt),
                 "enc_layers": [{"attn": attn(a.n_kv_heads), "mlp": mlp()}
                                for _ in range(cfg.n_enc_layers)],

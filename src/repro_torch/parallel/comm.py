@@ -31,7 +31,11 @@ the world is started (:func:`init_world`) or a group is built
                       transport="gloo-staged")``).
 
 No transport is ever reached by catching another's failure: a mailbox
-that cannot be exported or opened raises.
+that cannot be exported or opened raises.  The dry-run's meshes
+(``launch/mesh.make_production_mesh``) carry :class:`MetaComm` instead:
+one rank's view of a group with no process behind it, whose collectives
+return tensors of the right shape, move nothing and count the bytes they
+would have moved (:class:`CommCounts`).
 
 **The mailboxes** (``cuda-ipc``).  Each :class:`Comm` has two, made at
 first use: one for its collectives (main thread) and one for its shifts
@@ -646,6 +650,116 @@ def _acc_dtype(dt):
     if dt.is_floating_point:
         return torch.float32
     return torch.int64
+
+
+class CommCounts:
+    """What a :class:`MetaComm` was asked to move, by kind of collective:
+    ``bytes`` — per-rank link bytes (the ring-algorithm estimates of the
+    reference's ``analysis/roofline.collective_stats``: a shift R, an
+    all-gather R·(n − 1)/n of the gathered result R, an all-reduce
+    2·R·(n − 1)/n, an all-to-all R·(n − 1)/n, a broadcast R), ``ops`` —
+    calls, ``hop_bytes`` — the same bytes with a shift of h hops weighed
+    |h| (the distance its caller names; every other kind weighs 1).  The
+    Comms of one mesh share one instance; :meth:`reset` zeroes it."""
+
+    KINDS = ("shift", "all_to_all", "all_gather", "all_reduce", "broadcast")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.bytes = dict.fromkeys(self.KINDS, 0.0)
+        self.ops = dict.fromkeys(self.KINDS, 0)
+        self.hop_bytes = 0.0
+
+    def add(self, kind: str, nbytes: float, hops: int = 1):
+        self.bytes[kind] += nbytes
+        self.ops[kind] += 1
+        self.hop_bytes += nbytes * abs(hops)
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes.values())
+
+    def as_dict(self) -> dict:
+        return {"total_bytes": self.total_bytes,
+                "hop_weighted_bytes": self.hop_bytes,
+                "bytes_by_kind": {k: v for k, v in self.bytes.items() if v},
+                "op_counts": {k: v for k, v in self.ops.items() if v}}
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+class MetaComm:
+    """A :class:`Comm` over no process group: one rank's view of a group of
+    ``len(ranks)`` ranks (``me`` its global rank) for the dry-run
+    (``launch/mesh.make_production_mesh``).  Every collective returns
+    tensors of the shape and dtype the real one would, moves no data
+    (received tensors are new and uninitialised; reductions and broadcasts
+    leave their tensors as they are) and records what it would have moved
+    in ``counts`` (:class:`CommCounts`).  The autograd forms below
+    (:func:`all_to_all`, :func:`all_reduce`, :func:`gather_rows`,
+    :func:`shift`) call these methods, so a backward's collectives are
+    counted too."""
+
+    def __init__(self, ranks, me: int, counts: CommCounts, device="meta"):
+        self.ranks = list(ranks)
+        self.size = len(self.ranks)
+        self.rank = self.ranks.index(me)
+        self.transport = "meta"
+        self.device = torch.device(device)
+        self.group = self.p2p_group = None
+        self.counts = counts
+        self.shift_wait_s = self.reduce_s = self.gather_s = 0.0
+        self.a2a_s = 0.0
+
+    @staticmethod
+    def _like(t, shape=None):
+        return torch.empty(t.shape if shape is None else shape,
+                           dtype=t.dtype, device=t.device)
+
+    def shift(self, tensors, hops: int):
+        tensors = [t.contiguous() for t in tensors]
+        if hops % self.size == 0:
+            return _Done(tensors)
+        self.counts.add("shift", sum(_nbytes(t) for t in tensors), hops)
+        return _Done([self._like(t) for t in tensors])
+
+    def all_to_all(self, x, split_dim: int, concat_dim: int):
+        if self.size == 1:
+            return x
+        n = self.size
+        self.counts.add("all_to_all", _nbytes(x) * (n - 1) / n)
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[concat_dim] *= n
+        return self._like(x, shape)
+
+    def all_gather(self, x, dim: int):
+        if self.size == 1:
+            return x
+        n = self.size
+        self.counts.add("all_gather", _nbytes(x) * (n - 1))
+        shape = list(x.shape)
+        shape[dim] *= n
+        return self._like(x, shape)
+
+    def all_reduce_(self, tensors, op: str = "sum"):
+        if self.size == 1:
+            return tensors
+        n = self.size
+        for t in tensors:
+            self.counts.add("all_reduce", 2.0 * _nbytes(t) * (n - 1) / n)
+        return tensors
+
+    def broadcast_(self, tensors, root: int):
+        if self.size == 1:
+            return tensors
+        for t in tensors:
+            self.counts.add("broadcast", _nbytes(t))
+        return tensors
 
 
 # ------------------------------------------------- differentiable forms

@@ -16,8 +16,9 @@ resolution (``set_table`` > ``REPRO_TUNE_TABLE`` > a bundled
 ``tables/default_<platform>.json`` > None; ``REPRO_TUNE=off`` skips it).
 :mod:`repro_torch.tune.calibrate` fits the cost model's coefficients to
 measured schedule rows; :mod:`repro_torch.tune.timing` holds the median
-timers.  No table ships with the port yet: the H100 sweep that writes one
-is still to come, so ``auto`` ranks by the roofline.
+timers; :mod:`repro_torch.tune.sweep` measures and writes a table
+(``tools/autotune_torch.py``).  No table ships with the port, so ``auto``
+ranks by the roofline unless a table is loaded.
 """
 from repro_torch.tune.table import (SCHEMA_VERSION, TableError, TuningTable,
                                     active_table, set_table)

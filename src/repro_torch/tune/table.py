@@ -26,7 +26,7 @@ tuning never turns into a crash.
 cache): an explicit :func:`set_table`; ``REPRO_TUNE_TABLE=<path>``; the
 bundled ``tables/default_<platform>.json`` (``cuda`` where a CUDA device
 is available, else ``cpu``); else None.  ``REPRO_TUNE=off`` gives None.
-No table ships with the port yet (the H100 sweep writes one).
+No table ships with the port (``tune/sweep.py`` writes one).
 
 Consumers: ``core/schedule.choose_schedule`` (:meth:`TuningTable.
 best_schedule`, :meth:`TuningTable.coeffs`) and ``serve/cache.

@@ -1256,3 +1256,44 @@ def test_whisper_cross_shapes_match_plain(dev, case, dtype):
         torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=tol)
         if dtype == torch.bfloat16:
             assert row_rel_err(a, r) <= 2e-2
+
+
+def test_kernel_sweep_times_the_kernels_not_a_no_op(dev):
+    """``tune/sweep.sweep_kernels``' causal row at (1, 8192, 32, 128) bf16
+    reads between 0.9x and 2.0x the kernels' own device time (CUDA events)
+    at that shape: A for ``fwd``, C + D for ``bwd`` (chip_smoke.py phase 26
+    (a)'s gate), and the sweep launched A, C and D."""
+    from repro_torch.kernels.flash_attention import (_BwdPlan, _launch_dkv,
+                                                     _launch_dq)
+    from repro_torch.tune import sweep as tsw
+    T, H, D = 8192, 32, 128
+    data = tsw.new_table_data(dev)
+    build.reset_launches()
+    tsw.sweep_kernels(data, device=dev, shapes=[(T, D, D)], log=lambda *a: 0)
+    assert all(build.LAUNCHES[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv"))
+    wall = {r["op"]: r["wall_us"] / 1e3 for r in data["kernel"]
+            if r["mask_kind"] == "causal"}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q, k, v, do = (_randn(gen, (1, T, H, D), torch.bfloat16, dev)
+                   for _ in range(4))
+    m = mk.causal()
+
+    def device_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / reps
+
+    a_ms = device_ms(lambda: flash_fwd(q, k, v, mask=m))
+    o, lse = flash_fwd(q, k, v, mask=m)
+    pl = _BwdPlan(q, k, v, o, lse, do, m, None, None, None, True)
+    cd_ms = (device_ms(lambda: _launch_dq(pl, D ** -0.5))
+             + device_ms(lambda: _launch_dkv(pl, D ** -0.5)))
+    for op, ref in (("fwd", a_ms), ("bwd", cd_ms)):
+        assert 0.9 <= wall[op] / ref <= 2.0, (op, wall[op], ref)

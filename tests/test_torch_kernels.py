@@ -930,9 +930,11 @@ def test_paged_split_result_bits_do_not_depend_on_batch_or_width():
 
 def test_registry_defaults_to_cuda_and_runs_plain_on_cpu():
     """``cuda`` is the default backend; on CPU tensors its wrappers give the
-    plain versions' results, and an unknown name raises."""
+    plain versions' results, and an unknown name raises.  ``null`` (the
+    dry-run's stub) is reached only by name and is not exact."""
     from repro_torch.kernels import registry
-    assert registry.names() == ("cuda", "ref")
+    assert registry.names() == ("cuda", "null", "ref")
+    assert not registry.get("null").exact and registry.resolve(None).exact
     assert registry.resolve(None).name == "cuda"
     assert registry.resolve("ref").fwd is chunk_attn_ref
     assert registry.resolve("ref").bwd is chunk_attn_bwd_ref
