@@ -84,7 +84,8 @@ Phases, each fatal on failure (nothing is caught):
                 tile).
   3d. comm    — the ``cuda-ipc`` transport on 4 ranks sharing the card
                 against ``gloo-staged`` on the same seeded inputs: shifts,
-                all_to_all, all_gather, broadcast_ and max bitwise, sums
+                all_to_all, all_gather, broadcast_, max and reduce_scatter
+                (FSDP's; past the slot too) bitwise, sums
                 bitwise equal on every rank and within float32 rounding of
                 the float64 sum, messages past the mailbox's slot whole; a
                 planted fault (reads of the next peer's mailbox) must break
@@ -582,7 +583,32 @@ Phases, each fatal on failure (nothing is caught):
                 meta peak of one rank of
                 phase 7's cell within 0.8-1.25x that rank's
                 ``max_memory_allocated``, and phase 6's counted FLOPs over
-                its step time as a share of peak (not gated).
+                its step time as a share of peak (not gated); and the
+                meta peak of phase 27 (a)'s rank 0 within 0.8-1.25x its
+                ``max_memory_allocated``.
+  27. fsdp    — FSDP (ZeRO-3) training (runs after phase 7): 4
+                ``cuda-ipc`` ranks on a (data 2, model 2) mesh, each
+                holding its shard of every parameter the reference's
+                ``param_spec`` shards over data and AdamW moments shaped
+                like it, each weight gathered when its layer runs
+                (``parallel/fsdp.py``), remat_aware, bf16, seed 27.  (a)
+                llama-7b's full width at depth 4 of 32, 2 × 16,384 tokens
+                a step (8,192 a rank), 3 steps; (b) deepseek-v2-lite-16b's
+                dense layer 0 and one MoE layer, 4,096 tokens a step,
+                step 1's gradients and 2 steps replaying the one process's
+                expert choices with the pairs each rank keeps of its rows.
+                Each against one process on the same global batch and
+                weights: (a) phase 7's loss limit on every step's loss and
+                its norm limit on step 1's; (b) phase 15's one-bf16-step
+                bar on step 1's loss, aux and norm and step 2's loss; both
+                every gradient leaf, gathered whole, within 5% of its max
+                |g|, which a planted fault (the backward keeps its own
+                block of each gradient, not summed over data) must exceed;
+                the ranks agree; A, C and D launched as the plan says.
+                Prints each rank's parameter and moment bytes (about half
+                of one replica's in (a)), its ``max_memory_allocated``
+                over the steps and its host seconds in the FSDP gathers
+                and reduce-scatters.
 Every phase prints its seconds, and every multi-rank phase its ranks'
 host seconds in collectives.
 Prints the ``{"kernels": [...]}`` line second to last and
@@ -635,7 +661,8 @@ from repro_torch.serve.faults import FaultEvent, FaultInjector  # noqa: E402
 from repro_torch.serve.scheduler import TERMINAL_STATES  # noqa: E402
 from repro_torch.serve.speculative import (  # noqa: E402
     DraftSource, ModelDraft, SpecConfig)
-from repro_torch.train.step import make_train_step  # noqa: E402
+from repro_torch.train.step import (make_train_step,  # noqa: E402
+                                    norm_groups)
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
@@ -1520,6 +1547,8 @@ def _p3d_run(comm, x):
     out["max"] = [t.cpu() for t in comm.all_reduce_(
         [t.clone() for t in x["red"]], op="max")]
     out["sum_big"] = comm.all_reduce_([x["red_big"].clone()])[0].cpu()
+    out["rscatter"] = comm.reduce_scatter(x["a2a"], 0).cpu()
+    out["rscatter_big"] = comm.reduce_scatter(x["a2a_big"], 1).cpu()
     torch.cuda.synchronize()
     return out
 
@@ -1600,9 +1629,10 @@ def _p3d_sum_err(got, parts):
 def transport_checks():
     """Phase 3d: the cuda-ipc transport on 4 ranks sharing the card against
     gloo-staged, on the same seeded inputs: shifts (hops 1, -1, 2),
-    all_to_all, all_gather and broadcast_ bitwise; all_reduce_ (sum and
-    max) bitwise equal across the ranks and each sum within its float32
-    rounding bound of the float64 sum of the ranks' inputs; messages past
+    all_to_all, all_gather, broadcast_ and reduce_scatter bitwise;
+    all_reduce_ (sum and max) bitwise equal across the ranks and each sum
+    within its float32 rounding bound of the float64 sum of the ranks'
+    inputs; messages past
     the mailbox cap (a shift, an all_to_all, an all_gather and an
     all-reduce) arrive whole.  A planted fault (every read of a peer's
     mailbox reads the next peer's) must break the bitwise checks.  Times
@@ -1612,8 +1642,9 @@ def transport_checks():
     res = spawn(_p3d_rank, P3D_RANKS, (), device=DEV, timeout=P3D_TIMEOUT)
     check(all(r["transports"] == ("cuda-ipc", "gloo-staged") for r in res),
           f"transports {[r['transports'] for r in res]}")
+    scatters = ("rscatter", "rscatter_big")
     copies = [k for k in res[0]["ipc"] if k not in ("sum", "max",
-                                                     "sum_big")]
+                                                     "sum_big") + scatters]
     for r in res:
         for k in copies:
             check(_bitwise(r["ipc"][k], r["staged"][k]),
@@ -1623,6 +1654,12 @@ def transport_checks():
                   f"rank {r['rank']}: cuda-ipc's {k} differs from rank 0's")
         check(_bitwise(r["ipc"]["max"], r["staged"]["max"]),
               f"rank {r['rank']}: cuda-ipc's max is not gloo-staged's")
+        # both sum the ranks' blocks in rank order in float32: the same
+        # bits (a rotated read order would round the same set alike, so
+        # the wrong-peer fault is not asked to break these)
+        for k in scatters:
+            check(_bitwise(r["ipc"][k], r["staged"][k]),
+                  f"rank {r['rank']}: cuda-ipc's {k} is not gloo-staged's")
     ins = res[0]["inputs"]
     errs = [_p3d_sum_err(g, p) for g, p in zip(res[0]["ipc"]["sum"],
                                                ins["red"])]
@@ -1643,7 +1680,8 @@ def transport_checks():
         f"{MAILBOX_CAP >> 20} MiB slot too); sums equal on every rank, "
         f"within {max(errs):.3f} of their float32 rounding bound "
         f"(gloo-staged {max(staged):.3f}); {diff} of 8 sum results differ "
-        f"from gloo-staged's bitwise; the wrong-peer fault breaks "
+        f"from gloo-staged's bitwise; reduce_scatter (bf16, and past the "
+        f"slot) bitwise gloo-staged's; the wrong-peer fault breaks "
         f"{len(caught)} of {len(copies)}")
     for name in ("cuda-ipc", "gloo-staged"):
         ms = {k: max(r["ms"][name][k] for r in res)
@@ -3032,6 +3070,341 @@ def multi_rank():
                 d_loss_ctl=d_loss_ctl, grad_err=gerr, d_gnorm=d_gnorm,
                 d_loss2=d_loss2, staged=staged, p1=p1,
                 peaks=[r["peak"] for r in res])
+
+
+# ---------------------------------------------------------------- phase 27
+
+P27_RANKS, P27_MESH = 4, (2, 2)           # (data, model)
+# (a): llama-7b's full width at depth 4 of 32, one sequence of 16,384
+# tokens a data rank (8,192 a rank), 3 steps
+P27_LAYERS, P27_T, P27_B, P27_STEPS = 4, 16384, 2, 3
+# (b): deepseek-v2-lite-16b, the dense layer 0 and one MoE layer, 4,096
+# tokens a step (1,024 a rank), step 1's gradients and 2 train steps
+P27_MOE_LAYERS, P27_MOE_T, P27_MOE_B, P27_MOE_STEPS = 2, 2048, 2, 2
+P27_SEED = 27
+P27_TIMEOUT = 600
+# a rank's parameter bytes over one replica's at data 2: its shards (the
+# replicated norm weights add 3.6e-5 of them at llama-7b's width)
+P27_HALF = (0.49, 0.51)
+
+
+def _p27_tc(steps):
+    return TrainConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+
+
+def _p27_cfg(moe=False):
+    if moe:
+        return get_config(P15_ARCH).replace(n_layers=P27_MOE_LAYERS)
+    return get_config("llama-7b").replace(n_layers=P27_LAYERS)
+
+
+def _p27_shape(moe=False):
+    return (ShapeSpec("chip27b", P27_MOE_T, P27_MOE_B, "train") if moe
+            else ShapeSpec("chip27", P27_T, P27_B, "train"))
+
+
+@contextlib.contextmanager
+def _own_block_fault(model):
+    """Phase 27's planted fault: the FSDP backward keeps its own block of
+    each whole weight's gradient, the other data rank's contribution not
+    summed in (the reduce-scatter of the FSDP group replaced by a
+    slice)."""
+    g = model.fsdp.group
+
+    def own(x, dim):
+        n = x.shape[dim] // g.size
+        return x.narrow(dim, g.rank * n, n).contiguous()
+    g.reduce_scatter = own
+    try:
+        yield
+    finally:
+        del g.reduce_scatter
+
+
+def _p27_one(moe, path):
+    """Phase 27's one process on the same global batch and weights (seed
+    27, the ranks' shards sliced from the same draws): step 1's loss, aux
+    and gradients (saved at ``path``, flatten order, on the host), then
+    the train steps.  (b) keeps the pairs each rank keeps of its own rows
+    (``_Keep(split=4)``) and saves its expert choices for the ranks to
+    replay (``path + ".calls"``)."""
+    cfg, shape = _p27_cfg(moe), _p27_shape(moe)
+    steps = P27_MOE_STEPS if moe else P27_STEPS
+    one = DecoderLM(cfg, DEV)
+    params = trainable(one.init(seed=P27_SEED))
+    ds = SyntheticTokens(cfg, shape, device=DEV, seed=0)
+    b0 = ds.batch(0)
+    n_rows = shape.seq_len * shape.global_batch // P27_RANKS
+    rk = _Router() if moe else contextlib.nullcontext()
+    from repro_torch.models.moe import capacity
+    kp = (_Keep(split=P27_RANKS, cap=capacity(cfg, n_rows)) if moe
+          else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with rk, kp:
+        loss, met = one.loss(params, b0)
+        gs = torch.autograd.grad(loss, leaves(params))
+        first = [float(x.detach()) for x in (loss, met["ce"], met["aux"])]
+        torch.save([g.cpu() for g in gs], path)
+        del gs, loss, met
+        step = make_train_step(one, _p27_tc(steps))
+        opt = adamw.init(params)
+        runs = [step(params, opt, ds.batch(i)) for i in range(steps)]
+    if moe:
+        torch.save([c.cpu() for c in rk.seen], path + ".calls")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    names = _leaf_names(params)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    del one, params, opt, step
+    _free()
+    return dict(first=first, steps=runs, bytes=nbytes, names=names,
+                sec=sec)
+
+
+def _p27_grads(model, params, batch, ref, calls=None):
+    """Step 1's loss, ce, aux and this rank's gradients summed as the train
+    step sums them (``train/step.sum_grads``: the shards' arrive summed
+    over data by the reduce-scatter), gathered whole over the FSDP group
+    and held to the one process's ``ref`` (this rank's rows of the routed
+    experts): (first, worst leaf max|Δg| / max|g₁| over the world, its
+    index).  Every rank calls it (collectives)."""
+    from repro_torch.core.tree import flatten
+    from repro_torch.train.step import sum_grads
+    ps, rebuild = flatten(params)
+    with (_Router(calls=calls) if calls is not None
+          else contextlib.nullcontext()):
+        loss, met = model.loss(params, batch)
+        raw = torch.autograd.grad(loss, ps)
+    first = [float(x.detach()) for x in (loss, met["ce"], met["aux"])]
+    del loss, met
+    grads, experts = sum_grads(model, params, raw)
+    del raw
+    whole = leaves(model.fsdp.full(rebuild(grads)))
+    del grads
+    num = torch.zeros(len(whole), device=DEV)
+    den = torch.zeros(len(whole), device=DEV)
+    n = 1 << 24
+    for i, (g, r) in enumerate(zip(whole, ref)):
+        if experts[i]:
+            r = TF.expert_rows(model.cfg, r, model.expert_group)
+        a, b = g.reshape(-1), r.reshape(-1)
+        for j in range(0, a.numel(), n):
+            x = b[j:j + n].to(DEV).float()
+            num[i] = torch.maximum(num[i],
+                                   (a[j:j + n].float() - x).abs().max())
+            den[i] = torch.maximum(den[i], x.abs().max())
+    del whole
+    model.mesh.world.all_reduce_([num, den], op="max")
+    err = (num / den.clamp(min=1e-30)).cpu()
+    i = int(err.argmax())
+    return first, float(err[i]), i
+
+
+def _p27_case(rank, mesh, moe, path):
+    """One rank's part of (a) or (b): step 1's gradients sound and under
+    the planted fault against the one process's, this rank's bytes, then
+    the train steps (launches, losses, norms, seconds, host seconds in
+    the FSDP gathers and reduce-scatters, the peak over the steps)."""
+    cfg, shape = _p27_cfg(moe), _p27_shape(moe)
+    steps = P27_MOE_STEPS if moe else P27_STEPS
+    par = make_parallel_config(mesh, shape)
+    model = DecoderLM(cfg, DEV, mesh=mesh, par=par, fsdp=True)
+    params = trainable(model.init(seed=P27_SEED))
+    data = SyntheticTokens(cfg, shape, device=DEV, seed=0, mesh=mesh,
+                           par=par)
+    ref = torch.load(path, mmap=True)
+    calls = None
+    if moe:
+        n = shape.seq_len * shape.global_batch // P27_RANKS
+        calls = [c[rank * n:(rank + 1) * n].to(DEV)
+                 for c in torch.load(path + ".calls")]
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers if moe else 0
+    b0 = data.batch(0)
+    out = {"rank": rank, "transport": mesh.transport,
+           "coords": (mesh.coord("data"), mesh.coord("model")),
+           "batch_axes": par.batch_axes, "fsdp": model.fsdp.group.size}
+    out["first"], out["grad_err"], out["grad_leaf"] = _p27_grads(
+        model, params, b0, ref, calls and calls[:2 * n_moe])
+    with _own_block_fault(model):
+        f, e, i = _p27_grads(model, params, b0, ref,
+                             calls and calls[:2 * n_moe])
+    out["fault"] = dict(first=f, grad_err=e, grad_leaf=i)
+    del ref
+    _free()
+    opt = adamw.init(params)
+    out["bytes"] = (sum(t.numel() * t.element_size() for t in leaves(params)),
+                    sum(t.numel() * t.element_size()
+                        for t in leaves(opt.m) + leaves(opt.v)),
+                    sum(t.numel() for t in leaves(params)))
+    kernels = P14_KERNELS if moe else BWD_KERNELS
+    step = make_train_step(model, _p27_tc(steps))
+    g = model.fsdp.group
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = (g.gather_s, g.scatter_s, g.reduce_s)
+    run = []
+    for i in range(steps):
+        batch = data.batch(i)
+        replay = (_Router(calls=calls[(2 + 2 * i) * n_moe:
+                                      (4 + 2 * i) * n_moe])
+                  if moe else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with replay:
+            m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        run.append(dict(loss=m["loss"], ce=m["ce"], aux=m["aux"],
+                        gnorm=m["gnorm"], skipped=m["skipped_nonfinite"],
+                        sec=time.perf_counter() - t0,
+                        launches={k: build.LAUNCHES[k] for k in kernels}))
+    out["steps"] = run
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["fsdp_s"] = dict(gather=g.gather_s - c0[0],
+                         scatter=g.scatter_s - c0[1],
+                         fetch=g.reduce_s - c0[2])
+    del model, params, opt, step
+    _free()
+    return out
+
+
+def _p27_rank(rank, tmp):
+    """One rank of phase 27's world: (a), then (b) (:func:`_p27_case`)."""
+    mesh = make_local_mesh(seq=P27_MESH[1], data=P27_MESH[0], device=DEV)
+    out = {"a": _p27_case(rank, mesh, False, os.path.join(tmp, "a.pt")),
+           "b": _p27_case(rank, mesh, True, os.path.join(tmp, "b.pt"))}
+    out["rank"] = rank
+    out["comm_s"] = _process_comm_seconds()
+    return out
+
+
+def _p27_gates(name, res, one, moe):
+    """Phase 27 (a) or (b)'s gates against the one process: (a) phase 7's
+    loss limit on every step's loss, its norm limit on step 1's gradient
+    norm; (b) phase 15's bar (one bf16 step) on step 1's loss and aux,
+    step 1's norm and step 2's loss; both: every gradient leaf, gathered,
+    within 5% of its max |g|, a limit the planted fault must exceed; the
+    ranks agree; each step launched A, C and D as the plan says."""
+    cfg, shape = _p27_cfg(moe), _p27_shape(moe)
+    rs = [r[name] for r in res]
+    r0 = rs[0]
+    names = one["names"]
+    check(all(r["transport"] == P8_TRANSPORT for r in rs),
+          f"transport {[r['transport'] for r in rs]}")
+    check(all(r["batch_axes"] == ("data",) and r["fsdp"] == P27_MESH[0]
+              for r in rs), f"({name}) batch axes / FSDP group "
+          f"{[(r['batch_axes'], r['fsdp']) for r in rs]}")
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    st, s1 = r0["steps"], one["steps"]
+    if moe:
+        d = dict(loss=rel(r0["first"][0], one["first"][0]),
+                 aux=rel(r0["first"][2], one["first"][2]),
+                 gnorm=rel(st[0]["gnorm"], s1[0]["gnorm"]),
+                 loss2=rel(st[1]["loss"], s1[1]["loss"]))
+        lim = dict.fromkeys(d, P15_TOL)
+    else:
+        d = {f"loss{i + 1}": abs(st[i]["loss"] - s1[i]["loss"])
+             for i in range(len(st))}
+        d["first"] = abs(r0["first"][0] - one["first"][0])
+        lim = dict.fromkeys(d, P7_LOSS_TOL)
+        d["gnorm"] = rel(st[0]["gnorm"], s1[0]["gnorm"])
+        lim["gnorm"] = P7_GNORM_TOL
+    err, fault = r0["grad_err"], r0["fault"]["grad_err"]
+    say(f"  ({name}) FSDP on (data 2, model 2) vs one process: " + ", ".join(
+        f"{k} {v:.3e} (limit {lim[k]:.3e})" for k, v in d.items())
+        + f"; worst gradient leaf max|Δg|/max|g| {err:.4f} "
+        f"({names[r0['grad_leaf']]}; limit {GRAD_REL_TOL}); planted fault "
+        f"(own block, no sum over data): {fault:.4f} "
+        f"({names[r0['fault']['grad_leaf']]}), its step-1 loss "
+        f"{r0['fault']['first'][0]:.6f} vs {r0['first'][0]:.6f}")
+    for k, v in d.items():
+        check(v <= lim[k], f"phase 27 ({name}): {k} {v} vs one process")
+    check(err <= GRAD_REL_TOL, f"phase 27 ({name}) gradients: "
+          f"{names[r0['grad_leaf']]} {err}")
+    check(fault > GRAD_REL_TOL, f"phase 27 ({name}): the gradient limit "
+          f"does not reject the unsummed FSDP backward ({fault})")
+    for i, s in enumerate(st):
+        vals = {(r["steps"][i]["loss"], r["steps"][i]["gnorm"]) for r in rs}
+        check(len(vals) == 1, f"({name}) step {i + 1}: ranks disagree "
+              f"{vals}")
+    P = P27_MESH[1]
+    want = _plan_launches("balanced", P, shape.seq_len)
+    kernels = P14_KERNELS if moe else BWD_KERNELS
+    launches = {k: 0 for k in kernels}
+    for r in rs:
+        seq = r["coords"][1]
+        for i, s in enumerate(r["steps"]):
+            check(s["skipped"] == 0 and np.isfinite(s["loss"]),
+                  f"({name}) rank {r['rank']} step {i + 1}: {s}")
+            w = cfg.n_layers * want[seq]
+            check(all(s["launches"][k] == w for k in kernels),
+                  f"({name}) rank {r['rank']} step {i + 1}: launches "
+                  f"{s['launches']}, want {w} each")
+            for k in kernels:
+                launches[k] += s["launches"][k]
+        p, mo, numel = r["bytes"]
+        say(f"  ({name}) rank {r['rank']} {r['coords']}: parameters "
+            f"{p / 2**30:.3f} GiB ({p / one['bytes']:.5f} of one replica's "
+            f"{one['bytes'] / 2**30:.3f}), moments {mo / 2**30:.3f} GiB; "
+            f"peak {r['peak'] / 2**30:.2f} GiB over the steps; host seconds "
+            f"in FSDP gathers / reduce-scatters / fetches "
+            f"{r['fsdp_s']['gather']:.3f}/{r['fsdp_s']['scatter']:.3f}/"
+            f"{r['fsdp_s']['fetch']:.3f}; launches A/C/D a step " + ", ".join(
+                "/".join(str(s["launches"][k]) for k in kernels)
+                for s in r["steps"]))
+        check(mo == 8 * numel, f"rank {r['rank']}: moments {mo} bytes "
+              f"for {numel} parameters (float32 m and v)")
+        if not moe:
+            check(P27_HALF[0] <= p / one["bytes"] <= P27_HALF[1],
+                  f"rank {r['rank']} holds {p / one['bytes']:.4f} of one "
+                  f"replica's parameter bytes")
+    for i, s in enumerate(st):
+        say(f"  ({name}) step {i + 1} loss {s['loss']:.6f} (one process "
+            f"{s1[i]['loss']:.6f}) gnorm {s['gnorm']:.4f} "
+            f"({s1[i]['gnorm']:.4f}) "
+            f"{max(r['steps'][i]['sec'] for r in rs):.3f} s")
+    return dict(launches=launches, d=d, grad_err=err, fault=fault,
+                peaks=[r["peak"] for r in rs],
+                bytes=[r["bytes"] for r in rs], one_bytes=one["bytes"])
+
+
+def fsdp_ranks():
+    """Phase 27: FSDP (ZeRO-3) training over (data 2, model 2), 4 ranks
+    sharing the card over cuda-ipc: (a) llama-7b's width at depth 4,
+    2 × 16,384 tokens a step, 3 steps; (b) deepseek-v2-lite-16b's dense
+    layer 0 and one MoE layer, 4,096 tokens a step, replaying the one
+    process's expert choices.  Each against one process on the same
+    global batch and weights; a planted fault (no sum over data in the
+    backward) rejected."""
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        one = {}
+        for name, moe in (("a", False), ("b", True)):
+            one[name] = _p27_one(moe, os.path.join(tmp, f"{name}.pt"))
+            o = one[name]
+            say(f"  one process ({name}: {_p27_cfg(moe).name}, "
+                f"{_p27_cfg(moe).n_layers} layers, "
+                f"{_p27_shape(moe).global_batch} x "
+                f"{_p27_shape(moe).seq_len} tokens, {o['sec']:.1f} s): "
+                f"step 1 loss {o['first'][0]:.6f} aux {o['first'][2]:.3e}; "
+                "train steps " + ", ".join(
+                    f"{s['loss']:.6f}/{s['gnorm']:.4f}" for s in o["steps"])
+                + f"; parameters {o['bytes'] / 2**30:.3f} GiB")
+        t0 = time.perf_counter()
+        res = spawn(_p27_rank, P27_RANKS, (tmp,), device=DEV,
+                    timeout=P27_TIMEOUT, threads=2)
+        wall = time.perf_counter() - t0
+    res.sort(key=lambda r: r["rank"])
+    _say_comm(27, [dict(r, transport=r["a"]["transport"]) for r in res])
+    a = _p27_gates("a", res, one["a"], False)
+    b = _p27_gates("b", res, one["b"], True)
+    sec = time.perf_counter() - t_all
+    say(f"  world of {P27_RANKS} ranks: {wall:.1f} s, spawn included; "
+        f"phase 27 {sec:.1f} s")
+    return dict(launches=a["launches"], pair=b["launches"], a=a, b=b,
+                peaks=a["peaks"], seconds=sec)
 
 
 # ----------------------------------------------------------------- phase 8
@@ -5098,7 +5471,7 @@ def _p15_rank(rank, tmp):
         grads, sharded = _p15_summed(bal, params, raw)
     out["faults"]["grads"] = dict(first=first, grad_err=_p15_grad_err(
         bal, grads, sharded, ref, names), gnorm=float(adamw.global_norm(
-            grads, sharded, bal.expert_group)))
+            grads, norm_groups(bal, params))))
     del grads
     # the gradient norms again with the sums made by gloo-staged (printed
     # beside the gated readings: another summation order)
@@ -5109,7 +5482,7 @@ def _p15_rank(rank, tmp):
         with (_moe_fault(fault) if fault else contextlib.nullcontext()):
             grads, sharded = _p15_summed(st_bal, params, raw)
         out["staged_gnorm"].append(float(adamw.global_norm(
-            grads, sharded, st_bal.expert_group)))
+            grads, norm_groups(st_bal, params))))
         del grads
     del raw, st_bal
     for fault in ("rotate", "aux"):
@@ -6083,18 +6456,18 @@ def _step_grads(params, out):
     from repro_torch.train import step as st
     want = [lp["attn"][k] for lp in params["layers"]
             for k in ("wq", "wk", "wv")]
-    summed = st.sum_grads
+    pos = {id(t): i for i, t in enumerate(leaves(params))}
+    summed = st.sum_over
 
-    def capture(model, ps, grads):
-        grads, sharded = summed(model, ps, grads)
-        pos = {id(t): i for i, t in enumerate(leaves(ps))}
+    def capture(grads, groups):
+        grads = summed(grads, groups)
         out[:] = [grads[pos[id(t)]] for t in want]
-        return grads, sharded
-    st.sum_grads = capture
+        return grads
+    st.sum_over = capture
     try:
         yield
     finally:
-        st.sum_grads = summed
+        st.sum_over = summed
 
 
 def _p18_calls(plan, s, backward=False):
@@ -6599,8 +6972,8 @@ def _p19_train(rank, mesh, tmp):
                            for k, x in zip(kept, rec["keep"][:2 * n_moe]))
     grads, sharded = _p15_summed(model, params, raw)
     out["grad_err"] = _p15_grad_err(model, grads, sharded, ref, names)
-    out["gnorm1"] = float(adamw.global_norm(grads, sharded,
-                                            model.expert_group))
+    out["gnorm1"] = float(adamw.global_norm(
+        grads, norm_groups(model, params)))
     del grads
     ref_aux = [g.to(DEV) for g in torch.load(os.path.join(tmp,
                                                           "aux_router.pt"))]
@@ -9439,6 +9812,14 @@ def _p26_meta_counts():
         with counting(*live) as c:
             step()
         peaks[sched] = c.peak_bytes
+    # phase 27 (a)'s rank 0 on a (2, 2) meta mesh: its FSDP shards,
+    # moments and the step's gathers
+    step, live = build_step(_p27_cfg(), _p27_shape(),
+                            make_meta_mesh(("data", "model"), P27_MESH),
+                            impl="null")
+    with counting(*live) as c:
+        step()
+    peak27 = c.peak_bytes
     cfg6 = get_config("llama-7b").replace(n_layers=TRAIN_LAYERS)
     shape6 = ShapeSpec("chip", TRAIN_T, 1, "train")
     step, live = build_step(cfg6, shape6, None, impl="null")
@@ -9446,7 +9827,8 @@ def _p26_meta_counts():
         step()
     an_f, _ = RL.attention_analytic(cfg6, shape6, seq_shards=1,
                                     batch_shards=1)
-    return dict(peaks=peaks, flops=c.flops + an_f, attn_flops=an_f)
+    return dict(peaks=peaks, flops=c.flops + an_f, attn_flops=an_f,
+                peak27=peak27)
 
 
 def p26_start():
@@ -9500,9 +9882,10 @@ def _p26_dryrun(bg):
     return recs
 
 
-def _p26_meta(tr, mr, counts):
+def _p26_meta(tr, mr, counts, fp=None):
     """(e): the meta peak of one rank of phase 7's cell (the largest over
-    its schedules) against that rank's ``max_memory_allocated``; phase
+    its schedules) against that rank's ``max_memory_allocated``, and of
+    phase 27 (a)'s rank 0 (FSDP shards) against its own; phase
     6's counted step FLOPs over its step seconds and the peak rate (not
     gated)."""
     from repro_torch.analysis import roofline as RL
@@ -9516,6 +9899,16 @@ def _p26_meta(tr, mr, counts):
         f"{card / 2**30:.3f} GiB; ratio {ratio:.3f} (limits {P26_PEAK})")
     check(P26_PEAK[0] <= ratio <= P26_PEAK[1],
           f"the meta peak reads {ratio:.3f}x phase 7's rank peak")
+    ratio27 = None
+    if fp is not None:
+        card27 = fp["peaks"][0]
+        ratio27 = counts["peak27"] / card27
+        say(f"  (e) phase 27 (a)'s rank 0 (FSDP over data 2) on meta: peak "
+            f"{counts['peak27'] / 2**30:.3f} GiB; on the card "
+            f"(max_memory_allocated over its steps) {card27 / 2**30:.3f} "
+            f"GiB; ratio {ratio27:.3f} (limits {P26_PEAK})")
+        check(P26_PEAK[0] <= ratio27 <= P26_PEAK[1],
+              f"the meta peak reads {ratio27:.3f}x phase 27's rank peak")
     flops, an_f = counts["flops"], counts["attn_flops"]
     step_s = TRAIN_T / tr["tok_s"]
     share = flops / (step_s * RL.PEAK_FLOPS)
@@ -9525,10 +9918,10 @@ def _p26_meta(tr, mr, counts):
         f"{flops / step_s / 1e12:.1f} TFLOP/s, {share:.4f} of the "
         f"{RL.PEAK_FLOPS / 1e12:.1f} TFLOP/s peak (not gated)")
     return dict(meta_peaks=peaks, card_peak=card, ratio=ratio,
-                step_flops=flops, peak_share=share)
+                step_flops=flops, peak_share=share, ratio27=ratio27)
 
 
-def tuning(rows, tr, mr, bg):
+def tuning(rows, tr, mr, bg, fp=None):
     """Phase 26: the autotuner's sweeps on the card (``tune/sweep.py``:
     kernels (a), schedules on 4 cuda-ipc ranks (b), paged block sizes
     (c)), the dry-run's records on the meta device (d) and its peak
@@ -9588,7 +9981,7 @@ def tuning(rows, tr, mr, bg):
         f"{P26_TABLE}")
     _free()
     recs = _p26_dryrun(bg)
-    meta = _p26_meta(tr, mr, bg["meta"].result())
+    meta = _p26_meta(tr, mr, bg["meta"].result(), fp)
     bg["ex"].shutdown()
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
               "paged_decode"):
@@ -10477,6 +10870,13 @@ def main():
     mr = multi_rank()
     _free()
     took(7, t0)
+    say("== phase 27: FSDP (ZeRO-3) training over (data 2, model 2), 4 "
+        "ranks on the one card: llama-7b's width at depth 4 and "
+        "deepseek-v2-lite-16b at depth 2")
+    t0 = time.perf_counter()
+    fp = fsdp_ranks()
+    _free()
+    took(27, t0)
     say("== phase 8: long-context serving, 4 sequence ranks on the one card")
     t0 = time.perf_counter()
     lg = long_serve()
@@ -10523,6 +10923,7 @@ def main():
                 + sp["launches"].get(k, 0) + qw["launches"].get(k, 0)
                 + me["launches"].get(k, 0) + dk["launches"].get(k, 0)
                 + fs["launches"].get(k, 0) + s2["launches"].get(k, 0)
+                + fp["launches"].get(k, 0)
                 for k in res["launches"]}
     # kernel A's pair route also trains (phases 14 and 15) and prefills
     # across ranks (phase 16, all ranks; added once they have run); C and
@@ -10539,7 +10940,8 @@ def main():
         f"{dk['launches']}, deepseek fixed-slot {fs['launches']}, deepseek "
         f"training (remat_aware and hf, 4 steps each) {tm['launches']}, 2D "
         f"plans (all ranks: a train step on each mesh, the 2D prefill) "
-        f"{s2['launches']}")
+        f"{s2['launches']}, FSDP training (all ranks, phase 27 (a)) "
+        f"{fp['launches']}")
     rows = [time_flash(launches), time_latent(launches), time_pair(launches),
             time_paged(launches), *time_bwd(launches, tr["seen"], errs),
             *time_pair_bwd(pair_bwd, tm.pop("seen"), tm["errs"]),
@@ -10610,7 +11012,7 @@ def main():
         "schedules on 4 cuda-ipc ranks, paged block sizes), the dry-run on "
         "the meta device, its peak against phase 7's")
     t0 = time.perf_counter()
-    tu = tuning(rows, tr, mr, p26)
+    tu = tuning(rows, tr, mr, p26, fp)
     _free()
     took(26, t0)
 
@@ -10623,9 +11025,18 @@ def main():
             row["launches"] += ep["launches"][row["name"]]
         elif row["name"] in ("flash_bwd_dq_pair", "flash_bwd_dkv_pair"):
             row["launches"] += (em["launches"][row["name"][:-5]]
-                                + e2["launches"][row["name"][:-5]])
+                                + e2["launches"][row["name"][:-5]]
+                                + fp["pair"][row["name"][:-5]])
         if row["name"] == "flash_fwd_pair":
-            row["launches"] += e2["launches"]["flash_fwd_pair"]
+            row["launches"] += (e2["launches"]["flash_fwd_pair"]
+                                + fp["pair"]["flash_fwd_pair"])
+        # phase 27's FSDP runs: (a) on the one-D rows (added with phase
+        # 5's sums), (b) on the pair rows
+        row["p27_launches"] = {
+            "flash_fwd_pair": fp["pair"]["flash_fwd_pair"],
+            "flash_bwd_dq_pair": fp["pair"]["flash_bwd_dq"],
+            "flash_bwd_dkv_pair": fp["pair"]["flash_bwd_dkv"]}.get(
+                row["name"], fp["launches"].get(row["name"], 0))
         row["launches"] += g2["launches"].get(row["name"], 0)
         row["launches"] += sr["launches"].get(row["name"], 0)
         row["launches"] += s2d["launches"].get(row["name"], 0)
@@ -10663,7 +11074,8 @@ def main():
         f"ranks) {vl['launches']}, whisper (2 steps, a step on all ranks, "
         f"the engine's decode) {wh['launches']}, deepseek-v3 (3 training "
         f"steps, the 4-rank and (2, 2) steps on all ranks, both engines' "
-        f"kernel runs) {v3['launches']}, the sweeps (phase 26 (a, c); the "
+        f"kernel runs) {v3['launches']}, FSDP deepseek (all ranks, phase "
+        f"27 (b)) {fp['pair']}, the sweeps (phase 26 (a, c); the "
         f"192/128 shapes {tu['pair']}) {tu['launches']}")
     say(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

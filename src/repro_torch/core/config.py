@@ -219,10 +219,13 @@ class ParallelConfig:
     attention runs the 2D plans (``core/schedule.Plan2D``);
     ``extra_seq_axes`` are axes folded into the sequence sharding of a
     decode cache (``long_500k``: batch 1 leaves ``data`` idle);
-    ``fsdp_axes`` name the reference's parameter-sharding axes (the port
-    replicates parameters, except an MoE model's routed experts, which
-    shard over ``seq_axis``, and sums gradients over the ranks that hold
-    distinct tokens); ``remat`` is the checkpoint policy."""
+    ``fsdp_axes`` are the parameter-sharding axes (``pod`` and ``data``):
+    a model built with ``fsdp=True`` holds only its shard of each
+    parameter and AdamW moment (ZeRO-3, ``parallel/fsdp.py``, the
+    reference's ``param_spec`` rule), gathers each weight on use and
+    reduce-scatters its gradient over them; an MoE model's routed experts
+    also shard their rows over ``seq_axis``; ``remat`` is the checkpoint
+    policy."""
     batch_axes: Tuple[str, ...] = ("data",)
     seq_axis: str = "model"
     extra_seq_axes: Tuple[str, ...] = ()

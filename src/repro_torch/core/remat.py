@@ -29,6 +29,18 @@ the rest of ``aux`` (rope tables, segment ids) is passed through.
 Policies (``ParallelConfig.remat``): ``remat_aware`` (the combinator),
 ``hf`` (``torch.utils.checkpoint`` around the plain layer, which recomputes
 the attention forward) and ``none`` (store everything).
+
+FSDP (``parallel/fsdp.py``): a layer built by either takes ``layer(params,
+x, gather)``, ``params`` this rank's shards and ``gather`` their
+:class:`~repro_torch.parallel.fsdp.Gather`.  The gather runs inside the
+checkpointed region, in the forward and again in the backward's
+recompute, so the layer's whole weights are dropped after each use and
+autograd sees only the shards: under ``remat_aware`` the combinator
+gathers (``gather.full``) and reduce-scatters the whole weights'
+gradients onto the shards (``gather.reduce``); under ``hf`` the
+checkpointed function gathers differentiably (``gather.tree``); under
+``none`` so does the layer, and autograd keeps the whole weights its
+products saved until the backward.
 """
 from __future__ import annotations
 
@@ -47,20 +59,24 @@ def _add(a, b):
 
 
 class _RematAware(torch.autograd.Function):
-    """apply(stages, rebuild, n_params, h, *params, *aux): ``h`` is the
-    hidden state, ``aux`` the rest of ``x`` (rope tables, segment ids; an
-    encoder output, which takes a gradient when it requires one),
-    ``params`` the layer's parameters as flat tensors.  Returns ``post``'s
-    output: a tensor, or a tuple."""
+    """apply(stages, rebuild, gather, n_params, h, *params, *aux): ``h`` is
+    the hidden state, ``aux`` the rest of ``x`` (rope tables, segment ids;
+    an encoder output, which takes a gradient when it requires one),
+    ``params`` the layer's parameters as flat tensors — its FSDP shards
+    when ``gather`` (a ``parallel.fsdp.Gather``) is given, whole
+    otherwise.  Returns ``post``'s output: a tensor, or a tuple."""
 
     @staticmethod
-    def forward(ctx, stages, rebuild, n_params, h, *flat):
+    def forward(ctx, stages, rebuild, gather, n_params, h, *flat):
         pre, attn_fwd, _, post = stages
         leaves, aux = flat[:n_params], flat[n_params:]
-        params, x = rebuild(leaves), (h, *aux)
+        whole = leaves if gather is None else gather.full(leaves)
+        params, x = rebuild(whole), (h, *aux)
         o, lse = attn_fwd(pre(params, x))
         y = post(params, x, o)
+        del params, whole                 # the shards are what is kept
         ctx.stages, ctx.rebuild, ctx.n_params = stages, rebuild, n_params
+        ctx.gather = gather
         ctx.aux = aux                     # not differentiable
         ctx.save_for_backward(h, o, lse, *leaves)
         return y
@@ -69,12 +85,16 @@ class _RematAware(torch.autograd.Function):
     def backward(ctx, *dys):
         pre, _, attn_bwd, post = ctx.stages
         h, o, lse, *leaves = ctx.saved_tensors
-        first = 4 + ctx.n_params                 # aux's first input index
+        gather = ctx.gather
+        first = 5 + ctx.n_params                 # aux's first input index
         diff = [i for i in range(len(ctx.aux))
                 if ctx.needs_input_grad[first + i]]
+        whole = leaves if gather is None else gather.full(leaves)
         with torch.enable_grad():
             hd = h.detach().requires_grad_(True)
-            ps = [p.detach().requires_grad_(p.requires_grad) for p in leaves]
+            ps = [w.detach().requires_grad_(p.requires_grad)
+                  for w, p in zip(whole, leaves)]
+            del whole
             aux = list(ctx.aux)
             for i in diff:
                 aux[i] = aux[i].detach().requires_grad_(True)
@@ -105,7 +125,10 @@ class _RematAware(torch.autograd.Function):
             daux[i] = _add(next(it_post), next(it_pre))
         dparams = [_add(next(it_post), next(it_pre)) if p.requires_grad
                    else None for p in ps]
-        return (None, None, None, dh, *dparams, *daux)
+        del ps, params, qkv, g_post, g_pre, extra, y, ys, outs
+        if gather is not None:
+            dparams = gather.reduce(dparams)
+        return (None, None, None, None, dh, *dparams, *daux)
 
 
 def remat_aware(pre: Callable, attn_fwd: Callable, attn_bwd: Callable,
@@ -119,15 +142,17 @@ def remat_aware(pre: Callable, attn_fwd: Callable, attn_bwd: Callable,
       post:     (params, x, o) -> y, a tensor or a tuple of tensors
 
     ``x = (h, *aux)``: ``h`` gets a gradient, and so does each tensor of
-    ``aux`` that requires one.
+    ``aux`` that requires one.  The layer is ``layer(params, x,
+    gather=None)``: with ``gather``, ``params`` are FSDP shards (module
+    docstring).
     """
     stages = (pre, attn_fwd, attn_bwd, post)
 
-    def layer(params, x):
+    def layer(params, x, gather=None):
         leaves, rebuild = flatten(params)
         h, *aux = x
-        return _RematAware.apply(stages, rebuild, len(leaves), h, *leaves,
-                                 *aux)
+        return _RematAware.apply(stages, rebuild, gather, len(leaves), h,
+                                 *leaves, *aux)
 
     return layer
 
@@ -137,9 +162,16 @@ def apply_policy(layer: Callable, policy: str) -> Callable:
     checkpoint policy: ``hf``
     checkpoints it at the layer boundary (the attention forward is rerun in
     the backward); ``none`` stores everything.  ``remat_aware`` layers are
-    built with :func:`remat_aware` instead."""
+    built with :func:`remat_aware` instead.  The wrapped layer is
+    ``layer(params, x, gather=None)``: with ``gather``, ``params`` are FSDP
+    shards, gathered inside the checkpointed function (module
+    docstring)."""
+    def whole(p, x, gather):
+        return layer(p if gather is None else gather.tree(p), x)
+
     if policy == "none":
-        return layer
+        return lambda p, x, gather=None: whole(p, x, gather)
     if policy == "hf":
-        return lambda p, x: checkpoint(layer, p, x, use_reentrant=False)
+        return lambda p, x, gather=None: checkpoint(
+            whole, p, x, gather, use_reentrant=False)
     raise ValueError(f"unknown remat policy: {policy}")

@@ -22,6 +22,12 @@ the damaged file, never as a failure deep in numpy.  Leaves are torch
 tensors (numpy arrays and Python scalars are accepted on save); they are
 restored as CPU tensors, or onto the device of the matching leaf of
 ``like_tree``.
+
+A model trained under FSDP (``parallel/fsdp.py``) checkpoints the whole
+tree: ``models.transformer.to_reference_params(params, fsdp=...)``
+gathers the shards (every rank calls it) and rank 0 writes, so the file
+is byte for byte a one-process run's of the same parameters; it restores
+into shards through ``load_reference_params(..., fsdp=...)``.
 """
 from __future__ import annotations
 

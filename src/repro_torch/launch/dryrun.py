@@ -12,13 +12,18 @@ mesh's meta view (``launch/mesh.make_production_mesh``: Comms of the
 production sizes that move nothing and count what they would move), its
 inputs from ``data/pipeline.input_specs``, and one step runs eagerly:
 
-  * ``train``: ``model.loss``, ``torch.autograd.grad``, the gradient sums
-    over the ranks (``train/step.sum_grads``), the world-wide non-finite
+  * ``train``: on FSDP shards (the model built with ``fsdp=True``: the
+    parameters and moments are one rank's shards over ``pod`` × ``data``,
+    each weight gathered on use and its gradient reduce-scattered, as
+    the reference's step runs on ``param_shardings``), ``model.loss``,
+    ``torch.autograd.grad``, the gradient sums
+    over the ranks (``train/step.sum_over``), the world-wide non-finite
     flag's max, then ``optim/adamw.update`` — ``train/step``'s step without
     its host branch on the flag (a meta tensor holds no value; the
     reference's jitted step has no host branch either);
   * ``prefill``: ``model.prefill``; ``decode``: ``model.decode`` over the
-    dense cache.
+    dense cache, both on whole (replicated) weights, as the port's engines
+    serve (the reference's dry-run shards these too).
 
 A run that finishes proves the per-rank shapes, the plan and the
 collectives coherent, as the reference's ``.lower().compile()`` does.
@@ -85,7 +90,7 @@ from repro_torch.launch.mesh import make_meta_mesh, make_production_mesh
 from repro_torch.models.transformer import build_model, trainable
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import batch_group, make_parallel_config
-from repro_torch.train.step import sum_grads
+from repro_torch.train.step import leaf_groups, sum_over
 
 LONG_CTX_WINDOW = 8192   # the reference's Appendix-F window for long_500k
 
@@ -117,16 +122,17 @@ def _train_step(model, tc: TrainConfig):
     def step(params, opt, batch):
         ps, rebuild = flatten(params)
         loss, _ = model.loss(params, batch)
-        grads, sharded = sum_grads(model, params,
-                                   torch.autograd.grad(loss, ps))
+        groups = leaf_groups(model, params)
+        grads = sum_over(torch.autograd.grad(loss, ps),
+                         [sg for sg, _ in groups])
         finite = torch.isfinite(loss.detach())
         for g in grads:
             finite &= torch.isfinite(g).all()
         if model.mesh is not None and model.mesh.world.size > 1:
             model.mesh.world.all_reduce_([(~finite).float().reshape(1)],
                                          op="max")
-        adamw.update(rebuild(grads), opt, params, tc, sharded=sharded,
-                     group=model.expert_group if any(sharded) else None)
+        adamw.update(rebuild(grads), opt, params, tc,
+                     groups=[ng for _, ng in groups])
         return loss
     return step
 
@@ -153,7 +159,8 @@ def build_step(cfg, shape, mesh, *, schedule="balanced",
     (values undefined: ``meta`` is where they are meant)."""
     par = make_parallel_config(mesh, shape, schedule=schedule, remat=remat)
     model = build_model(cfg, device, par=par, impl=impl, mesh=mesh,
-                        latent_ring=latent_ring)
+                        latent_ring=latent_ring,
+                        fsdp=shape.kind == "train")
     batch = input_specs(cfg, shape, par, mesh, device)
     if shape.kind == "train":
         params = trainable(model.init())

@@ -54,12 +54,22 @@ the reference's 16 × 16 grid).  Weights come from seed 0 and batches
 from ``SyntheticTokens`` (seed 0), each rank taking its shard.  Runs on
 ``cuda`` unless ``--device cpu`` is given.
 
+The parameters and AdamW moments shard over ``data`` (FSDP, ZeRO-3:
+``parallel/fsdp.py``, the reference's ``param_shardings``), each weight
+gathered when its layer runs; rank 0 prints each rank's parameter and
+moment bytes.  ``--nproc 4 --seq-shards 2`` trains on (data 2, model 2):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-gqa \
+        --smoke --device cpu --steps 4 --seq 64 --batch 2 --nproc 4 \
+        --seq-shards 2
+
 With ``--ckpt-dir``, ``{"params": ...}`` is saved there in the reference's
 tree layout and checkpoint format (``io/checkpoint.py``; layers stacked on
 a leading axis, ``models.transformer.to_reference_params``) every
 ``--ckpt-every`` steps and after the last step; on a mesh the routed
 experts' shards are gathered first (the global tree: the bytes of a
-one-rank checkpoint of the same parameters) and rank 0 writes.  There is
+one-rank checkpoint of the same parameters: the FSDP shards are
+gathered too, ``parallel/fsdp.full_tree``) and rank 0 writes.  There is
 no resume, as in the reference.
 """
 from __future__ import annotations
@@ -73,6 +83,7 @@ import torch.distributed as dist
 
 from repro_torch.core.config import (ShapeSpec, TrainConfig, get_config,
                                      smoke_config)
+from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.kernels import build
@@ -137,7 +148,8 @@ def run(args) -> int:
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     par = make_parallel_config(mesh, shape, schedule=args.schedule,
                                remat=args.remat)
-    model = build_model(cfg, device=args.device, par=par, mesh=mesh)
+    model = build_model(cfg, device=args.device, par=par, mesh=mesh,
+                        fsdp=True)
     lead = mesh.world.rank == 0
     if lead:
         axes = dict(zip(mesh.axis_names, mesh.shape))
@@ -149,6 +161,7 @@ def run(args) -> int:
 
     params = trainable(model.init(SEED))
     opt = adamw.init(params)
+    _say_bytes(mesh, model, params, opt, lead)
     tc = TrainConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                      total_steps=args.steps)
     step = make_train_step(model, tc)
@@ -187,13 +200,37 @@ def run(args) -> int:
     return 0
 
 
+def _say_bytes(mesh, model, params, opt, lead):
+    """Print each rank's parameter and moment bytes (its shards under
+    FSDP), gathered to rank 0."""
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+    mine = torch.tensor([float(nbytes(params)),
+                         float(nbytes(opt.m) + nbytes(opt.v))])
+    got = mesh.world.all_gather(mine.to(model.device)[None], 0).cpu()
+    if lead:
+        fs = model.fsdp
+        how = "replicated" if fs is None else (
+            f"FSDP shards over {'/'.join(model.par.fsdp_axes)} "
+            f"({fs.group.size} ranks)")
+        print(f"parameters {how}; bytes a rank (parameters / moments): "
+              + ", ".join(f"{int(p)}/{int(m)}" for p, m in got.tolist()),
+              flush=True)
+        if fs is not None and model.par.remat == "none":
+            print("remat none: autograd keeps each layer's gathered "
+                  "weights until its backward (only the checkpointing "
+                  "policies drop them after use)", flush=True)
+
+
 def _save(path, model, params, step, lead):
     """The global parameter tree, written by rank 0 (every rank of the
-    expert group takes part in gathering the expert shards)."""
-    if not lead and model.expert_group is None:
+    expert group and of the FSDP group takes part in gathering the
+    shards)."""
+    if not lead and model.expert_group is None and model.fsdp is None:
         return
     tree = {"params": to_reference_params(params,
-                                          experts=model.expert_group)}
+                                          experts=model.expert_group,
+                                          fsdp=model.fsdp)}
     if lead:
         ckpt_io.save(path, tree, step=step)
 

@@ -17,7 +17,12 @@ also returns the load-balance auxiliary loss.
 Across S ranks of the sequence group (the ``model`` axis, whose ranks
 already hold distinct tokens) each rank holds ``E / S`` of the routed
 experts — rows ``[r·E/S, (r+1)·E/S)`` of ``wg`` / ``wu`` / ``wd`` — and
-every other leaf whole, as the reference's ``pspec``.  The capacity comes
+every other leaf whole, as the reference's ``pspec``.  Under FSDP
+(``parallel/fsdp.py``) the expert leaves shard two ways: their rows over
+the sequence axis, as here, and the dim the reference's ``param_spec``
+picks next (the largest the FSDP size divides) over ``pod`` × ``data``;
+the layer gathers that dim before it calls :func:`moe_apply`, which sees
+this rank's rows whole.  The capacity comes
 from this rank's rows; the ``(E, cap, d)`` buffer goes to the experts'
 owners by an ``all_to_all`` and comes back by a second one; the expert
 counts are summed and the mean probabilities averaged over the ranks

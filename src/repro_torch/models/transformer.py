@@ -102,6 +102,18 @@ runs materialised through the 2D plan.  Zigzag at u > 1 raises (fault
 3.6), and so does the latent ring there (fault 3.7).  :func:`trainable` turns a parameter tree into leaf
 tensors that require gradients.
 
+FSDP (``DecoderLM(..., fsdp=True)``; ``parallel/fsdp.py``): each rank
+holds its shard of every leaf the reference's ``param_spec`` shards over
+``pod`` × ``data``, and AdamW moments shaped like those shards.  Every
+place a training path reads weights gathers them on use — a layer inside
+its checkpoint policy (``core/remat.py``: the whole weights live only
+while the layer runs forward or its backward recomputes), the embedding
+and head, a hybrid's shared block, the MTP block, the encoder and the
+decoder layers of :class:`EncDecLM` — and the gradients reach the shards
+reduce-scattered over the FSDP axes.  :meth:`DecoderLM.init`, the
+importer and the exporter work on shards; serving takes whole weights
+(``parallel.fsdp.full_tree``).
+
 Long-context serving: :meth:`DecoderLM.prefill` runs the whole prompt on
 this rank's shard of the sequence and returns its dense cache shard;
 :meth:`DecoderLM.pad_cache` lays it out as the reference's padded global
@@ -152,7 +164,10 @@ from repro_torch.models.moe import (local_experts, moe_apply,
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_params
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.parallel.comm import shift as comm_shift
-from repro_torch.parallel.sharding import batch_group, seq_group
+from repro_torch.parallel.fsdp import FSDP
+from repro_torch.parallel.sharding import (LAYER_KEYS, ONCE_KEYS,
+                                           batch_group, comm_over,
+                                           fsdp_layout, seq_group)
 from repro_torch.serve.cache import (gather_pool, sharded_latent_attn,
                                      sharded_paged_attn)
 
@@ -292,19 +307,25 @@ def _randn(shape, gen, device):
     return torch.randn(shape, generator=gen, device=device)
 
 
+def token_axes(mesh, par: ParallelConfig) -> tuple:
+    """The mesh axes whose ranks hold distinct tokens, in mesh order: the
+    sequence axes (``seq_axis``, and a 2D mesh's ``head_axis``) and the
+    axes the batch shards over (``data``, a multi-pod mesh's ``pod``), and
+    every axis of one rank (replicas hold the same batch along the
+    rest)."""
+    seq = {par.seq_axis, par.head_axis}
+    return tuple(a for a in mesh.axis_names
+                 if a in seq or a in par.batch_axes or mesh.size(a) == 1)
+
+
 def token_group(mesh, par: ParallelConfig):
-    """The ranks holding distinct tokens: the whole world when the batch
-    shards over every axis off the sequence (``data``, and a multi-pod
-    mesh's ``pod``; or they have one rank), else the sequence axes —
-    ``seq_axis``, and a 2D mesh's ``head_axis`` — (data replicas then hold
-    the same batch)."""
+    """The ranks holding distinct tokens (:func:`token_axes`): the whole
+    world when the batch shards over every axis off the sequence (or they
+    have one rank), the sequence axes when it shards over none of them
+    (data replicas then hold the same batch)."""
     if mesh is None:
         return None
-    seq = {par.seq_axis, par.head_axis}
-    if all(a in par.batch_axes or mesh.size(a) == 1
-           for a in mesh.axis_names if a not in seq):
-        return mesh.world
-    return seq_group(mesh, par)
+    return mesh.comm(token_axes(mesh, par))
 
 
 def moe_token_group(mesh, par: ParallelConfig):
@@ -375,13 +396,18 @@ class DecoderLM:
     ``ref``); ``mesh`` is this rank's process-group mesh
     (``launch.mesh.make_local_mesh``), or None for one process;
     ``latent_ring`` makes an MLA model's whole-prompt prefill under the
-    zigzag schedule ship latent rows on the ring (module docstring)."""
+    zigzag schedule ship latent rows on the ring (module docstring);
+    ``fsdp`` shards the parameters over the mesh's FSDP axes (``pod``,
+    ``data``; ``parallel/fsdp.py``): :meth:`init` then returns this rank's
+    shards, :meth:`loss` takes them and gathers each weight on use, and
+    the serving entry points refuse them (serve from
+    ``parallel.fsdp.full_tree``'s whole tree)."""
 
     ARCHS = ("dense", "vlm", "moe", "ssm", "hybrid")
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  par: Optional[ParallelConfig] = None, impl=None,
-                 mesh=None, latent_ring: bool = False):
+                 mesh=None, latent_ring: bool = False, fsdp: bool = False):
         if cfg.arch_type not in self.ARCHS or \
                 (cfg.attn is None) != (cfg.arch_type == "ssm"):
             raise ValueError(f"{type(self).__name__} runs "
@@ -453,6 +479,24 @@ class DecoderLM:
             self.par.seq_axes)
         # a serving batch that shards over data: each replica its rows
         self.batch_group = batch_group(mesh, self.par)
+        # FSDP: the layout, and the groups its leaves' gradients and norms
+        # reduce over — a shard's gradient arrives summed over the FSDP
+        # axes by the reduce-scatter, so the train step sums it over the
+        # rest of the ranks holding distinct tokens (an expert shard's over
+        # the rest of expert_grad_group); its squares sum over the FSDP
+        # group (an expert shard's over the experts' axis too)
+        self.fsdp = None
+        self.shard_grad_group = self.shard_expert_grad_group = None
+        self.expert_fsdp_group = None
+        layout = fsdp_layout(self, mesh, self.par) if fsdp else None
+        if layout is not None:
+            fa = set(self.par.fsdp_axes)
+            self.fsdp = FSDP(layout, mesh, self.par)
+            self.shard_grad_group = comm_over(mesh, set(
+                token_axes(mesh, self.par)) - fa)
+            self.shard_expert_grad_group = comm_over(mesh, set(axes) - fa)
+            if self.expert_group is not None:
+                self.expert_fsdp_group = comm_over(mesh, fa | {ax})
 
     # ------------------------------------------------------------- init
     def init(self, seed: int = 0) -> dict:
@@ -465,11 +509,16 @@ class DecoderLM:
         float32 temporary is one leaf, never the model.  Across expert
         ranks (:attr:`expert_group`) each rank draws every leaf whole and
         keeps its rows of the routed experts: bit for bit the slice of the
-        one-rank init with the same seed."""
+        one-rank init with the same seed.  Under FSDP (``fsdp=True``) each
+        subtree — a layer, the embedding, the head, a block held once — is
+        drawn whole from the same generator and cut to this rank's shards
+        at once, so a rank never holds more than one whole layer and its
+        shards are bit for bit the slices of the replicated init."""
         cfg, a, dt = self.cfg, self.cfg.attn, self.dtype
         gen = _generator(self.device, seed)
         d = cfg.d_model
         hd = None if a is None else a.head_dim
+        keep = self._keep
 
         def normal(shape, scale, dtype=dt):
             x = _randn(shape, gen, self.device)
@@ -485,9 +534,10 @@ class DecoderLM:
         def zeros(n):
             return torch.zeros(n, dtype=dt, device=self.device)
 
-        p = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": ones(d)}
+        p = {"embed": keep(normal((cfg.vocab, d), 0.02), "embed"),
+             "ln_f": ones(d)}
         if not cfg.tie_embeddings:
-            p["head"] = dense(d, cfg.vocab)
+            p["head"] = keep(dense(d, cfg.vocab), "head")
 
         def mla():
             nh, qk = a.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim
@@ -526,16 +576,18 @@ class DecoderLM:
                     "wd": dense(d_ff, d), "ln": ones(d)}
 
         if cfg.ssm is not None:
-            p["layers"] = [{"ssm": ssm_params(cfg, normal, dt, self.device)}
-                           for _ in range(cfg.n_layers)]
+            p["layers"] = [keep({"ssm": ssm_params(cfg, normal, dt,
+                                                   self.device)},
+                                "layers", i) for i in range(cfg.n_layers)]
             if cfg.arch_type == "hybrid":
                 d2 = 2 * d
-                p["shared"] = {"attn": attn(d2), "mlp": mlp(cfg.d_ff, d2),
-                               "down": dense(d2, d)}
+                p["shared"] = keep({"attn": attn(d2), "mlp": mlp(cfg.d_ff,
+                                                                 d2),
+                                    "down": dense(d2, d)}, "shared")
             return p
         if cfg.moe is None:
-            p["layers"] = [{"attn": attn(), "mlp": mlp(cfg.d_ff)}
-                           for _ in range(cfg.n_layers)]
+            p["layers"] = [keep({"attn": attn(), "mlp": mlp(cfg.d_ff)},
+                                "layers", i) for i in range(cfg.n_layers)]
             return p
         m = cfg.moe
 
@@ -557,21 +609,58 @@ class DecoderLM:
                          sh_wd=dense(ds, d))
             return q
 
-        p["dense_layers"] = [{"attn": attn(), "mlp": mlp(m.d_dense_ff)}
-                             for _ in range(m.n_dense_layers)]
-        p["moe_layers"] = [{"attn": attn(), "moe": moe()}
-                           for _ in range(cfg.n_layers - m.n_dense_layers)]
+        p["dense_layers"] = [keep({"attn": attn(), "mlp": mlp(m.d_dense_ff)},
+                                  "dense_layers", i)
+                             for i in range(m.n_dense_layers)]
+        p["moe_layers"] = [keep({"attn": attn(), "moe": moe()},
+                                "moe_layers", i)
+                           for i in range(cfg.n_layers - m.n_dense_layers)]
         if cfg.mtp_depth:
-            p["mtp"] = {"proj": dense(2 * d, d), "ln_h": ones(d),
-                        "ln_e": ones(d),
-                        "layer": {"attn": attn(), "moe": moe()},
-                        "ln_f": ones(d)}
+            p["mtp"] = keep({"proj": dense(2 * d, d), "ln_h": ones(d),
+                             "ln_e": ones(d),
+                             "layer": {"attn": attn(), "moe": moe()},
+                             "ln_f": ones(d)}, "mtp")
         return p
+
+    # ------------------------------------------------------------- FSDP
+    def _lay(self, *path):
+        """The FSDP layout of the subtree at ``path`` (None without
+        FSDP)."""
+        return None if self.fsdp is None else self.fsdp.at(*path)
+
+    def _keep(self, tree, *path):
+        """This rank's shards of the whole subtree ``tree`` at ``path``
+        (``tree`` itself without FSDP)."""
+        return tree if self.fsdp is None else self.fsdp.shard(tree, *path)
+
+    def _gathers(self, p, key):
+        """Per layer of ``p[key]``: its FSDP Gather (None without FSDP),
+        for the layer's checkpoint policy to gather inside."""
+        if self.fsdp is None:
+            return [None] * len(p[key])
+        return [self.fsdp.gather(lay) for lay in self.fsdp.layout[key]]
+
+    def _whole(self, p, *path):
+        """The subtree ``p[path]`` whole: under FSDP gathered on use,
+        inside autograd (its gradient reduce-scattered to the shards)."""
+        x = p
+        for k in path:
+            x = x[k]
+        if self.fsdp is None:
+            return x
+        return self.fsdp.gather(self._lay(*path)).tree(x)
+
+    def _serving(self):
+        if self.fsdp is not None:
+            raise ValueError("this model holds FSDP shards, which train; "
+                             "serve parallel.fsdp.full_tree's whole tree "
+                             "on a model built without fsdp")
 
     # ------------------------------------------------------------- head
     def _head(self, p, h):
         h = L.rms_norm(h, p["ln_f"], self.cfg.norm_eps)
-        w = p["embed"].T if self.cfg.tie_embeddings else p["head"]
+        w = self._whole(p, "embed").T if self.cfg.tie_embeddings \
+            else self._whole(p, "head")
         return h @ w.to(h.dtype)
 
     # ------------------------------------------------------------ train
@@ -579,7 +668,8 @@ class DecoderLM:
         """This rank's rows of the embedded sequence: a VLM's image rows
         (``batch["image_embeds"]``, the prefix of its columns) then its
         token rows."""
-        h = L.embed(p["embed"], batch["tokens"].to(self.device), self.dtype)
+        h = L.embed(self._whole(p, "embed"), batch["tokens"].to(self.device),
+                    self.dtype)
         if self.cfg.arch_type != "vlm":
             return h
         img = batch["image_embeds"].to(device=self.device, dtype=self.dtype)
@@ -622,15 +712,17 @@ class DecoderLM:
         document = seg is not None
         if self.cfg.moe is None:
             layer = self._train_layer(False, document)
-            for lp in p["layers"]:
-                h = layer(lp, (h, cos, sin, seg))
+            gs = self._gathers(p, "layers")
+            for lp, g in zip(p["layers"], gs):
+                h = layer(lp, (h, cos, sin, seg), g)
             return h, None
         total = None
         for key, use_moe in (("dense_layers", False), ("moe_layers", True)):
             layer = self._train_layer(use_moe, document)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
-            for lp in p[key]:
-                h, a = layer(lp, (h, cos, sin, seg))
+            gs = self._gathers(p, key)
+            for lp, g in zip(p[key], gs):
+                h, a = layer(lp, (h, cos, sin, seg), g)
                 aux = aux + a
             total = aux if total is None else total + aux
         return h, total
@@ -668,13 +760,17 @@ class DecoderLM:
                                        self.impl, P=self.seq_size,
                                        group=self.attn_group)
         emb0 = h
-        for i, lp in enumerate(p["layers"]):
-            h = layer(lp, h)
+        gs = self._gathers(p, "layers")
+        if shared is not None:
+            sp = {k: p["shared"][k] for k in ("attn", "mlp")}
+            sg = None if self.fsdp is None else self.fsdp.gather(
+                {k: self._lay("shared", k) for k in ("attn", "mlp")})
+        for i, (lp, g) in enumerate(zip(p["layers"], gs)):
+            h = layer(lp, h, g)
             if shared is not None and (i + 1) % cfg.hybrid_period == 0:
-                sp = p["shared"]
                 y2 = shared(sp, (torch.cat([h, emb0], dim=-1), cos, sin,
-                                 None))
-                h = h + (y2 @ sp["down"]).to(h.dtype)
+                                 None), sg)
+                h = h + (y2 @ self._whole(p, "shared", "down")).to(h.dtype)
         return h
 
     def _ssm_layer(self, lp, h):
@@ -757,15 +853,18 @@ class DecoderLM:
         t + 1 rows cross the shard edge (:meth:`_next_rows`); the last
         rank's wrapped row stays in the graph, its label −100."""
         cfg, mp, eps = self.cfg, p["mtp"], self.cfg.norm_eps
-        emb = L.embed(p["embed"], batch["tokens"].to(self.device),
-                      self.dtype)
+        emb = L.embed(self._whole(p, "embed"),
+                      batch["tokens"].to(self.device), self.dtype)
         hcat = torch.cat([L.rms_norm(h, mp["ln_h"], eps),
                           L.rms_norm(self._next_rows(emb), mp["ln_e"], eps)],
                          dim=-1)
-        h2 = (hcat @ mp["proj"]).to(self.dtype)
-        h2, _aux = self._train_layer(True)(mp["layer"], (h2, cos, sin, None))
+        h2 = (hcat @ self._whole(p, "mtp", "proj")).to(self.dtype)
+        g = None if self.fsdp is None else self.fsdp.gather(
+            self._lay("mtp", "layer"))
+        h2, _aux = self._train_layer(True)(mp["layer"], (h2, cos, sin, None),
+                                           g)
         h2 = L.rms_norm(h2, mp["ln_f"], eps)
-        logits = h2 @ p["embed"].T.to(h2.dtype)
+        logits = h2 @ self._whole(p, "embed").T.to(h2.dtype)
         labels = self._next_rows(batch["labels"].to(self.device), True)
         return self._ce(logits, labels)
 
@@ -895,6 +994,7 @@ class DecoderLM:
         to.  MLA runs materialised; an MoE layer dispatches the whole
         context's rows at once, so its capacity drops differ from a chunked
         prefill's."""
+        self._serving()
         a = self.cfg.attn
         tokens = torch.as_tensor(tokens, device=self.device)
         h = L.embed(p["embed"], tokens, self.dtype)
@@ -940,6 +1040,7 @@ class DecoderLM:
         for the reference.  Across sequence ranks the chunk's MoE splits
         its rows over them (:meth:`_split_moe`), so ``C`` must divide by
         their number."""
+        self._serving()
         a = self.cfg.attn
         start, end = int(start), int(start) + int(n_valid)
         bt, shard = cache["block_table"], cache.get("shard")
@@ -1018,6 +1119,7 @@ class DecoderLM:
         contiguous shard (the reference reuses ``_backbone``: the SSM's
         decode state is O(1), not a cache) and returns no cache, ``{}``;
         its decode starts from ``data.pipeline.empty_decode_cache``."""
+        self._serving()
         if self.cfg.ssm is not None:
             h, cos, sin, pos, T = self._trunk_input(p, tokens)
             h = self._ssm_trunk(p, h, cos, sin)
@@ -1206,6 +1308,7 @@ class DecoderLM:
         An SSM or hybrid model's cache is
         ``data.pipeline.empty_decode_cache``'s (``state``, ``conv``; a
         hybrid's ``shared_k`` / ``shared_v`` too): :meth:`_decode_ssm`."""
+        self._serving()
         if self.cfg.ssm is not None:
             return self._decode_ssm(p, cache, token, pos)
         a = self.cfg.attn
@@ -1297,6 +1400,7 @@ class DecoderLM:
         wider one) read the last embedding row, as the reference's gather
         clamps.  With T = 1 and ``n_write = 1`` this is :meth:`decode`.
         Returns logits (B, T, V); the pools are updated in place."""
+        self._serving()
         tokens = tokens.clamp(0, self.cfg.vocab - 1)
         rows = (pos.long()[:, None]
                 + torch.arange(tokens.shape[1], device=pos.device))
@@ -1410,13 +1514,16 @@ class EncDecLM(DecoderLM):
             return {"wg": dense(d, cfg.d_ff), "wu": dense(d, cfg.d_ff),
                     "wd": dense(cfg.d_ff, d), "ln": ones()}
 
+        keep = self._keep
         emb = _randn((cfg.vocab, d), gen, self.device)
-        return {"embed": (emb * 0.02).to(dt),
-                "enc_layers": [{"attn": attn(a.n_kv_heads), "mlp": mlp()}
-                               for _ in range(cfg.n_enc_layers)],
-                "dec_layers": [{"attn": attn(a.n_kv_heads),
-                                "cross": attn(H), "mlp": mlp()}
-                               for _ in range(cfg.n_layers)],
+        return {"embed": keep((emb * 0.02).to(dt), "embed"),
+                "enc_layers": [keep({"attn": attn(a.n_kv_heads),
+                                     "mlp": mlp()}, "enc_layers", i)
+                               for i in range(cfg.n_enc_layers)],
+                "dec_layers": [keep({"attn": attn(a.n_kv_heads),
+                                     "cross": attn(H), "mlp": mlp()},
+                                    "dec_layers", i)
+                               for i in range(cfg.n_layers)],
                 "ln_enc": ones(), "ln_f": ones()}
 
     # ---------------------------------------------------------- encoder
@@ -1440,15 +1547,18 @@ class EncDecLM(DecoderLM):
                                               device=self.device),
                                  a.head_dim, a.rope_theta)
 
-        def layer(lp, h):
+        def layer(lp, h, g=None):
+            if g is not None:                   # FSDP: gathered on use
+                lp = g.tree(lp)
             q, k, v = L.attn_qkv(lp["attn"], h, cfg, cos, sin)
             h2 = L.attn_out(lp["attn"], h, self._full_attn(q, k, v, impl),
                             cfg)
             return L.mlp_apply(lp["mlp"], h2, cfg.norm_eps)
 
-        for lp in p["enc_layers"]:
-            h = (checkpoint(layer, lp, h, use_reentrant=False)
-                 if torch.is_grad_enabled() else layer(lp, h))
+        gs = self._gathers(p, "enc_layers")
+        for lp, g in zip(p["enc_layers"], gs):
+            h = (checkpoint(layer, lp, h, g, use_reentrant=False)
+                 if torch.is_grad_enabled() else layer(lp, h, g))
         return L.rms_norm(h, p["ln_enc"], cfg.norm_eps)
 
     # ----------------------------------------------------- decoder layer
@@ -1470,9 +1580,10 @@ class EncDecLM(DecoderLM):
         return L.mlp_apply(lp["mlp"], h2, self.cfg.norm_eps)
 
     def _dec_layer(self):
-        """``layer(params, (h, enc, cos, sin)) -> h'`` under
+        """``layer(params, (h, enc, cos, sin), gather=None) -> h'`` under
         ``par.remat``: the self-attention over the sequence ranks, then
-        the cross-attention with the MLP."""
+        the cross-attention with the MLP; ``gather`` a layer's FSDP
+        :class:`~repro_torch.parallel.fsdp.Gather` (``core/remat.py``)."""
         cfg, group, impl = self.cfg, self.attn_group, self.impl
         spec = _attn_spec(cfg, self.par, self.seq_size, impl, False,
                           group=group)
@@ -1504,10 +1615,23 @@ class EncDecLM(DecoderLM):
             return self._cross_out(lp, x[0], o)
 
         if self.par.remat == "remat_aware":
+            # the two sub-layers gather their own leaves: the self
+            # attention's, then the cross-attention's with the MLP's
             sub_a = remat_aware(pre_self, self_fwd, self_bwd, post_self)
             sub_b = remat_aware(pre_cross, cross_fwd, cross_bwd, post_cross)
-            return lambda lp, x: sub_b(lp, (sub_a(lp, (x[0], x[2], x[3])),
-                                            x[1]))
+
+            def split(tree):
+                return ({"attn": tree["attn"]},
+                        {k: tree[k] for k in ("cross", "mlp")})
+
+            def layer(lp, x, gather=None):
+                (pa, pb), ga, gb = split(lp), None, None
+                if gather is not None:
+                    la, lb = split(gather.lay)
+                    ga, gb = gather.sub(la), gather.sub(lb)
+                return sub_b(pb, (sub_a(pa, (x[0], x[2], x[3]), ga), x[1]),
+                             gb)
+            return layer
 
         def plain(lp, x):
             h, enc, cos, sin = x
@@ -1528,12 +1652,14 @@ class EncDecLM(DecoderLM):
         included."""
         cfg, a = self.cfg, self.cfg.attn
         enc = self.encode(p, batch["frames"])
-        h = L.embed(p["embed"], batch["tokens"].to(self.device), self.dtype)
+        h = L.embed(self._whole(p, "embed"), batch["tokens"].to(self.device),
+                    self.dtype)
         cos, sin = L.rope_tables(self.positions(h.shape[1]), a.head_dim,
                                  a.rope_theta)
         layer = self._dec_layer()
-        for lp in p["dec_layers"]:
-            h = layer(lp, (h, enc, cos, sin))
+        gs = self._gathers(p, "dec_layers")
+        for lp, g in zip(p["dec_layers"], gs):
+            h = layer(lp, (h, enc, cos, sin), g)
         ce = self._ce(self._head(p, h), batch["labels"].to(self.device))
         return ce, {"ce": ce, "aux": torch.zeros(
             (), dtype=torch.float32, device=h.device)}
@@ -1544,6 +1670,7 @@ class EncDecLM(DecoderLM):
         """Whole-context forward, no cache, through the plain attention
         function (backend ``ref``) on any device: logits (B, T, V), or
         (B, 1, V) for the last position."""
+        self._serving()
         a = self.cfg.attn
         tokens = torch.as_tensor(tokens, device=self.device)
         enc = self.encode(p, frames, impl="ref")
@@ -1571,6 +1698,7 @@ class EncDecLM(DecoderLM):
         (B, 1, V) on every rank and the cache ``{"k", "v"}`` (L, B, Tl,
         H, hd), this rank's shard, with ``{"ek", "ev"}`` (L, B, F, H,
         hd), the encoder's cross keys and values, whole."""
+        self._serving()
         a, P = self.cfg.attn, self.seq_size
         enc = self.encode(p, self._rows(torch.as_tensor(
             frames, device=self.device)))
@@ -1614,6 +1742,7 @@ class EncDecLM(DecoderLM):
         cross-attention at Tq = 1 against the layer's ``ek`` / ``ev``
         (kernel A, full mask).  Returns logits (B, 1, V); the cache is
         updated in place."""
+        self._serving()
         a = self.cfg.attn
         token, pos = self._rows(token), self._rows(pos)
         h = L.embed(p["embed"], token, self.dtype)
@@ -1740,13 +1869,12 @@ def _cache_write(cache, new, pos, group=None):
 # --------------------------------------------------------------------------
 
 # the stacked layer groups of the reference's tree, in order
-_LAYER_KEYS = ("layers", "dense_layers", "moe_layers", "enc_layers",
-               "dec_layers")
+_LAYER_KEYS = LAYER_KEYS
 # leaves the reference keeps in float32 whatever the model's dtype
 _FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
 # subtrees held once, not stacked by layer: a hybrid's shared block, and
 # the MTP block (``proj``, its norms and one MLA + MoE ``layer``)
-_ONCE_KEYS = ("shared", "mtp")
+_ONCE_KEYS = ONCE_KEYS
 
 
 def _map_named(fn, tree, group="", name=""):
@@ -1760,7 +1888,7 @@ def _map_named(fn, tree, group="", name=""):
 
 def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
                           dtype: Optional[torch.dtype] = None, *,
-                          experts=None) -> dict:
+                          experts=None, fsdp=None) -> dict:
     """Carry the reference ``DecoderLM.init`` pytree into the port's layout.
 
     ``tree`` is nested dicts of numpy arrays with the layers stacked on a
@@ -1775,8 +1903,13 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     block (``mtp``, its routed experts sharded like the MoE layers') are
     one set of leaves each, not stacked, and not counted as layers.  An
     encoder–decoder's tree has ``enc_layers`` and
-    ``dec_layers`` (each with its ``cross`` block) and ``ln_enc``."""
+    ``dec_layers`` (each with its ``cross`` block) and ``ln_enc``.
+    ``fsdp`` (a model's ``parallel.fsdp.FSDP``): each rank keeps its
+    shards, cut as each layer or top-level subtree is carried over."""
     dt = dtype if dtype is not None else DTYPES[cfg.dtype]
+
+    def keep(sub, *path):
+        return sub if fsdp is None else fsdp.shard(sub, *path)
 
     def t(x, name="", grp=""):
         x = np.asarray(x)
@@ -1786,20 +1919,20 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
             device=device,
             dtype=torch.float32 if name in _FLOAT32_LEAVES else dt)
 
-    p = {k: t(tree[k]) for k in ("embed", "ln_f", "head", "ln_enc")
+    p = {k: keep(t(tree[k]), k) for k in ("embed", "ln_f", "head", "ln_enc")
          if k in tree}
     for key in _ONCE_KEYS:
         if key in tree:
-            p[key] = _map_named(t, tree[key], name=key)
+            p[key] = keep(_map_named(t, tree[key], name=key), key)
     n_all = 0
     for key in _LAYER_KEYS:
         if key not in tree:
             continue
         stacked = tree[key]
         n = len(next(iter(next(iter(stacked.values())).values())))
-        p[key] = [{grp: {name: t(arr[i], name, grp)
-                         for name, arr in stacked[grp].items()}
-                   for grp in stacked} for i in range(n)]
+        p[key] = [keep({grp: {name: t(arr[i], name, grp)
+                              for name, arr in stacked[grp].items()}
+                         for grp in stacked}, key, i) for i in range(n)]
         n_all += n
     if n_all != cfg.n_layers + cfg.n_enc_layers:
         raise ValueError(f"tree has {n_all} layers, config "
@@ -1807,12 +1940,17 @@ def load_reference_params(cfg: ModelConfig, tree: dict, device="cuda",
     return p
 
 
-def to_reference_params(params: dict, *, experts=None) -> dict:
+def to_reference_params(params: dict, *, experts=None, fsdp=None) -> dict:
     """The inverse of :func:`load_reference_params`: the port's parameters
     in the reference's pytree layout, every layer leaf stacked on a leading
     ``L`` axis (same dtype and device).  ``experts``: the Comm the routed
     experts shard over, whose shards are gathered (every rank of it must
-    call), so each rank returns the global tree."""
+    call), so each rank returns the global tree.  ``fsdp`` (a model's
+    ``parallel.fsdp.FSDP``): ``params`` are FSDP shards, gathered first
+    (every rank of the FSDP group must call)."""
+    if fsdp is not None:
+        params = fsdp.full(params)
+
     def leaf(x, name, grp):
         x = x.detach()
         if is_expert_leaf(grp, name) and experts is not None:
@@ -1833,15 +1971,15 @@ def to_reference_params(params: dict, *, experts=None) -> dict:
 
 
 def load_reference_opt_state(cfg: ModelConfig, state, device="cuda", *,
-                             experts=None) -> AdamWState:
+                             experts=None, fsdp=None) -> AdamWState:
     """Carry the reference ``AdamWState`` (``step``, and ``m``/``v`` trees
     of numpy arrays in the reference's parameter layout) into the port's
     :class:`~repro_torch.optim.adamw.AdamWState` with float32 moments
-    (``experts`` as :func:`load_reference_params`'s)."""
+    (``experts`` and ``fsdp`` as :func:`load_reference_params`'s)."""
     step, m, v = state
     return AdamWState(
         step=int(np.asarray(step)),
         m=load_reference_params(cfg, m, device, torch.float32,
-                                experts=experts),
+                                experts=experts, fsdp=fsdp),
         v=load_reference_params(cfg, v, device, torch.float32,
-                                experts=experts))
+                                experts=experts, fsdp=fsdp))

@@ -1,7 +1,8 @@
 """AdamW with a warmup-cosine schedule and global-norm clipping (port of the
 reference ``optim/adamw.py``).
 
-The moments are float32 trees shaped like the parameters; the update is
+The moments are float32 trees shaped like the parameters (under FSDP
+like this rank's shards: ``init`` runs on them); the update is
 computed in float32 and cast back to each parameter's dtype.  Unlike the
 reference's pure functions, :func:`update` writes the parameters and the
 state **in place** (the reference donates them to jit instead), so a
@@ -43,22 +44,30 @@ def schedule(step: int, tc: TrainConfig) -> float:
     return 0.5 * tc.lr * (1 + math.cos(math.pi * min(max(prog, 0.0), 1.0)))
 
 
-def global_norm(grads, sharded=None, group=None) -> torch.Tensor:
-    """sqrt(Σ g²) over every leaf, in float32 (0-d tensor).  ``sharded``
-    (a bool per leaf, ``core.tree.flatten``'s order) marks the leaves whose
-    rows shard over ``group`` (an MoE model's routed experts over the
-    sequence axis; on a 2D mesh over ``seq``, whose ranks hold distinct
-    experts, not the (seq, head) pair, whose head ranks hold the same
-    ones): their squares are summed over the group, so each row counts
-    once and every rank gets the same norm."""
+def global_norm(grads, groups=None) -> torch.Tensor:
+    """sqrt(Σ g²) over every leaf, in float32 (0-d tensor).  ``groups`` (a
+    Comm or None per leaf, ``core.tree.flatten``'s order; None: every
+    leaf whole on this rank) names the group over which each leaf is
+    sharded: its squares are summed over that group, so each element
+    counts once and every rank gets the same norm (an FSDP shard over the
+    FSDP group, an MoE model's routed experts over the sequence axis — on
+    a 2D mesh over ``seq``, whose ranks hold distinct experts, not the
+    (seq, head) pair, whose head ranks hold the same ones — and over both
+    when both shard them; ``train/step.norm_groups``)."""
     gs = leaves(grads)
-    if sharded is None or group is None or group.size == 1:
-        return torch.sqrt(sum(g.float().square().sum() for g in gs))
+    groups = groups or [None] * len(gs)
     sq = [g.float().square().sum() for g in gs]
-    part = torch.stack([x for x, s in zip(sq, sharded) if s]).sum()[None]
-    group.all_reduce_([part])
-    rest = [x for x, s in zip(sq, sharded) if not s]
-    return torch.sqrt(sum(rest) + part[0])
+    total = sum(x for x, c in zip(sq, groups) if c is None or c.size == 1)
+    done = []
+    for c in groups:                   # one all-reduce a group, in the
+        if c is None or c.size == 1 or any(c is d for d in done):  # order
+            continue                   # of its first leaf
+        done.append(c)
+        part = torch.stack([x for x, d in zip(sq, groups) if d is c]).sum()
+        part = part[None]
+        c.all_reduce_([part])
+        total = total + part[0]
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 def _clip_scale(gn, max_norm):
@@ -74,13 +83,14 @@ def clip_by_global_norm(grads, max_norm):
 
 @torch.no_grad()
 def update(grads, state: AdamWState, params, tc: TrainConfig, *,
-           sharded=None, group=None) -> dict:
-    """One AdamW step, in place on ``params`` and ``state``.  Returns the
+           groups=None) -> dict:
+    """One AdamW step, in place on ``params`` and ``state`` (under FSDP
+    both are this rank's shards).  Returns the
     metrics ``{"lr", "gnorm"}`` (gnorm before clipping, a 0-d tensor; over
     the sharded leaves as :func:`global_norm`).  The clipped gradient is
     formed one leaf at a time, as :func:`clip_by_global_norm` would give
     it."""
-    gn = global_norm(grads, sharded, group)
+    gn = global_norm(grads, groups)
     scale = _clip_scale(gn, tc.max_grad_norm)
     lr = schedule(state.step, tc)
     state.step += 1

@@ -3,14 +3,18 @@ reference's ``lax.ppermute`` (:meth:`Comm.shift`), ``lax.all_to_all``
 (:meth:`Comm.all_to_all`), ``lax.all_gather`` (:meth:`Comm.all_gather`) and
 ``lax.psum`` / ``lax.pmax`` (:meth:`Comm.all_reduce_`) over one mesh axis or
 several (a group whose ranks are ordered by the axes' linearized index),
-and a broadcast from one rank (:meth:`Comm.broadcast_`).  Inside an
+a broadcast from one rank (:meth:`Comm.broadcast_`) and a reduce-scatter
+(:meth:`Comm.reduce_scatter`, ``lax.psum_scatter``: summed in rank order,
+in float32 for 16-bit tensors, then each rank keeps its block).  Inside an
 autograd graph, :func:`all_to_all` (backward: the inverse ``all_to_all``),
 :func:`all_reduce` (``lax.psum`` / ``lax.pmean``; backward: the
 cotangent passed through, each rank keeping its own share, which the
 train step's gradient sum adds up), :func:`gather_rows` (an all-gather
-whose backward keeps this rank's piece) and :func:`shift` (``lax.ppermute``
-by a fixed hop; backward: the opposite shift) are their differentiable
-forms.
+whose backward keeps this rank's piece), :func:`shift` (``lax.ppermute``
+by a fixed hop; backward: the opposite shift) and :func:`gather_param`
+(FSDP's gather of a parameter's shards; backward: the cotangent
+reduce-scattered back to the shards) are their differentiable forms;
+:func:`gather_param_ref` is the gather's plain version.
 
 Each rank is one ``torch.distributed`` process.  How tensors travel — the
 transport — is decided once, from the world's backend and the device, when
@@ -325,7 +329,8 @@ class Comm:
     for collectives and for shifts (None: the world).  ``shift_wait_s``,
     ``reduce_s`` and ``gather_s`` add up the host seconds spent blocked
     waiting for shifts, in :meth:`all_reduce_` / :meth:`broadcast_`, in
-    :meth:`all_gather` and in :meth:`all_to_all` (``a2a_s``)."""
+    :meth:`all_gather`, in :meth:`all_to_all` (``a2a_s``) and in
+    :meth:`reduce_scatter` (``scatter_s``)."""
 
     def __init__(self, ranks, transport: str, device, group=None,
                  p2p_group=None):
@@ -342,7 +347,7 @@ class Comm:
         self.group, self.p2p_group = group, p2p_group
         self._tag = 0
         self.shift_wait_s = self.reduce_s = self.gather_s = 0.0
-        self.a2a_s = 0.0
+        self.a2a_s = self.scatter_s = 0.0
         self._pool = self._side = None
         if transport in ("gloo-staged", "cuda-ipc"):
             self._pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -538,6 +543,42 @@ class Comm:
         self.gather_s += time.perf_counter() - t0
         return out
 
+    def reduce_scatter(self, x, dim: int):
+        """The sum of every rank's ``x`` over the group, cut into ``size``
+        equal blocks along ``dim``: rank r returns block r
+        (``lax.psum_scatter(..., tiled=True)``).  The sum runs over the
+        ranks in rank order, accumulated in float32 (float64 for float64,
+        int64 for integers) and cast back, so every transport gives the
+        same bits; ``nccl`` uses ``reduce_scatter_tensor`` (its own
+        order)."""
+        if self.size == 1:
+            return x
+        S = self.size
+        if x.shape[dim] % S:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)}"
+                             f" does not split over {S} ranks")
+        t0 = time.perf_counter()
+        if self.transport == "nccl":
+            parts = torch.stack(x.chunk(S, dim=dim)).contiguous()
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter_tensor(out, parts, group=self.group)
+            self.scatter_s += time.perf_counter() - t0
+            return out
+        # every rank's block r reaches rank r (an all_to_all), then the
+        # blocks are summed in rank order
+        parts = self._host(torch.stack(x.chunk(S, dim=dim)).contiguous())
+        outs = torch.empty_like(parts)
+        if self._box is None:
+            dist.all_to_all_single(outs, parts, group=self.group)
+        else:
+            self._ipc_all_to_all(parts, outs)
+        acc = outs[0].to(_acc_dtype(outs.dtype), copy=True)
+        for o in outs[1:]:
+            acc += o
+        out = self._back(acc.to(x.dtype))
+        self.scatter_s += time.perf_counter() - t0
+        return out
+
     def all_reduce_(self, tensors, op: str = "sum"):
         """Reduce each tensor over the group in place: ``op`` ``"sum"``
         (``lax.psum``) or ``"max"`` (``lax.pmax``)."""
@@ -657,12 +698,14 @@ class CommCounts:
     ``bytes`` — per-rank link bytes (the ring-algorithm estimates of the
     reference's ``analysis/roofline.collective_stats``: a shift R, an
     all-gather R·(n − 1)/n of the gathered result R, an all-reduce
-    2·R·(n − 1)/n, an all-to-all R·(n − 1)/n, a broadcast R), ``ops`` —
+    2·R·(n − 1)/n, an all-to-all R·(n − 1)/n, a broadcast R, a
+    reduce-scatter R·(n − 1)/n of its input R), ``ops`` —
     calls, ``hop_bytes`` — the same bytes with a shift of h hops weighed
     |h| (the distance its caller names; every other kind weighs 1).  The
     Comms of one mesh share one instance; :meth:`reset` zeroes it."""
 
-    KINDS = ("shift", "all_to_all", "all_gather", "all_reduce", "broadcast")
+    KINDS = ("shift", "all_to_all", "all_gather", "all_reduce", "broadcast",
+             "reduce_scatter")
 
     def __init__(self):
         self.reset()
@@ -701,8 +744,8 @@ class MetaComm:
     leave their tensors as they are) and records what it would have moved
     in ``counts`` (:class:`CommCounts`).  The autograd forms below
     (:func:`all_to_all`, :func:`all_reduce`, :func:`gather_rows`,
-    :func:`shift`) call these methods, so a backward's collectives are
-    counted too."""
+    :func:`shift`, :func:`gather_param`) call these methods, so a
+    backward's collectives are counted too."""
 
     def __init__(self, ranks, me: int, counts: CommCounts, device="meta"):
         self.ranks = list(ranks)
@@ -713,7 +756,7 @@ class MetaComm:
         self.group = self.p2p_group = None
         self.counts = counts
         self.shift_wait_s = self.reduce_s = self.gather_s = 0.0
-        self.a2a_s = 0.0
+        self.a2a_s = self.scatter_s = 0.0
 
     @staticmethod
     def _like(t, shape=None):
@@ -760,6 +803,15 @@ class MetaComm:
         for t in tensors:
             self.counts.add("broadcast", _nbytes(t))
         return tensors
+
+    def reduce_scatter(self, x, dim: int):
+        if self.size == 1:
+            return x
+        n = self.size
+        self.counts.add("reduce_scatter", _nbytes(x) * (n - 1) / n)
+        shape = list(x.shape)
+        shape[dim] //= n
+        return self._like(x, shape)
 
 
 # ------------------------------------------------- differentiable forms
@@ -860,3 +912,38 @@ def shift(comm, x, hops: int):
     if comm is None or comm.size == 1:
         return x
     return _Shift.apply(x, comm, int(hops))
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, scale):
+        ctx.comm, ctx.dim, ctx.scale = comm, dim, scale
+        return comm.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gs = ctx.comm.reduce_scatter(g.contiguous(), ctx.dim)
+        return (gs * ctx.scale if ctx.scale != 1.0 else gs), None, None, None
+
+
+def gather_param(comm, shard, dim: int, scale: float = 1.0):
+    """FSDP's gather on use: every rank's ``shard`` of a parameter
+    concatenated along ``dim`` in rank order (:meth:`Comm.all_gather`),
+    inside an autograd graph.  Its backward reduce-scatters the
+    cotangent over ``comm`` (:meth:`Comm.reduce_scatter`), so each rank's
+    shard receives the sum over the ranks of that block of their
+    gradients, times ``scale`` (``1 / r`` when the group's ranks come in
+    ``r`` replicas holding the same tokens, whose sum would count each
+    token ``r`` times).  ``comm`` None or of one rank: ``shard``
+    itself."""
+    if comm is None or comm.size == 1:
+        return shard
+    return _GatherParam.apply(shard, comm, int(dim), float(scale))
+
+
+def gather_param_ref(shards, dim: int):
+    """:func:`gather_param`'s plain version: the shards (group rank order)
+    concatenated along ``dim``.  Its gradient with respect to shard r is
+    block r of the cotangent; :func:`gather_param`'s is the sum of the
+    ranks' blocks r."""
+    return torch.cat(list(shards), dim=dim)

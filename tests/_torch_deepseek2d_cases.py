@@ -69,7 +69,7 @@ def world(rank, params_path):
     from repro_torch.optim import adamw
     from repro_torch.parallel.sharding import make_parallel_config
     from repro_torch.serve.engine import FixedSlotEngine
-    from repro_torch.train.step import sum_grads
+    from repro_torch.train.step import norm_groups, sum_grads
 
     meshes = {m: make_seq2d_mesh(*m[1:], data=m[0], device="cpu")
               for m in sorted({c[0] for c in TRAIN} | {SERVE_MESH})}
@@ -94,7 +94,7 @@ def world(rank, params_path):
                    aux=float(met["aux"].detach()),
                    grads=_global_grads(model, grads, sharded),
                    gnorm=float(adamw.global_norm(
-                       grads, sharded, model.expert_group)),
+                       grads, norm_groups(model, params))),
                    groups=(model.expert_group and model.expert_group.size,
                            model.moe_rows.size,
                            model.expert_grad_group

@@ -121,15 +121,15 @@ def world(rank, params_dir, streams):
                                     par=par).batch(0)
             loss, _ = model.loss(params, batch)
             raw = torch.autograd.grad(loss, leaves(params))
-            grads, sharded = sum_grads(model, params,
-                                       [g.clone() for g in raw])
+            grads, _ = sum_grads(model, params,
+                                 [g.clone() for g in raw])
             ssm = is_ssm_leaf(params)
             twice = [g.clone() for g in grads]
             mesh.comms["head"].all_reduce_(
                 [g for g, s in zip(twice, ssm) if s])
             out[f"{arch}/{train_name(case)}"] = dict(
                 loss=float(loss.detach()), grads=[_np(g) for g in grads],
-                gnorm=float(adamw.global_norm(grads, sharded, None)),
+                gnorm=float(adamw.global_norm(grads)),
                 twice=[_np(g) for g in twice], cols=batch["tokens"].shape[1],
                 group=model.seq_group.size, n_ssm=sum(ssm))
         stream = torch.from_numpy(streams[arch])

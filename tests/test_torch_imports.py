@@ -76,7 +76,8 @@ def test_port_covers_the_slice_layout():
                 "core/remat.py", "core/dist_attention.py", "core/tree.py",
                 "optim/adamw.py", "train/step.py", "data/pipeline.py",
                 "launch/train.py", "core/schedule.py", "parallel/comm.py",
-                "parallel/sharding.py", "launch/mesh.py", "launch/world.py",
+                "parallel/sharding.py", "parallel/fsdp.py",
+                "launch/mesh.py", "launch/world.py",
                 "serve/prng.py", "configs/llama_16h.py",
                 "configs/llama_33h.py", "io/checkpoint.py",
                 "serve/speculative.py", "configs/smollm_360m.py",
